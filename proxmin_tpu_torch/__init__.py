@@ -1,0 +1,30 @@
+"""proxmin_tpu_torch: the PyTorch and CUDA port of proxmin_tpu.
+
+The JAX package ``proxmin_tpu`` is the reference; this package mirrors its
+module names (``operators``, ``utils``, ``solvers``, ``nmf``, ``ops``) so
+each counterpart sits at the same relative path. It imports ``torch`` and
+never ``jax``. Plain code is tensor ops on the device the inputs live on;
+the hot NMF step is a hand-written CUDA kernel (``ops``, ``csrc/``) built
+at first use.
+
+Ported so far: the elementwise prox operators, the PGM driver and
+unweighted PGM-NMF on the ``"torch"`` and ``"cuda"`` engines (ROADMAP.md
+lists what follows).
+
+Importing the package sets the float32 matmul policy
+(:func:`precision.apply_f32_policy`): no TF32 anywhere.
+"""
+
+from .precision import apply_f32_policy
+
+apply_f32_policy()
+
+from .algorithms import *  # noqa: E402,F401,F403
+from .operators import *  # noqa: E402,F401,F403
+from . import algorithms  # noqa: E402,F401
+from . import interop  # noqa: E402,F401
+from . import nmf  # noqa: E402,F401
+from . import operators  # noqa: E402,F401
+from . import utils  # noqa: E402,F401
+
+__version__ = "0.1.0"

@@ -1,0 +1,104 @@
+"""Elementwise proximal operators on tensors.
+
+Counterparts of :mod:`proxmin_tpu.operators` with the same signatures and
+the same relative/absolute threshold convention. Every operator returns a
+new tensor. ``prox_components``, ``prox_max_entropy`` and
+``AlternatingProjections`` are not ported yet.
+"""
+
+import torch
+
+__all__ = [
+    "prox_id",
+    "prox_zero",
+    "prox_plus",
+    "prox_unity",
+    "prox_unity_plus",
+    "prox_min",
+    "prox_max",
+    "prox_hard",
+    "prox_hard_plus",
+    "prox_soft",
+    "prox_soft_plus",
+    "get_thresh",
+]
+
+
+def _step_gamma(step, gamma):
+    """Scale a continuous penalty parameter by the algorithm step size."""
+    return gamma * step
+
+
+def get_thresh(step, thresh, type):
+    """``'relative'``: the threshold is in units of the function value and
+    is multiplied by the step; ``'absolute'``: in units of ``X``, used as
+    is."""
+    if type not in ("relative", "absolute"):
+        raise ValueError(f"type must be 'relative' or 'absolute', got {type!r}")
+    if type == "relative":
+        return _step_gamma(step, thresh)
+    return thresh
+
+
+def _like(X, v):
+    """``v`` (Python or tensor scalar) as a tensor on ``X``'s device and
+    dtype, so binary ops broadcast without a host round trip."""
+    return torch.as_tensor(v, dtype=X.dtype, device=X.device)
+
+
+def prox_id(X, step):
+    """Identity proximal operator."""
+    return X
+
+
+def prox_zero(X, step):
+    """Proximal operator projecting onto zero."""
+    return torch.zeros_like(X)
+
+
+def prox_plus(X, step):
+    """Projection onto the non-negative orthant (NaN propagates)."""
+    return torch.maximum(X, X.new_zeros(()))
+
+
+def prox_unity(X, step, axis=0):
+    """Projection onto sum=1 along an axis (rescaling)."""
+    return X / torch.sum(X, dim=axis, keepdim=True)
+
+
+def prox_unity_plus(X, step, axis=0):
+    """Non-negative projection onto sum=1 along an axis."""
+    return prox_unity(prox_plus(X, step), step, axis=axis)
+
+
+def prox_min(X, step, thresh=0, type="relative"):
+    """Projection onto numbers above ``thresh`` (floor)."""
+    return torch.maximum(X, _like(X, get_thresh(step, thresh, type)))
+
+
+def prox_max(X, step, thresh=0, type="relative"):
+    """Projection onto numbers below ``thresh`` (ceiling)."""
+    return torch.minimum(X, _like(X, get_thresh(step, thresh, type)))
+
+
+def prox_hard(X, step, thresh=0, type="relative"):
+    """Hard thresholding: ``X`` if ``|X| >= thresh``, otherwise 0."""
+    thresh_ = _like(X, get_thresh(step, thresh, type))
+    return torch.where(torch.abs(X) < thresh_, torch.zeros_like(X), X)
+
+
+def prox_hard_plus(X, step, thresh=0, type="relative"):
+    """Hard thresholding then projection onto non-negative numbers."""
+    return prox_plus(prox_hard(X, step, thresh=thresh, type=type), step)
+
+
+def prox_soft(X, step, thresh=0, type="relative"):
+    """Soft thresholding (L1 prox): ``sign(X) * max(|X| - thresh, 0)``."""
+    thresh_ = _like(X, get_thresh(step, thresh, type))
+    return torch.sign(X) * torch.maximum(torch.abs(X) - thresh_,
+                                         X.new_zeros(()))
+
+
+def prox_soft_plus(X, step, thresh=0, type="relative"):
+    """Soft thresholding then projection onto non-negative numbers."""
+    return prox_plus(prox_soft(X, step, thresh=thresh, type=type), step)

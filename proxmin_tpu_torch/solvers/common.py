@@ -1,0 +1,129 @@
+"""Shared infrastructure for the port's solver drivers: reference-shaped
+results, dtype promotion at the solver boundary, the NumPy in-place
+contract and prox normalization. Counterparts of the same names in
+:mod:`proxmin_tpu.solvers.common`."""
+
+import numpy as np
+import torch
+
+from .. import operators
+from ..utils import _as_tuple
+
+__all__ = [
+    "BoolResult",
+    "SolverResult",
+    "status_from",
+    "tupleize",
+    "promote_dtype",
+    "writeback",
+    "normalize_prox",
+    "normalize_per_block",
+]
+
+
+class BoolResult(int):
+    """A bool-valued result that also carries named attributes (``bool``
+    cannot be subclassed, so this subclasses ``int``)."""
+
+    def __new__(cls, value, **attrs):
+        obj = super().__new__(cls, bool(value))
+        for k, v in attrs.items():
+            object.__setattr__(obj, k, v)
+        return obj
+
+    def __repr__(self):
+        return f"BoolResult({bool(self)}, {self.__dict__})"
+
+
+class SolverResult(tuple):
+    """A tuple that unpacks like the reference return value
+    (``converged, G, S = pgm(...)``) and carries named attributes
+    (``.x``, ``.iterations``, ``.state``, ...)."""
+
+    def __new__(cls, fields, **attrs):
+        obj = super().__new__(cls, fields)
+        for k, v in attrs.items():
+            object.__setattr__(obj, k, v)
+        return obj
+
+    def __repr__(self):
+        inner = ", ".join(f"{k}={v!r}" for k, v in self.__dict__.items())
+        return f"{type(self).__name__}({inner})"
+
+
+def status_from(converged, diverged, logger=None):
+    """``"diverged" | "converged" | "max_iter"`` plus the matching warning
+    (divergence outranks non-convergence)."""
+    if logger is not None:
+        if diverged:
+            logger.warning("Solution diverged (non-finite iterate)")
+        elif not converged:
+            logger.warning("Solution did not converge")
+    return ("diverged" if diverged
+            else "converged" if converged else "max_iter")
+
+
+def promote_dtype(a, keep=None, device=None):
+    """``a`` as a tensor: tensors stay where they are (moved only when
+    ``device`` is given), NumPy arrays and scalars land on ``device`` (the
+    CPU when None). Half/integer/bool inputs -> the default float dtype;
+    float32/float64 pass through. ``keep``: a reduced storage dtype an
+    already-matching tensor may stay in."""
+    if isinstance(a, torch.Tensor):
+        a = a if device is None else a.to(device)
+    else:
+        a = np.asarray(a)
+        if not a.flags.writeable:  # e.g. a view of a JAX array
+            a = a.copy()
+        a = torch.as_tensor(a, device=device)
+    if keep is not None and a.dtype == keep:
+        return a
+    if not a.is_floating_point() or torch.finfo(a.dtype).bits < 32:
+        a = a.to(torch.get_default_dtype())
+    return a
+
+
+def tupleize(X):
+    """``X`` (array or sequence of arrays) -> ``(tensors, originals,
+    was_single)``; the tensors are promoted copies, never aliases of the
+    caller's data."""
+    was_single = type(X) not in (list, tuple)
+    X_seq = _as_tuple(X)
+    X_dev = tuple(promote_dtype(x).clone() for x in X_seq)
+    return X_dev, tuple(X_seq), was_single
+
+
+def writeback(originals, results):
+    """Update float NumPy inputs in place (the reference's "X will be
+    updated" contract). Only writable same-or-wider float arrays are
+    written: narrowing or writing floats into integers would truncate
+    silently, and a read-only view (e.g. of a JAX array) cannot take it."""
+    for orig, res in zip(originals, results):
+        if (isinstance(orig, np.ndarray) and orig.dtype.kind == "f"
+                and orig.flags.writeable
+                and orig.dtype.itemsize >= res.element_size()):
+            orig[...] = res.detach().cpu().numpy()
+
+
+def normalize_prox(prox, n_blocks):
+    """Broadcast a single prox over blocks and map ``None`` -> identity."""
+    prox = _as_tuple(prox)
+    if len(prox) == 1:
+        prox = prox * n_blocks
+    if len(prox) != n_blocks:
+        raise AssertionError(
+            f"got {len(prox)} prox operators for {n_blocks} variable "
+            "blocks (pass one per block, or a single prox to broadcast)"
+        )
+    return tuple(p if p is not None else operators.prox_id for p in prox)
+
+
+def normalize_per_block(val, n_blocks):
+    """Broadcast a scalar per-block parameter (e.g. ``e_rel``) to a
+    tuple."""
+    if np.isscalar(val):
+        return (float(val),) * n_blocks
+    val = tuple(float(v) for v in val)
+    if len(val) != n_blocks:
+        raise ValueError(f"got {len(val)} values for {n_blocks} blocks")
+    return val

@@ -1,0 +1,113 @@
+"""K1's plain version against the JAX fused_nmf_pgm_step.
+
+The JAX kernel runs as tests/test_pallas_ops.py runs it on the CPU: the
+problem padded with pad_nmf_problem, the Pallas interpreter, the outputs
+cropped to [:C, :K] / [:K, :N]. Tolerance rtol 2e-4, atol 1e-5 (the
+statistics rtol 1e-3), as in test_pallas_ops.py: both compute in float32
+but sum the pixel-axis reductions in different orders.
+
+The CUDA kernel itself is held against the plain version on the card by
+tests/test_torch_cuda.py and chip_smoke.py."""
+
+import numpy as np
+import pytest
+import torch
+
+from proxmin_tpu.ops.nmf_kernels import (fused_nmf_pgm_step as jax_step,
+                                         pad_nmf_problem)
+from proxmin_tpu import operators as jop
+import proxmin_tpu_torch.ops.nmf_kernels as k1
+from proxmin_tpu_torch import operators as top
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _problem(rng, C, K, N, weighted):
+    A = rng.random((C, K)).astype(np.float32)
+    S = rng.random((K, N)).astype(np.float32)
+    Y = rng.random((C, N)).astype(np.float32)
+    W = (0.5 + rng.random((C, N))).astype(np.float32) if weighted else None
+    return A, S, Y, W
+
+
+@pytest.mark.parametrize("C,K,N", [(5, 7, 700), (8, 4, 1000), (3, 2, 129)])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("prox", ["plus", "id"])
+def test_plain_version_matches_jax_kernel(rng, C, K, N, weighted, prox):
+    A, S, Y, W = _problem(rng, C, K, N, weighted)
+    sS = 0.05
+    A_p, S_p, Y_p, W_p, dims, tile = pad_nmf_problem(A, S, Y, W, tile_n=256)
+    want = jax_step(A_p, S_p, Y_p, sS, W=W_p, tile_n=tile, dims=dims,
+                    prox_S=None if prox == "plus" else jop.prox_id)
+    gA_j, S_j, G_j = (np.asarray(want[0])[:C, :K], np.asarray(want[1])[:K, :N],
+                      np.asarray(want[2])[:K, :K])
+
+    got = k1.fused_nmf_pgm_step(
+        torch.from_numpy(A), torch.from_numpy(S), torch.from_numpy(Y),
+        torch.tensor(sS), W=None if W is None else torch.from_numpy(W),
+        prox_S=None if prox == "plus" else top.prox_id)
+    assert all(t.dtype == torch.float32 for t in got)
+    np.testing.assert_allclose(got[0].numpy(), gA_j, rtol=2e-4, atol=1e-5)
+    np.testing.assert_allclose(got[1].numpy(), S_j, rtol=2e-4, atol=1e-5)
+    np.testing.assert_allclose(got[2].numpy(), G_j, rtol=2e-4, atol=1e-5)
+    for g, w in zip(got[3:], want[3:]):
+        np.testing.assert_allclose(float(g), float(w), rtol=1e-3)
+
+
+def test_cpu_tensors_take_the_plain_version(rng):
+    """On CPU tensors the wrapper is the plain version, bit for bit, and
+    counts no kernel launch."""
+    A, S, Y, _ = (torch.from_numpy(a) if a is not None else None
+                  for a in _problem(rng, 5, 7, 300, False))
+    before = k1.fused_nmf_pgm_step.launches
+    got = k1.fused_nmf_pgm_step(A, S, Y, 0.03)
+    ref = k1.fused_nmf_pgm_step_reference(A, S, Y, 0.03)
+    assert k1.fused_nmf_pgm_step.launches == before
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+def test_plain_version_applies_any_prox(rng):
+    """Off the card the plain version takes any prox callable."""
+    A, S, Y, _ = (torch.from_numpy(a) if a is not None else None
+                  for a in _problem(rng, 4, 3, 200, False))
+
+    def prox(x, s):
+        return top.prox_unity_plus(x, s, axis=0)
+
+    S_new = k1.fused_nmf_pgm_step(A, S, Y, 0.05, prox_S=prox)[1]
+    np.testing.assert_allclose(S_new.sum(0).numpy(), 1.0, rtol=1e-6)
+
+
+def test_kernel_prox_set_is_closed():
+    assert k1._prox_flag(None) == 1
+    assert k1._prox_flag(top.prox_plus) == 1
+    assert k1._prox_flag(top.prox_id) == 0
+    with pytest.raises(ValueError, match="prox_plus"):
+        k1._prox_flag(top.prox_soft)
+
+
+def test_wrapper_refuses_other_devices():
+    """A tensor that is neither on the CPU nor on a CUDA card raises
+    instead of silently running somewhere else."""
+    A = torch.empty((5, 7), device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        k1.fused_nmf_pgm_step(A, A, A, 0.1)
+
+
+def test_build_inputs_are_in_the_checkout():
+    """The kernel is built from the package's own source into the
+    gitignored build directory of the checkout."""
+    assert k1._SOURCE.is_file()
+    assert k1._SOURCE.parent.name == "csrc"
+    root = k1._BUILD_DIR.parents[1]
+    assert (root / "proxmin_tpu_torch").is_dir()
+    ignored = (root / ".gitignore").read_text().split()
+    assert "build/" in ignored
+    assert "sm_90a" in " ".join(k1._NVCC_FLAGS)
