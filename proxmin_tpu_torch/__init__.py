@@ -7,9 +7,9 @@ never ``jax``. Plain code is tensor ops on the device the inputs live on;
 the hot NMF step is a hand-written CUDA kernel (``ops``, ``csrc/``) built
 at first use.
 
-Ported so far: the elementwise prox operators, the PGM driver and
-unweighted PGM-NMF on the ``"torch"`` and ``"cuda"`` engines (ROADMAP.md
-lists what follows).
+Ported so far: the elementwise prox operators, the PGM and AdaProx
+drivers, unweighted PGM-NMF and AdaProx-NMF on the ``"torch"`` and
+``"cuda"`` engines (ROADMAP.md lists what follows).
 
 Importing the package sets the float32 matmul policy
 (:func:`precision.apply_f32_policy`): no TF32 anywhere.

@@ -1,18 +1,22 @@
-"""Constrained matrix factorization, unweighted PGM.
+"""Constrained matrix factorization by PGM and AdaProx.
 
-Counterpart of :mod:`proxmin_tpu.nmf` for ``min 0.5 ||Y - A S||^2`` under
-proximal constraints on A and S, on two engines:
+Counterpart of :mod:`proxmin_tpu.nmf` for ``min 0.5 ||sqrt(W) (Y - A S)||^2``
+under proximal constraints on A and S, on two engines:
 
 * ``engine="torch"`` (default; the JAX ``"xla"`` engine's counterpart): the
-  generic :func:`~proxmin_tpu_torch.solvers.pgm.pgm` driver with
-  :func:`grad_likelihood` and :func:`step_pgm` as tensor ops.
-* ``engine="cuda"`` (the JAX ``"pallas"`` engine's counterpart):
-  :func:`nmf_pgm_fused`, one launch of the fused kernel
-  :func:`~proxmin_tpu_torch.ops.nmf_kernels.fused_nmf_pgm_step` per
-  iteration.
+  generic :func:`~proxmin_tpu_torch.solvers.pgm.pgm` or
+  :func:`~proxmin_tpu_torch.solvers.adaprox.adaprox` driver with
+  :func:`grad_likelihood` and :func:`step_pgm` / :func:`step_adaprox` as
+  tensor ops.
+* ``engine="cuda"`` (the JAX ``"pallas"`` engine's counterpart): one launch
+  of a fused kernel per iteration, :func:`nmf_pgm_fused` on
+  :func:`~proxmin_tpu_torch.ops.nmf_kernels.fused_nmf_pgm_step` (K1) or
+  :func:`nmf_adaprox_fused` on
+  :func:`~proxmin_tpu_torch.ops.nmf_kernels.fused_nmf_adaprox_step` (K2).
 
-Weighted problems, the strided/adaptive steps, ``engine="auto"``,
-``mesh=`` and the other algorithms are later slices (ROADMAP.md Queue 1).
+Weighted PGM, the strided/adaptive steps, ``engine="auto"``, ``mesh=`` and
+bsdmm are later slices (ROADMAP.md Queue 1). AdaProx takes ``W`` on both
+engines: its mean/10 steps need no weighted Lipschitz bound.
 """
 
 import logging
@@ -22,8 +26,10 @@ import numpy as np
 import torch
 
 from . import algorithms, operators
-from .ops.nmf_kernels import DEFAULT_TILE_N, fused_nmf_pgm_step
-from .solvers.common import (SolverResult, promote_dtype, status_from,
+from .ops.nmf_kernels import (DEFAULT_TILE_N, fused_nmf_adaprox_step,
+                              fused_nmf_pgm_step)
+from .solvers.common import (SolverResult, as_tensor, as_torch_dtype,
+                             promote_dtype, separable_blocks, status_from,
                              writeback)
 
 logger = logging.getLogger("proxmin")
@@ -34,9 +40,11 @@ __all__ = [
     "step_A",
     "step_S",
     "step_pgm",
+    "step_adaprox",
     "pgm_nmf_iteration",
     "nmf",
     "nmf_pgm_fused",
+    "nmf_adaprox_fused",
 ]
 
 
@@ -53,6 +61,30 @@ def _is_unweighted(W):
     if np.isscalar(W) or getattr(W, "ndim", None) == 0:
         return float(W) == 1.0
     return False
+
+
+def _promote_W(W, Y):
+    """A weight argument as a full (C, N) tensor of Y's dtype on Y's
+    device: scalars fill, lower-rank arrays broadcast against Y (the fused
+    kernel needs the explicit 2-D form). One helper so the engines cannot
+    drift."""
+    if np.isscalar(W) or getattr(W, "ndim", None) == 0:
+        return torch.full(Y.shape, float(W), dtype=Y.dtype, device=Y.device)
+    W = promote_dtype(W, device=Y.device)
+    return torch.broadcast_to(W, Y.shape).to(Y.dtype).contiguous()
+
+
+def _adaprox_separable_ok(prox_A, prox_S, mode):
+    """True when every PRESENT prox has a known separable closed form under
+    ``mode`` (the ``separable_prox`` argument); False instead of raising on
+    an unknown mode."""
+    prox_pair = (prox_A, prox_S)
+    has = tuple(pj is not None for pj in prox_pair)
+    try:
+        sep = separable_blocks(prox_pair, has, mode)
+    except ValueError:
+        return False
+    return all(s or not h for s, h in zip(sep, has))
 
 
 def _device_for(device, *arrays):
@@ -102,6 +134,15 @@ def step_pgm(*X, it=None, W=1):
         raise _not_yet("weighted step_pgm", 6)
     A, S = X
     return step_A(A, S), step_S(A, S)
+
+
+def step_adaprox(*X, it=None):
+    """Per-element AdaProx step heuristic: a tenth of the column means of A
+    and of the row means of S (sums divided by the count, as
+    ``jnp.mean``)."""
+    A, S = X
+    return (torch.sum(A, dim=0) / A.shape[0] / 10,
+            torch.sum(S, dim=1, keepdim=True) / S.shape[1] / 10)
 
 
 def pgm_nmf_iteration(A, S, Y):
@@ -279,23 +320,294 @@ def nmf_pgm_fused(
     )
 
 
-_LATER_ALGORITHMS = {"adaprox": 8, "bsdmm": 11}
+def _run_fused_adaprox(A, S, Y, W, MA, VA, MS, VS, max_iter, prox_A, prox_S,
+                       e_rel, b1, b2, eps, tile_n, it0=0, conv_A0=False,
+                       conv_S0=False, div0=False, loss0=np.inf,
+                       rowsum0=None):
+    """The fused proximal-Adam loop on float32 tensors. Counterpart of the
+    ``run`` built by ``proxmin_tpu.nmf._make_fused_adaprox_runner``.
+
+    Per iteration: the scalars ``(b1_t, 1/(1-b1^t), 1/(1-b2^t))`` in
+    float32 on the host from the host counter (they reach K2 by value, no
+    sync); the ``step_adaprox`` steps on the device, ``alpha_A`` from A's
+    column sums and ``alpha_S`` from the row sums K2 accumulated for the
+    current S; one K2 launch; the A block's Adam update and prox as tensor
+    ops; one host read of the stop flags. ``rowsum0`` carries the kernel's
+    own row sums across a resume (a fresh ``S.sum(1)`` has another
+    summation order, and its last-bit differences would compound).
+    Returns ``(A, S, it, conv_A, conv_S, loss, MA, VA, MS, VS, rowsum)``.
+    """
+    dev = A.device
+    C, K = A.shape
+    N = S.shape[1]
+    f32 = torch.float32
+    rowsum = (torch.sum(S, dim=1, keepdim=True) if rowsum0 is None
+              else as_tensor(rowsum0, f32, dev).reshape(K, 1))
+    conv_A = torch.tensor(bool(conv_A0), device=dev)
+    conv_S = torch.tensor(bool(conv_S0), device=dev)
+    loss = torch.tensor(float(loss0), dtype=f32, device=dev)
+    tiny = float(torch.finfo(f32).tiny)
+    one, b1_t, b2_t = np.float32(1), np.float32(b1), np.float32(b2)
+    it = 0
+
+    def keep_going():
+        # one host read per iteration; a non-finite loss after the first
+        # iteration means divergence (the initial loss is inf by design)
+        if div0:
+            return False
+        stop = torch.logical_and(conv_A, conv_S)
+        if it > 0:
+            stop = torch.logical_or(stop,
+                                    torch.logical_not(torch.isfinite(loss)))
+        return not bool(stop)
+
+    while it < max_iter and keep_going():
+        t = np.float32(it + it0 + 1)
+        bc1 = one / (one - b1_t ** t)
+        bc2 = one / (one - b2_t ** t)
+        alpha_A = torch.sum(A, dim=0) / C / 10.0
+        alpha_S = rowsum / N / 10.0
+        gA, S1, MS1, VS1, rowsum1, loss, dS_sq, nS_sq = (
+            fused_nmf_adaprox_step(A, S, MS, VS, Y, alpha_S,
+                                   (b1_t, bc1, bc2), W=W, prox_S=prox_S,
+                                   b2=b2, eps=eps, tile_n=tile_n))
+        # the A block (C x K, tensor ops): the same Adam update and
+        # closed-form prox, with the TPU runner's float32 scalars
+        MA1 = float(one - b1_t) * gA + float(b1_t) * MA
+        VA1 = (1.0 - b2) * gA ** 2 + b2 * VA
+        PsiA = torch.sqrt(VA1 * float(bc2)) + eps
+        PsiA_safe = torch.maximum(PsiA, PsiA.new_tensor(tiny))
+        A1 = A - alpha_A[None, :] * (MA1 * float(bc1)) / PsiA_safe
+        A1 = prox_A(A1, alpha_A[None, :] / PsiA_safe)
+        dA_sq = torch.sum((A1 - A) ** 2)
+        nA_sq = torch.sum(A1 ** 2)
+        conv_A = _fused_fp_conv(dA_sq, nA_sq, e_rel)
+        conv_S = _fused_fp_conv(dS_sq, nS_sq, e_rel)
+        loss = _poison_loss(loss, dA_sq, nA_sq, dS_sq, nS_sq)
+        A, S, MS, VS, MA, VA, rowsum = A1, S1, MS1, VS1, MA1, VA1, rowsum1
+        it += 1
+    return (A, S, it, bool(conv_A), bool(conv_S), float(loss), MA, VA, MS,
+            VS, rowsum)
+
+
+def _dtype_name(dt):
+    return None if dt is None else str(dt).removeprefix("torch.")
+
+
+def nmf_adaprox_fused(
+    Y,
+    A,
+    S,
+    W=None,
+    prox_A=operators.prox_plus,
+    prox_S=operators.prox_plus,
+    e_rel=1e-3,
+    max_iter=1000,
+    b1=0.9,
+    b2=0.999,
+    eps=1e-8,
+    tile_n=DEFAULT_TILE_N,
+    moment_dtype=None,
+    store_dtype=None,
+    M=None,
+    V=None,
+    state=None,
+    device=None,
+):
+    """AdaProx-NMF (``scheme='adam'``) with one fused K2 step per
+    iteration.
+
+    The same iteration as ``nmf(algorithm='adaprox', engine='torch',
+    separable_prox='auto')`` with the default ``step_adaprox`` steps and a
+    constant ``b1``, with the S-side work (residual, both gradients, both
+    moment EMAs, the bias-corrected step, the closed-form separable prox,
+    the next iteration's row sums and the convergence norms) done in one
+    pass over the pixels by
+    :func:`~proxmin_tpu_torch.ops.nmf_kernels.fused_nmf_adaprox_step`.
+    Computes in float32. ``W`` (C x N, or a scalar or anything that
+    broadcasts) weights the residual in the same pass.
+
+    On CUDA tensors ``prox_S`` must be ``prox_plus`` or ``prox_id``/None
+    (the kernel applies it); ``prox_A`` acts on the tiny C x K factor
+    outside the kernel and may be any separable prox. On CPU tensors the
+    kernel's plain version runs instead.
+
+    ``moment_dtype`` (``torch.bfloat16`` or ``"bfloat16"``) stores the S
+    moments in bfloat16, cast inside the kernel; the A moments stay
+    float32. ``store_dtype`` (bfloat16 S/Y) is not ported yet.
+
+    ``M=``/``V=`` warm-start the moments from a previous solve's ``.M`` /
+    ``.V`` (per-block ``(A, S)`` tuples; the bias-correction clock
+    restarts). ``state=`` continues a previous ``.state`` exactly: the
+    moments, the global clock, the stop flags and the kernel's row sums.
+    It accepts this engine's states and the torch engine's adaprox states
+    of a default-step adam solve (the two are interchangeable); the
+    returned ``.state`` also resumes on ``engine='torch'``. ``tile_n`` and
+    ``moment_dtype`` must match the state's.
+
+    Returns a ``SolverResult`` unpacking as the ``(conv_A, conv_S)``
+    flags, with ``.x == (A, S)``, ``.iterations``, ``.converged``,
+    ``.loss``, ``.M``, ``.V``, ``.status`` and ``.state``.
+    """
+    if store_dtype is not None and as_torch_dtype(store_dtype).itemsize < 4:
+        raise NotImplementedError(
+            "the bfloat16 store_dtype is not ported yet; it is owed with "
+            "K1's (ROADMAP.md Queue 2)")
+    A_in, S_in = A, S
+    if prox_A is None:
+        prox_A = operators.prox_id
+    if prox_S is None:
+        prox_S = operators.prox_id
+    dev = _device_for(device, Y, A, S)
+    A, S, Y = (promote_dtype(a, device=dev) for a in (A, S, Y))
+    dtype = A.dtype
+    C, K = A.shape
+    N = S.shape[1]
+    f32 = torch.float32
+    Y = Y.to(f32).contiguous()
+    W = None if _is_unweighted(W) else _promote_W(W, Y)
+    mdt = as_torch_dtype(moment_dtype)
+    if mdt is not None and mdt.itemsize >= 4:
+        mdt = None
+    fused_cfg = {"tile_n": int(tile_n), "store_dtype": None,
+                 "moment_dtype": _dtype_name(mdt)}
+    it0, conv0, div0, loss0, rowsum0 = 0, (False, False), False, np.inf, None
+    if state is not None:
+        if M is not None or V is not None:
+            raise ValueError("state= (exact resume) and M=/V= (moment warm "
+                             "start) are mutually exclusive")
+        if state.get("kind") is not None:
+            raise ValueError(
+                f"state= is a {state['kind']!r} resume state, not an adaprox "
+                "one: adaprox states carry M/V moments (fused and torch "
+                "engines interchangeably); resume this state with the "
+                "solver/engine that produced it")
+        if ("fused_config" in state
+                and dict(state["fused_config"]) != fused_cfg):
+            raise ValueError(
+                f"state= was produced under the fused configuration "
+                f"{state['fused_config']} but this call uses {fused_cfg}: "
+                "the carried row sums and moments are tile/dtype-"
+                "accumulated; resume with the same tile_n/moment_dtype")
+        if len(tuple(state.get("stepper_state", ()))) != 0:
+            raise ValueError(
+                "state= carries stepper state (a strided/stateful-step "
+                "solve); the fused adaprox engine computes exact steps "
+                "every iteration: resume with engine='torch'")
+        conv0 = tuple(bool(c) for c in
+                      np.asarray(as_tensor(state.get("converged", conv0),
+                                           torch.bool, "cpu")))
+        div0 = bool(as_tensor(state.get("diverged", False), torch.bool,
+                              "cpu"))
+        loss0 = float(state.get("loss", np.inf))
+        rowsum0 = state.get("rowsum")
+        M, V = state["M"], state["V"]
+        it0 = int(state["it"])
+    if (M is None) != (V is None):
+        raise ValueError("a warm start needs both M and V (a previous "
+                         "solve's .M/.V)")
+    if M is not None:
+        (MA, MS), (VA, VS) = M, V
+        MA, VA = (as_tensor(m, f32, dev).clone() for m in (MA, VA))
+        MS, VS = (as_tensor(m, mdt or f32, dev).contiguous().clone()
+                  for m in (MS, VS))
+        if (MA.shape != (C, K) or VA.shape != (C, K) or MS.shape != (K, N)
+                or VS.shape != (K, N)):
+            raise ValueError("warm-start moments must be (C, K) for A and "
+                             "(K, N) for S")
+    else:
+        MA = torch.zeros((C, K), dtype=f32, device=dev)
+        VA = torch.zeros_like(MA)
+        MS = torch.zeros((K, N), dtype=mdt or f32, device=dev)
+        VS = torch.zeros_like(MS)
+
+    (A_f, S_f, iterations, conv_A, conv_S, loss, MA_f, VA_f, MS_f, VS_f,
+     rowsum_f) = _run_fused_adaprox(
+        A.to(f32).contiguous(), S.to(f32).contiguous(), Y, W, MA, VA, MS,
+        VS, max_iter, prox_A, prox_S, float(e_rel), float(b1), float(b2),
+        float(eps), int(tile_n), it0=it0, conv_A0=conv0[0],
+        conv_S0=conv0[1], div0=div0, loss0=loss0, rowsum0=rowsum0)
+    A_out, S_out = A_f.to(dtype), S_f.to(dtype)
+    converged = (conv_A, conv_S)
+    diverged = div0 or (iterations > 0 and not np.isfinite(loss))
+    logger.info("Completed %d iterations", iterations)
+    status = status_from(all(converged), diverged, logger)
+    writeback((A_in, S_in), (A_out, S_out))
+    # interchangeable with the torch engine's adaprox state: adam carries
+    # no Vhat (zeros there) and the default steps are stateless
+    resume_state = {
+        "M": (MA_f, MS_f), "V": (VA_f, VS_f),
+        "Vhat": (torch.zeros_like(MA_f), torch.zeros_like(MS_f)),
+        "stepper_state": (), "it": it0 + iterations,
+        "converged": np.asarray(converged, bool), "diverged": diverged,
+        "rowsum": rowsum_f, "loss": loss, "fused_config": fused_cfg,
+    }
+    return SolverResult(
+        converged,
+        x=(A_out, S_out), iterations=iterations, converged=converged,
+        loss=loss, M=(MA_f, MS_f), V=(VA_f, VS_f), status=status,
+        state=resume_state,
+    )
+
+
+_LATER_ALGORITHMS = {"bsdmm": 11}
 
 
 def _resolve_algorithm(algorithm):
-    """``None``, ``"pgm"`` or the port's ``pgm``; the JAX package's other
-    nmf algorithms raise ``NotImplementedError``, anything else
-    ``ValueError``."""
-    if algorithm is None or algorithm is algorithms.pgm:
+    """``None``, ``"pgm"``, ``"adaprox"`` or the port's solver functions;
+    bsdmm raises ``NotImplementedError``, anything else ``ValueError``."""
+    if algorithm is None:
         return algorithms.pgm
+    if algorithm is algorithms.pgm or algorithm is algorithms.adaprox:
+        return algorithm
     name = algorithm.lower() if isinstance(algorithm, str) else None
-    if name == "pgm":
-        return algorithms.pgm
+    if name in ("pgm", "adaprox"):
+        return getattr(algorithms, name)
     if name in _LATER_ALGORITHMS:
         raise _not_yet(f"nmf(algorithm={algorithm!r})",
                        _LATER_ALGORITHMS[name])
     raise ValueError(f"unknown algorithm {algorithm!r}; nmf supports 'pgm' "
-                     "(adaprox and bsdmm are later slices)")
+                     "and 'adaprox' (bsdmm is a later slice)")
+
+
+def _nmf_adaprox_cuda(Y, A, S, W, prox_A, prox_S, e_rel, max_iter, step,
+                      callback, step_stride, step_adapt, device,
+                      algorithm_args):
+    """``nmf(algorithm='adaprox', engine='cuda')``: the gates of the JAX
+    ``engine='pallas'`` adaprox route, then :func:`nmf_adaprox_fused`."""
+    if step is not None or callback is not None:
+        raise ValueError("engine='cuda' supports algorithm='pgm' or "
+                         "algorithm='adaprox' with default steps and no "
+                         "callback; use engine='torch'")
+    if step_stride is not None or step_adapt:
+        raise ValueError("step_stride/step_adapt do not apply to the fused "
+                         "adaprox engine (its mean/10 steps are exact and "
+                         "cheap every iteration)")
+    aargs = dict(algorithm_args)
+    scheme = aargs.pop("scheme", "adam")
+    if scheme != "adam":
+        raise ValueError(f"engine='cuda' adaprox supports scheme='adam' "
+                         f"only (got {scheme!r}); use engine='torch'")
+    sep = aargs.pop("separable_prox", "auto")
+    if sep is False:
+        raise ValueError(
+            "separable_prox=False requests the prox sub-iteration loop, "
+            "which the fused adaprox engine replaces with the closed form; "
+            "use engine='torch' for sub-iteration semantics")
+    if not _adaprox_separable_ok(prox_A, prox_S, sep):
+        raise ValueError("the fused adaprox engine needs separable proxs "
+                         "and separable_prox True or 'auto' (the in-kernel "
+                         "scaled prox is the closed form); use "
+                         "engine='torch' for sub-iteration proxs")
+    fused_kw = {k: aargs.pop(k) for k in
+                ("b1", "b2", "eps", "tile_n", "moment_dtype", "store_dtype",
+                 "M", "V", "state") if k in aargs}
+    if aargs:
+        raise ValueError(f"unsupported fused-adaprox options: "
+                         f"{sorted(aargs)}")
+    return nmf_adaprox_fused(Y, A, S, W=W, prox_A=prox_A, prox_S=prox_S,
+                             e_rel=e_rel, max_iter=max_iter, device=device,
+                             **fused_kw)
 
 
 def nmf(
@@ -317,33 +629,41 @@ def nmf(
     device=None,
     **algorithm_args,
 ):
-    """Non-negative / constrained matrix factorization by PGM.
+    """Non-negative / constrained matrix factorization by PGM or AdaProx.
 
-    Solves ``minimize 0.5 ||Y - A S||^2`` under proximal constraints on A
-    and S.
+    Solves ``minimize 0.5 ||sqrt(W) (Y - A S)||^2`` under proximal
+    constraints on A and S.
 
     Args:
         Y: target (C, N). A: initial (C, K). S: initial (K, N). NumPy
             inputs are updated in place; tensors stay on their device.
-        W: only the scalar 1 (unweighted) so far.
+        W: weights (C, N), a scalar or anything that broadcasts to Y; only
+            algorithm='adaprox' takes weights so far.
         prox_A, prox_S: per-factor constraints (None = identity).
-        algorithm: None or ``"pgm"``.
+        algorithm: None or ``"pgm"`` (default), or ``"adaprox"``.
         step: optional step callable ``step(*X, it=...)`` (torch engine).
         max_iter, e_rel: forwarded to the solver.
-        engine: ``"torch"`` (generic PGM driver on tensor ops) or
-            ``"cuda"`` (the fused K1 kernel per iteration,
-            :func:`nmf_pgm_fused`; on CPU tensors its plain version).
+        engine: ``"torch"`` (the generic driver on tensor ops) or
+            ``"cuda"`` (a fused kernel per iteration: :func:`nmf_pgm_fused`
+            on K1, or :func:`nmf_adaprox_fused` on K2 for the adam scheme
+            with separable proxs; on CPU tensors their plain versions).
         device: where NumPy inputs go (default: the device of a tensor
             input, else the CPU).
-        algorithm_args: ``accelerated``, ``restart``, ``state`` for the
-            torch engine; ``tile_n``, ``state`` for the cuda engine.
+        algorithm_args: for pgm ``accelerated``, ``restart``, ``state``
+            (torch engine) or ``tile_n``, ``state`` (cuda engine); for
+            adaprox the driver's options (``scheme``, ``b1``, ``b2``,
+            ``eps``, ``separable_prox``, ``moment_dtype``, ``M``, ``V``,
+            ``state``, ...) or the fused engine's (``b1``, ``b2``, ``eps``,
+            ``tile_n``, ``moment_dtype``, ``M``, ``V``, ``state``).
 
-    A ``state=`` from :func:`nmf_pgm_fused` pins ``engine="cuda"``.
+    A ``state=`` from :func:`nmf_pgm_fused` pins ``engine="cuda"``. An
+    adaprox state of either engine resumes on either engine.
 
     Returns:
         The solver's ``SolverResult``; ``result.x == (A, S)``.
     """
     algorithm = _resolve_algorithm(algorithm)
+    is_adaprox = algorithm is algorithms.adaprox
     if (np.ndim(Y) != 2 or np.ndim(A) != 2 or np.ndim(S) != 2
             or np.shape(A)[0] != np.shape(Y)[0]
             or np.shape(A)[1] != np.shape(S)[0]
@@ -352,21 +672,33 @@ def nmf(
             f"factorization shape mismatch: Y {tuple(np.shape(Y))}, "
             f"A {tuple(np.shape(A))}, S {tuple(np.shape(S))}: need Y (C, N), "
             "A (C, K), S (K, N) with Y = A @ S")
-    if not _is_unweighted(W):
-        raise _not_yet("weighted nmf (W other than 1)", 6)
+    if not is_adaprox and not _is_unweighted(W):
+        raise _not_yet("weighted PGM-NMF (W other than 1)", 6)
     if mesh is not None:
         raise _not_yet("nmf(mesh=) scale-out", 13)
     if engine == "auto":
         raise _not_yet("engine='auto' routing", 7)
-    if (step_stride is not None and step_stride > 1) or step_adapt:
-        raise _not_yet("step_stride / step_adapt", 6)
 
     device = _device_for(device, Y, A, S)
     if algorithm_args.get("state", True) is None:
         del algorithm_args["state"]
     st = algorithm_args.get("state")
     if hasattr(st, "get") and st.get("kind") == "nmf_pgm_fused":
-        engine = "cuda"  # a fused state resumes only the fused engine
+        if is_adaprox:
+            raise ValueError("state= is an nmf_pgm_fused resume state but "
+                             "algorithm='adaprox' was requested: a PGM "
+                             "state does not resume another algorithm")
+        engine = "cuda"  # a fused PGM state resumes only the fused engine
+    if engine not in ("torch", "cuda"):
+        raise ValueError(f"unknown engine {engine!r}; the port has 'torch' "
+                         "and 'cuda'")
+    if is_adaprox and engine == "cuda":
+        return _nmf_adaprox_cuda(Y, A, S, None if _is_unweighted(W) else W,
+                                 prox_A, prox_S, e_rel, max_iter, step,
+                                 callback, step_stride, step_adapt, device,
+                                 algorithm_args)
+    if (step_stride is not None and step_stride > 1) or step_adapt:
+        raise _not_yet("step_stride / step_adapt", 6)
 
     if engine == "cuda":
         if step is not None or callback is not None:
@@ -379,15 +711,18 @@ def nmf(
         return nmf_pgm_fused(Y, A, S, prox_A=prox_A, prox_S=prox_S,
                              e_rel=e_rel, max_iter=max_iter, device=device,
                              **algorithm_args)
-    if engine != "torch":
-        raise ValueError(f"unknown engine {engine!r}; the port has 'torch' "
-                         "and 'cuda'")
 
     A_in, S_in = A, S
     Y, A, S = (promote_dtype(a, device=device) for a in (Y, A, S))
-    grad = partial(grad_likelihood, Y=Y, W=1)
-    if step is None:
-        step = partial(step_pgm, W=1)
+    if is_adaprox:
+        W = 1 if _is_unweighted(W) else _promote_W(W, Y)
+        if step is None:
+            step = step_adaprox
+    else:
+        W = 1
+        if step is None:
+            step = partial(step_pgm, W=1)
+    grad = partial(grad_likelihood, Y=Y, W=W)
     res = algorithm([A, S], grad, step, prox=[prox_A, prox_S],
                     max_iter=max_iter, e_rel=e_rel, callback=callback,
                     **algorithm_args)

@@ -102,3 +102,47 @@ def prox_soft(X, step, thresh=0, type="relative"):
 def prox_soft_plus(X, step, thresh=0, type="relative"):
     """Soft thresholding then projection onto non-negative numbers."""
     return prox_plus(prox_soft(X, step, thresh=thresh, type=type), step)
+
+
+# Separable-prox markers (as in proxmin_tpu.operators). The scaled proximal
+# problem ``min_z g(z) + (1/(2 alpha)) (z - x)^T diag(Psi) (z - x)``
+# decomposes per element into ``prox_{g_i}`` with step ``alpha / Psi_i``,
+# its exact closed form, which ``adaprox(separable_prox=...)`` uses instead
+# of the prox sub-iterations. Whether that is valid depends on what the
+# operator's ``step`` means, so each operator carries a
+# ``separable_when(kwargs) -> bool`` predicate over its bound keywords:
+#
+# * fixed constraint sets (the step is ignored): always for prox_id,
+#   prox_zero, prox_plus; prox_min/prox_max only with ``type="absolute"``
+#   or ``thresh=0`` (a relative threshold scales the SET by the step);
+# * step-scaled penalties: prox_soft, prox_soft_plus with
+#   ``type="relative"`` (prox_max_entropy gets its marker when it is
+#   ported);
+# * prox_hard/prox_hard_plus never: L0's nonconvex fixed points need the
+#   sub-iterations.
+
+def _sep_always(kw):
+    return True
+
+
+def _sep_fixed_interval(kw):
+    if kw.get("type", "relative") == "absolute":
+        return True
+    t = kw.get("thresh", 0)
+    try:
+        return float(t) == 0.0
+    except (TypeError, ValueError, RuntimeError):
+        return False  # array thresholds: be conservative
+
+
+def _sep_scaled_penalty(kw):
+    return kw.get("type", "relative") == "relative"
+
+
+for _p in (prox_id, prox_zero, prox_plus):
+    _p.separable_when = _sep_always
+for _p in (prox_min, prox_max):
+    _p.separable_when = _sep_fixed_interval
+for _p in (prox_soft, prox_soft_plus):
+    _p.separable_when = _sep_scaled_penalty
+del _p

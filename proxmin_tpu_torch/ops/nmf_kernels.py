@@ -1,24 +1,32 @@
-"""K1, the fused PGM-NMF step: its CUDA kernel, build, binding and plain
-version.
+"""The fused NMF steps K1 and K2: their CUDA kernels, build, binding and
+plain versions.
 
-:func:`fused_nmf_pgm_step` is the counterpart of
+:func:`fused_nmf_pgm_step` (K1) is the counterpart of
 ``proxmin_tpu.ops.nmf_kernels.fused_nmf_pgm_step``: one S-side PGM-NMF
 iteration in one pass over the pixel columns (residual, both factor
 gradients, the proxed S update, the next iteration's ``S' S'^T`` Gram and
-the fixed-point statistics). On CUDA tensors it launches the hand-written
-kernel in ``csrc/nmf_pgm_step.cu``; on CPU tensors it runs
-:func:`fused_nmf_pgm_step_reference`, the same math as tensor ops.
+the fixed-point statistics), kernel in ``csrc/nmf_pgm_step.cu``.
 
-Unlike the TPU kernel, it takes unpadded ``(C, K)``, ``(K, N)`` and
-``(C, N)`` tensors: there is no sublane/lane padding, no VMEM tile model
-and no ``dims`` argument.
+:func:`fused_nmf_adaprox_step` (K2) is the counterpart of
+``proxmin_tpu.ops.nmf_kernels.fused_nmf_adaprox_step``: one S-side
+proximal-Adam iteration in one pass (residual, both gradients, the moment
+EMAs with bias correction, the closed-form separable prox, the next
+iteration's row sums and the statistics), kernel in
+``csrc/nmf_adaprox_step.cu``.
 
-The kernel is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface, at first use, under ``build/kernels/`` of the
-checkout (named by a hash of the source and flags), and loaded with
-``ctypes``.
+On CUDA tensors each wrapper launches its hand-written kernel; on CPU
+tensors it runs its plain version (``*_reference``), the same math as
+tensor ops. Unlike the TPU kernels, they take unpadded ``(C, K)``,
+``(K, N)`` and ``(C, N)`` tensors: there is no sublane/lane padding, no
+VMEM tile model and no ``dims`` argument.
+
+Each kernel source is compiled with ``nvcc`` for ``sm_90a`` into a shared
+library of its own with a plain C interface, at first use, under
+``build/kernels/`` of the checkout (named by the source and a hash of its
+text and the flags), and loaded with ``ctypes``.
 """
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -28,6 +36,7 @@ import subprocess
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from .. import operators
@@ -35,17 +44,26 @@ from .. import operators
 __all__ = [
     "fused_nmf_pgm_step",
     "fused_nmf_pgm_step_reference",
+    "fused_nmf_adaprox_step",
+    "fused_nmf_adaprox_step_reference",
     "build_kernel",
+    "build_kernels",
     "DEFAULT_TILE_N",
 ]
 
 #: Pixel columns per CUDA block (256 threads, 16 columns each).
 DEFAULT_TILE_N = 4096
 
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "nmf_pgm_step.cu"
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+#: Kernel name -> its source; each builds into a library of its own.
+_SOURCES = {
+    "nmf_pgm_step": _CSRC / "nmf_pgm_step.cu",
+    "nmf_adaprox_step": _CSRC / "nmf_adaprox_step.cu",
+}
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_F32_TINY = float(torch.finfo(torch.float32).tiny)
 
 
 def _nvcc():
@@ -56,50 +74,73 @@ def _nvcc():
     if not Path(found).is_file():
         raise RuntimeError(
             "nvcc not found (looked in $CUDA_HOME, $CUDA_PATH, $PATH and "
-            "/usr/local/cuda/bin): the K1 CUDA kernel cannot be built")
+            "/usr/local/cuda/bin): the CUDA kernels cannot be built")
     return found
 
 
-def _library_path():
-    digest = hashlib.sha256(_SOURCE.read_bytes()
+def _library_path(name):
+    digest = hashlib.sha256(_SOURCES[name].read_bytes()
                             + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    return _BUILD_DIR / f"nmf_pgm_step-{digest[:16]}.so"
+    return _BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
-def build_kernel():
-    """Compile ``csrc/nmf_pgm_step.cu`` unless the library for this exact
-    source is already built. Returns ``(path, seconds, compiler_log)``;
+def build_kernel(name="nmf_pgm_step"):
+    """Compile ``csrc/<name>.cu`` unless the library for this exact source
+    is already built. Returns ``(path, seconds, compiler_log)``;
     ``seconds`` is 0.0 and the log is the stored one when nothing was
     compiled. Raises ``RuntimeError`` when ``nvcc`` fails."""
-    lib = _library_path()
+    lib = _library_path(name)
     log_path = lib.with_suffix(".log")
     if lib.is_file():
         return lib, 0.0, log_path.read_text() if log_path.is_file() else ""
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
+    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCES[name])]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
     seconds = time.perf_counter() - t0
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        raise RuntimeError(f"nvcc failed on {name} ({proc.returncode}):\n"
+                           f"{log}")
     log_path.write_text(log)
     os.replace(tmp, lib)
     return lib, seconds, log
 
 
+def build_kernels(names=tuple(_SOURCES)):
+    """Build several kernel sources at once, one ``nvcc`` each, all
+    started together. Returns ``{name: (path, seconds, compiler_log)}``
+    and raises the first build's error."""
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        futures = {name: pool.submit(build_kernel, name) for name in names}
+        return {name: f.result() for name, f in futures.items()}
+
+
+def _declare(lib, name):
+    p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
+    if name == "nmf_pgm_step":
+        lib.nmf_pgm_step_partials_width.argtypes = [i, i]
+        lib.nmf_pgm_step_partials_width.restype = i
+        lib.nmf_pgm_step_f32.argtypes = [p, p, p, p, p, i, i, i, ll, ll,
+                                         p, p, p, p, p, p]
+        lib.nmf_pgm_step_f32.restype = i
+    else:
+        lib.nmf_adaprox_step_partials_width.argtypes = [i, i]
+        lib.nmf_adaprox_step_partials_width.restype = i
+        lib.nmf_adaprox_step.argtypes = [p, p, p, p, p, p, p,
+                                         f, f, f, f, f, f, i, i, i, i, ll, ll,
+                                         p, p, p, p, p, p, p, p]
+        lib.nmf_adaprox_step.restype = i
+
+
 @functools.cache
-def _library():
-    """The loaded kernel library with its C signatures declared (built on
-    first use)."""
-    lib = ctypes.CDLL(str(build_kernel()[0]))
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.nmf_pgm_step_partials_width.argtypes = [i, i]
-    lib.nmf_pgm_step_partials_width.restype = i
-    lib.nmf_pgm_step_f32.argtypes = [p, p, p, p, p, i, i, i, ll, ll,
-                                     p, p, p, p, p, p]
-    lib.nmf_pgm_step_f32.restype = i
+def _library(name):
+    """The loaded library of kernel ``name`` with its C signatures
+    declared (built on first use)."""
+    lib = ctypes.CDLL(str(build_kernel(name)[0]))
+    _declare(lib, name)
     return lib
 
 
@@ -107,7 +148,7 @@ def _nonneg(X):
     return torch.maximum(X, X.new_zeros(()))
 
 
-def _prox_flag(prox_S):
+def _prox_flag(prox_S, kernel="fused_nmf_pgm_step"):
     """The kernel's builtin prox for ``prox_S``: 1 = non-negativity (None or
     ``prox_plus``), 0 = identity (``prox_id``). Anything else raises: the
     CUDA kernel cannot call a Python prox."""
@@ -116,7 +157,7 @@ def _prox_flag(prox_S):
     if prox_S is operators.prox_id:
         return 0
     raise ValueError(
-        "the CUDA fused_nmf_pgm_step applies prox_S in the kernel and "
+        f"the CUDA {kernel} applies prox_S in the kernel and "
         "supports only prox_plus (or None) and prox_id; got "
         f"{prox_S!r}. Use engine='torch' for other S constraints.")
 
@@ -141,12 +182,12 @@ def fused_nmf_pgm_step_reference(A, S, Y, sS, W=None, prox_S=None):
             torch.sum(dS * dS), torch.sum(S_new * S_new))
 
 
-def _check_operand(name, t, shape, device):
+def _check_operand(name, t, shape, device, dtype=torch.float32):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, A is on {device}: all "
-                         "operands of fused_nmf_pgm_step share one device")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+                         "operands of a fused step share one device")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != shape:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{shape}")
@@ -194,7 +235,7 @@ def fused_nmf_pgm_step(A, S, Y, sS, W=None, prox_S=None,
     if N < 1 or int(tile_n) < 1:
         raise ValueError(f"need N >= 1 and tile_n >= 1, got N={N}, "
                          f"tile_n={tile_n}")
-    lib = _library()
+    lib = _library("nmf_pgm_step")
     width = lib.nmf_pgm_step_partials_width(C, K)
     if width < 0:
         raise ValueError(f"the CUDA fused_nmf_pgm_step is compiled for "
@@ -227,3 +268,137 @@ def fused_nmf_pgm_step(A, S, Y, sS, W=None, prox_S=None,
 
 
 fused_nmf_pgm_step.launches = 0
+
+
+def _adaprox_scalars(scalars, b2, eps):
+    """The kernel's scalars as float32 values, each computed the way the
+    TPU kernel computes it: ``b1_t, bc1, bc2`` as given (host float32),
+    ``1 - b1_t`` in float32, ``1 - b2`` in double then rounded (the Python
+    float ``b2`` enters the TPU kernel as a weakly typed constant)."""
+    b1_t, bc1, bc2 = (np.float32(v) for v in scalars)
+    return (b1_t, bc1, bc2, np.float32(1) - b1_t, np.float32(1.0 - b2),
+            np.float32(b2), np.float32(eps))
+
+
+def fused_nmf_adaprox_step_reference(A, S, M, V, Y, alpha_S, scalars,
+                                     W=None, prox_S=None, b2=0.999,
+                                     eps=1e-8):
+    """Plain PyTorch version of :func:`fused_nmf_adaprox_step` (float32
+    tensor ops, any device). ``prox_S`` may be any prox callable here; None
+    means non-negativity. M and V keep their dtype (float32 or
+    bfloat16)."""
+    f32 = torch.float32
+    b1_t, bc1, bc2, omb1, omb2, b2_, eps_ = (
+        float(v) for v in _adaprox_scalars(scalars, b2, eps))
+    A, S, Y = A.to(f32), S.to(f32), Y.to(f32)
+    alpha = alpha_S.to(f32).reshape(-1, 1)
+    R = A @ S - Y
+    D = R if W is None else W.to(f32) * R
+    gS = A.T @ D
+    M1 = omb1 * gS + b1_t * M.to(f32)
+    V1 = omb2 * (gS * gS) + b2_ * V.to(f32)
+    Phi = M1 * bc1
+    Psi = torch.sqrt(V1 * bc2) + eps_
+    Psi_safe = torch.maximum(Psi, Psi.new_tensor(_F32_TINY))
+    S1 = S - alpha * (Phi / Psi_safe)
+    if prox_S is None or prox_S is operators.prox_plus:
+        S1 = _nonneg(S1)
+    else:
+        S1 = prox_S(S1, alpha / Psi_safe)
+    dS = S1 - S
+    return (D @ S.T, S1, M1.to(M.dtype), V1.to(V.dtype),
+            torch.sum(S1, dim=1, keepdim=True), torch.sum(D * R) / 2,
+            torch.sum(dS * dS), torch.sum(S1 * S1))
+
+
+def fused_nmf_adaprox_step(A, S, M, V, Y, alpha_S, scalars, W=None,
+                           prox_S=None, b2=0.999, eps=1e-8,
+                           tile_n=DEFAULT_TILE_N):
+    """One fused proximal-Adam (``scheme='adam'``) NMF S-side step.
+
+    Args:
+        A: (C, K) float32. S: (K, N) float32. M, V: (K, N) moments, both
+            float32 or both bfloat16. Y, W: (C, N) float32 (W optional).
+            All contiguous, on one device.
+        alpha_S: the per-row step, K float32 values ((K, 1) or (K,)), kept
+            on the device.
+        scalars: ``(b1_t, 1/(1 - b1_t^t), 1/(1 - b2^t))`` as host numbers
+            (computed by the caller in float32 per iteration; they reach
+            the kernel by value, so no host sync).
+        prox_S: None or ``prox_plus`` (non-negativity), or ``prox_id``.
+        b2, eps: the second-moment decay and the denominator floor.
+        tile_n: pixel columns per CUDA block; it fixes the summation order.
+
+    Returns:
+        ``(gA, S_new, M_new, V_new, rowsum, loss, dS_sq, nS_sq)``:
+        ``gA = D S^T`` with the old S, the proxed ``S_new``, the moments in
+        their storage dtype, ``rowsum = S_new.sum(1)`` as (K, 1), the loss
+        at the old iterate and the fixed-point norms ``||S_new - S||^2``,
+        ``||S_new||^2`` (0-d tensors).
+
+    CPU tensors go to :func:`fused_nmf_adaprox_step_reference`. CUDA
+    tensors launch the kernel (building it on first use) on the current
+    stream without synchronizing, or raise; each launch adds one to
+    ``fused_nmf_adaprox_step.launches``.
+    """
+    device = A.device
+    if device.type == "cpu":
+        return fused_nmf_adaprox_step_reference(
+            A, S, M, V, Y, alpha_S, scalars, W=W, prox_S=prox_S, b2=b2,
+            eps=eps)
+    if device.type != "cuda":
+        raise ValueError(f"fused_nmf_adaprox_step runs on CPU or CUDA "
+                         f"tensors, got {device}")
+    prox_plus = _prox_flag(prox_S, "fused_nmf_adaprox_step")
+    C, K = A.shape
+    N = S.shape[1]
+    mdt = M.dtype
+    if mdt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"moments must be float32 or bfloat16, got {mdt}")
+    _check_operand("A", A, (C, K), device)
+    _check_operand("S", S, (K, N), device)
+    _check_operand("M", M, (K, N), device, mdt)
+    _check_operand("V", V, (K, N), device, mdt)
+    _check_operand("Y", Y, (C, N), device)
+    if W is not None:
+        _check_operand("W", W, (C, N), device)
+    alpha = alpha_S.reshape(-1)
+    _check_operand("alpha_S", alpha, (K,), device)
+    if N < 1 or int(tile_n) < 1:
+        raise ValueError(f"need N >= 1 and tile_n >= 1, got N={N}, "
+                         f"tile_n={tile_n}")
+    lib = _library("nmf_adaprox_step")
+    width = lib.nmf_adaprox_step_partials_width(C, K)
+    if width < 0:
+        raise ValueError(f"the CUDA fused_nmf_adaprox_step is compiled for "
+                         f"C <= 16 and K <= 8, got C={C}, K={K}")
+    tile_n = int(tile_n)
+    n_blocks = -(-N // tile_n)
+    S_new = torch.empty_like(S)
+    M_new = torch.empty_like(M)
+    V_new = torch.empty_like(V)
+    gA = torch.empty((C, K), dtype=torch.float32, device=device)
+    rowsum = torch.empty((K, 1), dtype=torch.float32, device=device)
+    stats = torch.empty((3,), dtype=torch.float32, device=device)
+    partials = torch.empty((n_blocks, width), dtype=torch.float32,
+                           device=device)
+    # the kernel forms 1 - b1_t itself
+    b1_t, bc1, bc2, _, omb2, b2_, eps_ = _adaprox_scalars(scalars, b2, eps)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.nmf_adaprox_step(
+            A.data_ptr(), S.data_ptr(), M.data_ptr(), V.data_ptr(),
+            Y.data_ptr(), None if W is None else W.data_ptr(),
+            alpha.data_ptr(), float(b1_t), float(bc1), float(bc2),
+            float(omb2), float(b2_), float(eps_), prox_plus,
+            int(mdt == torch.bfloat16), C, K, N, tile_n, S_new.data_ptr(), M_new.data_ptr(), V_new.data_ptr(),
+            gA.data_ptr(), rowsum.data_ptr(), stats.data_ptr(),
+            partials.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_nmf_adaprox_step launch failed: CUDA "
+                           f"error {rc}")
+    fused_nmf_adaprox_step.launches += 1
+    return gA, S_new, M_new, V_new, rowsum, stats[0], stats[1], stats[2]
+
+
+fused_nmf_adaprox_step.launches = 0

@@ -1,3 +1,4 @@
-"""Solver drivers of the port (``pgm`` so far)."""
+"""Solver drivers of the port (``pgm`` and ``adaprox`` so far)."""
 
+from .adaprox import adaprox  # noqa: F401
 from .pgm import pgm  # noqa: F401

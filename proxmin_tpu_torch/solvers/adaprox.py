@@ -1,0 +1,410 @@
+"""AdaProx: adaptive proximal gradient (the Adam family) with prox
+sub-iterations, as a host loop over tensor ops.
+
+Counterpart of :func:`proxmin_tpu.solvers.adaprox.adaprox` (Melchior,
+Joseph & Moolekamp, arXiv:1910.10094, Algorithm 1): six adaptive schemes
+(Adam, NAdam, AMSGrad, PAdam, AdamX, RAdam) as Φ/Ψ functions over the
+moments, followed per block by either the prox sub-iterations or, for
+separable proxs, their exact closed form.
+
+The JAX driver runs the solve in one ``lax.while_loop`` and the
+sub-iterations in a nested one. Here both loops run on the host: the math
+stays on the iterates' device, and the stop flags are read back once per
+iteration and once per prox sub-iteration (the sub-loop's test decides
+whether another sub-iteration runs). Scalars that JAX computes as traced
+scalars (bias corrections, the RAdam rectification) are computed on the
+host in the block's dtype, so they cost no launch and no read.
+
+The same deliberate fix as the JAX package: ``Vhat`` starts at zeros and
+always accumulates (the reference never writes its running max back when
+``Vhat=None``, so AMSGrad/PAdam/AdamX silently lose their max there).
+"""
+
+import logging
+import math
+
+import numpy as np
+import torch
+
+from .. import utils
+from ..utils import fixed_point_norms, fixed_point_verdict, l2sq, make_stepper
+from .common import (SolverResult, as_tensor, as_torch_dtype,
+                     normalize_per_block, normalize_prox, separable_blocks,
+                     tupleize, writeback)
+
+logger = logging.getLogger("proxmin")
+
+__all__ = ["adaprox", "SCHEMES", "normalize_b1_schedule"]
+
+_LATER = "see ROADMAP.md Queue 1 item 8 (AdaProx)"
+
+_NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+# ---------------------------------------------------------------------------
+# Φ/Ψ schemes, with the JAX package's signature:
+#   (it, G, M, V, Vhat, b1, b2, eps, p, it0=0) -> (Phi, Psi, M', V', Vhat')
+# ``b1`` is the schedule as a NumPy array and ``b2`` a NumPy scalar, both in
+# the block's dtype; ``it`` (local, indexes the schedule) and ``it0`` (the
+# global offset of a resumed solve, entering only the bias-correction clock
+# t = it + it0 + 1) are Python ints. Scalar factors are NumPy scalars of the
+# block dtype, applied to the tensors as Python floats.
+
+def _moments(it, G, M, V, b1, b2):
+    M_new = float(1 - b1[it]) * G + float(b1[it]) * M
+    V_new = float(1 - b2) * (G ** 2) + float(b2) * V
+    return M_new, V_new
+
+
+def _floor(X, v):
+    """``max(X, v)`` for a scalar ``v``, NaN-propagating like
+    ``jnp.maximum``."""
+    return torch.maximum(X, X.new_tensor(v))
+
+
+def _adam_phi_psi(it, G, M, V, Vhat, b1, b2, eps, p, it0=0):
+    M, V = _moments(it, G, M, V, b1, b2)
+    t = it + it0 + 1
+    Phi = M / float(1 - b1[it] ** t)
+    Psi = torch.sqrt(V / float(1 - b2 ** t)) + eps
+    return Phi, Psi, M, V, Vhat
+
+
+def _nadam_phi_psi(it, G, M, V, Vhat, b1, b2, eps, p, it0=0):
+    M, V = _moments(it, G, M, V, b1, b2)
+    t = it + it0 + 1
+    Phi = (float(b1[it]) * M + float(1 - b1[it]) * G) / float(1 - b1[it] ** t)
+    Psi = torch.sqrt(V / float(1 - b2 ** t)) + eps
+    return Phi, Psi, M, V, Vhat
+
+
+def _amsgrad_phi_psi(it, G, M, V, Vhat, b1, b2, eps, p, it0=0):
+    M, V = _moments(it, G, M, V, b1, b2)
+    Vhat = torch.maximum(Vhat, V)
+    # eps clamps the returned Psi only, not the stored Vhat
+    Psi = torch.sqrt(_floor(Vhat, eps)) if eps > 0 else torch.sqrt(Vhat)
+    return M, Psi, M, V, Vhat
+
+
+def _padam_phi_psi(it, G, M, V, Vhat, b1, b2, eps, p, it0=0):
+    M, V = _moments(it, G, M, V, b1, b2)
+    Vhat = torch.maximum(Vhat, V)
+    Psi = (_floor(Vhat, eps) if eps > 0 else Vhat) ** p
+    return M, Psi, M, V, Vhat
+
+
+def _adamx_phi_psi(it, G, M, V, Vhat, b1, b2, eps, p, it0=0):
+    M, V = _moments(it, G, M, V, b1, b2)
+    # the factor is irrelevant at it == 0 (Vhat starts at 0); clamp the
+    # index so the schedule is not read before its start
+    prev = max(it - 1, 0)
+    factor = (1 - b1[it]) ** 2 / (1 - b1[prev]) ** 2
+    Vhat = torch.maximum(float(factor) * Vhat, V)
+    Psi = torch.sqrt(_floor(Vhat, eps)) if eps > 0 else torch.sqrt(Vhat)
+    return M, Psi, M, V, Vhat
+
+
+def _radam_phi_psi(it, G, M, V, Vhat, b1, b2, eps, p, it0=0):
+    rho_inf = 2 / (1 - b2) - 1
+    M, V = _moments(it, G, M, V, b1, b2)
+    t = it + it0 + 1
+    Phi = M / float(1 - b1[it] ** t)
+    rho = rho_inf - 2 * t * b2 ** t / (1 - b2 ** t)
+    if rho > 4:
+        r_arg = ((rho - 4) * (rho - 2) * rho_inf / (rho_inf - 4)
+                 / (rho_inf - 2) / rho)
+        r = np.sqrt(np.maximum(r_arg, np.finfo(b2.dtype).tiny))
+        Psi = torch.sqrt(V / float(1 - b2 ** t)) / float(r)
+    else:
+        Psi = torch.ones_like(V)
+    if eps > 0:
+        Psi = _floor(Psi, math.sqrt(eps))
+    return Phi, Psi, M, V, Vhat
+
+
+SCHEMES = {
+    "adam": _adam_phi_psi,
+    "nadam": _nadam_phi_psi,
+    "amsgrad": _amsgrad_phi_psi,
+    "padam": _padam_phi_psi,
+    "adamx": _adamx_phi_psi,
+    "radam": _radam_phi_psi,
+}
+
+
+def normalize_b1_schedule(b1, max_iter):
+    """The per-iteration b1 schedule as a NumPy array of length
+    ``max_iter``: a scalar broadcasts; a sequence must have exactly
+    ``max_iter`` entries in [0, 1) (a short one would otherwise be read
+    past its end)."""
+    if not hasattr(b1, "__iter__"):
+        b1 = np.full((max_iter,), b1, dtype=np.float64)
+    b1 = np.asarray(b1)
+    if b1.ndim != 1 or b1.shape[0] != max_iter:
+        raise ValueError(f"the b1 schedule has shape {b1.shape}; it needs "
+                         f"one value per iteration ({max_iter},)")
+    if not ((b1 >= 0).all() and (b1 < 1).all()):
+        raise ValueError("b1 values must lie in [0, 1)")
+    return b1
+
+
+def _prox_subloop(prox_j, x_j, alpha_j, Psi, e_rel_j, prox_max_iter):
+    """Solve the scaled proximal problem by fixed-point sub-iterations
+    ``z <- prox(z - (gamma/alpha) Psi (z - x_j), gamma)`` with
+    ``gamma = alpha / max(Psi)``, until
+    ``||z' - z||^2 <= e_rel^2 ||z||^2`` or ``prox_max_iter`` of them.
+    One host read per sub-iteration. Returns ``(z, tau)``."""
+    psi_max = torch.max(Psi)
+    gamma = alpha_j / psi_max
+    scale = Psi / psi_max  # == (gamma / alpha) * Psi elementwise
+    z, tau = x_j, 0
+    while tau < prox_max_iter:
+        z_new = prox_j(z - scale * (z - x_j), gamma)
+        done = l2sq(z_new - z) <= e_rel_j ** 2 * l2sq(z)
+        z, tau = z_new, tau + 1
+        if bool(done):
+            break
+    return z, tau
+
+
+def _step(st, it, grad, stepper, prox, has_prox, separable, phi_psi, b1, b2,
+          eps, p, e_rel, check_convergence, prox_max_iter, moment_dtype):
+    """One AdaProx iteration on the carry (the JAX body, term for term)."""
+    n = len(prox)
+    x = st["x"]
+    G = utils._as_tuple(grad(*x))
+    Alpha, st["stepper_state"] = stepper(st["stepper_state"], x,
+                                         it + st["it0"], G)
+    x_new, M_new, V_new, Vhat_new = [], [], [], []
+    for j in range(n):
+        dt = x[j].dtype
+        np_dt = _NP_DTYPE[dt]
+        # moment_dtype stores the moments reduced; the EMA and bias math
+        # computes in the block dtype (cast up here, down on store)
+        Mj, Vj, Vhatj = (m.to(dt) for m in (st["M"][j], st["V"][j],
+                                            st["Vhat"][j]))
+        Phi, Psi, Mj, Vj, Vhatj = phi_psi(
+            it, G[j], Mj, Vj, Vhatj, b1.astype(np_dt), np_dt(b2), eps, p,
+            it0=st["it0"])
+        if moment_dtype is not None:
+            Mj, Vj, Vhatj = (m.to(moment_dtype) for m in (Mj, Vj, Vhatj))
+        xj = x[j] - Alpha[j] * Phi / Psi
+        if has_prox[j] and separable[j]:
+            # the exact closed form of the scaled prox: the prox with the
+            # per-element step alpha / Psi_i, one application
+            gamma_el = Alpha[j] / _floor(Psi, float(torch.finfo(dt).tiny))
+            xj = prox[j](xj, gamma_el)
+            st["sub_iters"][j] += 1
+        elif has_prox[j]:
+            xj, tau = _prox_subloop(prox[j], xj, Alpha[j], Psi, e_rel[j],
+                                    prox_max_iter)
+            st["sub_iters"][j] += tau
+        x_new.append(xj)
+        M_new.append(Mj)
+        V_new.append(Vj)
+        Vhat_new.append(Vhatj)
+
+    if check_convergence:
+        verdicts = [fixed_point_verdict(*fixed_point_norms(x_new[j], x[j]),
+                                        e_rel[j]) for j in range(n)]
+        st["converged"] = torch.stack([c for c, _ in verdicts])
+        finite = torch.stack([f for _, f in verdicts]).all()
+    else:
+        finite = torch.stack([torch.isfinite(x_new[j]).all()
+                              for j in range(n)]).all()
+    st["x"], st["M"], st["V"], st["Vhat"] = (
+        tuple(x_new), tuple(M_new), tuple(V_new), tuple(Vhat_new))
+    st["diverged"] = torch.logical_or(st["diverged"],
+                                      torch.logical_not(finite))
+
+
+def adaprox(
+    X,
+    grad,
+    step,
+    prox=None,
+    scheme="adam",
+    b1=0.9,
+    b2=0.999,
+    eps=1e-8,
+    check_convergence=True,
+    p=0.25,
+    e_rel=1e-6,
+    max_iter=1000,
+    prox_max_iter=1000,
+    M=None,
+    V=None,
+    Vhat=None,
+    callback=None,
+    trace=False,
+    f=None,
+    separable_prox=False,
+    moment_dtype=None,
+    state=None,
+):
+    """Adaptive Proximal Gradient Method (proximal Adam family).
+
+    Args:
+        X: initial iterate, a tensor/array or a list of them (blocks).
+            NumPy inputs are updated in place; tensors stay on their device.
+        grad: ``grad(*X) -> dX`` (a tuple for several blocks).
+        step: step size(s) ``alpha``, a callable ``step(*X, it=...)`` or a
+            stepper object; per-element steps broadcast.
+        prox: proximal operator(s) ``prox(X, step)``. Blocks whose prox is
+            None get no prox step at all (as in the reference).
+        scheme: ``"adam"``, ``"nadam"``, ``"amsgrad"``, ``"padam"``,
+            ``"adamx"`` or ``"radam"``.
+        b1: scalar or per-iteration schedule of ``max_iter`` values.
+        b2, eps, p: the moment decay, the denominator floor and PAdam's
+            power.
+        check_convergence: test ``||x' - x|| <= e_rel ||x'||`` per block;
+            without it the solve runs ``max_iter`` iterations (divergence
+            still stops it).
+        e_rel: relative tolerance (scalar or per block), also the prox
+            sub-iterations' tolerance.
+        prox_max_iter: cap on the prox sub-iterations per iteration.
+        M, V, Vhat: warm start from a previous run's moments (the
+            bias-correction clock restarts, as in the reference).
+        separable_prox: ``True`` asserts every prox has the closed-form
+            scaled prox ``prox(x, alpha/Psi)`` per element, which replaces
+            the sub-iterations; ``"auto"`` asks each operator's
+            ``separable_when``; ``False`` (default) keeps the reference's
+            sub-iterations.
+        moment_dtype: store M/V/Vhat in this dtype (``torch.bfloat16`` or
+            ``"bfloat16"``); the math computes in the block dtype.
+        state: a previous solve's ``.state`` for an exact resume (moments,
+            the global bias-correction clock, stepper state and the stop
+            flags), together with its ``.x``. Excludes ``M=/V=/Vhat=``.
+            With a scheduled ``b1``, pass the continuation slice.
+
+    ``callback``, ``trace`` and ``grad=None`` with ``f`` are not ported
+    yet.
+
+    Returns:
+        ``SolverResult`` unpacking as ``(converged, M, V, Vhat)``, with
+        ``.x``, ``.iterations``, ``.sub_iterations``, ``.converged``,
+        ``.status`` and ``.state``.
+    """
+    if callback is not None:
+        raise NotImplementedError(
+            f"adaprox callback= is not ported yet ({_LATER})")
+    if trace:
+        raise NotImplementedError(
+            f"adaprox trace= is not ported yet ({_LATER})")
+    if grad is None or f is not None:
+        raise NotImplementedError(
+            f"adaprox f= / grad=None (autodiff of f) is not ported yet "
+            f"({_LATER})")
+
+    x0, originals, was_single = tupleize(X)
+    n = len(x0)
+    prox_in = utils._as_tuple(prox)
+    if len(prox_in) == 1:
+        prox_in = prox_in * n
+    # the reference runs no prox step for blocks whose prox is None;
+    # remember which before normalization maps None to the identity
+    has_prox = tuple(pj is not None for pj in prox_in)
+    prox = normalize_prox(prox_in, n)
+    e_rel = normalize_per_block(e_rel, n)
+    separable = separable_blocks(prox_in, has_prox, separable_prox)
+
+    b1 = normalize_b1_schedule(b1, max_iter)
+    if not 0 <= b2 < 1:
+        raise ValueError(f"b2 must lie in [0, 1), got {b2}")
+    if eps < 0:
+        raise ValueError(f"eps must be >= 0, got {eps}")
+    if not 0 < p <= 0.5:
+        raise ValueError(f"p must lie in (0, 0.5], got {p}")
+    scheme = scheme.lower()
+    if scheme not in SCHEMES:
+        raise ValueError(f"unknown scheme {scheme!r}; one of "
+                         f"{sorted(SCHEMES)}")
+    phi_psi = SCHEMES[scheme]
+    moment_dtype = as_torch_dtype(moment_dtype)
+
+    it0 = 0
+    converged = torch.zeros((n,), dtype=torch.bool, device=x0[0].device)
+    diverged = torch.zeros((), dtype=torch.bool, device=x0[0].device)
+    stepper = make_stepper(step, n)
+    stepper_state = stepper.init_state(x0, None)
+    if state is not None:
+        if M is not None or V is not None or Vhat is not None:
+            raise ValueError("state= (exact resume) and M=/V=/Vhat= "
+                             "(moment warm start) are mutually exclusive")
+        M, V, Vhat = state["M"], state["V"], state["Vhat"]
+        it0 = int(state["it"])
+        stepper_state = state.get("stepper_state", stepper_state)
+        if state.get("converged") is not None:
+            converged = as_tensor(state["converged"], torch.bool,
+                                  x0[0].device).reshape((n,))
+        diverged = as_tensor(state.get("diverged", False), torch.bool,
+                             x0[0].device).reshape(())
+
+    def moments(given):
+        if given is None:
+            return tuple(torch.zeros_like(x, dtype=moment_dtype or x.dtype)
+                         for x in x0)
+        given = utils._as_tuple(given)
+        if len(given) != n:
+            raise ValueError(f"got {len(given)} moment blocks for {n} "
+                             "variable blocks")
+        out = tuple(as_tensor(g, moment_dtype or x.dtype, x.device).clone()
+                    for g, x in zip(given, x0))
+        for g, x in zip(out, x0):
+            if g.shape != x.shape:
+                raise ValueError(f"moment block of shape {tuple(g.shape)} "
+                                 f"for an iterate of {tuple(x.shape)}")
+        return out
+
+    st = dict(x=x0, M=moments(M), V=moments(V), Vhat=moments(Vhat),
+              stepper_state=stepper_state, it0=it0, converged=converged,
+              diverged=diverged, sub_iters=[0] * n)
+
+    def keep_going():
+        # the one host read per iteration
+        stop = st["diverged"]
+        if check_convergence:
+            stop = torch.logical_or(stop, st["converged"].all())
+        return not bool(stop)
+
+    it = 0
+    while it < max_iter and keep_going():
+        _step(st, it, grad, stepper, prox, has_prox, separable, phi_psi, b1,
+              b2, eps, p, e_rel, check_convergence, prox_max_iter,
+              moment_dtype)
+        it += 1
+
+    iterations = it
+    sub_iterations = tuple(st["sub_iters"])
+    logger.info("Completed %d iterations and %s sub-iterations", iterations,
+                list(sub_iterations))
+    diverged = bool(st["diverged"])
+    if check_convergence:
+        converged = tuple(bool(c) for c in st["converged"].tolist())
+        if not diverged and not all(converged):
+            logger.warning("Solution did not converge")
+    else:
+        converged = (None,) * n
+    if diverged:
+        status = "diverged"
+        logger.warning("Solution diverged (non-finite iterate)")
+    elif check_convergence and all(converged):
+        status = "converged"
+    else:
+        status = "max_iter"
+
+    writeback(originals, st["x"])
+    x_out = st["x"][0] if was_single else st["x"]
+    resume_state = {
+        "M": st["M"], "V": st["V"], "Vhat": st["Vhat"],
+        "stepper_state": st["stepper_state"],
+        "it": iterations + st["it0"],
+        "converged": st["converged"], "diverged": st["diverged"],
+    }
+    return SolverResult(
+        (converged, st["M"], st["V"], st["Vhat"]),
+        x=x_out, iterations=iterations, converged=converged,
+        sub_iterations=sub_iterations,
+        M=st["M"], V=st["V"], Vhat=st["Vhat"], history=None,
+        status=status, state=resume_state,
+    )

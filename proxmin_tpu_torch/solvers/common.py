@@ -3,6 +3,8 @@ results, dtype promotion at the solver boundary, the NumPy in-place
 contract and prox normalization. Counterparts of the same names in
 :mod:`proxmin_tpu.solvers.common`."""
 
+import functools
+
 import numpy as np
 import torch
 
@@ -18,6 +20,9 @@ __all__ = [
     "writeback",
     "normalize_prox",
     "normalize_per_block",
+    "as_tensor",
+    "as_torch_dtype",
+    "separable_blocks",
 ]
 
 
@@ -127,3 +132,65 @@ def normalize_per_block(val, n_blocks):
     if len(val) != n_blocks:
         raise ValueError(f"got {len(val)} values for {n_blocks} blocks")
     return val
+
+
+def as_tensor(a, dtype=None, device=None):
+    """``a`` (tensor, NumPy array or scalar) as a tensor of ``dtype`` (by
+    default its own) on ``device``. ``ml_dtypes`` bfloat16 arrays, as JAX
+    hands them out, which torch cannot take, go through float32 (exact for
+    every bfloat16 value) and arrive as ``torch.bfloat16``."""
+    if not isinstance(a, torch.Tensor):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            a = a.astype(np.float32)
+            dtype = dtype or torch.bfloat16
+        elif not a.flags.writeable:  # e.g. a view of a JAX array
+            a = a.copy()
+        a = torch.as_tensor(a)
+    return a.to(device=device, dtype=dtype)
+
+
+def as_torch_dtype(dtype):
+    """``torch.bfloat16``, a name such as ``"bfloat16"``, or a NumPy-style
+    dtype object (``jnp.bfloat16``) -> the torch floating dtype; None stays
+    None."""
+    if dtype is None or isinstance(dtype, torch.dtype):
+        return dtype
+    name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype) or not dt.is_floating_point:
+        raise ValueError(f"expected a floating dtype, got {dtype!r}")
+    return dt
+
+
+def separable_blocks(prox_in, has_prox, separable_prox):
+    """Resolve ``adaprox``'s ``separable_prox`` flag into a per-block
+    tuple.
+
+    ``True`` asserts every constrained block's prox admits the closed-form
+    scaled prox (the caller's responsibility); ``"auto"`` consults the
+    operator's ``separable_when(bound_kwargs)`` predicate (see
+    ``operators.py``), unwrapping one level of ``functools.partial``;
+    ``False``/None disables. Any other value raises ``ValueError`` (a typo
+    like ``"Auto"`` silently disabling it would be invisible)."""
+    n = len(prox_in)
+    if separable_prox is True:
+        return tuple(has_prox)
+    if separable_prox is False or separable_prox is None:
+        return (False,) * n
+    if separable_prox != "auto":
+        raise ValueError(
+            f"separable_prox must be True, False or 'auto', "
+            f"got {separable_prox!r}")
+
+    def check(pj):
+        if pj is None:
+            return False
+        kw = {}
+        if isinstance(pj, functools.partial):
+            kw = dict(pj.keywords)
+            pj = pj.func
+        pred = getattr(pj, "separable_when", None)
+        return bool(pred(kw)) if pred is not None else False
+
+    return tuple(check(pj) for pj in prox_in)

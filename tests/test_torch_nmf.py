@@ -193,7 +193,7 @@ def test_likelihood_gradient_and_steps_match_jax():
     ({"W": np.full((5, 400), 2.0)}, NotImplementedError),
     ({"engine": "auto"}, NotImplementedError),
     ({"mesh": object()}, NotImplementedError),
-    ({"algorithm": "adaprox"}, NotImplementedError),
+    ({"algorithm": "bsdmm"}, NotImplementedError),
     ({"algorithm": "admm"}, ValueError),
     ({"step_stride": 10}, NotImplementedError),
     ({"engine": "pallas"}, ValueError),

@@ -1,0 +1,382 @@
+"""AdaProx-NMF in the port against proxmin_tpu: K2's plain version, the two
+engines of nmf(algorithm="adaprox"), and states crossing between engines
+and packages.
+
+Tolerances and their reasons:
+- K2's plain version vs the JAX fused_nmf_adaprox_step (Pallas interpreter,
+  problem padded to (8, 8, tile) and outputs cropped): rtol 2e-4, atol 1e-5
+  elementwise, |S' - S|^2 rtol 1e-3 (K1's tolerances: float32 sums over the
+  pixels in other orders); bfloat16 moment stores within one bfloat16 ulp.
+- engine="torch" vs engine="xla", float64: rtol 1e-9, atol 1e-13 (the same
+  iteration in the same order; BLAS summation orders differ by ulps).
+- engine="cuda" (the plain K2 version on CPU tensors) vs nmf_adaprox_fused,
+  float32: atol 2e-5, as test_pallas_ops.py holds the fused engine to the
+  XLA driver. bfloat16 moments: a one-ulp float32 difference may flip one
+  bfloat16 rounding, which then compounds, so 2 iterations are held to atol
+  2e-5 and 20 to atol 5e-3.
+- resume within the port: bitwise.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import proxmin_tpu as pt
+import proxmin_tpu_torch as ptt
+from proxmin_tpu.ops.nmf_kernels import fused_nmf_adaprox_step as jax_step
+from proxmin_tpu_torch import interop
+from proxmin_tpu_torch.interop import state_from_numpy
+from proxmin_tpu_torch.ops import nmf_kernels as kk
+
+F64 = dict(rtol=1e-9, atol=1e-13)
+F32 = dict(rtol=0, atol=2e-5)
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _problem(seed=101, C=5, K=3, N=400, dtype=np.float64):
+    rng = np.random.default_rng(seed)
+    Y = (rng.random((C, K)) @ rng.random((K, N))
+         + 0.01 * rng.standard_normal((C, N))).astype(dtype)
+    A0 = rng.random((C, K)).astype(dtype)
+    S0 = rng.random((K, N)).astype(dtype)
+    W = (0.5 + rng.random((C, N))).astype(dtype)
+    return Y, A0, S0, W
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float64).numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float64))
+
+
+def _close(got, want, tol):
+    for t, j in zip(got, want):
+        np.testing.assert_allclose(_np(t), _np(j), **tol)
+
+
+def _numpy_state(state):
+    return jax.tree_util.tree_map(
+        lambda v: np.asarray(v) if isinstance(v, jax.Array) else v, state)
+
+
+# ---------------------------------------------------------------------------
+# K2's plain version against the JAX kernel
+
+def _pad(x, rows, cols):
+    return np.pad(x, ((0, rows - x.shape[0]), (0, cols - x.shape[1])))
+
+
+def _bf16_ulp_close(got, want):
+    """Within one bfloat16 ulp of want (both hold bfloat16 values)."""
+    m, e = np.frexp(want)
+    ulp = np.maximum(np.ldexp(1.0, e - 8), 2.0 ** -133)
+    assert np.all(np.abs(got - want) <= ulp)
+
+
+@pytest.mark.parametrize("mdt,weighted,prox", [
+    (m, w, p) for m in ("f32", "bf16") for w in (False, True)
+    for p in ("plus", "id")] + [("f32", True, "soft")])
+def test_plain_version_matches_jax_kernel(mdt, weighted, prox):
+    """f32 and bf16 moments, with and without W, the builtin proxs and a
+    relative soft threshold (the plain version takes any prox)."""
+    rng = np.random.default_rng(7)
+    C, K, N, tile = 5, 4, 300, 128
+    A = rng.random((C, K)).astype(np.float32)
+    S = rng.random((K, N)).astype(np.float32)
+    Y = rng.random((C, N)).astype(np.float32)
+    W = (0.5 + rng.random((C, N))).astype(np.float32) if weighted else None
+    jmd = jnp.bfloat16 if mdt == "bf16" else jnp.float32
+    # moments that the moment dtype holds exactly, as float32 arrays
+    M = np.array(jnp.asarray(0.1 * rng.standard_normal((K, N)), jmd)
+                 .astype(jnp.float32))
+    V = np.array(jnp.asarray(0.01 * rng.random((K, N)), jmd)
+                 .astype(jnp.float32))
+    alpha = (S.sum(1, keepdims=True) / N / 10).astype(np.float32)
+    one, t = np.float32(1), np.float32(4)
+    sc = (np.float32(0.9), one / (one - np.float32(0.9) ** t),
+          one / (one - np.float32(0.999) ** t))
+    j_prox, t_prox = {
+        "plus": (None, None),
+        "id": (pt.operators.prox_id, ptt.operators.prox_id),
+        "soft": (functools.partial(pt.operators.prox_soft, thresh=0.01),
+                 functools.partial(ptt.operators.prox_soft, thresh=0.01)),
+    }[prox]
+    Np = -(-N // tile) * tile
+    want = jax_step(
+        jnp.asarray(_pad(A, 8, 8)), jnp.asarray(_pad(S, 8, Np)),
+        jnp.asarray(_pad(M, 8, Np), jmd), jnp.asarray(_pad(V, 8, Np), jmd),
+        jnp.asarray(_pad(Y, 8, Np)), jnp.asarray(_pad(alpha, 8, 1)),
+        jnp.asarray(sc), W=None if W is None else jnp.asarray(_pad(W, 8, Np)),
+        prox_S=j_prox, tile_n=tile, dims=(C, K, N))
+    tmd = torch.bfloat16 if mdt == "bf16" else torch.float32
+    got = kk.fused_nmf_adaprox_step(
+        torch.from_numpy(A), torch.from_numpy(S),
+        torch.from_numpy(M).to(tmd), torch.from_numpy(V).to(tmd),
+        torch.from_numpy(Y), torch.from_numpy(alpha), sc,
+        W=None if W is None else torch.from_numpy(W), prox_S=t_prox)
+    crops = [(C, K), (K, N), (K, N), (K, N), (K, 1)]
+    for i, (g, w) in enumerate(zip(got[:5], want[:5])):
+        assert g.dtype == (tmd if i in (2, 3) else torch.float32)
+        w = _np(w)[:crops[i][0], :crops[i][1]]
+        if mdt == "bf16" and i in (2, 3):
+            _bf16_ulp_close(_np(g), w)
+        else:
+            np.testing.assert_allclose(_np(g), w, rtol=2e-4, atol=1e-5)
+    for i, (g, w) in enumerate(zip(got[5:], want[5:])):
+        np.testing.assert_allclose(float(g), float(w),
+                                   rtol=1e-3 if i == 1 else 2e-4)
+
+
+def test_cpu_tensors_take_the_plain_version():
+    """On CPU tensors the wrapper is the plain version, bit for bit, and
+    counts no kernel launch."""
+    rng = np.random.default_rng(3)
+    A, S, Y = (torch.from_numpy(rng.random(s).astype(np.float32))
+               for s in ((4, 3), (3, 200), (4, 200)))
+    M, V = torch.zeros_like(S), torch.zeros_like(S)
+    alpha = S.sum(1, keepdim=True) / 2000
+    sc = (0.9, 10.0, 1000.0)
+    before = kk.fused_nmf_adaprox_step.launches
+    got = kk.fused_nmf_adaprox_step(A, S, M, V, Y, alpha, sc)
+    ref = kk.fused_nmf_adaprox_step_reference(A, S, M, V, Y, alpha, sc)
+    assert kk.fused_nmf_adaprox_step.launches == before
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    assert kk._prox_flag(None, "fused_nmf_adaprox_step") == 1
+    assert kk._prox_flag(ptt.operators.prox_id) == 0
+    with pytest.raises(ValueError, match="fused_nmf_adaprox_step"):
+        kk._prox_flag(ptt.operators.prox_soft, "fused_nmf_adaprox_step")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        meta = torch.empty((4, 3), device="meta")
+        kk.fused_nmf_adaprox_step(meta, S, M, V, Y, alpha, sc)
+
+
+# ---------------------------------------------------------------------------
+# the torch engine against engine="xla"
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("mode", ["separable", "sub-loop"])
+def test_torch_engine_matches_xla(weighted, mode):
+    """The separable closed form for 25 fixed iterations, or the default
+    prox sub-iterations to a stopping test."""
+    Y, A0, S0, W = _problem()
+    w = W if weighted else 1
+    kw = (dict(e_rel=0, max_iter=25, separable_prox="auto")
+          if mode == "separable" else dict(e_rel=1e-4, max_iter=40))
+    rj = pt.nmf.nmf(Y, A0.copy(), S0.copy(), W=w, algorithm="adaprox", **kw)
+    rt = ptt.nmf.nmf(Y, A0.copy(), S0.copy(), W=w, algorithm="adaprox", **kw)
+    assert rt.iterations == rj.iterations
+    assert rt.sub_iterations == rj.sub_iterations
+    assert rt.x[0].dtype == torch.float64
+    _close(rt.x, rj.x, F64)
+
+
+def test_step_and_weights_match_jax():
+    Y, A, S, W = _problem(C=4, K=3, N=50)
+    for s, w in zip(ptt.nmf.step_adaprox(torch.from_numpy(A),
+                                         torch.from_numpy(S)),
+                    pt.nmf.step_adaprox(A, S)):
+        np.testing.assert_allclose(s.numpy(), np.asarray(w), rtol=1e-15)
+    Yt = torch.from_numpy(Y)
+    for w in (2.0, W, W[:, :1], np.float32(3.0)):
+        np.testing.assert_array_equal(ptt.nmf._promote_W(w, Yt).numpy(),
+                                      np.asarray(pt.nmf._promote_W(w, Y)))
+
+
+# ---------------------------------------------------------------------------
+# the cuda engine (the plain K2 version on CPU tensors) against
+# nmf_adaprox_fused
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_cuda_engine_matches_fused_engine(weighted):
+    Y, A0, S0, W = _problem(dtype=np.float32)
+    w = W if weighted else None
+    rj = pt.nmf.nmf_adaprox_fused(Y, A0.copy(), S0.copy(), W=w, e_rel=0,
+                                  max_iter=30, tile_n=128)
+    rt = ptt.nmf.nmf(Y, A0.copy(), S0.copy(), W=1 if w is None else w,
+                     algorithm="adaprox", engine="cuda", e_rel=0,
+                     max_iter=30)
+    assert rt.iterations == rj.iterations == 30
+    _close(rt.x, rj.x, F32)
+    _close(rt.M + rt.V, rj.M + rj.V, dict(rtol=1e-3, atol=1e-5))
+    np.testing.assert_allclose(rt.loss, rj.loss, rtol=1e-5)
+
+
+def test_cuda_engine_bfloat16_moments():
+    Y, A0, S0, _ = _problem(dtype=np.float32)
+    for iters, tol in ((2, F32), (20, dict(rtol=0, atol=5e-3))):
+        rj = pt.nmf.nmf_adaprox_fused(Y, A0.copy(), S0.copy(), e_rel=0,
+                                      max_iter=iters, tile_n=128,
+                                      moment_dtype=jnp.bfloat16)
+        rt = ptt.nmf.nmf(Y, A0.copy(), S0.copy(), algorithm="adaprox",
+                         engine="cuda", e_rel=0, max_iter=iters,
+                         moment_dtype="bfloat16")
+        assert rt.M[1].dtype == torch.bfloat16
+        assert rt.M[0].dtype == rt.x[1].dtype == torch.float32
+        _close(rt.x, rj.x, tol)
+
+
+def test_cuda_engine_warm_start_matches_fused_engine():
+    """M=/V= from a previous solve: the moments carry over and the
+    bias-correction clock restarts, as in the JAX engine."""
+    Y, A0, S0, _ = _problem(dtype=np.float32)
+    first = pt.nmf.nmf_adaprox_fused(Y, A0.copy(), S0.copy(), e_rel=0,
+                                     max_iter=12, tile_n=128)
+    A1, S1 = (np.array(x) for x in first.x)
+    M = tuple(np.asarray(m) for m in first.M)
+    V = tuple(np.asarray(v) for v in first.V)
+    rj = pt.nmf.nmf_adaprox_fused(Y, A1.copy(), S1.copy(), e_rel=0,
+                                  max_iter=12, tile_n=128, M=M, V=V)
+    rt = ptt.nmf.nmf(Y, A1.copy(), S1.copy(), algorithm="adaprox",
+                     engine="cuda", e_rel=0, max_iter=12, M=M, V=V)
+    _close(rt.x, rj.x, F32)
+
+
+def test_cuda_engine_resume_is_bit_exact():
+    """2 x 15 iterations through state= equal 30 straight, bit for bit (the
+    kernel's row sums carry over), and a stopped solve stays stopped."""
+    Y, A0, S0, W = _problem(dtype=np.float32)
+    kw = dict(algorithm="adaprox", engine="cuda", e_rel=0, W=W)
+    full = ptt.nmf.nmf(Y, A0.copy(), S0.copy(), max_iter=30, **kw)
+    half = ptt.nmf.nmf(Y, A0.copy(), S0.copy(), max_iter=15, **kw)
+    rest = ptt.nmf.nmf(Y, *half.x, max_iter=15, state=half.state, **kw)
+    assert rest.iterations == 15 and rest.state["it"] == 30
+    for a, b in zip(rest.x + rest.M + rest.V, full.x + full.M + full.V):
+        assert torch.equal(a, b)
+    assert torch.equal(rest.state["rowsum"], full.state["rowsum"])
+    assert rest.loss == full.loss
+    done = ptt.nmf.nmf(Y, A0.copy(), S0.copy(), algorithm="adaprox",
+                       engine="cuda", e_rel=1e-2, max_iter=3000)
+    assert done.status == "converged"
+    again = ptt.nmf.nmf(Y, *done.x, algorithm="adaprox", engine="cuda",
+                        e_rel=1e-2, max_iter=50, state=done.state)
+    assert again.iterations == 0 and again.loss == done.loss
+
+
+# ---------------------------------------------------------------------------
+# states across engines and packages
+
+def test_old_interop_sent_adaprox_states_to_the_pgm_branch():
+    """A JAX adaprox state has no "kind": the pgm conversion, which
+    state_from_numpy used to apply to any such state, fails on it with
+    KeyError 't'; the adaprox conversion takes it."""
+    Y, A0, S0, _ = _problem()
+    half = pt.nmf.nmf(Y, A0.copy(), S0.copy(), algorithm="adaprox",
+                      e_rel=0, max_iter=5, separable_prox="auto")
+    st = _numpy_state(half.state)
+    assert "kind" not in st
+    with pytest.raises(KeyError, match="'t'"):
+        interop._pgm_state(st, None)
+    conv = state_from_numpy(st)
+    assert set(conv) >= {"M", "V", "Vhat", "it", "converged", "diverged"}
+    assert conv["it"] == 5
+
+
+@pytest.mark.parametrize("jax_engine,port_engine,mdt", [
+    ("xla", "torch", None), ("pallas", "cuda", None),
+    ("pallas", "cuda", "bfloat16"), ("pallas", "torch", None)])
+def test_continue_a_jax_adaprox_solve_in_the_port(jax_engine, port_engine,
+                                                  mdt):
+    """15 JAX iterations, then 15 in the port from state_from_numpy,
+    against 30 JAX iterations (the fused state's bfloat16 moments arrive as
+    ml_dtypes arrays)."""
+    dtype = np.float64 if jax_engine == "xla" else np.float32
+    Y, A0, S0, _ = _problem(dtype=dtype)
+    kw = dict(algorithm="adaprox", e_rel=0, engine=jax_engine)
+    if jax_engine == "xla":
+        kw["separable_prox"] = "auto"
+    else:
+        kw["tile_n"] = 128
+    if mdt:
+        kw["moment_dtype"] = jnp.bfloat16
+    full = pt.nmf.nmf(Y, A0.copy(), S0.copy(), max_iter=30, **kw)
+    half = pt.nmf.nmf(Y, A0.copy(), S0.copy(), max_iter=15, **kw)
+    state = state_from_numpy(_numpy_state(half.state))
+    port_kw = dict(algorithm="adaprox", e_rel=0, engine=port_engine)
+    if port_engine == "cuda":
+        port_kw["tile_n"] = 128
+        port_kw["moment_dtype"] = mdt
+    else:
+        port_kw["separable_prox"] = "auto"
+    rest = ptt.nmf.nmf(Y, np.asarray(half.x[0]), np.asarray(half.x[1]),
+                       max_iter=15, state=state, **port_kw)
+    assert rest.iterations == 15 and int(rest.state["it"]) == 30
+    tol = F64 if jax_engine == "xla" else F32
+    if mdt:  # a moment rounding may flip (see the module docstring)
+        tol = dict(rtol=0, atol=5e-3)
+    _close(rest.x, full.x, tol)
+
+
+def test_cuda_state_resumes_on_the_torch_engine():
+    """The fused state is interchangeable with the driver's: 15 cuda
+    iterations continued by 15 on the torch engine match 30 cuda ones, and
+    the other way round."""
+    Y, A0, S0, _ = _problem(dtype=np.float32)
+    cuda = dict(algorithm="adaprox", engine="cuda", e_rel=0)
+    torch_ = dict(algorithm="adaprox", engine="torch", e_rel=0,
+                  separable_prox="auto")
+    full = ptt.nmf.nmf(Y, A0.copy(), S0.copy(), max_iter=30, **cuda)
+    half = ptt.nmf.nmf(Y, A0.copy(), S0.copy(), max_iter=15, **cuda)
+    rest = ptt.nmf.nmf(Y, *half.x, max_iter=15, state=half.state, **torch_)
+    assert int(rest.state["it"]) == 30
+    _close(rest.x, full.x, F32)
+    half_t = ptt.nmf.nmf(Y, A0.copy(), S0.copy(), max_iter=15, **torch_)
+    rest_c = ptt.nmf.nmf(Y, *half_t.x, max_iter=15, state=half_t.state,
+                         **cuda)
+    _close(rest_c.x, full.x, F32)
+
+
+# ---------------------------------------------------------------------------
+# what the engines refuse, as the JAX engines refuse it
+
+@pytest.mark.parametrize("kw,err,match", [
+    ({"scheme": "radam"}, ValueError, "scheme='adam'"),
+    ({"separable_prox": False}, ValueError, "sub-iteration"),
+    ({"separable_prox": "Auto"}, ValueError, "separable"),
+    ({"prox_S": functools.partial(ptt.operators.prox_soft, thresh=0.01,
+                                  type="absolute")}, ValueError, "separable"),
+    ({"step_stride": 5}, ValueError, "step_stride"),
+    ({"step": ptt.nmf.step_adaprox}, ValueError, "default steps"),
+    ({"accelerated": True}, ValueError, "unsupported"),
+    ({"store_dtype": torch.bfloat16}, NotImplementedError, "store_dtype"),
+])
+def test_cuda_engine_gates(kw, err, match):
+    Y, A0, S0, _ = _problem(C=4, K=3, N=128, dtype=np.float32)
+    with pytest.raises(err, match=match):
+        ptt.nmf.nmf(Y, A0, S0, algorithm="adaprox", engine="cuda",
+                    max_iter=3, **kw)
+
+
+def test_states_that_do_not_fit_raise():
+    Y, A0, S0, W = _problem(C=4, K=3, N=128, dtype=np.float32)
+    pgm_state = ptt.nmf.nmf(Y, A0.copy(), S0.copy(), engine="cuda",
+                            max_iter=2).state
+    with pytest.raises(ValueError, match="PGM state"):
+        ptt.nmf.nmf(Y, A0, S0, algorithm="adaprox", max_iter=2,
+                    state=pgm_state)
+    with pytest.raises(ValueError, match="nmf_pgm_fused"):
+        ptt.nmf.nmf_adaprox_fused(Y, A0, S0, max_iter=2, state=pgm_state)
+    fused = ptt.nmf.nmf(Y, A0.copy(), S0.copy(), algorithm="adaprox",
+                        engine="cuda", max_iter=2)
+    with pytest.raises(ValueError, match="fused configuration"):
+        ptt.nmf.nmf(Y, *fused.x, algorithm="adaprox", engine="cuda",
+                    max_iter=2, tile_n=128, state=fused.state)
+    with pytest.raises(ValueError, match="stepper state"):
+        ptt.nmf.nmf(Y, *fused.x, algorithm="adaprox", engine="cuda",
+                    max_iter=2, state=dict(fused.state, stepper_state=(1,)))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        ptt.nmf.nmf(Y, A0, S0, algorithm="adaprox", step_stride=5,
+                    max_iter=2)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        ptt.nmf.nmf(Y, A0, S0, W=W, max_iter=2)

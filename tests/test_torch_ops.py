@@ -102,10 +102,13 @@ def test_wrapper_refuses_other_devices():
 
 
 def test_build_inputs_are_in_the_checkout():
-    """The kernel is built from the package's own source into the
-    gitignored build directory of the checkout."""
-    assert k1._SOURCE.is_file()
-    assert k1._SOURCE.parent.name == "csrc"
+    """Each kernel is built from the package's own source into a library
+    of its own in the gitignored build directory of the checkout."""
+    assert set(k1._SOURCES) == {"nmf_pgm_step", "nmf_adaprox_step"}
+    for name, src in k1._SOURCES.items():
+        assert src.is_file() and src.parent.name == "csrc"
+        assert k1._library_path(name).name.startswith(f"{name}-")
+        assert k1._library_path(name).parent == k1._BUILD_DIR
     root = k1._BUILD_DIR.parents[1]
     assert (root / "proxmin_tpu_torch").is_dir()
     ignored = (root / ".gitignore").read_text().split()
