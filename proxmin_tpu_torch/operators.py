@@ -2,11 +2,14 @@
 
 Counterparts of :mod:`proxmin_tpu.operators` with the same signatures and
 the same relative/absolute threshold convention. Every operator returns a
-new tensor. ``prox_components``, ``prox_max_entropy`` and
-``AlternatingProjections`` are not ported yet.
+new tensor.
 """
 
+import functools
+
 import torch
+
+from .special import lambertw_exp
 
 __all__ = [
     "prox_id",
@@ -16,10 +19,13 @@ __all__ = [
     "prox_unity_plus",
     "prox_min",
     "prox_max",
+    "prox_components",
     "prox_hard",
     "prox_hard_plus",
     "prox_soft",
     "prox_soft_plus",
+    "prox_max_entropy",
+    "AlternatingProjections",
     "get_thresh",
 ]
 
@@ -81,6 +87,27 @@ def prox_max(X, step, thresh=0, type="relative"):
     return torch.minimum(X, _like(X, get_thresh(step, thresh, type)))
 
 
+def prox_components(X, step, prox=None, axis=0):
+    """Split ``X`` along ``axis`` (0 or 1) and apply a prox to each slice.
+
+    ``prox`` is a single callable or a list with one entry per slice;
+    ``None`` entries are the identity."""
+    K = X.shape[axis]
+    if not isinstance(prox, (list, tuple)):
+        prox = [prox] * K
+    if len(prox) != K:
+        raise ValueError(f"need {K} prox operators along axis {axis}, got "
+                         f"{len(prox)}")
+    prox = [p if p is not None else prox_id for p in prox]
+    if axis == 0:
+        Pk = [prox[k](X[k], step) for k in range(K)]
+    elif axis == 1:
+        Pk = [prox[k](X[:, k], step) for k in range(K)]
+    else:
+        raise NotImplementedError("prox_components supports axis 0 or 1")
+    return torch.stack(Pk, dim=axis)
+
+
 def prox_hard(X, step, thresh=0, type="relative"):
     """Hard thresholding: ``X`` if ``|X| >= thresh``, otherwise 0."""
     thresh_ = _like(X, get_thresh(step, thresh, type))
@@ -104,6 +131,47 @@ def prox_soft_plus(X, step, thresh=0, type="relative"):
     return prox_plus(prox_soft(X, step, thresh=thresh, type=type), step)
 
 
+def prox_max_entropy(X, step, gamma=1, type="relative"):
+    """Proximal operator of the maximum-entropy penalty
+    ``gamma * sum_i x_i ln(x_i)``: ``gamma_ W(exp(X/gamma_ - 1) / gamma_)``
+    where ``X > 0`` (``X`` elsewhere), with W the Lambert function, computed
+    as :func:`~proxmin_tpu_torch.special.lambertw_exp` of
+    ``X/gamma_ - 1 - log(gamma_)`` so ``exp`` never overflows."""
+    gamma_ = _like(X, get_thresh(step, gamma, type))
+    t = X / gamma_ - 1.0 - torch.log(gamma_)
+    w = gamma_ * lambertw_exp(t)
+    return torch.where(X > 0, w.to(X.dtype), X)
+
+
+class AlternatingProjections:
+    """Several proximal operators combined as alternating projections
+    (POCS): the list is applied in reverse order (the first one last),
+    ``repeat`` times. Returns a new tensor."""
+
+    def __init__(self, prox_list=None, repeat=1):
+        self.operators = []
+        self.repeat = repeat
+        if prox_list is not None:
+            self.operators += list(prox_list)
+
+    def __call__(self, X, step):
+        for _ in range(self.repeat):
+            for prox in self.operators[::-1]:
+                X = prox(X, step)
+        return X
+
+    def find(self, cls):
+        """Index of the first operator that is ``cls`` or a
+        ``functools.partial`` of it; -1 when there is none."""
+        for i, prox in enumerate(self.operators):
+            if isinstance(prox, functools.partial):
+                if prox.func is cls:
+                    return i
+            elif prox is cls:
+                return i
+        return -1
+
+
 # Separable-prox markers (as in proxmin_tpu.operators). The scaled proximal
 # problem ``min_z g(z) + (1/(2 alpha)) (z - x)^T diag(Psi) (z - x)``
 # decomposes per element into ``prox_{g_i}`` with step ``alpha / Psi_i``,
@@ -115,9 +183,8 @@ def prox_soft_plus(X, step, thresh=0, type="relative"):
 # * fixed constraint sets (the step is ignored): always for prox_id,
 #   prox_zero, prox_plus; prox_min/prox_max only with ``type="absolute"``
 #   or ``thresh=0`` (a relative threshold scales the SET by the step);
-# * step-scaled penalties: prox_soft, prox_soft_plus with
-#   ``type="relative"`` (prox_max_entropy gets its marker when it is
-#   ported);
+# * step-scaled penalties: prox_soft, prox_soft_plus and prox_max_entropy
+#   with ``type="relative"``;
 # * prox_hard/prox_hard_plus never: L0's nonconvex fixed points need the
 #   sub-iterations.
 
@@ -143,6 +210,6 @@ for _p in (prox_id, prox_zero, prox_plus):
     _p.separable_when = _sep_always
 for _p in (prox_min, prox_max):
     _p.separable_when = _sep_fixed_interval
-for _p in (prox_soft, prox_soft_plus):
+for _p in (prox_soft, prox_soft_plus, prox_max_entropy):
     _p.separable_when = _sep_scaled_penalty
 del _p

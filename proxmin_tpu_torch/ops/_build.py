@@ -1,0 +1,101 @@
+"""Build and load the port's CUDA kernels.
+
+Each kernel source in ``csrc/`` is compiled with ``nvcc`` for ``sm_90a``
+into a shared library of its own with a plain C interface, at first use,
+under ``build/kernels/`` of the checkout (named by the source and a hash of
+its text and the flags), and loaded with ``ctypes``. A kernel module
+registers its source with :func:`register`, together with a function that
+declares the library's C signatures; nothing is compiled or loaded at
+import.
+"""
+
+import concurrent.futures
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+__all__ = ["register", "build_kernel", "build_kernels"]
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+#: Kernel name -> its source; each builds into a library of its own.
+_SOURCES = {}
+#: Kernel name -> ``declare(lib)``, which sets the C functions' signatures.
+_DECLARE = {}
+_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def register(name, declare):
+    """Register ``csrc/<name>.cu`` as a kernel library whose C signatures
+    ``declare(lib)`` sets once it is loaded."""
+    _SOURCES[name] = CSRC / f"{name}.cu"
+    _DECLARE[name] = declare
+
+
+def _nvcc():
+    for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
+        if home and Path(home, "bin", "nvcc").is_file():
+            return str(Path(home, "bin", "nvcc"))
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not Path(found).is_file():
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME, $CUDA_PATH, $PATH and "
+            "/usr/local/cuda/bin): the CUDA kernels cannot be built")
+    return found
+
+
+def _library_path(name):
+    digest = hashlib.sha256(_SOURCES[name].read_bytes()
+                            + " ".join(_NVCC_FLAGS).encode()).hexdigest()
+    return _BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def build_kernel(name="nmf_pgm_step"):
+    """Compile ``csrc/<name>.cu`` unless the library for this exact source
+    is already built. Returns ``(path, seconds, compiler_log)``;
+    ``seconds`` is 0.0 and the log is the stored one when nothing was
+    compiled. Raises ``RuntimeError`` when ``nvcc`` fails."""
+    lib = _library_path(name)
+    log_path = lib.with_suffix(".log")
+    if lib.is_file():
+        return lib, 0.0, log_path.read_text() if log_path.is_file() else ""
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCES[name])]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {name} ({proc.returncode}):\n"
+                           f"{log}")
+    log_path.write_text(log)
+    os.replace(tmp, lib)
+    return lib, seconds, log
+
+
+def build_kernels(names=None):
+    """Build several kernel sources at once (by default every registered
+    one), one ``nvcc`` each, all started together. Returns
+    ``{name: (path, seconds, compiler_log)}`` and raises the first build's
+    error."""
+    names = tuple(_SOURCES) if names is None else tuple(names)
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        futures = {name: pool.submit(build_kernel, name) for name in names}
+        return {name: f.result() for name, f in futures.items()}
+
+
+@functools.cache
+def _library(name):
+    """The loaded library of kernel ``name`` with its C signatures
+    declared (built on first use)."""
+    lib = ctypes.CDLL(str(build_kernel(name)[0]))
+    _DECLARE[name](lib)
+    return lib
+

@@ -1,5 +1,5 @@
-"""The fused NMF steps K1 and K2: their CUDA kernels, build, binding and
-plain versions.
+"""The fused NMF kernels K1, K2 and K3: their CUDA wrappers, C signatures
+and plain versions.
 
 :func:`fused_nmf_pgm_step` (K1) is the counterpart of
 ``proxmin_tpu.ops.nmf_kernels.fused_nmf_pgm_step``: one S-side PGM-NMF
@@ -14,38 +14,35 @@ EMAs with bias correction, the closed-form separable prox, the next
 iteration's row sums and the statistics), kernel in
 ``csrc/nmf_adaprox_step.cu``.
 
+:func:`fused_nmf_grad` (K3) is the counterpart of
+``proxmin_tpu.ops.fused_nmf_grad``: both factor gradients, the ``S S^T``
+Gram and the loss in one pass, the residual never stored, kernel in
+``csrc/nmf_grad.cu``. No solver calls it; a user passes it to ``pgm`` as
+the gradient.
+
 On CUDA tensors each wrapper launches its hand-written kernel; on CPU
 tensors it runs its plain version (``*_reference``), the same math as
 tensor ops. Unlike the TPU kernels, they take unpadded ``(C, K)``,
 ``(K, N)`` and ``(C, N)`` tensors: there is no sublane/lane padding, no
-VMEM tile model and no ``dims`` argument.
-
-Each kernel source is compiled with ``nvcc`` for ``sm_90a`` into a shared
-library of its own with a plain C interface, at first use, under
-``build/kernels/`` of the checkout (named by the source and a hash of its
-text and the flags), and loaded with ``ctypes``.
+VMEM tile model and no ``dims`` argument. The kernels are built at first
+use by :mod:`._build`.
 """
 
-import concurrent.futures
 import ctypes
-import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import numpy as np
 import torch
 
 from .. import operators
+from ._build import _library, build_kernel, build_kernels, register
 
 __all__ = [
     "fused_nmf_pgm_step",
     "fused_nmf_pgm_step_reference",
     "fused_nmf_adaprox_step",
     "fused_nmf_adaprox_step_reference",
+    "fused_nmf_grad",
+    "fused_nmf_grad_reference",
     "build_kernel",
     "build_kernels",
     "DEFAULT_TILE_N",
@@ -54,94 +51,39 @@ __all__ = [
 #: Pixel columns per CUDA block (256 threads, 16 columns each).
 DEFAULT_TILE_N = 4096
 
-_CSRC = Path(__file__).resolve().parent.parent / "csrc"
-#: Kernel name -> its source; each builds into a library of its own.
-_SOURCES = {
-    "nmf_pgm_step": _CSRC / "nmf_pgm_step.cu",
-    "nmf_adaprox_step": _CSRC / "nmf_adaprox_step.cu",
-}
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _F32_TINY = float(torch.finfo(torch.float32).tiny)
-
-
-def _nvcc():
-    for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
-        if home and Path(home, "bin", "nvcc").is_file():
-            return str(Path(home, "bin", "nvcc"))
-    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not Path(found).is_file():
-        raise RuntimeError(
-            "nvcc not found (looked in $CUDA_HOME, $CUDA_PATH, $PATH and "
-            "/usr/local/cuda/bin): the CUDA kernels cannot be built")
-    return found
-
-
-def _library_path(name):
-    digest = hashlib.sha256(_SOURCES[name].read_bytes()
-                            + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    return _BUILD_DIR / f"{name}-{digest[:16]}.so"
-
-
-def build_kernel(name="nmf_pgm_step"):
-    """Compile ``csrc/<name>.cu`` unless the library for this exact source
-    is already built. Returns ``(path, seconds, compiler_log)``;
-    ``seconds`` is 0.0 and the log is the stored one when nothing was
-    compiled. Raises ``RuntimeError`` when ``nvcc`` fails."""
-    lib = _library_path(name)
-    log_path = lib.with_suffix(".log")
-    if lib.is_file():
-        return lib, 0.0, log_path.read_text() if log_path.is_file() else ""
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCES[name])]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {name} ({proc.returncode}):\n"
-                           f"{log}")
-    log_path.write_text(log)
-    os.replace(tmp, lib)
-    return lib, seconds, log
-
-
-def build_kernels(names=tuple(_SOURCES)):
-    """Build several kernel sources at once, one ``nvcc`` each, all
-    started together. Returns ``{name: (path, seconds, compiler_log)}``
-    and raises the first build's error."""
-    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
-        futures = {name: pool.submit(build_kernel, name) for name in names}
-        return {name: f.result() for name, f in futures.items()}
-
-
-def _declare(lib, name):
-    p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
-    if name == "nmf_pgm_step":
-        lib.nmf_pgm_step_partials_width.argtypes = [i, i]
-        lib.nmf_pgm_step_partials_width.restype = i
-        lib.nmf_pgm_step_f32.argtypes = [p, p, p, p, p, i, i, i, ll, ll,
-                                         p, p, p, p, p, p]
-        lib.nmf_pgm_step_f32.restype = i
-    else:
-        lib.nmf_adaprox_step_partials_width.argtypes = [i, i]
-        lib.nmf_adaprox_step_partials_width.restype = i
-        lib.nmf_adaprox_step.argtypes = [p, p, p, p, p, p, p,
-                                         f, f, f, f, f, f, i, i, i, i, ll, ll,
-                                         p, p, p, p, p, p, p, p]
-        lib.nmf_adaprox_step.restype = i
 
 
-@functools.cache
-def _library(name):
-    """The loaded library of kernel ``name`` with its C signatures
-    declared (built on first use)."""
-    lib = ctypes.CDLL(str(build_kernel(name)[0]))
-    _declare(lib, name)
-    return lib
+def _declare_pgm_step(lib):
+    lib.nmf_pgm_step_partials_width.argtypes = [_I, _I]
+    lib.nmf_pgm_step_partials_width.restype = _I
+    lib.nmf_pgm_step_f32.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _LL,
+                                     _LL, _P, _P, _P, _P, _P, _P]
+    lib.nmf_pgm_step_f32.restype = _I
+
+
+def _declare_adaprox_step(lib):
+    lib.nmf_adaprox_step_partials_width.argtypes = [_I, _I]
+    lib.nmf_adaprox_step_partials_width.restype = _I
+    lib.nmf_adaprox_step.argtypes = [_P, _P, _P, _P, _P, _P, _P,
+                                     _F, _F, _F, _F, _F, _F, _I, _I, _I, _I,
+                                     _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _P]
+    lib.nmf_adaprox_step.restype = _I
+
+
+def _declare_grad(lib):
+    lib.nmf_grad_partials_width.argtypes = [_I, _I]
+    lib.nmf_grad_partials_width.restype = _I
+    lib.nmf_grad_f32.argtypes = [_P, _P, _P, _P, _I, _I, _LL, _LL,
+                                 _P, _P, _P, _P, _P, _P]
+    lib.nmf_grad_f32.restype = _I
+
+
+register("nmf_pgm_step", _declare_pgm_step)
+register("nmf_adaprox_step", _declare_adaprox_step)
+register("nmf_grad", _declare_grad)
 
 
 def _nonneg(X):
@@ -402,3 +344,91 @@ def fused_nmf_adaprox_step(A, S, M, V, Y, alpha_S, scalars, W=None,
 
 
 fused_nmf_adaprox_step.launches = 0
+
+
+def fused_nmf_grad_reference(A, S, Y, W=None):
+    """Plain PyTorch version of :func:`fused_nmf_grad` (float32 tensor ops,
+    any device)."""
+    f32 = torch.float32
+    A, S, Y = A.to(f32), S.to(f32), Y.to(f32)
+    R = A @ S - Y
+    D = R if W is None else W.to(f32) * R
+    return D @ S.T, A.T @ D, S @ S.T, torch.sum(D * R) / 2
+
+
+def fused_nmf_grad(A, S, Y, W=None, tile_n=DEFAULT_TILE_N):
+    """One-pass fused NMF gradients.
+
+    Args:
+        A: (C, K), S: (K, N), Y and W: (C, N) tensors of any float dtype,
+            cast to contiguous float32 as the TPU kernel casts them. W is
+            None (unweighted) or a (C, N) tensor.
+        tile_n: pixel columns per CUDA block; it fixes the summation order.
+
+    Returns:
+        ``(grad_A, grad_S, SSt, loss)`` for the residual
+        ``D = W (A S - Y)``: ``grad_A = D S^T``, ``grad_S = A^T D``, the
+        Gram ``S S^T`` and ``loss = sum(D (A S - Y)) / 2`` (a 0-d tensor),
+        all float32. D is never stored.
+
+    CPU tensors go to :func:`fused_nmf_grad_reference`. CUDA tensors launch
+    the CUDA kernel (``csrc/nmf_grad.cu``, built on first use; C <= 16,
+    K <= 8) on the current stream without synchronizing, or raise; each
+    launch adds one to ``fused_nmf_grad.launches``.
+    """
+    A, S, Y = (torch.as_tensor(t) for t in (A, S, Y))
+    W = None if W is None else torch.as_tensor(W)
+    if A.dim() != 2 or S.dim() != 2 or Y.dim() != 2:
+        raise ValueError("fused_nmf_grad takes 2-D A (C, K), S (K, N) and "
+                         "Y (C, N)")
+    C, K = A.shape
+    N = S.shape[1]
+    if (S.shape[0] != K or tuple(Y.shape) != (C, N)
+            or (W is not None and tuple(W.shape) != (C, N))):
+        raise ValueError(
+            f"fused_nmf_grad shapes: A {tuple(A.shape)}, S {tuple(S.shape)}, "
+            f"Y {tuple(Y.shape)}"
+            + ("" if W is None else f", W {tuple(W.shape)}")
+            + "; need A (C, K), S (K, N), Y and W (C, N)")
+    device = A.device
+    if device.type == "cpu":
+        return fused_nmf_grad_reference(A, S, Y, W=W)
+    if device.type != "cuda":
+        raise ValueError(f"fused_nmf_grad runs on CPU or CUDA tensors, got "
+                         f"{device}")
+    if not (1 <= C <= 16 and 1 <= K <= 8):
+        raise ValueError(f"the CUDA fused_nmf_grad is compiled for C <= 16 "
+                         f"and K <= 8, got C={C}, K={K}")
+    if N < 1 or int(tile_n) < 1:
+        raise ValueError(f"need N >= 1 and tile_n >= 1, got N={N}, "
+                         f"tile_n={tile_n}")
+    f32 = torch.float32
+    A, S, Y = (t.to(f32).contiguous() for t in (A, S, Y))
+    _check_operand("S", S, (K, N), device)
+    _check_operand("Y", Y, (C, N), device)
+    if W is not None:
+        W = W.to(f32).contiguous()
+        _check_operand("W", W, (C, N), device)
+    lib = _library("nmf_grad")
+    width = lib.nmf_grad_partials_width(C, K)
+    tile_n = int(tile_n)
+    n_blocks = -(-N // tile_n)
+    gA = torch.empty((C, K), dtype=f32, device=device)
+    gS = torch.empty((K, N), dtype=f32, device=device)
+    SSt = torch.empty((K, K), dtype=f32, device=device)
+    loss = torch.empty((), dtype=f32, device=device)
+    partials = torch.empty((n_blocks, width), dtype=f32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.nmf_grad_f32(
+            A.data_ptr(), S.data_ptr(), Y.data_ptr(),
+            None if W is None else W.data_ptr(), C, K, N, tile_n,
+            gA.data_ptr(), gS.data_ptr(), SSt.data_ptr(), loss.data_ptr(),
+            partials.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_nmf_grad launch failed: CUDA error {rc}")
+    fused_nmf_grad.launches += 1
+    return gA, gS, SSt, loss
+
+
+fused_nmf_grad.launches = 0

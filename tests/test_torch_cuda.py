@@ -1,5 +1,5 @@
-"""K1 and K2 on the card against their plain versions, and the cuda
-engines on the card.
+"""K1, K2, K3 and K4 on the card against their plain versions, the cuda
+engines and the ops entry point's paths on the card.
 
 Needs an NVIDIA GPU and nvcc; every test skips elsewhere. This file imports
 no JAX, so it also runs where JAX is not installed:
@@ -11,15 +11,24 @@ CPU tests hold the plain versions to the JAX kernels: both sides are float32
 and sum the pixel-axis reductions in different orders. bfloat16 moment
 stores: within one bfloat16 ulp (a one-ulp float32 difference in the EMA may
 flip one rounding), plus atol 1e-5 where the EMA cancels to near zero.
+K3 (fused_nmf_grad): rtol 2e-4, atol 1e-5, as K1. K4 (the prox kernels):
+plus, soft and hard bitwise equal (one comparison or a few separately
+rounded operations per element, as in the plain version); unity rtol 1e-6
+in float32 and 1e-14 in float64 (the sums are taken in another order).
 """
+
+import functools
 
 import numpy as np
 import pytest
 import torch
 
+from proxmin_tpu_torch import algorithms
 from proxmin_tpu_torch import nmf as tnmf
 from proxmin_tpu_torch import operators as top
+from proxmin_tpu_torch import ops as tops
 from proxmin_tpu_torch.ops import nmf_kernels as k1
+from proxmin_tpu_torch.ops import prox_kernels as pk
 
 pytestmark = pytest.mark.cuda
 
@@ -27,7 +36,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the K1 kernel has no CPU mode)")
+        pytest.skip("needs a CUDA device (the CUDA kernels have no CPU mode)")
     return torch.device("cuda", 0)
 
 
@@ -245,3 +254,242 @@ def test_adaprox_engines_on_the_card(dev, mdt):
                         state=half.state, **kw)
     for a, b in zip(on_torch.x, rc.x):
         torch.testing.assert_close(a, b, **tol)
+
+
+# K3: fused_nmf_grad
+
+@pytest.mark.parametrize("C,K,N", [(5, 7, 1000), (8, 4, 4133), (16, 8, 300),
+                                   (1, 1, 5), (3, 2, 10000), (5, 7, 1_000_000)])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("tile_n", [128, k1.DEFAULT_TILE_N])
+def test_grad_kernel_matches_plain_version(dev, C, K, N, weighted, tile_n):
+    A, S, Y, W = _problem(dev, C, K, N, weighted)
+    got = tops.fused_nmf_grad(A, S, Y, W=W, tile_n=tile_n)
+    ref = tops.fused_nmf_grad_reference(A, S, Y, W=W)
+    torch.cuda.synchronize()
+    assert got[3].shape == () and all(t.dtype == torch.float32 for t in got)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=2e-4, atol=1e-5)
+
+
+def test_grad_kernel_casts_inputs_to_float32(dev):
+    A, S, Y, W = _problem(dev, 5, 7, 3000, weighted=True)
+    got = tops.fused_nmf_grad(A.double(), S.double(), Y.double(),
+                              W=W.double())
+    again = tops.fused_nmf_grad(A, S, Y, W=W)
+    torch.cuda.synchronize()
+    for g, a in zip(got, again):
+        assert g.dtype == torch.float32 and torch.equal(g, a)
+
+
+def test_grad_kernel_is_deterministic_and_counted(dev):
+    A, S, Y, W = _problem(dev, 5, 7, 200_000, weighted=True)
+    before = tops.fused_nmf_grad.launches
+    one = tops.fused_nmf_grad(A, S, Y, W=W)
+    two = tops.fused_nmf_grad(A, S, Y, W=W)
+    torch.cuda.synchronize()
+    assert tops.fused_nmf_grad.launches == before + 2
+    for a, b in zip(one, two):
+        assert torch.equal(a, b)
+
+
+def test_grad_kernel_keeps_nan(dev):
+    A, S, Y, _ = _problem(dev, 5, 7, 1000)
+    S[:, 17] = float("nan")
+    gA, gS, SSt, loss = tops.fused_nmf_grad(A, S, Y)
+    assert bool(torch.isnan(gS[:, 17]).all())
+    assert bool(torch.isfinite(gS[:, :17]).all())
+    for v in (gA, SSt, loss):
+        assert not bool(torch.isfinite(v).all())
+
+
+def test_grad_kernel_refuses_what_it_cannot_run(dev):
+    A2, S2, Y2, _ = _problem(dev, 17, 3, 100)
+    with pytest.raises(ValueError, match="C <= 16"):
+        tops.fused_nmf_grad(A2, S2, Y2)
+    A3, S3, Y3, _ = _problem(dev, 4, 9, 100)
+    with pytest.raises(ValueError, match="K <= 8"):
+        tops.fused_nmf_grad(A3, S3, Y3)
+    A, S, Y, _ = _problem(dev, 5, 7, 100)
+    with pytest.raises(ValueError, match="share one device"):
+        tops.fused_nmf_grad(A, S.cpu(), Y)
+
+
+# K4: the prox kernels
+
+_ELEMENTWISE = [("plus", {}), ("soft", {"thresh": 0.3}),
+                ("soft", {"thresh": 0.3, "type": "absolute"}),
+                ("hard", {"thresh": 0.3}),
+                ("hard", {"thresh": 0.3, "type": "absolute"})]
+_IDS = [f"{op}-{kw.get('type', 'relative')}" for op, kw in _ELEMENTWISE]
+
+
+def _prox(op):
+    return (getattr(tops, f"prox_{op}_pallas"),
+            getattr(pk, f"prox_{op}_reference"))
+
+
+def _x(dev, shape, dtype, seed=7, positive=False):
+    rng = np.random.default_rng(seed)
+    a = 0.1 + rng.random(shape) if positive else rng.normal(size=shape)
+    return torch.tensor(a, dtype=dtype, device=dev)
+
+
+@pytest.mark.parametrize("op,kw", _ELEMENTWISE, ids=_IDS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(1, 7), (5, 129), (13, 1000), (8, 128),
+                                   (7, 1_000_000), (3, 1)])
+def test_prox_kernel_equals_plain_version(dev, op, kw, dtype, shape):
+    kernel, plain = _prox(op)
+    X = _x(dev, shape, dtype)
+    got = kernel(X, 0.5, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == X.shape
+    assert got.data_ptr() != X.data_ptr()
+    assert torch.equal(got, plain(X, 0.5, **kw))
+
+
+@pytest.mark.parametrize("op,kw", _ELEMENTWISE, ids=_IDS)
+def test_prox_kernel_unaligned_view_and_bfloat16(dev, op, kw):
+    """An input at an odd offset takes the scalar path; bfloat16 computes
+    in float32 and is cast back, as the plain version does."""
+    kernel, plain = _prox(op)
+    base = _x(dev, (7, 1001), torch.float32)
+    X = base.reshape(-1)[1:1 + 7 * 1000].reshape(7, 1000)
+    assert X.data_ptr() % 16 != 0
+    assert torch.equal(kernel(X, 0.5, **kw), plain(X, 0.5, **kw))
+    Xb = base.to(torch.bfloat16)
+    got = kernel(Xb, 0.5, **kw)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, plain(Xb, 0.5, **kw))
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(1, 7), (5, 129), (13, 1000), (8, 128),
+                                   (7, 1_000_000), (3, 5000)])
+def test_unity_kernel_matches_plain_version(dev, axis, dtype, shape):
+    X = _x(dev, shape, dtype, positive=True)
+    got = tops.prox_unity_pallas(X, 0.5, axis=axis)
+    ref = pk.prox_unity_reference(X, 0.5, axis=axis)
+    again = tops.prox_unity_pallas(X, 0.5, axis=axis)
+    torch.cuda.synchronize()
+    rtol = 1e-6 if dtype == torch.float32 else 1e-14
+    torch.testing.assert_close(got, ref, rtol=rtol, atol=0)
+    assert torch.equal(got, again)
+
+
+def test_unity_kernel_zero_sum_gives_nan_and_inf(dev):
+    X = torch.tensor([[0.0, 1.0, 2.0], [0.0, -1.0, 3.0]], device=dev)
+    got = tops.prox_unity_pallas(X, 1.0, axis=0)
+    assert bool(torch.isnan(got[:, 0]).all())
+    assert bool(torch.isinf(got[:, 1]).all())
+    torch.testing.assert_close(got[:, 2], torch.tensor([0.4, 0.6],
+                                                       device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_prox_kernels_keep_nan(dev, dtype):
+    X = torch.tensor([[float("nan"), -1.0, 0.2, 2.0],
+                      [0.0, float("nan"), -0.1, -3.0]], dtype=dtype,
+                     device=dev)
+    for op, kw in _ELEMENTWISE:
+        kernel, plain = _prox(op)
+        got = kernel(X, 0.5, **kw)
+        assert bool(torch.isnan(got[0, 0])) and bool(torch.isnan(got[1, 1]))
+        assert _same(got, plain(X, 0.5, **kw))
+    # a NaN threshold: soft gives NaN everywhere, hard keeps X
+    for op in ("soft", "hard"):
+        kernel, plain = _prox(op)
+        got = kernel(X, 1.0, thresh=float("nan"))
+        assert _same(got, plain(X, 1.0, thresh=float("nan")))
+        if op == "soft":
+            assert bool(torch.isnan(got).all())
+        else:
+            assert _same(got, X)
+
+
+def _same(a, b):
+    """Equal, with NaN in the same places."""
+    return (torch.equal(torch.isnan(a), torch.isnan(b))
+            and torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0)))
+
+
+def test_prox_kernels_make_no_host_sync(dev):
+    """A 0-d step on the card reaches the kernel as a device pointer: no
+    call syncs with the host."""
+    X = _x(dev, (7, 100_000), torch.float32)
+    step = torch.tensor(0.37, device=dev)
+    soft = functools.partial(tops.prox_soft_pallas, thresh=0.5)
+    hard = functools.partial(tops.prox_hard_pallas, thresh=0.5)
+    tops.prox_soft_pallas(X, step)  # build and load outside the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [soft(X, step), hard(X, step), tops.prox_plus_pallas(X, step),
+                tops.prox_unity_pallas(X.abs(), step, axis=0),
+                tops.prox_unity_pallas(X.abs(), step, axis=1),
+                tops.fused_nmf_grad(X[:5, :7].contiguous(), X, X[:5])]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], pk.prox_soft_reference(X, step, thresh=0.5))
+    assert torch.equal(outs[1], pk.prox_hard_reference(X, step, thresh=0.5))
+
+
+def test_prox_kernels_are_deterministic_and_counted(dev):
+    X = _x(dev, (7, 300_000), torch.float32, positive=True)
+    counts = {op: _prox(op)[0].launches for op in
+              ("plus", "soft", "hard", "unity")}
+    one = [tops.prox_plus_pallas(X, 1.0), tops.prox_soft_pallas(X, 1.0, 0.2),
+           tops.prox_hard_pallas(X, 1.0, 0.2),
+           tops.prox_unity_pallas(X, 1.0, axis=1)]
+    two = [tops.prox_plus_pallas(X, 1.0), tops.prox_soft_pallas(X, 1.0, 0.2),
+           tops.prox_hard_pallas(X, 1.0, 0.2),
+           tops.prox_unity_pallas(X, 1.0, axis=1)]
+    torch.cuda.synchronize()
+    for op in counts:
+        assert _prox(op)[0].launches == counts[op] + 2
+    for a, b in zip(one, two):
+        assert torch.equal(a, b)
+    empty = torch.empty((0, 5), device=dev)
+    assert tops.prox_plus_pallas(empty, 1.0).shape == (0, 5)
+    assert tops.prox_plus_pallas.launches == counts["plus"] + 2
+
+
+def test_ops_paths_on_the_card(dev):
+    """The three paths of the ops entry point for 30 iterations: each
+    launches its kernels once per iteration and agrees with its
+    plain-operator twin."""
+    A0, S0, _, _ = _problem(dev, 5, 7, 50_000)
+    Y = A0 @ torch.rand((7, 50_000), generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    kw = dict(e_rel=0, max_iter=30)
+    AP = top.AlternatingProjections
+    pairs = (
+        (AP([tops.prox_unity_pallas, tops.prox_plus_pallas]),
+         top.prox_unity_plus, ("unity", "plus")),
+        (AP([tops.prox_plus_pallas,
+             functools.partial(tops.prox_soft_pallas, thresh=0.5)]),
+         functools.partial(top.prox_soft_plus, thresh=0.5),
+         ("plus", "soft")),
+    )
+    for prox, twin, ops in pairs:
+        before = {op: _prox(op)[0].launches for op in ops}
+        r = tnmf.nmf(Y, A0, S0, prox_S=prox, **kw)
+        for op in ops:
+            assert _prox(op)[0].launches - before[op] == r.iterations == 30
+        rp = tnmf.nmf(Y, A0, S0, prox_S=twin, **kw)
+        for a, b in zip(r.x, rp.x):
+            torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-5)
+    before = tops.fused_nmf_grad.launches
+    rg = algorithms.pgm([A0, S0],
+                        lambda A, S: tops.fused_nmf_grad(A, S, Y)[:2],
+                        tnmf.step_pgm, prox=[top.prox_plus] * 2, e_rel=0,
+                        max_iter=30)
+    # once per iteration, and once for the final gradient pgm reports
+    assert tops.fused_nmf_grad.launches - before == rg.iterations + 1 == 31
+    rn = tnmf.nmf(Y, A0, S0, **kw)
+    for a, b in zip(rg.x, rn.x):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-5)
+

@@ -16,6 +16,7 @@ import torch
 from proxmin_tpu.ops.nmf_kernels import (fused_nmf_pgm_step as jax_step,
                                          pad_nmf_problem)
 from proxmin_tpu import operators as jop
+import proxmin_tpu_torch.ops._build as kb
 import proxmin_tpu_torch.ops.nmf_kernels as k1
 from proxmin_tpu_torch import operators as top
 
@@ -104,13 +105,27 @@ def test_wrapper_refuses_other_devices():
 def test_build_inputs_are_in_the_checkout():
     """Each kernel is built from the package's own source into a library
     of its own in the gitignored build directory of the checkout."""
-    assert set(k1._SOURCES) == {"nmf_pgm_step", "nmf_adaprox_step"}
-    for name, src in k1._SOURCES.items():
+    assert set(kb._SOURCES) == {"nmf_pgm_step", "nmf_adaprox_step",
+                                "nmf_grad", "prox_elementwise"}
+    for name, src in kb._SOURCES.items():
         assert src.is_file() and src.parent.name == "csrc"
-        assert k1._library_path(name).name.startswith(f"{name}-")
-        assert k1._library_path(name).parent == k1._BUILD_DIR
-    root = k1._BUILD_DIR.parents[1]
+        assert kb._library_path(name).name.startswith(f"{name}-")
+        assert kb._library_path(name).parent == kb._BUILD_DIR
+        assert callable(kb._DECLARE[name])
+    root = kb._BUILD_DIR.parents[1]
     assert (root / "proxmin_tpu_torch").is_dir()
     ignored = (root / ".gitignore").read_text().split()
     assert "build/" in ignored
-    assert "sm_90a" in " ".join(k1._NVCC_FLAGS)
+    assert "sm_90a" in " ".join(kb._NVCC_FLAGS)
+
+
+def test_library_hash_covers_only_its_own_source(tmp_path, monkeypatch):
+    """A library's name hashes its own source text and the flags, so a
+    change to one kernel source rebuilds that kernel alone."""
+    before = {n: kb._library_path(n) for n in kb._SOURCES}
+    edited = tmp_path / "nmf_grad.cu"
+    edited.write_text(kb._SOURCES["nmf_grad"].read_text() + "// edit\n")
+    monkeypatch.setitem(kb._SOURCES, "nmf_grad", edited)
+    after = {n: kb._library_path(n) for n in kb._SOURCES}
+    assert after["nmf_grad"] != before["nmf_grad"]
+    assert all(after[n] == before[n] for n in before if n != "nmf_grad")
