@@ -7,20 +7,27 @@ Run from the repository root with no arguments::
 
 It drives the port's main paths on the flagship problem (C=5 channels,
 K=7 components, N=1e6 pixels, float32, data made from seed 101 as in
-bench.py): PGM-NMF and AdaProx-NMF through ``proxmin_tpu_torch.nmf.nmf``,
-and the ``proxmin_tpu_torch.ops`` entry point the way its users drive it
-(the prox kernels inside ``AlternatingProjections`` as ``nmf``'s S
-constraint, ``fused_nmf_grad`` as ``pgm``'s gradient). It exits non-zero
-when any phase fails. Phases:
+bench.py, W in [0.5, 1.5) for the weighted problem): PGM-NMF (exact,
+weighted and strided, with the bfloat16 store) and AdaProx-NMF through
+``proxmin_tpu_torch.nmf.nmf``, the ``proxmin_tpu_torch.ops`` entry point
+the way its users drive it (the prox kernels inside
+``AlternatingProjections`` as ``nmf``'s S constraint, ``fused_nmf_grad`` as
+``pgm``'s gradient), and the stream-merge experiment's loops on K5. It exits
+non-zero when any phase fails. Phases:
 
 1. probe: CUDA/driver/compiler versions, the card and its power limit;
-2. build K1, K2, K3 and K4 from proxmin_tpu_torch/csrc/ with nvcc, all at
-   once, and print ptxas's registers and spills for every kernel instance;
+2. build K1, K2 (with K5), K3 and K4 from proxmin_tpu_torch/csrc/ with
+   nvcc, all at once, and print ptxas's registers and spills for every
+   kernel instance;
 3. K1 against its plain PyTorch version at the flagship shape, with W, and
-   at a ragged shape, plus its time beside the plain version's;
+   at a ragged shape, in float32 and with the bfloat16 store, plus its
+   times beside the plain version's;
 4. K2 against its plain version at the flagship with float32 and with
    bfloat16 moments, with W, at a ragged shape and with the identity prox,
-   plus its times beside the plain version's;
+   plus its times beside the plain version's; K5 (packed_step, smv and mv)
+   against its plain version and against K2 on the same inputs, its times
+   beside K2's, and the stream-merge loops (K2 and K5, 200 iterations
+   each, launch-counted, packed equal to base bit for bit);
 5. K3 (fused_nmf_grad) against its plain version at the flagship, with W,
    and at a ragged shape, plus its times beside the plain version's;
 6. K4 (prox_plus/soft/hard/unity_pallas) against their plain versions on
@@ -29,7 +36,11 @@ when any phase fails. Phases:
    sync), NaN, unity along both axes, plus their times;
 7. PGM: nmf(engine="cuda") and nmf(engine="torch") for 200 iterations:
    iterates agree, the loss decreases, every iteration launched K1 once,
-   and a resumed run reproduces the straight run bit for bit;
+   and a resumed run reproduces the straight run bit for bit; then the
+   weighted (stride 10, and adaptive) and the unweighted adaptive solves on
+   both engines the same way, the bfloat16 store against float32, and a
+   weighted adaptive solve resumed in four pieces and at a refresh
+   boundary;
 8. AdaProx: nmf(algorithm="adaprox", engine="cuda") against
    engine="torch" with separable_prox="auto" at 50, 100 and 200
    iterations, with the same checks for K2, bfloat16 moments against
@@ -39,12 +50,21 @@ when any phase fails. Phases:
    sum-to-one abundances, L1- and L0-sparse sources (K4 inside
    AlternatingProjections as prox_S), and pgm with K3's gradient; each
    launched its kernels once per iteration;
-10. marginal ms/iter of every engine and path, and GB/s against the naive
-   bytes.
+10. marginal ms/iter of every engine and path (the weighted and strided
+   ones too), and GB/s against the naive bytes; the adaptive refresh
+   against the exact steps and each packed loop against its base loop in
+   turns.
 
 The last two lines are the card (``nvidia-smi`` name and power limit)
-after a JSON object describing the kernels, and then the result object
-``{"ok": true, "device": {...}}``. With no CUDA device it fails at once.
+after a JSON object describing the kernels (each with its time, its plain
+version's, the least time the card could take for its bytes or operations,
+and a PyTorch library call's where one computes the same function), and
+then the result object ``{"ok": true, "device": {...}}``. With no CUDA
+device it fails at once.
+
+``python3 chip_smoke.py --profile`` instead traces 50 iterations of each
+PGM path with ``torch.profiler`` and prints the device's busy time, busy
+share and kernel launches per iteration (traces under ``build/profile/``).
 """
 
 import json
@@ -111,6 +131,13 @@ UNITY_PATH_MAXABS = 1e-2
 # 20 calls of any timed function here.
 QUEUE_AHEAD_CYCLES = 100_000_000
 DEVICE = torch.device("cuda", 0)
+# The card's peaks for the bound (NVIDIA H100 SXM data sheet, at 700 W):
+# HBM bytes/s, and float32 operations/s outside the tensor cores (no kernel
+# here uses them).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# bench.py's weighted flagship refreshes its steps every 10 iterations.
+STRIDE = 10
 
 
 def log(*args):
@@ -153,6 +180,37 @@ def norm_err(got, ref):
     """Normwise (Frobenius) relative difference."""
     return float(torch.linalg.norm(got - ref)
                  / torch.linalg.norm(ref).clamp_min(1e-30))
+
+
+def tensor_bytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if isinstance(t, torch.Tensor))
+
+
+def bound_of(moved_bytes, ops):
+    """The least time in ms the card could take: the larger of the bytes
+    over its memory rate and the float32 operations over its peak rate,
+    and which of the two it is."""
+    t_bytes = moved_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def pgm_ops(C_, K_, N_):
+    """K1's and K3's float32 operations: the residual, gS and gA products
+    and the Gram, per pixel column."""
+    return 2 * N_ * (3 * C_ * K_ + K_ * (K_ + 1) // 2)
+
+
+def adaprox_ops(C_, K_, N_):
+    """K2's and K5's float32 operations per step."""
+    return N_ * K_ * (6 * C_ + 20)
+
+
+def wloss(A, S, Y, W=None):
+    """The (weighted) NMF loss in float64 on the card."""
+    R = (A.double() @ S.double() - Y.double())
+    return float(0.5 * torch.sum((1.0 if W is None else W.double()) * R * R))
 
 
 def cuda_ms(fn, reps=20):
@@ -255,6 +313,43 @@ def compare_step(k1, label, C_, K_, N_, weighted):
     return (Y, A0, S0, sS), max_abs
 
 
+def compare_step_bf16(k1, label, C_, K_, N_, weighted):
+    """K1 with the bfloat16 store against its plain version: S' within one
+    bfloat16 ulp (+ BF16_STORE_ATOL), gA and the loss within STEP_RTOL; the
+    Gram and the norms are those of the stored (rounded) S'. Returns the
+    operands and S''s max abs error."""
+    Y, A0, S0, W = make_problem(C_, K_, N_, weighted)
+    bf = torch.bfloat16
+    Sb, Yb = S0.to(bf), Y.to(bf)
+    Wb = None if W is None else W.to(bf)
+    sS = 1.0 / torch.linalg.eigvalsh(A0.T @ A0)[-1]
+    got = k1.fused_nmf_pgm_step(A0, Sb, Yb, sS, W=Wb)
+    again = k1.fused_nmf_pgm_step(A0, Sb, Yb, sS, W=Wb)
+    ref = k1.fused_nmf_pgm_step_reference(A0, Sb, Yb, sS, W=Wb)
+    torch.cuda.synchronize()
+    check(got[1].dtype == bf, f"K1 bf16 {label}: S' is {got[1].dtype}")
+    ok, ulps, diff = bf16_within(got[1], ref[1])
+    check(ok, f"K1 bf16 {label} S_new: {ulps:g} bfloat16 ulps, {diff:.3e} "
+          f"abs, beyond 1 ulp + {BF16_STORE_ATOL:g}")
+    Sn, S32 = got[1].float(), Sb.float()
+    dS = Sn - S32
+    own = (Sn @ Sn.T, torch.sum(dS * dS), torch.sum(Sn * Sn))
+    errs = {"gA": rel_err(got[0], ref[0]), "loss": rel_err(got[3], ref[3]),
+            "SSt": rel_err(got[2], own[0]), "dS_sq": rel_err(got[4], own[1]),
+            "nS_sq": rel_err(got[5], own[2])}
+    for n, e in errs.items():
+        tol = DS_RTOL if n == "dS_sq" else STEP_RTOL
+        check(e <= tol, f"K1 bf16 {label} {n}: rel err {e:.3e} > {tol:g}")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"K1 bf16 {label}: two launches differ")
+    log(f"K1 bf16 store vs plain [{label}, C={C_} K={K_} N={N_}]: S_new "
+        f"{ulps:.3g} bfloat16 ulps max ({diff:.3e} abs); max rel err "
+        + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+        + f" (Gram and norms against the stored S'; tol {STEP_RTOL:g}, "
+        f"dS_sq {DS_RTOL:g}); two launches bitwise equal")
+    return (A0, Sb, Yb, sS, Wb), diff
+
+
 def bf16_within(got, ref):
     """bfloat16 moment stores against the plain version's: each element
     within one bfloat16 ulp of ref, plus the float32 tests' atol 1e-5 for
@@ -324,6 +419,58 @@ def compare_adaprox_step(k2, label, C_, K_, N_, weighted=False,
         f"+ {BF16_STORE_ATOL:g});"
         f" S_new max abs err {max_abs:.3e}; two launches bitwise equal")
     return (A, S, M, V, Y, alpha, sc), max_abs
+
+
+def compare_packed(sm, k2, layout, C_, K_, N_):
+    """K5 in the ``smv`` (float32 [S; M; V]) or ``mv`` (bfloat16 [M; V])
+    layout against its plain version, and against K2 on the same inputs
+    unpacked (bit for bit: the same body). Returns the call's arguments
+    and S''s max abs error against the plain version."""
+    mdt = torch.float32 if layout == "smv" else torch.bfloat16
+    A, S, M, V, Y, alpha, sc, _ = adaprox_inputs(C_, K_, N_, False, mdt)
+    if layout == "smv":
+        args, kw = (A, torch.cat([S, M, V]), Y, alpha, sc), {}
+    else:
+        args, kw = (A, S, Y, alpha, sc), {"MV": torch.cat([M, V])}
+    got = sm.packed_step(*args, **kw)
+    again = sm.packed_step(*args, **kw)
+    ref = sm.packed_step_reference(*args, **kw)
+    base = k2.fused_nmf_adaprox_step(A, S, M, V, Y, alpha, sc)
+    torch.cuda.synchronize()
+
+    def unpacked(out):
+        if layout == "smv":
+            gA, SMV, rowsum, stats = out
+            S1, M1, V1 = SMV[:K_], SMV[K_:2 * K_], SMV[2 * K_:]
+        else:
+            gA, S1, MV, rowsum, stats = out
+            M1, V1 = MV[:K_], MV[K_:]
+        return gA, S1, M1, V1, rowsum, stats[0], stats[1], stats[2]
+
+    g, r = unpacked(got), unpacked(ref)
+    names = ("gA", "S_new", "M_new", "V_new", "rowsum", "loss", "dS_sq",
+             "nS_sq")
+    check(all(torch.equal(a, b) for a, b in zip(g, base)),
+          f"K5 {layout}: differs from K2 on the same inputs")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"K5 {layout}: two launches differ")
+    errs = {}
+    for n, a, b in zip(names, g, r):
+        if mdt == torch.bfloat16 and n in ("M_new", "V_new"):
+            ok, ulps, errs[n] = bf16_within(a, b)
+            check(ok, f"K5 {layout} {n}: {ulps:g} bfloat16 ulps, beyond 1 "
+                  f"ulp + {BF16_STORE_ATOL:g}")
+            continue
+        errs[n] = e = rel_err(a, b)
+        tol = DS_RTOL if n == "dS_sq" else STEP_RTOL
+        check(e <= tol, f"K5 {layout} {n}: rel err {e:.3e} > {tol:g}")
+    max_abs = float((g[1] - r[1]).abs().max())
+    log(f"K5 vs plain [{layout}, C={C_} K={K_} N={N_}]: max rel err "
+        + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+        + f" (bfloat16 moments: abs, 1 ulp + {BF16_STORE_ATOL:g}); S_new "
+        f"max abs err {max_abs:.3e}; bit for bit equal to K2 on the same "
+        "inputs; two launches bitwise equal")
+    return args, kw, (A, S, M, V, Y, alpha, sc), max_abs
 
 
 def compare_grad(tops, label, C_, K_, N_, weighted):
@@ -427,9 +574,97 @@ def check_prox_nan(tops, X, step):
                   "from the plain version")
 
 
+def library_prox(op, Z, step, kw):
+    """One PyTorch call that computes K4 op's function, where there is one:
+    ``clamp_min`` for plus, ``softshrink`` for soft with the threshold as a
+    host number; none for hard (``hardshrink`` keeps |x| > t, K4 keeps
+    |x| >= t) or unity. Timed as a yardstick only; the port never calls
+    it."""
+    if op == "plus":
+        return lambda: torch.clamp_min(Z, 0)
+    if op == "soft" and kw.get("type", "relative") == "relative":
+        t = float(step) * kw["thresh"]
+        return lambda: torch.nn.functional.softshrink(Z, t)
+    return None
+
+
 def reset_counts(kernels):
     for k in kernels:
         k.launches = 0
+
+
+PROFILE_ITERS = 50
+
+
+def profile_paths(tnmf, card):
+    """``--profile``: each PGM path's device busy time, busy share and
+    kernel launches per iteration, from a ``torch.profiler`` trace of
+    PROFILE_ITERS iterations resumed after the first LO (past the cold
+    start, as the marginal is): kernel, memcpy and memset events summed
+    from the exported trace (``key_averages()`` counts a kernel's time on
+    its op row too). The busy share is the busy time over the path's
+    unprofiled marginal ms/iter, since the profiler slows the host. The
+    traces go to build/profile/ of the checkout."""
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    Y, A0, S0, W = make_problem(C, K, N, True)
+    out_dir = Path(__file__).resolve().parent / "build" / "profile"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    paths = (
+        ("pgm engine=cuda", dict(engine="cuda")),
+        ("pgm engine=torch", dict(engine="torch")),
+        ("weighted torch stride 10", dict(W=W, step_stride=STRIDE)),
+        ("weighted torch adaptive", dict(W=W, step_stride=STRIDE,
+                                         step_adapt=True)),
+        ("weighted cuda stride 10", dict(W=W, step_stride=STRIDE,
+                                         engine="cuda")),
+        ("weighted cuda adaptive", dict(W=W, step_stride=STRIDE,
+                                        step_adapt=True, engine="cuda")),
+        ("weighted cuda adaptive bf16 store", dict(
+            W=W, step_stride=STRIDE, step_adapt=True, engine="cuda",
+            store_dtype=torch.bfloat16)),
+        ("unweighted torch adaptive", dict(step_adapt=True)),
+        ("unweighted cuda adaptive", dict(step_adapt=True, engine="cuda")),
+    )
+
+    def run(n, kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tnmf.nmf(Y, A0, S0, e_rel=0, max_iter=n, **kw)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    for label, kw in paths:
+        run(5, kw)
+        ms = (min(run(HI, kw) for _ in range(2))
+              - min(run(LO, kw) for _ in range(2))) / (HI - LO) * 1e3
+        warm = tnmf.nmf(Y, A0, S0, e_rel=0, max_iter=LO, **kw)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            tnmf.nmf(Y, *warm.x, e_rel=0, max_iter=PROFILE_ITERS,
+                     state=warm.state, **kw)
+            torch.cuda.synchronize()
+        trace = out_dir / (re.sub(r"\W+", "_", label) + ".json")
+        prof.export_chrome_trace(str(trace))
+        events = json.loads(trace.read_text())["traceEvents"]
+        device = [e for e in events
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+        busy = sum(e["dur"] for e in device) / PROFILE_ITERS
+        by_name = {}
+        for e in device:
+            by_name[e["name"]] = by_name.get(e["name"], 0) + e["dur"]
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        kernels = sum(e["cat"] == "kernel" for e in device) / PROFILE_ITERS
+        copies = (len(device) / PROFILE_ITERS) - kernels
+        log(f"profile [{label}]: device busy {busy:.1f} us/iter, busy share "
+            f"{busy / (ms * 1e3):.2f} of {ms:.4f} ms/iter marginal, kernel "
+            f"launches {kernels:.1f}/iter, memcpy+memset {copies:.1f}/iter; "
+            "top: " + "; ".join(f"{n[:60]} {d / PROFILE_ITERS:.1f} us/iter"
+                                for n, d in top)
+            + f"; on {card}")
 
 
 def main():
@@ -445,12 +680,13 @@ def main():
     from proxmin_tpu_torch import ops as tops
     from proxmin_tpu_torch.ops import _build as kb
     from proxmin_tpu_torch.ops import nmf_kernels as kk
+    from proxmin_tpu_torch.ops import stream_merge as sm
 
     k1_fn, k2_fn = kk.fused_nmf_pgm_step, kk.fused_nmf_adaprox_step
-    k3_fn = tops.fused_nmf_grad
+    k3_fn, k5_fn = tops.fused_nmf_grad, sm.packed_step
     k4_fns = {op: prox_pair(tops, op)[0] for op in
               ("plus", "soft", "hard", "unity")}
-    every_kernel = (k1_fn, k2_fn, k3_fn, *k4_fns.values())
+    every_kernel = (k1_fn, k2_fn, k3_fn, *k4_fns.values(), k5_fn)
 
     # 1. probe
     name = torch.cuda.get_device_name(0)
@@ -481,6 +717,13 @@ def main():
             log(f"build: ptxas {ln}")
     log(f"build: all {len(built)} kernel sources ready in "
         f"{time.perf_counter() - t0:.1f} s")
+    if sys.argv[1:] == ["--profile"]:
+        profile_paths(tnmf, card)
+        log(card)
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # 3. K1 against its plain version
     (Y, A0, S0, sS), k1_abs = compare_step(kk, "flagship", C, K, N, False)
@@ -494,6 +737,29 @@ def main():
     log(f"K1 time [flagship] on {card}: kernel {k1_ms:.4f} ms "
         f"({naive / k1_ms / 1e6:.0f} GB/s of {naive / 1e6:.0f} MB naive), "
         f"plain version {k1_plain:.4f} ms")
+    k1_bound = bound_of(tensor_bytes(A0, S0, Y) + tensor_bytes(
+        *kk.fused_nmf_pgm_step(A0, S0, Y, sS)), pgm_ops(C, K, N))
+    # K1's bfloat16 store, and K1 with W in either store, as the weighted
+    # path runs it
+    k1b_args, k1b_abs = compare_step_bf16(kk, "flagship", C, K, N, False)
+    k1bw_args, k1bw_abs = compare_step_bf16(kk, "flagship+W", C, K, N,
+                                            True)
+    compare_step_bf16(kk, "ragged", 8, 4, N + 37, False)
+    k1_times = {}
+    for label, (A_, S_, Y_, s_, W_) in (
+            ("f32 store, W", (A0, S0, Y, sS, make_problem(C, K, N, True)[3])),
+            ("bf16 store", k1b_args), ("bf16 store, W", k1bw_args)):
+        out = kk.fused_nmf_pgm_step(A_, S_, Y_, s_, W=W_)
+        moved = tensor_bytes(A_, S_, Y_, W_) + tensor_bytes(*out)
+        k_ms = min(cuda_ms(lambda: kk.fused_nmf_pgm_step(A_, S_, Y_, s_,
+                                                         W=W_))
+                   for _ in range(2))
+        p_ms = min(cuda_ms(lambda: kk.fused_nmf_pgm_step_reference(
+            A_, S_, Y_, s_, W=W_)) for _ in range(2))
+        k1_times[label] = (k_ms, p_ms, bound_of(moved, pgm_ops(C, K, N)))
+        log(f"K1 time [flagship, {label}] on {card}: kernel {k_ms:.4f} ms "
+            f"({moved / k_ms / 1e6:.0f} GB/s of {moved / 1e6:.0f} MB), "
+            f"plain version {p_ms:.4f} ms; f32 store {k1_ms:.4f} ms")
 
     # 4. K2 against its plain version
     k2_args, k2_abs = compare_adaprox_step(kk, "flagship", C, K, N)
@@ -514,6 +780,77 @@ def main():
         log(f"K2 time [flagship, {label}] on {card}: kernel {k_ms:.4f} ms "
             f"({nbytes / k_ms / 1e6:.0f} GB/s of {nbytes / 1e6:.0f} MB "
             f"naive), plain version {p_ms:.4f} ms")
+    k2_bound = bound_of(tensor_bytes(*k2_args[:5]) + tensor_bytes(
+        *kk.fused_nmf_adaprox_step(*k2_args)), adaprox_ops(C, K, N))
+
+    # K5 against its plain version and K2; its time beside K2's on the same
+    # inputs, in turns (K2, K5, K5, K2)
+    k5_times, k5_abs = {}, {}
+    for layout in ("smv", "mv"):
+        args, kw, unpacked, k5_abs[layout] = compare_packed(sm, kk, layout,
+                                                             C, K, N)
+        moved = tensor_bytes(*args[:4], *kw.values()) + tensor_bytes(
+            *sm.packed_step(*args, **kw))
+
+        def k5_call():
+            return sm.packed_step(*args, **kw)
+
+        def k2_call():
+            return kk.fused_nmf_adaprox_step(*unpacked)
+
+        t_k2a, t_k5a, t_k5b, t_k2b = (min(cuda_ms(f) for _ in range(2))
+                                      for f in (k2_call, k5_call, k5_call,
+                                                k2_call))
+        p_ms = min(cuda_ms(lambda: sm.packed_step_reference(*args, **kw))
+                   for _ in range(2))
+        k5_ms, k2_ms_ = min(t_k5a, t_k5b), min(t_k2a, t_k2b)
+        k5_times[layout] = (k5_ms, p_ms, bound_of(moved, adaprox_ops(C, K, N)))
+        log(f"K5 time [flagship, {layout}] on {card}: kernel {k5_ms:.4f} ms "
+            f"({t_k5a:.4f}, {t_k5b:.4f}; {moved / k5_ms / 1e6:.0f} GB/s of "
+            f"{moved / 1e6:.0f} MB), K2 on the same inputs {k2_ms_:.4f} ms "
+            f"({t_k2a:.4f}, {t_k2b:.4f}; {moved / k2_ms_ / 1e6:.0f} GB/s), "
+            f"plain version {p_ms:.4f} ms; order K2, K5, K5, K2")
+
+    # the stream-merge loops: K5's own path, launch-counted, packed equal
+    # to base bit for bit
+    base, packed_smv, packed_mv = sm.build_loops()
+    A_, S_, M_, V_, Y_, al_, _, _ = adaprox_inputs(C, K, N, False,
+                                                   torch.float32)
+    Mb_, Vb_ = M_.to(torch.bfloat16), V_.to(torch.bfloat16)
+    SMV_, MV_ = torch.cat([S_, M_, V_]), torch.cat([Mb_, Vb_])
+    reset_counts(every_kernel)
+    SMV_n = packed_smv(A_, SMV_, Y_, al_, ITERS)
+    k5_launches = {"smv": k5_fn.launches}
+    S_mv, MV_n = packed_mv(A_, S_, MV_, Y_, al_, ITERS)
+    torch.cuda.synchronize()
+    k5_launches["mv"] = k5_fn.launches - k5_launches["smv"]
+    counts = {f.__name__: f.launches for f in every_kernel}
+    check(k5_launches == {"smv": ITERS, "mv": ITERS}
+          and sum(counts.values()) == 2 * ITERS,
+          f"stream-merge loops: launches {counts} for 2 x {ITERS} "
+          "iterations")
+    S_b, M_b, V_b = base(A_, S_, M_, V_, Y_, al_, ITERS)
+    S_bb, M_bb, V_bb = base(A_, S_, Mb_, Vb_, Y_, al_, ITERS)
+    torch.cuda.synchronize()
+    check(torch.equal(SMV_n, torch.cat([S_b, M_b, V_b]))
+          and torch.equal(S_mv, S_bb)
+          and torch.equal(MV_n, torch.cat([M_bb, V_bb]))
+          and bool(torch.isfinite(SMV_n).all()),
+          "stream-merge loops: packed and base differ after "
+          f"{ITERS} iterations")
+    log(f"K5 path [stream-merge loops]: packed_f32_smv and packed_bf16m_mv "
+        f"{ITERS} iterations each, K5 launches {k5_launches}, no other "
+        "kernel; each equals its base loop (K2) bit for bit")
+    loop_variants = (
+        ("base_f32", lambda n: base(A_, S_, M_, V_, Y_, al_, n),
+         (C + 6 * K) * N * 4),
+        ("packed_f32_smv", lambda n: packed_smv(A_, SMV_, Y_, al_, n),
+         (C + 6 * K) * N * 4),
+        ("base_bf16m", lambda n: base(A_, S_, Mb_, Vb_, Y_, al_, n),
+         (C + 2 * K) * N * 4 + 4 * K * N * 2),
+        ("packed_bf16m_mv", lambda n: packed_mv(A_, S_, MV_, Y_, al_, n),
+         (C + 2 * K) * N * 4 + 4 * K * N * 2),
+    )
 
     # 5. K3 against its plain version
     k3_args, k3_abs = compare_grad(tops, "flagship", C, K, N, False)
@@ -527,7 +864,10 @@ def main():
                    for _ in range(2))
         p_ms = min(cuda_ms(lambda: tops.fused_nmf_grad_reference(
             A_, S_, Y_, W=W_)) for _ in range(2))
-        k3_times[label] = (k_ms, p_ms)
+        k3_times[label] = (k_ms, p_ms, bound_of(
+            tensor_bytes(A_, S_, Y_, W_)
+            + tensor_bytes(*tops.fused_nmf_grad(A_, S_, Y_, W=W_)),
+            pgm_ops(C, K, N)))
         log(f"K3 time [flagship, {label}] on {card}: kernel {k_ms:.4f} ms "
             f"({nbytes / k_ms / 1e6:.0f} GB/s of {nbytes / 1e6:.0f} MB "
             f"naive), plain version {p_ms:.4f} ms")
@@ -581,10 +921,16 @@ def main():
                        for _ in range(2))
             p_ms = min(cuda_ms(lambda: plain(Z, step, **kw))
                        for _ in range(2))
-            k4_times[case, dt] = (k_ms, p_ms)
+            lib = library_prox(op, Z, step, kw)
+            l_ms = (None if lib is None else
+                    min(cuda_ms(lib) for _ in range(2)))
+            k4_times[case, dt] = (k_ms, p_ms, bound_of(nbytes, Z.numel()),
+                                  l_ms)
             log(f"K4 time [{case}, {K}x{N} {str(dt)[6:]}] on {card}: "
                 f"kernel {k_ms:.4f} ms ({nbytes / k_ms / 1e6:.0f} GB/s of "
-                f"{nbytes / 1e6:.0f} MB), plain version {p_ms:.4f} ms")
+                f"{nbytes / 1e6:.0f} MB), plain version {p_ms:.4f} ms, "
+                + ("no library call computes it" if l_ms is None else
+                   f"library call {l_ms:.4f} ms"))
 
     # 7. the PGM main path
     reset_counts(every_kernel)
@@ -633,6 +979,85 @@ def main():
     log(f"PGM main path: 4 x {ITERS // 4} resumed cuda iterations equal "
         f"{ITERS} straight ones bit for bit; segment losses "
         + ", ".join(f"{v:.6e}" for v in losses))
+
+    # the weighted and strided PGM paths: bench.py's weighted flagship (W
+    # in [0.5, 1.5)) with step_stride=10, fixed and adaptive, and the
+    # unweighted adaptive solve, each on both engines
+    Ww = make_problem(C, K, N, True)[3]
+    lw0 = wloss(A0, S0, Y, Ww)
+    strided_paths = (
+        ("weighted stride 10", dict(W=Ww, step_stride=STRIDE), Ww),
+        ("weighted adaptive", dict(W=Ww, step_stride=STRIDE,
+                                   step_adapt=True), Ww),
+        ("unweighted adaptive", dict(step_adapt=True), None),
+    )
+    strided_c = {}
+    for label, kw, W_ in strided_paths:
+        reset_counts(every_kernel)
+        r_c = tnmf.nmf(Y, A0, S0, e_rel=0, max_iter=ITERS, engine="cuda",
+                       **kw)
+        torch.cuda.synchronize()
+        counts = {f.__name__: f.launches for f in every_kernel}
+        r_t = tnmf.nmf(Y, A0, S0, e_rel=0, max_iter=ITERS, engine="torch",
+                       **kw)
+        torch.cuda.synchronize()
+        check(r_c.iterations == ITERS == r_t.iterations,
+              f"{label}: iterations {r_c.iterations}, {r_t.iterations}")
+        check(k1_fn.launches == ITERS
+              and sum(counts.values()) == k1_fn.launches,
+              f"{label}: launches {counts} in {ITERS} iterations")
+        for a in (*r_c.x, *r_t.x):
+            check(bool(torch.isfinite(a).all()), f"{label}: non-finite "
+                  "iterate")
+        n_A, n_S = (norm_err(r_c.x[i], r_t.x[i]) for i in (0, 1))
+        check(n_A <= ENGINE_RTOL and n_S <= ENGINE_RTOL,
+              f"{label}: engines disagree after {ITERS} iterations: "
+              f"normwise A {n_A:.2e}, S {n_S:.2e} > {ENGINE_RTOL:g}")
+        l0_, l_c, l_t = (wloss(A0, S0, Y, W_), wloss(*r_c.x, Y, W_),
+                         wloss(*r_t.x, Y, W_))
+        check(np.isfinite([l_c, l_t]).all() and l_c < l0_ and l_t < l0_,
+              f"{label}: loss did not decrease")
+        steps = r_c.state["steps"]
+        strided_c[label] = r_c
+        log(f"PGM {label}: nmf engine=cuda vs engine=torch, {ITERS} "
+            f"iterations at e_rel=0: normwise rel err A {n_A:.2e}, S "
+            f"{n_S:.2e} (tol {ENGINE_RTOL:g}); loss {l0_:.6e} -> cuda "
+            f"{l_c:.6e}, torch {l_t:.6e}; K1 launches {k1_fn.launches} = "
+            f"iterations, no other kernel; final stride {steps[3]}, next "
+            f"refresh at {steps[4]}")
+    # the bfloat16 store on the weighted adaptive path
+    label, kw, _ = strided_paths[1]
+    reset_counts(every_kernel)
+    r16 = tnmf.nmf(Y, A0, S0, e_rel=0, max_iter=ITERS, engine="cuda",
+                   store_dtype=torch.bfloat16, **kw)
+    torch.cuda.synchronize()
+    k1b_launches = k1_fn.launches
+    check(r16.iterations == ITERS == k1b_launches
+          and r16.state["store_dtype"] == "bfloat16"
+          and r16.x[1].dtype == torch.float32,
+          f"bf16 store: {r16.iterations} iterations, {k1b_launches} K1 "
+          "launches")
+    l16, l32 = wloss(*r16.x, Y, Ww), wloss(*strided_c[label].x, Y, Ww)
+    check(np.isfinite(l16) and l16 < max(3 * l32, l32 + 1.0),
+          f"bf16 store: loss {l16:.6e} against float32 {l32:.6e}")
+    log(f"PGM {label}, bfloat16 store: loss {lw0:.6e} -> {l16:.6e} against "
+        f"float32 {l32:.6e} (rule l16 < max(3 l32, l32 + 1)); K1 launches "
+        f"{k1b_launches} = iterations")
+    # a weighted adaptive cuda solve as 4 x 50 resumed iterations, and split
+    # exactly on a refresh boundary (iteration 10 with stride 10)
+    for splits in ((ITERS // 4,) * 4, (STRIDE, ITERS - STRIDE)):
+        A, S, state = A0, S0, None
+        for n in splits:
+            seg = tnmf.nmf(Y, A, S, e_rel=0, max_iter=n, engine="cuda",
+                           state=state, **kw)
+            A, S, state = seg.x[0], seg.x[1], seg.state
+        straight = strided_c[label]
+        check(torch.equal(A, straight.x[0]) and torch.equal(S, straight.x[1])
+              and state["steps"][3:] == straight.state["steps"][3:],
+              f"{label}: resumed as {splits} differs from {ITERS} straight")
+    log(f"PGM {label}: resumed as 4 x {ITERS // 4} and as {STRIDE} + "
+        f"{ITERS - STRIDE} (a refresh boundary) equal {ITERS} straight "
+        "iterations bit for bit")
 
     # 8. the AdaProx main path
     ada = dict(algorithm="adaprox", e_rel=0)
@@ -818,6 +1243,26 @@ def main():
         ("adaprox engine=cuda bf16 moments", dict(
             engine="cuda", algorithm="adaprox",
             moment_dtype=torch.bfloat16), (C + 2 * K) * N * 4 + 4 * K * N * 2),
+        # bench.py's bench_tpu_weighted and bench_tpu_unweighted_strided
+        # variants on this card
+        ("pgm weighted engine=torch stride 10", dict(
+            engine="torch", W=Ww, step_stride=STRIDE),
+         (2 * C + 2 * K) * N * 4),
+        ("pgm weighted engine=torch adaptive", dict(
+            engine="torch", W=Ww, step_stride=STRIDE, step_adapt=True),
+         (2 * C + 2 * K) * N * 4),
+        ("pgm weighted engine=cuda stride 10", dict(
+            engine="cuda", W=Ww, step_stride=STRIDE), (2 * C + 2 * K) * N * 4),
+        ("pgm weighted engine=cuda adaptive", dict(
+            engine="cuda", W=Ww, step_stride=STRIDE, step_adapt=True),
+         (2 * C + 2 * K) * N * 4),
+        ("pgm weighted engine=cuda adaptive bf16 store", dict(
+            engine="cuda", W=Ww, step_stride=STRIDE, step_adapt=True,
+            store_dtype=torch.bfloat16), (2 * C + 2 * K) * N * 2),
+        ("pgm unweighted engine=torch adaptive", dict(
+            engine="torch", step_adapt=True), naive),
+        ("pgm unweighted engine=cuda adaptive", dict(
+            engine="cuda", step_adapt=True), naive),
     )
     for _, kw, _ in variants:
         run(5, **kw)
@@ -858,35 +1303,74 @@ def main():
             f"with the kernels ({ms_k:.4f}, {ms_k2:.4f}), plain twin "
             f"{min(ms_t, ms_t2):.4f} ({ms_t:.4f}, {ms_t2:.4f}); runs in the "
             f"order twin, kernels, kernels, twin; on {card}")
+    # the adaptive refresh against the exact steps on one engine, in turns
+    # (exact, adaptive, adaptive, exact): what taking the eigensolves off
+    # most iterations buys end to end
+    for engine in ("cuda", "torch"):
+        def exact(n, e=engine):
+            return tnmf.nmf(Y, A0, S0, e_rel=0, max_iter=n, engine=e)
+
+        def adaptive(n, e=engine):
+            return tnmf.nmf(Y, A0, S0, e_rel=0, max_iter=n, engine=e,
+                            step_adapt=True)
+
+        ms_e, ms_a, ms_a2, ms_e2 = (marginal(f) for f in (exact, adaptive,
+                                                          adaptive, exact))
+        log(f"pgm engine={engine}: adaptive refresh {min(ms_a, ms_a2):.4f} "
+            f"ms/iter marginal ({ms_a:.4f}, {ms_a2:.4f}), exact steps "
+            f"{min(ms_e, ms_e2):.4f} ({ms_e:.4f}, {ms_e2:.4f}); order exact, "
+            f"adaptive, adaptive, exact; on {card}")
+    # the stream-merge loops, each packed loop beside its base loop in
+    # turns (base, packed, packed, base)
+    for (b_label, b_fn, nb), (p_label, p_fn, _) in (loop_variants[:2],
+                                                     loop_variants[2:]):
+        run_fn(5, b_fn)
+        run_fn(5, p_fn)
+        ms_b, ms_p, ms_p2, ms_b2 = (marginal(f)
+                                    for f in (b_fn, p_fn, p_fn, b_fn))
+        log(f"stream-merge loops: {p_label} {min(ms_p, ms_p2):.4f} ms/iter "
+            f"marginal ({ms_p:.4f}, {ms_p2:.4f}; "
+            f"{nb / min(ms_p, ms_p2) / 1e6:.0f} GB/s of {nb / 1e6:.0f} MB), "
+            f"{b_label} {min(ms_b, ms_b2):.4f} ({ms_b:.4f}, {ms_b2:.4f}; "
+            f"{nb / min(ms_b, ms_b2) / 1e6:.0f} GB/s); order base, packed, "
+            f"packed, base; on {card}")
 
     k2_ms, k2_plain = k2_times["f32 moments"]
+    k1b_ms, k1b_plain, k1b_bound = k1_times["bf16 store, W"]
+
+    def entry(name, source, replaces, launches, max_abs_err, ms, plain_ms,
+              bound, library_ms=None):
+        return {"name": name, "route": "cuda",
+                "source": f"proxmin_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound[0], "bound_by": bound[1],
+                "library_ms": library_ms}
+
     log(json.dumps({"kernels": [
-        {"name": "fused_nmf_pgm_step", "route": "cuda",
-         "source": "proxmin_tpu_torch/csrc/nmf_pgm_step.cu",
-         "replaces": "proxmin_tpu/ops/nmf_kernels.py:311",
-         "launches": k1_launches, "max_abs_err": k1_abs,
-         "ms": k1_ms, "plain_ms": k1_plain},
-        {"name": "fused_nmf_adaprox_step", "route": "cuda",
-         "source": "proxmin_tpu_torch/csrc/nmf_adaprox_step.cu",
-         "replaces": "proxmin_tpu/ops/nmf_kernels.py:525",
-         "launches": k2_launches, "max_abs_err": k2_abs,
-         "ms": k2_ms, "plain_ms": k2_plain},
-        {"name": "fused_nmf_grad", "route": "cuda",
-         "source": "proxmin_tpu_torch/csrc/nmf_grad.cu",
-         "replaces": "proxmin_tpu/ops/nmf_kernels.py:653",
-         "launches": k3_launches, "max_abs_err": k3_abs,
-         "ms": k3_times["unweighted"][0],
-         "plain_ms": k3_times["unweighted"][1]},
-        *({"name": f"prox_{op}_pallas", "route": "cuda",
-           "source": "proxmin_tpu_torch/csrc/prox_elementwise.cu",
-           "replaces": f"proxmin_tpu/ops/prox_kernels.py:{line}",
-           "launches": k4_launches[op], "max_abs_err": k4_abs[case],
-           "ms": k4_times[case, torch.float32][0],
-           "plain_ms": k4_times[case, torch.float32][1]}
+        entry("fused_nmf_pgm_step", "nmf_pgm_step.cu",
+              "proxmin_tpu/ops/nmf_kernels.py:311", k1_launches, k1_abs,
+              k1_ms, k1_plain, k1_bound),
+        entry("fused_nmf_pgm_step[bfloat16 store]", "nmf_pgm_step.cu",
+              "proxmin_tpu/ops/nmf_kernels.py:311", k1b_launches, k1bw_abs,
+              k1b_ms, k1b_plain, k1b_bound),
+        entry("fused_nmf_adaprox_step", "nmf_adaprox_step.cu",
+              "proxmin_tpu/ops/nmf_kernels.py:525", k2_launches, k2_abs,
+              k2_ms, k2_plain, k2_bound),
+        entry("fused_nmf_grad", "nmf_grad.cu",
+              "proxmin_tpu/ops/nmf_kernels.py:653", k3_launches, k3_abs,
+              *k3_times["unweighted"]),
+        *(entry(f"prox_{op}_pallas", "prox_elementwise.cu",
+                f"proxmin_tpu/ops/prox_kernels.py:{line}", k4_launches[op],
+                k4_abs[case], *k4_times[case, torch.float32])
           for op, case, line in (("plus", "plus", 126),
                                  ("soft", "soft relative", 131),
                                  ("hard", "hard relative", 139),
-                                 ("unity", "unity axis 0", 161)))]}))
+                                 ("unity", "unity axis 0", 161))),
+        *(entry(f"packed_step[{layout}]", "nmf_adaprox_step.cu",
+                "benchmarks/stream_merge.py:105", k5_launches[layout],
+                k5_abs[layout], *k5_times[layout])
+          for layout in ("smv", "mv"))]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

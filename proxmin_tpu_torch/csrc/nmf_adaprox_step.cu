@@ -49,6 +49,20 @@
 //   in block order in double. Every run gives the same bits, which the
 //   exact resume relies on.
 // Making it fast (vector loads, TMA, a persistent grid) is later work.
+//
+// K5, the packed-state variant, is this kernel with another layout (the
+// template parameter PK). It replaces the Pallas TPU kernel
+// benchmarks/stream_merge.py:105 (packed_step; body _packed_kernel :43):
+// K2's unweighted iteration with prox max(., 0) on
+//   kPackSMV: one (3K, N) f32 array [S; M; V] in and one out;
+//   kPackMV:  S (K, N) f32 plus one (2K, N) bfloat16 array [M; V].
+// The layout changes only where S, M and V are read and written (row
+// offsets K and 2K), so a packed result equals K2's bit for bit on the
+// same inputs and a timing compares the layouts alone. On the TPU the
+// question was the count of DMA streams (7 -> 3 or 5); here each thread
+// issues the same loads and stores either way, so what K5 measures on an
+// H100 is whether the merged arrays' addresses change the achieved
+// bandwidth. Bytes are K2's: 188 MB (smv) and 132 MB (mv) at the flagship.
 
 #include <cfloat>
 #include <cuda_bf16.h>
@@ -72,6 +86,9 @@ struct Scalars {
   float b1_t, bc1, bc2, one_minus_b2, b2, eps;
 };
 
+// Where S, M and V live: K2's three arrays, or K5's packed layouts.
+constexpr int kSeparate = 0, kPackSMV = 1, kPackMV = 2;
+
 __device__ __forceinline__ float load_moment(const float* p, long long i) {
   return p[i];
 }
@@ -87,17 +104,26 @@ __device__ __forceinline__ void store_moment(__nv_bfloat16* p, long long i,
   p[i] = __float2bfloat16_rn(v);
 }
 
-template <int CB, int KB, typename MT>
+template <int CB, int KB, typename MT, int PK>
 __global__ void __launch_bounds__(kThreads)
-adaprox_step_kernel(const float* __restrict__ A, const float* __restrict__ S,
-                    const MT* __restrict__ M, const MT* __restrict__ V,
+adaprox_step_kernel(const float* __restrict__ S_in, const MT* __restrict__ M_in,
+                    const MT* __restrict__ V_in, const float* __restrict__ A,
                     const float* __restrict__ Y, const float* __restrict__ W,
                     const float* __restrict__ alpha, Scalars sc,
                     int prox_plus, int C, int K, long long N,
-                    long long tile_n, float* __restrict__ S_new,
-                    MT* __restrict__ M_new, MT* __restrict__ V_new,
+                    long long tile_n, float* __restrict__ S_out,
+                    MT* __restrict__ M_out, MT* __restrict__ V_out,
                     float* __restrict__ partials) {
   using L = Layout<CB, KB>;
+  // the layout: K2 passes three arrays; kPackSMV passes [S; M; V] as S_in
+  // and S_out; kPackMV passes [M; V] as M_in and M_out
+  const long long KN = (long long)K * N;
+  const float* S = S_in;
+  float* S_new = S_out;
+  const MT* M = PK == kPackSMV ? reinterpret_cast<const MT*>(S_in + KN) : M_in;
+  MT* M_new = PK == kPackSMV ? reinterpret_cast<MT*>(S_out + KN) : M_out;
+  const MT* V = PK == kSeparate ? V_in : M + KN;
+  MT* V_new = PK == kSeparate ? V_out : M_new + KN;
   __shared__ float As[CB][KB];
   __shared__ float alphas[KB];
   __shared__ float red[kWarps][L::kP];
@@ -227,17 +253,18 @@ adaprox_step_finalize(const float* __restrict__ partials, long long n_blocks,
   }
 }
 
-template <int CB, int KB, typename MT>
+template <int CB, int KB, typename MT, int PK = kSeparate>
 int launch(const float* A, const float* S, const void* M, const void* V,
            const float* Y, const float* W, const float* alpha, Scalars sc,
            int prox_plus, int C, int K, long long N, long long tile_n,
            float* S_new, void* M_new, void* V_new, float* gA, float* rowsum,
            float* stats, float* partials, cudaStream_t stream) {
   const long long n_blocks = (N + tile_n - 1) / tile_n;
-  adaprox_step_kernel<CB, KB, MT><<<(unsigned)n_blocks, kThreads, 0, stream>>>(
-      A, S, static_cast<const MT*>(M), static_cast<const MT*>(V), Y, W, alpha,
-      sc, prox_plus, C, K, N, tile_n, S_new, static_cast<MT*>(M_new),
-      static_cast<MT*>(V_new), partials);
+  adaprox_step_kernel<CB, KB, MT, PK>
+      <<<(unsigned)n_blocks, kThreads, 0, stream>>>(
+          S, static_cast<const MT*>(M), static_cast<const MT*>(V), A, Y, W,
+          alpha, sc, prox_plus, C, K, N, tile_n, S_new,
+          static_cast<MT*>(M_new), static_cast<MT*>(V_new), partials);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   adaprox_step_finalize<CB, KB><<<1, kThreads, 0, stream>>>(
@@ -313,6 +340,43 @@ int nmf_adaprox_step(const void* A, const void* S, const void* M,
                                  prox_plus, C, K, N, tile_n, sn, M_new, V_new,
                                  ga, rs, st, pp, strm);
   return (int)cudaErrorInvalidValue;
+}
+
+// K5: one packed step on `stream`, K2's unweighted iteration with prox
+// max(., 0). With MV null, the kPackSMV layout: SMV and SMV_new are
+// (3K, N) float32 [S; M; V]. Otherwise the kPackMV layout: SMV and SMV_new
+// are S and S_new (K, N) float32, MV and MV_new (2K, N) bfloat16 [M; V].
+// The other pointers and the scalars are nmf_adaprox_step's. Returns
+// cudaGetLastError() after the launches; does not synchronize.
+int nmf_packed_step(const void* A, const void* SMV, const void* MV,
+                    const void* Y, const void* alpha, float b1_t, float bc1,
+                    float bc2, float one_minus_b2, float b2, float eps, int C,
+                    int K, long long N, long long tile_n, void* SMV_new,
+                    void* MV_new, void* gA, void* rowsum, void* stats,
+                    void* partials, void* stream) {
+  if (N < 1 || tile_n < 1) return (int)cudaErrorInvalidValue;
+  const float* a = static_cast<const float*>(A);
+  const float* s = static_cast<const float*>(SMV);
+  const float* y = static_cast<const float*>(Y);
+  const float* al = static_cast<const float*>(alpha);
+  float* sn = static_cast<float*>(SMV_new);
+  float* ga = static_cast<float*>(gA);
+  float* rs = static_cast<float*>(rowsum);
+  float* st = static_cast<float*>(stats);
+  float* pp = static_cast<float*>(partials);
+  cudaStream_t strm = static_cast<cudaStream_t>(stream);
+  const Scalars sc{b1_t, bc1, bc2, one_minus_b2, b2, eps};
+  if (!(C >= 1 && K >= 1 && C <= 8 && K <= 8))
+    return (int)cudaErrorInvalidValue;
+  if (MV == nullptr)
+    return launch<8, 8, float, kPackSMV>(a, s, nullptr, nullptr, y, nullptr,
+                                         al, sc, 1, C, K, N, tile_n, sn,
+                                         nullptr, nullptr, ga, rs, st, pp,
+                                         strm);
+  return launch<8, 8, __nv_bfloat16, kPackMV>(a, s, MV, nullptr, y, nullptr,
+                                              al, sc, 1, C, K, N, tile_n, sn,
+                                              MV_new, nullptr, ga, rs, st, pp,
+                                              strm);
 }
 
 }  // extern "C"

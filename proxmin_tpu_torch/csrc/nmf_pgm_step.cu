@@ -13,12 +13,20 @@
 //                                    iteration's Lipschitz input
 //   stats += [D.R, |S' - S|^2, |S'|^2]   (loss = D.R / 2)
 //
+// S, Y and W are stored as float or as bfloat16 (the store type, a
+// template parameter); compute is f32 either way. With the bfloat16 store,
+// as in the TPU kernel (nmf_kernels.py:259-308): the residual multiplies A
+// rounded to bfloat16 by the bfloat16 S (each product exact in f32, summed
+// in f32), gS uses the f32 A, S' is stored rounded to nearest even, and the
+// Gram and the statistics use the rounded S' (the values the next iteration
+// reads back); gA uses the old S.
+//
 // What bounds it on an H100: bytes. Each iteration reads Y (C x N) and S
-// (K x N) and writes S' (K x N), all f32: (C + 2K) N 4 bytes, 76 MB at the
+// (K x N) and writes S' (K x N): (C + 2K) N 4 bytes in f32, 76 MB at the
 // flagship C=5, K=7, N=1e6, which is 23 us at 3.35 TB/s (plus C N 4 bytes
-// when W streams). The arithmetic, about 2N(3CK + K(K+1)/2) flops, is
-// 0.26 GFLOP at the flagship, far below what the card's f32 units do in
-// that time.
+// when W streams); half that with the bfloat16 store (38 MB, 48 MB with W).
+// The arithmetic, about 2N(3CK + K(K+1)/2) flops, is 0.26 GFLOP at the
+// flagship, far below what the card's f32 units do in that time.
 //
 // What the design does about it:
 // - Each thread takes one column at a time; a block of 256 threads walks a
@@ -40,6 +48,9 @@
 //   relies on.
 // Making it fast (vector loads, TMA, a persistent grid) is later work.
 
+#include <type_traits>
+
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -56,20 +67,46 @@ struct Layout {
   static constexpr int kP = kStats + 3;
 };
 
-template <int CB, int KB>
+__device__ __forceinline__ float load(const float* p, long long i) {
+  return p[i];
+}
+__device__ __forceinline__ float load(const __nv_bfloat16* p, long long i) {
+  return __bfloat162float(p[i]);
+}
+// Stores v and returns the value stored, as the next iteration reads it.
+__device__ __forceinline__ float store(float* p, long long i, float v) {
+  p[i] = v;
+  return v;
+}
+__device__ __forceinline__ float store(__nv_bfloat16* p, long long i,
+                                       float v) {
+  const __nv_bfloat16 b = __float2bfloat16_rn(v);
+  p[i] = b;
+  return __bfloat162float(b);
+}
+
+template <int CB, int KB, typename ST>
 __global__ void __launch_bounds__(kThreads)
-pgm_step_kernel(const float* __restrict__ A, const float* __restrict__ S,
-                const float* __restrict__ Y, const float* __restrict__ W,
+pgm_step_kernel(const float* __restrict__ A, const ST* __restrict__ S,
+                const ST* __restrict__ Y, const ST* __restrict__ W,
                 const float* __restrict__ step_S, int prox_plus, int C,
                 int K, long long N, long long tile_n,
-                float* __restrict__ S_new, float* __restrict__ partials) {
+                ST* __restrict__ S_new, float* __restrict__ partials) {
   using L = Layout<CB, KB>;
+  constexpr bool kF32 = std::is_same<ST, float>::value;
   __shared__ float As[CB][KB];
+  // A as the residual product takes it: A itself in f32; with the bfloat16
+  // store, A rounded to bfloat16 (bfloat16 x bfloat16 products are exact in
+  // f32). The f32 instance reads As for both, as before the store type.
+  __shared__ float A16[kF32 ? 1 : CB][KB];
+  float (*Ar)[KB] = kF32 ? As : A16;
   __shared__ float red[kWarps][L::kP];
 
   for (int i = threadIdx.x; i < CB * KB; i += kThreads) {
     const int c = i / KB, k = i % KB;
-    As[c][k] = (c < C && k < K) ? A[c * K + k] : 0.f;
+    const float a = (c < C && k < K) ? A[c * K + k] : 0.f;
+    As[c][k] = a;
+    if constexpr (!kF32) A16[c][k] = __bfloat162float(__float2bfloat16_rn(a));
   }
   __syncthreads();
   const float sS = *step_S;
@@ -83,19 +120,19 @@ pgm_step_kernel(const float* __restrict__ A, const float* __restrict__ S,
   for (long long n = begin + threadIdx.x; n < end; n += kThreads) {
     float s[KB], d[CB], sn[KB];
 #pragma unroll
-    for (int k = 0; k < KB; ++k) s[k] = (k < K) ? S[k * N + n] : 0.f;
+    for (int k = 0; k < KB; ++k) s[k] = (k < K) ? load(S, k * N + n) : 0.f;
 
 #pragma unroll
     for (int c = 0; c < CB; ++c) {
       float r = 0.f, dc = 0.f;
       if (c < C) {
-        r = As[c][0] * s[0];
+        r = Ar[c][0] * s[0];
 #pragma unroll
         for (int k = 1; k < KB; ++k) {
-          if (k < K) r = fmaf(As[c][k], s[k], r);
+          if (k < K) r = fmaf(Ar[c][k], s[k], r);
         }
-        r -= Y[c * N + n];
-        dc = (W != nullptr) ? W[c * N + n] * r : r;
+        r -= load(Y, c * N + n);
+        dc = (W != nullptr) ? load(W, c * N + n) * r : r;
       }
       d[c] = dc;
       acc[L::kStats] = fmaf(dc, r, acc[L::kStats]);
@@ -113,7 +150,7 @@ pgm_step_kernel(const float* __restrict__ A, const float* __restrict__ S,
         x = s[k] - sS * g;
         // keeps NaN (fmaxf would turn it into 0 and hide a divergence)
         if (prox_plus && x < 0.f) x = 0.f;
-        S_new[k * N + n] = x;
+        x = store(S_new, k * N + n, x);
       }
       sn[k] = x;
     }
@@ -194,19 +231,36 @@ pgm_step_finalize(const float* __restrict__ partials, long long n_blocks,
   }
 }
 
-template <int CB, int KB>
-int launch(const float* A, const float* S, const float* Y, const float* W,
+template <int CB, int KB, typename ST>
+int launch(const float* A, const void* S, const void* Y, const void* W,
            const float* step_S, int prox_plus, int C, int K, long long N,
-           long long tile_n, float* S_new, float* gA, float* gram,
+           long long tile_n, void* S_new, float* gA, float* gram,
            float* stats, float* partials, cudaStream_t stream) {
   const long long n_blocks = (N + tile_n - 1) / tile_n;
-  pgm_step_kernel<CB, KB><<<(unsigned)n_blocks, kThreads, 0, stream>>>(
-      A, S, Y, W, step_S, prox_plus, C, K, N, tile_n, S_new, partials);
+  pgm_step_kernel<CB, KB, ST><<<(unsigned)n_blocks, kThreads, 0, stream>>>(
+      A, static_cast<const ST*>(S), static_cast<const ST*>(Y),
+      static_cast<const ST*>(W), step_S, prox_plus, C, K, N, tile_n,
+      static_cast<ST*>(S_new), partials);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   pgm_step_finalize<CB, KB><<<1, kThreads, 0, stream>>>(
       partials, n_blocks, C, K, gA, gram, stats);
   return (int)cudaGetLastError();
+}
+
+template <int CB, int KB>
+int launch_store(int store_bf16, const float* A, const void* S, const void* Y,
+                 const void* W, const float* step_S, int prox_plus, int C,
+                 int K, long long N, long long tile_n, void* S_new, float* gA,
+                 float* gram, float* stats, float* partials,
+                 cudaStream_t stream) {
+  if (store_bf16)
+    return launch<CB, KB, __nv_bfloat16>(A, S, Y, W, step_S, prox_plus, C, K,
+                                         N, tile_n, S_new, gA, gram, stats,
+                                         partials, stream);
+  return launch<CB, KB, float>(A, S, Y, W, step_S, prox_plus, C, K, N,
+                               tile_n, S_new, gA, gram, stats, partials,
+                               stream);
 }
 
 }  // namespace
@@ -223,33 +277,29 @@ int nmf_pgm_step_partials_width(int C, int K) {
 }
 
 // One fused step on `stream`. All pointers are device pointers to
-// contiguous row-major float32 arrays: A (C, K), S and S_new (K, N), Y and
-// W (C, N; W may be null), step_S (1,), gA (C, K), gram (K, K), stats (3,),
-// partials (ceil(N / tile_n), width). Returns cudaGetLastError() after the
-// launches (0 on success); does not synchronize.
-int nmf_pgm_step_f32(const void* A, const void* S, const void* Y,
-                     const void* W, const void* step_S, int prox_plus, int C,
-                     int K, long long N, long long tile_n, void* S_new,
-                     void* gA, void* gram, void* stats, void* partials,
-                     void* stream) {
+// contiguous row-major arrays: A (C, K), step_S (1,), gA (C, K), gram
+// (K, K), stats (3,) and partials (ceil(N / tile_n), width) float32; S and
+// S_new (K, N), Y and W (C, N; W may be null) float32, or bfloat16 when
+// store_bf16 is 1. Returns cudaGetLastError() after the launches (0 on
+// success); does not synchronize.
+int nmf_pgm_step(const void* A, const void* S, const void* Y, const void* W,
+                 const void* step_S, int prox_plus, int store_bf16, int C,
+                 int K, long long N, long long tile_n, void* S_new, void* gA,
+                 void* gram, void* stats, void* partials, void* stream) {
   if (N < 1 || tile_n < 1) return (int)cudaErrorInvalidValue;
   const float* a = static_cast<const float*>(A);
-  const float* s = static_cast<const float*>(S);
-  const float* y = static_cast<const float*>(Y);
-  const float* w = static_cast<const float*>(W);
   const float* ss = static_cast<const float*>(step_S);
-  float* sn = static_cast<float*>(S_new);
   float* ga = static_cast<float*>(gA);
   float* g = static_cast<float*>(gram);
   float* st = static_cast<float*>(stats);
   float* pp = static_cast<float*>(partials);
   cudaStream_t strm = static_cast<cudaStream_t>(stream);
   if (C >= 1 && K >= 1 && C <= 8 && K <= 8)
-    return launch<8, 8>(a, s, y, w, ss, prox_plus, C, K, N, tile_n, sn, ga,
-                        g, st, pp, strm);
+    return launch_store<8, 8>(store_bf16, a, S, Y, W, ss, prox_plus, C, K, N,
+                              tile_n, S_new, ga, g, st, pp, strm);
   if (C >= 1 && K >= 1 && C <= 16 && K <= 8)
-    return launch<16, 8>(a, s, y, w, ss, prox_plus, C, K, N, tile_n, sn, ga,
-                         g, st, pp, strm);
+    return launch_store<16, 8>(store_bf16, a, S, Y, W, ss, prox_plus, C, K,
+                               N, tile_n, S_new, ga, g, st, pp, strm);
   return (int)cudaErrorInvalidValue;
 }
 

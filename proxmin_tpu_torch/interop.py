@@ -9,7 +9,7 @@ arrays (``np.asarray``), so a JAX solve can be continued in the port.
 import numpy as np
 import torch
 
-from .solvers.common import as_tensor
+from .solvers.common import as_tensor, default_device
 
 __all__ = ["state_from_numpy"]
 
@@ -26,41 +26,51 @@ def _tensor(v, device, dtype=None):
     return as_tensor(np.array(v), dtype, device)
 
 
-def _empty_stepper(state, what):
-    if len(tuple(state.get("stepper_state", ()))) != 0:
-        raise NotImplementedError(
-            f"{what} states with a stateful stepper (Barzilai-Borwein, "
-            "strided) have no counterpart in the port yet (ROADMAP.md "
-            "Queue 1 items 6 and 12)")
+def _stepper_state(v, device):
+    """A JAX stepper state as the port's: tuples stay tuples, integer
+    scalars (the strided steppers' stride and next-refresh clock) become
+    host integers, other leaves tensors of their dtype on ``device``."""
+    if isinstance(v, (tuple, list)):
+        return tuple(_stepper_state(x, device) for x in v)
+    a = np.asarray(v)
+    if a.ndim == 0 and a.dtype.kind in "iu":
+        return int(a)
+    return _tensor(a, device)
 
 
 def _fused_pgm_state(state, device):
+    """The three ``nmf_pgm_fused`` layouts: ``"steps"`` is K1's Gram
+    (exact), ``(sA, sS, Gram, stride, next)`` (unweighted strided) or
+    ``(sA, sS, v, stride, next)`` (weighted)."""
     stride = tuple(_py(v) for v in state.get("stride_config", (0, False)))
-    if (bool(_py(state["weighted"])) or int(stride[0]) > 1
-            or bool(stride[1]) or _py(state.get("store_dtype")) is not None):
-        raise NotImplementedError(
-            "only the unweighted, unstrided float32 nmf_pgm_fused state "
-            "has a counterpart in the port so far (ROADMAP.md Queue 1 "
-            "item 6)")
+    sdt = _py(state.get("store_dtype"))
+    steps = state["steps"]
+    if isinstance(steps, (tuple, list)):
+        sA, sS, aux, stride_c, nxt = steps
+        steps = (*(_tensor(v, device, torch.float32) for v in (sA, sS, aux)),
+                 int(np.asarray(stride_c)), int(np.asarray(nxt)))
+    else:
+        steps = _tensor(steps, device, torch.float32)
     return {
-        "kind": "nmf_pgm_fused", "weighted": False,
-        "stride_config": (0, False), "store_dtype": None,
+        "kind": "nmf_pgm_fused", "weighted": bool(_py(state["weighted"])),
+        "stride_config": (int(stride[0]), bool(stride[1])),
+        "store_dtype": None if sdt is None else str(sdt),
         "tile_n": int(_py(state["tile_n"])), "it": int(_py(state["it"])),
         "converged": np.asarray(state["converged"], bool),
         "diverged": bool(_py(state["diverged"])),
         "loss": float(_py(state["loss"])),
-        "steps": _tensor(state["steps"], device, torch.float32),
+        "steps": steps,
     }
 
 
 def _pgm_state(state, device):
-    _empty_stepper(state, "pgm")
     return {
         "x_prev": tuple(_tensor(x, device) for x in state.get("x_prev", ())),
         "t": _tensor(state["t"], device),
         "T": _tensor(state["T"], device),
         "f_prev": _tensor(state["f_prev"], device),
-        "stepper_state": (),
+        "stepper_state": _stepper_state(state.get("stepper_state", ()),
+                                        device),
         "it": int(_py(state["it"])),
         "converged": _tensor(state["converged"], device, torch.bool),
         "diverged": _tensor(state["diverged"], device, torch.bool),
@@ -71,12 +81,12 @@ def _adaprox_state(state, device):
     """Both JAX adaprox layouts: the driver's (``proxmin_tpu.adaprox``,
     ``nmf(engine="xla")``) and the fused runner's (``engine="pallas"``),
     which adds the kernel's row sums, the loss and its configuration."""
-    _empty_stepper(state, "adaprox")
     out = {
         "M": tuple(_tensor(m, device) for m in state["M"]),
         "V": tuple(_tensor(v, device) for v in state["V"]),
         "Vhat": tuple(_tensor(v, device) for v in state["Vhat"]),
-        "stepper_state": (),
+        "stepper_state": _stepper_state(state.get("stepper_state", ()),
+                                        device),
         "it": int(_py(state["it"])),
         "converged": _tensor(state["converged"], device, torch.bool),
         "diverged": _tensor(state["diverged"], device, torch.bool),
@@ -100,16 +110,19 @@ def _adaprox_state(state, device):
 def state_from_numpy(state, device=None):
     """Turn a ``proxmin_tpu`` solver ``.state`` (leaves as NumPy arrays or
     Python scalars) into the port's ``.state`` on ``device`` (default: the
-    CPU).
+    CUDA device; without one, pass ``device="cpu"``).
 
     Supported: the ``pgm`` state (``nmf(engine="xla")``, continued with
-    ``engine="torch"``) with a stateless stepper; the unweighted exact
-    ``nmf_pgm_fused`` state (``engine="pallas"``, continued with
-    ``engine="cuda"``); and both ``adaprox`` states, the driver's and the
-    fused runner's (continued with ``nmf(algorithm="adaprox")`` on either
-    engine, or ``adaprox(state=...)``), bfloat16 moments included. Other
-    states raise ``NotImplementedError``.
+    ``engine="torch"``), its stepper state included (a ``StridedStepper``
+    or ``WeightedPGMStepper`` one from ``step_stride``/``step_adapt``);
+    every ``nmf_pgm_fused`` state (``engine="pallas"``: exact, strided,
+    weighted, bfloat16 store; continued with ``engine="cuda"``); and both
+    ``adaprox`` states, the driver's and the fused runner's (continued with
+    ``nmf(algorithm="adaprox")`` on either engine, or
+    ``adaprox(state=...)``), bfloat16 moments included. Other states raise
+    ``NotImplementedError``.
     """
+    device = default_device(device)
     kind = _py(state.get("kind"))
     if kind == "nmf_pgm_fused":
         return _fused_pgm_state(state, device)

@@ -7,16 +7,19 @@ under proximal constraints on A and S, on two engines:
   generic :func:`~proxmin_tpu_torch.solvers.pgm.pgm` or
   :func:`~proxmin_tpu_torch.solvers.adaprox.adaprox` driver with
   :func:`grad_likelihood` and :func:`step_pgm` / :func:`step_adaprox` as
-  tensor ops.
+  tensor ops; ``step_stride``/``step_adapt`` wrap the steps in a
+  :class:`~proxmin_tpu_torch.utils.StridedStepper`, or a
+  :class:`WeightedPGMStepper` for weighted PGM.
 * ``engine="cuda"`` (the JAX ``"pallas"`` engine's counterpart): one launch
   of a fused kernel per iteration, :func:`nmf_pgm_fused` on
-  :func:`~proxmin_tpu_torch.ops.nmf_kernels.fused_nmf_pgm_step` (K1) or
+  :func:`~proxmin_tpu_torch.ops.nmf_kernels.fused_nmf_pgm_step` (K1;
+  weighted, strided and with a bfloat16 store) or
   :func:`nmf_adaprox_fused` on
   :func:`~proxmin_tpu_torch.ops.nmf_kernels.fused_nmf_adaprox_step` (K2).
 
-Weighted PGM, the strided/adaptive steps, ``engine="auto"``, ``mesh=`` and
-bsdmm are later slices (ROADMAP.md Queue 1). AdaProx takes ``W`` on both
-engines: its mean/10 steps need no weighted Lipschitz bound.
+``engine="auto"``, ``mesh=`` and bsdmm are later slices (ROADMAP.md
+Queue 1). NumPy inputs go to the CUDA device unless ``device=`` says
+otherwise; tensors stay where they are.
 """
 
 import logging
@@ -29,8 +32,9 @@ from . import algorithms, operators
 from .ops.nmf_kernels import (DEFAULT_TILE_N, fused_nmf_adaprox_step,
                               fused_nmf_pgm_step)
 from .solvers.common import (SolverResult, as_tensor, as_torch_dtype,
-                             promote_dtype, separable_blocks, status_from,
-                             writeback)
+                             default_device, promote_dtype,
+                             separable_blocks, status_from, writeback)
+from .utils import StridedStepper, grow_stride
 
 logger = logging.getLogger("proxmin")
 
@@ -41,6 +45,7 @@ __all__ = [
     "step_S",
     "step_pgm",
     "step_adaprox",
+    "WeightedPGMStepper",
     "pgm_nmf_iteration",
     "nmf",
     "nmf_pgm_fused",
@@ -89,11 +94,12 @@ def _adaprox_separable_ok(prox_A, prox_S, mode):
 
 def _device_for(device, *arrays):
     """Where NumPy inputs go: ``device`` when given, else the device of the
-    first tensor among ``arrays``, else the CPU."""
+    first tensor among ``arrays``, else the card (raising without one)."""
     if device is not None:
         return torch.device(device)
-    return next((a.device for a in arrays if isinstance(a, torch.Tensor)),
-                torch.device("cpu"))
+    dev = next((a.device for a in arrays if isinstance(a, torch.Tensor)),
+               None)
+    return default_device() if dev is None else dev
 
 
 def log_likelihood(*X, Y=0, W=1):
@@ -128,12 +134,137 @@ def step_S(A, S):
     return 1.0 / _lambda_max(A.T @ A)
 
 
+def _weighted_lipschitz_A(S, W):
+    """``max_c lambda_max(S diag(W[c, :]) S^T)``: the C per-channel K x K
+    Grams in one einsum, then a batched ``eigvalsh``. The JAX package's
+    batched-Lanczos branch for ``C K K > 2**20`` is not ported."""
+    C = W.shape[0]
+    K = S.shape[0]
+    if C * K * K > (1 << 20):
+        raise _not_yet("the batched-Lanczos weighted Lipschitz bound "
+                       "(C*K*K > 2**20, utils.batched_lanczos_max)", 9)
+    H = torch.einsum("kn,cn,ln->ckl", S, W, S)
+    return torch.max(torch.linalg.eigvalsh(H)[:, -1])
+
+
+def _weighted_lipschitz_S_v0(N, K, dtype, device):
+    """The deterministic cold-start iterate (N, K) of the batched power
+    iteration, each row normalized."""
+    v = (torch.ones((N, K), dtype=dtype, device=device)
+         + 0.01 * torch.arange(K, dtype=dtype, device=device))
+    return v / torch.linalg.norm(v, dim=1, keepdim=True)
+
+
+def _weighted_lipschitz_S(A, W, num_iters=48, v0=None, return_v=False):
+    """``max_n lambda_max(A^T diag(W[:, n]) A)`` by a batched power
+    iteration over the N per-pixel K x K blocks, never formed: ``num_iters``
+    passes from ``v0`` (default: the cold start), then the largest Rayleigh
+    quotient. A fully masked pixel (``W[:, n] = 0``) gives 0, not NaN.
+    ``return_v`` also returns the next warm start (one more pass,
+    normalized)."""
+    N = W.shape[1]
+    K = A.shape[1]
+    v = (_weighted_lipschitz_S_v0(N, K, A.dtype, A.device) if v0 is None
+         else v0)
+    tiny = torch.finfo(A.dtype).tiny
+
+    def Hv(v):
+        return (W * (A @ v.T)).T @ A
+
+    def normalize(w):
+        ssq = torch.sum(w * w, dim=1, keepdim=True)
+        return w * torch.rsqrt(torch.clamp_min(ssq, tiny))
+
+    for _ in range(int(num_iters)):
+        v = normalize(Hv(v))
+    hv = Hv(v)
+    rayleigh = torch.sum(v * hv, dim=1) / torch.clamp_min(
+        torch.sum(v * v, dim=1), tiny)
+    lmax = torch.max(rayleigh)
+    if return_v:
+        return lmax, normalize(hv)
+    return lmax
+
+
 def step_pgm(*X, it=None, W=1):
-    """Lipschitz PGM step sizes ``(step_A, step_S)`` (unweighted only)."""
-    if not _is_unweighted(W):
-        raise _not_yet("weighted step_pgm", 6)
+    """Lipschitz PGM step sizes ``(step_A, step_S)``; weighted with a
+    (C, N) ``W``: ``1 / max_c lambda_max(S diag(W_c) S^T)`` and
+    ``1 / max_n lambda_max(A^T diag(W_n) A)`` (48 cold power passes)."""
     A, S = X
-    return step_A(A, S), step_S(A, S)
+    if _is_unweighted(W):
+        return step_A(A, S), step_S(A, S)
+    return 1.0 / _weighted_lipschitz_A(S, W), 1.0 / _weighted_lipschitz_S(A, W)
+
+
+#: Power passes of a weighted refresh: from the cold start at global
+#: iteration 0, and warm-started from the previous refresh's iterate after.
+_COLD_ITERS, _WARM_ITERS = 48, 12
+
+
+class WeightedPGMStepper:
+    """Strided weighted-Lipschitz steps with the power iterate carried in
+    the state, warm-started between refreshes.
+
+    Counterpart of :class:`proxmin_tpu.nmf.WeightedPGMStepper` (and its
+    base ``_WeightedStepperBase``): a refresh every ``stride`` iterations
+    computes both weighted bounds, ``cold_iters`` power passes on the first
+    refresh (global iteration 0) and ``warm_iters`` after, each step shrunk
+    by ``safety``; ``adapt=True`` grows or shrinks the interval with
+    :func:`~proxmin_tpu_torch.utils.grow_stride`. The state is the JAX
+    layout ``((step_A, step_S), v, stride, next_refresh)``, with the stride
+    and the clock as host integers. The JAX ``split_data`` and
+    ``stepper_cache_key`` hooks serve ``jit`` and have no counterpart in
+    eager PyTorch.
+    """
+
+    segmentable = True
+
+    def __init__(self, W, stride=10, safety=0.9, cold_iters=_COLD_ITERS,
+                 warm_iters=_WARM_ITERS, adapt=False, max_stride=100):
+        self.W = W
+        self.stride = int(stride)
+        self.safety = float(safety)
+        self.cold_iters = int(cold_iters)
+        self.warm_iters = int(warm_iters)
+        self.adapt = bool(adapt)
+        self.max_stride = int(max_stride)
+
+    def init_state(self, X, G):
+        A, _ = X
+        v0 = _weighted_lipschitz_S_v0(self.W.shape[1], A.shape[1], A.dtype,
+                                      A.device)
+        zero = torch.zeros((), dtype=A.dtype, device=A.device)
+        return ((zero, zero), v0, self.stride, 0)
+
+    def segment_refresh(self, state, X, it):
+        """Fresh steps and warm iterate at global iteration ``it``;
+        returns ``(steps, state)``."""
+        A, S = X
+        cached, v, stride, _ = state
+        LA = _weighted_lipschitz_A(S, self.W)
+        LS, v_new = _weighted_lipschitz_S(
+            A, self.W, self.cold_iters if it == 0 else self.warm_iters,
+            v0=v, return_v=True)
+        steps = (self.safety / LA, self.safety / LS)
+        if self.adapt:
+            stride = grow_stride(stride, cached, steps,
+                                 (1.0 - self.safety) / 2, self.max_stride,
+                                 first=(it == 0))
+        return steps, (steps, v_new, stride, it + stride)
+
+    def state_stride(self, state):
+        return state[2]
+
+    def state_steps(self, state):
+        return state[0]
+
+    def segment_end(self, state, it):
+        return state[3]
+
+    def __call__(self, state, X, it, G):
+        if it >= state[3]:
+            state = self.segment_refresh(state, X, it)[1]
+        return state[0], state
 
 
 def step_adaprox(*X, it=None):
@@ -175,23 +306,63 @@ def _fused_fp_conv(d_sq, n_sq, e_rel):
         ok, torch.logical_and(torch.isfinite(d_sq), torch.isfinite(n_sq)))
 
 
-def _run_fused_pgm(A, S, Y, max_iter, prox_A, prox_S, e_rel, tile_n,
-                   conv_A0=False, conv_S0=False, div0=False, loss0=np.inf,
-                   SSt0=None):
-    """The exact (unstrided) fused PGM loop on float32 tensors. Counterpart
-    of the ``run`` built by ``proxmin_tpu.nmf._make_fused_pgm_runner``.
+#: The strided runners' policy, as in the JAX package: each refresh's steps
+#: shrink by this factor, and ``step_adapt`` caps the interval here.
+_SAFETY = 0.9
+_MAX_STRIDE = 100
 
-    The step sizes come from the Gram the kernel accumulated for the
-    current S (``SSt``) and from ``A^T A``; both eigensolves are K x K.
-    ``SSt0`` carries the kernel's own Gram across a resume: a fresh
-    ``S S^T`` has another summation order, and its last-bit differences
-    would compound. Returns ``(A, S, it, conv_A, conv_S, loss, SSt)``."""
+
+def _run_fused_pgm(A, S, Y, W, max_iter, prox_A, prox_S, e_rel, tile_n,
+                   stride=1, adapt=False, safety=1.0, it0=0,
+                   conv0=(False, False), div0=False, loss0=np.inf,
+                   steps0=None):
+    """The fused PGM loop on K1, one launch per iteration. Counterpart of
+    the ``run`` built by ``proxmin_tpu.nmf._make_fused_pgm_runner`` (the
+    exact steps: ``stride=1``, ``safety=1``),
+    ``_make_fused_strided_pgm_runner`` and
+    ``_make_fused_weighted_pgm_runner``, as one host loop.
+
+    A is (C, K) float32; S and Y, and W when weighted, are all float32 or
+    all bfloat16 (the store). The steps refresh when the global iteration
+    reaches the next-refresh clock, a host integer: unweighted from the
+    ``S S^T`` Gram K1 carried out of the previous iteration and ``A^T A``
+    (two K x K eigensolves, no pixel traffic); weighted from the weighted
+    bounds on float32 views of the stores, with the power iterate ``v``
+    (N, K) warm-started (``_COLD_ITERS`` passes at global iteration 0,
+    ``_WARM_ITERS`` after). Each
+    refresh's steps shrink by ``safety``; with ``adapt`` the interval
+    follows :func:`grow_stride`, which reads the device once per refresh.
+    Between refreshes the steps stay frozen and nothing but K1 and the
+    C x K A update runs.
+
+    ``steps0`` resumes from ``(sA, sS, Gram or v, stride, next_refresh)``:
+    the frozen steps serve until the carried clock, so a resume mid-segment
+    or on a boundary walks the straight solve's iterations; the Gram is
+    K1's own (a fresh ``S S^T`` sums in another order, and its last-bit
+    differences would compound). Returns ``(A, S, it, conv_A, conv_S,
+    loss, steps)`` with ``steps`` in that layout."""
     dev = A.device
-    SSt = S @ S.T if SSt0 is None else SSt0.to(device=dev,
-                                                dtype=torch.float32)
-    conv_A = torch.tensor(bool(conv_A0), device=dev)
-    conv_S = torch.tensor(bool(conv_S0), device=dev)
-    loss = torch.tensor(float(loss0), dtype=torch.float32, device=dev)
+    f32 = torch.float32
+    weighted = W is not None
+    K, N = S.shape
+    if steps0 is None:
+        zero = torch.zeros((), dtype=f32, device=dev)
+        sA, sS, stride_c, nxt = zero, zero, int(stride), int(it0)
+        if weighted:
+            aux = _weighted_lipschitz_S_v0(N, K, f32, dev)
+        else:
+            S32 = S.to(f32)
+            aux = S32 @ S32.T
+    else:
+        sA, sS, aux, stride_c, nxt = steps0
+        sA, sS = (as_tensor(v, f32, dev).reshape(()) for v in (sA, sS))
+        aux = as_tensor(aux, f32, dev)
+        stride_c, nxt = int(stride_c), int(nxt)
+    W32 = None if W is None else W.to(f32)
+    budget = (1.0 - safety) / 2
+    conv_A = torch.tensor(bool(conv0[0]), device=dev)
+    conv_S = torch.tensor(bool(conv0[1]), device=dev)
+    loss = torch.tensor(float(loss0), dtype=f32, device=dev)
     it = 0
 
     def keep_going():
@@ -206,19 +377,50 @@ def _run_fused_pgm(A, S, Y, max_iter, prox_A, prox_S, e_rel, tile_n,
         return not bool(stop)
 
     while it < max_iter and keep_going():
-        sA = 1.0 / _lambda_max(SSt)
-        sS = 1.0 / _lambda_max(A.T @ A)
+        g = it0 + it
+        if g >= nxt:
+            if weighted:
+                LA = _weighted_lipschitz_A(S.to(f32), W32)
+                LS, aux = _weighted_lipschitz_S(
+                    A, W32, _COLD_ITERS if g == 0 else _WARM_ITERS, v0=aux,
+                    return_v=True)
+                sA_n, sS_n = 1.0 / LA, 1.0 / LS
+            else:
+                sA_n = 1.0 / _lambda_max(aux)
+                sS_n = 1.0 / _lambda_max(A.T @ A)
+            if safety != 1.0:
+                sA_n, sS_n = safety * sA_n, safety * sS_n
+            if adapt:
+                stride_c = grow_stride(stride_c, (sA, sS), (sA_n, sS_n),
+                                       budget, _MAX_STRIDE, first=(g == 0))
+            nxt = g + stride_c
+            sA, sS = sA_n, sS_n
         gA, S_new, SSt_new, loss, dS_sq, nS_sq = fused_nmf_pgm_step(
-            A, S, Y, sS, prox_S=prox_S, tile_n=tile_n)
+            A, S, Y, sS, W=W, prox_S=prox_S, tile_n=tile_n)
         A_new = prox_A(A - sA * gA, sA)
         dA_sq = torch.sum((A_new - A) ** 2)
         nA_sq = torch.sum(A_new ** 2)
         conv_A = _fused_fp_conv(dA_sq, nA_sq, e_rel)
         conv_S = _fused_fp_conv(dS_sq, nS_sq, e_rel)
         loss = _poison_loss(loss, dA_sq, nA_sq, dS_sq, nS_sq)
-        A, S, SSt = A_new, S_new, SSt_new
+        A, S = A_new, S_new
+        if not weighted:
+            aux = SSt_new
         it += 1
-    return A, S, it, bool(conv_A), bool(conv_S), float(loss), SSt
+    return (A, S, it, bool(conv_A), bool(conv_S), float(loss),
+            (sA, sS, aux, stride_c, nxt))
+
+
+def _store_dtype(store_dtype):
+    """``store_dtype`` as None (full width, the default layout) or
+    ``torch.bfloat16``."""
+    sdt = as_torch_dtype(store_dtype)
+    if sdt is not None and sdt.itemsize >= 4:
+        return None
+    if sdt not in (None, torch.bfloat16):
+        raise ValueError(f"store_dtype must be bfloat16 or a full-width "
+                         f"dtype, got {store_dtype!r}")
+    return sdt
 
 
 def nmf_pgm_fused(
@@ -231,58 +433,95 @@ def nmf_pgm_fused(
     e_rel=1e-3,
     max_iter=1000,
     tile_n=DEFAULT_TILE_N,
+    store_dtype=None,
+    step_stride=None,
+    step_adapt=False,
     state=None,
     device=None,
 ):
-    """Unweighted PGM-NMF with one fused K1 step per iteration.
+    """PGM-NMF with one fused K1 step per iteration.
 
     The same iteration as ``nmf(engine="torch")``, with the S-side work
     (residual, both gradients, the proxed S update, the next ``S S^T``
     Gram and the convergence norms) done in one pass over the pixels by
-    :func:`~proxmin_tpu_torch.ops.nmf_kernels.fused_nmf_pgm_step`. The
-    Lipschitz recursion is exact, not lagged. Computes in float32.
+    :func:`~proxmin_tpu_torch.ops.nmf_kernels.fused_nmf_pgm_step`.
+    Computes in float32.
+
+    Unweighted, the Lipschitz recursion is exact (not lagged): K1's Gram of
+    the S it just wrote is the next step's input. ``W`` (C x N, or a scalar
+    or anything that broadcasts) weights the residual in the same pass; the
+    weighted bounds (a batched power iteration, outside the kernel) refresh
+    every ``step_stride`` iterations (default 1: every iteration, exact
+    steps), with a warm-started power iterate and the 0.9 safety factor
+    when strided. ``step_stride > 1`` or ``step_adapt=True`` on an
+    unweighted problem refresh the steps once per segment from K1's Gram
+    (no eigensolve between refreshes), shrunk by 0.9; ``step_adapt`` grows
+    or halves the interval (:func:`~proxmin_tpu_torch.utils.grow_stride`,
+    capped at 100). Unweighted ``step_stride=1`` without ``step_adapt`` is
+    the exact engine.
+
+    ``store_dtype=torch.bfloat16`` (or ``"bfloat16"``) stores S, Y and W in
+    bfloat16 (compute stays float32; the residual multiplies A rounded to
+    bfloat16). The fixed-point residual then floors at bfloat16
+    quantization, so keep ``e_rel`` loose. A full-width ``store_dtype`` is
+    the default layout.
 
     On CUDA tensors ``prox_S`` must be ``prox_plus`` or ``prox_id``/None
     (the kernel applies it); ``prox_A`` acts on the tiny C x K factor
     outside the kernel and may be any prox. On CPU tensors the kernel's
-    plain version runs instead.
+    plain version runs instead. NumPy inputs go to ``device`` (default:
+    the CUDA device).
 
     ``state=`` continues a previous call's ``.state`` (with its final
     iterates) on the uninterrupted trajectory, bit for bit, and a solve
     that stopped stays stopped; ``max_iter`` counts the further
-    iterations. ``tile_n`` must match the state's: it fixes the kernel's
-    summation order.
+    iterations. The weighting, ``step_stride``/``step_adapt``,
+    ``store_dtype`` and ``tile_n`` (which fixes the kernel's summation
+    order) must match the state's. Its ``"steps"`` are K1's Gram (exact),
+    ``(step_A, step_S, Gram, stride, next_refresh)`` (unweighted strided)
+    or ``(step_A, step_S, v, stride, next_refresh)`` (weighted).
 
     Returns a ``SolverResult`` unpacking as the ``(conv_A, conv_S)`` flags,
     with ``.x == (A, S)``, ``.iterations``, ``.converged``, ``.loss``,
     ``.status`` and ``.state``.
     """
-    if not _is_unweighted(W):
-        raise _not_yet("the weighted fused PGM runner", 6)
     A_in, S_in = A, S
     if prox_A is None:
         prox_A = operators.prox_id
     if prox_S is None:
         prox_S = operators.prox_id
+    sdt = _store_dtype(store_dtype)
     dev = _device_for(device, Y, A, S)
-    A, S, Y = (promote_dtype(a, device=dev) for a in (A, S, Y))
+    A = promote_dtype(A, device=dev)
+    S, Y = (promote_dtype(a, keep=sdt, device=dev) for a in (S, Y))
     dtype = A.dtype
-    stride_cfg = (0, False)
-    conv0, div0, loss0, SSt0, it0 = (False, False), False, np.inf, None, 0
+    weighted = not _is_unweighted(W)
+    strided_u = ((step_stride is not None and int(step_stride) > 1)
+                 or bool(step_adapt))
+    stride_cfg = ((0 if step_stride is None else int(step_stride),
+                   bool(step_adapt)) if (weighted or strided_u)
+                  else (0, False))
+    sdt_name = _dtype_name(sdt)
+    conv0, div0, loss0, steps0, it0 = (False, False), False, np.inf, None, 0
     if state is not None:
         if not (hasattr(state, "get")
                 and state.get("kind") == "nmf_pgm_fused"):
             raise ValueError("state= must be a previous nmf_pgm_fused "
                              ".state dict")
-        if bool(state["weighted"]):
-            raise ValueError("state= was produced under a weighted solve; "
-                             "this solve is unweighted")
-        if tuple(state.get("stride_config", stride_cfg)) != stride_cfg:
-            raise ValueError("state= was produced under a different stride "
-                             "configuration; resume with the same settings")
-        if state.get("store_dtype") is not None:
-            raise ValueError("state= was produced under a reduced "
-                             "store_dtype; this solve stores float32")
+        if bool(state["weighted"]) != weighted:
+            raise ValueError("state= was produced under a different "
+                             "weighting; the carried steps would be wrong")
+        st_cfg = tuple(state.get("stride_config", stride_cfg))
+        if (int(st_cfg[0]), bool(st_cfg[1])) != stride_cfg:
+            raise ValueError(
+                f"state= was produced under step_stride={st_cfg[0] or None},"
+                f" step_adapt={bool(st_cfg[1])} but this call uses "
+                f"step_stride={step_stride}, step_adapt={step_adapt}; "
+                "resume with the same settings")
+        if state.get("store_dtype") != sdt_name:
+            raise ValueError(
+                f"state= was produced under store_dtype="
+                f"{state.get('store_dtype')} but this call uses {sdt_name}")
         if int(state.get("tile_n", tile_n)) != int(tile_n):
             raise ValueError(
                 f"state= was produced under tile_n={state.get('tile_n')} "
@@ -292,14 +531,21 @@ def nmf_pgm_fused(
         conv0 = tuple(bool(c) for c in np.asarray(state["converged"]))
         div0 = bool(np.asarray(state.get("diverged", False)))
         loss0 = float(state.get("loss", np.inf))
-        SSt0 = state.get("steps")
+        steps0 = state.get("steps")
 
-    f32 = torch.float32
-    A_f, S_f, iterations, conv_A, conv_S, loss, SSt_f = _run_fused_pgm(
-        A.to(f32).contiguous(), S.to(f32).contiguous(),
-        Y.to(f32).contiguous(), max_iter, prox_A, prox_S, float(e_rel),
-        int(tile_n), conv_A0=conv0[0], conv_S0=conv0[1], div0=div0,
-        loss0=loss0, SSt0=SSt0)
+    exact = not (weighted or strided_u)
+    stride = max(int(step_stride or 1), 1)
+    safety = _SAFETY if (stride > 1 or step_adapt) else 1.0
+    if exact and steps0 is not None:
+        steps0 = (0.0, 0.0, steps0, 1, it0)
+    store = sdt or torch.float32
+    Y = Y.to(store).contiguous()
+    W = _promote_W(W, Y).to(store).contiguous() if weighted else None
+    A_f, S_f, iterations, conv_A, conv_S, loss, steps_f = _run_fused_pgm(
+        A.to(torch.float32).contiguous(), S.to(store).contiguous(), Y, W,
+        max_iter, prox_A, prox_S, float(e_rel), int(tile_n), stride=stride,
+        adapt=bool(step_adapt), safety=safety, it0=it0, conv0=conv0,
+        div0=div0, loss0=loss0, steps0=steps0)
     A_out, S_out = A_f.to(dtype), S_f.to(dtype)
     converged = (conv_A, conv_S)
     diverged = div0 or (iterations > 0 and not np.isfinite(loss))
@@ -307,11 +553,11 @@ def nmf_pgm_fused(
     status = status_from(all(converged), diverged, logger)
     writeback((A_in, S_in), (A_out, S_out))
     resume_state = {
-        "kind": "nmf_pgm_fused", "weighted": False,
-        "stride_config": stride_cfg, "store_dtype": None,
+        "kind": "nmf_pgm_fused", "weighted": weighted,
+        "stride_config": stride_cfg, "store_dtype": sdt_name,
         "tile_n": int(tile_n), "it": it0 + iterations,
         "converged": np.asarray(converged, bool), "diverged": diverged,
-        "loss": loss, "steps": SSt_f,
+        "loss": loss, "steps": steps_f[2] if exact else steps_f,
     }
     return SolverResult(
         converged,
@@ -434,7 +680,8 @@ def nmf_adaprox_fused(
 
     ``moment_dtype`` (``torch.bfloat16`` or ``"bfloat16"``) stores the S
     moments in bfloat16, cast inside the kernel; the A moments stay
-    float32. ``store_dtype`` (bfloat16 S/Y) is not ported yet.
+    float32. ``store_dtype`` (bfloat16 S/Y) is not ported yet. NumPy
+    inputs go to ``device`` (default: the CUDA device).
 
     ``M=``/``V=`` warm-start the moments from a previous solve's ``.M`` /
     ``.V`` (per-block ``(A, S)`` tuples; the bias-correction clock
@@ -451,8 +698,8 @@ def nmf_adaprox_fused(
     """
     if store_dtype is not None and as_torch_dtype(store_dtype).itemsize < 4:
         raise NotImplementedError(
-            "the bfloat16 store_dtype is not ported yet; it is owed with "
-            "K1's (ROADMAP.md Queue 2)")
+            "K2's bfloat16 store_dtype (S/Y) is not ported yet (ROADMAP.md "
+            "Queue 2); engine='cuda' PGM takes store_dtype")
     A_in, S_in = A, S
     if prox_A is None:
         prox_A = operators.prox_id
@@ -637,8 +884,7 @@ def nmf(
     Args:
         Y: target (C, N). A: initial (C, K). S: initial (K, N). NumPy
             inputs are updated in place; tensors stay on their device.
-        W: weights (C, N), a scalar or anything that broadcasts to Y; only
-            algorithm='adaprox' takes weights so far.
+        W: weights (C, N), a scalar or anything that broadcasts to Y.
         prox_A, prox_S: per-factor constraints (None = identity).
         algorithm: None or ``"pgm"`` (default), or ``"adaprox"``.
         step: optional step callable ``step(*X, it=...)`` (torch engine).
@@ -647,10 +893,17 @@ def nmf(
             ``"cuda"`` (a fused kernel per iteration: :func:`nmf_pgm_fused`
             on K1, or :func:`nmf_adaprox_fused` on K2 for the adam scheme
             with separable proxs; on CPU tensors their plain versions).
+        step_stride: refresh the steps every this many iterations (the
+            0.9 safety factor; weighted PGM warm-starts its power
+            iteration between refreshes). ``step_adapt``: grow or halve the
+            interval from the measured step drift, starting at
+            ``step_stride`` (default 1). Not for the fused adaprox engine.
         device: where NumPy inputs go (default: the device of a tensor
-            input, else the CPU).
+            input, else the CUDA device; without one, pass
+            ``device="cpu"``).
         algorithm_args: for pgm ``accelerated``, ``restart``, ``state``
-            (torch engine) or ``tile_n``, ``state`` (cuda engine); for
+            (torch engine) or ``tile_n``, ``store_dtype``, ``state`` (cuda
+            engine); for
             adaprox the driver's options (``scheme``, ``b1``, ``b2``,
             ``eps``, ``separable_prox``, ``moment_dtype``, ``M``, ``V``,
             ``state``, ...) or the fused engine's (``b1``, ``b2``, ``eps``,
@@ -672,8 +925,6 @@ def nmf(
             f"factorization shape mismatch: Y {tuple(np.shape(Y))}, "
             f"A {tuple(np.shape(A))}, S {tuple(np.shape(S))}: need Y (C, N), "
             "A (C, K), S (K, N) with Y = A @ S")
-    if not is_adaprox and not _is_unweighted(W):
-        raise _not_yet("weighted PGM-NMF (W other than 1)", 6)
     if mesh is not None:
         raise _not_yet("nmf(mesh=) scale-out", 13)
     if engine == "auto":
@@ -697,31 +948,46 @@ def nmf(
                                  prox_A, prox_S, e_rel, max_iter, step,
                                  callback, step_stride, step_adapt, device,
                                  algorithm_args)
-    if (step_stride is not None and step_stride > 1) or step_adapt:
-        raise _not_yet("step_stride / step_adapt", 6)
-
     if engine == "cuda":
         if step is not None or callback is not None:
             raise ValueError("engine='cuda' takes the default Lipschitz "
                              "steps and no callback; use engine='torch'")
-        extra = set(algorithm_args) - {"tile_n", "state"}
+        extra = set(algorithm_args) - {"tile_n", "store_dtype", "state"}
         if extra:
             raise ValueError(f"unsupported fused-PGM options: "
                              f"{sorted(extra)}")
-        return nmf_pgm_fused(Y, A, S, prox_A=prox_A, prox_S=prox_S,
-                             e_rel=e_rel, max_iter=max_iter, device=device,
+        return nmf_pgm_fused(Y, A, S, W=None if _is_unweighted(W) else W,
+                             prox_A=prox_A, prox_S=prox_S, e_rel=e_rel,
+                             max_iter=max_iter, step_stride=step_stride,
+                             step_adapt=step_adapt, device=device,
                              **algorithm_args)
+    if "store_dtype" in algorithm_args:
+        raise ValueError("store_dtype is an engine='cuda' option (the fused "
+                         "kernel stores S, Y and W in it)")
 
     A_in, S_in = A, S
     Y, A, S = (promote_dtype(a, device=device) for a in (Y, A, S))
+    weighted = not _is_unweighted(W)
+    W = _promote_W(W, Y) if weighted else 1
+    # the refresh interval starts at step_stride (default 1) and, with
+    # step_adapt, follows the measured drift
+    strided = (step_stride is not None and step_stride > 1) or step_adapt
+    stride0 = int(step_stride) if step_stride is not None else 1
     if is_adaprox:
-        W = 1 if _is_unweighted(W) else _promote_W(W, Y)
         if step is None:
             step = step_adaprox
-    else:
-        W = 1
-        if step is None:
-            step = partial(step_pgm, W=1)
+        if strided:
+            step = StridedStepper(step, 2, stride=stride0, adapt=step_adapt)
+    elif strided:
+        if step is None and weighted:
+            # the power iterate warm-starts from one refresh to the next
+            step = WeightedPGMStepper(W, stride=stride0, adapt=step_adapt)
+        else:
+            step = StridedStepper(
+                partial(step_pgm, W=W) if step is None else step, 2,
+                stride=stride0, adapt=step_adapt)
+    elif step is None:
+        step = partial(step_pgm, W=W)
     grad = partial(grad_likelihood, Y=Y, W=W)
     res = algorithm([A, S], grad, step, prox=[prox_A, prox_S],
                     max_iter=max_iter, e_rel=e_rel, callback=callback,

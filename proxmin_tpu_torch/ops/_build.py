@@ -5,8 +5,8 @@ into a shared library of its own with a plain C interface, at first use,
 under ``build/kernels/`` of the checkout (named by the source and a hash of
 its text and the flags), and loaded with ``ctypes``. A kernel module
 registers its source with :func:`register`, together with a function that
-declares the library's C signatures; nothing is compiled or loaded at
-import.
+declares the library's C signatures (several modules may declare entry
+points of one source); nothing is compiled or loaded at import.
 """
 
 import concurrent.futures
@@ -24,7 +24,7 @@ __all__ = ["register", "build_kernel", "build_kernels"]
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 #: Kernel name -> its source; each builds into a library of its own.
 _SOURCES = {}
-#: Kernel name -> ``declare(lib)``, which sets the C functions' signatures.
+#: Kernel name -> the ``declare(lib)`` functions that set its C signatures.
 _DECLARE = {}
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -32,10 +32,10 @@ _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 
 def register(name, declare):
-    """Register ``csrc/<name>.cu`` as a kernel library whose C signatures
-    ``declare(lib)`` sets once it is loaded."""
+    """Register ``csrc/<name>.cu`` as a kernel library; ``declare(lib)``
+    sets C signatures of it once it is loaded."""
     _SOURCES[name] = CSRC / f"{name}.cu"
-    _DECLARE[name] = declare
+    _DECLARE.setdefault(name, []).append(declare)
 
 
 def _nvcc():
@@ -96,6 +96,7 @@ def _library(name):
     """The loaded library of kernel ``name`` with its C signatures
     declared (built on first use)."""
     lib = ctypes.CDLL(str(build_kernel(name)[0]))
-    _DECLARE[name](lib)
+    for declare in _DECLARE[name]:
+        declare(lib)
     return lib
 

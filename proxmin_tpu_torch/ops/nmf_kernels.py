@@ -59,9 +59,9 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 def _declare_pgm_step(lib):
     lib.nmf_pgm_step_partials_width.argtypes = [_I, _I]
     lib.nmf_pgm_step_partials_width.restype = _I
-    lib.nmf_pgm_step_f32.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _LL,
-                                     _LL, _P, _P, _P, _P, _P, _P]
-    lib.nmf_pgm_step_f32.restype = _I
+    lib.nmf_pgm_step.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL,
+                                 _LL, _P, _P, _P, _P, _P, _P]
+    lib.nmf_pgm_step.restype = _I
 
 
 def _declare_adaprox_step(lib):
@@ -107,11 +107,15 @@ def _prox_flag(prox_S, kernel="fused_nmf_pgm_step"):
 def fused_nmf_pgm_step_reference(A, S, Y, sS, W=None, prox_S=None):
     """Plain PyTorch version of :func:`fused_nmf_pgm_step` (float32 tensor
     ops, any device). ``prox_S`` may be any prox callable here; None means
-    non-negativity."""
+    non-negativity. A bfloat16 S is the bfloat16 store: the residual takes
+    A rounded to bfloat16, S' comes back rounded to bfloat16, and the Gram
+    and the statistics use the rounded S'."""
     f32 = torch.float32
+    bf16 = S.dtype == torch.bfloat16
     A, S, Y = A.to(f32), S.to(f32), Y.to(f32)
     sS = torch.as_tensor(sS, dtype=f32, device=S.device)
-    R = A @ S - Y
+    A_r = A.to(torch.bfloat16).to(f32) if bf16 else A
+    R = A_r @ S - Y
     D = R if W is None else W.to(f32) * R
     gS = A.T @ D
     X = S - sS * gS
@@ -119,8 +123,10 @@ def fused_nmf_pgm_step_reference(A, S, Y, sS, W=None, prox_S=None):
         S_new = _nonneg(X)
     else:
         S_new = prox_S(X, sS)
+    S_out = S_new.to(torch.bfloat16) if bf16 else S_new
+    S_new = S_out.to(f32)
     dS = S_new - S
-    return (D @ S.T, S_new, S_new @ S_new.T, torch.sum(D * R) / 2,
+    return (D @ S.T, S_out, S_new @ S_new.T, torch.sum(D * R) / 2,
             torch.sum(dS * dS), torch.sum(S_new * S_new))
 
 
@@ -142,8 +148,9 @@ def fused_nmf_pgm_step(A, S, Y, sS, W=None, prox_S=None,
     """One fused PGM-NMF S-side step.
 
     Args:
-        A: (C, K) float32. S: (K, N) float32. Y, W: (C, N) float32 (W
-            optional). All contiguous, on one device.
+        A: (C, K) float32. S: (K, N), Y, W: (C, N) (W optional), all
+            float32 or all bfloat16 (the store; compute stays float32).
+            All contiguous, on one device.
         sS: the S step size, a float or a one-element tensor (kept on the
             device, so no host sync).
         prox_S: None or ``prox_plus`` (non-negativity), or ``prox_id``.
@@ -151,9 +158,11 @@ def fused_nmf_pgm_step(A, S, Y, sS, W=None, prox_S=None,
 
     Returns:
         ``(gA, S_new, SSt, loss, dS_sq, nS_sq)``: ``gA = D S^T`` with the old
-        S, the proxed ``S_new``, ``SSt = S_new S_new^T``, the loss at the old
-        iterate and the fixed-point norms ``||S_new - S||^2``,
-        ``||S_new||^2`` (0-d tensors).
+        S, the proxed ``S_new`` in S's dtype, ``SSt = S_new S_new^T``, the
+        loss at the old iterate and the fixed-point norms
+        ``||S_new - S||^2``, ``||S_new||^2`` (0-d tensors), all float32 but
+        ``S_new``; with the bfloat16 store the Gram and the norms are those
+        of the rounded ``S_new``.
 
     CPU tensors go to :func:`fused_nmf_pgm_step_reference`. CUDA tensors
     launch the kernel (building it on first use) on the current stream
@@ -169,11 +178,14 @@ def fused_nmf_pgm_step(A, S, Y, sS, W=None, prox_S=None,
     prox_plus = _prox_flag(prox_S)
     C, K = A.shape
     N = S.shape[1]
+    sdt = S.dtype
+    if sdt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"S must be float32 or bfloat16, got {sdt}")
     _check_operand("A", A, (C, K), device)
-    _check_operand("S", S, (K, N), device)
-    _check_operand("Y", Y, (C, N), device)
+    _check_operand("S", S, (K, N), device, sdt)
+    _check_operand("Y", Y, (C, N), device, sdt)
     if W is not None:
-        _check_operand("W", W, (C, N), device)
+        _check_operand("W", W, (C, N), device, sdt)
     if N < 1 or int(tile_n) < 1:
         raise ValueError(f"need N >= 1 and tile_n >= 1, got N={N}, "
                          f"tile_n={tile_n}")
@@ -197,10 +209,11 @@ def fused_nmf_pgm_step(A, S, Y, sS, W=None, prox_S=None,
                            device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.nmf_pgm_step_f32(
+        rc = lib.nmf_pgm_step(
             A.data_ptr(), S.data_ptr(), Y.data_ptr(),
             None if W is None else W.data_ptr(), step.data_ptr(),
-            prox_plus, C, K, N, tile_n, S_new.data_ptr(), gA.data_ptr(),
+            prox_plus, int(sdt == torch.bfloat16), C, K, N, tile_n,
+            S_new.data_ptr(), gA.data_ptr(),
             SSt.data_ptr(), stats.data_ptr(), partials.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"fused_nmf_pgm_step launch failed: CUDA error "

@@ -241,12 +241,14 @@ def adaprox(
     separable_prox=False,
     moment_dtype=None,
     state=None,
+    device=None,
 ):
     """Adaptive Proximal Gradient Method (proximal Adam family).
 
     Args:
         X: initial iterate, a tensor/array or a list of them (blocks).
-            NumPy inputs are updated in place; tensors stay on their device.
+            NumPy inputs go to ``device`` and are updated in place; tensors
+            stay on their device.
         grad: ``grad(*X) -> dX`` (a tuple for several blocks).
         step: step size(s) ``alpha``, a callable ``step(*X, it=...)`` or a
             stepper object; per-element steps broadcast.
@@ -276,6 +278,8 @@ def adaprox(
             the global bias-correction clock, stepper state and the stop
             flags), together with its ``.x``. Excludes ``M=/V=/Vhat=``.
             With a scheduled ``b1``, pass the continuation slice.
+        device: where NumPy inputs go (default: the CUDA device; without
+            one, pass ``device="cpu"``).
 
     ``callback``, ``trace`` and ``grad=None`` with ``f`` are not ported
     yet.
@@ -296,7 +300,7 @@ def adaprox(
             f"adaprox f= / grad=None (autodiff of f) is not ported yet "
             f"({_LATER})")
 
-    x0, originals, was_single = tupleize(X)
+    x0, originals, was_single = tupleize(X, device)
     n = len(x0)
     prox_in = utils._as_tuple(prox)
     if len(prox_in) == 1:

@@ -16,6 +16,7 @@ __all__ = [
     "SolverResult",
     "status_from",
     "tupleize",
+    "default_device",
     "promote_dtype",
     "writeback",
     "normalize_prox",
@@ -68,19 +69,33 @@ def status_from(converged, diverged, logger=None):
             else "converged" if converged else "max_iter")
 
 
+def default_device(device=None):
+    """Where NumPy inputs go: ``device`` when given, else the card. With
+    no CUDA device and no ``device``, raises ``RuntimeError``: a solve
+    never moves to the CPU unless the caller asks for it."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "NumPy inputs go to the CUDA device by default and there is "
+            "none; pass device=\"cpu\" (or CPU tensors) to run on the CPU")
+    return torch.device("cuda")
+
+
 def promote_dtype(a, keep=None, device=None):
     """``a`` as a tensor: tensors stay where they are (moved only when
-    ``device`` is given), NumPy arrays and scalars land on ``device`` (the
-    CPU when None). Half/integer/bool inputs -> the default float dtype;
-    float32/float64 pass through. ``keep``: a reduced storage dtype an
-    already-matching tensor may stay in."""
+    ``device`` is given), NumPy arrays and scalars land on
+    :func:`default_device` (``device``, else the card). Half/integer/bool
+    inputs -> the default float dtype; float32/float64 pass through.
+    ``keep``: a reduced storage dtype an already-matching tensor may stay
+    in."""
     if isinstance(a, torch.Tensor):
         a = a if device is None else a.to(device)
     else:
         a = np.asarray(a)
         if not a.flags.writeable:  # e.g. a view of a JAX array
             a = a.copy()
-        a = torch.as_tensor(a, device=device)
+        a = torch.as_tensor(a, device=default_device(device))
     if keep is not None and a.dtype == keep:
         return a
     if not a.is_floating_point() or torch.finfo(a.dtype).bits < 32:
@@ -88,13 +103,15 @@ def promote_dtype(a, keep=None, device=None):
     return a
 
 
-def tupleize(X):
+def tupleize(X, device=None):
     """``X`` (array or sequence of arrays) -> ``(tensors, originals,
     was_single)``; the tensors are promoted copies, never aliases of the
-    caller's data."""
+    caller's data. NumPy blocks go to ``device`` (default: the card)."""
     was_single = type(X) not in (list, tuple)
     X_seq = _as_tuple(X)
-    X_dev = tuple(promote_dtype(x).clone() for x in X_seq)
+    X_dev = tuple(promote_dtype(
+        x, device=None if isinstance(x, torch.Tensor) else device).clone()
+        for x in X_seq)
     return X_dev, tuple(X_seq), was_single
 
 
@@ -136,10 +153,12 @@ def normalize_per_block(val, n_blocks):
 
 def as_tensor(a, dtype=None, device=None):
     """``a`` (tensor, NumPy array or scalar) as a tensor of ``dtype`` (by
-    default its own) on ``device``. ``ml_dtypes`` bfloat16 arrays, as JAX
-    hands them out, which torch cannot take, go through float32 (exact for
-    every bfloat16 value) and arrive as ``torch.bfloat16``."""
+    default its own) on ``device`` (a tensor by default stays where it is,
+    NumPy goes to :func:`default_device`). ``ml_dtypes`` bfloat16 arrays,
+    as JAX hands them out, which torch cannot take, go through float32
+    (exact for every bfloat16 value) and arrive as ``torch.bfloat16``."""
     if not isinstance(a, torch.Tensor):
+        device = default_device(device)
         a = np.asarray(a)
         if a.dtype.name == "bfloat16":
             a = a.astype(np.float32)

@@ -1,6 +1,7 @@
 """Proximal Gradient Method (ISTA / FISTA) as a host loop over tensor ops.
 
-Counterpart of :func:`proxmin_tpu.solvers.pgm.pgm`. The JAX driver runs the
+Counterpart of :func:`proxmin_tpu.solvers.pgm.pgm`, including its
+segmented mode for strided steppers (one loop here). The JAX driver runs the
 whole solve in one ``lax.while_loop`` with the stop test on the device
 (``proxmin_tpu/solvers/pgm.py:337-340``). Here the loop runs on the host:
 every iteration's math stays on the iterates' device, and the stop flags
@@ -119,12 +120,14 @@ def pgm(
     callback=None,
     trace=False,
     state=None,
+    device=None,
 ):
     """Proximal Gradient Method (ISTA; FISTA when ``accelerated=True``).
 
     Args:
         X: initial iterate, a tensor/array or a list of them (blocks).
-            NumPy inputs are updated in place; tensors stay on their device.
+            NumPy inputs go to ``device`` and are updated in place; tensors
+            stay on their device.
         grad: ``grad(*X) -> dX`` (a tuple for several blocks).
         step: step size(s), a callable ``step(*X, it=..., [grads=...])``
             or a stepper object.
@@ -135,6 +138,8 @@ def pgm(
         max_iter: iteration cap (a resumed solve runs up to this many more).
         state: a previous solve's ``.state`` to continue from, together
             with its ``.x``.
+        device: where NumPy inputs go (default: the CUDA device; without
+            one, pass ``device="cpu"``).
 
     ``backtracking``, ``f``, ``callback`` and ``trace`` are not ported yet.
 
@@ -153,14 +158,16 @@ def pgm(
         raise NotImplementedError(
             f"pgm grad=None (autodiff of f) is not ported yet ({_LATER})")
 
-    x0, originals, was_single = tupleize(X)
+    x0, originals, was_single = tupleize(X, device)
     n = len(x0)
     prox = normalize_prox(prox, n)
     e_rel = normalize_per_block(e_rel, n)
+    # a strided stepper refreshes inside _step, on the host's next-refresh
+    # clock: in a host loop that is the JAX driver's segmented mode too
+    # (refresh at a segment boundary, frozen steps in between), and a
+    # resume that lands mid-segment or on a boundary follows the carried
+    # clock
     stepper = make_stepper(step, n)
-    if getattr(stepper, "segmentable", False):
-        raise NotImplementedError(
-            f"the segmented strided pgm mode is not ported yet ({_LATER})")
 
     st = _init_state(x0, n, accelerated, state)
     if st["stepper_state"] is None:

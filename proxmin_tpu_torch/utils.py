@@ -1,5 +1,5 @@
 """Numerics core of the port: norms, the fixed-point test, the FISTA
-momentum recursion and the stepper protocol.
+momentum recursion, the stepper protocol and the strided step refresh.
 
 Counterparts of the same names in :mod:`proxmin_tpu.utils`. Everything
 here works on tensors and returns tensors, so a solve on the card keeps
@@ -13,6 +13,7 @@ Stepper protocol (shared with the JAX package)::
 
 import inspect
 
+import numpy as np
 import torch
 
 __all__ = [
@@ -24,6 +25,8 @@ __all__ = [
     "ConstantStepper",
     "FunctionStepper",
     "make_stepper",
+    "grow_stride",
+    "StridedStepper",
 ]
 
 
@@ -128,3 +131,137 @@ def make_stepper(step, n_blocks):
     if callable(step):
         return FunctionStepper(step, n_blocks)
     return ConstantStepper(step, n_blocks)
+
+
+def grow_stride(stride, old_steps, new_steps, budget, max_stride,
+                first=False):
+    """The refresh interval after a strided refresh, as a Python int.
+
+    Counterpart of :func:`proxmin_tpu.utils.grow_stride` (the reference
+    ``ApproximateCache`` growth rule plus a shrink-back branch). The drift
+    is the largest relative change over the step leaves,
+    ``max|new - old| / max(max|old|, tiny)`` in float32:
+
+    * ``0 < drift < budget``: grow by ``max(1, floor(budget / drift *
+      stride))``, capped at ``max_stride``;
+    * ``drift > budget``: halve (floor 1);
+    * otherwise, or when ``first`` (the first refresh, whose all-zero
+      ``old_steps`` give a meaningless drift): keep ``stride``.
+
+    ``old_steps`` / ``new_steps`` are matching tuples of tensors (or
+    numbers). The drift is read from the device once, here; the rest is
+    float32 and int arithmetic on the host, as the JAX rule computes it.
+    """
+    stride = int(stride)
+    if first:
+        return stride
+    f32 = torch.float32
+    tiny = torch.finfo(f32).tiny
+    drifts = []
+    for o, n in zip(_as_tuple(old_steps), _as_tuple(new_steps)):
+        o = torch.as_tensor(o).to(f32)
+        n = torch.as_tensor(n).to(device=o.device, dtype=f32)
+        drifts.append(torch.max(torch.abs(n - o))
+                      / torch.clamp_min(torch.max(torch.abs(o)), tiny))
+    drift = np.float32(torch.stack(drifts).max().item())
+    budget = np.float32(budget)
+    if 0 < drift < budget:
+        bump = np.floor(budget / max(drift, np.float32(tiny))
+                        * np.float32(stride))
+        return int(min(max_stride, stride + max(1, min(bump, max_stride))))
+    if drift > budget:
+        return max(1, stride // 2)
+    return stride
+
+
+class StridedStepper:
+    """Recompute a step function only every ``stride`` iterations, with the
+    cached steps shrunk by ``safety`` (< 1) against the Lipschitz constant
+    growing between refreshes; ``adapt=True`` grows or shrinks the
+    interval with :func:`grow_stride` (budget ``(1 - safety) / 2``, capped
+    at ``max_stride``).
+
+    Counterpart of :class:`proxmin_tpu.utils.StridedStepper`, with its
+    state layout ``(inner, cached, [stride], next_refresh)`` so that JAX
+    states convert (``interop.state_from_numpy``). The JAX ``lax.cond`` on
+    the next-refresh clock is a Python ``if`` here: the clock and the
+    stride are host integers, and a refresh reads the device once (the
+    drift, with ``adapt``). ``cached`` is empty until the first refresh
+    (the JAX package fills it with zeros of the steps' shapes, which only
+    a call of the inner stepper would tell).
+
+    The pgm driver's segmented mode (refresh outside the inner loop) is
+    the same host loop here, so the segmented-mode hooks
+    (``segmentable``, ``segment_refresh``, ``state_stride``,
+    ``state_steps``, ``segment_end``) serve the tests and callers that
+    drive segments themselves.
+    """
+
+    def __init__(self, step, n_blocks, stride=10, safety=0.9, adapt=False,
+                 max_stride=100):
+        self.inner = make_stepper(step, n_blocks)
+        self.n_blocks = n_blocks
+        self.stride = int(stride)
+        self.safety = float(safety)
+        self.adapt = bool(adapt)
+        self.max_stride = int(max_stride)
+
+    def init_state(self, X, G):
+        inner0 = self.inner.init_state(X, G)
+        if self.adapt:
+            return (inner0, (), self.stride, 0)
+        return (inner0, (), 0)
+
+    def _refresh(self, state, X, it, G):
+        if self.adapt:
+            inner_state, cached_old, stride, _ = state
+        else:
+            inner_state, cached_old = state[0], state[1]
+        steps, new_inner = self.inner(inner_state, X, it, G)
+        steps = tuple(torch.as_tensor(s) * self.safety for s in steps)
+        if not self.adapt:
+            return (new_inner, steps, it + self.stride)
+        if not cached_old:
+            cached_old = tuple(torch.zeros_like(s) for s in steps)
+        stride_new = grow_stride(stride, cached_old, steps,
+                                 (1.0 - self.safety) / 2, self.max_stride,
+                                 first=(it == 0))
+        return (new_inner, steps, stride_new, it + stride_new)
+
+    def __call__(self, state, X, it, G):
+        if it >= state[-1]:
+            state = self._refresh(state, X, it, G)
+        return state[1], state
+
+    @property
+    def segmentable(self):
+        """Whether the refresh may run before the iteration's gradient
+        exists (the inner stepper does not take ``grads``)."""
+        if isinstance(self.inner, ConstantStepper):
+            return True
+        if isinstance(self.inner, FunctionStepper):
+            return not self.inner.wants_grads
+        return False
+
+    def segment_refresh(self, state, X, it):
+        """Refresh the cached steps at a segment boundary; returns
+        ``(steps, state)``."""
+        state = self._refresh(state, X, it, None)
+        return state[1], state
+
+    def state_stride(self, state):
+        """The refresh interval in the state (adaptive steppers only)."""
+        if not self.adapt:
+            raise ValueError("only an adaptive StridedStepper carries its "
+                             "stride")
+        return state[2]
+
+    def state_steps(self, state):
+        """The cached steps in the state."""
+        return state[1]
+
+    def segment_end(self, state, it):
+        """The global iteration of the next refresh: ``it + stride`` after
+        a refresh at ``it``, or wherever a resumed schedule says (``it``
+        itself when a solve stopped exactly on a refresh boundary)."""
+        return state[-1]

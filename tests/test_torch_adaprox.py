@@ -48,6 +48,9 @@ def _solve(lib, Y, A0, S0, prox=None, **kw):
     grad = functools.partial(lib.nmf.grad_likelihood, Y=Y_)
     if prox is None:
         prox = lib.operators.prox_plus
+    if lib is ptt:
+        # NumPy inputs go to the card unless the caller names a device
+        kw = dict(kw, device="cpu")
     return lib.adaprox([A0.copy(), S0.copy()], grad, lib.nmf.step_adaprox,
                        prox=prox, **kw)
 
@@ -211,7 +214,8 @@ def test_continues_a_jax_driver_state():
     kw = dict(scheme="radam", e_rel=0, separable_prox=True)
     full = _solve(pt, Y, A0, S0, max_iter=30, **kw)
     half = _solve(pt, Y, A0, S0, max_iter=15, **kw)
-    st = state_from_numpy(jax.tree_util.tree_map(np.asarray, half.state))
+    st = state_from_numpy(jax.tree_util.tree_map(np.asarray, half.state),
+                          device="cpu")
     rest = _solve(ptt, Y, *(np.asarray(x) for x in half.x), max_iter=15,
                   state=st, **kw)
     assert rest.state["it"] == 30

@@ -1,5 +1,6 @@
-"""K1, K2, K3 and K4 on the card against their plain versions, the cuda
-engines and the ops entry point's paths on the card.
+"""K1 (float32 and the bfloat16 store), K2, K3, K4 and K5 on the card
+against their plain versions, the cuda engines (exact, weighted and
+strided) and the ops entry point's paths on the card.
 
 Needs an NVIDIA GPU and nvcc; every test skips elsewhere. This file imports
 no JAX, so it also runs where JAX is not installed:
@@ -15,6 +16,10 @@ K3 (fused_nmf_grad): rtol 2e-4, atol 1e-5, as K1. K4 (the prox kernels):
 plus, soft and hard bitwise equal (one comparison or a few separately
 rounded operations per element, as in the plain version); unity rtol 1e-6
 in float32 and 1e-14 in float64 (the sums are taken in another order).
+K1's bfloat16 store: S' within one bfloat16 ulp (+ 1e-5) of the plain
+version's; gA and the loss as K1; the Gram and the norms against the stored
+S' (rtol 2e-4, |S' - S|^2 1e-3). K5 (packed_step): bit for bit equal to K2
+on the same inputs (the same body), and held to the plain version as K2 is.
 """
 
 import functools
@@ -29,6 +34,7 @@ from proxmin_tpu_torch import operators as top
 from proxmin_tpu_torch import ops as tops
 from proxmin_tpu_torch.ops import nmf_kernels as k1
 from proxmin_tpu_torch.ops import prox_kernels as pk
+from proxmin_tpu_torch.ops import stream_merge as sm
 
 pytestmark = pytest.mark.cuda
 
@@ -493,3 +499,171 @@ def test_ops_paths_on_the_card(dev):
     for a, b in zip(rg.x, rn.x):
         torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-5)
 
+
+
+# K1's bfloat16 store
+
+@pytest.mark.parametrize("C,K,N", [(5, 7, 1000), (8, 4, 4133), (16, 8, 300),
+                                   (1, 1, 5), (3, 2, 10000)])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("tile_n", [128, k1.DEFAULT_TILE_N])
+def test_bf16_store_kernel_matches_plain_version(dev, C, K, N, weighted,
+                                                 tile_n):
+    A, S, Y, W = _problem(dev, C, K, N, weighted)
+    bf = torch.bfloat16
+    S, Y = S.to(bf), Y.to(bf)
+    W = None if W is None else W.to(bf)
+    sS = 1.0 / torch.linalg.eigvalsh(A.T @ A)[-1]
+    got = k1.fused_nmf_pgm_step(A, S, Y, sS, W=W, tile_n=tile_n)
+    ref = k1.fused_nmf_pgm_step_reference(A, S, Y, sS, W=W)
+    torch.cuda.synchronize()
+    _within_one_bf16_ulp(got[1], ref[1])
+    for i in (0, 3):
+        torch.testing.assert_close(got[i], ref[i], rtol=2e-4, atol=1e-5)
+    Sn = got[1].float()
+    dS = Sn - S.float()
+    torch.testing.assert_close(got[2], Sn @ Sn.T, rtol=2e-4, atol=1e-5)
+    torch.testing.assert_close(got[4], torch.sum(dS * dS), rtol=1e-3,
+                               atol=1e-5)
+    torch.testing.assert_close(got[5], torch.sum(Sn * Sn), rtol=2e-4,
+                               atol=1e-5)
+
+
+def test_bf16_store_kernel_refuses_mixed_stores(dev):
+    A, S, Y, _ = _problem(dev, 5, 3, 1000)
+    with pytest.raises(TypeError):
+        k1.fused_nmf_pgm_step(A, S.to(torch.bfloat16), Y, 0.01)
+    with pytest.raises(TypeError):
+        k1.fused_nmf_pgm_step(A, S.half(), Y.half(), 0.01)
+
+
+# K5: packed_step
+
+@pytest.mark.parametrize("C,K,N", [(5, 7, 1000), (8, 4, 4133), (1, 1, 5),
+                                   (3, 2, 10000)])
+@pytest.mark.parametrize("layout", ["smv", "mv"])
+@pytest.mark.parametrize("tile_n", [128, k1.DEFAULT_TILE_N])
+def test_packed_kernel_matches_plain_version_and_k2(dev, C, K, N, layout,
+                                                    tile_n):
+    mdt = torch.float32 if layout == "smv" else torch.bfloat16
+    A, S, M, V, Y, alpha, sc, _ = _adaprox_operands(dev, C, K, N, mdt=mdt)
+    if layout == "smv":
+        args, kw = (A, torch.cat([S, M, V]), Y, alpha, sc), {}
+    else:
+        args, kw = (A, S, Y, alpha, sc), {"MV": torch.cat([M, V])}
+    before = sm.packed_step.launches
+    got = sm.packed_step(*args, tile_n=tile_n, **kw)
+    assert sm.packed_step.launches == before + 1
+    ref = sm.packed_step_reference(*args, **kw)
+    base = k1.fused_nmf_adaprox_step(A, S, M, V, Y, alpha, sc,
+                                     tile_n=tile_n)
+    torch.cuda.synchronize()
+    if layout == "smv":
+        unpack = [lambda o, i=i: o[1][i * K:(i + 1) * K] for i in range(3)]
+    else:
+        unpack = [lambda o: o[1], lambda o: o[2][:K], lambda o: o[2][K:]]
+    parts = [(f(got), f(ref)) for f in unpack]
+    g_rs, r_rs = got[-2], ref[-2]
+    g_st, r_st = got[-1], ref[-1]
+    want = (got[0], parts[0][0], parts[1][0], parts[2][0], g_rs, g_st[0],
+            g_st[1], g_st[2])
+    for a, b in zip(want, base):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(got[0], ref[0], rtol=2e-4, atol=1e-5)
+    torch.testing.assert_close(parts[0][0], parts[0][1], rtol=2e-4,
+                               atol=1e-5)
+    for g, r in parts[1:]:
+        if mdt == torch.bfloat16:
+            _within_one_bf16_ulp(g, r)
+        else:
+            torch.testing.assert_close(g, r, rtol=2e-4, atol=1e-5)
+    torch.testing.assert_close(g_rs, r_rs, rtol=2e-4, atol=1e-5)
+    torch.testing.assert_close(g_st, r_st, rtol=1e-3, atol=1e-5)
+
+
+def test_packed_kernel_refuses_what_it_cannot_run(dev):
+    A, S, M, V, Y, alpha, sc, _ = _adaprox_operands(dev, 5, 3, 1000)
+    with pytest.raises(ValueError):
+        sm.packed_step(A, S, Y, alpha, sc)                  # not (3K, N)
+    with pytest.raises(TypeError):
+        sm.packed_step(A, S, Y, alpha, sc, MV=torch.cat([M, V]))  # f32 MV
+    A9 = torch.rand((9, 3), device=dev)
+    Y9 = torch.rand((9, 1000), device=dev)
+    with pytest.raises(ValueError):
+        sm.packed_step(A9, torch.cat([S, M, V]), Y9, alpha, sc)
+
+
+def test_stream_merge_loops_on_the_card(dev):
+    A, S, M, V, Y, alpha, _, _ = _adaprox_operands(dev, 5, 7, 20_000)
+    base, packed_smv, packed_mv = sm.build_loops()
+    before = sm.packed_step.launches
+    SMV = packed_smv(A, torch.cat([S, M, V]), Y, alpha, 10)
+    Mb, Vb = M.to(torch.bfloat16), V.to(torch.bfloat16)
+    S_p, MV = packed_mv(A, S, torch.cat([Mb, Vb]), Y, alpha, 10)
+    assert sm.packed_step.launches == before + 20
+    assert torch.equal(SMV, torch.cat(base(A, S, M, V, Y, alpha, 10)))
+    S_b, M_b, V_b = base(A, S, Mb, Vb, Y, alpha, 10)
+    assert torch.equal(S_p, S_b) and torch.equal(MV, torch.cat([M_b, V_b]))
+
+
+# the weighted and strided cuda engines
+
+@pytest.mark.parametrize("policy,weighted", [
+    ({"step_stride": 10}, True), ({"step_stride": 10, "step_adapt": True},
+                                  True),
+    ({}, True), ({"step_adapt": True}, False), ({"step_stride": 5}, False)])
+def test_weighted_and_strided_engines_on_the_card(dev, policy, weighted):
+    """engine='cuda' vs engine='torch' on the card, 30 iterations; one K1
+    launch per iteration and no other kernel; resumed at 15 (mid-segment)
+    and at 10 (a refresh boundary with stride 10 or 5) equal 30 straight."""
+    A0, S0, _, W = _problem(dev, 5, 3, 20_000, weighted=True)
+    Y = A0 @ torch.rand((3, 20_000), generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    kw = dict(e_rel=0, W=W if weighted else 1, **policy)
+    before = (k1.fused_nmf_pgm_step.launches,
+              k1.fused_nmf_adaprox_step.launches, tops.fused_nmf_grad.launches)
+    rc = tnmf.nmf(Y, A0, S0, max_iter=30, engine="cuda", **kw)
+    assert k1.fused_nmf_pgm_step.launches - before[0] == rc.iterations == 30
+    assert (k1.fused_nmf_adaprox_step.launches,
+            tops.fused_nmf_grad.launches) == before[1:]
+    rt = tnmf.nmf(Y, A0, S0, max_iter=30, engine="torch", **kw)
+    for a, b in zip(rc.x, rt.x):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-5)
+    for split in (15, 10):
+        half = tnmf.nmf(Y, A0, S0, max_iter=split, engine="cuda", **kw)
+        rest = tnmf.nmf(Y, *half.x, max_iter=30 - split, engine="cuda",
+                        state=half.state, **kw)
+        for a, b in zip(rest.x, rc.x):
+            assert torch.equal(a, b)
+
+
+def test_bf16_store_engine_on_the_card(dev):
+    """The weighted adaptive solve with the bfloat16 store: the weighted
+    loss within the JAX suite's rule of the float32 solve's, and a 15 + 15
+    resume equal to 30 straight."""
+    A0, S0, _, W = _problem(dev, 5, 3, 20_000, weighted=True)
+    Y = A0 @ torch.rand((3, 20_000), generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    kw = dict(e_rel=0, W=W, step_stride=10, step_adapt=True, engine="cuda")
+    r32 = tnmf.nmf(Y, A0, S0, max_iter=30, **kw)
+    r16 = tnmf.nmf(Y, A0, S0, max_iter=30, store_dtype=torch.bfloat16, **kw)
+
+    def wloss(r):
+        R = r.x[0] @ r.x[1] - Y
+        return float(0.5 * torch.sum(W * R * R))
+
+    assert r16.x[1].dtype == torch.float32
+    assert wloss(r16) < max(3 * wloss(r32), wloss(r32) + 1.0)
+    half = tnmf.nmf(Y, A0, S0, max_iter=15, store_dtype=torch.bfloat16,
+                    **kw)
+    rest = tnmf.nmf(Y, *half.x, max_iter=15, store_dtype=torch.bfloat16,
+                    state=half.state, **kw)
+    for a, b in zip(rest.x, r16.x):
+        assert torch.equal(a, b)
+
+
+def test_numpy_inputs_go_to_the_card(dev):
+    A0, S0, Y, _ = (None if a is None else a.cpu().numpy()
+                    for a in _problem(dev, 5, 3, 2000))
+    r = tnmf.nmf(Y, A0, S0, e_rel=0, max_iter=3)
+    assert r.x[1].device.type == "cuda"

@@ -10,6 +10,7 @@ Tolerances and their reasons:
 - resume in the port: bitwise.
 """
 
+import functools
 import re
 from pathlib import Path
 
@@ -25,6 +26,10 @@ from proxmin_tpu_torch.interop import state_from_numpy
 REPO = Path(__file__).resolve().parents[1]
 F64 = dict(rtol=1e-9, atol=0)
 F32 = dict(rtol=1e-3, atol=1e-5)
+
+# NumPy inputs go to the card unless the caller names a device; these tests
+# run on the CPU
+_nmf = functools.partial(ptt.nmf.nmf, device="cpu")
 
 
 @pytest.fixture(autouse=True)
@@ -58,7 +63,7 @@ def test_torch_engine_matches_xla_fixed_iterations(accelerated, seed):
     Y, A0, S0 = _problem(seed=seed)
     rj = pt.nmf.nmf(Y, A0.copy(), S0.copy(), e_rel=0, max_iter=25,
                     accelerated=accelerated)
-    rt = ptt.nmf.nmf(Y, A0.copy(), S0.copy(), e_rel=0, max_iter=25,
+    rt = _nmf(Y, A0.copy(), S0.copy(), e_rel=0, max_iter=25,
                      accelerated=accelerated)
     assert rj.iterations == rt.iterations == 25
     assert rt.x[0].dtype == torch.float64
@@ -69,7 +74,7 @@ def test_torch_engine_stops_on_the_xla_iteration():
     """e_rel=1e-4 on a problem that converges (826 iterations)."""
     Y, A0, S0 = _problem(seed=0)
     rj = pt.nmf.nmf(Y, A0.copy(), S0.copy(), e_rel=1e-4, max_iter=3000)
-    rt = ptt.nmf.nmf(Y, A0.copy(), S0.copy(), e_rel=1e-4, max_iter=3000)
+    rt = _nmf(Y, A0.copy(), S0.copy(), e_rel=1e-4, max_iter=3000)
     assert rj.status == rt.status == "converged"
     assert rj.iterations == rt.iterations
     _close(rt.x, rj.x, F64)
@@ -80,7 +85,7 @@ def test_torch_engine_divergence_matches_xla():
     Y, A0, S0 = _problem(seed=0)
     kw = dict(e_rel=1e-4, max_iter=200, accelerated=True)
     rj = pt.nmf.nmf(Y, A0.copy(), S0.copy(), **kw)
-    rt = ptt.nmf.nmf(Y, A0.copy(), S0.copy(), **kw)
+    rt = _nmf(Y, A0.copy(), S0.copy(), **kw)
     assert rj.status == rt.status == "diverged"
     assert rj.iterations == rt.iterations
 
@@ -89,7 +94,7 @@ def test_cuda_engine_matches_pallas_engine():
     Y, A0, S0 = _problem(dtype=np.float32)
     rj = pt.nmf.nmf_pgm_fused(Y, A0.copy(), S0.copy(), e_rel=0, max_iter=20,
                               tile_n=128)
-    rt = ptt.nmf.nmf(Y, A0.copy(), S0.copy(), e_rel=0, max_iter=20,
+    rt = _nmf(Y, A0.copy(), S0.copy(), e_rel=0, max_iter=20,
                      engine="cuda")
     assert rj.iterations == rt.iterations == 20
     _close(rt.x, rj.x, F32)
@@ -99,12 +104,12 @@ def test_cuda_engine_matches_pallas_engine():
 
 def test_cuda_engine_resume_is_bit_exact():
     Y, A0, S0 = _problem(dtype=np.float32)
-    full = ptt.nmf.nmf(Y, A0.copy(), S0.copy(), e_rel=0, max_iter=20,
+    full = _nmf(Y, A0.copy(), S0.copy(), e_rel=0, max_iter=20,
                        engine="cuda")
-    half = ptt.nmf.nmf(Y, A0.copy(), S0.copy(), e_rel=0, max_iter=10,
+    half = _nmf(Y, A0.copy(), S0.copy(), e_rel=0, max_iter=10,
                        engine="cuda")
     # the fused state pins engine="cuda"
-    rest = ptt.nmf.nmf(Y, half.x[0], half.x[1], e_rel=0, max_iter=10,
+    rest = _nmf(Y, half.x[0], half.x[1], e_rel=0, max_iter=10,
                        state=half.state)
     assert rest.iterations == 10 and rest.state["it"] == 20
     for a, b in zip(rest.x, full.x):
@@ -116,9 +121,9 @@ def test_cuda_engine_resume_is_bit_exact():
 def test_torch_engine_resume_is_bit_exact():
     Y, A0, S0 = _problem(seed=4)
     kw = dict(e_rel=0, accelerated=True)
-    full = ptt.nmf.nmf(Y, A0.copy(), S0.copy(), max_iter=20, **kw)
-    half = ptt.nmf.nmf(Y, A0.copy(), S0.copy(), max_iter=10, **kw)
-    rest = ptt.nmf.nmf(Y, half.x[0], half.x[1], max_iter=10,
+    full = _nmf(Y, A0.copy(), S0.copy(), max_iter=20, **kw)
+    half = _nmf(Y, A0.copy(), S0.copy(), max_iter=10, **kw)
+    rest = _nmf(Y, half.x[0], half.x[1], max_iter=10,
                        state=half.state, **kw)
     for a, b in zip(rest.x, full.x):
         assert torch.equal(a, b)
@@ -126,10 +131,10 @@ def test_torch_engine_resume_is_bit_exact():
 
 def test_stopped_fused_solve_stays_stopped():
     Y, A0, S0 = _problem(seed=0, dtype=np.float32)
-    done = ptt.nmf.nmf(Y, A0.copy(), S0.copy(), e_rel=1e-2, max_iter=3000,
+    done = _nmf(Y, A0.copy(), S0.copy(), e_rel=1e-2, max_iter=3000,
                        engine="cuda")
     assert done.status == "converged"
-    again = ptt.nmf.nmf(Y, done.x[0], done.x[1], e_rel=1e-2, max_iter=50,
+    again = _nmf(Y, done.x[0], done.x[1], e_rel=1e-2, max_iter=50,
                         state=done.state)
     assert again.iterations == 0 and again.loss == done.loss
 
@@ -147,9 +152,9 @@ def test_continue_a_jax_solve_in_the_port(engines):
         kw["tile_n"] = 128
     full = pt.nmf.nmf(Y, A0.copy(), S0.copy(), max_iter=20, **kw)
     half = pt.nmf.nmf(Y, A0.copy(), S0.copy(), max_iter=10, **kw)
-    state = state_from_numpy(_numpy_state(half.state))
+    state = state_from_numpy(_numpy_state(half.state), device="cpu")
     port_kw = {"tile_n": 128} if port_engine == "cuda" else {}
-    rest = ptt.nmf.nmf(Y, np.asarray(half.x[0]), np.asarray(half.x[1]),
+    rest = _nmf(Y, np.asarray(half.x[0]), np.asarray(half.x[1]),
                        e_rel=0, max_iter=10, engine=port_engine, state=state,
                        **port_kw)
     assert rest.iterations == 10
@@ -160,14 +165,14 @@ def test_continue_a_jax_solve_in_the_port(engines):
 def test_nmf_updates_numpy_inputs_in_place():
     Y, A0, S0 = _problem()
     A, S = A0.copy(), S0.copy()
-    res = ptt.nmf.nmf(Y, A, S, e_rel=0, max_iter=5)
+    res = _nmf(Y, A, S, e_rel=0, max_iter=5)
     np.testing.assert_array_equal(A, res.x[0].numpy())
     np.testing.assert_array_equal(S, res.x[1].numpy())
 
 
 def test_tensor_inputs_stay_tensors_on_their_device():
     Y, A0, S0 = (torch.from_numpy(a) for a in _problem())
-    res = ptt.nmf.nmf(Y, A0, S0, e_rel=0, max_iter=3)
+    res = _nmf(Y, A0, S0, e_rel=0, max_iter=3)
     assert res.x[1].device == S0.device and res.x[1].shape == S0.shape
 
 
@@ -190,25 +195,68 @@ def test_likelihood_gradient_and_steps_match_jax():
 
 
 @pytest.mark.parametrize("kw,err", [
-    ({"W": np.full((5, 400), 2.0)}, NotImplementedError),
+    ({"backtracking": True}, NotImplementedError),
     ({"engine": "auto"}, NotImplementedError),
     ({"mesh": object()}, NotImplementedError),
     ({"algorithm": "bsdmm"}, NotImplementedError),
     ({"algorithm": "admm"}, ValueError),
-    ({"step_stride": 10}, NotImplementedError),
+    ({"trace": True}, NotImplementedError),
     ({"engine": "pallas"}, ValueError),
     ({"engine": "cuda", "accelerated": True}, ValueError),
 ])
 def test_later_slices_raise_clearly(kw, err):
     Y, A0, S0 = _problem()
     with pytest.raises(err):
-        ptt.nmf.nmf(Y, A0, S0, max_iter=2, **kw)
+        _nmf(Y, A0, S0, max_iter=2, **kw)
+
+
+def _entry_points():
+    """Each entry point that takes NumPy inputs, called without device=."""
+    Y, A0, S0 = _problem(dtype=np.float32)
+    At, St, Yt = (torch.from_numpy(a) for a in (A0, S0, Y))
+    grad = functools.partial(ptt.nmf.grad_likelihood, Y=Yt)
+    return {
+        "nmf": lambda: ptt.nmf.nmf(Y, A0, S0, max_iter=1),
+        "nmf_pgm_fused": lambda: ptt.nmf.nmf_pgm_fused(Y, A0, S0,
+                                                       max_iter=1),
+        "nmf_adaprox_fused": lambda: ptt.nmf.nmf_adaprox_fused(
+            Y, A0, S0, max_iter=1),
+        "state_from_numpy": lambda: state_from_numpy(
+            {"kind": "nmf_pgm_fused", "weighted": False, "tile_n": 128,
+             "it": 1, "converged": np.zeros(2, bool), "diverged": False,
+             "loss": 1.0, "steps": np.eye(3, dtype=np.float32)}),
+        "pgm": lambda: ptt.pgm([A0, S0], grad, ptt.nmf.step_pgm,
+                               max_iter=1),
+        "adaprox": lambda: ptt.adaprox([A0, S0], grad,
+                                       ptt.nmf.step_adaprox, max_iter=1),
+    }
+
+
+@pytest.mark.parametrize("entry", ["nmf", "nmf_pgm_fused",
+                                   "nmf_adaprox_fused", "state_from_numpy",
+                                   "pgm", "adaprox"])
+def test_numpy_inputs_go_to_the_card_or_raise(entry, monkeypatch):
+    """Without a card and without device=, NumPy inputs raise and name
+    device="cpu"; with device="cpu" (or CPU tensors) they run here."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        _entry_points()[entry]()
+
+
+def test_the_default_device_is_the_card(monkeypatch):
+    from proxmin_tpu_torch.solvers.common import default_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert default_device() == torch.device("cuda")
+    assert default_device("cpu") == torch.device("cpu")
+    # a tensor input is the caller's choice of device
+    Y, A0, S0 = (torch.from_numpy(a) for a in _problem())
+    assert ptt.nmf.nmf(Y, A0, S0, max_iter=2).x[1].device.type == "cpu"
 
 
 def test_shape_mismatch_raises():
     Y, A0, S0 = _problem()
     with pytest.raises(ValueError, match="shape mismatch"):
-        ptt.nmf.nmf(Y, A0.T, S0)
+        _nmf(Y, A0.T, S0)
 
 
 def test_port_never_imports_jax():

@@ -35,6 +35,11 @@ from proxmin_tpu_torch.ops import nmf_kernels as kk
 F64 = dict(rtol=1e-9, atol=1e-13)
 F32 = dict(rtol=0, atol=2e-5)
 
+# NumPy inputs go to the card unless the caller names a device; these tests
+# run on the CPU
+_nmf = functools.partial(ptt.nmf.nmf, device="cpu")
+_adaprox_fused = functools.partial(ptt.nmf.nmf_adaprox_fused, device="cpu")
+
 
 @pytest.fixture(autouse=True)
 def _one_thread():
@@ -175,7 +180,7 @@ def test_torch_engine_matches_xla(weighted, mode):
     kw = (dict(e_rel=0, max_iter=25, separable_prox="auto")
           if mode == "separable" else dict(e_rel=1e-4, max_iter=40))
     rj = pt.nmf.nmf(Y, A0.copy(), S0.copy(), W=w, algorithm="adaprox", **kw)
-    rt = ptt.nmf.nmf(Y, A0.copy(), S0.copy(), W=w, algorithm="adaprox", **kw)
+    rt = _nmf(Y, A0.copy(), S0.copy(), W=w, algorithm="adaprox", **kw)
     assert rt.iterations == rj.iterations
     assert rt.sub_iterations == rj.sub_iterations
     assert rt.x[0].dtype == torch.float64
@@ -204,7 +209,7 @@ def test_cuda_engine_matches_fused_engine(weighted):
     w = W if weighted else None
     rj = pt.nmf.nmf_adaprox_fused(Y, A0.copy(), S0.copy(), W=w, e_rel=0,
                                   max_iter=30, tile_n=128)
-    rt = ptt.nmf.nmf(Y, A0.copy(), S0.copy(), W=1 if w is None else w,
+    rt = _nmf(Y, A0.copy(), S0.copy(), W=1 if w is None else w,
                      algorithm="adaprox", engine="cuda", e_rel=0,
                      max_iter=30)
     assert rt.iterations == rj.iterations == 30
@@ -219,7 +224,7 @@ def test_cuda_engine_bfloat16_moments():
         rj = pt.nmf.nmf_adaprox_fused(Y, A0.copy(), S0.copy(), e_rel=0,
                                       max_iter=iters, tile_n=128,
                                       moment_dtype=jnp.bfloat16)
-        rt = ptt.nmf.nmf(Y, A0.copy(), S0.copy(), algorithm="adaprox",
+        rt = _nmf(Y, A0.copy(), S0.copy(), algorithm="adaprox",
                          engine="cuda", e_rel=0, max_iter=iters,
                          moment_dtype="bfloat16")
         assert rt.M[1].dtype == torch.bfloat16
@@ -238,7 +243,7 @@ def test_cuda_engine_warm_start_matches_fused_engine():
     V = tuple(np.asarray(v) for v in first.V)
     rj = pt.nmf.nmf_adaprox_fused(Y, A1.copy(), S1.copy(), e_rel=0,
                                   max_iter=12, tile_n=128, M=M, V=V)
-    rt = ptt.nmf.nmf(Y, A1.copy(), S1.copy(), algorithm="adaprox",
+    rt = _nmf(Y, A1.copy(), S1.copy(), algorithm="adaprox",
                      engine="cuda", e_rel=0, max_iter=12, M=M, V=V)
     _close(rt.x, rj.x, F32)
 
@@ -248,18 +253,18 @@ def test_cuda_engine_resume_is_bit_exact():
     kernel's row sums carry over), and a stopped solve stays stopped."""
     Y, A0, S0, W = _problem(dtype=np.float32)
     kw = dict(algorithm="adaprox", engine="cuda", e_rel=0, W=W)
-    full = ptt.nmf.nmf(Y, A0.copy(), S0.copy(), max_iter=30, **kw)
-    half = ptt.nmf.nmf(Y, A0.copy(), S0.copy(), max_iter=15, **kw)
-    rest = ptt.nmf.nmf(Y, *half.x, max_iter=15, state=half.state, **kw)
+    full = _nmf(Y, A0.copy(), S0.copy(), max_iter=30, **kw)
+    half = _nmf(Y, A0.copy(), S0.copy(), max_iter=15, **kw)
+    rest = _nmf(Y, *half.x, max_iter=15, state=half.state, **kw)
     assert rest.iterations == 15 and rest.state["it"] == 30
     for a, b in zip(rest.x + rest.M + rest.V, full.x + full.M + full.V):
         assert torch.equal(a, b)
     assert torch.equal(rest.state["rowsum"], full.state["rowsum"])
     assert rest.loss == full.loss
-    done = ptt.nmf.nmf(Y, A0.copy(), S0.copy(), algorithm="adaprox",
+    done = _nmf(Y, A0.copy(), S0.copy(), algorithm="adaprox",
                        engine="cuda", e_rel=1e-2, max_iter=3000)
     assert done.status == "converged"
-    again = ptt.nmf.nmf(Y, *done.x, algorithm="adaprox", engine="cuda",
+    again = _nmf(Y, *done.x, algorithm="adaprox", engine="cuda",
                         e_rel=1e-2, max_iter=50, state=done.state)
     assert again.iterations == 0 and again.loss == done.loss
 
@@ -278,7 +283,7 @@ def test_old_interop_sent_adaprox_states_to_the_pgm_branch():
     assert "kind" not in st
     with pytest.raises(KeyError, match="'t'"):
         interop._pgm_state(st, None)
-    conv = state_from_numpy(st)
+    conv = state_from_numpy(st, device="cpu")
     assert set(conv) >= {"M", "V", "Vhat", "it", "converged", "diverged"}
     assert conv["it"] == 5
 
@@ -302,14 +307,14 @@ def test_continue_a_jax_adaprox_solve_in_the_port(jax_engine, port_engine,
         kw["moment_dtype"] = jnp.bfloat16
     full = pt.nmf.nmf(Y, A0.copy(), S0.copy(), max_iter=30, **kw)
     half = pt.nmf.nmf(Y, A0.copy(), S0.copy(), max_iter=15, **kw)
-    state = state_from_numpy(_numpy_state(half.state))
+    state = state_from_numpy(_numpy_state(half.state), device="cpu")
     port_kw = dict(algorithm="adaprox", e_rel=0, engine=port_engine)
     if port_engine == "cuda":
         port_kw["tile_n"] = 128
         port_kw["moment_dtype"] = mdt
     else:
         port_kw["separable_prox"] = "auto"
-    rest = ptt.nmf.nmf(Y, np.asarray(half.x[0]), np.asarray(half.x[1]),
+    rest = _nmf(Y, np.asarray(half.x[0]), np.asarray(half.x[1]),
                        max_iter=15, state=state, **port_kw)
     assert rest.iterations == 15 and int(rest.state["it"]) == 30
     tol = F64 if jax_engine == "xla" else F32
@@ -326,13 +331,13 @@ def test_cuda_state_resumes_on_the_torch_engine():
     cuda = dict(algorithm="adaprox", engine="cuda", e_rel=0)
     torch_ = dict(algorithm="adaprox", engine="torch", e_rel=0,
                   separable_prox="auto")
-    full = ptt.nmf.nmf(Y, A0.copy(), S0.copy(), max_iter=30, **cuda)
-    half = ptt.nmf.nmf(Y, A0.copy(), S0.copy(), max_iter=15, **cuda)
-    rest = ptt.nmf.nmf(Y, *half.x, max_iter=15, state=half.state, **torch_)
+    full = _nmf(Y, A0.copy(), S0.copy(), max_iter=30, **cuda)
+    half = _nmf(Y, A0.copy(), S0.copy(), max_iter=15, **cuda)
+    rest = _nmf(Y, *half.x, max_iter=15, state=half.state, **torch_)
     assert int(rest.state["it"]) == 30
     _close(rest.x, full.x, F32)
-    half_t = ptt.nmf.nmf(Y, A0.copy(), S0.copy(), max_iter=15, **torch_)
-    rest_c = ptt.nmf.nmf(Y, *half_t.x, max_iter=15, state=half_t.state,
+    half_t = _nmf(Y, A0.copy(), S0.copy(), max_iter=15, **torch_)
+    rest_c = _nmf(Y, *half_t.x, max_iter=15, state=half_t.state,
                          **cuda)
     _close(rest_c.x, full.x, F32)
 
@@ -354,29 +359,31 @@ def test_cuda_state_resumes_on_the_torch_engine():
 def test_cuda_engine_gates(kw, err, match):
     Y, A0, S0, _ = _problem(C=4, K=3, N=128, dtype=np.float32)
     with pytest.raises(err, match=match):
-        ptt.nmf.nmf(Y, A0, S0, algorithm="adaprox", engine="cuda",
+        _nmf(Y, A0, S0, algorithm="adaprox", engine="cuda",
                     max_iter=3, **kw)
 
 
 def test_states_that_do_not_fit_raise():
     Y, A0, S0, W = _problem(C=4, K=3, N=128, dtype=np.float32)
-    pgm_state = ptt.nmf.nmf(Y, A0.copy(), S0.copy(), engine="cuda",
+    pgm_state = _nmf(Y, A0.copy(), S0.copy(), engine="cuda",
                             max_iter=2).state
     with pytest.raises(ValueError, match="PGM state"):
-        ptt.nmf.nmf(Y, A0, S0, algorithm="adaprox", max_iter=2,
+        _nmf(Y, A0, S0, algorithm="adaprox", max_iter=2,
                     state=pgm_state)
     with pytest.raises(ValueError, match="nmf_pgm_fused"):
-        ptt.nmf.nmf_adaprox_fused(Y, A0, S0, max_iter=2, state=pgm_state)
-    fused = ptt.nmf.nmf(Y, A0.copy(), S0.copy(), algorithm="adaprox",
+        _adaprox_fused(Y, A0, S0, max_iter=2, state=pgm_state)
+    fused = _nmf(Y, A0.copy(), S0.copy(), algorithm="adaprox",
                         engine="cuda", max_iter=2)
     with pytest.raises(ValueError, match="fused configuration"):
-        ptt.nmf.nmf(Y, *fused.x, algorithm="adaprox", engine="cuda",
+        _nmf(Y, *fused.x, algorithm="adaprox", engine="cuda",
                     max_iter=2, tile_n=128, state=fused.state)
     with pytest.raises(ValueError, match="stepper state"):
-        ptt.nmf.nmf(Y, *fused.x, algorithm="adaprox", engine="cuda",
+        _nmf(Y, *fused.x, algorithm="adaprox", engine="cuda",
                     max_iter=2, state=dict(fused.state, stepper_state=(1,)))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        ptt.nmf.nmf(Y, A0, S0, algorithm="adaprox", step_stride=5,
-                    max_iter=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        ptt.nmf.nmf(Y, A0, S0, W=W, max_iter=2)
+    weighted = _nmf(Y, A0.copy(), S0.copy(), W=W, engine="cuda",
+                    max_iter=2).state
+    with pytest.raises(ValueError, match="weighting"):
+        _nmf(Y, A0, S0, max_iter=2, state=weighted)
+    with pytest.raises(ValueError, match="store_dtype"):
+        _nmf(Y, A0, S0, algorithm="adaprox", max_iter=2,
+             store_dtype=torch.bfloat16)

@@ -111,7 +111,8 @@ def test_build_inputs_are_in_the_checkout():
         assert src.is_file() and src.parent.name == "csrc"
         assert kb._library_path(name).name.startswith(f"{name}-")
         assert kb._library_path(name).parent == kb._BUILD_DIR
-        assert callable(kb._DECLARE[name])
+        assert kb._DECLARE[name]
+        assert all(callable(d) for d in kb._DECLARE[name])
     root = kb._BUILD_DIR.parents[1]
     assert (root / "proxmin_tpu_torch").is_dir()
     ignored = (root / ".gitignore").read_text().split()

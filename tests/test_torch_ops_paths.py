@@ -29,6 +29,10 @@ F64 = dict(rtol=1e-9, atol=0)
 F32 = dict(rtol=1e-3, atol=1e-5)
 ITERS = 20
 
+# NumPy inputs go to the card unless the caller names a device; these tests
+# run on the CPU
+_nmf = functools.partial(ptt.nmf.nmf, device="cpu")
+
 
 @pytest.fixture(autouse=True)
 def _one_thread():
@@ -76,12 +80,12 @@ def test_prox_path_matches_jax(path):
     kw = dict(e_rel=0, max_iter=ITERS)
     rj = pt.nmf.nmf(Y, A0.copy(), S0.copy(), prox_S=j_prox, engine="xla",
                     **kw)
-    rt = ptt.nmf.nmf(Y, A0.copy(), S0.copy(), prox_S=t_prox, **kw)
+    rt = _nmf(Y, A0.copy(), S0.copy(), prox_S=t_prox, **kw)
     assert rj.iterations == rt.iterations == ITERS
     assert rt.x[1].dtype == torch.float64
     _close(rt.x, rj.x, F64)
     # the plain-operator twin takes the same iterations bit for bit
-    rp = ptt.nmf.nmf(Y, A0.copy(), S0.copy(), prox_S=t_plain, **kw)
+    rp = _nmf(Y, A0.copy(), S0.copy(), prox_S=t_plain, **kw)
     for a, b in zip(rt.x, rp.x):
         assert torch.equal(a, b)
     S = rt.x[1]
@@ -113,6 +117,6 @@ def test_k3_gradient_path_matches_jax():
     _close(rt.x, rj.x, F32)
     # the same solve through nmf(engine="torch"), whose gradient is
     # grad_likelihood
-    rn = ptt.nmf.nmf(Y, A0.copy(), S0.copy(), e_rel=0, max_iter=ITERS)
+    rn = _nmf(Y, A0.copy(), S0.copy(), e_rel=0, max_iter=ITERS)
     for a, b in zip(rt.x, rn.x):
         torch.testing.assert_close(a, b, **F32)

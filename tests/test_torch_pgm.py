@@ -6,6 +6,8 @@ same operations in the same order and differ only in how the two BLAS
 libraries sum a 40-term matrix-vector product (a few ulps per iteration,
 contracted by the gradient step). Iteration counts must be equal."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +19,10 @@ import proxmin_tpu_torch as ptt
 from proxmin_tpu_torch.interop import state_from_numpy
 
 RTOL = 1e-12
+
+# NumPy inputs go to the card unless the caller names a device; these tests
+# run on the CPU
+_pgm = functools.partial(ptt.pgm, device="cpu")
 
 
 @pytest.fixture(autouse=True)
@@ -56,7 +62,7 @@ def test_pgm_matches_jax(rng, accelerated, restart):
     kw = dict(accelerated=accelerated, restart=restart, e_rel=1e-6,
               max_iter=5000)
     rj = pt.pgm(x0.copy(), gj, step, prox=_box(pt), **kw)
-    rt = ptt.pgm(x0.copy(), gt, step, prox=_box(ptt), **kw)
+    rt = _pgm(x0.copy(), gt, step, prox=_box(ptt), **kw)
     assert rj.iterations == rt.iterations
     assert rt.status == rj.status == "converged"
     np.testing.assert_allclose(rt.x.numpy(), np.asarray(rj.x), rtol=RTOL,
@@ -86,7 +92,7 @@ def test_pgm_two_blocks_fixed_iterations(rng, accelerated):
 
     rj = pt.pgm([x0.copy(), x1.copy()], gj, sj, prox=[None, _box(pt)],
                 accelerated=accelerated, e_rel=0, max_iter=60)
-    rt = ptt.pgm([x0.copy(), x1.copy()], gt, sj, prox=[None, _box(ptt)],
+    rt = _pgm([x0.copy(), x1.copy()], gt, sj, prox=[None, _box(ptt)],
                  accelerated=accelerated, e_rel=0, max_iter=60)
     assert rj.iterations == rt.iterations == 60
     for a, c in zip(rj.x, rt.x):
@@ -97,7 +103,7 @@ def test_pgm_writes_numpy_input_in_place(rng):
     Q, b, step, x0 = _problem(rng)
     _, gt = _grads(Q, b)
     x = x0.copy()
-    res = ptt.pgm(x, gt, step, prox=_box(ptt), max_iter=20, e_rel=0)
+    res = _pgm(x, gt, step, prox=_box(ptt), max_iter=20, e_rel=0)
     np.testing.assert_array_equal(x, res.x.numpy())
 
 
@@ -106,9 +112,9 @@ def test_pgm_resume_is_exact(rng):
     Q, b, step, x0 = _problem(rng)
     _, gt = _grads(Q, b)
     kw = dict(prox=_box(ptt), accelerated=True, e_rel=0)
-    full = ptt.pgm(x0.copy(), gt, step, max_iter=40, **kw)
-    half = ptt.pgm(x0.copy(), gt, step, max_iter=15, **kw)
-    rest = ptt.pgm(half.x, gt, step, max_iter=25, state=half.state, **kw)
+    full = _pgm(x0.copy(), gt, step, max_iter=40, **kw)
+    half = _pgm(x0.copy(), gt, step, max_iter=15, **kw)
+    rest = _pgm(half.x, gt, step, max_iter=25, state=half.state, **kw)
     assert torch.equal(rest.x, full.x)
     assert rest.state["it"] == 40
 
@@ -122,8 +128,8 @@ def test_pgm_continues_a_jax_state(rng):
     full = pt.pgm(x0.copy(), gj, step, prox=_box(pt), max_iter=40, **kw)
     half = pt.pgm(x0.copy(), gj, step, prox=_box(pt), max_iter=15, **kw)
     st = jax.tree_util.tree_map(np.asarray, half.state)
-    rest = ptt.pgm(np.asarray(half.x), gt, step, prox=_box(ptt),
-                   max_iter=25, state=state_from_numpy(st), **kw)
+    rest = _pgm(np.asarray(half.x), gt, step, prox=_box(ptt),
+                   max_iter=25, state=state_from_numpy(st, device="cpu"), **kw)
     np.testing.assert_allclose(rest.x.numpy(), np.asarray(full.x),
                                rtol=RTOL)
     assert rest.state["it"] == 40
@@ -133,7 +139,7 @@ def test_pgm_divergence_detected_like_jax(rng):
     Q, b, step, x0 = _problem(rng)
     gj, gt = _grads(Q, b)
     rj = pt.pgm(x0.copy(), gj, 400 * step, max_iter=3000)
-    rt = ptt.pgm(x0.copy(), gt, 400 * step, max_iter=3000)
+    rt = _pgm(x0.copy(), gt, 400 * step, max_iter=3000)
     assert rj.status == rt.status == "diverged"
     assert rj.iterations == rt.iterations
 
@@ -147,4 +153,4 @@ def test_pgm_options_not_yet_ported_raise(rng, kw):
     Q, b, step, x0 = _problem(rng)
     _, gt = _grads(Q, b)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ptt.pgm(x0, gt, step, **kw)
+        _pgm(x0, gt, step, **kw)
