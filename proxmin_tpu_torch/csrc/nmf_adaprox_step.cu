@@ -19,36 +19,52 @@
 //   rowsum += S'                       the next iteration's step heuristic
 //   stats  += [D.R, |S' - S|^2, |S'|^2]    (loss = D.R / 2)
 //
+// S, Y and W are stored as float or as bfloat16 (the store type ST), and M
+// and V as float or bfloat16 (the moment type MT); compute is f32. With the
+// bfloat16 store, as in the TPU kernel (nmf_kernels.py:451-506): the
+// residual multiplies A rounded to bfloat16 by the bfloat16 S (each product
+// exact in f32), gS uses the f32 A, S' is stored rounded to nearest even,
+// and the row sums and the statistics use the stored S'; gA uses the old S.
+//
 // What bounds it on an H100: bytes. Each iteration reads Y (C x N), S, M and
 // V (K x N each) and writes S', M' and V': (C + 6K) N 4 bytes with float
 // moments, 188 MB at the flagship C=5, K=7, N=1e6 (56 us at 3.35 TB/s);
-// (C + 2K) N 4 + 4 K N 2 = 132 MB with bfloat16 moments; C N 4 more when W
-// streams. The arithmetic, about N K (6C + 20) flops, is far below what the
-// card's f32 units do in that time.
+// (C + 2K) N 4 + 4 K N 2 = 132 MB with bfloat16 moments; 94 MB with the
+// bfloat16 store as well; C N itemsize more when W streams. The arithmetic,
+// about N K (6C + 20) flops, is far below what the card's f32 units do in
+// that time.
 //
-// What the design does about it: the structure of K1 (nmf_pgm_step.cu).
-// - One thread per column at a time; a block of 256 threads walks a tile of
-//   tile_n consecutive columns, neighbouring threads on neighbouring
-//   columns, so every row load and store of a warp is coalesced and every
-//   byte moves once. The ragged edge of N is skipped, never masked.
-// - C and K have compile-time bounds (CB, KB) so the per-column vectors and
-//   the per-thread partial sums stay in registers. Rows and columns beyond
-//   the runtime C and K are skipped and their sums stay exactly zero.
-// - Moments are a template type: float, or __nv_bfloat16 read with
-//   __bfloat162float and stored with __float2bfloat16_rn (round to nearest
-//   even, as astype(bfloat16)). All arithmetic is f32.
+// What the design does about it:
+// - A ring of shared-memory stages. A stage holds a sub-tile of kSub pixel
+//   columns of every input row (S, M, V: K rows each; Y, W: C rows each).
+//   Where the row starts and the sub-tile's bytes are 16-byte aligned (the
+//   flagship), one thread fills a stage with 1-D cp.async.bulk copies that
+//   complete on the stage's mbarrier; otherwise (ragged N, bfloat16 rows of
+//   odd N) every thread copies its column and arrives on the barrier. Two to
+//   four stages are in flight, so the loads never wait on the arithmetic.
+// - The consumers compute from shared memory, one column per thread, and
+//   store S', M' and V' straight to global memory, coalesced. They write D
+//   to shared memory beside the S sub-tile; gA = D S^T is then summed from
+//   shared memory, each (c, k) entry by one warp (lanes over a fixed
+//   stride of columns, unrolled over a full sub-tile). A thread keeps only
+//   its share of gA, the row sums and the three statistics: at most 80
+//   registers, no spills, and three blocks per SM for C, K <= 8 (two ring
+//   stages at the flagship with float32 moments, up to four where the rows
+//   are narrower); two blocks per SM for C <= 16.
+// - A persistent grid: (SMs x resident blocks) blocks walk the tiles of
+//   tile_n columns, j = blockIdx.x, blockIdx.x + gridDim.x, ... Every tile
+//   writes its own row of partial sums in a fixed order (lanes, then a
+//   shuffle tree, then the warps in order), so the summation order depends
+//   on tile_n alone, whatever the grid or the card, and two launches give
+//   the same bits, which the exact resume relies on. No atomics.
+// - The finalize launch gives each entry one warp: the lanes stride over
+//   the tile rows in double, then a fixed shuffle tree.
 // - The update is written with __fmul_rn/__fadd_rn/__fdiv_rn/__fsqrt_rn so
 //   that nvcc contracts nothing into an FMA: the products round as the
 //   plain PyTorch version's separate elementwise ops do, and a one-ulp
-//   difference cannot flip a bfloat16 store. Build without
-//   --use_fast_math.
+//   difference cannot flip a bfloat16 store. Build without --use_fast_math.
 // - NaN survives the prox and the Psi floor (x < 0 ? 0 : x, not fmaxf), so
 //   the solver's divergence detection sees it.
-// - No atomics. Each block reduces its partial sums in a fixed tree order
-//   and writes one row to a scratch buffer; a second launch sums the rows
-//   in block order in double. Every run gives the same bits, which the
-//   exact resume relies on.
-// Making it fast (vector loads, TMA, a persistent grid) is later work.
 //
 // K5, the packed-state variant, is this kernel with another layout (the
 // template parameter PK). It replaces the Pallas TPU kernel
@@ -58,13 +74,12 @@
 //   kPackMV:  S (K, N) f32 plus one (2K, N) bfloat16 array [M; V].
 // The layout changes only where S, M and V are read and written (row
 // offsets K and 2K), so a packed result equals K2's bit for bit on the
-// same inputs and a timing compares the layouts alone. On the TPU the
-// question was the count of DMA streams (7 -> 3 or 5); here each thread
-// issues the same loads and stores either way, so what K5 measures on an
-// H100 is whether the merged arrays' addresses change the achieved
-// bandwidth. Bytes are K2's: 188 MB (smv) and 132 MB (mv) at the flagship.
+// same inputs and a timing compares the layouts alone.
 
 #include <cfloat>
+#include <cstdint>
+#include <type_traits>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -72,8 +87,21 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+// Pixel columns per ring stage: one per thread.
+constexpr int kSub = kThreads;
+constexpr int kMaxStages = 4;
+// Resident blocks per SM an instance is built for: three for C, K <= 8 (at
+// most 80 registers), two for C <= 16, whose wider arrays would spill at
+// 80. The dynamic shared memory a block may take and still leave room for
+// that many (228 KB per SM, 1 KB of it reserved per block, the static
+// arrays under 1.5 KB), and the most one block may take beside its static
+// shared memory (227 KB in all).
+template <int CB>
+constexpr int kBlocksPerSM = CB <= 8 ? 3 : 2;
+constexpr int smem_per_block(int blocks) { return (228 / blocks - 2) * 1024; }
+constexpr int kSmemMax = 224 * 1024;
 
-// Row layout of one block's partial sums.
+// Row layout of one tile's partial sums.
 template <int CB, int KB>
 struct Layout {
   static constexpr int kGA = 0;              // (c, k) row-major
@@ -86,161 +114,386 @@ struct Scalars {
   float b1_t, bc1, bc2, one_minus_b2, b2, eps;
 };
 
+// Byte offsets of the rows of one ring stage (each row kSub elements) and
+// the stage's size.
+struct Ring {
+  int s, m, v, y, w, bytes;
+};
+
+Ring ring_layout(int C, int K, int ss, int ms, bool weighted) {
+  Ring r;
+  r.s = 0;
+  r.m = r.s + K * kSub * ss;
+  r.v = r.m + K * kSub * ms;
+  r.y = r.v + K * kSub * ms;
+  r.w = r.y + C * kSub * ss;
+  r.bytes = r.w + (weighted ? C * kSub * ss : 0);
+  return r;
+}
+
 // Where S, M and V live: K2's three arrays, or K5's packed layouts.
 constexpr int kSeparate = 0, kPackSMV = 1, kPackMV = 2;
 
-__device__ __forceinline__ float load_moment(const float* p, long long i) {
-  return p[i];
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
 }
-__device__ __forceinline__ float load_moment(const __nv_bfloat16* p,
-                                             long long i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ void store_moment(float* p, long long i, float v) {
+// Stores v and returns the value stored, as the next iteration reads it.
+__device__ __forceinline__ float store(float* p, long long i, float v) {
   p[i] = v;
+  return v;
 }
-__device__ __forceinline__ void store_moment(__nv_bfloat16* p, long long i,
-                                             float v) {
-  p[i] = __float2bfloat16_rn(v);
+__device__ __forceinline__ float store(__nv_bfloat16* p, long long i,
+                                       float v) {
+  const __nv_bfloat16 b = __float2bfloat16_rn(v);
+  p[i] = b;
+  return __bfloat162float(b);
 }
 
-template <int CB, int KB, typename MT, int PK>
-__global__ void __launch_bounds__(kThreads)
-adaprox_step_kernel(const float* __restrict__ S_in, const MT* __restrict__ M_in,
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+// 1-D bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from global to shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+template <int CB, int KB, typename ST, typename MT, int PK>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM<CB>)
+adaprox_step_kernel(const ST* __restrict__ S_in, const MT* __restrict__ M_in,
                     const MT* __restrict__ V_in, const float* __restrict__ A,
-                    const float* __restrict__ Y, const float* __restrict__ W,
+                    const ST* __restrict__ Y, const ST* __restrict__ W,
                     const float* __restrict__ alpha, Scalars sc,
                     int prox_plus, int C, int K, long long N,
-                    long long tile_n, float* __restrict__ S_out,
-                    MT* __restrict__ M_out, MT* __restrict__ V_out,
-                    float* __restrict__ partials) {
+                    long long tile_n, Ring ring, int stages,
+                    ST* __restrict__ S_out, MT* __restrict__ M_out,
+                    MT* __restrict__ V_out, float* __restrict__ partials) {
   using L = Layout<CB, KB>;
+  constexpr bool kF32 = std::is_same<ST, float>::value;
+  constexpr int ss = sizeof(ST), ms = sizeof(MT);
+  // gA entries per warp: entry p = warp + i kWarps of the C x K ones
+  constexpr int kGAPer = (CB * KB + kWarps - 1) / kWarps;
   // the layout: K2 passes three arrays; kPackSMV passes [S; M; V] as S_in
   // and S_out; kPackMV passes [M; V] as M_in and M_out
   const long long KN = (long long)K * N;
-  const float* S = S_in;
-  float* S_new = S_out;
+  const ST* S = S_in;
+  ST* S_new = S_out;
   const MT* M = PK == kPackSMV ? reinterpret_cast<const MT*>(S_in + KN) : M_in;
   MT* M_new = PK == kPackSMV ? reinterpret_cast<MT*>(S_out + KN) : M_out;
   const MT* V = PK == kSeparate ? V_in : M + KN;
   MT* V_new = PK == kSeparate ? V_out : M_new + KN;
-  __shared__ float As[CB][KB];
-  __shared__ float alphas[KB];
-  __shared__ float red[kWarps][L::kP];
 
-  for (int i = threadIdx.x; i < CB * KB; i += kThreads) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float As[CB][KB];
+  // A as the residual product takes it: A itself in f32; with the bfloat16
+  // store, A rounded to bfloat16 (bfloat16 x bfloat16 products are exact in
+  // f32). The f32 instance reads As for both.
+  __shared__ float A16[kF32 ? 1 : CB][KB];
+  float(*Ar)[KB] = kF32 ? As : A16;
+  __shared__ float alphas[KB];
+  __shared__ float red[kWarps][KB + 3];
+  __shared__ __align__(8) uint64_t full[kMaxStages];
+  float* Dsm = reinterpret_cast<float*>(smem + stages * ring.bytes);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int i = tid; i < CB * KB; i += kThreads) {
     const int c = i / KB, k = i % KB;
-    As[c][k] = (c < C && k < K) ? A[c * K + k] : 0.f;
+    const float a = (c < C && k < K) ? A[c * K + k] : 0.f;
+    As[c][k] = a;
+    if constexpr (!kF32) A16[c][k] = __bfloat162float(__float2bfloat16_rn(a));
   }
-  for (int k = threadIdx.x; k < KB; k += kThreads)
-    alphas[k] = (k < K) ? alpha[k] : 0.f;
+  for (int k = tid; k < KB; k += kThreads) alphas[k] = (k < K) ? alpha[k] : 0.f;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(&full[s], kThreads);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
   __syncthreads();
   // (1 - b1_t) in f32, as the TPU kernel computes it from its f32 scalar
   const float one_minus_b1 = __fsub_rn(1.f, sc.b1_t);
 
-  float acc[L::kP];
-#pragma unroll
-  for (int p = 0; p < L::kP; ++p) acc[p] = 0.f;
+  const long long n_tiles = (N + tile_n - 1) / tile_n;
+  const bool weighted = W != nullptr;
+  const unsigned long long ptr_bits =
+      reinterpret_cast<unsigned long long>(S) |
+      reinterpret_cast<unsigned long long>(M) |
+      reinterpret_cast<unsigned long long>(V) |
+      reinterpret_cast<unsigned long long>(Y) |
+      reinterpret_cast<unsigned long long>(W);
+  const bool base_aligned =
+      ((ptr_bits | (unsigned long long)(N * ss) |
+        (unsigned long long)(N * ms)) & 15ull) == 0;
 
-  const long long begin = (long long)blockIdx.x * tile_n;
-  const long long end = min(begin + tile_n, N);
-  for (long long n = begin + threadIdx.x; n < end; n += kThreads) {
-    float s[KB], d[CB];
-#pragma unroll
-    for (int k = 0; k < KB; ++k) s[k] = (k < K) ? S[k * N + n] : 0.f;
-
-#pragma unroll
-    for (int c = 0; c < CB; ++c) {
-      float r = 0.f, dc = 0.f;
-      if (c < C) {
-        r = As[c][0] * s[0];
-#pragma unroll
-        for (int k = 1; k < KB; ++k) {
-          if (k < K) r = fmaf(As[c][k], s[k], r);
+  auto n_subs = [&](long long j) {
+    const long long w = min(tile_n, N - j * tile_n);
+    return (w + kSub - 1) / kSub;
+  };
+  // Fill stage st with sub-tile sub of tile j; every thread arrives once.
+  auto fill = [&](int st, long long j, long long sub) {
+    const long long c0 = j * tile_n + sub * kSub;
+    const int width = (int)min((long long)kSub, min(j * tile_n + tile_n, N) - c0);
+    unsigned char* base = smem + st * ring.bytes;
+    const bool bulk =
+        base_aligned && (((unsigned long long)(c0 * ss) |
+                          (unsigned long long)(c0 * ms) |
+                          (unsigned long long)(width * ss) |
+                          (unsigned long long)(width * ms)) & 15ull) == 0;
+    if (bulk) {
+      if (tid == 0) {
+        // the stage was last read through the generic proxy
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        const uint32_t rows_s = K + C * (weighted ? 2 : 1);
+        mbar_arrive_expect_tx(&full[st], (uint32_t)width *
+                                             (rows_s * ss + 2u * K * ms));
+        for (int k = 0; k < K; ++k) {
+          const long long off = k * N + c0;
+          bulk_load(base + ring.s + k * kSub * ss, S + off, width * ss,
+                    &full[st]);
+          bulk_load(base + ring.m + k * kSub * ms, M + off, width * ms,
+                    &full[st]);
+          bulk_load(base + ring.v + k * kSub * ms, V + off, width * ms,
+                    &full[st]);
         }
-        r -= Y[c * N + n];
-        dc = (W != nullptr) ? W[c * N + n] * r : r;
+        for (int c = 0; c < C; ++c) {
+          const long long off = c * N + c0;
+          bulk_load(base + ring.y + c * kSub * ss, Y + off, width * ss,
+                    &full[st]);
+          if (weighted)
+            bulk_load(base + ring.w + c * kSub * ss, W + off, width * ss,
+                      &full[st]);
+        }
+      } else {
+        mbar_arrive(&full[st]);
       }
-      d[c] = dc;
-      acc[L::kStats] = fmaf(dc, r, acc[L::kStats]);
+      return;
     }
+    if (tid < width) {
+      ST* sS = reinterpret_cast<ST*>(base + ring.s);
+      MT* sM = reinterpret_cast<MT*>(base + ring.m);
+      MT* sV = reinterpret_cast<MT*>(base + ring.v);
+      ST* sY = reinterpret_cast<ST*>(base + ring.y);
+      ST* sW = reinterpret_cast<ST*>(base + ring.w);
+      for (int k = 0; k < K; ++k) {
+        const long long i = k * N + c0 + tid;
+        sS[k * kSub + tid] = S[i];
+        sM[k * kSub + tid] = M[i];
+        sV[k * kSub + tid] = V[i];
+      }
+      for (int c = 0; c < C; ++c) {
+        const long long i = c * N + c0 + tid;
+        sY[c * kSub + tid] = Y[i];
+        if (weighted) sW[c * kSub + tid] = W[i];
+      }
+    }
+    mbar_arrive(&full[st]);
+  };
 
+  // the producer's cursor runs `stages` sub-tiles ahead of the consumers'
+  long long pj = blockIdx.x, ps = 0;
+  auto advance = [&]() {
+    if (++ps == n_subs(pj)) {
+      ps = 0;
+      pj += gridDim.x;
+    }
+  };
+  for (int st = 0; st < stages && pj < n_tiles; ++st) {
+    fill(st, pj, ps);
+    advance();
+  }
+
+  long long q = 0;  // the consumers' flat sub-tile count
+  for (long long j = blockIdx.x; j < n_tiles; j += gridDim.x) {
+    float ga[kGAPer], rs[KB], st0 = 0.f, st1 = 0.f, st2 = 0.f;
 #pragma unroll
-    for (int k = 0; k < KB; ++k) {
-      if (k < K) {
-        float g = 0.f;
+    for (int i = 0; i < kGAPer; ++i) ga[i] = 0.f;
+#pragma unroll
+    for (int k = 0; k < KB; ++k) rs[k] = 0.f;
+    const long long subs = n_subs(j);
+    for (long long sub = 0; sub < subs; ++sub, ++q) {
+      const int st = (int)(q % stages);
+      mbar_wait(&full[st], (uint32_t)((q / stages) & 1));
+      const long long c0 = j * tile_n + sub * kSub;
+      const int width =
+          (int)min((long long)kSub, min(j * tile_n + tile_n, N) - c0);
+      const unsigned char* base = smem + st * ring.bytes;
+      const ST* sS = reinterpret_cast<const ST*>(base + ring.s);
+      const MT* sM = reinterpret_cast<const MT*>(base + ring.m);
+      const MT* sV = reinterpret_cast<const MT*>(base + ring.v);
+      const ST* sY = reinterpret_cast<const ST*>(base + ring.y);
+      const ST* sW = reinterpret_cast<const ST*>(base + ring.w);
+
+      if (tid < width) {
+        const long long n = c0 + tid;
+        float s[KB], d[CB];
+#pragma unroll
+        for (int k = 0; k < KB; ++k)
+          s[k] = (k < K) ? to_f32(sS[k * kSub + tid]) : 0.f;
 #pragma unroll
         for (int c = 0; c < CB; ++c) {
-          if (c < C) g = fmaf(As[c][k], d[c], g);
+          float dc = 0.f;
+          if (c < C) {
+            float r = Ar[c][0] * s[0];
+#pragma unroll
+            for (int k = 1; k < KB; ++k) {
+              if (k < K) r = fmaf(Ar[c][k], s[k], r);
+            }
+            r -= to_f32(sY[c * kSub + tid]);
+            dc = weighted ? to_f32(sW[c * kSub + tid]) * r : r;
+            Dsm[c * kSub + tid] = dc;
+            st0 = fmaf(dc, r, st0);
+          }
+          d[c] = dc;
         }
-        const long long i = k * N + n;
-        const float m1 = __fadd_rn(__fmul_rn(one_minus_b1, g),
-                                   __fmul_rn(sc.b1_t, load_moment(M, i)));
-        const float v1 =
-            __fadd_rn(__fmul_rn(sc.one_minus_b2, __fmul_rn(g, g)),
-                      __fmul_rn(sc.b2, load_moment(V, i)));
-        const float phi = __fmul_rn(m1, sc.bc1);
-        const float psi = __fadd_rn(__fsqrt_rn(__fmul_rn(v1, sc.bc2)), sc.eps);
-        const float psi_safe = (psi < FLT_MIN) ? FLT_MIN : psi;  // keeps NaN
-        float x = __fsub_rn(s[k],
-                            __fmul_rn(alphas[k], __fdiv_rn(phi, psi_safe)));
-        // keeps NaN (fmaxf would turn it into 0 and hide a divergence)
-        if (prox_plus && x < 0.f) x = 0.f;
-        S_new[i] = x;
-        store_moment(M_new, i, m1);
-        store_moment(V_new, i, v1);
-        const float dk = x - s[k];
-        acc[L::kRowsum + k] += x;
-        acc[L::kStats + 1] = fmaf(dk, dk, acc[L::kStats + 1]);
-        acc[L::kStats + 2] = fmaf(x, x, acc[L::kStats + 2]);
+#pragma unroll
+        for (int k = 0; k < KB; ++k) {
+          if (k < K) {
+            float g = 0.f;
+#pragma unroll
+            for (int c = 0; c < CB; ++c) {
+              if (c < C) g = fmaf(As[c][k], d[c], g);
+            }
+            const int i = k * kSub + tid;
+            const float m1 = __fadd_rn(__fmul_rn(one_minus_b1, g),
+                                       __fmul_rn(sc.b1_t, to_f32(sM[i])));
+            const float v1 =
+                __fadd_rn(__fmul_rn(sc.one_minus_b2, __fmul_rn(g, g)),
+                          __fmul_rn(sc.b2, to_f32(sV[i])));
+            const float phi = __fmul_rn(m1, sc.bc1);
+            const float psi =
+                __fadd_rn(__fsqrt_rn(__fmul_rn(v1, sc.bc2)), sc.eps);
+            const float psi_safe = (psi < FLT_MIN) ? FLT_MIN : psi;  // keeps NaN
+            float x = __fsub_rn(
+                s[k], __fmul_rn(alphas[k], __fdiv_rn(phi, psi_safe)));
+            // keeps NaN (fmaxf would turn it into 0 and hide a divergence)
+            if (prox_plus && x < 0.f) x = 0.f;
+            const long long gi = k * N + n;
+            x = store(S_new, gi, x);
+            store(M_new, gi, m1);
+            store(V_new, gi, v1);
+            const float dk = x - s[k];
+            rs[k] += x;
+            st1 = fmaf(dk, dk, st1);
+            st2 = fmaf(x, x, st2);
+          }
+        }
+      }
+      __syncthreads();  // D of the sub-tile is in shared memory
+
+      // gA += D S^T over the sub-tile: entry p by warp p % kWarps, lane l
+      // over the columns l, l + 32, ... (unrolled for a full sub-tile, so
+      // that a lane's shared-memory loads are all in flight at once)
+#pragma unroll
+      for (int i = 0; i < kGAPer; ++i) {
+        const int p = warp + i * kWarps;
+        if (p < C * K) {
+          const int c = p / K, k = p % K;
+          float a = ga[i];
+          if (width == kSub) {
+#pragma unroll
+            for (int n = lane; n < kSub; n += 32)
+              a = fmaf(Dsm[c * kSub + n], to_f32(sS[k * kSub + n]), a);
+          } else {
+            for (int n = lane; n < width; n += 32)
+              a = fmaf(Dsm[c * kSub + n], to_f32(sS[k * kSub + n]), a);
+          }
+          ga[i] = a;
+        }
+      }
+      __syncthreads();  // the stage and D are free again
+      if (pj < n_tiles) {
+        fill(st, pj, ps);
+        advance();
       }
     }
 
+    // Tile j's row of partial sums, in a fixed order: each gA entry's lanes
+    // by a shuffle tree; the row sums and the statistics by a shuffle tree
+    // in each warp, then the warps in order.
+    float* row = partials + j * L::kP;
 #pragma unroll
-    for (int c = 0; c < CB; ++c) {
+    for (int i = 0; i < kGAPer; ++i) {
+      float v = ga[i];
 #pragma unroll
-      for (int k = 0; k < KB; ++k) {
-        if (c < C && k < K)
-          acc[L::kGA + c * KB + k] = fmaf(d[c], s[k], acc[L::kGA + c * KB + k]);
-      }
+      for (int off = 16; off > 0; off >>= 1)
+        v += __shfl_down_sync(0xffffffffu, v, off);
+      const int p = warp + i * kWarps;
+      if (lane == 0 && p < C * K) row[L::kGA + (p / K) * KB + p % K] = v;
     }
-  }
-
-  // Fixed-order block reduction: a shuffle tree inside each warp, then the
-  // warps summed in order by one thread per entry.
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
-  for (int p = 0; p < L::kP; ++p) {
-    float v = acc[p];
+    for (int e = 0; e < KB + 3; ++e) {
+      float v = e < KB ? rs[e] : (e == KB ? st0 : (e == KB + 1 ? st1 : st2));
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane == 0) red[warp][p] = v;
-  }
-  __syncthreads();
-  for (int p = threadIdx.x; p < L::kP; p += kThreads) {
-    float v = red[0][p];
+      for (int off = 16; off > 0; off >>= 1)
+        v += __shfl_down_sync(0xffffffffu, v, off);
+      if (lane == 0) red[warp][e] = v;
+    }
+    __syncthreads();
+    if (tid < KB + 3) {
+      float v = red[0][tid];
 #pragma unroll
-    for (int w = 1; w < kWarps; ++w) v += red[w][p];
-    partials[(long long)blockIdx.x * L::kP + p] = v;
+      for (int w = 1; w < kWarps; ++w) v += red[w][tid];
+      row[L::kRowsum + tid] = v;
+    }
   }
 }
 
-// Second launch: one thread per entry sums the blocks' rows in block order
-// (in double, then rounds once) and writes gA (C x K), rowsum (K) and
-// stats = [loss, |S' - S|^2, |S'|^2].
+// Second launch: one warp per entry; its lanes sum the tile rows in a fixed
+// stride (in double), then a fixed shuffle tree, and lane 0 rounds once and
+// writes gA (C x K), rowsum (K) and stats = [loss, |S' - S|^2, |S'|^2].
+// Row entries outside (C, K) are never written and never read into a
+// result.
 template <int CB, int KB>
 __global__ void __launch_bounds__(kThreads)
-adaprox_step_finalize(const float* __restrict__ partials, long long n_blocks,
+adaprox_step_finalize(const float* __restrict__ partials, long long n_rows,
                       int C, int K, float* __restrict__ gA,
                       float* __restrict__ rowsum,
                       float* __restrict__ stats) {
   using L = Layout<CB, KB>;
-  static_assert(L::kP <= kThreads, "one thread per partial-sum entry");
-  const int p = threadIdx.x;
-  if (p >= L::kP) return;
+  const int p = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (p >= L::kP) return;  // whole warps return
   double v = 0.0;
-  for (long long b = 0; b < n_blocks; ++b) v += (double)partials[b * L::kP + p];
+  for (long long b = lane; b < n_rows; b += 32)
+    v += (double)partials[b * L::kP + p];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  if (lane != 0) return;
   if (p < L::kRowsum) {
     const int c = p / KB, k = p % KB;
     if (c < C && k < K) gA[c * K + k] = (float)v;
@@ -253,50 +506,100 @@ adaprox_step_finalize(const float* __restrict__ partials, long long n_blocks,
   }
 }
 
-template <int CB, int KB, typename MT, int PK = kSeparate>
-int launch(const float* A, const float* S, const void* M, const void* V,
-           const float* Y, const float* W, const float* alpha, Scalars sc,
+template <int CB, int KB, typename ST, typename MT, int PK = kSeparate>
+int launch(const float* A, const void* S, const void* M, const void* V,
+           const void* Y, const void* W, const float* alpha, Scalars sc,
            int prox_plus, int C, int K, long long N, long long tile_n,
-           float* S_new, void* M_new, void* V_new, float* gA, float* rowsum,
+           void* S_new, void* M_new, void* V_new, float* gA, float* rowsum,
            float* stats, float* partials, cudaStream_t stream) {
-  const long long n_blocks = (N + tile_n - 1) / tile_n;
-  adaprox_step_kernel<CB, KB, MT, PK>
-      <<<(unsigned)n_blocks, kThreads, 0, stream>>>(
-          S, static_cast<const MT*>(M), static_cast<const MT*>(V), A, Y, W,
-          alpha, sc, prox_plus, C, K, N, tile_n, S_new,
-          static_cast<MT*>(M_new), static_cast<MT*>(V_new), partials);
-  cudaError_t err = cudaGetLastError();
+  auto kernel = adaprox_step_kernel<CB, KB, ST, MT, PK>;
+  // per instance: the SM count, the dynamic shared memory the kernel is
+  // allowed (raised before the first launch that needs more than 48 KB),
+  // and the resident blocks per SM at the last size asked for
+  static int sms = 0, allowed_smem = 0, cached_smem = -1, cached_per_sm = 0;
+  cudaError_t err;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const Ring ring = ring_layout(C, K, sizeof(ST), sizeof(MT), W != nullptr);
+  const int d_bytes = C * kSub * (int)sizeof(float);
+  int stages = (smem_per_block(kBlocksPerSM<CB>) - d_bytes) / ring.bytes;
+  stages = stages < 2 ? 2 : (stages > kMaxStages ? kMaxStages : stages);
+  const int smem = stages * ring.bytes + d_bytes;
+  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
+  if (smem > allowed_smem) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    allowed_smem = smem;
+  }
+  if (smem != cached_smem) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&cached_per_sm,
+                                                        kernel, kThreads, smem);
+    if (err != cudaSuccess) return (int)err;
+    if (cached_per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    cached_smem = smem;
+  }
+  const long long n_tiles = (N + tile_n - 1) / tile_n;
+  const long long resident = (long long)sms * cached_per_sm;
+  const unsigned grid = (unsigned)(n_tiles < resident ? n_tiles : resident);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const ST*>(S), static_cast<const MT*>(M),
+      static_cast<const MT*>(V), A, static_cast<const ST*>(Y),
+      static_cast<const ST*>(W), alpha, sc, prox_plus, C, K, N, tile_n, ring,
+      stages, static_cast<ST*>(S_new), static_cast<MT*>(M_new),
+      static_cast<MT*>(V_new), partials);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  adaprox_step_finalize<CB, KB><<<1, kThreads, 0, stream>>>(
-      partials, n_blocks, C, K, gA, rowsum, stats);
+  constexpr int kFinalBlocks = (Layout<CB, KB>::kP + kWarps - 1) / kWarps;
+  adaprox_step_finalize<CB, KB><<<kFinalBlocks, kThreads, 0, stream>>>(
+      partials, n_tiles, C, K, gA, rowsum, stats);
   return (int)cudaGetLastError();
 }
 
-template <int CB, int KB>
-int launch_moments(int moment_bf16, const float* A, const float* S,
-                   const void* M, const void* V, const float* Y,
-                   const float* W, const float* alpha, Scalars sc,
+template <int CB, int KB, typename ST>
+int launch_moments(int moment_bf16, const float* A, const void* S,
+                   const void* M, const void* V, const void* Y,
+                   const void* W, const float* alpha, Scalars sc,
                    int prox_plus, int C, int K, long long N, long long tile_n,
-                   float* S_new, void* M_new, void* V_new, float* gA,
+                   void* S_new, void* M_new, void* V_new, float* gA,
                    float* rowsum, float* stats, float* partials,
                    cudaStream_t stream) {
   if (moment_bf16)
-    return launch<CB, KB, __nv_bfloat16>(A, S, M, V, Y, W, alpha, sc,
-                                         prox_plus, C, K, N, tile_n, S_new,
-                                         M_new, V_new, gA, rowsum, stats,
-                                         partials, stream);
-  return launch<CB, KB, float>(A, S, M, V, Y, W, alpha, sc, prox_plus, C, K,
-                               N, tile_n, S_new, M_new, V_new, gA, rowsum,
-                               stats, partials, stream);
+    return launch<CB, KB, ST, __nv_bfloat16>(
+        A, S, M, V, Y, W, alpha, sc, prox_plus, C, K, N, tile_n, S_new, M_new,
+        V_new, gA, rowsum, stats, partials, stream);
+  return launch<CB, KB, ST, float>(A, S, M, V, Y, W, alpha, sc, prox_plus, C,
+                                   K, N, tile_n, S_new, M_new, V_new, gA,
+                                   rowsum, stats, partials, stream);
+}
+
+template <int CB, int KB>
+int launch_types(int store_bf16, int moment_bf16, const float* A,
+                 const void* S, const void* M, const void* V, const void* Y,
+                 const void* W, const float* alpha, Scalars sc, int prox_plus,
+                 int C, int K, long long N, long long tile_n, void* S_new,
+                 void* M_new, void* V_new, float* gA, float* rowsum,
+                 float* stats, float* partials, cudaStream_t stream) {
+  if (store_bf16)
+    return launch_moments<CB, KB, __nv_bfloat16>(
+        moment_bf16, A, S, M, V, Y, W, alpha, sc, prox_plus, C, K, N, tile_n,
+        S_new, M_new, V_new, gA, rowsum, stats, partials, stream);
+  return launch_moments<CB, KB, float>(
+      moment_bf16, A, S, M, V, Y, W, alpha, sc, prox_plus, C, K, N, tile_n,
+      S_new, M_new, V_new, gA, rowsum, stats, partials, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Width of one block's row of partial sums for a (C, K) problem, or -1
-// when no compiled bound covers it. The caller allocates the scratch
-// buffer as (ceil(N / tile_n), width) floats.
+// Width of one tile's row of partial sums for a (C, K) problem, or -1 when
+// no compiled bound covers it. The caller allocates the scratch buffer as
+// (ceil(N / tile_n), width) floats.
 int nmf_adaprox_step_partials_width(int C, int K) {
   if (C >= 1 && K >= 1 && C <= 8 && K <= 8) return Layout<8, 8>::kP;
   if (C >= 1 && K >= 1 && C <= 16 && K <= 8) return Layout<16, 8>::kP;
@@ -304,27 +607,23 @@ int nmf_adaprox_step_partials_width(int C, int K) {
 }
 
 // One fused step on `stream`. All pointers are device pointers to
-// contiguous row-major arrays: A (C, K), S and S_new (K, N), Y and W (C, N;
-// W may be null), alpha (K,), gA (C, K), rowsum (K,), stats (3,), partials
-// (ceil(N / tile_n), width), all float32; M, V, M_new, V_new (K, N) are
-// float32, or bfloat16 when moment_bf16 is 1. The scalars come by value.
-// Returns cudaGetLastError() after the launches (0 on success); does not
-// synchronize.
+// contiguous row-major arrays: A (C, K), alpha (K,), gA (C, K), rowsum
+// (K,), stats (3,), partials (ceil(N / tile_n), width) float32; S and S_new
+// (K, N), Y and W (C, N; W may be null) float32, or bfloat16 when
+// store_bf16 is 1; M, V, M_new, V_new (K, N) float32, or bfloat16 when
+// moment_bf16 is 1. The scalars come by value. Returns cudaGetLastError()
+// after the launches (0 on success); does not synchronize.
 int nmf_adaprox_step(const void* A, const void* S, const void* M,
                      const void* V, const void* Y, const void* W,
                      const void* alpha, float b1_t, float bc1, float bc2,
                      float one_minus_b2, float b2, float eps, int prox_plus,
-                     int moment_bf16, int C, int K, long long N,
-                     long long tile_n, void* S_new, void* M_new, void* V_new,
-                     void* gA, void* rowsum, void* stats, void* partials,
-                     void* stream) {
+                     int store_bf16, int moment_bf16, int C, int K,
+                     long long N, long long tile_n, void* S_new, void* M_new,
+                     void* V_new, void* gA, void* rowsum, void* stats,
+                     void* partials, void* stream) {
   if (N < 1 || tile_n < 1) return (int)cudaErrorInvalidValue;
   const float* a = static_cast<const float*>(A);
-  const float* s = static_cast<const float*>(S);
-  const float* y = static_cast<const float*>(Y);
-  const float* w = static_cast<const float*>(W);
   const float* al = static_cast<const float*>(alpha);
-  float* sn = static_cast<float*>(S_new);
   float* ga = static_cast<float*>(gA);
   float* rs = static_cast<float*>(rowsum);
   float* st = static_cast<float*>(stats);
@@ -332,13 +631,13 @@ int nmf_adaprox_step(const void* A, const void* S, const void* M,
   cudaStream_t strm = static_cast<cudaStream_t>(stream);
   const Scalars sc{b1_t, bc1, bc2, one_minus_b2, b2, eps};
   if (C >= 1 && K >= 1 && C <= 8 && K <= 8)
-    return launch_moments<8, 8>(moment_bf16, a, s, M, V, y, w, al, sc,
-                                prox_plus, C, K, N, tile_n, sn, M_new, V_new,
-                                ga, rs, st, pp, strm);
+    return launch_types<8, 8>(store_bf16, moment_bf16, a, S, M, V, Y, W, al,
+                              sc, prox_plus, C, K, N, tile_n, S_new, M_new,
+                              V_new, ga, rs, st, pp, strm);
   if (C >= 1 && K >= 1 && C <= 16 && K <= 8)
-    return launch_moments<16, 8>(moment_bf16, a, s, M, V, y, w, al, sc,
-                                 prox_plus, C, K, N, tile_n, sn, M_new, V_new,
-                                 ga, rs, st, pp, strm);
+    return launch_types<16, 8>(store_bf16, moment_bf16, a, S, M, V, Y, W, al,
+                               sc, prox_plus, C, K, N, tile_n, S_new, M_new,
+                               V_new, ga, rs, st, pp, strm);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -356,10 +655,7 @@ int nmf_packed_step(const void* A, const void* SMV, const void* MV,
                     void* partials, void* stream) {
   if (N < 1 || tile_n < 1) return (int)cudaErrorInvalidValue;
   const float* a = static_cast<const float*>(A);
-  const float* s = static_cast<const float*>(SMV);
-  const float* y = static_cast<const float*>(Y);
   const float* al = static_cast<const float*>(alpha);
-  float* sn = static_cast<float*>(SMV_new);
   float* ga = static_cast<float*>(gA);
   float* rs = static_cast<float*>(rowsum);
   float* st = static_cast<float*>(stats);
@@ -369,14 +665,12 @@ int nmf_packed_step(const void* A, const void* SMV, const void* MV,
   if (!(C >= 1 && K >= 1 && C <= 8 && K <= 8))
     return (int)cudaErrorInvalidValue;
   if (MV == nullptr)
-    return launch<8, 8, float, kPackSMV>(a, s, nullptr, nullptr, y, nullptr,
-                                         al, sc, 1, C, K, N, tile_n, sn,
-                                         nullptr, nullptr, ga, rs, st, pp,
-                                         strm);
-  return launch<8, 8, __nv_bfloat16, kPackMV>(a, s, MV, nullptr, y, nullptr,
-                                              al, sc, 1, C, K, N, tile_n, sn,
-                                              MV_new, nullptr, ga, rs, st, pp,
-                                              strm);
+    return launch<8, 8, float, float, kPackSMV>(
+        a, SMV, nullptr, nullptr, Y, nullptr, al, sc, 1, C, K, N, tile_n,
+        SMV_new, nullptr, nullptr, ga, rs, st, pp, strm);
+  return launch<8, 8, float, __nv_bfloat16, kPackMV>(
+      a, SMV, MV, nullptr, Y, nullptr, al, sc, 1, C, K, N, tile_n, SMV_new,
+      MV_new, nullptr, ga, rs, st, pp, strm);
 }
 
 }  // extern "C"

@@ -93,16 +93,14 @@ def _adaprox_state(state, device):
     }
     if "fused_config" in state:
         cfg = {k: _py(v) for k, v in dict(state["fused_config"]).items()}
-        if cfg.get("store_dtype") is not None:
-            raise NotImplementedError(
-                "a fused adaprox state with a reduced store_dtype has no "
-                "counterpart in the port yet (ROADMAP.md Queue 2)")
+        sdt = cfg.get("store_dtype")
         out.update(
             converged=np.asarray(state["converged"], bool),
             diverged=bool(_py(state["diverged"])),
             rowsum=_tensor(state["rowsum"], device, torch.float32),
             loss=float(_py(state["loss"])),
-            fused_config={"tile_n": int(cfg["tile_n"]), "store_dtype": None,
+            fused_config={"tile_n": int(cfg["tile_n"]),
+                          "store_dtype": None if sdt is None else str(sdt),
                           "moment_dtype": cfg.get("moment_dtype")})
     return out
 
@@ -119,7 +117,8 @@ def state_from_numpy(state, device=None):
     weighted, bfloat16 store; continued with ``engine="cuda"``); and both
     ``adaprox`` states, the driver's and the fused runner's (continued with
     ``nmf(algorithm="adaprox")`` on either engine, or
-    ``adaprox(state=...)``), bfloat16 moments included. Other states raise
+    ``adaprox(state=...)``), bfloat16 moments and the bfloat16 store
+    included. Other states raise
     ``NotImplementedError``.
     """
     device = default_device(device)

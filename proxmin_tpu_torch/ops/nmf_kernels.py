@@ -48,7 +48,9 @@ __all__ = [
     "DEFAULT_TILE_N",
 ]
 
-#: Pixel columns per CUDA block (256 threads, 16 columns each).
+#: Pixel columns per tile, each tile one row of partial sums: a CUDA block
+#: of 256 threads per tile in K1 and K3, a tile at a time per persistent
+#: block in K2.
 DEFAULT_TILE_N = 4096
 
 _F32_TINY = float(torch.finfo(torch.float32).tiny)
@@ -69,7 +71,8 @@ def _declare_adaprox_step(lib):
     lib.nmf_adaprox_step_partials_width.restype = _I
     lib.nmf_adaprox_step.argtypes = [_P, _P, _P, _P, _P, _P, _P,
                                      _F, _F, _F, _F, _F, _F, _I, _I, _I, _I,
-                                     _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _P]
+                                     _I, _LL, _LL, _P, _P, _P, _P, _P, _P, _P,
+                                     _P]
     lib.nmf_adaprox_step.restype = _I
 
 
@@ -240,14 +243,18 @@ def fused_nmf_adaprox_step_reference(A, S, M, V, Y, alpha_S, scalars,
                                      eps=1e-8):
     """Plain PyTorch version of :func:`fused_nmf_adaprox_step` (float32
     tensor ops, any device). ``prox_S`` may be any prox callable here; None
-    means non-negativity. M and V keep their dtype (float32 or
-    bfloat16)."""
+    means non-negativity. M and V keep their dtype (float32 or bfloat16).
+    A bfloat16 S is the bfloat16 store, rounded where the TPU kernel rounds
+    it: the residual takes A rounded to bfloat16, S' comes back rounded to
+    bfloat16, and the row sums and the statistics use the rounded S'."""
     f32 = torch.float32
+    bf16 = S.dtype == torch.bfloat16
     b1_t, bc1, bc2, omb1, omb2, b2_, eps_ = (
         float(v) for v in _adaprox_scalars(scalars, b2, eps))
     A, S, Y = A.to(f32), S.to(f32), Y.to(f32)
     alpha = alpha_S.to(f32).reshape(-1, 1)
-    R = A @ S - Y
+    A_r = A.to(torch.bfloat16).to(f32) if bf16 else A
+    R = A_r @ S - Y
     D = R if W is None else W.to(f32) * R
     gS = A.T @ D
     M1 = omb1 * gS + b1_t * M.to(f32)
@@ -260,8 +267,10 @@ def fused_nmf_adaprox_step_reference(A, S, M, V, Y, alpha_S, scalars,
         S1 = _nonneg(S1)
     else:
         S1 = prox_S(S1, alpha / Psi_safe)
+    S_out = S1.to(torch.bfloat16) if bf16 else S1
+    S1 = S_out.to(f32)
     dS = S1 - S
-    return (D @ S.T, S1, M1.to(M.dtype), V1.to(V.dtype),
+    return (D @ S.T, S_out, M1.to(M.dtype), V1.to(V.dtype),
             torch.sum(S1, dim=1, keepdim=True), torch.sum(D * R) / 2,
             torch.sum(dS * dS), torch.sum(S1 * S1))
 
@@ -272,9 +281,10 @@ def fused_nmf_adaprox_step(A, S, M, V, Y, alpha_S, scalars, W=None,
     """One fused proximal-Adam (``scheme='adam'``) NMF S-side step.
 
     Args:
-        A: (C, K) float32. S: (K, N) float32. M, V: (K, N) moments, both
-            float32 or both bfloat16. Y, W: (C, N) float32 (W optional).
-            All contiguous, on one device.
+        A: (C, K) float32. S: (K, N), Y and W: (C, N) (W optional), all
+            float32 or all bfloat16 (the store; compute stays float32).
+            M, V: (K, N) moments, both float32 or both bfloat16. All
+            contiguous, on one device.
         alpha_S: the per-row step, K float32 values ((K, 1) or (K,)), kept
             on the device.
         scalars: ``(b1_t, 1/(1 - b1_t^t), 1/(1 - b2^t))`` as host numbers
@@ -286,10 +296,12 @@ def fused_nmf_adaprox_step(A, S, M, V, Y, alpha_S, scalars, W=None,
 
     Returns:
         ``(gA, S_new, M_new, V_new, rowsum, loss, dS_sq, nS_sq)``:
-        ``gA = D S^T`` with the old S, the proxed ``S_new``, the moments in
-        their storage dtype, ``rowsum = S_new.sum(1)`` as (K, 1), the loss
-        at the old iterate and the fixed-point norms ``||S_new - S||^2``,
-        ``||S_new||^2`` (0-d tensors).
+        ``gA = D S^T`` with the old S, the proxed ``S_new`` in S's dtype,
+        the moments in their storage dtype, ``rowsum = S_new.sum(1)`` as
+        (K, 1), the loss at the old iterate and the fixed-point norms
+        ``||S_new - S||^2``, ``||S_new||^2`` (0-d tensors); with the
+        bfloat16 store the row sums and the norms are those of the rounded
+        ``S_new``.
 
     CPU tensors go to :func:`fused_nmf_adaprox_step_reference`. CUDA
     tensors launch the kernel (building it on first use) on the current
@@ -307,16 +319,18 @@ def fused_nmf_adaprox_step(A, S, M, V, Y, alpha_S, scalars, W=None,
     prox_plus = _prox_flag(prox_S, "fused_nmf_adaprox_step")
     C, K = A.shape
     N = S.shape[1]
-    mdt = M.dtype
+    sdt, mdt = S.dtype, M.dtype
+    if sdt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"S must be float32 or bfloat16, got {sdt}")
     if mdt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"moments must be float32 or bfloat16, got {mdt}")
     _check_operand("A", A, (C, K), device)
-    _check_operand("S", S, (K, N), device)
+    _check_operand("S", S, (K, N), device, sdt)
     _check_operand("M", M, (K, N), device, mdt)
     _check_operand("V", V, (K, N), device, mdt)
-    _check_operand("Y", Y, (C, N), device)
+    _check_operand("Y", Y, (C, N), device, sdt)
     if W is not None:
-        _check_operand("W", W, (C, N), device)
+        _check_operand("W", W, (C, N), device, sdt)
     alpha = alpha_S.reshape(-1)
     _check_operand("alpha_S", alpha, (K,), device)
     if N < 1 or int(tile_n) < 1:
@@ -346,7 +360,8 @@ def fused_nmf_adaprox_step(A, S, M, V, Y, alpha_S, scalars, W=None,
             Y.data_ptr(), None if W is None else W.data_ptr(),
             alpha.data_ptr(), float(b1_t), float(bc1), float(bc2),
             float(omb2), float(b2_), float(eps_), prox_plus,
-            int(mdt == torch.bfloat16), C, K, N, tile_n, S_new.data_ptr(), M_new.data_ptr(), V_new.data_ptr(),
+            int(sdt == torch.bfloat16), int(mdt == torch.bfloat16), C, K, N,
+            tile_n, S_new.data_ptr(), M_new.data_ptr(), V_new.data_ptr(),
             gA.data_ptr(), rowsum.data_ptr(), stats.data_ptr(),
             partials.data_ptr(), stream)
     if rc != 0:

@@ -19,11 +19,13 @@ cast back, as the TPU wrappers do. The input must be 2-D; the result is a
 new tensor.
 
 A threshold that lives on the card (the solvers' step is a 0-d tensor there)
-reaches the kernel as a device pointer: no call reads a value back to the
-host.
+reaches the kernel as a device pointer, and the kernel multiplies a relative
+threshold itself (:func:`threshold_args`): a call is one CUDA launch
+(unity along axis 1 a cooperative one) and reads nothing back to the host.
 """
 
 import ctypes
+import typing
 
 import numpy as np
 import torch
@@ -40,14 +42,20 @@ __all__ = [
     "prox_soft_reference",
     "prox_hard_reference",
     "prox_unity_reference",
+    "threshold_args",
+    "threshold_reference",
 ]
 
 _OP = {"plus": 0, "soft": 1, "hard": 2}
+#: The kernel's code for a threshold that comes by device pointer.
+_T_TYPE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2,
+           torch.float16: 3}
 
 
 def _declare(lib):
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.prox_elementwise.argtypes = [i, i, p, p, ll, p, p]
+    p, i, ll, d = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_double)
+    lib.prox_elementwise.argtypes = [i, i, p, p, ll, p, i, i, d, d, p]
     lib.prox_elementwise.restype = i
     lib.prox_unity_partials.argtypes = [i, ll, ll]
     lib.prox_unity_partials.restype = ll
@@ -64,7 +72,8 @@ def _compute_dtype(X):
 
 
 def _as_2d(X, name):
-    X = torch.as_tensor(X)
+    if not isinstance(X, torch.Tensor):
+        X = torch.as_tensor(X)
     if X.dim() != 2:
         raise ValueError(f"{name} takes a 2-D tensor, got shape "
                          f"{tuple(X.shape)}")
@@ -74,50 +83,144 @@ def _as_2d(X, name):
 def _on_card(X, name):
     """True for a CUDA tensor, False for a CPU one; raises for any other
     device."""
-    if X.device.type == "cpu":
+    if X.is_cuda:
+        return True
+    if X.is_cpu:
         return False
-    if X.device.type != "cuda":
-        raise ValueError(f"{name} runs on CPU or CUDA tensors, got "
-                         f"{X.device}")
-    return True
+    raise ValueError(f"{name} runs on CPU or CUDA tensors, got {X.device}")
 
 
-def _threshold(t, dtype, device):
-    """The threshold as a one-element tensor of ``dtype`` on ``device``. A
-    tensor already there is cast on the card (no host sync); a host value
-    fills a new one."""
+class ThresholdArgs(typing.NamedTuple):
+    """How the kernel forms the threshold ``t`` (see
+    :func:`threshold_args`): ``tensor`` is None and ``t = value``, or ``t``
+    is the one element of the device tensor ``tensor``, times ``scale`` when
+    ``scaled``."""
+    tensor: typing.Optional[torch.Tensor]
+    scaled: bool
+    value: float
+    scale: float
+
+
+_NO_THRESHOLD = ThresholdArgs(None, False, 0.0, 1.0)
+
+
+def _one_element(t):
+    if t.numel() != 1:
+        raise ValueError(f"the threshold must be a scalar, got shape "
+                         f"{tuple(t.shape)}")
+    return t
+
+
+def _host_number(v):
+    """A Python int or float (not bool): PyTorch multiplies a tensor by it
+    as a scalar of the tensor's arithmetic type."""
+    return isinstance(v, (int, float)) and not isinstance(v, bool)
+
+
+def threshold_args(step, thresh, type, device):
+    """The arguments from which the K4 kernel forms
+    ``operators.get_thresh(step, thresh, type)`` on ``device``, the way the
+    plain version then converts it to the compute dtype, without a host
+    sync and without a launch of its own:
+
+    * relative, one of ``step``/``thresh`` a one-element tensor on
+      ``device`` (float32, float64, bfloat16 or float16) and the other a
+      Python number: that tensor, scaled by the number (``step * thresh``
+      as PyTorch computes it, in the tensor's type);
+    * absolute with such a tensor: the tensor, unscaled;
+    * host numbers and CPU tensors: the threshold's value (a CPU tensor is
+      read on the host, which waits on nothing);
+    * anything else (a tensor of another dtype or device, two tensors):
+      ``get_thresh``'s own result on ``device``, which costs that
+      computation's launches."""
+    if type not in ("relative", "absolute"):
+        raise ValueError(f"type must be 'relative' or 'absolute', got "
+                         f"{type!r}")
+    if type == "relative":
+        for a, b in ((step, thresh), (thresh, step)):
+            if (isinstance(a, torch.Tensor) and a.device == device
+                    and a.dtype in _T_TYPE and _host_number(b)):
+                return ThresholdArgs(_one_element(a), True, 0.0, float(b))
+    elif (isinstance(thresh, torch.Tensor) and thresh.device == device
+            and thresh.dtype in _T_TYPE):
+        return ThresholdArgs(_one_element(thresh), False, 0.0, 1.0)
+    t = operators.get_thresh(step, thresh, type)
     if isinstance(t, torch.Tensor):
-        if t.numel() != 1:
-            raise ValueError(f"the threshold must be a scalar, got shape "
-                             f"{tuple(t.shape)}")
-        if t.device.type != "cpu":
-            return t.to(device=device, dtype=dtype).reshape(1)
-    elif np.size(t) != 1:
+        _one_element(t)
+        if t.device.type == "cpu":
+            return ThresholdArgs(None, False, float(t.reshape(())), 1.0)
+        if t.device != device or t.dtype not in _T_TYPE:
+            t = t.to(device=device, dtype=torch.float64)
+        return ThresholdArgs(t, False, 0.0, 1.0)
+    if np.size(t) != 1:
         raise ValueError(f"the threshold must be a scalar, got shape "
                          f"{np.shape(t)}")
-    return torch.full((1,), float(np.asarray(t).reshape(())), dtype=dtype,
-                      device=device)
+    return ThresholdArgs(None, False, float(np.asarray(t).reshape(())), 1.0)
 
 
-def _launch_elementwise(wrapper, op, X, thresh):
+def threshold_reference(args, dtype):
+    """The threshold that the kernel forms from :func:`threshold_args`'
+    ``args``, as a one-element tensor of the compute ``dtype`` on the
+    argument tensor's device: its arithmetic in PyTorch ops."""
+    if args.tensor is None:
+        return torch.tensor([args.value], dtype=torch.float64).to(dtype)
+    s = args.tensor.reshape(1)
+    if args.scaled:
+        # float and double multiply in their own type; bfloat16 and half in
+        # float, rounded back
+        op = s.dtype if s.dtype in (torch.float32, torch.float64) \
+            else torch.float32
+        s = (s.to(op) * torch.tensor(args.scale, dtype=op,
+                                     device=s.device)).to(s.dtype)
+    return s.to(dtype)
+
+
+_cuda = None
+
+
+def _call(fn, device, *args):
+    """``fn(*args, stream)`` on ``device``'s current stream (an integer
+    handle), with the device made current only when it is not. The two
+    lookups are PyTorch's own C functions, found once."""
+    global _cuda
+    if _cuda is None:
+        _cuda = (getattr(torch._C, "_cuda_getDevice", None)
+                 or torch.cuda.current_device,
+                 getattr(torch._C, "_cuda_getCurrentRawStream", None)
+                 or (lambda i: torch.cuda.current_stream(i).cuda_stream))
+    current, stream = _cuda
+    index = device.index
+    if index == current():
+        return fn(*args, stream(index))
+    with torch.cuda.device(device):
+        return fn(*args, stream(index))
+
+
+def _launch_elementwise(wrapper, op, X, step=None, thresh=0,
+                        type="relative"):
     """Launch the elementwise kernel ``op`` on the CUDA tensor ``X`` and
     count it on ``wrapper``; an empty ``X`` launches nothing."""
-    if X.numel() == 0:
-        return X.clone()
     cdt = _compute_dtype(X)
-    Xc = X.to(cdt).contiguous()
-    out = torch.empty(Xc.shape, dtype=cdt, device=Xc.device)
-    t = None if thresh is None else _threshold(thresh, cdt, Xc.device)
-    lib = _library("prox_elementwise")
-    with torch.cuda.device(Xc.device):
-        stream = torch.cuda.current_stream(Xc.device).cuda_stream
-        rc = lib.prox_elementwise(_OP[op], int(cdt == torch.float64),
-                                  Xc.data_ptr(), out.data_ptr(), Xc.numel(),
-                                  None if t is None else t.data_ptr(), stream)
+    Xc = X if X.dtype == cdt and X.is_contiguous() else \
+        X.to(cdt).contiguous()
+    device = Xc.device
+    targs = (_NO_THRESHOLD if op == "plus"
+             else threshold_args(step, thresh, type, device))
+    n = Xc.numel()
+    if n == 0:
+        return X.clone()
+    out = torch.empty_like(Xc)
+    t = targs.tensor
+    rc = _call(_library("prox_elementwise").prox_elementwise, device,
+               _OP[op], int(cdt == torch.float64), Xc.data_ptr(),
+               out.data_ptr(), n,
+               None if t is None else t.data_ptr(),
+               0 if t is None else _T_TYPE[t.dtype], int(targs.scaled),
+               targs.value, targs.scale)
     if rc != 0:
         raise RuntimeError(f"prox_{op}_pallas launch failed: CUDA error {rc}")
     wrapper.launches += 1
-    return out.to(X.dtype)
+    return out if out.dtype == X.dtype else out.to(X.dtype)
 
 
 def prox_plus_reference(X, step):
@@ -152,7 +255,7 @@ def prox_plus_pallas(X, step):
     X = _as_2d(X, "prox_plus_pallas")
     if not _on_card(X, "prox_plus_pallas"):
         return prox_plus_reference(X, step)
-    return _launch_elementwise(prox_plus_pallas, "plus", X, None)
+    return _launch_elementwise(prox_plus_pallas, "plus", X)
 
 
 def prox_soft_pallas(X, step, thresh=0, type="relative"):
@@ -160,10 +263,10 @@ def prox_soft_pallas(X, step, thresh=0, type="relative"):
     ``t = get_thresh(step, thresh, type)`` (== ``operators.prox_soft``), a
     CUDA kernel on CUDA tensors."""
     X = _as_2d(X, "prox_soft_pallas")
-    t = operators.get_thresh(step, thresh, type)
     if not _on_card(X, "prox_soft_pallas"):
         return prox_soft_reference(X, step, thresh=thresh, type=type)
-    return _launch_elementwise(prox_soft_pallas, "soft", X, t)
+    return _launch_elementwise(prox_soft_pallas, "soft", X, step, thresh,
+                               type)
 
 
 def prox_hard_pallas(X, step, thresh=0, type="relative"):
@@ -171,10 +274,10 @@ def prox_hard_pallas(X, step, thresh=0, type="relative"):
     ``t = get_thresh(step, thresh, type)`` (== ``operators.prox_hard``), a
     CUDA kernel on CUDA tensors."""
     X = _as_2d(X, "prox_hard_pallas")
-    t = operators.get_thresh(step, thresh, type)
     if not _on_card(X, "prox_hard_pallas"):
         return prox_hard_reference(X, step, thresh=thresh, type=type)
-    return _launch_elementwise(prox_hard_pallas, "hard", X, t)
+    return _launch_elementwise(prox_hard_pallas, "hard", X, step, thresh,
+                               type)
 
 
 def prox_unity_pallas(X, step, axis=0):
@@ -189,23 +292,22 @@ def prox_unity_pallas(X, step, axis=0):
     if X.numel() == 0:
         return X.clone()
     cdt = _compute_dtype(X)
-    Xc = X.to(cdt).contiguous()
+    Xc = X if X.dtype == cdt and X.is_contiguous() else \
+        X.to(cdt).contiguous()
     rows, cols = Xc.shape
-    out = torch.empty(Xc.shape, dtype=cdt, device=Xc.device)
+    out = torch.empty_like(Xc)
     lib = _library("prox_elementwise")
-    partials = torch.empty((lib.prox_unity_partials(axis, rows, cols),),
-                           dtype=cdt, device=Xc.device)
-    with torch.cuda.device(Xc.device):
-        stream = torch.cuda.current_stream(Xc.device).cuda_stream
-        rc = lib.prox_unity(axis, int(cdt == torch.float64), Xc.data_ptr(),
-                            out.data_ptr(), rows, cols,
-                            partials.data_ptr() if axis == 1 else None,
-                            stream)
+    partials = (torch.empty((lib.prox_unity_partials(axis, rows, cols),),
+                            dtype=cdt, device=Xc.device)
+                if axis == 1 else None)
+    rc = _call(lib.prox_unity, Xc.device, axis, int(cdt == torch.float64),
+               Xc.data_ptr(), out.data_ptr(), rows, cols,
+               None if partials is None else partials.data_ptr())
     if rc != 0:
         raise RuntimeError(f"prox_unity_pallas launch failed: CUDA error "
                            f"{rc}")
     prox_unity_pallas.launches += 1
-    return out.to(X.dtype)
+    return out if out.dtype == X.dtype else out.to(X.dtype)
 
 
 for _f in (prox_plus_pallas, prox_soft_pallas, prox_hard_pallas,

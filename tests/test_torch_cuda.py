@@ -20,9 +20,13 @@ K1's bfloat16 store: S' within one bfloat16 ulp (+ 1e-5) of the plain
 version's; gA and the loss as K1; the Gram and the norms against the stored
 S' (rtol 2e-4, |S' - S|^2 1e-3). K5 (packed_step): bit for bit equal to K2
 on the same inputs (the same body), and held to the plain version as K2 is.
+K2's bfloat16 store: as K1's (S' within one bfloat16 ulp, the row sums and
+the norms against the stored S'), the moments as above.
 """
 
 import functools
+import json
+import time
 
 import numpy as np
 import pytest
@@ -262,6 +266,95 @@ def test_adaprox_engines_on_the_card(dev, mdt):
         torch.testing.assert_close(a, b, **tol)
 
 
+@pytest.mark.parametrize("C,K,N", [(5, 7, 1000), (8, 4, 4133), (16, 8, 300),
+                                   (1, 1, 5), (5, 7, 100_000)])
+@pytest.mark.parametrize("mdt", ["f32", "bf16"])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("prox", ["plus", "id"])
+@pytest.mark.parametrize("tile_n", [128, k1.DEFAULT_TILE_N])
+def test_adaprox_bf16_store_kernel_matches_plain_version(dev, C, K, N, mdt,
+                                                         weighted, prox,
+                                                         tile_n):
+    """S, Y and W in bfloat16: rows 16-byte aligned (bulk copies into the
+    ring) and not (N = 4133, 300: every thread copies its column)."""
+    mdt = torch.bfloat16 if mdt == "bf16" else torch.float32
+    A, S, M, V, Y, alpha, sc, W = _adaprox_operands(dev, C, K, N, weighted,
+                                                    mdt)
+    bf = torch.bfloat16
+    S, Y = S.to(bf), Y.to(bf)
+    W = None if W is None else W.to(bf)
+    prox_S = None if prox == "plus" else top.prox_id
+    got = k1.fused_nmf_adaprox_step(A, S, M, V, Y, alpha, sc, W=W,
+                                    prox_S=prox_S, tile_n=tile_n)
+    again = k1.fused_nmf_adaprox_step(A, S, M, V, Y, alpha, sc, W=W,
+                                      prox_S=prox_S, tile_n=tile_n)
+    ref = k1.fused_nmf_adaprox_step_reference(A, S, M, V, Y, alpha, sc, W=W,
+                                              prox_S=prox_S)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    _within_one_bf16_ulp(got[1], ref[1])
+    for i in (2, 3):
+        if mdt == torch.bfloat16:
+            _within_one_bf16_ulp(got[i], ref[i])
+        else:
+            torch.testing.assert_close(got[i], ref[i], rtol=2e-4, atol=1e-5)
+    for i in (0, 5):
+        torch.testing.assert_close(got[i], ref[i], rtol=2e-4, atol=1e-5)
+    Sn = got[1].float()
+    dS = Sn - S.float()
+    torch.testing.assert_close(got[4], Sn.sum(1, keepdim=True), rtol=2e-4,
+                               atol=1e-5)
+    torch.testing.assert_close(got[6], torch.sum(dS * dS), rtol=1e-3,
+                               atol=1e-5)
+    torch.testing.assert_close(got[7], torch.sum(Sn * Sn), rtol=2e-4,
+                               atol=1e-5)
+
+
+def test_adaprox_kernel_persistent_grid(dev):
+    """Many more tiles than resident blocks, and tile_n values that are and
+    are not multiples of the ring's sub-tile: two launches agree bit for bit
+    and match the plain version."""
+    args = _adaprox_operands(dev, 5, 7, 300_001, mdt=torch.bfloat16)
+    for tile_n in (128, 1000, k1.DEFAULT_TILE_N):
+        one = k1.fused_nmf_adaprox_step(*args[:7], tile_n=tile_n)
+        two = k1.fused_nmf_adaprox_step(*args[:7], tile_n=tile_n)
+        ref = k1.fused_nmf_adaprox_step_reference(*args[:7])
+        torch.cuda.synchronize()
+        for a, b in zip(one, two):
+            assert torch.equal(a, b)
+        for i in (0, 4, 5, 7):
+            torch.testing.assert_close(one[i], ref[i], rtol=2e-4, atol=1e-5)
+
+
+def test_adaprox_bf16_store_engine_on_the_card(dev):
+    """nmf(algorithm='adaprox', engine='cuda', store_dtype=bfloat16) with W
+    and bfloat16 moments: one K2 launch per iteration, the loss within the
+    JAX suite's rule of the float32 store's, and a 15 + 15 resume equal to
+    30 straight."""
+    A0, S0, _, W = _problem(dev, 5, 3, 20_000, weighted=True)
+    Y = A0 @ torch.rand((3, 20_000), generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    kw = dict(algorithm="adaprox", engine="cuda", e_rel=0, W=W,
+              moment_dtype=torch.bfloat16)
+    r32 = tnmf.nmf(Y, A0, S0, max_iter=30, **kw)
+    before = k1.fused_nmf_adaprox_step.launches
+    r16 = tnmf.nmf(Y, A0, S0, max_iter=30, store_dtype=torch.bfloat16, **kw)
+    assert k1.fused_nmf_adaprox_step.launches - before == 30
+
+    def wloss(r):
+        R = r.x[0] @ r.x[1] - Y
+        return float(0.5 * torch.sum(W * R * R))
+
+    assert r16.x[1].dtype == torch.float32
+    assert wloss(r16) < max(3 * wloss(r32), wloss(r32) + 1.0)
+    half = tnmf.nmf(Y, A0, S0, max_iter=15, store_dtype=torch.bfloat16, **kw)
+    rest = tnmf.nmf(Y, *half.x, max_iter=15, store_dtype=torch.bfloat16,
+                    state=half.state, **kw)
+    for a, b in zip(rest.x, r16.x):
+        assert torch.equal(a, b)
+
+
 # K3: fused_nmf_grad
 
 @pytest.mark.parametrize("C,K,N", [(5, 7, 1000), (8, 4, 4133), (16, 8, 300),
@@ -461,6 +554,68 @@ def test_prox_kernels_are_deterministic_and_counted(dev):
     empty = torch.empty((0, 5), device=dev)
     assert tops.prox_plus_pallas(empty, 1.0).shape == (0, 5)
     assert tops.prox_plus_pallas.launches == counts["plus"] + 2
+
+
+def _kernels_in(fn, path, attempts=3):
+    """CUDA kernels that one call of fn runs, from a torch.profiler trace
+    (kernel events only: no memcpy or memset): those between two marker
+    kernels (torch.cuda._sleep's spin_kernel) launched around the call. The
+    profiler drops device events that its clock conversion places outside
+    the capture window, so the markers keep a margin from the trace's start
+    and stop. A trace without exactly two markers is taken again."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05)
+            torch.cuda._sleep(1000)
+            fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+        prof.export_chrome_trace(str(path))
+        events = sorted((e for e in json.loads(path.read_text())[
+            "traceEvents"] if e.get("cat") == "kernel"),
+            key=lambda e: e["ts"])
+        names = [e["name"] for e in events]
+        marks = [i for i, n in enumerate(names) if "spin_kernel" in n]
+        if len(marks) == 2:
+            return names[marks[0] + 1:marks[1]]
+    raise AssertionError(f"no trace held exactly two markers: {names}")
+
+
+@pytest.mark.parametrize("op,kw", _ELEMENTWISE + [("unity", {"axis": 0}),
+                                                  ("unity", {"axis": 1})])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_prox_kernel_is_one_launch(dev, tmp_path, op, kw, dtype):
+    """One CUDA kernel per call with the step on the card (for unity along
+    axis 1 too: the chunk sums and the divide in one cooperative launch),
+    bitwise equal to the plain version for plus, soft and hard."""
+    kernel, plain = _prox(op)
+    X = _x(dev, (7, 100_000), dtype, positive=op == "unity")
+    step = torch.tensor(0.37, device=dev)
+    kernel(X, step, **kw)
+    names = _kernels_in(lambda: kernel(X, step, **kw), tmp_path / "t.json")
+    assert len(names) == 1, names
+    if op != "unity":
+        assert torch.equal(kernel(X, step, **kw), plain(X, step, **kw))
+
+
+@pytest.mark.parametrize("op", ["soft", "hard"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("sdt", [torch.float32, torch.float64, torch.bfloat16,
+                                 torch.float16])
+def test_prox_kernel_forms_the_threshold(dev, op, dtype, sdt):
+    """A relative threshold from a step on the card of each dtype, and an
+    absolute one from a tensor on the card, bitwise as the plain version."""
+    kernel, plain = _prox(op)
+    X = _x(dev, (5, 1001), dtype)
+    step = torch.tensor(0.37, device=dev, dtype=sdt)
+    for args, kw in (((X, step), {"thresh": 0.3}),
+                     ((X, 1.0), {"thresh": step, "type": "absolute"}),
+                     ((X, 0.37), {"thresh": 0.3})):
+        assert torch.equal(kernel(*args, **kw), plain(*args, **kw))
 
 
 def test_ops_paths_on_the_card(dev):

@@ -15,6 +15,18 @@ Tolerances and their reasons:
   bfloat16 rounding, which then compounds, so 2 iterations are held to atol
   2e-5 and 20 to atol 5e-3.
 - resume within the port: bitwise.
+- K2's plain version with the bfloat16 store (S, Y and W in bfloat16) vs
+  the JAX kernel (problem padded to (16, 16, tile), as JAX requires for
+  bfloat16): S' within one bfloat16 ulp (a one-ulp float32 difference may
+  flip one rounding), everything else at the tolerances above.
+- nmf_adaprox_fused with the bfloat16 store: the JAX suite's loss rule
+  l16 < max(3 l32, l32 + 1) against the float32 store, float32 outputs, and
+  the JAX engine's iterates within atol 1e-2 after 2 iterations and 0.15
+  after 10 (test_pallas_ops.py's bound between the stores: a flipped
+  bfloat16 rounding of S moves an element by an ulp, which Adam's Phi/Psi
+  ratio amplifies). After 200 iterations on bench.py's noisy data the
+  losses: float32 store rtol 1e-4, bfloat16 store rtol 0.05 (the flipped
+  roundings compound).
 """
 
 import functools
@@ -143,6 +155,56 @@ def test_plain_version_matches_jax_kernel(mdt, weighted, prox):
                                    rtol=1e-3 if i == 1 else 2e-4)
 
 
+@pytest.mark.parametrize("mdt", ["f32", "bf16"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_plain_version_bf16_store_matches_jax_kernel(mdt, weighted):
+    """S, Y (and W) stored in bfloat16, with f32 and bf16 moments."""
+    rng = np.random.default_rng(11)
+    C, K, N, tile = 5, 4, 300, 128
+    bf = jnp.bfloat16
+    A = rng.random((C, K)).astype(np.float32)
+    # data that bfloat16 holds exactly, as float32 arrays
+    S, Y = (np.array(jnp.asarray(rng.random(sh), bf).astype(jnp.float32))
+            for sh in ((K, N), (C, N)))
+    W = (np.array(jnp.asarray(0.5 + rng.random((C, N)), bf)
+                  .astype(jnp.float32)) if weighted else None)
+    jmd = bf if mdt == "bf16" else jnp.float32
+    M = np.array(jnp.asarray(0.1 * rng.standard_normal((K, N)), jmd)
+                 .astype(jnp.float32))
+    V = np.array(jnp.asarray(0.01 * rng.random((K, N)), jmd)
+                 .astype(jnp.float32))
+    alpha = (S.sum(1, keepdims=True) / N / 10).astype(np.float32)
+    one, t = np.float32(1), np.float32(4)
+    sc = (np.float32(0.9), one / (one - np.float32(0.9) ** t),
+          one / (one - np.float32(0.999) ** t))
+    Np = -(-N // tile) * tile
+    want = jax_step(
+        jnp.asarray(_pad(A, 16, 16)), jnp.asarray(_pad(S, 16, Np), bf),
+        jnp.asarray(_pad(M, 16, Np), jmd), jnp.asarray(_pad(V, 16, Np), jmd),
+        jnp.asarray(_pad(Y, 16, Np), bf), jnp.asarray(_pad(alpha, 16, 1)),
+        jnp.asarray(sc),
+        W=None if W is None else jnp.asarray(_pad(W, 16, Np), bf),
+        tile_n=tile, dims=(C, K, N))
+    tmd = torch.bfloat16 if mdt == "bf16" else torch.float32
+    tb = torch.bfloat16
+    got = kk.fused_nmf_adaprox_step(
+        torch.from_numpy(A), torch.from_numpy(S).to(tb),
+        torch.from_numpy(M).to(tmd), torch.from_numpy(V).to(tmd),
+        torch.from_numpy(Y).to(tb), torch.from_numpy(alpha), sc,
+        W=None if W is None else torch.from_numpy(W).to(tb))
+    assert got[1].dtype == tb
+    crops = [(C, K), (K, N), (K, N), (K, N), (K, 1)]
+    for i, (g, w) in enumerate(zip(got[:5], want[:5])):
+        w = _np(w)[:crops[i][0], :crops[i][1]]
+        if i == 1 or (mdt == "bf16" and i in (2, 3)):
+            _bf16_ulp_close(_np(g), w)
+        else:
+            np.testing.assert_allclose(_np(g), w, rtol=2e-4, atol=1e-5)
+    for i, (g, w) in enumerate(zip(got[5:], want[5:])):
+        np.testing.assert_allclose(float(g), float(w),
+                                   rtol=1e-3 if i == 1 else 2e-4)
+
+
 def test_cpu_tensors_take_the_plain_version():
     """On CPU tensors the wrapper is the plain version, bit for bit, and
     counts no kernel launch."""
@@ -230,6 +292,88 @@ def test_cuda_engine_bfloat16_moments():
         assert rt.M[1].dtype == torch.bfloat16
         assert rt.M[0].dtype == rt.x[1].dtype == torch.float32
         _close(rt.x, rj.x, tol)
+
+
+def test_cuda_engine_bfloat16_store():
+    """store_dtype=bfloat16 (with bfloat16 moments for the loss rule) on
+    CPU tensors against the JAX fused engine, as test_pallas_ops.py holds
+    JAX's store against its float32 one."""
+    rng = np.random.default_rng(5)
+    C, K, N = 16, 8, 512
+    Y = (rng.random((C, K)) @ rng.random((K, N))).astype(np.float32)
+    A0 = rng.random((C, K)).astype(np.float32)
+    S0 = rng.random((K, N)).astype(np.float32)
+    both = dict(store_dtype="bfloat16", moment_dtype="bfloat16")
+    r32 = _adaprox_fused(Y, A0.copy(), S0.copy(), e_rel=0, max_iter=40,
+                         tile_n=128)
+    r16 = _adaprox_fused(Y, A0.copy(), S0.copy(), e_rel=0, max_iter=40,
+                         tile_n=128, **both)
+    assert r16.x[1].dtype == r16.x[0].dtype == torch.float32
+    assert r16.loss < max(r32.loss * 3, r32.loss + 1.0)
+    assert r16.state["fused_config"]["store_dtype"] == "bfloat16"
+    j16 = pt.nmf.nmf_adaprox_fused(Y, A0.copy(), S0.copy(), e_rel=0,
+                                   max_iter=40, tile_n=128,
+                                   store_dtype=jnp.bfloat16,
+                                   moment_dtype=jnp.bfloat16)
+    assert r16.loss < max(j16.loss * 3, j16.loss + 1.0)
+    for iters, atol in ((2, 1e-2), (10, 0.15)):
+        rj = pt.nmf.nmf_adaprox_fused(Y, A0.copy(), S0.copy(), e_rel=0,
+                                      max_iter=iters, tile_n=128,
+                                      store_dtype=jnp.bfloat16)
+        rt = _nmf(Y, A0.copy(), S0.copy(), algorithm="adaprox",
+                  engine="cuda", e_rel=0, max_iter=iters, tile_n=128,
+                  store_dtype=torch.bfloat16)
+        assert rt.state["fused_config"]["store_dtype"] == "bfloat16"
+        _close(rt.x, rj.x, dict(rtol=0, atol=atol))
+
+
+def test_cuda_engine_bfloat16_store_resume_is_bit_exact():
+    """With the bfloat16 store and W, 2 x 10 iterations through state=
+    equal 20 straight, bit for bit; a float32-store resume of that state
+    raises."""
+    Y, A0, S0, W = _problem(dtype=np.float32)
+    kw = dict(algorithm="adaprox", engine="cuda", e_rel=0, W=W,
+              store_dtype=torch.bfloat16)
+    full = _nmf(Y, A0.copy(), S0.copy(), max_iter=20, **kw)
+    half = _nmf(Y, A0.copy(), S0.copy(), max_iter=10, **kw)
+    rest = _nmf(Y, *half.x, max_iter=10, state=half.state, **kw)
+    for a, b in zip(rest.x + rest.M + rest.V, full.x + full.M + full.V):
+        assert torch.equal(a, b)
+    assert rest.loss == full.loss
+    with pytest.raises(ValueError, match="store_dtype"):
+        _nmf(Y, *half.x, algorithm="adaprox", engine="cuda", e_rel=0, W=W,
+             max_iter=2, state=half.state)
+
+
+def test_cuda_engine_bfloat16_store_levels_off_as_jax():
+    """bench.py's flagship data (C=5, K=7, noise 0.02) at N=2e4 for 200
+    iterations: the float32 store fits into the noise (K > C) and the
+    bfloat16 store levels off near the noise's own loss (its Adam steps
+    round away), in the port as in the JAX engine."""
+    C, K, N = 5, 7, 20_000
+    rng = np.random.default_rng(101)
+    Y = (rng.random((C, K)).astype(np.float32)
+         @ rng.random((K, N)).astype(np.float32)
+         + 0.02 * rng.standard_normal((C, N))).astype(np.float32)
+    A0 = rng.random((C, K)).astype(np.float32)
+    S0 = rng.random((K, N)).astype(np.float32)
+    noise = 0.5 * C * N * 0.02 ** 2
+
+    def loss(r):
+        R = _np(r.x[0]) @ _np(r.x[1]) - Y
+        return 0.5 * float(np.sum(R * R))
+
+    got, want = {}, {}
+    for sdt in (None, "bfloat16"):
+        got[sdt] = loss(_adaprox_fused(Y, A0.copy(), S0.copy(), e_rel=0,
+                                       max_iter=200, store_dtype=sdt))
+        want[sdt] = loss(pt.nmf.nmf_adaprox_fused(
+            Y, A0.copy(), S0.copy(), e_rel=0, max_iter=200,
+            store_dtype=sdt and jnp.bfloat16))
+    np.testing.assert_allclose(got[None], want[None], rtol=1e-4)
+    # a flipped bfloat16 rounding compounds (see the module docstring)
+    np.testing.assert_allclose(got["bfloat16"], want["bfloat16"], rtol=0.05)
+    assert got[None] < 0.5 * noise < got["bfloat16"] < 1.5 * noise
 
 
 def test_cuda_engine_warm_start_matches_fused_engine():
@@ -323,6 +467,28 @@ def test_continue_a_jax_adaprox_solve_in_the_port(jax_engine, port_engine,
     _close(rest.x, full.x, tol)
 
 
+@pytest.mark.parametrize("mdt", [None, "bfloat16"])
+def test_continue_a_jax_bf16_store_adaprox_solve_in_the_port(mdt):
+    """A JAX fused solve with the bfloat16 store: 10 JAX iterations, then 10
+    in the port from state_from_numpy, against 20 JAX iterations."""
+    Y, A0, S0, W = _problem(dtype=np.float32)
+    kw = dict(algorithm="adaprox", e_rel=0, engine="pallas", tile_n=128,
+              store_dtype=jnp.bfloat16, W=W)
+    if mdt:
+        kw["moment_dtype"] = jnp.bfloat16
+    full = pt.nmf.nmf(Y, A0.copy(), S0.copy(), max_iter=20, **kw)
+    half = pt.nmf.nmf(Y, A0.copy(), S0.copy(), max_iter=10, **kw)
+    state = state_from_numpy(_numpy_state(half.state), device="cpu")
+    assert state["fused_config"]["store_dtype"] == "bfloat16"
+    rest = _nmf(Y, np.asarray(half.x[0]), np.asarray(half.x[1]),
+                max_iter=10, state=state, algorithm="adaprox", e_rel=0,
+                engine="cuda", tile_n=128, store_dtype="bfloat16",
+                moment_dtype=mdt, W=W)
+    assert rest.iterations == 10 and int(rest.state["it"]) == 20
+    # a flipped bfloat16 rounding compounds (see the module docstring)
+    _close(rest.x, full.x, dict(rtol=0, atol=1e-2))
+
+
 def test_cuda_state_resumes_on_the_torch_engine():
     """The fused state is interchangeable with the driver's: 15 cuda
     iterations continued by 15 on the torch engine match 30 cuda ones, and
@@ -354,10 +520,18 @@ def test_cuda_state_resumes_on_the_torch_engine():
     ({"step_stride": 5}, ValueError, "step_stride"),
     ({"step": ptt.nmf.step_adaprox}, ValueError, "default steps"),
     ({"accelerated": True}, ValueError, "unsupported"),
-    ({"store_dtype": torch.bfloat16}, NotImplementedError, "store_dtype"),
+    # the id names what this case raised before the engine took the
+    # bfloat16 store; it now runs (err None)
+    pytest.param({"store_dtype": torch.bfloat16}, None, "store_dtype",
+                 id="kw7-NotImplementedError-store_dtype"),
 ])
 def test_cuda_engine_gates(kw, err, match):
     Y, A0, S0, _ = _problem(C=4, K=3, N=128, dtype=np.float32)
+    if err is None:
+        r = _nmf(Y, A0, S0, algorithm="adaprox", engine="cuda", max_iter=3,
+                 **kw)
+        assert r.iterations == 3 and r.state["fused_config"][match]
+        return
     with pytest.raises(err, match=match):
         _nmf(Y, A0, S0, algorithm="adaprox", engine="cuda",
                     max_iter=3, **kw)

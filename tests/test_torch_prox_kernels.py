@@ -186,17 +186,54 @@ def test_wrappers_refuse_other_devices():
             _port(op)(X, 0.5)
 
 
+def _kernel_threshold(step, thresh, type, dtype):
+    args = pk.threshold_args(step, thresh, type, torch.device("cpu"))
+    return pk.threshold_reference(args, dtype)
+
+
 def test_threshold_reaches_the_kernel_as_one_element():
     f32 = torch.float32
-    cpu = torch.device("cpu")
     for t in (0.25, np.float64(0.25), torch.tensor(0.25, dtype=torch.float64),
               torch.tensor([0.25])):
-        got = pk._threshold(t, f32, cpu)
+        got = _kernel_threshold(1.0, t, "absolute", f32)
         assert got.shape == (1,) and got.dtype == f32 and float(got) == 0.25
     with pytest.raises(ValueError, match="scalar"):
-        pk._threshold(torch.ones(2), f32, cpu)
+        _kernel_threshold(1.0, torch.ones(2), "absolute", f32)
     with pytest.raises(ValueError, match="scalar"):
-        pk._threshold(np.ones(3), f32, cpu)
+        _kernel_threshold(1.0, np.ones(3), "absolute", f32)
     with pytest.raises(ValueError, match="relative"):
         tops.prox_soft_pallas(torch.ones((2, 2)), 0.5, thresh=0.1,
                               type="Relative")
+
+
+_STEPS = {
+    "float": 0.37, "np.float64": np.float64(0.37), "int": 3,
+    "f32 tensor": torch.tensor(0.37), "f32 (1,) tensor": torch.tensor([0.37]),
+    "f64 tensor": torch.tensor(0.37, dtype=torch.float64),
+    "bf16 tensor": torch.tensor(0.37, dtype=torch.bfloat16),
+    "f16 tensor": torch.tensor(0.37, dtype=torch.float16),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("step", list(_STEPS), ids=list(_STEPS))
+@pytest.mark.parametrize("thresh", [0.3, 7, 1e-3])
+def test_threshold_helper_matches_get_thresh(dtype, step, thresh):
+    """The threshold the kernel forms from threshold_args, bit for bit the
+    plain version's get_thresh converted to the compute dtype: a relative
+    threshold from a host or tensor step, and an absolute one from a host
+    number or a tensor."""
+    s = _STEPS[step]
+    X = torch.zeros((2, 3), dtype=dtype)
+    cases = [(s, thresh, "relative"), (1.0, thresh, "absolute")]
+    if isinstance(s, torch.Tensor):
+        cases.append((1.0, s, "absolute"))
+    for st, th, ty in cases:
+        want = top._like(X, top.get_thresh(st, th, ty))
+        got = _kernel_threshold(st, th, ty, dtype)
+        assert got.dtype == dtype and got.shape == (1,)
+        assert torch.equal(got.reshape(()), want.reshape(())), (st, th, ty)
+    args = pk.threshold_args(s, thresh, "relative", torch.device("cpu"))
+    # a tensor step is the kernel's to scale: no tensor op forms it first
+    assert (args.tensor is not None) == isinstance(s, torch.Tensor)
+    assert args.scaled == isinstance(s, torch.Tensor)
