@@ -17,11 +17,12 @@ non-zero when any phase fails. Phases:
 
 1. probe: CUDA/driver/compiler versions, the card and its power limit;
 2. build K1, K2 (with K5), K3 and K4 from proxmin_tpu_torch/csrc/ with
-   nvcc, all at once, and print ptxas's registers and spills for every
-   kernel instance;
-3. K1 against its plain PyTorch version at the flagship shape, with W, and
-   at a ragged shape, in float32 and with the bfloat16 store, plus its
-   times beside the plain version's;
+   nvcc, all at once, print ptxas's registers and spills for every kernel
+   instance, and fail if an instance of the ring kernels (K1, K2, K3)
+   spills;
+3. K1 against its plain PyTorch version at the flagship shape, with W, at
+   a ragged shape and in the C <= 16 instance, in float32 and with the
+   bfloat16 store, plus its times beside the plain version's;
 4. K2 against its plain version at the flagship with float32 and with
    bfloat16 moments, with W, at a ragged shape and with the identity prox,
    plus its times beside the plain version's; K2 with the bfloat16 store
@@ -31,7 +32,8 @@ non-zero when any phase fails. Phases:
    beside K2's, and the stream-merge loops (K2 and K5, 200 iterations
    each, launch-counted, packed equal to base bit for bit);
 5. K3 (fused_nmf_grad) against its plain version at the flagship, with W,
-   and at a ragged shape, plus its times beside the plain version's;
+   at a ragged shape and in the C <= 16 instance, plus its times beside the
+   plain version's;
 6. K4 (prox_plus/soft/hard/unity_pallas) against their plain versions on
    an S-shaped (7, 1e6) tensor in float32 and float64 and at odd shapes,
    with relative and absolute thresholds from a step on the card (no host
@@ -70,7 +72,8 @@ device it fails at once.
 
 ``python3 chip_smoke.py --profile`` instead traces 50 iterations of each
 PGM path and each AdaProx cuda path with ``torch.profiler`` and prints the
-device's busy time, busy share and kernel launches per iteration (traces
+device's busy time, busy share and kernel launches per iteration, and on
+the PGM cuda paths K1's kernel and finalize time per iteration (traces
 under ``build/profile/``).
 """
 
@@ -155,6 +158,12 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # bench.py's weighted flagship refreshes its steps every 10 iterations.
 STRIDE = 10
+# The C <= 16 instances of K1 and K3 (two blocks per SM) are checked at
+# C=16, K=8 on this many pixels.
+N_WIDE = 200_000
+# The kernels that stream through the shared-memory ring: ptxas must report
+# no spill stores for any of their instances.
+RING_KERNELS = ("pgm_step_kernel", "adaprox_step_kernel", "nmf_grad_kernel")
 
 
 def log(*args):
@@ -295,6 +304,13 @@ def kernel_name(mangled):
 def ptxas_summary(log_text):
     """One line per compiled kernel instance: its name with the template
     arguments, registers and spill stores, from ``nvcc -Xptxas -v``."""
+    return [f"{name}: {regs} registers, {spill} bytes spill stores"
+            for name, regs, spill in ptxas_instances(log_text)]
+
+
+def ptxas_instances(log_text):
+    """``(name, registers, spill store bytes)`` per compiled kernel
+    instance, from ``nvcc -Xptxas -v``."""
     out, name = [], None
     for ln in log_text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
@@ -307,8 +323,7 @@ def ptxas_summary(log_text):
             spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers", ln)
         if m and name:
-            out.append(f"{name}: {m.group(1)} registers, {spill} bytes "
-                       "spill stores")
+            out.append((name, int(m.group(1)), spill))
             name = None
     return out
 
@@ -793,6 +808,9 @@ def profile_paths(tnmf, card):
         for e in device:
             by_name[e["name"]] = by_name.get(e["name"], 0) + e["dur"]
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        k1_us = {part: sum(d for n, d in by_name.items() if part in n)
+                 / PROFILE_ITERS
+                 for part in ("pgm_step_kernel", "pgm_step_finalize")}
         kernels = sum(e["cat"] == "kernel" for e in device) / PROFILE_ITERS
         copies = (len(device) / PROFILE_ITERS) - kernels
         log(f"profile [{label}]: device busy {busy:.1f} us/iter, busy share "
@@ -801,6 +819,10 @@ def profile_paths(tnmf, card):
             "top: " + "; ".join(f"{n[:60]} {d / PROFILE_ITERS:.1f} us/iter"
                                 for n, d in top)
             + f"; on {card}")
+        if k1_us["pgm_step_kernel"]:
+            log(f"profile [{label}]: K1 pgm_step_kernel "
+                f"{k1_us['pgm_step_kernel']:.1f} us/iter, pgm_step_finalize "
+                f"{k1_us['pgm_step_finalize']:.1f} us/iter; on {card}")
 
 
 def main():
@@ -851,6 +873,9 @@ def main():
                "already built"))
         for ln in ptxas_summary(build_log):
             log(f"build: ptxas {ln}")
+        spilled = [n for n, _, spill in ptxas_instances(build_log)
+                   if n.startswith(RING_KERNELS) and spill]
+        check(not spilled, f"ptxas: spill stores in {spilled}")
     log(f"build: all {len(built)} kernel sources ready in "
         f"{time.perf_counter() - t0:.1f} s")
     if sys.argv[1:] == ["--profile"]:
@@ -865,6 +890,7 @@ def main():
     (Y, A0, S0, sS), k1_abs = compare_step(kk, "flagship", C, K, N, False)
     compare_step(kk, "flagship+W", C, K, N, True)
     compare_step(kk, "ragged", 8, 4, N + 37, False)
+    compare_step(kk, "C <= 16 instance, W", 16, 8, N_WIDE, True)
     k1_ms = min(cuda_ms(lambda: kk.fused_nmf_pgm_step(A0, S0, Y, sS))
                 for _ in range(2))
     k1_plain = min(cuda_ms(lambda: kk.fused_nmf_pgm_step_reference(
@@ -881,6 +907,7 @@ def main():
     k1bw_args, k1bw_abs = compare_step_bf16(kk, "flagship+W", C, K, N,
                                             True)
     compare_step_bf16(kk, "ragged", 8, 4, N + 37, False)
+    compare_step_bf16(kk, "C <= 16 instance, W", 16, 8, N_WIDE, True)
     k1_times = {}
     for label, (A_, S_, Y_, s_, W_) in (
             ("f32 store, W", (A0, S0, Y, sS, make_problem(C, K, N, True)[3])),
@@ -1021,6 +1048,7 @@ def main():
     k3_args, k3_abs = compare_grad(tops, "flagship", C, K, N, False)
     k3w_args, _ = compare_grad(tops, "flagship+W", C, K, N, True)
     compare_grad(tops, "ragged", 8, 4, N + 37, False)
+    compare_grad(tops, "C <= 16 instance, W", 16, 8, N_WIDE, True)
     k3_times = {}
     for label, (A_, S_, Y_, W_), nbytes in (
             ("unweighted", k3_args, naive),

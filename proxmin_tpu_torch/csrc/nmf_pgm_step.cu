@@ -28,207 +28,35 @@
 // The arithmetic, about 2N(3CK + K(K+1)/2) flops, is 0.26 GFLOP at the
 // flagship, far below what the card's f32 units do in that time.
 //
-// What the design does about it:
-// - Each thread takes one column at a time; a block of 256 threads walks a
-//   tile of tile_n consecutive columns, neighbouring threads on
-//   neighbouring columns, so every row load and store of a warp is one
-//   coalesced 128-byte transaction and every byte moves once. The ragged
-//   edge of N is skipped, never masked by multiplying.
-// - C and K have compile-time bounds (CB, KB) so the per-column vectors and
-//   the per-thread partial sums stay in registers. Rows and columns beyond
-//   the runtime C and K are skipped and their sums stay exactly zero.
-// - No tensor cores: the products are f32 FMAs, the TPU kernel's "fma"
-//   path (a one-pass reduced-precision residual stalls the fixed-point
-//   test; see proxmin_tpu/precision.py).
-// - No atomics. The TPU grid runs in order and carries its sums from tile
-//   to tile; CTAs here run concurrently. Each block reduces its partial
-//   sums in a fixed tree order (warp shuffles, then the warps in order)
-//   and writes one row to a scratch buffer; a second launch sums the rows
-//   in block order. Every run gives the same bits, which the exact resume
-//   relies on.
-// Making it fast (vector loads, TMA, a persistent grid) is later work.
-
-#include <type_traits>
+// What the design does about it: pgm_pass.cuh, which K3 shares (a ring of
+// bulk copies into shared memory, consumers one column per thread, gA and
+// the Gram summed from shared memory a row per warp, a persistent grid over
+// parts of tiles with a row of partial sums each, a warp-per-entry
+// finalize). No tensor cores: the products are f32 FMAs, the TPU kernel's
+// "fma" path (a one-pass reduced-precision residual stalls the fixed-point
+// test; see proxmin_tpu/precision.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "pgm_pass.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-
-// Row layout of one block's partial sums.
-template <int CB, int KB>
-struct Layout {
-  static constexpr int kGA = 0;                          // (c, k) row-major
-  static constexpr int kGram = CB * KB;                  // lower triangle (k, l <= k)
-  static constexpr int kStats = kGram + KB * (KB + 1) / 2;  // D.R, |dS|^2, |S'|^2
-  static constexpr int kP = kStats + 3;
-};
-
-__device__ __forceinline__ float load(const float* p, long long i) {
-  return p[i];
-}
-__device__ __forceinline__ float load(const __nv_bfloat16* p, long long i) {
-  return __bfloat162float(p[i]);
-}
-// Stores v and returns the value stored, as the next iteration reads it.
-__device__ __forceinline__ float store(float* p, long long i, float v) {
-  p[i] = v;
-  return v;
-}
-__device__ __forceinline__ float store(__nv_bfloat16* p, long long i,
-                                       float v) {
-  const __nv_bfloat16 b = __float2bfloat16_rn(v);
-  p[i] = b;
-  return __bfloat162float(b);
-}
-
 template <int CB, int KB, typename ST>
-__global__ void __launch_bounds__(kThreads)
-pgm_step_kernel(const float* __restrict__ A, const ST* __restrict__ S,
-                const ST* __restrict__ Y, const ST* __restrict__ W,
-                const float* __restrict__ step_S, int prox_plus, int C,
-                int K, long long N, long long tile_n,
-                ST* __restrict__ S_new, float* __restrict__ partials) {
-  using L = Layout<CB, KB>;
-  constexpr bool kF32 = std::is_same<ST, float>::value;
-  __shared__ float As[CB][KB];
-  // A as the residual product takes it: A itself in f32; with the bfloat16
-  // store, A rounded to bfloat16 (bfloat16 x bfloat16 products are exact in
-  // f32). The f32 instance reads As for both, as before the store type.
-  __shared__ float A16[kF32 ? 1 : CB][KB];
-  float (*Ar)[KB] = kF32 ? As : A16;
-  __shared__ float red[kWarps][L::kP];
-
-  for (int i = threadIdx.x; i < CB * KB; i += kThreads) {
-    const int c = i / KB, k = i % KB;
-    const float a = (c < C && k < K) ? A[c * K + k] : 0.f;
-    As[c][k] = a;
-    if constexpr (!kF32) A16[c][k] = __bfloat162float(__float2bfloat16_rn(a));
-  }
-  __syncthreads();
-  const float sS = *step_S;
-
-  float acc[L::kP];
-#pragma unroll
-  for (int p = 0; p < L::kP; ++p) acc[p] = 0.f;
-
-  const long long begin = (long long)blockIdx.x * tile_n;
-  const long long end = min(begin + tile_n, N);
-  for (long long n = begin + threadIdx.x; n < end; n += kThreads) {
-    float s[KB], d[CB], sn[KB];
-#pragma unroll
-    for (int k = 0; k < KB; ++k) s[k] = (k < K) ? load(S, k * N + n) : 0.f;
-
-#pragma unroll
-    for (int c = 0; c < CB; ++c) {
-      float r = 0.f, dc = 0.f;
-      if (c < C) {
-        r = Ar[c][0] * s[0];
-#pragma unroll
-        for (int k = 1; k < KB; ++k) {
-          if (k < K) r = fmaf(Ar[c][k], s[k], r);
-        }
-        r -= load(Y, c * N + n);
-        dc = (W != nullptr) ? load(W, c * N + n) * r : r;
-      }
-      d[c] = dc;
-      acc[L::kStats] = fmaf(dc, r, acc[L::kStats]);
-    }
-
-#pragma unroll
-    for (int k = 0; k < KB; ++k) {
-      float x = 0.f;
-      if (k < K) {
-        float g = 0.f;
-#pragma unroll
-        for (int c = 0; c < CB; ++c) {
-          if (c < C) g = fmaf(As[c][k], d[c], g);
-        }
-        x = s[k] - sS * g;
-        // keeps NaN (fmaxf would turn it into 0 and hide a divergence)
-        if (prox_plus && x < 0.f) x = 0.f;
-        x = store(S_new, k * N + n, x);
-      }
-      sn[k] = x;
-    }
-
-#pragma unroll
-    for (int c = 0; c < CB; ++c) {
-#pragma unroll
-      for (int k = 0; k < KB; ++k) {
-        if (c < C && k < K)
-          acc[L::kGA + c * KB + k] = fmaf(d[c], s[k], acc[L::kGA + c * KB + k]);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < KB; ++k) {
-#pragma unroll
-      for (int l = 0; l <= k; ++l) {
-        if (k < K)
-          acc[L::kGram + k * (k + 1) / 2 + l] =
-              fmaf(sn[k], sn[l], acc[L::kGram + k * (k + 1) / 2 + l]);
-      }
-      if (k < K) {
-        const float dk = sn[k] - s[k];
-        acc[L::kStats + 1] = fmaf(dk, dk, acc[L::kStats + 1]);
-        acc[L::kStats + 2] = fmaf(sn[k], sn[k], acc[L::kStats + 2]);
-      }
-    }
-  }
-
-  // Fixed-order block reduction: a shuffle tree inside each warp, then the
-  // warps summed in order by one thread per entry.
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int p = 0; p < L::kP; ++p) {
-    float v = acc[p];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane == 0) red[warp][p] = v;
-  }
-  __syncthreads();
-  for (int p = threadIdx.x; p < L::kP; p += kThreads) {
-    float v = red[0][p];
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w) v += red[w][p];
-    partials[(long long)blockIdx.x * L::kP + p] = v;
-  }
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM<CB>)
+pgm_step_kernel(PassArgs<ST> a, Ring ring, int stages,
+                int sets) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  pass_body<CB, KB, ST, true>(a, ring, stages, sets, smem);
 }
 
-// Second launch: one thread per entry sums the blocks' rows in block order
-// (in double, then rounds once) and writes gA (C x K), the Gram (K x K,
-// both triangles) and stats = [loss, |S' - S|^2, |S'|^2].
 template <int CB, int KB>
 __global__ void __launch_bounds__(kThreads)
-pgm_step_finalize(const float* __restrict__ partials, long long n_blocks,
+pgm_step_finalize(const float* __restrict__ partials, long long n_units,
                   int C, int K, float* __restrict__ gA,
                   float* __restrict__ gram, float* __restrict__ stats) {
-  using L = Layout<CB, KB>;
-  static_assert(L::kP <= kThreads, "one thread per partial-sum entry");
-  const int p = threadIdx.x;
-  if (p >= L::kP) return;
-  double v = 0.0;
-  for (long long b = 0; b < n_blocks; ++b) v += (double)partials[b * L::kP + p];
-  if (p < L::kGram) {
-    const int c = p / KB, k = p % KB;
-    if (c < C && k < K) gA[c * K + k] = (float)v;
-  } else if (p < L::kStats) {
-    const int t = p - L::kGram;
-    int k = 0;
-    while ((k + 1) * (k + 2) / 2 <= t) ++k;
-    const int l = t - k * (k + 1) / 2;
-    if (k < K) {
-      gram[k * K + l] = (float)v;
-      gram[l * K + k] = (float)v;
-    }
-  } else {
-    const int i = p - L::kStats;
-    stats[i] = (float)(i == 0 ? 0.5 * v : v);
-  }
+  finalize_body<CB, KB, true>(partials, n_units, C, K, gA, gram, stats);
 }
 
 template <int CB, int KB, typename ST>
@@ -236,16 +64,15 @@ int launch(const float* A, const void* S, const void* Y, const void* W,
            const float* step_S, int prox_plus, int C, int K, long long N,
            long long tile_n, void* S_new, float* gA, float* gram,
            float* stats, float* partials, cudaStream_t stream) {
-  const long long n_blocks = (N + tile_n - 1) / tile_n;
-  pgm_step_kernel<CB, KB, ST><<<(unsigned)n_blocks, kThreads, 0, stream>>>(
-      A, static_cast<const ST*>(S), static_cast<const ST*>(Y),
-      static_cast<const ST*>(W), step_S, prox_plus, C, K, N, tile_n,
-      static_cast<ST*>(S_new), partials);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  pgm_step_finalize<CB, KB><<<1, kThreads, 0, stream>>>(
-      partials, n_blocks, C, K, gA, gram, stats);
-  return (int)cudaGetLastError();
+  static LaunchCache cache;
+  const PassArgs<ST> args{A, static_cast<const ST*>(S),
+                          static_cast<const ST*>(Y),
+                          static_cast<const ST*>(W), step_S, prox_plus, C,
+                          K, N, tile_n, unit_count(N, tile_n),
+                          static_cast<ST*>(S_new), partials};
+  return launch_pass<CB, KB, ST, true>(pgm_step_kernel<CB, KB, ST>,
+                                       pgm_step_finalize<CB, KB>, cache,
+                                       args, gA, gram, stats, stream);
 }
 
 template <int CB, int KB>
@@ -267,19 +94,27 @@ int launch_store(int store_bf16, const float* A, const void* S, const void* Y,
 
 extern "C" {
 
-// Width of one block's row of partial sums for a (C, K) problem, or -1
-// when no compiled bound covers it. The caller allocates the scratch
-// buffer as (ceil(N / tile_n), width) floats.
+// Width of one row of partial sums for a (C, K) problem, or -1 when no
+// compiled bound covers it. The caller allocates the scratch buffer as
+// (nmf_pgm_step_partials_rows(N, tile_n), width) floats.
 int nmf_pgm_step_partials_width(int C, int K) {
-  if (C >= 1 && K >= 1 && C <= 8 && K <= 8) return Layout<8, 8>::kP;
-  if (C >= 1 && K >= 1 && C <= 16 && K <= 8) return Layout<16, 8>::kP;
+  if (C >= 1 && K >= 1 && C <= 8 && K <= 8) return Layout<8, 8, true>::kP;
+  if (C >= 1 && K >= 1 && C <= 16 && K <= 8) return Layout<16, 8, true>::kP;
   return -1;
+}
+
+// Rows of partial sums to allocate for N columns in tiles of tile_n (the
+// work units, parts of tiles, rounded up to a multiple of 4), or -1 for
+// N < 1 or tile_n < 1.
+long long nmf_pgm_step_partials_rows(long long N, long long tile_n) {
+  if (N < 1 || tile_n < 1) return -1;
+  return stride(unit_count(N, tile_n));
 }
 
 // One fused step on `stream`. All pointers are device pointers to
 // contiguous row-major arrays: A (C, K), step_S (1,), gA (C, K), gram
-// (K, K), stats (3,) and partials (ceil(N / tile_n), width) float32; S and
-// S_new (K, N), Y and W (C, N; W may be null) float32, or bfloat16 when
+// (K, K), stats (3,) and partials (rows, width) float32; S and S_new
+// (K, N), Y and W (C, N; W may be null) float32, or bfloat16 when
 // store_bf16 is 1. Returns cudaGetLastError() after the launches (0 on
 // success); does not synchronize.
 int nmf_pgm_step(const void* A, const void* S, const void* Y, const void* W,

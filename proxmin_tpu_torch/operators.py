@@ -52,6 +52,20 @@ def _like(X, v):
     return torch.as_tensor(v, dtype=X.dtype, device=X.device)
 
 
+def _promoted(X, v):
+    """``X`` and the threshold ``v`` as tensors of the dtype that JAX's
+    promotion gives ``X`` and ``v`` together, on ``X``'s device: a Python
+    number is weakly typed and keeps ``X``'s dtype; a tensor or a NumPy
+    value promotes with it (a float64 threshold makes a float32 ``X``'s
+    result float64, as in JAX; PyTorch itself would not promote ``X`` by a
+    0-d tensor, so the dtype is set here)."""
+    if type(v) in (bool, int, float):  # np.float64 subclasses float
+        return X, _like(X, v)
+    t = torch.as_tensor(v, device=X.device)
+    dtype = torch.promote_types(X.dtype, t.dtype)
+    return X.to(dtype), t.to(dtype)
+
+
 def prox_id(X, step):
     """Identity proximal operator."""
     return X
@@ -79,12 +93,12 @@ def prox_unity_plus(X, step, axis=0):
 
 def prox_min(X, step, thresh=0, type="relative"):
     """Projection onto numbers above ``thresh`` (floor)."""
-    return torch.maximum(X, _like(X, get_thresh(step, thresh, type)))
+    return torch.maximum(*_promoted(X, get_thresh(step, thresh, type)))
 
 
 def prox_max(X, step, thresh=0, type="relative"):
     """Projection onto numbers below ``thresh`` (ceiling)."""
-    return torch.minimum(X, _like(X, get_thresh(step, thresh, type)))
+    return torch.minimum(*_promoted(X, get_thresh(step, thresh, type)))
 
 
 def prox_components(X, step, prox=None, axis=0):
@@ -121,7 +135,7 @@ def prox_hard_plus(X, step, thresh=0, type="relative"):
 
 def prox_soft(X, step, thresh=0, type="relative"):
     """Soft thresholding (L1 prox): ``sign(X) * max(|X| - thresh, 0)``."""
-    thresh_ = _like(X, get_thresh(step, thresh, type))
+    X, thresh_ = _promoted(X, get_thresh(step, thresh, type))
     return torch.sign(X) * torch.maximum(torch.abs(X) - thresh_,
                                          X.new_zeros(()))
 

@@ -3,10 +3,11 @@
 Each kernel source in ``csrc/`` is compiled with ``nvcc`` for ``sm_90a``
 into a shared library of its own with a plain C interface, at first use,
 under ``build/kernels/`` of the checkout (named by the source and a hash of
-its text and the flags), and loaded with ``ctypes``. A kernel module
-registers its source with :func:`register`, together with a function that
-declares the library's C signatures (several modules may declare entry
-points of one source); nothing is compiled or loaded at import.
+its text, of every header in ``csrc/`` and of the flags), and loaded with
+``ctypes``. A kernel module registers its source with :func:`register`,
+together with a function that declares the library's C signatures (several
+modules may declare entry points of one source); nothing is compiled or
+loaded at import.
 """
 
 import concurrent.futures
@@ -51,9 +52,14 @@ def _nvcc():
 
 
 def _library_path(name):
-    digest = hashlib.sha256(_SOURCES[name].read_bytes()
-                            + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    return _BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """The library of ``name`` for the source, the headers and the flags as
+    they are now. Every ``csrc/*.cuh`` is hashed, included or not, so an
+    edited header never leaves a stale library in use."""
+    h = hashlib.sha256(_SOURCES[name].read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(_NVCC_FLAGS).encode())
+    return _BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_kernel(name="nmf_pgm_step"):

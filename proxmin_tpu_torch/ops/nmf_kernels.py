@@ -48,9 +48,9 @@ __all__ = [
     "DEFAULT_TILE_N",
 ]
 
-#: Pixel columns per tile, each tile one row of partial sums: a CUDA block
-#: of 256 threads per tile in K1 and K3, a tile at a time per persistent
-#: block in K2.
+#: Pixel columns per tile; the tiles fix the kernels' summation order. K2
+#: writes one row of partial sums per tile; K1 and K3 split each tile into
+#: parts of at most 1024 columns, a row each. Persistent blocks walk them.
 DEFAULT_TILE_N = 4096
 
 _F32_TINY = float(torch.finfo(torch.float32).tiny)
@@ -61,6 +61,8 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 def _declare_pgm_step(lib):
     lib.nmf_pgm_step_partials_width.argtypes = [_I, _I]
     lib.nmf_pgm_step_partials_width.restype = _I
+    lib.nmf_pgm_step_partials_rows.argtypes = [_LL, _LL]
+    lib.nmf_pgm_step_partials_rows.restype = _LL
     lib.nmf_pgm_step.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL,
                                  _LL, _P, _P, _P, _P, _P, _P]
     lib.nmf_pgm_step.restype = _I
@@ -79,6 +81,8 @@ def _declare_adaprox_step(lib):
 def _declare_grad(lib):
     lib.nmf_grad_partials_width.argtypes = [_I, _I]
     lib.nmf_grad_partials_width.restype = _I
+    lib.nmf_grad_partials_rows.argtypes = [_LL, _LL]
+    lib.nmf_grad_partials_rows.restype = _LL
     lib.nmf_grad_f32.argtypes = [_P, _P, _P, _P, _I, _I, _LL, _LL,
                                  _P, _P, _P, _P, _P, _P]
     lib.nmf_grad_f32.restype = _I
@@ -157,7 +161,7 @@ def fused_nmf_pgm_step(A, S, Y, sS, W=None, prox_S=None,
         sS: the S step size, a float or a one-element tensor (kept on the
             device, so no host sync).
         prox_S: None or ``prox_plus`` (non-negativity), or ``prox_id``.
-        tile_n: pixel columns per CUDA block; it fixes the summation order.
+        tile_n: pixel columns per tile; it fixes the summation order.
 
     Returns:
         ``(gA, S_new, SSt, loss, dS_sq, nS_sq)``: ``gA = D S^T`` with the old
@@ -203,13 +207,12 @@ def fused_nmf_pgm_step(A, S, Y, sS, W=None, prox_S=None,
         step = torch.full((1,), float(sS), dtype=torch.float32,
                           device=device)
     tile_n = int(tile_n)
-    n_blocks = -(-N // tile_n)
     S_new = torch.empty_like(S)
     gA = torch.empty((C, K), dtype=torch.float32, device=device)
     SSt = torch.empty((K, K), dtype=torch.float32, device=device)
     stats = torch.empty((3,), dtype=torch.float32, device=device)
-    partials = torch.empty((n_blocks, width), dtype=torch.float32,
-                           device=device)
+    partials = torch.empty((lib.nmf_pgm_step_partials_rows(N, tile_n), width),
+                           dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.nmf_pgm_step(
@@ -292,7 +295,7 @@ def fused_nmf_adaprox_step(A, S, M, V, Y, alpha_S, scalars, W=None,
             the kernel by value, so no host sync).
         prox_S: None or ``prox_plus`` (non-negativity), or ``prox_id``.
         b2, eps: the second-moment decay and the denominator floor.
-        tile_n: pixel columns per CUDA block; it fixes the summation order.
+        tile_n: pixel columns per tile; it fixes the summation order.
 
     Returns:
         ``(gA, S_new, M_new, V_new, rowsum, loss, dS_sq, nS_sq)``:
@@ -391,7 +394,7 @@ def fused_nmf_grad(A, S, Y, W=None, tile_n=DEFAULT_TILE_N):
         A: (C, K), S: (K, N), Y and W: (C, N) tensors of any float dtype,
             cast to contiguous float32 as the TPU kernel casts them. W is
             None (unweighted) or a (C, N) tensor.
-        tile_n: pixel columns per CUDA block; it fixes the summation order.
+        tile_n: pixel columns per tile; it fixes the summation order.
 
     Returns:
         ``(grad_A, grad_S, SSt, loss)`` for the residual
@@ -440,12 +443,12 @@ def fused_nmf_grad(A, S, Y, W=None, tile_n=DEFAULT_TILE_N):
     lib = _library("nmf_grad")
     width = lib.nmf_grad_partials_width(C, K)
     tile_n = int(tile_n)
-    n_blocks = -(-N // tile_n)
     gA = torch.empty((C, K), dtype=f32, device=device)
     gS = torch.empty((K, N), dtype=f32, device=device)
     SSt = torch.empty((K, K), dtype=f32, device=device)
     loss = torch.empty((), dtype=f32, device=device)
-    partials = torch.empty((n_blocks, width), dtype=f32, device=device)
+    partials = torch.empty((lib.nmf_grad_partials_rows(N, tile_n), width),
+                           dtype=f32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.nmf_grad_f32(

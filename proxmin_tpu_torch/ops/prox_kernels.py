@@ -229,18 +229,28 @@ def prox_plus_reference(X, step):
     return operators.prox_plus(X.to(cdt), step).to(X.dtype)
 
 
+def _kernel_threshold(X, step, thresh, type):
+    """The threshold as the kernel forms it, in X's compute dtype: the
+    operators then compute in that dtype, as the kernel does, whatever the
+    step's dtype (they would promote a float64 step, as JAX does)."""
+    return threshold_reference(threshold_args(step, thresh, type, X.device),
+                               _compute_dtype(X))
+
+
 def prox_soft_reference(X, step, thresh=0, type="relative"):
     """Plain PyTorch version of :func:`prox_soft_pallas`."""
     cdt = _compute_dtype(X)
-    return operators.prox_soft(X.to(cdt), step, thresh=thresh,
-                               type=type).to(X.dtype)
+    return operators.prox_soft(X.to(cdt), step,
+                               thresh=_kernel_threshold(X, step, thresh, type),
+                               type="absolute").to(X.dtype)
 
 
 def prox_hard_reference(X, step, thresh=0, type="relative"):
     """Plain PyTorch version of :func:`prox_hard_pallas`."""
     cdt = _compute_dtype(X)
-    return operators.prox_hard(X.to(cdt), step, thresh=thresh,
-                               type=type).to(X.dtype)
+    return operators.prox_hard(X.to(cdt), step,
+                               thresh=_kernel_threshold(X, step, thresh, type),
+                               type="absolute").to(X.dtype)
 
 
 def prox_unity_reference(X, step, axis=0):

@@ -684,6 +684,153 @@ def test_bf16_store_kernel_matches_plain_version(dev, C, K, N, weighted,
                                atol=1e-5)
 
 
+def _assert_k1_matches_plain(got, S, ref):
+    """K1's result against its plain version: float32 as
+    _assert_step_close; the bfloat16 store with S' within one bfloat16 ulp
+    and the Gram and the norms against the stored S'."""
+    if S.dtype != torch.bfloat16:
+        _assert_step_close(got, ref)
+        return
+    _within_one_bf16_ulp(got[1], ref[1])
+    for i in (0, 3):
+        torch.testing.assert_close(got[i], ref[i], rtol=2e-4, atol=1e-5)
+    Sn = got[1].float()
+    dS = Sn - S.float()
+    torch.testing.assert_close(got[2], Sn @ Sn.T, rtol=2e-4, atol=1e-5)
+    torch.testing.assert_close(got[4], torch.sum(dS * dS), rtol=1e-3,
+                               atol=1e-5)
+    torch.testing.assert_close(got[5], torch.sum(Sn * Sn), rtol=2e-4,
+                               atol=1e-5)
+
+
+def _k1_operands(dev, C, K, N, weighted, store):
+    A, S, Y, W = _problem(dev, C, K, N, weighted)
+    if store == "bf16":
+        S, Y = S.to(torch.bfloat16), Y.to(torch.bfloat16)
+        W = None if W is None else W.to(torch.bfloat16)
+    sS = 1.0 / torch.linalg.eigvalsh(A.T @ A)[-1]
+    return A, S, Y, W, sS
+
+
+@pytest.mark.parametrize("store", ["f32", "bf16"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_kernel_persistent_grid(dev, store, weighted):
+    """K1 over many more work units than resident blocks, with tile_n that
+    is (4096) and is not (128, 1000) a multiple of the ring's sub-tile and
+    of a unit's part: two launches agree bit for bit and match the plain
+    version. N = 300_001 rows are not 16-byte aligned, so every stage is
+    filled by per-thread copies."""
+    A, S, Y, W, sS = _k1_operands(dev, 5, 7, 300_001, weighted, store)
+    ref = k1.fused_nmf_pgm_step_reference(A, S, Y, sS, W=W)
+    for tile_n in (128, 1000, k1.DEFAULT_TILE_N):
+        one = k1.fused_nmf_pgm_step(A, S, Y, sS, W=W, tile_n=tile_n)
+        two = k1.fused_nmf_pgm_step(A, S, Y, sS, W=W, tile_n=tile_n)
+        torch.cuda.synchronize()
+        for a, b in zip(one, two):
+            assert torch.equal(a, b)
+        _assert_k1_matches_plain(one, S, ref)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_grad_kernel_persistent_grid(dev, weighted):
+    """K3 as test_kernel_persistent_grid holds K1."""
+    A, S, Y, W = _problem(dev, 5, 7, 300_001, weighted)
+    ref = tops.fused_nmf_grad_reference(A, S, Y, W=W)
+    for tile_n in (128, 1000, k1.DEFAULT_TILE_N):
+        one = tops.fused_nmf_grad(A, S, Y, W=W, tile_n=tile_n)
+        two = tops.fused_nmf_grad(A, S, Y, W=W, tile_n=tile_n)
+        torch.cuda.synchronize()
+        for a, b in zip(one, two):
+            assert torch.equal(a, b)
+        for g, r in zip(one, ref):
+            torch.testing.assert_close(g, r, rtol=2e-4, atol=1e-5)
+
+
+# N: rows 16-byte aligned in both stores, so stages are bulk copies (and
+# with tile_n = 1000 the last sub-tile of every unit is ragged); odd, so
+# bfloat16 rows are not aligned either; the flagship plus 37 columns.
+_RING_N = [100_000, 100_001, 1_000_037]
+
+
+@pytest.mark.parametrize("N", _RING_N)
+@pytest.mark.parametrize("store", ["f32", "bf16"])
+@pytest.mark.parametrize("tile_n", [1000, k1.DEFAULT_TILE_N])
+def test_kernel_ring_fill_paths(dev, N, store, tile_n):
+    """Bulk copies and the per-thread-copy fallback give results that
+    match the plain version, with W."""
+    A, S, Y, W, sS = _k1_operands(dev, 5, 7, N, True, store)
+    got = k1.fused_nmf_pgm_step(A, S, Y, sS, W=W, tile_n=tile_n)
+    ref = k1.fused_nmf_pgm_step_reference(A, S, Y, sS, W=W)
+    torch.cuda.synchronize()
+    _assert_k1_matches_plain(got, S, ref)
+
+
+@pytest.mark.parametrize("N", _RING_N)
+@pytest.mark.parametrize("tile_n", [1000, k1.DEFAULT_TILE_N])
+def test_grad_kernel_ring_fill_paths(dev, N, tile_n):
+    A, S, Y, W = _problem(dev, 5, 7, N, True)
+    got = tops.fused_nmf_grad(A, S, Y, W=W, tile_n=tile_n)
+    ref = tops.fused_nmf_grad_reference(A, S, Y, W=W)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=2e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("C,K", [(16, 8), (9, 8), (16, 1)])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("kernel", ["K1 f32", "K1 bf16", "K3"])
+def test_wide_instance_on_the_ring(dev, C, K, weighted, kernel):
+    """The C <= 16 instances (two blocks per SM, three rows a warp) at a
+    size that fills the card, bulk copies and W included; two launches
+    bitwise equal."""
+    N = 200_000
+    if kernel == "K3":
+        A, S, Y, W = _problem(dev, C, K, N, weighted)
+        got = tops.fused_nmf_grad(A, S, Y, W=W)
+        again = tops.fused_nmf_grad(A, S, Y, W=W)
+        ref = tops.fused_nmf_grad_reference(A, S, Y, W=W)
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            torch.testing.assert_close(g, r, rtol=2e-4, atol=1e-5)
+    else:
+        A, S, Y, W, sS = _k1_operands(dev, C, K, N, weighted,
+                                      kernel.split()[1])
+        got = k1.fused_nmf_pgm_step(A, S, Y, sS, W=W)
+        again = k1.fused_nmf_pgm_step(A, S, Y, sS, W=W)
+        ref = k1.fused_nmf_pgm_step_reference(A, S, Y, sS, W=W)
+        torch.cuda.synchronize()
+        _assert_k1_matches_plain(got, S, ref)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kernel", ["K1 f32", "K1 bf16", "K3"])
+@pytest.mark.parametrize("N", [100_000, 100_001])
+def test_nan_survives_the_ring(dev, kernel, N):
+    """A NaN column of S, in a bulk-copied stage (N = 100_000) and a
+    per-thread-copied one, stays NaN in S' (K1) or gS (K3), leaves its
+    neighbours finite, and reaches the sums."""
+    j = 54_321
+    if kernel == "K3":
+        A, S, Y, _ = _problem(dev, 5, 7, N)
+        S[:, j] = float("nan")
+        gA, col, SSt, loss = tops.fused_nmf_grad(A, S, Y)
+        sums = (gA, SSt, loss)
+    else:
+        A, S, Y, _, _ = _k1_operands(dev, 5, 7, N, False,
+                                     kernel.split()[1])
+        S[:, j] = float("nan")
+        gA, col, SSt, loss, dS_sq, nS_sq = k1.fused_nmf_pgm_step(A, S, Y,
+                                                                 0.01)
+        sums = (gA, SSt, loss, dS_sq, nS_sq)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(col[:, j]).all())
+    assert bool(torch.isfinite(col[:, :j]).all())
+    assert bool(torch.isfinite(col[:, j + 1:]).all())
+    for v in sums:
+        assert not bool(torch.isfinite(v).all())
+
+
 def test_bf16_store_kernel_refuses_mixed_stores(dev):
     A, S, Y, _ = _problem(dev, 5, 3, 1000)
     with pytest.raises(TypeError):

@@ -73,6 +73,33 @@ def test_tensor_step_and_partial(rng):
         np.asarray(jop.prox_soft(X.numpy(), 0.5, thresh=0.25)))
 
 
+_THRESHOLD_PROXES = ("prox_soft", "prox_soft_plus", "prox_min", "prox_max")
+_MIXED_STEPS = {
+    "python float": (lambda: 0.37, lambda: 0.37),
+    "0-d float64 tensor": (lambda: torch.tensor(0.37, dtype=torch.float64),
+                           lambda: np.asarray(0.37, dtype=np.float64)),
+    "numpy float64": (lambda: np.float64(0.37), lambda: np.float64(0.37)),
+}
+
+
+@pytest.mark.parametrize("name", _THRESHOLD_PROXES)
+@pytest.mark.parametrize("step", list(_MIXED_STEPS))
+def test_threshold_promotes_as_in_jax(rng, name, step):
+    """A float32 X with a float64 step (a 0-d tensor on the port's side, a
+    typed float64 array on JAX's, or a NumPy float64 scalar on both) gives
+    a float64 result, as JAX's promotion does; a Python float step is
+    weakly typed and keeps float32. Values in float64, rtol 1e-12."""
+    X = rng.normal(size=(3, 5)).astype(np.float32)
+    t_step, j_step = (f() for f in _MIXED_STEPS[step])
+    want = np.asarray(getattr(jop, name)(X, j_step, thresh=0.3))
+    got = getattr(top, name)(torch.from_numpy(X.copy()), t_step, thresh=0.3)
+    want_dtype = np.float32 if step == "python float" else np.float64
+    assert want.dtype == want_dtype
+    assert got.dtype == getattr(torch, want.dtype.name)
+    np.testing.assert_allclose(got.double().numpy(), want.astype(np.float64),
+                               rtol=1e-12, atol=0)
+
+
 def test_nan_propagates_through_prox_plus():
     X = torch.tensor([float("nan"), -1.0, 2.0], dtype=torch.float64)
     got = top.prox_plus(X, 1.0)

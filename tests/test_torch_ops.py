@@ -121,8 +121,9 @@ def test_build_inputs_are_in_the_checkout():
 
 
 def test_library_hash_covers_only_its_own_source(tmp_path, monkeypatch):
-    """A library's name hashes its own source text and the flags, so a
-    change to one kernel source rebuilds that kernel alone."""
+    """A library's name hashes its own source text (beside the headers and
+    the flags), so a change to one kernel source rebuilds that kernel
+    alone."""
     before = {n: kb._library_path(n) for n in kb._SOURCES}
     edited = tmp_path / "nmf_grad.cu"
     edited.write_text(kb._SOURCES["nmf_grad"].read_text() + "// edit\n")
@@ -130,3 +131,27 @@ def test_library_hash_covers_only_its_own_source(tmp_path, monkeypatch):
     after = {n: kb._library_path(n) for n in kb._SOURCES}
     assert after["nmf_grad"] != before["nmf_grad"]
     assert all(after[n] == before[n] for n in before if n != "nmf_grad")
+
+
+def test_library_hash_covers_the_headers(tmp_path, monkeypatch):
+    """Every csrc/*.cuh is folded into every library's hash: an edit to a
+    header (the kernels include bulk_ring.cuh and pgm_pass.cuh) changes the
+    library path, so no stale library built from the old header is
+    loaded; a file of another kind in the directory changes nothing."""
+    headers = sorted(kb.CSRC.glob("*.cuh"))
+    assert {h.name for h in headers} >= {"bulk_ring.cuh", "pgm_pass.cuh"}
+    for h in headers:
+        (tmp_path / h.name).write_bytes(h.read_bytes())
+    monkeypatch.setattr(kb, "CSRC", tmp_path)
+    same = {n: kb._library_path(n) for n in kb._SOURCES}
+    monkeypatch.undo()
+    assert same == {n: kb._library_path(n) for n in kb._SOURCES}
+    monkeypatch.setattr(kb, "CSRC", tmp_path)
+    (tmp_path / "notes.txt").write_text("not a header\n")
+    assert {n: kb._library_path(n) for n in kb._SOURCES} == same
+    ring = tmp_path / "bulk_ring.cuh"
+    ring.write_text(ring.read_text() + "// edit\n")
+    edited = {n: kb._library_path(n) for n in kb._SOURCES}
+    assert all(edited[n] != same[n] for n in same)
+    (tmp_path / "extra.cuh").write_text("#pragma once\n")
+    assert all(kb._library_path(n) != edited[n] for n in same)
