@@ -12,8 +12,13 @@ weighted and strided, with the bfloat16 store) and AdaProx-NMF through
 ``proxmin_tpu_torch.nmf.nmf``, the ``proxmin_tpu_torch.ops`` entry point
 the way its users drive it (the prox kernels inside
 ``AlternatingProjections`` as ``nmf``'s S constraint, ``fused_nmf_grad`` as
-``pgm``'s gradient), and the stream-merge experiment's loops on K5. It exits
-non-zero when any phase fails. Phases:
+``pgm``'s gradient), and the stream-merge experiment's loops on K5; then
+the ADMM family: ``admm`` and ``sdmm`` on the total-variation denoising
+problem of
+benchmarks/admm_scale.py (seed 11, 1024 x 1024 and 4096 x 4096 pixels,
+float32), with K4's soft threshold as ``sdmm``'s ``prox_g``, and
+``nmf(algorithm="bsdmm")`` on the flagship. It exits non-zero when any
+phase fails. Phases:
 
 1. probe: CUDA/driver/compiler versions, the card and its power limit;
 2. build K1, K2 (with K5), K3 and K4 from proxmin_tpu_torch/csrc/ with
@@ -61,7 +66,20 @@ non-zero when any phase fails. Phases:
 10. marginal ms/iter of every engine and path (the weighted and strided
    ones too), and GB/s against the naive bytes; the adaptive refresh
    against the exact steps, the AdaProx bfloat16 store against the float32
-   store and each packed loop against its base loop in turns.
+   store and each packed loop against its base loop in turns;
+11. the ADMM family: the batched-Lanczos weighted bound against the Gram
+   route (with its launch count); TV ``admm`` (horizontal differences) and
+   ``sdmm`` (both directions) at both sizes: finite results, ``sdmm`` lowers
+   the RMSE against the truth, a resumed ``admm`` equals the straight one
+   bit for bit, launches and blocking host reads per iteration, marginal
+   ms/iter beside the naive bytes; the same ``sdmm`` with K4 soft as
+   ``prox_g`` in turns with the plain operator (bit for bit equal, K4
+   launched twice per iteration); ``nmf(algorithm="bsdmm")`` unweighted
+   (against a Gauss-Seidel PGM loop written out by hand), with a sum-to-one
+   constraint on S through ``bsdmm`` itself, and weighted with
+   ``step_stride=10`` fixed and adaptive: the loss decreases, resumed
+   sweeps equal straight ones bit for bit (across a refresh boundary too),
+   launches and reads per sweep, marginal ms/sweep in turns with PGM.
 
 The last two lines are the card (``nvidia-smi`` name and power limit)
 after a JSON object describing the kernels (each with its time, its plain
@@ -71,9 +89,10 @@ then the result object ``{"ok": true, "device": {...}}``. With no CUDA
 device it fails at once.
 
 ``python3 chip_smoke.py --profile`` instead traces 50 iterations of each
-PGM path and each AdaProx cuda path with ``torch.profiler`` and prints the
-device's busy time, busy share and kernel launches per iteration, and on
-the PGM cuda paths K1's kernel and finalize time per iteration (traces
+PGM path, each AdaProx cuda path and each ADMM-family path with
+``torch.profiler`` and prints the device's busy time, busy share, kernel
+launches and device-to-host copies (the blocking reads) per iteration, and
+on the PGM cuda paths K1's kernel and finalize time per iteration (traces
 under ``build/profile/``).
 """
 
@@ -164,6 +183,21 @@ N_WIDE = 200_000
 # The kernels that stream through the shared-memory ring: ptxas must report
 # no spill stores for any of their instances.
 RING_KERNELS = ("pgm_step_kernel", "adaprox_step_kernel", "nmf_grad_kernel")
+
+
+# The TV denoising problem of benchmarks/admm_scale.py: its seed, penalty
+# and prox step; each size with the iteration counts of its marginal.
+TV_SEED, TV_LAM, TV_STEP_F = 11, 0.4, 0.5
+TV_SIZES = ((1024, 200, 1000), (4096, 50, 150))
+# Beyond C K K = 2**20 the weighted A bound runs batched Lanczos, checked
+# against the Gram route at two (C, K, N): with C within the 256 candidates
+# every member is bisected and the bound is exact up to the bisection's last
+# ulps (the 16 pixels bound the rank below the 34 steps); with more members
+# than candidates the smallest candidate's Gershgorin bound may stand in, a
+# safe overestimate, held to this factor.
+LANCZOS_CASES = ((256, 65, 16), (20000, 8, 64))
+LANCZOS_RTOL = 1e-4
+LANCZOS_OVER = 1.5
 
 
 def log(*args):
@@ -714,6 +748,36 @@ def kernels_of(fn, trace, attempts=3):
                        f"markers around the call: {names}")
 
 
+def launches_of(fn, trace):
+    """How many CUDA kernels one call of ``fn`` launches, counted on the
+    host's side of a ``torch.profiler`` trace: the runtime's launch calls
+    inside a ``record_function`` span around the call. Host events carry
+    host timestamps, so a call of thousands of kernels is counted whole
+    (the device events that ``kernels_of`` reads were seen to lose their
+    first marker in a trace of 14,504 kernels)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_MARGIN_S)
+        with record_function("chip_smoke_call"):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    spans = [e for e in events if e.get("name") == "chip_smoke_call"
+             and e.get("cat") == "user_annotation"]
+    if len(spans) != 1:
+        raise RuntimeError(f"chip_smoke: {len(spans)} spans of the call in "
+                           "the trace")
+    t0, t1 = spans[0]["ts"], spans[0]["ts"] + spans[0]["dur"]
+    return sum(e.get("cat") == "cuda_runtime"
+               and e["name"].startswith(("cudaLaunch", "cuLaunch"))
+               and t0 <= e["ts"] <= t1 for e in events)
+
+
 def host_us(fn, calls=1000, batch=100):
     """Host microseconds per call of ``fn``: ``calls`` calls in batches,
     each enqueued behind a sleep kernel that holds the stream, so the host
@@ -736,13 +800,159 @@ def reset_counts(kernels):
         k.launches = 0
 
 
+def blocking_reads(fn):
+    """How many synchronizing CUDA calls (blocking host reads) ``fn``
+    makes, counted by ``torch.cuda.set_sync_debug_mode("warn")``."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def timed(fn, n):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(n)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def marginal_ms(fn, lo, hi):
+    """Marginal host-clock ms per iteration of ``fn(n)`` between ``lo`` and
+    ``hi`` iterations, each the least of two runs."""
+    t_lo = min(timed(fn, lo) for _ in range(2))
+    t_hi = min(timed(fn, hi) for _ in range(2))
+    return (t_hi - t_lo) / (hi - lo) * 1e3
+
+
+def per_iteration(solve, trace, k4_fn, n=10):
+    """CUDA kernels (all, and K4 soft's by its wrapper's count) and
+    blocking host reads per iteration of ``solve(n)``: the difference
+    between a run of ``2 n`` iterations and one of ``n``, so what a call
+    does once drops out. Returns them with the reads of the ``n``-iteration
+    call."""
+    k_lo = launches_of(lambda: solve(n), trace)
+    before = k4_fn.launches
+    k_hi = launches_of(lambda: solve(2 * n), trace)
+    k4 = k4_fn.launches - before
+    r_lo = blocking_reads(lambda: solve(n))
+    r_hi = blocking_reads(lambda: solve(2 * n))
+    return (k_hi - k_lo) / n, k4 / (2 * n), (r_hi - r_lo) / n, r_lo
+
+
+def tv_problem(H):
+    """The two-rectangle image of benchmarks/admm_scale.py and its noisy
+    observation (sigma 0.3), H x H float32 on the card."""
+    rng = np.random.default_rng(TV_SEED)
+    truth = np.zeros((H, H), np.float32)
+    truth[H // 8: H // 2, H // 6: H // 2] = 1.0
+    truth[5 * H // 8: 7 * H // 8, H // 3: 5 * H // 6] = -0.6
+    y = truth + 0.3 * rng.standard_normal((H, H)).astype(np.float32)
+    return torch.from_numpy(truth).to(DEVICE), torch.from_numpy(y).to(DEVICE)
+
+
+def tv_operators(linop, H):
+    """Forward differences along each axis as matrix-free operators, with
+    their known ``lambda_max(L^T L) = 4``."""
+    def dh(x):
+        return x[:, 1:] - x[:, :-1]
+
+    def dh_T(v):
+        return torch.cat([-v[:, :1], v[:, :-1] - v[:, 1:], v[:, -1:]], dim=1)
+
+    def dv(x):
+        return x[1:, :] - x[:-1, :]
+
+    def dv_T(v):
+        return torch.cat([-v[:1, :], v[:-1, :] - v[1:, :], v[-1:, :]], dim=0)
+
+    return (linop.FunctionOperator(dh, dh_T, (H, H), norm_sq=4.0),
+            linop.FunctionOperator(dv, dv_T, (H, H), norm_sq=4.0))
+
+
+def tv_solvers(algorithms, linop, top, tops, H):
+    """``(truth, y, admm, sdmm, sdmm_k4)`` for the H x H TV problem: each
+    solver as ``solve(n, x=None, state=None, **kw)`` at ``e_rel = e_abs =
+    0`` unless ``kw`` says otherwise."""
+    truth, y = tv_problem(H)
+    Dh, Dv = tv_operators(linop, H)
+    x0 = torch.zeros_like(y)
+
+    def prox_quad(x, step):
+        return (x + step * y) / (1.0 + step)
+
+    def admm(n, x=None, state=None, **kw):
+        kw = {"e_rel": 0, "e_abs": 0, **kw}
+        return algorithms.admm(x0 if x is None else x, prox_quad, TV_STEP_F,
+                               prox_g=partial(top.prox_soft, thresh=TV_LAM),
+                               L=Dh, max_iter=n, state=state, **kw)
+
+    def sdmm_with(prox_l1):
+        def sdmm(n, x=None, state=None, **kw):
+            kw = {"e_rel": 0, "e_abs": 0, **kw}
+            return algorithms.sdmm(x0 if x is None else x, prox_quad,
+                                   TV_STEP_F, proxs_g=[prox_l1] * 2,
+                                   Ls=[Dh, Dv], max_iter=n, state=state,
+                                   **kw)
+        return sdmm
+
+    return (truth, y, admm,
+            sdmm_with(partial(top.prox_soft, thresh=TV_LAM)),
+            sdmm_with(partial(tops.prox_soft_pallas, thresh=TV_LAM)))
+
+
+def bsdmm_solvers(algorithms, tnmf, top, Y, A0, S0, Ww):
+    """The flagship's bsdmm paths, each as ``solve(n, x=None, state=None,
+    **kw)``: unweighted through ``nmf``; with a sum-to-one constraint on S
+    as ``proxs_g`` through ``bsdmm`` itself, with the block gradient step
+    and the block step written out as a user would; weighted with
+    ``step_stride=10``, fixed and adaptive."""
+    def through_nmf(**fixed):
+        def solve(n, x=None, state=None, **kw):
+            A, S = (A0, S0) if x is None else x
+            return tnmf.nmf(Y, A, S, algorithm="bsdmm", e_rel=0, max_iter=n,
+                            state=state, **fixed, **kw)
+        return solve
+
+    def block_prox_f(Xj, step, Xs=None, j=None):
+        A, S = Xs
+        D = A @ S - Y
+        grad = D @ S.T if j == 0 else A.T @ D
+        return top.prox_plus(Xj - step * grad, step)
+
+    def block_step(Xs, j=None):
+        return tnmf.step_A(*Xs) if j == 0 else tnmf.step_S(*Xs)
+
+    def constrained(n, x=None, state=None, **kw):
+        return algorithms.bsdmm(
+            list((A0, S0) if x is None else x), block_prox_f, block_step,
+            proxs_g=[None, [partial(top.prox_unity, axis=0)]], e_rel=0,
+            max_iter=n, state=state, **kw)
+
+    return {
+        "unweighted": through_nmf(),
+        "sum-to-one S as proxs_g": constrained,
+        "weighted stride 10": through_nmf(W=Ww, step_stride=STRIDE),
+        "weighted adaptive": through_nmf(W=Ww, step_stride=STRIDE,
+                                         step_adapt=True),
+    }
+
+
 PROFILE_ITERS = 50
 
 
-def profile_paths(tnmf, card):
-    """``--profile``: each PGM and AdaProx cuda path's device busy time,
-    busy share and
-    kernel launches per iteration, from a ``torch.profiler`` trace of
+def profile_paths(tnmf, algorithms, linop, top, tops, card):
+    """``--profile``: each PGM, AdaProx cuda and ADMM-family path's device
+    busy time, busy share, kernel launches and device-to-host copies (the
+    blocking reads) per iteration, from a ``torch.profiler`` trace of
     PROFILE_ITERS iterations resumed after the first LO (past the cold
     start, as the marginal is): kernel, memcpy and memset events summed
     from the exported trace (``key_averages()`` counts a kernel's time on
@@ -756,7 +966,7 @@ def profile_paths(tnmf, card):
     Y, A0, S0, W = make_problem(C, K, N, True)
     out_dir = Path(__file__).resolve().parent / "build" / "profile"
     out_dir.mkdir(parents=True, exist_ok=True)
-    paths = (
+    nmf_paths = (
         ("pgm engine=cuda", dict(engine="cuda")),
         ("pgm engine=torch", dict(engine="torch")),
         ("weighted torch stride 10", dict(W=W, step_stride=STRIDE)),
@@ -780,23 +990,31 @@ def profile_paths(tnmf, card):
             store_dtype=torch.bfloat16)),
     )
 
-    def run(n, kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        tnmf.nmf(Y, A0, S0, e_rel=0, max_iter=n, **kw)
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
+    def nmf_solve(kw):
+        def solve(n, x=None, state=None):
+            A, S = (A0, S0) if x is None else x
+            return tnmf.nmf(Y, A, S, e_rel=0, max_iter=n, state=state, **kw)
+        return solve
 
-    for label, kw in paths:
-        run(5, kw)
-        ms = (min(run(HI, kw) for _ in range(2))
-              - min(run(LO, kw) for _ in range(2))) / (HI - LO) * 1e3
-        warm = tnmf.nmf(Y, A0, S0, e_rel=0, max_iter=LO, **kw)
+    # (label, solve(n, x, state), iteration counts of the marginal)
+    paths = [(label, nmf_solve(kw), LO, HI) for label, kw in nmf_paths]
+    for H, lo, hi in TV_SIZES:
+        _, _, admm, sdmm, sdmm_k4 = tv_solvers(algorithms, linop, top, tops,
+                                               H)
+        paths += [(f"admm TV {H}x{H}", admm, lo, hi),
+                  (f"sdmm TV {H}x{H}", sdmm, lo, hi),
+                  (f"sdmm TV {H}x{H} K4 soft as prox_g", sdmm_k4, lo, hi)]
+    paths += [(f"bsdmm nmf {label}", solve, LO, HI) for label, solve in
+              bsdmm_solvers(algorithms, tnmf, top, Y, A0, S0, W).items()]
+
+    for label, solve, lo, hi in paths:
+        timed(solve, 5)
+        ms = marginal_ms(solve, lo, hi)
+        warm = solve(lo)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            tnmf.nmf(Y, *warm.x, e_rel=0, max_iter=PROFILE_ITERS,
-                     state=warm.state, **kw)
+            solve(PROFILE_ITERS, warm.x, warm.state)
             torch.cuda.synchronize()
         trace = out_dir / (re.sub(r"\W+", "_", label) + ".json")
         prof.export_chrome_trace(str(trace))
@@ -807,22 +1025,264 @@ def profile_paths(tnmf, card):
         by_name = {}
         for e in device:
             by_name[e["name"]] = by_name.get(e["name"], 0) + e["dur"]
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        top_items = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
         k1_us = {part: sum(d for n, d in by_name.items() if part in n)
                  / PROFILE_ITERS
                  for part in ("pgm_step_kernel", "pgm_step_finalize")}
         kernels = sum(e["cat"] == "kernel" for e in device) / PROFILE_ITERS
         copies = (len(device) / PROFILE_ITERS) - kernels
+        reads = sum(e["cat"] == "gpu_memcpy" and "DtoH" in e["name"]
+                    for e in device) / PROFILE_ITERS
         log(f"profile [{label}]: device busy {busy:.1f} us/iter, busy share "
             f"{busy / (ms * 1e3):.2f} of {ms:.4f} ms/iter marginal, kernel "
-            f"launches {kernels:.1f}/iter, memcpy+memset {copies:.1f}/iter; "
+            f"launches {kernels:.1f}/iter, memcpy+memset {copies:.1f}/iter, "
+            f"of them device-to-host copies {reads:.2f}/iter; "
             "top: " + "; ".join(f"{n[:60]} {d / PROFILE_ITERS:.1f} us/iter"
-                                for n, d in top)
+                                for n, d in top_items)
             + f"; on {card}")
         if k1_us["pgm_step_kernel"]:
             log(f"profile [{label}]: K1 pgm_step_kernel "
                 f"{k1_us['pgm_step_kernel']:.1f} us/iter, pgm_step_finalize "
                 f"{k1_us['pgm_step_finalize']:.1f} us/iter; on {card}")
+
+
+def admm_family_phase(mods, problem, loss_pgm, card, every_kernel, soft_fn,
+                      prof_dir):
+    """Phase 11: the ADMM family on the card (see the module docstring).
+    ``mods`` are the port's modules ``(algorithms, linop, tnmf, top,
+    tops)``, ``problem`` the flagship ``(Y, A0, S0, Ww)``, ``loss_pgm``
+    the loss of nmf(engine="torch") after ITERS iterations, ``soft_fn`` K4's
+    soft wrapper. Returns K4 soft's launches on the 1024 x 1024 sdmm path
+    (ITERS iterations)."""
+    algorithms, linop, tnmf, top, tops = mods
+    Y, A0, S0, Ww = problem
+    # the weighted A bound past C K K = 2**20: batched Lanczos against the
+    # Gram route, and the launches of one call
+    for Cl, Kl, Nl in LANCZOS_CASES:
+        rng = np.random.default_rng(SEED + 3)
+        S_l = torch.from_numpy(rng.random((Kl, Nl)).astype(np.float32)
+                               ).to(DEVICE)
+        W_l = torch.from_numpy((0.5 + rng.random((Cl, Nl))).astype(
+            np.float32)).to(DEVICE)
+        check(Cl * Kl * Kl > 2 ** 20, "a Lanczos case is below the switch")
+        lz = float(tnmf._weighted_lipschitz_A(S_l, W_l))
+        gram = float(torch.max(torch.linalg.eigvalsh(
+            torch.einsum("kn,cn,ln->ckl", S_l, W_l, S_l))[:, -1]))
+        over = LANCZOS_OVER if Cl > 256 else 1 + LANCZOS_RTOL
+        check(gram * (1 - LANCZOS_RTOL) <= lz <= gram * over,
+              f"batched Lanczos bound {lz:.6e} against the Gram route "
+              f"{gram:.6e} [C={Cl} K={Kl} N={Nl}]: outside [1 - "
+              f"{LANCZOS_RTOL:g}, {over:g}]")
+        lz_kernels = launches_of(
+            lambda: tnmf._weighted_lipschitz_A(S_l, W_l),
+            prof_dir / "lanczos.json")
+        lz_reads = blocking_reads(
+            lambda: tnmf._weighted_lipschitz_A(S_l, W_l))
+        lz_ms = cuda_ms(lambda: tnmf._weighted_lipschitz_A(S_l, W_l), reps=5)
+        log(f"weighted A bound by batched Lanczos [C={Cl} K={Kl} N={Nl}, "
+            f"{min(Kl, 32) + 2} steps, {min(Cl, 256)} members bisected]: "
+            f"{lz:.6e} against the Gram route {gram:.6e}, ratio "
+            f"{lz / gram:.6f} (held to [1 - {LANCZOS_RTOL:g}, {over:g}]); "
+            f"{lz_kernels} CUDA kernels and {lz_reads} blocking reads "
+            f"per call, {lz_ms:.3f} ms per call on {card}")
+
+    # TV denoising: admm (one constraint) and sdmm (two) at both sizes
+    k4_soft_sdmm = {}
+    for H, lo, hi in TV_SIZES:
+        P = H * H
+        truth, y_tv, admm_tv, sdmm_tv, sdmm_k4 = tv_solvers(
+            algorithms, linop, top, tops, H)
+        timed(admm_tv, 3)
+        full = admm_tv(ITERS)
+        half = admm_tv(ITERS // 2)
+        rest = admm_tv(ITERS // 2, half.x, half.state)
+        torch.cuda.synchronize()
+        check(full.iterations == ITERS and rest.iterations == ITERS // 2
+              and rest.state["total_it"] == ITERS,
+              f"admm TV {H}: iterations {full.iterations}, "
+              f"{rest.iterations}")
+        check(bool(torch.isfinite(full.x).all()) and tuple(full.x.shape)
+              == (H, H) and all(np.isfinite(full.errors)),
+              f"admm TV {H}: non-finite result or errors")
+        check(torch.equal(rest.x, full.x) and rest.errors == full.errors
+              and all(torch.equal(rest.state[k], full.state[k])
+                      for k in ("z", "u", "r_prev")),
+              f"admm TV {H}: {ITERS // 2} + {ITERS // 2} resumed iterations "
+              f"differ from {ITERS} straight ones")
+        rmse_in = float(torch.sqrt(torch.mean((y_tv - truth) ** 2)))
+        rmse_admm = float(torch.sqrt(torch.mean((full.x - truth) ** 2)))
+        log(f"admm TV {H}x{H} (horizontal differences): {ITERS} iterations, "
+            f"slack {full.slack}, errors (e_pri, e_dual, |R|, |S|) "
+            + ", ".join(f"{v:.4e}" for v in full.errors)
+            + f"; RMSE against the truth {rmse_in:.4f} -> {rmse_admm:.4f}; "
+            f"{ITERS // 2} + {ITERS // 2} resumed iterations equal {ITERS} "
+            "straight ones bit for bit (x, Z, U, R and the errors)")
+        # the benchmark's quality row
+        q = sdmm_tv(400, e_rel=1e-4)
+        rmse_out = float(torch.sqrt(torch.mean((q.x - truth) ** 2)))
+        check(bool(torch.isfinite(q.x).all()) and rmse_out < rmse_in,
+              f"sdmm TV {H}: RMSE {rmse_in:.4f} -> {rmse_out:.4f}")
+        log(f"sdmm TV {H}x{H} (both directions), e_rel=1e-4, max_iter=400: "
+            f"RMSE against the truth {rmse_in:.4f} -> {rmse_out:.4f} in "
+            f"{q.iterations} iterations, status {q.status}")
+        # sdmm with K4 soft as prox_g against the plain operator
+        reset_counts(every_kernel)
+        r_k4 = sdmm_k4(ITERS)
+        torch.cuda.synchronize()
+        counts = {f.__name__: f.launches for f in every_kernel}
+        r_pl = sdmm_tv(ITERS)
+        torch.cuda.synchronize()
+        check(r_k4.iterations == ITERS == r_pl.iterations
+              and soft_fn.launches == 2 * ITERS
+              and sum(counts.values()) == soft_fn.launches,
+              f"sdmm TV {H} with K4: launches {counts} in {ITERS} "
+              "iterations")
+        check(torch.equal(r_k4.x, r_pl.x) and r_k4.errors == r_pl.errors
+              and bool(torch.isfinite(r_k4.x).all()),
+              f"sdmm TV {H}: K4 soft and operators.prox_soft differ")
+        k4_soft_sdmm[H] = soft_fn.launches
+        log(f"sdmm TV {H}x{H} with K4 soft as prox_g: equal to "
+            f"operators.prox_soft bit for bit after {ITERS} iterations (x "
+            f"and the errors); K4 soft launches {soft_fn.launches} = 2 per "
+            "iteration, no other kernel of the port")
+        # launches and blocking reads per iteration, and the marginal time
+        for label, solve, nbytes in (("admm", admm_tv, 32 * P),
+                                     ("sdmm", sdmm_tv, 56 * P),
+                                     ("sdmm K4", sdmm_k4, 56 * P)):
+            kern, k4_it, reads, reads_lo = per_iteration(
+                solve, prof_dir / "admm_family.json", soft_fn)
+            check(reads_lo >= 10 and reads <= 1.0,
+                  f"{label} TV {H}: {reads} blocking reads per iteration "
+                  f"({reads_lo} in 10 iterations)")
+            check(k4_it == (2 if label == "sdmm K4" else 0),
+                  f"{label} TV {H}: {k4_it} K4 kernels per iteration")
+            log(f"{label} TV {H}x{H}: {kern:.1f} CUDA kernels per iteration "
+                f"(K4's: {k4_it:.0f}), {reads:.2f} blocking host reads per "
+                "iteration (torch.cuda.set_sync_debug_mode; "
+                f"{reads_lo} in a call of 10 iterations)")
+        m_a, m_s, m_k, m_k2, m_s2 = (marginal_ms(f, lo, hi) for f in (
+            admm_tv, sdmm_tv, sdmm_k4, sdmm_k4, sdmm_tv))
+        log(f"admm TV {H}x{H}: {m_a:.4f} ms/iter marginal ({lo}->{hi} "
+            f"iterations), {32 * P / m_a / 1e6:.1f} GB/s of "
+            f"{32 * P / 1e6:.0f} MB naive per iteration, on {card}")
+        log(f"sdmm TV {H}x{H}: {min(m_s, m_s2):.4f} ms/iter marginal "
+            f"({m_s:.4f}, {m_s2:.4f}; {lo}->{hi} iterations), "
+            f"{56 * P / min(m_s, m_s2) / 1e6:.1f} GB/s of "
+            f"{56 * P / 1e6:.0f} MB naive per iteration; with K4 soft as "
+            f"prox_g {min(m_k, m_k2):.4f} ({m_k:.4f}, {m_k2:.4f}); order "
+            f"plain, K4, K4, plain; on {card}")
+        del truth, y_tv, admm_tv, sdmm_tv, sdmm_k4, full, half, rest, q
+        del r_k4, r_pl
+        torch.cuda.empty_cache()
+
+    # bsdmm on the flagship
+    bs = bsdmm_solvers(algorithms, tnmf, top, Y, A0, S0, Ww)
+    reset_counts(every_kernel)
+    bs_res = {}
+    for label, solve in bs.items():
+        W_ = Ww if label.startswith("weighted") else None
+        r = solve(ITERS, trace=True) if "proxs_g" in label else solve(ITERS)
+        torch.cuda.synchronize()
+        bs_res[label] = r
+        l0_, l_r = wloss(A0, S0, Y, W_), wloss(*r.x, Y, W_)
+        check(r.iterations == ITERS and r.status == "max_iter",
+              f"bsdmm {label}: {r.iterations} sweeps, status {r.status}")
+        check(all(bool(torch.isfinite(a).all()) for a in r.x)
+              and tuple(r.x[1].shape) == (K, N) and np.isfinite(l_r)
+              and l_r < l0_, f"bsdmm {label}: non-finite, or loss {l0_:.6e} "
+              f"-> {l_r:.6e}")
+        extra = ""
+        if "proxs_g" in label:
+            # the constraint lives on Z: its columns sum to 1, and the
+            # primal residual |S - Z| falls from the first sweep on
+            Z = r.state["z"][1][0]
+            dev1 = float((Z.sum(0) - 1).abs().max())
+            lR = r.history[:, 1, 0]
+            check(dev1 <= UNITY_SUM_ATOL and lR[-1] < lR[0],
+                  f"bsdmm {label}: Z's columns sum to 1 within {dev1:.2e}; "
+                  f"|R| {lR[0]:.4e} -> {lR[-1]:.4e}")
+            extra = (f"; Z's columns sum to 1 within {dev1:.2e}, primal "
+                     f"residual |S - Z| {lR[0]:.4e} -> {lR[-1]:.4e} (|S| "
+                     f"{float(torch.linalg.norm(r.x[1])):.4e})")
+        if label.startswith("weighted"):
+            _, strides, nxt = r.state["steps_state"]
+            extra = f"; final strides (A, S) {strides}, next refreshes {nxt}"
+        log(f"bsdmm [{label}]: {ITERS} sweeps at e_rel=0: loss {l0_:.6e} -> "
+            f"{l_r:.6e}{extra}")
+    check(sum(f.launches for f in every_kernel) == 0,
+          "bsdmm paths launched a kernel of the port")
+    # with no proxs_g a bsdmm sweep is a Gauss-Seidel PGM step (the S
+    # update sees the new A): the same sweeps written out by hand; PGM
+    # itself updates both factors from the old ones, so only its loss is
+    # set beside
+    A_g, S_g = A0, S0
+    for _ in range(ITERS):
+        sA = tnmf.step_A(A_g, S_g)
+        A_g = top.prox_plus(A_g - sA * ((A_g @ S_g - Y) @ S_g.T), sA)
+        sS = tnmf.step_S(A_g, S_g)
+        S_g = top.prox_plus(S_g - sS * (A_g.T @ (A_g @ S_g - Y)), sS)
+    r_u = bs_res["unweighted"]
+    n_A, n_S = norm_err(r_u.x[0], A_g), norm_err(r_u.x[1], S_g)
+    check(n_A <= ENGINE_RTOL and n_S <= ENGINE_RTOL,
+          f"bsdmm unweighted against Gauss-Seidel PGM by hand: normwise A "
+          f"{n_A:.2e}, S {n_S:.2e} > {ENGINE_RTOL:g}")
+    log(f"bsdmm [unweighted] against {ITERS} Gauss-Seidel PGM steps written "
+        f"out by hand: normwise rel err A {n_A:.2e}, S {n_S:.2e} (tol "
+        f"{ENGINE_RTOL:g}); loss {wloss(*r_u.x, Y):.6e} beside "
+        f"nmf(engine='torch') PGM's {loss_pgm:.6e} after {ITERS} iterations "
+        "(PGM updates both factors from the old ones)")
+    # resumed sweeps equal straight ones, across refresh boundaries too
+    for label, splits in (("unweighted", (ITERS // 4,) * 4),
+                          ("sum-to-one S as proxs_g", (ITERS // 4,) * 4),
+                          ("weighted stride 10", (7, ITERS - 7)),
+                          ("weighted adaptive", (ITERS // 4,) * 4),
+                          ("weighted adaptive", (STRIDE, ITERS - STRIDE))):
+        x, state = None, None
+        for n in splits:
+            seg = bs[label](n, x, state)
+            x, state = seg.x, seg.state
+        straight = bs_res[label]
+        check(all(torch.equal(a, b) for a, b in zip(x, straight.x))
+              and state["it"] == ITERS
+              and state["steps_state"][1:] == straight.state[
+                  "steps_state"][1:],
+              f"bsdmm {label}: resumed as {splits} differs from {ITERS} "
+              "straight sweeps")
+    log(f"bsdmm: unweighted, constrained and weighted adaptive resumed as 4 "
+        f"x {ITERS // 4}, weighted stride 10 as 7 + {ITERS - 7} (inside a "
+        f"segment) and weighted adaptive as {STRIDE} + {ITERS - STRIDE} (a "
+        f"refresh boundary) equal {ITERS} straight sweeps bit for bit")
+    for label, solve in bs.items():
+        kern, _, reads, reads_lo = per_iteration(
+            solve, prof_dir / "admm_family.json", soft_fn)
+        log(f"bsdmm [{label}]: {kern:.1f} CUDA kernels per sweep, "
+            f"{reads:.2f} blocking host reads per sweep (bsdmm's own one, "
+            "and one per eigvalsh of a step; "
+            f"{reads_lo} in a call of 10 sweeps)")
+
+    def pgm_torch(n):
+        return tnmf.nmf(Y, A0, S0, e_rel=0, max_iter=n)
+
+    def pgm_weighted(n):
+        return tnmf.nmf(Y, A0, S0, e_rel=0, max_iter=n, W=Ww,
+                        step_stride=STRIDE, step_adapt=True)
+
+    for label, twin_label, twin in (
+            ("unweighted", "pgm engine=torch", pgm_torch),
+            ("sum-to-one S as proxs_g", "pgm engine=torch", pgm_torch),
+            ("weighted stride 10", "pgm weighted engine=torch adaptive",
+             pgm_weighted),
+            ("weighted adaptive", "pgm weighted engine=torch adaptive",
+             pgm_weighted)):
+        fn = bs[label]
+        ms_t, ms_b, ms_b2, ms_t2 = (marginal_ms(f, LO, HI)
+                                    for f in (twin, fn, fn, twin))
+        log(f"bsdmm [{label}]: {min(ms_b, ms_b2):.4f} ms/sweep marginal "
+            f"({ms_b:.4f}, {ms_b2:.4f}; {LO}->{HI} sweeps), {twin_label} "
+            f"{min(ms_t, ms_t2):.4f} ms/iter ({ms_t:.4f}, {ms_t2:.4f}); "
+            f"order pgm, bsdmm, bsdmm, pgm; on {card}")
+
+    return k4_soft_sdmm[TV_SIZES[0][0]]
 
 
 def main():
@@ -832,7 +1292,7 @@ def main():
         return 2
     # the solvers warn at every max_iter stop, which every run here is
     logging.getLogger("proxmin").setLevel(logging.ERROR)
-    from proxmin_tpu_torch import algorithms
+    from proxmin_tpu_torch import algorithms, linop
     from proxmin_tpu_torch import nmf as tnmf
     from proxmin_tpu_torch import operators as top
     from proxmin_tpu_torch import ops as tops
@@ -879,7 +1339,7 @@ def main():
     log(f"build: all {len(built)} kernel sources ready in "
         f"{time.perf_counter() - t0:.1f} s")
     if sys.argv[1:] == ["--profile"]:
-        profile_paths(tnmf, card)
+        profile_paths(tnmf, algorithms, linop, top, tops, card)
         log(card)
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name,
@@ -1553,17 +2013,7 @@ def main():
             f"{nbytes / ms / 1e6:.1f} GB/s of {nbytes / 1e6:.0f} MB naive "
             f"per iteration, on {card}")
 
-    def run_fn(n, fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn(n)
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
-
-    def marginal(fn):
-        t_lo = min(run_fn(LO, fn) for _ in range(2))
-        t_hi = min(run_fn(HI, fn) for _ in range(2))
-        return (t_hi - t_lo) / (HI - LO) * 1e3
+    marginal = partial(marginal_ms, lo=LO, hi=HI)
 
     def solve(prox_S):
         return lambda n: tnmf.nmf(Y, A0, S0, prox_S=prox_S, e_rel=0,
@@ -1574,8 +2024,8 @@ def main():
     path_pairs.append(("K3 gradient", pgm_k3, lambda n: tnmf.nmf(
         Y, A0, S0, e_rel=0, max_iter=n)))
     for _, fn, twin in path_pairs:
-        run_fn(5, fn)
-        run_fn(5, twin)
+        timed(fn, 5)
+        timed(twin, 5)
     for label, fn, twin in path_pairs:
         ms_t, ms_k, ms_k2, ms_t2 = (marginal(f) for f in (twin, fn, fn, twin))
         log(f"ops path [{label}]: {min(ms_k, ms_k2):.4f} ms/iter marginal "
@@ -1608,8 +2058,8 @@ def main():
                                   store_dtype=sdt)
 
     f32_store, bf16_store = adaprox_store(None), adaprox_store(torch.bfloat16)
-    run_fn(5, f32_store)
-    run_fn(5, bf16_store)
+    timed(f32_store, 5)
+    timed(bf16_store, 5)
     ms_f, ms_b, ms_b2, ms_f2 = (marginal(f) for f in (f32_store, bf16_store,
                                                       bf16_store, f32_store))
     nb16 = (C + 2 * K) * N * 2 + 4 * K * N * 2
@@ -1622,8 +2072,8 @@ def main():
     # turns (base, packed, packed, base)
     for (b_label, b_fn, nb), (p_label, p_fn, _) in (loop_variants[:2],
                                                      loop_variants[2:]):
-        run_fn(5, b_fn)
-        run_fn(5, p_fn)
+        timed(b_fn, 5)
+        timed(p_fn, 5)
         ms_b, ms_p, ms_p2, ms_b2 = (marginal(f)
                                     for f in (b_fn, p_fn, p_fn, b_fn))
         log(f"stream-merge loops: {p_label} {min(ms_p, ms_p2):.4f} ms/iter "
@@ -1632,6 +2082,11 @@ def main():
             f"{b_label} {min(ms_b, ms_b2):.4f} ({ms_b:.4f}, {ms_b2:.4f}; "
             f"{nb / min(ms_b, ms_b2) / 1e6:.0f} GB/s); order base, packed, "
             f"packed, base; on {card}")
+
+    # 11. the ADMM family
+    k4_launches["soft"] += admm_family_phase(
+        (algorithms, linop, tnmf, top, tops), (Y, A0, S0, Ww), loss_t, card,
+        every_kernel, k4_fns["soft"], prof_dir)
 
     k2_ms, k2_plain = k2_times["f32 moments"]
     k1b_ms, k1b_plain, k1b_bound = k1_times["bf16 store, W"]

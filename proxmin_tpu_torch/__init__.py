@@ -1,15 +1,17 @@
 """proxmin_tpu_torch: the PyTorch and CUDA port of proxmin_tpu.
 
 The JAX package ``proxmin_tpu`` is the reference; this package mirrors its
-module names (``operators``, ``utils``, ``solvers``, ``nmf``, ``ops``) so
+module names (``operators``, ``utils``, ``linop``, ``solvers``, ``nmf``,
+``ops``) so
 each counterpart sits at the same relative path. It imports ``torch`` and
 never ``jax``. Plain code is tensor ops on the device the inputs live on;
 the hot NMF step is a hand-written CUDA kernel (``ops``, ``csrc/``) built
 at first use.
 
-Ported so far: the elementwise prox operators, the PGM and AdaProx
-drivers, unweighted PGM-NMF and AdaProx-NMF on the ``"torch"`` and
-``"cuda"`` engines (ROADMAP.md lists what follows).
+Ported so far: the prox operators, the linear operators, the five
+solvers (``pgm``, ``adaprox``, ``admm``, ``sdmm``, ``bsdmm``), and
+NMF by PGM and AdaProx on the ``"torch"`` and ``"cuda"`` engines and by
+bSDMM (ROADMAP.md lists what follows).
 
 Importing the package sets the float32 matmul policy
 (:func:`precision.apply_f32_policy`): no TF32 anywhere.
@@ -23,6 +25,7 @@ from .algorithms import *  # noqa: E402,F401,F403
 from .operators import *  # noqa: E402,F401,F403
 from . import algorithms  # noqa: E402,F401
 from . import interop  # noqa: E402,F401
+from . import linop  # noqa: E402,F401
 from . import nmf  # noqa: E402,F401
 from . import operators  # noqa: E402,F401
 from . import utils  # noqa: E402,F401

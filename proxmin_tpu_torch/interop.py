@@ -9,7 +9,7 @@ arrays (``np.asarray``), so a JAX solve can be continued in the port.
 import numpy as np
 import torch
 
-from .solvers.common import as_tensor, default_device
+from .solvers.common import as_tensor, default_device, map_leaves
 
 __all__ = ["state_from_numpy"]
 
@@ -105,6 +105,62 @@ def _adaprox_state(state, device):
     return out
 
 
+def _tensors(v, device):
+    """A tensor, or nested tuples of them (the Z/U of several
+    constraints or blocks), from NumPy leaves."""
+    return map_leaves(lambda a: _tensor(a, device), v)
+
+
+def _admm_state(state, device):
+    """An ``admm``/``sdmm`` state (the keys of the JAX
+    ``_resume_state``): Z, U and the stall detector's residual as tensors
+    (tuples of them for several constraints), the slack, the clocks and the
+    flags as host values, the residual-balancing multiplier as a 0-d
+    tensor."""
+    return {
+        "z": _tensors(state["z"], device),
+        "u": _tensors(state["u"], device),
+        "r_prev": _tensors(state["r_prev"], device),
+        "slack": float(_py(state["slack"])),
+        "step_scale": _tensor(state["step_scale"], device),
+        "it": int(_py(state["it"])),
+        "total_it": int(_py(state["total_it"])),
+        "converged": bool(_py(state["converged"])),
+        "diverged": bool(_py(state["diverged"])),
+    }
+
+
+def _host_ints(v):
+    """A stateful bsdmm stepper's state: integer arrays (the per-block
+    strides and next-refresh sweeps) as tuples of host integers."""
+    a = np.asarray(v)
+    return int(a) if a.ndim == 0 else tuple(int(i) for i in a)
+
+
+def _bsdmm_state(state, device):
+    """A ``bsdmm`` state: per-block Z/U as nested tuples of tensors, the
+    carried steps as tuples of 0-d tensors, the sweep clock and the flags
+    as host values; in a stepper state (``WeightedBSDMMStepper``'s ``(v,
+    strides, next_refresh)``) the integer leaves become host integers."""
+    def stepper_leaf(v):
+        a = np.asarray(v)
+        return _host_ints(a) if a.dtype.kind in "iu" else _tensor(a, device)
+
+    cfg = tuple(_py(c) for c in state["stride_config"])
+    return {
+        "z": _tensors(state["z"], device),
+        "u": _tensors(state["u"], device),
+        "steps_f": tuple(_tensor(s, device)
+                         for s in np.asarray(state["steps_f"])),
+        "steps_g": _tensors(state["steps_g"], device),
+        "steps_state": map_leaves(stepper_leaf, state["steps_state"]),
+        "it": int(_py(state["it"])),
+        "stride_config": (int(cfg[0]), int(cfg[1]), bool(cfg[2])),
+        "converged": tuple(bool(c) for c in np.asarray(state["converged"])),
+        "diverged": bool(_py(state["diverged"])),
+    }
+
+
 def state_from_numpy(state, device=None):
     """Turn a ``proxmin_tpu`` solver ``.state`` (leaves as NumPy arrays or
     Python scalars) into the port's ``.state`` on ``device`` (default: the
@@ -118,7 +174,10 @@ def state_from_numpy(state, device=None):
     ``adaprox`` states, the driver's and the fused runner's (continued with
     ``nmf(algorithm="adaprox")`` on either engine, or
     ``adaprox(state=...)``), bfloat16 moments and the bfloat16 store
-    included. Other states raise
+    included; the ``admm``/``sdmm`` state (continued with ``admm(state=...)``
+    or ``sdmm(state=...)``) and the ``bsdmm`` state, a stateful stepper's
+    included (continued with ``bsdmm(state=...)`` or
+    ``nmf(algorithm="bsdmm", state=...)``). Other states raise
     ``NotImplementedError``.
     """
     device = default_device(device)
@@ -130,4 +189,8 @@ def state_from_numpy(state, device=None):
             f"no counterpart in the port for a {kind!r} state yet")
     if "M" in state:
         return _adaprox_state(state, device)
+    if "slack" in state:
+        return _admm_state(state, device)
+    if "steps_state" in state:
+        return _bsdmm_state(state, device)
     return _pgm_state(state, device)

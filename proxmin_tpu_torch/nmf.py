@@ -1,4 +1,4 @@
-"""Constrained matrix factorization by PGM and AdaProx.
+"""Constrained matrix factorization by PGM, AdaProx and bSDMM.
 
 Counterpart of :mod:`proxmin_tpu.nmf` for ``min 0.5 ||sqrt(W) (Y - A S)||^2``
 under proximal constraints on A and S, on two engines:
@@ -17,9 +17,14 @@ under proximal constraints on A and S, on two engines:
   :func:`nmf_adaprox_fused` on
   :func:`~proxmin_tpu_torch.ops.nmf_kernels.fused_nmf_adaprox_step` (K2).
 
-``engine="auto"``, ``mesh=`` and bsdmm are later slices (ROADMAP.md
-Queue 1). NumPy inputs go to the CUDA device unless ``device=`` says
-otherwise; tensors stay where they are.
+``algorithm="bsdmm"`` runs the block-SDMM solver
+(:func:`~proxmin_tpu_torch.solvers.bsdmm.bsdmm`) with each block's gradient
+step wrapped as its ``prox_f``, on tensor ops; strided weighted steps come
+from a :class:`WeightedBSDMMStepper`.
+
+``engine="auto"`` and ``mesh=`` are later slices (ROADMAP.md Queue 1).
+NumPy inputs go to the CUDA device unless ``device=`` says otherwise;
+tensors stay where they are.
 """
 
 import logging
@@ -28,7 +33,7 @@ from functools import partial
 import numpy as np
 import torch
 
-from . import algorithms, operators
+from . import algorithms, operators, utils
 from .ops.nmf_kernels import (DEFAULT_TILE_N, fused_nmf_adaprox_step,
                               fused_nmf_pgm_step)
 from .solvers.common import (SolverResult, as_tensor, as_torch_dtype,
@@ -46,6 +51,7 @@ __all__ = [
     "step_pgm",
     "step_adaprox",
     "WeightedPGMStepper",
+    "WeightedBSDMMStepper",
     "pgm_nmf_iteration",
     "nmf",
     "nmf_pgm_fused",
@@ -136,15 +142,25 @@ def step_S(A, S):
 
 def _weighted_lipschitz_A(S, W):
     """``max_c lambda_max(S diag(W[c, :]) S^T)``: the C per-channel K x K
-    Grams in one einsum, then a batched ``eigvalsh``. The JAX package's
-    batched-Lanczos branch for ``C K K > 2**20`` is not ported."""
+    Grams in one einsum, then a batched ``eigvalsh``; past ``C K K =
+    2**20`` elements of Grams, a batched Lanczos iteration on the implicit
+    blocks instead (:func:`~proxmin_tpu_torch.utils.batched_lanczos_max`,
+    ``min(K, 32) + 2`` steps)."""
     C = W.shape[0]
     K = S.shape[0]
-    if C * K * K > (1 << 20):
-        raise _not_yet("the batched-Lanczos weighted Lipschitz bound "
-                       "(C*K*K > 2**20, utils.batched_lanczos_max)", 9)
-    H = torch.einsum("kn,cn,ln->ckl", S, W, S)
-    return torch.max(torch.linalg.eigvalsh(H)[:, -1])
+    if C * K * K <= (1 << 20):
+        H = torch.einsum("kn,cn,ln->ckl", S, W, S)
+        return torch.max(torch.linalg.eigvalsh(H)[:, -1])
+
+    dtype = torch.promote_types(S.dtype, W.dtype)
+    v0 = (torch.ones((C, K), dtype=dtype, device=S.device)
+          + 0.01 * torch.arange(K, dtype=dtype, device=S.device))
+    v0 = v0 / torch.linalg.norm(v0, dim=1, keepdim=True)
+
+    def Hv(v):
+        return (W * (v @ S)) @ S.T
+
+    return utils.batched_lanczos_max(Hv, v0, min(K, 32) + 2)
 
 
 def _weighted_lipschitz_S_v0(N, K, dtype, device):
@@ -265,6 +281,64 @@ class WeightedPGMStepper:
         if it >= state[3]:
             state = self.segment_refresh(state, X, it)[1]
         return state[0], state
+
+
+class WeightedBSDMMStepper:
+    """Stateful per-block steps for the weighted bsdmm route (the bsdmm
+    solver's stateful-steps protocol).
+
+    Counterpart of :class:`proxmin_tpu.nmf.WeightedBSDMMStepper`: each
+    block's refresh computes only that block's weighted bound, the S
+    block's batched power iterate warm-starts across refreshes
+    (``cold_iters`` passes on sweep 0, ``warm_iters`` after), and each
+    refreshed step shrinks by ``safety``; ``adapt=True`` grows or shrinks
+    each block's interval with
+    :func:`~proxmin_tpu_torch.utils.grow_stride`. The state is the JAX
+    layout ``(v, strides, next_refresh)`` with the two strides and the two
+    next-refresh sweeps (index 0 the A block, 1 the S block) as host
+    integers. The JAX ``split_data``, ``stepper_cache_key``,
+    ``segmented_bsdmm`` and ``state_seg_end`` hooks serve ``jit`` and have
+    no counterpart in a host loop.
+    """
+
+    def __init__(self, W, stride=10, safety=0.9, cold_iters=_COLD_ITERS,
+                 warm_iters=_WARM_ITERS, adapt=False, max_stride=100):
+        self.W = W
+        self.stride = int(stride)
+        self.safety = float(safety)
+        self.cold_iters = int(cold_iters)
+        self.warm_iters = int(warm_iters)
+        self.adapt = bool(adapt)
+        self.max_stride = int(max_stride)
+
+    def init_bsdmm_state(self, xs):
+        A, _ = xs
+        v0 = _weighted_lipschitz_S_v0(self.W.shape[1], A.shape[1], A.dtype,
+                                      A.device)
+        return (v0, (self.stride, self.stride), (0, 0))
+
+    def __call__(self, Xs, j=None, state=None, it=None, cached=None):
+        A, S = Xs
+        v, strides, nxt = state
+        if it < nxt[j]:
+            return cached, state
+        if j == 0:
+            step = self.safety / _weighted_lipschitz_A(S, self.W)
+        else:
+            LS, v = _weighted_lipschitz_S(
+                A, self.W, self.cold_iters if it == 0 else self.warm_iters,
+                v0=v, return_v=True)
+            step = self.safety / LS
+        stride_j = strides[j]
+        if self.adapt:
+            # suppressed on the first sweep: the carried step starts at 1,
+            # not at a bound, so its drift would mean nothing
+            stride_j = grow_stride(stride_j, (cached,), (step,),
+                                   (1.0 - self.safety) / 2, self.max_stride,
+                                   first=(it == 0))
+        strides, nxt = list(strides), list(nxt)
+        strides[j], nxt[j] = stride_j, it + stride_j
+        return step, (v, tuple(strides), tuple(nxt))
 
 
 def step_adaprox(*X, it=None):
@@ -804,24 +878,85 @@ def nmf_adaprox_fused(
     )
 
 
-_LATER_ALGORITHMS = {"bsdmm": 11}
+_ALGORITHMS = ("pgm", "adaprox", "bsdmm")
 
 
 def _resolve_algorithm(algorithm):
-    """``None``, ``"pgm"``, ``"adaprox"`` or the port's solver functions;
-    bsdmm raises ``NotImplementedError``, anything else ``ValueError``."""
+    """``None``, ``"pgm"``, ``"adaprox"``, ``"bsdmm"`` or the port's solver
+    functions of those names; anything else raises ``ValueError``."""
     if algorithm is None:
         return algorithms.pgm
-    if algorithm is algorithms.pgm or algorithm is algorithms.adaprox:
+    if any(algorithm is getattr(algorithms, n) for n in _ALGORITHMS):
         return algorithm
     name = algorithm.lower() if isinstance(algorithm, str) else None
-    if name in ("pgm", "adaprox"):
+    if name in _ALGORITHMS:
         return getattr(algorithms, name)
-    if name in _LATER_ALGORITHMS:
-        raise _not_yet(f"nmf(algorithm={algorithm!r})",
-                       _LATER_ALGORITHMS[name])
-    raise ValueError(f"unknown algorithm {algorithm!r}; nmf supports 'pgm' "
-                     "and 'adaprox' (bsdmm is a later slice)")
+    raise ValueError(f"unknown algorithm {algorithm!r}; nmf supports 'pgm', "
+                     "'adaprox' and 'bsdmm'")
+
+
+def _block_gradient(Xs, j, Y, W):
+    """Block j of :func:`grad_likelihood`, the same numbers without the
+    other block's product (a host loop would run it for nothing: under
+    ``jit`` the JAX package's compiler drops the unused half)."""
+    A, S = Xs
+    D = A @ S - Y
+    if not _is_unweighted(W):
+        D = W * D
+    return D @ S.T if j == 0 else A.T @ D
+
+
+def _bsdmm_prox_f(Xj, step_j, Xs=None, j=None, *, Y, W, prox):
+    """Block prox_f of the bsdmm route: a gradient step, then the block's
+    constraint prox."""
+    return prox[j](Xj - step_j * _block_gradient(Xs, j, Y, W), step_j)
+
+
+def _bsdmm_step_default(Xs, j=None, *, W):
+    """Block j of :func:`step_pgm`, without the other block's eigensolve
+    or power iteration."""
+    A, S = Xs
+    if _is_unweighted(W):
+        return step_A(A, S) if j == 0 else step_S(A, S)
+    if j == 0:
+        return 1.0 / _weighted_lipschitz_A(S, W)
+    return 1.0 / _weighted_lipschitz_S(A, W)
+
+
+def _bsdmm_step_custom(Xs, j=None, *, step):
+    return step(*Xs)[j]
+
+
+def _nmf_bsdmm(Y, A, S, W, prox, step, max_iter, e_rel, callback,
+               step_stride, step_adapt, algorithm_args):
+    """``nmf(algorithm='bsdmm')`` on promoted tensors: the two factors as
+    bsdmm's blocks, each block's gradient step as its ``prox_f``."""
+    weighted_default = step is None and not _is_unweighted(W)
+    if step_adapt and not weighted_default:
+        raise ValueError(
+            "step_adapt for algorithm='bsdmm' is supported on the "
+            "weighted default-step path (the expensive per-block "
+            "Lipschitz bounds); use a fixed step_stride for custom "
+            "steps or unweighted problems")
+    prox = tuple(p if p is not None else operators.prox_id for p in prox)
+    prox_f = partial(_bsdmm_prox_f, Y=Y, W=W, prox=prox)
+    if step is None:
+        step_f = partial(_bsdmm_step_default, W=W)
+    else:
+        step_f = partial(_bsdmm_step_custom, step=step)
+    strided = (step_stride is not None and step_stride > 1) or step_adapt
+    stride0 = int(step_stride) if step_stride is not None else 1
+    if strided:
+        if weighted_default:
+            # warm-started per-block weighted bounds, each block's refresh
+            # computing only its own
+            step_f = WeightedBSDMMStepper(W, stride=stride0,
+                                          adapt=step_adapt)
+        else:
+            algorithm_args = dict(algorithm_args, steps_f_stride=stride0)
+    return algorithms.bsdmm([A, S], prox_f, step_f, max_iter=max_iter,
+                            e_rel=e_rel, callback=callback,
+                            **algorithm_args)
 
 
 def _nmf_adaprox_cuda(Y, A, S, W, prox_A, prox_S, e_rel, max_iter, step,
@@ -883,7 +1018,8 @@ def nmf(
     device=None,
     **algorithm_args,
 ):
-    """Non-negative / constrained matrix factorization by PGM or AdaProx.
+    """Non-negative / constrained matrix factorization by PGM, AdaProx or
+    bSDMM.
 
     Solves ``minimize 0.5 ||sqrt(W) (Y - A S)||^2`` under proximal
     constraints on A and S.
@@ -893,7 +1029,9 @@ def nmf(
             inputs are updated in place; tensors stay on their device.
         W: weights (C, N), a scalar or anything that broadcasts to Y.
         prox_A, prox_S: per-factor constraints (None = identity).
-        algorithm: None or ``"pgm"`` (default), or ``"adaprox"``.
+        algorithm: None or ``"pgm"`` (default), ``"adaprox"`` or
+            ``"bsdmm"`` (torch engine only; ``step_adapt`` then needs a
+            weighted problem with the default steps).
         step: optional step callable ``step(*X, it=...)`` (torch engine).
         max_iter, e_rel: forwarded to the solver.
         engine: ``"torch"`` (the generic driver on tensor ops) or
@@ -915,7 +1053,8 @@ def nmf(
             ``eps``, ``separable_prox``, ``moment_dtype``, ``M``, ``V``,
             ``state``, ...) or the fused engine's (``b1``, ``b2``, ``eps``,
             ``tile_n``, ``moment_dtype``, ``store_dtype``, ``M``, ``V``,
-            ``state``).
+            ``state``); for bsdmm the solver's options (``proxs_g``,
+            ``steps_g``, ``Ls``, ``update_order``, ``trace``, ``state``).
 
     A ``state=`` from :func:`nmf_pgm_fused` pins ``engine="cuda"``. An
     adaprox state of either engine resumes on either engine.
@@ -957,9 +1096,11 @@ def nmf(
                                  callback, step_stride, step_adapt, device,
                                  algorithm_args)
     if engine == "cuda":
-        if step is not None or callback is not None:
-            raise ValueError("engine='cuda' takes the default Lipschitz "
-                             "steps and no callback; use engine='torch'")
+        if (algorithm is not algorithms.pgm or step is not None
+                or callback is not None):
+            raise ValueError("engine='cuda' supports algorithm='pgm' or "
+                             "algorithm='adaprox' with default steps and "
+                             "no callback; use engine='torch'")
         extra = set(algorithm_args) - {"tile_n", "store_dtype", "state"}
         if extra:
             raise ValueError(f"unsupported fused-PGM options: "
@@ -979,6 +1120,11 @@ def nmf(
     W = _promote_W(W, Y) if weighted else 1
     # the refresh interval starts at step_stride (default 1) and, with
     # step_adapt, follows the measured drift
+    if algorithm is algorithms.bsdmm:
+        res = _nmf_bsdmm(Y, A, S, W, (prox_A, prox_S), step, max_iter, e_rel,
+                         callback, step_stride, step_adapt, algorithm_args)
+        writeback((A_in, S_in), res.x)
+        return res
     strided = (step_stride is not None and step_stride > 1) or step_adapt
     stride0 = int(step_stride) if step_stride is not None else 1
     if is_adaprox:

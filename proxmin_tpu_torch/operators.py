@@ -48,7 +48,12 @@ def get_thresh(step, thresh, type):
 
 def _like(X, v):
     """``v`` (Python or tensor scalar) as a tensor on ``X``'s device and
-    dtype, so binary ops broadcast without a host round trip."""
+    dtype, so binary ops broadcast without a host round trip. A Python
+    number becomes a fill on the device: copying it there from host memory
+    would make the host wait for the stream (the ADMM solvers pass their
+    steps as Python numbers)."""
+    if type(v) in (bool, int, float):
+        return torch.full((), v, dtype=X.dtype, device=X.device)
     return torch.as_tensor(v, dtype=X.dtype, device=X.device)
 
 

@@ -22,6 +22,7 @@ __all__ = [
     "normalize_prox",
     "normalize_per_block",
     "as_tensor",
+    "map_leaves",
     "as_torch_dtype",
     "separable_blocks",
 ]
@@ -167,6 +168,15 @@ def as_tensor(a, dtype=None, device=None):
             a = a.copy()
         a = torch.as_tensor(a)
     return a.to(device=device, dtype=dtype)
+
+
+def map_leaves(fn, tree):
+    """``fn`` over the leaves of nested tuples or lists (a solver's Z/U:
+    a tensor, a tuple of them per constraint, or a tuple of those per
+    block); the nesting comes back as tuples."""
+    if isinstance(tree, (list, tuple)):
+        return tuple(map_leaves(fn, t) for t in tree)
+    return fn(tree)
 
 
 def as_torch_dtype(dtype):

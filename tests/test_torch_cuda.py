@@ -22,6 +22,8 @@ S' (rtol 2e-4, |S' - S|^2 1e-3). K5 (packed_step): bit for bit equal to K2
 on the same inputs (the same body), and held to the plain version as K2 is.
 K2's bfloat16 store: as K1's (S' within one bfloat16 ulp, the row sums and
 the norms against the stored S'), the moments as above.
+The ADMM family on the card: sdmm with K4 soft as prox_g against
+operators.prox_soft, and resumed solves against straight ones, bitwise.
 """
 
 import functools
@@ -32,7 +34,7 @@ import numpy as np
 import pytest
 import torch
 
-from proxmin_tpu_torch import algorithms
+from proxmin_tpu_torch import algorithms, linop
 from proxmin_tpu_torch import nmf as tnmf
 from proxmin_tpu_torch import operators as top
 from proxmin_tpu_torch import ops as tops
@@ -969,3 +971,146 @@ def test_numpy_inputs_go_to_the_card(dev):
                     for a in _problem(dev, 5, 3, 2000))
     r = tnmf.nmf(Y, A0, S0, e_rel=0, max_iter=3)
     assert r.x[1].device.type == "cuda"
+
+
+def _tv(dev, H=96, lam=0.4):
+    """A small total-variation denoising problem on the card: the noisy
+    image's prox, both difference operators and the zero start."""
+    rng = np.random.default_rng(11)
+    truth = np.zeros((H, H), np.float32)
+    truth[H // 8: H // 2, H // 6: H // 2] = 1.0
+    y = torch.from_numpy(
+        truth + 0.3 * rng.standard_normal((H, H)).astype(np.float32)).to(dev)
+
+    def dh_T(v):
+        return torch.cat([-v[:, :1], v[:, :-1] - v[:, 1:], v[:, -1:]], dim=1)
+
+    def dv_T(v):
+        return torch.cat([-v[:1, :], v[:-1, :] - v[1:, :], v[-1:, :]], dim=0)
+
+    Dh = linop.FunctionOperator(lambda x: x[:, 1:] - x[:, :-1], dh_T, (H, H),
+                                norm_sq=4.0)
+    Dv = linop.FunctionOperator(lambda x: x[1:, :] - x[:-1, :], dv_T, (H, H),
+                                norm_sq=4.0)
+    return (lambda x, s: (x + s * y) / (1.0 + s)), Dh, Dv, torch.zeros_like(y)
+
+
+def test_sdmm_with_the_soft_kernel_equals_the_plain_operator(dev):
+    """K4 soft as sdmm's prox_g: launched twice per iteration, and the
+    iterates equal operators.prox_soft's bit for bit."""
+    prox_f, Dh, Dv, x0 = _tv(dev)
+    kw = dict(Ls=[Dh, Dv], e_rel=0, e_abs=0, max_iter=30)
+    plain = algorithms.sdmm(x0, prox_f, 0.5, proxs_g=[functools.partial(
+        top.prox_soft, thresh=0.4)] * 2, **kw)
+    before = tops.prox_soft_pallas.launches
+    k4 = algorithms.sdmm(x0, prox_f, 0.5, proxs_g=[functools.partial(
+        tops.prox_soft_pallas, thresh=0.4)] * 2, **kw)
+    assert tops.prox_soft_pallas.launches - before == 2 * 30
+    assert k4.x.is_cuda and k4.iterations == 30
+    assert torch.equal(k4.x, plain.x) and k4.errors == plain.errors
+    assert bool(torch.isfinite(k4.x).all())
+
+
+@pytest.mark.parametrize("adapt", [False, True])
+def test_admm_resume_on_the_card_is_bit_exact(dev, adapt):
+    prox_f, Dh, _, x0 = _tv(dev)
+    kw = dict(prox_g=functools.partial(top.prox_soft, thresh=0.4), L=Dh,
+              e_rel=0, e_abs=0, adapt_step=adapt)
+    step = 50.0 if adapt else 0.5
+    full = algorithms.admm(x0, prox_f, step, max_iter=40, **kw)
+    half = algorithms.admm(x0, prox_f, step, max_iter=15, **kw)
+    rest = algorithms.admm(half.x, prox_f, step, max_iter=25,
+                           state=half.state, **kw)
+    assert rest.iterations == 25 and rest.state["total_it"] == 40
+    assert torch.equal(rest.x, full.x) and rest.errors == full.errors
+    for k in ("z", "u", "r_prev"):
+        assert torch.equal(rest.state[k], full.state[k])
+
+
+def test_admm_family_reads_the_host_once_per_iteration(dev):
+    """One blocking read per admm/sdmm iteration and per bsdmm sweep (with
+    steps that need none themselves): twice the iterations add exactly that
+    many synchronizing calls."""
+    import warnings
+
+    prox_f, Dh, Dv, x0 = _tv(dev)
+    soft = functools.partial(top.prox_soft, thresh=0.4)
+
+    def syncs(fn):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return sum("synchroniz" in str(w.message) for w in caught)
+
+    def block_prox(x, s, Xs=None, j=None):
+        return prox_f(x, s)
+
+    solves = {
+        "admm": lambda n: algorithms.admm(x0, prox_f, 0.5, prox_g=soft, L=Dh,
+                                          e_rel=0, e_abs=0, max_iter=n),
+        "sdmm": lambda n: algorithms.sdmm(x0, prox_f, 0.5, proxs_g=[soft] * 2,
+                                          Ls=[Dh, Dv], e_rel=0, e_abs=0,
+                                          max_iter=n),
+        "bsdmm": lambda n: algorithms.bsdmm(
+            [x0, x0], block_prox, lambda Xs, j=None: 0.5,
+            proxs_g=[[soft], None], Ls=[[Dh], None], e_rel=0, max_iter=n),
+    }
+    for name, solve in solves.items():
+        solve(2)
+        lo, hi = syncs(lambda: solve(10)), syncs(lambda: solve(20))
+        assert lo >= 10, (name, lo)
+        assert hi - lo == 10, (name, lo, hi)
+
+
+def test_admm_family_numpy_inputs_go_to_the_card(dev):
+    """NumPy blocks and a NumPy or scipy operator, with no device=."""
+    import scipy.sparse as sp
+
+    n = 12
+    y = np.cumsum(np.random.default_rng(3).normal(size=n))
+    D = np.eye(n)[1:] - np.eye(n)[:-1]
+    yt = torch.from_numpy(y).to(dev)
+
+    def prox_f(x, s):
+        return (x + s * yt) / (1.0 + s)
+
+    soft = functools.partial(top.prox_soft, thresh=0.5)
+    for L in (D, sp.csr_matrix(D)):
+        res = algorithms.admm(y.copy(), prox_f, 0.5, prox_g=soft, L=L,
+                              max_iter=5)
+        assert res.x.is_cuda and res.x.dtype == torch.float64
+    res = algorithms.sdmm(y.copy(), prox_f, 0.5, proxs_g=[soft, top.prox_plus],
+                          Ls=[D, None], max_iter=5)
+    assert res.x.is_cuda
+    res = algorithms.bsdmm([y.copy()], lambda x, s, Xs=None, j=None:
+                           prox_f(x, s), lambda Xs, j=None: 0.5,
+                           proxs_g=[[soft]], Ls=[[D]], max_iter=5)
+    assert res.x[0].is_cuda
+    assert linop.MatrixOperator(D).L.is_cuda
+    assert linop.SparseOperator(sp.csr_matrix(D)).L.is_cuda
+
+
+@pytest.mark.parametrize("policy", [{}, {"step_stride": 4},
+                                    {"step_stride": 4, "step_adapt": True}])
+def test_nmf_bsdmm_on_the_card(dev, policy):
+    """nmf(algorithm="bsdmm") weighted on the card: the loss falls and a
+    resumed solve equals the straight one bit for bit."""
+    A, S, Y, W = _problem(dev, 5, 3, 2000, weighted=True)
+    Y = A @ S + 0.01
+    rng = np.random.default_rng(7)
+    A0, S0 = (torch.tensor(rng.random(tuple(t.shape)), dtype=torch.float32,
+                           device=dev) for t in (A, S))
+    kw = dict(W=W, algorithm="bsdmm", e_rel=0, **policy)
+    full = tnmf.nmf(Y, A0, S0, max_iter=20, **kw)
+    half = tnmf.nmf(Y, A0, S0, max_iter=8, **kw)
+    rest = tnmf.nmf(Y, *half.x, max_iter=12, state=half.state, **kw)
+    assert rest.state["it"] == 20
+    for a, b in zip(rest.x, full.x):
+        assert a.is_cuda and torch.equal(a, b)
+    loss = lambda A_, S_: float(tnmf.log_likelihood(A_, S_, Y=Y, W=W))  # noqa
+    assert np.isfinite(loss(*full.x)) and loss(*full.x) < loss(A0, S0)

@@ -198,7 +198,7 @@ def test_likelihood_gradient_and_steps_match_jax():
     ({"backtracking": True}, NotImplementedError),
     ({"engine": "auto"}, NotImplementedError),
     ({"mesh": object()}, NotImplementedError),
-    ({"algorithm": "bsdmm"}, NotImplementedError),
+    ({"algorithm": "bsdmm", "engine": "cuda"}, ValueError),
     ({"algorithm": "admm"}, ValueError),
     ({"trace": True}, NotImplementedError),
     ({"engine": "pallas"}, ValueError),
@@ -208,6 +208,19 @@ def test_later_slices_raise_clearly(kw, err):
     Y, A0, S0 = _problem()
     with pytest.raises(err):
         _nmf(Y, A0, S0, max_iter=2, **kw)
+
+
+def test_bsdmm_algorithm_matches_jax():
+    """nmf(algorithm="bsdmm"), by name and by function, against the JAX
+    package's at a fixed sweep count."""
+    Y, A0, S0 = _problem()
+    rj = pt.nmf.nmf(Y, A0.copy(), S0.copy(), algorithm="bsdmm", e_rel=0,
+                    max_iter=15)
+    for algorithm in ("bsdmm", ptt.bsdmm):
+        rt = _nmf(Y, A0.copy(), S0.copy(), algorithm=algorithm, e_rel=0,
+                  max_iter=15)
+        assert rj.iterations == rt.iterations == 15
+        _close(rt.x, rj.x, F64)
 
 
 def _entry_points():

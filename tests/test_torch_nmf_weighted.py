@@ -331,10 +331,13 @@ def test_continue_a_jax_weighted_solve_in_the_port(engines, policy):
 
 
 def test_option_gates():
-    # past C K K = 2**20 the JAX package switches to batched Lanczos
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ptt.nmf._weighted_lipschitz_A(torch.ones((33, 2)),
-                                      torch.ones((1000, 2)))
+    # past C K K = 2**20 both packages switch to batched Lanczos
+    rng = np.random.default_rng(5)
+    S_big, W_big = rng.random((33, 6)), 0.5 + rng.random((1000, 6))
+    np.testing.assert_allclose(
+        float(ptt.nmf._weighted_lipschitz_A(torch.from_numpy(S_big),
+                                            torch.from_numpy(W_big))),
+        float(pt.nmf._weighted_lipschitz_A(S_big, W_big)), **F64)
     Y, A0, S0, W = _problem(dtype=np.float32)
     with pytest.raises(ValueError, match="store_dtype"):
         _nmf(Y, A0, S0, W=W, max_iter=2, store_dtype=torch.bfloat16)
