@@ -17,8 +17,10 @@ the ADMM family: ``admm`` and ``sdmm`` on the total-variation denoising
 problem of
 benchmarks/admm_scale.py (seed 11, 1024 x 1024 and 4096 x 4096 pixels,
 float32), with K4's soft threshold as ``sdmm``'s ``prox_g``, and
-``nmf(algorithm="bsdmm")`` on the flagship. It exits non-zero when any
-phase fails. Phases:
+``nmf(algorithm="bsdmm")`` on the flagship; then the drivers' options
+(callbacks, traces, backtracking, autodiff gradients, Barzilai-Borwein
+steps) and checkpoint/resume of six solves through a file. It exits
+non-zero when any phase fails. Phases:
 
 1. probe: CUDA/driver/compiler versions, the card and its power limit;
 2. build K1, K2 (with K5), K3 and K4 from proxmin_tpu_torch/csrc/ with
@@ -79,7 +81,28 @@ phase fails. Phases:
    constraint on S through ``bsdmm`` itself, and weighted with
    ``step_stride=10`` fixed and adaptive: the loss decreases, resumed
    sweeps equal straight ones bit for bit (across a refresh boundary too),
-   launches and reads per sweep, marginal ms/sweep in turns with PGM.
+   launches and reads per sweep, marginal ms/sweep in turns with PGM;
+12. the solvers' options and the checkpoint, at the flagship:
+   ``nmf(engine="torch", callback=NullCallback())`` in turns with no
+   callback (ms/iter, launches and blocking reads per iteration, which must
+   not change), ``StopIteration`` at iteration 37, ``Traceback`` for 10
+   iterations (ms/iter, the GB/s of its device-to-host copies, its last
+   entry equal to ``.x`` bit for bit); ``pgm(trace=True)`` (the history's
+   shape, its last row against the residual of the last two iterates, reads
+   unchanged); backtracking from constant steps with A's 8 times the
+   Lipschitz one, plain and FISTA (``T`` halves, the loss ends finite and
+   below the start's, where the run without it diverges; launches and reads
+   per iteration), and with both steps too long (printed); ``grad=None`` against the explicit gradient (50
+   iterations, normwise, ms/iter in turns); Barzilai-Borwein steps of both
+   types (the loss falls, 50 + 50 resumed equals 100 straight bit for bit);
+   and for six solves (PGM cuda exact; weighted adaptive with the bfloat16
+   store; AdaProx cuda with bfloat16 store and moments; FISTA with
+   backtracking on the torch engine; ``sdmm`` TV 1024 x 1024 with K4 soft;
+   bsdmm-NMF weighted adaptive): run 100 iterations, ``save_checkpoint`` to
+   a file, drop every tensor, ``load_checkpoint`` onto the card, run 100
+   more, equal to 200 straight ones bit for bit (the adaptive ones also
+   split on a refresh boundary), with each file's size and its save and
+   load seconds.
 
 The last two lines are the card (``nvidia-smi`` name and power limit)
 after a JSON object describing the kernels (each with its time, its plain
@@ -98,9 +121,11 @@ under ``build/profile/``).
 
 import json
 import logging
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from functools import partial
 
@@ -198,6 +223,23 @@ TV_SIZES = ((1024, 200, 1000), (4096, 50, 150))
 LANCZOS_CASES = ((256, 65, 16), (20000, 8, 64))
 LANCZOS_RTOL = 1e-4
 LANCZOS_OVER = 1.5
+# The solvers' options (phase 12). Backtracking starts from a step of A this
+# many times the Lipschitz one and runs this many iterations; a callback stops
+# a solve at STOP_AT; Traceback records this many iterations; trace= and the
+# Barzilai-Borwein steps run TRACE_ITERS and BB_ITERS iterations.
+BT_FACTOR, BT_ITERS = 8, 100
+STOP_AT = 37
+TRACEBACK_ITERS = 10
+TRACE_ITERS = 30
+BB_ITERS = 100
+# pgm(trace=True)'s last row against the residual recomputed from the last
+# two iterates: the same reductions of the same tensors.
+TRACE_RTOL = 1e-5
+# grad=None (autograd of log_likelihood) against grad_likelihood after
+# GRAD_NONE_ITERS iterations, normwise per factor: the same products, with
+# the factor 2 / 2 of the square's derivative (exact) in another place.
+GRAD_NONE_ITERS, GRAD_NONE_RTOL = 50, 1e-5
+GRAD_NONE_LO, GRAD_NONE_HI = 20, 70
 
 
 def log(*args):
@@ -833,16 +875,16 @@ def marginal_ms(fn, lo, hi):
     return (t_hi - t_lo) / (hi - lo) * 1e3
 
 
-def per_iteration(solve, trace, k4_fn, n=10):
-    """CUDA kernels (all, and K4 soft's by its wrapper's count) and
-    blocking host reads per iteration of ``solve(n)``: the difference
-    between a run of ``2 n`` iterations and one of ``n``, so what a call
-    does once drops out. Returns them with the reads of the ``n``-iteration
-    call."""
+def per_iteration(solve, trace, k4_fn=None, n=10):
+    """CUDA kernels (all, and K4 soft's by its wrapper's count where
+    ``k4_fn`` is given) and blocking host reads per iteration of
+    ``solve(n)``: the difference between a run of ``2 n`` iterations and one
+    of ``n``, so what a call does once drops out. Returns them with the
+    reads of the ``n``-iteration call."""
     k_lo = launches_of(lambda: solve(n), trace)
-    before = k4_fn.launches
+    before = k4_fn.launches if k4_fn else 0
     k_hi = launches_of(lambda: solve(2 * n), trace)
-    k4 = k4_fn.launches - before
+    k4 = k4_fn.launches - before if k4_fn else 0
     r_lo = blocking_reads(lambda: solve(n))
     r_hi = blocking_reads(lambda: solve(2 * n))
     return (k_hi - k_lo) / n, k4 / (2 * n), (r_hi - r_lo) / n, r_lo
@@ -1283,6 +1325,330 @@ def admm_family_phase(mods, problem, loss_pgm, card, every_kernel, soft_fn,
             f"order pgm, bsdmm, bsdmm, pgm; on {card}")
 
     return k4_soft_sdmm[TV_SIZES[0][0]]
+
+
+def driver_options_phase(mods, problem, card, every_kernel, kernel_fns,
+                         prof_dir):
+    """Phase 12: the solvers' options and the checkpoint on the card (see the
+    module docstring). ``mods`` are the port's modules ``(algorithms, linop,
+    tnmf, top, tops)``, ``problem`` the flagship ``(Y, A0, S0, Ww)``,
+    ``kernel_fns`` the wrappers ``(K1, K2, K4 soft)``. Returns the launches
+    of the checkpoint path by kernel: K1 with the float32 and with the
+    bfloat16 store, K2 with the bfloat16 store, K4 soft."""
+    from proxmin_tpu_torch import utils as tu
+    from proxmin_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
+
+    algorithms, linop, tnmf, top, tops = mods
+    Y, A0, S0, Ww = problem
+    k1_fn, k2_fn, soft_fn = kernel_fns
+    trace = prof_dir / "driver_options.json"
+    loss0 = wloss(A0, S0, Y)
+    f = partial(tnmf.log_likelihood, Y=Y)
+    grad = partial(tnmf.grad_likelihood, Y=Y)
+
+    def nmf_solve(**kw):
+        def solve(n, x=None, state=None):
+            A, S = (A0, S0) if x is None else x
+            return tnmf.nmf(Y, A, S, e_rel=0, max_iter=n, state=state, **kw)
+        return solve
+
+    def pgm_solve(grad_=grad, step=tnmf.step_pgm, **kw):
+        def solve(n, x=None, state=None):
+            return algorithms.pgm(
+                list((A0, S0) if x is None else x), grad_, step,
+                prox=[top.prox_plus] * 2, e_rel=0, max_iter=n, state=state,
+                **kw)
+        return solve
+
+    def counts_of(solve):
+        kern, _, reads, reads_lo = per_iteration(solve, trace)
+        return kern, reads, reads_lo
+
+    # callbacks: NullCallback against no callback, in turns
+    plain, with_cb = nmf_solve(), nmf_solve(callback=tu.NullCallback())
+    timed(plain, 5)
+    timed(with_cb, 5)
+    (k_p, r_p, r_p10), (k_c, r_c, r_c10) = counts_of(plain), counts_of(with_cb)
+    check(r_c == r_p and r_c10 == r_p10 and abs(k_c - k_p) < 0.5,
+          f"callback=NullCallback(): {k_c:.1f} kernels and {r_c:.2f} "
+          f"blocking reads per iteration, {k_p:.1f} and {r_p:.2f} without")
+    ms_p, ms_c, ms_c2, ms_p2 = (marginal_ms(fn, LO, HI) for fn in (
+        plain, with_cb, with_cb, plain))
+    log(f"nmf engine=torch callback=NullCallback(): {min(ms_c, ms_c2):.4f} "
+        f"ms/iter marginal ({ms_c:.4f}, {ms_c2:.4f}), no callback "
+        f"{min(ms_p, ms_p2):.4f} ({ms_p:.4f}, {ms_p2:.4f}); order none, "
+        f"callback, callback, none; {k_c:.1f} CUDA kernels and {r_c:.2f} "
+        f"blocking reads per iteration with it, {k_p:.1f} and {r_p:.2f} "
+        f"without ({r_c10} and {r_p10} in a call of 10 iterations); on "
+        f"{card}")
+
+    def stop_at(*X, it=None):
+        if it == STOP_AT:
+            raise StopIteration
+
+    r = nmf_solve(callback=stop_at)(ITERS)
+    check(r.iterations == STOP_AT and r.state["it"] == STOP_AT
+          and r.status == "max_iter"
+          and all(bool(torch.isfinite(a).all()) for a in (*r.x, *r.G)),
+          f"StopIteration at it == {STOP_AT}: {r.iterations} iterations, "
+          f"status {r.status}")
+    log(f"nmf engine=torch, a callback raising StopIteration at it == "
+        f"{STOP_AT}: stopped after {r.iterations} iterations, the final "
+        "gradient computed")
+
+    tb = tu.Traceback()
+
+    def record_then_stop(*X, it=None):
+        tb(*X, it=it)
+        if it == TRACEBACK_ITERS:
+            raise StopIteration
+
+    r = nmf_solve(callback=record_then_stop)(ITERS)
+    torch.cuda.synchronize()
+    check(r.iterations == TRACEBACK_ITERS
+          and len(tb.trace) == TRACEBACK_ITERS + 1
+          and all(type(b) is np.ndarray for b in tb.trace[-1])
+          and all(np.array_equal(b, x.cpu().numpy())
+                  for b, x in zip(tb.trace[-1], r.x))
+          and np.array_equal(tb.trace[0][1], S0.cpu().numpy()),
+          "Traceback: its last entry differs from .x, or its first from S0")
+    tb.clear()
+
+    def with_tb(n):
+        tb.clear()
+        return tnmf.nmf(Y, A0, S0, e_rel=0, max_iter=n, callback=tb)
+
+    t_null = min(timed(with_cb, TRACEBACK_ITERS) for _ in range(2))
+    t_tb = min(timed(with_tb, TRACEBACK_ITERS) for _ in range(2))
+    tb.clear()
+    copied = TRACEBACK_ITERS * tensor_bytes(A0, S0)
+    log(f"nmf engine=torch callback=Traceback(): {TRACEBACK_ITERS} "
+        f"iterations in {t_tb * 1e3:.2f} ms ({t_tb / TRACEBACK_ITERS * 1e3:.4f}"
+        f" ms/iter), with NullCallback {t_null * 1e3:.2f} ms "
+        f"({t_null / TRACEBACK_ITERS * 1e3:.4f} ms/iter); its copies move "
+        f"{copied / 1e6:.0f} MB to the host in the "
+        f"{(t_tb - t_null) * 1e3:.2f} ms between: "
+        f"{copied / max(t_tb - t_null, 1e-9) / 1e9:.2f} GB/s; the entry "
+        f"recorded before iteration {TRACEBACK_ITERS} equals the .x of a "
+        f"solve stopped there bit for bit; on {card}")
+
+    # trace=True
+    traced, untraced = pgm_solve(trace=True), pgm_solve()
+    r_tr, r_before = traced(TRACE_ITERS), untraced(TRACE_ITERS - 1)
+    last = [float(torch.sqrt(d / torch.clamp_min(nx, 1e-30)))
+            for d, nx in (tu.fixed_point_norms(x, xp)
+                          for x, xp in zip(r_tr.x, r_before.x))]
+    h = r_tr.history
+    check(h.shape == (TRACE_ITERS, 2) and h.dtype == np.float32
+          and bool(np.isfinite(h).all()) and untraced(3).history is None,
+          f"pgm trace=True: history of shape {h.shape}, {h.dtype}")
+    check(np.allclose(h[-1], last, rtol=TRACE_RTOL, atol=0),
+          f"pgm trace=True: last row {h[-1]} against the residual of the "
+          f"last two iterates {last}")
+    (k_t, r_t, r_t10), (k_u, r_u, r_u10) = (counts_of(traced),
+                                            counts_of(untraced))
+    # the trace's one copy to the host comes at the end of the solve
+    check(r_t == r_u and r_t10 == r_u10 + 1,
+          f"pgm trace=True: {r_t:.2f} blocking reads per iteration ({r_t10} "
+          f"in a call of 10), {r_u:.2f} without ({r_u10})")
+    log(f"pgm trace=True on the flagship gradient: history {h.shape}, "
+        f"residuals (A, S) {h[0]} -> {h[-1]}, the last row equal to the "
+        f"residual of the last two iterates within {TRACE_RTOL:g} "
+        f"(bitwise: {bool((h[-1] == np.float32(last)).all())}); "
+        f"{k_t:.1f} CUDA kernels and {r_t:.2f} blocking reads per iteration "
+        f"with the trace, {k_u:.1f} and {r_u:.2f} without ({r_t10} and "
+        f"{r_u10} in a call of 10 iterations: the history's one copy at the "
+        "end)")
+
+    # backtracking from constant steps, the Lipschitz ones of the start
+    # iterate with A's taken BT_FACTOR times too long
+    sA0, sS0 = (float(v) for v in tnmf.step_pgm(A0, S0))
+    long_A, both_long = (BT_FACTOR * sA0, sS0), (BT_FACTOR * sA0,
+                                                 BT_FACTOR * sS0)
+    for accelerated in (False, True):
+        label = "FISTA" if accelerated else "plain"
+        # the same loop with constant steps and no line search
+        k_loop, r_loop, _ = counts_of(pgm_solve(step=(sA0, sS0),
+                                                accelerated=accelerated))
+        bt = pgm_solve(step=long_A, accelerated=accelerated,
+                       backtracking=True, f=f)
+        r_bt = bt(BT_ITERS)
+        r_no = pgm_solve(step=long_A, accelerated=accelerated)(BT_ITERS)
+        torch.cuda.synchronize()
+        l_bt, l_no = wloss(*r_bt.x, Y), wloss(*r_no.x, Y)
+        T = r_bt.state["T"].tolist()
+        check(r_bt.iterations == BT_ITERS and np.isfinite(l_bt)
+              and l_bt < loss0 and T[0] < 1.0
+              and all(bool(torch.isfinite(a).all()) for a in r_bt.x),
+              f"backtracking [{label}]: loss {loss0:.6e} -> {l_bt:.6e}, "
+              f"T {T}")
+        check(r_no.status == "diverged" or not l_no < loss0,
+              f"A's step {BT_FACTOR} times too long without backtracking "
+              f"[{label}]: status {r_no.status}, loss {l_no:.6e}")
+        kern, reads, reads10 = counts_of(bt)
+        log(f"pgm backtracking [{label}], constant steps, A's {BT_FACTOR} x "
+            f"step_pgm(A0, S0)'s, {BT_ITERS} iterations: loss {loss0:.6e} "
+            f"-> {l_bt:.6e}, T (A, S) {T}; without backtracking: status "
+            f"{r_no.status} after {r_no.iterations} iterations; {kern:.1f} "
+            f"CUDA kernels and {reads:.2f} blocking reads per iteration "
+            f"once T has settled ({k_loop:.1f} and {r_loop:.2f} for the same "
+            f"loop without the line search), {reads10} reads in the first "
+            "10 iterations, halvings included")
+    # with both steps too long the rule (the block with the steepest
+    # relative update halves) can keep halving the block that is not at
+    # fault, up to the cap: the reference's rule, as the JAX package has it
+    r_both = pgm_solve(step=both_long, backtracking=True, f=f)(BT_ITERS)
+    T = r_both.state["T"].tolist()
+    check(r_both.iterations == BT_ITERS and min(T) < 1.0
+          and all(bool(torch.isfinite(a).all()) for a in r_both.x),
+          f"backtracking, both steps {BT_FACTOR} times too long: T {T}")
+    log(f"pgm backtracking [plain], both steps {BT_FACTOR} x "
+        f"step_pgm(A0, S0)'s, {BT_ITERS} iterations: loss {loss0:.6e} -> "
+        f"{wloss(*r_both.x, Y):.6e}, T (A, S) {T}")
+
+    # grad=None against the explicit gradient, in turns
+    by_f = pgm_solve(grad_=None, f=f)
+    r_f, r_g = by_f(GRAD_NONE_ITERS), untraced(GRAD_NONE_ITERS)
+    n_A, n_S = (norm_err(r_f.x[i], r_g.x[i]) for i in (0, 1))
+    check(n_A <= GRAD_NONE_RTOL and n_S <= GRAD_NONE_RTOL
+          and not r_f.x[1].requires_grad,
+          f"grad=None against grad_likelihood after {GRAD_NONE_ITERS} "
+          f"iterations: normwise A {n_A:.2e}, S {n_S:.2e} > "
+          f"{GRAD_NONE_RTOL:g}")
+    (k_f, rd_f, _), (k_g, rd_g, _) = counts_of(by_f), counts_of(untraced)
+    check(rd_f == rd_g, f"grad=None: {rd_f:.2f} blocking reads per "
+          f"iteration, {rd_g:.2f} with the explicit gradient")
+    ms_g, ms_f, ms_f2, ms_g2 = (
+        marginal_ms(fn, GRAD_NONE_LO, GRAD_NONE_HI)
+        for fn in (untraced, by_f, by_f, untraced))
+    log(f"pgm grad=None (autograd of log_likelihood) against "
+        f"grad_likelihood, {GRAD_NONE_ITERS} iterations: normwise rel err "
+        f"A {n_A:.2e}, S {n_S:.2e} (tol {GRAD_NONE_RTOL:g}); "
+        f"{min(ms_f, ms_f2):.4f} ms/iter marginal ({ms_f:.4f}, {ms_f2:.4f};"
+        f" {GRAD_NONE_LO}->{GRAD_NONE_HI} iterations), explicit "
+        f"{min(ms_g, ms_g2):.4f} ({ms_g:.4f}, {ms_g2:.4f}); order explicit, "
+        f"f, f, explicit; {k_f:.1f} CUDA kernels per iteration against "
+        f"{k_g:.1f}, {rd_f:.2f} blocking reads against {rd_g:.2f}; on "
+        f"{card}")
+
+    # Barzilai-Borwein steps
+    for bb_type in (1, 2):
+        bb = pgm_solve(step=tu.BarzilaiBorweinStepper(type=bb_type))
+        full, half = bb(BB_ITERS), bb(BB_ITERS // 2)
+        rest = bb(BB_ITERS - BB_ITERS // 2, half.x, half.state)
+        torch.cuda.synchronize()
+        l_bb = wloss(*full.x, Y)
+        check(full.iterations == BB_ITERS and np.isfinite(l_bb)
+              and l_bb < loss0, f"BB{bb_type}: loss {loss0:.6e} -> "
+              f"{l_bb:.6e}")
+        check(all(torch.equal(a, b) for a, b in zip(rest.x, full.x))
+              and rest.state["it"] == BB_ITERS
+              and torch.equal(rest.state["stepper_state"][2],
+                              full.state["stepper_state"][2]),
+              f"BB{bb_type}: {BB_ITERS // 2} + {BB_ITERS // 2} resumed "
+              f"iterations differ from {BB_ITERS} straight ones")
+        kern, reads, _ = counts_of(bb)
+        log(f"pgm BarzilaiBorweinStepper(type={bb_type}), {BB_ITERS} "
+            f"iterations: loss {loss0:.6e} -> {l_bb:.6e}, last steps "
+            + ", ".join(f"{float(s):.3e}" for s in full.S)
+            + f"; {BB_ITERS // 2} + {BB_ITERS // 2} resumed equal "
+            f"{BB_ITERS} straight bit for bit; {kern:.1f} CUDA kernels and "
+            f"{reads:.2f} blocking reads per iteration")
+
+    # checkpoint: run, save, drop every tensor, load onto the card, resume
+    _, _, _, _, sdmm_k4 = tv_solvers(algorithms, linop, top, tops,
+                                     TV_SIZES[0][0])
+    half_half = (ITERS // 2, ITERS - ITERS // 2)
+    on_boundary = (STRIDE, ITERS - STRIDE)
+    bf16 = torch.bfloat16
+    # (label, solve, its kernel's wrapper, launches per iteration, weights
+    # of its loss (False: not an NMF solve), the splits)
+    configs = (
+        ("pgm engine=cuda exact", nmf_solve(engine="cuda"), k1_fn, 1, None,
+         (half_half,)),
+        ("pgm weighted engine=cuda adaptive bf16 store", nmf_solve(
+            engine="cuda", W=Ww, step_stride=STRIDE, step_adapt=True,
+            store_dtype=bf16), k1_fn, 1, Ww, (half_half, on_boundary)),
+        ("adaprox engine=cuda bf16 store and moments", nmf_solve(
+            algorithm="adaprox", engine="cuda", store_dtype=bf16,
+            moment_dtype=bf16), k2_fn, 1, None, (half_half,)),
+        ("pgm engine=torch FISTA + backtracking", nmf_solve(
+            accelerated=True, backtracking=True, f=f), None, 0, None,
+         (half_half,)),
+        ("sdmm TV 1024x1024 K4 soft", sdmm_k4, soft_fn, 2, False,
+         (half_half,)),
+        ("bsdmm weighted adaptive", nmf_solve(
+            algorithm="bsdmm", W=Ww, step_stride=STRIDE, step_adapt=True),
+         None, 0, Ww, (half_half, on_boundary)),
+    )
+
+    def blocks(x):
+        return x if isinstance(x, (tuple, list)) else (x,)
+
+    launches = []
+    with tempfile.TemporaryDirectory(dir=prof_dir.parent) as tmp:
+        for label, solve, kernel_fn, per_iter, W_, split_list in configs:
+            reset_counts(every_kernel)
+            straight = solve(ITERS)
+            torch.cuda.synchronize()
+            check(straight.iterations == ITERS and all(
+                bool(torch.isfinite(a).all()) for a in blocks(straight.x)),
+                f"checkpoint [{label}]: {straight.iterations} iterations, "
+                "or a non-finite iterate")
+            if W_ is not False:
+                l0_, l_s = wloss(A0, S0, Y, W_), wloss(*straight.x, Y, W_)
+                check(np.isfinite(l_s) and l_s < l0_,
+                      f"checkpoint [{label}]: loss {l0_:.6e} -> {l_s:.6e}")
+            files = []
+            for splits in split_list:
+                x = state = None
+                for i, n in enumerate(splits):
+                    seg = solve(n, x, state)
+                    if i + 1 == len(splits):
+                        break
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    path = save_checkpoint(
+                        os.path.join(tmp, re.sub(r"\W+", "_", label)),
+                        x=seg.x, solver_state=seg.state)
+                    t_save = time.perf_counter() - t0
+                    # the killed process: nothing of the solve survives
+                    # but the file
+                    del seg, x, state
+                    torch.cuda.empty_cache()
+                    t0 = time.perf_counter()
+                    ck = load_checkpoint(path)
+                    torch.cuda.synchronize()
+                    t_load = time.perf_counter() - t0
+                    x, state = ck["x"], ck["solver_state"]
+                    del ck
+                    check(all(a.is_cuda for a in blocks(x)),
+                          f"checkpoint [{label}]: loaded off the card")
+                    files.append((splits, os.path.getsize(path), t_save,
+                                  t_load))
+                check(all(torch.equal(a, b) for a, b in zip(
+                    blocks(seg.x), blocks(straight.x)))
+                    and seg.iterations == splits[-1],
+                    f"checkpoint [{label}]: resumed from the file as "
+                    f"{splits} differs from {ITERS} straight iterations")
+            counts = {fn.__name__: fn.launches for fn in every_kernel}
+            ran = ITERS * (1 + len(split_list))
+            check(sum(counts.values()) == per_iter * ran and (
+                kernel_fn is None or kernel_fn.launches == per_iter * ran),
+                f"checkpoint [{label}]: launches {counts} in {ran} "
+                "iterations")
+            launches.append(kernel_fn.launches if kernel_fn else 0)
+            log(f"checkpoint [{label}]: " + "; ".join(
+                f"{a} + {b} through a file of {size / 1e6:.1f} MB (saved "
+                f"in {t_s:.3f} s, loaded onto the card in {t_l:.3f} s)"
+                for (a, b), size, t_s, t_l in files)
+                + f": equal to {ITERS} straight iterations bit for bit"
+                + (f"; {kernel_fn.__name__} launches {kernel_fn.launches} "
+                   f"= {per_iter} per iteration, no other kernel"
+                   if kernel_fn else "; no kernel of the port")
+                + f"; on {card}")
+    return {"K1": launches[0], "K1 bf16 store": launches[1],
+            "K2 bf16 store": launches[2], "K4 soft": launches[4]}
 
 
 def main():
@@ -2087,6 +2453,15 @@ def main():
     k4_launches["soft"] += admm_family_phase(
         (algorithms, linop, tnmf, top, tops), (Y, A0, S0, Ww), loss_t, card,
         every_kernel, k4_fns["soft"], prof_dir)
+
+    # 12. the solvers' options and the checkpoint
+    ck_launches = driver_options_phase(
+        (algorithms, linop, tnmf, top, tops), (Y, A0, S0, Ww), card,
+        every_kernel, (k1_fn, k2_fn, k4_fns["soft"]), prof_dir)
+    k1_launches += ck_launches["K1"]
+    k1b_launches += ck_launches["K1 bf16 store"]
+    k2s_launches += ck_launches["K2 bf16 store"]
+    k4_launches["soft"] += ck_launches["K4 soft"]
 
     k2_ms, k2_plain = k2_times["f32 moments"]
     k1b_ms, k1b_plain, k1b_bound = k1_times["bf16 store, W"]

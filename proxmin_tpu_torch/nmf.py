@@ -666,7 +666,9 @@ def _run_fused_adaprox(A, S, Y, W, MA, VA, MS, VS, max_iter, prox_A, prox_S,
     conv_A = torch.tensor(bool(conv_A0), device=dev)
     conv_S = torch.tensor(bool(conv_S0), device=dev)
     loss = torch.tensor(float(loss0), dtype=f32, device=dev)
-    tiny = float(torch.finfo(f32).tiny)
+    # filled on the device: copying a host number there every iteration
+    # would make the host wait for the stream
+    tiny = torch.full((), torch.finfo(f32).tiny, dtype=f32, device=dev)
     one, b1_t, b2_t = np.float32(1), np.float32(b1), np.float32(b2)
     it = 0
 
@@ -696,7 +698,7 @@ def _run_fused_adaprox(A, S, Y, W, MA, VA, MS, VS, max_iter, prox_A, prox_S,
         MA1 = float(one - b1_t) * gA + float(b1_t) * MA
         VA1 = (1.0 - b2) * gA ** 2 + b2 * VA
         PsiA = torch.sqrt(VA1 * float(bc2)) + eps
-        PsiA_safe = torch.maximum(PsiA, PsiA.new_tensor(tiny))
+        PsiA_safe = torch.maximum(PsiA, tiny)
         A1 = A - alpha_A[None, :] * (MA1 * float(bc1)) / PsiA_safe
         A1 = prox_A(A1, alpha_A[None, :] / PsiA_safe)
         dA_sq = torch.sum((A1 - A) ** 2)
@@ -1034,6 +1036,9 @@ def nmf(
             weighted problem with the default steps).
         step: optional step callable ``step(*X, it=...)`` (torch engine).
         max_iter, e_rel: forwarded to the solver.
+        callback: ``callback(A, S, it=it)`` before every iteration, with
+            the factors as tensors; ``StopIteration`` ends the solve
+            (torch engine; e.g. :class:`~proxmin_tpu_torch.utils.Traceback`).
         engine: ``"torch"`` (the generic driver on tensor ops) or
             ``"cuda"`` (a fused kernel per iteration: :func:`nmf_pgm_fused`
             on K1, or :func:`nmf_adaprox_fused` on K2 for the adam scheme
@@ -1046,14 +1051,15 @@ def nmf(
         device: where NumPy inputs go (default: the device of a tensor
             input, else the CUDA device; without one, pass
             ``device="cpu"``).
-        algorithm_args: for pgm ``accelerated``, ``restart``, ``state``
-            (torch engine) or ``tile_n``, ``store_dtype``, ``state`` (cuda
-            engine); for
+        algorithm_args: for pgm ``accelerated``, ``restart``,
+            ``backtracking`` with ``f`` (e.g. ``partial(log_likelihood,
+            Y=Y)``), ``trace``, ``state`` (torch engine) or ``tile_n``,
+            ``store_dtype``, ``state`` (cuda engine); for
             adaprox the driver's options (``scheme``, ``b1``, ``b2``,
             ``eps``, ``separable_prox``, ``moment_dtype``, ``M``, ``V``,
-            ``state``, ...) or the fused engine's (``b1``, ``b2``, ``eps``,
-            ``tile_n``, ``moment_dtype``, ``store_dtype``, ``M``, ``V``,
-            ``state``); for bsdmm the solver's options (``proxs_g``,
+            ``trace``, ``state``, ...) or the fused engine's (``b1``,
+            ``b2``, ``eps``, ``tile_n``, ``moment_dtype``, ``store_dtype``,
+            ``M``, ``V``, ``state``); for bsdmm the solver's options (``proxs_g``,
             ``steps_g``, ``Ls``, ``update_order``, ``trace``, ``state``).
 
     A ``state=`` from :func:`nmf_pgm_fused` pins ``engine="cuda"``. An

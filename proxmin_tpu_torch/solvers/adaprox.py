@@ -11,7 +11,8 @@ The JAX driver runs the solve in one ``lax.while_loop`` and the
 sub-iterations in a nested one. Here both loops run on the host: the math
 stays on the iterates' device, and the stop flags are read back once per
 iteration and once per prox sub-iteration (the sub-loop's test decides
-whether another sub-iteration runs). Scalars that JAX computes as traced
+whether another sub-iteration runs); ``callback=`` and ``trace=`` add no
+read. Scalars that JAX computes as traced
 scalars (bias corrections, the RAdam rectification) are computed on the
 host in the block's dtype, so they cost no launch and no read.
 
@@ -20,6 +21,7 @@ always accumulates (the reference never writes its running max back when
 ``Vhat=None``, so AMSGrad/PAdam/AdamX silently lose their max there).
 """
 
+import functools
 import logging
 import math
 
@@ -29,14 +31,12 @@ import torch
 from .. import utils
 from ..utils import fixed_point_norms, fixed_point_verdict, l2sq, make_stepper
 from .common import (SolverResult, as_tensor, as_torch_dtype,
-                     normalize_per_block, normalize_prox, separable_blocks,
-                     tupleize, writeback)
+                     check_stepper_state, grad_from_f, normalize_per_block,
+                     normalize_prox, separable_blocks, tupleize, writeback)
 
 logger = logging.getLogger("proxmin")
 
 __all__ = ["adaprox", "SCHEMES", "normalize_b1_schedule"]
-
-_LATER = "see ROADMAP.md Queue 1 item 8 (AdaProx)"
 
 _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 
@@ -58,8 +58,11 @@ def _moments(it, G, M, V, b1, b2):
 
 def _floor(X, v):
     """``max(X, v)`` for a scalar ``v``, NaN-propagating like
-    ``jnp.maximum``."""
-    return torch.maximum(X, X.new_tensor(v))
+    ``jnp.maximum``. ``v`` is filled on the device: ``X.new_tensor(v)``
+    would copy it from host memory, which makes the host wait for the
+    stream."""
+    return torch.maximum(X, torch.full((), v, dtype=X.dtype,
+                                       device=X.device))
 
 
 def _adam_phi_psi(it, G, M, V, Vhat, b1, b2, eps, p, it0=0):
@@ -168,7 +171,8 @@ def _prox_subloop(prox_j, x_j, alpha_j, Psi, e_rel_j, prox_max_iter):
 
 
 def _step(st, it, grad, stepper, prox, has_prox, separable, phi_psi, b1, b2,
-          eps, p, e_rel, check_convergence, prox_max_iter, moment_dtype):
+          eps, p, e_rel, check_convergence, prox_max_iter, moment_dtype,
+          trace):
     """One AdaProx iteration on the carry (the JAX body, term for term)."""
     n = len(prox)
     x = st["x"]
@@ -204,11 +208,19 @@ def _step(st, it, grad, stepper, prox, has_prox, separable, phi_psi, b1, b2,
         V_new.append(Vj)
         Vhat_new.append(Vhatj)
 
-    if check_convergence:
-        verdicts = [fixed_point_verdict(*fixed_point_norms(x_new[j], x[j]),
-                                        e_rel[j]) for j in range(n)]
-        st["converged"] = torch.stack([c for c, _ in verdicts])
+    if check_convergence or trace:
+        # one pair of reductions per block serves the convergence test, the
+        # divergence detector and the trace residual
+        norms = [fixed_point_norms(x_new[j], x[j]) for j in range(n)]
+        verdicts = [fixed_point_verdict(d, nx, e_rel[j])
+                    for j, (d, nx) in enumerate(norms)]
+        if check_convergence:
+            st["converged"] = torch.stack([c for c, _ in verdicts])
         finite = torch.stack([f for _, f in verdicts]).all()
+        if trace:
+            st["history"].append(torch.stack([
+                torch.sqrt(d / torch.clamp_min(nx, 1e-30))
+                for d, nx in norms]).to(st["history_dtype"]))
     else:
         finite = torch.stack([torch.isfinite(x_new[j]).all()
                               for j in range(n)]).all()
@@ -249,7 +261,9 @@ def adaprox(
         X: initial iterate, a tensor/array or a list of them (blocks).
             NumPy inputs go to ``device`` and are updated in place; tensors
             stay on their device.
-        grad: ``grad(*X) -> dX`` (a tuple for several blocks).
+        grad: ``grad(*X) -> dX`` (a tuple for several blocks). ``None``
+            differentiates ``f`` by ``torch.autograd``
+            (:func:`~proxmin_tpu_torch.solvers.common.grad_from_f`).
         step: step size(s) ``alpha``, a callable ``step(*X, it=...)`` or a
             stepper object; per-element steps broadcast.
         prox: proximal operator(s) ``prox(X, step)``. Blocks whose prox is
@@ -267,6 +281,14 @@ def adaprox(
         prox_max_iter: cap on the prox sub-iterations per iteration.
         M, V, Vhat: warm start from a previous run's moments (the
             bias-correction clock restarts, as in the reference).
+        callback: ``callback(*X, it=it)`` before every iteration, with the
+            blocks as tensors (not to be modified) and ``it`` counted from
+            this call's start; ``StopIteration`` ends the solve cleanly.
+        trace: record each iteration's relative fixed-point residual per
+            block on the device, returned as ``.history`` of shape
+            ``(iterations, n_blocks)``.
+        f: the smooth function ``f(*X) -> scalar tensor``, for
+            ``grad=None``.
         separable_prox: ``True`` asserts every prox has the closed-form
             scaled prox ``prox(x, alpha/Psi)`` per element, which replaces
             the sub-iterations; ``"auto"`` asks each operator's
@@ -277,31 +299,21 @@ def adaprox(
         state: a previous solve's ``.state`` for an exact resume (moments,
             the global bias-correction clock, stepper state and the stop
             flags), together with its ``.x``. Excludes ``M=/V=/Vhat=``.
-            With a scheduled ``b1``, pass the continuation slice.
+            With a scheduled ``b1``, pass the continuation slice. It goes
+            through a file with :mod:`proxmin_tpu_torch.checkpoint`.
         device: where NumPy inputs go (default: the CUDA device; without
             one, pass ``device="cpu"``).
-
-    ``callback``, ``trace`` and ``grad=None`` with ``f`` are not ported
-    yet.
 
     Returns:
         ``SolverResult`` unpacking as ``(converged, M, V, Vhat)``, with
         ``.x``, ``.iterations``, ``.sub_iterations``, ``.converged``,
-        ``.status`` and ``.state``.
+        ``.history``, ``.status`` and ``.state``.
     """
-    if callback is not None:
-        raise NotImplementedError(
-            f"adaprox callback= is not ported yet ({_LATER})")
-    if trace:
-        raise NotImplementedError(
-            f"adaprox trace= is not ported yet ({_LATER})")
-    if grad is None or f is not None:
-        raise NotImplementedError(
-            f"adaprox f= / grad=None (autodiff of f) is not ported yet "
-            f"({_LATER})")
-
     x0, originals, was_single = tupleize(X, device)
     n = len(x0)
+    if grad is None:
+        assert f is not None, "grad=None requires f"
+        grad = grad_from_f(f, n)
     prox_in = utils._as_tuple(prox)
     if len(prox_in) == 1:
         prox_in = prox_in * n
@@ -337,7 +349,9 @@ def adaprox(
                              "(moment warm start) are mutually exclusive")
         M, V, Vhat = state["M"], state["V"], state["Vhat"]
         it0 = int(state["it"])
-        stepper_state = state.get("stepper_state", stepper_state)
+        if state.get("stepper_state") is not None:
+            check_stepper_state(state["stepper_state"], stepper_state)
+            stepper_state = state["stepper_state"]
         if state.get("converged") is not None:
             converged = as_tensor(state["converged"], torch.bool,
                                   x0[0].device).reshape((n,))
@@ -362,7 +376,9 @@ def adaprox(
 
     st = dict(x=x0, M=moments(M), V=moments(V), Vhat=moments(Vhat),
               stepper_state=stepper_state, it0=it0, converged=converged,
-              diverged=diverged, sub_iters=[0] * n)
+              diverged=diverged, sub_iters=[0] * n, history=[],
+              history_dtype=functools.reduce(
+                  torch.promote_types, [x.dtype for x in x0], torch.float32))
 
     def keep_going():
         # the one host read per iteration
@@ -373,9 +389,14 @@ def adaprox(
 
     it = 0
     while it < max_iter and keep_going():
+        if callback is not None:
+            try:
+                callback(*st["x"], it=it)
+            except StopIteration:
+                break
         _step(st, it, grad, stepper, prox, has_prox, separable, phi_psi, b1,
               b2, eps, p, e_rel, check_convergence, prox_max_iter,
-              moment_dtype)
+              moment_dtype, trace)
         it += 1
 
     iterations = it
@@ -399,6 +420,12 @@ def adaprox(
 
     writeback(originals, st["x"])
     x_out = st["x"][0] if was_single else st["x"]
+    history = None
+    if trace:
+        # one copy at the end
+        history = (torch.stack(st["history"]) if st["history"] else
+                   torch.zeros((0, n), dtype=st["history_dtype"])
+                   ).cpu().numpy()
     resume_state = {
         "M": st["M"], "V": st["V"], "Vhat": st["Vhat"],
         "stepper_state": st["stepper_state"],
@@ -409,6 +436,6 @@ def adaprox(
         (converged, st["M"], st["V"], st["Vhat"]),
         x=x_out, iterations=iterations, converged=converged,
         sub_iterations=sub_iterations,
-        M=st["M"], V=st["V"], Vhat=st["Vhat"], history=None,
+        M=st["M"], V=st["V"], Vhat=st["Vhat"], history=history,
         status=status, state=resume_state,
     )

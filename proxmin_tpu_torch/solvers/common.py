@@ -1,7 +1,8 @@
 """Shared infrastructure for the port's solver drivers: reference-shaped
 results, dtype promotion at the solver boundary, the NumPy in-place
-contract and prox normalization. Counterparts of the same names in
-:mod:`proxmin_tpu.solvers.common`."""
+contract, prox normalization, the gradient of a smooth function by
+autograd and the structure check of a resumed stepper state. Counterparts
+of the same names in :mod:`proxmin_tpu.solvers.common`."""
 
 import functools
 
@@ -25,6 +26,9 @@ __all__ = [
     "map_leaves",
     "as_torch_dtype",
     "separable_blocks",
+    "grad_from_f",
+    "tree_structure",
+    "check_stepper_state",
 ]
 
 
@@ -223,3 +227,50 @@ def separable_blocks(prox_in, has_prox, separable_prox):
         return bool(pred(kw)) if pred is not None else False
 
     return tuple(check(pj) for pj in prox_in)
+
+
+def grad_from_f(f, n_blocks):
+    """The multi-block gradient ``grad(*X) -> (dX_0, ..., dX_{n-1})`` of the
+    smooth function ``f(*X) -> scalar tensor`` by ``torch.autograd``: the
+    solvers' ``grad=None`` mode.
+
+    Each call differentiates detached views of the blocks, so the iterates
+    never come to require a gradient and no graph outlives the call. A
+    block that ``f`` does not use gets a zero gradient. The JAX package
+    memoizes the derived function by ``(id(f), n_blocks)`` for its compiled
+    driver cache; a host loop has no such cache, so every call builds a new
+    (cheap) closure."""
+    def grad(*X):
+        if len(X) != n_blocks:
+            raise ValueError(f"got {len(X)} blocks for a gradient of "
+                             f"{n_blocks}")
+        Xd = tuple(x.detach().requires_grad_(True) for x in X)
+        with torch.enable_grad():
+            val = f(*Xd)
+        return torch.autograd.grad(val, Xd, allow_unused=True,
+                                   materialize_grads=True)
+
+    return grad
+
+
+def tree_structure(tree):
+    """The nesting of ``tree`` with every leaf replaced by ``"*"``: tuples
+    and lists (told apart) and dicts (by key) are containers, None stays
+    None, everything else is a leaf."""
+    if isinstance(tree, (tuple, list)):
+        kind = "tuple" if isinstance(tree, tuple) else "list"
+        return (kind, *(tree_structure(t) for t in tree))
+    if isinstance(tree, dict):
+        return ("dict", *((k, tree_structure(tree[k])) for k in sorted(tree)))
+    return None if tree is None else "*"
+
+
+def check_stepper_state(carried, fresh):
+    """Raise ``ValueError`` unless a resumed ``stepper_state`` has the
+    structure of the state this solve's stepper starts from (a state of
+    another step configuration would be misread, not resumed)."""
+    if tree_structure(carried) != tree_structure(fresh):
+        raise ValueError(
+            "state= was produced under a different step configuration "
+            "(stepper state structure mismatch); resume with the same "
+            "step arguments")

@@ -1,13 +1,20 @@
 """Proximal Gradient Method (ISTA / FISTA) as a host loop over tensor ops.
 
 Counterpart of :func:`proxmin_tpu.solvers.pgm.pgm`, including its
-segmented mode for strided steppers (one loop here). The JAX driver runs the
-whole solve in one ``lax.while_loop`` with the stop test on the device
-(``proxmin_tpu/solvers/pgm.py:337-340``). Here the loop runs on the host:
-every iteration's math stays on the iterates' device, and the stop flags
-(converged per block, diverged) are read back once per iteration, a single
-device-to-host copy of one bool. The body is the JAX body term for term,
-so the stopping iteration is the JAX driver's.
+segmented mode for strided steppers and its callback mode (one loop here).
+The JAX driver runs the whole solve in one ``lax.while_loop`` with the stop
+test on the device. Here the loop runs on the host: every iteration's math
+stays on the iterates' device, and the stop flags (converged per block,
+diverged) are read back once per iteration, in one device-to-host copy.
+The body is the JAX body term for term, so the stopping iteration is the
+JAX driver's.
+
+Backtracking's inner loop depends on the data, so each of its tests is a
+host read: the first test rides in the iteration's one read (with the stop
+flags of the trial point, which stand when no halving follows), every
+halving adds one read, and with several blocks the first halving of an
+iteration adds one more, for the block to halve. ``callback=`` and
+``trace=`` add no read.
 """
 
 import functools
@@ -18,14 +25,17 @@ import torch
 from .. import utils
 from ..utils import (fixed_point_norms, fixed_point_verdict, make_stepper,
                      nesterov_next)
-from .common import (SolverResult, normalize_per_block, normalize_prox,
-                     status_from, tupleize, writeback)
+from .common import (SolverResult, check_stepper_state, grad_from_f,
+                     normalize_per_block, normalize_prox, status_from,
+                     tupleize, writeback)
 
 logger = logging.getLogger("proxmin")
 
 __all__ = ["pgm"]
 
-_LATER = "see ROADMAP.md Queue 1 item 4 (PGM driver)"
+# cap on the backtracking halvings of one iteration (2^-60 underflows any
+# reasonable step)
+_MAX_BACKTRACK = 60
 
 
 def _init_state(x0, n, accelerated, resume):
@@ -68,8 +78,19 @@ def _init_state(x0, n, accelerated, resume):
     )
 
 
-def _step(st, it, grad, stepper, prox, e_rel, accelerated, restart):
-    """One PGM iteration on the carry (the JAX body, term for term)."""
+def _scalar(v, like):
+    """``f``'s value as a tensor (a Python number is filled on ``like``'s
+    device, never copied there)."""
+    if isinstance(v, torch.Tensor):
+        return v
+    return torch.full((), float(v), dtype=like.dtype, device=like.device)
+
+
+def _step(st, it, grad, stepper, prox, e_rel, accelerated, restart,
+          backtracking, f, trace):
+    """One PGM iteration on the carry (the JAX body, term for term), ending
+    in the iteration's blocking read. Returns the stop flags as host
+    values, ``(converged per block, diverged)``."""
     n = len(prox)
     x_old = st["x"]
     if accelerated:
@@ -82,28 +103,86 @@ def _step(st, it, grad, stepper, prox, e_rel, accelerated, restart):
     G = utils._as_tuple(grad(*x_ex))
     S, st["stepper_state"] = stepper(st["stepper_state"], x_ex,
                                      it + st["it0"], G)
-    x_new = []
-    for j in range(n):
-        step_j = st["T"][j] * S[j]
-        x_new.append(prox[j](x_ex[j] - step_j * G[j], step_j))
-    x_new = tuple(x_new)
+    T = st["T"]
 
-    verdicts = [fixed_point_verdict(*fixed_point_norms(x_new[j], x_old[j]),
-                                    e_rel[j]) for j in range(n)]
-    st["converged"] = torch.stack([c for c, _ in verdicts])
-    finite = torch.stack([f for _, f in verdicts]).all()
+    def prox_step(j, Tj):
+        step_j = Tj * S[j]
+        return prox[j](x_ex[j] - step_j * G[j], step_j)
+
+    def verdicts(x):
+        # one pair of reductions per block serves the convergence test,
+        # the divergence detector and the trace residual
+        norms = [fixed_point_norms(x[j], x_old[j]) for j in range(n)]
+        vs = [fixed_point_verdict(d, nx, e_rel[j])
+              for j, (d, nx) in enumerate(norms)]
+        conv = torch.stack([c for c, _ in vs])
+        finite = torch.stack([fin for _, fin in vs]).all()
+        diverged = torch.logical_or(st["diverged"],
+                                    torch.logical_not(finite))
+        return norms, conv, diverged
+
+    x_new = tuple(prox_step(j, T[j]) for j in range(n))
+    if backtracking:
+        # Beck & Teboulle eq. 3.2 (g dropped from F and Q: it cancels)
+        if it + st["it0"] == 0:
+            st["f_prev"] = _scalar(f(*x_old), st["t"])
+        f_prev = st["f_prev"]
+        f_now = _scalar(f(*x_new), st["t"])
+
+        def Q(x, T_bt):
+            acc = None
+            for j in range(n):
+                d = x[j] - x_old[j]
+                term = (torch.sum(d * G[j])
+                        + torch.sum(0.5 / (T_bt[j] * S[j]) * d ** 2))
+                acc = term if acc is None else acc + term
+            return f_prev + acc
+
+    jmax, k = None, 0
+    while True:
+        # the blocking read, one per trial point: its stop flags and, with
+        # backtracking, its test; the flags stand if no halving follows
+        norms, conv, diverged = verdicts(x_new)
+        flags = [conv, diverged.reshape(1)]
+        tested = backtracking and k < _MAX_BACKTRACK
+        if tested:
+            flags.append((f_now > Q(x_new, T)).reshape(1))
+        flags = torch.cat(flags).tolist()
+        if not (tested and flags[n + 1]):
+            break
+        if jmax is None:
+            # the steepest relative update direction; it depends on the
+            # iteration's G, S and x_old only, so one read serves every
+            # halving of the iteration
+            jmax = 0 if n == 1 else int(torch.argmax(torch.stack([
+                torch.max(torch.abs(S[j] * G[j]))
+                / torch.max(torch.abs(x_old[j])) for j in range(n)])))
+        T = T.clone()
+        T[jmax] = T[jmax] / 2
+        x_new = tuple(prox_step(j, T[j]) if j == jmax else x_new[j]
+                      for j in range(n))
+        f_now = _scalar(f(*x_new), st["t"])
+        k += 1
+    if backtracking:
+        st["T"], st["f_prev"] = T, f_now
+
     if accelerated and restart:
         # O'Donoghue & Candes adaptive restart: reset the momentum clock
         # when the extrapolation overshoots
         osc = sum(torch.sum((x_ex[j] - x_new[j]) * (x_new[j] - x_old[j]))
                   for j in range(n))
         t_next = torch.where(osc > 0, torch.ones_like(t_next), t_next)
+    if trace:
+        # per-block relative fixed-point residual, kept on the device
+        st["history"].append(torch.stack([
+            torch.sqrt(d / torch.clamp_min(nx, 1e-30)) for d, nx in norms
+        ]).to(st["t"].dtype))
     st["x_prev"] = x_old if accelerated else ()
     st["x"] = x_new
     st["t"] = t_next
     st["S"] = S
-    st["diverged"] = torch.logical_or(st["diverged"],
-                                      torch.logical_not(finite))
+    st["converged"], st["diverged"] = conv, diverged
+    return flags[:n], flags[n]
 
 
 def pgm(
@@ -128,40 +207,51 @@ def pgm(
         X: initial iterate, a tensor/array or a list of them (blocks).
             NumPy inputs go to ``device`` and are updated in place; tensors
             stay on their device.
-        grad: ``grad(*X) -> dX`` (a tuple for several blocks).
+        grad: ``grad(*X) -> dX`` (a tuple for several blocks). ``None``
+            differentiates ``f`` by ``torch.autograd``
+            (:func:`~proxmin_tpu_torch.solvers.common.grad_from_f`).
         step: step size(s), a callable ``step(*X, it=..., [grads=...])``
-            or a stepper object.
+            or a stepper object such as
+            :class:`~proxmin_tpu_torch.utils.BarzilaiBorweinStepper`.
         prox: proximal operator(s) ``prox(X, step)``; None is the identity.
         accelerated: Nesterov/FISTA momentum.
         restart: with ``accelerated``, gradient-based adaptive restart.
+        backtracking: Beck-Teboulle backtracking line search (needs ``f``):
+            while ``f(x') > Q``, the block with the steepest relative update
+            ``max|S_j G_j| / max|x_j|`` halves its scale ``T_j`` and is
+            proxed again, at most 60 times per iteration. The scales and the
+            last value of ``f`` are part of ``.state``.
+        f: the smooth function ``f(*X) -> scalar tensor``, for
+            ``backtracking`` and for ``grad=None``.
         e_rel: relative fixed-point tolerance (scalar or per block).
         max_iter: iteration cap (a resumed solve runs up to this many more).
+        callback: ``callback(*X, it=it)`` before every iteration, with the
+            blocks as tensors (not to be modified) and ``it`` counted from
+            this call's start; ``StopIteration`` ends the solve cleanly.
+        trace: record each iteration's relative fixed-point residual per
+            block on the device, returned as ``.history`` of shape
+            ``(iterations, n_blocks)``.
         state: a previous solve's ``.state`` to continue from, together
-            with its ``.x``.
+            with its ``.x``: the momentum clock and previous iterate, the
+            backtracking scales and the stepper's state continue, a stopped
+            solve stays stopped. It goes through a file with
+            :mod:`proxmin_tpu_torch.checkpoint`.
         device: where NumPy inputs go (default: the CUDA device; without
             one, pass ``device="cpu"``).
 
-    ``backtracking``, ``f``, ``callback`` and ``trace`` are not ported yet.
-
     Returns:
         ``SolverResult`` unpacking as ``(converged, G, S)``, with ``.x``,
-        ``.iterations``, ``.converged``, ``.status`` and ``.state``.
+        ``.iterations``, ``.converged``, ``.history``, ``.status`` and
+        ``.state``. ``G`` is the gradient at the returned solution.
     """
-    if backtracking or f is not None:
-        raise NotImplementedError(f"pgm backtracking / f= is not ported yet "
-                                  f"({_LATER})")
-    if callback is not None:
-        raise NotImplementedError(f"pgm callback= is not ported yet ({_LATER})")
-    if trace:
-        raise NotImplementedError(f"pgm trace= is not ported yet ({_LATER})")
-    if grad is None:
-        raise NotImplementedError(
-            f"pgm grad=None (autodiff of f) is not ported yet ({_LATER})")
-
     x0, originals, was_single = tupleize(X, device)
     n = len(x0)
     prox = normalize_prox(prox, n)
     e_rel = normalize_per_block(e_rel, n)
+    if grad is None:
+        assert f is not None, "grad=None requires f"
+        grad = grad_from_f(f, n)
+    assert backtracking is False or f is not None
     # a strided stepper refreshes inside _step, on the host's next-refresh
     # clock: in a host loop that is the JAX driver's segmented mode too
     # (refresh at a segment boundary, frozen steps in between), and a
@@ -170,31 +260,46 @@ def pgm(
     stepper = make_stepper(step, n)
 
     st = _init_state(x0, n, accelerated, state)
+    fresh = stepper.init_state(x0, None)
     if st["stepper_state"] is None:
-        st["stepper_state"] = stepper.init_state(x0, None)
+        st["stepper_state"] = fresh
+    else:
+        check_stepper_state(st["stepper_state"], fresh)
     st["S"] = tuple(torch.zeros((), dtype=st["t"].dtype,
                                 device=st["t"].device) for _ in range(n))
+    st["history"] = []
+    if state is None:
+        conv_h, div_h = [False] * n, False
+    else:
+        # a stopped solve stays stopped: one read of the carried flags
+        *conv_h, div_h = torch.cat(
+            [st["converged"], st["diverged"].reshape(1)]).tolist()
     it = 0
-    # one host read per iteration: the loop-continue flag
-    go = torch.logical_not(torch.logical_or(st["converged"].all(),
-                                            st["diverged"]))
-    while it < max_iter and bool(go):
-        _step(st, it, grad, stepper, prox, e_rel, accelerated, restart)
+    while it < max_iter and not (all(conv_h) or div_h):
+        if callback is not None:
+            try:
+                callback(*st["x"], it=it)
+            except StopIteration:
+                break
+        conv_h, div_h = _step(st, it, grad, stepper, prox, e_rel,
+                              accelerated, restart, backtracking, f, trace)
         it += 1
-        go = torch.logical_not(torch.logical_or(st["converged"].all(),
-                                                st["diverged"]))
 
     G_fin = utils._as_tuple(grad(*st["x"]))
     iterations = it
     logger.info("Completed %d iterations", iterations)
-    converged = tuple(bool(c) for c in st["converged"].tolist())
-    diverged = bool(st["diverged"])
-    status = status_from(all(converged), diverged, logger)
+    converged = tuple(conv_h)
+    status = status_from(all(converged), div_h, logger)
 
     writeback(originals, st["x"])
     x_out = st["x"][0] if was_single else st["x"]
     G = G_fin[0] if was_single else G_fin
     S = st["S"][0] if was_single else st["S"]
+    history = None
+    if trace:
+        # one copy at the end
+        history = (torch.stack(st["history"]) if st["history"] else
+                   torch.zeros((0, n), dtype=st["t"].dtype)).cpu().numpy()
     resume_state = {
         "x_prev": st["x_prev"], "t": st["t"], "T": st["T"],
         "f_prev": st["f_prev"], "stepper_state": st["stepper_state"],
@@ -204,5 +309,5 @@ def pgm(
     return SolverResult(
         (converged, G, S),
         x=x_out, iterations=iterations, converged=converged, G=G, S=S,
-        history=None, status=status, state=resume_state,
+        history=history, status=status, state=resume_state,
     )

@@ -22,6 +22,13 @@ def _float_dtype(t):
     return torch.float32
 
 
+def _const(t, v):
+    """The number ``v`` as a 0-d tensor beside ``t``, filled on the device:
+    ``t.new_tensor(v)`` would copy it from host memory, which makes the host
+    wait for the stream."""
+    return torch.full((), v, dtype=t.dtype, device=t.device)
+
+
 def lambertw_exp(t):
     """Principal-branch Lambert W of ``exp(t)`` for real ``t``: the
     ``w > 0`` with ``w + log(w) = t``.
@@ -31,8 +38,8 @@ def lambertw_exp(t):
     for every ``t``."""
     t = torch.as_tensor(t)
     t = t.to(_float_dtype(t))
-    tiny = t.new_tensor(torch.finfo(t.dtype).tiny)
-    thirty, one = t.new_tensor(30.0), t.new_tensor(1.0)
+    tiny = _const(t, torch.finfo(t.dtype).tiny)
+    thirty, one = _const(t, 30.0), _const(t, 1.0)
     softplus = torch.where(t > 30.0, t,
                            torch.log1p(torch.exp(torch.minimum(t, thirty))))
     w = torch.where(t > 30.0, t - torch.log(torch.maximum(t, one)), softplus)
@@ -49,6 +56,6 @@ def lambertw(z):
     ``w exp(w) = z`` (``scipy.special.lambertw(z).real`` there)."""
     z = torch.as_tensor(z)
     z = z.to(_float_dtype(z))
-    safe = torch.maximum(z, z.new_tensor(torch.finfo(z.dtype).tiny))
+    safe = torch.maximum(z, _const(z, torch.finfo(z.dtype).tiny))
     w = lambertw_exp(torch.log(safe))
     return torch.where(z == 0, torch.zeros_like(w), w)

@@ -1,11 +1,13 @@
 """Numerics core of the port: norms, the fixed-point test, the FISTA
-momentum recursion, the stepper protocol, the strided step refresh, the
-batched Lanczos bound and the ADMM family's shared update and convergence
-test.
+momentum recursion, the stepper protocol (constant, callable,
+Barzilai-Borwein and strided steps), the batched Lanczos bound, the ADMM
+family's shared update and convergence test, and the host-side helpers
+(callbacks, the profiler context, the warning summary, the approximate
+cache).
 
-Counterparts of the same names in :mod:`proxmin_tpu.utils`. Everything
-here works on tensors and returns tensors, so a solve on the card keeps
-its scalars on the card.
+Counterparts of the same names in :mod:`proxmin_tpu.utils`. The numerics
+work on tensors and return tensors, so a solve on the card keeps its
+scalars on the card.
 
 Stepper protocol (shared with the JAX package)::
 
@@ -14,7 +16,10 @@ Stepper protocol (shared with the JAX package)::
 """
 
 import inspect
+import logging
 import math
+import os
+import time
 
 import numpy as np
 import torch
@@ -35,11 +40,20 @@ __all__ = [
     "fixed_point_verdict",
     "fixed_point_converged",
     "nesterov_next",
+    "NesterovAccelerator",
     "ConstantStepper",
     "FunctionStepper",
+    "BarzilaiBorweinStepper",
     "make_stepper",
     "grow_stride",
     "StridedStepper",
+    "profile_trace",
+    "summarize_convergence_warnings",
+    "Traceback",
+    "NullCallback",
+    "ApproximateCache",
+    "hasNotNone",
+    "check_convergence",
 ]
 
 
@@ -193,6 +207,24 @@ def nesterov_next(t):
     return omega, t_next
 
 
+class NesterovAccelerator:
+    """Stateful host-side accelerator with the reference's semantics: each
+    read of ``omega`` advances the momentum clock ``t`` (a Python float).
+    The drivers use :func:`nesterov_next` on a tensor instead."""
+
+    def __init__(self, accelerated=False):
+        self.t = 1.0
+        self.accelerated = accelerated
+
+    @property
+    def omega(self):
+        if self.accelerated:
+            t_next = 0.5 * (1.0 + math.sqrt(4.0 * self.t * self.t + 1.0))
+            om, self.t = (self.t - 1.0) / t_next, t_next
+            return om
+        return 0.0
+
+
 class ConstantStepper:
     """Fixed step size(s), broadcast over blocks."""
 
@@ -243,9 +275,98 @@ class FunctionStepper:
         return tuple(S), state
 
 
+def _safe_div(num, den, fallback):
+    """``num / den`` with ``fallback`` where ``den == 0``: a 0/0 Rayleigh
+    quotient on an exactly stalled iterate must give the stabilized step,
+    not NaN."""
+    ok = den != 0
+    return torch.where(ok, num / torch.where(ok, den, torch.ones_like(den)),
+                       fallback)
+
+
+class BarzilaiBorweinStepper:
+    """Barzilai-Borwein spectral steps (BB1/BB2) with the stabilization of
+    Burdakov et al. (2019, Algorithm 2.1). Counterpart of
+    :class:`proxmin_tpu.utils.BarzilaiBorweinStepper`: the state ``(X_prev,
+    G_prev, Delta)``, tensors all, is carried through the solver loop.
+
+    ``it`` is the host's global iteration clock (it continues across a
+    resume), so the first-iteration branch (``it == 0``: the step ``r
+    max|X| / max|G|``) and the stabilization window (``it <= 3``: Delta
+    tracks the shortest step taken) are host branches that give what the
+    JAX stepper's ``where`` selects. A stepper that needs the gradient is
+    not segmentable (:attr:`StridedStepper.segmentable`).
+
+    It also runs alone with the reference's calling convention,
+    ``stepper.step(*X, it=..., grads=...)``, keeping its state on the
+    instance.
+    """
+
+    def __init__(self, type=1, init_r=0.1):
+        if type not in (1, 2):
+            raise ValueError(f"type must be 1 (BB1) or 2 (BB2), got {type!r}")
+        self.type = type
+        self.r = init_r
+        self._host_state = None
+
+    def init_state(self, X, G):
+        n = len(X)
+        dtype = X[0].dtype
+        for x in X[1:]:
+            dtype = torch.promote_types(dtype, x.dtype)
+        delta = torch.full((n,), float("inf"), dtype=dtype,
+                           device=X[0].device)
+        return (tuple(torch.zeros_like(x) for x in X),
+                tuple(torch.zeros_like(x) for x in X), delta)
+
+    def __call__(self, state, X, it, G):
+        x_prev, g_prev, delta = state
+        n = len(X)
+        if it == 0:
+            steps = tuple(
+                _safe_div(self.r * torch.max(torch.abs(X[j])),
+                          torch.max(torch.abs(G[j])), 0.0) for j in range(n))
+            return steps, (tuple(X), tuple(G), delta)
+
+        S = tuple(X[j] - x_prev[j] for j in range(n))
+        Y = tuple(G[j] - g_prev[j] for j in range(n))
+        # inf marks an undefined quotient: the min with Astab below then
+        # selects the stabilized step
+        if self.type == 1:
+            A = tuple(_safe_div(torch.sum(S[j] ** 2), torch.sum(S[j] * Y[j]),
+                                float("inf")) for j in range(n))
+        else:
+            A = tuple(_safe_div(torch.sum(S[j] * Y[j]), torch.sum(Y[j] ** 2),
+                                float("inf")) for j in range(n))
+        if it <= 3:
+            # Delta tracks the shortest step over the first iterations
+            step_len = torch.stack([torch.sqrt(torch.sum(S[j] ** 2))
+                                    for j in range(n)])
+            delta = torch.minimum(delta, step_len.to(delta.dtype))
+        # zero gradient: stationary, and a zero step keeps the iterate
+        # fixed (inf would give inf * 0 = NaN in the solver's update)
+        steps = tuple(
+            torch.minimum(torch.abs(A[j]), _safe_div(
+                delta[j], torch.sqrt(torch.sum(G[j] ** 2)), 0.0))
+            for j in range(n))
+        return steps, (tuple(X), tuple(G), delta)
+
+    def step(self, *X, it=None, grads=None):
+        """The reference's host interface: NumPy steps for the blocks ``X``
+        (tensors, or NumPy arrays, which stay on the CPU) and their
+        gradients; ``it == 0`` starts a new history."""
+        X = tuple(torch.as_tensor(x) for x in X)
+        grads = tuple(torch.as_tensor(g) for g in _as_tuple(grads))
+        if it == 0 or self._host_state is None:
+            self._host_state = self.init_state(X, grads)
+        steps, self._host_state = self(self._host_state, X, it, grads)
+        return tuple(s.detach().cpu().numpy() for s in steps)
+
+
 def make_stepper(step, n_blocks):
     """Coerce a float / tuple / callable / stepper object into the stepper
-    protocol (any callable with ``init_state`` passes through)."""
+    protocol (any callable with ``init_state``, such as
+    :class:`BarzilaiBorweinStepper`, passes through)."""
     if hasattr(step, "init_state") and callable(step):
         return step
     if callable(step):
@@ -306,9 +427,10 @@ class StridedStepper:
     states convert (``interop.state_from_numpy``). The JAX ``lax.cond`` on
     the next-refresh clock is a Python ``if`` here: the clock and the
     stride are host integers, and a refresh reads the device once (the
-    drift, with ``adapt``). ``cached`` is empty until the first refresh
-    (the JAX package fills it with zeros of the steps' shapes, which only
-    a call of the inner stepper would tell).
+    drift, with ``adapt``). Until the first refresh ``cached`` holds one
+    Python zero per block (the JAX package: zeros of the steps' shapes), so
+    a fresh state and a carried one have one structure, which the drivers'
+    resume check compares.
 
     The pgm driver's segmented mode (refresh outside the inner loop) is
     the same host loop here, so the segmented-mode hooks
@@ -328,9 +450,10 @@ class StridedStepper:
 
     def init_state(self, X, G):
         inner0 = self.inner.init_state(X, G)
+        cached = (0.0,) * self.n_blocks
         if self.adapt:
-            return (inner0, (), self.stride, 0)
-        return (inner0, (), 0)
+            return (inner0, cached, self.stride, 0)
+        return (inner0, cached, 0)
 
     def _refresh(self, state, X, it, G):
         if self.adapt:
@@ -341,8 +464,10 @@ class StridedStepper:
         steps = tuple(torch.as_tensor(s) * self.safety for s in steps)
         if not self.adapt:
             return (new_inner, steps, it + self.stride)
-        if not cached_old:
-            cached_old = tuple(torch.zeros_like(s) for s in steps)
+        # the placeholders of a state that never refreshed, on the device
+        cached_old = tuple(o if isinstance(o, torch.Tensor)
+                           else torch.zeros_like(s)
+                           for o, s in zip(cached_old, steps))
         stride_new = grow_stride(stride, cached_old, steps,
                                  (1.0 - self.safety) / 2, self.max_stride,
                                  first=(it == 0))
@@ -385,6 +510,187 @@ class StridedStepper:
         a refresh at ``it``, or wherever a resumed schedule says (``it``
         itself when a solve stopped exactly on a refresh boundary)."""
         return state[-1]
+
+
+# ---------------------------------------------------------------------------
+# host-side helpers: the profiler context, the warning summary, callbacks
+
+class profile_trace:
+    """Context manager that profiles everything run inside the block with
+    ``torch.profiler`` (the host, and the card when there is one) and
+    writes a Chrome trace, ``proxmin_trace_<time>.json``, into ``log_dir``
+    on exit (load it in ``chrome://tracing`` or Perfetto). The profiler is
+    at ``.profiler`` for ``key_averages()``, the file at ``.path``.
+
+    Counterpart of :class:`proxmin_tpu.utils.profile_trace` with its
+    signature; ``create_perfetto_link`` has no counterpart in
+    ``torch.profiler`` and is accepted and ignored.
+
+    >>> with utils.profile_trace("prof"):
+    ...     pgm(x0, grad, step, ...)
+    """
+
+    def __init__(self, log_dir, create_perfetto_link=False):
+        self.log_dir = log_dir
+        self.create_perfetto_link = create_perfetto_link
+        self.profiler = None
+        self.path = None
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(ProfilerActivity.CUDA)
+        self.profiler = profile(activities=activities)
+        self.profiler.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        self.profiler.__exit__(*exc)
+        os.makedirs(self.log_dir, exist_ok=True)
+        self.path = os.path.join(
+            self.log_dir, f"proxmin_trace_{time.time_ns()}.json")
+        self.profiler.export_chrome_trace(self.path)
+        return False
+
+
+class summarize_convergence_warnings:
+    """Collapse the per-solve ``Solution did not converge`` warnings of the
+    ``"proxmin"`` logger into one summary line on exit.
+
+    Timing harnesses run fixed-iteration solves through the drivers, which
+    warn once per solve that did not converge. Inside this context those
+    warnings are counted instead of emitted; other records pass through.
+
+    >>> with utils.summarize_convergence_warnings():
+    ...     for _ in range(25):
+    ...         nmf(Y, A, S, e_rel=0, max_iter=100)
+    """
+
+    _MSG = "Solution did not converge"
+
+    def __init__(self, logger_name="proxmin"):
+        self._logger = logging.getLogger(logger_name)
+        self.count = 0
+
+    def filter(self, record):  # the logging.Filter protocol
+        if record.getMessage().startswith(self._MSG):
+            self.count += 1
+            return False
+        return True
+
+    def __enter__(self):
+        self.count = 0
+        self._logger.addFilter(self)
+        return self
+
+    def __exit__(self, *exc):
+        self._logger.removeFilter(self)
+        if self.count:
+            self._logger.warning(
+                "Suppressed %dx %r (fixed-iteration timing runs)",
+                self.count, self._MSG)
+        return False
+
+
+class Traceback:
+    """Callback that records a copy of the iterates at every call, as
+    tuples of host NumPy arrays (so ``.trace`` compares with the JAX
+    package's directly). The drivers hand a callback tensors; on the card
+    every call therefore copies every block to the host, which waits for
+    the stream: one blocking copy per block and iteration."""
+
+    def __init__(self):
+        self._trace = []
+
+    def __call__(self, *X, it=None):
+        self._trace.append(tuple(self._host_copy(x) for x in X))
+
+    @staticmethod
+    def _host_copy(x):
+        if not isinstance(x, torch.Tensor):
+            return np.array(x, copy=True)
+        if x.device.type == "cpu":
+            return x.detach().numpy().copy()
+        return x.detach().cpu().numpy()  # the transfer is the copy
+
+    @property
+    def trace(self):
+        return self._trace
+
+    def clear(self):
+        self._trace = []
+
+
+class NullCallback:
+    def __call__(self, *X, it=None):
+        pass
+
+
+class ApproximateCache:
+    """Cache an expensive, slowly varying scalar evaluation, recomputing it
+    at a growing stride: after a recomputation whose relative change from
+    the stored value lies in ``(0, slack / 2)``, the stride grows by
+    ``max(1, int(budget / change * stride))``, capped at ``max_stride``.
+    ``len(cache)`` is the current stride. The values may be floats or 0-d
+    tensors; comparing a tensor's change reads it from the device."""
+
+    def __init__(self, func, slack=0.1, max_stride=100):
+        if not 0 <= slack < 1:
+            raise ValueError(f"slack must lie in [0, 1), got {slack}")
+        self.func = func
+        self.slack = slack
+        self.max_stride = max_stride
+        self.it = 0
+        self.stride = 1
+        self.last = -1
+        self.stored = None
+
+    def __len__(self):
+        return self.stride
+
+    def __call__(self, *args, **kwargs):
+        if self.slack == 0:
+            self.it += 1
+            return self.func(*args, **kwargs)
+        if self.it >= self.last + self.stride:
+            self.last = self.it
+            val = self.func(*args, **kwargs)
+            if self.it > 1 and self.slack > 0:
+                rel_error = float(abs(self.stored - val) / self.stored)
+                budget = self.slack / 2
+                if 0 < rel_error < budget:
+                    self.stride += max(1, int(budget / rel_error
+                                              * self.stride))
+                    self.stride = min(self.max_stride, self.stride)
+            self.stored = val
+        else:
+            self.it += 1
+        return self.stored
+
+
+def hasNotNone(l):
+    """The reference's helper: the distance from the first element of ``l``
+    that contains an entry other than None to the end of the list, or 0 if
+    none does."""
+    for i, ll in enumerate(l):
+        if ll is not None and hasattr(ll, "__iter__"):
+            for lll in ll:
+                if lll is not None:
+                    return len(l) - i
+    return 0
+
+
+def check_convergence(newX, oldX, e_rel):
+    """Langville (2014) sec. 5 NMF convergence test: ``<new, old> >= (1 -
+    e_rel^2) <old, old>``. Returns the verdict (a 0-d bool tensor) and the
+    two inner products."""
+    new_old = torch.sum(newX * oldX)
+    old2 = torch.sum(oldX ** 2)
+    return new_old >= (1 - e_rel ** 2) * old2, (new_old, old2)
 
 
 # ---------------------------------------------------------------------------

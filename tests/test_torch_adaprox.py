@@ -223,11 +223,32 @@ def test_continues_a_jax_driver_state():
 
 
 @pytest.mark.parametrize("kw", [
-    {"callback": lambda *x, it=None: None},
+    {"callback": True},
     {"trace": True},
-    {"f": lambda A, S: 0.0},
+    {"f": True},
 ])
 def test_options_not_yet_ported_raise(kw):
+    """These options raised ``NotImplementedError`` until they were ported;
+    the test keeps its name and now holds each against the JAX solver
+    (tests/test_torch_driver_options.py has the full set)."""
     Y, A0, S0 = _problem()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        _solve(ptt, Y, A0, S0, max_iter=2, **kw)
+    kj, kt = dict(kw), dict(kw)
+    seen = {"jax": [], "torch": []}
+    if "callback" in kw:
+        kj["callback"] = lambda *x, it=None: seen["jax"].append(it)
+        kt["callback"] = lambda *x, it=None: seen["torch"].append(it)
+    if "f" in kw:
+        # with f and a gradient both given, the gradient is used
+        kj["f"] = functools.partial(pt.nmf.log_likelihood, Y=jnp.asarray(Y))
+        kt["f"] = functools.partial(ptt.nmf.log_likelihood,
+                                    Y=torch.from_numpy(Y))
+    rj = _solve(pt, Y, A0, S0, max_iter=12, e_rel=0, **kj)
+    rt = _solve(ptt, Y, A0, S0, max_iter=12, e_rel=0, **kt)
+    assert rj.iterations == rt.iterations == 12
+    assert seen["torch"] == seen["jax"]
+    _close(rt.x, rj.x)
+    if "trace" in kw:
+        assert rt.history.shape == (12, 2)
+        np.testing.assert_allclose(rt.history, rj.history, rtol=1e-9)
+    else:
+        assert rt.history is None

@@ -1,0 +1,150 @@
+"""What of the JAX package's public surface the port has, and what it
+lacks, as a list in the repository and not a search.
+
+For ``proxmin_tpu.utils``, ``proxmin_tpu.checkpoint``,
+``proxmin_tpu.solvers.common``, ``proxmin_tpu.algorithms`` and the
+top-level package, every public name (the module's ``__all__``, and the
+functions and classes it defines without a leading underscore; for the
+package, every attribute without one) either exists in the port's module of
+the same name or stands in ``ABSENT`` below with its reason: it serves
+``jit`` only, it lives in another module of the port, or a ROADMAP item
+ports it. A name that is ported must leave the table, and a new JAX name
+must enter it or the port."""
+
+import importlib
+import importlib.util
+import inspect
+import types
+
+import pytest
+
+import proxmin_tpu
+import proxmin_tpu_torch
+
+JIT_ONLY = "serves jit and its driver cache; a host loop compiles nothing"
+POLICY = ("the port fixes one float32 policy at import "
+          "(proxmin_tpu_torch.precision.apply_f32_policy: no TF32); the "
+          "TF32 question is ROADMAP Queue 1 item 1's")
+
+# module -> {name: why the port's module of that name does not have it}
+ABSENT = {
+    "utils": {
+        "MatrixAdapter": "lives in proxmin_tpu_torch.linop (utils cannot "
+                         "import linop: linop builds on solvers.common, "
+                         "which imports utils)",
+        "get_spectral_norm": "lives in proxmin_tpu_torch.linop, as above",
+        "set_matmul_precision": POLICY,
+        "matmul_precision_scope": POLICY,
+        "with_matmul_precision": POLICY,
+    },
+    "checkpoint": {},
+    "solvers.common": {
+        "DriverCache": JIT_ONLY,
+        "abstract_key": JIT_ONLY,
+        "cacheable": JIT_ONLY,
+        "callable_key": JIT_ONLY,
+        "nested_key": JIT_ONLY,
+        "value_key": JIT_ONLY,
+        "asarray_cached": JIT_ONLY,
+        "split_partial_data": JIT_ONLY,
+        "split_stepper_data": JIT_ONLY,
+        "zeros_like_shapes": JIT_ONLY,
+        "promote_dtype_host": "serves the sharded path (ROADMAP Queue 1 "
+                              "item 13)",
+    },
+    "algorithms": {},
+    "": {
+        "clear_caches": JIT_ONLY,
+        "set_matmul_precision": POLICY,
+        "export": "ROADMAP Queue 1 item 14 (export.py)",
+        "functional": "ROADMAP Queue 1 item 14 (functional.py)",
+        # submodules that are attributes once something has imported them
+        "calibrate": "ROADMAP Queue 1 item 7 (only if the H100 sweep shows "
+                     "a gray zone)",
+        "parallel": "ROADMAP Queue 1 item 13 (scale-out)",
+    },
+}
+
+
+def _public(module, package=False):
+    names = set(getattr(module, "__all__", ()))
+    for name, value in vars(module).items():
+        if name.startswith("_"):
+            continue
+        if package:
+            names.add(name)
+        elif (not isinstance(value, types.ModuleType)
+              and (inspect.isfunction(value) or inspect.isclass(value))
+              and getattr(value, "__module__", None) == module.__name__):
+            names.add(name)
+    return sorted(names)
+
+
+def _pair(name):
+    suffix = "." + name if name else ""
+    return (importlib.import_module("proxmin_tpu" + suffix),
+            importlib.import_module("proxmin_tpu_torch" + suffix))
+
+
+@pytest.mark.parametrize("name", sorted(ABSENT))
+def test_every_public_name_is_ported_or_listed(name):
+    mj, mt = _pair(name)
+    public = _public(mj, package=not name)
+    assert len(public) >= 2
+    missing = sorted(n for n in public if not hasattr(mt, n))
+    assert set(missing) <= set(ABSENT[name]), (
+        f"proxmin_tpu{'.' + name if name else ''}: missing in the port and "
+        f"not listed: {sorted(set(missing) - set(ABSENT[name]))}")
+    for absent, reason in ABSENT[name].items():
+        assert reason.strip()
+        assert not hasattr(mt, absent), f"{absent} is ported: unlist it"
+        assert hasattr(mj, absent) or importlib.util.find_spec(
+            f"{mj.__name__}.{absent}"), f"{absent} is not a JAX name"
+
+
+@pytest.mark.parametrize("name", [
+    "NesterovAccelerator", "BarzilaiBorweinStepper", "ApproximateCache",
+    "Traceback", "NullCallback", "profile_trace",
+    "summarize_convergence_warnings", "hasNotNone", "check_convergence"])
+def test_the_remaining_utils_are_there(name):
+    """The utils of this slice, in ``__all__`` and with the JAX signature's
+    parameter names."""
+    got = getattr(proxmin_tpu_torch.utils, name)
+    want = getattr(proxmin_tpu.utils, name)
+    assert name in proxmin_tpu_torch.utils.__all__
+    target = (lambda o: o.__init__) if inspect.isclass(want) else (
+        lambda o: o)
+    assert (list(inspect.signature(target(got)).parameters)
+            == list(inspect.signature(target(want)).parameters))
+
+
+def test_top_level_exports_match():
+    """``checkpoint`` and ``special`` are exported as the JAX package
+    exports them, and the five solvers and the prox operators with them."""
+    for name in ("checkpoint", "special", "utils", "operators", "nmf",
+                 "algorithms", "linop"):
+        assert isinstance(getattr(proxmin_tpu_torch, name), types.ModuleType)
+    for name in ("pgm", "adaprox", "admm", "sdmm", "bsdmm", "prox_plus"):
+        assert callable(getattr(proxmin_tpu_torch, name))
+    for fn in ("save_checkpoint", "load_checkpoint"):
+        params = list(inspect.signature(
+            getattr(proxmin_tpu_torch.checkpoint, fn)).parameters)
+        assert params[0] == "path"
+
+
+@pytest.mark.parametrize("solver,options", [
+    ("pgm", ("backtracking", "f", "callback", "trace", "state")),
+    ("adaprox", ("callback", "trace", "f", "state")),
+    ("admm", ("callback", "trace", "state")),
+    ("sdmm", ("callback", "trace", "state")),
+    ("bsdmm", ("callback", "trace", "state")),
+])
+def test_solver_signatures_cover_the_jax_ones(solver, options):
+    """Every parameter of the JAX solver is a parameter of the port's (which
+    adds ``device``), in the same order."""
+    got = list(inspect.signature(
+        getattr(proxmin_tpu_torch, solver)).parameters)
+    want = [p for p in inspect.signature(
+        getattr(proxmin_tpu, solver)).parameters if not p.startswith("_")]
+    assert [p for p in got if p != "device"] == want
+    assert set(options) <= set(got)

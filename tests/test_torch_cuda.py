@@ -24,6 +24,9 @@ K2's bfloat16 store: as K1's (S' within one bfloat16 ulp, the row sums and
 the norms against the stored S'), the moments as above.
 The ADMM family on the card: sdmm with K4 soft as prox_g against
 operators.prox_soft, and resumed solves against straight ones, bitwise.
+The solvers' options on the card: blocking reads per iteration with a
+callback, a trace and backtracking; a checkpoint written on the card
+reloads on the CPU and back with equal bits.
 """
 
 import functools
@@ -1114,3 +1117,204 @@ def test_nmf_bsdmm_on_the_card(dev, policy):
         assert a.is_cuda and torch.equal(a, b)
     loss = lambda A_, S_: float(tnmf.log_likelihood(A_, S_, Y=Y, W=W))  # noqa
     assert np.isfinite(loss(*full.x)) and loss(*full.x) < loss(A0, S0)
+
+
+def _syncs(fn):
+    """Synchronizing CUDA calls (blocking host reads) that ``fn`` makes."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _reads_per_10(solve):
+    """Blocking reads that 10 more iterations of ``solve(n)`` add. The
+    first counted call of a process was seen to show one stray wait, so one
+    is counted and dropped first."""
+    _syncs(lambda: solve(10))
+    return _syncs(lambda: solve(20)) - _syncs(lambda: solve(10))
+
+
+def _nmf_pgm_problem(dev, N=3000):
+    A, S, Y, _ = _problem(dev, 5, 3, N)
+    Y = A @ S + 0.01
+    rng = np.random.default_rng(7)
+    A0, S0 = (torch.tensor(rng.random(tuple(t.shape)), dtype=torch.float32,
+                           device=dev) for t in (A, S))
+    return Y, A0, S0
+
+
+@pytest.mark.parametrize("option", ["none", "callback", "trace",
+                                    "callback and trace", "grad=None"])
+def test_callback_and_trace_add_no_blocking_read(dev, option):
+    """pgm with constant steps reads the host once per iteration (the stop
+    flags); a callback that does not look at its tensors, a trace and the
+    autodiff gradient add none."""
+    from proxmin_tpu_torch import utils as tu
+
+    Y, A0, S0 = _nmf_pgm_problem(dev)
+    kw = {}
+    if "callback" in option:
+        kw["callback"] = tu.NullCallback()
+    if "trace" in option:
+        kw["trace"] = True
+    grad = functools.partial(tnmf.grad_likelihood, Y=Y)
+    if option == "grad=None":
+        grad, kw["f"] = None, functools.partial(tnmf.log_likelihood, Y=Y)
+
+    def solve(n):
+        return algorithms.pgm([A0, S0], grad, (1e-5, 1e-3),
+                              prox=[top.prox_plus] * 2, e_rel=0, max_iter=n,
+                              **kw)
+
+    assert _reads_per_10(solve) == 10, option
+    res = solve(6)
+    assert res.iterations == 6 and res.x[1].is_cuda
+    if "trace" in option:
+        assert res.history.shape == (6, 2)
+
+
+def test_adaprox_callback_and_trace_add_no_blocking_read(dev):
+    from proxmin_tpu_torch import utils as tu
+
+    Y, A0, S0 = _nmf_pgm_problem(dev)
+
+    def solve(n, **kw):
+        return tnmf.nmf(Y, A0, S0, algorithm="adaprox", e_rel=0, max_iter=n,
+                        separable_prox="auto", **kw)
+
+    assert _reads_per_10(solve) == 10
+    assert _reads_per_10(functools.partial(
+        solve, callback=tu.NullCallback(), trace=True)) == 10
+    # the fused engine too reads the host once per iteration
+    assert _reads_per_10(lambda n: tnmf.nmf(
+        Y, A0, S0, algorithm="adaprox", engine="cuda", e_rel=0,
+        max_iter=n)) == 10
+
+
+@pytest.mark.parametrize("n_blocks", [1, 2])
+def test_backtracking_blocking_reads(dev, n_blocks):
+    """An iteration without a halving reads the host once; h halvings add
+    h reads, and with several blocks one more for the block to halve."""
+    c = torch.tensor([1.0, 0.5], device=dev)
+
+    def f(*X):
+        return sum(0.5 * torch.sum((x - c) ** 2) for x in X)
+
+    def grad(*X):
+        return tuple(x - c for x in X)
+
+    x0 = [torch.tensor([-1.0, -1.0], device=dev) for _ in range(n_blocks)]
+
+    def solve(n, step, state=None, x=None):
+        return algorithms.pgm(x or x0, grad, step, backtracking=True, f=f,
+                              e_rel=0, max_iter=n, state=state)
+
+
+    ok = 0.5
+    long = 6.0 if n_blocks == 1 else (6.0, 0.5)
+    # steps that need no halving
+    assert _reads_per_10(lambda n: solve(n, ok)) == 10
+    # the first block's step 6 times too long: the first iteration halves
+    # it 3 times (to 0.75 of the Lipschitz step), the later ones never
+    first = solve(1, long)
+    assert first.state["T"].tolist() == [0.125, 1.0][:n_blocks]
+    one = _syncs(lambda: solve(1, long)) - _syncs(lambda: solve(0, long))
+    assert one == 1 + 3 + (1 if n_blocks > 1 else 0)
+    later = (_syncs(lambda: solve(11, long, first.state, list(first.x)))
+             - _syncs(lambda: solve(1, long, first.state, list(first.x))))
+    assert later == 10
+
+
+def test_backtracking_argmax_on_a_zero_block(dev):
+    """max|S G| / max|x| is inf or NaN for a block at zero: the card's
+    argmax picks the block the CPU's does."""
+    for rel in ([1.0, np.inf], [np.nan, np.inf], [np.inf, np.nan],
+                [np.inf, np.inf], [np.nan, np.nan], [0.0, np.nan, 5.0]):
+        t = torch.tensor(rel)
+        assert int(torch.argmax(t.to(dev))) == int(torch.argmax(t))
+
+
+def test_traceback_copies_every_block_to_the_host(dev):
+    from proxmin_tpu_torch import utils as tu
+
+    Y, A0, S0 = _nmf_pgm_problem(dev)
+    tb = tu.Traceback()
+    res = tnmf.nmf(Y, A0, S0, e_rel=0, max_iter=5, callback=tb)
+    assert len(tb.trace) == 5
+    assert all(type(b) is np.ndarray for b in tb.trace[0])
+    np.testing.assert_array_equal(tb.trace[0][1], S0.cpu().numpy())
+    rest = tnmf.nmf(Y, *res.x, e_rel=0, max_iter=1, state=res.state,
+                    callback=tb)
+    np.testing.assert_array_equal(tb.trace[5][1], res.x[1].cpu().numpy())
+    assert rest.iterations == 1
+
+
+@pytest.mark.parametrize("case", ["pgm cuda weighted adaptive bf16 store",
+                                  "adaprox cuda bf16 store and moments",
+                                  "torch fista backtracking",
+                                  "bsdmm weighted adaptive"])
+def test_checkpoint_from_the_card_to_the_cpu_and_back(dev, tmp_path, case):
+    """A checkpoint written on the card loads on ``device="cpu"`` with equal
+    bits, goes back through a second file onto the card, and the resumed
+    solve equals the straight one bit for bit."""
+    from proxmin_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
+
+    A, S, Y, W = _problem(dev, 5, 3, 3000, weighted=True)
+    Y = A @ S + 0.01
+    rng = np.random.default_rng(7)
+    A0, S0 = (torch.tensor(rng.random(tuple(t.shape)), dtype=torch.float32,
+                           device=dev) for t in (A, S))
+    kw = {
+        "pgm cuda weighted adaptive bf16 store": dict(
+            W=W, engine="cuda", step_stride=4, step_adapt=True,
+            store_dtype="bfloat16", tile_n=1024),
+        "adaprox cuda bf16 store and moments": dict(
+            algorithm="adaprox", engine="cuda", store_dtype="bfloat16",
+            moment_dtype="bfloat16", tile_n=1024),
+        "torch fista backtracking": dict(
+            accelerated=True, backtracking=True,
+            f=functools.partial(tnmf.log_likelihood, Y=Y),
+            step=lambda *X, it=None: tuple(
+                6 * s for s in tnmf.step_pgm(*X))),
+        "bsdmm weighted adaptive": dict(
+            W=W, algorithm="bsdmm", step_stride=4, step_adapt=True),
+    }[case]
+    full = tnmf.nmf(Y, A0, S0, e_rel=0, max_iter=20, **kw)
+    half = tnmf.nmf(Y, A0, S0, e_rel=0, max_iter=8, **kw)
+    p1 = save_checkpoint(str(tmp_path / "card"), x=half.x,
+                         solver_state=half.state)
+    on_cpu = load_checkpoint(p1, device="cpu")
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            tree = list(tree.values())
+        if isinstance(tree, (tuple, list)):
+            return [v for t in tree for v in leaves(t)]
+        return [tree]
+
+    flat_card, flat_cpu = leaves(half.state), leaves(on_cpu["solver_state"])
+    assert len(flat_card) == len(flat_cpu)
+    n_tensors = 0
+    for a, b in zip(flat_card, flat_cpu):
+        assert type(a) is type(b)
+        if isinstance(a, torch.Tensor):
+            n_tensors += 1
+            assert a.is_cuda and not b.is_cuda and a.dtype == b.dtype
+            assert torch.equal(a.cpu(), b)
+    assert n_tensors >= 2
+    p2 = save_checkpoint(str(tmp_path / "host"), **on_cpu)
+    back = load_checkpoint(p2)
+    assert all(t.is_cuda for t in back["x"])
+    rest = tnmf.nmf(Y, *back["x"], e_rel=0, max_iter=12,
+                    state=back["solver_state"], **kw)
+    assert rest.iterations == 12
+    for a, b in zip(rest.x, full.x):
+        assert a.is_cuda and torch.equal(a, b)

@@ -195,19 +195,46 @@ def test_likelihood_gradient_and_steps_match_jax():
 
 
 @pytest.mark.parametrize("kw,err", [
-    ({"backtracking": True}, NotImplementedError),
+    ({"backtracking": True}, None),
     ({"engine": "auto"}, NotImplementedError),
     ({"mesh": object()}, NotImplementedError),
     ({"algorithm": "bsdmm", "engine": "cuda"}, ValueError),
     ({"algorithm": "admm"}, ValueError),
-    ({"trace": True}, NotImplementedError),
+    ({"trace": True}, None),
     ({"engine": "pallas"}, ValueError),
     ({"engine": "cuda", "accelerated": True}, ValueError),
 ])
 def test_later_slices_raise_clearly(kw, err):
+    """What the port does not have raises and names its ROADMAP item;
+    ``backtracking`` and ``trace`` raised too until they were ported, and
+    are now held against the JAX package (the test keeps its name)."""
     Y, A0, S0 = _problem()
-    with pytest.raises(err):
-        _nmf(Y, A0, S0, max_iter=2, **kw)
+    if err is not None:
+        with pytest.raises(err, match="item (7|13)" if err is
+                           NotImplementedError else None):
+            _nmf(Y, A0, S0, max_iter=2, **kw)
+        return
+    kj, kt = dict(kw), dict(kw)
+    if "backtracking" in kw:
+        # steps 6 times the Lipschitz ones: the line search has to halve
+        kj.update(f=functools.partial(pt.nmf.log_likelihood, Y=Y),
+                  step=lambda *X, it=None: tuple(
+                      6 * s for s in pt.nmf.step_pgm(*X)))
+        kt.update(f=functools.partial(ptt.nmf.log_likelihood,
+                                      Y=torch.from_numpy(Y)),
+                  step=lambda *X, it=None: tuple(
+                      6 * s for s in ptt.nmf.step_pgm(*X)))
+    rj = pt.nmf.nmf(Y, A0.copy(), S0.copy(), e_rel=0, max_iter=15, **kj)
+    rt = _nmf(Y, A0.copy(), S0.copy(), e_rel=0, max_iter=15, **kt)
+    assert rj.iterations == rt.iterations == 15
+    _close(rt.x, rj.x, F64)
+    np.testing.assert_array_equal(rt.state["T"].numpy(),
+                                  np.asarray(rj.state["T"]))
+    if "backtracking" in kw:
+        assert float(rt.state["T"].min()) < 1.0
+    else:
+        assert rt.history.shape == (15, 2)
+        np.testing.assert_allclose(rt.history, rj.history, rtol=1e-9)
 
 
 def test_bsdmm_algorithm_matches_jax():

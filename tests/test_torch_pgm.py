@@ -145,12 +145,41 @@ def test_pgm_divergence_detected_like_jax(rng):
 
 
 @pytest.mark.parametrize("kw", [
-    {"backtracking": True, "f": lambda x: x.sum()},
-    {"callback": lambda *x, it=None: None},
+    {"backtracking": True, "f": True},
+    {"callback": True},
     {"trace": True},
 ])
 def test_pgm_options_not_yet_ported_raise(rng, kw):
+    """These options raised ``NotImplementedError`` until they were ported;
+    the test keeps its name and now holds each against the JAX solver on
+    the box-constrained quadratic (tests/test_torch_driver_options.py has
+    the full set)."""
     Q, b, step, x0 = _problem(rng)
-    _, gt = _grads(Q, b)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _pgm(x0, gt, step, **kw)
+    gj, gt = _grads(Q, b)
+    kj, kt = dict(kw), dict(kw)
+    if "f" in kw:
+        Qj, bj = jnp.asarray(Q), jnp.asarray(b)
+        Qt, bt = torch.from_numpy(Q), torch.from_numpy(b)
+        kj["f"] = lambda x: 0.5 * x @ (Qj @ x) - bj @ x
+        kt["f"] = lambda x: 0.5 * x @ (Qt @ x) - bt @ x
+        step = 7 * step  # too long: the line search has to halve it
+    seen = {"jax": [], "torch": []}
+    if "callback" in kw:
+        kj["callback"] = lambda *x, it=None: seen["jax"].append(it)
+        kt["callback"] = lambda *x, it=None: seen["torch"].append(it)
+    rj = pt.pgm(x0.copy(), gj, step, prox=_box(pt), e_rel=1e-6,
+                max_iter=400, **kj)
+    rt = _pgm(x0.copy(), gt, step, prox=_box(ptt), e_rel=1e-6, max_iter=400,
+              **kt)
+    assert rj.iterations == rt.iterations and rj.status == rt.status
+    np.testing.assert_allclose(rt.x.numpy(), np.asarray(rj.x), rtol=1e-9)
+    np.testing.assert_allclose(rt.state["T"].numpy(),
+                               np.asarray(rj.state["T"]), rtol=0)
+    assert seen["torch"] == seen["jax"]
+    if "f" in kw:
+        assert float(rt.state["T"][0]) < 1.0
+    if "trace" in kw:
+        assert rt.history.shape == (rt.iterations, 1)
+        np.testing.assert_allclose(rt.history, rj.history, rtol=1e-9)
+    else:
+        assert rt.history is None
