@@ -19,8 +19,9 @@ benchmarks/admm_scale.py (seed 11, 1024 x 1024 and 4096 x 4096 pixels,
 float32), with K4's soft threshold as ``sdmm``'s ``prox_g``, and
 ``nmf(algorithm="bsdmm")`` on the flagship; then the drivers' options
 (callbacks, traces, backtracking, autodiff gradients, Barzilai-Borwein
-steps) and checkpoint/resume of six solves through a file. It exits
-non-zero when any phase fails. Phases:
+steps) and checkpoint/resume of six solves through a file; then the
+functional factories: batched patch NMF under ``torch.func.vmap`` and
+implicit gradients. It exits non-zero when any phase fails. Phases:
 
 1. probe: CUDA/driver/compiler versions, the card and its power limit;
 2. build K1, K2 (with K5), K3 and K4 from proxmin_tpu_torch/csrc/ with
@@ -102,7 +103,23 @@ non-zero when any phase fails. Phases:
    a file, drop every tensor, ``load_checkpoint`` onto the card, run 100
    more, equal to 200 straight ones bit for bit (the adaptive ones also
    split on a refresh boundary), with each file's size and its save and
-   load seconds.
+   load seconds;
+13. the functional factories (``proxmin_tpu_torch.functional``): each
+   factory against its driver bit for bit after 200 iterations, with its
+   kernels, launches and blocking reads per iteration and its marginal
+   ms/iter in turns with the driver (``make_pgm_solver`` with K3's gradient
+   at the flagship, ``make_admm_solver`` and ``make_sdmm_solver`` on the TV
+   denoise at 1024 x 1024 with K4 soft as ``prox_g``, ``make_bsdmm_solver``
+   with a sum-to-one S at the flagship); ``make_nmf_solver`` under
+   ``torch.func.vmap`` on the flagship image cut into 250 patches of 4000
+   pixels, unweighted and weighted: lanes 0 and 249 against their own
+   solves after 200 iterations and to e_rel=1e-3, every lane's loss
+   falling, the batch's ms/iter beside 10 seeded patches solved one by one
+   (scaled to 250), in turns; and the implicit gradients of
+   ``make_differentiable_pgm_solver`` (NNLS in S with a ridge, theta = Y, at
+   the flagship) and ``make_differentiable_admm_solver`` (the TV penalty
+   through ``prox_g`` at 1024 x 1024) against central differences, in
+   float64.
 
 The last two lines are the card (``nvidia-smi`` name and power limit)
 after a JSON object describing the kernels (each with its time, its plain
@@ -240,6 +257,39 @@ TRACE_RTOL = 1e-5
 # the factor 2 / 2 of the square's derivative (exact) in another place.
 GRAD_NONE_ITERS, GRAD_NONE_RTOL = 50, 1e-5
 GRAD_NONE_LO, GRAD_NONE_HI = 20, 70
+# The functional factories (phase 13). The flagship image cut into
+# FN_PATCHES patches of FN_PATCH_N pixels for the batched NMF; its
+# individual solves are timed on FN_SAMPLE seeded patches and scaled to all;
+# marginals between FN_LO and FN_HI iterations; the batched run to e_rel
+# FN_E_REL stops at FN_MAX_ITER at the latest.
+FN_PATCHES, FN_PATCH_N, FN_SAMPLE = 250, 4000, 10
+FN_LO, FN_HI = 20, 60
+FN_E_REL, FN_MAX_ITER = 1e-3, 500
+# the TV denoise of the factories and of the TV implicit gradient
+FN_TV_H = 1024
+# The implicit gradients in float64: non-negative least squares in S with
+# A0 fixed and a ridge IFT_MU (the map contracts), theta = Y, against a
+# central difference of step IFT_EPS along a seeded unit direction; and the
+# 1024 x 1024 TV denoise with its penalty learned through prox_g, against a
+# central difference of step IFT_TV_EPS. The adjoint needs more iterations
+# than the forward pass: at the factories' default cap (vjp_iters=10,000)
+# it stops short (1.3e-5 off at N = 4000 on the CPU, 5e-9 with the cap
+# lifted), so both run to IFT_MAX_ITER. The NNLS solution is only piecewise
+# smooth in Y: where the difference's two solves straddle a change of the
+# active set, it averages two slopes while the implicit gradient takes the
+# one at Y. Along a random direction at N = 1e6 the two differed by
+# 2.39e-3, unchanged by e_rel 1e-11 or 1e-13 and by the adjoint's cap (an
+# H100 80GB HBM3 at 700 W): a few of the 7e6 components crossed. A pixel's
+# solution depends on its own column of Y only, so the direction is zero
+# on the pixels whose active set lies within IFT_MARGIN of changing (a
+# component of S* in (0, IFT_MARGIN), or a zero one whose gradient is
+# below it): their solutions stay put, and the others move by about the
+# direction's 4.5e-7 per element, far inside the margin. On the CPU at
+# N = 4000 and at 128 x 128 the differences agree to 2.7e-9 and 3.4e-8.
+IFT_MU, IFT_E_REL, IFT_EPS, IFT_RTOL = 1e-2, 1e-13, 1e-3, 1e-4
+IFT_MARGIN = 1e-3
+IFT_TV_E_REL, IFT_TV_EPS, IFT_TV_RTOL = 1e-10, 1e-4, 1e-4
+IFT_MAX_ITER = 100_000
 
 
 def log(*args):
@@ -282,6 +332,11 @@ def norm_err(got, ref):
     """Normwise (Frobenius) relative difference."""
     return float(torch.linalg.norm(got - ref)
                  / torch.linalg.norm(ref).clamp_min(1e-30))
+
+
+def as_blocks(x):
+    """A solve's iterate as a tuple of blocks."""
+    return tuple(x) if isinstance(x, (tuple, list)) else (x,)
 
 
 def tensor_bytes(*tensors):
@@ -1651,6 +1706,311 @@ def driver_options_phase(mods, problem, card, every_kernel, kernel_fns,
             "K2 bf16 store": launches[2], "K4 soft": launches[4]}
 
 
+def functional_phase(mods, problem, card, every_kernel, kernel_fns,
+                     prof_dir):
+    """Phase 13: the functional factories on the card (see the module
+    docstring). ``mods`` are the port's modules ``(algorithms, linop, tnmf,
+    top, tops)``, ``problem`` the flagship ``(Y, A0, S0, Ww)``,
+    ``kernel_fns`` the wrappers ``(K3, K4 soft)``. Returns their launches
+    on the factories' paths."""
+    from proxmin_tpu_torch import functional as tfn
+
+    algorithms, linop, tnmf, top, tops = mods
+    Y, A0, S0, Ww = problem
+    k3_fn, soft_fn = kernel_fns
+    trace = prof_dir / "functional.json"
+    launches = {"K3": 0, "K4 soft": 0}
+
+    # (a) each factory against its driver, bit for bit
+    def k3_grad(A_, S_):
+        return tops.fused_nmf_grad(A_, S_, Y)[:2]
+
+    pgm_kw = dict(prox=[top.prox_plus] * 2, e_rel=0)
+    truth, y_tv = tv_problem(FN_TV_H)
+    Dh, Dv = tv_operators(linop, FN_TV_H)
+    x0_tv = torch.zeros_like(y_tv)
+
+    def prox_quad(x, step):
+        return (x + step * y_tv) / (1.0 + step)
+
+    k4_soft = partial(tops.prox_soft_pallas, thresh=TV_LAM)
+    unity = [None, [partial(top.prox_unity, axis=0)]]
+
+    def block_prox_f(Xj, step, Xs=None, j=None):
+        A, S = Xs
+        D = A @ S - Y
+        return top.prox_plus(Xj - step * (D @ S.T if j == 0 else A.T @ D),
+                             step)
+
+    def block_step(Xs, j=None):
+        return tnmf.step_A(*Xs) if j == 0 else tnmf.step_S(*Xs)
+
+    tv = dict(e_rel=0, e_abs=0)
+    pairs = (
+        ("make_pgm_solver, K3 gradient, flagship", k3_fn, 1,
+         lambda n: tfn.make_pgm_solver(k3_grad, tnmf.step_pgm, max_iter=n,
+                                       **pgm_kw)(A0, S0)[0],
+         lambda n: algorithms.pgm([A0, S0], k3_grad, tnmf.step_pgm,
+                                  max_iter=n, **pgm_kw).x),
+        (f"make_admm_solver, TV {FN_TV_H}x{FN_TV_H}, K4 soft as prox_g",
+         soft_fn, 1,
+         lambda n: tfn.make_admm_solver(prox_quad, TV_STEP_F, prox_g=k4_soft,
+                                        L=Dh, max_iter=n, **tv)(x0_tv)[0],
+         lambda n: algorithms.admm(x0_tv, prox_quad, TV_STEP_F,
+                                   prox_g=k4_soft, L=Dh, max_iter=n,
+                                   **tv).x),
+        (f"make_sdmm_solver, TV {FN_TV_H}x{FN_TV_H}, K4 soft as prox_g",
+         soft_fn, 2,
+         lambda n: tfn.make_sdmm_solver(prox_quad, TV_STEP_F, [k4_soft] * 2,
+                                        Ls=[Dh, Dv], max_iter=n,
+                                        **tv)(x0_tv)[0],
+         lambda n: algorithms.sdmm(x0_tv, prox_quad, TV_STEP_F,
+                                   proxs_g=[k4_soft] * 2, Ls=[Dh, Dv],
+                                   max_iter=n, **tv).x),
+        ("make_bsdmm_solver, sum-to-one S, flagship", None, 0,
+         lambda n: tfn.make_bsdmm_solver(block_prox_f, block_step,
+                                         proxs_g=unity, e_rel=0,
+                                         max_iter=n)(A0, S0)[0],
+         lambda n: algorithms.bsdmm([A0, S0], block_prox_f, block_step,
+                                    proxs_g=unity, e_rel=0,
+                                    max_iter=n).x),
+    )
+    for label, kern, per_it, factory, driver in pairs:
+        reset_counts(every_kernel)
+        xf = factory(ITERS)
+        torch.cuda.synchronize()
+        counts = {f.__name__: f.launches for f in every_kernel}
+        k_launches = kern.launches if kern is not None else 0
+        xd = driver(ITERS)
+        torch.cuda.synchronize()
+        xf, xd = as_blocks(xf), as_blocks(xd)
+        check(len(xf) == len(xd) and all(torch.equal(a, b)
+                                         for a, b in zip(xf, xd)),
+              f"{label}: the factory differs from its driver after {ITERS} "
+              "iterations")
+        check(all(bool(torch.isfinite(a).all()) for a in xf),
+              f"{label}: non-finite iterate")
+        want = per_it * ITERS
+        check(k_launches == want and sum(counts.values()) == want,
+              f"{label}: launches {counts} in {ITERS} iterations, "
+              f"{want} expected")
+        if kern is not None:
+            launches["K3" if kern is k3_fn else "K4 soft"] += k_launches
+        r_f = [blocking_reads(lambda n=n: factory(n)) for n in (10, 10, 20)]
+        r_d = [blocking_reads(lambda n=n: driver(n)) for n in (10, 10, 20)]
+        reads_f, reads_d = (r_f[2] - r_f[1]) / 10, (r_d[2] - r_d[1]) / 10
+        check(reads_f == reads_d,
+              f"{label}: {reads_f} blocking reads per iteration, the driver "
+              f"{reads_d}")
+        kern_it = (launches_of(lambda: factory(20), trace)
+                   - launches_of(lambda: factory(10), trace)) / 10
+        timed(factory, 5)
+        timed(driver, 5)
+        ms_d, ms_f, ms_f2, ms_d2 = (marginal_ms(f, LO, HI) for f in
+                                    (driver, factory, factory, driver))
+        log(f"functional [{label}]: equal to its driver bit for bit after "
+            f"{ITERS} iterations; "
+            + (f"{kern.__name__} launches {k_launches} = {per_it} per "
+               "iteration, " if kern else "no kernel of the port, ")
+            + f"{kern_it:.1f} CUDA kernels and {reads_f:.2f} blocking reads "
+            f"per iteration (the driver {reads_d:.2f}); marginal ms/iter "
+            f"factory {min(ms_f, ms_f2):.4f} ({ms_f:.4f}, {ms_f2:.4f}), "
+            f"driver {min(ms_d, ms_d2):.4f} ({ms_d:.4f}, {ms_d2:.4f}); order "
+            f"driver, factory, factory, driver; on {card}")
+
+    # (b) the flagship image as FN_PATCHES patches under torch.func.vmap
+    B, Np = FN_PATCHES, FN_PATCH_N
+    check(B * Np == N, "the patches cut the flagship image")
+
+    def patches(T):
+        return T.reshape(T.shape[0], B, Np).permute(1, 0, 2).contiguous()
+
+    Yb, S0b, Wb = patches(Y), patches(S0), patches(Ww)
+    A0b = A0.expand(B, C, K).contiguous()
+    sample = np.sort(np.random.default_rng(SEED).choice(B, FN_SAMPLE,
+                                                        replace=False))
+    vmap = torch.func.vmap
+
+    def lane_losses(A, S, Yp, Wp=None):
+        R = A.double() @ S.double() - Yp.double()
+        return 0.5 * torch.sum((1.0 if Wp is None else Wp.double()) * R * R,
+                               dim=(1, 2))
+
+    for weighted in (False, True):
+        wl = "weighted" if weighted else "unweighted"
+        args = (A0b, S0b, Yb) + ((Wb,) if weighted else ())
+
+        def lane(a, b):
+            return tuple(t[b] for t in a)
+
+        fixed = tfn.make_nmf_solver(e_rel=0, max_iter=ITERS,
+                                    weighted=weighted)
+        t0 = time.perf_counter()
+        Ab, Sb, itb, _ = vmap(fixed)(*args)
+        torch.cuda.synchronize()
+        t_batch = time.perf_counter() - t0
+        check(tuple(Sb.shape) == (B, K, Np) and bool((itb == ITERS).all()),
+              f"batched NMF [{wl}]: shape {tuple(Sb.shape)}, iterations "
+              f"{sorted(set(itb.tolist()))}")
+        errs = []
+        for b in (0, B - 1):
+            Ai, Si, iti, _ = fixed(*lane(args, b))
+            errs.append((norm_err(Ab[b], Ai), norm_err(Sb[b], Si)))
+            check(max(errs[-1]) <= ENGINE_RTOL and int(iti) == ITERS,
+                  f"batched NMF [{wl}]: lane {b} against its own solve "
+                  f"after {ITERS} iterations: normwise {errs[-1]} > "
+                  f"{ENGINE_RTOL:g}")
+        l0 = lane_losses(A0b, S0b, Yb, Wb if weighted else None)
+        l1 = lane_losses(Ab, Sb, Yb, Wb if weighted else None)
+        check(bool(torch.isfinite(l1).all()) and bool((l1 < l0).all()),
+              f"batched NMF [{wl}]: a lane's loss did not fall")
+        # to the tolerance: each lane stops on its own
+        solve = tfn.make_nmf_solver(e_rel=FN_E_REL, max_iter=FN_MAX_ITER,
+                                    weighted=weighted)
+        Ac, Sc, itc, convc = vmap(solve)(*args)
+        its_lane = {b: (int(itc[b]), int(solve(*lane(args, b))[2]))
+                    for b in (0, B - 1)}
+        flips = {b: v for b, v in its_lane.items() if v[0] != v[1]}
+        # float32: the batched products sum in other orders than the single
+        # ones, so a lane near its threshold may stop one iteration apart
+        check(all(abs(a - b) <= 1 for a, b in flips.values()),
+              f"batched NMF [{wl}]: iterations to e_rel={FN_E_REL:g} "
+              f"(batched, own solve) {its_lane}")
+
+        def batch_run(n):
+            vmap(tfn.make_nmf_solver(e_rel=0, max_iter=n,
+                                     weighted=weighted))(*args)
+
+        def sample_run(n):
+            one = tfn.make_nmf_solver(e_rel=0, max_iter=n, weighted=weighted)
+            for b in sample:
+                one(*lane(args, int(b)))
+
+        timed(batch_run, 3)
+        timed(sample_run, 3)
+        ms_b, ms_s, ms_s2, ms_b2 = (marginal_ms(f, FN_LO, FN_HI) for f in
+                                    (batch_run, sample_run, sample_run,
+                                     batch_run))
+        ms_batch, ms_one = min(ms_b, ms_b2), min(ms_s, ms_s2) / FN_SAMPLE
+        launches_b = (launches_of(lambda: batch_run(2 * FN_LO), trace)
+                      - launches_of(lambda: batch_run(FN_LO), trace)) / FN_LO
+        reads_b = (blocking_reads(lambda: batch_run(2 * FN_LO))
+                   - blocking_reads(lambda: batch_run(FN_LO))) / FN_LO
+        log(f"functional [make_nmf_solver {wl}, torch.func.vmap over {B} "
+            f"patches of {Np} pixels]: {ITERS} iterations in "
+            f"{t_batch:.3f} s; lanes 0 and {B - 1} against their own solves "
+            "normwise (A, S) "
+            + "; ".join(f"{a:.2e}, {b:.2e}" for a, b in errs)
+            + f" (tol {ENGINE_RTOL:g}); every lane's loss falls ("
+            f"{float(l0.sum()):.6e} -> {float(l1.sum()):.6e} in all); to "
+            f"e_rel={FN_E_REL:g}: lanes stop at {int(itc.min())}-"
+            f"{int(itc.max())} iterations ({int(convc.sum())} of {B} "
+            "converged), lanes 0 and B-1 (batched, own solve) "
+            + ", ".join(f"{v[0]}, {v[1]}" for v in its_lane.values())
+            + (f" (a rounding flip at {sorted(flips)}: float32 batched "
+               "products sum in another order)" if flips else " equal")
+            + f"; marginal ms/iter: the batch {ms_batch:.4f} ({ms_b:.4f}, "
+            f"{ms_b2:.4f}), one patch {ms_one:.4f} (the {FN_SAMPLE} seeded "
+            f"patches {sample.tolist()} in {min(ms_s, ms_s2):.4f}), "
+            f"{B} patches one by one ~{ms_one * B:.4f} (scaled), "
+            f"{ms_one * B / ms_batch:.1f} times the batch; order batch, "
+            f"patches, patches, batch; the batch runs {launches_b:.1f} CUDA "
+            f"kernels and {reads_b:.2f} blocking reads per iteration; on "
+            f"{card}")
+
+    # (c) implicit gradients against central differences, float64
+    f64 = torch.float64
+    A64, Y64 = A0.to(f64), Y.to(f64)
+    L_ift = float(torch.linalg.eigvalsh(A64.T @ A64)[-1]) + IFT_MU
+    evals = [0]
+
+    def nnls_grad(S, Yp):
+        evals[0] += 1
+        return A64.T @ (A64 @ S - Yp) + IFT_MU * S
+
+    solve = tfn.make_differentiable_pgm_solver(
+        nnls_grad, 1.0 / L_ift, prox=top.prox_plus, e_rel=IFT_E_REL,
+        max_iter=IFT_MAX_ITER, vjp_iters=IFT_MAX_ITER, vjp_rtol=IFT_E_REL)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    wv = torch.randn((K, N), dtype=f64, device=DEVICE, generator=gen)
+    d = torch.randn((C, N), dtype=f64, device=DEVICE, generator=gen)
+    S_zero = torch.zeros((K, N), dtype=f64, device=DEVICE)
+    theta = Y64.clone().requires_grad_(True)
+    t0 = time.perf_counter()
+    S_star, conv = solve(S_zero, theta)
+    torch.cuda.synchronize()
+    t_fwd, n_fwd = time.perf_counter() - t0, evals[0]
+    check(bool(conv), f"IFT NNLS: the forward pass did not converge in "
+          f"{n_fwd} iterations")
+    t0 = time.perf_counter()
+    (g,) = torch.autograd.grad(torch.sum(wv * S_star), theta)
+    torch.cuda.synchronize()
+    t_bwd = time.perf_counter() - t0
+    with torch.no_grad():
+        slack = torch.where(S_star > 0, S_star, nnls_grad(S_star, Y64))
+        kept = slack.min(dim=0).values >= IFT_MARGIN
+        d = d * kept
+        d = d / torch.linalg.norm(d)
+    gd = float(torch.sum(g * d))
+    with torch.no_grad():
+        lp, lm = (float(torch.sum(
+            wv * solve(S_zero, Y64 + sg * IFT_EPS * d)[0])) for sg in (1, -1))
+    fd = (lp - lm) / (2 * IFT_EPS)
+    err = abs(fd - gd) / abs(gd)
+    log(f"functional [make_differentiable_pgm_solver, float64 NNLS in S at "
+        f"C={C} K={K} N={N}, A0 fixed, ridge {IFT_MU:g}, theta = Y]: forward "
+        f"{n_fwd} iterations to e_rel={IFT_E_REL:g} in {t_fwd:.2f} s, "
+        f"backward (the adjoint to {IFT_E_REL:g}) {t_bwd:.2f} s; zero "
+        f"fraction of S* {float((S_star == 0).double().mean()):.4f}; "
+        f"d/dY <w, S*> along a seeded unit direction on the "
+        f"{float(kept.double().mean()):.4f} of the pixels away from a change "
+        f"of the active set: implicit {gd:.10e}, central difference (step "
+        f"{IFT_EPS:g}) {fd:.10e}, rel {err:.2e} (tol {IFT_RTOL:g}); on {card}")
+    check(np.isfinite(gd) and err <= IFT_RTOL,
+          f"IFT NNLS: implicit {gd:.10e} against central difference "
+          f"{fd:.10e}: rel {err:.2e} > {IFT_RTOL:g}")
+
+    truth64, y64 = truth.to(f64), y_tv.to(f64)
+    evals[0] = 0
+
+    def tv_prox_f(x, step, lam):
+        evals[0] += 1
+        return (x + step * y64) / (1.0 + step)
+
+    tv_solve = tfn.make_differentiable_admm_solver(
+        tv_prox_f, TV_STEP_F, lambda v, step, lam: top.prox_soft(
+            v, step, thresh=lam), L=Dh, e_rel=IFT_TV_E_REL,
+        max_iter=IFT_MAX_ITER, vjp_iters=IFT_MAX_ITER, vjp_rtol=IFT_TV_E_REL,
+        prox_params=True)
+    x0_64 = torch.zeros_like(y64)
+    lam = torch.tensor(TV_LAM, dtype=f64, device=DEVICE, requires_grad=True)
+    t0 = time.perf_counter()
+    x_star, conv = tv_solve(x0_64, lam)
+    torch.cuda.synchronize()
+    t_fwd, n_fwd = time.perf_counter() - t0, evals[0]
+    check(bool(conv), f"IFT TV: the forward pass did not converge in "
+          f"{n_fwd} iterations")
+    t0 = time.perf_counter()
+    (g,) = torch.autograd.grad(torch.mean((x_star - truth64) ** 2), lam)
+    torch.cuda.synchronize()
+    t_bwd, g = time.perf_counter() - t0, float(g)
+    with torch.no_grad():
+        lp, lm = (float(torch.mean((tv_solve(x0_64, lam + sg * IFT_TV_EPS)[0]
+                                    - truth64) ** 2)) for sg in (1, -1))
+    fd = (lp - lm) / (2 * IFT_TV_EPS)
+    err = abs(fd - g) / abs(g)
+    log(f"functional [make_differentiable_admm_solver, float64 TV denoise "
+        f"{FN_TV_H}x{FN_TV_H}, penalty {TV_LAM:g} learned through prox_g]: "
+        f"forward {n_fwd} iterations to e_rel={IFT_TV_E_REL:g} in "
+        f"{t_fwd:.2f} s, backward {t_bwd:.2f} s; d MSE / d lam: implicit "
+        f"{g:.10e}, central difference (step {IFT_TV_EPS:g}) {fd:.10e}, rel "
+        f"{err:.2e} (tol {IFT_TV_RTOL:g}); on {card}")
+    check(np.isfinite(g) and err <= IFT_TV_RTOL,
+          f"IFT TV: implicit {g:.10e} against central difference {fd:.10e}: "
+          f"rel {err:.2e} > {IFT_TV_RTOL:g}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card "
@@ -2462,6 +2822,13 @@ def main():
     k1b_launches += ck_launches["K1 bf16 store"]
     k2s_launches += ck_launches["K2 bf16 store"]
     k4_launches["soft"] += ck_launches["K4 soft"]
+
+    # 13. the functional factories
+    fn_launches = functional_phase(
+        (algorithms, linop, tnmf, top, tops), (Y, A0, S0, Ww), card,
+        every_kernel, (k3_fn, k4_fns["soft"]), prof_dir)
+    k3_launches += fn_launches["K3"]
+    k4_launches["soft"] += fn_launches["K4 soft"]
 
     k2_ms, k2_plain = k2_times["f32 moments"]
     k1b_ms, k1b_plain, k1b_bound = k1_times["bf16 store, W"]

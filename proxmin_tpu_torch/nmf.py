@@ -171,6 +171,27 @@ def _weighted_lipschitz_S_v0(N, K, dtype, device):
     return v / torch.linalg.norm(v, dim=1, keepdim=True)
 
 
+def _lam_max_psd_batch(H, iters):
+    """The largest top eigenvalue over a stack of small PSD Grams ``(C, K,
+    K)`` by a batched power iteration of ``iters`` passes: products and
+    elementwise operations only, so it runs under ``torch.func.vmap``.
+    :func:`~proxmin_tpu_torch.functional.make_nmf_solver`'s weighted path
+    takes it; the drivers take ``eigvalsh``
+    (:func:`_weighted_lipschitz_A`)."""
+    c, k, _ = H.shape
+    tiny = torch.finfo(H.dtype).tiny
+    u = (torch.ones((c, k), dtype=H.dtype, device=H.device)
+         + 0.01 * torch.arange(k, dtype=H.dtype, device=H.device))
+    for _ in range(int(iters)):
+        w = torch.einsum("ckl,cl->ck", H, u)
+        ssq = torch.sum(w * w, dim=1, keepdim=True)
+        u = w * torch.rsqrt(torch.clamp_min(ssq, tiny))
+    hu = torch.einsum("ckl,cl->ck", H, u)
+    ray = torch.sum(u * hu, dim=1) / torch.clamp_min(
+        torch.sum(u * u, dim=1), tiny)
+    return torch.max(ray)
+
+
 def _weighted_lipschitz_S(A, W, num_iters=48, v0=None, return_v=False):
     """``max_n lambda_max(A^T diag(W[:, n]) A)`` by a batched power
     iteration over the N per-pixel K x K blocks, never formed: ``num_iters``

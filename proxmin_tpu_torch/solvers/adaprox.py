@@ -151,6 +151,22 @@ def normalize_b1_schedule(b1, max_iter):
     return b1
 
 
+def _check_options(scheme, b1, b2, eps, p, max_iter):
+    """Validate the scheme's options: ``(b1 schedule, phi_psi)``."""
+    b1 = normalize_b1_schedule(b1, max_iter)
+    if not 0 <= b2 < 1:
+        raise ValueError(f"b2 must lie in [0, 1), got {b2}")
+    if eps < 0:
+        raise ValueError(f"eps must be >= 0, got {eps}")
+    if not 0 < p <= 0.5:
+        raise ValueError(f"p must lie in (0, 0.5], got {p}")
+    scheme = scheme.lower()
+    if scheme not in SCHEMES:
+        raise ValueError(f"unknown scheme {scheme!r}; one of "
+                         f"{sorted(SCHEMES)}")
+    return b1, SCHEMES[scheme]
+
+
 def _prox_subloop(prox_j, x_j, alpha_j, Psi, e_rel_j, prox_max_iter):
     """Solve the scaled proximal problem by fixed-point sub-iterations
     ``z <- prox(z - (gamma/alpha) Psi (z - x_j), gamma)`` with
@@ -173,7 +189,9 @@ def _prox_subloop(prox_j, x_j, alpha_j, Psi, e_rel_j, prox_max_iter):
 def _step(st, it, grad, stepper, prox, has_prox, separable, phi_psi, b1, b2,
           eps, p, e_rel, check_convergence, prox_max_iter, moment_dtype,
           trace):
-    """One AdaProx iteration on the carry (the JAX body, term for term)."""
+    """One AdaProx iteration on the carry (the JAX body, term for term):
+    the loop body that the driver and ``functional.make_adaprox_solver``
+    share. It reads the host only in the prox sub-iterations."""
     n = len(prox)
     x = st["x"]
     G = utils._as_tuple(grad(*x))
@@ -228,6 +246,15 @@ def _step(st, it, grad, stepper, prox, has_prox, separable, phi_psi, b1, b2,
         tuple(x_new), tuple(M_new), tuple(V_new), tuple(Vhat_new))
     st["diverged"] = torch.logical_or(st["diverged"],
                                       torch.logical_not(finite))
+
+
+def _stopped(st, check_convergence):
+    """The loop's stop flag on the device: diverged, or every block
+    converged when the test is on."""
+    stop = st["diverged"]
+    if check_convergence:
+        stop = torch.logical_or(stop, st["converged"].all())
+    return stop
 
 
 def adaprox(
@@ -324,18 +351,7 @@ def adaprox(
     e_rel = normalize_per_block(e_rel, n)
     separable = separable_blocks(prox_in, has_prox, separable_prox)
 
-    b1 = normalize_b1_schedule(b1, max_iter)
-    if not 0 <= b2 < 1:
-        raise ValueError(f"b2 must lie in [0, 1), got {b2}")
-    if eps < 0:
-        raise ValueError(f"eps must be >= 0, got {eps}")
-    if not 0 < p <= 0.5:
-        raise ValueError(f"p must lie in (0, 0.5], got {p}")
-    scheme = scheme.lower()
-    if scheme not in SCHEMES:
-        raise ValueError(f"unknown scheme {scheme!r}; one of "
-                         f"{sorted(SCHEMES)}")
-    phi_psi = SCHEMES[scheme]
+    b1, phi_psi = _check_options(scheme, b1, b2, eps, p, max_iter)
     moment_dtype = as_torch_dtype(moment_dtype)
 
     it0 = 0
@@ -382,10 +398,7 @@ def adaprox(
 
     def keep_going():
         # the one host read per iteration
-        stop = st["diverged"]
-        if check_convergence:
-            stop = torch.logical_or(stop, st["converged"].all())
-        return not bool(stop)
+        return not bool(_stopped(st, check_convergence))
 
     it = 0
     while it < max_iter and keep_going():

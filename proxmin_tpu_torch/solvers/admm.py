@@ -28,7 +28,8 @@ import torch
 from .. import utils
 from ..linop import IdentityOperator, as_linear_operator
 from .common import (BoolResult, SolverResult, as_tensor, map_leaves,
-                     status_from, tupleize, writeback)
+                     run_lanes, select_lanes, status_from, tupleize,
+                     writeback)
 
 logger = logging.getLogger("proxmin")
 
@@ -94,6 +95,113 @@ def _resume_state(state):
     }
 
 
+def _make_iteration(prox_f, step_f, proxs_g, steps_g, Ls, e_rel, e_abs,
+                    admm_convention, adapt_step):
+    """The loop body that the host loop (:func:`_sdmm_core`) and the lanes
+    controller (:func:`_sdmm_lanes`) share: ``iteration(x, z, u, r_prev,
+    it, slack, step_scale) -> (x', z', u', r, errors, converged,
+    nonfinite, stall, step_scale')``. ``it`` is the restart-relative clock
+    before the iteration, and with ``slack`` a host number in the host loop
+    or a 0-d tensor per lane under ``vmap``; ``errors`` is the (M, 4) row
+    block, the flags are 0-d tensors, and ``stall`` (the restart test) is
+    None where it cannot hold."""
+    M = len(proxs_g)
+    has_g = M > 0
+    step_fn = _as_step_fn(step_f)
+    ident = IdentityOperator()
+
+    def iteration(x, z, u, r_prev, it, slack, step_scale):
+        step_f_ = slack * step_fn(x, it=it)
+        if adapt_step:
+            step_f_ = step_f_ * step_scale
+
+        if M == 1:
+            sg = steps_g[0]
+            step_g_ = (utils.get_step_g(step_f_, Ls[0].spectral_norm_sq)
+                       if sg is None else sg)
+            x_new, z, u, lx, r, s = utils.update_variables(
+                x, z, u, prox_f, step_f_, proxs_g[0], step_g_, Ls[0])
+            conv_sg = sg if admm_convention else step_g_
+            conv_t, errors = utils.check_constraint_convergence(
+                x_new, Ls[0], lx, z, u, r, s, step_f_, conv_sg, e_rel, e_abs)
+        elif has_g:
+            steps_g_ = [
+                utils.get_step_g(step_f_, Ls[i].spectral_norm_sq, M=M)
+                if steps_g[i] is None else steps_g[i] for i in range(M)]
+            x_new, z, u, lx, r, s = utils.update_variables(
+                x, z, u, prox_f, step_f_, list(proxs_g), steps_g_, list(Ls))
+            conv_t, errors = utils.check_constraint_convergence(
+                x_new, list(Ls), lx, z, u, r, s, step_f_, steps_g_, e_rel,
+                e_abs)
+        else:
+            x_new, z, u, lx, r, s = utils.update_variables(
+                x, z, u, prox_f, step_f_, None, None, ident)
+            conv_t, errors = utils.check_constraint_convergence(
+                x_new, ident, lx, z, u, r, s, step_f_, None, e_rel, e_abs)
+
+        errors_arr = _stack_errors(errors, M > 1)
+        # the error norms are reductions of every live quantity, so their
+        # finiteness detects a diverged iterate for free
+        nonfinite = torch.logical_not(torch.isfinite(errors_arr).all())
+
+        if adapt_step and has_g:
+            # compare the aggregate primal and dual residual norms, adjust
+            # the multiplier for the next iteration and rescale the scaled
+            # duals by the effective ratio
+            lR = torch.sqrt(torch.sum(errors_arr[:, 2] ** 2))
+            lS = torch.sqrt(torch.sum(errors_arr[:, 3] ** 2))
+            mu, tau = 10.0, 2.0
+            one = torch.ones_like(step_scale)
+            ratio = torch.where(lR > mu * lS, one / tau,
+                                torch.where(lS > mu * lR, one * tau, one))
+            scale_new = torch.clamp(step_scale * ratio, _ADAPT_SCALE_MIN,
+                                    _ADAPT_SCALE_MAX)
+            ratio_eff = scale_new / step_scale
+            u = map_leaves(lambda ui: ui * ratio_eff, u)
+            step_scale = scale_new
+
+        # stall detector: X and every primal residual bitwise unchanged
+        # since the last iteration, not converged, past the first two
+        # iterations -> halve the slack, reset the iteration counter,
+        # re-initialize Z and U from the new x
+        stall = None
+        past_two = it >= 1
+        if has_g and past_two is not False:
+            same = (x_new == x).all()
+            for ri, rpi in (((r, r_prev),) if M == 1 else zip(r, r_prev)):
+                same = torch.logical_and(same, (ri == rpi).all())
+            stall = torch.logical_and(same, torch.logical_not(conv_t))
+            if past_two is not True:
+                stall = torch.logical_and(stall, past_two)
+        return (x_new, z, u, r, errors_arr, conv_t, nonfinite, stall,
+                step_scale)
+
+    return iteration
+
+
+def _init_zu(proxs_g, Ls):
+    """``init_zu(x) -> (Z, U)`` for the constraint structure."""
+    M = len(proxs_g)
+    L_struct = list(Ls) if M != 1 else (Ls[0] if M else None)
+
+    def init_zu(x):
+        if not M:
+            return x, torch.zeros_like(x)
+        return utils.initZU(x, L_struct)
+
+    return init_zu
+
+
+def _check_adapt(adapt_step, steps_g):
+    if adapt_step and any(sg is not None for sg in steps_g):
+        raise ValueError(
+            "adapt_step requires the derived step_g coupling "
+            "(step_g=None): a fixed user step_g cannot track the "
+            "adapted step_f, which corrupts the dual rescale and can "
+            "cross the linearized-ADMM stability bound"
+        )
+
+
 def _sdmm_core(x0, prox_f, step_f, proxs_g, steps_g, Ls, e_rel, e_abs,
                max_iter, callback, trace=False, admm_convention=True,
                adapt_step=False, resume=None):
@@ -115,23 +223,11 @@ def _sdmm_core(x0, prox_f, step_f, proxs_g, steps_g, Ls, e_rel, e_abs,
     adapted ``step_f``, which corrupts the dual rescale and can cross the
     stability bound ``step_f <= step_g / ||L||^2``."""
     M = len(proxs_g)
-    has_g = M > 0
-    if adapt_step and any(sg is not None for sg in steps_g):
-        raise ValueError(
-            "adapt_step requires the derived step_g coupling "
-            "(step_g=None): a fixed user step_g cannot track the "
-            "adapted step_f, which corrupts the dual rescale and can "
-            "cross the linearized-ADMM stability bound"
-        )
+    _check_adapt(adapt_step, steps_g)
     dtype, device = x0.dtype, x0.device
-    step_fn = _as_step_fn(step_f)
-    L_struct = list(Ls) if M != 1 else (Ls[0] if has_g else None)
-    ident = IdentityOperator()
-
-    def init_zu(x):
-        if not has_g:
-            return x, torch.zeros_like(x)
-        return utils.initZU(x, L_struct)
+    iteration = _make_iteration(prox_f, step_f, proxs_g, steps_g, Ls, e_rel,
+                                e_abs, admm_convention, adapt_step)
+    init_zu = _init_zu(proxs_g, Ls)
 
     x = x0
     if resume is None:
@@ -175,73 +271,16 @@ def _sdmm_core(x0, prox_f, step_f, proxs_g, steps_g, Ls, e_rel, e_abs,
                 callback(x, it=it)
             except StopIteration:
                 break
-        step_f_ = slack * step_fn(x, it=it)
-        if adapt_step:
-            step_f_ = step_f_ * step_scale
-
-        if M == 1:
-            sg = steps_g[0]
-            step_g_ = (utils.get_step_g(step_f_, Ls[0].spectral_norm_sq)
-                       if sg is None else sg)
-            x_new, z, u, lx, r, s = utils.update_variables(
-                x, z, u, prox_f, step_f_, proxs_g[0], step_g_, Ls[0])
-            conv_sg = sg if admm_convention else step_g_
-            conv_t, errors = utils.check_constraint_convergence(
-                x_new, Ls[0], lx, z, u, r, s, step_f_, conv_sg, e_rel, e_abs)
-        elif has_g:
-            steps_g_ = [
-                utils.get_step_g(step_f_, Ls[i].spectral_norm_sq, M=M)
-                if steps_g[i] is None else steps_g[i] for i in range(M)]
-            x_new, z, u, lx, r, s = utils.update_variables(
-                x, z, u, prox_f, step_f_, list(proxs_g), steps_g_, list(Ls))
-            conv_t, errors = utils.check_constraint_convergence(
-                x_new, list(Ls), lx, z, u, r, s, step_f_, steps_g_, e_rel,
-                e_abs)
-        else:
-            x_new, z, u, lx, r, s = utils.update_variables(
-                x, z, u, prox_f, step_f_, None, None, ident)
-            conv_t, errors = utils.check_constraint_convergence(
-                x_new, ident, lx, z, u, r, s, step_f_, None, e_rel, e_abs)
-
+        (x_new, z, u, r, errors_arr, conv_t, nonfinite, stall,
+         step_scale) = iteration(x, z, u, r_prev, it, slack, step_scale)
         it += 1
-        errors_arr = _stack_errors(errors, M > 1)
-        # the error norms are reductions of every live quantity, so their
-        # finiteness detects a diverged iterate for free
-        flags = [conv_t,
-                 torch.logical_not(torch.isfinite(errors_arr).all())]
         if trace:
             # 2 * max_iter rows, not the whole restart budget; a restart
             # storm beyond that overwrites the last row
             history[min(total_it - tot0, history.shape[0] - 1)] = errors_arr
 
-        if adapt_step and has_g:
-            # compare the aggregate primal and dual residual norms, adjust
-            # the multiplier for the next iteration and rescale the scaled
-            # duals by the effective ratio
-            lR = torch.sqrt(torch.sum(errors_arr[:, 2] ** 2))
-            lS = torch.sqrt(torch.sum(errors_arr[:, 3] ** 2))
-            mu, tau = 10.0, 2.0
-            one = torch.ones_like(step_scale)
-            ratio = torch.where(lR > mu * lS, one / tau,
-                                torch.where(lS > mu * lR, one * tau, one))
-            scale_new = torch.clamp(step_scale * ratio, _ADAPT_SCALE_MIN,
-                                    _ADAPT_SCALE_MAX)
-            ratio_eff = scale_new / step_scale
-            u = map_leaves(lambda ui: ui * ratio_eff, u)
-            step_scale = scale_new
-
-        # stall detector: X and every primal residual bitwise unchanged
-        # since the last iteration, not converged, past the first two
-        # iterations -> halve the slack, reset the iteration counter,
-        # re-initialize Z and U from the new x
-        if has_g and it > 1:
-            same = (x_new == x).all()
-            for ri, rpi in (((r, r_prev),) if M == 1 else zip(r, r_prev)):
-                same = torch.logical_and(same, (ri == rpi).all())
-            flags.append(torch.logical_and(same,
-                                           torch.logical_not(conv_t)))
-
         # the one blocking read of the iteration
+        flags = [conv_t, nonfinite] + ([] if stall is None else [stall])
         flags = torch.stack(flags).tolist()
         conv, diverged = flags[0], diverged or flags[1]
         x, r_prev = x_new, r
@@ -255,6 +294,55 @@ def _sdmm_core(x0, prox_f, step_f, proxs_g, steps_g, Ls, e_rel, e_abs,
         x=x, z=z, u=u, it=it, total_it=total_it, slack=slack,
         converged=conv, errors=errors_arr, r_prev=r_prev, history=history,
         step_scale=step_scale, total_it0=tot0, it0=it0, diverged=diverged)
+
+
+def _sdmm_lanes(x0, prox_f, step_f, proxs_g, steps_g, Ls, e_rel, e_abs,
+                max_iter, admm_convention=True, adapt_step=False):
+    """The lanes controller of :func:`_sdmm_core` (a fresh solve under
+    ``torch.func.vmap``): the same iteration, with the restart taken per
+    lane by ``torch.where`` (the slack and the clocks are 0-d tensors) and
+    each lane stopped by its own flags and clocks. Returns the final state
+    as a dict."""
+    M = len(proxs_g)
+    _check_adapt(adapt_step, steps_g)
+    dtype, device = x0.dtype, x0.device
+    iteration = _make_iteration(prox_f, step_f, proxs_g, steps_g, Ls, e_rel,
+                                e_abs, admm_convention, adapt_step)
+    init_zu = _init_zu(proxs_g, Ls)
+    z, u = init_zu(x0)
+    zero = torch.zeros((), dtype=torch.int32, device=device)
+    false = torch.zeros((), dtype=torch.bool, device=device)
+    st = dict(x=x0, z=z, u=u, r_prev=map_leaves(torch.zeros_like, z),
+              it=zero, total_it=zero,
+              slack=torch.ones((), dtype=dtype, device=device),
+              step_scale=(torch.ones((), dtype=dtype, device=device)
+                          if adapt_step else 1.0),
+              converged=false, diverged=false,
+              errors=torch.zeros((max(M, 1), 4), dtype=dtype, device=device))
+
+    def step(st, _):
+        (x_new, z, u, r, errors_arr, conv_t, nonfinite, stall,
+         step_scale) = iteration(st["x"], st["z"], st["u"], st["r_prev"],
+                                 st["it"], st["slack"], st["step_scale"])
+        it, slack = st["it"] + 1, st["slack"]
+        if stall is not None:
+            z0, u0 = init_zu(x_new)
+            z = select_lanes(stall, z0, z)
+            u = select_lanes(stall, u0, u)
+            slack = torch.where(stall, slack / 2, slack)
+            it = torch.where(stall, torch.zeros_like(it), it)
+        st.update(x=x_new, z=z, u=u, r_prev=r, it=it,
+                  total_it=st["total_it"] + 1, slack=slack,
+                  step_scale=step_scale, converged=conv_t,
+                  diverged=torch.logical_or(st["diverged"], nonfinite),
+                  errors=errors_arr)
+
+    def stopped(st):
+        return (st["converged"] | st["diverged"] | (st["it"] >= max_iter)
+                | (st["total_it"] >= _RESTART_BUDGET * max_iter))
+
+    run_lanes(st, step, stopped, _RESTART_BUDGET * max_iter, device)
+    return st
 
 
 def _finish(state, originals, trace, multi):

@@ -76,6 +76,137 @@ def _normalize(N, proxs_g, steps_g, Ls, steps_g_update, device):
     return proxs_g, steps_g, Ls, steps_g_update
 
 
+class _Program:
+    """The solver's structure resolved for N blocks on a device (the
+    normalized constraints, tolerances, sweep order and step mode) and its
+    sweep: the loop body that the driver and
+    ``functional.make_bsdmm_solver`` share, as the JAX driver's
+    ``_build_bsdmm`` is shared there."""
+
+    def __init__(self, N, device, proxs_f, steps_f_cb, proxs_g=None,
+                 steps_g=None, Ls=None, update_order=None,
+                 steps_g_update="steps_f", e_rel=1e-6, e_abs=0,
+                 steps_f_stride=None):
+        self.N = N
+        self.proxs_f, self.steps_f_cb = proxs_f, steps_f_cb
+        self.steps_f_stride = steps_f_stride
+        (self.proxs_g, self.steps_g, self.Ls,
+         self.steps_g_update) = _normalize(N, proxs_g, steps_g, Ls,
+                                           steps_g_update, device)
+        self.M = [0 if p is None else len(p) for p in self.proxs_g]
+        self.e_rel = [e_rel] * N if np.ndim(e_rel) == 0 else list(e_rel)
+        self.e_abs = [e_abs] * N if np.ndim(e_abs) == 0 else list(e_abs)
+        assert len(self.e_rel) == N and len(self.e_abs) == N
+        self.update_order = (tuple(range(N)) if update_order is None
+                             else tuple(int(j) for j in update_order))
+        self.stateful_steps = hasattr(steps_f_cb, "init_bsdmm_state")
+        assert not (self.stateful_steps and steps_f_stride), \
+            "stateful steps_f_cb handles striding itself"
+        self.strided = (not self.stateful_steps
+                        and steps_f_stride is not None
+                        and steps_f_stride > 1)
+
+    def init_state(self, x0):
+        """The fresh carry: the blocks, per-block Z/U, the carried steps
+        and the stateful stepper's state."""
+        M, N = self.M, self.N
+        x = list(x0)
+        z, u = [], []
+        for j in range(N):
+            if M[j]:
+                zj, uj = utils.initZU(x[j], list(self.Ls[j]))
+            else:
+                zj, uj = x[j], torch.zeros_like(x[j])
+            z.append(zj)
+            u.append(uj)
+        steps_g = [
+            tuple(self.steps_g[j]) if M[j] and self.steps_g[j][0] is not None
+            else (0.0,) * M[j] for j in range(N)]
+        return dict(x=x, z=z, u=u, steps_f=[1.0] * N, steps_g=steps_g,
+                    steps_state=(self.steps_f_cb.init_bsdmm_state(tuple(x))
+                                 if self.stateful_steps else ()))
+
+    def sweep(self, st, it, trace=False):
+        """One Gauss-Seidel sweep on the carry ``st`` at sweep clock
+        ``it``, with no host read. Returns the flags as one tensor (the
+        blocks' convergence in ``update_order``, then divergence) and,
+        with ``trace``, the (N, 2) row of aggregated residual norms."""
+        N, M, Ls = self.N, self.M, self.Ls
+        # new lists: the carry's own stay as they were (the lanes
+        # controller selects between the two)
+        x, z, u = list(st["x"]), list(st["z"]), list(st["u"])
+        steps_f, steps_g_carry = list(st["steps_f"]), list(st["steps_g"])
+        conv_t = {}
+        errs, trace_row = [], {}
+        for j in self.update_order:
+            # the block's prox sees all current blocks (Gauss-Seidel)
+            xs_now = tuple(x)
+            prox_f_j = functools.partial(self.proxs_f, Xs=xs_now, j=j)
+
+            if self.stateful_steps:
+                steps_f_j, st["steps_state"] = self.steps_f_cb(
+                    xs_now, j=j, state=st["steps_state"], it=it,
+                    cached=steps_f[j])
+            elif self.strided:
+                # the step callable runs only every steps_f_stride sweeps;
+                # in between the carried, safety-shrunk step serves
+                steps_f_j = (0.9 * self.steps_f_cb(xs_now, j=j)
+                             if it % self.steps_f_stride == 0
+                             else steps_f[j])
+            else:
+                steps_f_j = self.steps_f_cb(xs_now, j=j)
+
+            if M[j]:
+                if self.steps_g_update == "relative" and it > 0:
+                    scale = steps_f_j / steps_f[j]
+                    steps_g_carry[j] = tuple(s * scale
+                                             for s in steps_g_carry[j])
+                if self.steps_g_update == "steps_f":
+                    steps_g_j = [
+                        utils.get_step_g(steps_f_j,
+                                         Ls[j][i].spectral_norm_sq, N=N,
+                                         M=M[j]) for i in range(M[j])]
+                else:
+                    steps_g_j = list(steps_g_carry[j])
+                xj, zj, uj, lxj, rj, sj = utils.update_variables(
+                    x[j], z[j], u[j], prox_f_j, steps_f_j,
+                    list(self.proxs_g[j]), steps_g_j, list(Ls[j]))
+                conv_t[j], err_list = utils.check_constraint_convergence(
+                    xj, list(Ls[j]), lxj, zj, uj, rj, sj, steps_f_j,
+                    steps_g_j, self.e_rel[j], self.e_abs[j])
+            else:
+                xj, zj, uj, lxj, rj, sj = utils.update_variables(
+                    x[j], z[j], u[j], prox_f_j, steps_f_j, None, None, Ls[j])
+                conv_t[j], err_j = utils.check_constraint_convergence(
+                    xj, Ls[j], lxj, zj, uj, rj, sj, steps_f_j, None,
+                    self.e_rel[j], self.e_abs[j])
+                err_list = (err_j,)
+            errs.extend(v for e in err_list for v in e)
+            if trace:
+                # primal and dual residual norms over the constraints
+                trace_row[j] = (
+                    torch.sqrt(sum(e[2] ** 2 for e in err_list)),
+                    torch.sqrt(sum(e[3] ** 2 for e in err_list)))
+            x[j], z[j], u[j] = xj, zj, uj
+            steps_f[j] = steps_f_j
+
+        st.update(x=x, z=z, u=u, steps_f=steps_f, steps_g=steps_g_carry)
+        row = None
+        if trace:
+            dtype = functools.reduce(torch.promote_types,
+                                     [xi.dtype for xi in x])
+            zero = torch.zeros((), dtype=dtype, device=x[0].device)
+            row = torch.stack(
+                [v.to(dtype) for j in range(N)
+                 for v in trace_row.get(j, (zero, zero))]).reshape(N, 2)
+        # the error norms cover every live quantity, so their finiteness
+        # detects a diverged block for free
+        flags = [conv_t[j] for j in self.update_order]
+        flags.append(torch.logical_not(
+            torch.isfinite(torch.stack(errs)).all()))
+        return torch.stack(flags), row
+
+
 def bsdmm(
     X,
     proxs_f,
@@ -151,36 +282,12 @@ def bsdmm(
                 "adapt) = {} vs this call's {}); resume with the same "
                 "settings".format(st_cfg, stride_cfg))
 
-    proxs_g, steps_g, Ls, steps_g_update = _normalize(
-        N, proxs_g, steps_g, Ls, steps_g_update, dev)
-    M = [0 if p is None else len(p) for p in proxs_g]
-    e_rel = [e_rel] * N if np.ndim(e_rel) == 0 else list(e_rel)
-    e_abs = [e_abs] * N if np.ndim(e_abs) == 0 else list(e_abs)
-    assert len(e_rel) == N and len(e_abs) == N
-    update_order = (tuple(range(N)) if update_order is None
-                    else tuple(int(j) for j in update_order))
-    stateful_steps = hasattr(steps_f_cb, "init_bsdmm_state")
-    assert not (stateful_steps and steps_f_stride), \
-        "stateful steps_f_cb handles striding itself"
-    strided = (not stateful_steps and steps_f_stride is not None
-               and steps_f_stride > 1)
-
-    x = list(x0)
+    prog = _Program(N, dev, proxs_f, steps_f_cb, proxs_g=proxs_g,
+                    steps_g=steps_g, Ls=Ls, update_order=update_order,
+                    steps_g_update=steps_g_update, e_rel=e_rel, e_abs=e_abs,
+                    steps_f_stride=steps_f_stride)
     if state is None:
-        z, u = [], []
-        for j in range(N):
-            if M[j]:
-                zj, uj = utils.initZU(x[j], list(Ls[j]))
-            else:
-                zj, uj = x[j], torch.zeros_like(x[j])
-            z.append(zj)
-            u.append(uj)
-        steps_f = [1.0] * N
-        steps_g_carry = [
-            tuple(steps_g[j]) if M[j] and steps_g[j][0] is not None
-            else (0.0,) * M[j] for j in range(N)]
-        steps_state = (steps_f_cb.init_bsdmm_state(tuple(x))
-                       if stateful_steps else ())
+        st = prog.init_state(x0)
         it0 = 0
         converged = [False] * N
         diverged = False
@@ -192,9 +299,9 @@ def bsdmm(
         z, u = (list(map_leaves(lambda t: as_tensor(t, device=dev),
                                 state[k]))
                 for k in ("z", "u"))
-        steps_f = list(state["steps_f"])
-        steps_g_carry = [tuple(s) for s in state["steps_g"]]
-        steps_state = state["steps_state"]
+        st = dict(x=list(x0), z=z, u=u, steps_f=list(state["steps_f"]),
+                  steps_g=[tuple(s) for s in state["steps_g"]],
+                  steps_state=state["steps_state"])
         it0 = int(state.get("it", 0))
         converged = [bool(c) for c in state.get("converged", [False] * N)]
         diverged = bool(state.get("diverged", False))
@@ -205,74 +312,16 @@ def bsdmm(
     while it < it0 + max_iter and not all(converged) and not diverged:
         if callback is not None:
             try:
-                callback(*x, it=it)
+                callback(*st["x"], it=it)
             except StopIteration:
                 break
-        conv_t = {}
-        errs, trace_row = [], {}
-        for j in update_order:
-            # the block's prox sees all current blocks (Gauss-Seidel)
-            xs_now = tuple(x)
-            prox_f_j = functools.partial(proxs_f, Xs=xs_now, j=j)
-
-            if stateful_steps:
-                steps_f_j, steps_state = steps_f_cb(
-                    xs_now, j=j, state=steps_state, it=it, cached=steps_f[j])
-            elif strided:
-                # the step callable runs only every steps_f_stride sweeps;
-                # in between the carried, safety-shrunk step serves
-                steps_f_j = (0.9 * steps_f_cb(xs_now, j=j)
-                             if it % steps_f_stride == 0 else steps_f[j])
-            else:
-                steps_f_j = steps_f_cb(xs_now, j=j)
-
-            if M[j]:
-                if steps_g_update == "relative" and it > 0:
-                    scale = steps_f_j / steps_f[j]
-                    steps_g_carry[j] = tuple(s * scale
-                                             for s in steps_g_carry[j])
-                if steps_g_update == "steps_f":
-                    steps_g_j = [
-                        utils.get_step_g(steps_f_j,
-                                         Ls[j][i].spectral_norm_sq, N=N,
-                                         M=M[j]) for i in range(M[j])]
-                else:
-                    steps_g_j = list(steps_g_carry[j])
-                xj, zj, uj, lxj, rj, sj = utils.update_variables(
-                    x[j], z[j], u[j], prox_f_j, steps_f_j, list(proxs_g[j]),
-                    steps_g_j, list(Ls[j]))
-                conv_t[j], err_list = utils.check_constraint_convergence(
-                    xj, list(Ls[j]), lxj, zj, uj, rj, sj, steps_f_j,
-                    steps_g_j, e_rel[j], e_abs[j])
-            else:
-                xj, zj, uj, lxj, rj, sj = utils.update_variables(
-                    x[j], z[j], u[j], prox_f_j, steps_f_j, None, None, Ls[j])
-                conv_t[j], err_j = utils.check_constraint_convergence(
-                    xj, Ls[j], lxj, zj, uj, rj, sj, steps_f_j, None,
-                    e_rel[j], e_abs[j])
-                err_list = (err_j,)
-            errs.extend(v for e in err_list for v in e)
-            if trace:
-                # primal and dual residual norms over the constraints
-                trace_row[j] = (
-                    torch.sqrt(sum(e[2] ** 2 for e in err_list)),
-                    torch.sqrt(sum(e[3] ** 2 for e in err_list)))
-            x[j], z[j], u[j] = xj, zj, uj
-            steps_f[j] = steps_f_j
-
+        flags, row = prog.sweep(st, it, trace)
         if trace:
-            zero = torch.zeros((), dtype=dtype, device=dev)
-            history[it - it0] = torch.stack(
-                [v.to(dtype) for j in range(N)
-                 for v in trace_row.get(j, (zero, zero))]).reshape(N, 2)
-        # the error norms cover every live quantity, so their finiteness
-        # detects a diverged block for free; one blocking read per sweep,
-        # of the blocks' flags and this one
-        flags = [conv_t[j] for j in update_order]
-        flags.append(torch.logical_not(
-            torch.isfinite(torch.stack(errs)).all()))
-        flags = torch.stack(flags).tolist()
-        for j, c in zip(update_order, flags):
+            history[it - it0] = row
+        # one blocking read per sweep, of the blocks' flags and the
+        # divergence flag
+        flags = flags.tolist()
+        for j, c in zip(prog.update_order, flags):
             converged[j] = c
         diverged = flags[-1]
         it += 1
@@ -281,7 +330,7 @@ def bsdmm(
     logger.info("Completed %d iterations", iterations)
     converged = tuple(converged)
     status = status_from(all(converged), diverged, logger)
-    x = tuple(x)
+    x = tuple(st["x"])
     writeback(originals, x)
     return SolverResult(
         converged,
@@ -292,8 +341,10 @@ def bsdmm(
         # without constraints), the last step_f (a number or a 0-d tensor,
         # as the step callable gave it) and the carried steps_g; a stateful
         # stepper's carry; the sweep clock, which continues across resumes
-        state={"z": tuple(z), "u": tuple(u), "steps_f": tuple(steps_f),
-               "steps_g": tuple(steps_g_carry), "steps_state": steps_state,
+        state={"z": tuple(st["z"]), "u": tuple(st["u"]),
+               "steps_f": tuple(st["steps_f"]),
+               "steps_g": tuple(st["steps_g"]),
+               "steps_state": st["steps_state"],
                "it": it, "stride_config": stride_cfg,
                # a stopped solve stays stopped on resume
                "converged": converged, "diverged": diverged},

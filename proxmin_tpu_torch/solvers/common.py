@@ -29,6 +29,10 @@ __all__ = [
     "grad_from_f",
     "tree_structure",
     "check_stepper_state",
+    "under_vmap",
+    "any_lane",
+    "select_lanes",
+    "run_lanes",
 ]
 
 
@@ -274,3 +278,70 @@ def check_stepper_state(carried, fresh):
             "state= was produced under a different step configuration "
             "(stepper state structure mismatch); resume with the same "
             "step arguments")
+
+
+# ---------------------------------------------------------------------------
+# The lanes controller: a solve under ``torch.func.vmap``.
+#
+# A host loop ends by reading its stop flags, and ``vmap`` refuses the
+# ``bool()`` of a batched tensor. Under ``vmap`` the loops therefore read
+# every lane's flags at once through functorch's own unwrapping
+# (``torch._C._functorch``, a private interface: the card tests pin it on the
+# chip machine's torch) and run while any lane is active, freezing the
+# finished lanes with ``torch.where`` as ``lax.while_loop`` does under
+# ``jax.vmap``. Every lane's iterate, iteration count and flags are then
+# those of its own solve.
+
+def under_vmap():
+    """True inside a ``torch.func.vmap`` (at any level of the transform
+    stack)."""
+    stack = torch._C._functorch.get_interpreter_stack()
+    vmap = torch._C._functorch.TransformType.Vmap
+    return bool(stack) and any(i.key() == vmap for i in stack)
+
+
+def any_lane(flag):
+    """Whether ``flag`` holds in any lane: one blocking read of all the
+    lanes' values, under ``vmap`` or outside it."""
+    F = torch._C._functorch
+    while F.is_batchedtensor(flag) or F.is_gradtrackingtensor(flag):
+        flag = F.get_unwrapped(flag)
+    return bool(flag.any())
+
+
+def select_lanes(active, new, old):
+    """``new`` where ``active`` holds, else ``old``, over nested tuples,
+    lists and dicts of tensors; a leaf that is not a tensor (a host clock,
+    the same in every active lane) takes ``new``."""
+    if isinstance(new, (tuple, list)):
+        return type(new)(select_lanes(active, n, o) for n, o in zip(new, old))
+    if isinstance(new, dict):
+        return {k: select_lanes(active, v, old[k]) for k, v in new.items()}
+    if isinstance(new, torch.Tensor) and isinstance(old, torch.Tensor):
+        return torch.where(active, new, old)
+    return new
+
+
+def run_lanes(st, step, stopped, max_iter, device):
+    """The lanes controller over a solver body: ``step(st, it)`` updates
+    the dict ``st`` in place by one iteration (``it`` is the host clock,
+    every active lane's own), ``stopped(st)`` is a lane's 0-d stop flag.
+    Runs while any lane is active, at most ``max_iter`` iterations, one
+    blocking read per iteration; a finished lane keeps its state. Returns
+    the iteration counts, a 0-d int32 tensor per lane."""
+    it = torch.zeros((), dtype=torch.int32, device=device)
+    active = None
+    for k in range(int(max_iter)):
+        old = dict(st)
+        step(st, k)
+        if active is None:
+            it = it + 1
+        else:
+            for key, value in st.items():
+                st[key] = select_lanes(active, value, old[key])
+            it = it + active.to(torch.int32)
+        # a frozen lane's state is a stopped one, so it stays inactive
+        active = torch.logical_not(stopped(st))
+        if not any_lane(active):
+            break
+    return it

@@ -88,9 +88,13 @@ def _scalar(v, like):
 
 def _step(st, it, grad, stepper, prox, e_rel, accelerated, restart,
           backtracking, f, trace):
-    """One PGM iteration on the carry (the JAX body, term for term), ending
-    in the iteration's blocking read. Returns the stop flags as host
-    values, ``(converged per block, diverged)``."""
+    """One PGM iteration on the carry (the JAX body, term for term): the
+    loop body that the driver and ``functional.make_pgm_solver`` share.
+    The new stop flags stand in ``st["converged"]`` and
+    ``st["diverged"]``. Without backtracking it reads nothing and returns
+    None; with it, the first test rides one read with the trial point's
+    flags, and the host values ``[*converged, diverged]`` come back when
+    they were read."""
     n = len(prox)
     x_old = st["x"]
     if accelerated:
@@ -138,17 +142,17 @@ def _step(st, it, grad, stepper, prox, e_rel, accelerated, restart,
                 acc = term if acc is None else acc + term
             return f_prev + acc
 
-    jmax, k = None, 0
+    jmax, k, host = None, 0, None
     while True:
-        # the blocking read, one per trial point: its stop flags and, with
-        # backtracking, its test; the flags stand if no halving follows
         norms, conv, diverged = verdicts(x_new)
-        flags = [conv, diverged.reshape(1)]
-        tested = backtracking and k < _MAX_BACKTRACK
-        if tested:
-            flags.append((f_now > Q(x_new, T)).reshape(1))
-        flags = torch.cat(flags).tolist()
-        if not (tested and flags[n + 1]):
+        if not (backtracking and k < _MAX_BACKTRACK):
+            break
+        # the blocking read, one per trial point: its stop flags and its
+        # test; the flags stand if no halving follows
+        flags = torch.cat([conv, diverged.reshape(1),
+                           (f_now > Q(x_new, T)).reshape(1)]).tolist()
+        if not flags[n + 1]:
+            host = flags[:n + 1]
             break
         if jmax is None:
             # the steepest relative update direction; it depends on the
@@ -182,7 +186,19 @@ def _step(st, it, grad, stepper, prox, e_rel, accelerated, restart,
     st["t"] = t_next
     st["S"] = S
     st["converged"], st["diverged"] = conv, diverged
-    return flags[:n], flags[n]
+    return host
+
+
+def _iterate(st, it, grad, stepper, prox, e_rel, accelerated, restart,
+             backtracking, f, trace):
+    """:func:`_step` and the iteration's one blocking read: the stop flags
+    as host values, ``(converged per block, diverged)``."""
+    host = _step(st, it, grad, stepper, prox, e_rel, accelerated, restart,
+                 backtracking, f, trace)
+    if host is None:
+        host = torch.cat([st["converged"],
+                          st["diverged"].reshape(1)]).tolist()
+    return host[:-1], host[-1]
 
 
 def pgm(
@@ -281,8 +297,9 @@ def pgm(
                 callback(*st["x"], it=it)
             except StopIteration:
                 break
-        conv_h, div_h = _step(st, it, grad, stepper, prox, e_rel,
-                              accelerated, restart, backtracking, f, trace)
+        conv_h, div_h = _iterate(st, it, grad, stepper, prox, e_rel,
+                                 accelerated, restart, backtracking, f,
+                                 trace)
         it += 1
 
     G_fin = utils._as_tuple(grad(*st["x"]))

@@ -2,8 +2,9 @@
 lacks, as a list in the repository and not a search.
 
 For ``proxmin_tpu.utils``, ``proxmin_tpu.checkpoint``,
-``proxmin_tpu.solvers.common``, ``proxmin_tpu.algorithms`` and the
-top-level package, every public name (the module's ``__all__``, and the
+``proxmin_tpu.solvers.common``, ``proxmin_tpu.algorithms``,
+``proxmin_tpu.functional`` and the top-level package, every public name
+(the module's ``__all__``, and the
 functions and classes it defines without a leading underscore; for the
 package, every attribute without one) either exists in the port's module of
 the same name or stands in ``ABSENT`` below with its reason: it serves
@@ -53,11 +54,13 @@ ABSENT = {
                               "item 13)",
     },
     "algorithms": {},
+    # every factory is ported; under torch.func.vmap two options raise
+    # (the JAX package masks them inside lax.while_loop), listed in VMAP_GAPS
+    "functional": {},
     "": {
         "clear_caches": JIT_ONLY,
         "set_matmul_precision": POLICY,
         "export": "ROADMAP Queue 1 item 14 (export.py)",
-        "functional": "ROADMAP Queue 1 item 14 (functional.py)",
         # submodules that are attributes once something has imported them
         "calibrate": "ROADMAP Queue 1 item 7 (only if the H100 sweep shows "
                      "a gray zone)",
@@ -148,3 +151,48 @@ def test_solver_signatures_cover_the_jax_ones(solver, options):
         getattr(proxmin_tpu, solver)).parameters if not p.startswith("_")]
     assert [p for p in got if p != "device"] == want
     assert set(options) <= set(got)
+
+
+# what the port's functional factories cannot do under torch.func.vmap that
+# the JAX ones do under jax.vmap: {factory: {option: reason}}
+VMAP_GAPS = {
+    "make_pgm_solver": {
+        "backtracking=True": "the halvings of each iteration depend on each "
+                             "lane's data; a lane's host loop cannot read "
+                             "them under vmap (ValueError)"},
+    "make_adaprox_solver": {
+        "separable_prox=False with a prox": "the prox sub-iterations' count "
+                                            "depends on each lane's data "
+                                            "(ValueError)"},
+}
+
+
+@pytest.mark.parametrize("name", sorted(proxmin_tpu.functional.__all__))
+def test_functional_factories_take_the_jax_parameters(name):
+    """Each factory has the JAX factory's parameters in order, and
+    ``device`` (where NumPy inputs go) last."""
+    import proxmin_tpu_torch.functional as tfn
+
+    got = list(inspect.signature(getattr(tfn, name)).parameters)
+    want = list(inspect.signature(
+        getattr(proxmin_tpu.functional, name)).parameters)
+    assert got == want + ["device"]
+    assert name in tfn.__all__
+    for option, reason in VMAP_GAPS.get(name, {}).items():
+        assert option.split("=")[0] in got and reason.strip()
+
+
+def test_functional_imports_no_jax():
+    """The port's functional module imports torch and the port only."""
+    import ast
+    import pathlib
+
+    import proxmin_tpu_torch.functional as tfn
+
+    tree = ast.parse(pathlib.Path(tfn.__file__).read_text())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names]
+    names += [n.module or "" for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.level == 0]
+    assert not [m for m in names
+                if m.split(".")[0] in ("jax", "jaxlib", "proxmin_tpu")]

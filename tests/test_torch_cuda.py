@@ -27,6 +27,11 @@ operators.prox_soft, and resumed solves against straight ones, bitwise.
 The solvers' options on the card: blocking reads per iteration with a
 callback, a trace and backtracking; a checkpoint written on the card
 reloads on the CPU and back with equal bits.
+The functional factories on the card: one blocking read per iteration
+outside vmap and bit for bit their drivers' iterates; batched NMF lanes
+against their individual solves in float64 (rtol 1e-10: vmap may batch a
+product another way); the lanes controller's private torch._C._functorch
+route, which must end a batch at its slowest lane on this torch.
 """
 
 import functools
@@ -1318,3 +1323,129 @@ def test_checkpoint_from_the_card_to_the_cpu_and_back(dev, tmp_path, case):
     assert rest.iterations == 12
     for a, b in zip(rest.x, full.x):
         assert a.is_cuda and torch.equal(a, b)
+
+
+# --- the functional factories on the card --------------------------------
+
+def test_functional_factories_read_the_host_once_per_iteration(dev):
+    """Outside vmap each factory runs its driver's host loop: one blocking
+    read per iteration (per sweep for bsdmm), with steps that need none
+    themselves; and it equals its driver bit for bit."""
+    from proxmin_tpu_torch import functional as tfn
+
+    Y, A0, S0 = _nmf_pgm_problem(dev)
+    prox_f, Dh, Dv, x0 = _tv(dev)
+    soft = functools.partial(top.prox_soft, thresh=0.4)
+
+    def grad(A_, S_):
+        return tnmf.grad_likelihood(A_, S_, Y=Y)
+
+    def block_prox(x, s, Xs=None, j=None):
+        return prox_f(x, s)
+
+    factories = {
+        "pgm": (lambda n: tfn.make_pgm_solver(
+            grad, (1e-3, 1e-4), prox=top.prox_plus, e_rel=0,
+            max_iter=n)(A0, S0)[0],
+            lambda n: algorithms.pgm([A0, S0], grad, (1e-3, 1e-4),
+                                     prox=top.prox_plus, e_rel=0,
+                                     max_iter=n).x),
+        "adaprox": (lambda n: tfn.make_adaprox_solver(
+            grad, 1e-3, prox=top.prox_plus, separable_prox=True, e_rel=0,
+            max_iter=n)(A0, S0)[0],
+            lambda n: algorithms.adaprox([A0, S0], grad, 1e-3,
+                                         prox=top.prox_plus,
+                                         separable_prox=True, e_rel=0,
+                                         max_iter=n).x),
+        "admm": (lambda n: tfn.make_admm_solver(
+            prox_f, 0.5, prox_g=soft, L=Dh, e_rel=0, max_iter=n)(x0)[0],
+            lambda n: algorithms.admm(x0, prox_f, 0.5, prox_g=soft, L=Dh,
+                                      e_rel=0, max_iter=n).x),
+        "sdmm": (lambda n: tfn.make_sdmm_solver(
+            prox_f, 0.5, [soft] * 2, Ls=[Dh, Dv], e_rel=0,
+            max_iter=n)(x0)[0],
+            lambda n: algorithms.sdmm(x0, prox_f, 0.5, proxs_g=[soft] * 2,
+                                      Ls=[Dh, Dv], e_rel=0,
+                                      max_iter=n).x),
+        "bsdmm": (lambda n: tfn.make_bsdmm_solver(
+            block_prox, lambda Xs, j=None: 0.5, proxs_g=[[soft], None],
+            Ls=[[Dh], None], e_rel=0, max_iter=n)(x0, x0)[0],
+            lambda n: algorithms.bsdmm(
+                [x0, x0], block_prox, lambda Xs, j=None: 0.5,
+                proxs_g=[[soft], None], Ls=[[Dh], None], e_rel=0,
+                max_iter=n).x),
+    }
+    for name, (factory, driver) in factories.items():
+        assert _reads_per_10(factory) == 10, name
+        for a, b in zip(factory(15), driver(15)):
+            assert a.is_cuda and torch.equal(a, b), name
+
+
+def test_functional_nmf_solver_reads_once_and_batches_on_the_card(dev):
+    """make_nmf_solver reads the host once per iteration outside vmap, and
+    under vmap every lane equals its individual solve on the card, with
+    iteration counts that differ across the weighted lanes."""
+    from proxmin_tpu_torch import functional as tfn
+
+    rng = np.random.default_rng(3)
+    B, C, K, N = 6, 4, 2, 64
+    t = functools.partial(torch.tensor, dtype=torch.float64, device=dev)
+    Ys = t(rng.random((B, C, K)) @ rng.random((B, K, N)))
+    Ws = t(0.5 + rng.random((B, C, N)))
+    A0s, S0s = t(rng.random((B, C, K))), t(rng.random((B, K, N)))
+    for weighted in (False, True):
+        args = (A0s, S0s, Ys) + ((Ws,) if weighted else ())
+        fixed = tfn.make_nmf_solver(e_rel=0, max_iter=40, weighted=weighted)
+        assert _reads_per_10(
+            lambda n: tfn.make_nmf_solver(e_rel=0, max_iter=n,
+                                          weighted=weighted)(
+                *(a[0] for a in args))) == 10
+        assert int(fixed(*(a[0] for a in args))[2]) == 40
+        solve = tfn.make_nmf_solver(e_rel=1e-4, max_iter=300,
+                                    weighted=weighted)
+        As, Ss, its, convs = torch.func.vmap(solve)(*args)
+        # the weighted lanes stop between 119 and 231 iterations (the
+        # unweighted ones run to the cap, as JAX's do)
+        assert As.is_cuda and (len(set(its.tolist())) > 1 or not weighted)
+        for b in range(B):
+            Ab, Sb, itb, convb = solve(*(a[b] for a in args))
+            torch.testing.assert_close(As[b], Ab, rtol=1e-10, atol=1e-12)
+            torch.testing.assert_close(Ss[b], Sb, rtol=1e-10, atol=1e-12)
+            assert int(its[b]) == int(itb) and bool(convs[b]) == bool(convb)
+
+
+def test_lanes_controller_ends_at_the_slowest_lane(dev):
+    """The lanes controller reads every lane's stop flag through
+    torch._C._functorch (a private interface): on this torch it must see
+    through vmap's wrappers on the card, so a batch stops at its slowest
+    lane, not at max_iter, and one read serves all the lanes."""
+    from proxmin_tpu_torch import functional as tfn
+    from proxmin_tpu_torch.solvers.common import any_lane, under_vmap
+
+    calls = []
+
+    def solve_one(x0, c):
+        def grad(x):
+            calls.append(under_vmap())
+            return x - c
+        return tfn.make_pgm_solver(grad, 0.3, e_rel=1e-6, max_iter=1000)(x0)
+
+    cs = torch.tensor([[1.0, 2.0], [0.1, 0.0], [30.0, -5.0]],
+                      dtype=torch.float32, device=dev)
+    # starts at different distances: the lanes stop at different iterations
+    x0s = cs + torch.tensor([[1.0, 1.0], [1e-3, 0.0], [100.0, 0.0]],
+                            device=dev)
+    xs, its, convs, _ = torch.func.vmap(solve_one)(x0s, cs)
+    assert convs.all() and len(set(its.tolist())) > 1
+    assert int(its.max()) < 1000 and all(calls)
+    # the body ran once per iteration of the slowest lane
+    assert len(calls) == int(its.max())
+
+    seen = []
+
+    def probe(f):
+        seen.append((under_vmap(), any_lane(f > 25), any_lane(f > 99)))
+        return f
+
+    torch.func.vmap(probe)(cs)
+    assert seen == [(True, True, False)] and not under_vmap()
