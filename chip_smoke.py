@@ -21,7 +21,9 @@ float32), with K4's soft threshold as ``sdmm``'s ``prox_g``, and
 (callbacks, traces, backtracking, autodiff gradients, Barzilai-Borwein
 steps) and checkpoint/resume of six solves through a file; then the
 functional factories: batched patch NMF under ``torch.func.vmap`` and
-implicit gradients. It exits non-zero when any phase fails. Phases:
+implicit gradients; then whole solves exported with ``torch.export`` and
+served from a fresh process. It exits non-zero when any phase fails.
+Phases:
 
 1. probe: CUDA/driver/compiler versions, the card and its power limit;
 2. build K1, K2 (with K5), K3 and K4 from proxmin_tpu_torch/csrc/ with
@@ -119,7 +121,22 @@ implicit gradients. It exits non-zero when any phase fails. Phases:
    ``make_differentiable_pgm_solver`` (NNLS in S with a ridge, theta = Y, at
    the flagship) and ``make_differentiable_admm_solver`` (the TV penalty
    through ``prox_g`` at 1024 x 1024) against central differences, in
-   float64.
+   float64;
+14. whole solves exported with ``torch.export``
+   (``proxmin_tpu_torch.export``), K1-K4 running as registered ops: the
+   fused PGM programs (exact, weighted stride 10, weighted adaptive, the
+   bfloat16 store) and AdaProx programs (float32 and bfloat16 moments) at
+   the flagship, exported, saved, loaded and served for 200 iterations by
+   a fresh process that imports torch and ``proxmin_tpu_torch.ops`` only,
+   each equal to its driver bit for bit; a weighted stride-10 chain of 10
+   iterations and a ``resume=True`` program for 15 equal to the straight
+   25; the TV ``admm`` and ``sdmm`` programs with K4 soft as ``prox_g`` at
+   1024 x 1024 (250 iterations) and a ``pgm`` program with K3 as its
+   gradient, each equal to its driver; for every program its export and
+   load seconds and file MB, its marginal ms/iter in turns with its
+   driver, its CUDA launches and blocking reads per iteration beside the
+   driver's, and each registered op's host microseconds per call beside
+   its wrapper's.
 
 The last two lines are the card (``nvidia-smi`` name and power limit)
 after a JSON object describing the kernels (each with its time, its plain
@@ -408,7 +425,7 @@ def kernel_name(mangled):
             continue
         rest, args = mangled[i + len(key):], []
         while rest and rest[0] != "E":
-            m = re.match(r"Li(\d+)E", rest)
+            m = re.match(r"L[ib](\d+)E", rest)
             if m:
                 args.append(m.group(1))
                 rest = rest[m.end():]
@@ -895,6 +912,8 @@ def host_us(fn, calls=1000, batch=100):
 def reset_counts(kernels):
     for k in kernels:
         k.launches = 0
+        if hasattr(k, "device_scalar_launches"):
+            k.device_scalar_launches = 0
 
 
 def blocking_reads(fn):
@@ -912,6 +931,20 @@ def blocking_reads(fn):
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def dtoh_copies(fn):
+    """How many device-to-host copies ``fn`` makes, counted in a
+    ``torch.profiler`` trace of the card (each blocking read is one; the
+    sync debug mode may miss some)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if "memcpy" in e.key.lower() and "dtoh" in e.key.lower())
 
 
 def timed(fn, n):
@@ -2011,6 +2044,374 @@ def functional_phase(mods, problem, card, every_kernel, kernel_fns,
     return launches
 
 
+# Phase 14: whole solves exported with torch.export. The fused NMF programs
+# at the flagship (each against its driver after ITERS iterations, served by
+# a fresh process that imports torch and proxmin_tpu_torch.ops only), a
+# weighted resume chain, the TV admm/sdmm programs with K4 soft; marginals
+# between LO and HI iterations in turns with the driver, and launches and
+# blocking reads per iteration between EX_LO and EX_HI iterations.
+EX_LO, EX_HI = 10, 110
+EX_CHAIN = (10, 15)
+SERVE_SCRIPT = r"""
+import sys
+import torch
+import proxmin_tpu_torch.ops  # registers the proxmin_torch ops
+names = sys.argv[2:]
+data = torch.load(sys.argv[1] + "/inputs.pt")
+for name in names:
+    module = torch.export.load(f"{sys.argv[1]}/{name}.pt2").module()
+    args = data[name]
+    out = module(*args)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    torch.save([o.cpu() for o in out], f"{sys.argv[1]}/{name}.out.pt")
+print("served", len(names))
+"""
+
+
+def export_phase(mods, problem, card, every_kernel, kernel_fns, prof_dir):
+    """Phase 14: the port's exporters on the card (see the module
+    docstring). ``mods`` are the port's modules ``(algorithms, linop, tnmf,
+    top, tops)``, ``problem`` the flagship ``(Y, A0, S0, Ww)``,
+    ``kernel_fns`` the wrappers ``(K1, K2, K3, K4 soft)``. Returns their
+    launches in this process on the programs' paths."""
+    from proxmin_tpu_torch import export as tex
+    from proxmin_tpu_torch.ops import nmf_kernels as kk
+
+    algorithms, linop, tnmf, top, tops = mods
+    Y, A0, S0, Ww = problem
+    k1_fn, k2_fn, k3_fn, soft_fn = kernel_fns
+    out_dir = prof_dir.parent / "export"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    trace = prof_dir / "export.json"
+    launches = {"K1": 0, "K1 bf16 store": 0, "K2 device scalars": 0,
+                "K3": 0, "K4 soft": 0}
+    bf16 = torch.bfloat16
+
+    def nmf_case(kind, kw):
+        weighted = kw.get("weighted", False)
+        data = (A0, S0, Y) + ((Ww,) if weighted else ())
+        if kind == "pgm":
+            def driver(n):
+                return tnmf.nmf_pgm_fused(
+                    Y, A0, S0, W=Ww if weighted else None, e_rel=0,
+                    max_iter=n, store_dtype=kw.get("store_dtype"),
+                    step_stride=kw.get("step_stride"),
+                    step_adapt=kw.get("step_adapt", False))
+            exporter = tex.export_nmf_solver
+        else:
+            def driver(n):
+                return tnmf.nmf_adaprox_fused(
+                    Y, A0, S0, e_rel=0, max_iter=n,
+                    moment_dtype=kw.get("moment_dtype"))
+            exporter = tex.export_nmf_adaprox_solver
+        return data, driver, lambda: exporter(C, K, N, e_rel=0, **kw)
+
+    cases = {
+        "pgm": ("pgm", {}),
+        # with its carries: the resume chain below starts from it
+        "pgm_w_stride10": ("pgm", {"weighted": True, "step_stride": STRIDE,
+                                   "return_carries": True}),
+        "pgm_w_adaptive": ("pgm", {"weighted": True, "step_stride": STRIDE,
+                                   "step_adapt": True}),
+        "pgm_bf16_store": ("pgm", {"store_dtype": bf16}),
+        "adaprox_f32": ("adaprox", {}),
+        "adaprox_bf16_moments": ("adaprox", {"moment_dtype": bf16}),
+    }
+    programs, drivers, inputs, sizes = {}, {}, {}, {}
+    for name, (kind, kw) in cases.items():
+        data, driver, export = nmf_case(kind, kw)
+        t0 = time.perf_counter()
+        blob = export()
+        t_export = time.perf_counter() - t0
+        path = tex.save_exported(out_dir / f"{name}.pt2", blob)
+        t0 = time.perf_counter()
+        programs[name] = tex.load_exported(path)
+        t_load = time.perf_counter() - t0
+        drivers[name] = driver
+        inputs[name] = data + (torch.tensor(ITERS, dtype=torch.int32,
+                                            device=DEVICE),)
+        sizes[name] = (t_export, len(blob) / 1e6, t_load)
+        log(f"export: {name}: exported in {t_export:.2f} s, "
+            f"{len(blob) / 1e6:.2f} MB, loaded in {t_load:.2f} s")
+
+    # served by a fresh process that imports torch and the ops alone
+    torch.save(inputs, out_dir / "inputs.pt")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", SERVE_SCRIPT, str(out_dir), *cases],
+        capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0,
+          f"export: the serving process failed: {proc.stderr[-3000:]}")
+    log(f"export: a fresh process (torch and proxmin_tpu_torch.ops) served "
+        f"{len(cases)} programs for {ITERS} iterations each in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, (kind, kw) in cases.items():
+        served = torch.load(out_dir / f"{name}.out.pt")
+        res = drivers[name](ITERS)
+        # the program in this process: its launches are the kernels' count
+        reset_counts(every_kernel)
+        outs = programs[name](*inputs[name])
+        torch.cuda.synchronize()
+        if kind == "pgm":
+            n = k1_fn.launches
+            launches["K1 bf16 store" if "store_dtype" in kw else "K1"] += n
+        else:
+            n = k2_fn.device_scalar_launches
+            check(k2_fn.launches == n, f"export: {name}: K2 launched "
+                  f"{k2_fn.launches - n} times by value")
+            launches["K2 device scalars"] += n
+        check(n == ITERS, f"export: {name}: the program launched its kernel "
+                          f"{n} times in {ITERS} iterations")
+        want = tuple(x.cpu() for x in res.x)
+        for where, got in (("in this process", [o.cpu() for o in outs]),
+                           ("served", served)):
+            same = all(torch.equal(g, w) for g, w in zip(got[:2], want))
+            diff = max(float((g - w).abs().max())
+                       for g, w in zip(got[:2], want))
+            check(int(got[2]) == res.iterations == ITERS,
+                  f"export: {name} {where}: {int(got[2])} iterations, "
+                  f"{res.iterations} driven")
+            check(same, f"export: {name} {where}: the program differs from "
+                        f"its driver after {ITERS} iterations (max |diff| "
+                        f"{diff:.3e})")
+            check(float(got[5]) == res.loss,
+                  f"export: {name} {where}: loss {float(got[5])} != "
+                  f"{res.loss}")
+        log(f"export: {name}: the program in this process ({n} launches of "
+            f"its kernel in {ITERS} iterations) and served = driver bit for "
+            f"bit after {ITERS} iterations (loss {res.loss:.6e})")
+
+    # the AdaProx driver forms its bias corrections as the programs do,
+    # float64 powers rounded to float32: its drift from float32 NumPy
+    # powers (not correctly rounded on every platform) after 100 iterations
+    ours = tnmf._bias_corrections
+
+    def numpy_f32(b1, b2, t):
+        one, b1_t, b2_t, t = (np.float32(v) for v in (1, b1, b2, t))
+        return b1_t, one / (one - b1_t ** t), one / (one - b2_t ** t)
+
+    differ = [t for t in range(1, 10_001) if tuple(ours(0.9, 0.999, t))
+              != tuple(numpy_f32(0.9, 0.999, t))]
+    base = tnmf.nmf_adaprox_fused(Y, A0, S0, e_rel=0, max_iter=100)
+    tnmf._bias_corrections = numpy_f32
+    try:
+        other = tnmf.nmf_adaprox_fused(Y, A0, S0, e_rel=0, max_iter=100)
+    finally:
+        tnmf._bias_corrections = ours
+    drift = max(float(torch.linalg.norm(x - y) / torch.linalg.norm(y))
+                for x, y in zip(base.x, other.x))
+    check(drift <= 1e-6, f"export: the AdaProx driver drifts {drift:.3e} "
+                         "normwise from float32 NumPy powers")
+    log(f"export: AdaProx bias corrections, float64 powers rounded to "
+        f"float32 against float32 NumPy powers (NumPy {np.__version__}): "
+        f"{len(differ)} of the first 10000 steps' scalars differ "
+        f"{differ[:5]}; the driver after 100 iterations differs by "
+        f"{drift:.3e} normwise (max over A, S; held to 1e-6)")
+
+    # the resume chain: weighted stride 10, fresh 10 with its carries then
+    # resume=True for 15, against the straight 25
+    fresh = programs["pgm_w_stride10"]
+    cont = tex.load_solver(tex.export_nmf_solver(
+        C, K, N, e_rel=0, weighted=True, step_stride=STRIDE, resume=True))
+    reset_counts(every_kernel)
+    straight = fresh(A0, S0, Y, Ww, sum(EX_CHAIN))
+    outs = fresh(A0, S0, Y, Ww, EX_CHAIN[0])
+    outs2 = cont(outs[0], outs[1], Y, Ww, EX_CHAIN[1], *outs[2:])
+    torch.cuda.synchronize()
+    launches["K1"] += k1_fn.launches
+    check(k1_fn.launches == 2 * sum(EX_CHAIN),
+          f"export: resume chain: K1 launched {k1_fn.launches} times")
+    check(int(outs2[2]) == sum(EX_CHAIN)
+          and all(torch.equal(a, b) for a, b in zip(outs2, straight)),
+          f"export: the chain {EX_CHAIN} differs from the straight "
+          f"{sum(EX_CHAIN)} iterations")
+    log(f"export: weighted stride {STRIDE} chain {EX_CHAIN[0]} + "
+        f"{EX_CHAIN[1]} = straight {sum(EX_CHAIN)} bit for bit, with every "
+        "carry")
+
+    # the TV denoise: admm and sdmm with K4 soft as prox_g, against their
+    # drivers bit for bit; max_iter is baked into these programs, so the
+    # marginal takes two of each
+    H = TV_SIZES[0][0]
+    _, y_tv = tv_problem(H)
+    Dh, Dv = tv_operators(linop, H)
+    x0_tv = torch.zeros_like(y_tv)
+
+    def prox_quad(x, step):
+        return (x + step * y_tv) / (1.0 + step)
+
+    k4_soft = partial(tops.prox_soft_pallas, thresh=TV_LAM)
+    tv = dict(e_rel=0, e_abs=0)
+    tv_cases = {
+        "admm_tv_k4": (
+            lambda n: tex.export_admm_solver(
+                (H, H), prox_quad, TV_STEP_F, prox_g=k4_soft, L=Dh,
+                max_iter=n, **tv),
+            lambda n: algorithms.admm(x0_tv, prox_quad, TV_STEP_F,
+                                      prox_g=k4_soft, L=Dh, max_iter=n,
+                                      **tv), 1),
+        "sdmm_tv_k4": (
+            lambda n: tex.export_sdmm_solver(
+                (H, H), prox_quad, TV_STEP_F, [k4_soft] * 2, Ls=[Dh, Dv],
+                max_iter=n, **tv),
+            lambda n: algorithms.sdmm(x0_tv, prox_quad, TV_STEP_F,
+                                      proxs_g=[k4_soft] * 2, Ls=[Dh, Dv],
+                                      max_iter=n, **tv), 2),
+    }
+    tv_programs = {}
+    for name, (export, driver, per_it) in tv_cases.items():
+        made = {}
+        for n in (LO, HI):
+            t0 = time.perf_counter()
+            blob = export(n)
+            t_export = time.perf_counter() - t0
+            path = tex.save_exported(out_dir / f"{name}_{n}.pt2", blob)
+            t0 = time.perf_counter()
+            made[n] = tex.load_exported(path)
+            if n == HI:
+                sizes[name] = (t_export, len(blob) / 1e6,
+                               time.perf_counter() - t0)
+        tv_programs[name] = made
+        log(f"export: {name}: exported in {sizes[name][0]:.2f} s, "
+            f"{sizes[name][1]:.2f} MB, loaded in {sizes[name][2]:.2f} s")
+        reset_counts(every_kernel)
+        x_p, it_p, _, _ = made[HI](x0_tv)
+        torch.cuda.synchronize()
+        launches["K4 soft"] += soft_fn.launches
+        check(soft_fn.launches == per_it * HI,
+              f"export: {name}: K4 soft launched {soft_fn.launches} times "
+              f"in {HI} iterations")
+        res = driver(HI)
+        check(int(it_p) == res.iterations and torch.equal(x_p, res.x),
+              f"export: {name}: the program differs from its driver after "
+              f"{HI} iterations (max |diff| "
+              f"{float((x_p - res.x).abs().max()):.3e})")
+        log(f"export: {name}: program = driver bit for bit after {HI} "
+            "iterations")
+
+    # a generic program with K3 as its gradient (export_pgm_solver)
+    def k3_grad(A_, S_):
+        return tops.fused_nmf_grad(A_, S_, Y)[:2]
+
+    pgm_kw = dict(prox=[top.prox_plus] * 2, e_rel=0, max_iter=ITERS)
+    k3_program = tex.load_solver(tex.export_pgm_solver(
+        [(C, K), (K, N)], k3_grad, tnmf.step_pgm, **pgm_kw))
+    reset_counts(every_kernel)
+    xs_p, it_p, _, _ = k3_program(A0, S0)
+    torch.cuda.synchronize()
+    launches["K3"] += k3_fn.launches
+    check(k3_fn.launches == ITERS,
+          f"export: pgm with K3: {k3_fn.launches} launches")
+    res = algorithms.pgm([A0, S0], k3_grad, tnmf.step_pgm, **pgm_kw)
+    check(int(it_p) == res.iterations and all(
+        torch.equal(a, b) for a, b in zip(xs_p, res.x)),
+        "export: pgm with K3: the program differs from its driver")
+    log(f"export: pgm with K3 as grad: program = driver bit for bit after "
+        f"{ITERS} iterations")
+
+    # per iteration: launches, blocking reads and device-to-host copies,
+    # and the marginal ms/iter in turns with the driver (driver, program,
+    # program, driver); the weighted programs' refreshes in the window are
+    # counted on their driver (the same schedule, bit for bit)
+    steps_fn = tnmf._weighted_steps
+    refreshes = []
+
+    def counted_steps(*args, **kwargs):
+        refreshes.append(1)
+        return steps_fn(*args, **kwargs)
+
+    for name in (*cases, *tv_cases):
+        if name in cases:
+            prog, drv = programs[name], drivers[name]
+            data = inputs[name][:-1]
+
+            def run_p(n, prog=prog, data=data):
+                return prog(*data, n)
+        else:
+            made, drv = tv_programs[name], tv_cases[name][1]
+
+            def run_p(n, made=made):
+                return made[n](x0_tv)
+        # the TV programs have max_iter baked in: count them at LO and HI
+        lo, hi = (EX_LO, EX_HI) if name in cases else (LO, HI)
+        k = [launches_of(lambda n=n: f(n), trace) for f in (run_p, drv)
+             for n in (lo, hi)]
+        run_p(lo)
+        drv(lo)
+        r = [blocking_reads(lambda n=n: f(n)) for f in (run_p, drv)
+             for n in (lo, hi)]
+        c = [dtoh_copies(lambda n=n: f(n)) for f in (run_p, drv)
+             for n in (lo, hi)]
+        span = hi - lo
+        kw = cases.get(name, (None, {}))[1]
+        refreshes.clear()
+        tnmf._weighted_steps = counted_steps
+        try:
+            drv(lo)
+            r_lo = len(refreshes)
+            drv(hi)
+        finally:
+            tnmf._weighted_steps = steps_fn
+        window = len(refreshes) - 2 * r_lo
+        # the loop's stop test is the one read the sync debug mode sees;
+        # the profiler also sees the copies inside eigvalsh and the
+        # adaptive stride's copy to the host clock, but its count of one
+        # call varies by a few copies at this size, so it is reported and
+        # tests/test_torch_cuda.py holds it exactly on a small problem
+        check(r[1] - r[0] == span,
+              f"export: {name}: {r[1] - r[0]} blocking reads in {span} "
+              "iterations")
+        timed(run_p, lo)
+        timed(drv, lo)
+        ms_d, ms_p, ms_p2, ms_d2 = (marginal_ms(f, LO, HI)
+                                    for f in (drv, run_p, run_p, drv))
+        log(f"export: {name}: program {min(ms_p, ms_p2):.4f} ms/iter "
+            f"marginal ({ms_p:.4f}, {ms_p2:.4f}), driver "
+            f"{min(ms_d, ms_d2):.4f} ({ms_d:.4f}, {ms_d2:.4f}); order "
+            f"driver, program, program, driver; CUDA launches/iter program "
+            f"{(k[1] - k[0]) / span:.2f}, driver {(k[3] - k[2]) / span:.2f}; "
+            f"blocking reads/iter (sync debug mode) program "
+            f"{(r[1] - r[0]) / span:.2f} ({r[0]} at {lo}), driver "
+            f"{(r[3] - r[2]) / span:.2f} ({r[2]} at {lo}); device-to-host "
+            f"copies/iter (profiler) program {(c[1] - c[0]) / span:.2f}, "
+            f"driver {(c[3] - c[2]) / span:.2f}; {window} step refreshes in "
+            f"the window; counted between {lo} and {hi} iterations; "
+            f"exported in {sizes[name][0]:.2f} s, {sizes[name][1]:.2f} MB, "
+            f"loaded in {sizes[name][2]:.2f} s; on {card}")
+
+    # each registered op's host cost per call beside its wrapper's
+    sS = torch.full((), 1e-3, dtype=torch.float32, device=DEVICE)
+    MS = torch.zeros_like(S0)
+    rowsum = torch.sum(S0, dim=1, keepdim=True)
+    al = rowsum / N / 10.0
+    sc_host = (0.9, 1.0 / (1 - 0.9), 1.0 / (1 - 0.999))
+    sc_dev = torch.tensor(sc_host, dtype=torch.float32, device=DEVICE)
+    Z = S0.clone()
+    ops = torch.ops.proxmin_torch
+    pairs = (
+        ("K1 fused_nmf_pgm_step",
+         lambda: ops.fused_nmf_pgm_step(A0, S0, Y, sS, None, 1, 4096),
+         lambda: kk.fused_nmf_pgm_step(A0, S0, Y, sS)),
+        ("K2 fused_nmf_adaprox_step",
+         lambda: ops.fused_nmf_adaprox_step(A0, S0, MS, MS, Y, al, sc_dev,
+                                            None, 1, 0.999, 1e-8, 4096),
+         lambda: kk.fused_nmf_adaprox_step(A0, S0, MS, MS, Y, al, sc_host)),
+        ("K3 fused_nmf_grad",
+         lambda: ops.fused_nmf_grad(A0, S0, Y, None, 4096),
+         lambda: kk.fused_nmf_grad(A0, S0, Y)),
+        ("K4 prox_soft",
+         lambda: ops.prox_soft(Z, sS, True, 0.0, TV_LAM),
+         lambda: tops.prox_soft_pallas(Z, sS, thresh=TV_LAM)),
+    )
+    for label, op_call, wrapper_call in pairs:
+        h_op = host_us(op_call, calls=400)
+        h_w = host_us(wrapper_call, calls=400)
+        log(f"export: {label}: registered op {h_op:.1f} us of host time per "
+            f"call, wrapper {h_w:.1f} us; on {card}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card "
@@ -2131,6 +2532,31 @@ def main():
             f"naive), plain version {p_ms:.4f} ms")
     k2_bound = bound_of(tensor_bytes(*k2_args[:5]) + tensor_bytes(
         *kk.fused_nmf_adaprox_step(*k2_args)), adaprox_ops(C, K, N))
+    # K2's device-scalar entry (the exported programs' route): bit for bit
+    # its by-value entry on the same scalars, against the plain version,
+    # timed beside it
+    k2d_abs = {}
+    for m_label, args in (("f32 moments", k2_args), ("bf16 moments",
+                                                     k2b_args)):
+        sc_dev = torch.tensor([float(v) for v in args[6]],
+                              dtype=torch.float32, device=DEVICE)
+        dev_args = args[:6] + (sc_dev,)
+        got = kk.fused_nmf_adaprox_step(*dev_args)
+        want = kk.fused_nmf_adaprox_step(*args)
+        ref = kk.fused_nmf_adaprox_step_reference(*args)
+        torch.cuda.synchronize()
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"K2 device scalars [{m_label}]: differs from the by-value "
+              "entry on the same scalars")
+        k2d_abs[m_label] = float((got[1] - ref[1]).abs().max())
+        if m_label == "f32 moments":
+            k2d_args = dev_args
+    k2d_ms = min(cuda_ms(lambda: kk.fused_nmf_adaprox_step(*k2d_args))
+                 for _ in range(2))
+    log(f"K2 device scalars [flagship]: bit for bit the by-value entry "
+        f"(f32 and bf16 moments); S_new max abs err against the plain "
+        f"version {k2d_abs['f32 moments']:.3e}; kernel {k2d_ms:.4f} ms, "
+        f"by value {k2_times['f32 moments'][0]:.4f} ms; on {card}")
     # K2's bfloat16 store (S, Y, W), with both moment types, timed beside
     # the float32 store
     k2s_args, k2s_abs, k2s_times = {}, {}, {}
@@ -2830,6 +3256,16 @@ def main():
     k3_launches += fn_launches["K3"]
     k4_launches["soft"] += fn_launches["K4 soft"]
 
+    # 14. whole solves exported with torch.export
+    ex_launches = export_phase(
+        (algorithms, linop, tnmf, top, tops), (Y, A0, S0, Ww), card,
+        every_kernel, (k1_fn, k2_fn, k3_fn, k4_fns["soft"]), prof_dir)
+    k1_launches += ex_launches["K1"]
+    k1b_launches += ex_launches["K1 bf16 store"]
+    k2d_launches = ex_launches["K2 device scalars"]
+    k3_launches += ex_launches["K3"]
+    k4_launches["soft"] += ex_launches["K4 soft"]
+
     k2_ms, k2_plain = k2_times["f32 moments"]
     k1b_ms, k1b_plain, k1b_bound = k1_times["bf16 store, W"]
 
@@ -2852,6 +3288,9 @@ def main():
         entry("fused_nmf_adaprox_step", "nmf_adaprox_step.cu",
               "proxmin_tpu/ops/nmf_kernels.py:525", k2_launches, k2_abs,
               k2_ms, k2_plain, k2_bound),
+        entry("fused_nmf_adaprox_step[device scalars]", "nmf_adaprox_step.cu",
+              "proxmin_tpu/ops/nmf_kernels.py:525", k2d_launches,
+              k2d_abs["f32 moments"], k2d_ms, k2_plain, k2_bound),
         entry("fused_nmf_adaprox_step[bfloat16 store]", "nmf_adaprox_step.cu",
               "proxmin_tpu/ops/nmf_kernels.py:525", k2s_launches,
               k2s_abs["bf16 moments"], *k2s_times["bf16 moments"]),

@@ -2,8 +2,8 @@
 
 The JAX package ``proxmin_tpu`` is the reference; this package mirrors its
 module names (``operators``, ``utils``, ``linop``, ``solvers``, ``nmf``,
-``ops``, ``special``, ``checkpoint``, ``functional``) so each counterpart sits at the same
-relative path. It imports ``torch`` and
+``ops``, ``special``, ``checkpoint``, ``functional``, ``export``) so each
+counterpart sits at the same relative path. It imports ``torch`` and
 never ``jax``. Plain code is tensor ops on the device the inputs live on;
 the hot NMF step is a hand-written CUDA kernel (``ops``, ``csrc/``) built
 at first use.
@@ -12,9 +12,9 @@ Ported so far: the prox operators, the linear operators, the five
 solvers (``pgm``, ``adaprox``, ``admm``, ``sdmm``, ``bsdmm``) with all of
 their options, NMF by PGM and AdaProx on the ``"torch"`` and ``"cuda"``
 engines and by bSDMM, checkpoint/resume of every solver's state through
-a file, and the pure solver factories of ``functional`` (batched under
-``torch.func.vmap``, implicitly differentiable); ROADMAP.md lists what
-follows.
+a file, the pure solver factories of ``functional`` (batched under
+``torch.func.vmap``, implicitly differentiable), and whole solves saved as
+``torch.export`` programs by ``export``; ROADMAP.md lists what follows.
 
 Importing the package sets the float32 matmul policy
 (:func:`precision.apply_f32_policy`): no TF32 anywhere.
@@ -28,6 +28,7 @@ from .algorithms import *  # noqa: E402,F401,F403
 from .operators import *  # noqa: E402,F401,F403
 from . import algorithms  # noqa: E402,F401
 from . import checkpoint  # noqa: E402,F401
+from . import export  # noqa: E402,F401
 from . import functional  # noqa: E402,F401
 from . import interop  # noqa: E402,F401
 from . import linop  # noqa: E402,F401

@@ -4,8 +4,10 @@
 // Replaces the Pallas TPU kernel proxmin_tpu/ops/nmf_kernels.py:525
 // (fused_nmf_adaprox_step; body _adaprox_step_kernel :409; residual product
 // _residual_dot :63, its "fma" path :82-89). Per pixel column n, with the
-// per-row step alpha (K) and the host scalars b1_t, bc1 = 1/(1 - b1_t^t),
-// bc2 = 1/(1 - b2^t):
+// per-row step alpha (K) and the scalars b1_t, bc1 = 1/(1 - b1_t^t),
+// bc2 = 1/(1 - b2^t), by value or, in the device-scalar entry, read from a
+// three-float buffer on the card (an exported loop computes them there from
+// its iteration counter, so nothing is read back to the host):
 //
 //   R    = A S[:,n] - Y[:,n]           exact f32 K-step FMA, summed over k in order
 //   D    = W[:,n] * R  (or R)
@@ -136,13 +138,15 @@ Ring ring_layout(int C, int K, int ss, int ms, bool weighted) {
 // Where S, M and V live: K2's three arrays, or K5's packed layouts.
 constexpr int kSeparate = 0, kPackSMV = 1, kPackMV = 2;
 
-template <int CB, int KB, typename ST, typename MT, int PK>
+// DS: b1_t, bc1 and bc2 come from the device buffer dsc (shared memory
+// holds them for the block) instead of sc; the arithmetic is the same.
+template <int CB, int KB, typename ST, typename MT, int PK, bool DS>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM<CB>)
 adaprox_step_kernel(const ST* __restrict__ S_in, const MT* __restrict__ M_in,
                     const MT* __restrict__ V_in, const float* __restrict__ A,
                     const ST* __restrict__ Y, const ST* __restrict__ W,
                     const float* __restrict__ alpha, Scalars sc,
-                    int prox_plus, int C, int K, long long N,
+                    const float* __restrict__ dsc, int prox_plus, int C, int K, long long N,
                     long long tile_n, Ring ring, int stages,
                     ST* __restrict__ S_out, MT* __restrict__ M_out,
                     MT* __restrict__ V_out, float* __restrict__ partials) {
@@ -169,6 +173,7 @@ adaprox_step_kernel(const ST* __restrict__ S_in, const MT* __restrict__ M_in,
   __shared__ float A16[kF32 ? 1 : CB][KB];
   float(*Ar)[KB] = kF32 ? As : A16;
   __shared__ float alphas[KB];
+  __shared__ float dscal[DS ? 3 : 1];
   __shared__ float red[kWarps][KB + 3];
   __shared__ __align__(8) uint64_t full[kMaxStages];
   float* Dsm = reinterpret_cast<float*>(smem + stages * ring.bytes);
@@ -181,13 +186,16 @@ adaprox_step_kernel(const ST* __restrict__ S_in, const MT* __restrict__ M_in,
     if constexpr (!kF32) A16[c][k] = __bfloat162float(__float2bfloat16_rn(a));
   }
   for (int k = tid; k < KB; k += kThreads) alphas[k] = (k < K) ? alpha[k] : 0.f;
+  if constexpr (DS) {
+    if (tid < 3) dscal[tid] = dsc[tid];
+  }
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) mbar_init(&full[s], kThreads);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
   // (1 - b1_t) in f32, as the TPU kernel computes it from its f32 scalar
-  const float one_minus_b1 = __fsub_rn(1.f, sc.b1_t);
+  const float one_minus_b1 = __fsub_rn(1.f, DS ? dscal[0] : sc.b1_t);
 
   const long long n_tiles = (N + tile_n - 1) / tile_n;
   const bool weighted = W != nullptr;
@@ -330,14 +338,17 @@ adaprox_step_kernel(const ST* __restrict__ S_in, const MT* __restrict__ M_in,
               if (c < C) g = fmaf(As[c][k], d[c], g);
             }
             const int i = k * kSub + tid;
+            const float b1_t = DS ? dscal[0] : sc.b1_t;
+            const float bc1 = DS ? dscal[1] : sc.bc1;
+            const float bc2 = DS ? dscal[2] : sc.bc2;
             const float m1 = __fadd_rn(__fmul_rn(one_minus_b1, g),
-                                       __fmul_rn(sc.b1_t, to_f32(sM[i])));
+                                       __fmul_rn(b1_t, to_f32(sM[i])));
             const float v1 =
                 __fadd_rn(__fmul_rn(sc.one_minus_b2, __fmul_rn(g, g)),
                           __fmul_rn(sc.b2, to_f32(sV[i])));
-            const float phi = __fmul_rn(m1, sc.bc1);
+            const float phi = __fmul_rn(m1, bc1);
             const float psi =
-                __fadd_rn(__fsqrt_rn(__fmul_rn(v1, sc.bc2)), sc.eps);
+                __fadd_rn(__fsqrt_rn(__fmul_rn(v1, bc2)), sc.eps);
             const float psi_safe = (psi < FLT_MIN) ? FLT_MIN : psi;  // keeps NaN
             float x = __fsub_rn(
                 s[k], __fmul_rn(alphas[k], __fdiv_rn(phi, psi_safe)));
@@ -448,13 +459,14 @@ adaprox_step_finalize(const float* __restrict__ partials, long long n_rows,
   }
 }
 
-template <int CB, int KB, typename ST, typename MT, int PK = kSeparate>
+template <int CB, int KB, typename ST, typename MT, int PK = kSeparate,
+          bool DS = false>
 int launch(const float* A, const void* S, const void* M, const void* V,
            const void* Y, const void* W, const float* alpha, Scalars sc,
-           int prox_plus, int C, int K, long long N, long long tile_n,
+           const float* dsc, int prox_plus, int C, int K, long long N, long long tile_n,
            void* S_new, void* M_new, void* V_new, float* gA, float* rowsum,
            float* stats, float* partials, cudaStream_t stream) {
-  auto kernel = adaprox_step_kernel<CB, KB, ST, MT, PK>;
+  auto kernel = adaprox_step_kernel<CB, KB, ST, MT, PK, DS>;
   // per instance: the SM count, the dynamic shared memory the kernel is
   // allowed (raised before the first launch that needs more than 48 KB),
   // and the resident blocks per SM at the last size asked for
@@ -491,8 +503,8 @@ int launch(const float* A, const void* S, const void* M, const void* V,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const ST*>(S), static_cast<const MT*>(M),
       static_cast<const MT*>(V), A, static_cast<const ST*>(Y),
-      static_cast<const ST*>(W), alpha, sc, prox_plus, C, K, N, tile_n, ring,
-      stages, static_cast<ST*>(S_new), static_cast<MT*>(M_new),
+      static_cast<const ST*>(W), alpha, sc, dsc, prox_plus, C, K, N, tile_n,
+      ring, stages, static_cast<ST*>(S_new), static_cast<MT*>(M_new),
       static_cast<MT*>(V_new), partials);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -502,37 +514,81 @@ int launch(const float* A, const void* S, const void* M, const void* V,
   return (int)cudaGetLastError();
 }
 
-template <int CB, int KB, typename ST>
-int launch_moments(int moment_bf16, const float* A, const void* S,
-                   const void* M, const void* V, const void* Y,
-                   const void* W, const float* alpha, Scalars sc,
+template <int CB, int KB, typename ST, typename MT>
+int launch_scalars(const float* A, const void* S, const void* M,
+                   const void* V, const void* Y, const void* W,
+                   const float* alpha, Scalars sc, const float* dsc,
                    int prox_plus, int C, int K, long long N, long long tile_n,
                    void* S_new, void* M_new, void* V_new, float* gA,
                    float* rowsum, float* stats, float* partials,
                    cudaStream_t stream) {
+  if (dsc != nullptr)
+    return launch<CB, KB, ST, MT, kSeparate, true>(
+        A, S, M, V, Y, W, alpha, sc, dsc, prox_plus, C, K, N, tile_n, S_new,
+        M_new, V_new, gA, rowsum, stats, partials, stream);
+  return launch<CB, KB, ST, MT>(A, S, M, V, Y, W, alpha, sc, nullptr,
+                                prox_plus, C, K, N, tile_n, S_new, M_new,
+                                V_new, gA, rowsum, stats, partials, stream);
+}
+
+template <int CB, int KB, typename ST>
+int launch_moments(int moment_bf16, const float* A, const void* S,
+                   const void* M, const void* V, const void* Y,
+                   const void* W, const float* alpha, Scalars sc,
+                   const float* dsc, int prox_plus, int C, int K, long long N,
+                   long long tile_n, void* S_new, void* M_new, void* V_new,
+                   float* gA, float* rowsum, float* stats, float* partials,
+                   cudaStream_t stream) {
   if (moment_bf16)
-    return launch<CB, KB, ST, __nv_bfloat16>(
-        A, S, M, V, Y, W, alpha, sc, prox_plus, C, K, N, tile_n, S_new, M_new,
-        V_new, gA, rowsum, stats, partials, stream);
-  return launch<CB, KB, ST, float>(A, S, M, V, Y, W, alpha, sc, prox_plus, C,
-                                   K, N, tile_n, S_new, M_new, V_new, gA,
-                                   rowsum, stats, partials, stream);
+    return launch_scalars<CB, KB, ST, __nv_bfloat16>(
+        A, S, M, V, Y, W, alpha, sc, dsc, prox_plus, C, K, N, tile_n, S_new,
+        M_new, V_new, gA, rowsum, stats, partials, stream);
+  return launch_scalars<CB, KB, ST, float>(
+      A, S, M, V, Y, W, alpha, sc, dsc, prox_plus, C, K, N, tile_n, S_new,
+      M_new, V_new, gA, rowsum, stats, partials, stream);
 }
 
 template <int CB, int KB>
 int launch_types(int store_bf16, int moment_bf16, const float* A,
                  const void* S, const void* M, const void* V, const void* Y,
-                 const void* W, const float* alpha, Scalars sc, int prox_plus,
-                 int C, int K, long long N, long long tile_n, void* S_new,
-                 void* M_new, void* V_new, float* gA, float* rowsum,
-                 float* stats, float* partials, cudaStream_t stream) {
+                 const void* W, const float* alpha, Scalars sc,
+                 const float* dsc, int prox_plus, int C, int K, long long N,
+                 long long tile_n, void* S_new, void* M_new, void* V_new,
+                 float* gA, float* rowsum, float* stats, float* partials,
+                 cudaStream_t stream) {
   if (store_bf16)
     return launch_moments<CB, KB, __nv_bfloat16>(
-        moment_bf16, A, S, M, V, Y, W, alpha, sc, prox_plus, C, K, N, tile_n,
-        S_new, M_new, V_new, gA, rowsum, stats, partials, stream);
+        moment_bf16, A, S, M, V, Y, W, alpha, sc, dsc, prox_plus, C, K, N,
+        tile_n, S_new, M_new, V_new, gA, rowsum, stats, partials, stream);
   return launch_moments<CB, KB, float>(
-      moment_bf16, A, S, M, V, Y, W, alpha, sc, prox_plus, C, K, N, tile_n,
-      S_new, M_new, V_new, gA, rowsum, stats, partials, stream);
+      moment_bf16, A, S, M, V, Y, W, alpha, sc, dsc, prox_plus, C, K, N,
+      tile_n, S_new, M_new, V_new, gA, rowsum, stats, partials, stream);
+}
+
+// Both entries of K2: the scalars by value (dsc null) or from dsc.
+int step_entry(const void* A, const void* S, const void* M, const void* V,
+               const void* Y, const void* W, const void* alpha, Scalars sc,
+               const float* dsc, int prox_plus, int store_bf16,
+               int moment_bf16, int C, int K, long long N, long long tile_n,
+               void* S_new, void* M_new, void* V_new, void* gA, void* rowsum,
+               void* stats, void* partials, void* stream) {
+  if (N < 1 || tile_n < 1) return (int)cudaErrorInvalidValue;
+  const float* a = static_cast<const float*>(A);
+  const float* al = static_cast<const float*>(alpha);
+  float* ga = static_cast<float*>(gA);
+  float* rs = static_cast<float*>(rowsum);
+  float* st = static_cast<float*>(stats);
+  float* pp = static_cast<float*>(partials);
+  cudaStream_t strm = static_cast<cudaStream_t>(stream);
+  if (C >= 1 && K >= 1 && C <= 8 && K <= 8)
+    return launch_types<8, 8>(store_bf16, moment_bf16, a, S, M, V, Y, W, al,
+                              sc, dsc, prox_plus, C, K, N, tile_n, S_new,
+                              M_new, V_new, ga, rs, st, pp, strm);
+  if (C >= 1 && K >= 1 && C <= 16 && K <= 8)
+    return launch_types<16, 8>(store_bf16, moment_bf16, a, S, M, V, Y, W, al,
+                               sc, dsc, prox_plus, C, K, N, tile_n, S_new,
+                               M_new, V_new, ga, rs, st, pp, strm);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -563,24 +619,30 @@ int nmf_adaprox_step(const void* A, const void* S, const void* M,
                      long long N, long long tile_n, void* S_new, void* M_new,
                      void* V_new, void* gA, void* rowsum, void* stats,
                      void* partials, void* stream) {
-  if (N < 1 || tile_n < 1) return (int)cudaErrorInvalidValue;
-  const float* a = static_cast<const float*>(A);
-  const float* al = static_cast<const float*>(alpha);
-  float* ga = static_cast<float*>(gA);
-  float* rs = static_cast<float*>(rowsum);
-  float* st = static_cast<float*>(stats);
-  float* pp = static_cast<float*>(partials);
-  cudaStream_t strm = static_cast<cudaStream_t>(stream);
   const Scalars sc{b1_t, bc1, bc2, one_minus_b2, b2, eps};
-  if (C >= 1 && K >= 1 && C <= 8 && K <= 8)
-    return launch_types<8, 8>(store_bf16, moment_bf16, a, S, M, V, Y, W, al,
-                              sc, prox_plus, C, K, N, tile_n, S_new, M_new,
-                              V_new, ga, rs, st, pp, strm);
-  if (C >= 1 && K >= 1 && C <= 16 && K <= 8)
-    return launch_types<16, 8>(store_bf16, moment_bf16, a, S, M, V, Y, W, al,
-                               sc, prox_plus, C, K, N, tile_n, S_new, M_new,
-                               V_new, ga, rs, st, pp, strm);
-  return (int)cudaErrorInvalidValue;
+  return step_entry(A, S, M, V, Y, W, alpha, sc, nullptr, prox_plus,
+                    store_bf16, moment_bf16, C, K, N, tile_n, S_new, M_new,
+                    V_new, gA, rowsum, stats, partials, stream);
+}
+
+// The device-scalar entry: nmf_adaprox_step with b1_t, bc1 and bc2 read by
+// the kernel from `scalars`, a device pointer to those three floats in that
+// order; the other arguments are nmf_adaprox_step's.
+int nmf_adaprox_step_dev(const void* A, const void* S, const void* M,
+                         const void* V, const void* Y, const void* W,
+                         const void* alpha, const void* scalars,
+                         float one_minus_b2, float b2, float eps,
+                         int prox_plus, int store_bf16, int moment_bf16,
+                         int C, int K, long long N, long long tile_n,
+                         void* S_new, void* M_new, void* V_new, void* gA,
+                         void* rowsum, void* stats, void* partials,
+                         void* stream) {
+  if (scalars == nullptr) return (int)cudaErrorInvalidValue;
+  const Scalars sc{0.f, 0.f, 0.f, one_minus_b2, b2, eps};
+  return step_entry(A, S, M, V, Y, W, alpha, sc,
+                    static_cast<const float*>(scalars), prox_plus,
+                    store_bf16, moment_bf16, C, K, N, tile_n, S_new, M_new,
+                    V_new, gA, rowsum, stats, partials, stream);
 }
 
 // K5: one packed step on `stream`, K2's unweighted iteration with prox
@@ -608,11 +670,11 @@ int nmf_packed_step(const void* A, const void* SMV, const void* MV,
     return (int)cudaErrorInvalidValue;
   if (MV == nullptr)
     return launch<8, 8, float, float, kPackSMV>(
-        a, SMV, nullptr, nullptr, Y, nullptr, al, sc, 1, C, K, N, tile_n,
-        SMV_new, nullptr, nullptr, ga, rs, st, pp, strm);
+        a, SMV, nullptr, nullptr, Y, nullptr, al, sc, nullptr, 1, C, K, N,
+        tile_n, SMV_new, nullptr, nullptr, ga, rs, st, pp, strm);
   return launch<8, 8, float, __nv_bfloat16, kPackMV>(
-      a, SMV, MV, nullptr, Y, nullptr, al, sc, 1, C, K, N, tile_n, SMV_new,
-      MV_new, nullptr, ga, rs, st, pp, strm);
+      a, SMV, MV, nullptr, Y, nullptr, al, sc, nullptr, 1, C, K, N, tile_n,
+      SMV_new, MV_new, nullptr, ga, rs, st, pp, strm);
 }
 
 }  // extern "C"

@@ -69,6 +69,8 @@ def _is_unweighted(W):
     """True for None or the scalar 1 (the reference's ``W == 1``)."""
     if W is None:
         return True
+    if isinstance(W, (int, float)):  # no NumPy: a captured program
+        return float(W) == 1.0
     if np.isscalar(W) or getattr(W, "ndim", None) == 0:
         return float(W) == 1.0
     return False
@@ -192,13 +194,16 @@ def _lam_max_psd_batch(H, iters):
     return torch.max(ray)
 
 
-def _weighted_lipschitz_S(A, W, num_iters=48, v0=None, return_v=False):
+def _weighted_lipschitz_S(A, W, num_iters=48, v0=None, return_v=False,
+                          extra=None):
     """``max_n lambda_max(A^T diag(W[:, n]) A)`` by a batched power
     iteration over the N per-pixel K x K blocks, never formed: ``num_iters``
     passes from ``v0`` (default: the cold start), then the largest Rayleigh
     quotient. A fully masked pixel (``W[:, n] = 0``) gives 0, not NaN.
     ``return_v`` also returns the next warm start (one more pass,
-    normalized)."""
+    normalized). ``extra`` (a 0-d integer CPU tensor) adds that many passes
+    after the first ``num_iters`` as a ``while_loop`` whose count the host
+    holds: an exported program's cold start."""
     N = W.shape[1]
     K = A.shape[1]
     v = (_weighted_lipschitz_S_v0(N, K, A.dtype, A.device) if v0 is None
@@ -214,6 +219,12 @@ def _weighted_lipschitz_S(A, W, num_iters=48, v0=None, return_v=False):
 
     for _ in range(int(num_iters)):
         v = normalize(Hv(v))
+    if extra is not None:
+        from torch._higher_order_ops.while_loop import while_loop
+
+        _, v = while_loop(lambda k, v: k < extra,
+                          lambda k, v: (k + 1, normalize(Hv(v))),
+                          (torch.zeros_like(extra), v))
     hv = Hv(v)
     rayleigh = torch.sum(v * hv, dim=1) / torch.clamp_min(
         torch.sum(v * v, dim=1), tiny)
@@ -407,6 +418,39 @@ _SAFETY = 0.9
 _MAX_STRIDE = 100
 
 
+def _exact_steps(A, SSt):
+    """The exact Lipschitz steps ``(1 / lambda_max(S S^T), 1 /
+    lambda_max(A^T A))`` from K1's Gram of the current S."""
+    return 1.0 / _lambda_max(SSt), 1.0 / _lambda_max(A.T @ A)
+
+
+def _weighted_steps(A, S, W32, v, passes, extra=None):
+    """The weighted Lipschitz steps from float32 views of the store and the
+    next power iterate: ``(step_A, step_S, v')`` after ``passes`` passes
+    from ``v`` (and ``extra`` more, see :func:`_weighted_lipschitz_S`)."""
+    LA = _weighted_lipschitz_A(S.to(torch.float32), W32)
+    LS, v = _weighted_lipschitz_S(A, W32, passes, v0=v, return_v=True,
+                                  extra=extra)
+    return 1.0 / LA, 1.0 / LS, v
+
+
+def _pgm_iterate(A, S, Y, W, sA, sS, prox_A, prox_S, e_rel, tile_n):
+    """One fused PGM iteration with frozen steps: K1, the C x K A update
+    and the stop flags, ``(A', S', SSt', conv_A, conv_S, loss)``. The loop
+    body that the host loop (:func:`_run_fused_pgm`) and the exported
+    programs (:func:`_fused_pgm_program`, :func:`_fused_weighted_program`)
+    share."""
+    gA, S_new, SSt_new, loss, dS_sq, nS_sq = fused_nmf_pgm_step(
+        A, S, Y, sS, W=W, prox_S=prox_S, tile_n=tile_n)
+    A_new = prox_A(A - sA * gA, sA)
+    dA_sq = torch.sum((A_new - A) ** 2)
+    nA_sq = torch.sum(A_new ** 2)
+    conv_A = _fused_fp_conv(dA_sq, nA_sq, e_rel)
+    conv_S = _fused_fp_conv(dS_sq, nS_sq, e_rel)
+    loss = _poison_loss(loss, dA_sq, nA_sq, dS_sq, nS_sq)
+    return A_new, S_new, SSt_new, conv_A, conv_S, loss
+
+
 def _run_fused_pgm(A, S, Y, W, max_iter, prox_A, prox_S, e_rel, tile_n,
                    stride=1, adapt=False, safety=1.0, it0=0,
                    conv0=(False, False), div0=False, loss0=np.inf,
@@ -428,7 +472,7 @@ def _run_fused_pgm(A, S, Y, W, max_iter, prox_A, prox_S, e_rel, tile_n,
     refresh's steps shrink by ``safety``; with ``adapt`` the interval
     follows :func:`grow_stride`, which reads the device once per refresh.
     Between refreshes the steps stay frozen and nothing but K1 and the
-    C x K A update runs.
+    C x K A update runs (:func:`_pgm_iterate`).
 
     ``steps0`` resumes from ``(sA, sS, Gram or v, stride, next_refresh)``:
     the frozen steps serve until the carried clock, so a resume mid-segment
@@ -475,14 +519,10 @@ def _run_fused_pgm(A, S, Y, W, max_iter, prox_A, prox_S, e_rel, tile_n,
         g = it0 + it
         if g >= nxt:
             if weighted:
-                LA = _weighted_lipschitz_A(S.to(f32), W32)
-                LS, aux = _weighted_lipschitz_S(
-                    A, W32, _COLD_ITERS if g == 0 else _WARM_ITERS, v0=aux,
-                    return_v=True)
-                sA_n, sS_n = 1.0 / LA, 1.0 / LS
+                sA_n, sS_n, aux = _weighted_steps(
+                    A, S, W32, aux, _COLD_ITERS if g == 0 else _WARM_ITERS)
             else:
-                sA_n = 1.0 / _lambda_max(aux)
-                sS_n = 1.0 / _lambda_max(A.T @ A)
+                sA_n, sS_n = _exact_steps(A, aux)
             if safety != 1.0:
                 sA_n, sS_n = safety * sA_n, safety * sS_n
             if adapt:
@@ -490,20 +530,134 @@ def _run_fused_pgm(A, S, Y, W, max_iter, prox_A, prox_S, e_rel, tile_n,
                                        budget, _MAX_STRIDE, first=(g == 0))
             nxt = g + stride_c
             sA, sS = sA_n, sS_n
-        gA, S_new, SSt_new, loss, dS_sq, nS_sq = fused_nmf_pgm_step(
-            A, S, Y, sS, W=W, prox_S=prox_S, tile_n=tile_n)
-        A_new = prox_A(A - sA * gA, sA)
-        dA_sq = torch.sum((A_new - A) ** 2)
-        nA_sq = torch.sum(A_new ** 2)
-        conv_A = _fused_fp_conv(dA_sq, nA_sq, e_rel)
-        conv_S = _fused_fp_conv(dS_sq, nS_sq, e_rel)
-        loss = _poison_loss(loss, dA_sq, nA_sq, dS_sq, nS_sq)
-        A, S = A_new, S_new
+        A, S, SSt_new, conv_A, conv_S, loss = _pgm_iterate(
+            A, S, Y, W, sA, sS, prox_A, prox_S, e_rel, tile_n)
         if not weighted:
             aux = SSt_new
         it += 1
     return (A, S, it, bool(conv_A), bool(conv_S), float(loss),
             (sA, sS, aux, stride_c, nxt))
+
+
+def _fused_go0(conv_A, conv_S, div0):
+    """Whether a fused loop takes its first iteration: not both factors
+    converged and no carried divergence (the initial loss is inf by design
+    and is not tested)."""
+    return torch.logical_not(
+        torch.logical_or(torch.logical_and(conv_A, conv_S), div0))
+
+
+def _fused_go(conv_A, conv_S, loss):
+    """Whether a fused loop goes on after an iteration: a finite loss (a
+    non-finite one means divergence) and not both factors converged."""
+    return torch.logical_and(
+        torch.isfinite(loss),
+        torch.logical_not(torch.logical_and(conv_A, conv_S)))
+
+
+def _fused_pgm_program(A, S, Y, max_iter, conv_A0, conv_S0, div0, loss0,
+                       SSt0, prox_A, prox_S, e_rel, tile_n):
+    """The exact fused PGM solve as one ``while_loop`` that
+    ``torch.export`` captures: the counterpart of the ``run`` of
+    ``proxmin_tpu.nmf._make_fused_pgm_runner``, on :func:`_exact_steps` and
+    :func:`_pgm_iterate` as :func:`_run_fused_pgm` runs them. Every input
+    is a tensor (``max_iter`` 0-d int32, the flags bool, ``loss0``
+    float32, ``SSt0`` K1's Gram); returns ``(A, S, it, conv_A, conv_S,
+    loss, SSt)`` with ``it`` counted from 0."""
+    from torch._higher_order_ops.while_loop import while_loop
+
+    def cond(A, S, SSt, it, conv_A, conv_S, loss, go):
+        return torch.logical_and(go, it < max_iter)
+
+    def body(A, S, SSt, it, conv_A, conv_S, loss, go):
+        sA, sS = _exact_steps(A, SSt)
+        A, S, SSt, conv_A, conv_S, loss = _pgm_iterate(
+            A, S, Y, None, sA, sS, prox_A, prox_S, e_rel, tile_n)
+        return (A, S, SSt, it + 1, conv_A, conv_S, loss,
+                _fused_go(conv_A, conv_S, loss))
+
+    it = torch.zeros((), dtype=torch.int32, device=A.device)
+    return while_loop(cond, body,
+                      (A, S, SSt0, it, conv_A0, conv_S0, loss0,
+                       _fused_go0(conv_A0, conv_S0, div0)))[:7]
+
+
+def _fused_weighted_program(A, S, Y, W, max_iter, it0, conv_A0, conv_S0,
+                            div0, loss0, steps0, prox_A, prox_S, e_rel,
+                            tile_n, stride=1, adapt=False, resume=False):
+    """The weighted fused PGM solve as one ``while_loop`` that
+    ``torch.export`` captures: the counterpart of the ``run`` of
+    ``proxmin_tpu.nmf._make_fused_weighted_pgm_runner``, on
+    :func:`_weighted_steps` and :func:`_pgm_iterate` as
+    :func:`_run_fused_pgm` runs them.
+
+    Every input is a tensor; ``steps0`` is ``(step_A, step_S, v, stride,
+    next_refresh)`` and ``it0`` the global clock. As in the host loop, the
+    steps refresh when the global clock reaches the next refresh (every
+    iteration at ``stride=1``; shrunk by the safety factor and the interval
+    grown by :func:`~proxmin_tpu_torch.utils.grow_stride` in its tensor
+    form when strided), with the cold start's passes at global iteration 0.
+    The clock and the next refresh are kept on the host too (CPU tensors,
+    read from the card once per call on a resume, and after each adaptive
+    refresh, as the host rule reads its drift): the refresh is a
+    ``while_loop`` of zero or one trip on a host condition, so a loop
+    iteration reads the card once, for its stop test. Returns ``(A, S, it,
+    conv_A, conv_S, loss, step_A, step_S, v, stride, next_refresh)`` in
+    the JAX runner's layout (at ``stride=1`` the carried steps and stride
+    come back unchanged)."""
+    from torch._higher_order_ops.while_loop import while_loop
+
+    W32 = W.to(torch.float32)
+    segmented = adapt or stride > 1
+    safety = _SAFETY if segmented else 1.0
+    budget = (1.0 - safety) / 2
+    sA_in, sS_in, v_in, stride_in, seg_in = steps0
+    host = torch.device("cpu")
+    if resume:
+        it_h, seg_h = (t.to(host, torch.int64) for t in (it0, seg_in))
+    else:
+        it_h = torch.zeros((), dtype=torch.int64, device=host)
+        seg_h = torch.zeros((), dtype=torch.int64, device=host)
+    cold = _COLD_ITERS - _WARM_ITERS
+
+    def refresh(k, sA_o, sS_o, v, stride_c, seg, seg_h, A, S, it, it_h):
+        sA, sS, v = _weighted_steps(A, S, W32, v, _WARM_ITERS,
+                                    extra=(it_h == 0).to(torch.int64) * cold)
+        if safety != 1.0:
+            sA, sS = safety * sA, safety * sS
+        if adapt:
+            stride_c = grow_stride(stride_c, (sA_o, sS_o), (sA, sS), budget,
+                                   _MAX_STRIDE, first=(it == 0))
+            # the host rule reads its drift here too
+            seg_h = it_h + stride_c.to(host, torch.int64)
+        else:
+            stride_c = stride_c.clone()
+            seg_h = it_h + stride
+        return k + 1, sA, sS, v, stride_c, it + stride_c, seg_h
+
+    end = it0 + max_iter
+
+    def body(A, S, it, conv_A, conv_S, loss, sA, sS, v, stride_c, seg, it_h,
+             seg_h, go):
+        due = (it_h >= seg_h).to(torch.int64)
+        _, sA, sS, v, stride_c, seg, seg_h = while_loop(
+            lambda k, *r: k < due,
+            lambda k, *r: refresh(k, *r, A, S, it, it_h),
+            (torch.zeros_like(due), sA, sS, v, stride_c, seg, seg_h))
+        A, S, _, conv_A, conv_S, loss = _pgm_iterate(
+            A, S, Y, W, sA, sS, prox_A, prox_S, e_rel, tile_n)
+        return (A, S, it + 1, conv_A, conv_S, loss, sA, sS, v, stride_c, seg,
+                it_h + 1, seg_h, _fused_go(conv_A, conv_S, loss))
+
+    out = while_loop(lambda *c: torch.logical_and(c[-1], c[2] < end), body,
+                     (A, S, it0, conv_A0, conv_S0, loss0, sA_in, sS_in, v_in,
+                      stride_in, seg_in, it_h, seg_h,
+                      _fused_go0(conv_A0, conv_S0, div0)))
+    A, S, it, conv_A, conv_S, loss, sA, sS, v, stride_c, seg = out[:11]
+    if not segmented:
+        return (A, S, it, conv_A, conv_S, loss, sA_in, sS_in, v, stride_in,
+                it)
+    return A, S, it, conv_A, conv_S, loss, sA, sS, v, stride_c, seg
 
 
 def _store_dtype(store_dtype):
@@ -661,6 +815,74 @@ def nmf_pgm_fused(
     )
 
 
+def _bias_corrections(b1, b2, t):
+    """The Adam scalars ``(b1_t, 1/(1 - b1_t^t), 1/(1 - b2^t))`` at the
+    global step ``t`` (a Python int) as float32 host numbers: the powers in
+    float64 of the float32 decays, rounded to float32, then ``1 - p`` and
+    the reciprocal in float32. :func:`_bias_corrections_tensor` computes
+    the same numbers on the device."""
+    one = np.float32(1)
+    b1_t, b2_t = np.float32(b1), np.float32(b2)
+    p1 = np.float32(np.float64(b1_t) ** t)
+    p2 = np.float32(np.float64(b2_t) ** t)
+    return b1_t, one / (one - p1), one / (one - p2)
+
+
+def _bias_decays(b1, b2, device):
+    """The constants of :func:`_bias_corrections_tensor`: the float32
+    decays as float64 ``(2,)``, 1 and ``b1_t`` as float32, on ``device``."""
+    f32, f64 = torch.float32, torch.float64
+    decays = torch.tensor([float(np.float32(b)) for b in (b1, b2)],
+                          dtype=f64).to(device)
+    return (decays, torch.ones((), dtype=f32, device=device),
+            decays[:1].to(f32))
+
+
+def _bias_corrections_tensor(decays, t):
+    """:func:`_bias_corrections` on the device from a 0-d integer tensor
+    ``t`` and :func:`_bias_decays`' constants: a (3,) float32 tensor
+    ``[b1_t, bc1, bc2]``, K2's device-scalar entry's input, with the host
+    form's arithmetic (float64 powers rounded to float32, a float32
+    subtraction and division)."""
+    decays, one, b1_t = decays
+    p = torch.pow(decays, t.to(torch.float64)).to(torch.float32)
+    return torch.cat([b1_t, torch.div(one, one - p)])
+
+
+def _adaprox_iterate(A, S, MS, VS, MA, VA, rowsum, Y, W, scalars, bc1, bc2,
+                     prox_A, prox_S, e_rel, b1, b2, eps, tile_n, tiny):
+    """One fused proximal-Adam iteration: the ``step_adaprox`` steps, K2 and
+    the A block's Adam update and prox, ``(A', S', MS', VS', MA', VA',
+    rowsum', conv_A, conv_S, loss)``. ``scalars`` reach K2 (three host
+    numbers, or the (3,) device tensor of :func:`_bias_corrections_tensor`)
+    and ``bc1``, ``bc2`` the A block (host numbers, or 0-d tensors of the
+    same float32 values). The loop body that the host loop
+    (:func:`_run_fused_adaprox`) and the exported program
+    (:func:`_fused_adaprox_program`) share."""
+    C = A.shape[0]
+    N = S.shape[1]
+    one, b1_t = np.float32(1), np.float32(b1)
+    alpha_A = torch.sum(A, dim=0) / C / 10.0
+    alpha_S = rowsum / N / 10.0
+    gA, S1, MS1, VS1, rowsum1, loss, dS_sq, nS_sq = fused_nmf_adaprox_step(
+        A, S, MS, VS, Y, alpha_S, scalars, W=W, prox_S=prox_S, b2=b2,
+        eps=eps, tile_n=tile_n)
+    # the A block (C x K, tensor ops): the same Adam update and closed-form
+    # prox, with the TPU runner's float32 scalars
+    MA1 = float(one - b1_t) * gA + float(b1_t) * MA
+    VA1 = (1.0 - b2) * gA ** 2 + b2 * VA
+    PsiA = torch.sqrt(VA1 * bc2) + eps
+    PsiA_safe = torch.maximum(PsiA, tiny)
+    A1 = A - alpha_A[None, :] * (MA1 * bc1) / PsiA_safe
+    A1 = prox_A(A1, alpha_A[None, :] / PsiA_safe)
+    dA_sq = torch.sum((A1 - A) ** 2)
+    nA_sq = torch.sum(A1 ** 2)
+    conv_A = _fused_fp_conv(dA_sq, nA_sq, e_rel)
+    conv_S = _fused_fp_conv(dS_sq, nS_sq, e_rel)
+    loss = _poison_loss(loss, dA_sq, nA_sq, dS_sq, nS_sq)
+    return A1, S1, MS1, VS1, MA1, VA1, rowsum1, conv_A, conv_S, loss
+
+
 def _run_fused_adaprox(A, S, Y, W, MA, VA, MS, VS, max_iter, prox_A, prox_S,
                        e_rel, b1, b2, eps, tile_n, it0=0, conv_A0=False,
                        conv_S0=False, div0=False, loss0=np.inf,
@@ -668,19 +890,19 @@ def _run_fused_adaprox(A, S, Y, W, MA, VA, MS, VS, max_iter, prox_A, prox_S,
     """The fused proximal-Adam loop on float32 tensors. Counterpart of the
     ``run`` built by ``proxmin_tpu.nmf._make_fused_adaprox_runner``.
 
-    Per iteration: the scalars ``(b1_t, 1/(1-b1^t), 1/(1-b2^t))`` in
-    float32 on the host from the host counter (they reach K2 by value, no
-    sync); the ``step_adaprox`` steps on the device, ``alpha_A`` from A's
-    column sums and ``alpha_S`` from the row sums K2 accumulated for the
-    current S; one K2 launch; the A block's Adam update and prox as tensor
-    ops; one host read of the stop flags. ``rowsum0`` carries the kernel's
-    own row sums across a resume (a fresh ``S.sum(1)`` has another
-    summation order, and its last-bit differences would compound).
-    Returns ``(A, S, it, conv_A, conv_S, loss, MA, VA, MS, VS, rowsum)``.
+    Per iteration (:func:`_adaprox_iterate`): the scalars ``(b1_t,
+    1/(1-b1^t), 1/(1-b2^t))`` in float32 on the host from the host counter
+    (:func:`_bias_corrections`; they reach K2 by value, no sync); the
+    ``step_adaprox`` steps on the device, ``alpha_A`` from A's column sums
+    and ``alpha_S`` from the row sums K2 accumulated for the current S; one
+    K2 launch; the A block's Adam update and prox as tensor ops; one host
+    read of the stop flags. ``rowsum0`` carries the kernel's own row sums
+    across a resume (a fresh ``S.sum(1)`` has another summation order, and
+    its last-bit differences would compound). Returns ``(A, S, it, conv_A,
+    conv_S, loss, MA, VA, MS, VS, rowsum)``.
     """
     dev = A.device
-    C, K = A.shape
-    N = S.shape[1]
+    K = A.shape[1]
     f32 = torch.float32
     rowsum = (torch.sum(S.to(f32), dim=1, keepdim=True) if rowsum0 is None
               else as_tensor(rowsum0, f32, dev).reshape(K, 1))
@@ -690,7 +912,6 @@ def _run_fused_adaprox(A, S, Y, W, MA, VA, MS, VS, max_iter, prox_A, prox_S,
     # filled on the device: copying a host number there every iteration
     # would make the host wait for the stream
     tiny = torch.full((), torch.finfo(f32).tiny, dtype=f32, device=dev)
-    one, b1_t, b2_t = np.float32(1), np.float32(b1), np.float32(b2)
     it = 0
 
     def keep_going():
@@ -705,32 +926,51 @@ def _run_fused_adaprox(A, S, Y, W, MA, VA, MS, VS, max_iter, prox_A, prox_S,
         return not bool(stop)
 
     while it < max_iter and keep_going():
-        t = np.float32(it + it0 + 1)
-        bc1 = one / (one - b1_t ** t)
-        bc2 = one / (one - b2_t ** t)
-        alpha_A = torch.sum(A, dim=0) / C / 10.0
-        alpha_S = rowsum / N / 10.0
-        gA, S1, MS1, VS1, rowsum1, loss, dS_sq, nS_sq = (
-            fused_nmf_adaprox_step(A, S, MS, VS, Y, alpha_S,
-                                   (b1_t, bc1, bc2), W=W, prox_S=prox_S,
-                                   b2=b2, eps=eps, tile_n=tile_n))
-        # the A block (C x K, tensor ops): the same Adam update and
-        # closed-form prox, with the TPU runner's float32 scalars
-        MA1 = float(one - b1_t) * gA + float(b1_t) * MA
-        VA1 = (1.0 - b2) * gA ** 2 + b2 * VA
-        PsiA = torch.sqrt(VA1 * float(bc2)) + eps
-        PsiA_safe = torch.maximum(PsiA, tiny)
-        A1 = A - alpha_A[None, :] * (MA1 * float(bc1)) / PsiA_safe
-        A1 = prox_A(A1, alpha_A[None, :] / PsiA_safe)
-        dA_sq = torch.sum((A1 - A) ** 2)
-        nA_sq = torch.sum(A1 ** 2)
-        conv_A = _fused_fp_conv(dA_sq, nA_sq, e_rel)
-        conv_S = _fused_fp_conv(dS_sq, nS_sq, e_rel)
-        loss = _poison_loss(loss, dA_sq, nA_sq, dS_sq, nS_sq)
-        A, S, MS, VS, MA, VA, rowsum = A1, S1, MS1, VS1, MA1, VA1, rowsum1
+        scalars = _bias_corrections(b1, b2, it + it0 + 1)
+        (A, S, MS, VS, MA, VA, rowsum, conv_A, conv_S,
+         loss) = _adaprox_iterate(
+            A, S, MS, VS, MA, VA, rowsum, Y, W, scalars, float(scalars[1]),
+            float(scalars[2]), prox_A, prox_S, e_rel, b1, b2, eps, tile_n,
+            tiny)
         it += 1
     return (A, S, it, bool(conv_A), bool(conv_S), float(loss), MA, VA, MS,
             VS, rowsum)
+
+
+def _fused_adaprox_program(A, S, Y, W, MA, VA, MS, VS, rowsum0, max_iter,
+                           it0, conv_A0, conv_S0, div0, loss0, prox_A,
+                           prox_S, e_rel, b1, b2, eps, tile_n):
+    """The fused proximal-Adam solve as one ``while_loop`` that
+    ``torch.export`` captures: the counterpart of the ``run`` of
+    ``proxmin_tpu.nmf._make_fused_adaprox_runner``, on
+    :func:`_adaprox_iterate` as :func:`_run_fused_adaprox` runs it, with
+    the bias corrections computed on the device from the counter
+    (:func:`_bias_corrections_tensor`) and read by K2 from there. Every
+    input is a tensor (``rowsum0`` (K, 1), ``it0`` the global clock's
+    offset); returns ``(A, S, it, conv_A, conv_S, loss, MA, VA, MS, VS,
+    rowsum)`` with ``it`` counted from 0."""
+    from torch._higher_order_ops.while_loop import while_loop
+
+    f32 = torch.float32
+    tiny = torch.full((), torch.finfo(f32).tiny, dtype=f32, device=A.device)
+    decays = _bias_decays(b1, b2, A.device)
+
+    def cond(A, S, MS, VS, MA, VA, rowsum, it, conv_A, conv_S, loss, go):
+        return torch.logical_and(go, it < max_iter)
+
+    def body(A, S, MS, VS, MA, VA, rowsum, it, conv_A, conv_S, loss, go):
+        scalars = _bias_corrections_tensor(decays, it + it0 + 1)
+        out = _adaprox_iterate(A, S, MS, VS, MA, VA, rowsum, Y, W, scalars,
+                               scalars[1], scalars[2], prox_A, prox_S, e_rel,
+                               b1, b2, eps, tile_n, tiny)
+        return (*out[:7], it + 1, *out[7:], _fused_go(*out[7:]))
+
+    it = torch.zeros((), dtype=torch.int32, device=A.device)
+    out = while_loop(cond, body, (A, S, MS, VS, MA, VA, rowsum0, it,
+                                  conv_A0, conv_S0, loss0,
+                                  _fused_go0(conv_A0, conv_S0, div0)))
+    (A, S, MS, VS, MA, VA, rowsum, it, conv_A, conv_S, loss) = out[:11]
+    return A, S, it, conv_A, conv_S, loss, MA, VA, MS, VS, rowsum
 
 
 def _dtype_name(dt):

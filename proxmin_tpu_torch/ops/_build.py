@@ -20,7 +20,7 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["register", "build_kernel", "build_kernels"]
+__all__ = ["register", "build_kernel", "build_kernels", "tracing"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 #: Kernel name -> its source; each builds into a library of its own.
@@ -106,3 +106,14 @@ def _library(name):
         declare(lib)
     return lib
 
+
+
+def tracing(*tensors):
+    """True while a program is being captured (``torch.export`` or
+    ``torch.compile``) or any of ``tensors`` is a fake tensor: a wrapper then
+    calls its registered op, which the capture records, instead of
+    launching through ``ctypes`` on a pointer that does not exist."""
+    import torch
+
+    return torch.compiler.is_compiling() or any(
+        isinstance(t, torch._subclasses.FakeTensor) for t in tensors)

@@ -22,19 +22,27 @@ the gradient.
 
 On CUDA tensors each wrapper launches its hand-written kernel; on CPU
 tensors it runs its plain version (``*_reference``), the same math as
-tensor ops. Unlike the TPU kernels, they take unpadded ``(C, K)``,
-``(K, N)`` and ``(C, N)`` tensors: there is no sublane/lane padding, no
-VMEM tile model and no ``dims`` argument. The kernels are built at first
-use by :mod:`._build`.
+tensor ops. Each kernel is also a registered PyTorch op in the
+``proxmin_torch`` namespace (``torch.ops.proxmin_torch.fused_nmf_pgm_step``,
+``fused_nmf_adaprox_step``, ``fused_nmf_grad``), with a fake that gives its
+outputs' shapes and dtypes: a program captured by ``torch.export`` records
+the op, and a process that serves the program runs the same launch (or, on
+CPU tensors, the plain version) once this module is imported. The eager
+drivers call the wrappers, which skip the dispatcher; while a program is
+captured the wrappers call the ops. Unlike the TPU kernels, they take
+unpadded ``(C, K)``, ``(K, N)`` and ``(C, N)`` tensors: there is no
+sublane/lane padding, no VMEM tile model and no ``dims`` argument. The
+kernels are built at first use by :mod:`._build`.
 """
 
 import ctypes
+from typing import Optional
 
 import numpy as np
 import torch
 
 from .. import operators
-from ._build import _library, build_kernel, build_kernels, register
+from ._build import _library, build_kernel, build_kernels, register, tracing
 
 __all__ = [
     "fused_nmf_pgm_step",
@@ -43,6 +51,9 @@ __all__ = [
     "fused_nmf_adaprox_step_reference",
     "fused_nmf_grad",
     "fused_nmf_grad_reference",
+    "fused_nmf_pgm_step_op",
+    "fused_nmf_adaprox_step_op",
+    "fused_nmf_grad_op",
     "build_kernel",
     "build_kernels",
     "DEFAULT_TILE_N",
@@ -76,6 +87,11 @@ def _declare_adaprox_step(lib):
                                      _I, _LL, _LL, _P, _P, _P, _P, _P, _P, _P,
                                      _P]
     lib.nmf_adaprox_step.restype = _I
+    lib.nmf_adaprox_step_dev.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P,
+                                         _F, _F, _F, _I, _I, _I, _I, _I,
+                                         _LL, _LL, _P, _P, _P, _P, _P, _P,
+                                         _P, _P]
+    lib.nmf_adaprox_step_dev.restype = _I
 
 
 def _declare_grad(lib):
@@ -109,6 +125,12 @@ def _prox_flag(prox_S, kernel="fused_nmf_pgm_step"):
         f"the CUDA {kernel} applies prox_S in the kernel and "
         "supports only prox_plus (or None) and prox_id; got "
         f"{prox_S!r}. Use engine='torch' for other S constraints.")
+
+
+def _flag_prox(prox_plus):
+    """The prox of the kernel flag ``prox_plus`` (:func:`_prox_flag`'s
+    inverse) for the plain versions."""
+    return operators.prox_plus if prox_plus else operators.prox_id
 
 
 def fused_nmf_pgm_step_reference(A, S, Y, sS, W=None, prox_S=None):
@@ -150,39 +172,14 @@ def _check_operand(name, t, shape, device, dtype=torch.float32):
         raise ValueError(f"{name} must be contiguous (row-major)")
 
 
-def fused_nmf_pgm_step(A, S, Y, sS, W=None, prox_S=None,
-                       tile_n=DEFAULT_TILE_N):
-    """One fused PGM-NMF S-side step.
-
-    Args:
-        A: (C, K) float32. S: (K, N), Y, W: (C, N) (W optional), all
-            float32 or all bfloat16 (the store; compute stays float32).
-            All contiguous, on one device.
-        sS: the S step size, a float or a one-element tensor (kept on the
-            device, so no host sync).
-        prox_S: None or ``prox_plus`` (non-negativity), or ``prox_id``.
-        tile_n: pixel columns per tile; it fixes the summation order.
-
-    Returns:
-        ``(gA, S_new, SSt, loss, dS_sq, nS_sq)``: ``gA = D S^T`` with the old
-        S, the proxed ``S_new`` in S's dtype, ``SSt = S_new S_new^T``, the
-        loss at the old iterate and the fixed-point norms
-        ``||S_new - S||^2``, ``||S_new||^2`` (0-d tensors), all float32 but
-        ``S_new``; with the bfloat16 store the Gram and the norms are those
-        of the rounded ``S_new``.
-
-    CPU tensors go to :func:`fused_nmf_pgm_step_reference`. CUDA tensors
-    launch the kernel (building it on first use) on the current stream
-    without synchronizing, or raise; each launch adds one to
-    ``fused_nmf_pgm_step.launches``.
-    """
+def _pgm_step_cuda(A, S, Y, sS, W, prox_plus, tile_n):
+    """K1's launch on CUDA tensors: checks, allocation, one launch, the
+    count. Returns ``(gA, S_new, SSt, stats)`` with ``stats`` the (3,)
+    float32 ``[loss, dS_sq, nS_sq]``."""
     device = A.device
-    if device.type == "cpu":
-        return fused_nmf_pgm_step_reference(A, S, Y, sS, W=W, prox_S=prox_S)
     if device.type != "cuda":
         raise ValueError(f"fused_nmf_pgm_step runs on CPU or CUDA tensors, "
                          f"got {device}")
-    prox_plus = _prox_flag(prox_S)
     C, K = A.shape
     N = S.shape[1]
     sdt = S.dtype
@@ -218,13 +215,78 @@ def fused_nmf_pgm_step(A, S, Y, sS, W=None, prox_S=None,
         rc = lib.nmf_pgm_step(
             A.data_ptr(), S.data_ptr(), Y.data_ptr(),
             None if W is None else W.data_ptr(), step.data_ptr(),
-            prox_plus, int(sdt == torch.bfloat16), C, K, N, tile_n,
+            int(prox_plus), int(sdt == torch.bfloat16), C, K, N, tile_n,
             S_new.data_ptr(), gA.data_ptr(),
             SSt.data_ptr(), stats.data_ptr(), partials.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"fused_nmf_pgm_step launch failed: CUDA error "
                            f"{rc}")
     fused_nmf_pgm_step.launches += 1
+    return gA, S_new, SSt, stats
+
+
+@torch.library.custom_op("proxmin_torch::fused_nmf_pgm_step",
+                         mutates_args=())
+def fused_nmf_pgm_step_op(
+        A: torch.Tensor, S: torch.Tensor, Y: torch.Tensor, sS: torch.Tensor,
+        W: Optional[torch.Tensor], prox_plus: int, tile_n: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1 as a registered op: :func:`fused_nmf_pgm_step` with ``prox_S`` as
+    the kernel's flag (1 non-negativity, 0 identity) and the three
+    statistics in one (3,) tensor ``[loss, dS_sq, nS_sq]``."""
+    if A.device.type == "cpu":
+        gA, S_new, SSt, loss, d_sq, n_sq = fused_nmf_pgm_step_reference(
+            A, S, Y, sS, W=W, prox_S=_flag_prox(prox_plus))
+        return gA, S_new, SSt, torch.stack([loss, d_sq, n_sq])
+    return _pgm_step_cuda(A, S, Y, sS, W, prox_plus, tile_n)
+
+
+@fused_nmf_pgm_step_op.register_fake
+def _(A, S, Y, sS, W, prox_plus, tile_n):
+    C, K = A.shape
+    f32 = torch.float32
+    return (A.new_empty((C, K), dtype=f32), torch.empty_like(S),
+            A.new_empty((K, K), dtype=f32), A.new_empty((3,), dtype=f32))
+
+
+def fused_nmf_pgm_step(A, S, Y, sS, W=None, prox_S=None,
+                       tile_n=DEFAULT_TILE_N):
+    """One fused PGM-NMF S-side step.
+
+    Args:
+        A: (C, K) float32. S: (K, N), Y, W: (C, N) (W optional), all
+            float32 or all bfloat16 (the store; compute stays float32).
+            All contiguous, on one device.
+        sS: the S step size, a float or a one-element tensor (kept on the
+            device, so no host sync).
+        prox_S: None or ``prox_plus`` (non-negativity), or ``prox_id``.
+        tile_n: pixel columns per tile; it fixes the summation order.
+
+    Returns:
+        ``(gA, S_new, SSt, loss, dS_sq, nS_sq)``: ``gA = D S^T`` with the old
+        S, the proxed ``S_new`` in S's dtype, ``SSt = S_new S_new^T``, the
+        loss at the old iterate and the fixed-point norms
+        ``||S_new - S||^2``, ``||S_new||^2`` (0-d tensors), all float32 but
+        ``S_new``; with the bfloat16 store the Gram and the norms are those
+        of the rounded ``S_new``.
+
+    CPU tensors go to :func:`fused_nmf_pgm_step_reference`. CUDA tensors
+    launch the kernel (building it on first use) on the current stream
+    without synchronizing, or raise; each launch adds one to
+    ``fused_nmf_pgm_step.launches``. While a program is captured, the call
+    is the registered op :func:`fused_nmf_pgm_step_op`.
+    """
+    if tracing(A, S):
+        if not isinstance(sS, torch.Tensor):
+            sS = torch.full((), float(sS), dtype=torch.float32,
+                            device=A.device)
+        gA, S_new, SSt, stats = fused_nmf_pgm_step_op(
+            A, S, Y, sS, W, _prox_flag(prox_S), int(tile_n))
+        return gA, S_new, SSt, stats[0], stats[1], stats[2]
+    if A.device.type == "cpu":
+        return fused_nmf_pgm_step_reference(A, S, Y, sS, W=W, prox_S=prox_S)
+    gA, S_new, SSt, stats = _pgm_step_cuda(A, S, Y, sS, W,
+                                           _prox_flag(prox_S), tile_n)
     return gA, S_new, SSt, stats[0], stats[1], stats[2]
 
 
@@ -233,9 +295,12 @@ fused_nmf_pgm_step.launches = 0
 
 def _adaprox_scalars(scalars, b2, eps):
     """The kernel's scalars as float32 values, each computed the way the
-    TPU kernel computes it: ``b1_t, bc1, bc2`` as given (host float32),
+    TPU kernel computes it: ``b1_t, bc1, bc2`` as given (host float32, or a
+    CPU tensor of three float32 values),
     ``1 - b1_t`` in float32, ``1 - b2`` in double then rounded (the Python
     float ``b2`` enters the TPU kernel as a weakly typed constant)."""
+    if isinstance(scalars, torch.Tensor):
+        scalars = scalars.tolist()
     b1_t, bc1, bc2 = (np.float32(v) for v in scalars)
     return (b1_t, bc1, bc2, np.float32(1) - b1_t, np.float32(1.0 - b2),
             np.float32(b2), np.float32(eps))
@@ -278,48 +343,17 @@ def fused_nmf_adaprox_step_reference(A, S, M, V, Y, alpha_S, scalars,
             torch.sum(dS * dS), torch.sum(S1 * S1))
 
 
-def fused_nmf_adaprox_step(A, S, M, V, Y, alpha_S, scalars, W=None,
-                           prox_S=None, b2=0.999, eps=1e-8,
-                           tile_n=DEFAULT_TILE_N):
-    """One fused proximal-Adam (``scheme='adam'``) NMF S-side step.
-
-    Args:
-        A: (C, K) float32. S: (K, N), Y and W: (C, N) (W optional), all
-            float32 or all bfloat16 (the store; compute stays float32).
-            M, V: (K, N) moments, both float32 or both bfloat16. All
-            contiguous, on one device.
-        alpha_S: the per-row step, K float32 values ((K, 1) or (K,)), kept
-            on the device.
-        scalars: ``(b1_t, 1/(1 - b1_t^t), 1/(1 - b2^t))`` as host numbers
-            (computed by the caller in float32 per iteration; they reach
-            the kernel by value, so no host sync).
-        prox_S: None or ``prox_plus`` (non-negativity), or ``prox_id``.
-        b2, eps: the second-moment decay and the denominator floor.
-        tile_n: pixel columns per tile; it fixes the summation order.
-
-    Returns:
-        ``(gA, S_new, M_new, V_new, rowsum, loss, dS_sq, nS_sq)``:
-        ``gA = D S^T`` with the old S, the proxed ``S_new`` in S's dtype,
-        the moments in their storage dtype, ``rowsum = S_new.sum(1)`` as
-        (K, 1), the loss at the old iterate and the fixed-point norms
-        ``||S_new - S||^2``, ``||S_new||^2`` (0-d tensors); with the
-        bfloat16 store the row sums and the norms are those of the rounded
-        ``S_new``.
-
-    CPU tensors go to :func:`fused_nmf_adaprox_step_reference`. CUDA
-    tensors launch the kernel (building it on first use) on the current
-    stream without synchronizing, or raise; each launch adds one to
-    ``fused_nmf_adaprox_step.launches``.
-    """
+def _adaprox_step_cuda(A, S, M, V, Y, alpha_S, scalars, W, prox_plus, b2,
+                       eps, tile_n):
+    """K2's launch on CUDA tensors: checks, allocation, one launch, the
+    count. ``scalars`` by value (three host numbers) or as a (3,) float32
+    tensor on the card (the device-scalar entry). Returns ``(gA, S_new,
+    M_new, V_new, rowsum, stats)`` with ``stats`` the (3,) float32 ``[loss,
+    dS_sq, nS_sq]``."""
     device = A.device
-    if device.type == "cpu":
-        return fused_nmf_adaprox_step_reference(
-            A, S, M, V, Y, alpha_S, scalars, W=W, prox_S=prox_S, b2=b2,
-            eps=eps)
     if device.type != "cuda":
         raise ValueError(f"fused_nmf_adaprox_step runs on CPU or CUDA "
                          f"tensors, got {device}")
-    prox_plus = _prox_flag(prox_S, "fused_nmf_adaprox_step")
     C, K = A.shape
     N = S.shape[1]
     sdt, mdt = S.dtype, M.dtype
@@ -336,6 +370,9 @@ def fused_nmf_adaprox_step(A, S, M, V, Y, alpha_S, scalars, W=None,
         _check_operand("W", W, (C, N), device, sdt)
     alpha = alpha_S.reshape(-1)
     _check_operand("alpha_S", alpha, (K,), device)
+    on_card = isinstance(scalars, torch.Tensor)
+    if on_card:
+        _check_operand("scalars", scalars, (3,), device)
     if N < 1 or int(tile_n) < 1:
         raise ValueError(f"need N >= 1 and tile_n >= 1, got N={N}, "
                          f"tile_n={tile_n}")
@@ -355,26 +392,121 @@ def fused_nmf_adaprox_step(A, S, M, V, Y, alpha_S, scalars, W=None,
     partials = torch.empty((n_blocks, width), dtype=torch.float32,
                            device=device)
     # the kernel forms 1 - b1_t itself
-    b1_t, bc1, bc2, _, omb2, b2_, eps_ = _adaprox_scalars(scalars, b2, eps)
+    omb2, b2_, eps_ = (np.float32(1.0 - b2), np.float32(b2),
+                       np.float32(eps))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.nmf_adaprox_step(
-            A.data_ptr(), S.data_ptr(), M.data_ptr(), V.data_ptr(),
-            Y.data_ptr(), None if W is None else W.data_ptr(),
-            alpha.data_ptr(), float(b1_t), float(bc1), float(bc2),
-            float(omb2), float(b2_), float(eps_), prox_plus,
-            int(sdt == torch.bfloat16), int(mdt == torch.bfloat16), C, K, N,
-            tile_n, S_new.data_ptr(), M_new.data_ptr(), V_new.data_ptr(),
-            gA.data_ptr(), rowsum.data_ptr(), stats.data_ptr(),
-            partials.data_ptr(), stream)
+        head = (A.data_ptr(), S.data_ptr(), M.data_ptr(), V.data_ptr(),
+                Y.data_ptr(), None if W is None else W.data_ptr(),
+                alpha.data_ptr())
+        tail = (float(omb2), float(b2_), float(eps_), int(prox_plus),
+                int(sdt == torch.bfloat16), int(mdt == torch.bfloat16), C,
+                K, N, tile_n, S_new.data_ptr(), M_new.data_ptr(),
+                V_new.data_ptr(), gA.data_ptr(), rowsum.data_ptr(),
+                stats.data_ptr(), partials.data_ptr(), stream)
+        if on_card:
+            rc = lib.nmf_adaprox_step_dev(*head, scalars.data_ptr(), *tail)
+        else:
+            b1_t, bc1, bc2 = _adaprox_scalars(scalars, b2, eps)[:3]
+            rc = lib.nmf_adaprox_step(*head, float(b1_t), float(bc1),
+                                      float(bc2), *tail)
     if rc != 0:
         raise RuntimeError(f"fused_nmf_adaprox_step launch failed: CUDA "
                            f"error {rc}")
     fused_nmf_adaprox_step.launches += 1
-    return gA, S_new, M_new, V_new, rowsum, stats[0], stats[1], stats[2]
+    if on_card:
+        fused_nmf_adaprox_step.device_scalar_launches += 1
+    return gA, S_new, M_new, V_new, rowsum, stats
+
+
+@torch.library.custom_op("proxmin_torch::fused_nmf_adaprox_step",
+                         mutates_args=())
+def fused_nmf_adaprox_step_op(
+        A: torch.Tensor, S: torch.Tensor, M: torch.Tensor, V: torch.Tensor,
+        Y: torch.Tensor, alpha_S: torch.Tensor, scalars: torch.Tensor,
+        W: Optional[torch.Tensor], prox_plus: int, b2: float, eps: float,
+        tile_n: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+           torch.Tensor, torch.Tensor]:
+    """K2 as a registered op: :func:`fused_nmf_adaprox_step` with the
+    scalars ``(b1_t, bc1, bc2)`` as a (3,) float32 tensor on the operands'
+    device (the kernel's device-scalar entry), ``prox_S`` as the kernel's
+    flag and the three statistics in one (3,) tensor."""
+    if A.device.type == "cpu":
+        gA, S1, M1, V1, rowsum, loss, d_sq, n_sq = (
+            fused_nmf_adaprox_step_reference(
+                A, S, M, V, Y, alpha_S, scalars, W=W,
+                prox_S=_flag_prox(prox_plus), b2=b2, eps=eps))
+        return gA, S1, M1, V1, rowsum, torch.stack([loss, d_sq, n_sq])
+    return _adaprox_step_cuda(A, S, M, V, Y, alpha_S, scalars, W, prox_plus,
+                              b2, eps, tile_n)
+
+
+@fused_nmf_adaprox_step_op.register_fake
+def _(A, S, M, V, Y, alpha_S, scalars, W, prox_plus, b2, eps, tile_n):
+    C, K = A.shape
+    f32 = torch.float32
+    return (A.new_empty((C, K), dtype=f32), torch.empty_like(S),
+            torch.empty_like(M), torch.empty_like(V),
+            A.new_empty((K, 1), dtype=f32), A.new_empty((3,), dtype=f32))
+
+
+def fused_nmf_adaprox_step(A, S, M, V, Y, alpha_S, scalars, W=None,
+                           prox_S=None, b2=0.999, eps=1e-8,
+                           tile_n=DEFAULT_TILE_N):
+    """One fused proximal-Adam (``scheme='adam'``) NMF S-side step.
+
+    Args:
+        A: (C, K) float32. S: (K, N), Y and W: (C, N) (W optional), all
+            float32 or all bfloat16 (the store; compute stays float32).
+            M, V: (K, N) moments, both float32 or both bfloat16. All
+            contiguous, on one device.
+        alpha_S: the per-row step, K float32 values ((K, 1) or (K,)), kept
+            on the device.
+        scalars: ``(b1_t, 1/(1 - b1_t^t), 1/(1 - b2^t))`` as host numbers
+            (computed by the caller in float32 per iteration; they reach
+            the kernel by value, so no host sync), or as a (3,) float32
+            tensor on A's device (the kernel reads them there: an exported
+            loop computes them on the card from its counter).
+        prox_S: None or ``prox_plus`` (non-negativity), or ``prox_id``.
+        b2, eps: the second-moment decay and the denominator floor.
+        tile_n: pixel columns per tile; it fixes the summation order.
+
+    Returns:
+        ``(gA, S_new, M_new, V_new, rowsum, loss, dS_sq, nS_sq)``:
+        ``gA = D S^T`` with the old S, the proxed ``S_new`` in S's dtype,
+        the moments in their storage dtype, ``rowsum = S_new.sum(1)`` as
+        (K, 1), the loss at the old iterate and the fixed-point norms
+        ``||S_new - S||^2``, ``||S_new||^2`` (0-d tensors); with the
+        bfloat16 store the row sums and the norms are those of the rounded
+        ``S_new``.
+
+    CPU tensors go to :func:`fused_nmf_adaprox_step_reference`. CUDA
+    tensors launch the kernel (building it on first use) on the current
+    stream without synchronizing, or raise; each launch adds one to
+    ``fused_nmf_adaprox_step.launches``, and one through the device-scalar
+    entry also to ``fused_nmf_adaprox_step.device_scalar_launches``. While
+    a program is captured, the call is the registered op
+    :func:`fused_nmf_adaprox_step_op` (the scalars must then be a tensor).
+    """
+    if tracing(A, S):
+        gA, S1, M1, V1, rowsum, stats = fused_nmf_adaprox_step_op(
+            A, S, M, V, Y, alpha_S, scalars, W,
+            _prox_flag(prox_S, "fused_nmf_adaprox_step"), float(b2),
+            float(eps), int(tile_n))
+        return gA, S1, M1, V1, rowsum, stats[0], stats[1], stats[2]
+    if A.device.type == "cpu":
+        return fused_nmf_adaprox_step_reference(
+            A, S, M, V, Y, alpha_S, scalars, W=W, prox_S=prox_S, b2=b2,
+            eps=eps)
+    gA, S1, M1, V1, rowsum, stats = _adaprox_step_cuda(
+        A, S, M, V, Y, alpha_S, scalars, W,
+        _prox_flag(prox_S, "fused_nmf_adaprox_step"), b2, eps, tile_n)
+    return gA, S1, M1, V1, rowsum, stats[0], stats[1], stats[2]
 
 
 fused_nmf_adaprox_step.launches = 0
+fused_nmf_adaprox_step.device_scalar_launches = 0
 
 
 def fused_nmf_grad_reference(A, S, Y, W=None):
@@ -405,7 +537,8 @@ def fused_nmf_grad(A, S, Y, W=None, tile_n=DEFAULT_TILE_N):
     CPU tensors go to :func:`fused_nmf_grad_reference`. CUDA tensors launch
     the CUDA kernel (``csrc/nmf_grad.cu``, built on first use; C <= 16,
     K <= 8) on the current stream without synchronizing, or raise; each
-    launch adds one to ``fused_nmf_grad.launches``.
+    launch adds one to ``fused_nmf_grad.launches``. While a program is
+    captured, the call is the registered op :func:`fused_nmf_grad_op`.
     """
     A, S, Y = (torch.as_tensor(t) for t in (A, S, Y))
     W = None if W is None else torch.as_tensor(W)
@@ -421,12 +554,22 @@ def fused_nmf_grad(A, S, Y, W=None, tile_n=DEFAULT_TILE_N):
             f"Y {tuple(Y.shape)}"
             + ("" if W is None else f", W {tuple(W.shape)}")
             + "; need A (C, K), S (K, N), Y and W (C, N)")
-    device = A.device
-    if device.type == "cpu":
+    if tracing(A, S):
+        return fused_nmf_grad_op(A, S, Y, W, int(tile_n))
+    if A.device.type == "cpu":
         return fused_nmf_grad_reference(A, S, Y, W=W)
+    return _grad_cuda(A, S, Y, W, tile_n)
+
+
+def _grad_cuda(A, S, Y, W, tile_n):
+    """K3's launch on CUDA tensors of checked shapes: the casts, one
+    launch, the count. Returns ``(gA, gS, SSt, loss)``."""
+    device = A.device
     if device.type != "cuda":
         raise ValueError(f"fused_nmf_grad runs on CPU or CUDA tensors, got "
                          f"{device}")
+    C, K = A.shape
+    N = S.shape[1]
     if not (1 <= C <= 16 and 1 <= K <= 8):
         raise ValueError(f"the CUDA fused_nmf_grad is compiled for C <= 16 "
                          f"and K <= 8, got C={C}, K={K}")
@@ -460,6 +603,26 @@ def fused_nmf_grad(A, S, Y, W=None, tile_n=DEFAULT_TILE_N):
         raise RuntimeError(f"fused_nmf_grad launch failed: CUDA error {rc}")
     fused_nmf_grad.launches += 1
     return gA, gS, SSt, loss
+
+
+@torch.library.custom_op("proxmin_torch::fused_nmf_grad", mutates_args=())
+def fused_nmf_grad_op(
+        A: torch.Tensor, S: torch.Tensor, Y: torch.Tensor,
+        W: Optional[torch.Tensor], tile_n: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3 as a registered op: :func:`fused_nmf_grad` on tensors of checked
+    shapes."""
+    if A.device.type == "cpu":
+        return fused_nmf_grad_reference(A, S, Y, W=W)
+    return _grad_cuda(A, S, Y, W, tile_n)
+
+
+@fused_nmf_grad_op.register_fake
+def _(A, S, Y, W, tile_n):
+    C, K = A.shape
+    f32 = torch.float32
+    return (A.new_empty((C, K), dtype=f32), S.new_empty(S.shape, dtype=f32),
+            A.new_empty((K, K), dtype=f32), A.new_empty((), dtype=f32))
 
 
 fused_nmf_grad.launches = 0

@@ -22,16 +22,24 @@ A threshold that lives on the card (the solvers' step is a 0-d tensor there)
 reaches the kernel as a device pointer, and the kernel multiplies a relative
 threshold itself (:func:`threshold_args`): a call is one CUDA launch
 (unity along axis 1 a cooperative one) and reads nothing back to the host.
+
+Each kernel is also a registered PyTorch op of the ``proxmin_torch``
+namespace (``prox_plus``, ``prox_soft``, ``prox_hard``, ``prox_unity``,
+the threshold as :func:`threshold_args` gives it), with a fake: a program
+captured by ``torch.export`` records the op, and the wrappers call it while
+a program is captured. A process that serves such a program imports this
+module first.
 """
 
 import ctypes
 import typing
+from typing import Optional
 
 import numpy as np
 import torch
 
 from .. import operators
-from ._build import _library, register
+from ._build import _library, register, tracing
 
 __all__ = [
     "prox_plus_pallas",
@@ -44,6 +52,10 @@ __all__ = [
     "prox_unity_reference",
     "threshold_args",
     "threshold_reference",
+    "prox_plus_op",
+    "prox_soft_op",
+    "prox_hard_op",
+    "prox_unity_op",
 ]
 
 _OP = {"plus": 0, "soft": 1, "hard": 2}
@@ -128,8 +140,9 @@ def threshold_args(step, thresh, type, device):
       Python number: that tensor, scaled by the number (``step * thresh``
       as PyTorch computes it, in the tensor's type);
     * absolute with such a tensor: the tensor, unscaled;
-    * host numbers and CPU tensors: the threshold's value (a CPU tensor is
-      read on the host, which waits on nothing);
+    * host numbers: the threshold's value;
+    * a CPU tensor: that tensor, which a launch on the card reads on the
+      host (it waits on nothing) and passes by value (:func:`_by_value`);
     * anything else (a tensor of another dtype or device, two tensors):
       ``get_thresh``'s own result on ``device``, which costs that
       computation's launches."""
@@ -145,10 +158,12 @@ def threshold_args(step, thresh, type, device):
             and thresh.dtype in _T_TYPE):
         return ThresholdArgs(_one_element(thresh), False, 0.0, 1.0)
     t = operators.get_thresh(step, thresh, type)
+    if _host_number(t):
+        return ThresholdArgs(None, False, float(t), 1.0)
     if isinstance(t, torch.Tensor):
         _one_element(t)
         if t.device.type == "cpu":
-            return ThresholdArgs(None, False, float(t.reshape(())), 1.0)
+            return ThresholdArgs(t, False, 0.0, 1.0)
         if t.device != device or t.dtype not in _T_TYPE:
             t = t.to(device=device, dtype=torch.float64)
         return ThresholdArgs(t, False, 0.0, 1.0)
@@ -196,16 +211,24 @@ def _call(fn, device, *args):
         return fn(*args, stream(index))
 
 
-def _launch_elementwise(wrapper, op, X, step=None, thresh=0,
-                        type="relative"):
-    """Launch the elementwise kernel ``op`` on the CUDA tensor ``X`` and
-    count it on ``wrapper``; an empty ``X`` launches nothing."""
+def _by_value(targs):
+    """``targs`` for a launch on the card: a threshold held in a CPU tensor
+    is read on the host, which waits on nothing, and passed by value."""
+    t = targs.tensor
+    if t is None or t.device.type != "cpu":
+        return targs
+    return ThresholdArgs(None, False, float(t.reshape(())), 1.0)
+
+
+def _launch_elementwise(wrapper, op, X, targs=_NO_THRESHOLD):
+    """Launch the elementwise kernel ``op`` on the CUDA tensor ``X`` with
+    the threshold ``targs`` (:func:`threshold_args`) and count it on
+    ``wrapper``; an empty ``X`` launches nothing."""
+    targs = _by_value(targs)
     cdt = _compute_dtype(X)
     Xc = X if X.dtype == cdt and X.is_contiguous() else \
         X.to(cdt).contiguous()
     device = Xc.device
-    targs = (_NO_THRESHOLD if op == "plus"
-             else threshold_args(step, thresh, type, device))
     n = Xc.numel()
     if n == 0:
         return X.clone()
@@ -259,10 +282,84 @@ def prox_unity_reference(X, step, axis=0):
     return operators.prox_unity(X.to(cdt), step, axis=axis).to(X.dtype)
 
 
+def _thresholded_reference(prox, X, targs):
+    """``prox`` (``operators.prox_soft`` or ``prox_hard``) in X's compute
+    dtype with the threshold the kernel forms from ``targs``."""
+    cdt = _compute_dtype(X)
+    return prox(X.to(cdt), 1.0, thresh=threshold_reference(targs, cdt),
+                type="absolute").to(X.dtype)
+
+
+@torch.library.custom_op("proxmin_torch::prox_plus", mutates_args=())
+def prox_plus_op(X: torch.Tensor) -> torch.Tensor:
+    """K4 plus as a registered op (2-D X)."""
+    if not _on_card(X, "prox_plus_pallas"):
+        return prox_plus_reference(X, None)
+    return _launch_elementwise(prox_plus_pallas, "plus", X)
+
+
+def _threshold_op(op):
+    def impl(X: torch.Tensor, t: Optional[torch.Tensor], scaled: bool,
+             value: float, scale: float) -> torch.Tensor:
+        targs = ThresholdArgs(None if t is None else _one_element(t),
+                              bool(scaled), float(value), float(scale))
+        wrapper = prox_soft_pallas if op == "soft" else prox_hard_pallas
+        if not _on_card(X, wrapper.__name__):
+            return _thresholded_reference(
+                operators.prox_soft if op == "soft" else operators.prox_hard,
+                X, targs)
+        return _launch_elementwise(wrapper, op, X, targs)
+
+    impl.__name__ = f"prox_{op}_op"
+    impl.__doc__ = (f"K4 {op} as a registered op (2-D X), the threshold as "
+                    ":func:`threshold_args` gives it.")
+    return torch.library.custom_op(f"proxmin_torch::prox_{op}",
+                                   mutates_args=())(impl)
+
+
+prox_soft_op = _threshold_op("soft")
+prox_hard_op = _threshold_op("hard")
+
+
+@torch.library.custom_op("proxmin_torch::prox_unity", mutates_args=())
+def prox_unity_op(X: torch.Tensor, axis: int) -> torch.Tensor:
+    """K4 unity as a registered op (2-D X, axis 0 or 1)."""
+    if not _on_card(X, "prox_unity_pallas"):
+        return prox_unity_reference(X, None, axis=axis)
+    return _launch_unity(X, axis)
+
+
+@prox_plus_op.register_fake
+def _(X):
+    return torch.empty_like(X)
+
+
+@prox_soft_op.register_fake
+def _(X, t, scaled, value, scale):
+    return torch.empty_like(X)
+
+
+@prox_hard_op.register_fake
+def _(X, t, scaled, value, scale):
+    return torch.empty_like(X)
+
+
+@prox_unity_op.register_fake
+def _(X, axis):
+    return torch.empty_like(X)
+
+
+def _thresholded_op(op, X, step, thresh, type):
+    targs = threshold_args(step, thresh, type, X.device)
+    return op(X, targs.tensor, targs.scaled, targs.value, targs.scale)
+
+
 def prox_plus_pallas(X, step):
     """Non-negativity projection ``max(X, 0)`` (== ``operators.prox_plus``;
     NaN propagates), a CUDA kernel on CUDA tensors."""
     X = _as_2d(X, "prox_plus_pallas")
+    if tracing(X):
+        return prox_plus_op(X)
     if not _on_card(X, "prox_plus_pallas"):
         return prox_plus_reference(X, step)
     return _launch_elementwise(prox_plus_pallas, "plus", X)
@@ -273,10 +370,12 @@ def prox_soft_pallas(X, step, thresh=0, type="relative"):
     ``t = get_thresh(step, thresh, type)`` (== ``operators.prox_soft``), a
     CUDA kernel on CUDA tensors."""
     X = _as_2d(X, "prox_soft_pallas")
+    if tracing(X):
+        return _thresholded_op(prox_soft_op, X, step, thresh, type)
     if not _on_card(X, "prox_soft_pallas"):
         return prox_soft_reference(X, step, thresh=thresh, type=type)
-    return _launch_elementwise(prox_soft_pallas, "soft", X, step, thresh,
-                               type)
+    return _launch_elementwise(prox_soft_pallas, "soft", X,
+                               threshold_args(step, thresh, type, X.device))
 
 
 def prox_hard_pallas(X, step, thresh=0, type="relative"):
@@ -284,10 +383,12 @@ def prox_hard_pallas(X, step, thresh=0, type="relative"):
     ``t = get_thresh(step, thresh, type)`` (== ``operators.prox_hard``), a
     CUDA kernel on CUDA tensors."""
     X = _as_2d(X, "prox_hard_pallas")
+    if tracing(X):
+        return _thresholded_op(prox_hard_op, X, step, thresh, type)
     if not _on_card(X, "prox_hard_pallas"):
         return prox_hard_reference(X, step, thresh=thresh, type=type)
-    return _launch_elementwise(prox_hard_pallas, "hard", X, step, thresh,
-                               type)
+    return _launch_elementwise(prox_hard_pallas, "hard", X,
+                               threshold_args(step, thresh, type, X.device))
 
 
 def prox_unity_pallas(X, step, axis=0):
@@ -297,8 +398,16 @@ def prox_unity_pallas(X, step, axis=0):
     X = _as_2d(X, "prox_unity_pallas")
     if axis not in (0, 1):
         raise ValueError(f"prox_unity_pallas takes axis 0 or 1, got {axis}")
+    if tracing(X):
+        return prox_unity_op(X, axis)
     if not _on_card(X, "prox_unity_pallas"):
         return prox_unity_reference(X, step, axis=axis)
+    return _launch_unity(X, axis)
+
+
+def _launch_unity(X, axis):
+    """Launch the unity kernel along ``axis`` on the CUDA tensor ``X`` and
+    count it; an empty ``X`` launches nothing."""
     if X.numel() == 0:
         return X.clone()
     cdt = _compute_dtype(X)

@@ -47,13 +47,21 @@ _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 # ``b1`` is the schedule as a NumPy array and ``b2`` a NumPy scalar, both in
 # the block's dtype; ``it`` (local, indexes the schedule) and ``it0`` (the
 # global offset of a resumed solve, entering only the bias-correction clock
-# t = it + it0 + 1) are Python ints. Scalar factors are NumPy scalars of the
-# block dtype, applied to the tensors as Python floats.
+# t = it + it0 + 1) are Python ints. Each scheme is two parts: its scalar
+# factors, NumPy scalars of the block dtype computed on the host from the
+# clock, and their application to the tensors (as Python floats in the
+# driver; an exported loop reads the same values from a table indexed by
+# its counter, see :func:`scheme_table`).
 
-def _moments(it, G, M, V, b1, b2):
-    M_new = float(1 - b1[it]) * G + float(b1[it]) * M
-    V_new = float(1 - b2) * (G ** 2) + float(b2) * V
+def _moments(G, M, V, s):
+    M_new = s[0] * G + s[1] * M
+    V_new = s[2] * (G ** 2) + s[3] * V
     return M_new, V_new
+
+
+def _moment_scalars(it, b1, b2, it0=0):
+    """The moments' factors (amsgrad's and padam's whole set)."""
+    return (1 - b1[it], b1[it], 1 - b2, b2)
 
 
 def _floor(X, v):
@@ -65,65 +73,100 @@ def _floor(X, v):
                                        device=X.device))
 
 
-def _adam_phi_psi(it, G, M, V, Vhat, b1, b2, eps, p, it0=0):
-    M, V = _moments(it, G, M, V, b1, b2)
+def _adam_scalars(it, b1, b2, it0):
     t = it + it0 + 1
-    Phi = M / float(1 - b1[it] ** t)
-    Psi = torch.sqrt(V / float(1 - b2 ** t)) + eps
+    return _moment_scalars(it, b1, b2) + (1 - b1[it] ** t, 1 - b2 ** t)
+
+
+def _adam_apply(G, M, V, Vhat, s, eps, p):
+    M, V = _moments(G, M, V, s)
+    Phi = M / s[4]
+    Psi = torch.sqrt(V / s[5]) + eps
     return Phi, Psi, M, V, Vhat
 
 
-def _nadam_phi_psi(it, G, M, V, Vhat, b1, b2, eps, p, it0=0):
-    M, V = _moments(it, G, M, V, b1, b2)
-    t = it + it0 + 1
-    Phi = (float(b1[it]) * M + float(1 - b1[it]) * G) / float(1 - b1[it] ** t)
-    Psi = torch.sqrt(V / float(1 - b2 ** t)) + eps
+def _nadam_apply(G, M, V, Vhat, s, eps, p):
+    M, V = _moments(G, M, V, s)
+    Phi = (s[1] * M + s[0] * G) / s[4]
+    Psi = torch.sqrt(V / s[5]) + eps
     return Phi, Psi, M, V, Vhat
 
 
-def _amsgrad_phi_psi(it, G, M, V, Vhat, b1, b2, eps, p, it0=0):
-    M, V = _moments(it, G, M, V, b1, b2)
+def _amsgrad_apply(G, M, V, Vhat, s, eps, p):
+    M, V = _moments(G, M, V, s)
     Vhat = torch.maximum(Vhat, V)
     # eps clamps the returned Psi only, not the stored Vhat
     Psi = torch.sqrt(_floor(Vhat, eps)) if eps > 0 else torch.sqrt(Vhat)
     return M, Psi, M, V, Vhat
 
 
-def _padam_phi_psi(it, G, M, V, Vhat, b1, b2, eps, p, it0=0):
-    M, V = _moments(it, G, M, V, b1, b2)
+def _padam_apply(G, M, V, Vhat, s, eps, p):
+    M, V = _moments(G, M, V, s)
     Vhat = torch.maximum(Vhat, V)
     Psi = (_floor(Vhat, eps) if eps > 0 else Vhat) ** p
     return M, Psi, M, V, Vhat
 
 
-def _adamx_phi_psi(it, G, M, V, Vhat, b1, b2, eps, p, it0=0):
-    M, V = _moments(it, G, M, V, b1, b2)
+def _adamx_scalars(it, b1, b2, it0):
     # the factor is irrelevant at it == 0 (Vhat starts at 0); clamp the
     # index so the schedule is not read before its start
     prev = max(it - 1, 0)
     factor = (1 - b1[it]) ** 2 / (1 - b1[prev]) ** 2
-    Vhat = torch.maximum(float(factor) * Vhat, V)
+    return _moment_scalars(it, b1, b2) + (factor,)
+
+
+def _adamx_apply(G, M, V, Vhat, s, eps, p):
+    M, V = _moments(G, M, V, s)
+    Vhat = torch.maximum(s[4] * Vhat, V)
     Psi = torch.sqrt(_floor(Vhat, eps)) if eps > 0 else torch.sqrt(Vhat)
     return M, Psi, M, V, Vhat
 
 
-def _radam_phi_psi(it, G, M, V, Vhat, b1, b2, eps, p, it0=0):
+def _radam_scalars(it, b1, b2, it0):
     rho_inf = 2 / (1 - b2) - 1
-    M, V = _moments(it, G, M, V, b1, b2)
     t = it + it0 + 1
-    Phi = M / float(1 - b1[it] ** t)
     rho = rho_inf - 2 * t * b2 ** t / (1 - b2 ** t)
-    if rho > 4:
+    rectified = rho > 4
+    r = b2.dtype.type(1)
+    if rectified:
         r_arg = ((rho - 4) * (rho - 2) * rho_inf / (rho_inf - 4)
                  / (rho_inf - 2) / rho)
         r = np.sqrt(np.maximum(r_arg, np.finfo(b2.dtype).tiny))
-        Psi = torch.sqrt(V / float(1 - b2 ** t)) / float(r)
+    return _moment_scalars(it, b1, b2) + (1 - b1[it] ** t, 1 - b2 ** t, r,
+                                          float(rectified))
+
+
+def _radam_apply(G, M, V, Vhat, s, eps, p):
+    M, V = _moments(G, M, V, s)
+    Phi = M / s[4]
+    if isinstance(s[7], torch.Tensor):
+        # a table's row: both branches, the rectified one where it holds
+        Psi = torch.where(s[7] > 0, torch.sqrt(V / s[5]) / s[6],
+                          torch.ones_like(V))
+    elif s[7]:
+        Psi = torch.sqrt(V / s[5]) / s[6]
     else:
         Psi = torch.ones_like(V)
     if eps > 0:
         Psi = _floor(Psi, math.sqrt(eps))
     return Phi, Psi, M, V, Vhat
 
+
+def _scheme(scalars, apply):
+    def phi_psi(it, G, M, V, Vhat, b1, b2, eps, p, it0=0):
+        s = tuple(float(v) for v in scalars(it, b1, b2, it0))
+        return apply(G, M, V, Vhat, s, eps, p)
+
+    phi_psi.scalars, phi_psi.apply = scalars, apply
+    return phi_psi
+
+
+_adam_phi_psi = _scheme(_adam_scalars, _adam_apply)
+_nadam_phi_psi = _scheme(_adam_scalars, _nadam_apply)
+_amsgrad_phi_psi = _scheme(_moment_scalars, _amsgrad_apply)
+_padam_phi_psi = _scheme(_moment_scalars, _padam_apply)
+_adamx_phi_psi = _scheme(_adamx_scalars, _adamx_apply)
+_radam_phi_psi = _scheme(_radam_scalars, _radam_apply)
 
 SCHEMES = {
     "adam": _adam_phi_psi,
@@ -133,6 +176,30 @@ SCHEMES = {
     "adamx": _adamx_phi_psi,
     "radam": _radam_phi_psi,
 }
+
+
+def scheme_table(phi_psi, b1, b2, n_iter, dtype, device):
+    """The scalar factors of ``phi_psi`` for the local iterations ``0 ..
+    n_iter - 1`` of a fresh solve, as an ``(n_iter, m)`` tensor of
+    ``dtype`` on ``device``: row ``it`` holds the values the driver
+    applies as Python floats at that iteration, so a loop whose counter is
+    a tensor applies the same numbers."""
+    np_dt = _NP_DTYPE[dtype]
+    b1, b2 = b1.astype(np_dt), np_dt(b2)
+    rows = [[float(v) for v in phi_psi.scalars(it, b1, b2, 0)]
+            for it in range(n_iter)]
+    return torch.tensor(rows, dtype=dtype).to(device)
+
+
+def table_phi_psi(phi_psi, table):
+    """``phi_psi`` reading its scalar factors from row ``it`` of
+    :func:`scheme_table`'s ``table`` (``it`` a 0-d integer tensor)."""
+    def table_scheme(it, G, M, V, Vhat, b1, b2, eps, p, it0=0):
+        row = torch.index_select(table, 0, it.reshape(1).long())[0]
+        s = tuple(row[i] for i in range(table.shape[1]))
+        return phi_psi.apply(G, M, V, Vhat, s, eps, p)
+
+    return table_scheme
 
 
 def normalize_b1_schedule(b1, max_iter):
@@ -186,12 +253,39 @@ def _prox_subloop(prox_j, x_j, alpha_j, Psi, e_rel_j, prox_max_iter):
     return z, tau
 
 
+def _prox_subloop_traced(prox_j, x_j, alpha_j, Psi, e_rel_j, prox_max_iter):
+    """:func:`_prox_subloop` as a ``while_loop`` that ``torch.export``
+    captures (its condition reads the stop test once per sub-iteration, as
+    the host loop does). Returns ``(z, tau)`` with ``tau`` a 0-d int32
+    tensor."""
+    from torch._higher_order_ops.while_loop import while_loop
+
+    psi_max = torch.max(Psi)
+    gamma = alpha_j / psi_max
+    scale = Psi / psi_max
+
+    def cond(z, tau, done):
+        return torch.logical_and(tau < prox_max_iter,
+                                 torch.logical_not(done))
+
+    def body(z, tau, done):
+        z_new = prox_j(z - scale * (z - x_j), gamma)
+        done = l2sq(z_new - z) <= e_rel_j ** 2 * l2sq(z)
+        return z_new, tau + 1, done
+
+    tau0 = torch.zeros((), dtype=torch.int32, device=x_j.device)
+    done0 = torch.zeros((), dtype=torch.bool, device=x_j.device)
+    z, tau, _ = while_loop(cond, body, (x_j, tau0, done0))
+    return z, tau
+
+
 def _step(st, it, grad, stepper, prox, has_prox, separable, phi_psi, b1, b2,
           eps, p, e_rel, check_convergence, prox_max_iter, moment_dtype,
-          trace):
+          trace, subloop=_prox_subloop):
     """One AdaProx iteration on the carry (the JAX body, term for term):
     the loop body that the driver and ``functional.make_adaprox_solver``
-    share. It reads the host only in the prox sub-iterations."""
+    share. It reads the host only in the prox sub-iterations (``subloop``,
+    or :func:`_prox_subloop_traced` in an exported program)."""
     n = len(prox)
     x = st["x"]
     G = utils._as_tuple(grad(*x))
@@ -218,8 +312,8 @@ def _step(st, it, grad, stepper, prox, has_prox, separable, phi_psi, b1, b2,
             xj = prox[j](xj, gamma_el)
             st["sub_iters"][j] += 1
         elif has_prox[j]:
-            xj, tau = _prox_subloop(prox[j], xj, Alpha[j], Psi, e_rel[j],
-                                    prox_max_iter)
+            xj, tau = subloop(prox[j], xj, Alpha[j], Psi, e_rel[j],
+                              prox_max_iter)
             st["sub_iters"][j] += tau
         x_new.append(xj)
         M_new.append(Mj)

@@ -86,15 +86,44 @@ def _scalar(v, like):
     return torch.full((), float(v), dtype=like.dtype, device=like.device)
 
 
+def _halvings_traced(T, x_new, f_now, jmax, prox_step, Q, f, like):
+    """Backtracking's halvings as a ``while_loop`` that ``torch.export``
+    captures: while the trial point fails the test (at most
+    ``_MAX_BACKTRACK`` times), halve block ``jmax``'s factor and redo its
+    prox step, as the host loop of :func:`_step` does. Returns ``(T, x_new,
+    f_now)``."""
+    from torch._higher_order_ops.while_loop import while_loop
+
+    n = len(x_new)
+    idx = torch.arange(n, device=T.device)
+
+    def cond(k, T, f_now, *x):
+        return torch.logical_and(k < _MAX_BACKTRACK, f_now > Q(x, T))
+
+    def body(k, T, f_now, *x):
+        T = torch.where(idx == jmax, T / 2, T)
+        if n == 1:
+            x = (prox_step(0, T[0]),)
+        else:
+            x = tuple(torch.where(jmax == j, prox_step(j, T[j]), x[j])
+                      for j in range(n))
+        return (k + 1, T, _scalar(f(*x), like), *x)
+
+    k0 = torch.zeros((), dtype=torch.int32, device=T.device)
+    _, T, f_now, *x_new = while_loop(cond, body, (k0, T, f_now, *x_new))
+    return T, tuple(x_new), f_now
+
+
 def _step(st, it, grad, stepper, prox, e_rel, accelerated, restart,
-          backtracking, f, trace):
+          backtracking, f, trace, traced=False):
     """One PGM iteration on the carry (the JAX body, term for term): the
     loop body that the driver and ``functional.make_pgm_solver`` share.
     The new stop flags stand in ``st["converged"]`` and
     ``st["diverged"]``. Without backtracking it reads nothing and returns
     None; with it, the first test rides one read with the trial point's
     flags, and the host values ``[*converged, diverged]`` come back when
-    they were read."""
+    they were read. ``traced`` (an exported program, ``it`` a tensor):
+    the halvings run as :func:`_halvings_traced` and nothing is read."""
     n = len(prox)
     x_old = st["x"]
     if accelerated:
@@ -128,7 +157,11 @@ def _step(st, it, grad, stepper, prox, e_rel, accelerated, restart,
     x_new = tuple(prox_step(j, T[j]) for j in range(n))
     if backtracking:
         # Beck & Teboulle eq. 3.2 (g dropped from F and Q: it cancels)
-        if it + st["it0"] == 0:
+        if traced:
+            st["f_prev"] = torch.where(it + st["it0"] == 0,
+                                       _scalar(f(*x_old), st["t"]),
+                                       st["f_prev"])
+        elif it + st["it0"] == 0:
             st["f_prev"] = _scalar(f(*x_old), st["t"])
         f_prev = st["f_prev"]
         f_now = _scalar(f(*x_new), st["t"])
@@ -143,6 +176,13 @@ def _step(st, it, grad, stepper, prox, e_rel, accelerated, restart,
             return f_prev + acc
 
     jmax, k, host = None, 0, None
+    if backtracking and traced:
+        jmax = 0 if n == 1 else torch.argmax(torch.stack([
+            torch.max(torch.abs(S[j] * G[j])) / torch.max(torch.abs(x_old[j]))
+            for j in range(n)]))
+        T, x_new, f_now = _halvings_traced(T, x_new, f_now, jmax, prox_step,
+                                           Q, f, st["t"])
+        backtracking = False  # the loop below only takes the verdicts
     while True:
         norms, conv, diverged = verdicts(x_new)
         if not (backtracking and k < _MAX_BACKTRACK):
@@ -167,7 +207,7 @@ def _step(st, it, grad, stepper, prox, e_rel, accelerated, restart,
                       for j in range(n))
         f_now = _scalar(f(*x_new), st["t"])
         k += 1
-    if backtracking:
+    if backtracking or jmax is not None:
         st["T"], st["f_prev"] = T, f_now
 
     if accelerated and restart:

@@ -392,19 +392,20 @@ def grow_stride(stride, old_steps, new_steps, budget, max_stride,
     ``old_steps`` / ``new_steps`` are matching tuples of tensors (or
     numbers). The drift is read from the device once, here; the rest is
     float32 and int arithmetic on the host, as the JAX rule computes it.
+
+    With ``stride`` a 0-d integer tensor (and ``first`` a bool tensor, or a
+    Python bool) the rule runs on the device instead, with the same float32
+    arithmetic, and returns a 0-d tensor of ``stride``'s dtype: the form an
+    exported loop carries, which reads nothing back.
     """
+    if isinstance(stride, torch.Tensor):
+        return _grow_stride_tensor(stride, old_steps, new_steps, budget,
+                                   max_stride, first)
     stride = int(stride)
     if first:
         return stride
-    f32 = torch.float32
-    tiny = torch.finfo(f32).tiny
-    drifts = []
-    for o, n in zip(_as_tuple(old_steps), _as_tuple(new_steps)):
-        o = torch.as_tensor(o).to(f32)
-        n = torch.as_tensor(n).to(device=o.device, dtype=f32)
-        drifts.append(torch.max(torch.abs(n - o))
-                      / torch.clamp_min(torch.max(torch.abs(o)), tiny))
-    drift = np.float32(torch.stack(drifts).max().item())
+    tiny = torch.finfo(torch.float32).tiny
+    drift = np.float32(_step_drift(old_steps, new_steps).item())
     budget = np.float32(budget)
     if 0 < drift < budget:
         bump = np.floor(budget / max(drift, np.float32(tiny))
@@ -413,6 +414,41 @@ def grow_stride(stride, old_steps, new_steps, budget, max_stride,
     if drift > budget:
         return max(1, stride // 2)
     return stride
+
+
+def _step_drift(old_steps, new_steps):
+    """``max |new - old| / max(max |old|, tiny)`` over the step leaves, a
+    0-d float32 tensor."""
+    f32 = torch.float32
+    tiny = torch.finfo(f32).tiny
+    drifts = []
+    for o, n in zip(_as_tuple(old_steps), _as_tuple(new_steps)):
+        o = torch.as_tensor(o).to(f32)
+        n = torch.as_tensor(n).to(device=o.device, dtype=f32)
+        drifts.append(torch.max(torch.abs(n - o))
+                      / torch.clamp_min(torch.max(torch.abs(o)), tiny))
+    return torch.stack(drifts).max()
+
+
+def _grow_stride_tensor(stride, old_steps, new_steps, budget, max_stride,
+                        first):
+    """:func:`grow_stride` on the device: the host rule's float32 drift,
+    bump and comparisons as tensor ops on a 0-d integer ``stride``."""
+    f32 = torch.float32
+    drift = _step_drift(old_steps, new_steps)
+    # a tensor, not a Python number: ``number / tensor`` would multiply by
+    # a reciprocal, where the host rule divides
+    b = torch.full((), float(np.float32(budget)), dtype=f32,
+                   device=drift.device)
+    bump = torch.floor(b / torch.clamp_min(drift, torch.finfo(f32).tiny)
+                       * stride.to(f32))
+    bump = torch.clamp(bump, 1, max_stride).to(stride.dtype)
+    grow = torch.logical_and(drift > 0, drift < b)
+    new = torch.where(
+        grow, torch.clamp_max(stride + bump, max_stride),
+        torch.where(drift > b, torch.clamp_min(stride // 2, 1), stride))
+    return torch.where(torch.as_tensor(first, device=stride.device), stride,
+                       new)
 
 
 class StridedStepper:

@@ -3,7 +3,8 @@ lacks, as a list in the repository and not a search.
 
 For ``proxmin_tpu.utils``, ``proxmin_tpu.checkpoint``,
 ``proxmin_tpu.solvers.common``, ``proxmin_tpu.algorithms``,
-``proxmin_tpu.functional`` and the top-level package, every public name
+``proxmin_tpu.functional``, ``proxmin_tpu.export`` and the top-level
+package, every public name
 (the module's ``__all__``, and the
 functions and classes it defines without a leading underscore; for the
 package, every attribute without one) either exists in the port's module of
@@ -57,10 +58,12 @@ ABSENT = {
     # every factory is ported; under torch.func.vmap two options raise
     # (the JAX package masks them inside lax.while_loop), listed in VMAP_GAPS
     "functional": {},
+    # every exporter is a name of the port; what its programs cannot do yet
+    # stands in EXPORT_GAPS
+    "export": {},
     "": {
         "clear_caches": JIT_ONLY,
         "set_matmul_precision": POLICY,
-        "export": "ROADMAP Queue 1 item 14 (export.py)",
         # submodules that are attributes once something has imported them
         "calibrate": "ROADMAP Queue 1 item 7 (only if the H100 sweep shows "
                      "a gray zone)",
@@ -196,3 +199,63 @@ def test_functional_imports_no_jax():
               if isinstance(n, ast.ImportFrom) and n.level == 0]
     assert not [m for m in names
                 if m.split(".")[0] in ("jax", "jaxlib", "proxmin_tpu")]
+
+
+# what the port's exporters cannot capture that the JAX ones do: {exporter:
+# {option: reason}}; each raises (NotImplementedError for the sharded pair,
+# ValueError otherwise) and stands as owed in ROADMAP.md
+EXPORT_GAPS = {
+    "export_nmf_pgm_sharded": {
+        "*": "a sharded multi-card artifact: ROADMAP Queue 1 item 13 "
+             "(scale-out)"},
+    "export_nmf_adaprox_sharded": {
+        "*": "a sharded multi-card artifact: ROADMAP Queue 1 item 13 "
+             "(scale-out)"},
+    "export_bsdmm_solver": {
+        "steps_f_stride": "the sweep keeps the stride's clock on the host",
+        "steps_g_update=relative": "the sweep branches on the host clock",
+        "stateful steps_f_cb": "the stepper keeps its clock on the host"},
+}
+
+
+@pytest.mark.parametrize("name", sorted(proxmin_tpu.export.__all__))
+def test_exporters_take_the_jax_parameters(name):
+    """Each of the twelve names has the JAX function's parameters in order,
+    and every exporter ``device`` (where its program runs) last."""
+    import proxmin_tpu_torch.export as tex
+
+    assert name in tex.__all__
+    got = list(inspect.signature(getattr(tex, name)).parameters)
+    want = list(inspect.signature(getattr(proxmin_tpu.export,
+                                          name)).parameters)
+    if name.endswith("_sharded"):
+        assert got == ["args", "kwargs"]
+    elif name.startswith("export_"):
+        assert got == want + ["device"]
+    else:
+        assert got == want
+    for option, reason in EXPORT_GAPS.get(name, {}).items():
+        assert reason.strip()
+        assert option == "*" or option.split("=")[0].split()[-1] in (
+            got + ["steps_f_cb"])
+
+
+def test_export_gaps_raise():
+    import torch
+
+    import proxmin_tpu_torch.export as tex
+
+    for name in ("export_nmf_pgm_sharded", "export_nmf_adaprox_sharded"):
+        with pytest.raises(NotImplementedError, match="item 13"):
+            getattr(tex, name)(None, 4, 3, 128)
+
+    def prox_f(x, step, Xs=None, j=None):
+        return x
+
+    def steps(Xs, j=None):
+        return 0.5
+
+    for kw in ({"steps_f_stride": 3}, {"steps_g_update": "relative"}):
+        with pytest.raises(ValueError, match="not exported yet"):
+            tex.export_bsdmm_solver([(2,)], prox_f, steps, device="cpu",
+                                    dtype=torch.float64, **kw)

@@ -2,6 +2,11 @@
 against their plain versions, the cuda engines (exact, weighted and
 strided) and the ops entry point's paths on the card.
 
+The registered ops (K1-K4 as torch.library ops) against their wrappers bit
+for bit and their fakes, K2's device-scalar entry against its by-value
+entry, and exported NMF programs against their drivers bit for bit, with
+the host reads of their loops.
+
 Needs an NVIDIA GPU and nvcc; every test skips elsewhere. This file imports
 no JAX, so it also runs where JAX is not installed:
 
@@ -1449,3 +1454,238 @@ def test_lanes_controller_ends_at_the_slowest_lane(dev):
 
     torch.func.vmap(probe)(cs)
     assert seen == [(True, True, False)] and not under_vmap()
+
+
+# ---------------------------------------------------------------------------
+# The registered ops and the exported programs (torch.export) on the card
+
+
+def _op_cases(dev):
+    """``{case: (op call, wrapper call returning the op's layout, inputs,
+    op)}`` for every registered op."""
+    A, S, Y, W = _problem(dev, 5, 7, 3000, weighted=True)
+    bf = torch.bfloat16
+    sS = torch.full((), 1e-3, dtype=torch.float32, device=dev)
+    M = torch.rand_like(S) * 1e-2
+    V = torch.rand_like(S) * 1e-4
+    al = torch.sum(S, dim=1, keepdim=True) / S.shape[1] / 10
+    sc = (np.float32(0.9), np.float32(1 / (1 - 0.9 ** 3)),
+          np.float32(1 / (1 - 0.999 ** 3)))
+    sc_t = torch.tensor([float(v) for v in sc], device=dev)
+    ops = torch.ops.proxmin_torch
+    X = torch.randn(7, 3000, device=dev)
+
+    def stats(out, k):
+        return (*out[:k], torch.stack(out[k:]))
+
+    return {
+        "K1": (ops.fused_nmf_pgm_step, (A, S, Y, sS, None, 1, 4096),
+               lambda: stats(k1.fused_nmf_pgm_step(A, S, Y, sS), 3)),
+        "K1 W bf16 store": (
+            ops.fused_nmf_pgm_step,
+            (A, S.to(bf), Y.to(bf), sS, W.to(bf), 0, 4096),
+            lambda: stats(k1.fused_nmf_pgm_step(
+                A, S.to(bf), Y.to(bf), sS, W=W.to(bf), prox_S=top.prox_id),
+                3)),
+        "K2": (ops.fused_nmf_adaprox_step,
+               (A, S, M, V, Y, al, sc_t, None, 1, 0.999, 1e-8, 4096),
+               lambda: stats(k1.fused_nmf_adaprox_step(A, S, M, V, Y, al,
+                                                       sc), 5)),
+        "K2 W bf16 moments": (
+            ops.fused_nmf_adaprox_step,
+            (A, S, M.to(bf), V.to(bf), Y, al, sc_t, W, 1, 0.999, 1e-8, 128),
+            lambda: stats(k1.fused_nmf_adaprox_step(
+                A, S, M.to(bf), V.to(bf), Y, al, sc, W=W, tile_n=128), 5)),
+        "K3": (ops.fused_nmf_grad, (A, S, Y, W, 4096),
+               lambda: k1.fused_nmf_grad(A, S, Y, W=W)),
+        "K4 plus": (ops.prox_plus, (X,),
+                    lambda: (tops.prox_plus_pallas(X, 1.0),)),
+        "K4 soft": (ops.prox_soft, (X, sS, True, 0.0, 0.4),
+                    lambda: (tops.prox_soft_pallas(X, sS, thresh=0.4),)),
+        "K4 hard": (ops.prox_hard, (X, None, False, 1.0, 1.0),
+                    lambda: (tops.prox_hard_pallas(X, 0.3, thresh=1.0,
+                                                   type="absolute"),)),
+        "K4 unity": (ops.prox_unity, (X.abs() + 0.1, 1),
+                     lambda: (tops.prox_unity_pallas(X.abs() + 0.1, 1.0,
+                                                     axis=1),)),
+    }
+
+
+@pytest.mark.parametrize("case", ["K1", "K1 W bf16 store", "K2",
+                                  "K2 W bf16 moments", "K3", "K4 plus",
+                                  "K4 soft", "K4 hard", "K4 unity"])
+def test_registered_op_equals_its_wrapper_and_its_fake(dev, case):
+    """Each op launches its wrapper's kernel (bit for bit, counted), and
+    its fake gives the real outputs' shapes, dtypes and devices."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    op, args, wrapper = _op_cases(dev)[case]
+    before = sum(f.launches for f in (k1.fused_nmf_pgm_step,
+                                      k1.fused_nmf_adaprox_step,
+                                      k1.fused_nmf_grad,
+                                      tops.prox_plus_pallas,
+                                      tops.prox_soft_pallas,
+                                      tops.prox_hard_pallas,
+                                      tops.prox_unity_pallas))
+    got = op(*args)
+    got = got if isinstance(got, tuple) else (got,)
+    after = sum(f.launches for f in (k1.fused_nmf_pgm_step,
+                                     k1.fused_nmf_adaprox_step,
+                                     k1.fused_nmf_grad,
+                                     tops.prox_plus_pallas,
+                                     tops.prox_soft_pallas,
+                                     tops.prox_hard_pallas,
+                                     tops.prox_unity_pallas))
+    assert after == before + 1
+    want = wrapper()
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+    with FakeTensorMode() as mode:
+        fake_args = [mode.from_tensor(a) if isinstance(a, torch.Tensor)
+                     else a for a in args]
+        fake = op(*fake_args)
+    fake = fake if isinstance(fake, tuple) else (fake,)
+    for f, g in zip(fake, got):
+        assert (f.shape, f.dtype, f.device) == (g.shape, g.dtype, g.device)
+
+
+@pytest.mark.parametrize("store", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [1, 7, 500])
+def test_adaprox_device_scalar_entry_equals_the_by_value_entry(dev, store,
+                                                               mdt, t):
+    """K2 reading (b1_t, bc1, bc2) from a device buffer equals K2 taking
+    them by value, bit for bit; the buffer computed on the card from a
+    counter (as an exported loop does) holds the host's numbers."""
+    A, S, Y, W = _problem(dev, 5, 7, 20000, weighted=True)
+    S, Y, W = (a.to(store) for a in (S, Y, W))
+    M = (torch.rand(S.shape, device=dev) * 1e-2).to(mdt)
+    V = (torch.rand(S.shape, device=dev) * 1e-4).to(mdt)
+    al = torch.sum(S.float(), dim=1, keepdim=True) / S.shape[1] / 10
+    host = tnmf._bias_corrections(0.9, 0.999, t)
+    dev_sc = tnmf._bias_corrections_tensor(
+        tnmf._bias_decays(0.9, 0.999, dev),
+        torch.tensor(t, dtype=torch.int32, device=dev))
+    assert dev_sc.tolist() == [float(v) for v in host]
+    by_value = k1.fused_nmf_adaprox_step(A, S, M, V, Y, al, host, W=W)
+    on_card = k1.fused_nmf_adaprox_step(A, S, M, V, Y, al, dev_sc, W=W)
+    for a, b in zip(by_value, on_card):
+        assert torch.equal(a, b)
+    assert _syncs(lambda: k1.fused_nmf_adaprox_step(A, S, M, V, Y, al,
+                                                    dev_sc, W=W)) == 0
+
+
+@pytest.mark.parametrize("kind,kw", [
+    ("pgm", {}),
+    ("pgm", {"weighted": True, "step_stride": 5, "step_adapt": True}),
+    ("pgm", {"store_dtype": torch.bfloat16}),
+    ("adaprox", {}),
+    ("adaprox", {"weighted": True, "moment_dtype": torch.bfloat16}),
+], ids=str)
+def test_exported_nmf_program_equals_its_driver(dev, kind, kw):
+    """A small NMF program exported on the card runs K1/K2 as registered
+    ops, launched once per iteration, and ends where its driver does, bit
+    for bit."""
+    from proxmin_tpu_torch import export as tex
+
+    C, K, N = 5, 7, 20000
+    A, S, Y, W = _problem(dev, C, K, N, weighted=True, seed=7)
+    weighted = kw.get("weighted", False)
+    data = (A, S, Y) + ((W,) if weighted else ())
+    if kind == "pgm":
+        prog = tex.load_solver(tex.export_nmf_solver(C, K, N, e_rel=0, **kw))
+        counter = k1.fused_nmf_pgm_step
+        res = tnmf.nmf_pgm_fused(Y, A, S, W=W if weighted else None, e_rel=0,
+                                 max_iter=30, **{k: v for k, v in kw.items()
+                                                 if k != "weighted"})
+    else:
+        prog = tex.load_solver(tex.export_nmf_adaprox_solver(C, K, N,
+                                                             e_rel=0, **kw))
+        counter = k1.fused_nmf_adaprox_step
+        res = tnmf.nmf_adaprox_fused(Y, A, S, W=W if weighted else None,
+                                     e_rel=0, max_iter=30,
+                                     moment_dtype=kw.get("moment_dtype"))
+    before = counter.launches
+    before_ds = k1.fused_nmf_adaprox_step.device_scalar_launches
+    out = prog(*data, 30)
+    torch.cuda.synchronize()
+    assert counter.launches - before == 30 and int(out[2]) == 30
+    # K2 runs in a program through its device-scalar entry only
+    assert (k1.fused_nmf_adaprox_step.device_scalar_launches - before_ds
+            == (30 if kind == "adaprox" else 0))
+    assert torch.equal(out[0], res.x[0]) and torch.equal(out[1], res.x[1])
+    assert float(out[5]) == res.loss
+
+
+def _dtoh_copies(fn):
+    """Device-to-host copies that ``fn`` makes, counted in a
+    ``torch.profiler`` trace of the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if "memcpy" in e.key.lower() and "dtoh" in e.key.lower())
+
+
+@pytest.mark.parametrize("kw", [{}, {"step_stride": 5},
+                                {"step_stride": 5, "step_adapt": True}],
+                         ids=str)
+def test_program_reads_the_host_once_per_iteration(dev, kw, monkeypatch):
+    """A program's loop reads the host once per iteration by the sync
+    debug mode, its stop test (a fixed stride's refresh clock lives on the
+    host; the captured eigensolves skip the error check that makes the
+    driver read after each): the exact driver reads three times per
+    iteration (the stop flags and two eigensolves), a weighted strided
+    driver once plus at least once per refresh. The device-to-host copies
+    in a profiler trace also show what that mode misses: the weighted
+    refresh's own copy, which the driver makes too, and the adaptive
+    program's copy of its grown stride to the host clock, so a weighted
+    program copies once per iteration and once (fixed stride) or twice
+    (adaptive) per refresh, and never more than its driver plus one per
+    refresh. Counted between 10 and 60 iterations, a window that holds
+    refreshes."""
+    from proxmin_tpu_torch import export as tex
+
+    C, K, N = 5, 7, 20000
+    lo, hi = 10, 60
+    A, S, Y, W = _problem(dev, C, K, N, weighted=True, seed=8)
+    weighted = bool(kw)
+    prog = tex.load_solver(tex.export_nmf_solver(C, K, N, e_rel=0,
+                                                 weighted=weighted, **kw))
+    data = (A, S, Y, W) if weighted else (A, S, Y)
+    refreshes = []
+    steps = tnmf._weighted_steps
+
+    def counted(*args, **kwargs):
+        refreshes.append(1)
+        return steps(*args, **kwargs)
+
+    def driver(n):
+        return tnmf.nmf_pgm_fused(Y, A, S, W=W if weighted else None,
+                                  e_rel=0, max_iter=n, **kw)
+
+    prog(*data, lo)
+    driver(lo)
+    p_lo, p_hi = (_syncs(lambda n=n: prog(*data, n)) for n in (lo, hi))
+    c_lo, c_hi = (_dtoh_copies(lambda n=n: prog(*data, n))
+                  for n in (lo, hi))
+    d_lo, d_hi = (_syncs(lambda n=n: driver(n)) for n in (lo, hi))
+    e_lo, e_hi = (_dtoh_copies(lambda n=n: driver(n)) for n in (lo, hi))
+    monkeypatch.setattr(tnmf, "_weighted_steps", counted)
+    driver(lo)
+    r_lo = len(refreshes)
+    driver(hi)
+    r_window = len(refreshes) - 2 * r_lo
+    assert p_hi - p_lo == hi - lo
+    assert c_hi - c_lo <= e_hi - e_lo + r_window
+    if weighted:
+        assert r_window >= 1
+        per_refresh = 2 if kw.get("step_adapt") else 1
+        assert c_hi - c_lo == hi - lo + per_refresh * r_window
+    assert d_hi - d_lo == 3 * (hi - lo) if not weighted \
+        else d_hi - d_lo >= hi - lo + r_window
