@@ -239,9 +239,11 @@ STRIDE = 10
 # The C <= 16 instances of K1 and K3 (two blocks per SM) are checked at
 # C=16, K=8 on this many pixels.
 N_WIDE = 200_000
-# The kernels that stream through the shared-memory ring: ptxas must report
+# The fused kernels (the ring bodies and the wide body): ptxas must report
 # no spill stores for any of their instances.
-RING_KERNELS = ("pgm_step_kernel", "adaprox_step_kernel", "nmf_grad_kernel")
+RING_KERNELS = ("pgm_step_kernel", "adaprox_step_kernel", "nmf_grad_kernel",
+                "pgm_chain_kernel", "pgm_wide_kernel", "adaprox_wide_kernel",
+                "nmf_grad_wide_kernel")
 
 
 # The TV denoising problem of benchmarks/admm_scale.py: its seed, penalty
@@ -307,6 +309,33 @@ IFT_MU, IFT_E_REL, IFT_EPS, IFT_RTOL = 1e-2, 1e-13, 1e-3, 1e-4
 IFT_MARGIN = 1e-3
 IFT_TV_E_REL, IFT_TV_EPS, IFT_TV_RTOL = 1e-10, 1e-4, 1e-4
 IFT_MAX_ITER = 100_000
+
+# The full-width path (phase 15): the widest configuration of the JAX
+# package's engine sweep, C=128 channels and K=32 components
+# (benchmarks/engine_scaling.py:170), at the flagship's pixel count, with
+# abundances on the simplex, solved as fully constrained unmixing (prox_A
+# non-negativity, prox_S the simplex over K); beside it the sweep's
+# (64, 16, 250_000) (engine_scaling.py:169). Solves run WIDE_ITERS
+# iterations and resume after WIDE_SPLIT; marginals between WIDE_LO and
+# WIDE_HI iterations.
+WIDE = (128, 32, 1_000_000)
+WIDE_SWEEP = (64, 16, 250_000)
+WIDE_ITERS, WIDE_SPLIT = 30, 10
+WIDE_LO, WIDE_HI = 5, 25
+# The noise on Y and AdaProx's relative L1 threshold on S.
+WIDE_NOISE, WIDE_L1 = 0.01, 1e-3
+# The compiled simplex chain against the same prox as a closure on the
+# split path: both compute x / sum_k max(x, 0) per column, the kernel
+# summing over k in order and torch.sum in its own order, so S' differs in
+# the last float32 bits of each column's sum (relative, max abs over max).
+CHAIN_SPLIT_RTOL = 1e-5
+# General chains at the flagship's C and K: the simplex on S (PGM, K1's
+# narrow instance) and the relative L1 threshold (AdaProx, K2's wide body).
+CHAIN_ITERS = 20
+
+
+# the script's start, for the phases' elapsed seconds
+T0 = time.perf_counter()
 
 
 def log(*args):
@@ -409,7 +438,9 @@ def cuda_ms(fn, reps=20):
 KERNEL_NAMES = ("pgm_step_kernel", "pgm_step_finalize", "adaprox_step_kernel",
                 "adaprox_step_finalize", "nmf_grad_kernel",
                 "nmf_grad_finalize", "prox_elementwise_kernel",
-                "unity_cols_kernel", "unity_rows_kernel")
+                "unity_cols_kernel", "unity_rows_kernel", "pgm_chain_kernel",
+                "pgm_wide_kernel",
+                "adaprox_wide_kernel", "nmf_grad_wide_kernel")
 MANGLED_TYPES = (("f", "float"), ("d", "double"),
                  ("13__nv_bfloat16", "bfloat16"))
 PROX_OPS = ("plus", "soft", "hard")
@@ -2391,11 +2422,13 @@ def export_phase(mods, problem, card, every_kernel, kernel_fns, prof_dir):
     ops = torch.ops.proxmin_torch
     pairs = (
         ("K1 fused_nmf_pgm_step",
-         lambda: ops.fused_nmf_pgm_step(A0, S0, Y, sS, None, 1, 4096),
+         lambda: ops.fused_nmf_pgm_step(A0, S0, Y, sS, None, [2], [0.0], 1,
+                                        4096),
          lambda: kk.fused_nmf_pgm_step(A0, S0, Y, sS)),
         ("K2 fused_nmf_adaprox_step",
          lambda: ops.fused_nmf_adaprox_step(A0, S0, MS, MS, Y, al, sc_dev,
-                                            None, 1, 0.999, 1e-8, 4096),
+                                            None, [2], [0.0], 1, 0.999, 1e-8,
+                                            4096),
          lambda: kk.fused_nmf_adaprox_step(A0, S0, MS, MS, Y, al, sc_host)),
         ("K3 fused_nmf_grad",
          lambda: ops.fused_nmf_grad(A0, S0, Y, None, 4096),
@@ -2410,6 +2443,497 @@ def export_phase(mods, problem, card, every_kernel, kernel_fns, prof_dir):
         log(f"export: {label}: registered op {h_op:.1f} us of host time per "
             f"call, wrapper {h_w:.1f} us; on {card}")
     return launches
+
+
+def wide_ops(C_, K_, N_, gram=True):
+    """The wide body's float32 operations per pass: the residual, gS and
+    gA (3 C K FMAs a column) and the full K x K Gram, two each."""
+    return 2 * N_ * (3 * C_ * K_ + (K_ * K_ if gram else 0))
+
+
+def make_unmixing(C_, K_, N_, seed=SEED):
+    """Y = A_true S_true + noise with each column of S_true on the simplex,
+    random A0 and S0, and W in [0.5, 1.5); made with NumPy from ``seed``
+    and moved to the card."""
+    rng = np.random.default_rng(seed)
+    A_true = rng.random((C_, K_), dtype=np.float32)
+    S_true = rng.random((K_, N_), dtype=np.float32)
+    S_true /= S_true.sum(0, keepdims=True)
+    Y = A_true @ S_true
+    Y += WIDE_NOISE * rng.standard_normal((C_, N_), dtype=np.float32)
+    A0 = rng.random((C_, K_), dtype=np.float32)
+    S0 = rng.random((K_, N_), dtype=np.float32)
+    W = 0.5 + rng.random((C_, N_), dtype=np.float32)
+    return tuple(torch.from_numpy(a).to(DEVICE) for a in (Y, A0, S0, W))
+
+
+def device_us(fn, trace):
+    """Device microseconds of one call of ``fn``: the durations of the CUDA
+    kernel events in a ``torch.profiler`` trace of the call, summed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(trace))
+    return sum(e.get("dur", 0) for e in json.loads(trace.read_text())[
+        "traceEvents"] if e.get("cat") == "kernel")
+
+
+def route_counts(fns):
+    return {f.__name__: dict(f.route_launches) for f in fns}
+
+
+def reset_routes(fns):
+    for f in fns:
+        for r in f.route_launches:
+            f.route_launches[r] = 0
+
+
+def compare_outputs(label, got, ref, ds_at):
+    """Every output of a fused step against its plain version's, max abs
+    error over max abs; returns S''s max abs error."""
+    errs = [rel_err(g.float(), r.float()) for g, r in zip(got, ref)]
+    for i, e in enumerate(errs):
+        tol = DS_RTOL if i == ds_at else STEP_RTOL
+        check(e <= tol, f"{label}: output {i} rel err {e:.3e} > {tol:g}")
+    check(bool(torch.isfinite(got[1]).all()), f"{label}: non-finite S'")
+    max_abs = float((got[1].float() - ref[1].float()).abs().max())
+    log(f"{label}: max rel err per output " + ", ".join(
+        f"{e:.2e}" for e in errs) + f" (tol {STEP_RTOL:g}, |S' - S|^2 "
+        f"{DS_RTOL:g}); S' max abs err {max_abs:.3e}")
+    return max_abs
+
+
+def wide_phase(mods, card, prof_dir):
+    """Phase 15, the full-width path: K1's compiled chain and split path,
+    K2's and K3's wide instances against their plain versions at C=128,
+    K=32, N=1e6 and at (64, 16, 250_000), each timed beside its plain
+    version and its bound; then nmf(engine="cuda") exact PGM, weighted PGM
+    at stride 10 and AdaProx on that problem against engine="torch", the
+    loss falling and the resume bit for bit, with marginal ms/iter and
+    device us/iter; the compiled simplex against the split path with the
+    same prox as a closure; general chains on the flagship (K1's narrow
+    instance, K2's wide body). Returns the times, the errors and the route
+    launches of the main path's run, for the kernels line."""
+    algorithms, tnmf, top, tops, kk = mods
+    k1, k2, k3 = (kk.fused_nmf_pgm_step, kk.fused_nmf_adaprox_step,
+                  kk.fused_nmf_grad)
+    counted = (k1, k2, k3)
+    C_, K_, N_ = WIDE
+    simplex = partial(top.prox_unity_plus, axis=0)
+    l1 = partial(top.prox_soft_plus, thresh=WIDE_L1, type="relative")
+
+    def simplex_closure(x, s):
+        return top.prox_unity_plus(x, s, axis=0)
+
+    def l1_closure(x, s):
+        return top.prox_soft_plus(x, s, thresh=WIDE_L1, type="relative")
+
+    t0 = time.perf_counter()
+    Y, A0, S0, W = make_unmixing(C_, K_, N_)
+    torch.cuda.synchronize()
+    log(f"wide: C={C_} K={K_} N={N_} unmixing problem made (seed {SEED}, "
+        f"NumPy) and moved to the card in {time.perf_counter() - t0:.1f} s; "
+        f"Y {tensor_bytes(Y) / 1e9:.2f} GB, W {tensor_bytes(W) / 1e9:.2f} "
+        f"GB, S {tensor_bytes(S0) / 1e9:.2f} GB")
+    results = {}
+
+    # the kernels against their plain versions, and their times
+    sS = 1.0 / torch.linalg.eigvalsh(A0.T @ A0)[-1]
+    bf = torch.bfloat16
+    for label, (C1, K1_, N1) in (("full width", WIDE),
+                                 ("sweep", WIDE_SWEEP)):
+        if label == "sweep":
+            Y_, A_, S_, W_ = make_unmixing(C1, K1_, N1)
+            s_ = 1.0 / torch.linalg.eigvalsh(A_.T @ A_)[-1]
+        else:
+            Y_, A_, S_, W_, s_ = Y, A0, S0, W, sS
+        for w_label, Wx in (("", None), (", W", W_)):
+            for p_label, prox in (("chain", simplex),
+                                  ("split", simplex_closure)):
+                got = k1(A_, S_, Y_, s_, W=Wx, prox_S=prox)
+                again = k1(A_, S_, Y_, s_, W=Wx, prox_S=prox)
+                ref = kk.fused_nmf_pgm_step_reference(A_, S_, Y_, s_, W=Wx,
+                                                      prox_S=prox)
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"K1 {p_label} [{label}{w_label}]: two launches "
+                      "differ")
+                results["K1", p_label, label, w_label] = compare_outputs(
+                    f"K1 {p_label} vs plain [{label}{w_label}, C={C1} "
+                    f"K={K1_} N={N1}]", got, ref, 4)
+                if p_label == "chain":
+                    chain_out = got
+            e = rel_err(got[1], chain_out[1])
+            check(e <= CHAIN_SPLIT_RTOL, f"K1 [{label}{w_label}]: compiled "
+                  f"simplex and split path differ by {e:.3e}")
+            log(f"K1 [{label}{w_label}]: compiled simplex vs the split path "
+                f"with the same prox as a closure: S' rel err {e:.2e} (tol "
+                f"{CHAIN_SPLIT_RTOL:g})")
+        # the bfloat16 store on the wide body
+        got = k1(A_, S_.to(bf), Y_.to(bf), s_, W=W_.to(bf), prox_S=simplex)
+        ref = kk.fused_nmf_pgm_step_reference(A_, S_.to(bf), Y_.to(bf), s_,
+                                              W=W_.to(bf), prox_S=simplex)
+        torch.cuda.synchronize()
+        ok, ulps, diff = bf16_within(got[1], ref[1])
+        check(ok and rel_err(got[0], ref[0]) <= STEP_RTOL,
+              f"K1 bf16 store [{label}]: S' {ulps:g} ulps, gA rel err "
+              f"{rel_err(got[0], ref[0]):.3e}")
+        log(f"K1 bf16 store, W vs plain [{label}]: S' {ulps:.3g} bfloat16 "
+            f"ulps max ({diff:.3e} abs); gA rel err "
+            f"{rel_err(got[0], ref[0]):.2e}")
+        # K2: the compiled relative L1 threshold and its split twin, float32
+        # and bfloat16 moments
+        rng = np.random.default_rng(SEED + 3)
+        M_ = torch.from_numpy(0.1 * rng.standard_normal(
+            (K1_, N1), dtype=np.float32)).to(DEVICE)
+        V_ = torch.from_numpy(0.01 * rng.random(
+            (K1_, N1), dtype=np.float32)).to(DEVICE)
+        al_ = S_.sum(1, keepdim=True) / N1 / 10
+        sc_ = tnmf._bias_corrections(0.9, 0.999, 3)
+        for m_label, mdt in (("f32 moments", torch.float32),
+                             ("bf16 moments", torch.bfloat16)):
+            for p_label, prox in (("chain", l1), ("split", l1_closure)):
+                plan = kk.describe_prox(prox, "adaprox", True)
+                args = (A_, S_, M_.to(mdt), V_.to(mdt), Y_, al_, sc_)
+                got = k2(*args, W=W_, prox_S=plan)
+                again = k2(*args, W=W_, prox_S=plan)
+                ref = kk.fused_nmf_adaprox_step_reference(*args, W=W_,
+                                                          prox_S=plan)
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"K2 {p_label} [{label}, {m_label}]: two launches "
+                      "differ")
+                if mdt == torch.bfloat16:
+                    for i in (2, 3):
+                        ok, ulps, _ = bf16_within(got[i], ref[i])
+                        check(ok, f"K2 {p_label} [{label}, {m_label}]: "
+                              f"moment {i} {ulps:g} ulps")
+                    got = tuple(g for i, g in enumerate(got) if i not in
+                                (2, 3))
+                    ref = tuple(r for i, r in enumerate(ref) if i not in
+                                (2, 3))
+                results["K2", p_label, label, m_label] = compare_outputs(
+                    f"K2 {p_label} vs plain [{label}, W, {m_label}, C={C1} "
+                    f"K={K1_} N={N1}]", got, ref,
+                    6 if mdt == torch.float32 else 4)
+        for w_label, Wx in (("", None), (", W", W_)):
+            got = tops.fused_nmf_grad(A_, S_, Y_, W=Wx)
+            again = tops.fused_nmf_grad(A_, S_, Y_, W=Wx)
+            ref = tops.fused_nmf_grad_reference(A_, S_, Y_, W=Wx)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"K3 wide [{label}{w_label}]: two launches differ")
+            errs = [rel_err(g, r) for g, r in zip(got, ref)]
+            check(max(errs) <= STEP_RTOL, f"K3 wide [{label}{w_label}]: "
+                  f"rel errs {errs}")
+            results["K3", label, w_label] = float(
+                (got[1] - ref[1]).abs().max())
+            log(f"K3 wide vs plain [{label}{w_label}, C={C1} K={K1_} "
+                f"N={N1}]: max rel err (gA, gS, Gram, loss) " + ", ".join(
+                    f"{e:.2e}" for e in errs) + f" (tol {STEP_RTOL:g}); two "
+                "launches bitwise equal")
+        if label == "sweep":
+            del Y_, A_, S_, W_, M_, V_
+
+    # times at the full width, beside the plain version and the bound
+    M0 = torch.zeros_like(S0)
+    al0 = S0.sum(1, keepdim=True) / N_ / 10
+    sc0 = tnmf._bias_corrections(0.9, 0.999, 3)
+    times = {}
+
+    def timing(key, call, plain, moved, ops):
+        k_ms = min(cuda_ms(call, reps=10) for _ in range(2))
+        p_ms = min(cuda_ms(plain, reps=10) for _ in range(2))
+        times[key] = (k_ms, p_ms, bound_of(moved, ops))
+        b = times[key][2]
+        log(f"wide time [{key}] on {card}: kernel {k_ms:.4f} ms "
+            f"({ops / k_ms / 1e9:.1f} TFLOP/s, {moved / k_ms / 1e6:.0f} GB/s "
+            f"of {moved / 1e6:.0f} MB), plain version {p_ms:.4f} ms, bound "
+            f"{b[0]:.4f} ms by {b[1]} ({b[0] / k_ms:.1%} of it)")
+
+    out = k1(A0, S0, Y, sS, prox_S=simplex)
+    timing("K1 chain", lambda: k1(A0, S0, Y, sS, prox_S=simplex),
+           lambda: kk.fused_nmf_pgm_step_reference(A0, S0, Y, sS,
+                                                   prox_S=simplex),
+           tensor_bytes(A0, S0, Y) + tensor_bytes(*out),
+           wide_ops(C_, K_, N_))
+    out = k1(A0, S0, Y, sS, W=W, prox_S=simplex)
+    timing("K1 chain, W", lambda: k1(A0, S0, Y, sS, W=W, prox_S=simplex),
+           lambda: kk.fused_nmf_pgm_step_reference(A0, S0, Y, sS, W=W,
+                                                   prox_S=simplex),
+           tensor_bytes(A0, S0, Y, W) + tensor_bytes(*out),
+           wide_ops(C_, K_, N_))
+    X, gA_, st_ = kk._pgm_pass1_cuda(A0, S0, Y, sS, None, kk.DEFAULT_TILE_N)
+    P_ = simplex(X, sS)
+    timing("K1 split pass 1",
+           lambda: kk._pgm_pass1_cuda(A0, S0, Y, sS, None, kk.DEFAULT_TILE_N),
+           lambda: kk._pgm_pass1_reference(A0, S0, Y, sS),
+           tensor_bytes(A0, S0, Y, X, gA_, st_[:1]),
+           wide_ops(C_, K_, N_, gram=False))
+    timing("K1 split pass 2",
+           lambda: kk._pgm_pass2_cuda(S0, P_, kk.DEFAULT_TILE_N),
+           lambda: kk._pgm_pass2_reference(S0, P_, torch.float32),
+           tensor_bytes(S0, P_) + 4 * (K_ * K_ + 2), 2 * N_ * K_ * K_)
+    timing("K1 split step", lambda: k1(A0, S0, Y, sS,
+                                       prox_S=simplex_closure),
+           lambda: kk.fused_nmf_pgm_step_reference(A0, S0, Y, sS,
+                                                   prox_S=simplex_closure),
+           tensor_bytes(A0, S0, Y) + tensor_bytes(*out),
+           wide_ops(C_, K_, N_))
+    out = k2(A0, S0, M0, M0, Y, al0, sc0, prox_S=l1)
+    timing("K2 chain", lambda: k2(A0, S0, M0, M0, Y, al0, sc0, prox_S=l1),
+           lambda: kk.fused_nmf_adaprox_step_reference(
+               A0, S0, M0, M0, Y, al0, sc0, prox_S=l1),
+           tensor_bytes(A0, S0, M0, M0, Y, al0) + tensor_bytes(*out),
+           wide_ops(C_, K_, N_, gram=False) + 20 * K_ * N_)
+    l1_split = kk.describe_prox(l1_closure, "adaprox", True)
+    pre = kk._adaprox_pass1_cuda(A0, S0, M0, M0, Y, al0, sc0, None, 0.999,
+                                 1e-8, kk.DEFAULT_TILE_N)
+    P2 = l1_closure(pre[0], pre[1])
+    timing("K2 split pass 1",
+           lambda: kk._adaprox_pass1_cuda(A0, S0, M0, M0, Y, al0, sc0, None,
+                                          0.999, 1e-8, kk.DEFAULT_TILE_N),
+           lambda: kk._adaprox_pass1_reference(A0, S0, M0, M0, Y, al0, sc0),
+           tensor_bytes(A0, S0, M0, M0, Y, al0) + tensor_bytes(
+               *pre[:5]) + 4, wide_ops(C_, K_, N_, gram=False)
+           + 20 * K_ * N_)
+    timing("K2 split pass 2",
+           lambda: kk._adaprox_pass2_cuda(S0, P2, kk.DEFAULT_TILE_N),
+           lambda: kk._adaprox_pass2_reference(S0, P2, torch.float32),
+           tensor_bytes(S0, P2) + 4 * (K_ + 2), 4 * N_ * K_)
+    out = tops.fused_nmf_grad(A0, S0, Y)
+    timing("K3 wide", lambda: tops.fused_nmf_grad(A0, S0, Y),
+           lambda: tops.fused_nmf_grad_reference(A0, S0, Y),
+           tensor_bytes(A0, S0, Y) + tensor_bytes(*out),
+           wide_ops(C_, K_, N_))
+    del X, P_, P2, pre, out
+
+    # the full-width solves: engine="cuda" against engine="torch"
+    ada = dict(algorithm="adaprox")
+    paths = (
+        ("exact PGM", dict(prox_S=simplex), {}),
+        ("weighted PGM stride 10", dict(prox_S=simplex, W=W,
+                                        step_stride=STRIDE), {}),
+        ("AdaProx", dict(prox_S=l1, **ada), dict(separable_prox="auto")),
+    )
+    reset_counts(counted)
+    reset_routes(counted)
+    loss0 = {"w": wloss(A0, S0, Y, W), "u": wloss(A0, S0, Y)}
+    solves = {}
+    for label, kw, torch_kw in paths:
+        before = route_counts(counted)
+        r_c = tnmf.nmf(Y, A0, S0, prox_A=top.prox_plus, e_rel=0,
+                       max_iter=WIDE_ITERS, engine="cuda", **kw)
+        torch.cuda.synchronize()
+        after = route_counts(counted)
+        kname = "fused_nmf_adaprox_step" if "algorithm" in kw else \
+            "fused_nmf_pgm_step"
+        ran = {r: after[kname][r] - before[kname][r] for r in after[kname]}
+        check(ran["wide"] == WIDE_ITERS == r_c.iterations
+              and sum(ran.values()) == WIDE_ITERS,
+              f"wide {label}: routes {ran} in {r_c.iterations} iterations")
+        r_t = tnmf.nmf(Y, A0, S0, prox_A=top.prox_plus, e_rel=0,
+                       max_iter=WIDE_ITERS, engine="torch", **kw,
+                       **torch_kw)
+        torch.cuda.synchronize()
+        for a in (*r_c.x, *r_t.x):
+            check(bool(torch.isfinite(a).all()), f"wide {label}: "
+                  "non-finite iterate")
+        check(tuple(r_c.x[1].shape) == (K_, N_), f"wide {label}: S shape")
+        n_A, n_S = (norm_err(r_c.x[i], r_t.x[i]) for i in (0, 1))
+        check(n_A <= ENGINE_RTOL and n_S <= ENGINE_RTOL,
+              f"wide {label}: engines disagree after {WIDE_ITERS} "
+              f"iterations: normwise A {n_A:.2e}, S {n_S:.2e}")
+        W_ = kw.get("W")
+        l0 = loss0["u" if W_ is None else "w"]
+        l_c, l_t = wloss(*r_c.x, Y, W_), wloss(*r_t.x, Y, W_)
+        check(np.isfinite([l_c, l_t]).all() and l_c < l0 and l_t < l0,
+              f"wide {label}: loss did not decrease")
+        half = tnmf.nmf(Y, A0, S0, prox_A=top.prox_plus, e_rel=0,
+                        max_iter=WIDE_SPLIT, engine="cuda", **kw)
+        rest = tnmf.nmf(Y, *half.x, prox_A=top.prox_plus, e_rel=0,
+                        max_iter=WIDE_ITERS - WIDE_SPLIT, engine="cuda",
+                        state=half.state, **kw)
+        check(torch.equal(rest.x[0], r_c.x[0])
+              and torch.equal(rest.x[1], r_c.x[1]),
+              f"wide {label}: {WIDE_SPLIT} + {WIDE_ITERS - WIDE_SPLIT} "
+              f"resumed differs from {WIDE_ITERS} straight")
+        extra = ""
+        if "algorithm" not in kw:
+            colsum = float((r_c.x[1].sum(0) - 1).abs().max())
+            check(colsum <= UNITY_SUM_ATOL and bool((r_c.x[1] >= 0).all()),
+                  f"wide {label}: columns of S sum to 1 within {colsum:.2e}")
+            extra = f"; columns of S sum to 1 within {colsum:.2e}"
+        solves[label] = r_c
+        log(f"wide {label}: nmf engine=cuda vs engine=torch, {WIDE_ITERS} "
+            f"iterations at e_rel=0, C={C_} K={K_} N={N_}: normwise rel err "
+            f"A {n_A:.2e}, S {n_S:.2e} (tol {ENGINE_RTOL:g}); loss {l0:.6e} "
+            f"-> cuda {l_c:.6e}, torch {l_t:.6e}; {WIDE_SPLIT} + "
+            f"{WIDE_ITERS - WIDE_SPLIT} resumed equal {WIDE_ITERS} straight "
+            f"bit for bit; launches {ran}{extra}")
+    # the split path on the same solves, the prox as a closure
+    for label, kw in (("exact PGM", dict(prox_S=simplex_closure)),
+                      ("AdaProx", dict(prox_S=l1_closure,
+                                       separable_prox=True, **ada))):
+        kname = "fused_nmf_adaprox_step" if "algorithm" in kw else \
+            "fused_nmf_pgm_step"
+        before = route_counts(counted)
+        r_s = tnmf.nmf(Y, A0, S0, prox_A=top.prox_plus, e_rel=0,
+                       max_iter=WIDE_ITERS, engine="cuda", **kw)
+        torch.cuda.synchronize()
+        after = route_counts(counted)
+        ran = {r: after[kname][r] - before[kname][r] for r in after[kname]}
+        check(ran["split pass 1"] == ran["split pass 2"] == WIDE_ITERS
+              and sum(ran.values()) == 2 * WIDE_ITERS,
+              f"wide {label} split path: routes {ran}")
+        n_A, n_S = (norm_err(r_s.x[i], solves[label].x[i]) for i in (0, 1))
+        check(n_A <= ENGINE_RTOL and n_S <= ENGINE_RTOL,
+              f"wide {label}: split path and compiled chain disagree after "
+              f"{WIDE_ITERS} iterations: normwise A {n_A:.2e}, S {n_S:.2e}")
+        log(f"wide {label}, prox_S as a closure (split path) vs the "
+            f"compiled chain, {WIDE_ITERS} iterations: normwise rel err A "
+            f"{n_A:.2e}, S {n_S:.2e} (tol {ENGINE_RTOL:g}); launches {ran}")
+    # K3 on the main path: pgm with fused_nmf_grad as its gradient
+    before = dict(k3.route_launches)
+    rg = algorithms.pgm(
+        [A0, S0], lambda A_, S_: tops.fused_nmf_grad(A_, S_, Y)[:2],
+        tnmf.step_pgm, prox=[top.prox_plus, simplex], e_rel=0,
+        max_iter=WIDE_SPLIT)
+    torch.cuda.synchronize()
+    k3_wide = k3.route_launches["wide"] - before["wide"]
+    check(k3_wide == rg.iterations + 1 and all(
+        bool(torch.isfinite(x).all()) for x in rg.x),
+        f"wide K3 path: {k3_wide} launches in {rg.iterations} iterations")
+    l_g = wloss(*rg.x, Y)
+    check(l_g < loss0["u"], "wide K3 path: loss did not decrease")
+    log(f"wide ops path [K3 gradient]: pgm(grad=fused_nmf_grad) with the "
+        f"simplex on S, {rg.iterations} iterations: loss {loss0['u']:.6e} "
+        f"-> {l_g:.6e}; K3 wide launches {k3_wide} = iterations + the "
+        "final gradient")
+    # the sweep shape's exact PGM
+    Ys, As, Ss, _ = make_unmixing(*WIDE_SWEEP)
+    r_sw = tnmf.nmf(Ys, As, Ss, prox_A=top.prox_plus, prox_S=simplex,
+                    e_rel=0, max_iter=WIDE_ITERS, engine="cuda")
+    r_swt = tnmf.nmf(Ys, As, Ss, prox_A=top.prox_plus, prox_S=simplex,
+                     e_rel=0, max_iter=WIDE_ITERS, engine="torch")
+    n_S = norm_err(r_sw.x[1], r_swt.x[1])
+    check(n_S <= ENGINE_RTOL and wloss(*r_sw.x, Ys) < wloss(As, Ss, Ys),
+          f"sweep {WIDE_SWEEP} exact PGM: S normwise {n_S:.2e}")
+    log(f"sweep {WIDE_SWEEP} exact PGM with the simplex: engines agree "
+        f"normwise S {n_S:.2e}; loss {wloss(As, Ss, Ys):.6e} -> "
+        f"{wloss(*r_sw.x, Ys):.6e}")
+    del Ys, As, Ss, r_sw, r_swt
+    # general chains at the flagship's C and K
+    Yf, Af, Sf, _ = make_problem(C, K, N, False)
+    before = route_counts(counted)
+    rn = tnmf.nmf(Yf, Af, Sf, prox_S=simplex, e_rel=0,
+                  max_iter=CHAIN_ITERS, engine="cuda")
+    rna = tnmf.nmf(Yf, Af, Sf, prox_S=l1, e_rel=0, max_iter=CHAIN_ITERS,
+                   engine="cuda", **ada)
+    torch.cuda.synchronize()
+    after = route_counts(counted)
+    n1 = after["fused_nmf_pgm_step"]["narrow"] - before[
+        "fused_nmf_pgm_step"]["narrow"]
+    # K2's narrow instances apply max(., 0) and the identity only: any other
+    # chain runs on the wide body, at the flagship too
+    n2 = after["fused_nmf_adaprox_step"]["wide"] - before[
+        "fused_nmf_adaprox_step"]["wide"]
+    # the main path ends here: what follows compares and times
+    routes = route_counts(counted)
+    rnt = tnmf.nmf(Yf, Af, Sf, prox_S=simplex, e_rel=0,
+                   max_iter=CHAIN_ITERS, engine="torch")
+    rnat = tnmf.nmf(Yf, Af, Sf, prox_S=l1, e_rel=0, max_iter=CHAIN_ITERS,
+                    engine="torch", separable_prox="auto", **ada)
+    e1, e2 = norm_err(rn.x[1], rnt.x[1]), norm_err(rna.x[1], rnat.x[1])
+    check(n1 == n2 == CHAIN_ITERS and max(e1, e2) <= ENGINE_RTOL,
+          f"flagship chains: launches {n1}, {n2}; S normwise {e1:.2e}, "
+          f"{e2:.2e}")
+    log(f"flagship C={C} K={K} N={N}, general chains, {CHAIN_ITERS} "
+        f"iterations: PGM simplex S normwise vs engine=torch {e1:.2e}, "
+        f"AdaProx relative L1 {e2:.2e} (tol {ENGINE_RTOL:g}); K1 narrow "
+        f"launches {n1}, K2 wide launches {n2}")
+    # each chain's launch at the flagship against its plain version: K1's
+    # pgm_chain_kernel and K2's wide body at KB = 8, every output, with and
+    # without W
+    rng = np.random.default_rng(SEED + 4)
+    Wf = torch.from_numpy(0.5 + rng.random((C, N), dtype=np.float32)).to(
+        DEVICE)
+    Mf = torch.from_numpy(0.1 * rng.standard_normal(
+        (K, N), dtype=np.float32)).to(DEVICE)
+    Vf = torch.from_numpy(0.01 * rng.random((K, N), dtype=np.float32)).to(
+        DEVICE)
+    alf = Sf.sum(1, keepdim=True) / N / 10
+    for w_label, Wx in (("", None), (", W", Wf)):
+        for kname, label, call, plain, ds_at, route in (
+                ("fused_nmf_pgm_step", "K1 narrow",
+                 lambda: k1(Af, Sf, Yf, 1e-3, W=Wx, prox_S=simplex),
+                 lambda: kk.fused_nmf_pgm_step_reference(
+                     Af, Sf, Yf, 1e-3, W=Wx, prox_S=simplex), 4, "narrow"),
+                ("fused_nmf_adaprox_step", "K2 flagship",
+                 lambda: k2(Af, Sf, Mf, Vf, Yf, alf, sc0, W=Wx, prox_S=l1),
+                 lambda: kk.fused_nmf_adaprox_step_reference(
+                     Af, Sf, Mf, Vf, Yf, alf, sc0, W=Wx, prox_S=l1), 6,
+                 "wide")):
+            before = route_counts(counted)[kname]
+            got, again = call(), call()
+            after = route_counts(counted)[kname]
+            ref = plain()
+            torch.cuda.synchronize()
+            check({r: after[r] - before[r] for r in after
+                   if after[r] != before[r]} == {route: 2},
+                  f"{label} chain [flagship{w_label}]: not the {route} "
+                  "route")
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"{label} chain [flagship{w_label}]: two launches differ")
+            results[label, w_label] = compare_outputs(
+                f"{label} chain ({route} route) vs plain [flagship{w_label}, "
+                f"C={C} K={K} N={N}]", got, ref, ds_at)
+    a1 = max(results["K1 narrow", w] for w in ("", ", W"))
+    a2 = max(results["K2 flagship", w] for w in ("", ", W"))
+    k1n_ms = min(cuda_ms(lambda: k1(Af, Sf, Yf, 1e-3, prox_S=simplex))
+                 for _ in range(2))
+    k1n_plain = min(cuda_ms(lambda: kk.fused_nmf_pgm_step_reference(
+        Af, Sf, Yf, 1e-3, prox_S=simplex)) for _ in range(2))
+    out = k1(Af, Sf, Yf, 1e-3, prox_S=simplex)
+    times["K1 narrow chain"] = (k1n_ms, k1n_plain, bound_of(
+        tensor_bytes(Af, Sf, Yf) + tensor_bytes(*out), pgm_ops(C, K, N)))
+    k2n_ms = min(cuda_ms(lambda: k2(Af, Sf, Mf, Vf, Yf, alf, sc0,
+                                    prox_S=l1)) for _ in range(2))
+    k2n_plain = min(cuda_ms(lambda: kk.fused_nmf_adaprox_step_reference(
+        Af, Sf, Mf, Vf, Yf, alf, sc0, prox_S=l1)) for _ in range(2))
+    out = k2(Af, Sf, Mf, Vf, Yf, alf, sc0, prox_S=l1)
+    times["K2 chain, flagship"] = (k2n_ms, k2n_plain, bound_of(
+        tensor_bytes(Af, Sf, Mf, Vf, Yf) + tensor_bytes(*out),
+        adaprox_ops(C, K, N)))
+    results["K1 narrow"], results["K2 flagship"] = a1, a2
+    results["K2 flagship launches"] = n2
+    log(f"flagship chains on {card}: K1 simplex {k1n_ms:.4f} ms (plain "
+        f"{k1n_plain:.4f}), K2 relative L1 {k2n_ms:.4f} ms (plain "
+        f"{k2n_plain:.4f}); S' max abs err {a1:.3e}, {a2:.3e}")
+    del Yf, Af, Sf, Mf, Vf, Wf, out
+
+    # marginal ms/iter (host clock) and device us/iter at the full width,
+    # and the exact PGM on the torch engine beside them
+    for label, kw, engine in (*((label, kw, "cuda") for label, kw, _ in paths),
+                              ("exact PGM, engine=torch",
+                               dict(prox_S=simplex), "torch")):
+        def fn(n, kw=kw, engine=engine):
+            return tnmf.nmf(Y, A0, S0, prox_A=top.prox_plus, e_rel=0,
+                            max_iter=n, engine=engine, **kw)
+
+        timed(fn, 2)
+        ms = marginal_ms(fn, WIDE_LO, WIDE_HI)
+        d_lo = device_us(lambda: fn(WIDE_LO), prof_dir / "wide_lo.json")
+        d_hi = device_us(lambda: fn(WIDE_HI), prof_dir / "wide_hi.json")
+        dev_us = (d_hi - d_lo) / (WIDE_HI - WIDE_LO)
+        log(f"wide {label}: {ms:.4f} ms/iter marginal ({WIDE_LO}->{WIDE_HI} "
+            f"iterations, host clock), device {dev_us:.1f} us/iter "
+            f"(kernel time in a torch.profiler trace, same span), busy "
+            f"share {dev_us / 1e3 / ms:.1%}; on {card}")
+    return times, results, routes
 
 
 def main():
@@ -2434,6 +2958,8 @@ def main():
     every_kernel = (k1_fn, k2_fn, k3_fn, *k4_fns.values(), k5_fn)
 
     # 1. probe
+    global T0
+    T0 = time.perf_counter()
     name = torch.cuda.get_device_name(0)
     card = nvidia_smi()
     nvcc = subprocess.run([kb._nvcc(), "--version"], capture_output=True,
@@ -2447,10 +2973,12 @@ def main():
     log(f"probe: nvcc {nvcc_line.strip()}")
 
     # 2. build every kernel source of the checkout, one nvcc each, at once
+    log(f"phase 2 starts at {time.perf_counter() - T0:.0f} s")
     t0 = time.perf_counter()
     built = kb.build_kernels()
-    check(set(built) == {"nmf_pgm_step", "nmf_adaprox_step", "nmf_grad",
-                         "prox_elementwise"}, f"built {sorted(built)}")
+    check(set(built) == {"nmf_pgm_step", "nmf_pgm_wide", "nmf_adaprox_step",
+                         "nmf_adaprox_wide", "nmf_grad", "prox_elementwise"},
+          f"built {sorted(built)}")
     root = kb._BUILD_DIR.parents[1]
     for kname, (path, seconds, build_log) in built.items():
         kb._library(kname)
@@ -2474,6 +3002,7 @@ def main():
         return 0
 
     # 3. K1 against its plain version
+    log(f"phase 3 starts at {time.perf_counter() - T0:.0f} s")
     (Y, A0, S0, sS), k1_abs = compare_step(kk, "flagship", C, K, N, False)
     compare_step(kk, "flagship+W", C, K, N, True)
     compare_step(kk, "ragged", 8, 4, N + 37, False)
@@ -2512,6 +3041,7 @@ def main():
             f"plain version {p_ms:.4f} ms; f32 store {k1_ms:.4f} ms")
 
     # 4. K2 against its plain version
+    log(f"phase 4 starts at {time.perf_counter() - T0:.0f} s")
     k2_args, k2_abs = compare_adaprox_step(kk, "flagship", C, K, N)
     k2b_args, _ = compare_adaprox_step(kk, "flagship bf16 moments", C, K, N,
                                        mdt=torch.bfloat16)
@@ -2657,6 +3187,7 @@ def main():
     )
 
     # 5. K3 against its plain version
+    log(f"phase 5 starts at {time.perf_counter() - T0:.0f} s")
     k3_args, k3_abs = compare_grad(tops, "flagship", C, K, N, False)
     k3w_args, _ = compare_grad(tops, "flagship+W", C, K, N, True)
     compare_grad(tops, "ragged", 8, 4, N + 37, False)
@@ -2678,6 +3209,7 @@ def main():
             f"naive), plain version {p_ms:.4f} ms")
 
     # 6. K4 against its plain versions, on S's shape and on odd shapes, with
+    log(f"phase 6 starts at {time.perf_counter() - T0:.0f} s")
     # the step on the card as the solvers pass it
     step = torch.tensor(0.37, device=DEVICE)
     rng = np.random.default_rng(SEED + 2)
@@ -2766,6 +3298,7 @@ def main():
         f"{card}: " + ", ".join(f"{c} {v:.2f}" for c, v in k4_host.items()))
 
     # 7. the PGM main path
+    log(f"phase 7 starts at {time.perf_counter() - T0:.0f} s")
     reset_counts(every_kernel)
     res_c = tnmf.nmf(Y, A0, S0, e_rel=0, max_iter=ITERS, engine="cuda")
     torch.cuda.synchronize()
@@ -2893,6 +3426,7 @@ def main():
         "iterations bit for bit")
 
     # 8. the AdaProx main path
+    log(f"phase 8 starts at {time.perf_counter() - T0:.0f} s")
     ada = dict(algorithm="adaprox", e_rel=0)
     reset_counts(every_kernel)
     ada_c = tnmf.nmf(Y, A0, S0, max_iter=ITERS, engine="cuda", **ada)
@@ -3025,6 +3559,7 @@ def main():
         f"on {card}")
 
     # 9. the ops paths: K4 inside AlternatingProjections as nmf's S
+    log(f"phase 9 starts at {time.perf_counter() - T0:.0f} s")
     # constraint, and K3 as pgm's gradient, each against its plain twin
     AP = top.AlternatingProjections
     prox_paths = (
@@ -3116,6 +3651,7 @@ def main():
         f"{rg.iterations} + the final gradient")
 
     # 10. marginal time per iteration
+    log(f"phase 10 starts at {time.perf_counter() - T0:.0f} s")
     def run(n, **kw):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3236,11 +3772,13 @@ def main():
             f"packed, base; on {card}")
 
     # 11. the ADMM family
+    log(f"phase 11 starts at {time.perf_counter() - T0:.0f} s")
     k4_launches["soft"] += admm_family_phase(
         (algorithms, linop, tnmf, top, tops), (Y, A0, S0, Ww), loss_t, card,
         every_kernel, k4_fns["soft"], prof_dir)
 
     # 12. the solvers' options and the checkpoint
+    log(f"phase 12 starts at {time.perf_counter() - T0:.0f} s")
     ck_launches = driver_options_phase(
         (algorithms, linop, tnmf, top, tops), (Y, A0, S0, Ww), card,
         every_kernel, (k1_fn, k2_fn, k4_fns["soft"]), prof_dir)
@@ -3250,6 +3788,7 @@ def main():
     k4_launches["soft"] += ck_launches["K4 soft"]
 
     # 13. the functional factories
+    log(f"phase 13 starts at {time.perf_counter() - T0:.0f} s")
     fn_launches = functional_phase(
         (algorithms, linop, tnmf, top, tops), (Y, A0, S0, Ww), card,
         every_kernel, (k3_fn, k4_fns["soft"]), prof_dir)
@@ -3257,6 +3796,7 @@ def main():
     k4_launches["soft"] += fn_launches["K4 soft"]
 
     # 14. whole solves exported with torch.export
+    log(f"phase 14 starts at {time.perf_counter() - T0:.0f} s")
     ex_launches = export_phase(
         (algorithms, linop, tnmf, top, tops), (Y, A0, S0, Ww), card,
         every_kernel, (k1_fn, k2_fn, k3_fn, k4_fns["soft"]), prof_dir)
@@ -3265,6 +3805,11 @@ def main():
     k2d_launches = ex_launches["K2 device scalars"]
     k3_launches += ex_launches["K3"]
     k4_launches["soft"] += ex_launches["K4 soft"]
+
+    # 15. the full-width path: C=128, K=32 and the prox modes
+    log(f"phase 15 starts at {time.perf_counter() - T0:.0f} s")
+    w_times, w_err, w_routes = wide_phase(
+        (algorithms, tnmf, top, tops, kk), card, prof_dir)
 
     k2_ms, k2_plain = k2_times["f32 moments"]
     k1b_ms, k1b_plain, k1b_bound = k1_times["bf16 store, W"]
@@ -3307,7 +3852,40 @@ def main():
         *(entry(f"packed_step[{layout}]", "nmf_adaprox_step.cu",
                 "benchmarks/stream_merge.py:105", k5_launches[layout],
                 k5_abs[layout], *k5_times[layout])
-          for layout in ("smv", "mv"))]}))
+          for layout in ("smv", "mv")),
+        *(entry(f"{kname}[{route}]", source, replaces,
+                w_routes[kname][r_key], w_err[err_key], *w_times[t_key])
+          for kname, route, source, replaces, r_key, err_key, t_key in (
+              ("fused_nmf_pgm_step", "wide", "nmf_pgm_wide.cu",
+               "proxmin_tpu/ops/nmf_kernels.py:311", "wide",
+               ("K1", "chain", "full width", ""), "K1 chain"),
+              ("fused_nmf_pgm_step", "split pass 1", "nmf_pgm_wide.cu",
+               "proxmin_tpu/ops/nmf_kernels.py:311", "split pass 1",
+               ("K1", "split", "full width", ""), "K1 split pass 1"),
+              ("fused_nmf_pgm_step", "split pass 2", "nmf_pgm_wide.cu",
+               "proxmin_tpu/ops/nmf_kernels.py:311", "split pass 2",
+               ("K1", "split", "full width", ""), "K1 split pass 2"),
+              ("fused_nmf_pgm_step", "chain", "nmf_pgm_step.cu",
+               "proxmin_tpu/ops/nmf_kernels.py:311", "narrow",
+               "K1 narrow", "K1 narrow chain"),
+              ("fused_nmf_adaprox_step", "wide", "nmf_adaprox_wide.cu",
+               "proxmin_tpu/ops/nmf_kernels.py:525", "wide",
+               ("K2", "chain", "full width", "f32 moments"), "K2 chain"),
+              ("fused_nmf_adaprox_step", "split pass 1",
+               "nmf_adaprox_wide.cu", "proxmin_tpu/ops/nmf_kernels.py:525",
+               "split pass 1", ("K2", "split", "full width", "f32 moments"),
+               "K2 split pass 1"),
+              ("fused_nmf_adaprox_step", "split pass 2",
+               "nmf_adaprox_wide.cu", "proxmin_tpu/ops/nmf_kernels.py:525",
+               "split pass 2", ("K2", "split", "full width", "f32 moments"),
+               "K2 split pass 2"),
+              ("fused_nmf_grad", "wide", "nmf_grad.cu",
+               "proxmin_tpu/ops/nmf_kernels.py:653", "wide",
+               ("K3", "full width", ""), "K3 wide"))),
+        entry("fused_nmf_adaprox_step[wide, flagship chain]",
+              "nmf_adaprox_wide.cu", "proxmin_tpu/ops/nmf_kernels.py:525",
+              w_err["K2 flagship launches"], w_err["K2 flagship"],
+              *w_times["K2 chain, flagship"])]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

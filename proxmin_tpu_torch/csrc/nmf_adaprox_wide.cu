@@ -1,0 +1,247 @@
+// K2 on the wide body (wide_pass.cuh): one S-side AdaProx (proximal Adam,
+// scheme "adam") iteration for C up to 256 channels and K up to 32
+// components, and the two passes of the split path.
+//
+// Replaces, beyond the narrow instances of nmf_adaprox_step.cu (C <= 16,
+// K <= 8), the Pallas TPU kernel proxmin_tpu/ops/nmf_kernels.py:525
+// (fused_nmf_adaprox_step; body _adaprox_step_kernel :409, its scaled prox
+// :477-482). Per pixel column n, with the per-row step alpha (K) and the
+// scalars b1_t, bc1 = 1/(1 - b1_t^t), bc2 = 1/(1 - b2^t), by value or read
+// from a three-float buffer on the card:
+//
+//   R    = A S[:,n] - Y[:,n]           exact f32 K-step FMA, summed over k in order
+//   D    = W[:,n] * R  (or R)
+//   gS   = A^T D
+//   M'   = (1 - b1_t) gS + b1_t M,  V' = (1 - b2) gS^2 + b2 V
+//   Phi  = M' bc1,  Psi = sqrt(V' bc2) + eps,  Psi_safe = max(Psi, FLT_MIN)
+//   S'   = chain(S - alpha Phi / Psi_safe)  with the per-element step
+//          alpha / Psi_safe (prox_chain.cuh; the closed form of a separable
+//          scaled prox)
+//   gA  += D S[:,n]^T,  rowsum += S',  stats += [D.R, |S' - S|^2, |S'|^2]
+//
+// The split path: pass 1 (mode 1) stores M', V', x = S - alpha Phi /
+// Psi_safe and the step alpha / Psi_safe, both in float32 (the step is not
+// recomputed from the stored V, which bfloat16 moments round), with gA and
+// the loss; PyTorch applies prox_S(x, step) to the whole (K, N) arrays;
+// pass 2 (mode 2) gives rowsum(S') and [|S' - S|^2, |S'|^2] from the prox's
+// output and stores S' rounded to bfloat16 with the bfloat16 store.
+//
+// The update is written with __fmul_rn/__fadd_rn/__fdiv_rn/__fsqrt_rn, as
+// the narrow kernel's, so that nothing contracts into an FMA.
+//
+// What bounds it on an H100: at C = 128, K = 32 the float32 FMAs of the
+// residual, gS and gA (3 C K per column) over the bytes ((C + 6K) N 4 with
+// float32 moments). The design is wide_pass.cuh's.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "wide_pass.cuh"
+
+namespace {
+
+using wide::Args;
+
+// Resident blocks per SM each instance is built for: two (at most 128
+// registers a thread) up to K = 16; one for K <= 32, whose K values of S
+// and of gS in registers and the chunk's sums would spill at 128. The
+// shared memory may allow fewer (one beyond C = 128 in float32).
+constexpr int wide_blocks(int KB) { return KB >= 32 ? 1 : 2; }
+
+template <int KB, typename ST, typename MT, int MODE>
+__global__ void __launch_bounds__(wide::kThreads, wide_blocks(KB))
+adaprox_wide_kernel(Args<ST, MT> a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  wide::body<KB, ST, MT, MODE>(a, reinterpret_cast<float*>(smem));
+}
+
+__global__ void __launch_bounds__(wide::kThreads)
+adaprox_wide_finalize(const float* __restrict__ partials, long long n_units,
+                      wide::Entries e, bool half_first,
+                      float* __restrict__ gA, float* __restrict__ rowsum,
+                      float* __restrict__ stats) {
+  wide::finalize(partials, n_units, e, half_first, gA, rowsum, stats);
+}
+
+template <int KB, typename ST, typename MT, int MODE>
+int launch_mode(const Args<ST, MT>& args, float* gA, float* rowsum,
+                float* stats, cudaStream_t stream) {
+  static wide::LaunchCache cache;
+  return wide::launch<KB, ST, MT, MODE>(adaprox_wide_kernel<KB, ST, MT, MODE>,
+                                        adaprox_wide_finalize, cache, args,
+                                        gA, rowsum, stats, stream);
+}
+
+template <int KB, typename ST, typename MT>
+int launch_kb(int mode, const Args<ST, MT>& args, float* gA, float* rowsum,
+              float* stats, cudaStream_t stream) {
+  if (mode == 0)
+    return launch_mode<KB, ST, MT, wide::kAda>(args, gA, rowsum, stats,
+                                               stream);
+  return launch_mode<KB, ST, MT, wide::kAdaPre>(args, gA, rowsum, stats,
+                                                stream);
+}
+
+template <typename ST, typename MT>
+int launch_types(int mode, const Args<ST, MT>& args, float* gA,
+                 float* rowsum, float* stats, cudaStream_t stream) {
+  switch (wide::kb_for(args.K)) {
+    case 8:
+      return launch_kb<8>(mode, args, gA, rowsum, stats, stream);
+    case 16:
+      return launch_kb<16>(mode, args, gA, rowsum, stats, stream);
+    case 32:
+      return launch_kb<32>(mode, args, gA, rowsum, stats, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Pass 2 reads no moments: one moment type.
+template <typename ST>
+int launch_post(const Args<ST, float>& args, float* rowsum, float* stats,
+                cudaStream_t stream) {
+  switch (wide::kb_for(args.K)) {
+    case 8:
+      return launch_mode<8, ST, float, wide::kAdaPost>(args, nullptr, rowsum,
+                                                       stats, stream);
+    case 16:
+      return launch_mode<16, ST, float, wide::kAdaPost>(args, nullptr,
+                                                        rowsum, stats,
+                                                        stream);
+    case 32:
+      return launch_mode<32, ST, float, wide::kAdaPost>(args, nullptr,
+                                                        rowsum, stats,
+                                                        stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+int mode_of(int mode) {
+  return mode == 0 ? wide::kAda : (mode == 1 ? wide::kAdaPre : wide::kAdaPost);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Entries of one unit's row of partial sums for `mode` (0 the compiled
+// chain, 1 split pass 1, 2 split pass 2) and a (C, K) problem, or -1 when
+// no instance covers it (C <= 256, K <= 32). The caller allocates the
+// scratch buffer as (nmf_adaprox_wide_partials_rows(N, tile_n), width)
+// floats.
+int nmf_adaprox_wide_partials_width(int mode, int C, int K) {
+  if (mode < 0 || mode > 2 || C < 1 || C > wide::kMaxC || K < 1 ||
+      K > wide::kMaxK)
+    return -1;
+  return wide::entries(mode_of(mode), C, K).total;
+}
+
+// Rows of partial sums for N columns in tiles of tile_n, or -1 for N < 1 or
+// tile_n < 1.
+long long nmf_adaprox_wide_partials_rows(long long N, long long tile_n) {
+  if (N < 1 || tile_n < 1) return -1;
+  return wide::stride(wide::unit_count(N, tile_n));
+}
+
+// One pass on `stream`. Device pointers to contiguous row-major arrays: A
+// (C, K), alpha (K,), gA (C, K), rowsum (K,), stats and partials float32;
+// S, S_new (K, N), Y and W (C, N; W may be null) float32, or bfloat16 when
+// store_bf16 is 1; M, V, M_new, V_new (K, N) float32, or bfloat16 when
+// moment_bf16 is 1; pre, pre_step and P (K, N) float32. The scalars b1_t,
+// bc1, bc2 come by value, or from the device buffer `scalars` when it is not
+// null. The chain's n_ops codes and thresholds come from host arrays,
+// applied `repeat` times. Mode 0 writes S_new, M_new, V_new, gA, rowsum and
+// stats [loss, |S' - S|^2, |S'|^2]; mode 1 writes M_new, V_new, pre (x),
+// pre_step (alpha / Psi_safe), gA and stats [loss]; mode 2 reads S and P
+// and writes rowsum, stats [|S' - S|^2, |S'|^2] and, with store_bf16, S_new
+// (null in float32: S' is P). Returns cudaGetLastError() after the
+// launches; does not synchronize.
+int nmf_adaprox_wide(int mode, const void* A, const void* S, const void* M,
+                     const void* V, const void* Y, const void* W,
+                     const void* alpha, const void* scalars, float b1_t,
+                     float bc1, float bc2, float one_minus_b2, float b2,
+                     float eps, const void* P, int n_ops, int repeat,
+                     const int* ops, const float* thresh, int store_bf16,
+                     int moment_bf16, int C, int K, long long N,
+                     long long tile_n, void* S_new, void* M_new, void* V_new,
+                     void* pre, void* pre_step, void* gA, void* rowsum,
+                     void* stats, void* partials, void* stream) {
+  if (nmf_adaprox_wide_partials_width(mode, C, K) < 0 || N < 1 ||
+      tile_n < 1 || n_ops < 0 || n_ops > kMaxChain || repeat < 0)
+    return (int)cudaErrorInvalidValue;
+  ProxChain chain{};
+  chain.n = n_ops;
+  chain.repeat = repeat;
+  for (int i = 0; i < n_ops; ++i) {
+    chain.op[i] = ops[i];
+    chain.thresh[i] = thresh[i];
+  }
+  const long long n_units = wide::unit_count(N, tile_n);
+  float* ga = static_cast<float*>(gA);
+  float* rs = static_cast<float*>(rowsum);
+  float* st = static_cast<float*>(stats);
+  cudaStream_t strm = static_cast<cudaStream_t>(stream);
+  auto fill = [&](auto& args) {
+    using ST = std::remove_pointer_t<decltype(args.out)>;
+    using MT = std::remove_pointer_t<decltype(args.M_out)>;
+    args.A = static_cast<const float*>(A);
+    args.S = static_cast<const ST*>(S);
+    args.Y = static_cast<const ST*>(Y);
+    args.W = static_cast<const ST*>(W);
+    args.M = static_cast<const MT*>(M);
+    args.V = static_cast<const MT*>(V);
+    args.alpha = static_cast<const float*>(alpha);
+    args.dsc = static_cast<const float*>(scalars);
+    args.b1_t = b1_t;
+    args.bc1 = bc1;
+    args.bc2 = bc2;
+    args.one_minus_b2 = one_minus_b2;
+    args.b2 = b2;
+    args.eps = eps;
+    args.P = static_cast<const float*>(P);
+    args.chain = chain;
+    args.C = C;
+    args.K = K;
+    args.N = N;
+    args.tile_n = tile_n;
+    args.n_units = n_units;
+    args.out = static_cast<ST*>(S_new);
+    args.M_out = static_cast<MT*>(M_new);
+    args.V_out = static_cast<MT*>(V_new);
+    args.pre = static_cast<float*>(pre);
+    args.pre_step = static_cast<float*>(pre_step);
+    args.partials = static_cast<float*>(partials);
+  };
+  if (mode == 2) {
+    if (store_bf16) {
+      Args<__nv_bfloat16, float> args{};
+      fill(args);
+      return launch_post<__nv_bfloat16>(args, rs, st, strm);
+    }
+    Args<float, float> args{};
+    fill(args);
+    return launch_post<float>(args, rs, st, strm);
+  }
+  if (store_bf16) {
+    if (moment_bf16) {
+      Args<__nv_bfloat16, __nv_bfloat16> args{};
+      fill(args);
+      return launch_types(mode, args, ga, rs, st, strm);
+    }
+    Args<__nv_bfloat16, float> args{};
+    fill(args);
+    return launch_types(mode, args, ga, rs, st, strm);
+  }
+  if (moment_bf16) {
+    Args<float, __nv_bfloat16> args{};
+    fill(args);
+    return launch_types(mode, args, ga, rs, st, strm);
+  }
+  Args<float, float> args{};
+  fill(args);
+  return launch_types(mode, args, ga, rs, st, strm);
+}
+
+}  // extern "C"

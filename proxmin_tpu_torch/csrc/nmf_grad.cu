@@ -26,10 +26,17 @@
 // writes its own row of partial sums and a second launch sums the rows in
 // a fixed order in double, so every run gives the same bits. No tensor
 // cores: the products are f32 FMAs, the TPU kernel's "fma" path.
+//
+// Beyond C <= 16, K <= 8 (up to C = 256, K = 32) the same function runs on
+// the wide body (wide_pass.cuh, mode kGrad): the channels looped in chunks
+// through shared memory, gA and the Gram summed by threads that own fixed
+// entries; there the float32 FMAs, about (3 C K + K^2) per column, bound
+// it.
 
 #include <cuda_runtime.h>
 
 #include "pgm_pass.cuh"
+#include "wide_pass.cuh"
 
 namespace {
 
@@ -61,16 +68,66 @@ int launch(const float* A, const float* S, const float* Y, const float* W,
                                            args, gA, gram, loss, stream);
 }
 
+// Resident blocks per SM each instance is built for: two (at most 128
+// registers a thread) up to K = 16; one for K <= 32, whose K values of S
+// and of gS in registers and the chunk's sums would spill at 128. The
+// shared memory may allow fewer (one beyond C = 128 in float32).
+constexpr int wide_blocks(int KB) { return KB >= 32 ? 1 : 2; }
+
+template <int KB>
+__global__ void __launch_bounds__(wide::kThreads, wide_blocks(KB))
+nmf_grad_wide_kernel(wide::Args<float, float> a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  wide::body<KB, float, float, wide::kGrad>(a, reinterpret_cast<float*>(smem));
+}
+
+__global__ void __launch_bounds__(wide::kThreads)
+nmf_grad_wide_finalize(const float* __restrict__ partials, long long n_units,
+                       wide::Entries e, bool half_first,
+                       float* __restrict__ gA, float* __restrict__ gram,
+                       float* __restrict__ loss) {
+  wide::finalize(partials, n_units, e, half_first, gA, gram, loss);
+}
+
+template <int KB>
+int launch_wide(const float* A, const float* S, const float* Y,
+                const float* W, int C, int K, long long N, long long tile_n,
+                float* gA, float* gS, float* gram, float* loss,
+                float* partials, cudaStream_t stream) {
+  static wide::LaunchCache cache;
+  wide::Args<float, float> args{};
+  args.A = A;
+  args.S = S;
+  args.Y = Y;
+  args.W = W;
+  args.C = C;
+  args.K = K;
+  args.N = N;
+  args.tile_n = tile_n;
+  args.n_units = wide::unit_count(N, tile_n);
+  args.out = gS;
+  args.partials = partials;
+  return wide::launch<KB, float, float, wide::kGrad>(
+      nmf_grad_wide_kernel<KB>, nmf_grad_wide_finalize, cache, args, gA,
+      gram, loss, stream);
+}
+
+bool narrow(int C, int K) { return C >= 1 && K >= 1 && C <= 16 && K <= 8; }
+bool covered(int C, int K) {
+  return C >= 1 && K >= 1 && C <= wide::kMaxC && K <= wide::kMaxK;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Width of one row of partial sums for a (C, K) problem, or -1 when no
-// compiled bound covers it. The caller allocates the scratch buffer as
-// (nmf_grad_partials_rows(N, tile_n), width) floats.
+// compiled bound covers it (C <= 256, K <= 32). The caller allocates the
+// scratch buffer as (nmf_grad_partials_rows(N, tile_n), width) floats.
 int nmf_grad_partials_width(int C, int K) {
   if (C >= 1 && K >= 1 && C <= 8 && K <= 8) return Layout<8, 8, false>::kP;
-  if (C >= 1 && K >= 1 && C <= 16 && K <= 8) return Layout<16, 8, false>::kP;
+  if (narrow(C, K)) return Layout<16, 8, false>::kP;
+  if (covered(C, K)) return wide::entries(wide::kGrad, C, K).total;
   return -1;
 }
 
@@ -104,9 +161,20 @@ int nmf_grad_f32(const void* A, const void* S, const void* Y, const void* W,
   cudaStream_t strm = static_cast<cudaStream_t>(stream);
   if (C >= 1 && K >= 1 && C <= 8 && K <= 8)
     return launch<8, 8>(a, s, y, w, C, K, N, tile_n, ga, gs, g, l, pp, strm);
-  if (C >= 1 && K >= 1 && C <= 16 && K <= 8)
+  if (narrow(C, K))
     return launch<16, 8>(a, s, y, w, C, K, N, tile_n, ga, gs, g, l, pp, strm);
-  return (int)cudaErrorInvalidValue;
+  if (!covered(C, K)) return (int)cudaErrorInvalidValue;
+  switch (wide::kb_for(K)) {
+    case 8:
+      return launch_wide<8>(a, s, y, w, C, K, N, tile_n, ga, gs, g, l, pp,
+                            strm);
+    case 16:
+      return launch_wide<16>(a, s, y, w, C, K, N, tile_n, ga, gs, g, l, pp,
+                             strm);
+    default:
+      return launch_wide<32>(a, s, y, w, C, K, N, tile_n, ga, gs, g, l, pp,
+                             strm);
+  }
 }
 
 }  // extern "C"

@@ -7,7 +7,9 @@
 //   R   = A S[:,n] - Y[:,n]          exact f32 K-step FMA, summed over k in order
 //   D   = W[:,n] * R  (or R)
 //   gS  = A^T D
-//   S'  = max(S[:,n] - sS gS, 0)     (or S[:,n] - sS gS, the identity prox)
+//   S'  = chain(S[:,n] - sS gS)      the compiled prox chain (prox_chain.cuh):
+//                                    max(., 0) and the identity inline, any
+//                                    other chain on the K values of a column
 //   gA += D S[:,n]^T                 with the OLD column of S
 //   G  += S' S'^T                    the Gram of the stored S', the next
 //                                    iteration's Lipschitz input
@@ -51,6 +53,16 @@ pgm_step_kernel(PassArgs<ST> a, Ring ring, int stages,
   pass_body<CB, KB, ST, true>(a, ring, stages, sets, smem);
 }
 
+// Any other compiled chain: the same body, the chain applied to the K
+// values of each column.
+template <int CB, int KB, typename ST>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM<CB>)
+pgm_chain_kernel(PassArgs<ST> a, Ring ring, int stages, int sets,
+                 ProxChain chain) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  pass_body<CB, KB, ST, true, true>(a, ring, stages, sets, smem, chain);
+}
+
 template <int CB, int KB>
 __global__ void __launch_bounds__(kThreads)
 pgm_step_finalize(const float* __restrict__ partials, long long n_units,
@@ -61,33 +73,41 @@ pgm_step_finalize(const float* __restrict__ partials, long long n_units,
 
 template <int CB, int KB, typename ST>
 int launch(const float* A, const void* S, const void* Y, const void* W,
-           const float* step_S, int prox_plus, int C, int K, long long N,
-           long long tile_n, void* S_new, float* gA, float* gram,
-           float* stats, float* partials, cudaStream_t stream) {
-  static LaunchCache cache;
+           const float* step_S, const ProxChain& chain, int C, int K,
+           long long N, long long tile_n, void* S_new, float* gA,
+           float* gram, float* stats, float* partials, cudaStream_t stream) {
+  static LaunchCache cache, chain_cache;
+  // max(., 0) and the identity run inline in pgm_step_kernel; any other
+  // chain in pgm_chain_kernel
+  const bool identity =
+      chain.repeat == 0 || chain.n == 0 || (chain.n == 1 && chain.op[0] == kId);
+  const bool plus = chain.repeat >= 1 && chain.n == 1 && chain.op[0] == kPlus;
   const PassArgs<ST> args{A, static_cast<const ST*>(S),
                           static_cast<const ST*>(Y),
-                          static_cast<const ST*>(W), step_S, prox_plus, C,
+                          static_cast<const ST*>(W), step_S, plus ? 1 : 0, C,
                           K, N, tile_n, unit_count(N, tile_n),
                           static_cast<ST*>(S_new), partials};
-  return launch_pass<CB, KB, ST, true>(pgm_step_kernel<CB, KB, ST>,
-                                       pgm_step_finalize<CB, KB>, cache,
-                                       args, gA, gram, stats, stream);
+  if (identity || plus)
+    return launch_pass<CB, KB, ST, true>(pgm_step_kernel<CB, KB, ST>,
+                                         pgm_step_finalize<CB, KB>, cache,
+                                         args, gA, gram, stats, stream);
+  return launch_pass<CB, KB, ST, true>(pgm_chain_kernel<CB, KB, ST>,
+                                       pgm_step_finalize<CB, KB>, chain_cache,
+                                       args, gA, gram, stats, stream, chain);
 }
 
 template <int CB, int KB>
 int launch_store(int store_bf16, const float* A, const void* S, const void* Y,
-                 const void* W, const float* step_S, int prox_plus, int C,
-                 int K, long long N, long long tile_n, void* S_new, float* gA,
-                 float* gram, float* stats, float* partials,
+                 const void* W, const float* step_S, const ProxChain& chain,
+                 int C, int K, long long N, long long tile_n, void* S_new,
+                 float* gA, float* gram, float* stats, float* partials,
                  cudaStream_t stream) {
   if (store_bf16)
-    return launch<CB, KB, __nv_bfloat16>(A, S, Y, W, step_S, prox_plus, C, K,
-                                         N, tile_n, S_new, gA, gram, stats,
+    return launch<CB, KB, __nv_bfloat16>(A, S, Y, W, step_S, chain, C, K, N,
+                                         tile_n, S_new, gA, gram, stats,
                                          partials, stream);
-  return launch<CB, KB, float>(A, S, Y, W, step_S, prox_plus, C, K, N,
-                               tile_n, S_new, gA, gram, stats, partials,
-                               stream);
+  return launch<CB, KB, float>(A, S, Y, W, step_S, chain, C, K, N, tile_n,
+                               S_new, gA, gram, stats, partials, stream);
 }
 
 }  // namespace
@@ -115,13 +135,24 @@ long long nmf_pgm_step_partials_rows(long long N, long long tile_n) {
 // contiguous row-major arrays: A (C, K), step_S (1,), gA (C, K), gram
 // (K, K), stats (3,) and partials (rows, width) float32; S and S_new
 // (K, N), Y and W (C, N; W may be null) float32, or bfloat16 when
-// store_bf16 is 1. Returns cudaGetLastError() after the launches (0 on
-// success); does not synchronize.
+// store_bf16 is 1. prox_S is the chain of n_ops codes and thresholds in the
+// host arrays ops and thresh (prox_chain.cuh), applied `repeat` times.
+// Returns cudaGetLastError() after the launches (0 on success); does not
+// synchronize.
 int nmf_pgm_step(const void* A, const void* S, const void* Y, const void* W,
-                 const void* step_S, int prox_plus, int store_bf16, int C,
-                 int K, long long N, long long tile_n, void* S_new, void* gA,
+                 const void* step_S, int n_ops, int repeat, const int* ops,
+                 const float* thresh, int store_bf16, int C, int K,
+                 long long N, long long tile_n, void* S_new, void* gA,
                  void* gram, void* stats, void* partials, void* stream) {
-  if (N < 1 || tile_n < 1) return (int)cudaErrorInvalidValue;
+  if (N < 1 || tile_n < 1 || n_ops < 0 || n_ops > kMaxChain || repeat < 0)
+    return (int)cudaErrorInvalidValue;
+  ProxChain chain{};
+  chain.n = n_ops;
+  chain.repeat = repeat;
+  for (int i = 0; i < n_ops; ++i) {
+    chain.op[i] = ops[i];
+    chain.thresh[i] = thresh[i];
+  }
   const float* a = static_cast<const float*>(A);
   const float* ss = static_cast<const float*>(step_S);
   float* ga = static_cast<float*>(gA);
@@ -130,11 +161,11 @@ int nmf_pgm_step(const void* A, const void* S, const void* Y, const void* W,
   float* pp = static_cast<float*>(partials);
   cudaStream_t strm = static_cast<cudaStream_t>(stream);
   if (C >= 1 && K >= 1 && C <= 8 && K <= 8)
-    return launch_store<8, 8>(store_bf16, a, S, Y, W, ss, prox_plus, C, K, N,
+    return launch_store<8, 8>(store_bf16, a, S, Y, W, ss, chain, C, K, N,
                               tile_n, S_new, ga, g, st, pp, strm);
   if (C >= 1 && K >= 1 && C <= 16 && K <= 8)
-    return launch_store<16, 8>(store_bf16, a, S, Y, W, ss, prox_plus, C, K,
-                               N, tile_n, S_new, ga, g, st, pp, strm);
+    return launch_store<16, 8>(store_bf16, a, S, Y, W, ss, chain, C, K, N,
+                               tile_n, S_new, ga, g, st, pp, strm);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,0 +1,191 @@
+// K1 on the wide body (wide_pass.cuh): one S-side PGM-NMF iteration for C
+// up to 256 channels and K up to 32 components, and the two passes of the
+// split path.
+//
+// Replaces, beyond the narrow instances of nmf_pgm_step.cu (C <= 16,
+// K <= 8), the Pallas TPU kernel proxmin_tpu/ops/nmf_kernels.py:311
+// (fused_nmf_pgm_step; body _pgm_step_kernel :233, its prox_S call :272),
+// which takes any C, K and any jittable prox_S. Per pixel column n:
+//
+//   R   = A S[:,n] - Y[:,n]          exact f32 K-step FMA, summed over k in order
+//   D   = W[:,n] * R  (or R)
+//   gS  = A^T D
+//   x   = S[:,n] - sS gS
+//   S'  = chain(x)                   the compiled prox chain (prox_chain.cuh)
+//   gA += D S[:,n]^T                 with the OLD column of S
+//   G  += S' S'^T
+//   stats += [D.R, |S' - S|^2, |S'|^2]   (loss = D.R / 2)
+//
+// A prox_S that no chain covers (a user callable, an axis-1 prox, an array
+// threshold, ...) takes the split path: pass 1 (mode 1) stores x in float32
+// with gA and the loss; PyTorch applies prox_S to the whole (K, N) x, as the
+// plain version and the JAX package's engine="xla" do (the TPU kernel
+// applies it per pixel tile, which is wrong for a prox that couples
+// pixels); pass 2 (mode 2) gives the Gram of S' and [|S' - S|^2, |S'|^2]
+// from the prox's output, and stores S' rounded to bfloat16 with the
+// bfloat16 store.
+//
+// S, Y and W are float or bfloat16 (the store); compute is f32. With the
+// bfloat16 store the residual takes A rounded to bfloat16, as in the TPU
+// kernel, and the Gram and the statistics take the rounded S'.
+//
+// What bounds it on an H100: at C = 128, K = 32, N = 1e6 the float32 FMAs
+// (3 C K + K^2 per column, 0.40 ms at 67 TFLOP/s) over the bytes ((C + 2K)
+// N 4 = 0.77 GB, 0.23 ms at 3.35 TB/s). The design is wide_pass.cuh's.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "wide_pass.cuh"
+
+namespace {
+
+using wide::Args;
+
+// Resident blocks per SM each instance is built for: two (at most 128
+// registers a thread) up to K = 16; one for K <= 32, whose K values of S
+// and of gS in registers and the chunk's sums would spill at 128. The
+// shared memory may allow fewer (one beyond C = 128 in float32).
+constexpr int wide_blocks(int KB) { return KB >= 32 ? 1 : 2; }
+
+template <int KB, typename ST, int MODE>
+__global__ void __launch_bounds__(wide::kThreads, wide_blocks(KB))
+pgm_wide_kernel(Args<ST, float> a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  wide::body<KB, ST, float, MODE>(a, reinterpret_cast<float*>(smem));
+}
+
+__global__ void __launch_bounds__(wide::kThreads)
+pgm_wide_finalize(const float* __restrict__ partials, long long n_units,
+                  wide::Entries e, bool half_first, float* __restrict__ gA,
+                  float* __restrict__ gram, float* __restrict__ stats) {
+  wide::finalize(partials, n_units, e, half_first, gA, gram, stats);
+}
+
+template <int KB, typename ST, int MODE>
+int launch_mode(const Args<ST, float>& args, float* gA, float* gram,
+                float* stats, cudaStream_t stream) {
+  static wide::LaunchCache cache;
+  return wide::launch<KB, ST, float, MODE>(pgm_wide_kernel<KB, ST, MODE>,
+                                           pgm_wide_finalize, cache, args,
+                                           gA, gram, stats, stream);
+}
+
+template <int KB, typename ST>
+int launch_kb(int mode, const Args<ST, float>& args, float* gA, float* gram,
+              float* stats, cudaStream_t stream) {
+  switch (mode) {
+    case 0:
+      return launch_mode<KB, ST, wide::kPgm>(args, gA, gram, stats, stream);
+    case 1:
+      return launch_mode<KB, ST, wide::kPgmPre>(args, gA, gram, stats,
+                                                stream);
+    case 2:
+      return launch_mode<KB, ST, wide::kPgmPost>(args, gA, gram, stats,
+                                                 stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename ST>
+int launch_store(int mode, const Args<ST, float>& args, float* gA,
+                 float* gram, float* stats, cudaStream_t stream) {
+  switch (wide::kb_for(args.K)) {
+    case 8:
+      return launch_kb<8, ST>(mode, args, gA, gram, stats, stream);
+    case 16:
+      return launch_kb<16, ST>(mode, args, gA, gram, stats, stream);
+    case 32:
+      return launch_kb<32, ST>(mode, args, gA, gram, stats, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+int mode_of(int mode) {
+  return mode == 0 ? wide::kPgm : (mode == 1 ? wide::kPgmPre : wide::kPgmPost);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Entries of one unit's row of partial sums for `mode` (0 the compiled
+// chain, 1 split pass 1, 2 split pass 2) and a (C, K) problem, or -1 when
+// no instance covers it (C <= 256, K <= 32). The caller allocates the
+// scratch buffer as (nmf_pgm_wide_partials_rows(N, tile_n), width) floats.
+int nmf_pgm_wide_partials_width(int mode, int C, int K) {
+  if (mode < 0 || mode > 2 || C < 1 || C > wide::kMaxC || K < 1 ||
+      K > wide::kMaxK)
+    return -1;
+  return wide::entries(mode_of(mode), C, K).total;
+}
+
+// Rows of partial sums for N columns in tiles of tile_n (the work units,
+// rounded up to a multiple of 4), or -1 for N < 1 or tile_n < 1.
+long long nmf_pgm_wide_partials_rows(long long N, long long tile_n) {
+  if (N < 1 || tile_n < 1) return -1;
+  return wide::stride(wide::unit_count(N, tile_n));
+}
+
+// One pass on `stream`. Device pointers to contiguous row-major arrays: A
+// (C, K), step_S (1,), gA (C, K), gram (K, K), stats and partials float32;
+// S and S_new (K, N), Y and W (C, N; W may be null) float32, or bfloat16
+// when store_bf16 is 1; pre (K, N) and P (K, N) float32. The chain's
+// n_ops codes and thresholds come from host arrays (ops, thresh), applied
+// `repeat` times. Mode 0 reads A, S, Y, W, step_S and writes S_new, gA,
+// gram, stats [loss, |S' - S|^2, |S'|^2]; mode 1 reads the same and writes
+// pre (x), gA and stats [loss]; mode 2 reads S and P and writes gram, stats
+// [|S' - S|^2, |S'|^2] and, with store_bf16, S_new (null in float32: S' is
+// P). Returns cudaGetLastError() after the launches; does not synchronize.
+int nmf_pgm_wide(int mode, const void* A, const void* S, const void* Y,
+                 const void* W, const void* step_S, const void* P, int n_ops,
+                 int repeat, const int* ops, const float* thresh,
+                 int store_bf16, int C, int K, long long N, long long tile_n,
+                 void* S_new, void* pre, void* gA, void* gram, void* stats,
+                 void* partials, void* stream) {
+  if (nmf_pgm_wide_partials_width(mode, C, K) < 0 || N < 1 || tile_n < 1 ||
+      n_ops < 0 || n_ops > kMaxChain || repeat < 0)
+    return (int)cudaErrorInvalidValue;
+  ProxChain chain{};
+  chain.n = n_ops;
+  chain.repeat = repeat;
+  for (int i = 0; i < n_ops; ++i) {
+    chain.op[i] = ops[i];
+    chain.thresh[i] = thresh[i];
+  }
+  const long long n_units = wide::unit_count(N, tile_n);
+  float* ga = static_cast<float*>(gA);
+  float* g = static_cast<float*>(gram);
+  float* st = static_cast<float*>(stats);
+  cudaStream_t strm = static_cast<cudaStream_t>(stream);
+  auto fill = [&](auto& args) {
+    using ST = std::remove_pointer_t<decltype(args.out)>;
+    args.A = static_cast<const float*>(A);
+    args.S = static_cast<const ST*>(S);
+    args.Y = static_cast<const ST*>(Y);
+    args.W = static_cast<const ST*>(W);
+    args.step_S = static_cast<const float*>(step_S);
+    args.P = static_cast<const float*>(P);
+    args.chain = chain;
+    args.C = C;
+    args.K = K;
+    args.N = N;
+    args.tile_n = tile_n;
+    args.n_units = n_units;
+    args.out = static_cast<ST*>(S_new);
+    args.pre = static_cast<float*>(pre);
+    args.partials = static_cast<float*>(partials);
+  };
+  if (store_bf16) {
+    Args<__nv_bfloat16, float> args{};
+    fill(args);
+    return launch_store<__nv_bfloat16>(mode, args, ga, g, st, strm);
+  }
+  Args<float, float> args{};
+  fill(args);
+  return launch_store<float>(mode, args, ga, g, st, strm);
+}
+
+}  // extern "C"

@@ -5,7 +5,10 @@
 //   D  = W[:,n] * R  (or R)
 //   g  = A^T D
 //   gA += D S[:,n]^T            with the OLD column of S
-//   and, in K1 (kStep):  S' = prox(S[:,n] - sS g), stored;
+//   and, in K1 (kStep):  S' = prox(S[:,n] - sS g), stored: max(., 0) or the
+//                        identity inline; in K1's chain instances (kChain)
+//                        any compiled chain (prox_chain.cuh) once the thread
+//                        holds all K values;
 //                        G += S' S'^T, stats += [D.R, |S' - S|^2, |S'|^2]
 //   or,  in K3:          g stored as gS[:,n];
 //                        G += S S^T,   stats += [D.R]
@@ -67,6 +70,7 @@
 #include <cuda_runtime.h>
 
 #include "bulk_ring.cuh"
+#include "prox_chain.cuh"
 
 namespace {
 
@@ -125,7 +129,7 @@ struct PassArgs {
   const ST* Y;          // (C, N)
   const ST* W;          // (C, N) or null
   const float* step_S;  // K1: the step on the card
-  int prox_plus;        // K1: 1 = max(., 0), 0 = identity
+  int prox_plus;        // K1: 1 = max(., 0), 0 = identity (not kChain)
   int C, K;
   long long N, tile_n, n_units;
   ST* out;              // K1: S' (K, N); K3: gS (K, N)
@@ -194,10 +198,14 @@ __device__ __forceinline__ void row_products(float (&acc)[KB],
   }
 }
 
-template <int CB, int KB, typename ST, bool kStep>
+// kChain: K1 applies `chain` to the K values of a column; the chain is a
+// kernel parameter of the chain instances alone, so the other instances
+// keep the parameter block and the code they had.
+template <int CB, int KB, typename ST, bool kStep, bool kChain = false>
 __device__ __forceinline__ void pass_body(const PassArgs<ST>& a, Ring ring,
                                           int stages, int sets,
-                                          unsigned char* smem) {
+                                          unsigned char* smem,
+                                          ProxChain chain = ProxChain{}) {
   using L = Layout<CB, KB, kStep>;
   constexpr bool kF32 = std::is_same<ST, float>::value;
   constexpr int ss = sizeof(ST);
@@ -358,6 +366,10 @@ __device__ __forceinline__ void pass_body(const PassArgs<ST>& a, Ring ring,
           if (k < K) {
             if constexpr (kStep) {
               float x = s[k] - sS * g;
+              if constexpr (kChain) {  // the chain runs on all K values below
+                Sn[k * kSub + tid] = x;
+                continue;
+              }
               // keeps NaN (fmaxf would turn it into 0 and hide a divergence)
               if (a.prox_plus && x < 0.f) x = 0.f;
               x = store(a.out, k * N + n, x);
@@ -368,6 +380,23 @@ __device__ __forceinline__ void pass_body(const PassArgs<ST>& a, Ring ring,
             } else {
               store(a.out, k * N + n, g);
             }
+          }
+        }
+        if constexpr (kStep && kChain) {
+          // the compiled chain, once the thread holds all K values of x
+          float x[KB];
+#pragma unroll
+          for (int k = 0; k < KB; ++k)
+            x[k] = k < K ? Sn[k * kSub + tid] : 0.f;
+          apply_chain<KB>(chain, x, K, [&](int) { return sS; });
+#pragma unroll
+          for (int k = 0; k < KB; ++k) {
+            if (k >= K) continue;
+            const float xs = store(a.out, k * N + n, x[k]);
+            Sn[k * kSub + tid] = xs;
+            const float dk = xs - s[k];
+            st1 = fmaf(dk, dk, st1);
+            st2 = fmaf(xs, xs, st2);
           }
         }
       } else {
@@ -523,12 +552,13 @@ struct LaunchCache {
 };
 
 // Both launches of one pass on `stream`: the persistent grid over the
-// units, then the finalize. Returns cudaGetLastError() after them.
+// units, then the finalize; `extra` follows the kernel's usual parameters.
+// Returns cudaGetLastError() after them.
 template <int CB, int KB, typename ST, bool kStep, typename Kernel,
-          typename Finalize>
+          typename Finalize, typename... Extra>
 int launch_pass(Kernel kernel, Finalize finalize, LaunchCache& lc,
                 const PassArgs<ST>& args, float* gA, float* gram,
-                float* stats, cudaStream_t stream) {
+                float* stats, cudaStream_t stream, Extra... extra) {
   cudaError_t err;
   if (lc.sms == 0) {
     int dev = 0;
@@ -564,7 +594,8 @@ int launch_pass(Kernel kernel, Finalize finalize, LaunchCache& lc,
   const long long resident = (long long)lc.sms * lc.per_sm;
   const unsigned grid =
       (unsigned)(args.n_units < resident ? args.n_units : resident);
-  kernel<<<grid, kThreads, smem, stream>>>(args, ring, stages, sets);
+  kernel<<<grid, kThreads, smem, stream>>>(args, ring, stages, sets,
+                                           extra...);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   constexpr int kFinalBlocks =

@@ -44,7 +44,7 @@ from . import operators
 from .nmf import (_adaprox_separable_ok, _fused_adaprox_program,
                   _fused_pgm_program, _fused_weighted_program, _not_yet,
                   _store_dtype, _weighted_lipschitz_S_v0)
-from .ops.nmf_kernels import DEFAULT_TILE_N, _prox_flag
+from .ops.nmf_kernels import DEFAULT_TILE_N, describe_prox
 from .solvers.common import as_torch_dtype, default_device
 
 __all__ = [
@@ -130,8 +130,11 @@ def export_nmf_solver(C, K, N, prox_A=operators.prox_plus,
     ``(A, S, it, conv_A, conv_S, loss)``. As in JAX, the unweighted program
     is the exact engine (``step_stride`` applies to the weighted one).
     ``store_dtype=torch.bfloat16`` stores S, Y (and W) in bfloat16 inside.
-    ``prox_S`` is ``prox_plus`` (or None: identity) or ``prox_id``, the
-    kernel's builtins; ``prox_A`` any traceable prox. ``tile_n`` fixes K1's
+    ``prox_S`` (None: identity) is any prox K1 takes: a library operator on
+    a pixel column runs compiled in K1, its codes saved in the program;
+    any other prox is traced between K1's two split passes, and one that
+    cannot be traced raises ``ValueError``. ``prox_A`` is any traceable
+    prox. ``tile_n`` fixes K1's
     summation order: the program equals
     :func:`~proxmin_tpu_torch.nmf.nmf_pgm_fused` with the same ``tile_n``
     bit for bit.
@@ -154,7 +157,7 @@ def export_nmf_solver(C, K, N, prox_A=operators.prox_plus,
         prox_A = operators.prox_id
     if prox_S is None:
         prox_S = operators.prox_id
-    _prox_flag(prox_S)
+    prox_S = describe_prox(prox_S)
     resume, weighted = bool(resume), bool(weighted)
     if return_carries is None:
         return_carries = resume
@@ -219,7 +222,8 @@ def export_nmf_solver(C, K, N, prox_A=operators.prox_plus,
                      _scalar(0, i32, dev)]
         else:
             args.append(_spec((K, K), f32, dev))
-    return _capture(run, args, "export_nmf_solver", prox_A=prox_A)
+    return _capture(run, args, "export_nmf_solver", prox_A=prox_A,
+                    prox_S=prox_S.prox if prox_S.split else None)
 
 
 def export_nmf_adaprox_solver(C, K, N, prox_A=operators.prox_plus,
@@ -260,7 +264,7 @@ def export_nmf_adaprox_solver(C, K, N, prox_A=operators.prox_plus,
         prox_A = operators.prox_id
     if prox_S is None:
         prox_S = operators.prox_id
-    _prox_flag(prox_S, "fused_nmf_adaprox_step")
+    prox_S = describe_prox(prox_S, "adaprox")
     resume, weighted = bool(resume), bool(weighted)
     if resume and warm_start:
         raise ValueError(
@@ -324,7 +328,8 @@ def export_nmf_adaprox_solver(C, K, N, prox_A=operators.prox_plus,
                  _spec((K, N), mdt, dev), _spec((K, N), mdt, dev)]
     if resume:
         args.append(_spec((K,), f32, dev))
-    return _capture(run, args, "export_nmf_adaprox_solver", prox_A=prox_A)
+    return _capture(run, args, "export_nmf_adaprox_solver", prox_A=prox_A,
+                    prox_S=prox_S.prox if prox_S.split else None)
 
 
 def export_nmf_pgm_sharded(*args, **kwargs):

@@ -34,7 +34,8 @@ import numpy as np
 import torch
 
 from . import algorithms, operators, utils
-from .ops.nmf_kernels import (DEFAULT_TILE_N, fused_nmf_adaprox_step,
+from .ops.nmf_kernels import (DEFAULT_TILE_N, describe_prox,
+                              fused_nmf_adaprox_step,
                               fused_nmf_pgm_step)
 from .solvers.common import (SolverResult, as_tensor, as_torch_dtype,
                              default_device, promote_dtype,
@@ -715,11 +716,15 @@ def nmf_pgm_fused(
     quantization, so keep ``e_rel`` loose. A full-width ``store_dtype`` is
     the default layout.
 
-    On CUDA tensors ``prox_S`` must be ``prox_plus`` or ``prox_id``/None
-    (the kernel applies it); ``prox_A`` acts on the tiny C x K factor
-    outside the kernel and may be any prox. On CPU tensors the kernel's
-    plain version runs instead. NumPy inputs go to ``device`` (default:
-    the CUDA device).
+    ``prox_S`` may be any prox (None: identity). On CUDA tensors a library
+    operator that acts on a pixel column alone (and an
+    ``AlternatingProjections`` of such) runs compiled in the kernel; any
+    other prox runs in PyTorch on the whole (K, N) iterate between two
+    kernel passes (:func:`~proxmin_tpu_torch.ops.nmf_kernels.describe_prox`).
+    The kernels take C <= 256 and K <= 32. ``prox_A`` acts on the tiny
+    C x K factor outside the kernel and may be any prox. On CPU tensors the
+    kernel's plain version runs instead. NumPy inputs go to ``device``
+    (default: the CUDA device).
 
     ``state=`` continues a previous call's ``.state`` (with its final
     iterates) on the uninterrupted trajectory, bit for bit, and a solve
@@ -739,6 +744,7 @@ def nmf_pgm_fused(
         prox_A = operators.prox_id
     if prox_S is None:
         prox_S = operators.prox_id
+    prox_S = describe_prox(prox_S)
     sdt = _store_dtype(store_dtype)
     dev = _device_for(device, Y, A, S)
     A = promote_dtype(A, device=dev)
@@ -1010,10 +1016,15 @@ def nmf_adaprox_fused(
     Computes in float32. ``W`` (C x N, or a scalar or anything that
     broadcasts) weights the residual in the same pass.
 
-    On CUDA tensors ``prox_S`` must be ``prox_plus`` or ``prox_id``/None
-    (the kernel applies it); ``prox_A`` acts on the tiny C x K factor
-    outside the kernel and may be any separable prox. On CPU tensors the
-    kernel's plain version runs instead.
+    ``prox_S`` may be any separable prox (None: identity), applied with
+    the per-element step ``alpha / Psi``. On CUDA tensors a library
+    operator whose ``separable_when`` holds (or a
+    :class:`~proxmin_tpu_torch.ops.nmf_kernels.ProxDescriptor` that says
+    so) runs compiled in the kernel; any other prox runs in PyTorch on the
+    whole (K, N) arrays between two kernel passes. The kernels take
+    C <= 256 and K <= 32. ``prox_A`` acts on the tiny C x K factor outside
+    the kernel and may be any separable prox. On CPU tensors the kernel's
+    plain version runs instead.
 
     ``moment_dtype`` (``torch.bfloat16`` or ``"bfloat16"``) stores the S
     moments in bfloat16, cast inside the kernel; the A moments stay
@@ -1045,6 +1056,7 @@ def nmf_adaprox_fused(
         prox_A = operators.prox_id
     if prox_S is None:
         prox_S = operators.prox_id
+    prox_S = describe_prox(prox_S, "adaprox")
     sdt = _store_dtype(store_dtype)
     dev = _device_for(device, Y, A, S)
     A = promote_dtype(A, device=dev)
@@ -1257,6 +1269,9 @@ def _nmf_adaprox_cuda(Y, A, S, W, prox_A, prox_S, e_rel, max_iter, step,
     if aargs:
         raise ValueError(f"unsupported fused-adaprox options: "
                          f"{sorted(aargs)}")
+    if prox_S is not None:
+        # separable_prox=True compiles any library chain, as in JAX
+        prox_S = describe_prox(prox_S, "adaprox", sep)
     return nmf_adaprox_fused(Y, A, S, W=W, prox_A=prox_A, prox_S=prox_S,
                              e_rel=e_rel, max_iter=max_iter, device=device,
                              **fused_kw)

@@ -211,6 +211,14 @@ EXPORT_GAPS = {
     "export_nmf_adaprox_sharded": {
         "*": "a sharded multi-card artifact: ROADMAP Queue 1 item 13 "
              "(scale-out)"},
+    "export_nmf_solver": {
+        "untraceable prox_S": "a prox_S outside the compiled chains runs "
+                              "between K1's two split passes and is traced "
+                              "there; one that torch.export cannot trace "
+                              "raises ValueError naming it"},
+    "export_nmf_adaprox_solver": {
+        "untraceable prox_S": "as export_nmf_solver's, between K2's two "
+                              "split passes"},
     "export_bsdmm_solver": {
         "steps_f_stride": "the sweep keeps the stride's clock on the host",
         "steps_g_update=relative": "the sweep branches on the host clock",

@@ -118,17 +118,24 @@ def test_kernel_keeps_nan(dev):
 
 
 def test_kernel_refuses_what_it_cannot_run(dev):
+    """prox_soft and C = 17 run now (a compiled chain, the wide body) and
+    match the plain version; beyond C = 256 the wrapper raises, naming the
+    ROADMAP entry that owes it."""
     A, S, Y, _ = _problem(dev, 5, 7, 100)
-    with pytest.raises(ValueError, match="prox_plus"):
-        k1.fused_nmf_pgm_step(A, S, Y, 0.1, prox_S=top.prox_soft)
+    _assert_step_close(
+        k1.fused_nmf_pgm_step(A, S, Y, 0.1, prox_S=top.prox_soft),
+        k1.fused_nmf_pgm_step_reference(A, S, Y, 0.1, prox_S=top.prox_soft))
     with pytest.raises(TypeError, match="float32"):
         k1.fused_nmf_pgm_step(A.double(), S, Y, 0.1)
     with pytest.raises(ValueError, match="contiguous"):
         St = S.T.contiguous().T
         k1.fused_nmf_pgm_step(A, St, Y, 0.1)
     A2, S2, Y2, _ = _problem(dev, 17, 3, 100)
-    with pytest.raises(ValueError, match="C <= 16"):
-        k1.fused_nmf_pgm_step(A2, S2, Y2, 0.1)
+    _assert_step_close(k1.fused_nmf_pgm_step(A2, S2, Y2, 0.1),
+                       k1.fused_nmf_pgm_step_reference(A2, S2, Y2, 0.1))
+    A3, S3, Y3, _ = _problem(dev, 257, 3, 100)
+    with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
+        k1.fused_nmf_pgm_step(A3, S3, Y3, 0.1)
     with pytest.raises(ValueError, match="share one device"):
         k1.fused_nmf_pgm_step(A, S.cpu(), Y, 0.1)
 
@@ -234,18 +241,36 @@ def test_adaprox_kernel_keeps_nan(dev):
         assert not bool(torch.isfinite(v))
 
 
+def _assert_adaprox_close(got, ref):
+    for i, (g, r) in enumerate(zip(got, ref)):
+        if g.dtype == torch.bfloat16 and i in (2, 3):
+            _within_one_bf16_ulp(g, r)
+        else:
+            torch.testing.assert_close(g, r, rtol=1e-3 if i == 6 else 2e-4,
+                                       atol=1e-5)
+
+
 def test_adaprox_kernel_refuses_what_it_cannot_run(dev):
+    """prox_soft and C = 17 run now (a compiled chain, the wide body) and
+    match the plain version; beyond K = 32 the wrapper raises, naming the
+    ROADMAP entry that owes it."""
     A, S, M, V, Y, alpha, sc, _ = _adaprox_operands(dev, 5, 7, 100)
-    with pytest.raises(ValueError, match="engine='torch'"):
+    _assert_adaprox_close(
         k1.fused_nmf_adaprox_step(A, S, M, V, Y, alpha, sc,
-                                  prox_S=top.prox_soft)
+                                  prox_S=top.prox_soft),
+        k1.fused_nmf_adaprox_step_reference(A, S, M, V, Y, alpha, sc,
+                                            prox_S=top.prox_soft))
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         k1.fused_nmf_adaprox_step(A, S, M.half(), V.half(), Y, alpha, sc)
     with pytest.raises(TypeError):
         k1.fused_nmf_adaprox_step(A, S, M, V.bfloat16(), Y, alpha, sc)
     A2, S2, M2, V2, Y2, alpha2, _, _ = _adaprox_operands(dev, 17, 3, 100)
-    with pytest.raises(ValueError, match="C <= 16"):
-        k1.fused_nmf_adaprox_step(A2, S2, M2, V2, Y2, alpha2, sc)
+    _assert_adaprox_close(
+        k1.fused_nmf_adaprox_step(A2, S2, M2, V2, Y2, alpha2, sc),
+        k1.fused_nmf_adaprox_step_reference(A2, S2, M2, V2, Y2, alpha2, sc))
+    A3, S3, M3, V3, Y3, alpha3, _, _ = _adaprox_operands(dev, 4, 33, 100)
+    with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
+        k1.fused_nmf_adaprox_step(A3, S3, M3, V3, Y3, alpha3, sc)
 
 
 @pytest.mark.parametrize("mdt", [None, torch.bfloat16])
@@ -418,15 +443,225 @@ def test_grad_kernel_keeps_nan(dev):
 
 
 def test_grad_kernel_refuses_what_it_cannot_run(dev):
-    A2, S2, Y2, _ = _problem(dev, 17, 3, 100)
-    with pytest.raises(ValueError, match="C <= 16"):
-        tops.fused_nmf_grad(A2, S2, Y2)
-    A3, S3, Y3, _ = _problem(dev, 4, 9, 100)
-    with pytest.raises(ValueError, match="K <= 8"):
-        tops.fused_nmf_grad(A3, S3, Y3)
+    """C = 17 and K = 9 run now on the wide body and match the plain
+    version; beyond C = 256 or K = 32 the wrapper raises, naming the
+    ROADMAP entry that owes it."""
+    for C, K in ((17, 3), (4, 9)):
+        A2, S2, Y2, _ = _problem(dev, C, K, 100)
+        for g, r in zip(tops.fused_nmf_grad(A2, S2, Y2),
+                        tops.fused_nmf_grad_reference(A2, S2, Y2)):
+            torch.testing.assert_close(g, r, rtol=2e-4, atol=1e-5)
+    for C, K in ((257, 3), (4, 33)):
+        A3, S3, Y3, _ = _problem(dev, C, K, 100)
+        with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
+            tops.fused_nmf_grad(A3, S3, Y3)
     A, S, Y, _ = _problem(dev, 5, 7, 100)
     with pytest.raises(ValueError, match="share one device"):
         tops.fused_nmf_grad(A, S.cpu(), Y)
+
+
+# K1-K3: the compiled prox chains, the split path and the wide body
+
+_P = functools.partial
+# prox_S cases: a compiled chain for each code (thresholds relative to the
+# step or absolute) and the split path (a user closure, a pixel-coupled
+# prox, prox_max_entropy)
+_PROX_CASES = {
+    "zero": top.prox_zero,
+    "min_rel": _P(top.prox_min, thresh=0.4),
+    "max_abs": _P(top.prox_max, thresh=0.6, type="absolute"),
+    "hard_rel": _P(top.prox_hard, thresh=8.0),
+    "hard_plus_abs": _P(top.prox_hard_plus, thresh=0.3, type="absolute"),
+    "soft_rel": _P(top.prox_soft, thresh=4.0),
+    "soft_plus_abs": _P(top.prox_soft_plus, thresh=0.05, type="absolute"),
+    "unity_plus": _P(top.prox_unity_plus, axis=0),
+    "chain": top.AlternatingProjections(
+        [_P(top.prox_unity_plus, axis=0),
+         _P(top.prox_soft_plus, thresh=0.05, type="absolute")], repeat=2),
+    "split_closure": lambda x, s: top.prox_unity_plus(x, s, axis=0),
+    "split_axis1": _P(top.prox_unity_plus, axis=1),
+}
+# K2 applies separable proxes with the per-element step alpha / Psi
+_ADAPROX_CASES = ("zero", "max_abs", "soft_rel", "soft_plus_abs",
+                  "split_closure", "split_axis1")
+# one shape per instance: the narrow ones (C <= 16, K <= 8) and the wide
+# body's KB = 8, 16 and 32, unaligned N
+_SHAPES = [(5, 7, 1000), (16, 8, 300), (40, 3, 1029), (100, 12, 700),
+           (128, 32, 5000), (256, 17, 300)]
+
+
+@pytest.mark.parametrize("C,K,N", _SHAPES)
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("case", sorted(_PROX_CASES))
+def test_k1_modes_match_plain_version(dev, C, K, N, weighted, case):
+    A, S, Y, W = _problem(dev, C, K, N, weighted)
+    sS = 1.0 / torch.linalg.eigvalsh(A.T @ A)[-1]
+    prox = _PROX_CASES[case]
+    routes = dict(k1.fused_nmf_pgm_step.route_launches)
+    got = k1.fused_nmf_pgm_step(A, S, Y, sS, W=W, prox_S=prox)
+    ref = k1.fused_nmf_pgm_step_reference(A, S, Y, sS, W=W, prox_S=prox)
+    torch.cuda.synchronize()
+    _assert_step_close(got, ref)
+    split = k1.describe_prox(prox).split
+    narrow = C <= 16 and K <= 8
+    ran = {r: n - routes[r]
+           for r, n in k1.fused_nmf_pgm_step.route_launches.items()}
+    want = ({"split pass 1": 1, "split pass 2": 1} if split
+            else {"narrow" if narrow else "wide": 1})
+    assert {r: n for r, n in ran.items() if n} == want
+
+
+@pytest.mark.parametrize("C,K,N", _SHAPES)
+@pytest.mark.parametrize("case", ["soft_plus_abs", "unity_plus",
+                                  "split_closure"])
+def test_k1_bf16_store_modes(dev, C, K, N, case):
+    """The bfloat16 store: S' within one bfloat16 ulp of the plain
+    version's, gA and the loss as float32's, the Gram and the norms
+    against the stored S'."""
+    A, S, Y, W = _problem(dev, C, K, N, weighted=True)
+    bf = torch.bfloat16
+    S, Y, W = S.to(bf), Y.to(bf), W.to(bf)
+    sS = 1.0 / torch.linalg.eigvalsh(A.T @ A)[-1]
+    prox = _PROX_CASES[case]
+    got = k1.fused_nmf_pgm_step(A, S, Y, sS, W=W, prox_S=prox)
+    ref = k1.fused_nmf_pgm_step_reference(A, S, Y, sS, W=W, prox_S=prox)
+    torch.cuda.synchronize()
+    _within_one_bf16_ulp(got[1], ref[1])
+    for i in (0, 3):
+        torch.testing.assert_close(got[i], ref[i], rtol=2e-4, atol=1e-5)
+    Sn = got[1].float()
+    dS = Sn - S.float()
+    torch.testing.assert_close(got[2], Sn @ Sn.T, rtol=2e-4, atol=1e-5)
+    torch.testing.assert_close(got[4], torch.sum(dS * dS), rtol=1e-3,
+                               atol=1e-5)
+    torch.testing.assert_close(got[5], torch.sum(Sn * Sn), rtol=2e-4,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("C,K,N", _SHAPES)
+@pytest.mark.parametrize("mdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", _ADAPROX_CASES)
+def test_k2_modes_match_plain_version(dev, C, K, N, mdt, case):
+    A, S, M, V, Y, alpha, sc, W = _adaprox_operands(dev, C, K, N, True, mdt)
+    prox = k1.describe_prox(_PROX_CASES[case], "adaprox", True)
+    got = k1.fused_nmf_adaprox_step(A, S, M, V, Y, alpha, sc, W=W,
+                                    prox_S=prox)
+    ref = k1.fused_nmf_adaprox_step_reference(A, S, M, V, Y, alpha, sc, W=W,
+                                              prox_S=prox)
+    torch.cuda.synchronize()
+    _assert_adaprox_close(got, ref)
+
+
+@pytest.mark.parametrize("C,K,N", _SHAPES[2:])
+@pytest.mark.parametrize("case", ["soft_plus_abs", "split_closure"])
+def test_k2_wide_bf16_store(dev, C, K, N, case):
+    A, S, M, V, Y, alpha, sc, W = _adaprox_operands(dev, C, K, N, True,
+                                                    torch.bfloat16)
+    bf = torch.bfloat16
+    S, Y, W = S.to(bf), Y.to(bf), W.to(bf)
+    prox = k1.describe_prox(_PROX_CASES[case], "adaprox", True)
+    got = k1.fused_nmf_adaprox_step(A, S, M, V, Y, alpha, sc, W=W,
+                                    prox_S=prox)
+    ref = k1.fused_nmf_adaprox_step_reference(A, S, M, V, Y, alpha, sc, W=W,
+                                              prox_S=prox)
+    torch.cuda.synchronize()
+    for i in (1, 2, 3):
+        _within_one_bf16_ulp(got[i], ref[i])
+    for i in (0, 5):
+        torch.testing.assert_close(got[i], ref[i], rtol=2e-4, atol=1e-5)
+    Sn = got[1].float()
+    torch.testing.assert_close(got[4], Sn.sum(1, keepdim=True), rtol=2e-4,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("C,K,N", _SHAPES[2:])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_k3_wide_matches_plain_version(dev, C, K, N, weighted):
+    A, S, Y, W = _problem(dev, C, K, N, weighted)
+    before = dict(k1.fused_nmf_grad.route_launches)
+    got = tops.fused_nmf_grad(A, S, Y, W=W, tile_n=1000)
+    ref = tops.fused_nmf_grad_reference(A, S, Y, W=W)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=2e-4, atol=1e-5)
+    assert k1.fused_nmf_grad.route_launches["wide"] == before["wide"] + 1
+
+
+@pytest.mark.parametrize("case", ["chain", "split_closure"])
+def test_modes_are_deterministic(dev, case):
+    """Two launches of each wide mode and of the split path give the same
+    bits (per-unit partial rows, a fixed-order finalize, no atomics)."""
+    A, S, Y, W = _problem(dev, 128, 32, 300_001, weighted=True)
+    prox = _PROX_CASES[case]
+    for tile_n in (1000, k1.DEFAULT_TILE_N):
+        one = k1.fused_nmf_pgm_step(A, S, Y, 1e-3, W=W, prox_S=prox,
+                                    tile_n=tile_n)
+        two = k1.fused_nmf_pgm_step(A, S, Y, 1e-3, W=W, prox_S=prox,
+                                    tile_n=tile_n)
+        torch.cuda.synchronize()
+        for a, b in zip(one, two):
+            assert torch.equal(a, b)
+    A, S, M, V, Y, alpha, sc, W = _adaprox_operands(dev, 40, 12, 300_001,
+                                                    True, torch.bfloat16)
+    prox = k1.describe_prox(prox, "adaprox", True)
+    one = k1.fused_nmf_adaprox_step(A, S, M, V, Y, alpha, sc, W=W,
+                                    prox_S=prox)
+    two = k1.fused_nmf_adaprox_step(A, S, M, V, Y, alpha, sc, W=W,
+                                    prox_S=prox)
+    g1 = tops.fused_nmf_grad(A, S, Y, W=W)
+    g2 = tops.fused_nmf_grad(A, S, Y, W=W)
+    torch.cuda.synchronize()
+    for a, b in zip(one + g1, two + g2):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("algorithm,case", [
+    ("pgm", "unity_plus"), ("pgm", "split_closure"),
+    ("adaprox", "soft_plus_abs"), ("adaprox", "split_closure")])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_wide_resume_is_bitwise(dev, algorithm, case, weighted):
+    """engine='cuda' at C=128, K=32: a 10 + 15 resume equals 25 straight
+    iterations bit for bit, and the solve agrees with engine='torch'."""
+    C, K, N = 128, 32, 50_000
+    A0, S0, _, W = _problem(dev, C, K, N, weighted=True, seed=5)
+    S_true = torch.rand((K, N), generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    S_true = S_true / S_true.sum(0, keepdim=True)
+    Y = A0 @ S_true
+    kw = dict(prox_S=_PROX_CASES[case], e_rel=0, engine="cuda",
+              W=W if weighted else 1)
+    if algorithm == "adaprox":
+        kw.update(algorithm="adaprox", separable_prox=True)
+    else:
+        kw.update(step_stride=10 if weighted else None)
+    full = tnmf.nmf(Y, A0, S0, max_iter=25, **kw)
+    half = tnmf.nmf(Y, A0, S0, max_iter=10, **kw)
+    rest = tnmf.nmf(Y, *half.x, max_iter=15, state=half.state, **kw)
+    for a, b in zip(rest.x, full.x):
+        assert torch.equal(a, b)
+    assert all(bool(torch.isfinite(x).all()) for x in full.x)
+
+
+@pytest.mark.parametrize("case", ["chain", "split_closure"])
+def test_split_and_chain_ops_equal_their_wrappers(dev, case):
+    """The registered ops of the chain and of the split passes launch the
+    wrappers' kernels, bit for bit."""
+    A, S, Y, W = _problem(dev, 40, 12, 3000, weighted=True)
+    sS = torch.full((), 1e-3, dtype=torch.float32, device=dev)
+    prox = k1.describe_prox(_PROX_CASES[case])
+    want = k1.fused_nmf_pgm_step(A, S, Y, sS, W=W, prox_S=prox)
+    ops = torch.ops.proxmin_torch
+    if prox.split:
+        X, gA, loss = ops.fused_nmf_pgm_pass1(A, S, Y, sS, W, 4096)
+        S_new, SSt, norms = ops.fused_nmf_pgm_pass2(S, prox(X, sS), 4096)
+        got = (gA, S_new, SSt, loss, norms[0], norms[1])
+    else:
+        gA, S_new, SSt, stats = ops.fused_nmf_pgm_step(
+            A, S, Y, sS, W, *prox.op_args(), 4096)
+        got = (gA, S_new, SSt, stats[0], stats[1], stats[2])
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 # K4: the prox kernels
@@ -1161,6 +1396,27 @@ def _nmf_pgm_problem(dev, N=3000):
     return Y, A0, S0
 
 
+@pytest.mark.parametrize("algorithm", ["pgm", "adaprox"])
+@pytest.mark.parametrize("case", ["unity_plus", "soft_plus_abs",
+                                  "split_closure"])
+@pytest.mark.parametrize("C,K", [(5, 3), (40, 12)])
+def test_prox_modes_add_no_blocking_read(dev, algorithm, case, C, K):
+    """A compiled chain and the split path read the host as often as the
+    kernels' builtin non-negativity: the split path adds launches and no
+    read."""
+    A0, S0, Y, _ = _problem(dev, C, K, 3000, seed=9)
+    Y = Y + A0 @ S0
+    kw = dict(e_rel=0, engine="cuda")
+    if algorithm == "adaprox":
+        kw.update(algorithm="adaprox", separable_prox=True)
+
+    def solve(prox):
+        return lambda n: tnmf.nmf(Y, A0, S0, prox_S=prox, max_iter=n, **kw)
+
+    base = _reads_per_10(solve(top.prox_plus))
+    assert _reads_per_10(solve(_PROX_CASES[case])) == base
+
+
 @pytest.mark.parametrize("option", ["none", "callback", "trace",
                                     "callback and trace", "grad=None"])
 def test_callback_and_trace_add_no_blocking_read(dev, option):
@@ -1479,21 +1735,24 @@ def _op_cases(dev):
         return (*out[:k], torch.stack(out[k:]))
 
     return {
-        "K1": (ops.fused_nmf_pgm_step, (A, S, Y, sS, None, 1, 4096),
+        "K1": (ops.fused_nmf_pgm_step, (A, S, Y, sS, None, [2], [0.0], 1,
+                                        4096),
                lambda: stats(k1.fused_nmf_pgm_step(A, S, Y, sS), 3)),
         "K1 W bf16 store": (
             ops.fused_nmf_pgm_step,
-            (A, S.to(bf), Y.to(bf), sS, W.to(bf), 0, 4096),
+            (A, S.to(bf), Y.to(bf), sS, W.to(bf), [], [], 1, 4096),
             lambda: stats(k1.fused_nmf_pgm_step(
                 A, S.to(bf), Y.to(bf), sS, W=W.to(bf), prox_S=top.prox_id),
                 3)),
         "K2": (ops.fused_nmf_adaprox_step,
-               (A, S, M, V, Y, al, sc_t, None, 1, 0.999, 1e-8, 4096),
+               (A, S, M, V, Y, al, sc_t, None, [2], [0.0], 1, 0.999, 1e-8,
+                4096),
                lambda: stats(k1.fused_nmf_adaprox_step(A, S, M, V, Y, al,
                                                        sc), 5)),
         "K2 W bf16 moments": (
             ops.fused_nmf_adaprox_step,
-            (A, S, M.to(bf), V.to(bf), Y, al, sc_t, W, 1, 0.999, 1e-8, 128),
+            (A, S, M.to(bf), V.to(bf), Y, al, sc_t, W, [2], [0.0], 1, 0.999,
+             1e-8, 128),
             lambda: stats(k1.fused_nmf_adaprox_step(
                 A, S, M.to(bf), V.to(bf), Y, al, sc, W=W, tile_n=128), 5)),
         "K3": (ops.fused_nmf_grad, (A, S, Y, W, 4096),
@@ -1617,6 +1876,40 @@ def test_exported_nmf_program_equals_its_driver(dev, kind, kw):
             == (30 if kind == "adaprox" else 0))
     assert torch.equal(out[0], res.x[0]) and torch.equal(out[1], res.x[1])
     assert float(out[5]) == res.loss
+
+
+@pytest.mark.parametrize("kind", ["pgm", "adaprox"])
+def test_exported_split_program_counts_each_step_once(dev, kind):
+    """A program whose prox_S takes the split path runs the two pass ops
+    around the traced prox; each step adds one to the kernel's
+    ``launches`` (at pass 1, as the eager driver counts it) and one to
+    each pass's route, and the program ends where its driver does."""
+    from proxmin_tpu_torch import export as tex
+
+    C, K, N = 40, 12, 20000
+    A, S, Y, _ = _problem(dev, C, K, N, seed=7)
+    if kind == "pgm":
+        prox = _PROX_CASES["split_closure"]
+        prog = tex.load_solver(tex.export_nmf_solver(C, K, N, prox_S=prox,
+                                                     e_rel=0))
+        counter = k1.fused_nmf_pgm_step
+        res = tnmf.nmf_pgm_fused(Y, A, S, prox_S=prox, e_rel=0, max_iter=30)
+    else:
+        prox = _P(top.prox_max_entropy, gamma=0.1)
+        prog = tex.load_solver(tex.export_nmf_adaprox_solver(
+            C, K, N, prox_S=prox, e_rel=0))
+        counter = k1.fused_nmf_adaprox_step
+        res = tnmf.nmf_adaprox_fused(Y, A, S, prox_S=prox, e_rel=0,
+                                     max_iter=30)
+    assert k1.describe_prox(prox, kind).split
+    before, routes = counter.launches, dict(counter.route_launches)
+    out = prog(A, S, Y, 30)
+    torch.cuda.synchronize()
+    ran = {r: n - routes[r] for r, n in counter.route_launches.items()}
+    assert counter.launches - before == 30 and int(out[2]) == 30
+    assert {r: n for r, n in ran.items() if n} == {"split pass 1": 30,
+                                                   "split pass 2": 30}
+    assert torch.equal(out[0], res.x[0]) and torch.equal(out[1], res.x[1])
 
 
 def _dtoh_copies(fn):

@@ -220,10 +220,16 @@ def test_cpu_tensors_take_the_plain_version():
     assert kk.fused_nmf_adaprox_step.launches == before
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
-    assert kk._prox_flag(None, "fused_nmf_adaprox_step") == 1
-    assert kk._prox_flag(ptt.operators.prox_id) == 0
-    with pytest.raises(ValueError, match="fused_nmf_adaprox_step"):
-        kk._prox_flag(ptt.operators.prox_soft, "fused_nmf_adaprox_step")
+    # prox_S reaches K2 as a compiled chain where separable_when holds, and
+    # as the split path otherwise; none raises
+    assert kk.describe_prox(None, "adaprox").ops == (kk._PLUS,)
+    assert kk.describe_prox(ptt.operators.prox_id, "adaprox").ops == ()
+    assert kk.describe_prox(ptt.operators.prox_soft, "adaprox").ops == (
+        kk._SOFT | kk._RELATIVE,)
+    assert kk.describe_prox(functools.partial(ptt.operators.prox_soft,
+                                              thresh=0.1,
+                                              type="absolute"),
+                            "adaprox").split
     with pytest.raises(ValueError, match="CPU or CUDA"):
         meta = torch.empty((4, 3), device="meta")
         kk.fused_nmf_adaprox_step(meta, S, M, V, Y, alpha, sc)

@@ -87,11 +87,14 @@ def test_plain_version_applies_any_prox(rng):
 
 
 def test_kernel_prox_set_is_closed():
-    assert k1._prox_flag(None) == 1
-    assert k1._prox_flag(top.prox_plus) == 1
-    assert k1._prox_flag(top.prox_id) == 0
-    with pytest.raises(ValueError, match="prox_plus"):
-        k1._prox_flag(top.prox_soft)
+    """Every prox_S reaches K1: the builtins and the library's per-column
+    operators as compiled chains, anything else as the split path; none
+    raises."""
+    assert k1.describe_prox(None).ops == (k1._PLUS,)
+    assert k1.describe_prox(top.prox_plus).ops == (k1._PLUS,)
+    assert k1.describe_prox(top.prox_id).ops == ()
+    assert k1.describe_prox(top.prox_soft).ops == (k1._SOFT | k1._RELATIVE,)
+    assert k1.describe_prox(lambda x, s: x).split
 
 
 def test_wrapper_refuses_other_devices():
@@ -105,7 +108,8 @@ def test_wrapper_refuses_other_devices():
 def test_build_inputs_are_in_the_checkout():
     """Each kernel is built from the package's own source into a library
     of its own in the gitignored build directory of the checkout."""
-    assert set(kb._SOURCES) == {"nmf_pgm_step", "nmf_adaprox_step",
+    assert set(kb._SOURCES) == {"nmf_pgm_step", "nmf_pgm_wide",
+                                "nmf_adaprox_step", "nmf_adaprox_wide",
                                 "nmf_grad", "prox_elementwise"}
     for name, src in kb._SOURCES.items():
         assert src.is_file() and src.parent.name == "csrc"
