@@ -2447,8 +2447,9 @@ def export_phase(mods, problem, card, every_kernel, kernel_fns, prof_dir):
 
 def wide_ops(C_, K_, N_, gram=True):
     """The wide body's float32 operations per pass: the residual, gS and
-    gA (3 C K FMAs a column) and the full K x K Gram, two each."""
-    return 2 * N_ * (3 * C_ * K_ + (K_ * K_ if gram else 0))
+    gA (3 C K FMAs a column) and, with ``gram``, the Gram's K (K + 1) / 2
+    distinct entries (it is symmetric), two each: pgm_ops."""
+    return pgm_ops(C_, K_, N_) if gram else 2 * N_ * 3 * C_ * K_
 
 
 def make_unmixing(C_, K_, N_, seed=SEED):
@@ -2676,7 +2677,7 @@ def wide_phase(mods, card, prof_dir):
     timing("K1 split pass 2",
            lambda: kk._pgm_pass2_cuda(S0, P_, kk.DEFAULT_TILE_N),
            lambda: kk._pgm_pass2_reference(S0, P_, torch.float32),
-           tensor_bytes(S0, P_) + 4 * (K_ * K_ + 2), 2 * N_ * K_ * K_)
+           tensor_bytes(S0, P_) + 4 * (K_ * K_ + 2), pgm_ops(0, K_, N_))
     timing("K1 split step", lambda: k1(A0, S0, Y, sS,
                                        prox_S=simplex_closure),
            lambda: kk.fused_nmf_pgm_step_reference(A0, S0, Y, sS,
@@ -2710,6 +2711,26 @@ def wide_phase(mods, card, prof_dir):
            tensor_bytes(A0, S0, Y) + tensor_bytes(*out),
            wide_ops(C_, K_, N_))
     del X, P_, P2, pre, out
+    # Context, not a yardstick: the step's four float32 products as four
+    # cuBLAS calls (TF32 off), R = A S, A^T D, D S^T and S' S'^T, which
+    # move R and D through memory where the kernel keeps them on chip.
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        D_ = A0 @ S0 - Y
+        products = {"A@S": lambda: A0 @ S0, "A.T@D": lambda: A0.T @ D_,
+                    "D@S.T": lambda: D_ @ S0.T, "S@S.T": lambda: S0 @ S0.T}
+        p_ms = {k: min(cuda_ms(f, reps=10) for _ in range(2))
+                for k, f in products.items()}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    del D_
+    k1_ms = times["K1 chain"][0]
+    log(f"wide context [four float32 cuBLAS calls, TF32 off, C={C_} K={K_} "
+        f"N={N_}; not a single-call yardstick] on {card}: " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in p_ms.items())
+        + f"; sum {sum(p_ms.values()):.4f} ms against K1 wide's one pass "
+        f"{k1_ms:.4f} ms")
 
     # the full-width solves: engine="cuda" against engine="torch"
     ada = dict(algorithm="adaprox")

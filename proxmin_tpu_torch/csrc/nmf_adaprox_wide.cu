@@ -31,7 +31,10 @@
 //
 // What bounds it on an H100: at C = 128, K = 32 the float32 FMAs of the
 // residual, gS and gA (3 C K per column) over the bytes ((C + 6K) N 4 with
-// float32 moments). The design is wide_pass.cuh's.
+// float32 moments), and, tighter than both, the shared memory's delivery
+// of the register tiles' operands, as K1's; M and V come by bulk copies
+// during the main loop, and the update, the chain and the stores of S',
+// M', V' follow it on the same warps. The design is wide_pass.cuh's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -42,25 +45,23 @@ namespace {
 
 using wide::Args;
 
-// Resident blocks per SM each instance is built for: two (at most 128
-// registers a thread) up to K = 16; one for K <= 32, whose K values of S
-// and of gS in registers and the chunk's sums would spill at 128. The
-// shared memory may allow fewer (one beyond C = 128 in float32).
-constexpr int wide_blocks(int KB) { return KB >= 32 ? 1 : 2; }
-
+// Built for two blocks of 8 warps per SM (at most 128 registers a thread)
+// where KB = 8 or the pass has no residual, else for one (up to 255):
+// wide::blocks_per_sm.
 template <int KB, typename ST, typename MT, int MODE>
-__global__ void __launch_bounds__(wide::kThreads, wide_blocks(KB))
+__global__ void __launch_bounds__(wide::kThreads,
+                                  wide::blocks_per_sm(KB, MODE))
 adaprox_wide_kernel(Args<ST, MT> a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  wide::body<KB, ST, MT, MODE>(a, reinterpret_cast<float*>(smem));
+  wide::body<KB, ST, MT, MODE>(a, smem);
 }
 
-__global__ void __launch_bounds__(wide::kThreads)
-adaprox_wide_finalize(const float* __restrict__ partials, long long n_units,
+__global__ void __launch_bounds__(wide::kFinThreads)
+adaprox_wide_finalize(const float* __restrict__ partials, long long rows,
                       wide::Entries e, bool half_first,
                       float* __restrict__ gA, float* __restrict__ rowsum,
                       float* __restrict__ stats) {
-  wide::finalize(partials, n_units, e, half_first, gA, rowsum, stats);
+  wide::finalize(partials, rows, e, half_first, gA, rowsum, stats);
 }
 
 template <int KB, typename ST, typename MT, int MODE>
@@ -126,7 +127,7 @@ int mode_of(int mode) {
 
 extern "C" {
 
-// Entries of one unit's row of partial sums for `mode` (0 the compiled
+// Entries of one group's row of partial sums for `mode` (0 the compiled
 // chain, 1 split pass 1, 2 split pass 2) and a (C, K) problem, or -1 when
 // no instance covers it (C <= 256, K <= 32). The caller allocates the
 // scratch buffer as (nmf_adaprox_wide_partials_rows(N, tile_n), width)
@@ -138,11 +139,12 @@ int nmf_adaprox_wide_partials_width(int mode, int C, int K) {
   return wide::entries(mode_of(mode), C, K).total;
 }
 
-// Rows of partial sums for N columns in tiles of tile_n, or -1 for N < 1 or
-// tile_n < 1.
+// Rows of partial sums for N columns in tiles of tile_n (the groups of
+// work units, at most 264, the most any instance makes), or -1 for N < 1
+// or tile_n < 1.
 long long nmf_adaprox_wide_partials_rows(long long N, long long tile_n) {
   if (N < 1 || tile_n < 1) return -1;
-  return wide::stride(wide::unit_count(N, tile_n));
+  return wide::group_count(wide::unit_count(N, tile_n), 2);
 }
 
 // One pass on `stream`. Device pointers to contiguous row-major arrays: A

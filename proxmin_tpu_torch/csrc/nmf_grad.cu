@@ -29,9 +29,9 @@
 //
 // Beyond C <= 16, K <= 8 (up to C = 256, K = 32) the same function runs on
 // the wide body (wide_pass.cuh, mode kGrad): the channels looped in chunks
-// through shared memory, gA and the Gram summed by threads that own fixed
-// entries; there the float32 FMAs, about (3 C K + K^2) per column, bound
-// it.
+// through shared memory, the products as register tiles over shared-memory
+// tiles; there the float32 FMAs, about 3 C K + K (K + 1) / 2 per column,
+// and the shared memory's delivery of the tiles' operands bound it.
 
 #include <cuda_runtime.h>
 
@@ -68,25 +68,23 @@ int launch(const float* A, const float* S, const float* Y, const float* W,
                                            args, gA, gram, loss, stream);
 }
 
-// Resident blocks per SM each instance is built for: two (at most 128
-// registers a thread) up to K = 16; one for K <= 32, whose K values of S
-// and of gS in registers and the chunk's sums would spill at 128. The
-// shared memory may allow fewer (one beyond C = 128 in float32).
-constexpr int wide_blocks(int KB) { return KB >= 32 ? 1 : 2; }
-
+// Built for two blocks of 8 warps per SM (at most 128 registers a thread)
+// where KB = 8 or the pass has no residual, else for one (up to 255):
+// wide::blocks_per_sm.
 template <int KB>
-__global__ void __launch_bounds__(wide::kThreads, wide_blocks(KB))
+__global__ void __launch_bounds__(wide::kThreads,
+                                  wide::blocks_per_sm(KB, wide::kGrad))
 nmf_grad_wide_kernel(wide::Args<float, float> a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  wide::body<KB, float, float, wide::kGrad>(a, reinterpret_cast<float*>(smem));
+  wide::body<KB, float, float, wide::kGrad>(a, smem);
 }
 
-__global__ void __launch_bounds__(wide::kThreads)
-nmf_grad_wide_finalize(const float* __restrict__ partials, long long n_units,
+__global__ void __launch_bounds__(wide::kFinThreads)
+nmf_grad_wide_finalize(const float* __restrict__ partials, long long rows,
                        wide::Entries e, bool half_first,
                        float* __restrict__ gA, float* __restrict__ gram,
                        float* __restrict__ loss) {
-  wide::finalize(partials, n_units, e, half_first, gA, gram, loss);
+  wide::finalize(partials, rows, e, half_first, gA, gram, loss);
 }
 
 template <int KB>
@@ -132,11 +130,15 @@ int nmf_grad_partials_width(int C, int K) {
 }
 
 // Rows of partial sums to allocate for N columns in tiles of tile_n (the
-// work units, parts of tiles, rounded up to a multiple of 4), or -1 for
-// N < 1 or tile_n < 1.
+// narrow body's work units, parts of tiles, rounded up to a multiple of 4,
+// or the most groups of units of the wide body, whichever are more), or -1
+// for N < 1 or tile_n < 1.
 long long nmf_grad_partials_rows(long long N, long long tile_n) {
   if (N < 1 || tile_n < 1) return -1;
-  return stride(unit_count(N, tile_n));
+  const long long narrow_rows = stride(unit_count(N, tile_n));
+  const long long groups =
+      wide::group_count(wide::unit_count(N, tile_n), 2);
+  return narrow_rows > groups ? narrow_rows : groups;
 }
 
 // The fused gradients on `stream`. All pointers are device pointers to

@@ -30,8 +30,13 @@
 // kernel, and the Gram and the statistics take the rounded S'.
 //
 // What bounds it on an H100: at C = 128, K = 32, N = 1e6 the float32 FMAs
-// (3 C K + K^2 per column, 0.40 ms at 67 TFLOP/s) over the bytes ((C + 2K)
-// N 4 = 0.77 GB, 0.23 ms at 3.35 TB/s). The design is wide_pass.cuh's.
+// (3 C K + K (K + 1) / 2 per column, 0.38 ms at 67 TFLOP/s; the body forms
+// both triangles of the Gram, K^2) over the bytes ((C + 2K)
+// N 4 = 0.77 GB, 0.23 ms at 3.35 TB/s), and, tighter than both, the shared
+// memory's delivery of the register tiles' operands (3 floats per 8 FMAs,
+// 1.5 times the FMAs' time): the main loop runs near that, the Gram, the
+// chain and the stores of S' after it, on the same warps. The design is
+// wide_pass.cuh's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -42,24 +47,22 @@ namespace {
 
 using wide::Args;
 
-// Resident blocks per SM each instance is built for: two (at most 128
-// registers a thread) up to K = 16; one for K <= 32, whose K values of S
-// and of gS in registers and the chunk's sums would spill at 128. The
-// shared memory may allow fewer (one beyond C = 128 in float32).
-constexpr int wide_blocks(int KB) { return KB >= 32 ? 1 : 2; }
-
+// Built for two blocks of 8 warps per SM (at most 128 registers a thread)
+// where KB = 8 or the pass has no residual, else for one (up to 255):
+// wide::blocks_per_sm.
 template <int KB, typename ST, int MODE>
-__global__ void __launch_bounds__(wide::kThreads, wide_blocks(KB))
+__global__ void __launch_bounds__(wide::kThreads,
+                                  wide::blocks_per_sm(KB, MODE))
 pgm_wide_kernel(Args<ST, float> a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  wide::body<KB, ST, float, MODE>(a, reinterpret_cast<float*>(smem));
+  wide::body<KB, ST, float, MODE>(a, smem);
 }
 
-__global__ void __launch_bounds__(wide::kThreads)
-pgm_wide_finalize(const float* __restrict__ partials, long long n_units,
+__global__ void __launch_bounds__(wide::kFinThreads)
+pgm_wide_finalize(const float* __restrict__ partials, long long rows,
                   wide::Entries e, bool half_first, float* __restrict__ gA,
                   float* __restrict__ gram, float* __restrict__ stats) {
-  wide::finalize(partials, n_units, e, half_first, gA, gram, stats);
+  wide::finalize(partials, rows, e, half_first, gA, gram, stats);
 }
 
 template <int KB, typename ST, int MODE>
@@ -111,7 +114,7 @@ int mode_of(int mode) {
 
 extern "C" {
 
-// Entries of one unit's row of partial sums for `mode` (0 the compiled
+// Entries of one group's row of partial sums for `mode` (0 the compiled
 // chain, 1 split pass 1, 2 split pass 2) and a (C, K) problem, or -1 when
 // no instance covers it (C <= 256, K <= 32). The caller allocates the
 // scratch buffer as (nmf_pgm_wide_partials_rows(N, tile_n), width) floats.
@@ -122,11 +125,12 @@ int nmf_pgm_wide_partials_width(int mode, int C, int K) {
   return wide::entries(mode_of(mode), C, K).total;
 }
 
-// Rows of partial sums for N columns in tiles of tile_n (the work units,
-// rounded up to a multiple of 4), or -1 for N < 1 or tile_n < 1.
+// Rows of partial sums for N columns in tiles of tile_n (the groups of
+// work units, at most 264, the most any instance makes), or -1 for N < 1
+// or tile_n < 1.
 long long nmf_pgm_wide_partials_rows(long long N, long long tile_n) {
   if (N < 1 || tile_n < 1) return -1;
-  return wide::stride(wide::unit_count(N, tile_n));
+  return wide::group_count(wide::unit_count(N, tile_n), 2);
 }
 
 // One pass on `stream`. Device pointers to contiguous row-major arrays: A

@@ -26,6 +26,8 @@
 
 #pragma once
 
+#include <cfloat>
+
 namespace {
 
 constexpr int kMaxChain = 8;
@@ -38,12 +40,15 @@ struct ProxChain {
   float thresh[kMaxChain];
 };
 
-// Apply the chain to x[0..K) of one column (entries K..KB stay as they
-// are). step(k) gives the step of entry k.
-template <int KB, typename Step>
-__device__ __forceinline__ void apply_chain(const ProxChain& pc,
-                                            float (&x)[KB], int K,
-                                            Step step) {
+// The chain on entries 0..K) of one column, the op switch written once:
+// `each(f)` calls f(k) for k = 0, 1, ..., K - 1 in order, `x(k)` is entry k
+// (a float&), `step(k)` its step. The unity sum starts from -0, which adds
+// to x(0) exactly (x(0) + x(1) + ... in order). Its zero numerators skip
+// the division, whose check sends them down its slow path: 0 / sum is the
+// signed zero 0 * sum wherever sum is finite and not zero, the same bits.
+template <typename Each, typename X, typename Step>
+__device__ __forceinline__ void run_chain(const ProxChain& pc, Each each,
+                                          X x, Step step) {
   for (int r = 0; r < pc.repeat; ++r) {
     for (int i = 0; i < pc.n; ++i) {
       const int op = pc.op[i] & (kRelative - 1);
@@ -53,54 +58,50 @@ __device__ __forceinline__ void apply_chain(const ProxChain& pc,
       auto t = [&](int k) { return rel ? __fmul_rn(th, step(k)) : th; };
       switch (op) {
         case kZero:
-#pragma unroll
-          for (int k = 0; k < KB; ++k)
-            if (k < K) x[k] = 0.f;
+          each([&](int k) { x(k) = 0.f; });
           break;
         case kPlus:  // keeps NaN (fmaxf would turn it into 0)
-#pragma unroll
-          for (int k = 0; k < KB; ++k)
-            if (k < K && x[k] < 0.f) x[k] = 0.f;
+          each([&](int k) {
+            float& v = x(k);
+            if (v < 0.f) v = 0.f;
+          });
           break;
         case kMin:
-#pragma unroll
-          for (int k = 0; k < KB; ++k) {
-            if (k >= K) continue;
+          each([&](int k) {
+            float& v = x(k);
             const float tk = t(k);
-            if (x[k] < tk) x[k] = tk;
-          }
+            if (v < tk) v = tk;
+          });
           break;
         case kMax:
-#pragma unroll
-          for (int k = 0; k < KB; ++k) {
-            if (k >= K) continue;
+          each([&](int k) {
+            float& v = x(k);
             const float tk = t(k);
-            if (x[k] > tk) x[k] = tk;
-          }
+            if (v > tk) v = tk;
+          });
           break;
         case kHard:
-#pragma unroll
-          for (int k = 0; k < KB; ++k)
-            if (k < K && fabsf(x[k]) < t(k)) x[k] = 0.f;
+          each([&](int k) {
+            float& v = x(k);
+            if (fabsf(v) < t(k)) v = 0.f;
+          });
           break;
         case kSoft:
-#pragma unroll
-          for (int k = 0; k < KB; ++k) {
-            if (k >= K) continue;
-            const float v = x[k];
+          each([&](int k) {
+            float& v = x(k);
             float a = __fsub_rn(fabsf(v), t(k));
             a = a < 0.f ? 0.f : a;  // keeps NaN
-            x[k] = v > 0.f ? a : (v < 0.f ? -a : __fmul_rn(v, a));
-          }
+            v = v > 0.f ? a : (v < 0.f ? -a : __fmul_rn(v, a));
+          });
           break;
         case kUnity: {
-          float sum = x[0];
-#pragma unroll
-          for (int k = 1; k < KB; ++k)
-            if (k < K) sum = __fadd_rn(sum, x[k]);
-#pragma unroll
-          for (int k = 0; k < KB; ++k)
-            if (k < K) x[k] = __fdiv_rn(x[k], sum);
+          float sum = -0.f;
+          each([&](int k) { sum = __fadd_rn(sum, x(k)); });
+          const bool plain = fabsf(sum) <= FLT_MAX && sum != 0.f;
+          each([&](int k) {
+            float& v = x(k);
+            v = (plain && v == 0.f) ? __fmul_rn(v, sum) : __fdiv_rn(v, sum);
+          });
           break;
         }
         default:  // kId
@@ -108,6 +109,34 @@ __device__ __forceinline__ void apply_chain(const ProxChain& pc,
       }
     }
   }
+}
+
+// The chain on x[0..K) of a column in registers (entries K..KB stay as they
+// are): loops unrolled over KB, so that x stays in registers.
+template <int KB, typename Step>
+__device__ __forceinline__ void apply_chain(const ProxChain& pc,
+                                            float (&x)[KB], int K,
+                                            Step step) {
+  auto each = [&](auto f) {
+#pragma unroll
+    for (int k = 0; k < KB; ++k)
+      if (k < K) f(k);
+  };
+  run_chain(pc, each, [&](int k) -> float& { return x[k]; }, step);
+}
+
+// The chain on a column of K values in shared memory, x[k * pitch] (the
+// wide body's K2): loops over k unrolled by four, so that the code stays
+// small beside K2's update.
+template <typename Step>
+__device__ __forceinline__ void apply_chain_column(const ProxChain& pc,
+                                                   float* x, int pitch,
+                                                   int K, Step step) {
+  auto each = [&](auto f) {
+#pragma unroll 4
+    for (int k = 0; k < K; ++k) f(k);
+  };
+  run_chain(pc, each, [&](int k) -> float& { return x[k * pitch]; }, step);
 }
 
 }  // namespace

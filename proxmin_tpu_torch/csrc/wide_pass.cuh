@@ -7,49 +7,78 @@
 // stage holds all C rows of Y (and W) for 256 columns, 128 KB at C = 128 in
 // float32 unweighted and 256 KB weighted, against about 224 KB per block;
 // and each of its threads keeps (C + K) / 8 rows of K sums in registers,
-// 640 at C = 128, K = 32. Here neither grows with C:
+// 640 at C = 128, K = 32. Here neither grows with C.
 //
-// - A block takes one work unit, a part of at most kPart columns of a tile
-//   of tile_n columns (the narrow body's units), and walks it in sub-tiles
-//   of kSub columns, one column per thread. A thread reads its column of S
-//   (and of Y, W, M, V) straight from global memory, coalesced across the
-//   warp, and keeps its K values of S and of the gradient gS in registers.
-// - The channels are looped in chunks of kChunk: for each channel c the
-//   thread forms the residual r = A[c,:] s - y (an exact-f32 FMA over k in
-//   order, as the narrow body and the TPU kernel's "fma" path), d = w r (or
-//   r), adds d A[c,:] to gS (fmaf over c in order) and writes d to the
-//   chunk's rows of a shared-memory buffer. A is read from shared memory,
-//   every thread at the same address.
-// - After each chunk the block sums gA's (c, k) entries of the chunk over
-//   the sub-tile's columns, D times the old S in shared memory: thread t
-//   owns the entries k = t mod KB, c in KB / 8 consecutive rows, each a sum
-//   over the columns in order (float4 loads; the D row is read by the whole
-//   warp at one address, the S rows of a warp's lanes hit different banks).
-//   A thread adds each sum into its own slot in shared memory, so a unit's
-//   sums depend on the columns' order alone. The Gram (of S' in K1, of the
-//   old S in K3) is one more chunk of K rows, the same routine; K2's row
-//   sums of S' are eight threads per row and a fixed shuffle tree.
-// - The epilogue of a column is the kernel's: K3 stores gS; K1 forms x = s
-//   - sS gS for all K components and applies the compiled prox chain
-//   (prox_chain.cuh), then stores S' and the rounded S' for the Gram; K2
-//   forms the moments, Phi, Psi and x, then the chain with the per-element
-//   step alpha_k / Psi_safe. The split path's first pass stores x (and K2's
-//   step) in float32 instead; its second pass takes the prox's output P and
-//   gives the Gram (K1) or the row sums (K2) and [|S' - S|^2, |S'|^2],
-//   storing S' rounded to bfloat16 with the bfloat16 store.
-// - Each unit writes its own row of partial sums, entry-major as the narrow
-//   body's; a second launch gives every entry one warp, which sums the unit
-//   rows in double in a fixed order and rounds once. No atomics: two
+// Per pixel column the work is three products over small dimensions, the
+// residual R = A S - Y (C K FMAs), gS = A^T D (C K) and gA += D S^T (C K),
+// plus the Gram (K K) in K1 and K3. Each is a block-level product of
+// register tiles over shared-memory tiles. What bounds such products on an
+// H100 is the shared memory's delivery to the registers, 128 bytes a clock
+// per SM (a warp's 16-byte load costs four of them, broadcast or not),
+// against 128 FMAs a clock: a thread has to do four FMAs per float it
+// loads, which takes 8 x 8 tiles. The design:
+//
+// - Blocks of 8 warps: two per SM (at most 128 registers a thread) for the
+//   passes without a residual, and for the residual at KB = 8 where the
+//   shared memory fits two; one per SM (up to 255 registers) for the
+//   residual at KB = 16 and 32, which spill at 128 (blocks_per_sm,
+//   Smem::blocks). Where a sub-tile holds little work the second block
+//   hides the first's barriers and latencies. A block takes a group of
+//   consecutive work units (a unit is a part of at most kPart columns of a
+//   tile of tile_n columns; a group is ceil(units / (kGroups blocks))
+//   units, so at most kGroups blocks groups), fixed by N, tile_n and the
+//   instance, and walks its columns in sub-tiles of kSub, one column a
+//   thread in the epilogue. The sub-tile's S (K x kSub) sits in a shared
+//   buffer; the channels go in chunks of kChunk whose Y rows (a stage holds
+//   the rows a chunk takes) a ring of two shared stages brings in one chunk
+//   ahead with 1-D cp.async.bulk copies
+//   (bulk_ring.cuh, a row a lane of warp 0), and the next sub-tile's S the
+//   same way into a second buffer where two fit. K2's M and V come by the
+//   same copies a main loop ahead of the epilogue that reads them, pass 2's
+//   P beside S. W is read straight into registers at the start of a
+//   chunk's residual (with two blocks, where it is used): each of its
+//   values is used once, by one thread.
+//   Rows that are not 16-byte aligned (ragged N, odd offsets) are copied by
+//   the threads instead.
+// - (a) R: a thread holds 8 channels x 4 columns and runs k in order, each
+//   step float4s of A's 8 rows and of S's 4 rows: the exact-f32 chain
+//   A[c,0] s[0] + ... of the narrow body and the TPU kernel's "fma" path.
+//   D = W (R - Y) (or R - Y) goes to shared memory, over Y's rows in f32.
+// - (b) gS = A^T D: a thread holds KB / 4 components x the same 4 columns
+//   in registers across the chunks and runs c in order (fmaf from 0, as a
+//   thread that owns whole columns sums them: gS, and with it x, S', M'
+//   and V', do not depend on the tiling).
+// - (c) gA += D S^T: a thread holds an 8 x 4 tile of the chunk's (c, k)
+//   block over one part of the sub-tile's columns, in column order; the
+//   parts' sums meet in shared memory and are added in order into each
+//   thread's KB / 8 entries of every chunk, kept in registers for the
+//   whole group. The Gram (of S' in K1, of the old S in K3) is the same
+//   routine over K x K; K2's row sums are 256 / KB threads a row.
+// - The epilogue reads gS back from shared memory one column per thread
+//   (the prox chain needs all K values of a column): K3 stores gS; K1 forms
+//   x = s - sS gS and applies the compiled chain (prox_chain.cuh), stores
+//   S' and writes the stored S' back for the Gram; K2 forms the moments,
+//   Phi, Psi and x, then the chain with the per-element step alpha_k /
+//   Psi_safe (kept in shared memory beside the column). The split path's
+//   first pass stores x (and K2's step) in float32; its second pass takes
+//   the prox's output P and gives the Gram (K1) or the row sums (K2) and
+//   [|S' - S|^2, |S'|^2], storing S' rounded to bfloat16 with the bfloat16
+//   store.
+// - Each group writes one row of partial sums, contiguous (coalesced); a
+//   second launch gives each 32 entries a block whose warps sum the group
+//   rows in double in a fixed order and round once. No atomics: two
 //   launches give the same bits, whatever the grid or the card, and the
 //   summation order depends on N and tile_n alone.
-// - Columns past N in a unit's last sub-tile add exact zeros: their S, D
-//   and S' entries in shared memory are zeros.
+// - Columns past N in a group's last sub-tile and components past K add
+//   exact zeros: their S and D entries in shared memory are zeros.
 //
 // What bounds it on an H100 at C = 128, K = 32: the float32 FMAs, about
-// (3 C K + K^2) per pixel column (the residual, gS, gA and the Gram), 13.3e9
-// at N = 1e6, 0.40 ms at 67 TFLOP/s, against (C + 2K) N 4 = 0.77 GB of
-// naive bytes, 0.23 ms at 3.35 TB/s. No tensor cores: TF32 would round the
-// residual's operands.
+// 3 C K + K (K + 1) / 2 per pixel column (the Gram is symmetric; the body
+// forms both triangles, K^2), 12.8e9 at N = 1e6, 0.38 ms at 67 TFLOP/s,
+// against (C + 2K) N 4 = 0.77 GB of naive bytes, 0.23 ms at 3.35 TB/s; and,
+// tighter than both, the shared-memory delivery: the 8 x 4 tiles load 3
+// floats per 8 FMAs, 1.5 times the FMAs' time. No tensor cores: TF32 would
+// round the residual's operands.
 
 #pragma once
 
@@ -68,13 +97,28 @@ namespace wide {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kSub = kThreads;   // columns per sub-tile, one per thread
-constexpr int kPart = 4 * kSub;  // columns per work unit at most
-constexpr int kRP = kSub + 4;    // pitch of a shared row (floats)
+constexpr int kSub = 256;        // columns per sub-tile
+constexpr int kPart = kSub;      // columns per work unit at most
 constexpr int kChunk = 32;       // channels per chunk
 constexpr int kMaxC = 256;
 constexpr int kMaxK = 32;
-constexpr int kSmemMax = 224 * 1024;
+constexpr int kMaxChunks = kMaxC / kChunk;
+// Groups of units (rows of partial sums) at most, per block an SM holds:
+// one block each, so kGroups groups of blocks that run one per SM, or 2
+// kGroups of blocks that run two per SM, fill the H100's 132 SMs in one
+// wave. The count depends on N, tile_n and the instance (KB, the mode, C
+// and the types), whatever the card.
+constexpr int kGroups = 132;
+constexpr int kPitchF = kSub + 4;  // pitch of a float32 row (floats)
+// The dynamic shared memory a block may take beside its static arrays
+// (227 KB in all), and the most two blocks of an SM may each take (228 KB
+// an SM, 1 KB of it reserved per block, and the static arrays).
+constexpr int kSmemMax = 226 * 1024;
+constexpr int kSmemPair = 112 * 1024;
+constexpr int kFinThreads = 256;
+// Floats of the (c) routine's buffer of partial sums: a tile of at most 32
+// sums a thread, and the padding of the parts' rows.
+constexpr int kPartFloats = kThreads * 32 + kThreads;
 
 // What a pass computes.
 enum Mode {
@@ -103,8 +147,15 @@ __host__ __device__ constexpr bool has_rowsum(int m) {
 __host__ __device__ constexpr bool has_update(int m) {
   return m == kPgm || m == kPgmPost || m == kAda || m == kAdaPost;
 }
+// The blocks per SM an instance is built for (its __launch_bounds__): two,
+// at most 128 registers a thread, where KB = 8 or the pass has no residual;
+// one, up to 255 registers, for the residual at KB = 16 and 32. Two run
+// where their shared memory fits (Smem::blocks).
+__host__ __device__ constexpr int blocks_per_sm(int kb, int m) {
+  return (kb <= 8 || !has_residual(m)) ? 2 : 1;
+}
 
-// The entries of one unit's row of partial sums: gA (C K), the Gram (K K,
+// The entries of one group's row of partial sums: gA (C K), the Gram (K K,
 // both triangles) or the row sums (K), then the statistics: [loss] and/or
 // [|S' - S|^2, |S'|^2].
 struct Entries {
@@ -119,17 +170,39 @@ __host__ __device__ inline Entries entries(int mode, int C, int K) {
   return e;
 }
 
+__host__ __device__ inline long long lmin(long long x, long long y) {
+  return x < y ? x : y;
+}
 __host__ __device__ inline long long parts_per_tile(long long tile_n) {
   return (tile_n + kPart - 1) / kPart;
-}
-__host__ __device__ inline long long stride(long long n_units) {
-  return (n_units + 3) & ~3ll;
 }
 __host__ __device__ inline long long unit_count(long long N,
                                                 long long tile_n) {
   const long long n_tiles = (N + tile_n - 1) / tile_n;
   const long long last = N - (n_tiles - 1) * tile_n;
   return (n_tiles - 1) * parts_per_tile(tile_n) + (last + kPart - 1) / kPart;
+}
+// Unit u covers the columns [begin, end).
+__host__ __device__ inline void unit_span(long long u, long long N,
+                                          long long tile_n, long long& begin,
+                                          long long& end) {
+  const long long ppt = parts_per_tile(tile_n);
+  const long long j = u / ppt, p = u % ppt;
+  begin = j * tile_n + p * kPart;
+  end = lmin(j * tile_n + lmin((p + 1) * kPart, tile_n), N);
+}
+// Units per group, and groups (blocks, rows of partial sums), for blocks
+// that run `blocks` to an SM. group_count(n_units, 2) bounds every
+// instance's count: the rows of partial sums to allocate.
+__host__ __device__ inline long long group_units(long long n_units,
+                                                 int blocks) {
+  const long long cap = (long long)kGroups * blocks;
+  return (n_units + cap - 1) / cap;
+}
+__host__ __device__ inline long long group_count(long long n_units,
+                                                 int blocks) {
+  const long long g = group_units(n_units, blocks);
+  return (n_units + g - 1) / g;
 }
 
 template <typename ST, typename MT>
@@ -153,286 +226,830 @@ struct Args {
   MT* V_out;            // K2
   float* pre;           // pass 1: x (K, N) float32
   float* pre_step;      // K2 pass 1: alpha / Psi_safe (K, N) float32
-  float* partials;      // (entries, stride(n_units))
+  float* partials;      // (group_count(n_units, blocks), entries)
 };
 
-// Shared memory, in floats from the dynamic base.
+// Pitch (elements) of a row of S, Y or W as stored: rows stay 16-byte
+// aligned for the bulk copies, and rows r and r + 1 start 4 banks apart.
+template <typename T>
+__host__ __device__ constexpr int raw_pitch() {
+  return sizeof(T) == 4 ? kSub + 4 : kSub + 8;
+}
+
+// Shared memory, byte offsets from the dynamic base.
 struct Smem {
-  int ar, af, s, x, slots, total;  // offsets and the size, in floats
-  int n_slots;                     // slots per thread
+  int a_res, a_f;   // A for the residual and for gS: rows of KB + 4 floats
+  int s, s_bytes;   // the S buffers (each KB rows of kPitchF floats)
+  int n_s;          // 2 where two fit, else 1
+  int p;            // pass 2: the prox's output P beside each S buffer
+  int mv, mv_bytes; // K2: M and V of a sub-tile (each KB rows), where they
+                    // fit (mv_bytes 0 otherwise: read from global memory)
+  int ring, stage;  // the chunk ring: two stages of kChunk rows of Y
+  int d;            // D of a chunk in float32 with the bfloat16 store (f32
+                    // D overwrites Y); the epilogue's buffer in pass 2
+  int part;         // the (c) routine's partial sums; without a residual
+                    // they share the epilogue's buffer (the Gram reads S'
+                    // there before it writes them)
+  int total;
+  int blocks;       // blocks per SM: 2 where the instance is built for two
+                    // and the layout fits kSmemPair, else 1
 };
-template <int KB>
-__host__ __device__ inline Smem smem_layout(int mode, int C, bool bf16) {
-  constexpr int E = KB / 8;
+template <int KB, typename ST, typename MT>
+__host__ __device__ inline Smem smem_layout(int mode, int C) {
+  constexpr bool kF32 = std::is_same<ST, float>::value;
+  const bool res = has_residual(mode);
+  const int cpad = res ? (C + kChunk - 1) / kChunk * kChunk : 0;
+  const int a_bytes = cpad * (KB + 4) * 4;
+  // the rows a chunk takes: its channels in the residual's blocks of 8,
+  // at most kChunk; in float32 gS then takes the last chunk's stage (KB
+  // rows)
+  const int crows = res ? (C < kChunk ? (C + 7) / 8 * 8 : kChunk) : 0;
+  const int drows = res ? (crows > KB ? crows : KB) : KB;
   Smem m;
-  const int ca = has_residual(mode) ? C * KB : 0;
-  m.ar = 0;
-  m.af = ca;
-  m.s = m.af + (bf16 ? ca : 0);
-  m.x = m.s + KB * kRP;
-  m.slots = m.x + kChunk * kRP;
-  const int chunks = has_residual(mode) ? (C + kChunk - 1) / kChunk : 0;
-  m.n_slots = (chunks + (has_gram(mode) ? 1 : 0)) * E;
-  m.total = m.slots + m.n_slots * kThreads + kMaxK;  // + the row sums
+  m.a_res = 0;
+  m.a_f = kF32 ? 0 : a_bytes;
+  m.s = kF32 ? a_bytes : 2 * a_bytes;
+  m.s_bytes = KB * kPitchF * 4;
+  m.stage = res ? (kF32 ? drows : crows) * raw_pitch<ST>() * (int)sizeof(ST)
+                : 0;
+  const int d_bytes = (res && kF32) ? 0 : drows * kPitchF * 4;
+  const int p_bytes = res ? 0 : m.s_bytes;
+  const int part_bytes = kPartFloats * 4;
+  const int dp_bytes = res ? d_bytes + part_bytes
+                           : (d_bytes > part_bytes ? d_bytes : part_bytes);
+  // A, the ring, D, the parts' sums and one S buffer first; then K2's M
+  // and V; then a second S buffer, each where it fits
+  const int base = m.s + m.s_bytes + p_bytes + 2 * m.stage + dp_bytes;
+  m.blocks = blocks_per_sm(KB, mode) == 2 && base <= kSmemPair ? 2 : 1;
+  const int budget = m.blocks == 2 ? kSmemPair : kSmemMax;
+  const int mv =
+      (mode == kAda || mode == kAdaPre)
+          ? KB * raw_pitch<MT>() * (int)sizeof(MT) : 0;
+  m.mv_bytes = base + 2 * mv <= budget ? mv : 0;
+  m.n_s = base + 2 * m.mv_bytes + m.s_bytes + p_bytes <= budget ? 2 : 1;
+  m.p = m.s + m.n_s * m.s_bytes;
+  m.mv = m.p + m.n_s * p_bytes;
+  m.ring = m.mv + 2 * m.mv_bytes;
+  m.d = m.ring + 2 * m.stage;
+  m.part = res ? m.d + d_bytes : m.d;
+  m.total = m.d + dp_bytes;
   return m;
 }
 
-// slots[j * kThreads + tid] += sum over the sub-tile's columns of
-// X[r][n] Z[k][n] for the thread's entries k = tid mod KB and
-// r = E (tid / KB) + j, j < E, r < rows, k < K. X and Z are rows of kRP.
-template <int KB>
-__device__ __forceinline__ void chunk_products(float* slots, const float* X,
-                                               int rows, const float* Z,
-                                               int K) {
-  constexpr int E = KB / 8;
-  const int tid = threadIdx.x;
-  const int k = tid % KB, r0 = E * (tid / KB);
-  if (k >= K || r0 >= rows) return;
-  float acc[E];
+// Four consecutive elements as float32 (16 or 8 bytes aligned), from shared
+// or global memory.
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+// Four consecutive elements from global memory, loaded where the call
+// stands: the volatile asm keeps the compiler from sinking the load to
+// its use (W's loads are issued before a chunk's residual and used after
+// it).
+__device__ __forceinline__ float4 ld4_now(const float* p) {
+#ifdef __CUDA_ARCH__
+  float4 v;
+  asm volatile("ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(p));
+  return v;
+#else
+  return ld4(p);
+#endif
+}
+__device__ __forceinline__ float4 ld4_now(const __nv_bfloat16* p) {
+#ifdef __CUDA_ARCH__
+  uint2 u;
+  asm volatile("ld.global.nc.v2.u32 {%0, %1}, [%2];"
+               : "=r"(u.x), "=r"(u.y)
+               : "l"(p));
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+#else
+  return ld4(p);
+#endif
+}
+// The first n < 4 of four elements (the rest 0), one by one.
+template <typename T>
+__device__ __forceinline__ float4 ld4_part(const T* p, int n) {
+  float v[4];
 #pragma unroll
-  for (int j = 0; j < E; ++j) acc[j] = slots[j * kThreads + tid];
-  const float* z = Z + k * kRP;
-  const float* x = X + r0 * kRP;
-#pragma unroll 4
-  for (int n = 0; n < kSub; n += 4) {
-    const float4 zv = *reinterpret_cast<const float4*>(z + n);
-#pragma unroll
-    for (int j = 0; j < E; ++j) {
-      const float4 xv = *reinterpret_cast<const float4*>(x + j * kRP + n);
-      float a = acc[j];
-      a = fmaf(xv.x, zv.x, a);
-      a = fmaf(xv.y, zv.y, a);
-      a = fmaf(xv.z, zv.z, a);
-      a = fmaf(xv.w, zv.w, a);
-      acc[j] = a;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < E; ++j)
-    if (r0 + j < rows) slots[j * kThreads + tid] = acc[j];
+  for (int j = 0; j < 4; ++j) v[j] = j < n ? to_f32(p[j]) : 0.f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void zero(float& v) { v = 0.f; }
+__device__ __forceinline__ void zero(__nv_bfloat16& v) {
+  v = __float2bfloat16_rn(0.f);
 }
 
-// rowsum[k] += the sum of row k of X over the sub-tile: eight threads per
-// row, 32 columns each in order, then a fixed shuffle tree.
-__device__ __forceinline__ void row_sums(float* rowsum, const float* X,
-                                         int K) {
-  const int tid = threadIdx.x, k = tid / 8, q = tid % 8;
-  float v = 0.f;
-  if (k < K) {
-    const float* x = X + k * kRP + q * 32;
-#pragma unroll 8
-    for (int n = 0; n < 32; ++n) v += x[n];
+// Four steps k .. k + 3 of (a) for MI rows a, a + 4 AP, ... of A and the 4
+// columns s of a row of S: r[i][j] (+)= A[i][k'] S[k'][j]; kFirst: the
+// chain starts with the product A[i][0] S[0][j].
+template <bool kFirst, int MI, int KB, typename ST>
+__device__ __forceinline__ void residual_steps(float (&r)[MI][4],
+                                               const float* a, const ST* s,
+                                               int k) {
+  constexpr int AP = KB + 4, PS = raw_pitch<ST>();
+  float4 sv[4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) sv[kk] = ld4(s + (k + kk) * PS);
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+    const float4 av = *reinterpret_cast<const float4*>(a + 4 * i * AP + k);
+    const float ak[4] = {av.x, av.y, av.z, av.w};
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float sj[4] = {sv[kk].x, sv[kk].y, sv[kk].z, sv[kk].w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        r[i][j] = (kFirst && kk == 0) ? ak[0] * sj[j]
+                                      : fmaf(ak[kk], sj[j], r[i][j]);
+    }
   }
-  v += __shfl_down_sync(0xffffffffu, v, 4, 8);
-  v += __shfl_down_sync(0xffffffffu, v, 2, 8);
-  v += __shfl_down_sync(0xffffffffu, v, 1, 8);
-  if (k < K && q == 0) rowsum[k] += v;
+}
+
+// (a) for MI channel rows and 4 columns: r[i][j] = A[i][0] S[0][j] +
+// A[i][1] S[1][j] + ..., an fmaf chain over k in order.
+template <int MI, int KB, typename ST>
+__device__ __forceinline__ void residual_tile(float (&r)[MI][4],
+                                              const float* a, const ST* s) {
+  residual_steps<true, MI, KB, ST>(r, a, s, 0);
+#pragma unroll 1
+  for (int k = 4; k < KB; k += 4)
+    residual_steps<false, MI, KB, ST>(r, a, s, k);
+}
+
+// MB consecutive floats (MB = 2, 4 or 8; aligned to 8 bytes, or 16).
+template <int MB>
+__device__ __forceinline__ void ldv(float (&v)[MB], const float* p) {
+  if constexpr (MB == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
+  } else {
+#pragma unroll
+    for (int h = 0; h < MB; h += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(p + h);
+      v[h] = q.x;
+      v[h + 1] = q.y;
+      v[h + 2] = q.z;
+      v[h + 3] = q.w;
+    }
+  }
+}
+
+// (b): g[i][j] += the sum over the chunk's channels c < depth, in order, of
+// A[c][k0 + i] D[c][n_j]; a points at A[chunk row 0][k0], d at D[0][n_0].
+template <int KB>
+__device__ __forceinline__ void grad_tile(float (&g)[KB / 4][4],
+                                          const float* a, const float* d,
+                                          int depth) {
+  constexpr int MB = KB / 4, AP = KB + 4;
+#pragma unroll 1
+  for (int c = 0; c < depth; c += 4) {
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+      float av[MB];
+      ldv<MB>(av, a + (c + cc) * AP);
+      const float4 dv = ld4(d + (c + cc) * kPitchF);
+#pragma unroll
+      for (int i = 0; i < MB; ++i) {
+        g[i][0] = fmaf(av[i], dv.x, g[i][0]);
+        g[i][1] = fmaf(av[i], dv.y, g[i][1]);
+        g[i][2] = fmaf(av[i], dv.z, g[i][2]);
+        g[i][3] = fmaf(av[i], dv.w, g[i][3]);
+      }
+    }
+  }
+}
+
+// The (c) routine: sums over a sub-tile's columns of products of the rows
+// of two operands, X (R1 rows) and Z (R2 rows): gA's (c, k) block of a
+// chunk (X = D, Z = S), the Gram (X = Z = S' or S). A thread holds a tile
+// of T1 consecutive rows of X, r1 + i, by T2 rows of Z, r2 + G2 j, summed
+// in column order over one part of the columns, [part kLen, (part + 1)
+// kLen); the parts' sums go through shared memory (rows of kStride floats)
+// and are added in order. A warp shares r1, so whole warps skip rows past
+// a chunk's channels; its lanes take G2 consecutive rows of Z and 32 / G2
+// parts, so that no 8 lanes of a 16-byte load, nor the 32 of a store of
+// the parts' sums, hit one bank twice.
+template <int R1, int R2, int T1, int T2>
+struct PairMap {
+  static constexpr int kT1 = T1, kT2 = T2;
+  static constexpr int G1 = R1 / T1, G2 = R2 / T2;
+  static constexpr int kParts = kThreads / (G1 * G2);
+  static constexpr int kLen = kSub / kParts;
+  static constexpr int kEntries = R1 * R2;
+  static constexpr int kStride = kEntries + G2;
+  static constexpr int kPerThread = (kEntries + kThreads - 1) / kThreads;
+  static_assert(G1 <= kWarps && G2 <= 8 && kLen % 4 == 0 &&
+                    kParts * kStride <= kPartFloats,
+                "a tile map that does not fit the block");
+  int part, r1, r2;
+  __device__ __forceinline__ explicit PairMap(int tid) {
+    const int lane = tid & 31, warp = tid >> 5;
+    r1 = (warp % G1) * T1;
+    r2 = lane % G2;
+    part = (warp / G1) * (32 / G2) + lane / G2;
+  }
+};
+
+// acc += the thread's products over its part of the columns; x and z point
+// at the operands' row 0, column 0, with row pitches xp and zp; the loop
+// over the columns unrolled kUnroll times.
+template <int kUnroll, class PM, typename XT, typename ZT>
+__device__ __forceinline__ void pair_tile(float (&acc)[PM::kT1][PM::kT2],
+                                          const PM& pm, const XT* x, int xp,
+                                          const ZT* z, int zp) {
+  constexpr int T1 = PM::kT1, T2 = PM::kT2;
+  const int off = pm.part * PM::kLen;
+  const XT* xr = x + pm.r1 * xp + off;
+  const ZT* zr = z + pm.r2 * zp + off;
+#pragma unroll(kUnroll)
+  for (int n = 0; n < PM::kLen; n += 4) {
+    float4 xv[T1], zv[T2];
+#pragma unroll
+    for (int i = 0; i < T1; ++i) xv[i] = ld4(xr + i * xp + n);
+#pragma unroll
+    for (int j = 0; j < T2; ++j) zv[j] = ld4(zr + j * PM::G2 * zp + n);
+#pragma unroll
+    for (int i = 0; i < T1; ++i) {
+#pragma unroll
+      for (int j = 0; j < T2; ++j) {
+        float v = acc[i][j];
+        v = fmaf(xv[i].x, zv[j].x, v);
+        v = fmaf(xv[i].y, zv[j].y, v);
+        v = fmaf(xv[i].z, zv[j].z, v);
+        v = fmaf(xv[i].w, zv[j].w, v);
+        acc[i][j] = v;
+      }
+    }
+  }
+}
+
+// The thread's tile of sums into its part's row of the buffer.
+template <class PM>
+__device__ __forceinline__ void put_parts(float* buf, const PM& pm,
+                                          const float (&acc)[PM::kT1]
+                                                            [PM::kT2]) {
+  float* b = buf + pm.part * PM::kStride;
+#pragma unroll
+  for (int i = 0; i < PM::kT1; ++i)
+#pragma unroll
+    for (int j = 0; j < PM::kT2; ++j)
+      b[(pm.r1 + i) * (PM::G2 * PM::kT2) + pm.r2 + PM::G2 * j] = acc[i][j];
+}
+
+// out[m] += the sum over the parts, in order, of entry tid + kThreads m.
+template <class PM>
+__device__ __forceinline__ void add_parts(const float* buf,
+                                          float (&out)[PM::kPerThread]) {
+#pragma unroll
+  for (int m = 0; m < PM::kPerThread; ++m) {
+    const int e = threadIdx.x + kThreads * m;
+    if (e < PM::kEntries) {
+      float v = buf[e];
+#pragma unroll 4
+      for (int p = 1; p < PM::kParts; ++p) v += buf[p * PM::kStride + e];
+      out[m] += v;
+    }
+  }
 }
 
 template <int KB, typename ST, typename MT, int MODE>
-__device__ __forceinline__ void body(const Args<ST, MT>& a, float* sm) {
+__device__ __forceinline__ void body(const Args<ST, MT>& a,
+                                     unsigned char* smem) {
   constexpr bool kF32 = std::is_same<ST, float>::value;
-  constexpr int E = KB / 8;
-  const int C = a.C, K = a.K;
-  const long long N = a.N;
-  const Smem L = smem_layout<KB>(MODE, C, !kF32);
-  float* const Ar = sm + L.ar;
-  float* const Af = kF32 ? Ar : sm + L.af;
-  float* const Ssm = sm + L.s;
-  float* const Xsm = sm + L.x;
-  float* const slots = sm + L.slots;
-  float* const rsum = slots + L.n_slots * kThreads;
+  constexpr bool kRes = has_residual(MODE);
+  constexpr int PS = raw_pitch<ST>();
+  constexpr int PF = kPitchF;
+  constexpr int AP = KB + 4;
+  constexpr int MB = KB / 4;
+  constexpr int ss = sizeof(ST);
+  // The residual's instances built for two blocks per SM fit 128 registers
+  // (no spill): W is loaded where it is used, not pinned ahead of the
+  // chunk's wait, and (c)'s column loop and K2's update are not unrolled.
+  // The other block hides those loads.
+  constexpr bool kLean = kRes && blocks_per_sm(KB, MODE) == 2;
+  constexpr bool kWAtUse = kLean;
+  constexpr int kPairUnroll = kLean ? 1 : 2;
+  constexpr int kUpdateUnroll = kLean ? 1 : 4;  // K2's update over k
+  // (c)'s maps: gA's (channel, component) block of a chunk, 8 x 4 tiles;
+  // the Gram's (component, component) block, 8 x 4 tiles (4 x 2 at KB = 8)
+  using GA = PairMap<kChunk, KB, 8, 4>;
+  using GR = PairMap<KB, KB, (KB >= 16 ? 8 : 4), (KB >= 16 ? 4 : 2)>;
+  __shared__ __align__(8) uint64_t full[2];   // the chunk ring's stages
+  __shared__ __align__(8) uint64_t sfull[2];  // the S buffers
+  __shared__ __align__(8) uint64_t mvfull;    // K2's M and V
   __shared__ float red[kWarps][3];
 
+  const int C = a.C, K = a.K;
+  const long long N = a.N;
+  const bool weighted = kRes && a.W != nullptr;
+  const Smem L = smem_layout<KB, ST, MT>(MODE, C);
+  float* const Ares = reinterpret_cast<float*>(smem + L.a_res);
+  float* const Af = reinterpret_cast<float*>(smem + L.a_f);
+  unsigned char* const ring = smem + L.ring;
+  float* const parts = reinterpret_cast<float*>(smem + L.part);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long long u = blockIdx.x;
-  if constexpr (has_residual(MODE)) {
-    for (int i = tid; i < C * KB; i += kThreads) {
+
+  // the group's columns [lo, hi): its units, consecutive
+  const long long G = group_units(a.n_units, L.blocks);
+  const long long u0 = (long long)blockIdx.x * G;
+  const long long u1 = lmin(u0 + G, a.n_units) - 1;
+  long long lo, hi, skip;
+  unit_span(u0, N, a.tile_n, lo, skip);
+  unit_span(u1, N, a.tile_n, skip, hi);
+  const int n_sub = (int)((hi - lo + kSub - 1) / kSub);
+  const int nch = kRes ? (C + kChunk - 1) / kChunk : 0;
+  const int n_q = n_sub * nch;
+
+  if constexpr (kRes) {
+    for (int i = tid; i < nch * kChunk * KB; i += kThreads) {
       const int c = i / KB, k = i % KB;
-      const float v = k < K ? a.A[c * K + k] : 0.f;
-      Af[i] = v;
-      if constexpr (!kF32) Ar[i] = __bfloat162float(__float2bfloat16_rn(v));
+      const float v = (c < C && k < K) ? a.A[c * K + k] : 0.f;
+      Af[c * AP + k] = v;
+      if constexpr (!kF32)
+        Ares[c * AP + k] = __bfloat162float(__float2bfloat16_rn(v));
     }
   }
-  for (int j = 0; j < L.n_slots; ++j) slots[j * kThreads + tid] = 0.f;
-  if (tid < kMaxK) rsum[tid] = 0.f;
+  // components past K add zeros: no copy or thread writes those rows
+  for (int b = 0; b < L.n_s; ++b) {
+    ST* Sb = reinterpret_cast<ST*>(smem + L.s + b * L.s_bytes);
+    for (int i = tid; i < (KB - K) * kSub; i += kThreads)
+      zero(Sb[(K + i / kSub) * PS + i % kSub]);
+  }
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&sfull[i], 1);
+    }
+    mbar_init(&mvfull, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
   __syncthreads();
 
-  float sS = 0.f;
-  if constexpr (MODE == kPgm || MODE == kPgmPre) sS = *a.step_S;
-  float b1_t = a.b1_t, bc1 = a.bc1, bc2 = a.bc2;
-  if constexpr (MODE == kAda || MODE == kAdaPre) {
-    if (a.dsc != nullptr) {
-      b1_t = a.dsc[0];
-      bc1 = a.dsc[1];
-      bc2 = a.dsc[2];
-    }
-  }
-  // (1 - b1_t) in f32, as the TPU kernel computes it from its f32 scalar
-  const float one_minus_b1 = __fsub_rn(1.f, b1_t);
+  // the rows S, Y (pass 2: P) go by bulk copies where they are aligned
+  constexpr int ps = kRes ? ss : 4;  // P is float32
+  const bool base_aligned =
+      ((reinterpret_cast<unsigned long long>(a.S) |
+        (kRes ? reinterpret_cast<unsigned long long>(a.Y)
+              : reinterpret_cast<unsigned long long>(a.P)) |
+        (unsigned long long)(N * ss) | (unsigned long long)(N * ps)) &
+       15ull) == 0;
+  // W's rows are read with 16-byte (8-byte) loads where they are aligned
+  const bool w_vec =
+      weighted && ((reinterpret_cast<unsigned long long>(a.W) |
+                    (unsigned long long)(N * ss) |
+                    (unsigned long long)(lo * ss)) & (4 * ss - 1)) == 0;
+  auto bulk_ok = [&](long long c0, int width) {
+    return base_aligned && (((unsigned long long)(c0 * ss) |
+                             (unsigned long long)(width * ss) |
+                             (unsigned long long)(c0 * ps) |
+                             (unsigned long long)(width * ps)) & 15ull) == 0;
+  };
+  auto sub_cols = [&](int t, long long& c0) {
+    c0 = lo + (long long)t * kSub;
+    return (int)lmin(kSub, hi - c0);
+  };
+  auto s_buf = [&](int t) { return L.n_s == 2 ? (t & 1) : 0; };
+  // Warp 0 issues a fill's bulk copies, a row a lane, once lane 0 has set
+  // the barrier's byte count.
+  auto bulk_rows = [&](uint64_t* bar, uint32_t bytes, int n_rows,
+                       auto&& copy_row) {
+    if (warp != 0) return;
+    // the buffer was last used through the generic proxy
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    if (lane == 0) mbar_arrive_expect_tx(bar, bytes);
+    __syncwarp();
+    for (int r = lane; r < n_rows; r += 32) copy_row(r);
+  };
 
-  const long long ppt = parts_per_tile(a.tile_n);
-  const long long jt = u / ppt, pt = u % ppt;
-  const long long ub = jt * a.tile_n + pt * kPart;
-  const long long ue =
-      min(jt * a.tile_n + min((pt + 1) * (long long)kPart, a.tile_n), N);
-  const bool weighted = a.W != nullptr;
+  // S (pass 2: and P) of sub-tile t into its buffers; every thread calls
+  // it.
+  auto fill_s = [&](int t) {
+    long long c0;
+    const int width = sub_cols(t, c0);
+    const int b = s_buf(t);
+    ST* dst = reinterpret_cast<ST*>(smem + L.s + b * L.s_bytes);
+    float* dp = reinterpret_cast<float*>(smem + L.p + b * L.s_bytes);
+    if (bulk_ok(c0, width)) {
+      bulk_rows(&sfull[b], (uint32_t)(K * width * (kRes ? ss : ss + 4)), K,
+                [&](int k) {
+                  bulk_load(dst + k * PS, a.S + k * N + c0, width * ss,
+                            &sfull[b]);
+                  if constexpr (!kRes)
+                    bulk_load(dp + k * PF, a.P + k * N + c0, width * 4,
+                              &sfull[b]);
+                });
+      return;
+    }
+    for (int k = warp; k < K; k += kWarps)
+      for (int n = lane; n < width; n += 32) {
+        dst[k * PS + n] = a.S[k * N + c0 + n];
+        if constexpr (!kRes) dp[k * PF + n] = a.P[k * N + c0 + n];
+      }
+    __syncthreads();
+    if (tid == 0) mbar_arrive(&sfull[b]);
+  };
+  // Y of chunk q = (sub-tile, channel chunk) into stage q & 1; every
+  // thread calls it.
+  auto fill_y = [&](int q) {
+    const int t = q / nch, ch = q - t * nch;
+    long long c0;
+    const int width = sub_cols(t, c0);
+    const int r0 = ch * kChunk, rows = min(kChunk, C - r0);
+    ST* dy = reinterpret_cast<ST*>(ring + (q & 1) * L.stage);
+    if (bulk_ok(c0, width)) {
+      bulk_rows(&full[q & 1], (uint32_t)(rows * width * ss), rows,
+                [&](int r) {
+                  bulk_load(dy + r * PS, a.Y + (long long)(r0 + r) * N + c0,
+                            width * ss, &full[q & 1]);
+                });
+      return;
+    }
+    for (int r = warp; r < rows; r += kWarps) {
+      const long long gi = (long long)(r0 + r) * N + c0;
+      for (int n = lane; n < width; n += 32) dy[r * PS + n] = a.Y[gi + n];
+    }
+    __syncthreads();
+    if (tid == 0) mbar_arrive(&full[q & 1]);
+  };
+
+  // K2's M and V of sub-tile t into their buffers; every thread calls it.
+  constexpr int ms = sizeof(MT), PM = raw_pitch<MT>();
+  MT* const Mb = reinterpret_cast<MT*>(smem + L.mv);
+  MT* const Vb = reinterpret_cast<MT*>(smem + L.mv + L.mv_bytes);
+  const bool mv_aligned =
+      ((reinterpret_cast<unsigned long long>(a.M) |
+        reinterpret_cast<unsigned long long>(a.V) |
+        (unsigned long long)(N * ms)) & 15ull) == 0;
+  auto fill_mv = [&](int t) {
+    long long c0;
+    const int width = sub_cols(t, c0);
+    uint64_t* bar = &mvfull;
+    if (mv_aligned && (((unsigned long long)(c0 * ms) |
+                        (unsigned long long)(width * ms)) & 15ull) == 0) {
+      bulk_rows(bar, (uint32_t)(2 * K * width * ms), K, [&](int k) {
+        bulk_load(Mb + k * PM, a.M + k * N + c0, width * ms, bar);
+        bulk_load(Vb + k * PM, a.V + k * N + c0, width * ms, bar);
+      });
+      return;
+    }
+    for (int k = warp; k < K; k += kWarps)
+      for (int n = lane; n < width; n += 32) {
+        Mb[k * PM + n] = a.M[k * N + c0 + n];
+        Vb[k * PM + n] = a.V[k * N + c0 + n];
+      }
+    __syncthreads();
+    if (tid == 0) mbar_arrive(bar);
+  };
+
+  fill_s(0);
+  if (L.n_s == 2 && n_sub > 1) fill_s(1);
+  if (L.mv_bytes) fill_mv(0);
+  if (n_q > 0) fill_y(0);
+  if (n_q > 1) fill_y(1);
+
+  // the thread's tiles in (a) and (b): columns ncol .. ncol + 3; channel
+  // rows rg + 4 i of the chunk; components kb0 .. kb0 + MB - 1
+  const int rg = lane >> 3, cg = lane & 7;
+  const int ncol = warp * 32 + cg * 4;
+  const int kb0 = rg * MB;
+  // the row-sum threads: component rk, the columns 4 rp + 4 kRowParts j ..
+  // (a quarter-warp's float4s side by side)
+  constexpr int kRowParts = kThreads / KB;
+  constexpr int kRowLen = kSub / kRowParts;
+  const int rk = tid / kRowParts, rp = tid % kRowParts;
+
+  float ga[kMaxChunks][GA::kPerThread];
+#pragma unroll
+  for (int c = 0; c < kMaxChunks; ++c)
+#pragma unroll
+    for (int m = 0; m < GA::kPerThread; ++m) ga[c][m] = 0.f;
+  float gr[GR::kPerThread];
+#pragma unroll
+  for (int m = 0; m < GR::kPerThread; ++m) gr[m] = 0.f;
+  float rs = 0.f;
   float st0 = 0.f, st1 = 0.f, st2 = 0.f;
 
-  for (long long c0 = ub; c0 < ue; c0 += kSub) {
-    const bool valid = c0 + tid < ue;
-    const long long n = c0 + tid;
-    float s[KB], g[KB];
-#pragma unroll
-    for (int k = 0; k < KB; ++k) {
-      s[k] = (valid && k < K) ? to_f32(a.S[k * N + n]) : 0.f;
-      Ssm[k * kRP + tid] = s[k];
-      g[k] = 0.f;
+  for (int t = 0; t < n_sub; ++t) {
+    long long c0;
+    const int width = sub_cols(t, c0);
+    const int sb = s_buf(t);
+    ST* const Sr = reinterpret_cast<ST*>(smem + L.s + sb * L.s_bytes);
+    mbar_wait(&sfull[sb], (uint32_t)((L.n_s == 2 ? t >> 1 : t) & 1));
+    if (width < kSub) {
+      // columns past the group's end add zeros
+      for (int i = tid; i < K * kSub; i += kThreads) {
+        const int k = i / kSub, n = i % kSub;
+        if (n >= width) zero(Sr[k * PS + n]);
+      }
+      __syncthreads();
     }
 
-    if constexpr (has_residual(MODE)) {
-      for (int cc = 0; cc < C; cc += kChunk) {
-        const int rows = min(kChunk, C - cc);
-        for (int i = 0; i < rows; i += 4) {
-          float y[4], w[4];
+    float gs[MB][4];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const bool ok = valid && i + j < rows;
-            const long long gi = (long long)(cc + i + j) * N + n;
-            y[j] = ok ? to_f32(a.Y[gi]) : 0.f;
-            w[j] = (ok && weighted) ? to_f32(a.W[gi]) : 0.f;
-          }
+    for (int i = 0; i < MB; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            if (i + j >= rows) break;
-            const float* ar = Ar + (cc + i + j) * KB;
-            const float* af = Af + (cc + i + j) * KB;
-            float r = ar[0] * s[0];
+      for (int j = 0; j < 4; ++j) gs[i][j] = 0.f;
+
+    if constexpr (kRes) {
+      const int wn = min(4, width - ncol);  // the thread's columns left
+      for (int ch = 0; ch < nch; ++ch) {
+        const int q = t * nch + ch;
+        const int rows = min(kChunk, C - ch * kChunk);
+        unsigned char* st = ring + (q & 1) * L.stage;
+        const ST* Ys = reinterpret_cast<const ST*>(st);
+        float* const D = kF32 ? reinterpret_cast<float*>(st)
+                              : reinterpret_cast<float*>(smem + L.d);
+        // (a) W of the thread's row rg + 4 i, from global memory: in
+        // flight while the residual runs, or (kWAtUse) where it is used
+        auto w_of = [&](int i) {
+          const int c = rg + 4 * i;
+          const ST* p = a.W + (long long)(ch * kChunk + c) * N + c0 + ncol;
+          return (c >= rows || wn <= 0)
+                     ? make_float4(0.f, 0.f, 0.f, 0.f)
+                     : (w_vec && wn == 4 ? ld4_now(p) : ld4_part(p, wn));
+        };
+        float4 wv[8];
 #pragma unroll
-            for (int k = 1; k < KB; ++k) r = fmaf(ar[k], s[k], r);
-            r -= y[j];
-            float d = weighted ? w[j] * r : r;
-            if (!valid) d = 0.f;
-            st0 = fmaf(d, r, st0);
-            Xsm[(i + j) * kRP + tid] = d;
+        for (int i = 0; i < 8; ++i) wv[i] = make_float4(1.f, 1.f, 1.f, 1.f);
+        if (!kWAtUse && weighted) {
 #pragma unroll
-            for (int k = 0; k < KB; ++k) g[k] = fmaf(af[k], d, g[k]);
-          }
+          for (int i = 0; i < 8; ++i) wv[i] = w_of(i);
         }
-        __syncthreads();  // D of the chunk and S are in shared memory
-        chunk_products<KB>(slots + (cc / kChunk) * E * kThreads, Xsm, rows,
-                           Ssm, K);
-        __syncthreads();  // the chunk's buffer is free again
+        mbar_wait(&full[q & 1], (uint32_t)((q >> 1) & 1));
+        // the residual, 8 rows rg + 4 i by 4 columns: in a chunk of at
+        // most 24 channels only the 8-row blocks that hold channels
+        float r[8][4];
+        if (rows == kChunk) {
+          residual_tile<8, KB, ST>(r, Ares + (ch * kChunk + rg) * AP,
+                                   Sr + ncol);
+        } else {
+#pragma unroll
+          for (int i0 = 0; i0 < 8; i0 += 2)
+            if (4 * i0 < rows)
+              residual_tile<2, KB, ST>(
+                  reinterpret_cast<float(&)[2][4]>(r[i0]),
+                  Ares + (ch * kChunk + rg + 4 * i0) * AP, Sr + ncol);
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          if (4 * (i & ~1) >= rows) continue;  // a block past the channels
+          const int c = rg + 4 * i;
+          const float4 yv = ld4(Ys + c * PS + ncol);
+          const float y4[4] = {yv.x, yv.y, yv.z, yv.w};
+          if (kWAtUse && weighted) wv[i] = w_of(i);
+          const float w4[4] = {wv[i].x, wv[i].y, wv[i].z, wv[i].w};
+          float d4[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float rr = r[i][j] - y4[j];
+            float d = weighted ? w4[j] * rr : rr;
+            if (c < rows && j < wn)
+              st0 = fmaf(d, rr, st0);
+            else
+              d = 0.f;
+            d4[j] = d;
+          }
+          *reinterpret_cast<float4*>(D + c * PF + ncol) =
+              make_float4(d4[0], d4[1], d4[2], d4[3]);
+        }
+        __syncthreads();  // D of the chunk is in shared memory
+        // (b) gS over the chunk's channels in order
+        grad_tile<KB>(gs, Af + ch * kChunk * AP + kb0, D + ncol,
+                      (rows + 3) & ~3);
+        // (c) gA of the chunk over the thread's part of the columns
+        const GA pa(tid);
+        if (pa.r1 < rows) {
+          float acc[GA::kT1][GA::kT2];
+#pragma unroll
+          for (int i = 0; i < GA::kT1; ++i)
+#pragma unroll
+            for (int j = 0; j < GA::kT2; ++j) acc[i][j] = 0.f;
+          pair_tile<kPairUnroll>(acc, pa, D, PF, Sr, PS);
+          put_parts(parts, pa, acc);
+        }
+        __syncthreads();  // D is read, the parts' sums are in
+        {
+          float sum[GA::kPerThread];
+#pragma unroll
+          for (int m = 0; m < GA::kPerThread; ++m) sum[m] = 0.f;
+          add_parts<GA>(parts, sum);
+#pragma unroll
+          for (int c = 0; c < kMaxChunks; ++c)
+            if (c == ch)
+#pragma unroll
+              for (int m = 0; m < GA::kPerThread; ++m) ga[c][m] += sum[m];
+        }
+        // in float32 the last chunk's stage takes gS for the epilogue: it
+        // is refilled after it
+        if (q + 2 < n_q && !(kF32 && ch == nch - 1)) fill_y(q + 2);
       }
     }
 
-    // the epilogue of the column: x (K values) and what is stored
+    // the Gram: of the old S in K3 (now), of S' in K1 (after the epilogue)
+    auto gram = [&](const auto* x, int xp) {
+      float acc[GR::kT1][GR::kT2];
+#pragma unroll
+      for (int i = 0; i < GR::kT1; ++i)
+#pragma unroll
+        for (int j = 0; j < GR::kT2; ++j) acc[i][j] = 0.f;
+      const GR pg(tid);
+      if (pg.r1 < K) pair_tile<kPairUnroll>(acc, pg, x, xp, x, xp);
+      __syncthreads();  // the parts' buffer is free
+      if (pg.r1 < K) put_parts(parts, pg, acc);
+      __syncthreads();
+      add_parts<GR>(parts, gr);
+    };
+    if constexpr (MODE == kGrad) gram(Sr, PS);
+
+    // the epilogue, one column per thread: gS back from shared memory, in
+    // the last chunk's D (pass 2: its own buffer), where S' then goes
+    float* const Gs =
+        kRes && kF32
+            ? reinterpret_cast<float*>(ring + ((t * nch + nch - 1) & 1) *
+                                                  L.stage)
+            : reinterpret_cast<float*>(smem + L.d);
+    const bool valid = tid < width;
+    const long long n = c0 + tid;
+    auto s_of = [&](int k) { return to_f32(Sr[k * PS + tid]); };
+    if constexpr (kRes) {
+#pragma unroll
+      for (int i = 0; i < MB; ++i)
+        *reinterpret_cast<float4*>(Gs + (kb0 + i) * PF + ncol) =
+            make_float4(gs[i][0], gs[i][1], gs[i][2], gs[i][3]);
+      __syncthreads();
+    }
+    // loops over k unrolled by four: the epilogue's code stays small
+    float* const x = Gs + tid;  // the column, pitch PF: gS, x, then S'
     if constexpr (MODE == kGrad) {
-#pragma unroll
-      for (int k = 0; k < KB; ++k)
-        if (valid && k < K) a.out[k * N + n] = g[k];
+      if (valid) {
+#pragma unroll 4
+        for (int k = 0; k < K; ++k) a.out[k * N + n] = x[k * PF];
+      }
     } else if constexpr (MODE == kPgm || MODE == kPgmPre) {
+      // the step on the card, read here (not held through the main loop)
+      const float sS = *a.step_S;
+#pragma unroll 4
+      for (int k = 0; k < K; ++k) {
+        const float v = s_of(k) - sS * x[k * PF];
+        if constexpr (MODE == kPgmPre) {
+          if (valid) a.pre[k * N + n] = v;
+        } else {
+          x[k * PF] = v;
+        }
+      }
+      if constexpr (MODE == kPgm) {
+        // K1's chain in registers (measured faster than on the column)
+        float g[KB];
 #pragma unroll
-      for (int k = 0; k < KB; ++k) g[k] = s[k] - sS * g[k];
-      if constexpr (MODE == kPgmPre) {
+        for (int k = 0; k < KB; ++k) g[k] = k < K ? x[k * PF] : 0.f;
+        apply_chain<KB>(a.chain, g, K, [&](int) { return sS; });
 #pragma unroll
         for (int k = 0; k < KB; ++k)
-          if (valid && k < K) a.pre[k * N + n] = g[k];
-      } else {
-        apply_chain<KB>(a.chain, g, K, [&](int) { return sS; });
+          if (k < K) x[k * PF] = g[k];
       }
     } else if constexpr (MODE == kAda || MODE == kAdaPre) {
-#pragma unroll
-      for (int k = 0; k < KB; ++k) {
-        if (k >= K) continue;
+      // the schedule, read here (not held through the main loop)
+      float b1_t = a.b1_t, bc1 = a.bc1, bc2 = a.bc2;
+      if (a.dsc != nullptr) {
+        b1_t = a.dsc[0];
+        bc1 = a.dsc[1];
+        bc2 = a.dsc[2];
+      }
+      // (1 - b1_t) in f32, as the TPU kernel computes it from its f32 scalar
+      const float one_minus_b1 = __fsub_rn(1.f, b1_t);
+      // the per-element step alpha_k / Psi_safe beside the column, in the
+      // parts' buffer (free until the next chunk)
+      float* const step = parts + tid;
+      if (L.mv_bytes) mbar_wait(&mvfull, (uint32_t)(t & 1));
+#pragma unroll(kUpdateUnroll)
+      for (int k = 0; k < K; ++k) {
         const long long gi = k * N + n;
-        const float m0 = valid ? to_f32(a.M[gi]) : 0.f;
-        const float v0 = valid ? to_f32(a.V[gi]) : 0.f;
-        const float gk = g[k];
+        float m0 = 0.f, v0 = 0.f;
+        if (valid) {
+          m0 = to_f32(L.mv_bytes ? Mb[k * PM + tid] : a.M[gi]);
+          v0 = to_f32(L.mv_bytes ? Vb[k * PM + tid] : a.V[gi]);
+        }
+        const float gk = x[k * PF];
         const float m1 = __fadd_rn(__fmul_rn(one_minus_b1, gk),
                                    __fmul_rn(b1_t, m0));
-        const float v1 = __fadd_rn(__fmul_rn(a.one_minus_b2, __fmul_rn(gk, gk)),
-                                   __fmul_rn(a.b2, v0));
+        const float v1 =
+            __fadd_rn(__fmul_rn(a.one_minus_b2, __fmul_rn(gk, gk)),
+                      __fmul_rn(a.b2, v0));
         const float phi = __fmul_rn(m1, bc1);
         const float psi = __fadd_rn(__fsqrt_rn(__fmul_rn(v1, bc2)), a.eps);
         const float psi_safe = (psi < FLT_MIN) ? FLT_MIN : psi;  // keeps NaN
         const float al = a.alpha[k];
-        g[k] = __fsub_rn(s[k], __fmul_rn(al, __fdiv_rn(phi, psi_safe)));
+        const float v =
+            __fsub_rn(s_of(k), __fmul_rn(al, __fdiv_rn(phi, psi_safe)));
         const float stp = __fdiv_rn(al, psi_safe);
         if (valid) {
           store(a.M_out, gi, m1);
           store(a.V_out, gi, v1);
           if constexpr (MODE == kAdaPre) {
-            a.pre[gi] = g[k];
+            a.pre[gi] = v;
             a.pre_step[gi] = stp;
           }
         }
-        Xsm[k * kRP + tid] = stp;
+        x[k * PF] = v;
+        step[k * kSub] = stp;
       }
       if constexpr (MODE == kAda)
-        apply_chain<KB>(a.chain, g, K, [&](int k) { return Xsm[k * kRP + tid]; });
+        apply_chain_column(a.chain, x, PF, K,
+                           [&](int k) { return step[k * kSub]; });
     } else {  // kPgmPost, kAdaPost: x is the prox's output
-#pragma unroll
-      for (int k = 0; k < KB; ++k)
-        g[k] = (valid && k < K) ? a.P[k * N + n] : 0.f;
+      const float* Pb =
+          reinterpret_cast<const float*>(smem + L.p + sb * L.s_bytes) + tid;
+#pragma unroll 4
+      for (int k = 0; k < K; ++k) x[k * PF] = valid ? Pb[k * PF] : 0.f;
     }
-
     if constexpr (has_update(MODE)) {
       // store S' and keep the stored values for the sums
-#pragma unroll
-      for (int k = 0; k < KB; ++k) {
-        if (k >= K) continue;
+#pragma unroll 4
+      for (int k = 0; k < K; ++k) {
         float xs = 0.f;
         if (valid) {
-          xs = g[k];
+          xs = x[k * PF];
           if (a.out != nullptr) xs = store(a.out, k * N + n, xs);
-          const float dk = xs - s[k];
+          const float dk = xs - s_of(k);
           st1 = fmaf(dk, dk, st1);
           st2 = fmaf(xs, xs, st2);
         }
-        Xsm[k * kRP + tid] = xs;
+        x[k * PF] = xs;
       }
-      __syncthreads();  // S' is in shared memory
-      if constexpr (has_gram(MODE))
-        chunk_products<KB>(slots + (L.n_slots - E) * kThreads, Xsm, K, Xsm,
-                           K);
-      else
-        row_sums(rsum, Xsm, K);
-    } else if constexpr (MODE == kGrad) {
-      chunk_products<KB>(slots + (L.n_slots - E) * kThreads, Ssm, K, Ssm, K);
     }
-    __syncthreads();  // the buffers are free for the next sub-tile
+    if constexpr (has_update(MODE)) {
+      __syncthreads();  // S' is in shared memory
+      if constexpr (has_gram(MODE)) {
+        gram(Gs, PF);
+      } else {
+        const float* x = Gs + rk * PF + 4 * rp;
+#pragma unroll
+        for (int j = 0; j < kRowLen; j += 4) {
+          const float4 v = ld4(x + kRowParts * j);
+          rs += v.x;
+          rs += v.y;
+          rs += v.z;
+          rs += v.w;
+        }
+      }
+    }
+    __syncthreads();  // the S buffer and the last chunk's stage are free
+    if constexpr (kRes && kF32) {
+      const int q = t * nch + nch - 1;
+      if (q + 2 < n_q) fill_y(q + 2);
+    }
+    if (t + L.n_s < n_sub) fill_s(t + L.n_s);
+    if (L.mv_bytes && t + 1 < n_sub) fill_mv(t + 1);
   }
 
-  // the unit's row of partial sums
+  // the group's row of partial sums
   const Entries e = entries(MODE, C, K);
-  float* P = a.partials;
-  const long long U = stride(a.n_units);
-  {
-    const int k = tid % KB, r0 = E * (tid / KB);
-    if (k < K) {
-      const int chunks = has_residual(MODE) ? (C + kChunk - 1) / kChunk : 0;
-      for (int ch = 0; ch < chunks; ++ch) {
+  float* const row = a.partials + (long long)blockIdx.x * e.total;
+  if constexpr (kRes) {
+    for (int ch = 0; ch < nch; ++ch) {
+      float v[GA::kPerThread];
 #pragma unroll
-        for (int j = 0; j < E; ++j) {
-          const int c = ch * kChunk + r0 + j;
-          if (c < C)
-            P[(long long)(c * K + k) * U + u] =
-                slots[(ch * E + j) * kThreads + tid];
-        }
-      }
-      if constexpr (has_gram(MODE)) {
+      for (int c = 0; c < kMaxChunks; ++c)
+        if (c == ch)
 #pragma unroll
-        for (int j = 0; j < E; ++j) {
-          const int r = r0 + j;
-          if (r < K)
-            P[(long long)(e.ga + r * K + k) * U + u] =
-                slots[(L.n_slots - E + j) * kThreads + tid];
-        }
+          for (int m = 0; m < GA::kPerThread; ++m) v[m] = ga[c][m];
+#pragma unroll
+      for (int m = 0; m < GA::kPerThread; ++m) {
+        const int i = tid + kThreads * m;
+        const int c = ch * kChunk + i / KB, k = i % KB;
+        if (c < C && k < K) row[c * K + k] = v[m];
       }
     }
-    if constexpr (has_rowsum(MODE)) {
-      if (tid < K) P[(long long)(e.ga + tid) * U + u] = rsum[tid];
+  }
+  if constexpr (has_gram(MODE)) {
+#pragma unroll
+    for (int m = 0; m < GR::kPerThread; ++m) {
+      const int i = tid + kThreads * m, r = i / KB, k = i % KB;
+      if (i < KB * KB && r < K && k < K) row[e.ga + r * K + k] = gr[m];
+    }
+  }
+  if constexpr (has_rowsum(MODE)) {
+    parts[tid] = rs;  // the parts' buffer is free after the last barrier
+    __syncthreads();
+    if (tid < K) {
+      float v = parts[tid * kRowParts];
+#pragma unroll
+      for (int p = 1; p < kRowParts; ++p) v += parts[tid * kRowParts + p];
+      row[e.ga + tid] = v;
     }
   }
   float sv[3] = {st0, st1, st2};
@@ -452,29 +1069,31 @@ __device__ __forceinline__ void body(const Args<ST, MT>& a, float* sm) {
     // [loss] from st0, [|S' - S|^2, |S'|^2] from st1, st2
     const int first = has_residual(MODE) ? 0 : 1;
     const int i = tid - first;
-    if (tid >= first && i < e.stats)
-      P[(long long)(e.ga + e.mid + i) * U + u] = v;
+    if (tid >= first && i < e.stats) row[e.ga + e.mid + i] = v;
   }
 }
 
-// The second launch: one warp per entry; lane l sums the unit rows l,
-// l + 32, ... in order in double, then a fixed shuffle tree, and lane 0
-// rounds once: gA (C K), mid (the Gram K K or the row sums K), stats (the
-// loss halved when `half_first`).
+// The second launch: a block per 32 entries; warp w sums the group rows w,
+// w + 8, ... of its lane's entry in order in double, then the warps' sums
+// are added in order and rounded once: gA (C K), mid (the Gram K K or the
+// row sums K), stats (the loss halved when `half_first`).
 __device__ __forceinline__ void finalize(const float* partials,
-                                         long long n_units, Entries e,
+                                         long long rows, Entries e,
                                          bool half_first, float* gA,
                                          float* mid, float* stats) {
-  const int p = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (p >= e.total) return;  // whole warps return
-  const float* col = partials + (long long)p * stride(n_units);
+  constexpr int kW = kFinThreads / 32;
+  __shared__ double part[kW][32];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int p = blockIdx.x * 32 + lane;
   double v = 0.0;
-  for (long long b = lane; b < n_units; b += 32) v += (double)col[b];
+  if (p < e.total)
+    for (long long r = w; r < rows; r += kW)
+      v += (double)partials[r * e.total + p];
+  part[w][lane] = v;
+  __syncthreads();
+  if (w != 0 || p >= e.total) return;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  if (lane != 0) return;
+  for (int i = 1; i < kW; ++i) v += part[i][lane];
   if (p < e.ga) {
     gA[p] = (float)v;
   } else if (p < e.ga + e.mid) {
@@ -491,8 +1110,8 @@ struct LaunchCache {
   int allowed_smem = 0;
 };
 
-// Both launches of one pass on `stream`: a block per unit, then the
-// finalize. Returns cudaGetLastError() after them.
+// Both launches of one pass on `stream`: a block per group of units, then
+// the finalize. Returns cudaGetLastError() after them.
 template <int KB, typename ST, typename MT, int MODE, typename Kernel,
           typename Finalize>
 int launch(Kernel kernel, Finalize fin, LaunchCache& lc,
@@ -502,23 +1121,21 @@ int launch(Kernel kernel, Finalize fin, LaunchCache& lc,
   if (args.C < 1 || args.C > kMaxC || args.K < 1 || args.K > KB ||
       args.N < 1 || args.tile_n < 1)
     return (int)cudaErrorInvalidValue;
-  const Smem L =
-      smem_layout<KB>(MODE, args.C, !std::is_same<ST, float>::value);
-  const int smem = L.total * (int)sizeof(float);
-  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
-  if (smem > lc.allowed_smem) {
+  const Smem L = smem_layout<KB, ST, MT>(MODE, args.C);
+  if (L.total > kSmemMax) return (int)cudaErrorInvalidValue;
+  if (L.total > lc.allowed_smem) {
     err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
     if (err != cudaSuccess) return (int)err;
-    lc.allowed_smem = smem;
+    lc.allowed_smem = L.total;
   }
-  if (args.n_units > 0x7fffffffll) return (int)cudaErrorInvalidValue;
-  kernel<<<(unsigned)args.n_units, kThreads, smem, stream>>>(args);
+  const long long groups = group_count(args.n_units, L.blocks);
+  kernel<<<(unsigned)groups, kThreads, L.total, stream>>>(args);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const Entries e = entries(MODE, args.C, args.K);
-  fin<<<(e.total + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
-      args.partials, args.n_units, e, has_residual(MODE), gA, mid, stats);
+  fin<<<(e.total + 31) / 32, kFinThreads, 0, stream>>>(
+      args.partials, groups, e, has_residual(MODE), gA, mid, stats);
   return (int)cudaGetLastError();
 }
 

@@ -485,20 +485,64 @@ _PROX_CASES = {
 _ADAPROX_CASES = ("zero", "max_abs", "soft_rel", "soft_plus_abs",
                   "split_closure", "split_axis1")
 # one shape per instance: the narrow ones (C <= 16, K <= 8) and the wide
-# body's KB = 8, 16 and 32, unaligned N
+# body's KB = 8, 16 and 32, unaligned N; then the wide body's tile edges,
+# the shapes at which tests/test_torch_kernel_modes.py holds the plain
+# versions against the JAX kernels: C around the chunk of 32 channels and
+# the bound 256, K around the bounds 8, 16 and 32, and N = 1, a thread's 4
+# columns +- 1, the sub-tile of 256 columns +- 1, the default tile_n 4096
+# +- 1; 16_700 in tiles of 128 (131 units, a group each), 38_430 in tiles
+# of 128 (301 units: groups of three where a block runs alone on an SM, of
+# two where two do, the last group of one unit, partial) and 70_000 in
+# tiles of 1000 (units of 256, 256, 256 and 232 columns; 280 units in
+# groups of three or two that hold a short unit and a tile's end inside
+# them)
 _SHAPES = [(5, 7, 1000), (16, 8, 300), (40, 3, 1029), (100, 12, 700),
-           (128, 32, 5000), (256, 17, 300)]
+           (128, 32, 5000), (256, 17, 300),
+           (17, 9, 1), (31, 17, 3), (32, 31, 5), (33, 32, 255),
+           (129, 9, 257), (255, 31, 4095), (256, 32, 4097),
+           (40, 12, 16_700), (40, 12, 38_430), (40, 20, 70_000)]
+_WIDE_SHAPES = _SHAPES[2:]
+_TILE_N = {(40, 12, 16_700): 128, (40, 12, 38_430): 128,
+           (40, 20, 70_000): 1000}
 
 
-@pytest.mark.parametrize("C,K,N", _SHAPES)
+def _tile_n(C, K, N):
+    return _TILE_N.get((C, K, N), k1.DEFAULT_TILE_N)
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int16 if t.element_size() == 2
+                               else torch.int32)
+
+
+def _twice(fn):
+    """Two launches of a kernel: their outputs, checked equal bit for
+    bit."""
+    one, two = fn(), fn()
+    torch.cuda.synchronize()
+    for a, b in zip(one, two):
+        assert torch.equal(_bits(a), _bits(b))
+    return one
+
+
+def _cases(names):
+    """(C, K, N, case) for every shape and case, but the prox over the
+    pixels (axis 1) at the shapes of a few pixels, N < 256: a row with no
+    positive entry divides 0 by 0, NaN in the kernel and the plain version
+    alike, which no comparison of values holds."""
+    return [(C, K, N, case) for C, K, N in _SHAPES for case in names
+            if not (N < 256 and case == "split_axis1")]
+
+
+@pytest.mark.parametrize("C,K,N,case", _cases(sorted(_PROX_CASES)))
 @pytest.mark.parametrize("weighted", [False, True])
-@pytest.mark.parametrize("case", sorted(_PROX_CASES))
 def test_k1_modes_match_plain_version(dev, C, K, N, weighted, case):
     A, S, Y, W = _problem(dev, C, K, N, weighted)
     sS = 1.0 / torch.linalg.eigvalsh(A.T @ A)[-1]
     prox = _PROX_CASES[case]
     routes = dict(k1.fused_nmf_pgm_step.route_launches)
-    got = k1.fused_nmf_pgm_step(A, S, Y, sS, W=W, prox_S=prox)
+    got = _twice(lambda: k1.fused_nmf_pgm_step(
+        A, S, Y, sS, W=W, prox_S=prox, tile_n=_tile_n(C, K, N)))
     ref = k1.fused_nmf_pgm_step_reference(A, S, Y, sS, W=W, prox_S=prox)
     torch.cuda.synchronize()
     _assert_step_close(got, ref)
@@ -506,8 +550,8 @@ def test_k1_modes_match_plain_version(dev, C, K, N, weighted, case):
     narrow = C <= 16 and K <= 8
     ran = {r: n - routes[r]
            for r, n in k1.fused_nmf_pgm_step.route_launches.items()}
-    want = ({"split pass 1": 1, "split pass 2": 1} if split
-            else {"narrow" if narrow else "wide": 1})
+    want = ({"split pass 1": 2, "split pass 2": 2} if split
+            else {"narrow" if narrow else "wide": 2})
     assert {r: n for r, n in ran.items() if n} == want
 
 
@@ -523,7 +567,8 @@ def test_k1_bf16_store_modes(dev, C, K, N, case):
     S, Y, W = S.to(bf), Y.to(bf), W.to(bf)
     sS = 1.0 / torch.linalg.eigvalsh(A.T @ A)[-1]
     prox = _PROX_CASES[case]
-    got = k1.fused_nmf_pgm_step(A, S, Y, sS, W=W, prox_S=prox)
+    got = _twice(lambda: k1.fused_nmf_pgm_step(
+        A, S, Y, sS, W=W, prox_S=prox, tile_n=_tile_n(C, K, N)))
     ref = k1.fused_nmf_pgm_step_reference(A, S, Y, sS, W=W, prox_S=prox)
     torch.cuda.synchronize()
     _within_one_bf16_ulp(got[1], ref[1])
@@ -538,21 +583,22 @@ def test_k1_bf16_store_modes(dev, C, K, N, case):
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("C,K,N", _SHAPES)
+@pytest.mark.parametrize("C,K,N,case", _cases(_ADAPROX_CASES))
+@pytest.mark.parametrize("weighted", [False, True])
 @pytest.mark.parametrize("mdt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", _ADAPROX_CASES)
-def test_k2_modes_match_plain_version(dev, C, K, N, mdt, case):
-    A, S, M, V, Y, alpha, sc, W = _adaprox_operands(dev, C, K, N, True, mdt)
+def test_k2_modes_match_plain_version(dev, C, K, N, weighted, mdt, case):
+    A, S, M, V, Y, alpha, sc, W = _adaprox_operands(dev, C, K, N, weighted,
+                                                    mdt)
     prox = k1.describe_prox(_PROX_CASES[case], "adaprox", True)
-    got = k1.fused_nmf_adaprox_step(A, S, M, V, Y, alpha, sc, W=W,
-                                    prox_S=prox)
+    got = _twice(lambda: k1.fused_nmf_adaprox_step(
+        A, S, M, V, Y, alpha, sc, W=W, prox_S=prox, tile_n=_tile_n(C, K, N)))
     ref = k1.fused_nmf_adaprox_step_reference(A, S, M, V, Y, alpha, sc, W=W,
                                               prox_S=prox)
     torch.cuda.synchronize()
     _assert_adaprox_close(got, ref)
 
 
-@pytest.mark.parametrize("C,K,N", _SHAPES[2:])
+@pytest.mark.parametrize("C,K,N", _WIDE_SHAPES)
 @pytest.mark.parametrize("case", ["soft_plus_abs", "split_closure"])
 def test_k2_wide_bf16_store(dev, C, K, N, case):
     A, S, M, V, Y, alpha, sc, W = _adaprox_operands(dev, C, K, N, True,
@@ -560,8 +606,8 @@ def test_k2_wide_bf16_store(dev, C, K, N, case):
     bf = torch.bfloat16
     S, Y, W = S.to(bf), Y.to(bf), W.to(bf)
     prox = k1.describe_prox(_PROX_CASES[case], "adaprox", True)
-    got = k1.fused_nmf_adaprox_step(A, S, M, V, Y, alpha, sc, W=W,
-                                    prox_S=prox)
+    got = _twice(lambda: k1.fused_nmf_adaprox_step(
+        A, S, M, V, Y, alpha, sc, W=W, prox_S=prox, tile_n=_tile_n(C, K, N)))
     ref = k1.fused_nmf_adaprox_step_reference(A, S, M, V, Y, alpha, sc, W=W,
                                               prox_S=prox)
     torch.cuda.synchronize()
@@ -574,17 +620,18 @@ def test_k2_wide_bf16_store(dev, C, K, N, case):
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("C,K,N", _SHAPES[2:])
+@pytest.mark.parametrize("C,K,N", _WIDE_SHAPES)
 @pytest.mark.parametrize("weighted", [False, True])
 def test_k3_wide_matches_plain_version(dev, C, K, N, weighted):
     A, S, Y, W = _problem(dev, C, K, N, weighted)
     before = dict(k1.fused_nmf_grad.route_launches)
-    got = tops.fused_nmf_grad(A, S, Y, W=W, tile_n=1000)
+    got = _twice(lambda: tops.fused_nmf_grad(
+        A, S, Y, W=W, tile_n=_TILE_N.get((C, K, N), 1000)))
     ref = tops.fused_nmf_grad_reference(A, S, Y, W=W)
     torch.cuda.synchronize()
     for g, r in zip(got, ref):
         torch.testing.assert_close(g, r, rtol=2e-4, atol=1e-5)
-    assert k1.fused_nmf_grad.route_launches["wide"] == before["wide"] + 1
+    assert k1.fused_nmf_grad.route_launches["wide"] == before["wide"] + 2
 
 
 @pytest.mark.parametrize("case", ["chain", "split_closure"])

@@ -5,9 +5,11 @@ kernels, and the prox descriptor.
   operator and keyword combination that acts on a pixel column alone to its
   compiled codes, and everything else to the split path.
 - K1's, K2's and K3's plain versions (each code, the split path, the wide
-  shapes C=40, K=12, N=700 and C=100, K=3, N=50, examples/unmixing.py's)
-  against the Pallas kernels in interpret mode on the same seeded NumPy
-  inputs, as tests/test_pallas_ops.py runs them on the CPU.
+  shapes C=40, K=12, N=700 and C=100, K=3, N=50, examples/unmixing.py's,
+  and the wide body's tile edges EDGE_SHAPES, at which
+  tests/test_torch_cuda.py runs the kernels) against the Pallas kernels in
+  interpret mode on the same seeded NumPy inputs, as
+  tests/test_pallas_ops.py runs them on the CPU.
 - ``nmf(engine="cuda", device="cpu")`` against JAX's ``engine="pallas"``
   for the proxes JAX takes there (PGM) and the separable ones (AdaProx).
 - JAX's K1 applies a prox_S that couples pixels to each pixel tile
@@ -95,6 +97,27 @@ SPLIT = {"split_closure"}
 # K2 applies separable proxes only (the closed form of the scaled prox)
 SEPARABLE = ("plus", "id", "zero", "min_abs", "max_abs", "soft_rel",
              "soft_plus")
+
+
+# The wide body's tile edges (tests/test_torch_cuda.py runs the kernels at
+# the same shapes): C around the chunk of 32 channels and the bound 256, K
+# around the instances' bounds 8, 16 and 32, and N = 1, a thread's 4 columns
+# +- 1, the sub-tile of 256 columns +- 1, the default tile_n 4096 +- 1;
+# 16_700 in tiles of 128 on the card (131 units, a group each), 38_430 in
+# tiles of 128 (301 units: groups of three where a block runs alone on an
+# SM, of two where two do, the last group of one unit, partial) and 70_000
+# in tiles of 1000 (units of 256, 256, 256 and 232 columns; 280 units in
+# groups of three or two that hold a short unit and a tile's end inside
+# them). Each with a few of PROXES' cases (EDGE_NAMES, EDGE_K2).
+EDGE_SHAPES = [(17, 9, 1), (31, 17, 3), (32, 31, 5), (33, 32, 255),
+               (129, 9, 257), (255, 31, 4095), (256, 32, 4097),
+               (40, 12, 16_700), (40, 12, 38_430), (40, 20, 70_000)]
+EDGE_NAMES = ("unity_plus", "soft_plus", "split_closure")
+EDGE_K2 = ("soft_plus", "min_abs", "split_closure")
+
+
+def _shape_id(shape):
+    return "x".join(map(str, shape))
 
 
 def _problem(C, K, N, weighted=False, seed=101):
@@ -255,10 +278,14 @@ def test_chain_equals_its_operators(name):
 # ---------------------------------------------------------------------------
 # K1
 
-@pytest.mark.parametrize("name", sorted(PROXES))
-def test_k1_codes_against_jax_wide(name, fma):
-    """Every code (and the split path) at C=40, K=12, N=700 (unaligned)."""
-    A, S, Y, W = _problem(40, 12, 700, weighted=True)
+@pytest.mark.parametrize("name,shape", [
+    *((name, (40, 12, 700)) for name in sorted(PROXES)),
+    *((name, shape) for shape in EDGE_SHAPES for name in EDGE_NAMES)],
+    ids=lambda v: v if isinstance(v, str) else _shape_id(v))
+def test_k1_codes_against_jax_wide(name, shape, fma):
+    """Every code (and the split path) at C=40, K=12, N=700 (unaligned);
+    three of them at each of the wide body's tile edges."""
+    A, S, Y, W = _problem(*shape, weighted=True)
     sS = 0.8 / float(np.linalg.eigvalsh(A.T @ A)[-1])
     want = _jax_k1(A, S, Y, W, sS, PROXES[name](pt.operators))
     got = kk.fused_nmf_pgm_step(_t(A), _t(S), _t(Y), torch.tensor(sS),
@@ -349,11 +376,15 @@ def _jax_k2(A, S, M, V, Y, W, alpha, sc, prox):
             np.asarray(out[4])[:K], *(float(v) for v in out[5:]))
 
 
-@pytest.mark.parametrize("name", SEPARABLE + ("split_closure",))
-def test_k2_codes_against_jax_wide(name, fma):
+@pytest.mark.parametrize("name,shape", [
+    *((name, (40, 12, 700)) for name in SEPARABLE + ("split_closure",)),
+    *((name, shape) for shape in EDGE_SHAPES for name in EDGE_K2)],
+    ids=lambda v: v if isinstance(v, str) else _shape_id(v))
+def test_k2_codes_against_jax_wide(name, shape, fma):
     """Every separable code with the per-element step alpha / Psi, and the
-    split path, at C=40, K=12, N=700 with W."""
-    A, S, M, V, Y, W, alpha, sc = _k2_inputs(40, 12, 700, weighted=True)
+    split path, at C=40, K=12, N=700 with W; three of them at each of the
+    wide body's tile edges."""
+    A, S, M, V, Y, W, alpha, sc = _k2_inputs(*shape, weighted=True)
     want = _jax_k2(A, S, M, V, Y, W, alpha, sc, PROXES[name](pt.operators))
     got = kk.fused_nmf_adaprox_step(
         *(_t(a) for a in (A, S, M, V, Y)), _t(alpha), sc, W=_t(W),
@@ -379,7 +410,7 @@ def test_k2_flagship_and_unmixing_shapes(C, K, N, fma):
 # K3
 
 @pytest.mark.parametrize("C,K,N", [(40, 12, 700), (100, 3, 50),
-                                   (128, 32, 300)])
+                                   (128, 32, 300), *EDGE_SHAPES])
 @pytest.mark.parametrize("weighted", [False, True])
 def test_k3_wide_against_jax(C, K, N, weighted, fma):
     A, S, Y, W = _problem(C, K, N, weighted)
