@@ -136,7 +136,18 @@ Phases:
    load seconds and file MB, its marginal ms/iter in turns with its
    driver, its CUDA launches and blocking reads per iteration beside the
    driver's, and each registered op's host microseconds per call beside
-   its wrapper's.
+   its wrapper's;
+15. the full-width path (``wide_phase``): C=128, K=32, N=1e6 and the
+   prox modes on K1-K3's wide body (see its docstring);
+16. the sharded path (``proxmin_tpu_torch.parallel``) on a one-rank NCCL
+   group at the flagship: ``nmf(mesh=make_mesh())`` for exact PGM,
+   weighted PGM at stride 10 and adaptive, and AdaProx, each against the
+   single-card ``nmf(engine="torch")`` with equal iterations; a 1 x 1
+   ``('data', 'model')`` mesh with ``model_axis``; resumes in two pieces
+   (one through a sharded checkpoint) bit for bit; the exact solve on two
+   gloo ranks on the same card against the one-rank result; each path's
+   marginal ms/iter in turns with the torch engine, its all-reduce calls
+   and elements per iteration and its device-to-host copies per iteration.
 
 The last two lines are the card (``nvidia-smi`` name and power limit)
 after a JSON object describing the kernels (each with its time, its plain
@@ -2957,6 +2968,249 @@ def wide_phase(mods, card, prof_dir):
     return times, results, routes
 
 
+# The sharded path (phase 16): proxmin_tpu_torch.parallel on a one-rank NCCL
+# group at the flagship, against the single-card torch engine.
+SHARD_ITERS = 200
+SHARD_SPLIT = 80           # the resumed solve's first piece
+# the window that counts all-reduces and copies: the profiler's count of a
+# call jitters by a few copies, so a long one
+SHARD_COUNT = (10, 110)
+# Two gloo ranks on the one card (each process all-reduces its CUDA tensors
+# through the host): the exact solve against the one-rank result, normwise
+GLOO_TWO_RANKS = True
+GLOO_RTOL = 1e-5
+GLOO_RANK_SCRIPT = r"""
+import sys
+import torch
+import chip_smoke as cs
+from proxmin_tpu_torch import parallel as tpar
+port, rank, out = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+tpar.initialize_distributed(f"localhost:{port}", 2, rank, backend="gloo")
+Y, A0, S0, _ = cs.make_problem(cs.C, cs.K, cs.N, False)
+res = tpar.nmf_pgm_sharded(Y, A0, S0, mesh=tpar.make_mesh(), e_rel=0,
+                           max_iter=cs.SHARD_ITERS)
+torch.save({"A": res.x[0].to_local().cpu(), "S": res.x[1].to_local().cpu(),
+            "loss": res.loss, "iterations": res.iterations},
+           f"{out}/rank{rank}.pt")
+torch.distributed.barrier()
+torch.distributed.destroy_process_group()
+"""
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def all_reduces_of(fn):
+    """``(calls, elements)`` of the ``torch.distributed.all_reduce`` calls
+    that ``fn`` makes."""
+    import torch.distributed as dist
+
+    calls = []
+    real = dist.all_reduce
+
+    def counted(tensor, *args, **kwargs):
+        calls.append(tensor.numel())
+        return real(tensor, *args, **kwargs)
+
+    dist.all_reduce = counted
+    try:
+        fn()
+    finally:
+        dist.all_reduce = real
+    return len(calls), sum(calls)
+
+
+def sharded_phase(mods, problem, card):
+    """Phase 16, the sharded path: a one-rank NCCL group, and through
+    ``nmf(mesh=make_mesh())`` the exact PGM, the weighted PGM at stride 10
+    and adaptive, and AdaProx at the flagship, each against the single-card
+    ``nmf(engine="torch")`` (normwise within ENGINE_RTOL, equal iterations
+    at e_rel=0); the exact PGM on a 1 x 1 ``('data', 'model')`` mesh with
+    ``model_axis``; the weighted adaptive solve and AdaProx resumed in two
+    pieces (the PGM one through a sharded checkpoint on disk) bit for bit;
+    the exact solve on two gloo ranks on the same card against the
+    one-rank result; and for each path its marginal ms/iter in turns with
+    the torch engine, its all-reduce calls and elements per iteration and
+    its device-to-host copies per iteration beside the torch engine's."""
+    import torch.distributed as dist
+
+    tnmf, tpar, ckpt = mods
+    Y, A0, S0, Ww = problem
+    info = tpar.initialize_distributed(f"localhost:{free_port()}", 1, 0)
+    check(info.process_count == 1 and dist.get_backend() == "nccl",
+          f"sharded: {info}, backend {dist.get_backend()}")
+    mesh = tpar.make_mesh()
+    check(mesh.device_type == "cuda", f"sharded: mesh on {mesh.device_type}")
+    paths = (
+        ("pgm exact", {}, {}),
+        ("pgm weighted stride 10", dict(W=Ww, step_stride=STRIDE), {}),
+        ("pgm weighted adaptive", dict(W=Ww, step_stride=STRIDE,
+                                       step_adapt=True), {}),
+        ("adaprox", dict(algorithm="adaprox"), dict(separable_prox="auto")),
+    )
+    results = {}
+    for label, kw, ref_kw in paths:
+        r = tnmf.nmf(Y, A0, S0, e_rel=0, max_iter=SHARD_ITERS, mesh=mesh,
+                     **kw)
+        ref = tnmf.nmf(Y, A0, S0, e_rel=0, max_iter=SHARD_ITERS,
+                       engine="torch", **kw, **ref_kw)
+        torch.cuda.synchronize()
+        kind = ("nmf_adaprox_sharded" if "algorithm" in kw
+                else "nmf_pgm_sharded")
+        check(r.state["kind"] == kind, f"sharded {label}: routed to "
+              f"{r.state['kind']}")
+        check(r.iterations == ref.iterations == SHARD_ITERS,
+              f"sharded {label}: {r.iterations} iterations, torch engine "
+              f"{ref.iterations}")
+        A_, S_ = (x.to_local() for x in r.x)
+        check(A_.is_cuda and tuple(S_.shape) == (K, N),
+              f"sharded {label}: S {tuple(S_.shape)} on {S_.device}")
+        check(bool(torch.isfinite(A_).all() and torch.isfinite(S_).all()),
+              f"sharded {label}: non-finite iterate")
+        n_A, n_S = norm_err(A_, ref.x[0]), norm_err(S_, ref.x[1])
+        check(n_A <= ENGINE_RTOL and n_S <= ENGINE_RTOL,
+              f"sharded {label}: against nmf(engine='torch') normwise A "
+              f"{n_A:.2e}, S {n_S:.2e} > {ENGINE_RTOL:g}")
+        W_ = kw.get("W")
+        loss_r = wloss(A_, S_, Y, W_)
+        check(loss_r < wloss(A0, S0, Y, W_), f"sharded {label}: the loss "
+              "did not decrease")
+        results[label] = r
+        log(f"sharded [{label}]: nmf(mesh=make_mesh()) on one NCCL rank vs "
+            f"nmf(engine='torch'), {SHARD_ITERS} iterations at e_rel=0: "
+            f"normwise A {n_A:.2e}, S {n_S:.2e} (tol {ENGINE_RTOL:g}); "
+            f"loss {loss_r:.6e} (torch engine "
+            f"{wloss(*ref.x, Y, W_):.6e}); iterations {r.iterations}")
+
+    # the channel axis on a 1 x 1 ('data', 'model') mesh
+    mesh2 = tpar.make_mesh((1, 1))
+    r2 = tnmf.nmf(Y, A0, S0, e_rel=0, max_iter=SHARD_ITERS, mesh=mesh2,
+                  model_axis="model")
+    ref = results["pgm exact"]
+    n_A = norm_err(r2.x[0].to_local(), ref.x[0].to_local())
+    n_S = norm_err(r2.x[1].to_local(), ref.x[1].to_local())
+    check(r2.iterations == SHARD_ITERS and n_A <= ENGINE_RTOL
+          and n_S <= ENGINE_RTOL, f"sharded 1 x 1 model_axis: "
+          f"{r2.iterations} iterations, A {n_A:.2e}, S {n_S:.2e}")
+    log(f"sharded [pgm exact, 1 x 1 ('data', 'model'), model_axis]: "
+        f"against the 1-D mesh normwise A {n_A:.2e}, S {n_S:.2e}; "
+        f"placements of A {r2.x[0].placements}")
+
+    # resumes in two pieces: the weighted adaptive PGM through a sharded
+    # checkpoint on disk, AdaProx directly
+    for label, kw in (("pgm weighted adaptive", paths[2][1]),
+                      ("adaprox", paths[3][1])):
+        full = results[label]
+        half = tnmf.nmf(Y, A0, S0, e_rel=0, max_iter=SHARD_SPLIT, mesh=mesh,
+                        **kw)
+        x, state, how = half.x, half.state, "state="
+        if label.startswith("pgm"):
+            with tempfile.TemporaryDirectory() as tmp:
+                t0 = time.perf_counter()
+                path = ckpt.save_checkpoint(f"{tmp}/pod", x=half.x,
+                                            solver_state=half.state)
+                t_save = time.perf_counter() - t0
+                del half, x, state
+                t0 = time.perf_counter()
+                ck = ckpt.load_checkpoint(path, mesh=mesh)
+                t_load = time.perf_counter() - t0
+            x, state = ck["x"], ck["solver_state"]
+            how = (f"a sharded checkpoint (saved in {t_save:.3f} s, loaded "
+                   f"in {t_load:.3f} s)")
+        rest = tnmf.nmf(Y, *x, e_rel=0, max_iter=SHARD_ITERS - SHARD_SPLIT,
+                        mesh=mesh, state=state, **kw)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a.to_local(), b.to_local())
+                   for a, b in zip(rest.x, full.x))
+        check(same and rest.loss == full.loss and rest.state["it"]
+              == SHARD_ITERS, f"sharded {label}: {SHARD_SPLIT} + "
+              f"{SHARD_ITERS - SHARD_SPLIT} through {how} differs from "
+              f"{SHARD_ITERS} straight")
+        log(f"sharded [{label}]: {SHARD_SPLIT} + "
+            f"{SHARD_ITERS - SHARD_SPLIT} iterations through {how} equal "
+            f"{SHARD_ITERS} straight bit for bit")
+
+    # the exact solve on two gloo ranks on this one card
+    if GLOO_TWO_RANKS:
+        with tempfile.TemporaryDirectory() as tmp:
+            port = free_port()
+            t0 = time.perf_counter()
+            procs = [subprocess.Popen(
+                [sys.executable, "-c", GLOO_RANK_SCRIPT, str(port), str(r),
+                 tmp], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True) for r in range(2)]
+            logs = []
+            for p in procs:
+                try:
+                    logs.append(p.communicate(timeout=300)[0])
+                except subprocess.TimeoutExpired:
+                    for q in procs:
+                        q.kill()
+                    logs.append(p.communicate()[0])
+            for r, (p, out) in enumerate(zip(procs, logs)):
+                check(p.returncode == 0,
+                      f"sharded gloo rank {r} failed: {out[-3000:]}")
+            parts = [torch.load(f"{tmp}/rank{r}.pt") for r in range(2)]
+        t_two = time.perf_counter() - t0
+        one = results["pgm exact"]
+        S2 = torch.cat([p["S"] for p in parts], dim=1)
+        n_A = norm_err(parts[0]["A"], one.x[0].to_local().cpu())
+        n_S = norm_err(S2, one.x[1].to_local().cpu())
+        check(torch.equal(parts[0]["A"], parts[1]["A"])
+              and parts[0]["loss"] == parts[1]["loss"]
+              and all(p["iterations"] == SHARD_ITERS for p in parts)
+              and n_A <= GLOO_RTOL and n_S <= GLOO_RTOL,
+              f"sharded two gloo ranks: A {n_A:.2e}, S {n_S:.2e} against "
+              f"one rank (tol {GLOO_RTOL:g}), losses "
+              f"{[p['loss'] for p in parts]}")
+        log(f"sharded [pgm exact, two gloo ranks on the one card]: against "
+            f"the one-rank NCCL result normwise A {n_A:.2e}, S {n_S:.2e} "
+            f"(tol {GLOO_RTOL:g}); the same A and loss on both ranks; "
+            f"{t_two:.1f} s with the processes' start")
+
+    # per iteration: ms in turns with the torch engine, all-reduces, copies
+    lo, hi = SHARD_COUNT
+    for label, kw, ref_kw in paths:
+        def sharded(n, kw=kw):
+            return tnmf.nmf(Y, A0, S0, e_rel=0, max_iter=n, mesh=mesh, **kw)
+
+        def single(n, kw=kw, ref_kw=ref_kw):
+            return tnmf.nmf(Y, A0, S0, e_rel=0, max_iter=n, engine="torch",
+                            **kw, **ref_kw)
+
+        timed(sharded, 5)
+        timed(single, 5)
+        ms_t, ms_s, ms_s2, ms_t2 = (marginal_ms(f, LO, HI) for f in
+                                    (single, sharded, sharded, single))
+        (c_lo, e_lo), (c_hi, e_hi) = (
+            all_reduces_of(lambda n=n: sharded(n)) for n in (lo, hi))
+        d_s = (dtoh_copies(lambda: sharded(hi))
+               - dtoh_copies(lambda: sharded(lo))) / (hi - lo)
+        d_t = (dtoh_copies(lambda: single(hi))
+               - dtoh_copies(lambda: single(lo))) / (hi - lo)
+        log(f"sharded [{label}]: {min(ms_s, ms_s2):.4f} ms/iter marginal on "
+            f"one NCCL rank ({ms_s:.4f}, {ms_s2:.4f}), nmf(engine='torch') "
+            f"{min(ms_t, ms_t2):.4f} ({ms_t:.4f}, {ms_t2:.4f}); order "
+            f"torch, sharded, sharded, torch; all_reduce "
+            f"{(c_hi - c_lo) / (hi - lo):.2f} calls and "
+            f"{(e_hi - e_lo) / (hi - lo):.1f} elements per iteration; "
+            f"device-to-host copies {d_s:.2f} per iteration (torch engine "
+            f"{d_t:.2f}); on {card}")
+    # what one all-reduce of the exact path's gradient and Gram costs the
+    # host on the one-rank group (the solves make two per iteration)
+    buf = torch.zeros(C * K + K * K, device=DEVICE)
+    us = host_us(lambda: dist.all_reduce(buf, group=mesh.get_group("data")),
+                 calls=200)
+    log(f"sharded: one all_reduce of {buf.numel()} float32 on the one-rank "
+        f"NCCL group costs {us:.1f} us of host per call; on {card}")
+    dist.destroy_process_group()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card "
@@ -3831,6 +4085,12 @@ def main():
     log(f"phase 15 starts at {time.perf_counter() - T0:.0f} s")
     w_times, w_err, w_routes = wide_phase(
         (algorithms, tnmf, top, tops, kk), card, prof_dir)
+
+    # 16. the sharded path on a one-rank NCCL group
+    log(f"phase 16 starts at {time.perf_counter() - T0:.0f} s")
+    from proxmin_tpu_torch import checkpoint, parallel
+
+    sharded_phase((tnmf, parallel, checkpoint), (Y, A0, S0, Ww), card)
 
     k2_ms, k2_plain = k2_times["f32 moments"]
     k1b_ms, k1b_plain, k1b_bound = k1_times["bf16 store, W"]

@@ -333,15 +333,21 @@ def export_nmf_adaprox_solver(C, K, N, prox_A=operators.prox_plus,
 
 
 def export_nmf_pgm_sharded(*args, **kwargs):
-    """The multi-card PGM-NMF artifact: not ported yet."""
-    raise _not_yet("export_nmf_pgm_sharded (a sharded multi-card artifact)",
-                   13)
+    """The multi-card PGM-NMF artifact: not ported yet. The sharded solve
+    itself runs as :func:`proxmin_tpu_torch.parallel.nmf_pgm_sharded`."""
+    raise _not_yet("export_nmf_pgm_sharded (a saved program of the sharded "
+                   "solve; run proxmin_tpu_torch.parallel.nmf_pgm_sharded "
+                   "instead)", 13)
 
 
 def export_nmf_adaprox_sharded(*args, **kwargs):
-    """The multi-card AdaProx-NMF artifact: not ported yet."""
-    raise _not_yet("export_nmf_adaprox_sharded (a sharded multi-card "
-                   "artifact)", 13)
+    """The multi-card AdaProx-NMF artifact: not ported yet. The sharded
+    solve itself runs as
+    :func:`proxmin_tpu_torch.parallel.nmf_adaprox_sharded`."""
+    raise _not_yet("export_nmf_adaprox_sharded (a saved program of the "
+                   "sharded solve; run "
+                   "proxmin_tpu_torch.parallel.nmf_adaprox_sharded "
+                   "instead)", 13)
 
 
 def _block_shapes(x_shapes):

@@ -161,7 +161,43 @@ def _bsdmm_state(state, device):
     }
 
 
-def state_from_numpy(state, device=None):
+def _sharded_state(state, kind, device, mesh, data_axis, model_axis):
+    """A JAX ``nmf_pgm_sharded`` or ``nmf_adaprox_sharded`` state on
+    ``mesh``: the clock, the flags and the loss as host values, the frozen
+    strided steps as 0-d tensors, and each sharded carry (the power
+    iterate ``v`` as (N, K) over ``data_axis``; the moments laid out as
+    their blocks) as a ``DTensor`` of which every rank holds its slice."""
+    from .parallel.sharding import _put
+
+    if mesh is None:
+        raise ValueError(f"a {kind!r} state is sharded: pass the mesh= "
+                         "(and its data_axis/model_axis) that the solve "
+                         "continues on")
+    out = {"kind": kind, "weighted": bool(_py(state["weighted"])),
+           "it": int(_py(state["it"])),
+           "conv_A": bool(_py(state.get("conv_A", False))),
+           "conv_S": bool(_py(state.get("conv_S", False))),
+           "loss": float(_py(state.get("loss", 0.0)))}
+    if kind == "nmf_adaprox_sharded":
+        for k, spec in (("MA", (model_axis, None)), ("VA", (model_axis, None)),
+                        ("MS", (None, data_axis)), ("VS", (None, data_axis))):
+            out[k] = _put(np.asarray(state[k]), mesh, spec)
+        return out
+    cfg = tuple(_py(c) for c in state.get("stride_config", (0, False)))
+    out.update(strided=bool(_py(state["strided"])),
+               stride_config=(int(cfg[0]), bool(cfg[1])))
+    if out["strided"]:
+        out.update(step_A=_tensor(state["step_A"], device),
+                   step_S=_tensor(state["step_S"], device),
+                   stride=int(_py(state["stride"])),
+                   seg_end=int(_py(state["seg_end"])))
+        if out["weighted"]:
+            out["v"] = _put(np.asarray(state["v"]), mesh, (data_axis, None))
+    return out
+
+
+def state_from_numpy(state, device=None, mesh=None, data_axis="data",
+                     model_axis=None):
     """Turn a ``proxmin_tpu`` solver ``.state`` (leaves as NumPy arrays or
     Python scalars) into the port's ``.state`` on ``device`` (default: the
     CUDA device; without one, pass ``device="cpu"``).
@@ -177,11 +213,23 @@ def state_from_numpy(state, device=None):
     included; the ``admm``/``sdmm`` state (continued with ``admm(state=...)``
     or ``sdmm(state=...)``) and the ``bsdmm`` state, a stateful stepper's
     included (continued with ``bsdmm(state=...)`` or
-    ``nmf(algorithm="bsdmm", state=...)``). Other states raise
+    ``nmf(algorithm="bsdmm", state=...)``); and both sharded states,
+    ``nmf_pgm_sharded`` (every stride mode, the power iterate included) and
+    ``nmf_adaprox_sharded``, on ``mesh`` with the solve's ``data_axis`` and
+    ``model_axis``: every rank takes its slice of the sharded carries
+    (continued with ``nmf_pgm_sharded``/``nmf_adaprox_sharded`` or
+    ``nmf(mesh=...)``; the device is the mesh's). Other states raise
     ``NotImplementedError``.
     """
-    device = default_device(device)
     kind = _py(state.get("kind"))
+    if kind in ("nmf_pgm_sharded", "nmf_adaprox_sharded"):
+        if mesh is not None:
+            from .parallel.sharding import _local_device
+
+            device = _local_device(mesh)
+        return _sharded_state(state, kind, device, mesh, data_axis,
+                              model_axis)
+    device = default_device(device)
     if kind == "nmf_pgm_fused":
         return _fused_pgm_state(state, device)
     if kind is not None:

@@ -22,7 +22,10 @@ under proximal constraints on A and S, on two engines:
 step wrapped as its ``prox_f``, on tensor ops; strided weighted steps come
 from a :class:`WeightedBSDMMStepper`.
 
-``engine="auto"`` and ``mesh=`` are later slices (ROADMAP.md Queue 1).
+``mesh=`` (a :func:`~proxmin_tpu_torch.parallel.make_mesh` mesh) runs PGM
+and the adam-scheme AdaProx as the explicit-collective sharded solves of
+:mod:`proxmin_tpu_torch.parallel`; ``engine="auto"`` and the other
+algorithms under a mesh are later slices (ROADMAP.md Queue 1).
 NumPy inputs go to the CUDA device unless ``device=`` says otherwise;
 tensors stay where they are.
 """
@@ -1277,6 +1280,72 @@ def _nmf_adaprox_cuda(Y, A, S, W, prox_A, prox_S, e_rel, max_iter, step,
                              **fused_kw)
 
 
+def _nmf_mesh(Y, A, S, W, prox_A, prox_S, algorithm, step, max_iter, e_rel,
+              callback, engine, step_stride, step_adapt, mesh, model_axis,
+              kind, algorithm_args):
+    """``nmf(mesh=)``: the two explicit-collective routes of the JAX
+    package, :func:`~proxmin_tpu_torch.parallel.nmf_pgm_sharded` and
+    :func:`~proxmin_tpu_torch.parallel.nmf_adaprox_sharded`, with their
+    refusals. The JAX package runs every other call under a mesh through
+    the ordinary drivers on sharded inputs (auto-SPMD); the port has no
+    such route yet."""
+    from .parallel import nmf_adaprox_sharded, nmf_pgm_sharded
+
+    if engine == "cuda":
+        # the fused kernels are single-device programs: under a mesh they
+        # would need the whole pixel axis on one card
+        raise ValueError(
+            "engine='cuda' does not compose with mesh= (the fused "
+            "kernels are single-device); use engine='torch' (pgm and "
+            "adaprox get the explicit-collective sharded solves)")
+    if engine not in ("torch", "auto"):
+        raise ValueError(f"unknown engine {engine!r}; the port has 'torch' "
+                         "and 'cuda'")
+    W = None if _is_unweighted(W) else W
+    st = algorithm_args.get("state")
+    if (algorithm is algorithms.pgm and step is None and callback is None
+            and (not algorithm_args or (set(algorithm_args) == {"state"}
+                                        and kind == "nmf_pgm_sharded"))):
+        return nmf_pgm_sharded(
+            Y, A, S, W=W, mesh=mesh,
+            prox_A=prox_A if prox_A is not None else operators.prox_id,
+            prox_S=prox_S if prox_S is not None else operators.prox_id,
+            e_rel=e_rel, max_iter=max_iter, model_axis=model_axis,
+            step_stride=step_stride, step_adapt=step_adapt, state=st)
+    if (algorithm is algorithms.adaprox and step is None
+            and callback is None and step_stride is None and not step_adapt
+            and algorithm_args.get("scheme", "adam") == "adam"
+            and algorithm_args.get("separable_prox", "auto") is not False
+            and set(algorithm_args) <= {"b1", "b2", "eps", "scheme",
+                                        "separable_prox", "state"}
+            and (st is None or kind == "nmf_adaprox_sharded")
+            and _adaprox_separable_ok(
+                prox_A, prox_S, algorithm_args.get("separable_prox",
+                                                   "auto"))):
+        return nmf_adaprox_sharded(
+            Y, A, S, W=W, mesh=mesh, prox_A=prox_A, prox_S=prox_S,
+            e_rel=e_rel, max_iter=max_iter, model_axis=model_axis,
+            b1=algorithm_args.get("b1", 0.9),
+            b2=algorithm_args.get("b2", 0.999),
+            eps=algorithm_args.get("eps", 1e-8), state=st)
+    if kind == "nmf_adaprox_sharded":
+        raise ValueError(
+            "state= is an nmf_adaprox_sharded resume state but this call "
+            "does not route to the explicit sharded adaprox solve "
+            "(algorithm='adaprox', scheme='adam', separable proxs, default "
+            "steps, no callback required)")
+    if kind == "nmf_pgm_sharded":
+        raise ValueError(
+            "state= is an nmf_pgm_sharded resume state but this call does "
+            "not route to the explicit sharded solve (algorithm='pgm' with "
+            "default steps, no callback, and no extra algorithm kwargs "
+            "required)")
+    name = getattr(algorithm, "__name__", algorithm)
+    raise _not_yet(f"nmf(mesh=) with algorithm={name!r} and these options "
+                   "(the auto-SPMD route: the ordinary driver on sharded "
+                   "inputs)", 13)
+
+
 def nmf(
     Y,
     A,
@@ -1293,6 +1362,7 @@ def nmf(
     step_stride=None,
     step_adapt=False,
     mesh=None,
+    model_axis=None,
     device=None,
     **algorithm_args,
 ):
@@ -1324,9 +1394,16 @@ def nmf(
             iteration between refreshes). ``step_adapt``: grow or halve the
             interval from the measured step drift, starting at
             ``step_stride`` (default 1). Not for the fused adaprox engine.
+        mesh: a :func:`~proxmin_tpu_torch.parallel.make_mesh` mesh: PGM
+            with the default steps (weighted, ``step_stride``,
+            ``step_adapt``) runs as
+            :func:`~proxmin_tpu_torch.parallel.nmf_pgm_sharded`, AdaProx
+            with the adam scheme and separable proxes as
+            :func:`~proxmin_tpu_torch.parallel.nmf_adaprox_sharded`
+            (torch engine); ``model_axis`` also shards the channels.
         device: where NumPy inputs go (default: the device of a tensor
             input, else the CUDA device; without one, pass
-            ``device="cpu"``).
+            ``device="cpu"``); under a mesh, the mesh's device.
         algorithm_args: for pgm ``accelerated``, ``restart``,
             ``backtracking`` with ``f`` (e.g. ``partial(log_likelihood,
             Y=Y)``), ``trace``, ``state`` (torch engine) or ``tile_n``,
@@ -1339,7 +1416,8 @@ def nmf(
             ``steps_g``, ``Ls``, ``update_order``, ``trace``, ``state``).
 
     A ``state=`` from :func:`nmf_pgm_fused` pins ``engine="cuda"``. An
-    adaprox state of either engine resumes on either engine.
+    adaprox state of either engine resumes on either engine. A sharded
+    solve's state resumes only under ``mesh=``.
 
     Returns:
         The solver's ``SolverResult``; ``result.x == (A, S)``.
@@ -1354,21 +1432,37 @@ def nmf(
             f"factorization shape mismatch: Y {tuple(np.shape(Y))}, "
             f"A {tuple(np.shape(A))}, S {tuple(np.shape(S))}: need Y (C, N), "
             "A (C, K), S (K, N) with Y = A @ S")
-    if mesh is not None:
-        raise _not_yet("nmf(mesh=) scale-out", 13)
-    if engine == "auto":
-        raise _not_yet("engine='auto' routing", 7)
-
-    device = _device_for(device, Y, A, S)
     if algorithm_args.get("state", True) is None:
+        # state=None means "no resume", as if absent: it must not change
+        # the route (e.g. off the explicit sharded path)
         del algorithm_args["state"]
     st = algorithm_args.get("state")
-    if hasattr(st, "get") and st.get("kind") == "nmf_pgm_fused":
+    kind = st.get("kind") if hasattr(st, "get") else None
+    if kind in ("nmf_pgm_sharded", "nmf_adaprox_sharded") and mesh is None:
+        raise ValueError(
+            "state= is a sharded-solve resume state, which resumes the "
+            "explicit-collective sharded solve only: pass the mesh= this "
+            "solve runs on (single-device continuation is not what this "
+            "state encodes)")
+    if kind == "nmf_pgm_fused":
         if is_adaprox:
             raise ValueError("state= is an nmf_pgm_fused resume state but "
                              "algorithm='adaprox' was requested: a PGM "
                              "state does not resume another algorithm")
+        if mesh is not None:
+            raise ValueError(
+                "state= is an nmf_pgm_fused resume state (single-device "
+                "fused engine); it does not resume under mesh=: continue "
+                "on one device with engine='cuda'")
         engine = "cuda"  # a fused PGM state resumes only the fused engine
+    if mesh is not None:
+        return _nmf_mesh(Y, A, S, W, prox_A, prox_S, algorithm, step,
+                         max_iter, e_rel, callback, engine, step_stride,
+                         step_adapt, mesh, model_axis, kind, algorithm_args)
+    if engine == "auto":
+        raise _not_yet("engine='auto' routing", 7)
+
+    device = _device_for(device, Y, A, S)
     if engine not in ("torch", "cuda"):
         raise ValueError(f"unknown engine {engine!r}; the port has 'torch' "
                          "and 'cuda'")

@@ -3,8 +3,8 @@ lacks, as a list in the repository and not a search.
 
 For ``proxmin_tpu.utils``, ``proxmin_tpu.checkpoint``,
 ``proxmin_tpu.solvers.common``, ``proxmin_tpu.algorithms``,
-``proxmin_tpu.functional``, ``proxmin_tpu.export`` and the top-level
-package, every public name
+``proxmin_tpu.functional``, ``proxmin_tpu.export``,
+``proxmin_tpu.parallel`` and the top-level package, every public name
 (the module's ``__all__``, and the
 functions and classes it defines without a leading underscore; for the
 package, every attribute without one) either exists in the port's module of
@@ -21,7 +21,9 @@ import types
 import pytest
 
 import proxmin_tpu
+import proxmin_tpu.parallel  # noqa: F401  (an attribute once imported)
 import proxmin_tpu_torch
+import proxmin_tpu_torch.parallel  # noqa: F401
 
 JIT_ONLY = "serves jit and its driver cache; a host loop compiles nothing"
 POLICY = ("the port fixes one float32 policy at import "
@@ -51,8 +53,11 @@ ABSENT = {
         "split_partial_data": JIT_ONLY,
         "split_stepper_data": JIT_ONLY,
         "zeros_like_shapes": JIT_ONLY,
-        "promote_dtype_host": "serves the sharded path (ROADMAP Queue 1 "
-                              "item 13)",
+        "promote_dtype_host": "keeps host inputs on the host for the "
+                              "sharded path; the port's sharded path "
+                              "slices host inputs before it copies "
+                              "(parallel.sharding._local) and promotes "
+                              "each rank's slice",
     },
     "algorithms": {},
     # every factory is ported; under torch.func.vmap two options raise
@@ -67,7 +72,14 @@ ABSENT = {
         # submodules that are attributes once something has imported them
         "calibrate": "ROADMAP Queue 1 item 7 (only if the H100 sweep shows "
                      "a gray zone)",
-        "parallel": "ROADMAP Queue 1 item 13 (scale-out)",
+    },
+    "parallel": {
+        "hlo_collectives": "reads the collectives out of XLA's optimized "
+                           "HLO text, which PyTorch does not make; the "
+                           "port's tests count the torch.distributed "
+                           "all_reduce calls and their elements instead "
+                           "(tests/test_torch_parallel.py, "
+                           "tests/test_torch_distributed.py)",
     },
 }
 
@@ -206,11 +218,13 @@ def test_functional_imports_no_jax():
 # ValueError otherwise) and stands as owed in ROADMAP.md
 EXPORT_GAPS = {
     "export_nmf_pgm_sharded": {
-        "*": "a sharded multi-card artifact: ROADMAP Queue 1 item 13 "
-             "(scale-out)"},
+        "*": "a saved program of the sharded solve: ROADMAP Queue 1 item 13 "
+             "(what is left of the scale-out); the solve itself runs as "
+             "proxmin_tpu_torch.parallel.nmf_pgm_sharded"},
     "export_nmf_adaprox_sharded": {
-        "*": "a sharded multi-card artifact: ROADMAP Queue 1 item 13 "
-             "(scale-out)"},
+        "*": "a saved program of the sharded solve: ROADMAP Queue 1 item 13 "
+             "(what is left of the scale-out); the solve itself runs as "
+             "proxmin_tpu_torch.parallel.nmf_adaprox_sharded"},
     "export_nmf_solver": {
         "untraceable prox_S": "a prox_S outside the compiled chains runs "
                               "between K1's two split passes and is traced "
@@ -256,6 +270,7 @@ def test_export_gaps_raise():
     for name in ("export_nmf_pgm_sharded", "export_nmf_adaprox_sharded"):
         with pytest.raises(NotImplementedError, match="item 13"):
             getattr(tex, name)(None, 4, 3, 128)
+        assert "proxmin_tpu_torch.parallel" in EXPORT_GAPS[name]["*"]
 
     def prox_f(x, step, Xs=None, j=None):
         return x

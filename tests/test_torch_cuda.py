@@ -2009,8 +2009,12 @@ def test_program_reads_the_host_once_per_iteration(dev, kw, monkeypatch):
         return tnmf.nmf_pgm_fused(Y, A, S, W=W if weighted else None,
                                   e_rel=0, max_iter=n, **kw)
 
-    prog(*data, lo)
-    driver(lo)
+    # warm both window ends of the program and the driver, under the sync
+    # debug mode too, so that no one-time wait of the process (the first
+    # counted call, an allocation at the longer run) falls into one end
+    for n in (lo, hi):
+        _syncs(lambda n=n: prog(*data, n))
+        _syncs(lambda n=n: driver(n))
     p_lo, p_hi = (_syncs(lambda n=n: prog(*data, n)) for n in (lo, hi))
     c_lo, c_hi = (_dtoh_copies(lambda n=n: prog(*data, n))
                   for n in (lo, hi))

@@ -197,7 +197,7 @@ def test_likelihood_gradient_and_steps_match_jax():
 @pytest.mark.parametrize("kw,err", [
     ({"backtracking": True}, None),
     ({"engine": "auto"}, NotImplementedError),
-    ({"mesh": object()}, NotImplementedError),
+    ({"mesh": object(), "algorithm": "bsdmm"}, NotImplementedError),
     ({"algorithm": "bsdmm", "engine": "cuda"}, ValueError),
     ({"algorithm": "admm"}, ValueError),
     ({"trace": True}, None),
