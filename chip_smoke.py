@@ -147,7 +147,19 @@ Phases:
    (one through a sharded checkpoint) bit for bit; the exact solve on two
    gloo ranks on the same card against the one-rank result; each path's
    marginal ms/iter in turns with the torch engine, its all-reduce calls
-   and elements per iteration and its device-to-host copies per iteration.
+   and elements per iteration and its device-to-host copies per iteration;
+17. ``nmf(engine="auto")`` (``routing_phase``): every path of the engine
+   sweep (``ROUTE_PATHS``: PGM exact, stride 10, weighted stride 10,
+   weighted adaptive, weighted with the bfloat16 store; AdaProx with
+   float32 and bfloat16 moments) at the flagship and at full width
+   (C=128, K=32, N=1e6, the simplex on S): auto's choice against the H100
+   routing table, auto's solve equal to the chosen engine's bit for bit,
+   the K1/K2 launches it made (some wherever it chose cuda), both engines'
+   marginal ms/iter in turns; a gray-zone shape probed by the first auto
+   solve and served from the calibration cache on the second; C = 257 and
+   K = 33 routed to torch; and at the table's boundaries 8 seeds of
+   benchmarks/engine_equivalence.py's problem through both engines to
+   e_rel 1e-4, held to its ACCEPTANCE bound.
 
 The last two lines are the card (``nvidia-smi`` name and power limit)
 after a JSON object describing the kernels (each with its time, its plain
@@ -345,6 +357,52 @@ CHAIN_SPLIT_RTOL = 1e-5
 CHAIN_ITERS = 20
 
 
+# The routing path (phase 17): nmf(engine="auto") on each path of the
+# engine sweep (tools/engine_sweep.py), at the flagship and at full width,
+# against both engines. path -> (algorithm, weighted, the torch engine's
+# options, the cuda engine's; auto gets the cuda engine's, which are what a
+# user of the path asks for). The weighted bfloat16 store is an opt-in of
+# the cuda engine: the torch engine runs the same solve in float32. PGM
+# takes the simplex on S from C = ROUTE_SIMPLEX_FROM_C on, as phase 15.
+ROUTE_PATHS = {
+    "pgm-exact": ("pgm", False, {}, {}),
+    "pgm-stride10": ("pgm", False, {"step_stride": 10}, {"step_stride": 10}),
+    "pgm-w-stride10": ("pgm", True, {"step_stride": 10},
+                       {"step_stride": 10}),
+    "pgm-w-adapt": ("pgm", True, {"step_stride": 10, "step_adapt": True},
+                    {"step_stride": 10, "step_adapt": True}),
+    "pgm-w-bf16store": ("pgm", True, {"step_stride": 10},
+                        {"step_stride": 10, "store_dtype": "bfloat16"}),
+    "adaprox-f32": ("adaprox", False, {"separable_prox": "auto"},
+                    {"separable_prox": "auto"}),
+    "adaprox-bf16m": ("adaprox", False,
+                      {"separable_prox": "auto",
+                       "moment_dtype": torch.bfloat16},
+                      {"separable_prox": "auto",
+                       "moment_dtype": torch.bfloat16}),
+}
+ROUTE_SIMPLEX_FROM_C = 64
+ROUTE_ITERS = 20              # auto's solve against the chosen engine's
+ROUTE_LO, ROUTE_HI = 10, 60   # marginal ms/iter, the engines in turns
+# Shapes beyond the kernels (C > 256, K > 32): auto must run them on torch.
+ROUTE_BEYOND = ((257, 8, 1_000_000), (64, 33, 1_000_000))
+ROUTE_BEYOND_ITERS = 3
+# The engine-equivalence check (benchmarks/engine_equivalence.py, copied:
+# its make_problem with random starts and noise 0.02, the unity_A proxes
+# for PGM and the plain ones for AdaProx, e_rel 1e-4, and its ACCEPTANCE
+# bound, :56-70) at each boundary of the routing table, EQUIV_SEEDS seeds
+# from 1000 through both engines.
+EQUIV_SEEDS = 8
+EQUIV_E_REL = 1e-4
+EQUIV_MAX_ITER = 12_000
+EQUIV_ACCEPTANCE = {
+    "conv_rate_tol": 0.10,
+    "iter_ratio": 1.30,
+    "loss_spread_margin": 1.0,
+    "loss_frac_floor": 0.01,
+}
+
+
 # the script's start, for the phases' elapsed seconds
 T0 = time.perf_counter()
 
@@ -366,9 +424,12 @@ def nvidia_smi():
     return out.stdout.strip().splitlines()[0]
 
 
-def make_problem(C, K, N, weighted, seed=SEED):
+def make_problem(C, K, N, weighted, seed=SEED, planted=False):
     """bench.py's flagship problem on the card: Y = A_true S_true + noise,
-    random A0, S0 (and W in [0.5, 1.5))."""
+    random A0, S0 (and W in [0.5, 1.5)). ``planted`` starts instead near
+    the truth, each entry of A_true and S_true times a draw from [0.7,
+    1.3), as benchmarks/engine_equivalence.py's planted problems do (Y and
+    W unchanged)."""
     rng = np.random.default_rng(seed)
     A_true = rng.random((C, K)).astype(np.float32)
     S_true = rng.random((K, N)).astype(np.float32)
@@ -377,6 +438,9 @@ def make_problem(C, K, N, weighted, seed=SEED):
     A0 = rng.random((C, K)).astype(np.float32)
     S0 = rng.random((K, N)).astype(np.float32)
     W = (0.5 + rng.random((C, N))).astype(np.float32) if weighted else None
+    if planted:
+        A0 = (A_true * rng.uniform(0.7, 1.3, (C, K))).astype(np.float32)
+        S0 = (S_true * rng.uniform(0.7, 1.3, (K, N))).astype(np.float32)
     return tuple(None if a is None else torch.from_numpy(a).to(DEVICE)
                  for a in (Y, A0, S0, W))
 
@@ -2997,6 +3061,38 @@ torch.distributed.destroy_process_group()
 """
 
 
+def route_problem(C_, K_, N_):
+    """The routing path's problem at (C, K, N), W in [0.5, 1.5): below
+    ROUTE_SIMPLEX_FROM_C channels bench.py's data (make_problem) from its
+    planted start, from it on phase 15's unmixing data (make_unmixing, the
+    abundances on the simplex) from its random start. From make_problem's
+    random start a step frozen for 10 iterations overshoots at C=5, K=7
+    (the iterate reaches 1e16 and the prox zeroes it: the solve stops, an
+    exact fixed point), and the simplex on S fails on data whose
+    abundances are not on it (NaN after 12 iterations); both engines alike."""
+    if C_ >= ROUTE_SIMPLEX_FROM_C:
+        return make_unmixing(C_, K_, N_)
+    return make_problem(C_, K_, N_, True, planted=True)
+
+
+def route_solver(tnmf, top, problem, path, engine):
+    """``solve(n)``: ``n`` iterations of the ROUTE_PATHS path ``path`` on
+    ``engine`` (``"torch"``, ``"cuda"`` or ``"auto"``) with ``e_rel=0``,
+    from the problem's starting point (tensors: nmf writes nothing back
+    into them); ``prox_plus`` on A and S, the simplex on S for PGM from
+    C = ROUTE_SIMPLEX_FROM_C on."""
+    Y, A0, S0, W = problem
+    algorithm, weighted, kw_torch, kw_cuda = ROUTE_PATHS[path]
+    prox_S = (partial(top.prox_unity_plus, axis=0)
+              if algorithm == "pgm" and Y.shape[0] >= ROUTE_SIMPLEX_FROM_C
+              else top.prox_plus)
+    kw = kw_torch if engine == "torch" else kw_cuda
+    return lambda n: tnmf.nmf(
+        Y, A0, S0, W=W if weighted else 1, prox_A=top.prox_plus,
+        prox_S=prox_S, algorithm=algorithm, e_rel=0.0, max_iter=n,
+        engine=engine, **kw)
+
+
 def free_port():
     import socket
 
@@ -3210,6 +3306,287 @@ def sharded_phase(mods, problem, card):
         f"NCCL group costs {us:.1f} us of host per call; on {card}")
     dist.destroy_process_group()
 
+
+
+def route_expected(tnmf, calibrate, C_, K_, N_, path):
+    """What the routing table says for ``path`` at (C, K, N): ``"cuda"``,
+    ``"torch"``, or ``"probe"`` inside a gray zone (the probes decide)."""
+    algorithm, weighted, _, kw = ROUTE_PATHS[path]
+    if not tnmf._kernels_cover(C_, K_):
+        return "torch"
+    if "store_dtype" in kw or "moment_dtype" in kw:
+        return "cuda"  # a precision opt-in only the kernels serve
+    if algorithm == "adaprox":
+        return "cuda" if tnmf._adaprox_fused_wins(C_, K_, N_) else "torch"
+    strided = "step_stride" in kw or "step_adapt" in kw
+    if calibrate.in_gray_zone(C_, K_, N_, weighted, strided):
+        return "probe"
+    wins = (tnmf._weighted_fused_wins if weighted
+            else tnmf._unweighted_strided_fused_wins if strided
+            else tnmf._unweighted_fused_wins)
+    return "cuda" if wins(C_, K_, N_) else "torch"
+
+
+def same_solve(a, b):
+    """Two solves' factors and iteration counts equal, bit for bit."""
+    return (a.iterations == b.iterations
+            and all(torch.equal(x, y) for x, y in zip(a.x, b.x)))
+
+
+def equivalence_problem(C_, K_, N_, seed, weighted):
+    """benchmarks/engine_equivalence.py's make_problem (random start, noise
+    0.02), re-made with NumPy: Y, A0, S0 and W (or None) on the card."""
+    rng = np.random.default_rng(seed)
+    A_true = rng.random((C_, K_)).astype(np.float32)
+    S_true = rng.random((K_, N_)).astype(np.float32)
+    Y = (A_true @ S_true
+         + 0.02 * rng.standard_normal((C_, N_))).astype(np.float32)
+    A0 = rng.random((C_, K_)).astype(np.float32)
+    S0 = rng.random((K_, N_)).astype(np.float32)
+    W = (0.5 + rng.random((C_, N_))).astype(np.float32) if weighted else None
+    return tuple(None if a is None else torch.from_numpy(a).to(DEVICE)
+                 for a in (Y, A0, S0, W))
+
+
+def equivalence_stats(rows):
+    """engine_equivalence.summarize: the convergence rate, and over the
+    converged seeds the median iterations and the loss's median and 10 %
+    and 90 % quantiles."""
+    conv = [r for r in rows if r["converged"]]
+    out = {"conv_rate": len(conv) / max(len(rows), 1)}
+    if conv:
+        losses = np.asarray([r["loss"] for r in conv], np.float64)
+        out.update(iters_med=float(np.median([r["iterations"]
+                                              for r in conv])),
+                   loss_med=float(np.quantile(losses, 0.5)),
+                   loss_q10=float(np.quantile(losses, 0.1)),
+                   loss_q90=float(np.quantile(losses, 0.9)))
+    return out
+
+
+def equivalent(E, B, bound=EQUIV_ACCEPTANCE):
+    """engine_equivalence.check_equivalence of engine E against baseline B:
+    ``(ok, checks)``."""
+    checks = {"conv_rate": abs(E["conv_rate"] - B["conv_rate"])
+              <= bound["conv_rate_tol"]}
+    if E.get("iters_med") and B.get("iters_med"):
+        ratio = E["iters_med"] / B["iters_med"]
+        checks["iterations"] = (1 / bound["iter_ratio"] <= ratio
+                                <= bound["iter_ratio"])
+        spread = max(B["loss_q90"] - B["loss_q10"],
+                     E["loss_q90"] - E["loss_q10"])
+        tol = max(bound["loss_spread_margin"] * spread,
+                  bound["loss_frac_floor"] * abs(B["loss_med"]))
+        checks["loss"] = abs(E["loss_med"] - B["loss_med"]) <= tol
+    else:
+        checks["iterations"] = checks["loss"] = False
+    return all(checks.values()), checks
+
+
+def equivalence_check(tnmf, top, C_, K_, N_, path, card):
+    """EQUIV_SEEDS seeds of the engine-equivalence problem at (C, K, N)
+    through both engines of ``path`` to EQUIV_E_REL, with the study's
+    proxes (PGM: ``unity_A``, rows of A on the simplex and S non-negative;
+    AdaProx: ``plain``, both non-negative, which its fused engine needs);
+    the cuda engine against the torch engine under EQUIV_ACCEPTANCE."""
+    algorithm, weighted, kw_torch, kw_cuda = ROUTE_PATHS[path]
+    prox_A = (partial(top.prox_unity_plus, axis=1) if algorithm == "pgm"
+              else top.prox_plus)
+    rows = {"torch": [], "cuda": []}
+    t0 = time.perf_counter()
+    for i in range(EQUIV_SEEDS):
+        Y, A0, S0, W = equivalence_problem(C_, K_, N_, 1000 + i, weighted)
+        for eng, kw in (("torch", kw_torch), ("cuda", kw_cuda)):
+            res = tnmf.nmf(Y, A0, S0, W=1 if W is None else W,
+                           prox_A=prox_A, prox_S=top.prox_plus,
+                           algorithm=algorithm,
+                           e_rel=EQUIV_E_REL, max_iter=EQUIV_MAX_ITER,
+                           engine=eng, **kw)
+            rows[eng].append({"iterations": res.iterations,
+                              "converged": all(res.converged),
+                              "loss": wloss(*res.x, Y, W)})
+    stats = {e: equivalence_stats(r) for e, r in rows.items()}
+    ok, checks = equivalent(stats["cuda"], stats["torch"])
+    log(f"routing equivalence [{path} at ({C_}, {K_}, {N_})]: "
+        f"{EQUIV_SEEDS} seeds to e_rel {EQUIV_E_REL:g} in "
+        f"{time.perf_counter() - t0:.1f} s; torch {stats['torch']}, cuda "
+        f"{stats['cuda']}; checks {checks}; on {card}")
+    check(stats["torch"]["conv_rate"] >= 0.9,
+          f"routing equivalence [{path}]: the torch engine converged on "
+          f"{stats['torch']['conv_rate']:.0%} of the seeds")
+    check(ok, f"routing equivalence [{path} at ({C_}, {K_}, {N_})]: the "
+          f"engines differ beyond the bound: {checks}")
+
+
+def route_gray_shape(tnmf):
+    """A shape inside a gray zone of the routing table, ``(path, (C, K,
+    N))``: the band of the first PGM region that has one, at its smallest
+    swept (C, K) and the band's least N; None without a band."""
+    for path in ("pgm-exact", "pgm-stride10", "pgm-w-stride10"):
+        for (c, k), (_, gray) in sorted(tnmf._H100_REGIONS[path].items()):
+            if gray is not None:
+                return path, (c, k, gray[0])
+    return None
+
+def route_boundaries(tnmf):
+    """Where the equivalence check runs: for each region of the routing
+    table (exact, stride 10, weighted, AdaProx), the boundary at the
+    flagship's (C, K), or, where that shape has none, at the smallest swept
+    (C, K) that has one, at the least N of its gray range (where auto may
+    take either engine, and a solve costs least): ``(path, (C, K, N))``. A
+    region without any crossover draws no boundary."""
+    out = []
+    for path in ("pgm-exact", "pgm-stride10", "pgm-w-stride10",
+                 "adaprox-f32"):
+        table = tnmf._H100_REGIONS[path]
+        for c, k in sorted(table, key=lambda ck: ck != (C, K)):
+            gray = table[c, k][1]
+            if gray is not None:
+                out.append((path, (c, k, gray[0])))
+                break
+    return out
+
+def routing_phase(mods, card):
+    """Phase 17, ``nmf(engine="auto")``: for each ROUTE_PATHS path at the
+    flagship and at full width, auto's choice against the routing table,
+    auto's solve equal to the chosen engine's bit for bit, the K1/K2
+    launches auto made (more than none wherever it chose cuda) and both
+    engines' marginal ms/iter in turns; a gray-zone shape probed once and
+    then served from the cache; the shapes beyond the kernels on torch;
+    and the engine-equivalence check at the table's boundaries (see
+    ``route_boundaries``). Returns the K1/K2 launches of auto's solves:
+    ``{"K1": n, "K1 bf16 store": n, "K2": n, "K1 wide": n, "K2 wide": n}``."""
+    tnmf, top, kk, calibrate = mods
+    k1, k2 = kk.fused_nmf_pgm_step, kk.fused_nmf_adaprox_step
+    counted = (k1, k2)
+    launched = dict.fromkeys(("K1", "K1 bf16 store", "K2", "K1 wide",
+                              "K2 wide"), 0)
+    probes = []
+    real_choice = calibrate.measured_choice
+
+    def counted_choice(key, fns, fallback, **kw):
+        fns = {e: (lambda n, _f=f: (probes.append(key), _f(n))[1])
+               for e, f in fns.items()}
+        return real_choice(key, fns, fallback, **kw)
+
+    tmp = tempfile.TemporaryDirectory()
+    os.environ["PROXMIN_TPU_TORCH_AUTOTUNE_CACHE"] = os.path.join(
+        tmp.name, "routing.json")
+    calibrate.clear_cache()
+    calibrate._DISK, calibrate._DISK_LOADED = {}, False
+    calibrate.set_auto_calibration("on")
+    calibrate.measured_choice = counted_choice
+    try:
+        for label, shape in (("flagship", (C, K, N)), ("full width", WIDE)):
+            problem = route_problem(*shape)
+            for path in ROUTE_PATHS:
+                expected = route_expected(tnmf, calibrate, *shape, path)
+                solves = {e: route_solver(tnmf, top, problem, path, e)
+                          for e in ("torch", "cuda", "auto")}
+                n_probes = len(probes)
+                reset_counts(counted)
+                reset_routes(counted)
+                res_a = solves["auto"](ROUTE_ITERS)
+                torch.cuda.synchronize()
+                routes = route_counts(counted)
+                n_k = k1.launches + k2.launches
+                probed = len(probes) > n_probes
+                ref = {e: solves[e](ROUTE_ITERS) for e in ("torch", "cuda")}
+                chose = [e for e in ref if same_solve(res_a, ref[e])]
+                check(len(chose) >= 1, f"routing [{label}, {path}]: auto's "
+                      "solve equals neither engine's bit for bit")
+                if len(chose) == 2:  # the engines agree bit for bit
+                    chose = (expected if expected in chose
+                             else "cuda" if n_k and not probed else "torch")
+                else:
+                    chose = chose[0]
+                check(expected in (chose, "probe"),
+                      f"routing [{label}, {path}]: the table says "
+                      f"{expected}, auto ran {chose}")
+                if chose == "cuda":
+                    check(n_k >= ROUTE_ITERS, f"routing [{label}, {path}]: "
+                          f"auto chose cuda and launched K1/K2 {n_k} times "
+                          f"in {ROUTE_ITERS} iterations")
+                elif not probed:
+                    check(n_k == 0, f"routing [{label}, {path}]: auto "
+                          f"chose torch but launched K1/K2 {n_k} times")
+                if not probed:
+                    wide = shape[0] > 16 or shape[1] > 8
+                    k1_key = ("K1 wide" if wide else "K1 bf16 store"
+                              if "store_dtype" in ROUTE_PATHS[path][3]
+                              else "K1")
+                    launched[k1_key] += sum(
+                        routes[k1.__name__].values())
+                    launched["K2 wide" if wide else "K2"] += sum(
+                        routes[k2.__name__].values())
+                timed(solves["torch"], ROUTE_LO)
+                timed(solves["cuda"], ROUTE_LO)
+                ms = {e: [] for e in ("torch", "cuda")}
+                for e in ("torch", "cuda", "cuda", "torch"):
+                    ms[e].append(marginal_ms(solves[e], ROUTE_LO, ROUTE_HI))
+                log(f"routing [{label} {shape}, {path}]: table {expected}, "
+                    f"auto ran {chose}" + (" after probing" if probed else "")
+                    + f", equal to it bit for bit over {ROUTE_ITERS} "
+                    f"iterations; K1/K2 launches {routes}; marginal ms/iter "
+                    f"torch {min(ms['torch']):.4f} ({ms['torch'][0]:.4f}, "
+                    f"{ms['torch'][1]:.4f}), cuda {min(ms['cuda']):.4f} "
+                    f"({ms['cuda'][0]:.4f}, {ms['cuda'][1]:.4f}); order "
+                    f"torch, cuda, cuda, torch; on {card}")
+            del problem
+
+        # a gray-zone shape: the first auto call probes, the second is
+        # served from the cache
+        calibrate.clear_cache()
+        calibrate._DISK, calibrate._DISK_LOADED = {}, False
+        if os.path.exists(calibrate._disk_path()):
+            os.remove(calibrate._disk_path())
+        gray = route_gray_shape(tnmf)
+        if gray is None:
+            log("routing: the table has no gray zone at the swept shapes")
+        else:
+            path, shape = gray
+            problem = route_problem(*shape)
+            auto = route_solver(tnmf, top, problem, path, "auto")
+            n0 = len(probes)
+            auto(ROUTE_ITERS)
+            n1 = len(probes)
+            auto(ROUTE_ITERS)
+            n2 = len(probes)
+            check(n1 > n0 and n2 == n1, f"routing gray zone [{path} "
+                  f"{shape}]: {n1 - n0} probe calls on the first auto "
+                  f"solve, {n2 - n1} on the second")
+            log(f"routing gray zone [{path} {shape}]: the first auto solve "
+                f"made {n1 - n0} probe calls, the second none (cache: "
+                f"{dict(calibrate._CACHE)}); on {card}")
+            del problem
+
+        # beyond the kernels: auto runs on torch, without a ValueError
+        for shape in ROUTE_BEYOND:
+            problem = route_problem(*shape)
+            for path in ("pgm-exact", "adaprox-f32"):
+                reset_counts(counted)
+                res = route_solver(tnmf, top, problem, path, "auto")(
+                    ROUTE_BEYOND_ITERS)
+                ref = route_solver(tnmf, top, problem, path, "torch")(
+                    ROUTE_BEYOND_ITERS)
+                check(k1.launches + k2.launches == 0
+                      and same_solve(res, ref),
+                      f"routing beyond the kernels [{path} {shape}]: auto "
+                      "did not run the torch engine")
+                log(f"routing beyond the kernels [{path} {shape}]: auto "
+                    f"ran torch, equal to it bit for bit over "
+                    f"{ROUTE_BEYOND_ITERS} iterations; on {card}")
+            del problem
+    finally:
+        calibrate.measured_choice = real_choice
+        tmp.cleanup()
+        del os.environ["PROXMIN_TPU_TORCH_AUTOTUNE_CACHE"]
+    torch.cuda.empty_cache()
+
+    # the engine-equivalence contract at the table's boundaries
+    for path, shape in route_boundaries(tnmf):
+        equivalence_check(tnmf, top, *shape, path, card)
+    return launched
 
 def main():
     if not torch.cuda.is_available():
@@ -4091,6 +4468,19 @@ def main():
     from proxmin_tpu_torch import checkpoint, parallel
 
     sharded_phase((tnmf, parallel, checkpoint), (Y, A0, S0, Ww), card)
+
+    # 17. nmf(engine="auto"): the H100 routing table, calibration, the
+    # engine-equivalence check
+    log(f"phase 17 starts at {time.perf_counter() - T0:.0f} s")
+    from proxmin_tpu_torch import calibrate
+
+    rt_launches = routing_phase((tnmf, top, kk, calibrate), card)
+    k1_launches += rt_launches["K1"]
+    k1b_launches += rt_launches["K1 bf16 store"]
+    k2_launches += rt_launches["K2"]
+    w_routes["fused_nmf_pgm_step"]["wide"] += rt_launches["K1 wide"]
+    w_routes["fused_nmf_adaprox_step"]["wide"] += rt_launches["K2 wide"]
+    log(f"phase 17 ends at {time.perf_counter() - T0:.0f} s")
 
     k2_ms, k2_plain = k2_times["f32 moments"]
     k1b_ms, k1b_plain, k1b_bound = k1_times["bf16 store, W"]

@@ -2,7 +2,8 @@
 
 The JAX package ``proxmin_tpu`` is the reference; this package mirrors its
 module names (``operators``, ``utils``, ``linop``, ``solvers``, ``nmf``,
-``ops``, ``special``, ``checkpoint``, ``functional``, ``export``) so each
+``ops``, ``special``, ``checkpoint``, ``functional``, ``export``,
+``parallel``, ``calibrate``) so each
 counterpart sits at the same relative path. It imports ``torch`` and
 never ``jax``. Plain code is tensor ops on the device the inputs live on;
 the hot NMF step is a hand-written CUDA kernel (``ops``, ``csrc/``) built
@@ -14,7 +15,9 @@ their options, NMF by PGM and AdaProx on the ``"torch"`` and ``"cuda"``
 engines and by bSDMM, checkpoint/resume of every solver's state through
 a file, the pure solver factories of ``functional`` (batched under
 ``torch.func.vmap``, implicitly differentiable), and whole solves saved as
-``torch.export`` programs by ``export``; ROADMAP.md lists what follows.
+``torch.export`` programs by ``export``, and ``nmf(engine="auto")`` with
+its H100 routing regions and runtime calibration (``calibrate``);
+ROADMAP.md lists what follows.
 
 Importing the package sets the float32 matmul policy
 (:func:`precision.apply_f32_policy`): no TF32 anywhere.
@@ -27,6 +30,7 @@ apply_f32_policy()
 from .algorithms import *  # noqa: E402,F401,F403
 from .operators import *  # noqa: E402,F401,F403
 from . import algorithms  # noqa: E402,F401
+from . import calibrate  # noqa: E402,F401
 from . import checkpoint  # noqa: E402,F401
 from . import export  # noqa: E402,F401
 from . import functional  # noqa: E402,F401

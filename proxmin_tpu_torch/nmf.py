@@ -22,10 +22,19 @@ under proximal constraints on A and S, on two engines:
 step wrapped as its ``prox_f``, on tensor ops; strided weighted steps come
 from a :class:`WeightedBSDMMStepper`.
 
+``engine="auto"`` picks one of the two per call, by the JAX package's
+eligibility rules and a routing table measured on the H100
+(``tools/engine_sweep.py``; ``_H100_REGIONS``): the cuda engine where it
+was the faster, the torch engine elsewhere, beyond the kernels' C <= 256,
+K <= 32 and for everything the kernels do not run; bfloat16 moments or
+store and an explicit ``tile_n`` go to the kernels. Inside the table's gray
+zones the first solve of a shape times both engines
+(:mod:`proxmin_tpu_torch.calibrate`).
+
 ``mesh=`` (a :func:`~proxmin_tpu_torch.parallel.make_mesh` mesh) runs PGM
 and the adam-scheme AdaProx as the explicit-collective sharded solves of
-:mod:`proxmin_tpu_torch.parallel`; ``engine="auto"`` and the other
-algorithms under a mesh are later slices (ROADMAP.md Queue 1).
+:mod:`proxmin_tpu_torch.parallel` (``engine`` ``"torch"`` or ``"auto"``);
+the other algorithms under a mesh are a later slice (ROADMAP.md Queue 1).
 NumPy inputs go to the CUDA device unless ``device=`` says otherwise;
 tensors stay where they are.
 """
@@ -37,7 +46,7 @@ import numpy as np
 import torch
 
 from . import algorithms, operators, utils
-from .ops.nmf_kernels import (DEFAULT_TILE_N, describe_prox,
+from .ops.nmf_kernels import (DEFAULT_TILE_N, MAX_C, MAX_K, describe_prox,
                               fused_nmf_adaprox_step,
                               fused_nmf_pgm_step)
 from .solvers.common import (SolverResult, as_tensor, as_torch_dtype,
@@ -102,6 +111,302 @@ def _adaprox_separable_ok(prox_A, prox_S, mode):
     except ValueError:
         return False
     return all(s or not h for s, h in zip(sep, has))
+
+
+def _fused_prox_safe(prox, block):
+    """Can ``engine='auto'`` route this prox onto the fused PGM kernel?
+
+    The JAX kernel applies ``prox_S`` per pixel tile (a prox that couples
+    pixels, e.g. ``prox_unity(axis=1)`` on S, would compute tile-local
+    sums) and ``prox_A`` on the padded factor; auto-routing therefore takes
+    known library operators only, as the JAX rule does, and everything else
+    stays on the torch engine. Explicit ``engine='cuda'`` keeps the
+    trust-the-caller contract (:func:`nmf_pgm_fused`). The kernels' width
+    limit is a separate gate (:func:`_kernels_cover`).
+    """
+    if prox is None:
+        return True
+    kw = {}
+    if isinstance(prox, partial):
+        if prox.args:  # positionally bound step or threshold
+            return False
+        kw = dict(prox.keywords)
+        prox = prox.func
+    if prox in (operators.prox_id, operators.prox_zero,
+                operators.prox_plus, operators.prox_min,
+                operators.prox_max, operators.prox_hard,
+                operators.prox_hard_plus, operators.prox_soft,
+                operators.prox_soft_plus, operators.prox_max_entropy):
+        return True  # elementwise for every keyword
+    if prox in (operators.prox_unity, operators.prox_unity_plus):
+        # A is proxed whole; S only along the factor axis is pixel-local
+        return True if block == "A" else kw.get("axis", 0) == 0
+    if isinstance(prox, operators.AlternatingProjections):
+        return all(_fused_prox_safe(p, block) for p in prox.operators)
+    return False
+
+
+def _kernels_cover(C, K):
+    """Whether the CUDA kernels take (C, K): C <= 256 and K <= 32. Beyond,
+    ``engine='auto'`` routes to torch (ROADMAP Queue 2 owes wider
+    kernels)."""
+    return 1 <= C <= MAX_C and 1 <= K <= MAX_K
+
+
+#: The H100 routing table, from ``tools/engine_sweep.py`` on an NVIDIA H100
+#: 80GB HBM3 at 700.00 W (``PERF.md`` section 6; printed by
+#: ``tools/engine_sweep.py --table``). For each path and swept (C, K):
+#: ``(n_x, gray)``. ``n_x`` is the least swept N (1e4, 1e5, 1e6, 1e7) from
+#: which on the cuda engine's marginal ms/iter was the smaller at every
+#: larger swept N: 0 where it was at every one, None where at none.
+#: ``gray`` is the inclusive N range where the sweep could not tell the
+#: engines apart around that crossover (their pair slopes overlapped, or
+#: between the two swept N that straddle it); None without a crossover.
+#: A shape takes the entry of the smallest swept (C, K) that covers it.
+_H100_REGIONS = {
+    "pgm-exact": {
+        (5, 7): (1_000_000, (10_000, 1_000_000)),
+        (16, 8): (0, None),
+        (32, 16): (100_000, (10_000, 100_000)),
+        (64, 16): (1_000_000, (10_000, 999_999)),
+        (128, 32): (100_000, (10_000, 100_000)),
+        (256, 32): (1_000_000, (10_000, 999_999)),
+    },
+    "pgm-stride10": {
+        (5, 7): (1_000_000, (10_000, 1_000_000)),
+        (16, 8): (1_000_000, (10_000, 1_000_000)),
+        (32, 16): (1_000_000, (100_001, 1_000_000)),
+        (64, 16): (100_000, (10_000, 100_000)),
+        (128, 32): (100_000, (10_000, 100_000)),
+        (256, 32): (1_000_000, (100_000, 999_999)),
+    },
+    "pgm-w-stride10": {
+        (5, 7): (10_000_000, (10_000, 9_999_999)),
+        (16, 8): (100_000, (10_000, 1_000_000)),
+        (32, 16): (1_000_000, (10_000, 1_000_000)),
+        (64, 16): (100_000, (10_000, 99_999)),
+        (128, 32): (0, None),
+        (256, 32): (100_000, (10_001, 100_000)),
+    },
+    "adaprox-f32": {
+        (5, 7): (0, None),
+        (16, 8): (0, None),
+        (32, 16): (0, None),
+        (64, 16): (0, None),
+        (128, 32): (0, None),
+        (256, 32): (1_000_000, (10_000, 999_999)),
+    },
+}
+
+
+def _covering(table, C, K):
+    """The entry of the smallest swept (c, k) with C <= c and K <= k."""
+    for (c, k), entry in sorted(table.items()):
+        if C <= c and K <= k:
+            return entry
+    return None, None
+
+
+def _cuda_wins(path, C, K, N):
+    n_x = _covering(_H100_REGIONS[path], C, K)[0]
+    return n_x is not None and N >= n_x
+
+
+def _gray_range(path, C, K):
+    """The inclusive N range in which the sweep could not tell the engines
+    apart for ``path`` at (C, K), or None."""
+    return _covering(_H100_REGIONS[path], C, K)[1]
+
+
+def _unweighted_fused_wins(C, K, N):
+    """Where the cuda engine's exact PGM (K1, the Gram of the S it just
+    wrote) beats the torch engine's, unweighted: measured by
+    ``tools/engine_sweep.py`` on an NVIDIA H100 80GB HBM3 at 700.00 W
+    (``_H100_REGIONS["pgm-exact"]``). Both engines are host-bound at
+    N <= 1e5 (about 1.3-3.0 ms/iter on that host, device busy under a
+    third of it): the two sat within their pair spread at every such point
+    but (16, 8, 1e5). The cuda engine won from N = 1e6 at every shape
+    (1.23x at (5, 7), 1.58-1.68x at (128, 32) and (256, 32)) and by
+    2.6-3.6x at 1e7; from 1e5 at (32, 16) and (128, 32), at every N at
+    (16, 8). Inside the gray ranges the probes decide
+    (:mod:`proxmin_tpu_torch.calibrate`)."""
+    return _cuda_wins("pgm-exact", C, K, N)
+
+
+def _unweighted_strided_fused_wins(C, K, N):
+    """Where the cuda engine's unweighted strided runner (steps refreshed
+    once a segment from K1's Gram) beats the torch engine's
+    :class:`~proxmin_tpu_torch.utils.StridedStepper`, at ``step_stride=10``
+    (and for ``step_adapt``, which the sweep did not take separately):
+    ``_H100_REGIONS["pgm-stride10"]``, NVIDIA H100 80GB HBM3 at 700.00 W.
+    Within the spread at N <= 1e5 (torch ahead by 1.4x at (256, 32, 1e4)
+    and (32, 16, 1e5)), the cuda engine from N = 1e6 (1.02x at (5, 7), up
+    to 1.77x at (256, 32)) or 1e5 at (64, 16) and (128, 32), and 2.5-4.4x
+    at 1e7. Separately measured from the exact region, with its own
+    crossovers."""
+    return _cuda_wins("pgm-stride10", C, K, N)
+
+
+def _weighted_fused_wins(C, K, N):
+    """Where the cuda engine's weighted runner (K1 with W, the batched power
+    iteration every ``step_stride`` iterations) beats the torch engine's
+    :class:`WeightedPGMStepper`, at ``step_stride=10``; weighted
+    ``step_adapt`` takes the same region: ``_H100_REGIONS["pgm-w-stride10"]``,
+    NVIDIA H100 80GB HBM3 at 700.00 W. The refresh runs on tensor ops in
+    both engines, so the cuda engine gains least here: within the spread
+    up to N = 1e6 at (5, 7) to (32, 16) (0.99-1.06x at 1e6), the faster
+    from 1e5 at (16, 8), (64, 16) and (256, 32), from 1e6 at (32, 16),
+    from 1e7 at (5, 7) and at every N at (128, 32); 1.15-1.35x at 1e6 from
+    C = 64, 1.47-1.66x at 1e7. The adaptive path, swept beside it
+    (``PERF.md``), sat within its spread at every N <= 1e5, and up to 1e6
+    at C <= 32; the cuda engine won it from C = 64 at 1e6 and everywhere
+    at 1e7 (2.3-3.4x)."""
+    return _cuda_wins("pgm-w-stride10", C, K, N)
+
+
+def _adaprox_fused_wins(C, K, N):
+    """Where the cuda engine's float32 AdaProx (K2) beats the torch engine's
+    driver with ``separable_prox="auto"``: ``_H100_REGIONS["adaprox-f32"]``,
+    NVIDIA H100 80GB HBM3 at 700.00 W. At every swept N up to C = 128,
+    K = 32 (1.02-1.25x at N <= 1e5, 1.13-2.02x at 1e6, 3.3-4.3x at 1e7);
+    at (256, 32) within the spread at 1e4 and 1e5 and from 1e6 on (1.86x).
+    The JAX package keeps float32 AdaProx on XLA: a v5e measurement that
+    the H100 reverses. bfloat16 moments and store stay an opt-in: they
+    always route to K2 and are never chosen for the caller."""
+    return _cuda_wins("adaprox-f32", C, K, N)
+
+
+def _calibrated_engine(Y, A, S, W, prox_A, prox_S, e_rel, step_stride,
+                       step_adapt, algorithm_args, C, K, N, weighted,
+                       strided, static, device):
+    """Resolve the torch-vs-cuda decision of one auto-routed PGM solve: the
+    static regions away from the measured crossovers, a one-shot probe
+    (cached per device kind, shape, policy, dtype and ``e_rel``) inside
+    the gray zone; see :mod:`proxmin_tpu_torch.calibrate`."""
+    from . import calibrate
+
+    if (calibrate._MODE != "on"
+            or not calibrate.in_gray_zone(C, K, N, weighted, strided)):
+        return static  # no probe: nothing to copy
+    key = (calibrate.device_kind(device), C, K, N, weighted,
+           int(step_stride) if step_stride else 0, bool(step_adapt),
+           str(A.dtype).removeprefix("torch.")
+           if isinstance(A, torch.Tensor) else str(np.asarray(A).dtype),
+           float(e_rel))
+    # copies on the solve's device: a probe never writes into the caller's
+    # arrays (NumPy inputs are updated in place by nmf)
+    Yp = promote_dtype(Y, device=device)
+    Wp = 1 if _is_unweighted(W) else _promote_W(W, Yp)
+    Ap = promote_dtype(A, device=device).clone()
+    Sp = promote_dtype(S, device=device).clone()
+    probe_kw = dict(algorithm_args)
+    probe_kw.pop("state", None)  # a resume state never rides into a probe
+
+    def make_probe(eng):
+        def probe(n):
+            # the caller's e_rel rides into the probe: a solve that
+            # converges inside the budget is seen (it ran fewer than n)
+            res = nmf(Yp, Ap, Sp, W=Wp, prox_A=prox_A, prox_S=prox_S,
+                      e_rel=e_rel, max_iter=n, engine=eng,
+                      step_stride=step_stride, step_adapt=step_adapt,
+                      device=device, **probe_kw)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            return res.iterations
+        return probe
+
+    # fixed-iteration probes "do not converge" by design: drop exactly that
+    # message for the probe window
+    class _ExpectedNonConvergence(logging.Filter):
+        def filter(self, record):
+            return "did not converge" not in record.getMessage()
+
+    flt = _ExpectedNonConvergence()
+    logger.addFilter(flt)
+    try:
+        return calibrate.measured_choice(
+            key, {"torch": make_probe("torch"), "cuda": make_probe("cuda")},
+            static)
+    finally:
+        logger.removeFilter(flt)
+
+
+def _route_auto(Y, A, S, W, prox_A, prox_S, algorithm, step, callback,
+                e_rel, step_stride, step_adapt, device, algorithm_args):
+    """``engine='auto'``: the engine for this call and its options (a
+    full-width ``store_dtype`` normalized away). The JAX package's rules,
+    with the regions measured on the H100 (``_unweighted_fused_wins``,
+    ``_unweighted_strided_fused_wins``, ``_weighted_fused_wins``,
+    ``_adaprox_fused_wins``) and the kernels' width limit."""
+    # None or a full-width store_dtype is the default layout; a reduced one
+    # is a capacity request only the fused kernels honor
+    if "store_dtype" in algorithm_args:
+        sdt = as_torch_dtype(algorithm_args["store_dtype"])
+        if sdt is None or sdt.itemsize >= 4:
+            algorithm_args = dict(algorithm_args)
+            del algorithm_args["store_dtype"]
+    C, N = np.shape(Y)
+    K = np.shape(A)[1]
+    covered = _kernels_cover(C, K)
+    fused_adaprox_ok = False
+    if (covered and algorithm is algorithms.adaprox and step is None
+            and callback is None and step_stride is None and not step_adapt
+            and algorithm_args.get("scheme", "adam") == "adam"
+            and set(algorithm_args) <= {
+                "b1", "b2", "eps", "tile_n", "moment_dtype", "store_dtype",
+                "M", "V", "state", "scheme", "separable_prox"}):
+        fused_adaprox_ok = _adaprox_separable_ok(
+            prox_A, prox_S, algorithm_args.get("separable_prox", "auto"))
+    mdt = as_torch_dtype(algorithm_args.get("moment_dtype"))
+    reduced_moments = mdt is not None and mdt.itemsize < 4
+    st = algorithm_args.get("state")
+    if fused_adaprox_ok and st is not None:
+        # an adaprox state resumes on the engine that made it: the fused
+        # engine's carries its configuration (and K2's row sums)
+        return ("cuda" if "fused_config" in st else "torch"), algorithm_args
+    if fused_adaprox_ok and (reduced_moments or "tile_n" in algorithm_args
+                             or "store_dtype" in algorithm_args):
+        # bfloat16 moments or store are a precision opt-in that only K2
+        # serves at full speed; an explicit tile_n forces the kernel
+        return "cuda", algorithm_args
+    if fused_adaprox_ok:
+        return ("cuda" if _adaprox_fused_wins(C, K, N) else "torch",
+                algorithm_args)
+    cuda_only = set(algorithm_args) & {"tile_n", "store_dtype"}
+    weighted = not _is_unweighted(W)
+    # a strided or adaptive refresh is what makes the weighted fused runner
+    # worth routing to (a refresh every iteration dominates either engine)
+    strided = (step_stride is not None and step_stride > 1) or step_adapt
+    weighted_strided = weighted and strided
+    weighted_store = weighted and "store_dtype" in algorithm_args
+    cuda_ok = (covered and algorithm is algorithms.pgm and step is None
+               and callback is None
+               and set(algorithm_args) <= {"tile_n", "store_dtype"}
+               and _fused_prox_safe(prox_A, "A")
+               and _fused_prox_safe(prox_S, "S")
+               and (weighted_store or weighted_strided or not weighted))
+    if cuda_only and not cuda_ok:
+        raise ValueError(
+            f"{sorted(cuda_only)} are cuda-engine options but the call is "
+            "not auto-routable to the fused kernels (pgm needs default "
+            "steps, no callback, C <= 256, K <= 32 and library proxs the "
+            "kernel can apply per pixel; other pixel-local proxs can force "
+            "the engine with engine='cuda'; adaprox needs the adam scheme "
+            "and separable proxs)")
+    if cuda_ok and cuda_only:
+        return "cuda", algorithm_args
+    if cuda_ok and (not weighted or weighted_strided):
+        if weighted:
+            wins = _weighted_fused_wins
+        else:
+            wins = (_unweighted_strided_fused_wins if strided
+                    else _unweighted_fused_wins)
+        static = "cuda" if wins(C, K, N) else "torch"
+        return _calibrated_engine(
+            Y, A, S, W, prox_A, prox_S, e_rel, step_stride, step_adapt,
+            algorithm_args, C, K, N, weighted, strided, static,
+            device), algorithm_args
+    return "torch", algorithm_args
 
 
 def _device_for(device, *arrays):
@@ -1385,10 +1690,24 @@ def nmf(
         callback: ``callback(A, S, it=it)`` before every iteration, with
             the factors as tensors; ``StopIteration`` ends the solve
             (torch engine; e.g. :class:`~proxmin_tpu_torch.utils.Traceback`).
-        engine: ``"torch"`` (the generic driver on tensor ops) or
+        engine: ``"torch"`` (the generic driver on tensor ops),
             ``"cuda"`` (a fused kernel per iteration: :func:`nmf_pgm_fused`
             on K1, or :func:`nmf_adaprox_fused` on K2 for the adam scheme
-            with separable proxs; on CPU tensors their plain versions).
+            with separable proxs; on CPU tensors their plain versions) or
+            ``"auto"``: the cuda engine where the H100 table measured it
+            faster (``_unweighted_fused_wins``,
+            ``_unweighted_strided_fused_wins``, ``_weighted_fused_wins``,
+            ``_adaprox_fused_wins``) and the call is one it runs (PGM with
+            the default steps, no callback, library proxes it applies per
+            pixel, weighted only with a stride or a store; AdaProx with the
+            adam scheme and separable proxes; C <= 256, K <= 32), or where
+            ``tile_n``, a bfloat16 ``store_dtype`` or ``moment_dtype``
+            asks for it; the torch engine otherwise. It routes by shape,
+            not dtype: the cuda engine computes in float32. Inside a gray
+            zone of the table the first solve of a shape probes both
+            engines (:mod:`~proxmin_tpu_torch.calibrate`). The same table
+            holds on the CPU, where the cuda engine runs the plain
+            versions.
         step_stride: refresh the steps every this many iterations (the
             0.9 safety factor; weighted PGM warm-starts its power
             iteration between refreshes). ``step_adapt``: grow or halve the
@@ -1416,8 +1735,9 @@ def nmf(
             ``steps_g``, ``Ls``, ``update_order``, ``trace``, ``state``).
 
     A ``state=`` from :func:`nmf_pgm_fused` pins ``engine="cuda"``. An
-    adaprox state of either engine resumes on either engine. A sharded
-    solve's state resumes only under ``mesh=``.
+    adaprox state of either engine resumes on either engine; under
+    ``engine="auto"`` on the engine that made it. A sharded solve's state
+    resumes only under ``mesh=``.
 
     Returns:
         The solver's ``SolverResult``; ``result.x == (A, S)``.
@@ -1459,10 +1779,12 @@ def nmf(
         return _nmf_mesh(Y, A, S, W, prox_A, prox_S, algorithm, step,
                          max_iter, e_rel, callback, engine, step_stride,
                          step_adapt, mesh, model_axis, kind, algorithm_args)
-    if engine == "auto":
-        raise _not_yet("engine='auto' routing", 7)
 
     device = _device_for(device, Y, A, S)
+    if engine == "auto":
+        engine, algorithm_args = _route_auto(
+            Y, A, S, W, prox_A, prox_S, algorithm, step, callback, e_rel,
+            step_stride, step_adapt, device, algorithm_args)
     if engine not in ("torch", "cuda"):
         raise ValueError(f"unknown engine {engine!r}; the port has 'torch' "
                          "and 'cuda'")

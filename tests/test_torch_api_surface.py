@@ -1,10 +1,10 @@
 """What of the JAX package's public surface the port has, and what it
 lacks, as a list in the repository and not a search.
 
-For ``proxmin_tpu.utils``, ``proxmin_tpu.checkpoint``,
-``proxmin_tpu.solvers.common``, ``proxmin_tpu.algorithms``,
-``proxmin_tpu.functional``, ``proxmin_tpu.export``,
-``proxmin_tpu.parallel`` and the top-level package, every public name
+For every module of ``ABSENT`` (``utils``, ``checkpoint``,
+``solvers.*``, ``algorithms``, ``functional``, ``export``, ``parallel``,
+``nmf``, ``operators``, ``linop``, ``special``, ``precision``, ``ops``,
+``ops.*``, ``calibrate``) and the top-level package, every public name
 (the module's ``__all__``, and the
 functions and classes it defines without a leading underscore; for the
 package, every attribute without one) either exists in the port's module of
@@ -26,6 +26,10 @@ import proxmin_tpu_torch
 import proxmin_tpu_torch.parallel  # noqa: F401
 
 JIT_ONLY = "serves jit and its driver cache; a host loop compiles nothing"
+WHILE_CARRY = ("the carry of the JAX driver's lax.while_loop (its "
+               "NamedTuple and the function that builds it); the port's "
+               "drivers are host loops, and a solve's resume state is the "
+               "plain dict of its result's .state")
 POLICY = ("the port fixes one float32 policy at import "
           "(proxmin_tpu_torch.precision.apply_f32_policy: no TF32); the "
           "TF32 question is ROADMAP Queue 1 item 1's")
@@ -69,10 +73,42 @@ ABSENT = {
     "": {
         "clear_caches": JIT_ONLY,
         "set_matmul_precision": POLICY,
-        # submodules that are attributes once something has imported them
-        "calibrate": "ROADMAP Queue 1 item 7 (only if the H100 sweep shows "
-                     "a gray zone)",
     },
+    "nmf": {},
+    "operators": {},
+    "linop": {},
+    "special": {},
+    "precision": {
+        "set_matmul_precision": POLICY,
+        "matmul_precision_scope": POLICY,
+        "with_matmul_precision": POLICY,
+    },
+    "ops": {},
+    "ops.nmf_kernels": {
+        "pad_nmf_problem": "pads C and K to the TPU's 8-row tiles and N to "
+                           "the tile for the Pallas kernels; the CUDA "
+                           "kernels take any C <= 256, K <= 32 and N "
+                           "unpadded (the compiled bounds mask the rest), "
+                           "so the port has nothing to pad",
+    },
+    "ops.prox_kernels": {},
+    "solvers.pgm": {
+        "PGMState": WHILE_CARRY,
+    },
+    "solvers.adaprox": {
+        "AdaProxState": WHILE_CARRY,
+        "init_adaprox_state": WHILE_CARRY,
+        "make_adaprox_cond": "the lax.while_loop condition, shared with "
+                             "the JAX AOT exporter; the port's host loop "
+                             "tests its stop flags in Python, and its "
+                             "exporter builds its own torch while_loop "
+                             "condition (proxmin_tpu_torch.export)",
+    },
+    "solvers.admm": {},
+    "solvers.bsdmm": {
+        "BSDMMState": WHILE_CARRY,
+    },
+    "calibrate": {},
     "parallel": {
         "hlo_collectives": "reads the collectives out of XLA's optimized "
                            "HLO text, which PyTorch does not make; the "
