@@ -156,10 +156,15 @@ Phases:
    routing table, auto's solve equal to the chosen engine's bit for bit,
    the K1/K2 launches it made (some wherever it chose cuda), both engines'
    marginal ms/iter in turns; a gray-zone shape probed by the first auto
-   solve and served from the calibration cache on the second; C = 257 and
-   K = 33 routed to torch; and at the table's boundaries 8 seeds of
+   solve and served from the calibration cache on the second; and at the
+   table's boundaries 8 seeds of
    benchmarks/engine_equivalence.py's problem through both engines to
-   e_rel 1e-4, held to its ACCEPTANCE bound.
+   e_rel 1e-4, held to its ACCEPTANCE bound;
+18. the very-wide path (``very_wide_phase``): hyperspectral unmixing at
+   AVIRIS-NG's width, C=425, K=32, N=1e6, and a K > 32 check at
+   (128, 64, 250 000) on K1-K3's very-wide body, ``nmf(engine="auto")`` on
+   both against the routing table's very-wide rows, and K5 beyond C,
+   K <= 8 at (16, 12, 1e6) (see its docstring).
 
 The last two lines are the card (``nvidia-smi`` name and power limit)
 after a JSON object describing the kernels (each with its time, its plain
@@ -228,7 +233,9 @@ BF16_STORE_ATOL = 1e-5
 # same (tests/test_torch_nmf_adaprox.py); at 200 iterations the bfloat16
 # store's loss is held below its own at this horizon.
 BF16_RULE_AT = 100
-LO, HI = 50, 250  # iteration counts for the marginal ms/iter
+# iteration counts for the marginal ms/iter (50 and 250 until the script
+# gained phase 18: cut to keep the whole run inside its time limit)
+LO, HI = 30, 150
 # K4 against its plain version: plus, soft and hard bitwise (one comparison
 # or a few separately rounded operations per element, the same in both);
 # unity elementwise relative, since its sums are taken in another order.
@@ -262,11 +269,12 @@ STRIDE = 10
 # The C <= 16 instances of K1 and K3 (two blocks per SM) are checked at
 # C=16, K=8 on this many pixels.
 N_WIDE = 200_000
-# The fused kernels (the ring bodies and the wide body): ptxas must report
-# no spill stores for any of their instances.
+# The fused kernels (the ring bodies, the wide and the very-wide body):
+# ptxas must report no spill stores for any of their instances.
 RING_KERNELS = ("pgm_step_kernel", "adaprox_step_kernel", "nmf_grad_kernel",
                 "pgm_chain_kernel", "pgm_wide_kernel", "adaprox_wide_kernel",
-                "nmf_grad_wide_kernel")
+                "nmf_grad_wide_kernel", "pgm_vwide_kernel",
+                "adaprox_vwide_kernel", "nmf_grad_vwide_kernel")
 
 
 # The TV denoising problem of benchmarks/admm_scale.py: its seed, penalty
@@ -384,9 +392,9 @@ ROUTE_PATHS = {
 ROUTE_SIMPLEX_FROM_C = 64
 ROUTE_ITERS = 20              # auto's solve against the chosen engine's
 ROUTE_LO, ROUTE_HI = 10, 60   # marginal ms/iter, the engines in turns
-# Shapes beyond the kernels (C > 256, K > 32): auto must run them on torch.
-ROUTE_BEYOND = ((257, 8, 1_000_000), (64, 33, 1_000_000))
-ROUTE_BEYOND_ITERS = 3
+# Phase 18 routes its very-wide problems through auto for this many
+# iterations: auto takes the engine the table's rows for them name.
+ROUTE_VWIDE_ITERS = 3
 # The engine-equivalence check (benchmarks/engine_equivalence.py, copied:
 # its make_problem with random starts and noise 0.02, the unity_A proxes
 # for PGM and the plain ones for AdaProx, e_rel 1e-4, and its ACCEPTANCE
@@ -401,6 +409,22 @@ EQUIV_ACCEPTANCE = {
     "loss_spread_margin": 1.0,
     "loss_frac_floor": 0.01,
 }
+
+
+# The very-wide path (phase 18): hyperspectral unmixing at the width of an
+# imaging spectrometer, AVIRIS-NG's 425 channels (380-2510 nm at 5 nm),
+# with K = 32 endmembers at the flagship's pixel count, made and solved as
+# phase 15's unmixing (make_unmixing, seed 101: the abundances on the
+# simplex; prox_A non-negativity, prox_S the simplex); beside it a K > 32
+# check at (128, 64, 250_000), two component blocks of 32 (not a user
+# configuration), and K5 beyond C, K <= 8. Solves run VWIDE_ITERS
+# iterations and resume after VWIDE_SPLIT; marginals between VWIDE_LO and
+# VWIDE_HI iterations.
+VWIDE = (425, 32, 1_000_000)
+VWIDE_K64 = (128, 64, 250_000)
+VWIDE_PACKED = (16, 12, 1_000_000)
+VWIDE_ITERS, VWIDE_SPLIT = 30, 10
+VWIDE_LO, VWIDE_HI = 5, 15
 
 
 # the script's start, for the phases' elapsed seconds
@@ -515,7 +539,9 @@ KERNEL_NAMES = ("pgm_step_kernel", "pgm_step_finalize", "adaprox_step_kernel",
                 "nmf_grad_finalize", "prox_elementwise_kernel",
                 "unity_cols_kernel", "unity_rows_kernel", "pgm_chain_kernel",
                 "pgm_wide_kernel",
-                "adaprox_wide_kernel", "nmf_grad_wide_kernel")
+                "adaprox_wide_kernel", "nmf_grad_wide_kernel",
+                "pgm_vwide_kernel", "adaprox_vwide_kernel",
+                "nmf_grad_vwide_kernel")
 MANGLED_TYPES = (("f", "float"), ("d", "double"),
                  ("13__nv_bfloat16", "bfloat16"))
 PROX_OPS = ("plus", "soft", "hard")
@@ -525,6 +551,8 @@ def kernel_name(mangled):
     """``base<args>`` from a mangled kernel instance name: int template
     arguments and the float, double and bfloat16 types."""
     for base in KERNEL_NAMES:
+        if f"{len(base)}{base}E" in mangled:  # not a template
+            return base
         key = f"{len(base)}{base}I"
         i = mangled.find(key)
         if i < 0:
@@ -3312,8 +3340,6 @@ def route_expected(tnmf, calibrate, C_, K_, N_, path):
     """What the routing table says for ``path`` at (C, K, N): ``"cuda"``,
     ``"torch"``, or ``"probe"`` inside a gray zone (the probes decide)."""
     algorithm, weighted, _, kw = ROUTE_PATHS[path]
-    if not tnmf._kernels_cover(C_, K_):
-        return "torch"
     if "store_dtype" in kw or "moment_dtype" in kw:
         return "cuda"  # a precision opt-in only the kernels serve
     if algorithm == "adaprox":
@@ -3452,8 +3478,8 @@ def routing_phase(mods, card):
     auto's solve equal to the chosen engine's bit for bit, the K1/K2
     launches auto made (more than none wherever it chose cuda) and both
     engines' marginal ms/iter in turns; a gray-zone shape probed once and
-    then served from the cache; the shapes beyond the kernels on torch;
-    and the engine-equivalence check at the table's boundaries (see
+    then served from the cache; and the engine-equivalence check at the
+    table's boundaries (see
     ``route_boundaries``). Returns the K1/K2 launches of auto's solves:
     ``{"K1": n, "K1 bf16 store": n, "K2": n, "K1 wide": n, "K2 wide": n}``."""
     tnmf, top, kk, calibrate = mods
@@ -3560,23 +3586,6 @@ def routing_phase(mods, card):
                 f"{dict(calibrate._CACHE)}); on {card}")
             del problem
 
-        # beyond the kernels: auto runs on torch, without a ValueError
-        for shape in ROUTE_BEYOND:
-            problem = route_problem(*shape)
-            for path in ("pgm-exact", "adaprox-f32"):
-                reset_counts(counted)
-                res = route_solver(tnmf, top, problem, path, "auto")(
-                    ROUTE_BEYOND_ITERS)
-                ref = route_solver(tnmf, top, problem, path, "torch")(
-                    ROUTE_BEYOND_ITERS)
-                check(k1.launches + k2.launches == 0
-                      and same_solve(res, ref),
-                      f"routing beyond the kernels [{path} {shape}]: auto "
-                      "did not run the torch engine")
-                log(f"routing beyond the kernels [{path} {shape}]: auto "
-                    f"ran torch, equal to it bit for bit over "
-                    f"{ROUTE_BEYOND_ITERS} iterations; on {card}")
-            del problem
     finally:
         calibrate.measured_choice = real_choice
         tmp.cleanup()
@@ -3587,6 +3596,433 @@ def routing_phase(mods, card):
     for path, shape in route_boundaries(tnmf):
         equivalence_check(tnmf, top, *shape, path, card)
     return launched
+
+# the TPU kernels the very-wide body's instances replace
+K1_AT = "proxmin_tpu/ops/nmf_kernels.py:311"
+K2_AT = "proxmin_tpu/ops/nmf_kernels.py:525"
+K3_AT = "proxmin_tpu/ops/nmf_kernels.py:653"
+
+
+def very_wide_phase(mods, card):
+    """Phase 18, the very-wide path: K1's compiled chain and split passes,
+    K2's (float32 and bfloat16 moments, its device-scalar entry) and K3's
+    very-wide instances against their plain versions at C=425, K=32,
+    N=1e6 and at (128, 64, 250_000), two launches bitwise equal, each timed
+    beside its plain version and its bound; K5 beyond C, K <= 8 at
+    (16, 12, 1e6); then nmf(engine="cuda") exact PGM, weighted PGM at
+    stride 10 and AdaProx against engine="torch" at both shapes, the loss
+    falling, 10 + 20 resumed bit for bit, the split path with the prox as
+    a closure (K1, K2, and K3 as pgm's gradient), ``engine="auto"`` on
+    exact PGM and AdaProx against the engine the routing table's rows
+    name (bit for bit, calibration off), and both engines' marginal
+    ms/iter in turns. Returns the times, the errors and the launches of
+    the main path's run per (shape label, kernel, route), for the kernels
+    line."""
+    algorithms, tnmf, top, tops, kk, sm, calibrate = mods
+    k1, k2, k3 = (kk.fused_nmf_pgm_step, kk.fused_nmf_adaprox_step,
+                  kk.fused_nmf_grad)
+    counted = (k1, k2, k3)
+    simplex = partial(top.prox_unity_plus, axis=0)
+    l1 = partial(top.prox_soft_plus, thresh=WIDE_L1, type="relative")
+
+    def simplex_closure(x, s):
+        return top.prox_unity_plus(x, s, axis=0)
+
+    def l1_closure(x, s):
+        return top.prox_soft_plus(x, s, thresh=WIDE_L1, type="relative")
+
+    bf = torch.bfloat16
+    tile = kk.DEFAULT_TILE_N
+    results, times = {}, {}
+
+    def timing(key, call, plain, moved, ops):
+        k_ms = min(cuda_ms(call, reps=10) for _ in range(2))
+        p_ms = min(cuda_ms(plain, reps=5) for _ in range(2))
+        times[key] = (k_ms, p_ms, bound_of(moved, ops))
+        b = times[key][2]
+        log(f"very wide time [{key}] on {card}: kernel {k_ms:.4f} ms "
+            f"({ops / k_ms / 1e9:.1f} TFLOP/s, {moved / k_ms / 1e6:.0f} GB/s "
+            f"of {moved / 1e6:.0f} MB), plain version {p_ms:.4f} ms, bound "
+            f"{b[0]:.4f} ms by {b[1]} ({b[0] / k_ms:.1%} of it)")
+
+    problems = {}
+    for label, shape in (("AVIRIS-NG", VWIDE), ("K > 32", VWIDE_K64)):
+        C_, K_, N_ = shape
+        t0 = time.perf_counter()
+        Y, A0, S0, W = problems[label] = make_unmixing(*shape)
+        torch.cuda.synchronize()
+        log(f"very wide [{label}]: C={C_} K={K_} N={N_} unmixing problem "
+            f"made (seed {SEED}, NumPy) and moved to the card in "
+            f"{time.perf_counter() - t0:.1f} s; Y {tensor_bytes(Y) / 1e9:.2f}"
+            f" GB, W {tensor_bytes(W) / 1e9:.2f} GB")
+        tag = f"{label}, C={C_} K={K_} N={N_}"
+        sS = 1.0 / torch.linalg.eigvalsh(A0.T @ A0)[-1]
+        for w_label, Wx in (("", None), (", W", W)):
+            outs = {}
+            for p_label, prox in (("chain", simplex),
+                                  ("split", simplex_closure)):
+                got = k1(A0, S0, Y, sS, W=Wx, prox_S=prox)
+                again = k1(A0, S0, Y, sS, W=Wx, prox_S=prox)
+                ref = kk.fused_nmf_pgm_step_reference(A0, S0, Y, sS, W=Wx,
+                                                      prox_S=prox)
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"K1 {p_label} [{tag}{w_label}]: two launches differ")
+                results["K1", p_label, label, w_label] = compare_outputs(
+                    f"K1 very wide {p_label} vs plain [{tag}{w_label}]", got,
+                    ref, 4)
+                outs[p_label] = got
+            e = rel_err(outs["split"][1], outs["chain"][1])
+            check(e <= CHAIN_SPLIT_RTOL, f"K1 [{tag}{w_label}]: compiled "
+                  f"simplex and split path differ by {e:.3e}")
+            del outs, got, again, ref
+        got = k1(A0, S0.to(bf), Y.to(bf), sS, W=W.to(bf), prox_S=simplex)
+        ref = kk.fused_nmf_pgm_step_reference(A0, S0.to(bf), Y.to(bf), sS,
+                                              W=W.to(bf), prox_S=simplex)
+        torch.cuda.synchronize()
+        ok, ulps, diff = bf16_within(got[1], ref[1])
+        check(ok and rel_err(got[0], ref[0]) <= STEP_RTOL,
+              f"K1 bf16 store [{tag}]: S' {ulps:g} ulps, gA rel err "
+              f"{rel_err(got[0], ref[0]):.3e}")
+        log(f"K1 very wide bf16 store, W vs plain [{tag}]: S' {ulps:.3g} "
+            f"bfloat16 ulps max ({diff:.3e} abs; tol 1 ulp + "
+            f"{BF16_STORE_ATOL:g}); gA rel err {rel_err(got[0], ref[0]):.2e}")
+        del got, ref
+        rng = np.random.default_rng(SEED + 3)
+        M_ = torch.from_numpy(0.1 * rng.standard_normal(
+            (K_, N_), dtype=np.float32)).to(DEVICE)
+        V_ = torch.from_numpy(0.01 * rng.random(
+            (K_, N_), dtype=np.float32)).to(DEVICE)
+        al_ = S0.sum(1, keepdim=True) / N_ / 10
+        sc_ = tnmf._bias_corrections(0.9, 0.999, 3)
+        dsc = torch.tensor([float(v) for v in sc_], dtype=torch.float32,
+                           device=DEVICE)
+        for m_label, mdt in (("f32 moments", torch.float32),
+                             ("bf16 moments", bf)):
+            for p_label, prox in (("chain", l1), ("split", l1_closure)):
+                plan = kk.describe_prox(prox, "adaprox", True)
+                args = (A0, S0, M_.to(mdt), V_.to(mdt), Y, al_)
+                got = k2(*args, sc_, W=W, prox_S=plan)
+                again = k2(*args, sc_, W=W, prox_S=plan)
+                on_card = k2(*args, dsc, W=W, prox_S=plan)
+                ref = kk.fused_nmf_adaprox_step_reference(*args, sc_, W=W,
+                                                          prox_S=plan)
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"K2 {p_label} [{tag}, {m_label}]: two launches "
+                      "differ")
+                check(all(torch.equal(a, b) for a, b in zip(got, on_card)),
+                      f"K2 {p_label} [{tag}, {m_label}]: the device-scalar "
+                      "entry differs from the by-value one")
+                if mdt == bf:
+                    for i in (2, 3):
+                        ok, ulps, _ = bf16_within(got[i], ref[i])
+                        check(ok, f"K2 {p_label} [{tag}, {m_label}]: "
+                              f"moment {i} {ulps:g} ulps")
+                    got = tuple(g for i, g in enumerate(got)
+                                if i not in (2, 3))
+                    ref = tuple(r for i, r in enumerate(ref)
+                                if i not in (2, 3))
+                results["K2", p_label, label, m_label] = compare_outputs(
+                    f"K2 very wide {p_label} vs plain [{tag}, W, {m_label}; "
+                    "the device-scalar entry bitwise equal]", got, ref,
+                    6 if mdt == torch.float32 else 4)
+                del got, again, on_card, ref
+        for w_label, Wx in (("", None), (", W", W)):
+            got = tops.fused_nmf_grad(A0, S0, Y, W=Wx)
+            again = tops.fused_nmf_grad(A0, S0, Y, W=Wx)
+            ref = tops.fused_nmf_grad_reference(A0, S0, Y, W=Wx)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"K3 very wide [{tag}{w_label}]: two launches differ")
+            errs = [rel_err(g, r) for g, r in zip(got, ref)]
+            check(max(errs) <= STEP_RTOL, f"K3 very wide [{tag}{w_label}]: "
+                  f"rel errs {errs}")
+            results["K3", label, w_label] = float(
+                (got[1] - ref[1]).abs().max())
+            log(f"K3 very wide vs plain [{tag}{w_label}]: max rel err (gA, "
+                "gS, Gram, loss) " + ", ".join(f"{e:.2e}" for e in errs)
+                + f" (tol {STEP_RTOL:g}); two launches bitwise equal")
+            del got, again, ref
+
+        # times, beside the plain version and the bound
+        M0 = torch.zeros_like(S0)
+        out = k1(A0, S0, Y, sS, prox_S=simplex)
+        timing(f"K1 chain [{label}]",
+               lambda: k1(A0, S0, Y, sS, prox_S=simplex),
+               lambda: kk.fused_nmf_pgm_step_reference(A0, S0, Y, sS,
+                                                       prox_S=simplex),
+               tensor_bytes(A0, S0, Y) + tensor_bytes(*out),
+               wide_ops(C_, K_, N_))
+        X, gA_, st_ = kk._pgm_pass1_cuda(A0, S0, Y, sS, None, tile)
+        P_ = simplex(X, sS)
+        timing(f"K1 split pass 1 [{label}]",
+               lambda: kk._pgm_pass1_cuda(A0, S0, Y, sS, None, tile),
+               lambda: kk._pgm_pass1_reference(A0, S0, Y, sS),
+               tensor_bytes(A0, S0, Y, X, gA_, st_[:1]),
+               wide_ops(C_, K_, N_, gram=False))
+        timing(f"K1 split pass 2 [{label}]",
+               lambda: kk._pgm_pass2_cuda(S0, P_, tile),
+               lambda: kk._pgm_pass2_reference(S0, P_, torch.float32),
+               tensor_bytes(S0, P_) + 4 * (K_ * K_ + 2), pgm_ops(0, K_, N_))
+        out = k2(A0, S0, M0, M0, Y, al_, sc_, prox_S=l1)
+        timing(f"K2 chain [{label}]",
+               lambda: k2(A0, S0, M0, M0, Y, al_, sc_, prox_S=l1),
+               lambda: kk.fused_nmf_adaprox_step_reference(
+                   A0, S0, M0, M0, Y, al_, sc_, prox_S=l1),
+               tensor_bytes(A0, S0, M0, M0, Y, al_) + tensor_bytes(*out),
+               adaprox_ops(C_, K_, N_))
+        pre = kk._adaprox_pass1_cuda(A0, S0, M0, M0, Y, al_, sc_, None,
+                                     0.999, 1e-8, tile)
+        P2 = l1_closure(pre[0], pre[1])
+        timing(f"K2 split pass 1 [{label}]",
+               lambda: kk._adaprox_pass1_cuda(A0, S0, M0, M0, Y, al_, sc_,
+                                              None, 0.999, 1e-8, tile),
+               lambda: kk._adaprox_pass1_reference(A0, S0, M0, M0, Y, al_,
+                                                   sc_),
+               tensor_bytes(A0, S0, M0, M0, Y, al_)
+               + tensor_bytes(*pre[:5]) + 4, adaprox_ops(C_, K_, N_))
+        timing(f"K2 split pass 2 [{label}]",
+               lambda: kk._adaprox_pass2_cuda(S0, P2, tile),
+               lambda: kk._adaprox_pass2_reference(S0, P2, torch.float32),
+               tensor_bytes(S0, P2) + 4 * (K_ + 2), 4 * N_ * K_)
+        out = tops.fused_nmf_grad(A0, S0, Y)
+        timing(f"K3 [{label}]", lambda: tops.fused_nmf_grad(A0, S0, Y),
+               lambda: tops.fused_nmf_grad_reference(A0, S0, Y),
+               tensor_bytes(A0, S0, Y) + tensor_bytes(*out),
+               wide_ops(C_, K_, N_))
+        del X, P_, P2, pre, out, M_, V_, M0
+        # Context, not a yardstick: the step's four float32 products as four
+        # cuBLAS calls (TF32 off), which move R and D through memory
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            D_ = A0 @ S0 - Y
+            p_ms = {k: min(cuda_ms(f, reps=5) for _ in range(2))
+                    for k, f in (("A@S", lambda: A0 @ S0),
+                                 ("A.T@D", lambda: A0.T @ D_),
+                                 ("D@S.T", lambda: D_ @ S0.T),
+                                 ("S@S.T", lambda: S0 @ S0.T))}
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        del D_
+        log(f"very wide context [four float32 cuBLAS calls, TF32 off, {tag}"
+            f"; not a single-call yardstick] on {card}: " + ", ".join(
+                f"{k} {v:.4f} ms" for k, v in p_ms.items())
+            + f"; sum {sum(p_ms.values()):.4f} ms against K1's one pass "
+            f"{times[f'K1 chain [{label}]'][0]:.4f} ms")
+
+    # K5 beyond C, K <= 8: K2's wide body on the packed arrays' row blocks
+    for layout in ("smv", "mv"):
+        args, kw, _, results["K5", layout] = compare_packed(
+            sm, kk, layout, *VWIDE_PACKED)
+        got = sm.packed_step(*args, **kw)
+        C_, K_, N_ = VWIDE_PACKED
+        timing(f"K5 {layout}", lambda: sm.packed_step(*args, **kw),
+               lambda: sm.packed_step_reference(*args, **kw),
+               tensor_bytes(*args[:4], *kw.values()) + tensor_bytes(*got),
+               adaprox_ops(C_, K_, N_))
+        del args, kw, got
+
+    # the main path: the solves, engine="cuda" against engine="torch"
+    ada = dict(algorithm="adaprox")
+    paths = (
+        ("exact PGM", dict(prox_S=simplex), {}),
+        ("weighted PGM stride 10", dict(prox_S=simplex, step_stride=STRIDE,
+                                        weighted=True), {}),
+        ("AdaProx", dict(prox_S=l1, **ada), dict(separable_prox="auto")),
+    )
+    reset_counts(counted)
+    reset_routes(counted)
+    sm.packed_step.launches = 0
+    for r in sm.packed_step.route_launches:
+        sm.packed_step.route_launches[r] = 0
+    solves = {}
+    launched = {}
+
+    def count(label, kname, ran):
+        for r, n in ran.items():
+            launched[label, kname, r] = launched.get((label, kname, r), 0) + n
+
+    for label, (Y, A0, S0, W) in problems.items():
+        C_, K_, N_ = Y.shape[0], A0.shape[1], Y.shape[1]
+        tag = f"{label}, C={C_} K={K_} N={N_}"
+        loss0 = {"w": wloss(A0, S0, Y, W), "u": wloss(A0, S0, Y)}
+        for p_label, kw, torch_kw in paths:
+            kw = dict(kw)
+            Wx = W if kw.pop("weighted", False) else None
+            if Wx is not None:
+                kw["W"] = Wx
+            kname = ("fused_nmf_adaprox_step" if "algorithm" in kw
+                     else "fused_nmf_pgm_step")
+            before = route_counts(counted)
+            r_c = tnmf.nmf(Y, A0, S0, prox_A=top.prox_plus, e_rel=0,
+                           max_iter=VWIDE_ITERS, engine="cuda", **kw)
+            torch.cuda.synchronize()
+            after = route_counts(counted)
+            ran = {r: after[kname][r] - before[kname][r]
+                   for r in after[kname]}
+            check(ran["very wide"] == VWIDE_ITERS == r_c.iterations
+                  and sum(ran.values()) == VWIDE_ITERS,
+                  f"very wide {p_label} [{tag}]: routes {ran} in "
+                  f"{r_c.iterations} iterations")
+            r_t = tnmf.nmf(Y, A0, S0, prox_A=top.prox_plus, e_rel=0,
+                           max_iter=VWIDE_ITERS, engine="torch", **kw,
+                           **torch_kw)
+            torch.cuda.synchronize()
+            check(all(bool(torch.isfinite(a).all())
+                      for a in (*r_c.x, *r_t.x))
+                  and tuple(r_c.x[1].shape) == (K_, N_),
+                  f"very wide {p_label} [{tag}]: non-finite iterate or "
+                  "wrong shape")
+            n_A, n_S = (norm_err(r_c.x[i], r_t.x[i]) for i in (0, 1))
+            check(n_A <= ENGINE_RTOL and n_S <= ENGINE_RTOL,
+                  f"very wide {p_label} [{tag}]: engines disagree after "
+                  f"{VWIDE_ITERS} iterations: normwise A {n_A:.2e}, S "
+                  f"{n_S:.2e}")
+            l0 = loss0["u" if Wx is None else "w"]
+            l_c, l_t = wloss(*r_c.x, Y, Wx), wloss(*r_t.x, Y, Wx)
+            check(np.isfinite([l_c, l_t]).all() and l_c < l0 and l_t < l0,
+                  f"very wide {p_label} [{tag}]: loss did not decrease")
+            half = tnmf.nmf(Y, A0, S0, prox_A=top.prox_plus, e_rel=0,
+                            max_iter=VWIDE_SPLIT, engine="cuda", **kw)
+            rest = tnmf.nmf(Y, *half.x, prox_A=top.prox_plus, e_rel=0,
+                            max_iter=VWIDE_ITERS - VWIDE_SPLIT,
+                            engine="cuda", state=half.state, **kw)
+            check(torch.equal(rest.x[0], r_c.x[0])
+                  and torch.equal(rest.x[1], r_c.x[1]),
+                  f"very wide {p_label} [{tag}]: {VWIDE_SPLIT} + "
+                  f"{VWIDE_ITERS - VWIDE_SPLIT} resumed differs from "
+                  f"{VWIDE_ITERS} straight")
+            extra = ""
+            if "algorithm" not in kw:
+                colsum = float((r_c.x[1].sum(0) - 1).abs().max())
+                check(colsum <= UNITY_SUM_ATOL
+                      and bool((r_c.x[1] >= 0).all()),
+                      f"very wide {p_label} [{tag}]: columns of S sum to 1 "
+                      f"within {colsum:.2e}")
+                extra = f"; columns of S sum to 1 within {colsum:.2e}"
+            solves[label, p_label] = r_c
+            count(label, kname, {r: after[kname][r] - before[kname][r]
+                                 for r in after[kname]})
+            log(f"very wide {p_label} [{tag}]: nmf engine=cuda vs "
+                f"engine=torch, {VWIDE_ITERS} iterations at e_rel=0: "
+                f"normwise rel err A {n_A:.2e}, S {n_S:.2e} (tol "
+                f"{ENGINE_RTOL:g}); loss {l0:.6e} -> cuda {l_c:.6e}, torch "
+                f"{l_t:.6e}; {VWIDE_SPLIT} + {VWIDE_ITERS - VWIDE_SPLIT} "
+                f"resumed equal {VWIDE_ITERS} straight bit for bit; "
+                f"launches {ran}{extra}")
+        # the split path, the prox as a closure: K1, K2, and K3 as pgm's
+        # gradient
+        for p_label, kw in (("exact PGM", dict(prox_S=simplex_closure)),
+                            ("AdaProx", dict(prox_S=l1_closure,
+                                             separable_prox=True, **ada))):
+            kname = ("fused_nmf_adaprox_step" if "algorithm" in kw
+                     else "fused_nmf_pgm_step")
+            before = route_counts(counted)
+            r_s = tnmf.nmf(Y, A0, S0, prox_A=top.prox_plus, e_rel=0,
+                           max_iter=VWIDE_SPLIT, engine="cuda", **kw)
+            torch.cuda.synchronize()
+            after = route_counts(counted)
+            ran = {r: after[kname][r] - before[kname][r]
+                   for r in after[kname]}
+            count(label, kname, ran)
+            check(ran["split pass 1"] == ran["split pass 2"] == VWIDE_SPLIT
+                  and sum(ran.values()) == 2 * VWIDE_SPLIT,
+                  f"very wide {p_label} split path [{tag}]: routes {ran}")
+            r_ref = tnmf.nmf(Y, A0, S0, prox_A=top.prox_plus, e_rel=0,
+                             max_iter=VWIDE_SPLIT, engine="cuda",
+                             **dict(kw, prox_S=simplex if "algorithm"
+                                    not in kw else l1))
+            n_A, n_S = (norm_err(r_s.x[i], r_ref.x[i]) for i in (0, 1))
+            check(n_A <= ENGINE_RTOL and n_S <= ENGINE_RTOL,
+                  f"very wide {p_label} [{tag}]: split path and compiled "
+                  f"chain disagree: normwise A {n_A:.2e}, S {n_S:.2e}")
+            log(f"very wide {p_label}, prox_S as a closure (split path) vs "
+                f"the compiled chain, {VWIDE_SPLIT} iterations [{tag}]: "
+                f"normwise rel err A {n_A:.2e}, S {n_S:.2e} (tol "
+                f"{ENGINE_RTOL:g}); launches {ran}")
+        before = k3.route_launches["very wide"]
+        rg = algorithms.pgm(
+            [A0, S0], lambda A_, S_, Y=Y: tops.fused_nmf_grad(A_, S_, Y)[:2],
+            tnmf.step_pgm, prox=[top.prox_plus, simplex_closure], e_rel=0,
+            max_iter=VWIDE_SPLIT)
+        torch.cuda.synchronize()
+        n3 = k3.route_launches["very wide"] - before
+        count(label, "fused_nmf_grad", {"very wide": n3})
+        l_g = wloss(*rg.x, Y)
+        check(n3 == rg.iterations + 1 and l_g < loss0["u"]
+              and all(bool(torch.isfinite(x).all()) for x in rg.x),
+              f"very wide K3 path [{tag}]: {n3} launches in "
+              f"{rg.iterations} iterations, loss {l_g:.6e}")
+        log(f"very wide ops path [K3 gradient, {tag}]: pgm(grad="
+            f"fused_nmf_grad) with the simplex as a closure, {rg.iterations}"
+            f" iterations: loss {loss0['u']:.6e} -> {l_g:.6e}; K3 very wide "
+            f"launches {n3} = iterations + the final gradient")
+    # K5's own loop beyond C, K <= 8
+    C_, K_, N_ = VWIDE_PACKED
+    A5, S5, M5, V5, Y5, al5, _, _ = adaprox_inputs(C_, K_, N_, False,
+                                                   torch.float32)
+    _, packed_smv, packed_mv = sm.build_loops()
+    packed_smv(A5, torch.cat([S5, M5, V5]), Y5, al5, 5)
+    packed_mv(A5, S5, torch.cat([M5, V5]).to(bf), Y5, al5, 5)
+    torch.cuda.synchronize()
+    check(sm.packed_step.route_launches["wide"] == 10,
+          f"K5 loops at {VWIDE_PACKED}: routes {sm.packed_step.route_launches}")
+    count("K5", "packed_step", sm.packed_step.route_launches)
+    # the main path ends here: what follows routes and times
+    del A5, S5, M5, V5, Y5
+
+    # auto on the very-wide shapes: the engine the table's rows name
+    prev = calibrate.set_auto_calibration("off")
+    try:
+        for label, problem in problems.items():
+            shape = (problem[0].shape[0], problem[1].shape[1],
+                     problem[0].shape[1])
+            for path in ("pgm-exact", "adaprox-f32"):
+                wins = (tnmf._adaprox_fused_wins if path == "adaprox-f32"
+                        else tnmf._unweighted_fused_wins)
+                expected = "cuda" if wins(*shape) else "torch"
+                reset_counts(counted)
+                res = route_solver(tnmf, top, problem, path, "auto")(
+                    ROUTE_VWIDE_ITERS)
+                n_k = k1.launches + k2.launches
+                ref = route_solver(tnmf, top, problem, path, expected)(
+                    ROUTE_VWIDE_ITERS)
+                check(same_solve(res, ref) and (
+                    n_k >= ROUTE_VWIDE_ITERS if expected == "cuda"
+                    else n_k == 0),
+                    f"routing very wide [{path} {shape}]: the table says "
+                    f"{expected}; auto's solve differs or launched K1/K2 "
+                    f"{n_k} times")
+                log(f"routing very wide [{label}, {path} {shape}]: table "
+                    f"{expected}, auto ran {expected}, equal to it bit for "
+                    f"bit over {ROUTE_VWIDE_ITERS} iterations, K1/K2 "
+                    f"launches {n_k}; on {card}")
+    finally:
+        calibrate.set_auto_calibration(prev)
+
+    # marginal ms/iter (host clock), the engines in turns
+    Y, A0, S0, W = problems["AVIRIS-NG"]
+    for p_label, kw, torch_kw in (paths[0], paths[2]):
+        ms = {e: [] for e in ("cuda", "torch")}
+        fns = {e: (lambda n, e=e: tnmf.nmf(
+            Y, A0, S0, prox_A=top.prox_plus, e_rel=0, max_iter=n, engine=e,
+            **kw, **(torch_kw if e == "torch" else {}))) for e in ms}
+        for e in ms:
+            timed(fns[e], 2)
+        for e in ("cuda", "torch", "torch", "cuda"):
+            ms[e].append(marginal_ms(fns[e], VWIDE_LO, VWIDE_HI))
+        log(f"very wide {p_label} [AVIRIS-NG, C={VWIDE[0]} K={VWIDE[1]} "
+            f"N={VWIDE[2]}]: marginal ms/iter cuda {min(ms['cuda']):.4f} "
+            f"({ms['cuda'][0]:.4f}, {ms['cuda'][1]:.4f}), torch "
+            f"{min(ms['torch']):.4f} ({ms['torch'][0]:.4f}, "
+            f"{ms['torch'][1]:.4f}); order cuda, torch, torch, cuda "
+            f"({VWIDE_LO}->{VWIDE_HI} iterations, host clock); on {card}")
+    del problems, Y, A0, S0, W, solves
+    torch.cuda.empty_cache()
+    return times, results, launched
+
 
 def main():
     if not torch.cuda.is_available():
@@ -4480,7 +4916,13 @@ def main():
     k2_launches += rt_launches["K2"]
     w_routes["fused_nmf_pgm_step"]["wide"] += rt_launches["K1 wide"]
     w_routes["fused_nmf_adaprox_step"]["wide"] += rt_launches["K2 wide"]
-    log(f"phase 17 ends at {time.perf_counter() - T0:.0f} s")
+
+    # 18. the very-wide path: AVIRIS-NG's 425 channels, K > 32 and K5
+    # beyond C, K <= 8
+    log(f"phase 18 starts at {time.perf_counter() - T0:.0f} s")
+    v_times, v_err, v_launched = very_wide_phase(
+        (algorithms, tnmf, top, tops, kk, sm, calibrate), card)
+    log(f"phase 18 ends at {time.perf_counter() - T0:.0f} s")
 
     k2_ms, k2_plain = k2_times["f32 moments"]
     k1b_ms, k1b_plain, k1b_bound = k1_times["bf16 store, W"]
@@ -4556,7 +4998,39 @@ def main():
         entry("fused_nmf_adaprox_step[wide, flagship chain]",
               "nmf_adaprox_wide.cu", "proxmin_tpu/ops/nmf_kernels.py:525",
               w_err["K2 flagship launches"], w_err["K2 flagship"],
-              *w_times["K2 chain, flagship"])]}))
+              *w_times["K2 chain, flagship"]),
+        *(entry(f"{kname}[{route}, C={shape[0]} K={shape[1]}]", source,
+                replaces, v_launched.get((label, kname, r_key), 0),
+                v_err[err_key], *v_times[f"{t_key} [{label}]"])
+          for label, shape in (("AVIRIS-NG", VWIDE), ("K > 32", VWIDE_K64))
+          for kname, route, source, replaces, r_key, err_key, t_key in (
+              ("fused_nmf_pgm_step", "very wide", "nmf_pgm_wide.cu", K1_AT,
+               "very wide", ("K1", "chain", label, ""), "K1 chain"),
+              ("fused_nmf_pgm_step", "very wide split pass 1",
+               "nmf_pgm_wide.cu", K1_AT, "split pass 1",
+               ("K1", "split", label, ""), "K1 split pass 1"),
+              # pass 2 has no C: at K <= 32 the wide body runs it
+              ("fused_nmf_pgm_step", "split pass 2" if shape[1] <= 32
+               else "very wide split pass 2", "nmf_pgm_wide.cu", K1_AT,
+               "split pass 2", ("K1", "split", label, ""),
+               "K1 split pass 2"),
+              ("fused_nmf_adaprox_step", "very wide", "nmf_adaprox_wide.cu",
+               K2_AT, "very wide", ("K2", "chain", label, "f32 moments"),
+               "K2 chain"),
+              ("fused_nmf_adaprox_step", "very wide split pass 1",
+               "nmf_adaprox_wide.cu", K2_AT, "split pass 1",
+               ("K2", "split", label, "f32 moments"), "K2 split pass 1"),
+              ("fused_nmf_adaprox_step", "split pass 2" if shape[1] <= 32
+               else "very wide split pass 2", "nmf_adaprox_wide.cu", K2_AT,
+               "split pass 2", ("K2", "split", label, "f32 moments"),
+               "K2 split pass 2"),
+              ("fused_nmf_grad", "very wide", "nmf_grad.cu", K3_AT,
+               "very wide", ("K3", label, ""), "K3"))),
+        *(entry(f"packed_step[{layout}, K2's wide body]",
+                "nmf_adaprox_wide.cu", "benchmarks/stream_merge.py:105",
+                v_launched.get(("K5", "packed_step", "wide"), 0) // 2,
+                v_err["K5", layout], *v_times[f"K5 {layout}"])
+          for layout in ("smv", "mv"))]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,6 +1,8 @@
 // K2 on the wide body (wide_pass.cuh): one S-side AdaProx (proximal Adam,
 // scheme "adam") iteration for C up to 256 channels and K up to 32
-// components, and the two passes of the split path.
+// components, and the two passes of the split path; beyond either bound,
+// for any C and K, on the very-wide body (vwide_pass.cuh), every mode,
+// store and moment type, and the device-scalar entry.
 //
 // Replaces, beyond the narrow instances of nmf_adaprox_step.cu (C <= 16,
 // K <= 8), the Pallas TPU kernel proxmin_tpu/ops/nmf_kernels.py:525
@@ -39,6 +41,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "vwide_pass.cuh"
 #include "wide_pass.cuh"
 
 namespace {
@@ -64,6 +67,24 @@ adaprox_wide_finalize(const float* __restrict__ partials, long long rows,
   wide::finalize(partials, rows, e, half_first, gA, rowsum, stats);
 }
 
+// The very-wide body (vwide_pass.cuh): one block per SM, up to 255
+// registers.
+template <typename ST, typename MT, int MODE>
+__global__ void __launch_bounds__(wide::kThreads, 1)
+adaprox_vwide_kernel(Args<ST, MT> a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  vwide::body<ST, MT, MODE>(a, smem);
+}
+
+template <typename ST, typename MT, int MODE>
+int launch_vwide(const Args<ST, MT>& args, float* gA, float* rowsum,
+                 float* stats, cudaStream_t stream) {
+  static wide::LaunchCache cache;
+  return vwide::launch<ST, MT, MODE>(adaprox_vwide_kernel<ST, MT, MODE>,
+                                     adaprox_wide_finalize, cache, args, gA,
+                                     rowsum, stats, stream);
+}
+
 template <int KB, typename ST, typename MT, int MODE>
 int launch_mode(const Args<ST, MT>& args, float* gA, float* rowsum,
                 float* stats, cudaStream_t stream) {
@@ -86,6 +107,13 @@ int launch_kb(int mode, const Args<ST, MT>& args, float* gA, float* rowsum,
 template <typename ST, typename MT>
 int launch_types(int mode, const Args<ST, MT>& args, float* gA,
                  float* rowsum, float* stats, cudaStream_t stream) {
+  if (!vwide::wide_covers(args.C, args.K)) {
+    if (mode == 0)
+      return launch_vwide<ST, MT, wide::kAda>(args, gA, rowsum, stats,
+                                              stream);
+    return launch_vwide<ST, MT, wide::kAdaPre>(args, gA, rowsum, stats,
+                                               stream);
+  }
   switch (wide::kb_for(args.K)) {
     case 8:
       return launch_kb<8>(mode, args, gA, rowsum, stats, stream);
@@ -102,6 +130,9 @@ int launch_types(int mode, const Args<ST, MT>& args, float* gA,
 template <typename ST>
 int launch_post(const Args<ST, float>& args, float* rowsum, float* stats,
                 cudaStream_t stream) {
+  if (!vwide::wide_covers(args.C, args.K))
+    return launch_vwide<ST, float, wide::kAdaPost>(args, nullptr, rowsum,
+                                                   stats, stream);
   switch (wide::kb_for(args.K)) {
     case 8:
       return launch_mode<8, ST, float, wide::kAdaPost>(args, nullptr, rowsum,
@@ -127,16 +158,18 @@ int mode_of(int mode) {
 
 extern "C" {
 
-// Entries of one group's row of partial sums for `mode` (0 the compiled
-// chain, 1 split pass 1, 2 split pass 2) and a (C, K) problem, or -1 when
-// no instance covers it (C <= 256, K <= 32). The caller allocates the
-// scratch buffer as (nmf_adaprox_wide_partials_rows(N, tile_n), width)
-// floats.
+// Floats of one row of the scratch buffer for `mode` (0 the compiled
+// chain, 1 split pass 1, 2 split pass 2) and a (C, K) problem: one group's
+// row of partial sums on the wide body (C <= 256, K <= 32), and with the
+// very-wide body's per-group scratch beside it beyond; -1 for C < 1, K < 1
+// or a width past an int. The caller allocates the scratch buffer as
+// (nmf_adaprox_wide_partials_rows(N, tile_n), width) floats.
 int nmf_adaprox_wide_partials_width(int mode, int C, int K) {
-  if (mode < 0 || mode > 2 || C < 1 || C > wide::kMaxC || K < 1 ||
-      K > wide::kMaxK)
-    return -1;
-  return wide::entries(mode_of(mode), C, K).total;
+  if (mode < 0 || mode > 2 || C < 1 || K < 1) return -1;
+  if (vwide::wide_covers(C, K))
+    return wide::entries(mode_of(mode), C, K).total;
+  const long long w = vwide::width(mode_of(mode), C, K);
+  return w > 0x7fffffffLL ? -1 : (int)w;
 }
 
 // Rows of partial sums for N columns in tiles of tile_n (the groups of

@@ -31,11 +31,14 @@
 // the wide body (wide_pass.cuh, mode kGrad): the channels looped in chunks
 // through shared memory, the products as register tiles over shared-memory
 // tiles; there the float32 FMAs, about 3 C K + K (K + 1) / 2 per column,
-// and the shared memory's delivery of the tiles' operands bound it.
+// and the shared memory's delivery of the tiles' operands bound it. Beyond
+// C = 256 or K = 32, for any C and K, the very-wide body (vwide_pass.cuh)
+// runs it.
 
 #include <cuda_runtime.h>
 
 #include "pgm_pass.cuh"
+#include "vwide_pass.cuh"
 #include "wide_pass.cuh"
 
 namespace {
@@ -110,23 +113,54 @@ int launch_wide(const float* A, const float* S, const float* Y,
       gram, loss, stream);
 }
 
-bool narrow(int C, int K) { return C >= 1 && K >= 1 && C <= 16 && K <= 8; }
-bool covered(int C, int K) {
-  return C >= 1 && K >= 1 && C <= wide::kMaxC && K <= wide::kMaxK;
+// The very-wide body (vwide_pass.cuh): one block per SM, up to 255
+// registers.
+__global__ void __launch_bounds__(wide::kThreads, 1)
+nmf_grad_vwide_kernel(wide::Args<float, float> a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  vwide::body<float, float, wide::kGrad>(a, smem);
 }
+
+int launch_vwide(const float* A, const float* S, const float* Y,
+                 const float* W, int C, int K, long long N, long long tile_n,
+                 float* gA, float* gS, float* gram, float* loss,
+                 float* partials, cudaStream_t stream) {
+  static wide::LaunchCache cache;
+  wide::Args<float, float> args{};
+  args.A = A;
+  args.S = S;
+  args.Y = Y;
+  args.W = W;
+  args.C = C;
+  args.K = K;
+  args.N = N;
+  args.tile_n = tile_n;
+  args.n_units = wide::unit_count(N, tile_n);
+  args.out = gS;
+  args.partials = partials;
+  return vwide::launch<float, float, wide::kGrad>(
+      nmf_grad_vwide_kernel, nmf_grad_wide_finalize, cache, args, gA, gram,
+      loss, stream);
+}
+
+bool narrow(int C, int K) { return C >= 1 && K >= 1 && C <= 16 && K <= 8; }
 
 }  // namespace
 
 extern "C" {
 
-// Width of one row of partial sums for a (C, K) problem, or -1 when no
-// compiled bound covers it (C <= 256, K <= 32). The caller allocates the
-// scratch buffer as (nmf_grad_partials_rows(N, tile_n), width) floats.
+// Width of one row of the scratch buffer for a (C, K) problem: a row of
+// partial sums, and beyond C = 256 or K = 32 the very-wide body's
+// per-group scratch beside it; -1 for C < 1, K < 1 or a width past an int.
+// The caller allocates the scratch buffer as
+// (nmf_grad_partials_rows(N, tile_n), width) floats.
 int nmf_grad_partials_width(int C, int K) {
-  if (C >= 1 && K >= 1 && C <= 8 && K <= 8) return Layout<8, 8, false>::kP;
+  if (C < 1 || K < 1) return -1;
+  if (C <= 8 && K <= 8) return Layout<8, 8, false>::kP;
   if (narrow(C, K)) return Layout<16, 8, false>::kP;
-  if (covered(C, K)) return wide::entries(wide::kGrad, C, K).total;
-  return -1;
+  if (vwide::wide_covers(C, K)) return wide::entries(wide::kGrad, C, K).total;
+  const long long w = vwide::width(wide::kGrad, C, K);
+  return w > 0x7fffffffLL ? -1 : (int)w;
 }
 
 // Rows of partial sums to allocate for N columns in tiles of tile_n (the
@@ -165,7 +199,9 @@ int nmf_grad_f32(const void* A, const void* S, const void* Y, const void* W,
     return launch<8, 8>(a, s, y, w, C, K, N, tile_n, ga, gs, g, l, pp, strm);
   if (narrow(C, K))
     return launch<16, 8>(a, s, y, w, C, K, N, tile_n, ga, gs, g, l, pp, strm);
-  if (!covered(C, K)) return (int)cudaErrorInvalidValue;
+  if (C < 1 || K < 1) return (int)cudaErrorInvalidValue;
+  if (!vwide::wide_covers(C, K))
+    return launch_vwide(a, s, y, w, C, K, N, tile_n, ga, gs, g, l, pp, strm);
   switch (wide::kb_for(K)) {
     case 8:
       return launch_wide<8>(a, s, y, w, C, K, N, tile_n, ga, gs, g, l, pp,

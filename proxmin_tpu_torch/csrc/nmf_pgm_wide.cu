@@ -1,6 +1,7 @@
 // K1 on the wide body (wide_pass.cuh): one S-side PGM-NMF iteration for C
 // up to 256 channels and K up to 32 components, and the two passes of the
-// split path.
+// split path; beyond either bound, for any C and K, on the very-wide body
+// (vwide_pass.cuh), every mode and both stores.
 //
 // Replaces, beyond the narrow instances of nmf_pgm_step.cu (C <= 16,
 // K <= 8), the Pallas TPU kernel proxmin_tpu/ops/nmf_kernels.py:311
@@ -41,6 +42,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "vwide_pass.cuh"
 #include "wide_pass.cuh"
 
 namespace {
@@ -63,6 +65,24 @@ pgm_wide_finalize(const float* __restrict__ partials, long long rows,
                   wide::Entries e, bool half_first, float* __restrict__ gA,
                   float* __restrict__ gram, float* __restrict__ stats) {
   wide::finalize(partials, rows, e, half_first, gA, gram, stats);
+}
+
+// The very-wide body (vwide_pass.cuh): one block per SM, up to 255
+// registers.
+template <typename ST, int MODE>
+__global__ void __launch_bounds__(wide::kThreads, 1)
+pgm_vwide_kernel(Args<ST, float> a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  vwide::body<ST, float, MODE>(a, smem);
+}
+
+template <typename ST, int MODE>
+int launch_vwide(const Args<ST, float>& args, float* gA, float* gram,
+                 float* stats, cudaStream_t stream) {
+  static wide::LaunchCache cache;
+  return vwide::launch<ST, float, MODE>(pgm_vwide_kernel<ST, MODE>,
+                                        pgm_wide_finalize, cache, args, gA,
+                                        gram, stats, stream);
 }
 
 template <int KB, typename ST, int MODE>
@@ -94,6 +114,20 @@ int launch_kb(int mode, const Args<ST, float>& args, float* gA, float* gram,
 template <typename ST>
 int launch_store(int mode, const Args<ST, float>& args, float* gA,
                  float* gram, float* stats, cudaStream_t stream) {
+  if (!vwide::wide_covers(args.C, args.K)) {
+    switch (mode) {
+      case 0:
+        return launch_vwide<ST, wide::kPgm>(args, gA, gram, stats, stream);
+      case 1:
+        return launch_vwide<ST, wide::kPgmPre>(args, gA, gram, stats,
+                                               stream);
+      case 2:
+        return launch_vwide<ST, wide::kPgmPost>(args, gA, gram, stats,
+                                                stream);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
   switch (wide::kb_for(args.K)) {
     case 8:
       return launch_kb<8, ST>(mode, args, gA, gram, stats, stream);
@@ -114,15 +148,18 @@ int mode_of(int mode) {
 
 extern "C" {
 
-// Entries of one group's row of partial sums for `mode` (0 the compiled
-// chain, 1 split pass 1, 2 split pass 2) and a (C, K) problem, or -1 when
-// no instance covers it (C <= 256, K <= 32). The caller allocates the
-// scratch buffer as (nmf_pgm_wide_partials_rows(N, tile_n), width) floats.
+// Floats of one row of the scratch buffer for `mode` (0 the compiled
+// chain, 1 split pass 1, 2 split pass 2) and a (C, K) problem: one group's
+// row of partial sums on the wide body (C <= 256, K <= 32), and with the
+// very-wide body's per-group scratch beside it beyond; -1 for C < 1, K < 1
+// or a width past an int. The caller allocates the scratch buffer as
+// (nmf_pgm_wide_partials_rows(N, tile_n), width) floats.
 int nmf_pgm_wide_partials_width(int mode, int C, int K) {
-  if (mode < 0 || mode > 2 || C < 1 || C > wide::kMaxC || K < 1 ||
-      K > wide::kMaxK)
-    return -1;
-  return wide::entries(mode_of(mode), C, K).total;
+  if (mode < 0 || mode > 2 || C < 1 || K < 1) return -1;
+  if (vwide::wide_covers(C, K))
+    return wide::entries(mode_of(mode), C, K).total;
+  const long long w = vwide::width(mode_of(mode), C, K);
+  return w > 0x7fffffffLL ? -1 : (int)w;
 }
 
 // Rows of partial sums for N columns in tiles of tile_n (the groups of

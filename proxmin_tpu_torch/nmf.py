@@ -25,8 +25,8 @@ from a :class:`WeightedBSDMMStepper`.
 ``engine="auto"`` picks one of the two per call, by the JAX package's
 eligibility rules and a routing table measured on the H100
 (``tools/engine_sweep.py``; ``_H100_REGIONS``): the cuda engine where it
-was the faster, the torch engine elsewhere, beyond the kernels' C <= 256,
-K <= 32 and for everything the kernels do not run; bfloat16 moments or
+was the faster, the torch engine elsewhere (and beyond the swept shapes)
+and for everything the kernels do not run; bfloat16 moments or
 store and an explicit ``tile_n`` go to the kernels. Inside the table's gray
 zones the first solve of a shape times both engines
 (:mod:`proxmin_tpu_torch.calibrate`).
@@ -46,7 +46,7 @@ import numpy as np
 import torch
 
 from . import algorithms, operators, utils
-from .ops.nmf_kernels import (DEFAULT_TILE_N, MAX_C, MAX_K, describe_prox,
+from .ops.nmf_kernels import (DEFAULT_TILE_N, describe_prox,
                               fused_nmf_adaprox_step,
                               fused_nmf_pgm_step)
 from .solvers.common import (SolverResult, as_tensor, as_torch_dtype,
@@ -121,8 +121,7 @@ def _fused_prox_safe(prox, block):
     sums) and ``prox_A`` on the padded factor; auto-routing therefore takes
     known library operators only, as the JAX rule does, and everything else
     stays on the torch engine. Explicit ``engine='cuda'`` keeps the
-    trust-the-caller contract (:func:`nmf_pgm_fused`). The kernels' width
-    limit is a separate gate (:func:`_kernels_cover`).
+    trust-the-caller contract (:func:`nmf_pgm_fused`).
     """
     if prox is None:
         return True
@@ -146,13 +145,6 @@ def _fused_prox_safe(prox, block):
     return False
 
 
-def _kernels_cover(C, K):
-    """Whether the CUDA kernels take (C, K): C <= 256 and K <= 32. Beyond,
-    ``engine='auto'`` routes to torch (ROADMAP Queue 2 owes wider
-    kernels)."""
-    return 1 <= C <= MAX_C and 1 <= K <= MAX_K
-
-
 #: The H100 routing table, from ``tools/engine_sweep.py`` on an NVIDIA H100
 #: 80GB HBM3 at 700.00 W (``PERF.md`` section 6; printed by
 #: ``tools/engine_sweep.py --table``). For each path and swept (C, K):
@@ -162,7 +154,9 @@ def _kernels_cover(C, K):
 #: ``gray`` is the inclusive N range where the sweep could not tell the
 #: engines apart around that crossover (their pair slopes overlapped, or
 #: between the two swept N that straddle it); None without a crossover.
-#: A shape takes the entry of the smallest swept (C, K) that covers it.
+#: A shape takes the entry of the smallest swept (C, K) that covers it, and
+#: the torch engine where none does. The very-wide rows (300, 8), (128, 64)
+#: and (425, 32) were swept at N = 1e5 and 1e6 only.
 _H100_REGIONS = {
     "pgm-exact": {
         (5, 7): (1_000_000, (10_000, 1_000_000)),
@@ -170,7 +164,10 @@ _H100_REGIONS = {
         (32, 16): (100_000, (10_000, 100_000)),
         (64, 16): (1_000_000, (10_000, 999_999)),
         (128, 32): (100_000, (10_000, 100_000)),
+        (128, 64): (None, None),
         (256, 32): (1_000_000, (10_000, 999_999)),
+        (300, 8): (0, None),
+        (425, 32): (0, None),
     },
     "pgm-stride10": {
         (5, 7): (1_000_000, (10_000, 1_000_000)),
@@ -178,7 +175,10 @@ _H100_REGIONS = {
         (32, 16): (1_000_000, (100_001, 1_000_000)),
         (64, 16): (100_000, (10_000, 100_000)),
         (128, 32): (100_000, (10_000, 100_000)),
+        (128, 64): (None, None),
         (256, 32): (1_000_000, (100_000, 999_999)),
+        (300, 8): (1_000_000, (100_001, 999_999)),
+        (425, 32): (0, None),
     },
     "pgm-w-stride10": {
         (5, 7): (10_000_000, (10_000, 9_999_999)),
@@ -186,7 +186,10 @@ _H100_REGIONS = {
         (32, 16): (1_000_000, (10_000, 1_000_000)),
         (64, 16): (100_000, (10_000, 99_999)),
         (128, 32): (0, None),
+        (128, 64): (None, None),
         (256, 32): (100_000, (10_001, 100_000)),
+        (300, 8): (1_000_000, (100_000, 999_999)),
+        (425, 32): (0, None),
     },
     "adaprox-f32": {
         (5, 7): (0, None),
@@ -194,7 +197,10 @@ _H100_REGIONS = {
         (32, 16): (0, None),
         (64, 16): (0, None),
         (128, 32): (0, None),
+        (128, 64): (0, None),
         (256, 32): (1_000_000, (10_000, 999_999)),
+        (300, 8): (1_000_000, (100_000, 999_999)),
+        (425, 32): (0, None),
     },
 }
 
@@ -228,7 +234,11 @@ def _unweighted_fused_wins(C, K, N):
     but (16, 8, 1e5). The cuda engine won from N = 1e6 at every shape
     (1.23x at (5, 7), 1.58-1.68x at (128, 32) and (256, 32)) and by
     2.6-3.6x at 1e7; from 1e5 at (32, 16) and (128, 32), at every N at
-    (16, 8). Inside the gray ranges the probes decide
+    (16, 8). Past C = 256 (the very-wide rows) the cuda engine won at
+    1e5 and 1e6 at (300, 8) and (425, 32) (1.32x at (425, 32, 1e6)); at
+    (128, 64) the torch engine was the faster or tied (the very-wide
+    body's second component block runs gS and the epilogue through L2).
+    Inside the gray ranges the probes decide
     (:mod:`proxmin_tpu_torch.calibrate`)."""
     return _cuda_wins("pgm-exact", C, K, N)
 
@@ -337,7 +347,7 @@ def _route_auto(Y, A, S, W, prox_A, prox_S, algorithm, step, callback,
     full-width ``store_dtype`` normalized away). The JAX package's rules,
     with the regions measured on the H100 (``_unweighted_fused_wins``,
     ``_unweighted_strided_fused_wins``, ``_weighted_fused_wins``,
-    ``_adaprox_fused_wins``) and the kernels' width limit."""
+    ``_adaprox_fused_wins``); the kernels take every (C, K)."""
     # None or a full-width store_dtype is the default layout; a reduced one
     # is a capacity request only the fused kernels honor
     if "store_dtype" in algorithm_args:
@@ -347,9 +357,8 @@ def _route_auto(Y, A, S, W, prox_A, prox_S, algorithm, step, callback,
             del algorithm_args["store_dtype"]
     C, N = np.shape(Y)
     K = np.shape(A)[1]
-    covered = _kernels_cover(C, K)
     fused_adaprox_ok = False
-    if (covered and algorithm is algorithms.adaprox and step is None
+    if (algorithm is algorithms.adaprox and step is None
             and callback is None and step_stride is None and not step_adapt
             and algorithm_args.get("scheme", "adam") == "adam"
             and set(algorithm_args) <= {
@@ -379,7 +388,7 @@ def _route_auto(Y, A, S, W, prox_A, prox_S, algorithm, step, callback,
     strided = (step_stride is not None and step_stride > 1) or step_adapt
     weighted_strided = weighted and strided
     weighted_store = weighted and "store_dtype" in algorithm_args
-    cuda_ok = (covered and algorithm is algorithms.pgm and step is None
+    cuda_ok = (algorithm is algorithms.pgm and step is None
                and callback is None
                and set(algorithm_args) <= {"tile_n", "store_dtype"}
                and _fused_prox_safe(prox_A, "A")
@@ -389,8 +398,8 @@ def _route_auto(Y, A, S, W, prox_A, prox_S, algorithm, step, callback,
         raise ValueError(
             f"{sorted(cuda_only)} are cuda-engine options but the call is "
             "not auto-routable to the fused kernels (pgm needs default "
-            "steps, no callback, C <= 256, K <= 32 and library proxs the "
-            "kernel can apply per pixel; other pixel-local proxs can force "
+            "steps, no callback and library proxs the kernel can apply "
+            "per pixel; other pixel-local proxs can force "
             "the engine with engine='cuda'; adaprox needs the adam scheme "
             "and separable proxs)")
     if cuda_ok and cuda_only:
@@ -1029,7 +1038,7 @@ def nmf_pgm_fused(
     ``AlternatingProjections`` of such) runs compiled in the kernel; any
     other prox runs in PyTorch on the whole (K, N) iterate between two
     kernel passes (:func:`~proxmin_tpu_torch.ops.nmf_kernels.describe_prox`).
-    The kernels take C <= 256 and K <= 32. ``prox_A`` acts on the tiny
+    The kernels take any C and K. ``prox_A`` acts on the tiny
     C x K factor outside the kernel and may be any prox. On CPU tensors the
     kernel's plain version runs instead. NumPy inputs go to ``device``
     (default: the CUDA device).
@@ -1329,8 +1338,8 @@ def nmf_adaprox_fused(
     operator whose ``separable_when`` holds (or a
     :class:`~proxmin_tpu_torch.ops.nmf_kernels.ProxDescriptor` that says
     so) runs compiled in the kernel; any other prox runs in PyTorch on the
-    whole (K, N) arrays between two kernel passes. The kernels take
-    C <= 256 and K <= 32. ``prox_A`` acts on the tiny C x K factor outside
+    whole (K, N) arrays between two kernel passes. The kernels take any C
+    and K. ``prox_A`` acts on the tiny C x K factor outside
     the kernel and may be any separable prox. On CPU tensors the kernel's
     plain version runs instead.
 
@@ -1700,7 +1709,7 @@ def nmf(
             ``_adaprox_fused_wins``) and the call is one it runs (PGM with
             the default steps, no callback, library proxes it applies per
             pixel, weighted only with a stride or a store; AdaProx with the
-            adam scheme and separable proxes; C <= 256, K <= 32), or where
+            adam scheme and separable proxes), or where
             ``tile_n``, a bfloat16 ``store_dtype`` or ``moment_dtype``
             asks for it; the torch engine otherwise. It routes by shape,
             not dtype: the cuda engine computes in float32. Inside a gray

@@ -6,14 +6,16 @@ and plain versions.
 iteration in one pass over the pixel columns (residual, both factor
 gradients, the proxed S update, the next iteration's ``S' S'^T`` Gram and
 the fixed-point statistics), kernels in ``csrc/nmf_pgm_step.cu`` (C <= 16,
-K <= 8) and ``csrc/nmf_pgm_wide.cu`` (up to C = 256, K = 32).
+K <= 8) and ``csrc/nmf_pgm_wide.cu`` (the wide body up to C = 256, K = 32,
+the very-wide body for any C and K beyond).
 
 :func:`fused_nmf_adaprox_step` (K2) is the counterpart of
 ``proxmin_tpu.ops.nmf_kernels.fused_nmf_adaprox_step``: one S-side
 proximal-Adam iteration in one pass (residual, both gradients, the moment
 EMAs with bias correction, the closed-form separable prox, the next
 iteration's row sums and the statistics), kernels in
-``csrc/nmf_adaprox_step.cu`` and ``csrc/nmf_adaprox_wide.cu``.
+``csrc/nmf_adaprox_step.cu`` and ``csrc/nmf_adaprox_wide.cu`` (the same
+three tiers).
 
 :func:`fused_nmf_grad` (K3) is the counterpart of
 ``proxmin_tpu.ops.fused_nmf_grad``: both factor gradients, the ``S S^T``
@@ -78,8 +80,9 @@ __all__ = [
     "build_kernel",
     "build_kernels",
     "DEFAULT_TILE_N",
-    "MAX_C",
-    "MAX_K",
+    "WIDE_C",
+    "WIDE_K",
+    "tier",
 ]
 
 #: Pixel columns per tile; the tiles fix the kernels' summation order. K2
@@ -87,12 +90,11 @@ __all__ = [
 #: parts of at most 1024 columns, a row each. Persistent blocks walk them.
 DEFAULT_TILE_N = 4096
 
-#: The widest problem an instance covers: C channels, K components. The
-#: narrow instances take C <= 16, K <= 8; the wide body the rest.
-MAX_C, MAX_K = 256, 32
+#: The tiers' bounds: the narrow instances take C <= 16, K <= 8, the wide
+#: body up to C = WIDE_C channels and K = WIDE_K components, the very-wide
+#: body (``csrc/vwide_pass.cuh``) every larger C or K.
 _NARROW_C, _NARROW_K = 16, 8
-_BEYOND = ("ROADMAP.md Queue 2 owes wider problems (K1-K3 beyond C = 256 or "
-           "K = 32)")
+WIDE_C, WIDE_K = 256, 32
 
 _F32_TINY = float(torch.finfo(torch.float32).tiny)
 _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -333,13 +335,15 @@ def describe_prox(prox_S, kernel="pgm", separable="auto"):
     return ProxDescriptor(prox_S, _chain_of(prox_S))
 
 
-def _covered(kernel, C, K):
-    """Whether the narrow instances cover (C, K); raises ``ValueError``
-    beyond the widest instance."""
-    if not (1 <= C <= MAX_C and 1 <= K <= MAX_K):
-        raise ValueError(f"the CUDA {kernel} covers C <= {MAX_C} and K <= "
-                         f"{MAX_K}, got C={C}, K={K}: {_BEYOND}")
-    return C <= _NARROW_C and K <= _NARROW_K
+def tier(C, K):
+    """The instances that serve a (C, K) problem on the card: ``"narrow"``
+    (C <= 16, K <= 8), ``"wide"`` (C <= 256, K <= 32) or ``"very wide"``
+    (any larger C or K). K1 and K2 take the narrow tier only for the chains
+    their narrow bodies run (K1 any, K2 the identity and non-negativity);
+    their split passes run on the wide or very-wide body."""
+    if C <= _NARROW_C and K <= _NARROW_K:
+        return "narrow"
+    return "wide" if C <= WIDE_C and K <= WIDE_K else "very wide"
 
 
 def _store_of(S):
@@ -422,7 +426,7 @@ def _pgm_checks(A, S, Y, W, tile_n):
     if N < 1 or int(tile_n) < 1:
         raise ValueError(f"need N >= 1 and tile_n >= 1, got N={N}, "
                          f"tile_n={tile_n}")
-    return C, K, N, _covered("fused_nmf_pgm_step", C, K)
+    return C, K, N, tier(C, K) == "narrow"
 
 
 def _device_step(sS, device):
@@ -456,8 +460,9 @@ def _pgm_wide_cuda(mode, A, S, Y, W, step, P, plan, tile_n, S_new, pre,
             mode, *ptr[:6], n_ops, repeat, ops, thresh,
             int(S.dtype == torch.bfloat16), C, K, N, tile_n, *ptr[6:],
             stats, partials.data_ptr(), stream)
-    _launched(rc, f"fused_nmf_pgm_step ({_PGM_ROUTES[mode]})")
-    fused_nmf_pgm_step.route_launches[_PGM_ROUTES[mode]] += 1
+    route = _PGM_ROUTES[mode] if mode else _wide_route(C, K)
+    _launched(rc, f"fused_nmf_pgm_step ({route})")
+    fused_nmf_pgm_step.route_launches[route] += 1
     if mode != 2:  # the launch that starts a step, in a program too
         fused_nmf_pgm_step.launches += 1
 
@@ -465,9 +470,16 @@ def _pgm_wide_cuda(mode, A, S, Y, W, step, P, plan, tile_n, S_new, pre,
 _PGM_ROUTES = ("wide", "split pass 1", "split pass 2")
 
 
+def _wide_route(C, K):
+    """The route a compiled-chain step on the wide or very-wide body counts
+    in (K2 takes the wide body at narrow shapes for the chains its narrow
+    body does not run)."""
+    return "very wide" if tier(C, K) == "very wide" else "wide"
+
+
 def _pgm_step_cuda(A, S, Y, sS, W, plan, tile_n):
     """K1 on CUDA tensors for a compiled chain: checks, allocation, the
-    narrow or the wide instance, the count. Returns ``(gA, S_new, SSt,
+    narrow, wide or very-wide instance, the count. Returns ``(gA, S_new, SSt,
     stats)`` with ``stats`` the (3,) float32 ``[loss, dS_sq, nS_sq]``."""
     C, K, N, narrow = _pgm_checks(A, S, Y, W, tile_n)
     device = A.device
@@ -520,7 +532,6 @@ def _pgm_pass2_cuda(S, P, tile_n, stats=None, copy=False):
     K, N = S.shape
     device, f32 = S.device, torch.float32
     _check_operand("P", P, (K, N), device)
-    _covered("fused_nmf_pgm_step", 1, K)
     SSt = torch.empty((K, K), dtype=f32, device=device)
     if stats is None:
         stats = torch.empty((3,), dtype=f32, device=device)
@@ -647,12 +658,14 @@ def fused_nmf_pgm_step(A, S, Y, sS, W=None, prox_S=None,
 
     CPU tensors go to :func:`fused_nmf_pgm_step_reference`. CUDA tensors
     launch the kernels (building them on first use) on the current stream
-    without synchronizing, or raise (C <= 256 and K <= 32); each step adds
-    one to ``fused_nmf_pgm_step.launches`` (counted at the launch that
-    starts it: the narrow or wide step, or split pass 1, in a program as
-    well) and each launch one to its route in
+    without synchronizing, for any C >= 1 and K >= 1 (:func:`tier`); each
+    step adds one to ``fused_nmf_pgm_step.launches`` (counted at the launch
+    that starts it: the narrow, wide or very-wide step, or split pass 1, in
+    a program as well) and each launch one to its route in
     ``fused_nmf_pgm_step.route_launches`` (``narrow``, ``wide``,
-    ``split pass 1``, ``split pass 2``). While a program is captured, the
+    ``very wide``, ``split pass 1``, ``split pass 2``; the split passes
+    run on the wide body up to C = 256, K = 32, on the very-wide one
+    beyond). While a program is captured, the
     call is the registered op :func:`fused_nmf_pgm_step_op`, or on the
     split path the two pass ops around the traced prox.
     """
@@ -677,8 +690,8 @@ def fused_nmf_pgm_step(A, S, Y, sS, W=None, prox_S=None,
 
 
 fused_nmf_pgm_step.launches = 0
-fused_nmf_pgm_step.route_launches = dict.fromkeys(("narrow",) + _PGM_ROUTES,
-                                                  0)
+fused_nmf_pgm_step.route_launches = dict.fromkeys(
+    ("narrow", "wide", "very wide") + _PGM_ROUTES[1:], 0)
 
 
 # --------------------------------------------------------------------------
@@ -779,7 +792,7 @@ def _adaprox_checks(A, S, M, V, Y, alpha_S, scalars, W, tile_n):
     if N < 1 or int(tile_n) < 1:
         raise ValueError(f"need N >= 1 and tile_n >= 1, got N={N}, "
                          f"tile_n={tile_n}")
-    return C, K, N, alpha, _covered("fused_nmf_adaprox_step", C, K)
+    return C, K, N, alpha, tier(C, K) == "narrow"
 
 
 _ADAPROX_ROUTES = ("wide", "split pass 1", "split pass 2")
@@ -787,9 +800,10 @@ _ADAPROX_ROUTES = ("wide", "split pass 1", "split pass 2")
 
 def _adaprox_wide_cuda(mode, A, S, M, V, Y, W, alpha, scalars, b2, eps, P,
                        plan, tile_n, S_new, M_new, V_new, pre, pre_step, gA,
-                       rowsum, stats):
-    """One launch of K2's wide body (mode 0 the chain, 1 split pass 1, 2
-    split pass 2) into the given outputs; counts it."""
+                       rowsum, stats, count=True):
+    """One launch of K2's wide or very-wide body (mode 0 the chain, 1 split
+    pass 1, 2 split pass 2) into the given outputs; counts it in K2's
+    counters unless ``count`` is False (K5 counts its own)."""
     C, K = A.shape
     N = S.shape[1]
     lib = _library("nmf_adaprox_wide")
@@ -819,8 +833,11 @@ def _adaprox_wide_cuda(mode, A, S, M, V, Y, W, alpha, scalars, b2, eps, P,
             repeat, ops, thresh, int(S.dtype == torch.bfloat16),
             int(M is not None and M.dtype == torch.bfloat16), C, K, N,
             tile_n, *outs, stats, partials.data_ptr(), stream)
-    _launched(rc, f"fused_nmf_adaprox_step ({_ADAPROX_ROUTES[mode]})")
-    fused_nmf_adaprox_step.route_launches[_ADAPROX_ROUTES[mode]] += 1
+    route = _ADAPROX_ROUTES[mode] if mode else _wide_route(C, K)
+    _launched(rc, f"fused_nmf_adaprox_step ({route})")
+    if not count:
+        return
+    fused_nmf_adaprox_step.route_launches[route] += 1
     if mode != 2:  # the launch that starts a step, in a program too
         fused_nmf_adaprox_step.launches += 1
         if on_card:
@@ -828,21 +845,22 @@ def _adaprox_wide_cuda(mode, A, S, M, V, Y, W, alpha, scalars, b2, eps, P,
 
 
 def _adaprox_step_cuda(A, S, M, V, Y, alpha_S, scalars, W, plan, b2,
-                       eps, tile_n):
+                       eps, tile_n, out=None, count=True):
     """K2 on CUDA tensors for a compiled chain: checks, allocation, the
     narrow instance (the identity and non-negativity, C <= 16, K <= 8) or
-    the wide one, the count. ``scalars`` by value (three
+    the wide or very-wide one, the count. ``scalars`` by value (three
     host numbers) or as a (3,) float32 tensor on the card (the
-    device-scalar entry). Returns ``(gA, S_new, M_new, V_new, rowsum,
+    device-scalar entry). ``out``: ``(S_new, M_new, V_new)`` to write
+    into (K5's packed blocks), new tensors if None; ``count`` False leaves
+    K2's counters alone. Returns ``(gA, S_new, M_new, V_new, rowsum,
     stats)`` with ``stats`` the (3,) float32 ``[loss, dS_sq, nS_sq]``."""
     C, K, N, alpha, narrow = _adaprox_checks(A, S, M, V, Y, alpha_S,
                                              scalars, W, tile_n)
     device = A.device
     tile_n = int(tile_n)
     f32 = torch.float32
-    S_new = torch.empty_like(S)
-    M_new = torch.empty_like(M)
-    V_new = torch.empty_like(V)
+    S_new, M_new, V_new = out or (torch.empty_like(S), torch.empty_like(M),
+                                  torch.empty_like(V))
     gA = torch.empty((C, K), dtype=f32, device=device)
     rowsum = torch.empty((K, 1), dtype=f32, device=device)
     stats = torch.empty((3,), dtype=f32, device=device)
@@ -853,7 +871,7 @@ def _adaprox_step_cuda(A, S, M, V, Y, alpha_S, scalars, W, plan, b2,
         # and of the step a column
         _adaprox_wide_cuda(0, A, S, M, V, Y, W, alpha, scalars, b2, eps,
                            None, plan, tile_n, S_new, M_new, V_new, None,
-                           None, gA, rowsum, stats.data_ptr())
+                           None, gA, rowsum, stats.data_ptr(), count)
         return gA, S_new, M_new, V_new, rowsum, stats
     lib = _library("nmf_adaprox_step")
     width = lib.nmf_adaprox_step_partials_width(C, K)
@@ -880,10 +898,11 @@ def _adaprox_step_cuda(A, S, M, V, Y, alpha_S, scalars, W, plan, b2,
             rc = lib.nmf_adaprox_step(*head, float(b1_t), float(bc1),
                                       float(bc2), *tail)
     _launched(rc, "fused_nmf_adaprox_step")
-    fused_nmf_adaprox_step.launches += 1
-    fused_nmf_adaprox_step.route_launches["narrow"] += 1
-    if on_card:
-        fused_nmf_adaprox_step.device_scalar_launches += 1
+    if count:
+        fused_nmf_adaprox_step.launches += 1
+        fused_nmf_adaprox_step.route_launches["narrow"] += 1
+        if on_card:
+            fused_nmf_adaprox_step.device_scalar_launches += 1
     return gA, S_new, M_new, V_new, rowsum, stats
 
 
@@ -914,7 +933,6 @@ def _adaprox_pass2_cuda(S, P, tile_n, stats=None, copy=False):
     K, N = S.shape
     device, f32 = S.device, torch.float32
     _check_operand("P", P, (K, N), device)
-    _covered("fused_nmf_adaprox_step", 1, K)
     rowsum = torch.empty((K, 1), dtype=f32, device=device)
     if stats is None:
         stats = torch.empty((3,), dtype=f32, device=device)
@@ -1065,10 +1083,10 @@ def fused_nmf_adaprox_step(A, S, M, V, Y, alpha_S, scalars, W=None,
 
     CPU tensors go to :func:`fused_nmf_adaprox_step_reference`. CUDA
     tensors launch the kernels (building them on first use) on the current
-    stream without synchronizing, or raise (C <= 256 and K <= 32); each
-    step adds one to ``fused_nmf_adaprox_step.launches`` (counted at the
-    launch that starts it, as for K1), each launch one to its route in
-    ``fused_nmf_adaprox_step.route_launches``, and a step through the
+    stream without synchronizing, for any C >= 1 and K >= 1 (:func:`tier`);
+    each step adds one to ``fused_nmf_adaprox_step.launches`` (counted at
+    the launch that starts it, as for K1), each launch one to its route in
+    ``fused_nmf_adaprox_step.route_launches`` (as K1's), and a step through the
     device-scalar entry one to
     ``fused_nmf_adaprox_step.device_scalar_launches``. While a program is
     captured, the call is the registered op
@@ -1101,7 +1119,7 @@ def fused_nmf_adaprox_step(A, S, M, V, Y, alpha_S, scalars, W=None,
 fused_nmf_adaprox_step.launches = 0
 fused_nmf_adaprox_step.device_scalar_launches = 0
 fused_nmf_adaprox_step.route_launches = dict.fromkeys(
-    ("narrow",) + _ADAPROX_ROUTES, 0)
+    ("narrow", "wide", "very wide") + _ADAPROX_ROUTES[1:], 0)
 
 
 def fused_nmf_grad_reference(A, S, Y, W=None):
@@ -1130,10 +1148,11 @@ def fused_nmf_grad(A, S, Y, W=None, tile_n=DEFAULT_TILE_N):
         all float32. D is never stored.
 
     CPU tensors go to :func:`fused_nmf_grad_reference`. CUDA tensors launch
-    the CUDA kernel (``csrc/nmf_grad.cu``, built on first use; C <= 256,
-    K <= 32: the narrow instances up to C = 16, K = 8, the wide body
-    beyond) on the current stream without synchronizing, or raise; each
-    launch adds one to ``fused_nmf_grad.launches`` and one to its route in
+    the CUDA kernel (``csrc/nmf_grad.cu``, built on first use; any C >= 1,
+    K >= 1: the narrow instances up to C = 16, K = 8, the wide body up to
+    C = 256, K = 32, the very-wide body beyond, :func:`tier`) on the
+    current stream without synchronizing; each launch adds one to
+    ``fused_nmf_grad.launches`` and one to its route in
     ``fused_nmf_grad.route_launches``. While a program is captured, the
     call is the registered op :func:`fused_nmf_grad_op`.
     """
@@ -1167,7 +1186,7 @@ def _grad_cuda(A, S, Y, W, tile_n):
                          f"{device}")
     C, K = A.shape
     N = S.shape[1]
-    narrow = _covered("fused_nmf_grad", C, K)
+    route = tier(C, K)
     if N < 1 or int(tile_n) < 1:
         raise ValueError(f"need N >= 1 and tile_n >= 1, got N={N}, "
                          f"tile_n={tile_n}")
@@ -1196,7 +1215,7 @@ def _grad_cuda(A, S, Y, W, tile_n):
             partials.data_ptr(), stream)
     _launched(rc, "fused_nmf_grad")
     fused_nmf_grad.launches += 1
-    fused_nmf_grad.route_launches["narrow" if narrow else "wide"] += 1
+    fused_nmf_grad.route_launches[route] += 1
     return gA, gS, SSt, loss
 
 
@@ -1221,4 +1240,4 @@ def _(A, S, Y, W, tile_n):
 
 
 fused_nmf_grad.launches = 0
-fused_nmf_grad.route_launches = {"narrow": 0, "wide": 0}
+fused_nmf_grad.route_launches = {"narrow": 0, "wide": 0, "very wide": 0}

@@ -8,11 +8,16 @@ prox ``max(., 0)``, on a layout that merges the pixel-axis arrays:
 * ``mv``: S (K, N) float32 plus one (2K, N) bfloat16 array ``[M; V]``.
 
 The experiment asks whether fewer, merged streams change K2's achieved
-bandwidth at the same bytes. The CUDA kernel is K2's body
-(``csrc/nmf_adaprox_step.cu``) with the layout as a template parameter, so
-a packed step equals K2's bit for bit on the same inputs and a timing
-compares the layouts alone. Unlike the TPU kernel it takes unpadded
-blocks: the row offsets are K and 2K.
+bandwidth at the same bytes. For C, K <= 8 the CUDA kernel is K2's narrow
+body (``csrc/nmf_adaprox_step.cu``) with the layout as a template
+parameter, so a packed step equals K2's bit for bit on the same inputs and
+a timing compares the layouts alone. Beyond, as the TPU kernel takes any
+(Cp, Kp), it runs K2's own step (the narrow body up to C = 16, K = 8, the
+wide or very-wide body beyond, ``ops.nmf_kernels.tier``; the prox
+``max(., 0)``) on the packed arrays' row blocks, each a contiguous (K, N)
+array, and writes into the packed outputs' blocks: again K2's bits.
+Unlike the TPU kernel it takes unpadded blocks: the row offsets are K and
+2K.
 
 On CUDA tensors :func:`packed_step` launches the kernel (building it on
 first use) or raises; on CPU tensors it runs :func:`packed_step_reference`.
@@ -24,9 +29,10 @@ import numpy as np
 import torch
 
 from ._build import _library, register
-from .nmf_kernels import (DEFAULT_TILE_N, _adaprox_scalars, _check_operand,
+from .nmf_kernels import (DEFAULT_TILE_N, _adaprox_scalars,
+                          _adaprox_step_cuda, _check_operand, describe_prox,
                           fused_nmf_adaprox_step,
-                          fused_nmf_adaprox_step_reference)
+                          fused_nmf_adaprox_step_reference, tier)
 
 __all__ = ["packed_step", "packed_step_reference", "build_loops"]
 
@@ -70,7 +76,7 @@ def packed_step(A, SMV_or_S, Y, alpha, scalars, MV=None, b2=0.999, eps=1e-8,
     """One packed-state AdaProx S-side step (K5).
 
     Args:
-        A: (C, K) float32, C <= 8 and K <= 8 on the card. Y: (C, N) float32.
+        A: (C, K) float32, any C >= 1 and K >= 1. Y: (C, N) float32.
         SMV_or_S: with ``MV=None`` the ``smv`` layout, (3K, N) float32 rows
             ``[S; M; V]``; else S (K, N) float32 and ``MV`` (2K, N)
             bfloat16 rows ``[M; V]``. All contiguous, on one device.
@@ -85,7 +91,10 @@ def packed_step(A, SMV_or_S, Y, alpha, scalars, MV=None, b2=0.999, eps=1e-8,
         S), ``rowsum = S_new.sum(1)`` as (K, 1) and ``stats = [sum(R^2) / 2,
         ||S_new - S||^2, ||S_new||^2]``.
 
-    Each launch adds one to ``packed_step.launches``.
+    Each step on the card adds one to ``packed_step.launches`` and one to
+    its route in ``packed_step.route_launches``: ``packed`` (C, K <= 8, the
+    packed kernel), else K2's instance that ran, ``narrow``, ``wide`` or
+    ``very wide`` (:func:`tier`).
     """
     device = A.device
     if device.type == "cpu":
@@ -109,12 +118,12 @@ def packed_step(A, SMV_or_S, Y, alpha, scalars, MV=None, b2=0.999, eps=1e-8,
     if N < 1 or int(tile_n) < 1:
         raise ValueError(f"need N >= 1 and tile_n >= 1, got N={N}, "
                          f"tile_n={tile_n}")
-    if not (1 <= C <= 8 and 1 <= K <= 8):
-        raise ValueError(f"the CUDA packed_step is compiled for C <= 8 and "
-                         f"K <= 8, got C={C}, K={K}")
+    tile_n = int(tile_n)
+    if not (C <= 8 and K <= 8):
+        return _packed_wide(A, SMV_or_S, Y, alpha, scalars, MV, b2, eps,
+                            tile_n)
     lib = _library("nmf_adaprox_step")
     width = lib.nmf_adaprox_step_partials_width(C, K)
-    tile_n = int(tile_n)
     n_blocks = -(-N // tile_n)
     SMV_new = torch.empty_like(SMV_or_S)
     MV_new = None if MV is None else torch.empty_like(MV)
@@ -136,12 +145,36 @@ def packed_step(A, SMV_or_S, Y, alpha, scalars, MV=None, b2=0.999, eps=1e-8,
     if rc != 0:
         raise RuntimeError(f"packed_step launch failed: CUDA error {rc}")
     packed_step.launches += 1
+    packed_step.route_launches["packed"] += 1
+    if MV is None:
+        return gA, SMV_new, rowsum, stats
+    return gA, SMV_new, MV_new, rowsum, stats
+
+
+_PLUS = describe_prox(None)
+
+
+def _packed_wide(A, SMV_or_S, Y, alpha, scalars, MV, b2, eps, tile_n):
+    """K5 beyond C, K <= 8 on CUDA tensors of checked shapes: K2's own step
+    (one launch of the instance its shape takes) on the row blocks of the
+    packed arrays, writing the packed outputs' blocks."""
+    C, K = A.shape
+    SMV_new = torch.empty_like(SMV_or_S)
+    MV_new = None if MV is None else torch.empty_like(MV)
+    S, M, V = _unpack(SMV_or_S, MV, K)
+    gA, _, _, _, rowsum, stats = _adaprox_step_cuda(
+        A, S, M, V, Y, alpha, scalars, None, _PLUS, b2, eps, tile_n,
+        out=_unpack(SMV_new, MV_new, K), count=False)
+    packed_step.launches += 1
+    packed_step.route_launches[tier(C, K)] += 1
     if MV is None:
         return gA, SMV_new, rowsum, stats
     return gA, SMV_new, MV_new, rowsum, stats
 
 
 packed_step.launches = 0
+packed_step.route_launches = dict.fromkeys(
+    ("packed", "narrow", "wide", "very wide"), 0)
 
 
 def build_loops(tile_n=DEFAULT_TILE_N):

@@ -118,9 +118,9 @@ def test_kernel_keeps_nan(dev):
 
 
 def test_kernel_refuses_what_it_cannot_run(dev):
-    """prox_soft and C = 17 run now (a compiled chain, the wide body) and
-    match the plain version; beyond C = 256 the wrapper raises, naming the
-    ROADMAP entry that owes it."""
+    """prox_soft and C = 17 run (a compiled chain, the wide body), and so
+    does C = 257 (the very-wide body), matching the plain version; the
+    wrapper refuses other dtypes, strided operands and mixed devices."""
     A, S, Y, _ = _problem(dev, 5, 7, 100)
     _assert_step_close(
         k1.fused_nmf_pgm_step(A, S, Y, 0.1, prox_S=top.prox_soft),
@@ -134,8 +134,10 @@ def test_kernel_refuses_what_it_cannot_run(dev):
     _assert_step_close(k1.fused_nmf_pgm_step(A2, S2, Y2, 0.1),
                        k1.fused_nmf_pgm_step_reference(A2, S2, Y2, 0.1))
     A3, S3, Y3, _ = _problem(dev, 257, 3, 100)
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
-        k1.fused_nmf_pgm_step(A3, S3, Y3, 0.1)
+    before = k1.fused_nmf_pgm_step.route_launches["very wide"]
+    _assert_step_close(k1.fused_nmf_pgm_step(A3, S3, Y3, 0.1),
+                       k1.fused_nmf_pgm_step_reference(A3, S3, Y3, 0.1))
+    assert k1.fused_nmf_pgm_step.route_launches["very wide"] == before + 1
     with pytest.raises(ValueError, match="share one device"):
         k1.fused_nmf_pgm_step(A, S.cpu(), Y, 0.1)
 
@@ -251,9 +253,9 @@ def _assert_adaprox_close(got, ref):
 
 
 def test_adaprox_kernel_refuses_what_it_cannot_run(dev):
-    """prox_soft and C = 17 run now (a compiled chain, the wide body) and
-    match the plain version; beyond K = 32 the wrapper raises, naming the
-    ROADMAP entry that owes it."""
+    """prox_soft and C = 17 run (a compiled chain, the wide body), and so
+    does K = 33 (the very-wide body), matching the plain version; the
+    wrapper refuses other moment dtypes and mixed moments."""
     A, S, M, V, Y, alpha, sc, _ = _adaprox_operands(dev, 5, 7, 100)
     _assert_adaprox_close(
         k1.fused_nmf_adaprox_step(A, S, M, V, Y, alpha, sc,
@@ -269,8 +271,12 @@ def test_adaprox_kernel_refuses_what_it_cannot_run(dev):
         k1.fused_nmf_adaprox_step(A2, S2, M2, V2, Y2, alpha2, sc),
         k1.fused_nmf_adaprox_step_reference(A2, S2, M2, V2, Y2, alpha2, sc))
     A3, S3, M3, V3, Y3, alpha3, _, _ = _adaprox_operands(dev, 4, 33, 100)
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
-        k1.fused_nmf_adaprox_step(A3, S3, M3, V3, Y3, alpha3, sc)
+    before = k1.fused_nmf_adaprox_step.route_launches["very wide"]
+    _assert_adaprox_close(
+        k1.fused_nmf_adaprox_step(A3, S3, M3, V3, Y3, alpha3, sc),
+        k1.fused_nmf_adaprox_step_reference(A3, S3, M3, V3, Y3, alpha3, sc))
+    assert (k1.fused_nmf_adaprox_step.route_launches["very wide"]
+            == before + 1)
 
 
 @pytest.mark.parametrize("mdt", [None, torch.bfloat16])
@@ -443,18 +449,17 @@ def test_grad_kernel_keeps_nan(dev):
 
 
 def test_grad_kernel_refuses_what_it_cannot_run(dev):
-    """C = 17 and K = 9 run now on the wide body and match the plain
-    version; beyond C = 256 or K = 32 the wrapper raises, naming the
-    ROADMAP entry that owes it."""
-    for C, K in ((17, 3), (4, 9)):
+    """C = 17 and K = 9 run on the wide body, C = 257 and K = 33 on the
+    very-wide body, and match the plain version; the wrapper refuses mixed
+    devices."""
+    for C, K, route in ((17, 3, "wide"), (4, 9, "wide"),
+                        (257, 3, "very wide"), (4, 33, "very wide")):
         A2, S2, Y2, _ = _problem(dev, C, K, 100)
+        before = k1.fused_nmf_grad.route_launches[route]
         for g, r in zip(tops.fused_nmf_grad(A2, S2, Y2),
                         tops.fused_nmf_grad_reference(A2, S2, Y2)):
             torch.testing.assert_close(g, r, rtol=2e-4, atol=1e-5)
-    for C, K in ((257, 3), (4, 33)):
-        A3, S3, Y3, _ = _problem(dev, C, K, 100)
-        with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
-            tops.fused_nmf_grad(A3, S3, Y3)
+        assert k1.fused_nmf_grad.route_launches[route] == before + 1
     A, S, Y, _ = _problem(dev, 5, 7, 100)
     with pytest.raises(ValueError, match="share one device"):
         tops.fused_nmf_grad(A, S.cpu(), Y)
@@ -632,6 +637,321 @@ def test_k3_wide_matches_plain_version(dev, C, K, N, weighted):
     for g, r in zip(got, ref):
         torch.testing.assert_close(g, r, rtol=2e-4, atol=1e-5)
     assert k1.fused_nmf_grad.route_launches["wide"] == before["wide"] + 2
+
+
+def _bit_cases(dev):
+    """The wide instances' modes at (128, 32, 4097) (and the narrow ones at
+    (5, 7, 4097)), with W, from seeded inputs: name -> a call whose outputs
+    test_wide_instances_keep_their_bits hashes."""
+    cases = {}
+    bf = torch.bfloat16
+    for C, K in ((128, 32), (5, 7)):
+        A, S, Y, W = _problem(dev, C, K, 4097, weighted=True)
+        sS = 1.0 / torch.linalg.eigvalsh(A.T @ A)[-1]
+        Sb, Yb, Wb = S.to(bf), Y.to(bf), W.to(bf)
+        _, _, M, V, _, alpha, sc, _ = _adaprox_operands(dev, C, K, 4097,
+                                                        True)
+        Mb, Vb = M.to(bf), V.to(bf)
+        l1 = k1.describe_prox(_PROX_CASES["soft_plus_abs"], "adaprox", True)
+        clo = _PROX_CASES["split_closure"]
+        tag = f"({C}, {K})"
+        cases.update({
+            f"K1 unity_plus {tag}": _P(k1.fused_nmf_pgm_step, A, S, Y, sS,
+                                       W=W, prox_S=_PROX_CASES["unity_plus"]),
+            f"K1 bf16 {tag}": _P(k1.fused_nmf_pgm_step, A, Sb, Yb, sS, W=Wb,
+                                 prox_S=_PROX_CASES["soft_plus_abs"]),
+            f"K1 split {tag}": _P(k1.fused_nmf_pgm_step, A, S, Y, sS, W=W,
+                                  prox_S=clo),
+            f"K2 {tag}": _P(k1.fused_nmf_adaprox_step, A, S, M, V, Y, alpha,
+                            sc, W=W, prox_S=l1),
+            f"K2 bf16 {tag}": _P(k1.fused_nmf_adaprox_step, A, Sb, Mb, Vb,
+                                 Yb, alpha, sc, W=Wb, prox_S=l1),
+            f"K2 split {tag}": _P(k1.fused_nmf_adaprox_step, A, S, M, V, Y,
+                                  alpha, sc, W=W, prox_S=clo),
+            f"K3 {tag}": _P(tops.fused_nmf_grad, A, S, Y, W=W),
+        })
+    return cases
+
+
+def _digest(t):
+    import hashlib
+
+    b = t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy()
+    return hashlib.sha256(b.tobytes()).hexdigest()[:16]
+
+
+# The digests of _bit_cases' outputs as the wide and narrow instances gave
+# them before the very-wide body was added beside them (an NVIDIA H100
+# 80GB HBM3): the new tier leaves their bits as they were.
+_WIDE_BITS = {
+    "K1 unity_plus (128, 32)": (
+        "de9805618b31d05a", "65e702dfb13f3ceb", "0b309088f8cbe811",
+        "0a3e132d78b08143", "779e4cb3231d224f", "eec2a7fec70b57a6",
+    ),
+    "K1 bf16 (128, 32)": (
+        "856a26e0bc66e169", "ce2a491eabf6cd96", "818a3e08d981b78a",
+        "5572d50dfe7ec08a", "6743e48fc082aca2", "c3c634f09ad18477",
+    ),
+    "K1 split (128, 32)": (
+        "de9805618b31d05a", "b9c1a0dcee35d30f", "7b06ade0590507fe",
+        "0a3e132d78b08143", "779e4cb3231d224f", "eec2a7fec70b57a6",
+    ),
+    "K2 (128, 32)": (
+        "de9805618b31d05a", "02a627cdb2f5e618", "f3b2554cf8bb55a5",
+        "e9b81aec644dd677", "7aa1f31c4287b740", "0a3e132d78b08143",
+        "5281adfb093664d8", "aef06f42812c4750",
+    ),
+    "K2 bf16 (128, 32)": (
+        "856a26e0bc66e169", "2d162fc4f4ff7200", "abd8cade85c49f4d",
+        "382350b878049c38", "6d995115bed6f03f", "5572d50dfe7ec08a",
+        "8ed50838da7e1d8a", "9636ed5204ef145d",
+    ),
+    "K2 split (128, 32)": (
+        "de9805618b31d05a", "8457f2de38ecc326", "f3b2554cf8bb55a5",
+        "e9b81aec644dd677", "de638aa86ecb45c5", "0a3e132d78b08143",
+        "8e7c269b27773d7a", "60a4e7ef44832467",
+    ),
+    "K3 (128, 32)": (
+        "de9805618b31d05a", "45ad6ac389251842", "76ff2410d1daa70d",
+        "0a3e132d78b08143",
+    ),
+    "K1 unity_plus (5, 7)": (
+        "039c7e6201fc142b", "b484b0df57ae94a4", "dea4316bb5d35c41",
+        "b40208acefa82f9a", "992a85dac9572184", "740547354d272aa2",
+    ),
+    "K1 bf16 (5, 7)": (
+        "2bd45b68b5f0c7ec", "6f2a495f7eb9cfbc", "14836ed80e59c11d",
+        "b06974c0e121a870", "9e9335a5949a428a", "8d66b8ccdd1df8d8",
+    ),
+    "K1 split (5, 7)": (
+        "46da99c93805d67f", "9d3cd3c84a0f0f35", "d6df015197f8fbff",
+        "b40208acefa82f9a", "1fa6b93cf1273879", "7273820971ec0e19",
+    ),
+    "K2 (5, 7)": (
+        "46da99c93805d67f", "c66ad814bfb94dfc", "824a3e649b87af90",
+        "3d444576bb47ede3", "661b0b4cadeac43d", "b40208acefa82f9a",
+        "8bdbd969d92b6d29", "a04d8d9ed8c8cb7a",
+    ),
+    "K2 bf16 (5, 7)": (
+        "47fb5a022efa5969", "90521903b1d5c53e", "9cede99528622331",
+        "b49d1e1570765d75", "458331b524f0ffe6", "b06974c0e121a870",
+        "e1459d3e7a7b7ab1", "57c04cc2928644ac",
+    ),
+    "K2 split (5, 7)": (
+        "46da99c93805d67f", "a23dc113e22c4970", "824a3e649b87af90",
+        "3d444576bb47ede3", "86b68eab2ceba6ba", "b40208acefa82f9a",
+        "31e9553ea11d8f58", "e0539bd1c62e8b48",
+    ),
+    "K3 (5, 7)": (
+        "039c7e6201fc142b", "800297e8d3096025", "8886737f8721fb20",
+        "b40208acefa82f9a",
+    ),
+}
+
+
+def test_wide_instances_keep_their_bits(dev):
+    """The wide body's and the narrow instances' outputs at (128, 32, 4097)
+    and (5, 7, 4097), every mode and store, hash to the digests they had
+    before the very-wide body was added: the new tier changes none of
+    their bits."""
+    got = {name: [_digest(t) for t in fn()]
+           for name, fn in _bit_cases(dev).items()}
+    torch.cuda.synchronize()
+    assert got == {k: list(v) for k, v in _WIDE_BITS.items()}
+
+
+# K1-K3 on the very-wide body (C > 256 or K > 32): the shapes at which
+# tests/test_torch_kernel_modes.py holds the plain versions against the JAX
+# kernels, across the bounds C = 256 and K = 32 and the component blocks of
+# 32 (K = 33, 64), with ragged N around a thread's 4 columns and the
+# sub-tile of 256
+_VWIDE_SHAPES = [(257, 3, 300), (300, 33, 257), (425, 32, 1000),
+                 (64, 33, 4097), (17, 64, 255), (128, 64, 500),
+                 (600, 8, 129)]
+_VWIDE_CASES = ("zero", "soft_plus_abs", "unity_plus", "chain",
+                "split_closure")
+
+
+@pytest.mark.parametrize("C,K,N", _VWIDE_SHAPES)
+@pytest.mark.parametrize("case", _VWIDE_CASES)
+@pytest.mark.parametrize("weighted", [False, True])
+def test_very_wide_k1_matches_plain_version(dev, C, K, N, case, weighted):
+    A, S, Y, W = _problem(dev, C, K, N, weighted)
+    sS = 1.0 / torch.linalg.eigvalsh(A.T @ A)[-1]
+    prox = _PROX_CASES[case]
+    routes = dict(k1.fused_nmf_pgm_step.route_launches)
+    got = _twice(lambda: k1.fused_nmf_pgm_step(A, S, Y, sS, W=W,
+                                               prox_S=prox))
+    ref = k1.fused_nmf_pgm_step_reference(A, S, Y, sS, W=W, prox_S=prox)
+    torch.cuda.synchronize()
+    _assert_step_close(got, ref)
+    ran = {r: n - routes[r]
+           for r, n in k1.fused_nmf_pgm_step.route_launches.items()}
+    want = ({"split pass 1": 2, "split pass 2": 2}
+            if k1.describe_prox(prox).split else {"very wide": 2})
+    assert {r: n for r, n in ran.items() if n} == want
+
+
+@pytest.mark.parametrize("C,K,N", _VWIDE_SHAPES)
+@pytest.mark.parametrize("case", ["soft_plus_abs", "split_closure"])
+def test_very_wide_k1_bf16_store(dev, C, K, N, case):
+    """As test_k1_bf16_store_modes, on the very-wide body."""
+    A, S, Y, W = _problem(dev, C, K, N, weighted=True)
+    bf = torch.bfloat16
+    S, Y, W = S.to(bf), Y.to(bf), W.to(bf)
+    sS = 1.0 / torch.linalg.eigvalsh(A.T @ A)[-1]
+    prox = _PROX_CASES[case]
+    got = _twice(lambda: k1.fused_nmf_pgm_step(A, S, Y, sS, W=W,
+                                               prox_S=prox))
+    ref = k1.fused_nmf_pgm_step_reference(A, S, Y, sS, W=W, prox_S=prox)
+    torch.cuda.synchronize()
+    _within_one_bf16_ulp(got[1], ref[1])
+    for i in (0, 3):
+        torch.testing.assert_close(got[i], ref[i], rtol=2e-4, atol=1e-5)
+    Sn = got[1].float()
+    dS = Sn - S.float()
+    torch.testing.assert_close(got[2], Sn @ Sn.T, rtol=2e-4, atol=1e-5)
+    torch.testing.assert_close(got[4], torch.sum(dS * dS), rtol=1e-3,
+                               atol=1e-5)
+    torch.testing.assert_close(got[5], torch.sum(Sn * Sn), rtol=2e-4,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("C,K,N", _VWIDE_SHAPES)
+@pytest.mark.parametrize("case", ["zero", "soft_plus_abs", "split_closure"])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("mdt", [torch.float32, torch.bfloat16])
+def test_very_wide_k2_matches_plain_version(dev, C, K, N, case, weighted,
+                                            mdt):
+    A, S, M, V, Y, alpha, sc, W = _adaprox_operands(dev, C, K, N, weighted,
+                                                    mdt)
+    prox = k1.describe_prox(_PROX_CASES[case], "adaprox", True)
+    routes = dict(k1.fused_nmf_adaprox_step.route_launches)
+    got = _twice(lambda: k1.fused_nmf_adaprox_step(
+        A, S, M, V, Y, alpha, sc, W=W, prox_S=prox))
+    ref = k1.fused_nmf_adaprox_step_reference(A, S, M, V, Y, alpha, sc, W=W,
+                                              prox_S=prox)
+    torch.cuda.synchronize()
+    _assert_adaprox_close(got, ref)
+    ran = {r: n - routes[r]
+           for r, n in k1.fused_nmf_adaprox_step.route_launches.items()}
+    want = ({"split pass 1": 2, "split pass 2": 2} if prox.split
+            else {"very wide": 2})
+    assert {r: n for r, n in ran.items() if n} == want
+
+
+@pytest.mark.parametrize("C,K,N", _VWIDE_SHAPES)
+@pytest.mark.parametrize("case", ["soft_plus_abs", "split_closure"])
+def test_very_wide_k2_bf16_store(dev, C, K, N, case):
+    """As test_k2_wide_bf16_store, on the very-wide body; and the
+    device-scalar entry gives the by-value entry's bits."""
+    A, S, M, V, Y, alpha, sc, W = _adaprox_operands(dev, C, K, N, True,
+                                                    torch.bfloat16)
+    bf = torch.bfloat16
+    S, Y, W = S.to(bf), Y.to(bf), W.to(bf)
+    prox = k1.describe_prox(_PROX_CASES[case], "adaprox", True)
+    got = _twice(lambda: k1.fused_nmf_adaprox_step(
+        A, S, M, V, Y, alpha, sc, W=W, prox_S=prox))
+    ref = k1.fused_nmf_adaprox_step_reference(A, S, M, V, Y, alpha, sc, W=W,
+                                              prox_S=prox)
+    dsc = torch.tensor([float(v) for v in sc], dtype=torch.float32,
+                       device=dev)
+    before = k1.fused_nmf_adaprox_step.device_scalar_launches
+    on_card = k1.fused_nmf_adaprox_step(A, S, M, V, Y, alpha, dsc, W=W,
+                                        prox_S=prox)
+    torch.cuda.synchronize()
+    assert k1.fused_nmf_adaprox_step.device_scalar_launches == before + 1
+    for a, b in zip(on_card, got):
+        assert torch.equal(_bits(a), _bits(b))
+    for i in (1, 2, 3):
+        _within_one_bf16_ulp(got[i], ref[i])
+    for i in (0, 5):
+        torch.testing.assert_close(got[i], ref[i], rtol=2e-4, atol=1e-5)
+    Sn = got[1].float()
+    torch.testing.assert_close(got[4], Sn.sum(1, keepdim=True), rtol=2e-4,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("C,K,N", _VWIDE_SHAPES)
+@pytest.mark.parametrize("weighted", [False, True])
+def test_very_wide_k3_matches_plain_version(dev, C, K, N, weighted):
+    A, S, Y, W = _problem(dev, C, K, N, weighted)
+    before = dict(k1.fused_nmf_grad.route_launches)
+    got = _twice(lambda: tops.fused_nmf_grad(A, S, Y, W=W))
+    ref = tops.fused_nmf_grad_reference(A, S, Y, W=W)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=2e-4, atol=1e-5)
+    assert (k1.fused_nmf_grad.route_launches["very wide"]
+            == before["very wide"] + 2)
+
+
+def _offset(t, by):
+    """A contiguous copy of t whose storage starts `by` elements into a
+    buffer: rows no longer 16-byte aligned."""
+    buf = torch.empty(t.numel() + by, dtype=t.dtype, device=t.device)
+    out = buf[by:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("C,K,N,tile_n", [(300, 33, 4097, 1000),
+                                          (425, 32, 1001, 333),
+                                          (64, 40, 2048, 300)])
+@pytest.mark.parametrize("store", [torch.float32, torch.bfloat16])
+def test_very_wide_copy_paths_give_the_same_bits(dev, C, K, N, tile_n,
+                                                 store):
+    """Ragged N, a tile_n that starts groups off 16 bytes and operands at
+    an odd offset take the element copies and W's one-by-one loads instead
+    of the 16-byte ones: the same bits, and the plain version's values."""
+    A, S, Y, W = _problem(dev, C, K, N, weighted=True)
+    S, Y, W = S.to(store), Y.to(store), W.to(store)
+    sS = 1.0 / torch.linalg.eigvalsh(A.T @ A)[-1]
+    prox = _PROX_CASES["unity_plus"]
+    want = k1.fused_nmf_pgm_step(A, S, Y, sS, W=W, prox_S=prox,
+                                 tile_n=tile_n)
+    So, Yo, Wo = (_offset(t, 1) for t in (S, Y, W))
+    got = k1.fused_nmf_pgm_step(A, So, Yo, sS, W=Wo, prox_S=prox,
+                                tile_n=tile_n)
+    g_want = tops.fused_nmf_grad(A, S.float(), Y.float(), W=W.float(),
+                                 tile_n=tile_n)
+    g_got = tops.fused_nmf_grad(A, _offset(S.float(), 1),
+                                _offset(Y.float(), 3), W=_offset(W.float(), 2),
+                                tile_n=tile_n)
+    torch.cuda.synchronize()
+    for a, b in zip(got + g_got, want + g_want):
+        assert torch.equal(_bits(a), _bits(b))
+    if store == torch.float32:
+        _assert_step_close(got, k1.fused_nmf_pgm_step_reference(
+            A, S, Y, sS, W=W, prox_S=prox))
+
+
+def test_very_wide_split_passes_equal_their_ops(dev):
+    """The registered ops of the chain and of the split passes launch the
+    very-wide body, bit for bit with the wrappers."""
+    A, S, Y, W = _problem(dev, 300, 33, 3000, weighted=True)
+    sS = 1.0 / torch.linalg.eigvalsh(A.T @ A)[-1]
+    ops = torch.ops.proxmin_torch
+    for case in ("chain", "split_closure"):
+        prox = k1.describe_prox(_PROX_CASES[case])
+        want = k1.fused_nmf_pgm_step(A, S, Y, sS, W=W, prox_S=prox)
+        if prox.split:
+            X, gA, loss = ops.fused_nmf_pgm_pass1(A, S, Y, sS, W, 4096)
+            P = prox(X, sS).to(torch.float32)
+            S_new, SSt, norms = ops.fused_nmf_pgm_pass2(S, P, 4096)
+            got = (gA, S_new, SSt, loss, norms[0], norms[1])
+        else:
+            gA, S_new, SSt, st = ops.fused_nmf_pgm_step(
+                A, S, Y, sS, W, *prox.op_args(), 4096)
+            got = (gA, S_new, SSt, st[0], st[1], st[2])
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(_bits(a), _bits(b))
+    got = ops.fused_nmf_grad(A, S, Y, W, 4096)
+    want = tops.fused_nmf_grad(A, S, Y, W=W)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("case", ["chain", "split_closure"])
@@ -1139,11 +1459,14 @@ def test_bf16_store_kernel_refuses_mixed_stores(dev):
 # K5: packed_step
 
 @pytest.mark.parametrize("C,K,N", [(5, 7, 1000), (8, 4, 4133), (1, 1, 5),
-                                   (3, 2, 10000)])
+                                   (3, 2, 10000), (9, 9, 1000),
+                                   (16, 12, 300), (300, 40, 1001)])
 @pytest.mark.parametrize("layout", ["smv", "mv"])
 @pytest.mark.parametrize("tile_n", [128, k1.DEFAULT_TILE_N])
 def test_packed_kernel_matches_plain_version_and_k2(dev, C, K, N, layout,
                                                     tile_n):
+    """Beyond C, K <= 8 (K2's wide and very-wide bodies on the packed
+    arrays' row blocks) as within: K2's bits and the plain version."""
     mdt = torch.float32 if layout == "smv" else torch.bfloat16
     A, S, M, V, Y, alpha, sc, _ = _adaprox_operands(dev, C, K, N, mdt=mdt)
     if layout == "smv":
@@ -1151,8 +1474,11 @@ def test_packed_kernel_matches_plain_version_and_k2(dev, C, K, N, layout,
     else:
         args, kw = (A, S, Y, alpha, sc), {"MV": torch.cat([M, V])}
     before = sm.packed_step.launches
+    route = "packed" if C <= 8 and K <= 8 else k1.tier(C, K)
+    routes = sm.packed_step.route_launches[route]
     got = sm.packed_step(*args, tile_n=tile_n, **kw)
     assert sm.packed_step.launches == before + 1
+    assert sm.packed_step.route_launches[route] == routes + 1
     ref = sm.packed_step_reference(*args, **kw)
     base = k1.fused_nmf_adaprox_step(A, S, M, V, Y, alpha, sc,
                                      tile_n=tile_n)
@@ -1181,6 +1507,7 @@ def test_packed_kernel_matches_plain_version_and_k2(dev, C, K, N, layout,
 
 
 def test_packed_kernel_refuses_what_it_cannot_run(dev):
+    """The wrong layouts raise; C = 9 runs (K2's wide body) as K2 does."""
     A, S, M, V, Y, alpha, sc, _ = _adaprox_operands(dev, 5, 3, 1000)
     with pytest.raises(ValueError):
         sm.packed_step(A, S, Y, alpha, sc)                  # not (3K, N)
@@ -1188,8 +1515,11 @@ def test_packed_kernel_refuses_what_it_cannot_run(dev):
         sm.packed_step(A, S, Y, alpha, sc, MV=torch.cat([M, V]))  # f32 MV
     A9 = torch.rand((9, 3), device=dev)
     Y9 = torch.rand((9, 1000), device=dev)
-    with pytest.raises(ValueError):
-        sm.packed_step(A9, torch.cat([S, M, V]), Y9, alpha, sc)
+    got = sm.packed_step(A9, torch.cat([S, M, V]), Y9, alpha, sc)
+    base = k1.fused_nmf_adaprox_step(A9, S, M, V, Y9, alpha, sc)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], torch.cat(base[1:4]))
+    assert torch.equal(got[0], base[0])
 
 
 def test_stream_merge_loops_on_the_card(dev):

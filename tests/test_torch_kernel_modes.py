@@ -6,8 +6,9 @@ kernels, and the prox descriptor.
   compiled codes, and everything else to the split path.
 - K1's, K2's and K3's plain versions (each code, the split path, the wide
   shapes C=40, K=12, N=700 and C=100, K=3, N=50, examples/unmixing.py's,
-  and the wide body's tile edges EDGE_SHAPES, at which
-  tests/test_torch_cuda.py runs the kernels) against the Pallas kernels in
+  the wide body's tile edges EDGE_SHAPES and the very-wide body's shapes
+  VWIDE_SHAPES, at which tests/test_torch_cuda.py runs the kernels)
+  against the Pallas kernels in
   interpret mode on the same seeded NumPy inputs, as
   tests/test_pallas_ops.py runs them on the CPU.
 - ``nmf(engine="cuda", device="cpu")`` against JAX's ``engine="pallas"``
@@ -114,6 +115,13 @@ EDGE_SHAPES = [(17, 9, 1), (31, 17, 3), (32, 31, 5), (33, 32, 255),
                (40, 12, 16_700), (40, 12, 38_430), (40, 20, 70_000)]
 EDGE_NAMES = ("unity_plus", "soft_plus", "split_closure")
 EDGE_K2 = ("soft_plus", "min_abs", "split_closure")
+# The very-wide body's shapes (C > 256 or K > 32; tests/test_torch_cuda.py
+# runs the kernels at the same shapes): across the bounds C = 256 and
+# K = 32, one and two component blocks of 32 (K = 33, 64), ragged N, and
+# AVIRIS-NG's 425 channels; each with EDGE_NAMES' and EDGE_K2's cases.
+VWIDE_SHAPES = [(257, 3, 300), (300, 33, 257), (425, 32, 1000),
+                (64, 33, 4097), (17, 64, 255), (128, 64, 500),
+                (600, 8, 129)]
 
 
 def _shape_id(shape):
@@ -280,11 +288,13 @@ def test_chain_equals_its_operators(name):
 
 @pytest.mark.parametrize("name,shape", [
     *((name, (40, 12, 700)) for name in sorted(PROXES)),
-    *((name, shape) for shape in EDGE_SHAPES for name in EDGE_NAMES)],
+    *((name, shape) for shape in EDGE_SHAPES + VWIDE_SHAPES
+      for name in EDGE_NAMES)],
     ids=lambda v: v if isinstance(v, str) else _shape_id(v))
 def test_k1_codes_against_jax_wide(name, shape, fma):
     """Every code (and the split path) at C=40, K=12, N=700 (unaligned);
-    three of them at each of the wide body's tile edges."""
+    three of them at each of the wide body's tile edges and the very-wide
+    body's shapes."""
     A, S, Y, W = _problem(*shape, weighted=True)
     sS = 0.8 / float(np.linalg.eigvalsh(A.T @ A)[-1])
     want = _jax_k1(A, S, Y, W, sS, PROXES[name](pt.operators))
@@ -378,12 +388,13 @@ def _jax_k2(A, S, M, V, Y, W, alpha, sc, prox):
 
 @pytest.mark.parametrize("name,shape", [
     *((name, (40, 12, 700)) for name in SEPARABLE + ("split_closure",)),
-    *((name, shape) for shape in EDGE_SHAPES for name in EDGE_K2)],
+    *((name, shape) for shape in EDGE_SHAPES + VWIDE_SHAPES
+      for name in EDGE_K2)],
     ids=lambda v: v if isinstance(v, str) else _shape_id(v))
 def test_k2_codes_against_jax_wide(name, shape, fma):
     """Every separable code with the per-element step alpha / Psi, and the
     split path, at C=40, K=12, N=700 with W; three of them at each of the
-    wide body's tile edges."""
+    wide body's tile edges and the very-wide body's shapes."""
     A, S, M, V, Y, W, alpha, sc = _k2_inputs(*shape, weighted=True)
     want = _jax_k2(A, S, M, V, Y, W, alpha, sc, PROXES[name](pt.operators))
     got = kk.fused_nmf_adaprox_step(
@@ -410,7 +421,8 @@ def test_k2_flagship_and_unmixing_shapes(C, K, N, fma):
 # K3
 
 @pytest.mark.parametrize("C,K,N", [(40, 12, 700), (100, 3, 50),
-                                   (128, 32, 300), *EDGE_SHAPES])
+                                   (128, 32, 300), *EDGE_SHAPES,
+                                   *VWIDE_SHAPES])
 @pytest.mark.parametrize("weighted", [False, True])
 def test_k3_wide_against_jax(C, K, N, weighted, fma):
     A, S, Y, W = _problem(C, K, N, weighted)
@@ -488,11 +500,18 @@ def test_pixel_coupled_prox_is_applied_to_the_whole_s():
 
 
 def test_cuda_refusal_names_the_ceiling():
-    """Beyond C = 256 or K = 32 the CUDA wrappers raise, naming the ROADMAP
-    entry that owes them; the check comes before any launch."""
-    for C, K in ((257, 3), (4, 33)):
-        with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
-            kk._covered("fused_nmf_pgm_step", C, K)
-    assert kk._covered("fused_nmf_grad", 16, 8)
-    assert not kk._covered("fused_nmf_grad", 17, 8)
-    assert not kk._covered("fused_nmf_grad", 256, 32)
+    """No width is refused any more: every C >= 1, K >= 1 has its tier of
+    instances, the narrow ones up to C = 16, K = 8, the wide body up to
+    C = WIDE_C = 256, K = WIDE_K = 32, the very-wide body beyond, with no
+    upper bound (the C side picks the same, nmf_*_partials_width)."""
+    assert kk.tier(1, 1) == kk.tier(16, 8) == "narrow"
+    for C, K in ((17, 8), (16, 9), (256, 32), (1, 32), (256, 1)):
+        assert kk.tier(C, K) == "wide"
+    for C, K in ((257, 3), (4, 33), (425, 32), (128, 64), (257, 33),
+                 (100_000, 1), (1, 1_000)):
+        assert kk.tier(C, K) == "very wide"
+    assert (kk.WIDE_C, kk.WIDE_K) == (256, 32)
+    # the route a step on the wide or very-wide body counts in, also where
+    # K2 runs a narrow shape's chain on the wide body
+    assert kk._wide_route(5, 7) == kk._wide_route(256, 32) == "wide"
+    assert kk._wide_route(257, 3) == kk._wide_route(4, 33) == "very wide"

@@ -112,11 +112,19 @@ def test_adaprox_separable_ok_matches_jax(case, mode):
                 == pt.nmf._adaprox_separable_ok(*pj, mode))
 
 
-def test_kernels_cover():
-    assert tnmf._kernels_cover(256, 32)
-    assert tnmf._kernels_cover(1, 1)
-    assert not tnmf._kernels_cover(257, 8)
-    assert not tnmf._kernels_cover(64, 33)
+def test_kernels_cover(routes):
+    """The kernels take every (C, K) since the very-wide body: auto has no
+    width gate, and routes a shape past C = 256 or K = 32 by the table's
+    rows for the very-wide shapes swept on the card, as it routes any
+    other."""
+    for C, K in ((300, 8), (425, 32), (128, 64)):
+        assert (C, K) in tnmf._H100_REGIONS["pgm-exact"]
+        for N in (100_000, 1_000_000):
+            want = "cuda" if tnmf._unweighted_fused_wins(C, K, N) else "torch"
+            assert _route(routes, C, K, N) == f"pgm {want}"
+            want = "cuda" if tnmf._adaprox_fused_wins(C, K, N) else "torch"
+            assert _route(routes, C, K, N, algorithm="adaprox") == (
+                f"adaprox {want}")
 
 
 # -------------------------------------------------------------------------
@@ -230,18 +238,27 @@ def test_decisions_at_named_shapes(routes):
 
 
 def test_beyond_the_kernels_routes_to_torch(routes):
-    """C = 257 or K = 33: the kernels refuse them, so auto runs torch, for
-    every path and at any N, without a ValueError."""
+    """C = 257 and K = 33, once beyond the kernels, route by the table's
+    very-wide rows that cover them ((300, 8) and (128, 64)) on every path
+    and at any N, and the kernels' opt-ins (tile_n, bfloat16 moments) go
+    to cuda there as anywhere; a shape past every swept row runs torch."""
     for C, K in ((257, 8), (64, 33)):
         for N in (10_000, 10_000_000):
-            assert _route(routes, C, K, N) == "pgm torch"
-            assert _route(routes, C, K, N, step_stride=10) == "pgm torch"
-            assert _route(routes, C, K, N, algorithm="adaprox") == (
-                "adaprox torch")
+            for path, (kw, algorithm) in _REGION_KW.items():
+                extra = dict(kw)
+                if extra.get("W") == "W":
+                    extra["W"] = _weights(C, N)
+                want = ("cuda" if tnmf._cuda_wins(path, C, K, N)
+                        else "torch")
+                assert _route(routes, C, K, N, **extra) == (
+                    f"{algorithm} {want}")
             assert _route(routes, C, K, N, algorithm="adaprox",
-                          moment_dtype=torch.bfloat16) == "adaprox torch"
-        with pytest.raises(ValueError, match="cuda-engine options"):
-            tnmf.nmf(*_shape_only(C, K, 100), engine="auto", tile_n=128)
+                          moment_dtype=torch.bfloat16) == "adaprox cuda"
+        assert _route(routes, C, K, 100, tile_n=128) == "pgm cuda"
+    for C, K in ((600, 8), (128, 65), (426, 32)):
+        assert _route(routes, C, K, 10_000_000) == "pgm torch"
+        assert _route(routes, C, K, 10_000_000, algorithm="adaprox") == (
+            "adaprox torch")
 
 
 def test_opt_ins_route_to_the_kernels(routes):

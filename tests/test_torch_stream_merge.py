@@ -26,7 +26,7 @@ from proxmin_tpu_torch.ops import nmf_kernels as kk
 from proxmin_tpu_torch.ops import stream_merge as sm
 
 REPO = Path(__file__).resolve().parents[1]
-TILE, P = 128, 8
+TILE = 128
 SMV_TOL = dict(rtol=1e-6, atol=1e-7)
 
 
@@ -66,6 +66,11 @@ def _pad(x, rows, cols):
     return np.pad(x, ((0, rows - x.shape[0]), (0, cols - x.shape[1])))
 
 
+def _sublanes(n):
+    """n padded to the TPU kernel's sublane of 8 (the benchmark's Cp, Kp)."""
+    return -(-n // 8) * 8
+
+
 def _bf16_ulp_close(got, want, atol):
     _, e = np.frexp(want)
     ulp = np.maximum(np.ldexp(1.0, e - 8), 2.0 ** -133)
@@ -76,14 +81,18 @@ def _t(*arrays):
     return tuple(torch.from_numpy(np.array(a)) for a in arrays)
 
 
-@pytest.mark.parametrize("C,K,N", [(5, 4, 300), (6, 3, 1024), (1, 1, 130)])
+@pytest.mark.parametrize("C,K,N", [(5, 4, 300), (6, 3, 1024), (1, 1, 130),
+                                   (9, 9, 1000), (16, 12, 300)])
 def test_smv_plain_matches_pallas(jsm, C, K, N):
+    """Within C, K <= 8 (the packed kernel on the card) and beyond (K2's
+    wide body on the packed arrays' row blocks)."""
     A, S, Y, M, V, alpha, sc = _operands(C, K, N)
     Np = -(-N // TILE) * TILE
+    Cp, P = _sublanes(C), _sublanes(K)
     SMV_p = np.concatenate([_pad(x, P, Np) for x in (S, M, V)])
     gA_j, SMV1_j, rs_j, st_j = jsm.packed_step(
-        jnp.asarray(_pad(A, P, P)), jnp.asarray(SMV_p),
-        jnp.asarray(_pad(Y, P, Np)), jnp.asarray(_pad(alpha, P, 1)),
+        jnp.asarray(_pad(A, Cp, P)), jnp.asarray(SMV_p),
+        jnp.asarray(_pad(Y, Cp, Np)), jnp.asarray(_pad(alpha, P, 1)),
         jnp.asarray(sc, jnp.float32), tile_n=TILE, interpret=True)
     SMV1_j = np.asarray(SMV1_j)
     At, St, Yt, Mt, Vt, alt = _t(A, S, Y, M, V, alpha)
@@ -99,17 +108,19 @@ def test_smv_plain_matches_pallas(jsm, C, K, N):
     np.testing.assert_allclose(st.numpy(), np.asarray(st_j), rtol=1e-5)
 
 
-@pytest.mark.parametrize("C,K,N", [(5, 4, 300), (6, 3, 1024)])
+@pytest.mark.parametrize("C,K,N", [(5, 4, 300), (6, 3, 1024), (9, 9, 1000),
+                                   (16, 12, 300)])
 def test_mv_plain_matches_pallas(jsm, C, K, N):
     A, S, Y, M, V, alpha, sc = _operands(C, K, N)
     Np = -(-N // TILE) * TILE
+    Cp, P = _sublanes(C), _sublanes(K)
     bf = jnp.bfloat16
     Mb, Vb = jnp.asarray(M, bf), jnp.asarray(V, bf)
     MV_p = jnp.concatenate([jnp.asarray(_pad(np.asarray(x, np.float32), P,
                                              Np), bf) for x in (Mb, Vb)])
     gA_j, S1_j, MV1_j, rs_j, st_j = jsm.packed_step(
-        jnp.asarray(_pad(A, P, P)), jnp.asarray(_pad(S, P, Np)),
-        jnp.asarray(_pad(Y, P, Np)), jnp.asarray(_pad(alpha, P, 1)),
+        jnp.asarray(_pad(A, Cp, P)), jnp.asarray(_pad(S, P, Np)),
+        jnp.asarray(_pad(Y, Cp, Np)), jnp.asarray(_pad(alpha, P, 1)),
         jnp.asarray(sc, jnp.float32), MV=MV_p, tile_n=TILE, interpret=True)
     MV1_j = np.asarray(MV1_j.astype(jnp.float32))
     At, St, Yt, alt = _t(A, S, Y, alpha)
@@ -129,19 +140,20 @@ def test_mv_plain_matches_pallas(jsm, C, K, N):
 
 
 @pytest.mark.parametrize("mdt", [torch.float32, torch.bfloat16])
-def test_packed_plain_equals_k2_plain(mdt):
-    A, S, Y, M, V, alpha, sc = _operands(5, 4, 700)
+@pytest.mark.parametrize("C,K", [(5, 4), (16, 12)])
+def test_packed_plain_equals_k2_plain(mdt, C, K):
+    A, S, Y, M, V, alpha, sc = _operands(C, K, 700)
     At, St, Yt, Mt, Vt, alt = _t(A, S, Y, M, V, alpha)
     Mt, Vt = Mt.to(mdt), Vt.to(mdt)
     want = kk.fused_nmf_adaprox_step(At, St, Mt, Vt, Yt, alt, sc)
     if mdt == torch.float32:
         gA, SMV1, rs, st = sm.packed_step(At, torch.cat([St, Mt, Vt]), Yt,
                                           alt, sc)
-        S1, M1, V1 = SMV1[:4], SMV1[4:8], SMV1[8:]
+        S1, M1, V1 = SMV1[:K], SMV1[K:2 * K], SMV1[2 * K:]
     else:
         gA, S1, MV1, rs, st = sm.packed_step(At, St, Yt, alt, sc,
                                              MV=torch.cat([Mt, Vt]))
-        M1, V1 = MV1[:4], MV1[4:]
+        M1, V1 = MV1[:K], MV1[K:]
     for got, w in zip((gA, S1, M1, V1, rs, st[0], st[1], st[2]), want):
         assert torch.equal(got, w)
 

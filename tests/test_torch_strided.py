@@ -195,3 +195,26 @@ def test_resume_mid_segment_and_on_a_boundary(split, adapt):
         assert torch.equal(a, b)
     assert p_rest.state["stepper_state"][2:] == p_full.state[
         "stepper_state"][2:]
+
+
+def test_unweighted_stride10_overshoot_is_copied_from_jax():
+    """Unweighted step_stride=10 from a random start (chip_smoke.py's
+    make_problem at C=5, K=7, N=10_000, seed 101): a frozen step overshoots
+    in both packages alike, the prox zeroes both factors, and both solves
+    stop at the same iteration at that exact fixed point. The port copies
+    the reference here (ROADMAP Queue 3)."""
+    C, K, N = 5, 7, 10_000
+    rng = np.random.default_rng(101)
+    A_true = rng.random((C, K)).astype(np.float32)
+    S_true = rng.random((K, N)).astype(np.float32)
+    Y = (A_true @ S_true
+         + 0.02 * rng.standard_normal((C, N))).astype(np.float32)
+    A0 = rng.random((C, K)).astype(np.float32)
+    S0 = rng.random((K, N)).astype(np.float32)
+    kw = dict(e_rel=0, max_iter=60, step_stride=10)
+    jr = pt.nmf.nmf(Y, A0.copy(), S0.copy(), engine="xla", **kw)
+    tr = ptt.nmf.nmf(Y, A0.copy(), S0.copy(), engine="torch", device="cpu",
+                     **kw)
+    assert tr.iterations == jr.iterations < 60
+    for j, t in zip(jr.x, tr.x):
+        assert not np.asarray(j).any() and not bool(t.any())

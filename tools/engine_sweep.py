@@ -3,6 +3,7 @@ marginal ms per iteration of the ``torch`` and ``cuda`` engines over factor
 shapes, pixel counts and solver paths, on one CUDA card.
 
     python3 tools/engine_sweep.py [--out FILE] [--budget SECONDS]
+                                  [--shapes C,K ...] [--ns N ...]
     python3 tools/engine_sweep.py --table FILE
 
 Each point is one (C, K, N) and one path, solved through
@@ -27,9 +28,9 @@ The paths (``chip_smoke.ROUTE_PATHS``): PGM unweighted exact; unweighted
 ``step_stride=10, step_adapt=True``; weighted stride 10 with the bfloat16
 store on the cuda engine (the torch engine has no store option: it runs
 the same solve in float32); AdaProx with float32 moments and
-``separable_prox="auto"``; AdaProx with bfloat16 moments. Two points lie
-beyond the kernels (C = 257, K = 33): the cuda engine refuses them, and
-only the torch engine is timed.
+``separable_prox="auto"``; AdaProx with bfloat16 moments. The grid is
+``SHAPES`` at every N of ``NS`` and the very-wide body's ``VWIDE_SHAPES``
+at ``VWIDE_NS``; ``--shapes`` and ``--ns`` take a part of it.
 
 Prints the card's name and power limit, then one JSON line per point
 (also appended to ``--out``), then a summary line. Points are taken in
@@ -63,8 +64,10 @@ PAIRS = 3
 PROF_LO, PROF_HI = 20, 60
 SHAPES = ((5, 7), (16, 8), (32, 16), (64, 16), (128, 32), (256, 32))
 NS = (10_000, 100_000, 1_000_000, 10_000_000)
-#: (C, K, N) points the kernels do not cover.
-BEYOND = ((257, 8, 1_000_000), (64, 33, 1_000_000))
+#: The very-wide body's shapes (C > 256 or K > 32): past C = 256 with few
+#: components, AVIRIS-NG's 425 channels, two component blocks.
+VWIDE_SHAPES = ((300, 8), (425, 32), (128, 64))
+VWIDE_NS = (100_000, 1_000_000)
 #: Left out: the torch engine alone would take minutes a point.
 DROP = ((128, 32, 10_000_000), (256, 32, 10_000_000))
 
@@ -133,9 +136,10 @@ def measure(solves, pairs, lo=LO, hi=HI):
     return out
 
 
-def point(tnmf, top, problem, path, engines=("torch", "cuda")):
+def point(tnmf, top, problem, path):
     C, K = problem[1].shape
     N = problem[2].shape[1]
+    engines = ("torch", "cuda")
     solves = {e: cs.route_solver(tnmf, top, problem, path, e)
               for e in engines}
     res = measure(solves, PAIRS)
@@ -147,9 +151,8 @@ def point(tnmf, top, problem, path, engines=("torch", "cuda")):
         row[f"{e}_busy_us"] = busy / (PROF_HI - PROF_LO)
         row[f"{e}_iterations"] = res[e]["iterations"]
     row["valid"] = all(res[e]["iterations"] == HI for e in engines)
-    if len(engines) == 2:
-        row["winner"] = min(engines, key=lambda e: row[f"{e}_ms"])
-        row["torch_over_cuda"] = row["torch_ms"] / row["cuda_ms"]
+    row["winner"] = min(engines, key=lambda e: row[f"{e}_ms"])
+    row["torch_over_cuda"] = row["torch_ms"] / row["cuda_ms"]
     return row
 
 
@@ -212,8 +215,8 @@ def table_main(path):
     """Print the routing regions of a sweep's JSONL, then every point as
     Markdown rows, one per path and N: for each (C, K), the torch and cuda
     engines' marginal ms/iter and busy µs/iter, and the verdict (``cuda``,
-    ``torch``, ``tie``; ``stopped`` for a solve that ended early), then the
-    points beyond the kernels. No card needed."""
+    ``torch``, ``tie``; ``stopped`` for a solve that ended early). No card
+    needed."""
     rows = [json.loads(line) for line in open(path) if line.strip()]
     rows = [r for r in rows if "path" in r]
     for p, t in regions(rows).items():
@@ -235,12 +238,18 @@ def table_main(path):
                                        kv[0][0]), kv[0][1])):
         print(f"| {p} | {n:.0e} | "
               + " | ".join(by_shape.get(ck, "-") for ck in shapes) + " |")
-    for r in rows:
-        if "cuda_ms" not in r:
-            print(f"{r['path']} at ({r['C']}, {r['K']}, {r['N']}): torch "
-                  f"{r['torch_ms']:.4f} ms/iter ({r['torch_busy_us']:.0f} "
-                  f"us), cuda refused: {r.get('cuda_refused')}")
     return 0
+
+
+def grid(shapes=None, ns=None):
+    """The sweep's (C, K, N) points in the order they are taken: by N, then
+    by shape; ``shapes`` and ``ns`` keep a part of the grid."""
+    pts = [(c, k, n) for c, k in SHAPES for n in NS]
+    pts += [(c, k, n) for c, k in VWIDE_SHAPES for n in VWIDE_NS]
+    pts = [p for p in pts if p not in DROP
+           and (shapes is None or p[:2] in shapes)
+           and (ns is None or p[2] in ns)]
+    return sorted(pts, key=lambda p: (p[2], pts.index(p)))
 
 
 def main(argv=None):
@@ -252,6 +261,10 @@ def main(argv=None):
     ap.add_argument("--table", metavar="JSONL", default=None,
                     help="print the routing regions of a finished sweep "
                          "(no card needed) and exit")
+    ap.add_argument("--shapes", nargs="+", default=None, metavar="C,K",
+                    help="sweep only these (C, K) of the grid")
+    ap.add_argument("--ns", nargs="+", type=int, default=None, metavar="N",
+                    help="sweep only these N of the grid")
     args = ap.parse_args(argv)
     if args.table:
         return table_main(args.table)
@@ -283,34 +296,19 @@ def main(argv=None):
             out.write(line + "\n")
             out.flush()
 
+    shapes = (None if args.shapes is None else
+              {tuple(int(v) for v in s.split(",")) for s in args.shapes})
     n_points = 0
-    for N in NS:
-        for C, K in SHAPES:
-            if (C, K, N) in DROP:
-                continue
-            if time.perf_counter() - t_start > args.budget:
-                dropped += [{"C": C, "K": K, "N": N, "why": "budget"}]
-                continue
-            t0 = time.perf_counter()
-            problem = cs.route_problem(C, K, N)
-            setup = time.perf_counter() - t0
-            for path in cs.ROUTE_PATHS:
-                row = point(tnmf, top, problem, path)
-                row["setup_s"] = setup
-                emit(row)
-                n_points += 1
-            del problem
-            torch.cuda.empty_cache()
-    for C, K, N in BEYOND:
+    for C, K, N in grid(shapes, args.ns):
+        if time.perf_counter() - t_start > args.budget:
+            dropped += [{"C": C, "K": K, "N": N, "why": "budget"}]
+            continue
+        t0 = time.perf_counter()
         problem = cs.route_problem(C, K, N)
-        try:
-            tnmf.nmf(*problem[:3], engine="cuda", max_iter=1, e_rel=0.0)
-            refused = None
-        except ValueError as exc:
-            refused = str(exc)
-        for path in ("pgm-exact", "adaprox-f32"):
-            row = point(tnmf, top, problem, path, engines=("torch",))
-            row["cuda_refused"] = refused
+        setup = time.perf_counter() - t0
+        for path in cs.ROUTE_PATHS:
+            row = point(tnmf, top, problem, path)
+            row["setup_s"] = setup
             emit(row)
             n_points += 1
         del problem

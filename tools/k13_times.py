@@ -16,9 +16,9 @@ identity), and K2's wide body at the flagship with the same threshold,
 without and with W.
 Each case is timed as ``chip_smoke.py`` times it, the least of two
 ``chip_smoke.cuda_ms`` means (20 calls; 10 with ``--wide``). Prints one
-JSON object ``{"label": ..., "ms": {case: ms}}``; with ``--wide`` also
-``"sha256": {case: [digest of each output's bytes]}``, so that two
-checkouts' outputs can be compared bit for bit.
+JSON object ``{"label": ..., "ms": {case: ms}, "sha256": {case: [digest
+of each output's bytes]}}``, so that two checkouts' outputs can be
+compared bit for bit.
 """
 
 import argparse
@@ -145,16 +145,16 @@ def main():
         cases = wide_cases(cs, kk, nmf, operators)
         out["ms"] = {case: min(cs.cuda_ms(fn, reps=10) for _ in range(2))
                      for case, fn in cases.items()}
-        out["sha256"] = {}
-        for case, fn in cases.items():
-            got = fn()
-            got = got if isinstance(got, tuple) else (got,)
-            out["sha256"][case] = [digest(g) for g in got
-                                   if isinstance(g, torch.Tensor)]
     else:
         cases = flagship_cases(cs, kk, operators)
         out["ms"] = {case: min(cs.cuda_ms(fn) for _ in range(2))
                      for case, fn in cases.items()}
+    out["sha256"] = {}
+    for case, fn in cases.items():
+        got = fn()
+        got = got if isinstance(got, tuple) else (got,)
+        out["sha256"][case] = [digest(g) for g in got
+                               if isinstance(g, torch.Tensor)]
     print(json.dumps(out))
     return 0
 
