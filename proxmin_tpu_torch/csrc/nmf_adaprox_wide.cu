@@ -1,8 +1,9 @@
 // K2 on the wide body (wide_pass.cuh): one S-side AdaProx (proximal Adam,
 // scheme "adam") iteration for C up to 256 channels and K up to 32
 // components, and the two passes of the split path; beyond either bound,
-// for any C and K, on the very-wide body (vwide_pass.cuh), every mode,
-// store and moment type, and the device-scalar entry.
+// for any C and K, on the very-wide tier (vwide_pass.cuh: the wide body's
+// VW instances to K = 32, its own body beyond), every mode, store and
+// moment type, and the device-scalar entry.
 //
 // Replaces, beyond the narrow instances of nmf_adaprox_step.cu (C <= 16,
 // K <= 8), the Pallas TPU kernel proxmin_tpu/ops/nmf_kernels.py:525
@@ -48,15 +49,27 @@ namespace {
 
 using wide::Args;
 
+// Built twice (ops/_build.py): as nmf_adaprox_wide with the wide body's
+// instances (C <= 256 and K <= 32, and the second pass to K = 32 at any
+// C), and with VERY_WIDE defined as nmf_adaprox_vwide with the very-wide
+// tier's, so that the two halves compile side by side. Each library
+// refuses the other's shapes (cudaErrorInvalidValue); the wrapper picks
+// the library by ops.nmf_kernels.tier.
+#ifdef VERY_WIDE
+constexpr bool kVeryWide = true;
+#else
+constexpr bool kVeryWide = false;
+#endif
+
 // Built for two blocks of 8 warps per SM (at most 128 registers a thread)
-// where KB = 8 or the pass has no residual, else for one (up to 255):
-// wide::blocks_per_sm.
-template <int KB, typename ST, typename MT, int MODE>
+// where KB = 8 or the pass has no residual, else, and for the very-wide
+// instances (VW), for one (up to 255): wide::blocks_per_sm.
+template <int KB, typename ST, typename MT, int MODE, bool VW>
 __global__ void __launch_bounds__(wide::kThreads,
-                                  wide::blocks_per_sm(KB, MODE))
+                                  wide::blocks_per_sm(KB, MODE, VW))
 adaprox_wide_kernel(Args<ST, MT> a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  wide::body<KB, ST, MT, MODE>(a, smem);
+  wide::body<KB, ST, MT, MODE, VW>(a, smem);
 }
 
 __global__ void __launch_bounds__(wide::kFinThreads)
@@ -67,10 +80,10 @@ adaprox_wide_finalize(const float* __restrict__ partials, long long rows,
   wide::finalize(partials, rows, e, half_first, gA, rowsum, stats);
 }
 
-// The very-wide body (vwide_pass.cuh): one block per SM, up to 255
-// registers.
+// The very-wide body beyond K = 32 (vwide_pass.cuh): one block per SM, up
+// to 255 registers, with a residual; two for the second pass.
 template <typename ST, typename MT, int MODE>
-__global__ void __launch_bounds__(wide::kThreads, 1)
+__global__ void __launch_bounds__(wide::kThreads, vwide::blocks_per_sm(MODE))
 adaprox_vwide_kernel(Args<ST, MT> a) {
   extern __shared__ __align__(128) unsigned char smem[];
   vwide::body<ST, MT, MODE>(a, smem);
@@ -85,34 +98,52 @@ int launch_vwide(const Args<ST, MT>& args, float* gA, float* rowsum,
                                      rowsum, stats, stream);
 }
 
-template <int KB, typename ST, typename MT, int MODE>
+template <int KB, typename ST, typename MT, int MODE, bool VW = false>
 int launch_mode(const Args<ST, MT>& args, float* gA, float* rowsum,
                 float* stats, cudaStream_t stream) {
   static wide::LaunchCache cache;
-  return wide::launch<KB, ST, MT, MODE>(adaprox_wide_kernel<KB, ST, MT, MODE>,
-                                        adaprox_wide_finalize, cache, args,
-                                        gA, rowsum, stats, stream);
+  return wide::launch<KB, ST, MT, MODE, VW>(
+      adaprox_wide_kernel<KB, ST, MT, MODE, VW>, adaprox_wide_finalize, cache,
+      args, gA, rowsum, stats, stream);
+}
+
+// VW: the very-wide instances (C > 256).
+template <int KB, typename ST, typename MT, bool VW>
+int launch_modes(int mode, const Args<ST, MT>& args, float* gA,
+                 float* rowsum, float* stats, cudaStream_t stream) {
+  if (mode == 0)
+    return launch_mode<KB, ST, MT, wide::kAda, VW>(args, gA, rowsum, stats,
+                                                   stream);
+  return launch_mode<KB, ST, MT, wide::kAdaPre, VW>(args, gA, rowsum, stats,
+                                                    stream);
 }
 
 template <int KB, typename ST, typename MT>
 int launch_kb(int mode, const Args<ST, MT>& args, float* gA, float* rowsum,
               float* stats, cudaStream_t stream) {
-  if (mode == 0)
-    return launch_mode<KB, ST, MT, wide::kAda>(args, gA, rowsum, stats,
-                                               stream);
-  return launch_mode<KB, ST, MT, wide::kAdaPre>(args, gA, rowsum, stats,
-                                                stream);
+  if (args.C > wide::kMaxC) {
+    if constexpr (kVeryWide)
+      return launch_modes<KB, ST, MT, true>(mode, args, gA, rowsum, stats,
+                                            stream);
+  } else if constexpr (!kVeryWide) {
+    return launch_modes<KB, ST, MT, false>(mode, args, gA, rowsum, stats,
+                                           stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename ST, typename MT>
 int launch_types(int mode, const Args<ST, MT>& args, float* gA,
                  float* rowsum, float* stats, cudaStream_t stream) {
-  if (!vwide::wide_covers(args.C, args.K)) {
-    if (mode == 0)
-      return launch_vwide<ST, MT, wide::kAda>(args, gA, rowsum, stats,
-                                              stream);
-    return launch_vwide<ST, MT, wide::kAdaPre>(args, gA, rowsum, stats,
-                                               stream);
+  if (args.K > wide::kMaxK) {
+    if constexpr (kVeryWide) {
+      if (mode == 0)
+        return launch_vwide<ST, MT, wide::kAda>(args, gA, rowsum, stats,
+                                                stream);
+      return launch_vwide<ST, MT, wide::kAdaPre>(args, gA, rowsum, stats,
+                                                 stream);
+    }
+    return (int)cudaErrorInvalidValue;
   }
   switch (wide::kb_for(args.K)) {
     case 8:
@@ -126,27 +157,34 @@ int launch_types(int mode, const Args<ST, MT>& args, float* gA,
   }
 }
 
-// Pass 2 reads no moments: one moment type.
+// Pass 2 reads no moments: one moment type; nor A: the wide instances at
+// any C up to K = 32.
 template <typename ST>
 int launch_post(const Args<ST, float>& args, float* rowsum, float* stats,
                 cudaStream_t stream) {
-  if (!vwide::wide_covers(args.C, args.K))
-    return launch_vwide<ST, float, wide::kAdaPost>(args, nullptr, rowsum,
-                                                   stats, stream);
-  switch (wide::kb_for(args.K)) {
-    case 8:
-      return launch_mode<8, ST, float, wide::kAdaPost>(args, nullptr, rowsum,
-                                                       stats, stream);
-    case 16:
-      return launch_mode<16, ST, float, wide::kAdaPost>(args, nullptr,
-                                                        rowsum, stats,
-                                                        stream);
-    case 32:
-      return launch_mode<32, ST, float, wide::kAdaPost>(args, nullptr,
-                                                        rowsum, stats,
-                                                        stream);
-    default:
-      return (int)cudaErrorInvalidValue;
+  if constexpr (kVeryWide) {
+    if (args.K > wide::kMaxK)
+      return launch_vwide<ST, float, wide::kAdaPost>(args, nullptr, rowsum,
+                                                     stats, stream);
+    return (int)cudaErrorInvalidValue;
+  } else {
+    if (args.K > wide::kMaxK) return (int)cudaErrorInvalidValue;
+    switch (wide::kb_for(args.K)) {
+      case 8:
+        return launch_mode<8, ST, float, wide::kAdaPost>(args, nullptr,
+                                                         rowsum, stats,
+                                                         stream);
+      case 16:
+        return launch_mode<16, ST, float, wide::kAdaPost>(args, nullptr,
+                                                          rowsum, stats,
+                                                          stream);
+      case 32:
+        return launch_mode<32, ST, float, wide::kAdaPost>(args, nullptr,
+                                                          rowsum, stats,
+                                                          stream);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
   }
 }
 
@@ -160,14 +198,14 @@ extern "C" {
 
 // Floats of one row of the scratch buffer for `mode` (0 the compiled
 // chain, 1 split pass 1, 2 split pass 2) and a (C, K) problem: one group's
-// row of partial sums on the wide body (C <= 256, K <= 32), and with the
-// very-wide body's per-group scratch beside it beyond; -1 for C < 1, K < 1
-// or a width past an int. The caller allocates the scratch buffer as
-// (nmf_adaprox_wide_partials_rows(N, tile_n), width) floats.
+// row of partial sums up to K = 32 (the wide body and its very-wide
+// instances), and with the very-wide body's per-group scratch beside it
+// beyond; -1 for C < 1, K < 1 or a width past an int. The caller allocates
+// the scratch buffer as (nmf_adaprox_wide_partials_rows(N, tile_n), width)
+// floats.
 int nmf_adaprox_wide_partials_width(int mode, int C, int K) {
   if (mode < 0 || mode > 2 || C < 1 || K < 1) return -1;
-  if (vwide::wide_covers(C, K))
-    return wide::entries(mode_of(mode), C, K).total;
+  if (K <= wide::kMaxK) return wide::entries(mode_of(mode), C, K).total;
   const long long w = vwide::width(mode_of(mode), C, K);
   return w > 0x7fffffffLL ? -1 : (int)w;
 }

@@ -32,8 +32,10 @@
 // through shared memory, the products as register tiles over shared-memory
 // tiles; there the float32 FMAs, about 3 C K + K (K + 1) / 2 per column,
 // and the shared memory's delivery of the tiles' operands bound it. Beyond
-// C = 256 or K = 32, for any C and K, the very-wide body (vwide_pass.cuh)
-// runs it.
+// C = 256 or K = 32, for any C and K, the very-wide tier (vwide_pass.cuh:
+// the wide body's VW instances to K = 32, its own body beyond) runs it.
+
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -72,14 +74,14 @@ int launch(const float* A, const float* S, const float* Y, const float* W,
 }
 
 // Built for two blocks of 8 warps per SM (at most 128 registers a thread)
-// where KB = 8 or the pass has no residual, else for one (up to 255):
-// wide::blocks_per_sm.
-template <int KB>
+// where KB = 8, else, and for the very-wide instances (VW: C > 256), for
+// one (up to 255): wide::blocks_per_sm.
+template <int KB, bool VW>
 __global__ void __launch_bounds__(wide::kThreads,
-                                  wide::blocks_per_sm(KB, wide::kGrad))
+                                  wide::blocks_per_sm(KB, wide::kGrad, VW))
 nmf_grad_wide_kernel(wide::Args<float, float> a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  wide::body<KB, float, float, wide::kGrad>(a, smem);
+  wide::body<KB, float, float, wide::kGrad, VW>(a, smem);
 }
 
 __global__ void __launch_bounds__(wide::kFinThreads)
@@ -90,7 +92,7 @@ nmf_grad_wide_finalize(const float* __restrict__ partials, long long rows,
   wide::finalize(partials, rows, e, half_first, gA, gram, loss);
 }
 
-template <int KB>
+template <int KB, bool VW>
 int launch_wide(const float* A, const float* S, const float* Y,
                 const float* W, int C, int K, long long N, long long tile_n,
                 float* gA, float* gS, float* gram, float* loss,
@@ -108,13 +110,13 @@ int launch_wide(const float* A, const float* S, const float* Y,
   args.n_units = wide::unit_count(N, tile_n);
   args.out = gS;
   args.partials = partials;
-  return wide::launch<KB, float, float, wide::kGrad>(
-      nmf_grad_wide_kernel<KB>, nmf_grad_wide_finalize, cache, args, gA,
+  return wide::launch<KB, float, float, wide::kGrad, VW>(
+      nmf_grad_wide_kernel<KB, VW>, nmf_grad_wide_finalize, cache, args, gA,
       gram, loss, stream);
 }
 
-// The very-wide body (vwide_pass.cuh): one block per SM, up to 255
-// registers.
+// The very-wide body beyond K = 32 (vwide_pass.cuh): one block per SM, up
+// to 255 registers.
 __global__ void __launch_bounds__(wide::kThreads, 1)
 nmf_grad_vwide_kernel(wide::Args<float, float> a) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -150,15 +152,15 @@ bool narrow(int C, int K) { return C >= 1 && K >= 1 && C <= 16 && K <= 8; }
 extern "C" {
 
 // Width of one row of the scratch buffer for a (C, K) problem: a row of
-// partial sums, and beyond C = 256 or K = 32 the very-wide body's
-// per-group scratch beside it; -1 for C < 1, K < 1 or a width past an int.
+// partial sums, and beyond K = 32 the very-wide body's per-group scratch
+// beside it; -1 for C < 1, K < 1 or a width past an int.
 // The caller allocates the scratch buffer as
 // (nmf_grad_partials_rows(N, tile_n), width) floats.
 int nmf_grad_partials_width(int C, int K) {
   if (C < 1 || K < 1) return -1;
   if (C <= 8 && K <= 8) return Layout<8, 8, false>::kP;
   if (narrow(C, K)) return Layout<16, 8, false>::kP;
-  if (vwide::wide_covers(C, K)) return wide::entries(wide::kGrad, C, K).total;
+  if (K <= wide::kMaxK) return wide::entries(wide::kGrad, C, K).total;
   const long long w = vwide::width(wide::kGrad, C, K);
   return w > 0x7fffffffLL ? -1 : (int)w;
 }
@@ -200,19 +202,24 @@ int nmf_grad_f32(const void* A, const void* S, const void* Y, const void* W,
   if (narrow(C, K))
     return launch<16, 8>(a, s, y, w, C, K, N, tile_n, ga, gs, g, l, pp, strm);
   if (C < 1 || K < 1) return (int)cudaErrorInvalidValue;
-  if (!vwide::wide_covers(C, K))
+  if (K > wide::kMaxK)
     return launch_vwide(a, s, y, w, C, K, N, tile_n, ga, gs, g, l, pp, strm);
-  switch (wide::kb_for(K)) {
-    case 8:
-      return launch_wide<8>(a, s, y, w, C, K, N, tile_n, ga, gs, g, l, pp,
-                            strm);
-    case 16:
-      return launch_wide<16>(a, s, y, w, C, K, N, tile_n, ga, gs, g, l, pp,
-                             strm);
-    default:
-      return launch_wide<32>(a, s, y, w, C, K, N, tile_n, ga, gs, g, l, pp,
-                             strm);
-  }
+  auto wide_kb = [&](auto vw) {
+    constexpr bool VW = decltype(vw)::value;
+    switch (wide::kb_for(K)) {
+      case 8:
+        return launch_wide<8, VW>(a, s, y, w, C, K, N, tile_n, ga, gs, g, l,
+                                  pp, strm);
+      case 16:
+        return launch_wide<16, VW>(a, s, y, w, C, K, N, tile_n, ga, gs, g, l,
+                                   pp, strm);
+      default:
+        return launch_wide<32, VW>(a, s, y, w, C, K, N, tile_n, ga, gs, g, l,
+                                   pp, strm);
+    }
+  };
+  if (C > wide::kMaxC) return wide_kb(std::true_type{});
+  return wide_kb(std::false_type{});
 }
 
 }  // extern "C"

@@ -1,7 +1,8 @@
 // K1 on the wide body (wide_pass.cuh): one S-side PGM-NMF iteration for C
 // up to 256 channels and K up to 32 components, and the two passes of the
-// split path; beyond either bound, for any C and K, on the very-wide body
-// (vwide_pass.cuh), every mode and both stores.
+// split path; beyond either bound, for any C and K, on the very-wide tier
+// (vwide_pass.cuh: the wide body's VW instances to K = 32, its own body
+// beyond), every mode and both stores.
 //
 // Replaces, beyond the narrow instances of nmf_pgm_step.cu (C <= 16,
 // K <= 8), the Pallas TPU kernel proxmin_tpu/ops/nmf_kernels.py:311
@@ -50,14 +51,14 @@ namespace {
 using wide::Args;
 
 // Built for two blocks of 8 warps per SM (at most 128 registers a thread)
-// where KB = 8 or the pass has no residual, else for one (up to 255):
-// wide::blocks_per_sm.
-template <int KB, typename ST, int MODE>
+// where KB = 8 or the pass has no residual, else, and for the very-wide
+// instances (VW), for one (up to 255): wide::blocks_per_sm.
+template <int KB, typename ST, int MODE, bool VW>
 __global__ void __launch_bounds__(wide::kThreads,
-                                  wide::blocks_per_sm(KB, MODE))
+                                  wide::blocks_per_sm(KB, MODE, VW))
 pgm_wide_kernel(Args<ST, float> a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  wide::body<KB, ST, float, MODE>(a, smem);
+  wide::body<KB, ST, float, MODE, VW>(a, smem);
 }
 
 __global__ void __launch_bounds__(wide::kFinThreads)
@@ -67,10 +68,10 @@ pgm_wide_finalize(const float* __restrict__ partials, long long rows,
   wide::finalize(partials, rows, e, half_first, gA, gram, stats);
 }
 
-// The very-wide body (vwide_pass.cuh): one block per SM, up to 255
-// registers.
+// The very-wide body beyond K = 32 (vwide_pass.cuh): one block per SM, up
+// to 255 registers, with a residual; two for the second pass.
 template <typename ST, int MODE>
-__global__ void __launch_bounds__(wide::kThreads, 1)
+__global__ void __launch_bounds__(wide::kThreads, vwide::blocks_per_sm(MODE))
 pgm_vwide_kernel(Args<ST, float> a) {
   extern __shared__ __align__(128) unsigned char smem[];
   vwide::body<ST, float, MODE>(a, smem);
@@ -85,36 +86,47 @@ int launch_vwide(const Args<ST, float>& args, float* gA, float* gram,
                                         gram, stats, stream);
 }
 
-template <int KB, typename ST, int MODE>
+template <int KB, typename ST, int MODE, bool VW>
 int launch_mode(const Args<ST, float>& args, float* gA, float* gram,
                 float* stats, cudaStream_t stream) {
   static wide::LaunchCache cache;
-  return wide::launch<KB, ST, float, MODE>(pgm_wide_kernel<KB, ST, MODE>,
-                                           pgm_wide_finalize, cache, args,
-                                           gA, gram, stats, stream);
+  return wide::launch<KB, ST, float, MODE, VW>(
+      pgm_wide_kernel<KB, ST, MODE, VW>, pgm_wide_finalize, cache, args, gA,
+      gram, stats, stream);
 }
 
-template <int KB, typename ST>
-int launch_kb(int mode, const Args<ST, float>& args, float* gA, float* gram,
-              float* stats, cudaStream_t stream) {
+// VW: the very-wide instances (C > 256) of the passes with a residual; the
+// second pass reads no A and takes the wide instance at any C.
+template <int KB, typename ST, bool VW>
+int launch_modes(int mode, const Args<ST, float>& args, float* gA,
+                 float* gram, float* stats, cudaStream_t stream) {
   switch (mode) {
     case 0:
-      return launch_mode<KB, ST, wide::kPgm>(args, gA, gram, stats, stream);
-    case 1:
-      return launch_mode<KB, ST, wide::kPgmPre>(args, gA, gram, stats,
-                                                stream);
-    case 2:
-      return launch_mode<KB, ST, wide::kPgmPost>(args, gA, gram, stats,
+      return launch_mode<KB, ST, wide::kPgm, VW>(args, gA, gram, stats,
                                                  stream);
+    case 1:
+      return launch_mode<KB, ST, wide::kPgmPre, VW>(args, gA, gram, stats,
+                                                    stream);
+    case 2:
+      return launch_mode<KB, ST, wide::kPgmPost, false>(args, gA, gram,
+                                                        stats, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
+template <int KB, typename ST>
+int launch_kb(int mode, const Args<ST, float>& args, float* gA, float* gram,
+              float* stats, cudaStream_t stream) {
+  if (args.C > wide::kMaxC)
+    return launch_modes<KB, ST, true>(mode, args, gA, gram, stats, stream);
+  return launch_modes<KB, ST, false>(mode, args, gA, gram, stats, stream);
+}
+
 template <typename ST>
 int launch_store(int mode, const Args<ST, float>& args, float* gA,
                  float* gram, float* stats, cudaStream_t stream) {
-  if (!vwide::wide_covers(args.C, args.K)) {
+  if (args.K > wide::kMaxK) {
     switch (mode) {
       case 0:
         return launch_vwide<ST, wide::kPgm>(args, gA, gram, stats, stream);
@@ -150,14 +162,14 @@ extern "C" {
 
 // Floats of one row of the scratch buffer for `mode` (0 the compiled
 // chain, 1 split pass 1, 2 split pass 2) and a (C, K) problem: one group's
-// row of partial sums on the wide body (C <= 256, K <= 32), and with the
-// very-wide body's per-group scratch beside it beyond; -1 for C < 1, K < 1
-// or a width past an int. The caller allocates the scratch buffer as
-// (nmf_pgm_wide_partials_rows(N, tile_n), width) floats.
+// row of partial sums up to K = 32 (the wide body and its very-wide
+// instances), and with the very-wide body's per-group scratch beside it
+// beyond; -1 for C < 1, K < 1 or a width past an int. The caller allocates
+// the scratch buffer as (nmf_pgm_wide_partials_rows(N, tile_n), width)
+// floats.
 int nmf_pgm_wide_partials_width(int mode, int C, int K) {
   if (mode < 0 || mode > 2 || C < 1 || K < 1) return -1;
-  if (vwide::wide_covers(C, K))
-    return wide::entries(mode_of(mode), C, K).total;
+  if (K <= wide::kMaxK) return wide::entries(mode_of(mode), C, K).total;
   const long long w = vwide::width(mode_of(mode), C, K);
   return w > 0x7fffffffLL ? -1 : (int)w;
 }

@@ -1,4 +1,4 @@
-// The very-wide body of K1 (nmf_pgm_wide.cu), K2 (nmf_adaprox_wide.cu) and
+// The very-wide tier of K1 (nmf_pgm_wide.cu), K2 (nmf_adaprox_wide.cu) and
 // K3 (nmf_grad.cu): the same passes as wide_pass.cuh for the problems its
 // instances refuse, C > 256 channels or K > 32 components, with no upper
 // limit on either.
@@ -6,8 +6,20 @@
 // Why wide_pass.cuh stops at C = 256, K = 32: each thread keeps gA for
 // every 32-channel chunk in registers for the whole group (8 chunks at
 // most), A lives in shared memory whole (C (KB + 4) floats), the S buffers
-// and gS hold KB rows, and the instances are KB = 8, 16, 32. Here nothing
-// in shared memory or in registers grows with C or K:
+// and gS hold KB rows, and the instances are KB = 8, 16, 32.
+//
+// Up to K = 32 (any C) the tier runs the wide body's own instances built
+// with VW (wide::body<KB, ..., true>; KB = 8, 16, 32 as the wide body picks
+// them): the ring of Y stages and the S buffers by bulk copies completing
+// on mbarriers, gS in registers and the epilogue's column in the last
+// chunk's stage, as there; A a chunk at a time through two buffers (the
+// next chunk's block loaded during the residual, stored after it), and gA's
+// (chunk) tiles of the whole group in shared memory, added to in the same
+// sub-tile order and written to the group's row once (the chunks past what
+// fits, past 13 chunks at KB = 32 in float32, in the row in global memory).
+// One block per SM, up to 255 registers.
+//
+// Beyond K = 32, this body; nothing in it grows with C or K:
 //
 // - Components go in blocks of 32 (nkb = ceil(K / 32)), channels in chunks
 //   of 32, columns in sub-tiles of 256 as in the wide body. Per chunk the
@@ -27,32 +39,35 @@
 //   sub-tile; beyond, S blocks are copied again per step. The next chunk's
 //   Y rows come by cp.async into the second of two stages, two steps ahead
 //   (cp.async groups: the last step of a chunk waits for all but them).
-// - gS of a column over all K: in registers across the chunks where
-//   nkb = 1 (one 8 x 4 tile a thread), else added per step into a per-group
-//   scratch of KP x 256 floats in global memory (it stays in L2) in the same
-//   order (fmaf from 0 over the channels in order, a thread per column).
-//   The epilogue runs on that scratch column, one column per thread, with
-//   any K: K3 stores gS; K1 forms x = s - sS gS and applies the compiled
-//   chain on the column; K2 the moments and the chain with the per-element
-//   step (kept beside the column in a second scratch of KP x 256 floats);
-//   the split passes store x (K2: and the step) or take the prox's output.
+// - gS of a column over all K is added per step into a per-group scratch
+//   of KP x 256 floats in global memory (it stays in L2) in the same order
+//   (fmaf from 0 over the channels in order, a thread per column). The
+//   epilogue runs on that scratch column, one column per thread, with any
+//   K: K3 stores gS; K1 forms x = s - sS gS and applies the compiled chain
+//   on the column; K2 the moments and the chain with the per-element step
+//   (kept beside the column in a second scratch of KP x 256 floats); the
+//   split passes store x (K2: and the step) or take the prox's output. The
+//   second passes keep the column in shared memory instead where it fits
+//   (K <= 160), two blocks per SM to K = 64.
 // - gA, the Gram ((K / 32)^2 blocks of the 32 x 32 routine, of S' in K1 and
-//   of the old S in K3, both read from the scratch column store) and K2's
-//   row sums are added, sub-tile by sub-tile in a fixed order, into the
-//   group's row of partial sums in global memory (C K + K K floats; every
-//   entry owned by one thread), which the wide body's finalize sums in
-//   double in a fixed order. No atomics: two launches give the same bits,
-//   and the order depends on N, tile_n, C and K alone.
-// - One block of 8 warps per SM (up to 255 registers a thread), 176 KB of
-//   shared memory in float32 (S slots 2 x 37 KB, Y stages 2 x 33 KB, the
-//   (c) routine's partial sums 33 KB), 153 KB with the bfloat16 store.
+//   of the old S in K3, both read from the column store) and K2's row sums
+//   are added, sub-tile by sub-tile in a fixed order, into the group's row
+//   of partial sums in global memory (C K + K K floats; every entry owned
+//   by one thread), which the wide body's finalize sums in double in a
+//   fixed order. No atomics: two launches give the same bits, and the
+//   order depends on N, tile_n, C, K and the instance alone.
+// - With a residual, one block of 8 warps per SM (up to 255 registers a
+//   thread), 176 KB of shared memory in float32 (S slots 2 x 37 KB, Y
+//   stages 2 x 33 KB, the (c) routine's partial sums 33 KB), 153 KB with
+//   the bfloat16 store.
 //
-// What bounds it on an H100: at C = 425, K = 32, N = 1e6 the float32 FMAs,
-// 3 C K + K (K + 1) / 2 per column, 41.3e9 at 33.5e12 FMA/s, 1.23 ms,
-// against (C + 2K) N 4 bytes, 1.96 GB unweighted, 0.58 ms at 3.35 TB/s; in
-// practice, as in the wide body, the shared memory's delivery of the
-// register tiles' operands, plus the barrier a step and the scratch
-// traffic to L2. No tensor cores: TF32 would round the residual's operands.
+// What bounds the tier on an H100: at C = 425, K = 32, N = 1e6 the float32
+// FMAs, 3 C K + K (K + 1) / 2 per column, 41.3e9 at 33.5e12 FMA/s, 1.23
+// ms, against (C + 2K) N 4 bytes, 1.96 GB unweighted, 0.58 ms at 3.35
+// TB/s; in practice, as in the wide body, the shared memory's delivery of
+// the register tiles' operands (3 floats loaded per 8 FMAs). Every product
+// is a float32 FMA chain in the orders above: no tensor cores, since TF32
+// would round the residual's operands.
 
 #pragma once
 
@@ -79,10 +94,10 @@ constexpr int kKB = 32;            // components per block
 constexpr int kAP = kKB + 4;       // pitch of an A block's rows (floats)
 constexpr int kScratchAlign = 64;  // floats: the scratch 256-byte aligned
 
-// Whether the wide body's instances cover (C, K); the very-wide body takes
-// the rest.
-__host__ __device__ inline bool wide_covers(int C, int K) {
-  return C >= 1 && K >= 1 && C <= wide::kMaxC && K <= wide::kMaxK;
+// Blocks per SM this body is built for: one with a residual (up to 255
+// registers), two for the second passes (Smem::blocks: where they fit).
+__host__ __device__ constexpr int blocks_per_sm(int mode) {
+  return wide::has_residual(mode) ? 1 : 2;
 }
 __host__ __device__ inline int blocks_of(int K) { return (K + kKB - 1) / kKB; }
 
@@ -105,23 +120,29 @@ __host__ __device__ inline long long width(int mode, int C, int K) {
 // float32 and, with the bfloat16 store, rounded to bfloat16 for the
 // residual), two stages of a chunk's Y rows (in float32 D overwrites Y),
 // D with the bfloat16 store, and the (c) routine's partial sums. The
-// second passes need the partial sums, and K1's two blocks of 32 float32
-// rows for the Gram's operands (gram; in the passes with a residual they
-// go to the last chunk's stage and the last step's slot in float32, the
-// first to D with the bfloat16 store).
+// second passes need the partial sums, and keep the whole column store (K
+// rows in blocks of 32, kPitchF a row) after them where it fits (col),
+// two blocks per SM where both fit; else the column goes to the scratch.
 struct Smem {
   int slot_bytes, s, ares, af;
   int stage, stage_bytes;
-  int d, part, gram, total;
+  int d, part, col, total, blocks;
 };
 template <typename ST>
-__host__ __device__ inline Smem smem_layout(int mode) {
+__host__ __device__ inline Smem smem_layout(int mode, int K) {
   constexpr bool kF32 = std::is_same<ST, float>::value;
   constexpr int PS = wide::raw_pitch<ST>();
   Smem m{};
+  m.col = -1;
+  m.blocks = 1;
   if (!wide::has_residual(mode)) {
-    m.gram = kPartFloats * 4;
-    m.total = m.gram + (wide::has_gram(mode) ? 2 * kKB * kPitchF * 4 : 0);
+    const int col = blocks_of(K) * kKB * kPitchF * 4;
+    m.total = kPartFloats * 4;
+    if (m.total + col <= wide::kSmemMax) {
+      m.col = m.total;
+      m.total += col;
+    }
+    m.blocks = m.total <= wide::kSmemPair ? 2 : 1;
     return m;
   }
   const int s_bytes = kKB * PS * (int)sizeof(ST);
@@ -209,12 +230,12 @@ __device__ __forceinline__ void body(const Args<ST, MT>& a,
   const int nkb = blocks_of(K);
   const int KP = nkb * kKB;
   const bool weighted = kRes && a.W != nullptr;
-  const Smem L = smem_layout<ST>(MODE);
+  const Smem L = smem_layout<ST>(MODE, K);
   float* const parts = reinterpret_cast<float*>(smem + L.part);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   // the group's columns [lo, hi): its units, consecutive
-  const long long G = wide::group_units(a.n_units, 1);
+  const long long G = wide::group_units(a.n_units, L.blocks);
   const long long u0 = (long long)blockIdx.x * G;
   const long long u1 = wide::lmin(u0 + G, a.n_units) - 1;
   long long lo, hi, skip;
@@ -470,7 +491,10 @@ __device__ __forceinline__ void body(const Args<ST, MT>& a,
             }
             // (b) gS of component block kb over the chunk's channels in
             // order: from 0 at the first chunk, in registers with one
-            // block, else through the scratch column store
+            // block, else through the scratch column store (this body runs
+            // from two blocks on; the one-block branches stay, as taking
+            // them out moved ptxas's register allocation and slowed K2's
+            // bfloat16 instance at (128, 64) by 14 %)
             float* const xg = X0 + (long long)(kb * kKB + kb0) * kSub + ncol;
             if (ch == 0 && nkb > 1) {
 #pragma unroll
@@ -526,13 +550,17 @@ __device__ __forceinline__ void body(const Args<ST, MT>& a,
 
     // the epilogue, one column per thread, on the column store; with one
     // component block the Gram's operand also goes to shared memory (g1):
-    // the last chunk's stage in float32, D with the bfloat16 store, its own
-    // block in pass 2
+    // the last chunk's stage in float32, D with the bfloat16 store, the
+    // column itself in pass 2
     const bool valid = tid < width;
     const long long n = c0 + tid;
-    float* const x = X0 + tid;
+    // the column store: on chip in the second passes where it fits
+    const bool on_chip = !kRes && L.col >= 0;
+    float* const xb = on_chip ? reinterpret_cast<float*>(smem + L.col) : X0;
+    const int xp = on_chip ? PF : kSub;
+    float* const x = xb + tid;
     float* const g1 =
-        !kRes ? reinterpret_cast<float*>(smem + L.gram)
+        !kRes ? reinterpret_cast<float*>(smem + L.col)
               : (kF32 ? reinterpret_cast<float*>(stage_y(t * nch + nch - 1))
                       : reinterpret_cast<float*>(smem + L.d));
     auto s_of = [&](int k) {
@@ -541,7 +569,7 @@ __device__ __forceinline__ void body(const Args<ST, MT>& a,
     if constexpr (MODE == wide::kGrad) {
       if (valid) {
 #pragma unroll 4
-        for (int k = 0; k < K; ++k) a.out[(long long)k * N + n] = x[k * kSub];
+        for (int k = 0; k < K; ++k) a.out[(long long)k * N + n] = x[k * xp];
       }
       // the Gram of the old S
       if (nkb == 1) {
@@ -549,21 +577,21 @@ __device__ __forceinline__ void body(const Args<ST, MT>& a,
         for (int k = 0; k < kKB; ++k) g1[k * PF + tid] = k < K ? s_of(k) : 0.f;
       } else {
 #pragma unroll 4
-        for (int k = 0; k < K; ++k) x[k * kSub] = s_of(k);
+        for (int k = 0; k < K; ++k) x[k * xp] = s_of(k);
       }
     } else if constexpr (MODE == wide::kPgm || MODE == wide::kPgmPre) {
       const float sS = *a.step_S;
 #pragma unroll 4
       for (int k = 0; k < K; ++k) {
-        const float v = s_of(k) - sS * x[k * kSub];
+        const float v = s_of(k) - sS * x[k * xp];
         if constexpr (MODE == wide::kPgmPre) {
           if (valid) a.pre[(long long)k * N + n] = v;
         } else {
-          x[k * kSub] = v;
+          x[k * xp] = v;
         }
       }
       if constexpr (MODE == wide::kPgm)
-        apply_chain_column(a.chain, x, kSub, K, [&](int) { return sS; });
+        apply_chain_column(a.chain, x, xp, K, [&](int) { return sS; });
     } else if constexpr (MODE == wide::kAda || MODE == wide::kAdaPre) {
       float b1_t = a.b1_t, bc1 = a.bc1, bc2 = a.bc2;
       if (a.dsc != nullptr) {
@@ -581,7 +609,7 @@ __device__ __forceinline__ void body(const Args<ST, MT>& a,
           m0 = to_f32(a.M[gi]);
           v0 = to_f32(a.V[gi]);
         }
-        const float gk = x[k * kSub];
+        const float gk = x[k * xp];
         const float m1 = __fadd_rn(__fmul_rn(one_minus_b1, gk),
                                    __fmul_rn(b1_t, m0));
         const float v1 =
@@ -602,16 +630,16 @@ __device__ __forceinline__ void body(const Args<ST, MT>& a,
             a.pre_step[gi] = stp;
           }
         }
-        x[k * kSub] = v;
+        x[k * xp] = v;
         if constexpr (MODE == wide::kAda) step[k * kSub] = stp;
       }
       if constexpr (MODE == wide::kAda)
-        apply_chain_column(a.chain, x, kSub, K,
+        apply_chain_column(a.chain, x, xp, K,
                            [&](int k) { return step[k * kSub]; });
     } else {  // kPgmPost, kAdaPost: x is the prox's output
 #pragma unroll 4
       for (int k = 0; k < K; ++k)
-        x[k * kSub] = valid ? a.P[(long long)k * N + n] : 0.f;
+        x[k * xp] = valid ? a.P[(long long)k * N + n] : 0.f;
     }
     if constexpr (wide::has_update(MODE)) {
       // store S' and keep the stored values for the sums
@@ -619,13 +647,13 @@ __device__ __forceinline__ void body(const Args<ST, MT>& a,
       for (int k = 0; k < K; ++k) {
         float xs = 0.f;
         if (valid) {
-          xs = x[k * kSub];
+          xs = x[k * xp];
           if (a.out != nullptr) xs = store(a.out, (long long)k * N + n, xs);
           const float dk = xs - s_of(k);
           st1 = fmaf(dk, dk, st1);
           st2 = fmaf(xs, xs, st2);
         }
-        x[k * kSub] = xs;
+        x[k * xp] = xs;
         if (wide::has_gram(MODE) && nkb == 1) g1[k * PF + tid] = xs;
       }
       if (wide::has_gram(MODE) && nkb == 1)
@@ -634,11 +662,11 @@ __device__ __forceinline__ void body(const Args<ST, MT>& a,
     if constexpr (wide::has_gram(MODE)) {
       __syncthreads();  // the columns are in the store
       const GR pg(tid);
-      // Beyond one component block, block bi of the column store goes to
-      // g1 and block bj to g2 where both fit (float32: the last step's slot;
-      // pass 2: its own second block); with the bfloat16 store they are
-      // read from the store in L2.
-      constexpr bool kStage = kF32 || !kRes;
+      // Beyond one component block, in the float32 passes with a residual,
+      // block bi of the column store goes to g1 and block bj to g2 (the
+      // last step's slot); the others read the store where it is (pass 2:
+      // shared memory where it fits; else the scratch in L2).
+      constexpr bool kStage = kF32 && kRes;
       float* const g2 = kRes ? reinterpret_cast<float*>(slot_s(1))
                              : g1 + kKB * PF;
       auto stage = [&](float* dst, int blk) {
@@ -672,8 +700,8 @@ __device__ __forceinline__ void body(const Args<ST, MT>& a,
           if (nkb == 1 || staged)
             wide::pair_tile<1>(acc, pg, g1, PF, bj == bi ? g1 : g2, PF);
           else
-            wide::pair_tile<1>(acc, pg, X0 + (long long)bi * kKB * kSub,
-                               kSub, X0 + (long long)bj * kKB * kSub, kSub);
+            wide::pair_tile<1>(acc, pg, xb + (long long)bi * kKB * xp, xp,
+                               xb + (long long)bj * kKB * xp, xp);
           wide::put_parts(parts, pg, acc);
           __syncthreads();
           float sum[GR::kPerThread];
@@ -694,7 +722,7 @@ __device__ __forceinline__ void body(const Args<ST, MT>& a,
     } else if constexpr (wide::has_rowsum(MODE)) {
       __syncthreads();  // the columns are in the store
       for (int bk = 0; bk < nkb; ++bk) {
-        const float* xr = X0 + (long long)(bk * kKB + rk) * kSub + 4 * rp;
+        const float* xr = xb + (long long)(bk * kKB + rk) * xp + 4 * rp;
         float v = 0.f;
 #pragma unroll
         for (int jj = 0; jj < kSub / kRowParts; jj += 4) {
@@ -740,7 +768,8 @@ __device__ __forceinline__ void body(const Args<ST, MT>& a,
 }
 
 // Both launches of one pass on `stream`: a block per group of units (one
-// per SM), then the wide body's finalize. Returns cudaGetLastError().
+// or two per SM, Smem::blocks), then the wide body's finalize. Returns
+// cudaGetLastError().
 template <typename ST, typename MT, int MODE, typename Kernel,
           typename Finalize>
 int launch(Kernel kernel, Finalize fin, wide::LaunchCache& lc,
@@ -749,14 +778,14 @@ int launch(Kernel kernel, Finalize fin, wide::LaunchCache& lc,
   cudaError_t err;
   if (args.C < 1 || args.K < 1 || args.N < 1 || args.tile_n < 1)
     return (int)cudaErrorInvalidValue;
-  const Smem L = smem_layout<ST>(MODE);
+  const Smem L = smem_layout<ST>(MODE, args.K);
   if (L.total > lc.allowed_smem) {
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
     if (err != cudaSuccess) return (int)err;
     lc.allowed_smem = L.total;
   }
-  const long long groups = wide::group_count(args.n_units, 1);
+  const long long groups = wide::group_count(args.n_units, L.blocks);
   kernel<<<(unsigned)groups, kThreads, L.total, stream>>>(args);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

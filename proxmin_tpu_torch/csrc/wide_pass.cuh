@@ -1,7 +1,9 @@
 // The wide body of K1 (nmf_pgm_wide.cu), K2 (nmf_adaprox_wide.cu) and K3
 // (nmf_grad.cu): one pass over the pixel columns for any C <= 256 channels
 // and K <= 32 components, and the two passes of the split path, where a
-// prox_S that no compiled chain covers runs in PyTorch between them.
+// prox_S that no compiled chain covers runs in PyTorch between them. Built
+// with VW, the same body serves the very-wide tier up to K = 32 at any C
+// (vwide_pass.cuh): A a chunk at a time, gA's tiles in shared memory.
 //
 // Why the narrow body (pgm_pass.cuh) cannot just be built wider: its ring
 // stage holds all C rows of Y (and W) for 256 columns, 128 KB at C = 128 in
@@ -149,10 +151,12 @@ __host__ __device__ constexpr bool has_update(int m) {
 }
 // The blocks per SM an instance is built for (its __launch_bounds__): two,
 // at most 128 registers a thread, where KB = 8 or the pass has no residual;
-// one, up to 255 registers, for the residual at KB = 16 and 32. Two run
-// where their shared memory fits (Smem::blocks).
-__host__ __device__ constexpr int blocks_per_sm(int kb, int m) {
-  return (kb <= 8 || !has_residual(m)) ? 2 : 1;
+// one, up to 255 registers, for the residual at KB = 16 and 32 and for the
+// very-wide instances (VW: C > 256, whose ring, A buffers and gA tiles
+// never fit two). Two run where their shared memory fits (Smem::blocks).
+__host__ __device__ constexpr int blocks_per_sm(int kb, int m,
+                                                bool vw = false) {
+  return (!vw && (kb <= 8 || !has_residual(m))) ? 2 : 1;
 }
 
 // The entries of one group's row of partial sums: gA (C K), the Gram (K K,
@@ -250,16 +254,26 @@ struct Smem {
   int part;         // the (c) routine's partial sums; without a residual
                     // they share the epilogue's buffer (the Gram reads S'
                     // there before it writes them)
+  int ga, ga_chunks;  // VW: gA's (chunk) tiles of the first ga_chunks
+                      // chunks, for the whole group (the rest in the
+                      // group's row in global memory)
   int total;
   int blocks;       // blocks per SM: 2 where the instance is built for two
                     // and the layout fits kSmemPair, else 1
 };
-template <int KB, typename ST, typename MT>
+// VW (the very-wide instances, C > 256 with K <= 32): A no longer fits
+// whole, nor gA in registers. A goes a chunk at a time through two buffers
+// (the chunk's and the next one's: a_bytes is both); after the ring, D,
+// the parts' sums and a second S buffer, gA's tiles of as many chunks as
+// fit stay in shared memory for the whole group (at KB = 32 in float32, 13
+// of C = 425's 14 chunks; the rest in the group's row), then K2's M and V
+// where they fit.
+template <int KB, typename ST, typename MT, bool VW = false>
 __host__ __device__ inline Smem smem_layout(int mode, int C) {
   constexpr bool kF32 = std::is_same<ST, float>::value;
   const bool res = has_residual(mode);
   const int cpad = res ? (C + kChunk - 1) / kChunk * kChunk : 0;
-  const int a_bytes = cpad * (KB + 4) * 4;
+  const int a_bytes = (VW ? 2 * kChunk : cpad) * (KB + 4) * 4;
   // the rows a chunk takes: its channels in the residual's blocks of 8,
   // at most kChunk; in float32 gS then takes the last chunk's stage (KB
   // rows)
@@ -280,19 +294,34 @@ __host__ __device__ inline Smem smem_layout(int mode, int C) {
   // A, the ring, D, the parts' sums and one S buffer first; then K2's M
   // and V; then a second S buffer, each where it fits
   const int base = m.s + m.s_bytes + p_bytes + 2 * m.stage + dp_bytes;
-  m.blocks = blocks_per_sm(KB, mode) == 2 && base <= kSmemPair ? 2 : 1;
+  m.blocks = blocks_per_sm(KB, mode, VW) == 2 && base <= kSmemPair ? 2 : 1;
   const int budget = m.blocks == 2 ? kSmemPair : kSmemMax;
   const int mv =
       (mode == kAda || mode == kAdaPre)
           ? KB * raw_pitch<MT>() * (int)sizeof(MT) : 0;
-  m.mv_bytes = base + 2 * mv <= budget ? mv : 0;
-  m.n_s = base + 2 * m.mv_bytes + m.s_bytes + p_bytes <= budget ? 2 : 1;
+  int ga_bytes = 0;
+  m.ga_chunks = 0;
+  if constexpr (VW) {
+    // a second S buffer first (the next sub-tile's copy then runs during
+    // the epilogue), then gA's tiles, then K2's M and V
+    m.n_s = base + m.s_bytes <= budget ? 2 : 1;
+    const int used = base + (m.n_s - 1) * m.s_bytes;
+    const int tile = kChunk * KB * 4;
+    const int room = budget > used ? (budget - used) / tile : 0;
+    m.ga_chunks = cpad / kChunk < room ? cpad / kChunk : room;
+    ga_bytes = m.ga_chunks * tile;
+    m.mv_bytes = used + ga_bytes + 2 * mv <= budget ? mv : 0;
+  } else {
+    m.mv_bytes = base + 2 * mv <= budget ? mv : 0;
+    m.n_s = base + 2 * m.mv_bytes + m.s_bytes + p_bytes <= budget ? 2 : 1;
+  }
   m.p = m.s + m.n_s * m.s_bytes;
   m.mv = m.p + m.n_s * p_bytes;
   m.ring = m.mv + 2 * m.mv_bytes;
   m.d = m.ring + 2 * m.stage;
   m.part = res ? m.d + d_bytes : m.d;
-  m.total = m.d + dp_bytes;
+  m.ga = m.d + dp_bytes;
+  m.total = m.ga + ga_bytes;
   return m;
 }
 
@@ -337,6 +366,18 @@ __device__ __forceinline__ float4 ld4_now(const __nv_bfloat16* p) {
   return make_float4(lo.x, lo.y, hi.x, hi.y);
 #else
   return ld4(p);
+#endif
+}
+// One float from global memory, loaded where the call stands (the
+// very-wide instances' next A block, issued before a chunk's residual and
+// stored after it).
+__device__ __forceinline__ float ld_now(const float* p) {
+#ifdef __CUDA_ARCH__
+  float v;
+  asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
+#else
+  return *p;
 #endif
 }
 // The first n < 4 of four elements (the rest 0), one by one.
@@ -526,7 +567,10 @@ __device__ __forceinline__ void add_parts(const float* buf,
   }
 }
 
-template <int KB, typename ST, typename MT, int MODE>
+// VW: the very-wide instances (vwide_pass.cuh: C > 256, K <= 32), the same
+// pass with A streamed a chunk ahead through two buffers and gA's tiles in
+// shared memory (Smem::ga); every per-column order is the one above.
+template <int KB, typename ST, typename MT, int MODE, bool VW = false>
 __device__ __forceinline__ void body(const Args<ST, MT>& a,
                                      unsigned char* smem) {
   constexpr bool kF32 = std::is_same<ST, float>::value;
@@ -540,7 +584,7 @@ __device__ __forceinline__ void body(const Args<ST, MT>& a,
   // (no spill): W is loaded where it is used, not pinned ahead of the
   // chunk's wait, and (c)'s column loop and K2's update are not unrolled.
   // The other block hides those loads.
-  constexpr bool kLean = kRes && blocks_per_sm(KB, MODE) == 2;
+  constexpr bool kLean = kRes && blocks_per_sm(KB, MODE, VW) == 2;
   constexpr bool kWAtUse = kLean;
   constexpr int kPairUnroll = kLean ? 1 : 2;
   constexpr int kUpdateUnroll = kLean ? 1 : 4;  // K2's update over k
@@ -556,7 +600,7 @@ __device__ __forceinline__ void body(const Args<ST, MT>& a,
   const int C = a.C, K = a.K;
   const long long N = a.N;
   const bool weighted = kRes && a.W != nullptr;
-  const Smem L = smem_layout<KB, ST, MT>(MODE, C);
+  const Smem L = smem_layout<KB, ST, MT, VW>(MODE, C);
   float* const Ares = reinterpret_cast<float*>(smem + L.a_res);
   float* const Af = reinterpret_cast<float*>(smem + L.a_f);
   unsigned char* const ring = smem + L.ring;
@@ -574,7 +618,41 @@ __device__ __forceinline__ void body(const Args<ST, MT>& a,
   const int nch = kRes ? (C + kChunk - 1) / kChunk : 0;
   const int n_q = n_sub * nch;
 
-  if constexpr (kRes) {
+  // VW: the thread's elements tid + kThreads m of A's block of chunk ch
+  // (its kChunk rows by KB components), loaded, and put into buffer b
+  constexpr int kAPer = kChunk * KB / kThreads;
+  auto a_of = [&](int ch, int m) {
+    const int i = tid + kThreads * m;
+    const int c = ch * kChunk + i / KB, k = i % KB;
+    return (c < C && k < K) ? ld_now(a.A + (long long)c * K + k) : 0.f;
+  };
+  auto put_a = [&](int b, int m, float v) {
+    const int i = tid + kThreads * m;
+    const int at = (b * kChunk + i / KB) * AP + i % KB;
+    Af[at] = v;
+    if constexpr (!kF32) Ares[at] = __bfloat162float(__float2bfloat16_rn(v));
+  };
+  if constexpr (kRes && VW) {
+    // chunk 0's block into buffer 0; the group's row of gA's chunks past
+    // the tiles zeroed, gA's tiles in shared memory zeroed (a thread's own
+    // entries: no other thread reads them)
+    if (nch > 0) {
+#pragma unroll
+      for (int m = 0; m < kAPer; ++m) put_a(0, m, a_of(0, m));
+    }
+    float* const gsm = reinterpret_cast<float*>(smem + L.ga);
+    for (int i = 0; i < L.ga_chunks * GA::kPerThread; ++i)
+      gsm[i * kThreads + tid] = 0.f;
+    float* const row0 =
+        a.partials + (long long)blockIdx.x * entries(MODE, C, K).total;
+    for (int ch = L.ga_chunks; ch < nch; ++ch)
+#pragma unroll
+      for (int m = 0; m < GA::kPerThread; ++m) {
+        const int i = tid + kThreads * m;
+        const int c = ch * kChunk + i / KB, k = i % KB;
+        if (c < C && k < K) row0[c * K + k] = 0.f;
+      }
+  } else if constexpr (kRes) {
     for (int i = tid; i < nch * kChunk * KB; i += kThreads) {
       const int c = i / KB, k = i % KB;
       const float v = (c < C && k < K) ? a.A[c * K + k] : 0.f;
@@ -732,9 +810,11 @@ __device__ __forceinline__ void body(const Args<ST, MT>& a,
   constexpr int kRowLen = kSub / kRowParts;
   const int rk = tid / kRowParts, rp = tid % kRowParts;
 
-  float ga[kMaxChunks][GA::kPerThread];
+  // gA of every chunk in registers (VW: in shared memory, Smem::ga)
+  constexpr int kGaChunks = VW ? 1 : kMaxChunks;
+  float ga[kGaChunks][GA::kPerThread];
 #pragma unroll
-  for (int c = 0; c < kMaxChunks; ++c)
+  for (int c = 0; c < kGaChunks; ++c)
 #pragma unroll
     for (int m = 0; m < GA::kPerThread; ++m) ga[c][m] = 0.f;
   float gr[GR::kPerThread];
@@ -769,6 +849,17 @@ __device__ __forceinline__ void body(const Args<ST, MT>& a,
       for (int ch = 0; ch < nch; ++ch) {
         const int q = t * nch + ch;
         const int rows = min(kChunk, C - ch * kChunk);
+        // A's rows of the chunk: VW its buffer, q & 1
+        const int arow = VW ? (q & 1) * kChunk : ch * kChunk;
+        // VW: the next chunk's block of A, in flight through the residual
+        float an[kAPer];
+        if constexpr (VW) {
+          if (q + 1 < n_q) {
+            const int cn = ch + 1 == nch ? 0 : ch + 1;
+#pragma unroll
+            for (int m = 0; m < kAPer; ++m) an[m] = a_of(cn, m);
+          }
+        }
         unsigned char* st = ring + (q & 1) * L.stage;
         const ST* Ys = reinterpret_cast<const ST*>(st);
         float* const D = kF32 ? reinterpret_cast<float*>(st)
@@ -794,15 +885,14 @@ __device__ __forceinline__ void body(const Args<ST, MT>& a,
         // most 24 channels only the 8-row blocks that hold channels
         float r[8][4];
         if (rows == kChunk) {
-          residual_tile<8, KB, ST>(r, Ares + (ch * kChunk + rg) * AP,
-                                   Sr + ncol);
+          residual_tile<8, KB, ST>(r, Ares + (arow + rg) * AP, Sr + ncol);
         } else {
 #pragma unroll
           for (int i0 = 0; i0 < 8; i0 += 2)
             if (4 * i0 < rows)
               residual_tile<2, KB, ST>(
                   reinterpret_cast<float(&)[2][4]>(r[i0]),
-                  Ares + (ch * kChunk + rg + 4 * i0) * AP, Sr + ncol);
+                  Ares + (arow + rg + 4 * i0) * AP, Sr + ncol);
         }
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
@@ -826,10 +916,17 @@ __device__ __forceinline__ void body(const Args<ST, MT>& a,
           *reinterpret_cast<float4*>(D + c * PF + ncol) =
               make_float4(d4[0], d4[1], d4[2], d4[3]);
         }
+        // VW: the next chunk's A into the other buffer (its last reader,
+        // chunk q - 1's (b), is behind the last barrier)
+        if constexpr (VW) {
+          if (q + 1 < n_q) {
+#pragma unroll
+            for (int m = 0; m < kAPer; ++m) put_a((q + 1) & 1, m, an[m]);
+          }
+        }
         __syncthreads();  // D of the chunk is in shared memory
         // (b) gS over the chunk's channels in order
-        grad_tile<KB>(gs, Af + ch * kChunk * AP + kb0, D + ncol,
-                      (rows + 3) & ~3);
+        grad_tile<KB>(gs, Af + arow * AP + kb0, D + ncol, (rows + 3) & ~3);
         // (c) gA of the chunk over the thread's part of the columns
         const GA pa(tid);
         if (pa.r1 < rows) {
@@ -847,11 +944,33 @@ __device__ __forceinline__ void body(const Args<ST, MT>& a,
 #pragma unroll
           for (int m = 0; m < GA::kPerThread; ++m) sum[m] = 0.f;
           add_parts<GA>(parts, sum);
+          if constexpr (VW) {
+            // into the group's tile of the chunk (a thread's own entries),
+            // or past the tiles into the group's row
+            if (ch < L.ga_chunks) {
+              float* const g = reinterpret_cast<float*>(smem + L.ga) +
+                               ch * GA::kPerThread * kThreads + tid;
 #pragma unroll
-          for (int c = 0; c < kMaxChunks; ++c)
-            if (c == ch)
+              for (int m = 0; m < GA::kPerThread; ++m)
+                g[m * kThreads] += sum[m];
+            } else {
+              float* const row0 =
+                  a.partials +
+                  (long long)blockIdx.x * entries(MODE, C, K).total;
 #pragma unroll
-              for (int m = 0; m < GA::kPerThread; ++m) ga[c][m] += sum[m];
+              for (int m = 0; m < GA::kPerThread; ++m) {
+                const int i = tid + kThreads * m;
+                const int c = ch * kChunk + i / KB, k = i % KB;
+                if (c < C && k < K) row0[c * K + k] += sum[m];
+              }
+            }
+          } else {
+#pragma unroll
+            for (int c = 0; c < kMaxChunks; ++c)
+              if (c == ch)
+#pragma unroll
+                for (int m = 0; m < GA::kPerThread; ++m) ga[c][m] += sum[m];
+          }
         }
         // in float32 the last chunk's stage takes gS for the epilogue: it
         // is refilled after it
@@ -935,14 +1054,9 @@ __device__ __forceinline__ void body(const Args<ST, MT>& a,
       // parts' buffer (free until the next chunk)
       float* const step = parts + tid;
       if (L.mv_bytes) mbar_wait(&mvfull, (uint32_t)(t & 1));
-#pragma unroll(kUpdateUnroll)
-      for (int k = 0; k < K; ++k) {
+      // the update of component k from its old moments
+      auto update = [&](int k, float m0, float v0) {
         const long long gi = k * N + n;
-        float m0 = 0.f, v0 = 0.f;
-        if (valid) {
-          m0 = to_f32(L.mv_bytes ? Mb[k * PM + tid] : a.M[gi]);
-          v0 = to_f32(L.mv_bytes ? Vb[k * PM + tid] : a.V[gi]);
-        }
         const float gk = x[k * PF];
         const float m1 = __fadd_rn(__fmul_rn(one_minus_b1, gk),
                                    __fmul_rn(b1_t, m0));
@@ -966,6 +1080,61 @@ __device__ __forceinline__ void body(const Args<ST, MT>& a,
         }
         x[k * PF] = v;
         step[k * kSub] = stp;
+      };
+      constexpr bool kBatch = VW && std::is_same<MT, float>::value;
+      if (kBatch && L.mv_bytes == 0) {
+        // float32 M and V from global memory (at KB = 32 they do not fit
+        // beside gA's tiles): eight components' loads in flight at once,
+        // ahead of the stores that would otherwise hold each next load back
+        // (measured slower with bfloat16 moments, which keep the loop below)
+        for (int k0 = 0; k0 < K; k0 += 8) {
+          float m8[8], v8[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            m8[j] = v8[j] = 0.f;
+            if (valid && k0 + j < K) {
+              m8[j] = to_f32(a.M[(k0 + j) * N + n]);
+              v8[j] = to_f32(a.V[(k0 + j) * N + n]);
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            if (k0 + j < K) update(k0 + j, m8[j], v8[j]);
+        }
+      } else {
+#pragma unroll(kUpdateUnroll)
+        for (int k = 0; k < K; ++k) {
+          const long long gi = k * N + n;
+          float m0 = 0.f, v0 = 0.f;
+          if (valid) {
+            m0 = to_f32(L.mv_bytes ? Mb[k * PM + tid] : a.M[gi]);
+            v0 = to_f32(L.mv_bytes ? Vb[k * PM + tid] : a.V[gi]);
+          }
+          const float gk = x[k * PF];
+          const float m1 = __fadd_rn(__fmul_rn(one_minus_b1, gk),
+                                     __fmul_rn(b1_t, m0));
+          const float v1 =
+              __fadd_rn(__fmul_rn(a.one_minus_b2, __fmul_rn(gk, gk)),
+                        __fmul_rn(a.b2, v0));
+          const float phi = __fmul_rn(m1, bc1);
+          const float psi =
+              __fadd_rn(__fsqrt_rn(__fmul_rn(v1, bc2)), a.eps);
+          const float psi_safe = (psi < FLT_MIN) ? FLT_MIN : psi;
+          const float al = a.alpha[k];
+          const float v =
+              __fsub_rn(s_of(k), __fmul_rn(al, __fdiv_rn(phi, psi_safe)));
+          const float stp = __fdiv_rn(al, psi_safe);
+          if (valid) {
+            store(a.M_out, gi, m1);
+            store(a.V_out, gi, v1);
+            if constexpr (MODE == kAdaPre) {
+              a.pre[gi] = v;
+              a.pre_step[gi] = stp;
+            }
+          }
+          x[k * PF] = v;
+          step[k * kSub] = stp;
+        }
       }
       if constexpr (MODE == kAda)
         apply_chain_column(a.chain, x, PF, K,
@@ -1019,7 +1188,17 @@ __device__ __forceinline__ void body(const Args<ST, MT>& a,
   // the group's row of partial sums
   const Entries e = entries(MODE, C, K);
   float* const row = a.partials + (long long)blockIdx.x * e.total;
-  if constexpr (kRes) {
+  if constexpr (kRes && VW) {
+    const float* const gsm = reinterpret_cast<const float*>(smem + L.ga);
+    for (int ch = 0; ch < L.ga_chunks; ++ch)
+#pragma unroll
+      for (int m = 0; m < GA::kPerThread; ++m) {
+        const int i = tid + kThreads * m;
+        const int c = ch * kChunk + i / KB, k = i % KB;
+        if (c < C && k < K)
+          row[c * K + k] = gsm[(ch * GA::kPerThread + m) * kThreads + tid];
+      }
+  } else if constexpr (kRes) {
     for (int ch = 0; ch < nch; ++ch) {
       float v[GA::kPerThread];
 #pragma unroll
@@ -1112,16 +1291,18 @@ struct LaunchCache {
 
 // Both launches of one pass on `stream`: a block per group of units, then
 // the finalize. Returns cudaGetLastError() after them.
-template <int KB, typename ST, typename MT, int MODE, typename Kernel,
-          typename Finalize>
+// VW: a very-wide instance, for any C (as the second passes, which read no
+// A).
+template <int KB, typename ST, typename MT, int MODE, bool VW = false,
+          typename Kernel, typename Finalize>
 int launch(Kernel kernel, Finalize fin, LaunchCache& lc,
            const Args<ST, MT>& args, float* gA, float* mid, float* stats,
            cudaStream_t stream) {
   cudaError_t err;
-  if (args.C < 1 || args.C > kMaxC || args.K < 1 || args.K > KB ||
-      args.N < 1 || args.tile_n < 1)
+  if (args.C < 1 || (!VW && has_residual(MODE) && args.C > kMaxC) ||
+      args.K < 1 || args.K > KB || args.N < 1 || args.tile_n < 1)
     return (int)cudaErrorInvalidValue;
-  const Smem L = smem_layout<KB, ST, MT>(MODE, args.C);
+  const Smem L = smem_layout<KB, ST, MT, VW>(MODE, args.C);
   if (L.total > kSmemMax) return (int)cudaErrorInvalidValue;
   if (L.total > lc.allowed_smem) {
     err = cudaFuncSetAttribute(

@@ -6,8 +6,10 @@ under ``build/kernels/`` of the checkout (named by the source and a hash of
 its text, of every header in ``csrc/`` and of the flags), and loaded with
 ``ctypes``. A kernel module registers its source with :func:`register`,
 together with a function that declares the library's C signatures (several
-modules may declare entry points of one source); nothing is compiled or
-loaded at import.
+modules may declare entry points of one source; a source may be built into
+two libraries with different preprocessor definitions, each with part of
+its instances, so that the halves compile side by side); nothing is
+compiled or loaded at import.
 """
 
 import concurrent.futures
@@ -27,16 +29,24 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = {}
 #: Kernel name -> the ``declare(lib)`` functions that set its C signatures.
 _DECLARE = {}
+#: Kernel name -> the preprocessor definitions its source is compiled with.
+_DEFINES = {}
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
-def register(name, declare):
-    """Register ``csrc/<name>.cu`` as a kernel library; ``declare(lib)``
-    sets C signatures of it once it is loaded."""
-    _SOURCES[name] = CSRC / f"{name}.cu"
+def register(name, declare, source=None, defines=()):
+    """Register ``csrc/<source or name>.cu``, compiled with ``-D`` of each
+    of ``defines``, as the kernel library ``name``; ``declare(lib)`` sets C
+    signatures of it once it is loaded."""
+    _SOURCES[name] = CSRC / f"{source or name}.cu"
+    _DEFINES[name] = tuple(defines)
     _DECLARE.setdefault(name, []).append(declare)
+
+
+def _flags(name):
+    return (*_NVCC_FLAGS, *(f"-D{d}" for d in _DEFINES.get(name, ())))
 
 
 def _nvcc():
@@ -58,7 +68,7 @@ def _library_path(name):
     h = hashlib.sha256(_SOURCES[name].read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
-    h.update(" ".join(_NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(name)).encode())
     return _BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -73,7 +83,7 @@ def build_kernel(name="nmf_pgm_step"):
         return lib, 0.0, log_path.read_text() if log_path.is_file() else ""
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCES[name])]
+    cmd = [_nvcc(), *_flags(name), "-o", str(tmp), str(_SOURCES[name])]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
     seconds = time.perf_counter() - t0

@@ -163,6 +163,10 @@ register("nmf_pgm_step", _declare_pgm_step)
 register("nmf_pgm_wide", _declare_pgm_wide)
 register("nmf_adaprox_step", _declare_adaprox_step)
 register("nmf_adaprox_wide", _declare_adaprox_wide)
+# the very-wide tier's instances of the same source, a library of their own
+# so that the two halves compile side by side
+register("nmf_adaprox_vwide", _declare_adaprox_wide,
+         source="nmf_adaprox_wide", defines=("VERY_WIDE",))
 register("nmf_grad", _declare_grad)
 
 
@@ -806,7 +810,8 @@ def _adaprox_wide_cuda(mode, A, S, M, V, Y, W, alpha, scalars, b2, eps, P,
     counters unless ``count`` is False (K5 counts its own)."""
     C, K = A.shape
     N = S.shape[1]
-    lib = _library("nmf_adaprox_wide")
+    lib = _library("nmf_adaprox_vwide" if tier(C, K) == "very wide"
+                   else "nmf_adaprox_wide")
     partials = torch.empty(
         (lib.nmf_adaprox_wide_partials_rows(N, tile_n),
          lib.nmf_adaprox_wide_partials_width(mode, C, K)),

@@ -760,14 +760,152 @@ def test_wide_instances_keep_their_bits(dev):
     assert got == {k: list(v) for k, v in _WIDE_BITS.items()}
 
 
-# K1-K3 on the very-wide body (C > 256 or K > 32): the shapes at which
+def _vwide_bit_cases(dev):
+    """The very-wide tier's modes at (425, 32, 1000), (128, 64, 500) and
+    (600, 8, 129), with W, from seeded inputs: name -> (a call, the indices
+    of its per-column outputs) that test_very_wide_columns_keep_their_bits
+    hashes: S' (K1, every mode and both stores), S1, M' and V' (K2, both
+    moment types and stores, the device-scalar entry), split pass 1's x
+    and step, and gS (K3)."""
+    cases = {}
+    bf = torch.bfloat16
+    for C, K, N in ((425, 32, 1000), (128, 64, 500), (600, 8, 129)):
+        A, S, Y, W = _problem(dev, C, K, N, weighted=True)
+        sS = 1.0 / torch.linalg.eigvalsh(A.T @ A)[-1]
+        Sb, Yb, Wb = S.to(bf), Y.to(bf), W.to(bf)
+        _, _, M, V, _, alpha, sc, _ = _adaprox_operands(dev, C, K, N, True)
+        Mb, Vb = M.to(bf), V.to(bf)
+        dsc = torch.tensor([float(v) for v in sc], dtype=torch.float32,
+                           device=dev)
+        l1 = k1.describe_prox(_PROX_CASES["soft_plus_abs"], "adaprox", True)
+        clo = _PROX_CASES["split_closure"]
+        tile = k1.DEFAULT_TILE_N
+        tag = f"({C}, {K})"
+        cases.update({
+            f"K1 unity_plus {tag}": (_P(
+                k1.fused_nmf_pgm_step, A, S, Y, sS, W=W,
+                prox_S=_PROX_CASES["unity_plus"]), (1,)),
+            f"K1 bf16 {tag}": (_P(
+                k1.fused_nmf_pgm_step, A, Sb, Yb, sS, W=Wb,
+                prox_S=_PROX_CASES["soft_plus_abs"]), (1,)),
+            f"K1 pass 1 {tag}": (_P(k1._pgm_pass1_cuda, A, S, Y, sS, W,
+                                    tile), (0,)),
+            f"K1 bf16 split {tag}": (_P(
+                k1.fused_nmf_pgm_step, A, Sb, Yb, sS, W=Wb, prox_S=clo),
+                (1,)),
+            f"K2 {tag}": (_P(k1.fused_nmf_adaprox_step, A, S, M, V, Y, alpha,
+                             sc, W=W, prox_S=l1), (1, 2, 3)),
+            f"K2 bf16 moments {tag}": (_P(
+                k1.fused_nmf_adaprox_step, A, S, Mb, Vb, Y, alpha, sc, W=W,
+                prox_S=l1), (1, 2, 3)),
+            f"K2 bf16 {tag}": (_P(
+                k1.fused_nmf_adaprox_step, A, Sb, Mb, Vb, Yb, alpha, sc,
+                W=Wb, prox_S=l1), (1, 2, 3)),
+            f"K2 device scalars {tag}": (_P(
+                k1.fused_nmf_adaprox_step, A, S, M, V, Y, alpha, dsc, W=W,
+                prox_S=l1), (1, 2, 3)),
+            f"K2 pass 1 {tag}": (_P(
+                k1._adaprox_pass1_cuda, A, S, M, V, Y, alpha, sc, W, 0.999,
+                1e-8, tile), (0, 1, 2, 3)),
+            f"K3 {tag}": (_P(tops.fused_nmf_grad, A, S, Y, W=W), (1,)),
+        })
+    return cases
+
+
+# The digests of _vwide_bit_cases' per-column outputs as the first
+# very-wide body gave them (blocks of 32 components at every K, before the
+# tier took the wide body's instances up to K = 32; an NVIDIA H100 80GB
+# HBM3): the redesign leaves every column's bits as they were.
+_VWIDE_BITS = {
+    "K1 unity_plus (425, 32)": ("6b5fcf473824dcfa",),
+    "K1 bf16 (425, 32)": ("64ca661f7f6f2433",),
+    "K1 pass 1 (425, 32)": ("5f9c5f58a5bd57eb",),
+    "K1 bf16 split (425, 32)": ("97ce354ce9a7c0ab",),
+    "K2 (425, 32)": (
+        "d2ac127baef115f6", "8debda9bc38fc2eb", "965eddc8973b96de",
+    ),
+    "K2 bf16 moments (425, 32)": (
+        "649abb92d13a66b1", "a78d7dcef40567bb", "6a6603b16a197eac",
+    ),
+    "K2 bf16 (425, 32)": (
+        "aa028ea4f879a49a", "bcaf362a9fd52be2", "f4a89200868aefe0",
+    ),
+    "K2 device scalars (425, 32)": (
+        "d2ac127baef115f6", "8debda9bc38fc2eb", "965eddc8973b96de",
+    ),
+    "K2 pass 1 (425, 32)": (
+        "9d830c0625ed28d3", "8c83d45b30e9951a", "8debda9bc38fc2eb",
+        "965eddc8973b96de",
+    ),
+    "K3 (425, 32)": ("729d906b71b61be5",),
+    "K1 unity_plus (128, 64)": ("4ebca57da84b9bc5",),
+    "K1 bf16 (128, 64)": ("c008145cacbff012",),
+    "K1 pass 1 (128, 64)": ("75bd1cd1af380c23",),
+    "K1 bf16 split (128, 64)": ("47a3ed144988e8c1",),
+    "K2 (128, 64)": (
+        "bc1e9aadc8fd2810", "9292fb40a6d7c7ce", "28e87b70c3fcaceb",
+    ),
+    "K2 bf16 moments (128, 64)": (
+        "12ce6a08fb79e9d9", "03c5c5d72462e686", "5bc44b3f8771ecfd",
+    ),
+    "K2 bf16 (128, 64)": (
+        "2cd5a53ffeb805cb", "3b5c6422378f0ac8", "0a5bb50a75d4822d",
+    ),
+    "K2 device scalars (128, 64)": (
+        "bc1e9aadc8fd2810", "9292fb40a6d7c7ce", "28e87b70c3fcaceb",
+    ),
+    "K2 pass 1 (128, 64)": (
+        "bf49512b02bfdeab", "18172df3449d44f5", "9292fb40a6d7c7ce",
+        "28e87b70c3fcaceb",
+    ),
+    "K3 (128, 64)": ("f17b93c8c0130708",),
+    "K1 unity_plus (600, 8)": ("a30776c41f135a78",),
+    "K1 bf16 (600, 8)": ("c616ab0677fc14ea",),
+    "K1 pass 1 (600, 8)": ("4cee4e6b09d5eaa2",),
+    "K1 bf16 split (600, 8)": ("011a2015657d4576",),
+    "K2 (600, 8)": (
+        "2218cbcde81b42b7", "291ef1f5b0e5ec42", "8bae3e02fdd80c32",
+    ),
+    "K2 bf16 moments (600, 8)": (
+        "36b99b1f0ec71802", "c8e6d43b09ea6f26", "d64fdc7c80f26621",
+    ),
+    "K2 bf16 (600, 8)": (
+        "589815c76a6f6cc7", "4b326a45fb9bdf17", "92c59bbd906d6672",
+    ),
+    "K2 device scalars (600, 8)": (
+        "2218cbcde81b42b7", "291ef1f5b0e5ec42", "8bae3e02fdd80c32",
+    ),
+    "K2 pass 1 (600, 8)": (
+        "b3af27f5ea01d2d5", "fda0dd1376f00c00", "291ef1f5b0e5ec42",
+        "8bae3e02fdd80c32",
+    ),
+    "K3 (600, 8)": ("6ad1653f056f07a5",),
+}
+
+
+def test_very_wide_columns_keep_their_bits(dev):
+    """The very-wide tier's per-column outputs (S', M', V', x and the
+    step, gS) at (425, 32, 1000), (128, 64, 500) and (600, 8, 129), every
+    mode, store and moment type, hash to the digests of the first very-wide
+    body: the redesign changes no column's bits (gA, the Gram, the row
+    sums and the statistics may sum in another order)."""
+    got = {}
+    for name, (fn, idx) in _vwide_bit_cases(dev).items():
+        out = fn()
+        got[name] = [_digest(out[i]) for i in idx]
+    torch.cuda.synchronize()
+    assert got == {k: list(v) for k, v in _VWIDE_BITS.items()}
+
+
+# K1-K3 on the very-wide tier (C > 256 or K > 32): the shapes at which
 # tests/test_torch_kernel_modes.py holds the plain versions against the JAX
-# kernels, across the bounds C = 256 and K = 32 and the component blocks of
-# 32 (K = 33, 64), with ragged N around a thread's 4 columns and the
-# sub-tile of 256
+# kernels, across the bounds C = 256 and K = 32, the component blocks of 8
+# and 16 (K = 3, 8, 12; K = 20 in a block of 32) and of 32 past K = 32
+# (K = 33, 64), with ragged N around a thread's 4 columns and the sub-tile
+# of 256
 _VWIDE_SHAPES = [(257, 3, 300), (300, 33, 257), (425, 32, 1000),
                  (64, 33, 4097), (17, 64, 255), (128, 64, 500),
-                 (600, 8, 129)]
+                 (600, 8, 129), (300, 12, 257), (257, 20, 300)]
 _VWIDE_CASES = ("zero", "soft_plus_abs", "unity_plus", "chain",
                 "split_closure")
 

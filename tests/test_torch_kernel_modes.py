@@ -115,13 +115,14 @@ EDGE_SHAPES = [(17, 9, 1), (31, 17, 3), (32, 31, 5), (33, 32, 255),
                (40, 12, 16_700), (40, 12, 38_430), (40, 20, 70_000)]
 EDGE_NAMES = ("unity_plus", "soft_plus", "split_closure")
 EDGE_K2 = ("soft_plus", "min_abs", "split_closure")
-# The very-wide body's shapes (C > 256 or K > 32; tests/test_torch_cuda.py
+# The very-wide tier's shapes (C > 256 or K > 32; tests/test_torch_cuda.py
 # runs the kernels at the same shapes): across the bounds C = 256 and
-# K = 32, one and two component blocks of 32 (K = 33, 64), ragged N, and
+# K = 32, its component blocks of 8 and 16 (K = 3, 8, 12) and of 32 (K =
+# 20, 32; past K = 32 one and two blocks, K = 33, 64), ragged N, and
 # AVIRIS-NG's 425 channels; each with EDGE_NAMES' and EDGE_K2's cases.
 VWIDE_SHAPES = [(257, 3, 300), (300, 33, 257), (425, 32, 1000),
                 (64, 33, 4097), (17, 64, 255), (128, 64, 500),
-                (600, 8, 129)]
+                (600, 8, 129), (300, 12, 257), (257, 20, 300)]
 
 
 def _shape_id(shape):

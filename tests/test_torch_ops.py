@@ -107,10 +107,16 @@ def test_wrapper_refuses_other_devices():
 
 def test_build_inputs_are_in_the_checkout():
     """Each kernel is built from the package's own source into a library
-    of its own in the gitignored build directory of the checkout."""
+    of its own in the gitignored build directory of the checkout (K2's
+    very-wide instances from K2's wide source, with VERY_WIDE defined)."""
     assert set(kb._SOURCES) == {"nmf_pgm_step", "nmf_pgm_wide",
                                 "nmf_adaprox_step", "nmf_adaprox_wide",
-                                "nmf_grad", "prox_elementwise"}
+                                "nmf_adaprox_vwide", "nmf_grad",
+                                "prox_elementwise"}
+    assert kb._SOURCES["nmf_adaprox_vwide"] == kb._SOURCES["nmf_adaprox_wide"]
+    assert kb._DEFINES["nmf_adaprox_vwide"] == ("VERY_WIDE",)
+    assert (kb._library_path("nmf_adaprox_vwide")
+            != kb._library_path("nmf_adaprox_wide"))
     for name, src in kb._SOURCES.items():
         assert src.is_file() and src.parent.name == "csrc"
         assert kb._library_path(name).name.startswith(f"{name}-")

@@ -218,3 +218,39 @@ def test_unweighted_stride10_overshoot_is_copied_from_jax():
     assert tr.iterations == jr.iterations < 60
     for j, t in zip(jr.x, tr.x):
         assert not np.asarray(j).any() and not bool(t.any())
+
+
+@pytest.mark.parametrize("weighted", [False, True],
+                         ids=["unweighted", "weighted"])
+def test_simplex_stride10_nan_is_copied_from_jax(weighted):
+    """The simplex on S (prox_unity_plus, axis 0) with step_stride=10 from
+    a random start at C=64, K=16, N=10_000 (seed 101): a frozen step
+    overshoots, whole columns of S fall to zero, and the projection divides
+    0 by 0 there. Both packages stop at the same iteration with NaN in the
+    same columns of S and none in A: the port copies the reference here
+    (ROADMAP Queue 3)."""
+    C, K, N = 64, 16, 10_000
+    rng = np.random.default_rng(101)
+    A_true = rng.random((C, K)).astype(np.float32)
+    S_true = rng.random((K, N)).astype(np.float32)
+    Y = (A_true @ S_true
+         + 0.02 * rng.standard_normal((C, N))).astype(np.float32)
+    A0 = rng.random((C, K)).astype(np.float32)
+    S0 = rng.random((K, N)).astype(np.float32)
+    W = ((0.5 + rng.random((C, N))).astype(np.float32) if weighted
+         else None)
+    kw = dict(e_rel=0, max_iter=30, step_stride=10)
+    jr = pt.nmf.nmf(Y, A0.copy(), S0.copy(), W=W, engine="xla",
+                    prox_A=pt.operators.prox_plus,
+                    prox_S=functools.partial(pt.operators.prox_unity_plus,
+                                             axis=0), **kw)
+    tr = ptt.nmf.nmf(Y, A0.copy(), S0.copy(), W=W, engine="torch",
+                     device="cpu", prox_A=ptt.operators.prox_plus,
+                     prox_S=functools.partial(ptt.operators.prox_unity_plus,
+                                              axis=0), **kw)
+    assert tr.iterations == jr.iterations == 12
+    j_nan = np.isnan(np.asarray(jr.x[1])).any(axis=0)
+    t_nan = torch.isnan(tr.x[1]).any(dim=0).numpy()
+    assert j_nan.any() and np.array_equal(t_nan, j_nan)
+    assert not np.isnan(np.asarray(jr.x[0])).any()
+    assert not bool(torch.isnan(tr.x[0]).any())

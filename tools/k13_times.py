@@ -1,8 +1,9 @@
 """Device times of K1 (``fused_nmf_pgm_step``), K3 (``fused_nmf_grad``) and,
-with ``--wide``, of the wide body (K1, K2, K3 and the split passes) of one
-checkout of the port, on a CUDA card.
+with ``--wide``, of the wide body (K1, K2, K3 and the split passes), with
+``--vwide`` of the very-wide tier, of one checkout of the port, on a CUDA
+card.
 
-    python3 tools/k13_times.py [--repo DIR] [--label NAME] [--wide]
+    python3 tools/k13_times.py [--repo DIR] [--label NAME] [--wide | --vwide]
 
 imports ``proxmin_tpu_torch`` from ``DIR`` (default: this checkout), so that
 two checkouts, e.g. a parent commit unpacked with ``git archive``, are
@@ -13,7 +14,14 @@ checkout's ``chip_smoke.make_problem`` (C=5, K=7, N=1e6, seed 101; W in
 ``chip_smoke.WIDE`` (128, 32, 1e6) and ``WIDE_SWEEP`` (64, 16, 250 000), the
 simplex on S for K1, the relative L1 threshold for K2 (both also the
 identity), and K2's wide body at the flagship with the same threshold,
-without and with W.
+without and with W. With ``--vwide``, at ``chip_smoke.VWIDE`` (425, 32,
+1e6), ``VWIDE_K64`` (128, 64, 250 000) and (300, 8, 1e6) from
+``make_unmixing``: K1 with the simplex on S (float32 without and with W,
+the bfloat16 store with W) and both split passes (pass 2 in both stores),
+K2 with the relative L1 threshold (float32 and bfloat16 moments, the
+bfloat16 store, the device-scalar entry) and both split passes, K3; and
+the plain PyTorch versions of K1, K2, K3 and the two second passes
+(timed, not hashed).
 Each case is timed as ``chip_smoke.py`` times it, the least of two
 ``chip_smoke.cuda_ms`` means (20 calls; 10 with ``--wide``). Prints one
 JSON object ``{"label": ..., "ms": {case: ms}, "sha256": {case: [digest
@@ -120,16 +128,89 @@ def wide_cases(cs, kk, nmf, top):
     return cases
 
 
+VWIDE_SHAPES_EXTRA = ((300, 8, 1_000_000),)
+
+
+def vwide_cases(cs, kk, nmf, top, tops):
+    """The very-wide tier's modes at its three shapes; ``(cases, plain)``,
+    the plain versions' calls apart (timed, not hashed)."""
+    import torch
+
+    simplex = partial(top.prox_unity_plus, axis=0)
+    l1 = partial(top.prox_soft_plus, thresh=cs.WIDE_L1, type="relative")
+    tile = kk.DEFAULT_TILE_N
+    bf = torch.bfloat16
+    cases, plain = {}, {}
+    for C, K, N in (cs.VWIDE, cs.VWIDE_K64) + VWIDE_SHAPES_EXTRA:
+        tag = f" ({C}, {K})"
+        Y, A, S, W = cs.make_unmixing(C, K, N)
+        sS = 1.0 / torch.linalg.eigvalsh(A.T @ A)[-1]
+        Sb, Yb, Wb = S.to(bf), Y.to(bf), W.to(bf)
+        M = torch.zeros_like(S)
+        Mb = M.to(bf)
+        al = S.sum(1, keepdim=True) / N / 10
+        sc = nmf._bias_corrections(0.9, 0.999, 3)
+        dsc = torch.tensor([float(v) for v in sc], dtype=torch.float32,
+                           device=S.device)
+        X = kk._pgm_pass1_cuda(A, S, Y, sS, None, tile)[0]
+        P1 = simplex(X, sS).contiguous()
+        pre = kk._adaprox_pass1_cuda(A, S, M, M, Y, al, sc, None, 0.999,
+                                     1e-8, tile)
+        P2 = l1(pre[0], pre[1]).contiguous()
+        cases.update({
+            f"K1 vwide{tag}": partial(kk.fused_nmf_pgm_step, A, S, Y, sS,
+                                      prox_S=simplex),
+            f"K1 vwide W{tag}": partial(kk.fused_nmf_pgm_step, A, S, Y, sS,
+                                        W=W, prox_S=simplex),
+            f"K1 vwide bf16 W{tag}": partial(kk.fused_nmf_pgm_step, A, Sb,
+                                             Yb, sS, W=Wb, prox_S=simplex),
+            f"K1 pass 1{tag}": partial(kk._pgm_pass1_cuda, A, S, Y, sS,
+                                       None, tile),
+            f"K1 pass 2{tag}": partial(kk._pgm_pass2_cuda, S, P1, tile),
+            f"K1 pass 2 bf16{tag}": partial(kk._pgm_pass2_cuda, Sb, P1,
+                                            tile),
+            f"K2 vwide{tag}": partial(kk.fused_nmf_adaprox_step, A, S, M, M,
+                                      Y, al, sc, prox_S=l1),
+            f"K2 vwide bf16m{tag}": partial(kk.fused_nmf_adaprox_step, A, S,
+                                            Mb, Mb, Y, al, sc, prox_S=l1),
+            f"K2 vwide bf16{tag}": partial(kk.fused_nmf_adaprox_step, A, Sb,
+                                           Mb, Mb, Yb, al, sc, prox_S=l1),
+            f"K2 vwide dsc{tag}": partial(kk.fused_nmf_adaprox_step, A, S, M,
+                                          M, Y, al, dsc, prox_S=l1),
+            f"K2 pass 1{tag}": partial(kk._adaprox_pass1_cuda, A, S, M, M, Y,
+                                       al, sc, None, 0.999, 1e-8, tile),
+            f"K2 pass 2{tag}": partial(kk._adaprox_pass2_cuda, S, P2, tile),
+            f"K3 vwide{tag}": partial(tops.fused_nmf_grad, A, S, Y),
+        })
+        plain.update({
+            f"K1 plain{tag}": partial(kk.fused_nmf_pgm_step_reference, A, S,
+                                      Y, sS, prox_S=simplex),
+            f"K1 pass 2 plain{tag}": partial(kk._pgm_pass2_reference, S, P1,
+                                             torch.float32),
+            f"K2 plain{tag}": partial(
+                kk.fused_nmf_adaprox_step_reference, A, S, M, M, Y, al, sc,
+                prox_S=kk.describe_prox(l1, "adaprox", True)),
+            f"K2 pass 2 plain{tag}": partial(kk._adaprox_pass2_reference, S,
+                                             P2, torch.float32),
+            f"K3 plain{tag}": partial(tops.fused_nmf_grad_reference, A, S,
+                                      Y),
+        })
+    return cases, plain
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--repo", default=str(HERE))
     ap.add_argument("--label", default=None)
     ap.add_argument("--wide", action="store_true",
                     help="time the wide body and hash its outputs")
+    ap.add_argument("--vwide", action="store_true",
+                    help="time the very-wide tier and hash its outputs")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.repo).resolve()))
     import torch
     from proxmin_tpu_torch import nmf, operators
+    from proxmin_tpu_torch import ops as tops
     from proxmin_tpu_torch.ops import nmf_kernels as kk
 
     # this checkout's chip_smoke, whichever checkout the kernels come from
@@ -141,7 +222,11 @@ def main():
         print("no CUDA device", file=sys.stderr)
         return 1
     out = {"label": args.label or args.repo}
-    if args.wide:
+    if args.vwide:
+        cases, plain = vwide_cases(cs, kk, nmf, operators, tops)
+        out["ms"] = {case: min(cs.cuda_ms(fn, reps=10) for _ in range(2))
+                     for case, fn in {**cases, **plain}.items()}
+    elif args.wide:
         cases = wide_cases(cs, kk, nmf, operators)
         out["ms"] = {case: min(cs.cuda_ms(fn, reps=10) for _ in range(2))
                      for case, fn in cases.items()}
