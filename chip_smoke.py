@@ -161,9 +161,10 @@ Phases:
    benchmarks/engine_equivalence.py's problem through both engines to
    e_rel 1e-4, held to its ACCEPTANCE bound;
 18. the very-wide path (``very_wide_phase``): hyperspectral unmixing at
-   AVIRIS-NG's width, C=425, K=32, N=1e6, and a K > 32 check at
-   (128, 64, 250 000) on K1-K3's very-wide body, ``nmf(engine="auto")`` on
-   both against the routing table's very-wide rows, and K5 beyond C,
+   AVIRIS-NG's width, C=425, K=32, N=1e6, a K > 32 check at
+   (128, 64, 250 000), a K > 64 one at (128, 96, 4097) and a K > 128 one
+   at (64, 160, 4097) on K1-K3's very-wide bodies, ``nmf(engine="auto")``
+   on the four against the routing table's very-wide rows, and K5 beyond C,
    K <= 8 at (16, 12, 1e6) (see its docstring).
 
 The last two lines are the card (``nvidia-smi`` name and power limit)
@@ -275,7 +276,9 @@ N_WIDE = 200_000
 RING_KERNELS = ("pgm_step_kernel", "adaprox_step_kernel", "nmf_grad_kernel",
                 "pgm_chain_kernel", "pgm_wide_kernel", "adaprox_wide_kernel",
                 "nmf_grad_wide_kernel", "pgm_vwide_kernel",
-                "adaprox_vwide_kernel", "nmf_grad_vwide_kernel")
+                "adaprox_vwide_kernel", "nmf_grad_vwide_kernel",
+                "pgm_kwide_kernel", "adaprox_kwide_kernel",
+                "nmf_grad_kwide_kernel")
 
 
 # The TV denoising problem of benchmarks/admm_scale.py: its seed, penalty
@@ -417,13 +420,19 @@ EQUIV_ACCEPTANCE = {
 # with K = 32 endmembers at the flagship's pixel count, made and solved as
 # phase 15's unmixing (make_unmixing, seed 101: the abundances on the
 # simplex; prox_A non-negativity, prox_S the simplex); beside it a K > 32
-# check at (128, 64, 250_000), two component blocks of 32 (not a user
-# configuration), and K5 beyond C, K <= 8. Solves run VWIDE_ITERS
+# check at (128, 64, 250_000) on the instance of 64 components (not a user
+# configuration), a small K > 64 check at (128, 96, 4097) on the instance
+# of 128, a small K > 128 one at (64, 160, 4097) on the body of blocks of
+# 32, and K5 beyond C, K <= 8. Solves run VWIDE_ITERS
 # iterations and resume after VWIDE_SPLIT; marginals between VWIDE_LO and
 # VWIDE_HI iterations.
 VWIDE = (425, 32, 1_000_000)
 VWIDE_K64 = (128, 64, 250_000)
+VWIDE_K96 = (128, 96, 4097)
+VWIDE_K160 = (64, 160, 4097)
 VWIDE_PACKED = (16, 12, 1_000_000)
+VWIDE_LABELS = (("AVIRIS-NG", VWIDE), ("K > 32", VWIDE_K64),
+                ("K > 64", VWIDE_K96), ("K > 128", VWIDE_K160))
 VWIDE_ITERS, VWIDE_SPLIT = 30, 10
 VWIDE_LO, VWIDE_HI = 5, 15
 
@@ -542,7 +551,8 @@ KERNEL_NAMES = ("pgm_step_kernel", "pgm_step_finalize", "adaprox_step_kernel",
                 "pgm_wide_kernel",
                 "adaprox_wide_kernel", "nmf_grad_wide_kernel",
                 "pgm_vwide_kernel", "adaprox_vwide_kernel",
-                "nmf_grad_vwide_kernel")
+                "nmf_grad_vwide_kernel", "pgm_kwide_kernel",
+                "adaprox_kwide_kernel", "nmf_grad_kwide_kernel")
 MANGLED_TYPES = (("f", "float"), ("d", "double"),
                  ("13__nv_bfloat16", "bfloat16"))
 PROX_OPS = ("plus", "soft", "hard")
@@ -3610,17 +3620,17 @@ def very_wide_phase(mods, card):
     """Phase 18, the very-wide path: K1's compiled chain and split passes,
     K2's (float32 and bfloat16 moments, its device-scalar entry) and K3's
     very-wide instances against their plain versions at C=425, K=32,
-    N=1e6 and at (128, 64, 250_000), two launches bitwise equal, each timed
-    beside its plain version and its bound; K5 beyond C, K <= 8 at
-    (16, 12, 1e6); then nmf(engine="cuda") exact PGM, weighted PGM at
-    stride 10 and AdaProx against engine="torch" at both shapes, the loss
-    falling, 10 + 20 resumed bit for bit, the split path with the prox as
-    a closure (K1, K2, and K3 as pgm's gradient), ``engine="auto"`` on
-    exact PGM and AdaProx against the engine the routing table's rows
-    name (bit for bit, calibration off), and both engines' marginal
-    ms/iter in turns. Returns the times, the errors and the launches of
-    the main path's run per (shape label, kernel, route), for the kernels
-    line."""
+    N=1e6, at (128, 64, 250_000), at (128, 96, 4097) and at
+    (64, 160, 4097), two launches bitwise equal, each timed beside its plain
+    version and its bound; K5 beyond C, K <= 8 at (16, 12, 1e6); then
+    nmf(engine="cuda") exact PGM, weighted PGM at stride 10 and AdaProx
+    against engine="torch" at the four shapes, the loss falling, 10 + 20
+    resumed bit for bit, the split path with the prox as a closure (K1, K2,
+    and K3 as pgm's gradient), ``engine="auto"`` on exact PGM and AdaProx
+    against the engine the routing table's rows name (bit for bit,
+    calibration off), and both engines' marginal ms/iter in turns at the
+    first two. Returns the times, the errors and the launches of the main
+    path's run per (shape label, kernel, route), for the kernels line."""
     algorithms, tnmf, top, tops, kk, sm, calibrate = mods
     k1, k2, k3 = (kk.fused_nmf_pgm_step, kk.fused_nmf_adaprox_step,
                   kk.fused_nmf_grad)
@@ -3649,7 +3659,7 @@ def very_wide_phase(mods, card):
             f"{b[0]:.4f} ms by {b[1]} ({b[0] / k_ms:.1%} of it)")
 
     problems = {}
-    for label, shape in (("AVIRIS-NG", VWIDE), ("K > 32", VWIDE_K64)):
+    for label, shape in VWIDE_LABELS:
         C_, K_, N_ = shape
         t0 = time.perf_counter()
         Y, A0, S0, W = problems[label] = make_unmixing(*shape)
@@ -4006,22 +4016,25 @@ def very_wide_phase(mods, card):
         calibrate.set_auto_calibration(prev)
 
     # marginal ms/iter (host clock), the engines in turns
-    Y, A0, S0, W = problems["AVIRIS-NG"]
-    for p_label, kw, torch_kw in (paths[0], paths[2]):
-        ms = {e: [] for e in ("cuda", "torch")}
-        fns = {e: (lambda n, e=e: tnmf.nmf(
-            Y, A0, S0, prox_A=top.prox_plus, e_rel=0, max_iter=n, engine=e,
-            **kw, **(torch_kw if e == "torch" else {}))) for e in ms}
-        for e in ms:
-            timed(fns[e], 2)
-        for e in ("cuda", "torch", "torch", "cuda"):
-            ms[e].append(marginal_ms(fns[e], VWIDE_LO, VWIDE_HI))
-        log(f"very wide {p_label} [AVIRIS-NG, C={VWIDE[0]} K={VWIDE[1]} "
-            f"N={VWIDE[2]}]: marginal ms/iter cuda {min(ms['cuda']):.4f} "
-            f"({ms['cuda'][0]:.4f}, {ms['cuda'][1]:.4f}), torch "
-            f"{min(ms['torch']):.4f} ({ms['torch'][0]:.4f}, "
-            f"{ms['torch'][1]:.4f}); order cuda, torch, torch, cuda "
-            f"({VWIDE_LO}->{VWIDE_HI} iterations, host clock); on {card}")
+    for label, shape in VWIDE_LABELS[:2]:
+        Y, A0, S0, W = problems[label]
+        for p_label, kw, torch_kw in (paths[0], paths[2]):
+            ms = {e: [] for e in ("cuda", "torch")}
+            fns = {e: (lambda n, e=e: tnmf.nmf(
+                Y, A0, S0, prox_A=top.prox_plus, e_rel=0, max_iter=n,
+                engine=e, **kw, **(torch_kw if e == "torch" else {})))
+                for e in ms}
+            for e in ms:
+                timed(fns[e], 2)
+            for e in ("cuda", "torch", "torch", "cuda"):
+                ms[e].append(marginal_ms(fns[e], VWIDE_LO, VWIDE_HI))
+            log(f"very wide {p_label} [{label}, C={shape[0]} K={shape[1]} "
+                f"N={shape[2]}]: marginal ms/iter cuda "
+                f"{min(ms['cuda']):.4f} ({ms['cuda'][0]:.4f}, "
+                f"{ms['cuda'][1]:.4f}), torch {min(ms['torch']):.4f} "
+                f"({ms['torch'][0]:.4f}, {ms['torch'][1]:.4f}); order cuda, "
+                f"torch, torch, cuda ({VWIDE_LO}->{VWIDE_HI} iterations, "
+                f"host clock); on {card}")
     del problems, Y, A0, S0, W, solves
     torch.cuda.empty_cache()
     return times, results, launched
@@ -4068,8 +4081,8 @@ def main():
     t0 = time.perf_counter()
     built = kb.build_kernels()
     check(set(built) == {"nmf_pgm_step", "nmf_pgm_wide", "nmf_adaprox_step",
-                         "nmf_adaprox_wide", "nmf_adaprox_vwide", "nmf_grad",
-                         "prox_elementwise"},
+                         "nmf_adaprox_wide", "nmf_adaprox_kwide",
+                         "nmf_adaprox_vwide", "nmf_grad", "prox_elementwise"},
           f"built {sorted(built)}")
     root = kb._BUILD_DIR.parents[1]
     for kname, (path, seconds, build_log) in built.items():
@@ -5006,7 +5019,7 @@ def main():
         *(entry(f"{kname}[{route}, C={shape[0]} K={shape[1]}]", source,
                 replaces, v_launched.get((label, kname, r_key), 0),
                 v_err[err_key], *v_times[f"{t_key} [{label}]"])
-          for label, shape in (("AVIRIS-NG", VWIDE), ("K > 32", VWIDE_K64))
+          for label, shape in VWIDE_LABELS
           for kname, route, source, replaces, r_key, err_key, t_key in (
               ("fused_nmf_pgm_step", "very wide", "nmf_pgm_wide.cu", K1_AT,
                "very wide", ("K1", "chain", label, ""), "K1 chain"),

@@ -1,9 +1,10 @@
 // K2 on the wide body (wide_pass.cuh): one S-side AdaProx (proximal Adam,
 // scheme "adam") iteration for C up to 256 channels and K up to 32
 // components, and the two passes of the split path; beyond either bound,
-// for any C and K, on the very-wide tier (vwide_pass.cuh: the wide body's
-// VW instances to K = 32, its own body beyond), every mode, store and
-// moment type, and the device-scalar entry.
+// for any C and K, on the very-wide tier (the wide body's VW instances to
+// K = 32; past it kwide_pass.cuh's body for the chain and split pass 1 up
+// to K = 128, vwide_pass.cuh's for the rest), every mode, store and moment
+// type, and the device-scalar entry.
 //
 // Replaces, beyond the narrow instances of nmf_adaprox_step.cu (C <= 16,
 // K <= 8), the Pallas TPU kernel proxmin_tpu/ops/nmf_kernels.py:525
@@ -42,6 +43,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "kwide_pass.cuh"
+#include "tiers.cuh"
 #include "vwide_pass.cuh"
 #include "wide_pass.cuh"
 
@@ -49,17 +52,24 @@ namespace {
 
 using wide::Args;
 
-// Built twice (ops/_build.py): as nmf_adaprox_wide with the wide body's
-// instances (C <= 256 and K <= 32, and the second pass to K = 32 at any
-// C), and with VERY_WIDE defined as nmf_adaprox_vwide with the very-wide
-// tier's, so that the two halves compile side by side. Each library
-// refuses the other's shapes (cudaErrorInvalidValue); the wrapper picks
-// the library by ops.nmf_kernels.tier.
-#ifdef VERY_WIDE
-constexpr bool kVeryWide = true;
+// Built three times (ops/_build.py), so that the parts compile side by
+// side: as nmf_adaprox_wide with the wide body's instances (C <= 256 and
+// K <= 32, and the second pass to K = 32 at any C); with K_WIDE defined as
+// nmf_adaprox_kwide with the residual modes past K = 32 up to
+// tier::kKwideK (kwide_pass.cuh); with VERY_WIDE defined as
+// nmf_adaprox_vwide with the rest of the very-wide tier's (the wide body's
+// VW instances at C > 256, K <= 32; vwide_pass.cuh's body for the second
+// pass past K = 32 and the residual modes past tier::kKwideK). Each library
+// refuses the others' shapes (cudaErrorInvalidValue); the wrapper picks
+// the library (ops.nmf_kernels._adaprox_library).
+#if defined(K_WIDE)
+constexpr int kPart = 2;
+#elif defined(VERY_WIDE)
+constexpr int kPart = 1;
 #else
-constexpr bool kVeryWide = false;
+constexpr int kPart = 0;
 #endif
+constexpr bool kVeryWide = kPart == 1;
 
 // Built for two blocks of 8 warps per SM (at most 128 registers a thread)
 // where KB = 8 or the pass has no residual, else, and for the very-wide
@@ -87,6 +97,28 @@ __global__ void __launch_bounds__(wide::kThreads, vwide::blocks_per_sm(MODE))
 adaprox_vwide_kernel(Args<ST, MT> a) {
   extern __shared__ __align__(128) unsigned char smem[];
   vwide::body<ST, MT, MODE>(a, smem);
+}
+
+// The very-wide tier's residual modes past K = 32 up to K = 128
+// (kwide_pass.cuh): one block per SM, up to 255 registers.
+template <int KB, typename ST, typename MT, int MODE>
+__global__ void __launch_bounds__(wide::kThreads, 1)
+adaprox_kwide_kernel(Args<ST, MT> a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  kwide::body<KB, ST, MT, MODE>(a, smem);
+}
+
+template <int KB, typename ST, typename MT>
+int launch_kwide(int mode, const Args<ST, MT>& args, float* gA,
+                 float* rowsum, float* stats, cudaStream_t stream) {
+  static wide::LaunchCache cache[2];
+  if (mode == 0)
+    return kwide::launch<KB, ST, MT, wide::kAda>(
+        adaprox_kwide_kernel<KB, ST, MT, wide::kAda>, adaprox_wide_finalize,
+        cache[0], args, gA, rowsum, stats, stream);
+  return kwide::launch<KB, ST, MT, wide::kAdaPre>(
+      adaprox_kwide_kernel<KB, ST, MT, wide::kAdaPre>, adaprox_wide_finalize,
+      cache[1], args, gA, rowsum, stats, stream);
 }
 
 template <typename ST, typename MT, int MODE>
@@ -125,7 +157,7 @@ int launch_kb(int mode, const Args<ST, MT>& args, float* gA, float* rowsum,
     if constexpr (kVeryWide)
       return launch_modes<KB, ST, MT, true>(mode, args, gA, rowsum, stats,
                                             stream);
-  } else if constexpr (!kVeryWide) {
+  } else if constexpr (kPart == 0) {
     return launch_modes<KB, ST, MT, false>(mode, args, gA, rowsum, stats,
                                            stream);
   }
@@ -135,7 +167,18 @@ int launch_kb(int mode, const Args<ST, MT>& args, float* gA, float* rowsum,
 template <typename ST, typename MT>
 int launch_types(int mode, const Args<ST, MT>& args, float* gA,
                  float* rowsum, float* stats, cudaStream_t stream) {
-  if (args.K > wide::kMaxK) {
+  // modes 0 and 1: the passes with a residual
+  const tier::Body body = tier::body_for(true, args.K);
+  if (body == tier::kKwide) {
+    if constexpr (kPart == 2) {
+      if (tier::kb_for(true, args.K) == 64)
+        return launch_kwide<64>(mode, args, gA, rowsum, stats, stream);
+      return launch_kwide<128>(mode, args, gA, rowsum, stats, stream);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  if constexpr (kPart == 2) return (int)cudaErrorInvalidValue;
+  if (body == tier::kVwide) {
     if constexpr (kVeryWide) {
       if (mode == 0)
         return launch_vwide<ST, MT, wide::kAda>(args, gA, rowsum, stats,
@@ -145,7 +188,7 @@ int launch_types(int mode, const Args<ST, MT>& args, float* gA,
     }
     return (int)cudaErrorInvalidValue;
   }
-  switch (wide::kb_for(args.K)) {
+  switch (tier::kb_for(true, args.K)) {
     case 8:
       return launch_kb<8>(mode, args, gA, rowsum, stats, stream);
     case 16:
@@ -162,14 +205,17 @@ int launch_types(int mode, const Args<ST, MT>& args, float* gA,
 template <typename ST>
 int launch_post(const Args<ST, float>& args, float* rowsum, float* stats,
                 cudaStream_t stream) {
+  const bool on_vwide = tier::body_for(false, args.K) == tier::kVwide;
   if constexpr (kVeryWide) {
-    if (args.K > wide::kMaxK)
+    if (on_vwide)
       return launch_vwide<ST, float, wide::kAdaPost>(args, nullptr, rowsum,
                                                      stats, stream);
     return (int)cudaErrorInvalidValue;
+  } else if constexpr (kPart == 2) {
+    return (int)cudaErrorInvalidValue;
   } else {
-    if (args.K > wide::kMaxK) return (int)cudaErrorInvalidValue;
-    switch (wide::kb_for(args.K)) {
+    if (on_vwide) return (int)cudaErrorInvalidValue;
+    switch (tier::kb_for(false, args.K)) {
       case 8:
         return launch_mode<8, ST, float, wide::kAdaPost>(args, nullptr,
                                                          rowsum, stats,
@@ -205,7 +251,8 @@ extern "C" {
 // floats.
 int nmf_adaprox_wide_partials_width(int mode, int C, int K) {
   if (mode < 0 || mode > 2 || C < 1 || K < 1) return -1;
-  if (K <= wide::kMaxK) return wide::entries(mode_of(mode), C, K).total;
+  if (tier::body_for(mode != 2, K) == tier::kWide)
+    return wide::entries(mode_of(mode), C, K).total;
   const long long w = vwide::width(mode_of(mode), C, K);
   return w > 0x7fffffffLL ? -1 : (int)w;
 }

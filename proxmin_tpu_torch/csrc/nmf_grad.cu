@@ -32,14 +32,17 @@
 // through shared memory, the products as register tiles over shared-memory
 // tiles; there the float32 FMAs, about 3 C K + K (K + 1) / 2 per column,
 // and the shared memory's delivery of the tiles' operands bound it. Beyond
-// C = 256 or K = 32, for any C and K, the very-wide tier (vwide_pass.cuh:
-// the wide body's VW instances to K = 32, its own body beyond) runs it.
+// C = 256 or K = 32, for any C and K, the very-wide tier runs it: the wide
+// body's VW instances to K = 32, kwide_pass.cuh's body up to K = 128,
+// vwide_pass.cuh's beyond.
 
 #include <type_traits>
 
 #include <cuda_runtime.h>
 
 #include "pgm_pass.cuh"
+#include "kwide_pass.cuh"
+#include "tiers.cuh"
 #include "vwide_pass.cuh"
 #include "wide_pass.cuh"
 
@@ -92,12 +95,11 @@ nmf_grad_wide_finalize(const float* __restrict__ partials, long long rows,
   wide::finalize(partials, rows, e, half_first, gA, gram, loss);
 }
 
-template <int KB, bool VW>
-int launch_wide(const float* A, const float* S, const float* Y,
-                const float* W, int C, int K, long long N, long long tile_n,
-                float* gA, float* gS, float* gram, float* loss,
-                float* partials, cudaStream_t stream) {
-  static wide::LaunchCache cache;
+// The wide bodies' arguments of K3.
+wide::Args<float, float> wide_args(const float* A, const float* S,
+                                   const float* Y, const float* W, int C,
+                                   int K, long long N, long long tile_n,
+                                   float* gS, float* partials) {
   wide::Args<float, float> args{};
   args.A = A;
   args.S = S;
@@ -110,6 +112,17 @@ int launch_wide(const float* A, const float* S, const float* Y,
   args.n_units = wide::unit_count(N, tile_n);
   args.out = gS;
   args.partials = partials;
+  return args;
+}
+
+template <int KB, bool VW>
+int launch_wide(const float* A, const float* S, const float* Y,
+                const float* W, int C, int K, long long N, long long tile_n,
+                float* gA, float* gS, float* gram, float* loss,
+                float* partials, cudaStream_t stream) {
+  static wide::LaunchCache cache;
+  const wide::Args<float, float> args =
+      wide_args(A, S, Y, W, C, K, N, tile_n, gS, partials);
   return wide::launch<KB, float, float, wide::kGrad, VW>(
       nmf_grad_wide_kernel<KB, VW>, nmf_grad_wide_finalize, cache, args, gA,
       gram, loss, stream);
@@ -128,21 +141,33 @@ int launch_vwide(const float* A, const float* S, const float* Y,
                  float* gA, float* gS, float* gram, float* loss,
                  float* partials, cudaStream_t stream) {
   static wide::LaunchCache cache;
-  wide::Args<float, float> args{};
-  args.A = A;
-  args.S = S;
-  args.Y = Y;
-  args.W = W;
-  args.C = C;
-  args.K = K;
-  args.N = N;
-  args.tile_n = tile_n;
-  args.n_units = wide::unit_count(N, tile_n);
-  args.out = gS;
-  args.partials = partials;
+  const wide::Args<float, float> args =
+      wide_args(A, S, Y, W, C, K, N, tile_n, gS, partials);
   return vwide::launch<float, float, wide::kGrad>(
       nmf_grad_vwide_kernel, nmf_grad_wide_finalize, cache, args, gA, gram,
       loss, stream);
+}
+
+// The very-wide tier past K = 32 up to K = 128 (kwide_pass.cuh): one
+// block per SM, up to 255 registers.
+template <int KB>
+__global__ void __launch_bounds__(wide::kThreads, 1)
+nmf_grad_kwide_kernel(wide::Args<float, float> a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  kwide::body<KB, float, float, wide::kGrad>(a, smem);
+}
+
+template <int KB>
+int launch_kwide(const float* A, const float* S, const float* Y,
+                 const float* W, int C, int K, long long N, long long tile_n,
+                 float* gA, float* gS, float* gram, float* loss,
+                 float* partials, cudaStream_t stream) {
+  static wide::LaunchCache cache;
+  const wide::Args<float, float> args =
+      wide_args(A, S, Y, W, C, K, N, tile_n, gS, partials);
+  return kwide::launch<KB, float, float, wide::kGrad>(
+      nmf_grad_kwide_kernel<KB>, nmf_grad_wide_finalize, cache, args, gA,
+      gram, loss, stream);
 }
 
 bool narrow(int C, int K) { return C >= 1 && K >= 1 && C <= 16 && K <= 8; }
@@ -160,7 +185,8 @@ int nmf_grad_partials_width(int C, int K) {
   if (C < 1 || K < 1) return -1;
   if (C <= 8 && K <= 8) return Layout<8, 8, false>::kP;
   if (narrow(C, K)) return Layout<16, 8, false>::kP;
-  if (K <= wide::kMaxK) return wide::entries(wide::kGrad, C, K).total;
+  if (tier::body_for(true, K) == tier::kWide)
+    return wide::entries(wide::kGrad, C, K).total;
   const long long w = vwide::width(wide::kGrad, C, K);
   return w > 0x7fffffffLL ? -1 : (int)w;
 }
@@ -202,11 +228,19 @@ int nmf_grad_f32(const void* A, const void* S, const void* Y, const void* W,
   if (narrow(C, K))
     return launch<16, 8>(a, s, y, w, C, K, N, tile_n, ga, gs, g, l, pp, strm);
   if (C < 1 || K < 1) return (int)cudaErrorInvalidValue;
-  if (K > wide::kMaxK)
+  const tier::Body body = tier::body_for(true, K);
+  if (body == tier::kVwide)
     return launch_vwide(a, s, y, w, C, K, N, tile_n, ga, gs, g, l, pp, strm);
+  if (body == tier::kKwide) {
+    if (tier::kb_for(true, K) == 64)
+      return launch_kwide<64>(a, s, y, w, C, K, N, tile_n, ga, gs, g, l, pp,
+                              strm);
+    return launch_kwide<128>(a, s, y, w, C, K, N, tile_n, ga, gs, g, l, pp,
+                             strm);
+  }
   auto wide_kb = [&](auto vw) {
     constexpr bool VW = decltype(vw)::value;
-    switch (wide::kb_for(K)) {
+    switch (tier::kb_for(true, K)) {
       case 8:
         return launch_wide<8, VW>(a, s, y, w, C, K, N, tile_n, ga, gs, g, l,
                                   pp, strm);

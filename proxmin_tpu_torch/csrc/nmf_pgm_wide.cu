@@ -1,8 +1,9 @@
 // K1 on the wide body (wide_pass.cuh): one S-side PGM-NMF iteration for C
 // up to 256 channels and K up to 32 components, and the two passes of the
 // split path; beyond either bound, for any C and K, on the very-wide tier
-// (vwide_pass.cuh: the wide body's VW instances to K = 32, its own body
-// beyond), every mode and both stores.
+// (the wide body's VW instances to K = 32; past it kwide_pass.cuh's body
+// for the chain and split pass 1 up to K = 128, vwide_pass.cuh's for the
+// rest), every mode and both stores.
 //
 // Replaces, beyond the narrow instances of nmf_pgm_step.cu (C <= 16,
 // K <= 8), the Pallas TPU kernel proxmin_tpu/ops/nmf_kernels.py:311
@@ -43,6 +44,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "kwide_pass.cuh"
+#include "tiers.cuh"
 #include "vwide_pass.cuh"
 #include "wide_pass.cuh"
 
@@ -75,6 +78,32 @@ __global__ void __launch_bounds__(wide::kThreads, vwide::blocks_per_sm(MODE))
 pgm_vwide_kernel(Args<ST, float> a) {
   extern __shared__ __align__(128) unsigned char smem[];
   vwide::body<ST, float, MODE>(a, smem);
+}
+
+// The very-wide tier's residual modes past K = 32 up to K = 128
+// (kwide_pass.cuh): one block per SM, up to 255 registers.
+template <int KB, typename ST, int MODE>
+__global__ void __launch_bounds__(wide::kThreads, 1)
+pgm_kwide_kernel(Args<ST, float> a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  kwide::body<KB, ST, float, MODE>(a, smem);
+}
+
+template <int KB, typename ST, int MODE>
+int launch_kwide(const Args<ST, float>& args, float* gA, float* gram,
+                 float* stats, cudaStream_t stream) {
+  static wide::LaunchCache cache;
+  return kwide::launch<KB, ST, float, MODE>(pgm_kwide_kernel<KB, ST, MODE>,
+                                            pgm_wide_finalize, cache, args,
+                                            gA, gram, stats, stream);
+}
+
+template <int KB, typename ST>
+int launch_kwide_modes(int mode, const Args<ST, float>& args, float* gA,
+                       float* gram, float* stats, cudaStream_t stream) {
+  if (mode == 0)
+    return launch_kwide<KB, ST, wide::kPgm>(args, gA, gram, stats, stream);
+  return launch_kwide<KB, ST, wide::kPgmPre>(args, gA, gram, stats, stream);
 }
 
 template <typename ST, int MODE>
@@ -126,7 +155,13 @@ int launch_kb(int mode, const Args<ST, float>& args, float* gA, float* gram,
 template <typename ST>
 int launch_store(int mode, const Args<ST, float>& args, float* gA,
                  float* gram, float* stats, cudaStream_t stream) {
-  if (args.K > wide::kMaxK) {
+  const bool residual = mode != 2;
+  if (tier::body_for(residual, args.K) == tier::kKwide) {
+    if (tier::kb_for(residual, args.K) == 64)
+      return launch_kwide_modes<64, ST>(mode, args, gA, gram, stats, stream);
+    return launch_kwide_modes<128, ST>(mode, args, gA, gram, stats, stream);
+  }
+  if (tier::body_for(residual, args.K) == tier::kVwide) {
     switch (mode) {
       case 0:
         return launch_vwide<ST, wide::kPgm>(args, gA, gram, stats, stream);
@@ -140,7 +175,7 @@ int launch_store(int mode, const Args<ST, float>& args, float* gA,
         return (int)cudaErrorInvalidValue;
     }
   }
-  switch (wide::kb_for(args.K)) {
+  switch (tier::kb_for(residual, args.K)) {
     case 8:
       return launch_kb<8, ST>(mode, args, gA, gram, stats, stream);
     case 16:
@@ -169,7 +204,8 @@ extern "C" {
 // floats.
 int nmf_pgm_wide_partials_width(int mode, int C, int K) {
   if (mode < 0 || mode > 2 || C < 1 || K < 1) return -1;
-  if (K <= wide::kMaxK) return wide::entries(mode_of(mode), C, K).total;
+  if (tier::body_for(mode != 2, K) == tier::kWide)
+    return wide::entries(mode_of(mode), C, K).total;
   const long long w = vwide::width(mode_of(mode), C, K);
   return w > 0x7fffffffLL ? -1 : (int)w;
 }

@@ -19,7 +19,10 @@
 // fits, past 13 chunks at KB = 32 in float32, in the row in global memory).
 // One block per SM, up to 255 registers.
 //
-// Beyond K = 32, this body; nothing in it grows with C or K:
+// Past K = 32, the passes with a residual run kwide_pass.cuh's body up to
+// K = 128 (S, gS, gA's tiles and the epilogue's column on chip). Beyond
+// K = 128 they, and the second passes past K = 32, run this body; nothing
+// in it grows with C or K:
 //
 // - Components go in blocks of 32 (nkb = ceil(K / 32)), channels in chunks
 //   of 32, columns in sub-tiles of 256 as in the wide body. Per chunk the
@@ -77,6 +80,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "tiers.cuh"
 #include "wide_pass.cuh"
 
 namespace {
@@ -106,13 +110,22 @@ __host__ __device__ inline int blocks_of(int K) { return (K + kKB - 1) / kKB; }
 __host__ __device__ inline long long scratch_floats(int mode, int K) {
   return (long long)blocks_of(K) * kKB * kSub * (mode == wide::kAda ? 2 : 1);
 }
-// Floats a row of the caller's buffer holds: the row of partial sums, one
-// group's scratch, and the alignment. Allocated as (rows, width) with the
-// wide body's rows (group_count(n_units, 2), at least the groups here),
-// the rows of partial sums come first, then every group's scratch.
+// Whether a pass goes through the scratch: with a residual beyond
+// tier::kKwideK (below, kwide_pass.cuh's body runs it, all on chip), the
+// second passes where the column store does not fit in shared memory.
+__host__ __device__ inline bool uses_scratch(int mode, int K) {
+  if (wide::has_residual(mode)) return K > tier::kKwideK;
+  return kPartFloats * 4 + blocks_of(K) * kKB * kPitchF * 4 > wide::kSmemMax;
+}
+// Floats a row of the caller's buffer holds: the row of partial sums and,
+// where the pass uses it, one group's scratch and the alignment. Allocated
+// as (rows, width) with the wide body's rows (group_count(n_units, 2), at
+// least the groups here), the rows of partial sums come first, then every
+// group's scratch.
 __host__ __device__ inline long long width(int mode, int C, int K) {
-  return wide::entries(mode, C, K).total + scratch_floats(mode, K) +
-         kScratchAlign;
+  return wide::entries(mode, C, K).total +
+         (uses_scratch(mode, K) ? scratch_floats(mode, K) + kScratchAlign
+                                : 0);
 }
 
 // Shared memory, byte offsets from the dynamic base. Passes with a
@@ -593,13 +606,7 @@ __device__ __forceinline__ void body(const Args<ST, MT>& a,
       if constexpr (MODE == wide::kPgm)
         apply_chain_column(a.chain, x, xp, K, [&](int) { return sS; });
     } else if constexpr (MODE == wide::kAda || MODE == wide::kAdaPre) {
-      float b1_t = a.b1_t, bc1 = a.bc1, bc2 = a.bc2;
-      if (a.dsc != nullptr) {
-        b1_t = a.dsc[0];
-        bc1 = a.dsc[1];
-        bc2 = a.dsc[2];
-      }
-      const float one_minus_b1 = __fsub_rn(1.f, b1_t);
+      const wide::AdaSchedule h = wide::ada_schedule(a);
       float* const step = X0 + (long long)KP * kSub + tid;
 #pragma unroll 1
       for (int k = 0; k < K; ++k) {
@@ -609,29 +616,10 @@ __device__ __forceinline__ void body(const Args<ST, MT>& a,
           m0 = to_f32(a.M[gi]);
           v0 = to_f32(a.V[gi]);
         }
-        const float gk = x[k * xp];
-        const float m1 = __fadd_rn(__fmul_rn(one_minus_b1, gk),
-                                   __fmul_rn(b1_t, m0));
-        const float v1 =
-            __fadd_rn(__fmul_rn(a.one_minus_b2, __fmul_rn(gk, gk)),
-                      __fmul_rn(a.b2, v0));
-        const float phi = __fmul_rn(m1, bc1);
-        const float psi = __fadd_rn(__fsqrt_rn(__fmul_rn(v1, bc2)), a.eps);
-        const float psi_safe = (psi < FLT_MIN) ? FLT_MIN : psi;  // keeps NaN
-        const float al = a.alpha[k];
-        const float v =
-            __fsub_rn(s_of(k), __fmul_rn(al, __fdiv_rn(phi, psi_safe)));
-        const float stp = __fdiv_rn(al, psi_safe);
-        if (valid) {
-          store(a.M_out, gi, m1);
-          store(a.V_out, gi, v1);
-          if constexpr (MODE == wide::kAdaPre) {
-            a.pre[gi] = v;
-            a.pre_step[gi] = stp;
-          }
-        }
-        x[k * xp] = v;
-        if constexpr (MODE == wide::kAda) step[k * kSub] = stp;
+        const float2 r = wide::ada_update<MODE>(a, h, gi, k, x[k * xp],
+                                                s_of(k), m0, v0, valid);
+        x[k * xp] = r.x;
+        if constexpr (MODE == wide::kAda) step[k * kSub] = r.y;
       }
       if constexpr (MODE == wide::kAda)
         apply_chain_column(a.chain, x, xp, K,
@@ -747,24 +735,8 @@ __device__ __forceinline__ void body(const Args<ST, MT>& a,
     __syncthreads();
   }
 
-  float sv[3] = {st0, st1, st2};
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    float v = sv[i];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane == 0) red[warp][i] = v;
-  }
-  __syncthreads();
-  if (tid < 3) {
-    float v = red[0][tid];
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w) v += red[w][tid];
-    const int first = wide::has_residual(MODE) ? 0 : 1;
-    const int i = tid - first;
-    if (tid >= first && i < e.stats) row[e.ga + e.mid + i] = v;
-  }
+  wide::block_stats(st0, st1, st2, red, row + e.ga + e.mid,
+                    wide::has_residual(MODE) ? 0 : 1, e.stats);
 }
 
 // Both launches of one pass on `stream`: a block per group of units (one

@@ -93,6 +93,7 @@
 
 #include "bulk_ring.cuh"
 #include "prox_chain.cuh"
+#include "tiers.cuh"
 
 namespace {
 namespace wide {
@@ -103,7 +104,7 @@ constexpr int kSub = 256;        // columns per sub-tile
 constexpr int kPart = kSub;      // columns per work unit at most
 constexpr int kChunk = 32;       // channels per chunk
 constexpr int kMaxC = 256;
-constexpr int kMaxK = 32;
+constexpr int kMaxK = tier::kWideK;
 constexpr int kMaxChunks = kMaxC / kChunk;
 // Groups of units (rows of partial sums) at most, per block an SM holds:
 // one block each, so kGroups groups of blocks that run one per SM, or 2
@@ -393,20 +394,22 @@ __device__ __forceinline__ void zero(__nv_bfloat16& v) {
   v = __float2bfloat16_rn(0.f);
 }
 
-// Four steps k .. k + 3 of (a) for MI rows a, a + 4 AP, ... of A and the 4
-// columns s of a row of S: r[i][j] (+)= A[i][k'] S[k'][j]; kFirst: the
-// chain starts with the product A[i][0] S[0][j].
-template <bool kFirst, int MI, int KB, typename ST>
+// Four steps k .. k + 3 of (a) for MI rows a, a + RS AP, ... of A and the
+// 4 columns s of a row of S (row pitch PS): r[i][j] (+)= A[i][k'] S[k'][j];
+// kFirst: the chain starts with the product A[i][0] S[0][j].
+template <bool kFirst, int MI, int KB, typename ST, int PS = raw_pitch<ST>(),
+          int RS = 4>
 __device__ __forceinline__ void residual_steps(float (&r)[MI][4],
                                                const float* a, const ST* s,
                                                int k) {
-  constexpr int AP = KB + 4, PS = raw_pitch<ST>();
+  constexpr int AP = KB + 4;
   float4 sv[4];
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) sv[kk] = ld4(s + (k + kk) * PS);
 #pragma unroll
   for (int i = 0; i < MI; ++i) {
-    const float4 av = *reinterpret_cast<const float4*>(a + 4 * i * AP + k);
+    const float4 av =
+        *reinterpret_cast<const float4*>(a + RS * i * AP + k);
     const float ak[4] = {av.x, av.y, av.z, av.w};
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
@@ -450,19 +453,19 @@ __device__ __forceinline__ void ldv(float (&v)[MB], const float* p) {
 }
 
 // (b): g[i][j] += the sum over the chunk's channels c < depth, in order, of
-// A[c][k0 + i] D[c][n_j]; a points at A[chunk row 0][k0], d at D[0][n_0].
-template <int KB>
-__device__ __forceinline__ void grad_tile(float (&g)[KB / 4][4],
-                                          const float* a, const float* d,
-                                          int depth) {
-  constexpr int MB = KB / 4, AP = KB + 4;
+// A[c][k0 + i] D[c][n_j] for MB components; a points at A[chunk row 0][k0]
+// (rows of KB + 4 floats), d at D[0][n_0] (rows of DP floats).
+template <int KB, int MB = KB / 4, int DP = kPitchF>
+__device__ __forceinline__ void grad_tile(float (&g)[MB][4], const float* a,
+                                          const float* d, int depth) {
+  constexpr int AP = KB + 4;
 #pragma unroll 1
   for (int c = 0; c < depth; c += 4) {
 #pragma unroll
     for (int cc = 0; cc < 4; ++cc) {
       float av[MB];
       ldv<MB>(av, a + (c + cc) * AP);
-      const float4 dv = ld4(d + (c + cc) * kPitchF);
+      const float4 dv = ld4(d + (c + cc) * DP);
 #pragma unroll
       for (int i = 0; i < MB; ++i) {
         g[i][0] = fmaf(av[i], dv.x, g[i][0]);
@@ -478,22 +481,23 @@ __device__ __forceinline__ void grad_tile(float (&g)[KB / 4][4],
 // of two operands, X (R1 rows) and Z (R2 rows): gA's (c, k) block of a
 // chunk (X = D, Z = S), the Gram (X = Z = S' or S). A thread holds a tile
 // of T1 consecutive rows of X, r1 + i, by T2 rows of Z, r2 + G2 j, summed
-// in column order over one part of the columns, [part kLen, (part + 1)
-// kLen); the parts' sums go through shared memory (rows of kStride floats)
-// and are added in order. A warp shares r1, so whole warps skip rows past
-// a chunk's channels; its lanes take G2 consecutive rows of Z and 32 / G2
-// parts, so that no 8 lanes of a 16-byte load, nor the 32 of a store of
-// the parts' sums, hit one bank twice.
-template <int R1, int R2, int T1, int T2>
+// in column order over one part of a sub-tile's SW columns, [part kLen,
+// (part + 1) kLen); the parts' sums go through shared memory (rows of
+// kStride floats) and are added in order. A warp shares r1, so whole warps
+// skip rows past a chunk's channels; its lanes take G2 consecutive rows of
+// Z (rows 4 banks apart) and 32 / G2 parts, so that no 8 lanes of a
+// 16-byte load, nor the 32 of a store of the parts' sums, hit one bank
+// twice.
+template <int R1, int R2, int T1, int T2, int SW = kSub>
 struct PairMap {
   static constexpr int kT1 = T1, kT2 = T2;
   static constexpr int G1 = R1 / T1, G2 = R2 / T2;
   static constexpr int kParts = kThreads / (G1 * G2);
-  static constexpr int kLen = kSub / kParts;
+  static constexpr int kLen = SW / kParts;
   static constexpr int kEntries = R1 * R2;
   static constexpr int kStride = kEntries + G2;
   static constexpr int kPerThread = (kEntries + kThreads - 1) / kThreads;
-  static_assert(G1 <= kWarps && G2 <= 8 && kLen % 4 == 0 &&
+  static_assert(G1 <= kWarps && G2 <= 32 && kLen % 4 == 0 &&
                     kParts * kStride <= kPartFloats,
                 "a tile map that does not fit the block");
   int part, r1, r2;
@@ -564,6 +568,189 @@ __device__ __forceinline__ void add_parts(const float* buf,
       for (int p = 1; p < PM::kParts; ++p) v += buf[p * PM::kStride + e];
       out[m] += v;
     }
+  }
+}
+
+// The pieces the bodies share (this one, kwide_pass.cuh's and, for the
+// epilogue and the statistics, vwide_pass.cuh's).
+
+// Warp 0 issues a fill's bulk copies on `bar`, a row a lane, once lane 0
+// has set the barrier's byte count; the other warps return.
+template <typename CopyRow>
+__device__ __forceinline__ void bulk_rows(uint64_t* bar, uint32_t bytes,
+                                          int n_rows, CopyRow&& copy_row) {
+  const int lane = threadIdx.x & 31;
+  if ((threadIdx.x >> 5) != 0) return;
+  // the buffer was last used through the generic proxy
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  if (lane == 0) mbar_arrive_expect_tx(bar, bytes);
+  __syncwarp();
+  for (int r = lane; r < n_rows; r += 32) copy_row(r);
+}
+
+// Rows r0 .. r0 + rows - 1 of src (rows N elements apart), columns c0 ..
+// c0 + width - 1, into dst (rows P elements apart), complete on `bar`: by
+// bulk copies where `bulk` (every row's ends 16-byte aligned), else the
+// threads copy them and thread 0 arrives. Every thread calls it.
+template <int P, typename T>
+__device__ __forceinline__ void fill_rows(T* dst, const T* src, long long N,
+                                          int r0, int rows, long long c0,
+                                          int width, bool bulk,
+                                          uint64_t* bar) {
+  constexpr int ts = sizeof(T);
+  if (bulk) {
+    bulk_rows(bar, (uint32_t)(rows * width * ts), rows, [&](int r) {
+      bulk_load(dst + r * P, src + (long long)(r0 + r) * N + c0, width * ts,
+                bar);
+    });
+    return;
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int r = warp; r < rows; r += kWarps) {
+    const long long gi = (long long)(r0 + r) * N + c0;
+    for (int n = lane; n < width; n += 32) dst[r * P + n] = src[gi + n];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) mbar_arrive(bar);
+}
+
+// K2's schedule: b1_t and the bias corrections (from the card where the
+// caller gave them there), and 1 - b1_t in float32, as the TPU kernel
+// computes it from its float32 scalar.
+struct AdaSchedule {
+  float b1_t, bc1, bc2, one_minus_b1;
+};
+template <typename ST, typename MT>
+__device__ __forceinline__ AdaSchedule ada_schedule(const Args<ST, MT>& a) {
+  AdaSchedule h{a.b1_t, a.bc1, a.bc2, 0.f};
+  if (a.dsc != nullptr) {
+    h.b1_t = a.dsc[0];
+    h.bc1 = a.dsc[1];
+    h.bc2 = a.dsc[2];
+  }
+  h.one_minus_b1 = __fsub_rn(1.f, h.b1_t);
+  return h;
+}
+
+// K2's update of element gi (component k) from its gradient gk, its old
+// value s and its old moments m0, v0: M' and V' (and split pass 1's x and
+// step) stored where `valid`; returns {x, the step alpha_k / Psi_safe}.
+template <int MODE, typename ST, typename MT>
+__device__ __forceinline__ float2 ada_update(const Args<ST, MT>& a,
+                                             const AdaSchedule& h,
+                                             long long gi, int k, float gk,
+                                             float s, float m0, float v0,
+                                             bool valid) {
+  const float m1 =
+      __fadd_rn(__fmul_rn(h.one_minus_b1, gk), __fmul_rn(h.b1_t, m0));
+  const float v1 = __fadd_rn(__fmul_rn(a.one_minus_b2, __fmul_rn(gk, gk)),
+                             __fmul_rn(a.b2, v0));
+  const float phi = __fmul_rn(m1, h.bc1);
+  const float psi = __fadd_rn(__fsqrt_rn(__fmul_rn(v1, h.bc2)), a.eps);
+  const float psi_safe = (psi < FLT_MIN) ? FLT_MIN : psi;  // keeps NaN
+  const float al = a.alpha[k];
+  const float v = __fsub_rn(s, __fmul_rn(al, __fdiv_rn(phi, psi_safe)));
+  const float stp = __fdiv_rn(al, psi_safe);
+  if (valid) {
+    store(a.M_out, gi, m1);
+    store(a.V_out, gi, v1);
+    if constexpr (MODE == kAdaPre) {
+      a.pre[gi] = v;
+      a.pre_step[gi] = stp;
+    }
+  }
+  return make_float2(v, stp);
+}
+
+// K2's old moments of components ka .. kz - 1 of column n from global
+// memory, eight components' loads in flight at once, ahead of the stores
+// that would otherwise hold each next load back; update(k, m0, v0) in
+// order of k.
+template <typename MT, typename Update>
+__device__ __forceinline__ void moments_by_eight(const MT* M, const MT* V,
+                                                 long long N, long long n,
+                                                 int ka, int kz, bool valid,
+                                                 Update&& update) {
+  for (int k0 = ka; k0 < kz; k0 += 8) {
+    float m8[8], v8[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      m8[j] = v8[j] = 0.f;
+      if (valid && k0 + j < kz) {
+        m8[j] = to_f32(M[(long long)(k0 + j) * N + n]);
+        v8[j] = to_f32(V[(long long)(k0 + j) * N + n]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (k0 + j < kz) update(k0 + j, m8[j], v8[j]);
+  }
+}
+
+// S' of components ka .. kz - 1 of column n from the column x (pitch xp):
+// stored where `valid` (into a.out, where given), the stored values kept in
+// x for the Gram or the row sums, and |S' - S|^2, |S'|^2 added into st1,
+// st2 (s_of(k): the old S).
+template <typename ST, typename MT, typename SOf>
+__device__ __forceinline__ void store_column(const Args<ST, MT>& a,
+                                             float* x, int xp, int ka,
+                                             int kz, bool valid, long long n,
+                                             SOf&& s_of, float& st1,
+                                             float& st2) {
+#pragma unroll 4
+  for (int k = ka; k < kz; ++k) {
+    float xs = 0.f;
+    if (valid) {
+      xs = x[k * xp];
+      if (a.out != nullptr) xs = store(a.out, (long long)k * a.N + n, xs);
+      const float dk = xs - s_of(k);
+      st1 = fmaf(dk, dk, st1);
+      st2 = fmaf(xs, xs, st2);
+    }
+    x[k * xp] = xs;
+  }
+}
+
+// K2's row sums: thread t's part rs into pb[t], then thread k < K adds row
+// k's kRowParts parts in order into out[k].
+template <int kRowParts>
+__device__ __forceinline__ void row_sums(float* pb, float rs, int K,
+                                         float* out) {
+  const int tid = threadIdx.x;
+  pb[tid] = rs;
+  __syncthreads();
+  if (tid < K) {
+    float v = pb[tid * kRowParts];
+#pragma unroll
+    for (int p = 1; p < kRowParts; ++p) v += pb[tid * kRowParts + p];
+    out[tid] = v;
+  }
+}
+
+// The block's sums of the threads' statistics st0 (the loss), st1, st2
+// (|S' - S|^2, |S'|^2): each warp's by shuffles, then the warps' in order;
+// thread i < 3 stores its sum at out[i - first] where first <= i < first +
+// n. red: kWarps x 3 floats of shared memory.
+__device__ __forceinline__ void block_stats(float st0, float st1, float st2,
+                                            float (*red)[3], float* out,
+                                            int first, int n) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float sv[3] = {st0, st1, st2};
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    float v = sv[i];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      v += __shfl_down_sync(0xffffffffu, v, off);
+    if (lane == 0) red[warp][i] = v;
+  }
+  __syncthreads();
+  if (tid < 3) {
+    float v = red[0][tid];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) v += red[w][tid];
+    const int i = tid - first;
+    if (tid >= first && i < n) out[i] = v;
   }
 }
 
@@ -701,17 +888,6 @@ __device__ __forceinline__ void body(const Args<ST, MT>& a,
     return (int)lmin(kSub, hi - c0);
   };
   auto s_buf = [&](int t) { return L.n_s == 2 ? (t & 1) : 0; };
-  // Warp 0 issues a fill's bulk copies, a row a lane, once lane 0 has set
-  // the barrier's byte count.
-  auto bulk_rows = [&](uint64_t* bar, uint32_t bytes, int n_rows,
-                       auto&& copy_row) {
-    if (warp != 0) return;
-    // the buffer was last used through the generic proxy
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    if (lane == 0) mbar_arrive_expect_tx(bar, bytes);
-    __syncwarp();
-    for (int r = lane; r < n_rows; r += 32) copy_row(r);
-  };
 
   // S (pass 2: and P) of sub-tile t into its buffers; every thread calls
   // it.
@@ -746,22 +922,10 @@ __device__ __forceinline__ void body(const Args<ST, MT>& a,
     const int t = q / nch, ch = q - t * nch;
     long long c0;
     const int width = sub_cols(t, c0);
-    const int r0 = ch * kChunk, rows = min(kChunk, C - r0);
-    ST* dy = reinterpret_cast<ST*>(ring + (q & 1) * L.stage);
-    if (bulk_ok(c0, width)) {
-      bulk_rows(&full[q & 1], (uint32_t)(rows * width * ss), rows,
-                [&](int r) {
-                  bulk_load(dy + r * PS, a.Y + (long long)(r0 + r) * N + c0,
-                            width * ss, &full[q & 1]);
-                });
-      return;
-    }
-    for (int r = warp; r < rows; r += kWarps) {
-      const long long gi = (long long)(r0 + r) * N + c0;
-      for (int n = lane; n < width; n += 32) dy[r * PS + n] = a.Y[gi + n];
-    }
-    __syncthreads();
-    if (tid == 0) mbar_arrive(&full[q & 1]);
+    const int r0 = ch * kChunk;
+    fill_rows<PS>(reinterpret_cast<ST*>(ring + (q & 1) * L.stage), a.Y, N,
+                  r0, min(kChunk, C - r0), c0, width, bulk_ok(c0, width),
+                  &full[q & 1]);
   };
 
   // K2's M and V of sub-tile t into their buffers; every thread calls it.
@@ -1042,65 +1206,24 @@ __device__ __forceinline__ void body(const Args<ST, MT>& a,
       }
     } else if constexpr (MODE == kAda || MODE == kAdaPre) {
       // the schedule, read here (not held through the main loop)
-      float b1_t = a.b1_t, bc1 = a.bc1, bc2 = a.bc2;
-      if (a.dsc != nullptr) {
-        b1_t = a.dsc[0];
-        bc1 = a.dsc[1];
-        bc2 = a.dsc[2];
-      }
-      // (1 - b1_t) in f32, as the TPU kernel computes it from its f32 scalar
-      const float one_minus_b1 = __fsub_rn(1.f, b1_t);
+      const AdaSchedule h = ada_schedule(a);
       // the per-element step alpha_k / Psi_safe beside the column, in the
       // parts' buffer (free until the next chunk)
       float* const step = parts + tid;
       if (L.mv_bytes) mbar_wait(&mvfull, (uint32_t)(t & 1));
       // the update of component k from its old moments
       auto update = [&](int k, float m0, float v0) {
-        const long long gi = k * N + n;
-        const float gk = x[k * PF];
-        const float m1 = __fadd_rn(__fmul_rn(one_minus_b1, gk),
-                                   __fmul_rn(b1_t, m0));
-        const float v1 =
-            __fadd_rn(__fmul_rn(a.one_minus_b2, __fmul_rn(gk, gk)),
-                      __fmul_rn(a.b2, v0));
-        const float phi = __fmul_rn(m1, bc1);
-        const float psi = __fadd_rn(__fsqrt_rn(__fmul_rn(v1, bc2)), a.eps);
-        const float psi_safe = (psi < FLT_MIN) ? FLT_MIN : psi;  // keeps NaN
-        const float al = a.alpha[k];
-        const float v =
-            __fsub_rn(s_of(k), __fmul_rn(al, __fdiv_rn(phi, psi_safe)));
-        const float stp = __fdiv_rn(al, psi_safe);
-        if (valid) {
-          store(a.M_out, gi, m1);
-          store(a.V_out, gi, v1);
-          if constexpr (MODE == kAdaPre) {
-            a.pre[gi] = v;
-            a.pre_step[gi] = stp;
-          }
-        }
-        x[k * PF] = v;
-        step[k * kSub] = stp;
+        const float2 r = ada_update<MODE>(a, h, k * N + n, k, x[k * PF],
+                                          s_of(k), m0, v0, valid);
+        x[k * PF] = r.x;
+        step[k * kSub] = r.y;
       };
       constexpr bool kBatch = VW && std::is_same<MT, float>::value;
       if (kBatch && L.mv_bytes == 0) {
         // float32 M and V from global memory (at KB = 32 they do not fit
-        // beside gA's tiles): eight components' loads in flight at once,
-        // ahead of the stores that would otherwise hold each next load back
-        // (measured slower with bfloat16 moments, which keep the loop below)
-        for (int k0 = 0; k0 < K; k0 += 8) {
-          float m8[8], v8[8];
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            m8[j] = v8[j] = 0.f;
-            if (valid && k0 + j < K) {
-              m8[j] = to_f32(a.M[(k0 + j) * N + n]);
-              v8[j] = to_f32(a.V[(k0 + j) * N + n]);
-            }
-          }
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            if (k0 + j < K) update(k0 + j, m8[j], v8[j]);
-        }
+        // beside gA's tiles), batched (measured slower with bfloat16
+        // moments, which keep the loop below)
+        moments_by_eight(a.M, a.V, N, n, 0, K, valid, update);
       } else {
 #pragma unroll(kUpdateUnroll)
         for (int k = 0; k < K; ++k) {
@@ -1110,30 +1233,10 @@ __device__ __forceinline__ void body(const Args<ST, MT>& a,
             m0 = to_f32(L.mv_bytes ? Mb[k * PM + tid] : a.M[gi]);
             v0 = to_f32(L.mv_bytes ? Vb[k * PM + tid] : a.V[gi]);
           }
-          const float gk = x[k * PF];
-          const float m1 = __fadd_rn(__fmul_rn(one_minus_b1, gk),
-                                     __fmul_rn(b1_t, m0));
-          const float v1 =
-              __fadd_rn(__fmul_rn(a.one_minus_b2, __fmul_rn(gk, gk)),
-                        __fmul_rn(a.b2, v0));
-          const float phi = __fmul_rn(m1, bc1);
-          const float psi =
-              __fadd_rn(__fsqrt_rn(__fmul_rn(v1, bc2)), a.eps);
-          const float psi_safe = (psi < FLT_MIN) ? FLT_MIN : psi;
-          const float al = a.alpha[k];
-          const float v =
-              __fsub_rn(s_of(k), __fmul_rn(al, __fdiv_rn(phi, psi_safe)));
-          const float stp = __fdiv_rn(al, psi_safe);
-          if (valid) {
-            store(a.M_out, gi, m1);
-            store(a.V_out, gi, v1);
-            if constexpr (MODE == kAdaPre) {
-              a.pre[gi] = v;
-              a.pre_step[gi] = stp;
-            }
-          }
-          x[k * PF] = v;
-          step[k * kSub] = stp;
+          const float2 r = ada_update<MODE>(a, h, gi, k, x[k * PF], s_of(k),
+                                            m0, v0, valid);
+          x[k * PF] = r.x;
+          step[k * kSub] = r.y;
         }
       }
       if constexpr (MODE == kAda)
@@ -1147,20 +1250,7 @@ __device__ __forceinline__ void body(const Args<ST, MT>& a,
     }
     if constexpr (has_update(MODE)) {
       // store S' and keep the stored values for the sums
-#pragma unroll 4
-      for (int k = 0; k < K; ++k) {
-        float xs = 0.f;
-        if (valid) {
-          xs = x[k * PF];
-          if (a.out != nullptr) xs = store(a.out, k * N + n, xs);
-          const float dk = xs - s_of(k);
-          st1 = fmaf(dk, dk, st1);
-          st2 = fmaf(xs, xs, st2);
-        }
-        x[k * PF] = xs;
-      }
-    }
-    if constexpr (has_update(MODE)) {
+      store_column(a, x, PF, 0, K, valid, n, s_of, st1, st2);
       __syncthreads();  // S' is in shared memory
       if constexpr (has_gram(MODE)) {
         gram(Gs, PF);
@@ -1221,35 +1311,12 @@ __device__ __forceinline__ void body(const Args<ST, MT>& a,
       if (i < KB * KB && r < K && k < K) row[e.ga + r * K + k] = gr[m];
     }
   }
-  if constexpr (has_rowsum(MODE)) {
-    parts[tid] = rs;  // the parts' buffer is free after the last barrier
-    __syncthreads();
-    if (tid < K) {
-      float v = parts[tid * kRowParts];
-#pragma unroll
-      for (int p = 1; p < kRowParts; ++p) v += parts[tid * kRowParts + p];
-      row[e.ga + tid] = v;
-    }
-  }
-  float sv[3] = {st0, st1, st2};
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    float v = sv[i];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane == 0) red[warp][i] = v;
-  }
-  __syncthreads();
-  if (tid < 3) {
-    float v = red[0][tid];
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w) v += red[w][tid];
-    // [loss] from st0, [|S' - S|^2, |S'|^2] from st1, st2
-    const int first = has_residual(MODE) ? 0 : 1;
-    const int i = tid - first;
-    if (tid >= first && i < e.stats) row[e.ga + e.mid + i] = v;
-  }
+  // (the parts' buffer is free after the last barrier)
+  if constexpr (has_rowsum(MODE))
+    row_sums<kRowParts>(parts, rs, K, row + e.ga);
+  // [loss] from st0, [|S' - S|^2, |S'|^2] from st1, st2
+  block_stats(st0, st1, st2, red, row + e.ga + e.mid,
+              has_residual(MODE) ? 0 : 1, e.stats);
 }
 
 // The second launch: a block per 32 entries; warp w sums the group rows w,
@@ -1318,11 +1385,6 @@ int launch(Kernel kernel, Finalize fin, LaunchCache& lc,
   fin<<<(e.total + 31) / 32, kFinThreads, 0, stream>>>(
       args.partials, groups, e, has_residual(MODE), gA, mid, stats);
   return (int)cudaGetLastError();
-}
-
-// The component bound of the instance that serves K, or 0 beyond 32.
-inline int kb_for(int K) {
-  return K <= 8 ? 8 : (K <= 16 ? 16 : (K <= kMaxK ? 32 : 0));
 }
 
 }  // namespace wide

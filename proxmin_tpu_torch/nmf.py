@@ -155,8 +155,10 @@ def _fused_prox_safe(prox, block):
 #: engines apart around that crossover (their pair slopes overlapped, or
 #: between the two swept N that straddle it); None without a crossover.
 #: A shape takes the entry of the smallest swept (C, K) that covers it, and
-#: the torch engine where none does. The very-wide rows (300, 8), (128, 64)
-#: and (425, 32) were swept at N = 1e5 and 1e6 only.
+#: the torch engine where none does. The very-wide rows (300, 8), (128, 64),
+#: (425, 32) and (128, 128) were swept at N = 1e5 and 1e6 only; (128, 64)
+#: again, and (128, 128) first, once the residual modes past K = 32 kept
+#: everything on chip (``csrc/kwide_pass.cuh``).
 _H100_REGIONS = {
     "pgm-exact": {
         (5, 7): (1_000_000, (10_000, 1_000_000)),
@@ -164,7 +166,8 @@ _H100_REGIONS = {
         (32, 16): (100_000, (10_000, 100_000)),
         (64, 16): (1_000_000, (10_000, 999_999)),
         (128, 32): (100_000, (10_000, 100_000)),
-        (128, 64): (None, None),
+        (128, 64): (0, None),
+        (128, 128): (None, None),
         (256, 32): (1_000_000, (10_000, 999_999)),
         (300, 8): (0, None),
         (425, 32): (0, None),
@@ -175,7 +178,8 @@ _H100_REGIONS = {
         (32, 16): (1_000_000, (100_001, 1_000_000)),
         (64, 16): (100_000, (10_000, 100_000)),
         (128, 32): (100_000, (10_000, 100_000)),
-        (128, 64): (None, None),
+        (128, 64): (1_000_000, (100_001, 999_999)),
+        (128, 128): (None, None),
         (256, 32): (1_000_000, (100_000, 999_999)),
         (300, 8): (1_000_000, (100_001, 999_999)),
         (425, 32): (0, None),
@@ -186,7 +190,8 @@ _H100_REGIONS = {
         (32, 16): (1_000_000, (10_000, 1_000_000)),
         (64, 16): (100_000, (10_000, 99_999)),
         (128, 32): (0, None),
-        (128, 64): (None, None),
+        (128, 64): (1_000_000, (100_000, 999_999)),
+        (128, 128): (None, None),
         (256, 32): (100_000, (10_001, 100_000)),
         (300, 8): (1_000_000, (100_000, 999_999)),
         (425, 32): (0, None),
@@ -198,6 +203,7 @@ _H100_REGIONS = {
         (64, 16): (0, None),
         (128, 32): (0, None),
         (128, 64): (0, None),
+        (128, 128): (0, None),
         (256, 32): (1_000_000, (10_000, 999_999)),
         (300, 8): (1_000_000, (100_000, 999_999)),
         (425, 32): (0, None),
@@ -236,8 +242,10 @@ def _unweighted_fused_wins(C, K, N):
     2.6-3.6x at 1e7; from 1e5 at (32, 16) and (128, 32), at every N at
     (16, 8). Past C = 256 (the very-wide rows) the cuda engine won at
     1e5 and 1e6 at (300, 8) and (425, 32) (1.32x at (425, 32, 1e6)); at
-    (128, 64) the torch engine was the faster or tied (the very-wide
-    body's second component block runs gS and the epilogue through L2).
+    (128, 64) too since the residual modes past K = 32 keep gS and the
+    epilogue on chip (1.25x at 1e6, within the spread at 1e5; the torch
+    engine was the faster before); at (128, 128) the torch engine (1.02x
+    at 1e6, within the spread at 1e5).
     Inside the gray ranges the probes decide
     (:mod:`proxmin_tpu_torch.calibrate`)."""
     return _cuda_wins("pgm-exact", C, K, N)

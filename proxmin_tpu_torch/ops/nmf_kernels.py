@@ -92,9 +92,13 @@ DEFAULT_TILE_N = 4096
 
 #: The tiers' bounds: the narrow instances take C <= 16, K <= 8, the wide
 #: body up to C = WIDE_C channels and K = WIDE_K components, the very-wide
-#: body (``csrc/vwide_pass.cuh``) every larger C or K.
+#: tier every larger C or K (the wide body's instances at C > WIDE_C up to
+#: K = WIDE_K, ``csrc/kwide_pass.cuh``'s body for the passes with a
+#: residual beyond, up to K = KWIDE_K, ``csrc/vwide_pass.cuh``'s for the
+#: rest). ``csrc/tiers.cuh`` holds WIDE_K and KWIDE_K for the kernels.
 _NARROW_C, _NARROW_K = 16, 8
 WIDE_C, WIDE_K = 256, 32
+KWIDE_K = 128
 
 _F32_TINY = float(torch.finfo(torch.float32).tiny)
 _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -163,8 +167,11 @@ register("nmf_pgm_step", _declare_pgm_step)
 register("nmf_pgm_wide", _declare_pgm_wide)
 register("nmf_adaprox_step", _declare_adaprox_step)
 register("nmf_adaprox_wide", _declare_adaprox_wide)
-# the very-wide tier's instances of the same source, a library of their own
-# so that the two halves compile side by side
+# the very-wide tier's instances of the same source, in two libraries of
+# their own (the residual modes past K = 32 up to KWIDE_K, and the rest) so
+# that the three parts compile side by side
+register("nmf_adaprox_kwide", _declare_adaprox_wide,
+         source="nmf_adaprox_wide", defines=("K_WIDE",))
 register("nmf_adaprox_vwide", _declare_adaprox_wide,
          source="nmf_adaprox_wide", defines=("VERY_WIDE",))
 register("nmf_grad", _declare_grad)
@@ -802,6 +809,15 @@ def _adaprox_checks(A, S, M, V, Y, alpha_S, scalars, W, tile_n):
 _ADAPROX_ROUTES = ("wide", "split pass 1", "split pass 2")
 
 
+def _adaprox_library(mode, C, K):
+    """The library of ``csrc/nmf_adaprox_wide.cu`` that holds K2's instance
+    for ``mode`` (0 the chain, 1 split pass 1, 2 split pass 2) at (C, K)."""
+    if mode != 2 and WIDE_K < K <= KWIDE_K:
+        return "nmf_adaprox_kwide"
+    return ("nmf_adaprox_vwide" if tier(C, K) == "very wide"
+            else "nmf_adaprox_wide")
+
+
 def _adaprox_wide_cuda(mode, A, S, M, V, Y, W, alpha, scalars, b2, eps, P,
                        plan, tile_n, S_new, M_new, V_new, pre, pre_step, gA,
                        rowsum, stats, count=True):
@@ -810,8 +826,7 @@ def _adaprox_wide_cuda(mode, A, S, M, V, Y, W, alpha, scalars, b2, eps, P,
     counters unless ``count`` is False (K5 counts its own)."""
     C, K = A.shape
     N = S.shape[1]
-    lib = _library("nmf_adaprox_vwide" if tier(C, K) == "very wide"
-                   else "nmf_adaprox_wide")
+    lib = _library(_adaprox_library(mode, C, K))
     partials = torch.empty(
         (lib.nmf_adaprox_wide_partials_rows(N, tile_n),
          lib.nmf_adaprox_wide_partials_width(mode, C, K)),

@@ -468,6 +468,15 @@ def test_grad_kernel_refuses_what_it_cannot_run(dev):
 # K1-K3: the compiled prox chains, the split path and the wide body
 
 _P = functools.partial
+
+
+def _chain(thresh):
+    """The simplex, then an absolute soft threshold, twice."""
+    return top.AlternatingProjections(
+        [_P(top.prox_unity_plus, axis=0),
+         _P(top.prox_soft_plus, thresh=thresh, type="absolute")], repeat=2)
+
+
 # prox_S cases: a compiled chain for each code (thresholds relative to the
 # step or absolute) and the split path (a user closure, a pixel-coupled
 # prox, prox_max_entropy)
@@ -480,9 +489,7 @@ _PROX_CASES = {
     "soft_rel": _P(top.prox_soft, thresh=4.0),
     "soft_plus_abs": _P(top.prox_soft_plus, thresh=0.05, type="absolute"),
     "unity_plus": _P(top.prox_unity_plus, axis=0),
-    "chain": top.AlternatingProjections(
-        [_P(top.prox_unity_plus, axis=0),
-         _P(top.prox_soft_plus, thresh=0.05, type="absolute")], repeat=2),
+    "chain": _chain(0.05),
     "split_closure": lambda x, s: top.prox_unity_plus(x, s, axis=0),
     "split_axis1": _P(top.prox_unity_plus, axis=1),
 }
@@ -761,15 +768,17 @@ def test_wide_instances_keep_their_bits(dev):
 
 
 def _vwide_bit_cases(dev):
-    """The very-wide tier's modes at (425, 32, 1000), (128, 64, 500) and
-    (600, 8, 129), with W, from seeded inputs: name -> (a call, the indices
-    of its per-column outputs) that test_very_wide_columns_keep_their_bits
-    hashes: S' (K1, every mode and both stores), S1, M' and V' (K2, both
-    moment types and stores, the device-scalar entry), split pass 1's x
-    and step, and gS (K3)."""
+    """The very-wide tier's modes at (425, 32, 1000), (128, 64, 500),
+    (600, 8, 129), (128, 96, 500) and (64, 160, 300), with W, from seeded
+    inputs: name -> (a call, the indices of its per-column outputs) that
+    test_very_wide_columns_keep_their_bits hashes: S' (K1, every mode, the
+    multi-op chain and both stores), S1, M' and V' (K2, both moment types
+    and stores, the device-scalar entry), split pass 1's x and step, and gS
+    (K3)."""
     cases = {}
     bf = torch.bfloat16
-    for C, K, N in ((425, 32, 1000), (128, 64, 500), (600, 8, 129)):
+    for C, K, N in ((425, 32, 1000), (128, 64, 500), (600, 8, 129),
+                    (128, 96, 500), (64, 160, 300)):
         A, S, Y, W = _problem(dev, C, K, N, weighted=True)
         sS = 1.0 / torch.linalg.eigvalsh(A.T @ A)[-1]
         Sb, Yb, Wb = S.to(bf), Y.to(bf), W.to(bf)
@@ -785,6 +794,9 @@ def _vwide_bit_cases(dev):
             f"K1 unity_plus {tag}": (_P(
                 k1.fused_nmf_pgm_step, A, S, Y, sS, W=W,
                 prox_S=_PROX_CASES["unity_plus"]), (1,)),
+            f"K1 chain {tag}": (_P(
+                k1.fused_nmf_pgm_step, A, S, Y, sS, W=W,
+                prox_S=_vwide_prox("chain", K)), (1,)),
             f"K1 bf16 {tag}": (_P(
                 k1.fused_nmf_pgm_step, A, Sb, Yb, sS, W=Wb,
                 prox_S=_PROX_CASES["soft_plus_abs"]), (1,)),
@@ -814,8 +826,12 @@ def _vwide_bit_cases(dev):
 
 # The digests of _vwide_bit_cases' per-column outputs as the first
 # very-wide body gave them (blocks of 32 components at every K, before the
-# tier took the wide body's instances up to K = 32; an NVIDIA H100 80GB
-# HBM3): the redesign leaves every column's bits as they were.
+# tier took the wide body's instances up to K = 32 and its own instances of
+# 64 and 128 components past it; an NVIDIA H100 80GB HBM3): the redesigns
+# leave every column's bits as they were. The multi-op chain's and
+# (64, 160)'s, the last, are the tree's before the instances of 64 and 128
+# components (the wide body's up to K = 32, blocks of 32 past it), which
+# gave the others' bits.
 _VWIDE_BITS = {
     "K1 unity_plus (425, 32)": ("6b5fcf473824dcfa",),
     "K1 bf16 (425, 32)": ("64ca661f7f6f2433",),
@@ -880,15 +896,63 @@ _VWIDE_BITS = {
         "8bae3e02fdd80c32",
     ),
     "K3 (600, 8)": ("6ad1653f056f07a5",),
+    "K1 unity_plus (128, 96)": ("10a7a517fe1f3c15",),
+    "K1 bf16 (128, 96)": ("74fbc5b1a770e831",),
+    "K1 pass 1 (128, 96)": ("e06fe55132e0f1eb",),
+    "K1 bf16 split (128, 96)": ("f384627169155d42",),
+    "K2 (128, 96)": (
+        "3b02f2a2738f3d23", "88c4fba3f27d27e8", "a60eb11da55786df",
+    ),
+    "K2 bf16 moments (128, 96)": (
+        "80525e5aee6c9996", "e1e8ca76db4be2ae", "345231bb758a6db2",
+    ),
+    "K2 bf16 (128, 96)": (
+        "a4c9c2a22d3381fd", "3610128dcc471c3c", "c7f24b50ca59b7c7",
+    ),
+    "K2 device scalars (128, 96)": (
+        "3b02f2a2738f3d23", "88c4fba3f27d27e8", "a60eb11da55786df",
+    ),
+    "K2 pass 1 (128, 96)": (
+        "561f30cbf0b55720", "4ec33f7b4cbb3dd5", "88c4fba3f27d27e8",
+        "a60eb11da55786df",
+    ),
+    "K3 (128, 96)": ("3fd214da9bfa2981",),
+    "K1 chain (425, 32)": ("b7df9937d97ad3da",),
+    "K1 chain (128, 64)": ("818d37f686f9a3c0",),
+    "K1 chain (600, 8)": ("aa4178d80e34beca",),
+    "K1 chain (128, 96)": ("06592c2ebf66b3b7",),
+    "K1 unity_plus (64, 160)": ("5acac5153bfa8e06",),
+    "K1 chain (64, 160)": ("eae85fb5cd4e7f05",),
+    "K1 bf16 (64, 160)": ("cf358c30cc82f03a",),
+    "K1 pass 1 (64, 160)": ("c86877bd1414332d",),
+    "K1 bf16 split (64, 160)": ("c2a4de47528fcc8f",),
+    "K2 (64, 160)": (
+        "1a2a5189060b7564", "54b6eedef6af013f", "a7d65abff24d9b4a",
+    ),
+    "K2 bf16 moments (64, 160)": (
+        "6d748ddac0cd73ac", "69dab3b6dd914d89", "a04a197aaee40e36",
+    ),
+    "K2 bf16 (64, 160)": (
+        "7e726f0dbce4b159", "3b23fb87aa78e2ef", "7c3ca1f301813263",
+    ),
+    "K2 device scalars (64, 160)": (
+        "1a2a5189060b7564", "54b6eedef6af013f", "a7d65abff24d9b4a",
+    ),
+    "K2 pass 1 (64, 160)": (
+        "4690db3466bdbb25", "11a8ffd81a180ce0", "54b6eedef6af013f",
+        "a7d65abff24d9b4a",
+    ),
+    "K3 (64, 160)": ("ececcb5c8b15821a",),
 }
 
 
 def test_very_wide_columns_keep_their_bits(dev):
     """The very-wide tier's per-column outputs (S', M', V', x and the
-    step, gS) at (425, 32, 1000), (128, 64, 500) and (600, 8, 129), every
-    mode, store and moment type, hash to the digests of the first very-wide
-    body: the redesign changes no column's bits (gA, the Gram, the row
-    sums and the statistics may sum in another order)."""
+    step, gS) at (425, 32, 1000), (128, 64, 500), (600, 8, 129),
+    (128, 96, 500) and (64, 160, 300), every mode, store and moment type,
+    hash to the digests of the first very-wide body: the redesigns change
+    no column's bits (gA, the Gram, the row sums and the statistics may sum
+    in another order)."""
     got = {}
     for name, (fn, idx) in _vwide_bit_cases(dev).items():
         out = fn()
@@ -900,14 +964,25 @@ def test_very_wide_columns_keep_their_bits(dev):
 # K1-K3 on the very-wide tier (C > 256 or K > 32): the shapes at which
 # tests/test_torch_kernel_modes.py holds the plain versions against the JAX
 # kernels, across the bounds C = 256 and K = 32, the component blocks of 8
-# and 16 (K = 3, 8, 12; K = 20 in a block of 32) and of 32 past K = 32
-# (K = 33, 64), with ragged N around a thread's 4 columns and the sub-tile
-# of 256
+# and 16 (K = 3, 8, 12; K = 20 in a block of 32), past K = 32 the
+# instances of 64 and 128 components (K = 33, 64, 65, 96, 128), past
+# K = 128 the body of blocks of 32 (K = 129, 160), with ragged N around a
+# thread's 4 columns and the sub-tiles of 128 and 256
 _VWIDE_SHAPES = [(257, 3, 300), (300, 33, 257), (425, 32, 1000),
                  (64, 33, 4097), (17, 64, 255), (128, 64, 500),
-                 (600, 8, 129), (300, 12, 257), (257, 20, 300)]
+                 (600, 8, 129), (300, 12, 257), (257, 20, 300),
+                 (64, 96, 300), (300, 65, 257), (33, 128, 129),
+                 (33, 129, 129), (64, 160, 300)]
 _VWIDE_CASES = ("zero", "soft_plus_abs", "unity_plus", "chain",
                 "split_closure")
+
+
+def _vwide_prox(case, K):
+    """_PROX_CASES[case], but past K = 64 the chain's threshold is 0.5 / K:
+    its simplex leaves every entry near 1 / K, and a threshold of 0.05 would
+    zero whole columns, whose second simplex divides 0 by 0 (the plain
+    version's S' all NaN at (33, 128, 129))."""
+    return _chain(0.5 / K) if case == "chain" and K > 64 else _PROX_CASES[case]
 
 
 @pytest.mark.parametrize("C,K,N", _VWIDE_SHAPES)
@@ -916,7 +991,7 @@ _VWIDE_CASES = ("zero", "soft_plus_abs", "unity_plus", "chain",
 def test_very_wide_k1_matches_plain_version(dev, C, K, N, case, weighted):
     A, S, Y, W = _problem(dev, C, K, N, weighted)
     sS = 1.0 / torch.linalg.eigvalsh(A.T @ A)[-1]
-    prox = _PROX_CASES[case]
+    prox = _vwide_prox(case, K)
     routes = dict(k1.fused_nmf_pgm_step.route_launches)
     got = _twice(lambda: k1.fused_nmf_pgm_step(A, S, Y, sS, W=W,
                                                prox_S=prox))

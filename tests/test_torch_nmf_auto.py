@@ -255,7 +255,7 @@ def test_beyond_the_kernels_routes_to_torch(routes):
             assert _route(routes, C, K, N, algorithm="adaprox",
                           moment_dtype=torch.bfloat16) == "adaprox cuda"
         assert _route(routes, C, K, 100, tile_n=128) == "pgm cuda"
-    for C, K in ((600, 8), (128, 65), (426, 32)):
+    for C, K in ((600, 8), (128, 129), (426, 32)):
         assert _route(routes, C, K, 10_000_000) == "pgm torch"
         assert _route(routes, C, K, 10_000_000, algorithm="adaprox") == (
             "adaprox torch")

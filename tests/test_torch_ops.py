@@ -9,6 +9,8 @@ but sum the pixel-axis reductions in different orders.
 The CUDA kernel itself is held against the plain version on the card by
 tests/test_torch_cuda.py and chip_smoke.py."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -108,15 +110,19 @@ def test_wrapper_refuses_other_devices():
 def test_build_inputs_are_in_the_checkout():
     """Each kernel is built from the package's own source into a library
     of its own in the gitignored build directory of the checkout (K2's
-    very-wide instances from K2's wide source, with VERY_WIDE defined)."""
+    very-wide instances from K2's wide source, with K_WIDE defined for the
+    residual modes past K = 32 up to 128 and VERY_WIDE for the rest)."""
     assert set(kb._SOURCES) == {"nmf_pgm_step", "nmf_pgm_wide",
                                 "nmf_adaprox_step", "nmf_adaprox_wide",
-                                "nmf_adaprox_vwide", "nmf_grad",
-                                "prox_elementwise"}
-    assert kb._SOURCES["nmf_adaprox_vwide"] == kb._SOURCES["nmf_adaprox_wide"]
-    assert kb._DEFINES["nmf_adaprox_vwide"] == ("VERY_WIDE",)
-    assert (kb._library_path("nmf_adaprox_vwide")
-            != kb._library_path("nmf_adaprox_wide"))
+                                "nmf_adaprox_kwide", "nmf_adaprox_vwide",
+                                "nmf_grad", "prox_elementwise"}
+    for name, define in (("nmf_adaprox_kwide", "K_WIDE"),
+                         ("nmf_adaprox_vwide", "VERY_WIDE")):
+        assert kb._SOURCES[name] == kb._SOURCES["nmf_adaprox_wide"]
+        assert kb._DEFINES[name] == (define,)
+        assert kb._library_path(name) != kb._library_path("nmf_adaprox_wide")
+    assert (kb._library_path("nmf_adaprox_kwide")
+            != kb._library_path("nmf_adaprox_vwide"))
     for name, src in kb._SOURCES.items():
         assert src.is_file() and src.parent.name == "csrc"
         assert kb._library_path(name).name.startswith(f"{name}-")
@@ -128,6 +134,14 @@ def test_build_inputs_are_in_the_checkout():
     ignored = (root / ".gitignore").read_text().split()
     assert "build/" in ignored
     assert "sm_90a" in " ".join(kb._NVCC_FLAGS)
+
+
+def test_tier_bounds_match_the_kernels():
+    """The host's component bounds of the tiers are the kernels' own
+    (csrc/tiers.cuh), which pick the body each pass runs on."""
+    text = (kb._SOURCES["nmf_grad"].parent / "tiers.cuh").read_text()
+    bounds = dict(re.findall(r"constexpr int (k\w+K) = (\d+);", text))
+    assert bounds == {"kWideK": str(k1.WIDE_K), "kKwideK": str(k1.KWIDE_K)}
 
 
 def test_library_hash_covers_only_its_own_source(tmp_path, monkeypatch):

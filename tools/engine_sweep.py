@@ -65,8 +65,9 @@ PROF_LO, PROF_HI = 20, 60
 SHAPES = ((5, 7), (16, 8), (32, 16), (64, 16), (128, 32), (256, 32))
 NS = (10_000, 100_000, 1_000_000, 10_000_000)
 #: The very-wide body's shapes (C > 256 or K > 32): past C = 256 with few
-#: components, AVIRIS-NG's 425 channels, two component blocks.
-VWIDE_SHAPES = ((300, 8), (425, 32), (128, 64))
+#: components, AVIRIS-NG's 425 channels, its instances of 64 and of 128
+#: components.
+VWIDE_SHAPES = ((300, 8), (425, 32), (128, 64), (128, 128))
 VWIDE_NS = (100_000, 1_000_000)
 #: Left out: the torch engine alone would take minutes a point.
 DROP = ((128, 32, 10_000_000), (256, 32, 10_000_000))

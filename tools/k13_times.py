@@ -4,6 +4,7 @@ with ``--wide``, of the wide body (K1, K2, K3 and the split passes), with
 card.
 
     python3 tools/k13_times.py [--repo DIR] [--label NAME] [--wide | --vwide]
+                               [--shapes C,K,N ...]
 
 imports ``proxmin_tpu_torch`` from ``DIR`` (default: this checkout), so that
 two checkouts, e.g. a parent commit unpacked with ``git archive``, are
@@ -15,13 +16,15 @@ checkout's ``chip_smoke.make_problem`` (C=5, K=7, N=1e6, seed 101; W in
 simplex on S for K1, the relative L1 threshold for K2 (both also the
 identity), and K2's wide body at the flagship with the same threshold,
 without and with W. With ``--vwide``, at ``chip_smoke.VWIDE`` (425, 32,
-1e6), ``VWIDE_K64`` (128, 64, 250 000) and (300, 8, 1e6) from
-``make_unmixing``: K1 with the simplex on S (float32 without and with W,
-the bfloat16 store with W) and both split passes (pass 2 in both stores),
-K2 with the relative L1 threshold (float32 and bfloat16 moments, the
-bfloat16 store, the device-scalar entry) and both split passes, K3; and
-the plain PyTorch versions of K1, K2, K3 and the two second passes
-(timed, not hashed).
+1e6), ``VWIDE_K64`` (128, 64, 250 000), (300, 8, 1e6) and (128, 128,
+250 000) from ``make_unmixing``: K1 with the simplex on S (float32
+without and with W, the bfloat16 store with W) and both split passes
+(pass 2 in both stores), K2 with the relative L1 threshold (float32 and
+bfloat16 moments, the bfloat16 store, the device-scalar entry) and both
+split passes, K3; and the plain PyTorch versions of K1, K2, K3 and the two
+second passes (timed, not hashed). ``--shapes`` replaces the very-wide
+shapes by the ones given, e.g. ``--shapes 425,64,250000`` (C past 160, where
+the instance of 64 components keeps gA's last chunks in the group's row).
 Each case is timed as ``chip_smoke.py`` times it, the least of two
 ``chip_smoke.cuda_ms`` means (20 calls; 10 with ``--wide``). Prints one
 JSON object ``{"label": ..., "ms": {case: ms}, "sha256": {case: [digest
@@ -128,12 +131,13 @@ def wide_cases(cs, kk, nmf, top):
     return cases
 
 
-VWIDE_SHAPES_EXTRA = ((300, 8, 1_000_000),)
+VWIDE_SHAPES_EXTRA = ((300, 8, 1_000_000), (128, 128, 250_000))
 
 
-def vwide_cases(cs, kk, nmf, top, tops):
-    """The very-wide tier's modes at its three shapes; ``(cases, plain)``,
-    the plain versions' calls apart (timed, not hashed)."""
+def vwide_cases(cs, kk, nmf, top, tops, shapes=None):
+    """The very-wide tier's modes at its four shapes (or at ``shapes``);
+    ``(cases, plain)``, the plain versions' calls apart (timed, not
+    hashed)."""
     import torch
 
     simplex = partial(top.prox_unity_plus, axis=0)
@@ -141,7 +145,7 @@ def vwide_cases(cs, kk, nmf, top, tops):
     tile = kk.DEFAULT_TILE_N
     bf = torch.bfloat16
     cases, plain = {}, {}
-    for C, K, N in (cs.VWIDE, cs.VWIDE_K64) + VWIDE_SHAPES_EXTRA:
+    for C, K, N in shapes or (cs.VWIDE, cs.VWIDE_K64) + VWIDE_SHAPES_EXTRA:
         tag = f" ({C}, {K})"
         Y, A, S, W = cs.make_unmixing(C, K, N)
         sS = 1.0 / torch.linalg.eigvalsh(A.T @ A)[-1]
@@ -206,6 +210,8 @@ def main():
                     help="time the wide body and hash its outputs")
     ap.add_argument("--vwide", action="store_true",
                     help="time the very-wide tier and hash its outputs")
+    ap.add_argument("--shapes", nargs="+", default=None, metavar="C,K,N",
+                    help="with --vwide: the shapes to time instead")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.repo).resolve()))
     import torch
@@ -223,7 +229,9 @@ def main():
         return 1
     out = {"label": args.label or args.repo}
     if args.vwide:
-        cases, plain = vwide_cases(cs, kk, nmf, operators, tops)
+        shapes = args.shapes and [tuple(int(v) for v in sh.split(","))
+                                  for sh in args.shapes]
+        cases, plain = vwide_cases(cs, kk, nmf, operators, tops, shapes)
         out["ms"] = {case: min(cs.cuda_ms(fn, reps=10) for _ in range(2))
                      for case, fn in {**cases, **plain}.items()}
     elif args.wide:
