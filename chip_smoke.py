@@ -148,6 +148,17 @@ Phases:
    gloo ranks on the same card against the one-rank result; each path's
    marginal ms/iter in turns with the torch engine, its all-reduce calls
    and elements per iteration and its device-to-host copies per iteration;
+   the auto-SPMD routes (``auto_spmd_phase``: ``nmf(mesh=)`` with bsdmm
+   weighted, AdaProx AMSGrad and PGM accelerated, the driver on DTensor
+   shards, against the single-card driver; ``admm`` on the TV denoise with
+   x sharded over columns against its plain solve), with their marginal
+   ms/iter in turns and DTensor's collectives per iteration; the per-rank
+   programs of ``export_nmf_pgm_sharded`` (weighted, stride 10,
+   ``resume=True``: from a fresh start, from the live state and chained,
+   against the straight solve) and ``export_nmf_adaprox_sharded`` (Adam)
+   bit for bit against their live solves, with their ms/iter; and on the
+   two gloo ranks ``nmf(mesh=, algorithm="bsdmm")`` against one rank and
+   each rank's exact PGM program against its live solve;
 17. ``nmf(engine="auto")`` (``routing_phase``): every path of the engine
    sweep (``ROUTE_PATHS``: PGM exact, stride 10, weighted stride 10,
    weighted adaptive, weighted with the bfloat16 store; AdaProx with
@@ -238,6 +249,14 @@ BF16_RULE_AT = 100
 # gained phase 18, then 30 and 150 until the very-wide tier's instances
 # lengthened the build: cut to keep the whole run inside its time limit)
 LO, HI = 30, 120
+# Phases 13, 14, 16 and 17 take their in-turn marginals (the two paths
+# timed alternately, twice each) between TURN_LO and TURN_HI iterations,
+# one run per count (turn_ms): the turns give each path two estimates (cut
+# from LO, HI and two runs per count to keep the run inside its time limit
+# as phase 16 grew). Their launch, read and collective counts per
+# iteration are taken between COUNT_LO and COUNT_HI iterations.
+TURN_LO, TURN_HI = 5, 25
+COUNT_LO, COUNT_HI = 5, 25
 # K4 against its plain version: plus, soft and hard bitwise (one comparison
 # or a few separately rounded operations per element, the same in both);
 # unity elementwise relative, since its sums are taken in another order.
@@ -317,7 +336,7 @@ GRAD_NONE_LO, GRAD_NONE_HI = 20, 70
 # marginals between FN_LO and FN_HI iterations; the batched run to e_rel
 # FN_E_REL stops at FN_MAX_ITER at the latest.
 FN_PATCHES, FN_PATCH_N, FN_SAMPLE = 250, 4000, 10
-FN_LO, FN_HI = 20, 60
+FN_LO, FN_HI = 10, 30
 FN_E_REL, FN_MAX_ITER = 1e-3, 500
 # the TV denoise of the factories and of the TV implicit gradient
 FN_TV_H = 1024
@@ -340,7 +359,9 @@ FN_TV_H = 1024
 # below it): their solutions stay put, and the others move by about the
 # direction's 4.5e-7 per element, far inside the margin. On the CPU at
 # N = 4000 and at 128 x 128 the differences agree to 2.7e-9 and 3.4e-8.
-IFT_MU, IFT_E_REL, IFT_EPS, IFT_RTOL = 1e-2, 1e-13, 1e-3, 1e-4
+# The solves run to e_rel 1e-11 (1e-13 until the run needed the time: the
+# difference above did not change between the two).
+IFT_MU, IFT_E_REL, IFT_EPS, IFT_RTOL = 1e-2, 1e-11, 1e-3, 1e-4
 IFT_MARGIN = 1e-3
 IFT_TV_E_REL, IFT_TV_EPS, IFT_TV_RTOL = 1e-10, 1e-4, 1e-4
 IFT_MAX_ITER = 100_000
@@ -395,7 +416,6 @@ ROUTE_PATHS = {
 }
 ROUTE_SIMPLEX_FROM_C = 64
 ROUTE_ITERS = 20              # auto's solve against the chosen engine's
-ROUTE_LO, ROUTE_HI = 10, 60   # marginal ms/iter, the engines in turns
 # Phase 18 routes its very-wide problems through auto for this many
 # iterations: auto takes the engine the table's rows for them name.
 ROUTE_VWIDE_ITERS = 3
@@ -1007,7 +1027,7 @@ def kernels_of(fn, trace, attempts=3):
                        f"markers around the call: {names}")
 
 
-def launches_of(fn, trace):
+def launches_of(fn):
     """How many CUDA kernels one call of ``fn`` launches, counted on the
     host's side of a ``torch.profiler`` trace: the runtime's launch calls
     inside a ``record_function`` span around the call. Host events carry
@@ -1024,8 +1044,11 @@ def launches_of(fn, trace):
             fn()
         torch.cuda.synchronize()
         time.sleep(TRACE_MARGIN_S)
-    prof.export_chrome_trace(str(trace))
-    events = json.loads(trace.read_text())["traceEvents"]
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(tmp, "launches.json")
+        prof.export_chrome_trace(trace)
+        with open(trace) as fh:
+            events = json.load(fh)["traceEvents"]
     spans = [e for e in events if e.get("name") == "chip_smoke_call"
              and e.get("cat") == "user_annotation"]
     if len(spans) != 1:
@@ -1100,23 +1123,28 @@ def timed(fn, n):
     return time.perf_counter() - t0
 
 
-def marginal_ms(fn, lo, hi):
+def marginal_ms(fn, lo, hi, reps=2):
     """Marginal host-clock ms per iteration of ``fn(n)`` between ``lo`` and
-    ``hi`` iterations, each the least of two runs."""
-    t_lo = min(timed(fn, lo) for _ in range(2))
-    t_hi = min(timed(fn, hi) for _ in range(2))
+    ``hi`` iterations, each the least of ``reps`` runs."""
+    t_lo = min(timed(fn, lo) for _ in range(reps))
+    t_hi = min(timed(fn, hi) for _ in range(reps))
     return (t_hi - t_lo) / (hi - lo) * 1e3
 
 
-def per_iteration(solve, trace, k4_fn=None, n=10):
+def turn_ms(fn, lo=TURN_LO, hi=TURN_HI):
+    """One in-turn marginal ms/iter of ``fn``: one run per count."""
+    return marginal_ms(fn, lo, hi, reps=1)
+
+
+def per_iteration(solve, k4_fn=None, n=10):
     """CUDA kernels (all, and K4 soft's by its wrapper's count where
     ``k4_fn`` is given) and blocking host reads per iteration of
     ``solve(n)``: the difference between a run of ``2 n`` iterations and one
     of ``n``, so what a call does once drops out. Returns them with the
     reads of the ``n``-iteration call."""
-    k_lo = launches_of(lambda: solve(n), trace)
+    k_lo = launches_of(lambda: solve(n))
     before = k4_fn.launches if k4_fn else 0
-    k_hi = launches_of(lambda: solve(2 * n), trace)
+    k_hi = launches_of(lambda: solve(2 * n))
     k4 = k4_fn.launches - before if k4_fn else 0
     r_lo = blocking_reads(lambda: solve(n))
     r_hi = blocking_reads(lambda: solve(2 * n))
@@ -1321,8 +1349,7 @@ def profile_paths(tnmf, algorithms, linop, top, tops, card):
                 f"{k1_us['pgm_step_finalize']:.1f} us/iter; on {card}")
 
 
-def admm_family_phase(mods, problem, loss_pgm, card, every_kernel, soft_fn,
-                      prof_dir):
+def admm_family_phase(mods, problem, loss_pgm, card, every_kernel, soft_fn):
     """Phase 11: the ADMM family on the card (see the module docstring).
     ``mods`` are the port's modules ``(algorithms, linop, tnmf, top,
     tops)``, ``problem`` the flagship ``(Y, A0, S0, Ww)``, ``loss_pgm``
@@ -1349,8 +1376,7 @@ def admm_family_phase(mods, problem, loss_pgm, card, every_kernel, soft_fn,
               f"{gram:.6e} [C={Cl} K={Kl} N={Nl}]: outside [1 - "
               f"{LANCZOS_RTOL:g}, {over:g}]")
         lz_kernels = launches_of(
-            lambda: tnmf._weighted_lipschitz_A(S_l, W_l),
-            prof_dir / "lanczos.json")
+            lambda: tnmf._weighted_lipschitz_A(S_l, W_l))
         lz_reads = blocking_reads(
             lambda: tnmf._weighted_lipschitz_A(S_l, W_l))
         lz_ms = cuda_ms(lambda: tnmf._weighted_lipschitz_A(S_l, W_l), reps=5)
@@ -1424,8 +1450,7 @@ def admm_family_phase(mods, problem, loss_pgm, card, every_kernel, soft_fn,
         for label, solve, nbytes in (("admm", admm_tv, 32 * P),
                                      ("sdmm", sdmm_tv, 56 * P),
                                      ("sdmm K4", sdmm_k4, 56 * P)):
-            kern, k4_it, reads, reads_lo = per_iteration(
-                solve, prof_dir / "admm_family.json", soft_fn)
+            kern, k4_it, reads, reads_lo = per_iteration(solve, soft_fn)
             check(reads_lo >= 10 and reads <= 1.0,
                   f"{label} TV {H}: {reads} blocking reads per iteration "
                   f"({reads_lo} in 10 iterations)")
@@ -1528,8 +1553,7 @@ def admm_family_phase(mods, problem, loss_pgm, card, every_kernel, soft_fn,
         f"segment) and weighted adaptive as {STRIDE} + {ITERS - STRIDE} (a "
         f"refresh boundary) equal {ITERS} straight sweeps bit for bit")
     for label, solve in bs.items():
-        kern, _, reads, reads_lo = per_iteration(
-            solve, prof_dir / "admm_family.json", soft_fn)
+        kern, _, reads, reads_lo = per_iteration(solve, soft_fn)
         log(f"bsdmm [{label}]: {kern:.1f} CUDA kernels per sweep, "
             f"{reads:.2f} blocking host reads per sweep (bsdmm's own one, "
             "and one per eigvalsh of a step; "
@@ -1574,7 +1598,6 @@ def driver_options_phase(mods, problem, card, every_kernel, kernel_fns,
     algorithms, linop, tnmf, top, tops = mods
     Y, A0, S0, Ww = problem
     k1_fn, k2_fn, soft_fn = kernel_fns
-    trace = prof_dir / "driver_options.json"
     loss0 = wloss(A0, S0, Y)
     f = partial(tnmf.log_likelihood, Y=Y)
     grad = partial(tnmf.grad_likelihood, Y=Y)
@@ -1594,7 +1617,7 @@ def driver_options_phase(mods, problem, card, every_kernel, kernel_fns,
         return solve
 
     def counts_of(solve):
-        kern, _, reads, reads_lo = per_iteration(solve, trace)
+        kern, _, reads, reads_lo = per_iteration(solve)
         return kern, reads, reads_lo
 
     # callbacks: NullCallback against no callback, in turns
@@ -1884,8 +1907,7 @@ def driver_options_phase(mods, problem, card, every_kernel, kernel_fns,
             "K2 bf16 store": launches[2], "K4 soft": launches[4]}
 
 
-def functional_phase(mods, problem, card, every_kernel, kernel_fns,
-                     prof_dir):
+def functional_phase(mods, problem, card, every_kernel, kernel_fns):
     """Phase 13: the functional factories on the card (see the module
     docstring). ``mods`` are the port's modules ``(algorithms, linop, tnmf,
     top, tops)``, ``problem`` the flagship ``(Y, A0, S0, Ww)``,
@@ -1896,7 +1918,6 @@ def functional_phase(mods, problem, card, every_kernel, kernel_fns,
     algorithms, linop, tnmf, top, tops = mods
     Y, A0, S0, Ww = problem
     k3_fn, soft_fn = kernel_fns
-    trace = prof_dir / "functional.json"
     launches = {"K3": 0, "K4 soft": 0}
 
     # (a) each factory against its driver, bit for bit
@@ -1980,12 +2001,12 @@ def functional_phase(mods, problem, card, every_kernel, kernel_fns,
         check(reads_f == reads_d,
               f"{label}: {reads_f} blocking reads per iteration, the driver "
               f"{reads_d}")
-        kern_it = (launches_of(lambda: factory(20), trace)
-                   - launches_of(lambda: factory(10), trace)) / 10
+        kern_it = (launches_of(lambda: factory(20))
+                   - launches_of(lambda: factory(10))) / 10
         timed(factory, 5)
         timed(driver, 5)
-        ms_d, ms_f, ms_f2, ms_d2 = (marginal_ms(f, LO, HI) for f in
-                                    (driver, factory, factory, driver))
+        ms_d, ms_f, ms_f2, ms_d2 = (turn_ms(f) for f in (driver, factory,
+                                                         factory, driver))
         log(f"functional [{label}]: equal to its driver bit for bit after "
             f"{ITERS} iterations; "
             + (f"{kern.__name__} launches {k_launches} = {per_it} per "
@@ -2066,12 +2087,12 @@ def functional_phase(mods, problem, card, every_kernel, kernel_fns,
 
         timed(batch_run, 3)
         timed(sample_run, 3)
-        ms_b, ms_s, ms_s2, ms_b2 = (marginal_ms(f, FN_LO, FN_HI) for f in
-                                    (batch_run, sample_run, sample_run,
-                                     batch_run))
+        ms_b, ms_s, ms_s2, ms_b2 = (turn_ms(f, FN_LO, FN_HI)
+                                    for f in (batch_run, sample_run,
+                                              sample_run, batch_run))
         ms_batch, ms_one = min(ms_b, ms_b2), min(ms_s, ms_s2) / FN_SAMPLE
-        launches_b = (launches_of(lambda: batch_run(2 * FN_LO), trace)
-                      - launches_of(lambda: batch_run(FN_LO), trace)) / FN_LO
+        launches_b = (launches_of(lambda: batch_run(2 * FN_LO))
+                      - launches_of(lambda: batch_run(FN_LO))) / FN_LO
         reads_b = (blocking_reads(lambda: batch_run(2 * FN_LO))
                    - blocking_reads(lambda: batch_run(FN_LO))) / FN_LO
         log(f"functional [make_nmf_solver {wl}, torch.func.vmap over {B} "
@@ -2193,10 +2214,43 @@ def functional_phase(mods, problem, card, every_kernel, kernel_fns,
 # at the flagship (each against its driver after ITERS iterations, served by
 # a fresh process that imports torch and proxmin_tpu_torch.ops only), a
 # weighted resume chain, the TV admm/sdmm programs with K4 soft; marginals
-# between LO and HI iterations in turns with the driver, and launches and
-# blocking reads per iteration between EX_LO and EX_HI iterations.
-EX_LO, EX_HI = 10, 110
+# between TURN_LO and TURN_HI
+# iterations in turns with the driver, and launches and blocking reads per
+# iteration between COUNT_LO and COUNT_HI iterations (the TV programs',
+# exported for TURN_LO and HI iterations, between those).
 EX_CHAIN = (10, 15)
+# The fused NMF programs: name -> (kind, the exporter's options).
+EX_FUSED = {
+    "pgm": ("pgm", {}),
+    # with its carries: the resume chain starts from it
+    "pgm_w_stride10": ("pgm", {"weighted": True, "step_stride": STRIDE,
+                               "return_carries": True}),
+    "pgm_w_adaptive": ("pgm", {"weighted": True, "step_stride": STRIDE,
+                               "step_adapt": True}),
+    "pgm_bf16_store": ("pgm", {"store_dtype": torch.bfloat16}),
+    "adaprox_f32": ("adaprox", {}),
+    "adaprox_bf16_moments": ("adaprox", {"moment_dtype": torch.bfloat16}),
+    "pgm_w_stride10_resume": ("pgm", {"weighted": True,
+                                      "step_stride": STRIDE,
+                                      "resume": True}),
+}
+# Every program of the phase is exported in a process of its own, all at
+# once: an export is single-threaded tracing on the host, and one after
+# another they took 130 s of a slow host's phase (the two TV programs at
+# two iteration counts each, 87 s of it).
+EXPORT_SCRIPT = r"""
+import json
+import sys
+import time
+import chip_smoke as cs
+out_dir, name = sys.argv[1], sys.argv[2]
+t0 = time.perf_counter()
+blob = cs.export_program(name)
+seconds = time.perf_counter() - t0
+with open(f"{out_dir}/{name}.pt2", "wb") as fh:
+    fh.write(blob)
+print(json.dumps({"name": name, "seconds": seconds, "mb": len(blob) / 1e6}))
+"""
 SERVE_SCRIPT = r"""
 import sys
 import torch
@@ -2214,6 +2268,98 @@ print("served", len(names))
 """
 
 
+def tv_cases_of(algorithms, linop, tex, tops):
+    """Phase 14's TV programs: name -> (export(n), driver(n), x0, K4
+    launches per iteration), on the TV denoise at TV_SIZES[0]; admm and
+    sdmm with K4 soft as ``prox_g``."""
+    H = TV_SIZES[0][0]
+    _, y_tv = tv_problem(H)
+    Dh, Dv = tv_operators(linop, H)
+    x0_tv = torch.zeros_like(y_tv)
+
+    def prox_quad(x, step):
+        return (x + step * y_tv) / (1.0 + step)
+
+    k4_soft = partial(tops.prox_soft_pallas, thresh=TV_LAM)
+    tv = dict(e_rel=0, e_abs=0)
+    return {
+        "admm_tv_k4": (
+            lambda n: tex.export_admm_solver(
+                (H, H), prox_quad, TV_STEP_F, prox_g=k4_soft, L=Dh,
+                max_iter=n, **tv),
+            lambda n: algorithms.admm(x0_tv, prox_quad, TV_STEP_F,
+                                      prox_g=k4_soft, L=Dh, max_iter=n,
+                                      **tv), x0_tv, 1),
+        "sdmm_tv_k4": (
+            lambda n: tex.export_sdmm_solver(
+                (H, H), prox_quad, TV_STEP_F, [k4_soft] * 2, Ls=[Dh, Dv],
+                max_iter=n, **tv),
+            lambda n: algorithms.sdmm(x0_tv, prox_quad, TV_STEP_F,
+                                      proxs_g=[k4_soft] * 2, Ls=[Dh, Dv],
+                                      max_iter=n, **tv), x0_tv, 2),
+    }
+
+
+def k3_pgm_case(tnmf, tops, Y):
+    """Phase 14's generic program: ``pgm`` with K3 as its gradient at the
+    flagship, ``(grad, options)``."""
+    def k3_grad(A_, S_):
+        return tops.fused_nmf_grad(A_, S_, Y)[:2]
+
+    from proxmin_tpu_torch import operators
+
+    return k3_grad, dict(prox=[operators.prox_plus] * 2, e_rel=0,
+                         max_iter=ITERS)
+
+
+def export_program(name):
+    """The bytes of phase 14's program ``name``, exported in this process:
+    a fused NMF program of EX_FUSED, ``<tv>_<n>`` (a TV program of
+    ``tv_cases_of`` for ``n`` iterations) or ``pgm_k3``. Each is made from
+    the phase's own data (seeded), so the program equals the one the phase
+    would export itself."""
+    from proxmin_tpu_torch import algorithms, linop
+    from proxmin_tpu_torch import export as tex
+    from proxmin_tpu_torch import nmf as tnmf
+    from proxmin_tpu_torch import ops as tops
+
+    if name in EX_FUSED:
+        kind, kw = EX_FUSED[name]
+        exporter = (tex.export_nmf_solver if kind == "pgm"
+                    else tex.export_nmf_adaprox_solver)
+        return exporter(C, K, N, e_rel=0, **kw)
+    if name == "pgm_k3":
+        Y = make_problem(C, K, N, False)[0]
+        grad, kw = k3_pgm_case(tnmf, tops, Y)
+        return tex.export_pgm_solver([(C, K), (K, N)], grad, tnmf.step_pgm,
+                                     **kw)
+    tv_name, n = name.rsplit("_", 1)
+    return tv_cases_of(algorithms, linop, tex, tops)[tv_name][0](int(n))
+
+
+def export_all(out_dir, names):
+    """Export the programs ``names`` in a process each, all at once, into
+    ``out_dir``: ``{name: (seconds, MB)}`` as each process timed its own
+    export."""
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-c", EXPORT_SCRIPT, str(out_dir), name],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name in names}
+    made = {}
+    for name, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            for q in procs.values():
+                q.kill()
+            raise
+        check(proc.returncode == 0,
+              f"export: exporting {name} failed: {err[-3000:]}")
+        info = json.loads(out.strip().splitlines()[-1])
+        made[name] = (info["seconds"], info["mb"])
+    return made
+
+
 def export_phase(mods, problem, card, every_kernel, kernel_fns, prof_dir):
     """Phase 14: the port's exporters on the card (see the module
     docstring). ``mods`` are the port's modules ``(algorithms, linop, tnmf,
@@ -2223,15 +2369,13 @@ def export_phase(mods, problem, card, every_kernel, kernel_fns, prof_dir):
     from proxmin_tpu_torch import export as tex
     from proxmin_tpu_torch.ops import nmf_kernels as kk
 
-    algorithms, linop, tnmf, top, tops = mods
+    algorithms, linop, tnmf, _, tops = mods
     Y, A0, S0, Ww = problem
     k1_fn, k2_fn, k3_fn, soft_fn = kernel_fns
     out_dir = prof_dir.parent / "export"
     out_dir.mkdir(parents=True, exist_ok=True)
-    trace = prof_dir / "export.json"
     launches = {"K1": 0, "K1 bf16 store": 0, "K2 device scalars": 0,
                 "K3": 0, "K4 soft": 0}
-    bf16 = torch.bfloat16
 
     def nmf_case(kind, kw):
         weighted = kw.get("weighted", False)
@@ -2243,57 +2387,60 @@ def export_phase(mods, problem, card, every_kernel, kernel_fns, prof_dir):
                     max_iter=n, store_dtype=kw.get("store_dtype"),
                     step_stride=kw.get("step_stride"),
                     step_adapt=kw.get("step_adapt", False))
-            exporter = tex.export_nmf_solver
         else:
             def driver(n):
                 return tnmf.nmf_adaprox_fused(
                     Y, A0, S0, e_rel=0, max_iter=n,
                     moment_dtype=kw.get("moment_dtype"))
-            exporter = tex.export_nmf_adaprox_solver
-        return data, driver, lambda: exporter(C, K, N, e_rel=0, **kw)
+        return data, driver
 
-    cases = {
-        "pgm": ("pgm", {}),
-        # with its carries: the resume chain below starts from it
-        "pgm_w_stride10": ("pgm", {"weighted": True, "step_stride": STRIDE,
-                                   "return_carries": True}),
-        "pgm_w_adaptive": ("pgm", {"weighted": True, "step_stride": STRIDE,
-                                   "step_adapt": True}),
-        "pgm_bf16_store": ("pgm", {"store_dtype": bf16}),
-        "adaprox_f32": ("adaprox", {}),
-        "adaprox_bf16_moments": ("adaprox", {"moment_dtype": bf16}),
-    }
+    cases = {name: case for name, case in EX_FUSED.items()
+             if not case[1].get("resume")}
+    tv_cases = tv_cases_of(algorithms, linop, tex, tops)
+    names = [*EX_FUSED, "pgm_k3"] + [f"{name}_{n}" for name in tv_cases
+                                     for n in (TURN_LO, HI)]
+    t0 = time.perf_counter()
+    exported = export_all(out_dir, names)
+    log(f"export: {len(names)} programs exported in a process each, all "
+        f"at once, in {time.perf_counter() - t0:.1f} s")
     programs, drivers, inputs, sizes = {}, {}, {}, {}
     for name, (kind, kw) in cases.items():
-        data, driver, export = nmf_case(kind, kw)
+        data, driver = nmf_case(kind, kw)
         t0 = time.perf_counter()
-        blob = export()
-        t_export = time.perf_counter() - t0
-        path = tex.save_exported(out_dir / f"{name}.pt2", blob)
-        t0 = time.perf_counter()
-        programs[name] = tex.load_exported(path)
+        programs[name] = tex.load_exported(out_dir / f"{name}.pt2")
         t_load = time.perf_counter() - t0
         drivers[name] = driver
         inputs[name] = data + (torch.tensor(ITERS, dtype=torch.int32,
                                             device=DEVICE),)
-        sizes[name] = (t_export, len(blob) / 1e6, t_load)
-        log(f"export: {name}: exported in {t_export:.2f} s, "
-            f"{len(blob) / 1e6:.2f} MB, loaded in {t_load:.2f} s")
+        sizes[name] = exported[name] + (t_load,)
+        log(f"export: {name}: exported in {sizes[name][0]:.2f} s, "
+            f"{sizes[name][1]:.2f} MB, loaded in {t_load:.2f} s")
 
-    # served by a fresh process that imports torch and the ops alone
+    # served by a fresh process that imports torch and the ops alone; it
+    # runs while this process checks the programs, and its results are read
+    # before anything is timed
     torch.save(inputs, out_dir / "inputs.pt")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
+    t_serve = time.perf_counter()
+    serving = subprocess.Popen(
         [sys.executable, "-c", SERVE_SCRIPT, str(out_dir), *cases],
-        capture_output=True, text=True, timeout=600)
-    check(proc.returncode == 0,
-          f"export: the serving process failed: {proc.stderr[-3000:]}")
-    log(f"export: a fresh process (torch and proxmin_tpu_torch.ops) served "
-        f"{len(cases)} programs for {ITERS} iterations each in "
-        f"{time.perf_counter() - t0:.1f} s")
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def held(name, where, got, res):
+        same = all(torch.equal(g, w.cpu()) for g, w in zip(got[:2], res.x))
+        diff = max(float((g - w.cpu()).abs().max())
+                   for g, w in zip(got[:2], res.x))
+        check(int(got[2]) == res.iterations == ITERS,
+              f"export: {name} {where}: {int(got[2])} iterations, "
+              f"{res.iterations} driven")
+        check(same, f"export: {name} {where}: the program differs from its "
+                    f"driver after {ITERS} iterations (max |diff| "
+                    f"{diff:.3e})")
+        check(float(got[5]) == res.loss,
+              f"export: {name} {where}: loss {float(got[5])} != {res.loss}")
+
+    driven = {}
     for name, (kind, kw) in cases.items():
-        served = torch.load(out_dir / f"{name}.out.pt")
-        res = drivers[name](ITERS)
+        res = driven[name] = drivers[name](ITERS)
         # the program in this process: its launches are the kernels' count
         reset_counts(every_kernel)
         outs = programs[name](*inputs[name])
@@ -2308,24 +2455,10 @@ def export_phase(mods, problem, card, every_kernel, kernel_fns, prof_dir):
             launches["K2 device scalars"] += n
         check(n == ITERS, f"export: {name}: the program launched its kernel "
                           f"{n} times in {ITERS} iterations")
-        want = tuple(x.cpu() for x in res.x)
-        for where, got in (("in this process", [o.cpu() for o in outs]),
-                           ("served", served)):
-            same = all(torch.equal(g, w) for g, w in zip(got[:2], want))
-            diff = max(float((g - w).abs().max())
-                       for g, w in zip(got[:2], want))
-            check(int(got[2]) == res.iterations == ITERS,
-                  f"export: {name} {where}: {int(got[2])} iterations, "
-                  f"{res.iterations} driven")
-            check(same, f"export: {name} {where}: the program differs from "
-                        f"its driver after {ITERS} iterations (max |diff| "
-                        f"{diff:.3e})")
-            check(float(got[5]) == res.loss,
-                  f"export: {name} {where}: loss {float(got[5])} != "
-                  f"{res.loss}")
+        held(name, "in this process", [o.cpu() for o in outs], res)
         log(f"export: {name}: the program in this process ({n} launches of "
-            f"its kernel in {ITERS} iterations) and served = driver bit for "
-            f"bit after {ITERS} iterations (loss {res.loss:.6e})")
+            f"its kernel in {ITERS} iterations) = driver bit for bit after "
+            f"{ITERS} iterations (loss {res.loss:.6e})")
 
     # the AdaProx driver forms its bias corrections as the programs do,
     # float64 powers rounded to float32: its drift from float32 NumPy
@@ -2357,8 +2490,7 @@ def export_phase(mods, problem, card, every_kernel, kernel_fns, prof_dir):
     # the resume chain: weighted stride 10, fresh 10 with its carries then
     # resume=True for 15, against the straight 25
     fresh = programs["pgm_w_stride10"]
-    cont = tex.load_solver(tex.export_nmf_solver(
-        C, K, N, e_rel=0, weighted=True, step_stride=STRIDE, resume=True))
+    cont = tex.load_exported(out_dir / "pgm_w_stride10_resume.pt2")
     reset_counts(every_kernel)
     straight = fresh(A0, S0, Y, Ww, sum(EX_CHAIN))
     outs = fresh(A0, S0, Y, Ww, EX_CHAIN[0])
@@ -2377,46 +2509,16 @@ def export_phase(mods, problem, card, every_kernel, kernel_fns, prof_dir):
 
     # the TV denoise: admm and sdmm with K4 soft as prox_g, against their
     # drivers bit for bit; max_iter is baked into these programs, so the
-    # marginal takes two of each
-    H = TV_SIZES[0][0]
-    _, y_tv = tv_problem(H)
-    Dh, Dv = tv_operators(linop, H)
-    x0_tv = torch.zeros_like(y_tv)
-
-    def prox_quad(x, step):
-        return (x + step * y_tv) / (1.0 + step)
-
-    k4_soft = partial(tops.prox_soft_pallas, thresh=TV_LAM)
-    tv = dict(e_rel=0, e_abs=0)
-    tv_cases = {
-        "admm_tv_k4": (
-            lambda n: tex.export_admm_solver(
-                (H, H), prox_quad, TV_STEP_F, prox_g=k4_soft, L=Dh,
-                max_iter=n, **tv),
-            lambda n: algorithms.admm(x0_tv, prox_quad, TV_STEP_F,
-                                      prox_g=k4_soft, L=Dh, max_iter=n,
-                                      **tv), 1),
-        "sdmm_tv_k4": (
-            lambda n: tex.export_sdmm_solver(
-                (H, H), prox_quad, TV_STEP_F, [k4_soft] * 2, Ls=[Dh, Dv],
-                max_iter=n, **tv),
-            lambda n: algorithms.sdmm(x0_tv, prox_quad, TV_STEP_F,
-                                      proxs_g=[k4_soft] * 2, Ls=[Dh, Dv],
-                                      max_iter=n, **tv), 2),
-    }
+    # counts take two of each
     tv_programs = {}
-    for name, (export, driver, per_it) in tv_cases.items():
+    for name, (_, driver, x0_tv, per_it) in tv_cases.items():
         made = {}
-        for n in (LO, HI):
+        for n in (TURN_LO, HI):
             t0 = time.perf_counter()
-            blob = export(n)
-            t_export = time.perf_counter() - t0
-            path = tex.save_exported(out_dir / f"{name}_{n}.pt2", blob)
-            t0 = time.perf_counter()
-            made[n] = tex.load_exported(path)
+            made[n] = tex.load_exported(out_dir / f"{name}_{n}.pt2")
             if n == HI:
-                sizes[name] = (t_export, len(blob) / 1e6,
-                               time.perf_counter() - t0)
+                sizes[name] = exported[f"{name}_{n}"] + (
+                    time.perf_counter() - t0,)
         tv_programs[name] = made
         log(f"export: {name}: exported in {sizes[name][0]:.2f} s, "
             f"{sizes[name][1]:.2f} MB, loaded in {sizes[name][2]:.2f} s")
@@ -2436,12 +2538,8 @@ def export_phase(mods, problem, card, every_kernel, kernel_fns, prof_dir):
             "iterations")
 
     # a generic program with K3 as its gradient (export_pgm_solver)
-    def k3_grad(A_, S_):
-        return tops.fused_nmf_grad(A_, S_, Y)[:2]
-
-    pgm_kw = dict(prox=[top.prox_plus] * 2, e_rel=0, max_iter=ITERS)
-    k3_program = tex.load_solver(tex.export_pgm_solver(
-        [(C, K), (K, N)], k3_grad, tnmf.step_pgm, **pgm_kw))
+    k3_grad, pgm_kw = k3_pgm_case(tnmf, tops, Y)
+    k3_program = tex.load_exported(out_dir / "pgm_k3.pt2")
     reset_counts(every_kernel)
     xs_p, it_p, _, _ = k3_program(A0, S0)
     torch.cuda.synchronize()
@@ -2454,6 +2552,21 @@ def export_phase(mods, problem, card, every_kernel, kernel_fns, prof_dir):
         "export: pgm with K3: the program differs from its driver")
     log(f"export: pgm with K3 as grad: program = driver bit for bit after "
         f"{ITERS} iterations")
+
+    try:
+        _, err = serving.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        serving.kill()
+        raise
+    check(serving.returncode == 0,
+          f"export: the serving process failed: {err[-3000:]}")
+    for name in cases:
+        held(name, "served", torch.load(out_dir / f"{name}.out.pt"),
+             driven[name])
+    log(f"export: a fresh process (torch and proxmin_tpu_torch.ops) served "
+        f"{len(cases)} programs for {ITERS} iterations each in "
+        f"{time.perf_counter() - t_serve:.1f} s (beside this process's "
+        f"checks), each = its driver bit for bit")
 
     # per iteration: launches, blocking reads and device-to-host copies,
     # and the marginal ms/iter in turns with the driver (driver, program,
@@ -2474,13 +2587,14 @@ def export_phase(mods, problem, card, every_kernel, kernel_fns, prof_dir):
             def run_p(n, prog=prog, data=data):
                 return prog(*data, n)
         else:
-            made, drv = tv_programs[name], tv_cases[name][1]
+            made, drv, x0_tv = tv_programs[name], *tv_cases[name][1:3]
 
-            def run_p(n, made=made):
+            def run_p(n, made=made, x0_tv=x0_tv):
                 return made[n](x0_tv)
-        # the TV programs have max_iter baked in: count them at LO and HI
-        lo, hi = (EX_LO, EX_HI) if name in cases else (LO, HI)
-        k = [launches_of(lambda n=n: f(n), trace) for f in (run_p, drv)
+        # the TV programs have max_iter baked in: count them at TURN_LO and
+        # HI
+        lo, hi = (COUNT_LO, COUNT_HI) if name in cases else (TURN_LO, HI)
+        k = [launches_of(lambda n=n: f(n)) for f in (run_p, drv)
              for n in (lo, hi)]
         run_p(lo)
         drv(lo)
@@ -2509,12 +2623,15 @@ def export_phase(mods, problem, card, every_kernel, kernel_fns, prof_dir):
               "iterations")
         timed(run_p, lo)
         timed(drv, lo)
-        ms_d, ms_p, ms_p2, ms_d2 = (marginal_ms(f, LO, HI)
+        # the TV programs run only the counts they were exported for
+        m_lo, m_hi = (TURN_LO, TURN_HI) if name in cases else (TURN_LO, HI)
+        ms_d, ms_p, ms_p2, ms_d2 = (turn_ms(f, m_lo, m_hi)
                                     for f in (drv, run_p, run_p, drv))
         log(f"export: {name}: program {min(ms_p, ms_p2):.4f} ms/iter "
             f"marginal ({ms_p:.4f}, {ms_p2:.4f}), driver "
             f"{min(ms_d, ms_d2):.4f} ({ms_d:.4f}, {ms_d2:.4f}); order "
-            f"driver, program, program, driver; CUDA launches/iter program "
+            f"driver, program, program, driver, between {m_lo} and {m_hi} "
+            f"iterations; CUDA launches/iter program "
             f"{(k[1] - k[0]) / span:.2f}, driver {(k[3] - k[2]) / span:.2f}; "
             f"blocking reads/iter (sync debug mode) program "
             f"{(r[1] - r[0]) / span:.2f} ({r[0]} at {lo}), driver "
@@ -3086,18 +3203,47 @@ GLOO_RANK_SCRIPT = r"""
 import sys
 import torch
 import chip_smoke as cs
+from proxmin_tpu_torch import export as tex
+from proxmin_tpu_torch import nmf as tnmf
 from proxmin_tpu_torch import parallel as tpar
 port, rank, out = sys.argv[1], int(sys.argv[2]), sys.argv[3]
 tpar.initialize_distributed(f"localhost:{port}", 2, rank, backend="gloo")
 Y, A0, S0, _ = cs.make_problem(cs.C, cs.K, cs.N, False)
-res = tpar.nmf_pgm_sharded(Y, A0, S0, mesh=tpar.make_mesh(), e_rel=0,
+mesh = tpar.make_mesh()
+res = tpar.nmf_pgm_sharded(Y, A0, S0, mesh=mesh, e_rel=0,
                            max_iter=cs.SHARD_ITERS)
+# the auto-SPMD route and the exact PGM program on the two ranks
+bsdmm = tnmf.nmf(Y, A0, S0, mesh=mesh, algorithm="bsdmm", e_rel=0,
+                 max_iter=cs.AUTO_ITERS)
+Yd, Ad, Sd, _ = tpar.shard_nmf_problem(mesh, Y, A0, S0)
+program = tex.load_solver(tex.export_nmf_pgm_sharded(mesh, cs.C, cs.K, cs.N,
+                                                     e_rel=0.0))
+outs = program(Ad, Sd, Yd, cs.SHARD_ITERS)
 torch.save({"A": res.x[0].to_local().cpu(), "S": res.x[1].to_local().cpu(),
-            "loss": res.loss, "iterations": res.iterations},
+            "loss": res.loss, "iterations": res.iterations,
+            "bsdmm_A": bsdmm.x[0].to_local().cpu(),
+            "bsdmm_S": bsdmm.x[1].to_local().cpu(),
+            "bsdmm_iterations": bsdmm.iterations,
+            "program_A": outs[0].to_local().cpu(),
+            "program_S": outs[1].to_local().cpu(),
+            "program_loss": float(outs[5]),
+            "program_iterations": int(outs[2])},
            f"{out}/rank{rank}.pt")
 torch.distributed.barrier()
 torch.distributed.destroy_process_group()
 """
+# The rest of the scale-out (phase 16): the auto-SPMD routes, the ordinary
+# drivers on DTensor shards, each AUTO_ITERS iterations against the same
+# call on the torch engine without a mesh (within ENGINE_RTOL, equal
+# iterations, and bit for bit: on one rank the driver runs the same local
+# operations); admm on the TV denoise at FN_TV_H x FN_TV_H with x sharded
+# over columns, AUTO_TV_ITERS iterations against its plain solve; their
+# marginals in turns with the single-card driver. The per-rank programs of
+# the two sharded exporters against their live solves bit for bit, and the
+# weighted stride-10 program chained PROG_CHAIN against the straight sum.
+AUTO_ITERS = 50
+AUTO_TV_ITERS = 100
+PROG_CHAIN = (10, 15)
 
 
 def route_problem(C_, K_, N_):
@@ -3160,6 +3306,237 @@ def all_reduces_of(fn):
     finally:
         dist.all_reduce = real
     return len(calls), sum(calls)
+
+
+def dtensor_collectives_of(fn):
+    """The collectives that DTensor issues in ``fn``: ``{op: (calls,
+    elements)}``. DTensor desugars each redistribution into a functional
+    collective on plain tensors, which a dispatch mode sees after it."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    seen = {}
+
+    class Seen(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(t is DTensor for t in types):
+                return NotImplemented
+            name = str(func).split(".")
+            if name[0] == "_c10d_functional" and name[1] not in (
+                    "wait_tensor",):
+                calls, elements = seen.get(name[1], (0, 0))
+                seen[name[1]] = (calls + 1, elements + args[0].numel())
+            return func(*args, **(kwargs or {}))
+
+    with Seen():
+        fn()
+    torch.cuda.synchronize()
+    return seen
+
+
+def per_iteration_collectives(solve, lo, hi):
+    """DTensor's collectives per iteration of ``solve(n)``: ``{op: (calls,
+    elements)}`` between ``lo`` and ``hi`` iterations."""
+    a, b = (dtensor_collectives_of(lambda n=n: solve(n)) for n in (lo, hi))
+    return {op: ((b[op][0] - a.get(op, (0, 0))[0]) / (hi - lo),
+                 (b[op][1] - a.get(op, (0, 0))[1]) / (hi - lo)) for op in b}
+
+
+def auto_spmd_phase(mods, problem, card, mesh):
+    """Phase 16, the rest of the scale-out on the one-rank NCCL mesh: the
+    auto-SPMD routes (bsdmm weighted, AdaProx AMSGrad, PGM accelerated
+    through ``nmf(mesh=)``; admm on the TV denoise with x a DTensor sharded
+    over columns), each against its single-card solve, with its marginal
+    ms/iter in turns beside the single-card driver and DTensor's
+    collectives per iteration; and the per-rank programs of
+    ``export_nmf_pgm_sharded`` (weighted, stride 10, ``resume=True``) and
+    ``export_nmf_adaprox_sharded`` (Adam), loaded here and held against
+    their live sharded solves bit for bit, with their ms/iter beside the
+    live solves'."""
+    from torch.distributed.tensor import DTensor, Shard, distribute_tensor
+
+    from proxmin_tpu_torch import algorithms, linop
+    from proxmin_tpu_torch import export as tex
+    from proxmin_tpu_torch import operators as top
+
+    tnmf, tpar = mods
+    Y, A0, S0, Ww = problem
+    routes = (
+        ("bsdmm weighted", dict(algorithm="bsdmm", W=Ww)),
+        ("adaprox amsgrad", dict(algorithm="adaprox", scheme="amsgrad")),
+        ("pgm accelerated", dict(accelerated=True)),
+    )
+    timing = []
+    for label, kw in routes:
+        r = tnmf.nmf(Y, A0, S0, e_rel=0, max_iter=AUTO_ITERS,
+                     mesh=mesh, **kw)
+        ref = tnmf.nmf(Y, A0, S0, e_rel=0, max_iter=AUTO_ITERS,
+                       engine="torch", **kw)
+        torch.cuda.synchronize()
+        kind = r.state.get("kind") if hasattr(r.state, "get") else None
+        check(kind not in ("nmf_pgm_sharded", "nmf_adaprox_sharded")
+              and all(isinstance(x, DTensor) for x in r.x),
+              f"auto-SPMD {label}: routed to {kind}")
+        check(r.iterations == ref.iterations == AUTO_ITERS,
+              f"auto-SPMD {label}: {r.iterations} iterations, torch engine "
+              f"{ref.iterations}")
+        A_, S_ = (x.to_local() for x in r.x)
+        check(bool(torch.isfinite(A_).all() and torch.isfinite(S_).all()),
+              f"auto-SPMD {label}: non-finite iterate")
+        n_A, n_S = norm_err(A_, ref.x[0]), norm_err(S_, ref.x[1])
+        check(n_A <= ENGINE_RTOL and n_S <= ENGINE_RTOL,
+              f"auto-SPMD {label}: against nmf(engine='torch') normwise A "
+              f"{n_A:.2e}, S {n_S:.2e} > {ENGINE_RTOL:g}")
+        check(torch.equal(A_, ref.x[0]) and torch.equal(S_, ref.x[1]),
+              f"auto-SPMD {label}: not bit for bit the torch engine on one "
+              "rank")
+        log(f"auto-SPMD [{label}]: nmf(mesh=make_mesh()) on one NCCL rank "
+            f"(the driver on DTensor shards) vs nmf(engine='torch'), "
+            f"{AUTO_ITERS} iterations at e_rel=0: normwise A {n_A:.2e}, S "
+            f"{n_S:.2e} (tol {ENGINE_RTOL:g}), bit for bit; loss "
+            f"{wloss(A_, S_, Y, kw.get('W')):.6e} (torch engine "
+            f"{wloss(*ref.x, Y, kw.get('W')):.6e})")
+
+        def sharded(n, kw=kw):
+            return tnmf.nmf(Y, A0, S0, e_rel=0, max_iter=n, mesh=mesh, **kw)
+
+        def single(n, kw=kw):
+            return tnmf.nmf(Y, A0, S0, e_rel=0, max_iter=n, engine="torch",
+                            **kw)
+
+        timing.append((label, sharded, single))
+
+    # admm on the TV denoise, x sharded over columns: the vertical
+    # differences act within a column, so every shard works alone
+    H = FN_TV_H
+    _, y_tv = tv_problem(H)
+    _, Dv = tv_operators(linop, H)
+    y_d = distribute_tensor(y_tv, mesh, [Shard(1)])
+
+    def tv_admm(n, sharded_x):
+        y = y_d if sharded_x else y_tv
+        x0 = torch.zeros_like(y)
+
+        def prox_quad(x, step):
+            return (x + step * y) / (1.0 + step)
+
+        return algorithms.admm(x0, prox_quad, TV_STEP_F,
+                               prox_g=partial(top.prox_soft, thresh=TV_LAM),
+                               L=Dv, e_rel=0, e_abs=0, max_iter=n)
+
+    r, ref = tv_admm(AUTO_TV_ITERS, True), tv_admm(AUTO_TV_ITERS, False)
+    torch.cuda.synchronize()
+    x_ = r.x.to_local()
+    n_x = norm_err(x_, ref.x)
+    check(isinstance(r.x, DTensor) and r.x.placements == (Shard(1),)
+          and r.iterations == ref.iterations and n_x <= ENGINE_RTOL,
+          f"auto-SPMD admm TV: {r.iterations} iterations (plain "
+          f"{ref.iterations}), normwise {n_x:.2e}")
+    log(f"auto-SPMD [admm TV {H}x{H}, vertical differences, x sharded over "
+        f"columns]: against its plain solve after {AUTO_TV_ITERS} "
+        f"iterations normwise {n_x:.2e} (tol {ENGINE_RTOL:g})"
+        f"{', bit for bit' if torch.equal(x_, ref.x) else ''}")
+    timing.append(("admm TV", lambda n: tv_admm(n, True),
+                   lambda n: tv_admm(n, False)))
+
+    for label, sharded, single in timing:
+        timed(sharded, 3)
+        timed(single, 3)
+        ms_t, ms_s, ms_s2, ms_t2 = (turn_ms(f) for f in (single, sharded,
+                                                         sharded, single))
+        per_it = per_iteration_collectives(sharded, COUNT_LO, COUNT_HI)
+        log(f"auto-SPMD [{label}]: {min(ms_s, ms_s2):.4f} ms/iter marginal "
+            f"on one NCCL rank ({ms_s:.4f}, {ms_s2:.4f}), single card "
+            f"{min(ms_t, ms_t2):.4f} ({ms_t:.4f}, {ms_t2:.4f}); order "
+            f"single, sharded, sharded, single, between {TURN_LO} and "
+            f"{TURN_HI} iterations; DTensor collectives per iteration "
+            + (", ".join(f"{op} {c:.2f} calls of {e / max(c, 1):.1f} "
+                         f"elements" for op, (c, e) in per_it.items())
+               or "none (DTensor skips a reduction over one rank)")
+            + f"; on {card}")
+        check(set(per_it) <= {"all_reduce"},
+              f"auto-SPMD {label}: collectives other than all-reduces "
+              f"{sorted(per_it)}")
+
+    # the per-rank programs against their live sharded solves
+    Yd, Ad, Sd, Wd = tpar.shard_nmf_problem(mesh, Y, A0, S0, Ww)
+    t0 = time.perf_counter()
+    pgm_blob = tex.export_nmf_pgm_sharded(mesh, C, K, N, e_rel=0.0,
+                                          weighted=True, step_stride=STRIDE,
+                                          resume=True)
+    t_pgm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ada_blob = tex.export_nmf_adaprox_sharded(mesh, C, K, N, e_rel=0.0)
+    t_ada = time.perf_counter() - t0
+    pgm_prog, ada_prog = tex.load_solver(pgm_blob), tex.load_solver(ada_blob)
+    v0 = tpar.sharding._weighted_steps_v0(Ad.to_local(), Sd.to_local())
+    v0 = DTensor.from_local(v0, mesh, [Shard(0)], run_check=False,
+                            shape=(N, K), stride=(K, 1))
+
+    def fresh_carries():
+        z = torch.zeros((), device=DEVICE)
+        return (0, False, False, float("inf"), z, z.clone(), STRIDE, 0, v0)
+
+    def live_pgm(n, state=None, x=None):
+        return tpar.nmf_pgm_sharded(Y, *(x or (A0, S0)), W=Ww, mesh=mesh,
+                                    e_rel=0, max_iter=n,
+                                    step_stride=STRIDE, state=state)
+
+    total = sum(PROG_CHAIN)
+    straight = live_pgm(total)
+    half = live_pgm(PROG_CHAIN[0])
+    st = half.state
+    o_fresh = pgm_prog(Ad, Sd, Yd, Wd, total, *fresh_carries())
+    o_state = pgm_prog(*half.x, Yd, Wd, PROG_CHAIN[1], st["it"],
+                       st["conv_A"], st["conv_S"], st["loss"], st["step_A"],
+                       st["step_S"], st["stride"], st["seg_end"], st["v"])
+    o1 = pgm_prog(Ad, Sd, Yd, Wd, PROG_CHAIN[0], *fresh_carries())
+    o_chain = pgm_prog(o1[0], o1[1], Yd, Wd, PROG_CHAIN[1], *o1[2:])
+    torch.cuda.synchronize()
+    for how, o in (("from a fresh start", o_fresh),
+                   (f"resumed from the live solve's {PROG_CHAIN[0]}-"
+                    "iteration state", o_state),
+                   (f"chained {PROG_CHAIN[0]} + {PROG_CHAIN[1]}", o_chain)):
+        same = int(o[2]) == total and all(
+            torch.equal(a.to_local(), b.to_local())
+            for a, b in zip(o[:2], straight.x)) and float(o[5]) == \
+            straight.loss
+        check(same, f"sharded program pgm weighted stride {STRIDE} {how}: "
+                    f"differs from the live {total} iterations")
+    log(f"sharded program [pgm weighted stride {STRIDE}, resume=True]: "
+        f"exported in {t_pgm:.2f} s, {len(pgm_blob) / 1e6:.2f} MB; from a "
+        f"fresh start, from the live solve's state after {PROG_CHAIN[0]} "
+        f"and chained {PROG_CHAIN[0]} + {PROG_CHAIN[1]}: each = the live "
+        f"{total} iterations bit for bit (loss {straight.loss:.6e})")
+
+    def live_ada(n):
+        return tnmf.nmf(Yd, Ad, Sd, algorithm="adaprox", e_rel=0,
+                        max_iter=n)
+
+    ref = live_ada(SHARD_ITERS)
+    o = ada_prog(Ad, Sd, Yd, SHARD_ITERS)
+    torch.cuda.synchronize()
+    check(int(o[8]) == SHARD_ITERS and all(
+        torch.equal(a.to_local(), b.to_local())
+        for a, b in zip(o[:2], ref.x)),
+        f"sharded program adaprox: differs from the live auto-SPMD solve "
+        f"after {SHARD_ITERS} iterations")
+    log(f"sharded program [adaprox adam]: exported in {t_ada:.2f} s, "
+        f"{len(ada_blob) / 1e6:.2f} MB; = the live driver on the DTensor "
+        f"shards bit for bit after {SHARD_ITERS} iterations")
+    for label, prog, live in (
+            ("pgm weighted stride 10", lambda n: pgm_prog(
+                Ad, Sd, Yd, Wd, n, *fresh_carries()), live_pgm),
+            ("adaprox adam", lambda n: ada_prog(Ad, Sd, Yd, n), live_ada)):
+        timed(prog, 3)
+        timed(live, 3)
+        ms_l, ms_p, ms_p2, ms_l2 = (turn_ms(f) for f in (live, prog, prog,
+                                                         live))
+        log(f"sharded program [{label}]: {min(ms_p, ms_p2):.4f} ms/iter "
+            f"marginal ({ms_p:.4f}, {ms_p2:.4f}), its live sharded solve "
+            f"{min(ms_l, ms_l2):.4f} ({ms_l:.4f}, {ms_l2:.4f}); order live, "
+            f"program, program, live, between {TURN_LO} and {TURN_HI} "
+            f"iterations; on {card}")
 
 
 def sharded_phase(mods, problem, card):
@@ -3309,6 +3686,30 @@ def sharded_phase(mods, problem, card):
             f"the one-rank NCCL result normwise A {n_A:.2e}, S {n_S:.2e} "
             f"(tol {GLOO_RTOL:g}); the same A and loss on both ranks; "
             f"{t_two:.1f} s with the processes' start")
+        # the auto-SPMD bsdmm route and the exact program on the two ranks
+        one_b = tnmf.nmf(Y, A0, S0, mesh=mesh, algorithm="bsdmm", e_rel=0,
+                         max_iter=AUTO_ITERS)
+        b_S = torch.cat([p["bsdmm_S"] for p in parts], dim=1)
+        n_bA = norm_err(parts[0]["bsdmm_A"], one_b.x[0].to_local().cpu())
+        n_bS = norm_err(b_S, one_b.x[1].to_local().cpu())
+        check(torch.equal(parts[0]["bsdmm_A"], parts[1]["bsdmm_A"])
+              and all(p["bsdmm_iterations"] == AUTO_ITERS for p in parts)
+              and n_bA <= GLOO_RTOL and n_bS <= GLOO_RTOL,
+              f"sharded two gloo ranks, bsdmm under mesh=: A {n_bA:.2e}, S "
+              f"{n_bS:.2e} against one rank (tol {GLOO_RTOL:g})")
+        p_same = all(torch.equal(p["program_A"], p["A"])
+                     and torch.equal(p["program_S"], p["S"])
+                     and p["program_loss"] == p["loss"]
+                     and p["program_iterations"] == SHARD_ITERS
+                     for p in parts)
+        check(p_same, "sharded two gloo ranks: the exact PGM program differs "
+                      "from the live sharded solve on its rank")
+        log(f"sharded [two gloo ranks on the one card]: nmf(mesh=, "
+            f"algorithm='bsdmm') against the one-rank NCCL result after "
+            f"{AUTO_ITERS} iterations normwise A {n_bA:.2e}, S {n_bS:.2e} "
+            f"(tol {GLOO_RTOL:g}); each rank's exact PGM program = its live "
+            f"sharded solve bit for bit after {SHARD_ITERS} iterations (so "
+            f"within the same {GLOO_RTOL:g} of the one-rank result)")
 
     # per iteration: ms in turns with the torch engine, all-reduces, copies
     lo, hi = SHARD_COUNT
@@ -3345,6 +3746,7 @@ def sharded_phase(mods, problem, card):
                  calls=200)
     log(f"sharded: one all_reduce of {buf.numel()} float32 on the one-rank "
         f"NCCL group costs {us:.1f} us of host per call; on {card}")
+    auto_spmd_phase((tnmf, tpar), problem, card, mesh)
     dist.destroy_process_group()
 
 
@@ -3558,11 +3960,11 @@ def routing_phase(mods, card):
                         routes[k1.__name__].values())
                     launched["K2 wide" if wide else "K2"] += sum(
                         routes[k2.__name__].values())
-                timed(solves["torch"], ROUTE_LO)
-                timed(solves["cuda"], ROUTE_LO)
+                timed(solves["torch"], TURN_LO)
+                timed(solves["cuda"], TURN_LO)
                 ms = {e: [] for e in ("torch", "cuda")}
                 for e in ("torch", "cuda", "cuda", "torch"):
-                    ms[e].append(marginal_ms(solves[e], ROUTE_LO, ROUTE_HI))
+                    ms[e].append(turn_ms(solves[e]))
                 log(f"routing [{label} {shape}, {path}]: table {expected}, "
                     f"auto ran {chose}" + (" after probing" if probed else "")
                     + f", equal to it bit for bit over {ROUTE_ITERS} "
@@ -4880,7 +5282,7 @@ def main():
     log(f"phase 11 starts at {time.perf_counter() - T0:.0f} s")
     k4_launches["soft"] += admm_family_phase(
         (algorithms, linop, tnmf, top, tops), (Y, A0, S0, Ww), loss_t, card,
-        every_kernel, k4_fns["soft"], prof_dir)
+        every_kernel, k4_fns["soft"])
 
     # 12. the solvers' options and the checkpoint
     log(f"phase 12 starts at {time.perf_counter() - T0:.0f} s")
@@ -4896,7 +5298,7 @@ def main():
     log(f"phase 13 starts at {time.perf_counter() - T0:.0f} s")
     fn_launches = functional_phase(
         (algorithms, linop, tnmf, top, tops), (Y, A0, S0, Ww), card,
-        every_kernel, (k3_fn, k4_fns["soft"]), prof_dir)
+        every_kernel, (k3_fn, k4_fns["soft"]))
     k3_launches += fn_launches["K3"]
     k4_launches["soft"] += fn_launches["K4 soft"]
 

@@ -35,15 +35,17 @@ tensor and NumPy on a tensor are captured (torch 2.13), each as a host read
 inside the loop.
 """
 
+import functools
 import io
+import json
 
 import numpy as np
 import torch
 
 from . import operators
 from .nmf import (_adaprox_separable_ok, _fused_adaprox_program,
-                  _fused_pgm_program, _fused_weighted_program, _not_yet,
-                  _store_dtype, _weighted_lipschitz_S_v0)
+                  _fused_pgm_program, _fused_weighted_program,
+                  _store_dtype, _weighted_lipschitz_S_v0, step_adaprox)
 from .ops.nmf_kernels import DEFAULT_TILE_N, describe_prox
 from .solvers.common import as_torch_dtype, default_device
 
@@ -72,10 +74,11 @@ def _name(fn):
     return getattr(fn, "__qualname__", None) or repr(fn)
 
 
-def _capture(fn, args, what, **callables):
+def _capture(fn, args, what, extra=None, **callables):
     """The bytes of ``torch.export.save`` of ``fn`` traced on ``args``. A
     capture that fails raises ``ValueError`` naming ``what`` and the user
-    ``callables`` it runs."""
+    ``callables`` it runs. ``extra``: a JSON-able dict saved beside the
+    program (a per-rank program's layout, :func:`load_solver` reads it)."""
     try:
         ep = torch.export.export(_Program(fn), tuple(args), strict=False)
     except (torch._dynamo.exc.TorchDynamoException,
@@ -93,7 +96,8 @@ def _capture(fn, args, what, **callables):
     # input's size, tens of MB at a real problem's size
     ep.example_inputs = None
     buf = io.BytesIO()
-    torch.export.save(ep, buf)
+    files = None if extra is None else {_LAYOUT: json.dumps(extra)}
+    torch.export.save(ep, buf, extra_files=files)
     return buf.getvalue()
 
 
@@ -332,22 +336,279 @@ def export_nmf_adaprox_solver(C, K, N, prox_A=operators.prox_plus,
                     prox_S=prox_S.prox if prox_S.split else None)
 
 
-def export_nmf_pgm_sharded(*args, **kwargs):
-    """The multi-card PGM-NMF artifact: not ported yet. The sharded solve
-    itself runs as :func:`proxmin_tpu_torch.parallel.nmf_pgm_sharded`."""
-    raise _not_yet("export_nmf_pgm_sharded (a saved program of the sharded "
-                   "solve; run proxmin_tpu_torch.parallel.nmf_pgm_sharded "
-                   "instead)", 13)
+# the name of the JSON layout saved beside a per-rank program
+_LAYOUT = "proxmin_sharded_layout.json"
 
 
-def export_nmf_adaprox_sharded(*args, **kwargs):
-    """The multi-card AdaProx-NMF artifact: not ported yet. The sharded
-    solve itself runs as
-    :func:`proxmin_tpu_torch.parallel.nmf_adaprox_sharded`."""
-    raise _not_yet("export_nmf_adaprox_sharded (a saved program of the "
-                   "sharded solve; run "
-                   "proxmin_tpu_torch.parallel.nmf_adaprox_sharded "
-                   "instead)", 13)
+def _sharded_setup(mesh, C, K, N, data_axis, model_axis, platforms, device,
+                   what):
+    """``(lay, (C_l, N_l), device)`` of a per-rank program on ``mesh``: the
+    layout with its groups, the local extents and the device the program
+    runs on (the mesh's)."""
+    from .parallel.sharding import _axis_size, _Layout, _local_device
+
+    if mesh is None:
+        raise ValueError(f"{what} needs the mesh of the solve it serves")
+    lay = _Layout.of(mesh, data_axis, model_axis)
+    n_data = _axis_size(mesh, data_axis)
+    n_model = _axis_size(mesh, model_axis) if model_axis else 1
+    if N % n_data or C % n_model:
+        raise ValueError(f"{what}: N={N} must divide by the data axis "
+                         f"({n_data} ranks) and C={C} by the model axis "
+                         f"({n_model})")
+    dev = torch.device(device) if device is not None else _local_device(mesh)
+    if platforms is not None and tuple(platforms) != (dev.type,):
+        raise ValueError(
+            f"{what}: a program runs on the device it was captured for "
+            f"({dev.type}); platforms={tuple(platforms)} would need one "
+            "capture per device: export on each")
+    return lay, (C // n_model, N // n_data), dev
+
+
+def _layout_meta(kind, mesh, lay, inputs, outputs):
+    """The JSON layout of a per-rank program: the mesh it was captured on,
+    every input's and output's sharding spec (None for a replicated
+    scalar), and the name of each axis's process group (the names the
+    program's collectives captured)."""
+    def name(axis):
+        g = lay.data if axis == "data" else lay.model
+        return None if g is None else g.group_name
+
+    return {"kind": kind, "world": int(mesh.mesh.numel()),
+            "mesh_shape": list(mesh.mesh.shape),
+            "axis_names": list(mesh.mesh_dim_names),
+            "data_axis": lay.data_axis, "model_axis": lay.model_axis,
+            "groups": {a: name(a) for a in ("data", "model")},
+            "inputs": inputs, "outputs": outputs}
+
+
+def export_nmf_pgm_sharded(mesh, C, K, N, prox_A=operators.prox_plus,
+                           prox_S=operators.prox_plus, e_rel=1e-3,
+                           weighted=False, step_stride=None,
+                           step_adapt=False, data_axis="data",
+                           model_axis=None, dtype=torch.float32,
+                           resume=False, platforms=None, device=None):
+    """Capture the explicit-collective sharded PGM-NMF solve
+    (:func:`proxmin_tpu_torch.parallel.nmf_pgm_sharded`) as one program per
+    rank.
+
+    Every rank calls this on the ``mesh`` the solve runs on and gets its
+    own program: the whole solve over its local shards, the ``while_loop``
+    included, with the live solve's packing and order of sums and its
+    all-reduces as torch's functional collectives (the in-place
+    ``dist.all_reduce`` cannot be traced). Signature ``(A, S, Y[, W],
+    max_iter) -> (A', S', it, conv_A, conv_S, loss)`` with ``max_iter`` a
+    0-d int32; the arrays are laid out as
+    :func:`~proxmin_tpu_torch.parallel.shard_nmf_problem` lays them out (A
+    over ``model_axis``, S over ``data_axis``, Y and W over both).
+    ``step_stride``/``step_adapt`` bake the strided refresh (the sharded
+    power iterate warm-started) and append ``(step_A, step_S, stride,
+    seg_end)`` to the outputs, weighted ones also the pixel-sharded power
+    iterate ``v``. ``resume=True`` appends ``(it0, conv_A, conv_S, loss)``
+    (and the strided carries) to the inputs after ``max_iter``: outputs
+    from position 2 on feed a continuation, which walks the uninterrupted
+    trajectory bit for bit, as ``nmf_pgm_sharded(state=)`` does.
+    ``platforms`` may name only this device's type: a program runs on the
+    device it was captured for. :func:`load_solver` serves the program on a
+    process group of the same size.
+    """
+    from .parallel.sharding import (_pgm_program, _weighted_steps_v0,
+                                    functional_collectives)
+
+    what = "export_nmf_pgm_sharded"
+    lay, (C_l, N_l), dev = _sharded_setup(mesh, C, K, N, data_axis,
+                                          model_axis, platforms, device,
+                                          what)
+    prox_A = operators.prox_id if prox_A is None else prox_A
+    prox_S = operators.prox_id if prox_S is None else prox_S
+    weighted, resume = bool(weighted), bool(resume)
+    strided = (step_stride is not None and step_stride > 1) or step_adapt
+    dtype = as_torch_dtype(dtype)
+    i32, b8 = torch.int32, torch.bool
+    e_rel = float(e_rel)
+
+    def run(A, S, Y, *rest):
+        if weighted:
+            W, max_iter, *carry = rest
+        else:
+            (max_iter, *carry), W = rest, Y
+        return _pgm_program(A, S, Y, W, lay, weighted, prox_A, prox_S,
+                            e_rel, max_iter, step_stride, step_adapt,
+                            tuple(carry) if resume else None)
+
+    a_spec, s_spec = [model_axis, None], [None, data_axis]
+    y_spec, v_spec = [model_axis, data_axis], [data_axis, None]
+    args = [_spec((C_l, K), dtype, dev), _spec((K, N_l), dtype, dev),
+            _spec((C_l, N_l), dtype, dev)]
+    ins = [a_spec, s_spec, y_spec]
+    if weighted:
+        args.append(_spec((C_l, N_l), dtype, dev))
+        ins.append(y_spec)
+    args.append(_scalar(1, i32, dev))
+    ins.append(None)
+    carries = [_scalar(0, i32, dev), _scalar(False, b8, dev),
+               _scalar(False, b8, dev), _scalar(float("inf"), dtype, dev)]
+    c_specs = [None] * 4
+    if strided:
+        carries += [_scalar(0, dtype, dev), _scalar(0, dtype, dev),
+                    _scalar(1, i32, dev), _scalar(0, i32, dev)]
+        c_specs += [None] * 4
+        if weighted:
+            carries.append(_weighted_steps_v0(args[0], args[1]))
+            c_specs.append(v_spec)
+    if resume:
+        args += carries
+        ins += c_specs
+    meta = _layout_meta("nmf_pgm_sharded", mesh, lay, ins,
+                        [a_spec, s_spec] + c_specs)
+    with functional_collectives():
+        return _capture(run, args, what, extra=meta, prox_A=prox_A,
+                        prox_S=prox_S)
+
+
+def export_nmf_adaprox_sharded(mesh, C, K, N, prox_A=operators.prox_plus,
+                               prox_S=operators.prox_plus, scheme="adam",
+                               b1=0.9, b2=0.999, eps=1e-8, p=0.25,
+                               e_rel=1e-3, weighted=False,
+                               warm_start=False, prox_max_iter=1000,
+                               data_axis="data", model_axis=None,
+                               dtype=torch.float32, platforms=None,
+                               device=None):
+    """Capture a sharded AdaProx-NMF solve as one program per rank: the
+    auto-SPMD route's driver (``nmf`` on the sharded inputs, as JAX's
+    artifact is its XLA driver under auto-SPMD) over a rank's shards.
+
+    The body is the driver's (``solvers.adaprox._step``, any of the six
+    Φ/Ψ schemes, the prox sub-iterations bounded by ``prox_max_iter``)
+    with the all-reduces that DTensor inserts in the live solve written
+    out as functional collectives: the (C, K) gradient and the step
+    heuristic's row sums over the data axis, the fixed-point norms and the
+    sub-iterations' sums and max over the axis that shards each block.
+    DTensor programs do not pass through ``torch.export``, so this is the
+    per-rank form of that solve, and it equals it bit for bit. The scheme's
+    bias-correction terms follow a clock kept on the host: the scheme's
+    own scalar function on 0-d CPU tensors (a CPU scalar enters a card
+    operation as the driver's Python number does).
+
+    Signature ``(A, S, Y[, W], max_iter) -> (A', S', M_A, V_A, Vhat_A, M_S,
+    V_S, Vhat_S, it, conv_A, conv_S, diverged)`` laid out as
+    :func:`~proxmin_tpu_torch.parallel.shard_nmf_problem` lays the problem
+    out, ``max_iter`` a 0-d int32; ``warm_start=True`` appends ``(M_A,
+    V_A, Vhat_A, M_S, V_S, Vhat_S, it0, conv_A0, conv_S0, diverged0)``:
+    outputs 2..11 feed a continuation that walks the uninterrupted
+    trajectory. ``b1`` is a constant (``max_iter`` is a runtime input).
+    """
+    from .parallel.sharding import _pmax, _sum_packed, functional_collectives
+    from .solvers.adaprox import (_check_options, _prox_subloop_traced,
+                                  _step, _stopped)
+    from .solvers.common import normalize_per_block, normalize_prox
+    from .utils import make_stepper
+
+    what = "export_nmf_adaprox_sharded"
+    if hasattr(b1, "__iter__"):
+        raise ValueError(
+            "export_nmf_adaprox_sharded takes a constant b1 (max_iter is a "
+            "runtime argument, so a per-iteration schedule has no static "
+            "length); use export_adaprox_solver for b1 schedules")
+    lay, (C_l, N_l), dev = _sharded_setup(mesh, C, K, N, data_axis,
+                                          model_axis, platforms, device,
+                                          what)
+    n = 2
+    prox_in = (prox_A, prox_S)
+    has_prox = tuple(pj is not None for pj in prox_in)
+    prox_t = normalize_prox(prox_in, n)
+    e_rel_t = normalize_per_block(e_rel, n)
+    b1s, phi_psi = _check_options(scheme, b1, b2, eps, p, 1)
+    dtype = as_torch_dtype(dtype)
+    weighted, warm_start = bool(weighted), bool(warm_start)
+    # the driver's default through nmf: the prox sub-iterations
+    separable = (False,) * n
+    groups = (lay.model, lay.data)   # the axis that shards A, S
+    # the scheme's decays as the driver rounds them (b1 a constant)
+    b1_t = torch.full((1,), float(b1), dtype=dtype)
+    b2_t = torch.full((), float(b2), dtype=dtype)
+
+    def reduce(j, t, op="sum"):
+        if op == "max":
+            return _pmax(t, groups[j])
+        return _sum_packed(groups[j], t)[0]
+
+    # step_adaprox with its sums completed, as DTensor completes them
+    stepper = make_stepper(functools.partial(step_adaprox, reduce=reduce,
+                                             size=(C, N)), n)
+
+    def run(A, S, Y, *rest):
+        if weighted:
+            W, max_iter, *warm = rest
+        else:
+            (max_iter, *warm), W = rest, None
+
+        def grad(A, S):
+            D = A @ S - Y
+            if W is not None:
+                D = W * D
+            return (_sum_packed(lay.data, D @ S.T)[0],
+                    _sum_packed(lay.model, A.T @ D)[0])
+
+        x0 = (A, S)
+        if warm_start:
+            MA, VA, VhA, MS, VS, VhS, it0, cA0, cS0, dv0 = warm
+            M, V, Vhat = (MA, MS), (VA, VS), (VhA, VhS)
+            conv = torch.stack([cA0, cS0])
+        else:
+            M = V = Vhat = tuple(torch.zeros_like(x) for x in x0)
+            it0 = torch.zeros((), dtype=torch.int32, device=dev)
+            conv = torch.zeros((n,), dtype=torch.bool, device=dev)
+            dv0 = torch.zeros((), dtype=torch.bool, device=dev)
+        st = dict(x=x0, M=M, V=V, Vhat=Vhat,
+                  stepper_state=stepper.init_state(x0, None), it0=0,
+                  converged=conv, diverged=dv0.clone(), sub_iters=[0] * n,
+                  history=[], clock=it0.to("cpu", torch.int64))
+
+        def one(s, k):
+            rows = phi_psi.scalars(0, b1_t, b2_t, s["clock"])
+
+            def scheme_at(it, G, M, V, Vhat, b1, b2, eps, p, it0=0):
+                return phi_psi.apply(G, M, V, Vhat, rows, eps, p)
+
+            _step(s, k, grad, stepper, prox_t, has_prox, separable,
+                  scheme_at, b1s, b2, eps, p, e_rel_t, True, prox_max_iter,
+                  None, False, subloop=_prox_subloop_traced, reduce=reduce)
+            s["clock"] = s["clock"] + 1
+
+        k, st = _solve_loop(
+            st, ("x", "M", "V", "Vhat", "converged", "diverged",
+                 "stepper_state", "clock"), one,
+            lambda s: _stopped(s, True), max_iter, dev)
+        return (st["x"][0], st["x"][1], st["M"][0], st["V"][0],
+                st["Vhat"][0], st["M"][1], st["V"][1], st["Vhat"][1],
+                k + it0, st["converged"][0], st["converged"][1],
+                st["diverged"])
+
+    a_spec, s_spec = [model_axis, None], [None, data_axis]
+    y_spec = [model_axis, data_axis]
+    a, s_ = (C_l, K), (K, N_l)
+    args = [_spec(a, dtype, dev), _spec(s_, dtype, dev),
+            _spec((C_l, N_l), dtype, dev)]
+    ins = [a_spec, s_spec, y_spec]
+    if weighted:
+        args.append(_spec((C_l, N_l), dtype, dev))
+        ins.append(y_spec)
+    args.append(_scalar(1, torch.int32, dev))
+    ins.append(None)
+    blocks = [a_spec] * 3 + [s_spec] * 3
+    if warm_start:
+        # one example tensor per input: export takes a tensor passed twice
+        # as one input
+        args += [_spec(sh, dtype, dev) for sh in (a, a, a, s_, s_, s_)]
+        args += [_scalar(0, torch.int32, dev)] + [
+            _scalar(False, torch.bool, dev) for _ in range(3)]
+        ins += blocks + [None] * 4
+    meta = _layout_meta("nmf_adaprox_sharded", mesh, lay, ins,
+                        [a_spec, s_spec] + blocks + [None] * 4)
+    with functional_collectives():
+        return _capture(run, args, what, extra=meta, prox_A=prox_A,
+                        prox_S=prox_S)
 
 
 def _block_shapes(x_shapes):
@@ -725,6 +986,120 @@ def _input_device(ep):
     return torch.device("cpu")
 
 
+def _host_arg(a, device):
+    """A Python bool, int or NumPy input as the program's tensor."""
+    if isinstance(a, bool):
+        return torch.tensor(a, device=device)
+    if isinstance(a, int):
+        return torch.tensor(a, dtype=torch.int32, device=device)
+    if isinstance(a, (np.ndarray, np.generic)):
+        return torch.as_tensor(np.array(a), device=device)
+    return a
+
+
+def _rename_groups(module, names):
+    """Point the functional collectives of ``module`` (its loop bodies
+    included) at this process's groups: ``names`` maps a captured group
+    name to the name of the group over the same mesh axis here."""
+    for gm in module.modules():
+        if not isinstance(gm, torch.fx.GraphModule):
+            continue
+        changed = False
+        for node in gm.graph.nodes:
+            if (node.op == "call_function"
+                    and "_c10d_functional" in str(node.target)
+                    and len(node.args) > 2 and node.args[2] in names):
+                args = list(node.args)
+                args[2] = names[args[2]]
+                node.args = tuple(args)
+                changed = True
+        if changed:
+            gm.recompile()
+
+
+def _input_specs(ep):
+    """The ``(dtype, device)`` of each user input of an exported program."""
+    names = set(ep.graph_signature.user_inputs)
+    return [(n.meta["val"].dtype, n.meta["val"].device)
+            for n in ep.graph.nodes
+            if n.op == "placeholder" and n.name in names
+            and isinstance(n.meta.get("val"), torch.Tensor)]
+
+
+def _sharded_solver(module, meta, device, specs):
+    """The callable of a per-rank program (its ``meta`` from
+    :func:`_layout_meta`): on a process group of the capture's size, it
+    takes the ``DTensor`` s of :func:`~proxmin_tpu_torch.parallel.
+    shard_nmf_problem` (and gives the sharded outputs back as ``DTensor``
+    s) or this rank's local shards. A host number or NumPy value takes its
+    input's dtype (``specs``, :func:`_input_specs`): a live solve's
+    ``.state`` feeds a resume program as it is."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from .parallel.sharding import (_axis_size, _dtensor, _group, _local,
+                                    make_mesh)
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != meta["world"]:
+        raise ValueError(
+            f"this {meta['kind']} program was captured on a mesh of "
+            f"{meta['world']} ranks and the process group has {world}: "
+            "serve it on a group of the same size")
+    axes = {"data": meta["data_axis"], "model": meta["model_axis"]}
+
+    def spec(sp):
+        return tuple(tuple(a) if isinstance(a, list) else a for a in sp)
+
+    # the group names the module's collectives name now
+    current = dict(meta["groups"])
+
+    def point_at(mesh):
+        names = {}
+        for k in ("data", "model"):
+            if current[k] is not None:
+                new = _group(mesh, axes[k]).group_name
+                if new != current[k]:
+                    names[current[k]], current[k] = new, new
+        if names:
+            _rename_groups(module, names)
+
+    own = []   # the mesh of local-shard calls, made once
+
+    def solve(*args):
+        mesh = next((a.device_mesh for a in args
+                     if isinstance(a, DTensor)), None)
+        given = mesh is not None
+        if mesh is None:
+            if not own:
+                own.append(make_mesh(tuple(meta["mesh_shape"]),
+                                     tuple(meta["axis_names"]),
+                                     device=device.type))
+            mesh = own[0]
+        point_at(mesh)
+        conv = []
+        for a, sp, (dt, dev) in zip(args, meta["inputs"], specs):
+            if isinstance(a, DTensor):
+                a = _local(a, mesh, spec(sp))
+            elif not isinstance(a, torch.Tensor):
+                a = torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+            conv.append(a)
+        out = module(*conv)
+        if not given:
+            return out
+        res = []
+        for o, sp in zip(out, meta["outputs"] + [None] * len(out)):
+            if sp is not None:
+                sp = spec(sp)
+                shape = [d * (_axis_size(mesh, ax) if ax else 1)
+                         for d, ax in zip(o.shape, sp)]
+                o = _dtensor(o, mesh, sp, shape)
+            res.append(o)
+        return tuple(res)
+
+    return solve
+
+
 def load_solver(blob):
     """Deserialize an exported solver into a callable.
 
@@ -733,22 +1108,26 @@ def load_solver(blob):
     Python ints 0-d int32 tensors (bool first: it is an int), and NumPy
     arrays go to the program's device; tensors pass as they are. A program
     that calls the kernels needs ``proxmin_tpu_torch.ops`` imported in this
-    process (its ops registered) before loading."""
-    ep = torch.export.load(io.BytesIO(blob))
+    process (its ops registered) before loading.
+
+    A per-rank program of :func:`export_nmf_pgm_sharded` or
+    :func:`export_nmf_adaprox_sharded` is loaded by every rank of a process
+    group of the size it was captured on (another size raises
+    ``ValueError`` naming both); its callable takes the ``DTensor`` s that
+    :func:`~proxmin_tpu_torch.parallel.shard_nmf_problem` makes, and gives
+    the sharded outputs back as ``DTensor`` s, or takes the rank's local
+    shards and gives local shards back. Its collectives run over this
+    process's groups of the same mesh axes."""
+    files = {_LAYOUT: ""}
+    ep = torch.export.load(io.BytesIO(blob), extra_files=files)
     module = ep.module()
     device = _input_device(ep)
+    if files[_LAYOUT]:
+        return _sharded_solver(module, json.loads(files[_LAYOUT]), device,
+                               _input_specs(ep))
 
     def solve(*args):
-        conv = []
-        for a in args:
-            if isinstance(a, bool):
-                a = torch.tensor(a, device=device)
-            elif isinstance(a, int):
-                a = torch.tensor(a, dtype=torch.int32, device=device)
-            elif isinstance(a, (np.ndarray, np.generic)):
-                a = torch.as_tensor(np.array(a), device=device)
-            conv.append(a)
-        return module(*conv)
+        return module(*(_host_arg(a, device) for a in args))
 
     return solve
 

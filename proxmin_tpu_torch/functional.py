@@ -59,7 +59,7 @@ from .solvers.bsdmm import _Program as _BSDMMProgram
 from .solvers.pgm import _init_state as _pgm_init_state
 from .solvers.pgm import _iterate as _pgm_iterate
 from .solvers.pgm import _step as _pgm_step
-from .solvers.common import (as_torch_dtype, grad_from_f,
+from .solvers.common import (as_torch_dtype, grad_from_f, host_values,
                              normalize_per_block, normalize_prox,
                              promote_dtype, run_lanes, separable_blocks,
                              under_vmap)
@@ -348,7 +348,7 @@ def make_bsdmm_solver(proxs_f, steps_f_cb, proxs_g=None, steps_g=None,
         else:
             k = 0
             while k < max_iter:
-                flags = sweep(st, k).tolist()  # the one blocking read
+                flags = host_values(sweep(st, k))  # the one blocking read
                 k += 1
                 if all(flags[:-1]) or flags[-1]:
                     break

@@ -44,13 +44,15 @@ from functools import partial
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from . import algorithms, operators, utils
 from .ops.nmf_kernels import (DEFAULT_TILE_N, describe_prox,
                               fused_nmf_adaprox_step,
                               fused_nmf_pgm_step)
 from .solvers.common import (SolverResult, as_tensor, as_torch_dtype,
-                             default_device, promote_dtype,
+                             default_device, promote_dtype, reduced,
+                             replicated_like,
                              separable_blocks, status_from, writeback)
 from .utils import StridedStepper, grow_stride
 
@@ -72,12 +74,6 @@ __all__ = [
 ]
 
 
-def _not_yet(what, item):
-    return NotImplementedError(
-        f"{what} is not ported to proxmin_tpu_torch yet (ROADMAP.md Queue 1 "
-        f"item {item}); use proxmin_tpu for it")
-
-
 def _is_unweighted(W):
     """True for None or the scalar 1 (the reference's ``W == 1``)."""
     if W is None:
@@ -95,7 +91,9 @@ def _promote_W(W, Y):
     kernel needs the explicit 2-D form). One helper so the engines cannot
     drift."""
     if np.isscalar(W) or getattr(W, "ndim", None) == 0:
-        return torch.full(Y.shape, float(W), dtype=Y.dtype, device=Y.device)
+        # laid out as Y (a DTensor Y gives a DTensor W)
+        return torch.full_like(Y, float(W),
+                               memory_format=torch.contiguous_format)
     W = promote_dtype(W, device=Y.device)
     return torch.broadcast_to(W, Y.shape).to(Y.dtype).contiguous()
 
@@ -450,7 +448,9 @@ def grad_likelihood(*X, Y=0, W=1):
     D = A @ S - Y
     if not _is_unweighted(W):
         D = W * D
-    return D @ S.T, A.T @ D
+    # on sharded factors each contraction completes before it meets a
+    # block: D S^T over the pixels, A^T D over a channel-sharded model axis
+    return reduced(D @ S.T), reduced(A.T @ D)
 
 
 def _lambda_max(G):
@@ -477,23 +477,42 @@ def _weighted_lipschitz_A(S, W):
     C = W.shape[0]
     K = S.shape[0]
     if C * K * K <= (1 << 20):
-        H = torch.einsum("kn,cn,ln->ckl", S, W, S)
+        if isinstance(W, DTensor):
+            # the einsum's flattening views do not propagate a channel-
+            # sharded W, so a DTensor takes the batched product. It is the
+            # same contraction but not the same bits on plain tensors (a
+            # few ulps apart on the CPU, where opt_einsum orders the
+            # einsum by size), and it always builds the (C, K, N) product,
+            # where the einsum may take the smaller (K, K, N) one: plain
+            # tensors keep the einsum.
+            H = torch.matmul(W[:, None, :] * S[None, :, :], S.T)
+        else:
+            H = torch.einsum("kn,cn,ln->ckl", S, W, S)
         return torch.max(torch.linalg.eigvalsh(H)[:, -1])
 
     dtype = torch.promote_types(S.dtype, W.dtype)
     v0 = (torch.ones((C, K), dtype=dtype, device=S.device)
           + 0.01 * torch.arange(K, dtype=dtype, device=S.device))
-    v0 = v0 / torch.linalg.norm(v0, dim=1, keepdim=True)
+    v0 = replicated_like(v0 / torch.linalg.norm(v0, dim=1, keepdim=True), S)
 
     def Hv(v):
-        return (W * (v @ S)) @ S.T
+        return reduced((W * (v @ S)) @ S.T)
 
     return utils.batched_lanczos_max(Hv, v0, min(K, 32) + 2)
 
 
-def _weighted_lipschitz_S_v0(N, K, dtype, device):
+def _weighted_lipschitz_S_v0(N, K, dtype, device, W=None):
     """The deterministic cold-start iterate (N, K) of the batched power
-    iteration, each row normalized."""
+    iteration, each row normalized. With a ``DTensor`` ``W`` the iterate
+    is laid out along W's pixel axis: each rank makes its own rows."""
+    if isinstance(W, DTensor):
+        n = W.to_local().shape[1]
+        v = _weighted_lipschitz_S_v0(n, K, dtype, device)
+        placements = [Shard(0) if p == Shard(1) else Replicate()
+                      for p in W.placements]
+        return DTensor.from_local(v, W.device_mesh, placements,
+                                  run_check=False, shape=(N, K),
+                                  stride=(K, 1))
     v = (torch.ones((N, K), dtype=dtype, device=device)
          + 0.01 * torch.arange(K, dtype=dtype, device=device))
     return v / torch.linalg.norm(v, dim=1, keepdim=True)
@@ -532,12 +551,12 @@ def _weighted_lipschitz_S(A, W, num_iters=48, v0=None, return_v=False,
     holds: an exported program's cold start."""
     N = W.shape[1]
     K = A.shape[1]
-    v = (_weighted_lipschitz_S_v0(N, K, A.dtype, A.device) if v0 is None
+    v = (_weighted_lipschitz_S_v0(N, K, A.dtype, A.device, W) if v0 is None
          else v0)
     tiny = torch.finfo(A.dtype).tiny
 
     def Hv(v):
-        return (W * (A @ v.T)).T @ A
+        return reduced((W * (A @ v.T)).T @ A)
 
     def normalize(w):
         ssq = torch.sum(w * w, dim=1, keepdim=True)
@@ -606,7 +625,7 @@ class WeightedPGMStepper:
     def init_state(self, X, G):
         A, _ = X
         v0 = _weighted_lipschitz_S_v0(self.W.shape[1], A.shape[1], A.dtype,
-                                      A.device)
+                                      A.device, self.W)
         zero = torch.zeros((), dtype=A.dtype, device=A.device)
         return ((zero, zero), v0, self.stride, 0)
 
@@ -672,7 +691,7 @@ class WeightedBSDMMStepper:
     def init_bsdmm_state(self, xs):
         A, _ = xs
         v0 = _weighted_lipschitz_S_v0(self.W.shape[1], A.shape[1], A.dtype,
-                                      A.device)
+                                      A.device, self.W)
         return (v0, (self.stride, self.stride), (0, 0))
 
     def __call__(self, Xs, j=None, state=None, it=None, cached=None):
@@ -699,13 +718,19 @@ class WeightedBSDMMStepper:
         return step, (v, tuple(strides), tuple(nxt))
 
 
-def step_adaprox(*X, it=None):
+def step_adaprox(*X, it=None, reduce=None, size=None):
     """Per-element AdaProx step heuristic: a tenth of the column means of A
     and of the row means of S (sums divided by the count, as
-    ``jnp.mean``)."""
+    ``jnp.mean``). A per-rank program, whose blocks are local shards,
+    passes ``reduce(j, t)`` to complete block ``j``'s sums over the ranks
+    that share it and ``size``, the global ``(C, N)``."""
     A, S = X
-    return (torch.sum(A, dim=0) / A.shape[0] / 10,
-            torch.sum(S, dim=1, keepdim=True) / S.shape[1] / 10)
+    C, N = (A.shape[0], S.shape[1]) if size is None else size
+    if reduce is None:
+        def reduce(j, t):
+            return reduced(t)
+    return (reduce(0, torch.sum(A, dim=0)) / C / 10,
+            reduce(1, torch.sum(S, dim=1, keepdim=True)) / N / 10)
 
 
 def pgm_nmf_iteration(A, S, Y):
@@ -1503,7 +1528,7 @@ def _block_gradient(Xs, j, Y, W):
     D = A @ S - Y
     if not _is_unweighted(W):
         D = W * D
-    return D @ S.T if j == 0 else A.T @ D
+    return reduced(D @ S.T if j == 0 else A.T @ D)
 
 
 def _bsdmm_prox_f(Xj, step_j, Xs=None, j=None, *, Y, W, prox):
@@ -1608,10 +1633,13 @@ def _nmf_mesh(Y, A, S, W, prox_A, prox_S, algorithm, step, max_iter, e_rel,
     """``nmf(mesh=)``: the two explicit-collective routes of the JAX
     package, :func:`~proxmin_tpu_torch.parallel.nmf_pgm_sharded` and
     :func:`~proxmin_tpu_torch.parallel.nmf_adaprox_sharded`, with their
-    refusals. The JAX package runs every other call under a mesh through
-    the ordinary drivers on sharded inputs (auto-SPMD); the port has no
-    such route yet."""
+    refusals; every other call takes the auto-SPMD route, as in JAX: the
+    problem is sharded with
+    :func:`~proxmin_tpu_torch.parallel.shard_nmf_problem` and the ordinary
+    driver runs on the ``DTensor`` shards (``engine='torch'``), DTensor
+    inserting the collectives. NumPy inputs take the whole result back."""
     from .parallel import nmf_adaprox_sharded, nmf_pgm_sharded
+    from .parallel.sharding import _classify_weight, shard_nmf_problem
 
     if engine == "cuda":
         # the fused kernels are single-device programs: under a mesh they
@@ -1662,10 +1690,18 @@ def _nmf_mesh(Y, A, S, W, prox_A, prox_S, algorithm, step, max_iter, e_rel,
             "not route to the explicit sharded solve (algorithm='pgm' with "
             "default steps, no callback, and no extra algorithm kwargs "
             "required)")
-    name = getattr(algorithm, "__name__", algorithm)
-    raise _not_yet(f"nmf(mesh=) with algorithm={name!r} and these options "
-                   "(the auto-SPMD route: the ordinary driver on sharded "
-                   "inputs)", 13)
+    # a lower-rank W broadcasts to Y's shape first, so that every rank
+    # takes its slice of the broadcast view
+    weighted, W2 = _classify_weight(W, np.shape(Y))
+    Yd, Ad, Sd, Wd = shard_nmf_problem(
+        mesh, Y, A, S, W2 if weighted else None, model_axis=model_axis)
+    res = nmf(Yd, Ad, Sd, W=Wd if weighted else 1, prox_A=prox_A,
+              prox_S=prox_S, algorithm=algorithm, step=step,
+              max_iter=max_iter, e_rel=e_rel, callback=callback,
+              engine="torch", step_stride=step_stride,
+              step_adapt=step_adapt, **algorithm_args)
+    writeback((A, S), res.x)
+    return res
 
 
 def nmf(
@@ -1797,6 +1833,13 @@ def nmf(
                          max_iter, e_rel, callback, engine, step_stride,
                          step_adapt, mesh, model_axis, kind, algorithm_args)
 
+    if any(isinstance(a, DTensor) for a in (Y, A, S, W)):
+        # sharded inputs (auto-SPMD): the ordinary drivers, as under mesh=
+        if engine == "cuda":
+            raise ValueError(
+                "engine='cuda' does not take DTensor inputs (the fused "
+                "kernels are single-device); use engine='torch'")
+        engine = "torch" if engine == "auto" else engine
     device = _device_for(device, Y, A, S)
     if engine == "auto":
         engine, algorithm_args = _route_auto(

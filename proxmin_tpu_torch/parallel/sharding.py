@@ -27,6 +27,7 @@ loop reads the host once per iteration (the stop flags) and once more per
 adaptive refresh (the step drift).
 """
 
+import contextlib
 import logging
 import math
 from typing import NamedTuple
@@ -333,17 +334,49 @@ def prox_unity_sharded(X, step, axis=0, axis_name=None, mesh=None):
     return out
 
 
+# True while a per-rank program is captured (:mod:`proxmin_tpu_torch.export`):
+# the reductions then go through torch's functional collectives, which
+# ``torch.export`` traces, instead of the in-place ``dist.all_reduce``,
+# which it cannot. The values are the same: one all-reduce of the same
+# packed tensor over the same group.
+_FUNCTIONAL = False
+
+
+@contextlib.contextmanager
+def functional_collectives():
+    """Reduce through ``torch.distributed._functional_collectives`` inside
+    the ``with`` block (a program capture); eager solves keep the in-place
+    ``dist.all_reduce``."""
+    global _FUNCTIONAL
+    prev, _FUNCTIONAL = _FUNCTIONAL, True
+    try:
+        yield
+    finally:
+        _FUNCTIONAL = prev
+
+
+def _all_reduce(t, group, op="sum"):
+    """``t`` all-reduced over ``group``: in place eagerly, a new tensor
+    while a program is captured."""
+    if _FUNCTIONAL:
+        from torch.distributed import _functional_collectives as funcol
+
+        return funcol.all_reduce(t, op, group)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX if op == "max"
+                    else dist.ReduceOp.SUM, group=group)
+    return t
+
+
 def _sum_packed(group, *ts):
     """All-reduce (sum) the tensors ``ts`` over ``group`` in one call of
     their concatenation; None entries pass. No group: no reduction."""
     live = [t for t in ts if t is not None]
     if group is None or not live:
         return ts
-    if len(live) == 1 and live[0].is_contiguous():
+    if len(live) == 1 and live[0].is_contiguous() and not _FUNCTIONAL:
         dist.all_reduce(live[0], group=group)
         return ts
-    flat = torch.cat([t.reshape(-1) for t in live])
-    dist.all_reduce(flat, group=group)
+    flat = _all_reduce(torch.cat([t.reshape(-1) for t in live]), group)
     out, at = [], 0
     for t in ts:
         if t is None:
@@ -356,7 +389,7 @@ def _sum_packed(group, *ts):
 
 def _pmax(v, group):
     if group is not None:
-        dist.all_reduce(v, op=dist.ReduceOp.MAX, group=group)
+        v = _all_reduce(v, group, "max")
     return v
 
 
@@ -388,14 +421,16 @@ def _weighted_steps_v0(A, S):
 
 
 def _weighted_steps(A, S, W, lay, num_iters=_COLD_ITERS, v0=None,
-                    return_v=False, with_data=None):
+                    return_v=False, with_data=None, extra=None):
     """Weighted Lipschitz steps assembled with collectives:
     ``1 / max_c lambda_max(S diag(W_c) S^T)`` (summed over data, max over
     model) and ``1 / max_n lambda_max(A^T diag(W_n) A)`` by the implicit
     batched power iteration over local pixels (max over data). Fully
     masked pixels give a 0 block, not NaN. ``v0``/``return_v``: the warm
     start carried between strided refreshes. ``with_data``: a tensor that
-    rides the Gram's all-reduce over data. Returns ``(sA, sS, v,
+    rides the Gram's all-reduce over data. ``extra`` adds that many
+    passes after the first ``num_iters``: an int in a host loop, a 0-d
+    integer CPU tensor (a ``while_loop``) in a program. Returns ``(sA, sS, v,
     with_data)``, ``v`` the next warm start (None unless ``return_v``)."""
     H, with_data = _sum_packed(lay.data,
                                torch.einsum("kn,cn,ln->ckl", S, W, S),
@@ -413,8 +448,15 @@ def _weighted_steps(A, S, W, lay, num_iters=_COLD_ITERS, v0=None,
         ssq = torch.sum(w * w, dim=1, keepdim=True)
         return w * torch.rsqrt(torch.clamp_min(ssq, tiny))
 
-    for _ in range(int(num_iters)):
+    traced = isinstance(extra, torch.Tensor)
+    for _ in range(int(num_iters) + (0 if traced else int(extra or 0))):
         v = normalize(Hv_S(v))
+    if traced:
+        from torch._higher_order_ops.while_loop import while_loop
+
+        _, v = while_loop(lambda k, v: k < extra,
+                          lambda k, v: (k + 1, normalize(Hv_S(v))),
+                          (torch.zeros_like(extra), v))
     hv = Hv_S(v)
     rayleigh = torch.sum(v * hv, dim=1) / torch.clamp_min(
         torch.sum(v * v, dim=1), tiny)
@@ -426,8 +468,10 @@ def _unweighted_steps(A, S, lay, with_data=None, with_model=None):
     """Unweighted Lipschitz steps from the K x K Grams, one all-reduce
     each (``with_data``/``with_model`` ride along and come back
     reduced): ``(sA, sS, with_data, with_model)``."""
-    SSt, with_data = _sum_packed(lay.data, S @ S.T, with_data)
-    AtA, with_model = _sum_packed(lay.model, A.T @ A, with_model)
+    # torch.t, not .T: a program's refresh loop would take S and S.T as
+    # two aliased inputs, which torch's while_loop refuses
+    SSt, with_data = _sum_packed(lay.data, S @ torch.t(S), with_data)
+    AtA, with_model = _sum_packed(lay.model, torch.t(A) @ A, with_model)
     lam = _lambda_max_small(torch.stack([SSt, AtA]))
     return 1.0 / lam[0], 1.0 / lam[1], with_data, with_model
 
@@ -482,30 +526,71 @@ def _stop_stats(A, A1, S, S1, loss, lay, e2):
     return dA <= e2 * nA, dS <= e2 * nS, finite, loss
 
 
+def _poisoned(finite, loss):
+    """``loss``, NaN where the post-update norms are not ``finite``: the
+    stop rule then fires on the iteration the iterate diverges."""
+    return torch.where(finite, loss, torch.full_like(loss, np.nan))
+
+
+def _go_on(conv_A, conv_S, loss, started=None):
+    """The stop rule of the JAX whole solve on 0-d tensors that every rank
+    holds alike: go on unless both factors converged or the loss is not
+    finite after an iteration (``started``, a 0-d bool: one has run, in
+    this call or before a resume; None: one has). The host loop reads it
+    (:class:`_Stop`), a program's ``while_loop`` carries it."""
+    bad = torch.logical_not(torch.isfinite(loss))
+    if started is not None:
+        bad = torch.logical_and(bad, started)
+    return torch.logical_not(torch.logical_or(
+        torch.logical_and(conv_A, conv_S), bad))
+
+
 class _Stop:
-    """The loop condition of the JAX whole solve, on host values that
-    every rank reads alike: ``it < it_lim`` and not (both converged, or a
-    non-finite loss after an iteration of this call or on a resumed
-    solve)."""
+    """The host loop's clock and :func:`_go_on`'s last verdict: ``it <
+    it_lim`` and the rule holds."""
 
     def __init__(self, it0, conv_A, conv_S, loss, max_iter):
         self.it0 = self.it = int(it0)
         self.it_lim = self.it0 + int(max_iter)
         self.conv = (bool(conv_A), bool(conv_S))
-        self.finite = bool(np.isfinite(loss))
+        self.going = bool(_go_on(
+            torch.tensor(self.conv[0]), torch.tensor(self.conv[1]),
+            torch.tensor(float(loss)), torch.tensor(self.it0 > 0)))
 
     def go(self):
-        done = all(self.conv)
-        bad = not self.finite and (self.it > self.it0 or self.it0 > 0)
-        return self.it < self.it_lim and not (done or bad)
+        return self.going and self.it < self.it_lim
 
-    def record(self, conv_A, conv_S, finite):
-        """One host read: the iteration's flags and whether its (poisoned)
-        loss is finite."""
-        cA, cS, fin = torch.stack([conv_A, conv_S, finite]).tolist()
+    def record(self, conv_A, conv_S, loss):
+        """One host read: the iteration's flags and the rule on its
+        (poisoned) loss."""
+        cA, cS, going = torch.stack(
+            [conv_A, conv_S, _go_on(conv_A, conv_S, loss)]).tolist()
         self.it += 1
         self.conv = (bool(cA), bool(cS))
-        self.finite = bool(fin)
+        self.going = bool(going)
+
+
+def _stride_refresh(A, S, W, lay, weighted, step_adapt, old_steps, stride,
+                    v, it, it_h):
+    """The strided refresh at iteration ``it``: the frozen steps
+    (``_STRIDE_SAFETY`` times the Lipschitz steps; weighted, the power
+    iterate warm-started from ``v``, with the cold passes on the first
+    refresh) and, under ``step_adapt``, the interval grown from the drift
+    against ``old_steps``. ``it`` and ``it_h`` (the clock as the power
+    passes read it) are ints in the host loop; in a program ``it`` is on
+    the device and ``it_h`` a CPU tensor. Returns ``(steps, stride, v)``."""
+    if weighted:
+        LA_s, LS_s, v, _ = _weighted_steps(
+            A, S, W, lay, _WARM_ITERS, v0=v, return_v=True,
+            extra=(it_h == 0) * (_COLD_ITERS - _WARM_ITERS))
+    else:
+        LA_s, LS_s, _, _ = _unweighted_steps(A, S, lay)
+    steps = (_STRIDE_SAFETY * LA_s, _STRIDE_SAFETY * LS_s)
+    if step_adapt:
+        stride = grow_stride(stride, old_steps, steps,
+                             (1.0 - _STRIDE_SAFETY) / 2, 100,
+                             first=(it == 0))
+    return steps, stride, v
 
 
 def _pgm_solve(A, S, Y, W, lay, weighted, prox_A, prox_S, e_rel, max_iter,
@@ -527,10 +612,8 @@ def _pgm_solve(A, S, Y, W, lay, weighted, prox_A, prox_S, e_rel, max_iter,
         while stop.go() and (seg_end is None or stop.it < seg_end):
             A, S, cA, cS, fin, raw = _pgm_iteration(
                 A, S, Y, W, lay, weighted, prox_A, prox_S, steps, e2)
-            # the post-update norms poison the loss, so the isfinite stop
-            # fires the iteration the iterate diverges
-            loss = torch.where(fin, raw, torch.full_like(raw, np.nan))
-            stop.record(cA, cS, torch.isfinite(loss))
+            loss = _poisoned(fin, raw)
+            stop.record(cA, cS, loss)
         return A, S, loss
 
     if not strided:
@@ -549,22 +632,102 @@ def _pgm_solve(A, S, Y, W, lay, weighted, prox_A, prox_S, e_rel, max_iter,
         v = _weighted_steps_v0(A, S) if weighted else None
     while stop.go():
         it = stop.it
-        if weighted:
-            LA_s, LS_s, v, _ = _weighted_steps(
-                A, S, W, lay, _COLD_ITERS if it == 0 else _WARM_ITERS,
-                v0=v, return_v=True)
-        else:
-            LA_s, LS_s, _, _ = _unweighted_steps(A, S, lay)
-        steps = (_STRIDE_SAFETY * LA_s, _STRIDE_SAFETY * LS_s)
-        if step_adapt:
-            # drift against the previous (replicated) steps: one host read
-            stride_c = grow_stride(stride_c, (sA, sS), steps,
-                                   (1.0 - _STRIDE_SAFETY) / 2, 100,
-                                   first=(it == 0))
+        # under step_adapt the drift is one host read
+        steps, stride_c, v = _stride_refresh(A, S, W, lay, weighted,
+                                             step_adapt, (sA, sS), stride_c,
+                                             v, it, it)
         sA, sS = steps
         seg = it + (stride_c if step_adapt else int(step_stride))
         A, S, loss = run(A, S, loss, steps, seg)
     return A, S, stop, loss, (sA, sS, stride_c, seg, v)
+
+
+def _pgm_program(A, S, Y, W, lay, weighted, prox_A, prox_S, e_rel,
+                 max_iter, step_stride, step_adapt, carry):
+    """:func:`_pgm_solve` as one ``while_loop`` on a rank's shards, the
+    body of a per-rank program (captured under
+    :func:`functional_collectives`). Every input is a tensor: ``max_iter``
+    0-d int32, ``carry`` None (a fresh solve) or ``(it0, conv_A, conv_S,
+    loss[, step_A, step_S, stride, seg_end[, v]])``. The loop takes the
+    host loop's iterations (:func:`_pgm_iteration`, the same sums in the
+    same order) and its stop rule (:func:`_go_on`) on the device, so the
+    ranks leave it together; a strided refresh (:func:`_stride_refresh`)
+    is a ``while_loop`` of zero or one trip on a clock kept on the host
+    (CPU tensors), as in
+    ``nmf._fused_weighted_program``. Returns ``(A, S, it, conv_A, conv_S,
+    loss)`` and, when strided, ``(step_A, step_S, stride, seg_end[, v])``
+    after them."""
+    from torch._higher_order_ops.while_loop import while_loop
+
+    strided = (step_stride is not None and step_stride > 1) or step_adapt
+    e2 = e_rel ** 2
+    dt, dev, host = A.dtype, A.device, torch.device("cpu")
+    i32 = torch.int32
+    if carry is None:
+        it0 = torch.zeros((), dtype=i32, device=dev)
+        conv_A0, conv_S0 = (torch.zeros((), dtype=torch.bool, device=dev)
+                            for _ in range(2))
+        loss0 = torch.full((), np.inf, dtype=dt, device=dev)
+    else:
+        it0, conv_A0, conv_S0, loss0 = carry[:4]
+    go0 = _go_on(conv_A0, conv_S0, loss0, it0 > 0)
+    end = it0 + max_iter
+
+    def iterate(A, S, steps):
+        A, S, cA, cS, fin, raw = _pgm_iteration(
+            A, S, Y, W, lay, weighted, prox_A, prox_S, steps, e2)
+        loss = _poisoned(fin, raw)
+        return A, S, cA, cS, loss, _go_on(cA, cS, loss)
+
+    if not strided:
+        def body(A, S, it, cA, cS, loss, go):
+            A, S, cA, cS, loss, go = iterate(A, S, None)
+            return A, S, it + 1, cA, cS, loss, go
+
+        return while_loop(lambda *c: torch.logical_and(c[-1], c[2] < end),
+                          body, (A, S, it0, conv_A0, conv_S0, loss0,
+                                 go0))[:6]
+
+    if carry is None:
+        # two tensors: a loop may not take one tensor as two inputs
+        sA, sS = (torch.zeros((), dtype=dt, device=dev) for _ in range(2))
+        stride_c = torch.full((), int(step_stride) if step_stride else 1,
+                              dtype=i32, device=dev)
+        seg = it0.clone()
+        v = _weighted_steps_v0(A, S) if weighted else None
+    else:
+        sA, sS, stride_c, seg = carry[4:8]
+        v = carry[8] if weighted else None
+    it_h, seg_h = (t.to(host, torch.int64) for t in (it0, seg))
+
+    def refresh(k, sA_o, sS_o, stride_c, seg, seg_h, *v, A, S, it, it_h):
+        steps, stride_c, v_n = _stride_refresh(
+            A, S, W, lay, weighted, step_adapt, (sA_o, sS_o), stride_c,
+            v[0] if weighted else None, it, it_h)
+        if step_adapt:
+            # the host loop reads the drift here too
+            seg_h = it_h + stride_c.to(host, torch.int64)
+        else:
+            stride_c = stride_c.clone()
+            seg_h = it_h + int(step_stride)
+        return (k + 1, *steps, stride_c, it + stride_c, seg_h,
+                *((v_n,) if weighted else ()))
+
+    def body(A, S, it, cA, cS, loss, sA, sS, stride_c, seg, it_h, seg_h, go,
+             *v):
+        due = (it_h >= seg_h).to(torch.int64)
+        _, sA, sS, stride_c, seg, seg_h, *v = while_loop(
+            lambda k, *r: k < due,
+            lambda k, *r: refresh(k, *r, A=A, S=S, it=it, it_h=it_h),
+            (torch.zeros_like(due), sA, sS, stride_c, seg, seg_h, *v))
+        A, S, cA, cS, loss, go = iterate(A, S, (sA, sS))
+        return (A, S, it + 1, cA, cS, loss, sA, sS, stride_c, seg,
+                it_h + 1, seg_h, go, *v)
+
+    out = while_loop(lambda *c: torch.logical_and(c[12], c[2] < end), body,
+                     (A, S, it0, conv_A0, conv_S0, loss0, sA, sS, stride_c,
+                      seg, it_h, seg_h, go0) + ((v,) if weighted else ()))
+    return out[:10] + tuple(out[13:])
 
 
 def make_nmf_pgm_step(mesh, prox_A=operators.prox_plus,
@@ -863,8 +1026,8 @@ def nmf_adaprox_sharded(
         Al, Sl, MA, VA, MS, VS, cA, cS, fin, raw = _adaprox_iteration(
             Al, Sl, MA, VA, MS, VS, Yl, Wl, lay, weighted, prox_A, prox_S,
             counts, scalars, eps, e2)
-        loss = torch.where(fin, raw, torch.full_like(raw, np.nan))
-        stop.record(cA, cS, torch.isfinite(loss))
+        loss = _poisoned(fin, raw)
+        stop.record(cA, cS, loss)
     loss = float(loss)
     shapes = {"a": Ad.shape, "s": Sd.shape}
     resume_state = {

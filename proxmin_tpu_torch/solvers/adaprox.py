@@ -31,8 +31,9 @@ import torch
 from .. import utils
 from ..utils import fixed_point_norms, fixed_point_verdict, l2sq, make_stepper
 from .common import (SolverResult, as_tensor, as_torch_dtype,
-                     check_stepper_state, grad_from_f, normalize_per_block,
-                     normalize_prox, separable_blocks, tupleize, writeback)
+                     check_stepper_state, grad_from_f, host_values,
+                     local_of, normalize_per_block, normalize_prox,
+                     separable_blocks, tupleize, writeback)
 
 logger = logging.getLogger("proxmin")
 
@@ -51,7 +52,10 @@ _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 # factors, NumPy scalars of the block dtype computed on the host from the
 # clock, and their application to the tensors (as Python floats in the
 # driver; an exported loop reads the same values from a table indexed by
-# its counter, see :func:`scheme_table`).
+# its counter, see :func:`scheme_table`, or, with a constant b1, computes
+# them by the same expressions on 0-d CPU tensors from a clock kept on the
+# host: ``b1`` a (1,) tensor, ``b2`` a 0-d one, ``it`` 0 and ``it0`` the
+# clock, an int64 tensor).
 
 def _moments(G, M, V, s):
     M_new = s[0] * G + s[1] * M
@@ -126,14 +130,23 @@ def _radam_scalars(it, b1, b2, it0):
     rho_inf = 2 / (1 - b2) - 1
     t = it + it0 + 1
     rho = rho_inf - 2 * t * b2 ** t / (1 - b2 ** t)
+    head = _moment_scalars(it, b1, b2) + (1 - b1[it] ** t, 1 - b2 ** t)
     rectified = rho > 4
+
+    def r_arg():
+        return ((rho - 4) * (rho - 2) * rho_inf / (rho_inf - 4)
+                / (rho_inf - 2) / rho)
+
+    if isinstance(rho, torch.Tensor):
+        # a program's clock: both branches, the rectified one where it holds
+        tiny = torch.finfo(rho.dtype).tiny
+        r = torch.where(rectified, torch.sqrt(torch.clamp_min(r_arg(), tiny)),
+                        torch.ones_like(rho))
+        return head + (r, rectified.to(rho.dtype))
     r = b2.dtype.type(1)
     if rectified:
-        r_arg = ((rho - 4) * (rho - 2) * rho_inf / (rho_inf - 4)
-                 / (rho_inf - 2) / rho)
-        r = np.sqrt(np.maximum(r_arg, np.finfo(b2.dtype).tiny))
-    return _moment_scalars(it, b1, b2) + (1 - b1[it] ** t, 1 - b2 ** t, r,
-                                          float(rectified))
+        r = np.sqrt(np.maximum(r_arg(), np.finfo(b2.dtype).tiny))
+    return head + (r, float(rectified))
 
 
 def _radam_apply(G, M, V, Vhat, s, eps, p):
@@ -253,14 +266,20 @@ def _prox_subloop(prox_j, x_j, alpha_j, Psi, e_rel_j, prox_max_iter):
     return z, tau
 
 
-def _prox_subloop_traced(prox_j, x_j, alpha_j, Psi, e_rel_j, prox_max_iter):
+def _prox_subloop_traced(prox_j, x_j, alpha_j, Psi, e_rel_j, prox_max_iter,
+                         reduce=None):
     """:func:`_prox_subloop` as a ``while_loop`` that ``torch.export``
     captures (its condition reads the stop test once per sub-iteration, as
-    the host loop does). Returns ``(z, tau)`` with ``tau`` a 0-d int32
-    tensor."""
+    the host loop does). ``reduce(t, op)`` completes the block's max and
+    sums over the ranks that share it (a per-rank program of a sharded
+    block). Returns ``(z, tau)`` with ``tau`` a 0-d int32 tensor."""
     from torch._higher_order_ops.while_loop import while_loop
 
-    psi_max = torch.max(Psi)
+    if reduce is None:
+        def reduce(t, op):
+            return t
+
+    psi_max = reduce(torch.max(Psi), "max")
     gamma = alpha_j / psi_max
     scale = Psi / psi_max
 
@@ -270,7 +289,8 @@ def _prox_subloop_traced(prox_j, x_j, alpha_j, Psi, e_rel_j, prox_max_iter):
 
     def body(z, tau, done):
         z_new = prox_j(z - scale * (z - x_j), gamma)
-        done = l2sq(z_new - z) <= e_rel_j ** 2 * l2sq(z)
+        done = (reduce(l2sq(z_new - z), "sum")
+                <= e_rel_j ** 2 * reduce(l2sq(z), "sum"))
         return z_new, tau + 1, done
 
     tau0 = torch.zeros((), dtype=torch.int32, device=x_j.device)
@@ -281,11 +301,14 @@ def _prox_subloop_traced(prox_j, x_j, alpha_j, Psi, e_rel_j, prox_max_iter):
 
 def _step(st, it, grad, stepper, prox, has_prox, separable, phi_psi, b1, b2,
           eps, p, e_rel, check_convergence, prox_max_iter, moment_dtype,
-          trace, subloop=_prox_subloop):
+          trace, subloop=_prox_subloop, reduce=None):
     """One AdaProx iteration on the carry (the JAX body, term for term):
     the loop body that the driver and ``functional.make_adaprox_solver``
     share. It reads the host only in the prox sub-iterations (``subloop``,
-    or :func:`_prox_subloop_traced` in an exported program)."""
+    or :func:`_prox_subloop_traced` in an exported program). ``reduce(j,
+    t, op)`` completes block ``j``'s norms and the sub-iterations' sums
+    and max over the ranks that share the block: a per-rank program of a
+    sharded solve, whose blocks are local shards."""
     n = len(prox)
     x = st["x"]
     G = utils._as_tuple(grad(*x))
@@ -312,8 +335,10 @@ def _step(st, it, grad, stepper, prox, has_prox, separable, phi_psi, b1, b2,
             xj = prox[j](xj, gamma_el)
             st["sub_iters"][j] += 1
         elif has_prox[j]:
+            kw = ({} if reduce is None
+                  else {"reduce": functools.partial(reduce, j)})
             xj, tau = subloop(prox[j], xj, Alpha[j], Psi, e_rel[j],
-                              prox_max_iter)
+                              prox_max_iter, **kw)
             st["sub_iters"][j] += tau
         x_new.append(xj)
         M_new.append(Mj)
@@ -324,6 +349,9 @@ def _step(st, it, grad, stepper, prox, has_prox, separable, phi_psi, b1, b2,
         # one pair of reductions per block serves the convergence test, the
         # divergence detector and the trace residual
         norms = [fixed_point_norms(x_new[j], x[j]) for j in range(n)]
+        if reduce is not None:
+            norms = [(reduce(j, d, "sum"), reduce(j, nx, "sum"))
+                     for j, (d, nx) in enumerate(norms)]
         verdicts = [fixed_point_verdict(d, nx, e_rel[j])
                     for j, (d, nx) in enumerate(norms)]
         if check_convergence:
@@ -512,7 +540,7 @@ def adaprox(
                 list(sub_iterations))
     diverged = bool(st["diverged"])
     if check_convergence:
-        converged = tuple(bool(c) for c in st["converged"].tolist())
+        converged = tuple(bool(c) for c in host_values(st["converged"]))
         if not diverged and not all(converged):
             logger.warning("Solution did not converge")
     else:
@@ -530,9 +558,9 @@ def adaprox(
     history = None
     if trace:
         # one copy at the end
-        history = (torch.stack(st["history"]) if st["history"] else
-                   torch.zeros((0, n), dtype=st["history_dtype"])
-                   ).cpu().numpy()
+        history = local_of(torch.stack(st["history"]) if st["history"] else
+                           torch.zeros((0, n), dtype=st["history_dtype"])
+                           ).cpu().numpy()
     resume_state = {
         "M": st["M"], "V": st["V"], "Vhat": st["Vhat"],
         "stepper_state": st["stepper_state"],

@@ -27,9 +27,9 @@ import torch
 
 from .. import utils
 from ..linop import IdentityOperator, as_linear_operator
-from .common import (BoolResult, SolverResult, as_tensor, map_leaves,
-                     run_lanes, select_lanes, status_from, tupleize,
-                     writeback)
+from .common import (BoolResult, SolverResult, as_tensor, host_values,
+                     local_of, map_leaves, run_lanes, select_lanes,
+                     status_from, tupleize, writeback)
 
 logger = logging.getLogger("proxmin")
 
@@ -277,11 +277,12 @@ def _sdmm_core(x0, prox_f, step_f, proxs_g, steps_g, Ls, e_rel, e_abs,
         if trace:
             # 2 * max_iter rows, not the whole restart budget; a restart
             # storm beyond that overwrites the last row
-            history[min(total_it - tot0, history.shape[0] - 1)] = errors_arr
+            history[min(total_it - tot0, history.shape[0] - 1)] = local_of(
+                errors_arr)
 
         # the one blocking read of the iteration
         flags = [conv_t, nonfinite] + ([] if stall is None else [stall])
-        flags = torch.stack(flags).tolist()
+        flags = host_values(torch.stack(flags))
         conv, diverged = flags[0], diverged or flags[1]
         x, r_prev = x_new, r
         total_it += 1
@@ -354,7 +355,7 @@ def _finish(state, originals, trace, multi):
     iterations = state.it if state.total_it0 == 0 else this_call
     logger.info("Completed %d iterations", iterations)
     status = status_from(state.converged, state.diverged, logger)
-    errors = tuple(tuple(row) for row in state.errors.tolist())
+    errors = tuple(tuple(row) for row in host_values(state.errors))
     if not multi:
         errors = errors[0]
     history = (state.history[:min(this_call, state.history.shape[0])]

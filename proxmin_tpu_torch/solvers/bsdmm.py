@@ -27,8 +27,8 @@ import torch
 
 from .. import utils
 from ..linop import as_linear_operator
-from .common import (SolverResult, as_tensor, map_leaves, status_from,
-                     tupleize, writeback)
+from .common import (SolverResult, as_tensor, host_values, local_of,
+                     map_leaves, status_from, tupleize, writeback)
 
 logger = logging.getLogger("proxmin")
 
@@ -317,10 +317,10 @@ def bsdmm(
                 break
         flags, row = prog.sweep(st, it, trace)
         if trace:
-            history[it - it0] = row
+            history[it - it0] = local_of(row)
         # one blocking read per sweep, of the blocks' flags and the
         # divergence flag
-        flags = flags.tolist()
+        flags = host_values(flags)
         for j, c in zip(prog.update_order, flags):
             converged[j] = c
         diverged = flags[-1]

@@ -8,9 +8,10 @@ import functools
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from .. import operators
-from ..utils import _as_tuple
+from ..utils import _as_tuple, replicated_like
 
 __all__ = [
     "BoolResult",
@@ -33,6 +34,10 @@ __all__ = [
     "any_lane",
     "select_lanes",
     "run_lanes",
+    "host_values",
+    "replicated_like",
+    "reduced",
+    "local_of",
 ]
 
 
@@ -128,12 +133,56 @@ def writeback(originals, results):
     """Update float NumPy inputs in place (the reference's "X will be
     updated" contract). Only writable same-or-wider float arrays are
     written: narrowing or writing floats into integers would truncate
-    silently, and a read-only view (e.g. of a JAX array) cannot take it."""
+    silently, and a read-only view (e.g. of a JAX array) cannot take it.
+    A ``DTensor`` result is gathered once, and only for such an input."""
     for orig, res in zip(originals, results):
         if (isinstance(orig, np.ndarray) and orig.dtype.kind == "f"
                 and orig.flags.writeable
                 and orig.dtype.itemsize >= res.element_size()):
+            if isinstance(res, DTensor):
+                res = res.full_tensor()
             orig[...] = res.detach().cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# Sharded iterates (auto-SPMD). The drivers run unchanged on ``DTensor``
+# blocks: DTensor propagates every block's placements through their
+# operations and inserts the collectives (a pixel-sharded matmul's
+# contraction, a sum over the pixel axis). What the drivers read on the
+# host, and the tensors they make themselves, go through the three helpers
+# below: a host read takes a value that is the same on every rank (a
+# pending reduction is all-reduced first, never a sharded operand
+# gathered), so every rank takes the same branch.
+
+def host_values(t):
+    """``t.tolist()``: one blocking read. A ``DTensor`` is read through its
+    replicated value; the drivers read only stop flags and scalars, whose
+    pending sums are all-reduced here (a few elements)."""
+    return local_of(t).tolist()
+
+
+def reduced(t):
+    """``t`` with its pending sums all-reduced: a ``DTensor`` comes back
+    replicated over the mesh axes it is ``Partial`` on (its shards stay
+    shards), a plain tensor as it is. A step heuristic's sum over the pixel
+    axis goes through here before it meets a sharded block, so DTensor
+    reduces the K sums instead of gathering the block."""
+    if isinstance(t, DTensor) and any(p.is_partial() for p in t.placements):
+        t = t.redistribute(t.device_mesh, [Replicate() if p.is_partial()
+                                           else p for p in t.placements])
+    return t
+
+
+def local_of(t):
+    """A replicated value as a plain tensor (a ``DTensor``'s pending sum is
+    all-reduced first), for arithmetic that mixes it with the driver's own
+    tensors; a plain tensor passes."""
+    if isinstance(t, DTensor):
+        if any(not p.is_replicate() for p in t.placements):
+            t = t.redistribute(t.device_mesh,
+                               [Replicate()] * t.device_mesh.ndim)
+        return t.to_local()
+    return t
 
 
 def normalize_prox(prox, n_blocks):

@@ -26,8 +26,8 @@ from .. import utils
 from ..utils import (fixed_point_norms, fixed_point_verdict, make_stepper,
                      nesterov_next)
 from .common import (SolverResult, check_stepper_state, grad_from_f,
-                     normalize_per_block, normalize_prox, status_from,
-                     tupleize, writeback)
+                     host_values, local_of, normalize_per_block,
+                     normalize_prox, status_from, tupleize, writeback)
 
 logger = logging.getLogger("proxmin")
 
@@ -189,8 +189,8 @@ def _step(st, it, grad, stepper, prox, e_rel, accelerated, restart,
             break
         # the blocking read, one per trial point: its stop flags and its
         # test; the flags stand if no halving follows
-        flags = torch.cat([conv, diverged.reshape(1),
-                           (f_now > Q(x_new, T)).reshape(1)]).tolist()
+        flags = host_values(torch.cat([conv, diverged.reshape(1),
+                           (f_now > Q(x_new, T)).reshape(1)]))
         if not flags[n + 1]:
             host = flags[:n + 1]
             break
@@ -236,8 +236,8 @@ def _iterate(st, it, grad, stepper, prox, e_rel, accelerated, restart,
     host = _step(st, it, grad, stepper, prox, e_rel, accelerated, restart,
                  backtracking, f, trace)
     if host is None:
-        host = torch.cat([st["converged"],
-                          st["diverged"].reshape(1)]).tolist()
+        host = host_values(torch.cat([st["converged"],
+                          st["diverged"].reshape(1)]))
     return host[:-1], host[-1]
 
 
@@ -328,8 +328,8 @@ def pgm(
         conv_h, div_h = [False] * n, False
     else:
         # a stopped solve stays stopped: one read of the carried flags
-        *conv_h, div_h = torch.cat(
-            [st["converged"], st["diverged"].reshape(1)]).tolist()
+        *conv_h, div_h = host_values(torch.cat(
+            [st["converged"], st["diverged"].reshape(1)]))
     it = 0
     while it < max_iter and not (all(conv_h) or div_h):
         if callback is not None:
@@ -355,8 +355,9 @@ def pgm(
     history = None
     if trace:
         # one copy at the end
-        history = (torch.stack(st["history"]) if st["history"] else
-                   torch.zeros((0, n), dtype=st["t"].dtype)).cpu().numpy()
+        history = local_of(torch.stack(st["history"]) if st["history"] else
+                           torch.zeros((0, n), dtype=st["t"].dtype)
+                           ).cpu().numpy()
     resume_state = {
         "x_prev": st["x_prev"], "t": st["t"], "T": st["T"],
         "f_prev": st["f_prev"], "stepper_state": st["stepper_state"],

@@ -23,6 +23,7 @@ import time
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 __all__ = [
     "l2sq",
@@ -61,6 +62,17 @@ def _as_tuple(X):
     if type(X) in (list, tuple):
         return tuple(X)
     return (X,)
+
+
+def replicated_like(t, like):
+    """``t``, a tensor the driver made itself, as a replicated ``DTensor``
+    on ``like``'s mesh when ``like`` is one (every rank makes the same
+    values), else ``t`` as it is."""
+    if isinstance(like, DTensor) and not isinstance(t, DTensor):
+        return DTensor.from_local(t, like.device_mesh,
+                                  [Replicate()] * like.device_mesh.ndim,
+                                  run_check=False)
+    return t
 
 
 def l2sq(x):
@@ -314,8 +326,9 @@ class BarzilaiBorweinStepper:
         dtype = X[0].dtype
         for x in X[1:]:
             dtype = torch.promote_types(dtype, x.dtype)
-        delta = torch.full((n,), float("inf"), dtype=dtype,
-                           device=X[0].device)
+        # sharded blocks: their per-block scalars are replicated
+        delta = replicated_like(torch.full((n,), float("inf"), dtype=dtype,
+                                           device=X[0].device), X[0])
         return (tuple(torch.zeros_like(x) for x in X),
                 tuple(torch.zeros_like(x) for x in X), delta)
 

@@ -250,17 +250,9 @@ def test_functional_imports_no_jax():
 
 
 # what the port's exporters cannot capture that the JAX ones do: {exporter:
-# {option: reason}}; each raises (NotImplementedError for the sharded pair,
-# ValueError otherwise) and stands as owed in ROADMAP.md
+# {option: reason}}; each raises ValueError and stands as owed in
+# ROADMAP.md
 EXPORT_GAPS = {
-    "export_nmf_pgm_sharded": {
-        "*": "a saved program of the sharded solve: ROADMAP Queue 1 item 13 "
-             "(what is left of the scale-out); the solve itself runs as "
-             "proxmin_tpu_torch.parallel.nmf_pgm_sharded"},
-    "export_nmf_adaprox_sharded": {
-        "*": "a saved program of the sharded solve: ROADMAP Queue 1 item 13 "
-             "(what is left of the scale-out); the solve itself runs as "
-             "proxmin_tpu_torch.parallel.nmf_adaprox_sharded"},
     "export_nmf_solver": {
         "untraceable prox_S": "a prox_S outside the compiled chains runs "
                               "between K1's two split passes and is traced "
@@ -286,9 +278,7 @@ def test_exporters_take_the_jax_parameters(name):
     got = list(inspect.signature(getattr(tex, name)).parameters)
     want = list(inspect.signature(getattr(proxmin_tpu.export,
                                           name)).parameters)
-    if name.endswith("_sharded"):
-        assert got == ["args", "kwargs"]
-    elif name.startswith("export_"):
+    if name.startswith("export_"):
         assert got == want + ["device"]
     else:
         assert got == want
@@ -302,11 +292,6 @@ def test_export_gaps_raise():
     import torch
 
     import proxmin_tpu_torch.export as tex
-
-    for name in ("export_nmf_pgm_sharded", "export_nmf_adaprox_sharded"):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            getattr(tex, name)(None, 4, 3, 128)
-        assert "proxmin_tpu_torch.parallel" in EXPORT_GAPS[name]["*"]
 
     def prox_f(x, step, Xs=None, j=None):
         return x

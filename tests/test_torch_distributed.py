@@ -11,7 +11,11 @@ float64 at rtol 1e-9 with equal ``iterations``, ``converged`` and
 ``status``, and the loss bit for bit equal on every rank. The two-rank run
 also kills, saves, loads and resumes a sharded checkpoint bit for bit,
 continues JAX states and counts the all-reduces per iteration (the pattern
-of ``test_collective_layout.py``: only small ones, a pinned count).
+of ``test_collective_layout.py``: only small ones, a pinned count). Two
+more runs hold the auto-SPMD routes (the ordinary drivers on ``DTensor``
+shards) against JAX on two and four devices, and audit the collectives
+that DTensor issues in them: only all-reduces, none of the pixel axis's
+size.
 """
 
 import os
@@ -20,6 +24,7 @@ import subprocess
 import sys
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -196,6 +201,124 @@ def test_four_ranks_match_jax_on_four_devices(tmp_path):
         assert o["ml_pgm:calls"].tolist() == [[C * K + K * K, 0],
                                               [3, 0]] * 10
         assert max(n for n, _ in o["pgm:calls"]) < K * N
+
+
+def _jax_routes(W):
+    """The JAX calls of the worker's ROUTES, by name."""
+    def half_steps(*X, it=None):
+        return tuple(0.5 * s for s in pt.nmf.step_pgm(*X))
+
+    return {
+        "bsdmm": {"algorithm": "bsdmm"},
+        "bsdmm_w": {"algorithm": "bsdmm", "W": W},
+        "nonseparable": {"algorithm": "adaprox", "separable_prox": False},
+        "amsgrad": {"algorithm": "adaprox", "scheme": "amsgrad"},
+        "adaprox_stride": {"algorithm": "adaprox", "step_stride": 5},
+        "step": {"step": lambda *X, it=None: (0.1, 0.1)},
+        "accelerated": {"accelerated": True},
+        "accelerated_converging": {"accelerated": True, "step": half_steps,
+                                   "e_rel": 1e-5, "max_iter": 2000},
+        "callback": {"callback": lambda *X, it=None: None},
+    }
+
+
+def _route_held(outs, case, Y, A0, S0, jmesh, kw):
+    """Every rank's written-back whole result of an nmf(mesh=) route
+    against JAX's nmf(mesh=) on as many devices (e_rel 0 and 10
+    iterations unless ``kw`` says otherwise). A route that converges does
+    so with finite iterates on every rank."""
+    A1, S1 = A0.copy(), S0.copy()
+    rj = pt.nmf.nmf(Y, A1, S1, mesh=jmesh, **{"e_rel": 0, "max_iter": 10,
+                                              **kw})
+    for o in outs:
+        if rj.status == "converged":
+            assert np.isfinite(o[f"{case}:A"]).all(), case
+            assert np.isfinite(o[f"{case}:S"]).all(), case
+        np.testing.assert_allclose(o[f"{case}:A"], A1, err_msg=case, **F64)
+        np.testing.assert_allclose(o[f"{case}:S"], S1, err_msg=case, **F64)
+        assert int(o[f"{case}:meta"][0]) == rj.iterations, case
+        assert str(o[f"{case}:status"]) == rj.status, case
+
+
+def _admm_held(outs, case, x, jmesh, spec):
+    """admm and sdmm on a sharded x against JAX's on as many devices."""
+    from jax.sharding import NamedSharding
+
+    def prox_f(v, step):
+        return (v + step) / (1 + step)
+
+    def cap(v, step):
+        return jnp.minimum(v, 0.8)
+
+    xj = jax.device_put(jnp.asarray(x), NamedSharding(jmesh, spec))
+    for kind, rj in (
+            ("admm", pt.admm(xj, prox_f, 0.5, prox_g=cap, e_rel=1e-6,
+                             max_iter=300)),
+            ("sdmm", pt.sdmm(xj, prox_f, 0.5, proxs_g=[
+                cap, pt.operators.prox_plus], e_rel=1e-6, max_iter=300))):
+        for o in outs:
+            np.testing.assert_allclose(o[f"{case}_{kind}:x"],
+                                       np.asarray(rj.x), rtol=1e-9,
+                                       atol=1e-12)
+            assert int(o[f"{case}_{kind}:meta"][0]) == rj.iterations
+
+
+def _layout_rule(outs, d):
+    """The JAX audit's rule (tests/test_collective_layout.py:1-90) on d
+    ranks of the data axis: no all-gather, reduce-scatter or all-to-all,
+    no all-reduce of K N / d elements or more (the audit's K 3, N 1024),
+    and at least one all-reduce, for each solve on every rank."""
+    big = 3 * 1024 // d
+    for o in outs:
+        for name in ("pgm", "adaprox", "bsdmm", "admm", "sdmm"):
+            ops = [str(x) for x in o[f"audit_{name}:ops"]]
+            sizes = o[f"audit_{name}:sizes"]
+            assert set(ops) == {"all_reduce"}, (name, sorted(set(ops)))
+            assert int(sizes.max()) < big, (name, int(sizes.max()), big)
+
+
+def test_auto_spmd_two_ranks_match_jax(tmp_path):
+    """The auto-SPMD routes on two ranks of a ('data',) mesh: the nine
+    option sets of nmf(mesh=) (FISTA also along a trajectory that
+    converges), admm and sdmm on a pixel-sharded x, each
+    against JAX on two devices at rtol 1e-9 with equal iterations; and the
+    layout rule for pgm, adaprox, bsdmm, admm and sdmm."""
+    Y, A0, S0, W = _problem()
+    np.savez(tmp_path / "inputs.npz", Y=Y, A0=A0, S0=S0, W=W)
+    outs = _spawn(tmp_path, 2, "auto1d")
+    jmesh = jpar.make_mesh(devices=jax.devices("cpu")[:2])
+    for name, kw in _jax_routes(W).items():
+        _route_held(outs, f"auto_{name}", Y, A0, S0, jmesh, kw)
+    assert str(outs[0]["auto_accelerated_converging:status"]) == "converged"
+    from jax.sharding import PartitionSpec as P
+
+    _admm_held(outs, "auto", S0, jmesh, P(None, "data"))
+    _layout_rule(outs, 2)
+
+
+def test_auto_spmd_four_ranks_match_jax(tmp_path):
+    """Four ranks: routes on a 2 x 2 ('data', 'model') mesh with the
+    channel axis sharded, admm and sdmm with both of x's axes sharded, two
+    routes on a ('data',) mesh of four, each against JAX on four devices;
+    and the layout rule on the four-rank pixel axis."""
+    from jax.sharding import PartitionSpec as P
+
+    Y, A0, S0, W = _problem()
+    np.savez(tmp_path / "inputs.npz", Y=Y, A0=A0, S0=S0, W=W)
+    outs = _spawn(tmp_path, 4, "auto2x2")
+    devs = jax.devices("cpu")[:4]
+    tp = jpar.make_mesh((2, 2), devices=devs)
+    routes = _jax_routes(W)
+    for name in ("bsdmm", "amsgrad", "accelerated",
+                 "accelerated_converging"):
+        _route_held(outs, f"tp_{name}", Y, A0, S0, tp,
+                    dict(routes[name], model_axis="model"))
+    assert str(outs[0]["tp_accelerated_converging:status"]) == "converged"
+    _admm_held(outs, "tp", Y, tp, P("model", "data"))
+    flat = jpar.make_mesh(devices=devs)
+    for name in ("bsdmm_w", "amsgrad"):
+        _route_held(outs, f"auto_{name}", Y, A0, S0, flat, routes[name])
+    _layout_rule(outs, 4)
 
 
 def test_initialize_distributed_reraises_configured_failures(monkeypatch):

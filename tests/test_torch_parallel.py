@@ -617,22 +617,33 @@ def test_nmf_mesh_refusals(problem):
                              step_stride=5, state=pgm_half.state)
 
 
-def test_auto_spmd_routes_raise_naming_item_13(problem, rng):
-    """The JAX package runs the other algorithms and options under a mesh
-    through the ordinary drivers on sharded inputs (auto-SPMD); the port
-    raises naming ROADMAP item 13 for each."""
+@pytest.mark.parametrize("kw", [
+    {"algorithm": "bsdmm"},
+    {"algorithm": "adaprox", "separable_prox": False},
+    {"algorithm": "adaprox", "scheme": "amsgrad"},
+    {"algorithm": "adaprox", "step_stride": 5},
+    {"step": lambda *X, it=None: (0.1, 0.1)},
+    {"accelerated": True},
+    {"callback": lambda *X, it=None: None},
+], ids=["bsdmm", "nonseparable", "amsgrad", "adaprox-stride", "step",
+        "accelerated", "callback"])
+def test_auto_spmd_routes_run(problem, kw):
+    """The calls that the JAX package runs under a mesh through the
+    ordinary drivers on sharded inputs (auto-SPMD) run so in the port too:
+    equal to JAX's nmf(mesh=) at rtol 1e-9 with equal iterations, the
+    result written back into the NumPy inputs."""
     Y, A0, S0 = problem
-    mesh = _mesh()
-    for kw in ({"algorithm": "bsdmm"},
-               {"algorithm": "adaprox", "separable_prox": False},
-               {"algorithm": "adaprox", "scheme": "amsgrad"},
-               {"algorithm": "adaprox", "step_stride": 5},
-               {"step": lambda *X, it=None: (0.1, 0.1)},
-               {"accelerated": True},
-               {"callback": lambda *X, it=None: None}):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            ptt.nmf.nmf(Y, A0.copy(), S0.copy(), mesh=mesh, e_rel=0,
-                        max_iter=3, **kw)
+    A1, S1 = A0.copy(), S0.copy()
+    rj = pt.nmf.nmf(Y, A1, S1, mesh=_jmesh(), e_rel=0, max_iter=10, **kw)
+    A2, S2 = A0.copy(), S0.copy()
+    rt = ptt.nmf.nmf(Y, A2, S2, mesh=_mesh(), e_rel=0, max_iter=10, **kw)
+    np.testing.assert_allclose(A2, A1, **F64)
+    np.testing.assert_allclose(S2, S1, **F64)
+    # (accelerated diverges at iteration 9 on this problem, in both)
+    assert rt.iterations == rj.iterations
+    assert rt.status == rj.status
+    assert all(isinstance(x, DTensor) for x in rt.x)
+    assert rt.x[1].placements == (Shard(1),)
 
 
 def test_collectives_per_iteration(problem, rng, monkeypatch):
