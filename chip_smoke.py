@@ -22,7 +22,9 @@ float32), with K4's soft threshold as ``sdmm``'s ``prox_g``, and
 steps) and checkpoint/resume of six solves through a file; then the
 functional factories: batched patch NMF under ``torch.func.vmap`` and
 implicit gradients; then whole solves exported with ``torch.export`` and
-served from a fresh process. It exits non-zero when any phase fails.
+served from a fresh process; then the wide, sharded, routing and very-wide
+paths; and last the eleven examples of ``proxmin_tpu_torch.examples``. It
+exits non-zero when any phase fails.
 Phases:
 
 1. probe: CUDA/driver/compiler versions, the card and its power limit;
@@ -136,7 +138,12 @@ Phases:
    load seconds and file MB, its marginal ms/iter in turns with its
    driver, its CUDA launches and blocking reads per iteration beside the
    driver's, and each registered op's host microseconds per call beside
-   its wrapper's;
+   its wrapper's; and the bsdmm programs whose steps carry across sweeps
+   (``EX_BSDMM``: the weighted ``nmf(algorithm="bsdmm", W=...)`` on the
+   WeightedBSDMMStepper at stride 10, fixed and adaptive, the unweighted
+   ``steps_f_stride=3`` and a ``steps_g_update="relative"`` sum-to-one S),
+   each equal to its driver bit for bit after 25 sweeps, with its ms/sweep
+   in turns with the driver;
 15. the full-width path (``wide_phase``): C=128, K=32, N=1e6 and the
    prox modes on K1-K3's wide body (see its docstring);
 16. the sharded path (``proxmin_tpu_torch.parallel``) on a one-rank NCCL
@@ -176,7 +183,16 @@ Phases:
    (128, 64, 250 000), a K > 64 one at (128, 96, 4097) and a K > 128 one
    at (64, 160, 4097) on K1-K3's very-wide bodies, ``nmf(engine="auto")``
    on the four against the routing table's very-wide rows, and K5 beyond C,
-   K <= 8 at (16, 12, 1e6) (see its docstring).
+   K <= 8 at (16, 12, 1e6) (see its docstring);
+19. the eleven examples of ``proxmin_tpu_torch.examples``
+   (``examples_phase``) at their default arguments, each in a process of
+   its own, four at once, the sharded three on a one-rank NCCL group in
+   that process: each exits 0 and prints its success lines, with its wall
+   seconds and the kernels it launched; ``fused_adam_unmixing`` must
+   launch K2 once an iteration of its two ``engine="cuda"`` segments, and
+   K2 is held against its plain version at that example's own operands
+   (N = 20 000, bfloat16 moments, the warm start from the returned M and
+   V; ``example_k2_check``).
 
 The last two lines are the card (``nvidia-smi`` name and power limit)
 after a JSON object describing the kernels (each with its time, its plain
@@ -736,12 +752,22 @@ def adaprox_inputs(C_, K_, N_, weighted, mdt, t=3, b1=0.9, b2=0.999):
 def compare_adaprox_step(k2, label, C_, K_, N_, weighted=False,
                          mdt=torch.float32, prox_S=None):
     A, S, M, V, Y, alpha, sc, W = adaprox_inputs(C_, K_, N_, weighted, mdt)
-    got = k2.fused_nmf_adaprox_step(A, S, M, V, Y, alpha, sc, W=W,
-                                    prox_S=prox_S)
-    again = k2.fused_nmf_adaprox_step(A, S, M, V, Y, alpha, sc, W=W,
-                                      prox_S=prox_S)
-    ref = k2.fused_nmf_adaprox_step_reference(A, S, M, V, Y, alpha, sc, W=W,
-                                              prox_S=prox_S)
+    args = (A, S, M, V, Y, alpha, sc)
+    return args, hold_adaprox_step(k2, label, args, dict(W=W, prox_S=prox_S))
+
+
+def hold_adaprox_step(k2, label, args, kw):
+    """K2 on ``args``, ``kw`` against its plain version on the same
+    tensors: every output within STEP_RTOL (dS_sq DS_RTOL), bfloat16
+    moments within one bfloat16 ulp (+ BF16_STORE_ATOL), two launches
+    bitwise equal, S' finite. Returns S''s max abs error."""
+    C_, K_ = args[0].shape
+    N_ = args[1].shape[1]
+    mdt = args[2].dtype
+    got = k2.fused_nmf_adaprox_step(*args, **kw)
+    again = k2.fused_nmf_adaprox_step(*args, **kw)
+    ref = k2.fused_nmf_adaprox_step_reference(*args, **{
+        k: v for k, v in kw.items() if k != "tile_n"})
     torch.cuda.synchronize()
     names = ("gA", "S_new", "M_new", "V_new", "rowsum", "loss", "dS_sq",
              "nS_sq")
@@ -769,7 +795,7 @@ def compare_adaprox_step(k2, label, C_, K_, N_, weighted=False,
         + f" (tol {STEP_RTOL:g}, dS_sq {DS_RTOL:g}, bfloat16 moments 1 ulp "
         f"+ {BF16_STORE_ATOL:g});"
         f" S_new max abs err {max_abs:.3e}; two launches bitwise equal")
-    return (A, S, M, V, Y, alpha, sc), max_abs
+    return max_abs
 
 
 def compare_adaprox_bf16(k2, label, C_, K_, N_, weighted=False,
@@ -2312,17 +2338,96 @@ def k3_pgm_case(tnmf, tops, Y):
                          max_iter=ITERS)
 
 
+# The bsdmm programs whose steps carry across sweeps, at the flagship
+# (phase 14): nmf(algorithm="bsdmm", W=...) on the WeightedBSDMMStepper at
+# stride 10, fixed and adaptive; the unweighted steps_f_stride=3; and the
+# sum-to-one S of phase 11 with steps_g_update="relative". Each program is
+# exported for TURN_LO and TURN_HI sweeps (bsdmm's max_iter is baked in) and
+# held to its driver bit for bit at TURN_HI.
+EX_BSDMM = ("bsdmm_w_stride10", "bsdmm_w_adaptive", "bsdmm_stride3",
+            "bsdmm_relative")
+
+
+def bsdmm_program_case(name, tnmf, top, Y, A0, S0, Ww):
+    """Phase 14's bsdmm program ``name`` of EX_BSDMM: ``(export(n) ->
+    bytes, driver(n) -> result)``, the driver as a user calls it (``nmf``,
+    or ``bsdmm`` for the constrained one) and the program from the same
+    callables (``nmf``'s block prox and steps)."""
+    from proxmin_tpu_torch import algorithms, utils
+    from proxmin_tpu_torch import export as tex
+
+    shapes = [tuple(A0.shape), tuple(S0.shape)]
+    plus = (top.prox_plus, top.prox_plus)
+    if name == "bsdmm_relative":
+        def block_prox_f(Xj, step, Xs=None, j=None):
+            A, S = Xs
+            D = A @ S - Y
+            grad = D @ S.T if j == 0 else A.T @ D
+            return top.prox_plus(Xj - step * grad, step)
+
+        def block_step(Xs, j=None):
+            return tnmf.step_A(*Xs) if j == 0 else tnmf.step_S(*Xs)
+
+        # steps_g as the steps_f mode would take it at sweep 0, a tensor as
+        # the step callable's (a Python number would round otherwise in
+        # the program's float32 carry)
+        sg = utils.get_step_g(tnmf.step_S(A0, S0), 1.0, N=2, M=1)
+        kw = dict(proxs_g=[None, [partial(top.prox_unity, axis=0)]],
+                  steps_g=[None, [sg]], steps_g_update="relative", e_rel=0)
+
+        def export(n):
+            return tex.export_bsdmm_solver(shapes, block_prox_f, block_step,
+                                           max_iter=n, **kw)
+
+        def driver(n):
+            return algorithms.bsdmm([A0, S0], block_prox_f, block_step,
+                                    max_iter=n, **kw)
+        return export, driver
+    weighted = name.startswith("bsdmm_w")
+    W = Ww if weighted else 1
+    prox_f = partial(tnmf._bsdmm_prox_f, Y=Y, W=W, prox=plus)
+    if weighted:
+        adapt = name.endswith("adaptive")
+        opts = dict(W=Ww, step_stride=STRIDE, step_adapt=adapt)
+
+        def steps():
+            return dict(steps_f_cb=tnmf.WeightedBSDMMStepper(
+                Ww, stride=STRIDE, adapt=adapt))
+    else:
+        opts = dict(step_stride=3)
+
+        def steps():
+            return dict(steps_f_cb=partial(tnmf._bsdmm_step_default, W=1),
+                        steps_f_stride=3)
+
+    def export(n):
+        return tex.export_bsdmm_solver(shapes, prox_f, e_rel=0, max_iter=n,
+                                       **steps())
+
+    def driver(n):
+        return tnmf.nmf(Y, A0, S0, algorithm="bsdmm", e_rel=0, max_iter=n,
+                        **opts)
+    return export, driver
+
+
 def export_program(name):
     """The bytes of phase 14's program ``name``, exported in this process:
     a fused NMF program of EX_FUSED, ``<tv>_<n>`` (a TV program of
-    ``tv_cases_of`` for ``n`` iterations) or ``pgm_k3``. Each is made from
-    the phase's own data (seeded), so the program equals the one the phase
-    would export itself."""
+    ``tv_cases_of`` for ``n`` iterations), ``<bsdmm>_<n>`` (a program of
+    EX_BSDMM for ``n`` sweeps) or ``pgm_k3``. Each is made from the phase's
+    own data (seeded), so the program equals the one the phase would export
+    itself."""
     from proxmin_tpu_torch import algorithms, linop
     from proxmin_tpu_torch import export as tex
     from proxmin_tpu_torch import nmf as tnmf
+    from proxmin_tpu_torch import operators as top
     from proxmin_tpu_torch import ops as tops
 
+    case, _, n = name.rpartition("_")
+    if case in EX_BSDMM:
+        Y, A0, S0, Ww = make_problem(C, K, N, True)
+        return bsdmm_program_case(case, tnmf, top, Y, A0, S0,
+                                  Ww)[0](int(n))
     if name in EX_FUSED:
         kind, kw = EX_FUSED[name]
         exporter = (tex.export_nmf_solver if kind == "pgm"
@@ -2360,6 +2465,54 @@ def export_all(out_dir, names):
     return made
 
 
+def bsdmm_programs_check(mods, problem, out_dir, exported, card):
+    """Phase 14's bsdmm programs (EX_BSDMM), exported into ``out_dir``
+    (``exported``: ``{name: (seconds, MB)}`` of :func:`export_all`): each
+    bit for bit against its driver at TURN_HI sweeps, then its marginal
+    ms/sweep in turns with the driver. ``mods`` are ``(tnmf, top)``."""
+    from proxmin_tpu_torch import export as tex
+
+    tnmf, top = mods
+    Y, A0, S0, Ww = problem
+    for name in EX_BSDMM:
+        _, drv = bsdmm_program_case(name, tnmf, top, Y, A0, S0, Ww)
+        made = {}
+        for n in (TURN_LO, TURN_HI):
+            t0 = time.perf_counter()
+            made[n] = tex.load_exported(out_dir / f"{name}_{n}.pt2")
+            t_load = time.perf_counter() - t0
+        seconds, mb = exported[f"{name}_{TURN_HI}"]
+        xs_p, it_p, _ = made[TURN_HI](A0, S0)
+        res = drv(TURN_HI)
+        diff = max(float((a - b).abs().max()) for a, b in zip(xs_p, res.x))
+        check(int(it_p) == res.iterations == TURN_HI and all(
+            torch.equal(a, b) for a, b in zip(xs_p, res.x)),
+            f"export: {name}: the program differs from its driver after "
+            f"{TURN_HI} sweeps ({int(it_p)} against {res.iterations}; max "
+            f"|diff| {diff:.3e})")
+        if "w_" in name:
+            # the refreshes and strides the driver's stepper reached
+            steps_state = res.state["steps_state"]
+            detail = (f"; the driver's strides {steps_state[1]}, next "
+                      f"refreshes {steps_state[2]}")
+        else:
+            detail = ""
+
+        def run_p(n, made=made):
+            return made[n](A0, S0)
+        timed(run_p, TURN_LO)
+        timed(drv, TURN_LO)
+        ms_d, ms_p, ms_p2, ms_d2 = (turn_ms(f) for f in (drv, run_p, run_p,
+                                                          drv))
+        log(f"export: {name}: program = driver bit for bit after {TURN_HI} "
+            f"sweeps{detail}; program {min(ms_p, ms_p2):.4f} ms/sweep "
+            f"marginal ({ms_p:.4f}, {ms_p2:.4f}), driver "
+            f"{min(ms_d, ms_d2):.4f} ({ms_d:.4f}, {ms_d2:.4f}); order "
+            f"driver, program, program, driver, between {TURN_LO} and "
+            f"{TURN_HI} sweeps; exported in {seconds:.2f} s, {mb:.2f} MB, "
+            f"loaded in {t_load:.2f} s; on {card}")
+
+
 def export_phase(mods, problem, card, every_kernel, kernel_fns, prof_dir):
     """Phase 14: the port's exporters on the card (see the module
     docstring). ``mods`` are the port's modules ``(algorithms, linop, tnmf,
@@ -2369,7 +2522,7 @@ def export_phase(mods, problem, card, every_kernel, kernel_fns, prof_dir):
     from proxmin_tpu_torch import export as tex
     from proxmin_tpu_torch.ops import nmf_kernels as kk
 
-    algorithms, linop, tnmf, _, tops = mods
+    algorithms, linop, tnmf, top, tops = mods
     Y, A0, S0, Ww = problem
     k1_fn, k2_fn, k3_fn, soft_fn = kernel_fns
     out_dir = prof_dir.parent / "export"
@@ -2398,7 +2551,8 @@ def export_phase(mods, problem, card, every_kernel, kernel_fns, prof_dir):
              if not case[1].get("resume")}
     tv_cases = tv_cases_of(algorithms, linop, tex, tops)
     names = [*EX_FUSED, "pgm_k3"] + [f"{name}_{n}" for name in tv_cases
-                                     for n in (TURN_LO, HI)]
+                                     for n in (TURN_LO, HI)] + [
+        f"{name}_{n}" for name in EX_BSDMM for n in (TURN_LO, TURN_HI)]
     t0 = time.perf_counter()
     exported = export_all(out_dir, names)
     log(f"export: {len(names)} programs exported in a process each, all "
@@ -2641,6 +2795,9 @@ def export_phase(mods, problem, card, every_kernel, kernel_fns, prof_dir):
             f"the window; counted between {lo} and {hi} iterations; "
             f"exported in {sizes[name][0]:.2f} s, {sizes[name][1]:.2f} MB, "
             f"loaded in {sizes[name][2]:.2f} s; on {card}")
+
+    # the bsdmm programs whose steps carry across sweeps
+    bsdmm_programs_check((tnmf, top), problem, out_dir, exported, card)
 
     # each registered op's host cost per call beside its wrapper's
     sS = torch.full((), 1e-3, dtype=torch.float32, device=DEVICE)
@@ -4442,6 +4599,199 @@ def very_wide_phase(mods, card):
     return times, results, launched
 
 
+# The examples (phase 19): every module of proxmin_tpu_torch.examples at its
+# default arguments, each in a process of its own, EX_PARALLEL at once, the
+# longest first. Each must exit 0 and print its success lines (substring,
+# least count), as tests/test_examples.py asserts them of the JAX scripts;
+# fused_adam_unmixing must launch K2 at least once in each of its cuda
+# segments' EX_K2_ITERS iterations.
+EX_PARALLEL = 4
+EX_K2_ITERS = 300
+EX_SUCCESS = {
+    "unmixing": (("match = 0.9", 3),),
+    "astro_unmixing": (("weighted (W = 1/sky)", 1), ("weighted loss", 5)),
+    "pod_serving": (("bit-exact vs live", 1),),
+    "preemptible_resume": (
+        ("preempted trajectory == uninterrupted trajectory", 1),),
+    "learn_regularizer": (("learned wins", 1),),
+    "sharded_unmixing": (("all three paths agree", 1),),
+    "parabola": (("SDMM", 1), ("FISTA", 1)),
+    "batched_solves": (("4096 solves in one call", 1),
+                       ("match individual solves", 1)),
+    "fused_adam_unmixing": (("fused adam", 1), ("continued", 1)),
+    "tv_denoise": (("RMSE", 1),),
+    "image_tv": (("RMSE", 1),),
+}
+EXAMPLE_SCRIPT = r"""
+import importlib
+import json
+import sys
+import time
+import chip_smoke as cs
+name, cpu = sys.argv[1], "--cpu" in sys.argv
+wrappers = cs.kernel_wrappers()
+module = importlib.import_module("proxmin_tpu_torch.examples." + name)
+cs.reset_counts(wrappers.values())
+t0 = time.perf_counter()
+result = module.main(cpu=cpu)
+seconds = time.perf_counter() - t0
+print(json.dumps({"name": name, "seconds": seconds, "launches": {
+    k: w.launches for k, w in wrappers.items()}, "result": result},
+    default=float))
+"""
+
+
+def kernel_wrappers():
+    """Every kernel's wrapper by the name the phases give it."""
+    from proxmin_tpu_torch import ops as tops
+    from proxmin_tpu_torch.ops import nmf_kernels as kk
+    from proxmin_tpu_torch.ops import stream_merge as sm
+
+    return {"K1": kk.fused_nmf_pgm_step, "K2": kk.fused_nmf_adaprox_step,
+            "K3": tops.fused_nmf_grad,
+            **{f"K4 {op}": prox_pair(tops, op)[0]
+               for op in ("plus", "soft", "hard", "unity")},
+            "K5": sm.packed_step}
+
+
+def examples_phase(card):
+    """Phase 19: the eleven examples of ``proxmin_tpu_torch.examples`` on the
+    card at their default arguments, each in a process of its own
+    (EXAMPLE_SCRIPT: ``main()``, with every kernel wrapper's count set to 0
+    just before and read just after), EX_PARALLEL at once. The sharded
+    three run a one-rank NCCL group in their own process (one card), so
+    their counts are theirs too. Fails unless each exits 0 and prints its
+    success lines (EX_SUCCESS), and unless fused_adam_unmixing launched K2
+    at least once per iteration of its cuda segments; a failing check stops
+    every example still running. Returns ``{example: {kernel:
+    launches}}``."""
+    todo = list(EX_SUCCESS)
+    cpu = ["--cpu"] if DEVICE.type == "cpu" else []
+    if not cpu:
+        # the card's memory this process cached in the earlier phases
+        torch.cuda.empty_cache()
+    running, done = {}, {}
+    t_phase = time.perf_counter()
+    try:
+        while todo or running:
+            while todo and len(running) < EX_PARALLEL:
+                name = todo.pop(0)
+                out = tempfile.TemporaryFile("w+")
+                err = tempfile.TemporaryFile("w+")
+                running[name] = (subprocess.Popen(
+                    [sys.executable, "-c", EXAMPLE_SCRIPT, name, *cpu],
+                    stdout=out, stderr=err, text=True), out, err,
+                    time.perf_counter())
+            time.sleep(0.1)
+            for name, (proc, out, err, t0) in list(running.items()):
+                if proc.poll() is None:
+                    check(time.perf_counter() - t0 <= 900,
+                          f"examples: {name} ran past 900 s")
+                    continue
+                del running[name]
+                out.seek(0)
+                err.seek(0)
+                text, errors = out.read(), err.read()
+                out.close()
+                err.close()
+                check(proc.returncode == 0,
+                      f"examples: {name} exited {proc.returncode}: "
+                      f"{errors[-3000:]}")
+                lines = text.strip().splitlines()
+                info = json.loads(lines[-1])
+                shown = "\n".join(lines[:-1])
+                for line, least in EX_SUCCESS[name]:
+                    check(shown.count(line) >= least,
+                          f"examples: {name} printed {line!r} "
+                          f"{shown.count(line)} times (at least {least}): "
+                          f"{shown[-2000:]}")
+                done[name] = info
+                launched = {k: v for k, v in info["launches"].items() if v}
+                log(f"examples: {name}: exit 0 and its success lines in "
+                    f"{info['seconds']:.2f} s of main() "
+                    f"({time.perf_counter() - t0:.2f} s of its process); "
+                    f"kernel launches {launched or 'none'}; on {card}")
+    finally:
+        for proc, *_ in running.values():
+            proc.kill()
+            proc.wait()
+    k2 = done["fused_adam_unmixing"]["launches"]["K2"]
+    check(k2 >= EX_K2_ITERS,
+          f"examples: fused_adam_unmixing launched K2 {k2} times in its "
+          f"{EX_K2_ITERS} cuda iterations: it ran another engine")
+    log(f"examples: the eleven examples ran {EX_PARALLEL} at once in "
+        f"{time.perf_counter() - t_phase:.1f} s; fused_adam_unmixing "
+        f"launched K2 {k2} times in {EX_K2_ITERS} iterations of "
+        f"engine='cuda'; on {card}")
+    return {name: info["launches"] for name, info in done.items()}
+
+
+def example_k2_check(card):
+    """K2 at fused_adam_unmixing's own operands: the example's ``main()``
+    (N = 20 000, bfloat16 moments) in this process, with the wrapper that
+    ``nmf`` calls wrapped to keep a copy of each call's operands; then K2
+    on the first and the last call of the first solve and on the first of
+    the continuation (warm-started from the returned M and V), each against
+    its plain version on the same tensors (``hold_adaprox_step``). Returns
+    ``(S' max abs err, kernel ms, plain ms, bound)``, timed at the
+    warm-started call, for the kernels line."""
+    import contextlib
+    import io
+
+    from proxmin_tpu_torch import nmf as tnmf
+    from proxmin_tpu_torch.examples import fused_adam_unmixing as ex
+    from proxmin_tpu_torch.ops import nmf_kernels as kk
+
+    real, calls = tnmf.fused_nmf_adaprox_step, []
+
+    def keep(x):
+        return x.clone() if isinstance(x, torch.Tensor) else x
+
+    def recording(*args, **kw):
+        calls.append((tuple(map(keep, args)),
+                      {k: keep(v) for k, v in kw.items()}))
+        return real(*args, **kw)
+
+    tnmf.fused_nmf_adaprox_step = recording
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            result = ex.main()
+    finally:
+        tnmf.fused_nmf_adaprox_step = real
+    n1 = result["fused_iters"]
+    check(len(calls) == EX_K2_ITERS and n1 == EX_K2_ITERS // 2,
+          f"examples: fused_adam_unmixing called K2 {len(calls)} times, "
+          f"its first solve {n1}, in this process")
+    check(bool(calls[n1][0][2].float().abs().max() > 0),
+          "examples: fused_adam_unmixing's continuation started K2 from "
+          "zero moments, not from the returned M and V")
+    errs = []
+    for at, what in ((0, "first call"), (n1 - 1, "last call"),
+                     (n1, "warm-started call")):
+        args, kw = calls[at]
+        check(args[2].dtype == torch.bfloat16,
+              f"examples: K2's moments are {args[2].dtype}")
+        errs.append(hold_adaprox_step(
+            kk, f"fused_adam_unmixing, {what}, bf16 moments", args, kw))
+    args, kw = calls[n1]
+    del calls
+    C_, K_ = args[0].shape
+    N_ = args[1].shape[1]
+    k_ms = min(cuda_ms(lambda: kk.fused_nmf_adaprox_step(*args, **kw))
+               for _ in range(2))
+    p_ms = min(cuda_ms(lambda: kk.fused_nmf_adaprox_step_reference(
+        *args, **{k: v for k, v in kw.items() if k != "tile_n"}))
+        for _ in range(2))
+    moved = tensor_bytes(*args[:5]) + tensor_bytes(
+        *kk.fused_nmf_adaprox_step(*args, **kw))
+    bound = bound_of(moved, adaprox_ops(C_, K_, N_))
+    log(f"K2 time [fused_adam_unmixing, C={C_} K={K_} N={N_}, bf16 "
+        f"moments, warm-started call] on {card}: kernel {k_ms:.4f} ms "
+        f"({moved / k_ms / 1e6:.0f} GB/s of {moved / 1e6:.2f} MB), plain "
+        f"version {p_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+    return max(errs), k_ms, p_ms, bound
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card "
@@ -4457,11 +4807,12 @@ def main():
     from proxmin_tpu_torch.ops import nmf_kernels as kk
     from proxmin_tpu_torch.ops import stream_merge as sm
 
-    k1_fn, k2_fn = kk.fused_nmf_pgm_step, kk.fused_nmf_adaprox_step
-    k3_fn, k5_fn = tops.fused_nmf_grad, sm.packed_step
-    k4_fns = {op: prox_pair(tops, op)[0] for op in
+    wrappers = kernel_wrappers()
+    k1_fn, k2_fn, k3_fn, k5_fn = (wrappers[k] for k in ("K1", "K2", "K3",
+                                                         "K5"))
+    k4_fns = {op: wrappers[f"K4 {op}"] for op in
               ("plus", "soft", "hard", "unity")}
-    every_kernel = (k1_fn, k2_fn, k3_fn, *k4_fns.values(), k5_fn)
+    every_kernel = tuple(wrappers.values())
 
     # 1. probe
     global T0
@@ -5341,7 +5692,12 @@ def main():
     log(f"phase 18 starts at {time.perf_counter() - T0:.0f} s")
     v_times, v_err, v_launched = very_wide_phase(
         (algorithms, tnmf, top, tops, kk, sm, calibrate), card)
-    log(f"phase 18 ends at {time.perf_counter() - T0:.0f} s")
+
+    # 19. the eleven examples at their default arguments
+    log(f"phase 19 starts at {time.perf_counter() - T0:.0f} s")
+    ex_runs = examples_phase(card)
+    ex_k2 = example_k2_check(card)
+    log(f"phase 19 ends at {time.perf_counter() - T0:.0f} s")
 
     k2_ms, k2_plain = k2_times["f32 moments"]
     k1b_ms, k1b_plain, k1b_bound = k1_times["bf16 store, W"]
@@ -5371,6 +5727,10 @@ def main():
         entry("fused_nmf_adaprox_step[bfloat16 store]", "nmf_adaprox_step.cu",
               "proxmin_tpu/ops/nmf_kernels.py:525", k2s_launches,
               k2s_abs["bf16 moments"], *k2s_times["bf16 moments"]),
+        entry("fused_nmf_adaprox_step[fused_adam_unmixing, bf16 moments, "
+              "C=6 K=4 N=20000]", "nmf_adaprox_step.cu",
+              "proxmin_tpu/ops/nmf_kernels.py:525",
+              ex_runs["fused_adam_unmixing"]["K2"], *ex_k2),
         entry("fused_nmf_grad", "nmf_grad.cu",
               "proxmin_tpu/ops/nmf_kernels.py:653", k3_launches, k3_abs,
               *k3_times["unweighted"]),

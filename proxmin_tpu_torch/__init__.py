@@ -15,9 +15,10 @@ their options, NMF by PGM and AdaProx on the ``"torch"`` and ``"cuda"``
 engines and by bSDMM, checkpoint/resume of every solver's state through
 a file, the pure solver factories of ``functional`` (batched under
 ``torch.func.vmap``, implicitly differentiable), and whole solves saved as
-``torch.export`` programs by ``export``, and ``nmf(engine="auto")`` with
-its H100 routing regions and runtime calibration (``calibrate``);
-ROADMAP.md lists what follows.
+``torch.export`` programs by ``export``, ``nmf(engine="auto")`` with
+its H100 routing regions and runtime calibration (``calibrate``), and the
+JAX package's eleven example scripts as ``examples`` (``python -m
+proxmin_tpu_torch.examples.<name>``); ROADMAP.md lists what follows.
 
 Importing the package sets the float32 matmul policy
 (:func:`precision.apply_f32_policy`): no TF32 anywhere.

@@ -13,10 +13,7 @@ call. Run it as ``python -m proxmin_tpu_torch.dryrun [N]``.
 """
 
 import logging
-import os
-import pickle
 import sys
-import tempfile
 
 import numpy as np
 import torch
@@ -74,79 +71,55 @@ class _ExpectedNonConvergence(logging.Filter):
 
 
 def _dryrun_rank(rank, n, work):
-    """One rank of :func:`dryrun_multichip`; rank 0 writes the whole
-    results to ``work/result.pkl``."""
-    import torch.distributed as dist
-
-    from .parallel import (initialize_distributed, make_mesh,
-                           make_nmf_pgm_step, nmf_pgm_sharded,
+    """One rank of :func:`dryrun_multichip`: its whole results."""
+    from .parallel import (make_mesh, make_nmf_pgm_step, nmf_pgm_sharded,
                            shard_nmf_problem)
 
-    torch.set_num_threads(1)
-    initialize_distributed(f"file://{work}/store", n, rank, backend="gloo")
+    shape, names, model_axis, dp, tp = _layout(n)
+    mesh = make_mesh(shape, names, device="cpu")
+    Y, A, S, W = _problem(dp, tp)
+    out = {}
+    for weighted in (False, True):
+        step = make_nmf_pgm_step(mesh, weighted=weighted,
+                                 model_axis=model_axis)
+        Ys, As, Ss, Ws = shard_nmf_problem(
+            mesh, Y, A, S, W if weighted else None,
+            model_axis=model_axis)
+        A1, S1, loss = step(As, Ss, Ys, Ws if weighted else None)
+        assert np.isfinite(float(loss))
+        assert tuple(A1.shape) == A.shape and tuple(S1.shape) == S.shape
+        out["weighted" if weighted else "unweighted"] = (
+            A1.full_tensor().numpy(), S1.full_tensor().numpy(),
+            float(loss))
+    log = logging.getLogger("proxmin")
+    flt = _ExpectedNonConvergence()
+    log.addFilter(flt)
     try:
-        shape, names, model_axis, dp, tp = _layout(n)
-        mesh = make_mesh(shape, names, device="cpu")
-        Y, A, S, W = _problem(dp, tp)
-        out = {}
-        for weighted in (False, True):
-            step = make_nmf_pgm_step(mesh, weighted=weighted,
-                                     model_axis=model_axis)
-            Ys, As, Ss, Ws = shard_nmf_problem(
-                mesh, Y, A, S, W if weighted else None,
-                model_axis=model_axis)
-            A1, S1, loss = step(As, Ss, Ys, Ws if weighted else None)
-            assert np.isfinite(float(loss))
-            assert tuple(A1.shape) == A.shape and tuple(S1.shape) == S.shape
-            out["weighted" if weighted else "unweighted"] = (
-                A1.full_tensor().numpy(), S1.full_tensor().numpy(),
-                float(loss))
-        log = logging.getLogger("proxmin")
-        flt = _ExpectedNonConvergence()
-        log.addFilter(flt)
-        try:
-            res = nmf_pgm_sharded(Y, A.copy(), S.copy(), mesh=mesh,
-                                  model_axis=model_axis, e_rel=0,
-                                  max_iter=3)
-        finally:
-            log.removeFilter(flt)
-        assert res.iterations == 3
-        out["solve"] = (res.x[0].full_tensor().numpy(),
-                        res.x[1].full_tensor().numpy(), res.iterations)
-        if rank == 0:
-            with open(os.path.join(work, "result.pkl"), "wb") as fh:
-                pickle.dump(out, fh)
-        dist.barrier()
+        res = nmf_pgm_sharded(Y, A.copy(), S.copy(), mesh=mesh,
+                              model_axis=model_axis, e_rel=0,
+                              max_iter=3)
     finally:
-        dist.destroy_process_group()
+        log.removeFilter(flt)
+    assert res.iterations == 3
+    out["solve"] = (res.x[0].full_tensor().numpy(),
+                    res.x[1].full_tensor().numpy(), res.iterations)
+    return out
 
 
 def dryrun_multichip(n_devices):
     """Run one sharded PGM-NMF training step, unweighted and weighted, and
     a 3-iteration sharded solve on ``n_devices`` gloo ranks on the CPU
-    (one process each). Returns rank 0's whole results, ``{"unweighted":
-    (A', S', loss), "weighted": (A', S', loss), "solve": (A, S,
-    iterations)}`` as NumPy arrays; a rank that fails raises here, and
-    ranks still running after ``_TIMEOUT_S`` seconds are stopped and raise
-    ``TimeoutError``."""
-    import time
-
-    import torch.multiprocessing as mp
+    (``parallel.distributed.run_ranks``: one process each). Returns rank
+    0's whole results, ``{"unweighted": (A', S', loss), "weighted": (A',
+    S', loss), "solve": (A, S, iterations)}`` as NumPy arrays; a rank that
+    fails raises here, and ranks still running after ``_TIMEOUT_S`` seconds
+    are stopped and raise ``TimeoutError``."""
+    from .parallel.distributed import run_ranks
 
     n = int(n_devices)
     if n < 1:
         raise ValueError(f"need at least one rank, got {n}")
-    with tempfile.TemporaryDirectory() as work:
-        ctx = mp.spawn(_dryrun_rank, args=(n, work), nprocs=n, join=False)
-        deadline = time.monotonic() + _TIMEOUT_S
-        while not ctx.join(timeout=max(deadline - time.monotonic(), 0)):
-            if time.monotonic() >= deadline:
-                for proc in ctx.processes:
-                    proc.kill()
-                raise TimeoutError(f"dryrun_multichip({n}): the ranks ran "
-                                   f"past {_TIMEOUT_S} s")
-        with open(os.path.join(work, "result.pkl"), "rb") as fh:
-            out = pickle.load(fh)
+    out = run_ranks(_dryrun_rank, n, timeout=_TIMEOUT_S)
     shape, _, _, dp, tp = _layout(n)
     print(f"dryrun ok: {n}-rank mesh {shape} (dp={dp}, tp={tp}), "
           "unweighted + weighted sharded steps + 3-iteration sharded solve "

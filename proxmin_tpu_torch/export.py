@@ -931,10 +931,22 @@ def export_bsdmm_solver(x_shapes, proxs_f, steps_f_cb, proxs_g=None,
                         dtype=torch.float32, device=None):
     """Capture a :func:`proxmin_tpu_torch.bsdmm` solve for fixed block
     shapes: the driver's sweep (``solvers.bsdmm._Program.sweep``) in one
-    ``while_loop``. Returns ``(x_blocks, iterations,
-    converged_per_block)``. Steps that are strided (``steps_f_stride``),
-    stateful or ``steps_g_update="relative"`` keep a host clock in the
-    port's sweep and raise ``ValueError`` (owed, ROADMAP.md)."""
+    ``while_loop`` whose counter is the sweep clock. Returns ``(x_blocks,
+    iterations, converged_per_block)``.
+
+    Strided steps (``steps_f_stride``) run the step callable inside a
+    ``torch.cond`` on refresh sweeps only; ``steps_g_update="relative"``
+    rescales the carried ``steps_g`` under a ``torch.where`` on the clock;
+    a stateful ``steps_f_cb`` (``nmf.WeightedBSDMMStepper``, fixed or
+    adaptive) carries its state as tensors and is called with a tensor
+    clock. The refresh schedule (that clock, a stepper's strides and next
+    refreshes) is kept in 0-d CPU tensors, so a refresh test reads nothing
+    from the card (``solvers.bsdmm._Program.init_traced``). Carried steps
+    are 0-d tensors of the blocks' dtype, as in JAX:
+    the program equals the driver bit for bit where the step callable
+    returns tensors of that dtype (the NMF route's do) or the blocks are
+    float64, and a Python-number step in float32 is rounded to float32 in
+    the carry, where the driver keeps the Python number."""
     from .functional import _block_order
     from .solvers.bsdmm import _Program
 
@@ -946,14 +958,9 @@ def export_bsdmm_solver(x_shapes, proxs_f, steps_f_cb, proxs_g=None,
                     steps_g=steps_g, Ls=Ls, update_order=update_order,
                     steps_g_update=steps_g_update, e_rel=e_rel, e_abs=e_abs,
                     steps_f_stride=steps_f_stride)
-    if prog.strided or prog.stateful_steps or steps_g_update == "relative":
-        raise ValueError(
-            "export_bsdmm_solver: strided, stateful or relative steps are "
-            "not exported yet (the port's sweep keeps their clock on the "
-            "host; ROADMAP.md, owed)")
 
     def run(*xs):
-        st = prog.init_state(xs)
+        st = prog.init_traced(xs)
         st["converged"] = torch.zeros((N,), dtype=torch.bool, device=dev)
         st["diverged"] = torch.zeros((), dtype=torch.bool, device=dev)
 
@@ -965,7 +972,7 @@ def export_bsdmm_solver(x_shapes, proxs_f, steps_f_cb, proxs_g=None,
             s["diverged"] = flags[-1].clone()
 
         k, st = _solve_loop(
-            st, ("x", "z", "u", "converged", "diverged"), one,
+            st, prog.carried_keys() + ("converged", "diverged"), one,
             lambda s: torch.logical_or(s["converged"].all(), s["diverged"]),
             int(max_iter), dev)
         return tuple(st["x"]), k, st["converged"]

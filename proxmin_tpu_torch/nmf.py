@@ -80,6 +80,8 @@ def _is_unweighted(W):
         return True
     if isinstance(W, (int, float)):  # no NumPy: a captured program
         return float(W) == 1.0
+    if isinstance(W, torch.Tensor) and W.ndim > 0:
+        return False
     if np.isscalar(W) or getattr(W, "ndim", None) == 0:
         return float(W) == 1.0
     return False
@@ -460,12 +462,15 @@ def _lambda_max(G):
 
 def step_A(A, S):
     """``1 / lambda_max(S S^T)``."""
-    return 1.0 / _lambda_max(S @ S.T)
+    # torch.t, not .T: inside a torch.cond branch (an exported strided
+    # bsdmm) .T of an input is lifted as an aliasing input, which the
+    # capture refuses
+    return 1.0 / _lambda_max(S @ torch.t(S))
 
 
 def step_S(A, S):
     """``1 / lambda_max(A^T A)``."""
-    return 1.0 / _lambda_max(A.T @ A)
+    return 1.0 / _lambda_max(torch.t(A) @ A)
 
 
 def _weighted_lipschitz_A(S, W):
@@ -676,6 +681,16 @@ class WeightedBSDMMStepper:
     integers. The JAX ``split_data``, ``stepper_cache_key``,
     ``segmented_bsdmm`` and ``state_seg_end`` hooks serve ``jit`` and have
     no counterpart in a host loop.
+
+    Called with a tensor clock ``it`` (an exported bsdmm loop, whose carry
+    holds the clock, the strides and the next refreshes as 0-d int64 CPU
+    tensors), the refresh is a ``while_loop`` of zero or one trip on ``it
+    >= next_refresh`` and the cold start's extra passes a ``while_loop`` on
+    ``it == 0``, both decided on the host without a read; the adaptive
+    interval is :func:`grow_stride`'s tensor form on the card, copied to
+    the host clock once per refresh (where the host rule reads its drift).
+    The numbers are the host path's; the driver keeps the host path, which
+    runs faster (``solvers.bsdmm._Program.sweep``).
     """
 
     def __init__(self, W, stride=10, safety=0.9, cold_iters=_COLD_ITERS,
@@ -694,7 +709,48 @@ class WeightedBSDMMStepper:
                                       A.device, self.W)
         return (v0, (self.stride, self.stride), (0, 0))
 
+    def _traced(self, Xs, j, state, it, cached):
+        """:meth:`__call__` on a tensor clock (see the class docstring)."""
+        from torch._higher_order_ops.while_loop import while_loop
+
+        A, S = Xs
+        v, strides, nxt = state
+        due = (it >= nxt[j]).to(torch.int64)
+        extra = (it == 0).to(torch.int64) * (self.cold_iters
+                                             - self.warm_iters)
+
+        def refresh(k, old, stride_j, nxt_j, *v):
+            # ``old`` is the carried step (the loop takes one trip at most)
+            if j == 0:
+                step = self.safety / _weighted_lipschitz_A(S, self.W)
+            else:
+                LS, w = _weighted_lipschitz_S(A, self.W, self.warm_iters,
+                                              v0=v[0], return_v=True,
+                                              extra=extra)
+                step, v = self.safety / LS, (w,)
+            if self.adapt:
+                grown = grow_stride(stride_j.to(old.device), (old,), (step,),
+                                    (1.0 - self.safety) / 2,
+                                    self.max_stride, first=(it == 0))
+                # the host rule reads its drift here too
+                stride_j = grown.to(stride_j.device)
+            else:
+                # a new tensor: a loop body may not return its input
+                stride_j = stride_j.clone()
+            return (k + 1, step.to(old.dtype), stride_j, it + stride_j, *v)
+
+        # the power iterate rides through the S block's refresh only
+        _, step, stride_j, nxt_j, *w = while_loop(
+            lambda k, *r: k < due, refresh,
+            (torch.zeros_like(due), cached, strides[j], nxt[j],
+             *((v,) if j == 1 else ())))
+        strides, nxt = list(strides), list(nxt)
+        strides[j], nxt[j] = stride_j, nxt_j
+        return step, (w[0] if j == 1 else v, tuple(strides), tuple(nxt))
+
     def __call__(self, Xs, j=None, state=None, it=None, cached=None):
+        if isinstance(it, torch.Tensor):
+            return self._traced(Xs, j, state, it, cached)
         A, S = Xs
         v, strides, nxt = state
         if it < nxt[j]:

@@ -5,15 +5,22 @@ process per card: every process joins one process group, and
 :func:`~proxmin_tpu_torch.parallel.make_mesh` lays the group's ranks out as
 a ``DeviceMesh``. :func:`initialize_distributed` makes that bring-up
 idempotent, so library code and user scripts can call it unconditionally.
+:func:`run_ranks` starts a group of its own on this host, one process per
+rank, and runs a function on every rank.
 """
 
+import glob
 import os
+import pickle
+import tempfile
+import time
+import traceback
 from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
 
-__all__ = ["initialize_distributed", "DistributedInfo"]
+__all__ = ["initialize_distributed", "DistributedInfo", "run_ranks"]
 
 # torchrun's variables: a process started by it is configured without
 # arguments
@@ -102,3 +109,73 @@ def initialize_distributed(coordinator_address=None, num_processes=None,
         if not dist.is_initialized():
             raise
     return _info()
+
+
+def run_ranks(fn, n, args=(), backend="gloo", timeout=600):
+    """Run ``fn(rank, n, work, *args)`` on every rank of a new ``n``-rank
+    process group and return rank 0's return value.
+
+    The ranks join through a file store in a temporary directory ``work``,
+    which they share and which is removed afterwards, so no port is opened.
+    With ``backend="nccl"`` rank r runs on card r; on ``gloo`` each rank
+    process keeps one thread. ``fn`` and ``args`` must pickle: every rank is
+    a process of its own (``torch.multiprocessing.spawn``), except that a
+    one-rank group runs in this process when it holds no group yet. A rank
+    that fails raises here and stops the others; ranks still running after
+    ``timeout`` seconds are stopped and raise ``TimeoutError``."""
+    import torch.multiprocessing as mp
+
+    n = int(n)
+    if n < 1:
+        raise ValueError(f"need at least one rank, got {n}")
+    with tempfile.TemporaryDirectory(prefix="proxmin_ranks_") as work:
+        if n == 1 and not dist.is_initialized():
+            return _in_group(0, fn, 1, work, args, backend)
+        ctx = mp.spawn(_spawned_rank, args=(fn, n, work, args, backend),
+                       nprocs=n, join=False)
+        deadline = time.monotonic() + timeout
+        try:
+            while not ctx.join(timeout=max(deadline - time.monotonic(), 0)):
+                if time.monotonic() >= deadline:
+                    for proc in ctx.processes:
+                        proc.kill()
+                    raise TimeoutError(f"run_ranks: the {n} ranks ran past "
+                                       f"{timeout} s")
+        except mp.ProcessRaisedException as exc:
+            # the others fail in a collective after it: name the first
+            failed = sorted(glob.glob(os.path.join(work, "failed-*.txt")))
+            if not failed:
+                raise
+            with open(failed[0]) as fh:
+                raise RuntimeError(
+                    f"run_ranks: rank {failed[0].rsplit('-', 1)[1][:-4]} "
+                    f"of {n} failed:\n{fh.read()}") from exc
+        with open(os.path.join(work, "result.pkl"), "rb") as fh:
+            return pickle.load(fh)
+
+
+def _in_group(rank, fn, n, work, args, backend):
+    """``fn`` on rank ``rank`` of the group of :func:`run_ranks`, which it
+    joins and leaves."""
+    initialize_distributed(f"file://{work}/store", n, rank,
+                           local_device_ids=[rank], backend=backend)
+    try:
+        try:
+            out = fn(rank, n, work, *args)
+        except BaseException:
+            with open(os.path.join(work, f"failed-{rank}.txt"), "w") as fh:
+                fh.write(traceback.format_exc())
+            raise
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def _spawned_rank(rank, fn, n, work, args, backend):
+    if backend == "gloo":
+        torch.set_num_threads(1)
+    out = _in_group(rank, fn, n, work, args, backend)
+    if rank == 0:
+        with open(os.path.join(work, "result.pkl"), "wb") as fh:
+            pickle.dump(out, fh)

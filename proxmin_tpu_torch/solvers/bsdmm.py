@@ -13,7 +13,9 @@ construction). Here the flat loop runs on the host, and whether a block's
 step refreshes is decided there: the sweep clock, a stateful stepper's
 strides and its next-refresh clocks are host integers. The per-block
 convergence flags and the divergence flag are read together, once per
-sweep.
+sweep. An exported program (``export.export_bsdmm_solver``) runs the same
+sweep on tensor clocks: the loop's counter on the device, the refresh
+schedule in 0-d CPU tensors.
 
 As in the JAX package, ``steps_g_update='relative'`` skips the rescale on
 the first sweep (the reference divides by a ``None`` there).
@@ -126,12 +128,92 @@ class _Program:
                     steps_state=(self.steps_f_cb.init_bsdmm_state(tuple(x))
                                  if self.stateful_steps else ()))
 
+    def carried_keys(self):
+        """The carry entries a loop over :meth:`sweep` threads from sweep
+        to sweep, beside the blocks and their Z and U: the last steps
+        where a later sweep reads them (strided, stateful or relative
+        steps), the rescaled ``steps_g`` and the stepper's state."""
+        keys = ("x", "z", "u")
+        if self.strided or self.stateful_steps or (
+                self.steps_g_update == "relative"):
+            keys += ("steps_f",)
+        if self.steps_g_update == "relative":
+            keys += ("steps_g",)
+        if self.stateful_steps:
+            keys += ("steps_state",)
+        if self.strided or self.stateful_steps:
+            keys += ("clock",)
+        return keys
+
+    def init_traced(self, x0):
+        """:meth:`init_state` for a sweep on a tensor clock: every step
+        and ``steps_g`` a 0-d tensor of the blocks' dtype (the JAX carry's
+        layout). The refresh schedule stays on the host: with strided or
+        stateful steps the carry's ``clock`` is the sweep clock as a 0-d
+        int64 CPU tensor, and the stepper state's integers are 0-d int64
+        CPU tensors too, so a refresh test reads nothing from the card."""
+        st = self.init_state(x0)
+        x = st["x"]
+        dtype = functools.reduce(torch.promote_types, [xi.dtype for xi in x])
+        dev = x[0].device
+        host = torch.device("cpu")
+
+        def scalar(v):
+            return torch.as_tensor(v, dtype=dtype, device=dev)
+
+        def clock(v):
+            if isinstance(v, (int, np.integer)) and not isinstance(v, bool):
+                return torch.tensor(int(v), dtype=torch.int64, device=host)
+            return v
+
+        st["steps_f"] = [scalar(v) for v in st["steps_f"]]
+        st["steps_g"] = [tuple(scalar(v) for v in g) for g in st["steps_g"]]
+        st["steps_state"] = map_leaves(clock, st["steps_state"])
+        if self.strided or self.stateful_steps:
+            st["clock"] = clock(0)
+        return st
+
+    def _strided_step(self, xs, j, it, cached):
+        """The strided step of block j on a tensor clock: the step
+        callable (shrunk by 0.9) inside a ``torch.cond`` on ``it %
+        steps_f_stride == 0``, so that it runs on refresh sweeps only; the
+        carried step otherwise."""
+        dtype, dev = cached.dtype, cached.device
+
+        def refresh(cached):
+            return torch.as_tensor(0.9 * self.steps_f_cb(xs, j=j),
+                                   dtype=dtype, device=dev)
+
+        def keep(cached):
+            # a new tensor: a branch may not return its input
+            return cached.clone()
+
+        return torch.cond(it % self.steps_f_stride == 0, refresh, keep,
+                          (cached,))
+
     def sweep(self, st, it, trace=False):
         """One Gauss-Seidel sweep on the carry ``st`` at sweep clock
         ``it``, with no host read. Returns the flags as one tensor (the
         blocks' convergence in ``update_order``, then divergence) and,
-        with ``trace``, the (N, 2) row of aggregated residual norms."""
+        with ``trace``, the (N, 2) row of aggregated residual norms.
+
+        ``it`` is the driver's host integer, or a 0-d integer tensor (an
+        exported loop's counter, on the carry of :meth:`init_traced`):
+        then the relative rescale is a ``torch.where`` on ``it``, and the
+        stride test a ``torch.cond`` on the carry's host ``clock``, which a
+        stateful stepper receives as its clock and which the sweep
+        advances. Both compute the same numbers.
+
+        The driver keeps the host-clock forms: run on the tensor clock it
+        ends bit for bit where it does, but eager ``torch.cond`` and
+        ``while_loop`` make a strided or stateful sweep 2.6-4.1x as long
+        at the flagship (C 5, K 7, N 1e6) and its first call compile for
+        up to 10 s (``tools/bsdmm_clock_cost.py`` on an NVIDIA H100 80GB
+        HBM3 at 700 W)."""
         N, M, Ls = self.N, self.M, self.Ls
+        traced = isinstance(it, torch.Tensor)
+        # the refresh schedule's clock: the host copy where the carry has one
+        clock = st["clock"] if traced and "clock" in st else it
         # new lists: the carry's own stay as they were (the lanes
         # controller selects between the two)
         x, z, u = list(st["x"]), list(st["z"]), list(st["u"])
@@ -145,8 +227,10 @@ class _Program:
 
             if self.stateful_steps:
                 steps_f_j, st["steps_state"] = self.steps_f_cb(
-                    xs_now, j=j, state=st["steps_state"], it=it,
+                    xs_now, j=j, state=st["steps_state"], it=clock,
                     cached=steps_f[j])
+            elif self.strided and traced:
+                steps_f_j = self._strided_step(xs_now, j, clock, steps_f[j])
             elif self.strided:
                 # the step callable runs only every steps_f_stride sweeps;
                 # in between the carried, safety-shrunk step serves
@@ -157,8 +241,12 @@ class _Program:
                 steps_f_j = self.steps_f_cb(xs_now, j=j)
 
             if M[j]:
-                if self.steps_g_update == "relative" and it > 0:
+                if self.steps_g_update == "relative" and (traced or it > 0):
                     scale = steps_f_j / steps_f[j]
+                    if traced:
+                        # the first sweep keeps the given steps_g (x 1 is
+                        # exact)
+                        scale = torch.where(it > 0, scale, 1.0)
                     steps_g_carry[j] = tuple(s * scale
                                              for s in steps_g_carry[j])
                 if self.steps_g_update == "steps_f":
@@ -188,9 +276,16 @@ class _Program:
                     torch.sqrt(sum(e[2] ** 2 for e in err_list)),
                     torch.sqrt(sum(e[3] ** 2 for e in err_list)))
             x[j], z[j], u[j] = xj, zj, uj
+            if traced:
+                # the carry keeps its dtype from sweep to sweep
+                steps_f_j = torch.as_tensor(steps_f_j,
+                                            dtype=steps_f[j].dtype,
+                                            device=steps_f[j].device)
             steps_f[j] = steps_f_j
 
         st.update(x=x, z=z, u=u, steps_f=steps_f, steps_g=steps_g_carry)
+        if traced and "clock" in st:
+            st["clock"] = clock + 1
         row = None
         if trace:
             dtype = functools.reduce(torch.promote_types,

@@ -261,10 +261,6 @@ EXPORT_GAPS = {
     "export_nmf_adaprox_solver": {
         "untraceable prox_S": "as export_nmf_solver's, between K2's two "
                               "split passes"},
-    "export_bsdmm_solver": {
-        "steps_f_stride": "the sweep keeps the stride's clock on the host",
-        "steps_g_update=relative": "the sweep branches on the host clock",
-        "stateful steps_f_cb": "the stepper keeps its clock on the host"},
 }
 
 
@@ -286,20 +282,3 @@ def test_exporters_take_the_jax_parameters(name):
         assert reason.strip()
         assert option == "*" or option.split("=")[0].split()[-1] in (
             got + ["steps_f_cb"])
-
-
-def test_export_gaps_raise():
-    import torch
-
-    import proxmin_tpu_torch.export as tex
-
-    def prox_f(x, step, Xs=None, j=None):
-        return x
-
-    def steps(Xs, j=None):
-        return 0.5
-
-    for kw in ({"steps_f_stride": 3}, {"steps_g_update": "relative"}):
-        with pytest.raises(ValueError, match="not exported yet"):
-            tex.export_bsdmm_solver([(2,)], prox_f, steps, device="cpu",
-                                    dtype=torch.float64, **kw)

@@ -2468,6 +2468,74 @@ def test_exported_nmf_program_equals_its_driver(dev, kind, kw):
     assert float(out[5]) == res.loss
 
 
+@pytest.mark.parametrize("case", ["stride 3", "relative",
+                                  "weighted stride 4", "weighted adaptive"])
+def test_exported_bsdmm_program_with_carried_steps(dev, case):
+    """A bsdmm program whose steps carry across sweeps (the stride test a
+    torch.cond and the stepper's refreshes on the host clock, the relative
+    rescale a torch.where on the card) equals its driver bit for bit on
+    the card after 30 sweeps, and reads the host once per sweep by the
+    sync debug mode: its loop's stop test (the refresh tests read nothing;
+    the captured eigensolves skip the driver's error check)."""
+    from proxmin_tpu_torch import export as tex
+
+    C, K, N = 5, 3, 3000
+    A0, S0, Y, W = _problem(dev, C, K, N, weighted=True, seed=9)
+    plus = (top.prox_plus, top.prox_plus)
+    shapes = [(C, K), (K, N)]
+    if case == "relative":
+        def prox_f(Xj, step, Xs=None, j=None):
+            A, S = Xs
+            D = A @ S - Y
+            return top.prox_plus(
+                Xj - step * (D @ S.T if j == 0 else A.T @ D), step)
+
+        def steps(Xs, j=None):
+            return tnmf.step_A(*Xs) if j == 0 else tnmf.step_S(*Xs)
+
+        sg = torch.full((), 0.5, device=dev)
+        kw = dict(proxs_g=[None, [functools.partial(top.prox_unity,
+                                                     axis=0)]],
+                  steps_g=[None, [sg]], steps_g_update="relative", e_rel=0)
+
+        def program(n):
+            return tex.load_solver(tex.export_bsdmm_solver(
+                shapes, prox_f, steps, max_iter=n, **kw))
+
+        def driver(n):
+            return algorithms.bsdmm([A0, S0], prox_f, steps, max_iter=n,
+                                    **kw)
+    else:
+        weighted = case.startswith("weighted")
+        Wc = W if weighted else 1
+        prox_f = functools.partial(tnmf._bsdmm_prox_f, Y=Y, W=Wc, prox=plus)
+        if weighted:
+            adapt = case.endswith("adaptive")
+            opts = dict(W=W, step_stride=4, step_adapt=adapt)
+            ex = dict(steps_f_cb=tnmf.WeightedBSDMMStepper(W, stride=4,
+                                                           adapt=adapt))
+        else:
+            opts = dict(step_stride=3)
+            ex = dict(steps_f_cb=functools.partial(tnmf._bsdmm_step_default,
+                                                   W=1), steps_f_stride=3)
+
+        def program(n):
+            return tex.load_solver(tex.export_bsdmm_solver(
+                shapes, prox_f, e_rel=0, max_iter=n, **ex))
+
+        def driver(n):
+            return tnmf.nmf(Y, A0, S0, algorithm="bsdmm", e_rel=0,
+                            max_iter=n, **opts)
+
+    xs, it, _ = program(30)(A0, S0)
+    res = driver(30)
+    assert int(it) == res.iterations == 30
+    for a, b in zip(xs, res.x):
+        assert a.is_cuda and torch.equal(a, b)
+    made = {n: program(n) for n in (10, 20)}
+    assert _reads_per_10(lambda n: made[n](A0, S0)) == 10
+
+
 @pytest.mark.parametrize("kind", ["pgm", "adaprox"])
 def test_exported_split_program_counts_each_step_once(dev, kind):
     """A program whose prox_S takes the split path runs the two pass ops

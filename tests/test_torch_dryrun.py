@@ -65,3 +65,55 @@ def test_entry_matches_jax():
     for g, w in zip(fn(*args), jax.jit(jfn)(*jargs)):
         np.testing.assert_allclose(np.asarray(g), np.asarray(w), rtol=1e-5,
                                    atol=1e-6)
+
+
+# parallel.distributed.run_ranks, which starts the dry run's ranks and the
+# examples'; its rank functions live at module level so that the spawned
+# ranks unpickle them
+
+def _rank_sum(rank, n, work, base):
+    import os
+
+    import torch.distributed as dist
+
+    t = torch.tensor([float(base + rank)])
+    dist.all_reduce(t)
+    return rank, n, float(t), os.getpid(), os.path.isdir(work)
+
+
+def _rank_fails(rank, n, work):
+    if rank == 1:
+        raise ValueError("rank 1 fails")
+    return rank
+
+
+def test_run_ranks_returns_rank_zeros_value():
+    """Two gloo ranks in processes of their own: rank 0's value comes
+    back, after an all-reduce over both, with the shared directory."""
+    import os
+
+    from proxmin_tpu_torch.parallel.distributed import run_ranks
+
+    rank, n, total, pid, shared = run_ranks(_rank_sum, 2, (10,))
+    assert (rank, n, total, shared) == (0, 2, 21.0, True)
+    assert pid != os.getpid()
+
+
+def test_run_ranks_one_rank_runs_in_this_process():
+    """A one-rank group runs here and leaves no group behind."""
+    import os
+
+    import torch.distributed as dist
+
+    from proxmin_tpu_torch.parallel.distributed import run_ranks
+
+    assert run_ranks(_rank_sum, 1, (5,))[:4] == (0, 1, 5.0, os.getpid())
+    assert not dist.is_initialized()
+
+
+def test_run_ranks_failing_rank_raises():
+    """A rank that raises fails the call with its error."""
+    from proxmin_tpu_torch.parallel.distributed import run_ranks
+
+    with pytest.raises(Exception, match="rank 1 fails"):
+        run_ranks(_rank_fails, 2)

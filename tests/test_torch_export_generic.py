@@ -327,3 +327,156 @@ def test_backtracking_program_matches_the_driver_and_jax(accelerated):
         jnp.zeros(4, jnp.float64))
     np.testing.assert_allclose(xs[0].numpy(), np.asarray(want[0][0]), **F64)
     assert int(want[1]) == int(it)
+
+
+# ---------------------------------------------------------------------------
+# bsdmm programs whose steps carry across sweeps: strided, relative and
+# stateful steps run on the loop's tensor clock
+
+def _plus_nested(lib):
+    pg = _plus_t if lib == "t" else _plus_j
+    return [[pg], [pg, pg]]
+
+
+def _steps_by_block(Xs, j=None):
+    """A step that changes from sweep to sweep with the iterate (a tensor
+    in the port, a JAX array in JAX: traceable by both)."""
+    return 0.3 + 0.05 * j + 0.01 * abs(Xs[j]).sum()
+
+
+def _nmf_problem(seed=101, C=5, K=3, N=120):
+    """test_torch_bsdmm.py's weighted NMF problem."""
+    rng = np.random.default_rng(seed)
+    Y = (rng.random((C, K)) @ rng.random((K, N))
+         + 0.01 * rng.standard_normal((C, N)))
+    W = 0.5 + rng.random((C, N))
+    return Y, rng.random((C, K)), rng.random((K, N)), W
+
+
+CARRIED = ["stride 3", "relative", "relative stride 3", "weighted fixed",
+           "weighted adaptive"]
+
+
+def _carried(name):
+    """``(port program, driver, JAX program, inputs)`` of a bsdmm solve
+    whose steps carry across sweeps, float64. The weighted ones are
+    ``nmf(algorithm="bsdmm", W=W, step_stride=4)`` (WeightedBSDMMStepper;
+    ``step_adapt=True`` for the adaptive one) as bsdmm calls."""
+    import functools
+
+    import proxmin_tpu as pt
+    from proxmin_tpu_torch import nmf as tnmf
+
+    f64 = torch.float64
+    if name.startswith("weighted"):
+        adapt = name.endswith("adaptive")
+        Y, A0, S0, W = _nmf_problem()
+        C, K = A0.shape
+        N = S0.shape[1]
+        Yt, Wt = torch.from_numpy(Y), torch.from_numpy(W)
+        prox_t = functools.partial(tnmf._bsdmm_prox_f, Y=Yt, W=Wt,
+                                   prox=(ptt.operators.prox_plus,) * 2)
+        prox_j = functools.partial(
+            pt.nmf._bsdmm_prox_f, Y=jnp.asarray(Y), W=jnp.asarray(W),
+            prox=(pt.operators.prox_plus,) * 2)
+        kw = dict(e_rel=0, max_iter=24)
+        port = tex.export_bsdmm_solver(
+            [(C, K), (K, N)], prox_t,
+            tnmf.WeightedBSDMMStepper(Wt, stride=4, adapt=adapt),
+            dtype=f64, device="cpu", **kw)
+        jax_ = jex.export_bsdmm_solver(
+            [(C, K), (K, N)], prox_j,
+            pt.nmf.WeightedBSDMMStepper(jnp.asarray(W), stride=4,
+                                        adapt=adapt),
+            dtype=jnp.float64, **kw)
+
+        def driver(A, S):
+            r = tnmf.nmf(Y, A.numpy().copy(), S.numpy().copy(), W=W,
+                         algorithm="bsdmm", step_stride=4, step_adapt=adapt,
+                         device="cpu", **kw)
+            return tuple(r.x), r.iterations
+        return port, driver, jax_, (A0, S0)
+    kw = dict(e_rel=1e-9, max_iter=40)
+    if "stride" in name:
+        kw["steps_f_stride"] = 3
+    if name.startswith("relative"):
+        kw.update(steps_g=[[0.5], [0.6, 0.7]], steps_g_update="relative")
+    port = tex.export_bsdmm_solver([(2,), (3,)], _proxs_f_t, _steps_by_block,
+                                   proxs_g=_plus_nested("t"), dtype=f64,
+                                   device="cpu", **kw)
+    jax_ = jex.export_bsdmm_solver([(2,), (3,)], _proxs_f_j, _steps_by_block,
+                                   proxs_g=_plus_nested("j"),
+                                   dtype=jnp.float64, **kw)
+
+    def driver(*xs):
+        r = ptt.bsdmm(list(xs), _proxs_f_t, _steps_by_block,
+                      proxs_g=_plus_nested("t"), **kw)
+        return tuple(r.x), r.iterations
+    return port, driver, jax_, (np.zeros(2), np.zeros(3))
+
+
+@pytest.mark.parametrize("name", CARRIED)
+def test_bsdmm_program_with_carried_steps(name):
+    """Strided, relative and stateful steps, which the sweep once kept on
+    the host clock, run in the program on its tensor clock: the program
+    equals the port's driver bit for bit and JAX's program at rtol 1e-9
+    (the two libraries' summation orders) with equal sweep counts."""
+    port, driver, jax_blob, inputs = _carried(name)
+    xs, it, conv = tex.load_solver(port)(*[_t(x) for x in inputs])
+    x_d, it_d = driver(*[_t(x) for x in inputs])
+    want = jex.load_solver(jax_blob)(*[jnp.asarray(x) for x in inputs])
+    assert int(it) == it_d == int(want[1])
+    assert tuple(bool(c) for c in conv) == tuple(
+        bool(c) for c in np.asarray(want[2]))
+    for g, d, w in zip(xs, x_d, want[0]):
+        assert torch.equal(g, d)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **F64)
+
+
+def _digest(blocks):
+    import hashlib
+
+    h = hashlib.sha256()
+    for b in blocks:
+        h.update(np.ascontiguousarray(b.numpy()).tobytes())
+    return h.hexdigest()[:16]
+
+
+# sha256 of the blocks' float64 bytes, taken with the parent tree's drivers
+# (before the sweep learned its tensor clock) on this problem, one thread
+DRIVER_DIGESTS = {
+    "bsdmm stride 3": "9d0e48c4a6498b2f",
+    "bsdmm relative": "a81e209cfe909d43",
+    "nmf bsdmm stride 3": "3c9300f320d4ab7c",
+    "nmf bsdmm weighted stride 4": "7a66c942021b7691",
+    "nmf bsdmm weighted adaptive": "f23902a672131b24",
+}
+
+
+@pytest.mark.parametrize("name", sorted(DRIVER_DIGESTS))
+def test_bsdmm_drivers_keep_their_iterates(name):
+    """The host driver's sweep is the one it was before the tensor clock:
+    its iterates hash to the digests pinned from the earlier tree."""
+    from proxmin_tpu_torch import nmf as tnmf
+
+    if name.startswith("bsdmm"):
+        kw = (dict(steps_f_stride=3) if name.endswith("stride 3") else
+              dict(steps_g=[[0.5], [0.6, 0.7]], steps_g_update="relative"))
+        quad = _quad_parent
+        r = ptt.bsdmm([torch.zeros(2, dtype=torch.float64),
+                       torch.zeros(3, dtype=torch.float64)], quad,
+                      _steps_by_block, proxs_g=_plus_nested("t"), e_rel=0,
+                      max_iter=20, **kw)
+    else:
+        Y, A0, S0, W = _nmf_problem()
+        kw = {"nmf bsdmm stride 3": dict(step_stride=3),
+              "nmf bsdmm weighted stride 4": dict(W=W, step_stride=4),
+              "nmf bsdmm weighted adaptive": dict(W=W, step_adapt=True)}[name]
+        r = tnmf.nmf(Y, A0.copy(), S0.copy(), algorithm="bsdmm", e_rel=0,
+                     max_iter=24, device="cpu", **kw)
+    assert _digest(r.x) == DRIVER_DIGESTS[name]
+
+
+def _quad_parent(x, step, Xs=None, j=None):
+    """test_torch_bsdmm.py's two-block quadratic, as the digests took it."""
+    return (x + step * torch.from_numpy([_C1, _C2][j].copy())) / (1 + step)
