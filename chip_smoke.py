@@ -123,7 +123,15 @@ Phases:
    ``make_differentiable_pgm_solver`` (NNLS in S with a ridge, theta = Y, at
    the flagship) and ``make_differentiable_admm_solver`` (the TV penalty
    through ``prox_g`` at 1024 x 1024) against central differences, in
-   float64;
+   float64; and the same 250 patches as lanes of their float64 S-step with
+   A0 fixed under ``torch.func.vmap``: ``make_pgm_solver(backtracking=True)``
+   from a step that splits the lanes' halving counts, ``make_adaprox_solver``
+   with a sum-to-one S (the prox sub-iterations), and
+   ``vmap(torch.func.grad)`` through ``make_differentiable_pgm_solver``'s
+   NNLS on the first 50 patches, each with 10 (2 for the gradients) seeded
+   lanes against their own solves (equal iteration counts), its blocking
+   reads held to one per iteration plus one per inner round, and its
+   rounds, launches and ms/iter beside the lanes one by one;
 14. whole solves exported with ``torch.export``
    (``proxmin_tpu_torch.export``), K1-K4 running as registered ops: the
    fused PGM programs (exact, weighted stride 10, weighted adaptive, the
@@ -381,6 +389,30 @@ IFT_MU, IFT_E_REL, IFT_EPS, IFT_RTOL = 1e-2, 1e-11, 1e-3, 1e-4
 IFT_MARGIN = 1e-3
 IFT_TV_E_REL, IFT_TV_EPS, IFT_TV_RTOL = 1e-10, 1e-4, 1e-4
 IFT_MAX_ITER = 100_000
+# The lanes' inner loops and the implicit gradients under torch.func (phase
+# 13, after the batched NMF): the FN_PATCHES patches as lanes of their S-step
+# with A0 fixed, f = 0.5 ||Y_p - A0 S||^2, in float64. A batched product
+# sums in another order than a lane's own; in float32 that can decide a
+# halving, a sub-iteration or a stop near its threshold, and the checks
+# want each sampled lane's iteration count equal to its own solve's.
+# (a) Backtracking with prox_plus from a step 2^FN_BT_HALVINGS times the
+# middle of the lanes' first-test thresholds (bisected FN_BT_BISECT times in
+# log step), so that the lanes above the middle need FN_BT_HALVINGS
+# halvings and the others one more; (b) AdaProx (Adam) with a sum-to-one S
+# (prox_unity_plus over K), whose prox runs the sub-iterations (at most
+# FN_ADA_SUB a call), from step FN_ADA_STEP; both to e_rel FN_E_REL, at most
+# FN_LANES_MAX_ITER iterations. (c) torch.func.vmap(torch.func.grad) of
+# <w_p, S*_p> through the NNLS with the ridge IFT_MU, theta = Y_p, to
+# FN_IFT_E_REL forward and adjoint, on the first FN_IFT_PATCHES patches,
+# against FN_IFT_SAMPLE seeded lanes' own torch.autograd.grad. The cut:
+# with all 250 patches and e_rel 1e-9 the batch took 15 095 rounds of
+# 3.05 ms (46 s, an H100 80GB HBM3 at 700 W), each own lane 6 s. Two runs
+# that stop one iteration apart differ by about one step, e_rel of the
+# iterate: FN_IFT_RTOL.
+FN_BT_HALVINGS, FN_BT_BISECT = 3, 100
+FN_ADA_STEP, FN_ADA_SUB = 1e-2, 100
+FN_LANES_MAX_ITER = 1000
+FN_IFT_PATCHES, FN_IFT_E_REL, FN_IFT_SAMPLE, FN_IFT_RTOL = 50, 1e-7, 2, 1e-6
 
 # The full-width path (phase 15): the widest configuration of the JAX
 # package's engine sweep, C=128 channels and K=32 components
@@ -1108,6 +1140,61 @@ def reset_counts(kernels):
         k.launches = 0
         if hasattr(k, "device_scalar_launches"):
             k.device_scalar_launches = 0
+
+
+def sync_sites(fn):
+    """Where ``fn``'s synchronizing CUDA calls come from: a count per
+    innermost frame of the port or of this script (a sync on another
+    thread, the autograd engine's device thread, belongs to the call). The
+    garbage collector is held off during the call, and a sync that the
+    sync debug mode reports on this thread outside the call (at its own
+    switching on, seen once in a run of 579) counts under ``"outside the
+    call"``."""
+    import collections
+    import gc
+    import threading
+    import traceback
+    import warnings
+
+    sites = collections.Counter()
+    caller = threading.get_ident()
+
+    def show(message, *args, **kwargs):
+        if "synchroniz" not in str(message):
+            return
+        stack = traceback.extract_stack()[:-1]
+        inside = threading.get_ident() != caller or any(
+            f.name == "sync_sites" and f.line == "fn()" for f in stack)
+        frames = [f for f in stack if "proxmin_tpu_torch" in f.filename
+                  or f.filename.endswith("chip_smoke.py")]
+        f = frames[-1] if frames else None
+        key = (f"{os.path.basename(f.filename)}:{f.lineno} {f.name}"
+               if f else "?")
+        sites[key if inside else "outside the call"] += 1
+
+    gc.collect()
+    torch.cuda.synchronize()
+    gc.disable()
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = show
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    finally:
+        gc.enable()
+    torch.cuda.synchronize()
+    return dict(sites)
+
+
+def reads_in(fn):
+    """Blocking reads that the call ``fn()`` makes (``sync_sites``), and
+    where they come from."""
+    sites = sync_sites(fn)
+    return sum(n for k, n in sites.items() if k != "outside the call"), sites
 
 
 def blocking_reads(fn):
@@ -2233,7 +2320,306 @@ def functional_phase(mods, problem, card, every_kernel, kernel_fns):
     check(np.isfinite(g) and err <= IFT_TV_RTOL,
           f"IFT TV: implicit {g:.10e} against central difference {fd:.10e}: "
           f"rel {err:.2e} > {IFT_TV_RTOL:g}")
+    functional_lanes_paths(tfn, top, problem, card)
     return launches
+
+
+def lanes_of(t, B):
+    """A tensor inside ``torch.func.vmap`` as a plain tensor whose first
+    dimension is the lane (an unbatched one stands for every lane)."""
+    F = torch._C._functorch
+    batched = False
+    while F.is_batchedtensor(t) or F.is_gradtrackingtensor(t):
+        if F.is_batchedtensor(t):
+            t = F.get_unwrapped(t).movedim(F.maybe_get_bdim(t), 0)
+            batched = True
+        else:
+            t = F.get_unwrapped(t)
+    t = t.detach()
+    return t if batched else t.expand(B, *t.shape)
+
+
+def counting(module, name):
+    """``module.name`` patched to count its calls: ``(patch, counter)``."""
+    from unittest import mock
+
+    real = getattr(module, name)
+    counter = [0]
+
+    def counted(*args, **kwargs):
+        counter[0] += 1
+        return real(*args, **kwargs)
+
+    return mock.patch.object(module, name, counted), counter
+
+
+def first_test_thresholds(A, S0b, Yb, L):
+    """Each lane's largest step whose first PGM trial point from ``S0b``
+    (``prox_plus``) passes backtracking's test, bisected in log step. For
+    the quadratic ``f`` the test ``f(x + d) <= f(x) + <G, d> + |d|^2 / (2
+    s)`` is ``s |A d|^2 <= |d|^2``."""
+    B = S0b.shape[0]
+    G = A.T @ (A @ S0b - Yb)
+    lo = torch.full((B,), 1e-3 / L, dtype=S0b.dtype, device=S0b.device)
+    hi = torch.full((B,), 1e3 / L, dtype=S0b.dtype, device=S0b.device)
+    for _ in range(FN_BT_BISECT):
+        mid = torch.sqrt(lo * hi)
+        D = torch.clamp_min(S0b - mid[:, None, None] * G, 0) - S0b
+        ok = mid * (A @ D).square().sum((1, 2)) <= D.square().sum((1, 2))
+        lo, hi = torch.where(ok, mid, lo), torch.where(ok, hi, mid)
+    return lo
+
+
+def functional_lanes_paths(tfn, top, problem, card):
+    """Phase 13's paths through the lanes controller's inner loops and the
+    implicit gradients under ``torch.func`` (see FN_BT_HALVINGS): each
+    prints and checks its sampled lanes against their own solves, its
+    launches and blocking reads per batch iteration (the sync debug mode,
+    beside the profiler's device-to-host copies), its inner rounds per
+    iteration and its ms/iter against the sampled own solves scaled to the
+    batch."""
+    import importlib
+    from unittest import mock
+
+    pgm_mod = importlib.import_module("proxmin_tpu_torch.solvers.pgm")
+    ada_mod = importlib.import_module("proxmin_tpu_torch.solvers.adaprox")
+    Y, A0, S0, _ = problem
+    B, Np = FN_PATCHES, FN_PATCH_N
+    f64 = torch.float64
+    vmap = torch.func.vmap
+
+    def patches(T):
+        return (T.reshape(T.shape[0], B, Np).permute(1, 0, 2).contiguous()
+                .to(f64))
+
+    Yb, S0b, A = patches(Y), patches(S0), A0.to(f64)
+    L = float(torch.linalg.eigvalsh(A.T @ A)[-1])
+    sample = [int(b) for b in np.sort(np.random.default_rng(SEED).choice(
+        B, FN_SAMPLE, replace=False))]
+
+    def grad(Yp):
+        return lambda S: A.T @ (A @ S - Yp)
+
+    # (a) backtracking
+    th = torch.sort(first_test_thresholds(A, S0b, Yb, L)).values
+    mid = 0.5 * (th[B // 2 - 1] + th[B // 2])
+    gap = float((th[B // 2] - th[B // 2 - 1]) / mid)
+    step_bt = float(2 ** FN_BT_HALVINGS * mid)
+
+    def bt_lane(S0p, Yp, n=FN_LANES_MAX_ITER):
+        return tfn.make_pgm_solver(
+            grad(Yp), step_bt, prox=top.prox_plus, backtracking=True,
+            f=lambda S: 0.5 * torch.sum((A @ S - Yp) ** 2), e_rel=FN_E_REL,
+            max_iter=n)(S0p)
+
+    # (b) the prox sub-iterations
+    unity = partial(top.prox_unity_plus, axis=0)
+    rounds = [0]
+
+    def unity_counted(x, step):
+        rounds[0] += 1
+        return unity(x, step)
+
+    def ada_lane(S0p, Yp, n=FN_LANES_MAX_ITER):
+        out = tfn.make_adaprox_solver(
+            grad(Yp), FN_ADA_STEP, prox=unity_counted, e_rel=FN_E_REL,
+            max_iter=n, prox_max_iter=FN_ADA_SUB)(S0p)
+        return out[0], out[4], out[5], out[6]
+
+    paths = (("make_pgm_solver(backtracking=True), prox_plus, step "
+              f"{step_bt / (1 / L):.6f}/L", bt_lane, pgm_mod,
+              "halving rounds (one read each)"),
+             (f"make_adaprox_solver(prox=prox_unity_plus(axis=0)), step "
+              f"{FN_ADA_STEP:g}", ada_lane, ada_mod,
+              "sub-iteration rounds"))
+    for label, lane, mod, inner in paths:
+        out = {}
+        patch, inner_reads = counting(mod, "any_lane")
+        seen = {}
+        real_run = tfn.run_lanes
+
+        def spy(st, *a, **k):
+            r = real_run(st, *a, **k)
+            if "T" in st:
+                seen["T"] = lanes_of(st["T"], B)
+            return r
+
+        t0 = time.perf_counter()
+        vmap(lane)(S0b, Yb)
+        torch.cuda.synchronize()
+        t_batch = time.perf_counter() - t0
+        # counted on the second run: a process's first counted call of a
+        # path was seen to show one stray wait
+        rounds[0] = 0
+        with patch, mock.patch.object(tfn, "run_lanes", spy):
+            reads, sites = reads_in(
+                lambda: out.update(r=vmap(lane)(S0b, Yb)))
+        x, its, conv, div = out["r"]
+        n_it, n_in, n_rounds = int(its.max()), inner_reads[0], rounds[0]
+        # what a solve reads once, before its loop (the carry's scalars
+        # filled from the host)
+        setup = reads_in(lambda: vmap(partial(lane, n=0))(S0b, Yb))[0]
+        copies = dtoh_copies(lambda: vmap(lane)(S0b, Yb))
+        copies0 = dtoh_copies(lambda: vmap(partial(lane, n=0))(S0b, Yb))
+        check(bool(conv.all()) and not bool(div.any()),
+              f"{label}: {int(conv.sum())} of {B} lanes converged")
+        check(len(set(its.tolist())) > 1 and int(its.min()) > FN_HI,
+              f"{label}: the lanes stopped at iterations "
+              f"{sorted(set(its.tolist()))}: the same, or before FN_HI")
+        check(reads - setup == n_it + n_in,
+              f"{label}: {reads} blocking reads ({setup} before the loop) "
+              f"in {n_it} batch iterations with {n_in} inner reads; "
+              f"{n_it + n_in} expected in the loop; where: {sites}")
+        halvings = ""
+        if "T" in seen:
+            h = sorted(set((-torch.log2(seen["T"][:, 0])).round().int()
+                           .tolist()))
+            check(len(h) > 1, f"{label}: every lane halved {h} times")
+            halvings = (f"; the lanes halved {h} times (the middle "
+                        f"threshold gap {gap:.2e} of the step)")
+            n_rounds = n_in
+        errs = []
+        t0 = time.perf_counter()
+        for b in sample:
+            xb, itb, convb, _ = lane(S0b[b], Yb[b])
+            errs.append(norm_err(x[b], xb))
+            check(int(itb) == int(its[b]) and errs[-1] <= ENGINE_RTOL
+                  and bool(convb) == bool(conv[b]),
+                  f"{label}: lane {b} stopped at {int(its[b])}, its own "
+                  f"solve at {int(itb)}; normwise {errs[-1]:.2e} > "
+                  f"{ENGINE_RTOL:g}")
+        t_own = (time.perf_counter() - t0) / FN_SAMPLE
+
+        # every lane runs n iterations (n <= FN_HI, below every lane's
+        # stop), its inner loops to their own tolerance as in the solve
+        def batch_run(n):
+            vmap(partial(lane, n=n))(S0b, Yb)
+
+        def sample_run(n):
+            for b in sample:
+                lane(S0b[b], Yb[b], n=n)
+
+        timed(batch_run, 3)
+        timed(sample_run, 3)
+        ms_b, ms_s, ms_s2, ms_b2 = (turn_ms(f, FN_LO, FN_HI)
+                                    for f in (batch_run, sample_run,
+                                              sample_run, batch_run))
+        ms_batch, ms_one = min(ms_b, ms_b2), min(ms_s, ms_s2) / FN_SAMPLE
+        launches_b = (launches_of(lambda: batch_run(2 * FN_LO))
+                      - launches_of(lambda: batch_run(FN_LO))) / FN_LO
+        log(f"functional [{label}, torch.func.vmap over {B} patches of {Np} "
+            f"pixels, float64, S-step with A0 fixed]: lanes stop at "
+            f"{int(its.min())}-{n_it} iterations to e_rel={FN_E_REL:g} in "
+            f"{t_batch:.3f} s; {reads - setup} blocking reads in {n_it} "
+            f"batch iterations = {(reads - setup) / n_it:.3f} per iteration "
+            f"({n_in} of them inner; {setup} more before the loop), "
+            f"device-to-host copies {copies - copies0} in the loop by the "
+            f"profiler ({copies0} before it); "
+            f"{inner} {n_rounds} = {n_rounds / n_it:.3f} per iteration"
+            + halvings + f"; the {FN_SAMPLE} seeded lanes {sample} equal "
+            "their own solves' iteration counts, normwise "
+            + ", ".join(f"{e:.2e}" for e in errs)
+            + f" (tol {ENGINE_RTOL:g}), {t_own:.3f} s a lane; marginal "
+            f"ms/iter: the batch {ms_batch:.4f} ({ms_b:.4f}, {ms_b2:.4f}), "
+            f"one lane {ms_one:.4f}, {B} lanes one by one ~{ms_one * B:.4f} "
+            f"(scaled), {ms_one * B / ms_batch:.1f} times the batch; order "
+            f"batch, lanes, lanes, batch; the batch runs {launches_b:.1f} "
+            f"CUDA kernels per iteration; on {card}")
+
+    # (c) implicit gradients under torch.func.vmap(torch.func.grad)
+    L_ift = L + IFT_MU
+
+    def nnls_grad(S, Yp):
+        return A.T @ (A @ S - Yp) + IFT_MU * S
+
+    def ift_solver(e_rel, n):
+        return tfn.make_differentiable_pgm_solver(
+            nnls_grad, 1.0 / L_ift, prox=top.prox_plus, e_rel=e_rel,
+            max_iter=n, vjp_iters=n, vjp_rtol=e_rel)
+
+    Bi = FN_IFT_PATCHES
+    Yi = Yb[:Bi]
+    sample_i = [int(b) for b in np.sort(np.random.default_rng(SEED).choice(
+        Bi, FN_IFT_SAMPLE, replace=False))]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    wb = torch.randn((Bi, K, Np), dtype=f64, device=DEVICE, generator=gen)
+    S_zero = torch.zeros((K, Np), dtype=f64, device=DEVICE)
+
+    def loss_of(solve):
+        return lambda Yp, w: torch.sum(w * solve(S_zero, Yp)[0])
+
+    loss = loss_of(ift_solver(FN_IFT_E_REL, IFT_MAX_ITER))
+
+    def counted_reads(fn):
+        patch, n = counting(tfn, "any_lane")
+        with patch:
+            r, sites = reads_in(fn)
+        return r, n[0], sites
+
+    # launches and reads per round: fixed-length forward and adjoint loops
+    # (the capped adjoint warns); and what a call reads besides its loops
+    quiet = logging.getLogger("proxmin")
+    level = quiet.level
+    quiet.setLevel(logging.ERROR)
+
+    def fixed(n):
+        vmap(torch.func.grad(loss_of(ift_solver(0.0, n))))(Yi, wb)
+
+    try:
+        fixed(FN_LO)
+        r1, n1, _ = counted_reads(lambda: fixed(1))
+        launches_r = (launches_of(lambda: fixed(2 * FN_LO))
+                      - launches_of(lambda: fixed(FN_LO))) / (2 * FN_LO)
+        reads_r = (reads_in(lambda: fixed(2 * FN_LO))[0]
+                   - reads_in(lambda: fixed(FN_LO))[0]) / (2 * FN_LO)
+    finally:
+        quiet.setLevel(level)
+    out = {}
+    t0 = time.perf_counter()
+    reads, n_rounds, sites = counted_reads(lambda: out.update(
+        g=vmap(torch.func.grad(loss))(Yi, wb)))
+    t_batch = time.perf_counter() - t0
+    g = out["g"]
+    check(tuple(g.shape) == (Bi, C, Np) and bool(torch.isfinite(g).all()),
+          f"IFT under vmap(grad): shape {tuple(g.shape)} or non-finite")
+    errs, t_own, own_rounds = [], 0.0, 0
+    for b in sample_i:
+        theta = Yi[b].clone().requires_grad_(True)
+        patch, own_in = counting(tfn, "any_lane")
+        t0 = time.perf_counter()
+        with patch:
+            (gb,) = torch.autograd.grad(loss(theta, wb[b]), theta)
+            torch.cuda.synchronize()
+        t_own += time.perf_counter() - t0
+        own_rounds += own_in[0]
+        errs.append(norm_err(g[b], gb))
+        check(errs[-1] <= FN_IFT_RTOL,
+              f"IFT under vmap(grad): lane {b} against its own "
+              f"torch.autograd.grad: normwise {errs[-1]:.2e} > "
+              f"{FN_IFT_RTOL:g}")
+    setup = r1 - n1
+    check(reads - setup == n_rounds,
+          f"IFT under vmap(grad): {reads} blocking reads ({setup} outside "
+          f"the loops), {n_rounds} reads of the forward and adjoint loops' "
+          f"flags; where: {sites}")
+    ms_batch = t_batch / n_rounds * 1e3
+    ms_one = t_own / own_rounds * 1e3
+    log(f"functional [make_differentiable_pgm_solver under torch.func.vmap("
+        f"torch.func.grad), float64 NNLS in S with the ridge {IFT_MU:g} per "
+        f"patch, theta = Y_p, the first {Bi} patches of {Np} pixels]: "
+        f"forward and "
+        f"adjoint to {FN_IFT_E_REL:g} in {n_rounds} batch rounds, "
+        f"{t_batch:.2f} s; {reads - setup} blocking reads in the loops (one "
+        f"a round; {setup} outside them); the "
+        f"gradients of lanes {sample_i} against their own "
+        "torch.autograd.grad normwise "
+        + ", ".join(f"{e:.2e}" for e in errs)
+        + f" (tol {FN_IFT_RTOL:g}), their own {own_rounds} rounds in "
+        f"{t_own:.2f} s; ms per round: the batch {ms_batch:.4f}, one lane "
+        f"{ms_one:.4f}, {Bi} lanes one by one ~{ms_one * Bi:.4f} (scaled), "
+        f"{ms_one * Bi / ms_batch:.1f} times the batch; {launches_r:.1f} CUDA "
+        f"kernels and {reads_r:.2f} blocking reads per round of the fixed-"
+        f"length loops; on {card}")
 
 
 # Phase 14: whole solves exported with torch.export. The fused NMF programs

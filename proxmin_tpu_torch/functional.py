@@ -30,10 +30,20 @@ lane's iterate, iteration count and flags equal its own solve's, and the
 batch stops at its slowest lane, not at ``max_iter``. The restart of the
 ADMM family is taken per lane by ``torch.where`` there.
 
-Two inner loops depend on each lane's data and raise ``ValueError`` under
-``vmap``: PGM's backtracking (``backtracking=True``) and AdaProx's prox
-sub-iterations (a prox without ``separable_prox``). The differentiable
-solvers and ``make_nmf_solver``'s batched form need no such loop.
+Two inner loops depend on each lane's data: PGM's backtracking
+(``backtracking=True``) and AdaProx's prox sub-iterations (a prox without
+``separable_prox``). Under ``vmap`` they run as rounds over all the lanes,
+one read of every lane's test per round: a lane whose test passes stops
+and keeps its values, and the lanes the controller has frozen run no round.
+
+The differentiable solvers (``make_differentiable_*``) are
+``torch.autograd.Function``s with a ``setup_context`` and the vmap rule
+that ``torch.func`` generates over lanes-aware loops (the forward solve
+and the adjoint): they compose with ``.backward()``,
+``torch.autograd.grad``, ``torch.func.grad``, ``torch.func.vjp``,
+``torch.func.vmap(solve)`` and ``torch.func.vmap(torch.func.grad(loss))``.
+Forward mode (``jvp``, ``jacfwd``) is not defined, as JAX's
+``custom_vjp`` does not define it.
 
 Returns are tensors on the iterates' device: ``it`` a 0-d int32 tensor and
 the flags bool tensors, as JAX returns arrays. NumPy inputs go to the card
@@ -52,6 +62,7 @@ from .linop import as_linear_operator
 from .nmf import (_lam_max_psd_batch, _weighted_lipschitz_S,
                   _weighted_lipschitz_S_v0, grad_likelihood)
 from .solvers.adaprox import _check_options as _adaprox_options
+from .solvers.adaprox import _prox_subloop, _prox_subloop_lanes
 from .solvers.adaprox import _step as _adaprox_step
 from .solvers.adaprox import _stopped as _adaprox_stopped
 from .solvers.admm import _check_adapt, _sdmm_core, _sdmm_lanes
@@ -59,10 +70,10 @@ from .solvers.bsdmm import _Program as _BSDMMProgram
 from .solvers.pgm import _init_state as _pgm_init_state
 from .solvers.pgm import _iterate as _pgm_iterate
 from .solvers.pgm import _step as _pgm_step
-from .solvers.common import (as_torch_dtype, grad_from_f, host_values,
-                             normalize_per_block, normalize_prox,
-                             promote_dtype, run_lanes, separable_blocks,
-                             under_vmap)
+from .solvers.common import (any_lane, as_torch_dtype, grad_from_f,
+                             host_values, normalize_per_block,
+                             normalize_prox, promote_dtype, run_lanes,
+                             select_lanes, separable_blocks, under_vmap)
 from .utils import fixed_point_converged, make_stepper
 
 logger = logging.getLogger("proxmin")
@@ -90,13 +101,6 @@ def _count(it, device):
     return torch.full((), it, dtype=torch.int32, device=device)
 
 
-def _lanes_refuse(option, why):
-    return ValueError(
-        f"{option} cannot run under torch.func.vmap: {why} depend on each "
-        "lane's data, and a lane's host loop cannot read them there; solve "
-        "the lanes one by one")
-
-
 def make_pgm_solver(grad, step, prox=None, accelerated=False,
                     restart=False, backtracking=False, f=None,
                     e_rel=1e-6, max_iter=1000, device=None):
@@ -104,9 +108,10 @@ def make_pgm_solver(grad, step, prox=None, accelerated=False,
     converged, diverged)``, ``converged`` per block.
 
     Same semantics as :func:`proxmin_tpu_torch.pgm` (its body) minus the
-    host conveniences; ``torch.func.vmap(solve)`` runs a batch of problems
-    (not with ``backtracking=True``). ``grad=None`` differentiates ``f``
-    by ``torch.autograd``.
+    host conveniences; ``torch.func.vmap(solve)`` runs a batch of problems,
+    with ``backtracking=True`` too (every lane halves its own step, one
+    read per round of halvings). ``grad=None`` differentiates ``f`` by
+    ``torch.autograd``.
     """
     def solve(*x0):
         x0 = _inputs(x0, device)
@@ -118,8 +123,6 @@ def make_pgm_solver(grad, step, prox=None, accelerated=False,
         assert backtracking is False or f is not None
         stepper = make_stepper(step, n)
         lanes = under_vmap()
-        if lanes and backtracking:
-            raise _lanes_refuse("backtracking=True", "its halvings")
         st = _pgm_init_state(x0, n, accelerated, None)
         st["stepper_state"] = stepper.init_state(x0, None)
         st["S"] = tuple(torch.zeros((), dtype=st["t"].dtype, device=dev)
@@ -129,7 +132,7 @@ def make_pgm_solver(grad, step, prox=None, accelerated=False,
                 backtracking, f, False)
         if lanes:
             it = run_lanes(
-                st, lambda s, k: _pgm_step(s, k, *args),
+                st, lambda s, k, live: _pgm_step(s, k, *args, lanes=live),
                 lambda s: torch.logical_or(s["converged"].all(),
                                            s["diverged"]), max_iter, dev)
         else:
@@ -156,8 +159,8 @@ def make_adaprox_solver(grad, step, prox=None, scheme="adam", b1=0.9,
     per block in ``M``, ``V``, ``Vhat``).
 
     Same semantics as :func:`proxmin_tpu_torch.adaprox` (its body);
-    ``torch.func.vmap(solve)`` runs a batch of problems when no block runs
-    the prox sub-iterations (every prox separable, or none).
+    ``torch.func.vmap(solve)`` runs a batch of problems, the prox
+    sub-iterations too (every lane its own count, one read per round).
     """
     b1, phi_psi = _adaprox_options(scheme, b1, b2, eps, p, max_iter)
     moment_dtype = as_torch_dtype(moment_dtype)
@@ -175,10 +178,6 @@ def make_adaprox_solver(grad, step, prox=None, scheme="adam", b1=0.9,
         e_rel_t = normalize_per_block(e_rel, n)
         separable = separable_blocks(prox_in, has_prox, separable_prox)
         lanes = under_vmap()
-        if lanes and any(h and not s for h, s in zip(has_prox, separable)):
-            raise _lanes_refuse(
-                "a prox without separable_prox (the prox sub-iterations)",
-                "their counts")
         stepper = make_stepper(step, n)
         zeros = tuple(torch.zeros_like(x, dtype=moment_dtype or x.dtype)
                       for x in x0)
@@ -188,11 +187,13 @@ def make_adaprox_solver(grad, step, prox=None, scheme="adam", b1=0.9,
                   diverged=torch.zeros((), dtype=torch.bool, device=dev),
                   sub_iters=[0] * n, history=[])
 
-        def step_(s, k):
+        def step_(s, k, live=None):
+            subloop = (_prox_subloop if live is None else
+                       functools.partial(_prox_subloop_lanes, live=live))
             _adaprox_step(s, k, g, stepper, prox_t, has_prox, separable,
                            phi_psi, b1, b2, eps, p, e_rel_t,
                            check_convergence, prox_max_iter, moment_dtype,
-                           False)
+                           False, subloop=subloop)
 
         def stopped(s):
             return _adaprox_stopped(s, check_convergence)
@@ -334,7 +335,7 @@ def make_bsdmm_solver(proxs_f, steps_f_cb, proxs_g=None, steps_g=None,
         st["converged"] = torch.zeros((N,), dtype=torch.bool, device=dev)
         st["diverged"] = torch.zeros((), dtype=torch.bool, device=dev)
 
-        def sweep(s, k):
+        def sweep(s, k, _active=None):
             flags, _ = prog.sweep(s, k)
             s["converged"] = _block_order(flags, prog.update_order)
             s["diverged"] = flags[-1]
@@ -383,78 +384,121 @@ def _converged(x, x_prev, rtol):
     return d <= (rtol ** 2) * n
 
 
+def _run_to_rest(body, x_prev, c, rtol, cap):
+    """Iterate ``c <- body(c, it)`` (``c[0]`` the iterate, ``it`` the host
+    clock from 1) while ``c[0]`` still moves from ``x_prev`` at ``rtol``
+    and ``it < cap``: one blocking read per iteration. Under ``vmap`` the
+    read takes every lane's flag at once and a lane that has come to rest
+    keeps its carry (the lanes controller's rule), so each lane's result is
+    its own solve's. Returns ``(x_prev, c, it)``."""
+    lanes = under_vmap()
+    it = 1
+    while it < cap:
+        moving = _still_moving(c[0], x_prev, rtol)
+        if not any_lane(moving):
+            break
+        new = body(c, it)
+        if lanes:
+            x_prev = select_lanes(moving, c[0], x_prev)
+            c = select_lanes(moving, new, c)
+        else:
+            x_prev, c = c[0], new
+        it += 1
+    return x_prev, c, it
+
+
 class _ImplicitSolve(torch.autograd.Function):
     """``(x*, converged)`` with the implicit-function-theorem VJP. The
     inputs are the flattened leaves of ``(x0, theta)``; ``spec`` rebuilds
-    them. ``x*`` comes out flattened, then ``converged``."""
+    them. ``x*`` comes out flattened, then ``converged``.
+
+    Its loops are lanes-aware (:func:`_run_to_rest`) and it takes the VJP
+    of ``T`` by ``torch.func.vjp``, so ``torch.func`` batches it by the
+    rule it generates: ``vmap`` runs the forward and the adjoint with every
+    lane to its own stop."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, solver, spec, *leaves):
+    def forward(solver, spec, *leaves):
         x0, theta = pytree.tree_unflatten(list(leaves), spec)
         x, converged = solver.forward(x0, *theta)
-        x_leaves, ctx.x_spec = pytree.tree_flatten(x)
+        # a leaf that comes back as one of the inputs (a block no iteration
+        # moves) leaves as a view: it is saved for the backward pass
+        ids = {id(leaf) for leaf in leaves}
+        return (*(o.view_as(o) if id(o) in ids else o
+                  for o in pytree.tree_leaves(x)), converged)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        solver, spec, *leaves = inputs
+        x0, _ = pytree.tree_unflatten(list(leaves), spec)
         ctx.solver, ctx.spec = solver, spec
-        ctx.n_x0 = len(pytree.tree_leaves(x0))
+        ctx.x_spec = pytree.tree_structure(x0)
+        ctx.n_x0 = ctx.x_spec.num_leaves
+        ctx.n_x = len(output) - 1
         ctx.is_tensor = [isinstance(leaf, torch.Tensor) for leaf in leaves]
         ctx.constants = [None if t else leaf
                          for t, leaf in zip(ctx.is_tensor, leaves)]
-        ctx.save_for_backward(*x_leaves, *(leaf for leaf in leaves
-                                           if isinstance(leaf, torch.Tensor)))
-        ctx.n_x = len(x_leaves)
-        ctx.mark_non_differentiable(converged)
-        return (*x_leaves, converged)
+        ctx.save_for_backward(*output[:-1], *(
+            leaf for leaf in leaves if isinstance(leaf, torch.Tensor)))
+        ctx.mark_non_differentiable(output[-1])
 
     @staticmethod
     def backward(ctx, *cotangents):
         v = [c.detach() for c in cotangents[:ctx.n_x]]
-        saved = ctx.saved_tensors
+        # under torch.func.vjp the pullback runs after the transform that
+        # saved these has exited: drop its dead wrappers
+        saved = [torch._C._functorch.unwrap_if_dead(t)
+                 for t in ctx.saved_tensors]
         x_star = saved[:ctx.n_x]
         given = iter(saved[ctx.n_x:])
         leaves = [next(given) if t else c
                   for t, c in zip(ctx.is_tensor, ctx.constants)]
         needs = ctx.needs_input_grad[2:]
-        theta_needs = needs[ctx.n_x0:]
-        with torch.enable_grad():
-            xs = [x.detach().requires_grad_(True) for x in x_star]
-            th = [leaf.detach().requires_grad_(True) if need else
-                  (leaf.detach() if isinstance(leaf, torch.Tensor) else leaf)
-                  for leaf, need in zip(leaves[ctx.n_x0:], theta_needs)]
-            _, theta = pytree.tree_unflatten(leaves[:ctx.n_x0] + th, ctx.spec)
-            out = pytree.tree_leaves(ctx.solver.T(
-                pytree.tree_unflatten(xs, ctx.x_spec), *theta))
-            live = [i for i, o in enumerate(out) if o.requires_grad]
+        wanted = [i for i, need in enumerate(needs[ctx.n_x0:]) if need]
+        solver = ctx.solver
+        theta_leaves = leaves[ctx.n_x0:]
 
-            def vjp(w, wrt, keep):
-                if not wrt or not live:
-                    return [torch.zeros_like(t) for t in wrt]
-                return torch.autograd.grad(
-                    [out[i] for i in live], wrt,
-                    grad_outputs=[w[i] for i in live], retain_graph=keep,
-                    allow_unused=True, materialize_grads=True)
+        def T_leaves(xs, th):
+            _, theta = pytree.tree_unflatten(leaves[:ctx.n_x0] + list(th),
+                                             ctx.spec)
+            return pytree.tree_leaves(solver.T(
+                pytree.tree_unflatten(list(xs), ctx.x_spec), *theta))
 
-            def step_w(w):
-                return [a + b for a, b in zip(vjp(w, xs, True), v)]
+        def theta_with(ts):
+            th = list(theta_leaves)
+            for i, t in zip(wanted, ts):
+                th[i] = t
+            return th
 
-            # adjoint fixed point w = A^T w + v, run to a RELATIVE RESIDUAL
-            # (a fixed count silently truncates the Neumann series on an
-            # ill-conditioned problem: at contraction factor q its error is
-            # q^k), one blocking read per iteration
-            w_prev, w = v, step_w(v)
-            it, moving = 1, True
-            solver = ctx.solver
-            while it < solver.vjp_iters and moving:
-                moving = bool(_still_moving(w, w_prev, solver.vjp_rtol))
-                if moving:
-                    w_prev, w = w, step_w(w)
-                    it += 1
-            if moving and bool(_still_moving(w, w_prev, solver.vjp_rtol)):
-                # the JAX solver returns such a gradient silently
-                logger.warning(
-                    "the implicit gradient's adjoint stopped at vjp_iters="
-                    "%d short of vjp_rtol=%g: the gradient is truncated",
-                    solver.vjp_iters, solver.vjp_rtol)
-            wanted = [t for t, need in zip(th, theta_needs) if need]
-            grads = iter(vjp(w, wanted, False))
+        # the VJPs of T by torch.func.vjp, which runs inside torch.func
+        # transforms as well as outside them
+        _, vjp_x = torch.func.vjp(lambda *xs: T_leaves(xs, theta_leaves),
+                                  *x_star)
+
+        def step_w(c, _):
+            return ([a + b for a, b in zip(vjp_x(c[0]), v)],)
+
+        # adjoint fixed point w = A^T w + v, run to a RELATIVE RESIDUAL (a
+        # fixed count silently truncates the Neumann series on an
+        # ill-conditioned problem: at contraction factor q its error is
+        # q^k), one blocking read per iteration
+        w_prev, (w,), it = _run_to_rest(step_w, v, step_w((v,), 0),
+                                        solver.vjp_rtol, solver.vjp_iters)
+        if it >= solver.vjp_iters and any_lane(
+                _still_moving(w, w_prev, solver.vjp_rtol)):
+            # the JAX solver returns such a gradient silently
+            logger.warning(
+                "the implicit gradient's adjoint stopped at vjp_iters="
+                "%d short of vjp_rtol=%g: the gradient is truncated",
+                solver.vjp_iters, solver.vjp_rtol)
+        grads = iter(())
+        if wanted:
+            _, vjp_theta = torch.func.vjp(
+                lambda *ts: T_leaves(x_star, theta_with(ts)),
+                *(theta_leaves[i] for i in wanted))
+            grads = iter(vjp_theta(w))
         out_grads = []
         for i, need in enumerate(needs):
             if not need:
@@ -479,14 +523,10 @@ class _FixedPoint:
     def iterate(self, x0, *theta):
         """Plain fixed-point iteration to the relative tolerance, one
         blocking read per iteration."""
-        x_prev, x = x0, self.T(x0, *theta)
-        it = 1
-        while it < self.max_iter and bool(
-                _still_moving(x, x_prev, self.e_rel)):
-            x_prev, x = x, self.T(x, *theta)
-            it += 1
-        converged = _converged(x, x_prev, self.e_rel)
-        return x, converged
+        x_prev, (x,), _ = _run_to_rest(
+            lambda c, _: (self.T(c[0], *theta),), x0,
+            (self.T(x0, *theta),), self.e_rel, self.max_iter)
+        return x, _converged(x, x_prev, self.e_rel)
 
 
 def _implicit_fixed_point_solver(T, e_rel, max_iter, vjp_iters, vjp_rtol,
@@ -502,8 +542,10 @@ def _implicit_fixed_point_solver(T, e_rel, max_iter, vjp_iters, vjp_rtol,
     taken once at ``w*`` and reused. The ``w0`` cotangent is zero.
 
     It composes with ``.backward()``, ``torch.autograd.grad`` and outer
-    loops around them; not with ``torch.func`` transforms (its loops read
-    the host)."""
+    loops around them, and with ``torch.func.grad``, ``torch.func.vjp`` and
+    ``torch.func.vmap`` (of the solve, or of its gradient): under ``vmap``
+    the forward iteration and the adjoint run every lane to its own stop,
+    one read per iteration for all the lanes."""
     solver = _FixedPoint(T, e_rel, max_iter, vjp_iters, vjp_rtol, forward)
 
     def solve(x0, *theta):
@@ -601,14 +643,10 @@ def make_differentiable_adaprox_solver(grad, step, prox=None, b1=0.9,
             return _prox(z, s_arr, *theta), m1, v1
 
         zeros = pytree.tree_map(torch.zeros_like, x0)
-        x, m, v = body(x0, zeros, zeros, 0)
-        x_prev, it = x0, 1
-        while it < max_iter and bool(_still_moving(x, x_prev, e_rel)):
-            x_prev = x
-            x, m, v = body(x, m, v, it)
-            it += 1
-        converged = _converged(x, x_prev, e_rel)
-        return x, converged
+        x_prev, (x, _, _), _ = _run_to_rest(
+            lambda c, it: body(*c, it), x0, body(x0, zeros, zeros, 0),
+            e_rel, max_iter)
+        return x, _converged(x, x_prev, e_rel)
 
     return _implicit_fixed_point_solver(T, e_rel, max_iter, vjp_iters,
                                         vjp_rtol, forward=forward,
@@ -880,7 +918,7 @@ def make_nmf_solver(prox_A=None, prox_S=None, e_rel=1e-3, max_iter=1000,
     def solve_unweighted(A0, S0, Y):
         A0, S0, Y = _inputs((A0, S0, Y), device)
 
-        def step(st, _):
+        def step(st, *_):
             A, S = st["A"], st["S"]
             gA, gS = grad_likelihood(A, S, Y=Y)
             update(st, gA, gS, 1.0 / _lam_max(S @ S.T),
@@ -896,7 +934,7 @@ def make_nmf_solver(prox_A=None, prox_S=None, e_rel=1e-3, max_iter=1000,
         st["v"] = _weighted_lipschitz_S_v0(S0.shape[1], A0.shape[1], dtype,
                                            A0.device)
 
-        def step(st, k):
+        def step(st, k, _active=None):
             A, S = st["A"], st["S"]
             gA, gS = grad_likelihood(A, S, Y=Y, W=W)
             H = torch.einsum("kn,cn,ln->ckl", S, W, S)

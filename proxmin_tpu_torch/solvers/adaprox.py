@@ -12,7 +12,9 @@ sub-iterations in a nested one. Here both loops run on the host: the math
 stays on the iterates' device, and the stop flags are read back once per
 iteration and once per prox sub-iteration (the sub-loop's test decides
 whether another sub-iteration runs); ``callback=`` and ``trace=`` add no
-read. Scalars that JAX computes as traced
+read. Under ``torch.func.vmap`` (``functional.make_adaprox_solver``) the
+sub-iterations run as rounds over all the lanes, one read per round
+(:func:`_prox_subloop_lanes`). Scalars that JAX computes as traced
 scalars (bias corrections, the RAdam rectification) are computed on the
 host in the block's dtype, so they cost no launch and no read.
 
@@ -30,7 +32,7 @@ import torch
 
 from .. import utils
 from ..utils import fixed_point_norms, fixed_point_verdict, l2sq, make_stepper
-from .common import (SolverResult, as_tensor, as_torch_dtype,
+from .common import (SolverResult, any_lane, as_tensor, as_torch_dtype,
                      check_stepper_state, grad_from_f, host_values,
                      local_of, normalize_per_block, normalize_prox,
                      separable_blocks, tupleize, writeback)
@@ -266,6 +268,33 @@ def _prox_subloop(prox_j, x_j, alpha_j, Psi, e_rel_j, prox_max_iter):
     return z, tau
 
 
+def _prox_subloop_lanes(prox_j, x_j, alpha_j, Psi, e_rel_j, prox_max_iter,
+                        live):
+    """:func:`_prox_subloop` under ``torch.func.vmap``: each lane has its
+    own stop test and count ``tau`` (a 0-d int32 tensor), and the rounds
+    run while any ``live`` lane (one the lanes controller still runs) is
+    not done, one blocking read of every lane's test per round after the
+    first; ``z`` and ``tau`` advance only in the lanes still running, as
+    ``lax.while_loop`` runs them under ``jax.vmap``. A lane still running
+    after round ``r`` has ``tau == r``, so the cap is the host's round
+    count. Returns ``(z, tau)``."""
+    psi_max = torch.max(Psi)
+    gamma = alpha_j / psi_max
+    scale = Psi / psi_max
+    z = x_j
+    tau = torch.zeros((), dtype=torch.int32, device=x_j.device)
+    run = live
+    for r in range(prox_max_iter):
+        if r and not any_lane(run):
+            break
+        z_new = prox_j(z - scale * (z - x_j), gamma)
+        done = l2sq(z_new - z) <= e_rel_j ** 2 * l2sq(z)
+        z = torch.where(run, z_new, z)
+        tau = tau + run.to(torch.int32)
+        run = torch.logical_and(run, torch.logical_not(done))
+    return z, tau
+
+
 def _prox_subloop_traced(prox_j, x_j, alpha_j, Psi, e_rel_j, prox_max_iter,
                          reduce=None):
     """:func:`_prox_subloop` as a ``while_loop`` that ``torch.export``
@@ -339,7 +368,7 @@ def _step(st, it, grad, stepper, prox, has_prox, separable, phi_psi, b1, b2,
                   else {"reduce": functools.partial(reduce, j)})
             xj, tau = subloop(prox[j], xj, Alpha[j], Psi, e_rel[j],
                               prox_max_iter, **kw)
-            st["sub_iters"][j] += tau
+            st["sub_iters"][j] = st["sub_iters"][j] + tau
         x_new.append(xj)
         M_new.append(Mj)
         V_new.append(Vj)

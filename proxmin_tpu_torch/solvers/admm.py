@@ -321,7 +321,7 @@ def _sdmm_lanes(x0, prox_f, step_f, proxs_g, steps_g, Ls, e_rel, e_abs,
               converged=false, diverged=false,
               errors=torch.zeros((max(M, 1), 4), dtype=dtype, device=device))
 
-    def step(st, _):
+    def step(st, *_):
         (x_new, z, u, r, errors_arr, conv_t, nonfinite, stall,
          step_scale) = iteration(st["x"], st["z"], st["u"], st["r_prev"],
                                  st["it"], st["slack"], st["step_scale"])

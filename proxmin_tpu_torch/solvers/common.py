@@ -292,11 +292,15 @@ def grad_from_f(f, n_blocks):
     block that ``f`` does not use gets a zero gradient. The JAX package
     memoizes the derived function by ``(id(f), n_blocks)`` for its compiled
     driver cache; a host loop has no such cache, so every call builds a new
-    (cheap) closure."""
+    (cheap) closure. Inside a ``torch.func`` transform (a solve under
+    ``vmap``), where ``requires_grad_`` is refused, it takes
+    ``torch.func.grad`` instead."""
     def grad(*X):
         if len(X) != n_blocks:
             raise ValueError(f"got {len(X)} blocks for a gradient of "
                              f"{n_blocks}")
+        if torch._C._are_functorch_transforms_active():
+            return torch.func.grad(f, argnums=tuple(range(n_blocks)))(*X)
         Xd = tuple(x.detach().requires_grad_(True) for x in X)
         with torch.enable_grad():
             val = f(*Xd)
@@ -372,17 +376,21 @@ def select_lanes(active, new, old):
 
 
 def run_lanes(st, step, stopped, max_iter, device):
-    """The lanes controller over a solver body: ``step(st, it)`` updates
-    the dict ``st`` in place by one iteration (``it`` is the host clock,
-    every active lane's own), ``stopped(st)`` is a lane's 0-d stop flag.
-    Runs while any lane is active, at most ``max_iter`` iterations, one
-    blocking read per iteration; a finished lane keeps its state. Returns
-    the iteration counts, a 0-d int32 tensor per lane."""
+    """The lanes controller over a solver body: ``step(st, it, active)``
+    updates the dict ``st`` in place by one iteration (``it`` is the host
+    clock, every active lane's own; ``active`` the lanes still running, a
+    0-d bool per lane, so that an inner loop of the body, backtracking's
+    halvings or AdaProx's prox sub-iterations, runs no round for a frozen
+    one), ``stopped(st)`` is a lane's 0-d stop flag. Runs while any lane is
+    active, at most ``max_iter`` iterations, one blocking read per
+    iteration; a finished lane keeps its state. Returns the iteration
+    counts, a 0-d int32 tensor per lane."""
     it = torch.zeros((), dtype=torch.int32, device=device)
     active = None
     for k in range(int(max_iter)):
         old = dict(st)
-        step(st, k)
+        step(st, k, torch.ones((), dtype=torch.bool, device=device)
+             if active is None else active)
         if active is None:
             it = it + 1
         else:

@@ -14,7 +14,9 @@ host read: the first test rides in the iteration's one read (with the stop
 flags of the trial point, which stand when no halving follows), every
 halving adds one read, and with several blocks the first halving of an
 iteration adds one more, for the block to halve. ``callback=`` and
-``trace=`` add no read.
+``trace=`` add no read. Under ``torch.func.vmap``
+(``functional.make_pgm_solver``) the halvings run as rounds over all the
+lanes, one read per round (:func:`_halvings_lanes`).
 """
 
 import functools
@@ -25,9 +27,10 @@ import torch
 from .. import utils
 from ..utils import (fixed_point_norms, fixed_point_verdict, make_stepper,
                      nesterov_next)
-from .common import (SolverResult, check_stepper_state, grad_from_f,
-                     host_values, local_of, normalize_per_block,
-                     normalize_prox, status_from, tupleize, writeback)
+from .common import (SolverResult, any_lane, check_stepper_state,
+                     grad_from_f, host_values, local_of,
+                     normalize_per_block, normalize_prox, select_lanes,
+                     status_from, tupleize, writeback)
 
 logger = logging.getLogger("proxmin")
 
@@ -114,8 +117,35 @@ def _halvings_traced(T, x_new, f_now, jmax, prox_step, Q, f, like):
     return T, tuple(x_new), f_now
 
 
+def _halvings_lanes(T, x_new, f_now, jmax, prox_step, Q, f, like, live):
+    """Backtracking's halvings under ``torch.func.vmap``: each round reads
+    every lane's test at once (one blocking read), and the lanes that fail
+    it, among the ``live`` ones, halve block ``jmax``'s factor (their own
+    block) and redo its prox step; a lane that passes keeps its ``T``, trial
+    point and ``f``, as ``lax.while_loop`` keeps them under ``jax.vmap``.
+    A lane still failing after round ``k`` has halved ``k`` times, so the
+    cap is the host's round count. Returns ``(T, x_new, f_now)``."""
+    n = len(x_new)
+    idx = torch.arange(n, device=T.device)
+    for _ in range(_MAX_BACKTRACK):
+        fail = torch.logical_and(live, f_now > Q(x_new, T))
+        if not any_lane(fail):
+            break
+        T_h = torch.where(idx == jmax, T / 2, T)
+        if n == 1:
+            x_h = (prox_step(0, T_h[0]),)
+        else:
+            x_h = tuple(torch.where(jmax == j, prox_step(j, T_h[j]), x_new[j])
+                        for j in range(n))
+        f_h = _scalar(f(*x_h), like)
+        T = torch.where(fail, T_h, T)
+        x_new = select_lanes(fail, x_h, x_new)
+        f_now = torch.where(fail, f_h, f_now)
+    return T, x_new, f_now
+
+
 def _step(st, it, grad, stepper, prox, e_rel, accelerated, restart,
-          backtracking, f, trace, traced=False):
+          backtracking, f, trace, traced=False, lanes=None):
     """One PGM iteration on the carry (the JAX body, term for term): the
     loop body that the driver and ``functional.make_pgm_solver`` share.
     The new stop flags stand in ``st["converged"]`` and
@@ -123,7 +153,10 @@ def _step(st, it, grad, stepper, prox, e_rel, accelerated, restart,
     None; with it, the first test rides one read with the trial point's
     flags, and the host values ``[*converged, diverged]`` come back when
     they were read. ``traced`` (an exported program, ``it`` a tensor):
-    the halvings run as :func:`_halvings_traced` and nothing is read."""
+    the halvings run as :func:`_halvings_traced` and nothing is read.
+    ``lanes`` (under ``torch.func.vmap``, the lanes still running): the
+    halvings run as :func:`_halvings_lanes`, one read per round, and no
+    flags come back."""
     n = len(prox)
     x_old = st["x"]
     if accelerated:
@@ -176,12 +209,17 @@ def _step(st, it, grad, stepper, prox, e_rel, accelerated, restart,
             return f_prev + acc
 
     jmax, k, host = None, 0, None
-    if backtracking and traced:
+    if backtracking and (traced or lanes is not None):
+        # every lane's own block to halve, without a read
         jmax = 0 if n == 1 else torch.argmax(torch.stack([
             torch.max(torch.abs(S[j] * G[j])) / torch.max(torch.abs(x_old[j]))
             for j in range(n)]))
-        T, x_new, f_now = _halvings_traced(T, x_new, f_now, jmax, prox_step,
-                                           Q, f, st["t"])
+        if traced:
+            T, x_new, f_now = _halvings_traced(T, x_new, f_now, jmax,
+                                               prox_step, Q, f, st["t"])
+        else:
+            T, x_new, f_now = _halvings_lanes(T, x_new, f_now, jmax,
+                                              prox_step, Q, f, st["t"], lanes)
         backtracking = False  # the loop below only takes the verdicts
     while True:
         norms, conv, diverged = verdicts(x_new)

@@ -64,8 +64,8 @@ ABSENT = {
                               "each rank's slice",
     },
     "algorithms": {},
-    # every factory is ported; under torch.func.vmap two options raise
-    # (the JAX package masks them inside lax.while_loop), listed in VMAP_GAPS
+    # every factory is ported, and runs under torch.func.vmap with every
+    # option the JAX one takes under jax.vmap (VMAP_GAPS is empty)
     "functional": {},
     # every exporter is a name of the port; what its programs cannot do yet
     # stands in EXPORT_GAPS
@@ -205,17 +205,9 @@ def test_solver_signatures_cover_the_jax_ones(solver, options):
 
 
 # what the port's functional factories cannot do under torch.func.vmap that
-# the JAX ones do under jax.vmap: {factory: {option: reason}}
-VMAP_GAPS = {
-    "make_pgm_solver": {
-        "backtracking=True": "the halvings of each iteration depend on each "
-                             "lane's data; a lane's host loop cannot read "
-                             "them under vmap (ValueError)"},
-    "make_adaprox_solver": {
-        "separable_prox=False with a prox": "the prox sub-iterations' count "
-                                            "depends on each lane's data "
-                                            "(ValueError)"},
-}
+# the JAX ones do under jax.vmap: {factory: {option: reason}}; none since
+# backtracking and the prox sub-iterations run as rounds over the lanes
+VMAP_GAPS = {}
 
 
 @pytest.mark.parametrize("name", sorted(proxmin_tpu.functional.__all__))

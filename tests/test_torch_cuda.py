@@ -36,7 +36,9 @@ The functional factories on the card: one blocking read per iteration
 outside vmap and bit for bit their drivers' iterates; batched NMF lanes
 against their individual solves in float64 (rtol 1e-10: vmap may batch a
 product another way); the lanes controller's private torch._C._functorch
-route, which must end a batch at its slowest lane on this torch.
+route, which must end a batch at its slowest lane on this torch; and
+backtracking under vmap, which reads once per iteration and once per
+halving round.
 """
 
 import functools
@@ -2300,6 +2302,73 @@ def test_lanes_controller_ends_at_the_slowest_lane(dev):
 
     torch.func.vmap(probe)(cs)
     assert seen == [(True, True, False)] and not under_vmap()
+
+
+def test_vmapped_backtracking_reads_once_per_iteration_and_round(
+        dev, monkeypatch):
+    """Under torch.func.vmap backtracking's halvings run as rounds over the
+    lanes, one read of every lane's test a round (the last of an iteration
+    finds no lane failing): the batch reads the host once per iteration
+    (the stop flags) and once per halving round, and no more, by the sync
+    debug mode and by the profiler's device-to-host copies. What a solve
+    reads before its loop (the carry's scalars) is the same at max_iter=1
+    and drops out."""
+    import gc
+    import importlib
+
+    from proxmin_tpu_torch import functional as tfn
+
+    pgm_mod = importlib.import_module("proxmin_tpu_torch.solvers.pgm")
+    rounds = [0]
+    real = pgm_mod.any_lane
+
+    def counted(flag):
+        rounds[0] += 1
+        return real(flag)
+
+    monkeypatch.setattr(pgm_mod, "any_lane", counted)
+    f64 = torch.float64
+    # curvatures that halve step 1 zero, one, two and five times
+    cs = torch.tensor([0.5, 1.5, 3.0, 20.0], dtype=f64, device=dev)
+    ys = torch.linspace(-1.0, 2.0, 4 * 64, dtype=f64,
+                        device=dev).reshape(4, 64)
+    x0s = torch.full((4, 64), 0.1, dtype=f64, device=dev)
+
+    def solve(n):
+        def lane(x0, c, y):
+            return tfn.make_pgm_solver(
+                lambda x: c * (x - y), 1.0, prox=top.prox_plus,
+                backtracking=True, f=lambda x: 0.5 * c * torch.sum(
+                    (x - y) ** 2), e_rel=1e-8, max_iter=n)(x0)
+        return torch.func.vmap(lane)(x0s, cs, ys)
+
+    def quiet(count, fn):
+        # no collection inside the count: a finalizer could read
+        gc.collect()
+        gc.disable()
+        try:
+            return count(fn)
+        finally:
+            gc.enable()
+
+    solve(200)
+    counts = {}
+    for n in (1, 200):
+        rounds[0] = 0
+        reads = quiet(_syncs, lambda: solve(n))
+        r_syncs = rounds[0]
+        rounds[0] = 0
+        copies = quiet(_dtoh_copies, lambda: solve(n))
+        assert rounds[0] == r_syncs
+        counts[n] = (reads, copies, r_syncs)
+    x, its, conv, div = solve(200)
+    it = int(its.max())
+    assert bool(conv.all()) and not bool(div.any())
+    assert 1 < it < 200 and len(set(its.tolist())) > 1
+    (r1, c1, h1), (r, c, h) = counts[1], counts[200]
+    assert h > h1 >= 6
+    assert r - r1 == (it - 1) + (h - h1)
+    assert c - c1 == (it - 1) + (h - h1)
 
 
 # ---------------------------------------------------------------------------

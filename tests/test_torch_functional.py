@@ -230,9 +230,8 @@ def test_implicit_diff_interior_and_boundary():
 
 
 def test_implicit_diff_composes_with_jit_vmap():
-    """The JAX test takes ``jax.vmap(jax.grad(loss))``. The port's solve is
-    an autograd.Function whose loops read the host, which torch.func cannot
-    batch, so its lanes run one by one here."""
+    """The JAX test takes ``jax.vmap(jax.grad(loss))``; so does the port,
+    with ``torch.func.vmap(torch.func.grad(loss))``."""
     def grad_t(x, theta):
         return 2.0 * (x - theta)
 
@@ -240,8 +239,8 @@ def test_implicit_diff_composes_with_jit_vmap():
     solve_j = jf.make_differentiable_pgm_solver(
         lambda x, theta: 2.0 * (x - theta), 0.4)
     ths = np.random.default_rng(0).normal(size=(5, 3))
-    gs = np.stack([_tgrad(lambda th: torch.sum(solve(
-        torch.zeros(3, dtype=torch.float64), th)[0] ** 2), th) for th in ths])
+    gs = vmap(torch.func.grad(lambda th: torch.sum(solve(
+        torch.zeros(3, dtype=torch.float64), th)[0] ** 2)))(_t(ths))
     np.testing.assert_allclose(gs, 2 * ths, atol=1e-6)
     gj = jax.jit(jax.vmap(jax.grad(lambda th: jnp.sum(
         solve_j(jnp.zeros(3), th)[0] ** 2))))(jnp.asarray(ths))
@@ -897,18 +896,33 @@ def test_differentiable_adaprox_matches_pgm_solution():
 
 def test_functional_entry_points_refuse_data_dependent_loops_under_vmap():
     """Backtracking's halvings and AdaProx's prox sub-iterations depend on
-    each lane's data: under vmap they raise and name the option."""
-    x0s = torch.zeros(3, 2, dtype=torch.float64)
-    solve = tf.make_pgm_solver(lambda x: x - 1.0, 0.5, backtracking=True,
-                               f=lambda x: 0.5 * torch.sum((x - 1.0) ** 2))
-    with pytest.raises(ValueError, match="backtracking=True"):
-        vmap(solve)(x0s)
-    solve = tf.make_adaprox_solver(lambda x: x - 1.0, 0.1, prox=t_disk)
-    with pytest.raises(ValueError, match="separable_prox"):
-        vmap(solve)(x0s)
-    # the same options run outside vmap, and a separable prox runs inside
-    assert int(tf.make_adaprox_solver(lambda x: x - 1.0, 0.1, prox=t_disk,
-                                      max_iter=5)(x0s[0])[4]) == 5
+    each lane's data: under vmap they run as rounds over the lanes (they
+    were refused before the lanes controller ran them), and each lane
+    equals its own solve."""
+    x0s = _t([[0.0, 0.0], [2.0, -1.0], [0.5, 4.0]])
+    cs = _t([[1.0, 1.0], [3.0, 0.5], [-1.0, 2.0]])
+
+    def pgm_bt(x0, c):
+        return tf.make_pgm_solver(
+            lambda x: 3.0 * (x - c), 1.0, backtracking=True,
+            f=lambda x: 1.5 * torch.sum((x - c) ** 2), e_rel=1e-10,
+            max_iter=200)(x0)
+
+    def ada(x0, c):
+        return tf.make_adaprox_solver(lambda x: x - c, 0.1, prox=t_disk,
+                                      e_rel=1e-8, max_iter=300)(x0)
+
+    x, it, conv, _ = vmap(pgm_bt)(x0s, cs)
+    xa, *_, ita, conva, _ = vmap(ada)(x0s, cs)
+    assert bool(conv.all()) and 1 <= int(it.max()) < 200
+    for i in range(3):
+        xi, iti, convi, _ = pgm_bt(x0s[i], cs[i])
+        _close(x[i], xi, EXACT)
+        assert int(it[i]) == int(iti) and torch.equal(conv[i], convi)
+        xai, *_, itai, convai, _ = ada(x0s[i], cs[i])
+        _close(xa[i], xai, EXACT)
+        assert int(ita[i]) == int(itai) and torch.equal(conva[i], convai)
+    # a separable prox runs inside vmap as before
     x, *_ = vmap(tf.make_adaprox_solver(
         lambda x: x - 1.0, 0.1, prox=tops.prox_plus, separable_prox=True,
         max_iter=50))(x0s)

@@ -21,8 +21,8 @@ without and with W. With ``--vwide``, at ``chip_smoke.VWIDE`` (425, 32,
 without and with W, the bfloat16 store with W) and both split passes
 (pass 2 in both stores), K2 with the relative L1 threshold (float32 and
 bfloat16 moments, the bfloat16 store, the device-scalar entry) and both
-split passes, K3; and the plain PyTorch versions of K1, K2, K3 and the two
-second passes (timed, not hashed). ``--shapes`` replaces the very-wide
+split passes, K3; and the plain PyTorch versions of K1, K2, K3 and of the
+split passes (timed, not hashed). ``--shapes`` replaces the very-wide
 shapes by the ones given, e.g. ``--shapes 425,64,250000`` (C past 160, where
 the instance of 64 components keeps gA's last chunks in the group's row).
 Each case is timed as ``chip_smoke.py`` times it, the least of two
@@ -189,11 +189,15 @@ def vwide_cases(cs, kk, nmf, top, tops, shapes=None):
         plain.update({
             f"K1 plain{tag}": partial(kk.fused_nmf_pgm_step_reference, A, S,
                                       Y, sS, prox_S=simplex),
+            f"K1 pass 1 plain{tag}": partial(kk._pgm_pass1_reference, A, S,
+                                             Y, sS),
             f"K1 pass 2 plain{tag}": partial(kk._pgm_pass2_reference, S, P1,
                                              torch.float32),
             f"K2 plain{tag}": partial(
                 kk.fused_nmf_adaprox_step_reference, A, S, M, M, Y, al, sc,
                 prox_S=kk.describe_prox(l1, "adaprox", True)),
+            f"K2 pass 1 plain{tag}": partial(
+                kk._adaprox_pass1_reference, A, S, M, M, Y, al, sc),
             f"K2 pass 2 plain{tag}": partial(kk._adaprox_pass2_reference, S,
                                              P2, torch.float32),
             f"K3 plain{tag}": partial(tops.fused_nmf_grad_reference, A, S,
