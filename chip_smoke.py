@@ -188,9 +188,10 @@ Phases:
    e_rel 1e-4, held to its ACCEPTANCE bound;
 18. the very-wide path (``very_wide_phase``): hyperspectral unmixing at
    AVIRIS-NG's width, C=425, K=32, N=1e6, a K > 32 check at
-   (128, 64, 250 000), a K > 64 one at (128, 96, 4097) and a K > 128 one
-   at (64, 160, 4097) on K1-K3's very-wide bodies, ``nmf(engine="auto")``
-   on the four against the routing table's very-wide rows, and K5 beyond C,
+   (128, 64, 250 000), a K > 64 one at (128, 96, 4097), a K > 128 one at
+   (64, 160, 4097) and a K = 256 one at (64, 256, 4097) on K1-K3's
+   very-wide bodies, ``nmf(engine="auto")`` on the five against the
+   routing table's very-wide rows, and K5 beyond C,
    K <= 8 at (16, 12, 1e6) (see its docstring);
 19. the eleven examples of ``proxmin_tpu_torch.examples``
    (``examples_phase``) at their default arguments, each in a process of
@@ -490,17 +491,20 @@ EQUIV_ACCEPTANCE = {
 # simplex; prox_A non-negativity, prox_S the simplex); beside it a K > 32
 # check at (128, 64, 250_000) on the instance of 64 components (not a user
 # configuration), a small K > 64 check at (128, 96, 4097) on the instance
-# of 128, a small K > 128 one at (64, 160, 4097) on the body of blocks of
-# 32, and K5 beyond C, K <= 8. Solves run VWIDE_ITERS
-# iterations and resume after VWIDE_SPLIT; marginals between VWIDE_LO and
-# VWIDE_HI iterations.
+# of 128, small K > 128 and K = 256 ones at (64, 160, 4097) and
+# (64, 256, 4097) on the instance of 256 (spectral-library unmixing's
+# width: a few hundred library spectra), and K5 beyond C, K <= 8. Solves
+# run VWIDE_ITERS iterations and resume after VWIDE_SPLIT; marginals
+# between VWIDE_LO and VWIDE_HI iterations.
 VWIDE = (425, 32, 1_000_000)
 VWIDE_K64 = (128, 64, 250_000)
 VWIDE_K96 = (128, 96, 4097)
 VWIDE_K160 = (64, 160, 4097)
+VWIDE_K256 = (64, 256, 4097)
 VWIDE_PACKED = (16, 12, 1_000_000)
 VWIDE_LABELS = (("AVIRIS-NG", VWIDE), ("K > 32", VWIDE_K64),
-                ("K > 64", VWIDE_K96), ("K > 128", VWIDE_K160))
+                ("K > 64", VWIDE_K96), ("K > 128", VWIDE_K160),
+                ("K = 256", VWIDE_K256))
 VWIDE_ITERS, VWIDE_SPLIT = 30, 10
 VWIDE_LO, VWIDE_HI = 5, 15
 
@@ -4561,15 +4565,27 @@ K2_AT = "proxmin_tpu/ops/nmf_kernels.py:525"
 K3_AT = "proxmin_tpu/ops/nmf_kernels.py:653"
 
 
+def body_instance(kk, K, residual):
+    """The body and instance that serve a K1-K3 pass of K components
+    (``csrc/tiers.cuh``'s rule, from the wrapper module's bounds), for the
+    kernels line."""
+    if K <= kk.WIDE_K:
+        return f"wide_pass.cuh KB={next(b for b in (8, 16, 32) if K <= b)}"
+    if residual and K <= kk.KWIDE_K:
+        kb = next(b for b in (64, 128, 256) if K <= b)
+        return f"kwide_pass.cuh KB={kb}"
+    return "vwide_pass.cuh"
+
+
 def very_wide_phase(mods, card):
     """Phase 18, the very-wide path: K1's compiled chain and split passes,
     K2's (float32 and bfloat16 moments, its device-scalar entry) and K3's
     very-wide instances against their plain versions at C=425, K=32,
-    N=1e6, at (128, 64, 250_000), at (128, 96, 4097) and at
-    (64, 160, 4097), two launches bitwise equal, each timed beside its plain
-    version and its bound; K5 beyond C, K <= 8 at (16, 12, 1e6); then
-    nmf(engine="cuda") exact PGM, weighted PGM at stride 10 and AdaProx
-    against engine="torch" at the four shapes, the loss falling, 10 + 20
+    N=1e6, at (128, 64, 250_000), at (128, 96, 4097), at (64, 160, 4097)
+    and at (64, 256, 4097), two launches bitwise equal, each timed beside
+    its plain version and its bound; K5 beyond C, K <= 8 at (16, 12, 1e6);
+    then nmf(engine="cuda") exact PGM, weighted PGM at stride 10 and AdaProx
+    against engine="torch" at the five shapes, the loss falling, 10 + 20
     resumed bit for bit, the split path with the prox as a closure (K1, K2,
     and K3 as pgm's gradient), ``engine="auto"`` on exact PGM and AdaProx
     against the engine the routing table's rows name (bit for bit,
@@ -6164,8 +6180,9 @@ def main():
               "nmf_adaprox_wide.cu", "proxmin_tpu/ops/nmf_kernels.py:525",
               w_err["K2 flagship launches"], w_err["K2 flagship"],
               *w_times["K2 chain, flagship"]),
-        *(entry(f"{kname}[{route}, C={shape[0]} K={shape[1]}]", source,
-                replaces, v_launched.get((label, kname, r_key), 0),
+        *(entry(f"{kname}[{route}, C={shape[0]} K={shape[1]}, "
+                f"{body_instance(kk, shape[1], 'pass 2' not in route)}]",
+                source, replaces, v_launched.get((label, kname, r_key), 0),
                 v_err[err_key], *v_times[f"{t_key} [{label}]"])
           for label, shape in VWIDE_LABELS
           for kname, route, source, replaces, r_key, err_key, t_key in (

@@ -3,7 +3,7 @@
 // components, and the two passes of the split path; beyond either bound,
 // for any C and K, on the very-wide tier (the wide body's VW instances to
 // K = 32; past it kwide_pass.cuh's body for the chain and split pass 1 up
-// to K = 128, vwide_pass.cuh's for the rest), every mode, store and moment
+// to K = 256, vwide_pass.cuh's for the rest), every mode, store and moment
 // type, and the device-scalar entry.
 //
 // Replaces, beyond the narrow instances of nmf_adaprox_step.cu (C <= 16,
@@ -99,7 +99,7 @@ adaprox_vwide_kernel(Args<ST, MT> a) {
   vwide::body<ST, MT, MODE>(a, smem);
 }
 
-// The very-wide tier's residual modes past K = 32 up to K = 128
+// The very-wide tier's residual modes past K = 32 up to K = 256
 // (kwide_pass.cuh): one block per SM, up to 255 registers.
 template <int KB, typename ST, typename MT, int MODE>
 __global__ void __launch_bounds__(wide::kThreads, 1)
@@ -171,9 +171,14 @@ int launch_types(int mode, const Args<ST, MT>& args, float* gA,
   const tier::Body body = tier::body_for(true, args.K);
   if (body == tier::kKwide) {
     if constexpr (kPart == 2) {
-      if (tier::kb_for(true, args.K) == 64)
-        return launch_kwide<64>(mode, args, gA, rowsum, stats, stream);
-      return launch_kwide<128>(mode, args, gA, rowsum, stats, stream);
+      switch (tier::kb_for(true, args.K)) {
+        case 64:
+          return launch_kwide<64>(mode, args, gA, rowsum, stats, stream);
+        case 128:
+          return launch_kwide<128>(mode, args, gA, rowsum, stats, stream);
+        default:
+          return launch_kwide<256>(mode, args, gA, rowsum, stats, stream);
+      }
     }
     return (int)cudaErrorInvalidValue;
   }

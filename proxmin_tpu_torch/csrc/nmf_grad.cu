@@ -33,7 +33,7 @@
 // tiles; there the float32 FMAs, about 3 C K + K (K + 1) / 2 per column,
 // and the shared memory's delivery of the tiles' operands bound it. Beyond
 // C = 256 or K = 32, for any C and K, the very-wide tier runs it: the wide
-// body's VW instances to K = 32, kwide_pass.cuh's body up to K = 128,
+// body's VW instances to K = 32, kwide_pass.cuh's body up to K = 256,
 // vwide_pass.cuh's beyond.
 
 #include <type_traits>
@@ -148,7 +148,7 @@ int launch_vwide(const float* A, const float* S, const float* Y,
       loss, stream);
 }
 
-// The very-wide tier past K = 32 up to K = 128 (kwide_pass.cuh): one
+// The very-wide tier past K = 32 up to K = 256 (kwide_pass.cuh): one
 // block per SM, up to 255 registers.
 template <int KB>
 __global__ void __launch_bounds__(wide::kThreads, 1)
@@ -232,11 +232,17 @@ int nmf_grad_f32(const void* A, const void* S, const void* Y, const void* W,
   if (body == tier::kVwide)
     return launch_vwide(a, s, y, w, C, K, N, tile_n, ga, gs, g, l, pp, strm);
   if (body == tier::kKwide) {
-    if (tier::kb_for(true, K) == 64)
-      return launch_kwide<64>(a, s, y, w, C, K, N, tile_n, ga, gs, g, l, pp,
-                              strm);
-    return launch_kwide<128>(a, s, y, w, C, K, N, tile_n, ga, gs, g, l, pp,
-                             strm);
+    switch (tier::kb_for(true, K)) {
+      case 64:
+        return launch_kwide<64>(a, s, y, w, C, K, N, tile_n, ga, gs, g, l,
+                                pp, strm);
+      case 128:
+        return launch_kwide<128>(a, s, y, w, C, K, N, tile_n, ga, gs, g, l,
+                                 pp, strm);
+      default:
+        return launch_kwide<256>(a, s, y, w, C, K, N, tile_n, ga, gs, g, l,
+                                 pp, strm);
+    }
   }
   auto wide_kb = [&](auto vw) {
     constexpr bool VW = decltype(vw)::value;

@@ -2,7 +2,7 @@
 // up to 256 channels and K up to 32 components, and the two passes of the
 // split path; beyond either bound, for any C and K, on the very-wide tier
 // (the wide body's VW instances to K = 32; past it kwide_pass.cuh's body
-// for the chain and split pass 1 up to K = 128, vwide_pass.cuh's for the
+// for the chain and split pass 1 up to K = 256, vwide_pass.cuh's for the
 // rest), every mode and both stores.
 //
 // Replaces, beyond the narrow instances of nmf_pgm_step.cu (C <= 16,
@@ -80,7 +80,7 @@ pgm_vwide_kernel(Args<ST, float> a) {
   vwide::body<ST, float, MODE>(a, smem);
 }
 
-// The very-wide tier's residual modes past K = 32 up to K = 128
+// The very-wide tier's residual modes past K = 32 up to K = 256
 // (kwide_pass.cuh): one block per SM, up to 255 registers.
 template <int KB, typename ST, int MODE>
 __global__ void __launch_bounds__(wide::kThreads, 1)
@@ -157,9 +157,17 @@ int launch_store(int mode, const Args<ST, float>& args, float* gA,
                  float* gram, float* stats, cudaStream_t stream) {
   const bool residual = mode != 2;
   if (tier::body_for(residual, args.K) == tier::kKwide) {
-    if (tier::kb_for(residual, args.K) == 64)
-      return launch_kwide_modes<64, ST>(mode, args, gA, gram, stats, stream);
-    return launch_kwide_modes<128, ST>(mode, args, gA, gram, stats, stream);
+    switch (tier::kb_for(residual, args.K)) {
+      case 64:
+        return launch_kwide_modes<64, ST>(mode, args, gA, gram, stats,
+                                          stream);
+      case 128:
+        return launch_kwide_modes<128, ST>(mode, args, gA, gram, stats,
+                                           stream);
+      default:
+        return launch_kwide_modes<256, ST>(mode, args, gA, gram, stats,
+                                           stream);
+    }
   }
   if (tier::body_for(residual, args.K) == tier::kVwide) {
     switch (mode) {

@@ -6,7 +6,7 @@
 //   of KB = 8, 16 and 32 (at C > 256 its VW instances);
 // - past kWideK, the passes with a residual (the compiled chains, split
 //   pass 1, K3) up to kKwideK on kwide_pass.cuh's body, its instances of
-//   KB = 64 and 128;
+//   KB = 64, 128 and 256;
 // - the rest (the residual past kKwideK, the second passes past kWideK) on
 //   vwide_pass.cuh's body, in blocks of 32 components.
 //
@@ -18,7 +18,7 @@ namespace {
 namespace tier {
 
 constexpr int kWideK = 32;
-constexpr int kKwideK = 128;
+constexpr int kKwideK = 256;
 
 enum Body { kWide, kKwide, kVwide };
 
@@ -32,7 +32,9 @@ __host__ __device__ constexpr Body body_for(bool residual, int K) {
 __host__ __device__ constexpr int kb_for(bool residual, int K) {
   return body_for(residual, K) == kWide
              ? (K <= 8 ? 8 : (K <= 16 ? 16 : 32))
-             : (body_for(residual, K) == kKwide ? (K <= 64 ? 64 : 128) : 0);
+             : (body_for(residual, K) == kKwide
+                    ? (K <= 64 ? 64 : (K <= 128 ? 128 : 256))
+                    : 0);
 }
 
 }  // namespace tier

@@ -20,8 +20,8 @@
 // One block per SM, up to 255 registers.
 //
 // Past K = 32, the passes with a residual run kwide_pass.cuh's body up to
-// K = 128 (S, gS, gA's tiles and the epilogue's column on chip). Beyond
-// K = 128 they, and the second passes past K = 32, run this body; nothing
+// K = 256 (S, gS, gA's tiles and the epilogue's column on chip). Beyond
+// K = 256 they, and the second passes past K = 32, run this body; nothing
 // in it grows with C or K:
 //
 // - Components go in blocks of 32 (nkb = ceil(K / 32)), channels in chunks

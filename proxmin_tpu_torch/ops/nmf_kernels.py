@@ -98,7 +98,7 @@ DEFAULT_TILE_N = 4096
 #: rest). ``csrc/tiers.cuh`` holds WIDE_K and KWIDE_K for the kernels.
 _NARROW_C, _NARROW_K = 16, 8
 WIDE_C, WIDE_K = 256, 32
-KWIDE_K = 128
+KWIDE_K = 256
 
 _F32_TINY = float(torch.finfo(torch.float32).tiny)
 _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,

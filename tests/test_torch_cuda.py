@@ -771,7 +771,8 @@ def test_wide_instances_keep_their_bits(dev):
 
 def _vwide_bit_cases(dev):
     """The very-wide tier's modes at (425, 32, 1000), (128, 64, 500),
-    (600, 8, 129), (128, 96, 500) and (64, 160, 300), with W, from seeded
+    (600, 8, 129), (128, 96, 500), (64, 160, 300), (64, 256, 300) and
+    (224, 240, 300), with W, from seeded
     inputs: name -> (a call, the indices of its per-column outputs) that
     test_very_wide_columns_keep_their_bits hashes: S' (K1, every mode, the
     multi-op chain and both stores), S1, M' and V' (K2, both moment types
@@ -780,7 +781,8 @@ def _vwide_bit_cases(dev):
     cases = {}
     bf = torch.bfloat16
     for C, K, N in ((425, 32, 1000), (128, 64, 500), (600, 8, 129),
-                    (128, 96, 500), (64, 160, 300)):
+                    (128, 96, 500), (64, 160, 300), (64, 256, 300),
+                    (224, 240, 300)):
         A, S, Y, W = _problem(dev, C, K, N, weighted=True)
         sS = 1.0 / torch.linalg.eigvalsh(A.T @ A)[-1]
         Sb, Yb, Wb = S.to(bf), Y.to(bf), W.to(bf)
@@ -831,9 +833,10 @@ def _vwide_bit_cases(dev):
 # tier took the wide body's instances up to K = 32 and its own instances of
 # 64 and 128 components past it; an NVIDIA H100 80GB HBM3): the redesigns
 # leave every column's bits as they were. The multi-op chain's and
-# (64, 160)'s, the last, are the tree's before the instances of 64 and 128
+# (64, 160)'s are the tree's before the instances of 64 and 128
 # components (the wide body's up to K = 32, blocks of 32 past it), which
-# gave the others' bits.
+# gave the others' bits; (64, 256)'s and (224, 240)'s are the tree's
+# before the instance of 256 components (blocks of 32 past K = 128).
 _VWIDE_BITS = {
     "K1 unity_plus (425, 32)": ("6b5fcf473824dcfa",),
     "K1 bf16 (425, 32)": ("64ca661f7f6f2433",),
@@ -945,13 +948,58 @@ _VWIDE_BITS = {
         "a7d65abff24d9b4a",
     ),
     "K3 (64, 160)": ("ececcb5c8b15821a",),
+    "K1 unity_plus (64, 256)": ("5400c507b8a892dd",),
+    "K1 chain (64, 256)": ("48d472f21b660003",),
+    "K1 bf16 (64, 256)": ("3fb6eac13f574a38",),
+    "K1 pass 1 (64, 256)": ("90785b9402eedd84",),
+    "K1 bf16 split (64, 256)": ("858427b42b296846",),
+    "K2 (64, 256)": (
+        "99fce759a21b0c45", "c3f029d312ca85a0", "7560c645c7d5d397",
+    ),
+    "K2 bf16 moments (64, 256)": (
+        "46930dc772340f31", "5c79c76b055c55ed", "ba469f35c315d836",
+    ),
+    "K2 bf16 (64, 256)": (
+        "bf06a575501942f6", "0e68ff69dfa734a9", "b5bac473780ee806",
+    ),
+    "K2 device scalars (64, 256)": (
+        "99fce759a21b0c45", "c3f029d312ca85a0", "7560c645c7d5d397",
+    ),
+    "K2 pass 1 (64, 256)": (
+        "4408410c3a4fbaf6", "8e3aaa803a0ea167", "c3f029d312ca85a0",
+        "7560c645c7d5d397",
+    ),
+    "K3 (64, 256)": ("5cdf8f62da87ea95",),
+    "K1 unity_plus (224, 240)": ("0da2435444a84984",),
+    "K1 chain (224, 240)": ("3748320d8a175bca",),
+    "K1 bf16 (224, 240)": ("4608b8137dcf6f92",),
+    "K1 pass 1 (224, 240)": ("196d1143a576f5f3",),
+    "K1 bf16 split (224, 240)": ("57da6f7e216e1a66",),
+    "K2 (224, 240)": (
+        "c7a2d398c271c067", "a8cf760e90f5d423", "d4b1d7f2c3dea5e7",
+    ),
+    "K2 bf16 moments (224, 240)": (
+        "4c760b3221d62ac4", "9ef54b26d3755e00", "5c3f2ea949b4ad99",
+    ),
+    "K2 bf16 (224, 240)": (
+        "77decdd3a66fe1f7", "3a2fde34da802016", "1f02ad980b796b1b",
+    ),
+    "K2 device scalars (224, 240)": (
+        "c7a2d398c271c067", "a8cf760e90f5d423", "d4b1d7f2c3dea5e7",
+    ),
+    "K2 pass 1 (224, 240)": (
+        "7aa562990c9c8ef7", "ecd1b5ef63ef1041", "a8cf760e90f5d423",
+        "d4b1d7f2c3dea5e7",
+    ),
+    "K3 (224, 240)": ("03278648fe3c130f",),
 }
 
 
 def test_very_wide_columns_keep_their_bits(dev):
     """The very-wide tier's per-column outputs (S', M', V', x and the
     step, gS) at (425, 32, 1000), (128, 64, 500), (600, 8, 129),
-    (128, 96, 500) and (64, 160, 300), every mode, store and moment type,
+    (128, 96, 500), (64, 160, 300), (64, 256, 300) and (224, 240, 300),
+    every mode, store and moment type,
     hash to the digests of the first very-wide body: the redesigns change
     no column's bits (gA, the Gram, the row sums and the statistics may sum
     in another order)."""
@@ -967,14 +1015,15 @@ def test_very_wide_columns_keep_their_bits(dev):
 # tests/test_torch_kernel_modes.py holds the plain versions against the JAX
 # kernels, across the bounds C = 256 and K = 32, the component blocks of 8
 # and 16 (K = 3, 8, 12; K = 20 in a block of 32), past K = 32 the
-# instances of 64 and 128 components (K = 33, 64, 65, 96, 128), past
-# K = 128 the body of blocks of 32 (K = 129, 160), with ragged N around a
-# thread's 4 columns and the sub-tiles of 128 and 256
+# instances of 64, 128 and 256 components (K = 33, 64, 65, 96, 128, 129,
+# 160, 192, 256), past K = 256 the body of blocks of 32 (K = 257), with
+# ragged N around a thread's 4 columns and the sub-tiles of 64, 128 and 256
 _VWIDE_SHAPES = [(257, 3, 300), (300, 33, 257), (425, 32, 1000),
                  (64, 33, 4097), (17, 64, 255), (128, 64, 500),
                  (600, 8, 129), (300, 12, 257), (257, 20, 300),
                  (64, 96, 300), (300, 65, 257), (33, 128, 129),
-                 (33, 129, 129), (64, 160, 300)]
+                 (33, 129, 129), (64, 160, 300), (33, 192, 129),
+                 (17, 256, 65), (33, 257, 129)]
 _VWIDE_CASES = ("zero", "soft_plus_abs", "unity_plus", "chain",
                 "split_closure")
 
@@ -1099,6 +1148,71 @@ def test_very_wide_k3_matches_plain_version(dev, C, K, N, weighted):
         torch.testing.assert_close(g, r, rtol=2e-4, atol=1e-5)
     assert (k1.fused_nmf_grad.route_launches["very wide"]
             == before["very wide"] + 2)
+
+
+def _residual_kernels(names):
+    """(kernel, its first template argument) of the K1-K3 kernels of the
+    kwide and vwide bodies among a trace's kernel names (demangled or
+    mangled), in launch order."""
+    import re
+
+    out = []
+    for n in names:
+        m = re.search(r"(pgm|adaprox|nmf_grad)_([kv]wide)_kernel"
+                      r"(?:<|ILi)?(\d+)?", n)
+        if m:
+            kb = int(m.group(3)) if m.group(2) == "kwide" else None
+            out.append((f"{m.group(1)}_{m.group(2)}_kernel", kb))
+    return out
+
+
+@pytest.mark.parametrize("C,K,N,body", [(64, 160, 300, "kwide"),
+                                        (64, 256, 300, "kwide"),
+                                        (33, 257, 129, "vwide")])
+def test_residual_passes_past_k128_take_their_body(dev, tmp_path, C, K, N,
+                                                   body):
+    """Past K = 128 the passes with a residual (K1's and K2's compiled
+    chains, K2's device-scalar entry, both split passes 1, K3) launch
+    kwide_pass.cuh's instance of 256 components up to K = 256 and
+    vwide_pass.cuh's body past it, and the second passes vwide_pass.cuh's:
+    the route counts, and the kernels of a profiler trace of each call."""
+    A, S, Y, W = _problem(dev, C, K, N, weighted=True)
+    sS = 1.0 / torch.linalg.eigvalsh(A.T @ A)[-1]
+    _, _, M, V, _, alpha, sc, _ = _adaprox_operands(dev, C, K, N, True)
+    dsc = torch.tensor([float(v) for v in sc], dtype=torch.float32,
+                       device=dev)
+    l1 = k1.describe_prox(_PROX_CASES["soft_plus_abs"], "adaprox", True)
+    clo = _PROX_CASES["split_closure"]
+    kb = 256 if body == "kwide" else None
+    pgm, ada, grad = (k1.fused_nmf_pgm_step, k1.fused_nmf_adaprox_step,
+                      k1.fused_nmf_grad)
+    one = {"very wide": 1}
+    split = {"split pass 1": 1, "split pass 2": 1}
+    calls = (
+        (pgm, one, ["pgm"], lambda: pgm(
+            A, S, Y, sS, W=W, prox_S=_PROX_CASES["unity_plus"])),
+        (pgm, split, ["pgm", "pgm vwide"], lambda: pgm(
+            A, S, Y, sS, W=W, prox_S=clo)),
+        (ada, one, ["adaprox"], lambda: ada(
+            A, S, M, V, Y, alpha, sc, W=W, prox_S=l1)),
+        (ada, one, ["adaprox"], lambda: ada(
+            A, S, M, V, Y, alpha, dsc, W=W, prox_S=l1)),
+        (ada, split, ["adaprox", "adaprox vwide"], lambda: ada(
+            A, S, M, V, Y, alpha, sc, W=W, prox_S=k1.describe_prox(
+                clo, "adaprox", True))),
+        (grad, one, ["nmf_grad"], lambda: tops.fused_nmf_grad(A, S, Y,
+                                                               W=W)),
+    )
+    for counter, routes, kernels, fn in calls:
+        fn()  # built and warm
+        before = dict(counter.route_launches)
+        names = _kernels_in(fn, tmp_path / "t.json")
+        ran = {r: n - before[r] for r, n in counter.route_launches.items()
+               if n != before[r]}
+        want = [(f"{k.split()[0]}_vwide_kernel", None) if " " in k
+                else (f"{k}_{body}_kernel", kb) for k in kernels]
+        assert ran == routes, (kernels, ran)
+        assert _residual_kernels(names) == want, names
 
 
 def _offset(t, by):

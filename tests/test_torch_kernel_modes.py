@@ -118,15 +118,18 @@ EDGE_K2 = ("soft_plus", "min_abs", "split_closure")
 # The very-wide tier's shapes (C > 256 or K > 32; tests/test_torch_cuda.py
 # runs the kernels at the same shapes): across the bounds C = 256 and
 # K = 32, its component blocks of 8 and 16 (K = 3, 8, 12) and of 32 (K =
-# 20, 32), past K = 32 the instances of 64 and 128 components (K = 33, 64,
-# 65, 96, 128: ragged blocks past 64, with 300 channels and with 33), past
-# K = 128 the body of blocks of 32 (K = 129, 160), ragged N, and AVIRIS-NG's
-# 425 channels; each with EDGE_NAMES' and EDGE_K2's cases.
+# 20, 32), past K = 32 the instances of 64, 128 and 256 components (K =
+# 33, 64, 65, 96, 128: ragged blocks past 64, with 300 channels and with
+# 33; K = 129, 160, 192, 256 on the instance of 256, its sub-tiles of 64
+# columns ragged at N = 65 and 129), past K = 256 the body of blocks of 32
+# (K = 257), ragged N, and AVIRIS-NG's 425 channels; each with EDGE_NAMES'
+# and EDGE_K2's cases.
 VWIDE_SHAPES = [(257, 3, 300), (300, 33, 257), (425, 32, 1000),
                 (64, 33, 4097), (17, 64, 255), (128, 64, 500),
                 (600, 8, 129), (300, 12, 257), (257, 20, 300),
                 (64, 96, 300), (300, 65, 257), (33, 128, 129),
-                (33, 129, 129), (64, 160, 300)]
+                (33, 129, 129), (64, 160, 300), (33, 192, 129),
+                (17, 256, 65), (33, 257, 129)]
 
 
 def _shape_id(shape):
