@@ -315,14 +315,15 @@ STRIDE = 10
 # The C <= 16 instances of K1 and K3 (two blocks per SM) are checked at
 # C=16, K=8 on this many pixels.
 N_WIDE = 200_000
-# The fused kernels (the ring bodies, the wide and the very-wide body):
-# ptxas must report no spill stores for any of their instances.
+# The fused kernels (the ring bodies, the wide, kwide, very-wide and post
+# bodies): ptxas must report no spill stores for any of their instances.
 RING_KERNELS = ("pgm_step_kernel", "adaprox_step_kernel", "nmf_grad_kernel",
                 "pgm_chain_kernel", "pgm_wide_kernel", "adaprox_wide_kernel",
                 "nmf_grad_wide_kernel", "pgm_vwide_kernel",
                 "adaprox_vwide_kernel", "nmf_grad_vwide_kernel",
                 "pgm_kwide_kernel", "adaprox_kwide_kernel",
-                "nmf_grad_kwide_kernel")
+                "nmf_grad_kwide_kernel", "pgm_post_kernel",
+                "adaprox_post_kernel")
 
 
 # The TV denoising problem of benchmarks/admm_scale.py: its seed, penalty
@@ -502,6 +503,8 @@ VWIDE_K96 = (128, 96, 4097)
 VWIDE_K160 = (64, 160, 4097)
 VWIDE_K256 = (64, 256, 4097)
 VWIDE_PACKED = (16, 12, 1_000_000)
+# split pass 2 alone past K = 256 (post_pass.cuh), on random P
+VWIDE_POST_K, VWIDE_POST_N = (257, 300), 4097
 VWIDE_LABELS = (("AVIRIS-NG", VWIDE), ("K > 32", VWIDE_K64),
                 ("K > 64", VWIDE_K96), ("K > 128", VWIDE_K160),
                 ("K = 256", VWIDE_K256))
@@ -4571,7 +4574,9 @@ def body_instance(kk, K, residual):
     kernels line."""
     if K <= kk.WIDE_K:
         return f"wide_pass.cuh KB={next(b for b in (8, 16, 32) if K <= b)}"
-    if residual and K <= kk.KWIDE_K:
+    if not residual:
+        return "post_pass.cuh"
+    if K <= kk.KWIDE_K:
         kb = next(b for b in (64, 128, 256) if K <= b)
         return f"kwide_pass.cuh KB={kb}"
     return "vwide_pass.cuh"
@@ -4785,6 +4790,44 @@ def very_wide_phase(mods, card):
                 f"{k} {v:.4f} ms" for k, v in p_ms.items())
             + f"; sum {sum(p_ms.values()):.4f} ms against K1's one pass "
             f"{times[f'K1 chain [{label}]'][0]:.4f} ms")
+
+    # split pass 2 alone past K = 256 (post_pass.cuh at any K), on random P
+    for K_ in VWIDE_POST_K:
+        g = torch.Generator(device=DEVICE).manual_seed(SEED + K_)
+        S_ = torch.rand((K_, VWIDE_POST_N), generator=g, device=DEVICE)
+        P_ = 0.5 * torch.randn((K_, VWIDE_POST_N), generator=g,
+                               device=DEVICE) + 0.2
+        for store in (torch.float32, bf):
+            Sx = S_.to(store)
+            for kname, run, plain in (
+                    ("K1", kk._pgm_pass2_cuda, kk._pgm_pass2_reference),
+                    ("K2", kk._adaprox_pass2_cuda,
+                     kk._adaprox_pass2_reference)):
+                got, again = run(Sx, P_, tile), run(Sx, P_, tile)
+                ref = plain(Sx, P_, store)
+                torch.cuda.synchronize()
+                tag = (f"{kname} split pass 2 alone [K={K_} "
+                       f"N={VWIDE_POST_N}, {str(store)[6:]} store]")
+                outs = [(t[0], t[1], t[2][1:]) for t in (got, again)]
+                check(all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                          for a, b in zip(*outs)),
+                      f"{tag}: two launches differ")
+                check(torch.equal(got[0].view(torch.uint8),
+                                  P_.to(store).view(torch.uint8)),
+                      f"{tag}: S' is not P's bits in the store")
+                check(kname == "K2" or torch.equal(got[1], got[1].T),
+                      f"{tag}: the Gram is not symmetric")
+                errs = [rel_err(got[1], ref[1]), rel_err(got[2][1], ref[2]),
+                        rel_err(got[2][2], ref[3])]
+                check(max(errs) <= STEP_RTOL, f"{tag}: rel errs {errs}")
+                log(f"{tag} vs plain: max rel err ("
+                    f"{'Gram' if kname == 'K1' else 'row sums'}, |S' - S|^2, "
+                    f"|S'|^2) " + ", ".join(f"{e:.2e}" for e in errs)
+                    + f" (tol {STEP_RTOL:g}); S' P's bits"
+                    + ("" if kname == "K2" else ", the Gram symmetric")
+                    + "; two launches bitwise equal")
+            del Sx, got, again, ref
+        del S_, P_
 
     # K5 beyond C, K <= 8: K2's wide body on the packed arrays' row blocks
     for layout in ("smv", "mv"):

@@ -3,8 +3,9 @@
 // components, and the two passes of the split path; beyond either bound,
 // for any C and K, on the very-wide tier (the wide body's VW instances to
 // K = 32; past it kwide_pass.cuh's body for the chain and split pass 1 up
-// to K = 256, vwide_pass.cuh's for the rest), every mode, store and moment
-// type, and the device-scalar entry.
+// to K = 256, vwide_pass.cuh's beyond, and post_pass.cuh's for split pass 2
+// at every K), every mode, store and moment type, and the device-scalar
+// entry.
 //
 // Replaces, beyond the narrow instances of nmf_adaprox_step.cu (C <= 16,
 // K <= 8), the Pallas TPU kernel proxmin_tpu/ops/nmf_kernels.py:525
@@ -44,6 +45,7 @@
 #include <cuda_runtime.h>
 
 #include "kwide_pass.cuh"
+#include "post_pass.cuh"
 #include "tiers.cuh"
 #include "vwide_pass.cuh"
 #include "wide_pass.cuh"
@@ -58,8 +60,9 @@ using wide::Args;
 // nmf_adaprox_kwide with the residual modes past K = 32 up to
 // tier::kKwideK (kwide_pass.cuh); with VERY_WIDE defined as
 // nmf_adaprox_vwide with the rest of the very-wide tier's (the wide body's
-// VW instances at C > 256, K <= 32; vwide_pass.cuh's body for the second
-// pass past K = 32 and the residual modes past tier::kKwideK). Each library
+// VW instances at C > 256, K <= 32; post_pass.cuh's body for the second
+// pass past K = 32, vwide_pass.cuh's for the residual modes past
+// tier::kKwideK). Each library
 // refuses the others' shapes (cudaErrorInvalidValue); the wrapper picks
 // the library (ops.nmf_kernels._adaprox_library).
 #if defined(K_WIDE)
@@ -90,13 +93,28 @@ adaprox_wide_finalize(const float* __restrict__ partials, long long rows,
   wide::finalize(partials, rows, e, half_first, gA, rowsum, stats);
 }
 
-// The very-wide body beyond K = 32 (vwide_pass.cuh): one block per SM, up
-// to 255 registers, with a residual; two for the second pass.
+// The very-wide body past K = 256 (vwide_pass.cuh): one block per SM, up
+// to 255 registers.
 template <typename ST, typename MT, int MODE>
-__global__ void __launch_bounds__(wide::kThreads, vwide::blocks_per_sm(MODE))
+__global__ void __launch_bounds__(wide::kThreads, 1)
 adaprox_vwide_kernel(Args<ST, MT> a) {
   extern __shared__ __align__(128) unsigned char smem[];
   vwide::body<ST, MT, MODE>(a, smem);
+}
+
+// Split pass 2 past K = 32 (post_pass.cuh): the row sums' streaming pass,
+// and its finalize.
+template <typename ST>
+__global__ void __launch_bounds__(wide::kThreads, 2)
+adaprox_post_kernel(Args<ST, float> a) {
+  post::rowsum_body<ST>(a);
+}
+
+__global__ void __launch_bounds__(wide::kFinThreads)
+adaprox_post_finalize(const float* __restrict__ partials, long long rows,
+                      int mode, int K, float* __restrict__ rowsum,
+                      float* __restrict__ stats) {
+  post::finalize(partials, rows, mode, K, rowsum, stats);
 }
 
 // The very-wide tier's residual modes past K = 32 up to K = 256
@@ -206,20 +224,22 @@ int launch_types(int mode, const Args<ST, MT>& args, float* gA,
 }
 
 // Pass 2 reads no moments: one moment type; nor A: the wide instances at
-// any C up to K = 32.
+// any C up to K = 32, post_pass.cuh's body beyond.
 template <typename ST>
 int launch_post(const Args<ST, float>& args, float* rowsum, float* stats,
                 cudaStream_t stream) {
-  const bool on_vwide = tier::body_for(false, args.K) == tier::kVwide;
+  const bool on_post = tier::body_for(false, args.K) == tier::kPost;
   if constexpr (kVeryWide) {
-    if (on_vwide)
-      return launch_vwide<ST, float, wide::kAdaPost>(args, nullptr, rowsum,
-                                                     stats, stream);
+    static wide::LaunchCache cache;
+    if (on_post)
+      return post::launch<wide::kAdaPost, ST>(adaprox_post_kernel<ST>,
+                                              adaprox_post_finalize, cache,
+                                              args, rowsum, stats, stream);
     return (int)cudaErrorInvalidValue;
   } else if constexpr (kPart == 2) {
     return (int)cudaErrorInvalidValue;
   } else {
-    if (on_vwide) return (int)cudaErrorInvalidValue;
+    if (on_post) return (int)cudaErrorInvalidValue;
     switch (tier::kb_for(false, args.K)) {
       case 8:
         return launch_mode<8, ST, float, wide::kAdaPost>(args, nullptr,
@@ -250,15 +270,18 @@ extern "C" {
 // Floats of one row of the scratch buffer for `mode` (0 the compiled
 // chain, 1 split pass 1, 2 split pass 2) and a (C, K) problem: one group's
 // row of partial sums up to K = 32 (the wide body and its very-wide
-// instances), and with the very-wide body's per-group scratch beside it
-// beyond; -1 for C < 1, K < 1 or a width past an int. The caller allocates
-// the scratch buffer as (nmf_adaprox_wide_partials_rows(N, tile_n), width)
+// instances); beyond, the kwide body's, the very-wide body's with its
+// per-group scratch beside it, or split pass 2's row sums (post_pass.cuh);
+// -1 for C < 1, K < 1 or a width past an int. The caller allocates the
+// scratch buffer as (nmf_adaprox_wide_partials_rows(N, tile_n), width)
 // floats.
 int nmf_adaprox_wide_partials_width(int mode, int C, int K) {
   if (mode < 0 || mode > 2 || C < 1 || K < 1) return -1;
-  if (tier::body_for(mode != 2, K) == tier::kWide)
-    return wide::entries(mode_of(mode), C, K).total;
-  const long long w = vwide::width(mode_of(mode), C, K);
+  const tier::Body body = tier::body_for(mode != 2, K);
+  if (body == tier::kWide) return wide::entries(mode_of(mode), C, K).total;
+  const long long w = body == tier::kPost
+                          ? post::width(mode_of(mode), K)
+                          : vwide::width(mode_of(mode), C, K);
   return w > 0x7fffffffLL ? -1 : (int)w;
 }
 

@@ -2,8 +2,9 @@
 // up to 256 channels and K up to 32 components, and the two passes of the
 // split path; beyond either bound, for any C and K, on the very-wide tier
 // (the wide body's VW instances to K = 32; past it kwide_pass.cuh's body
-// for the chain and split pass 1 up to K = 256, vwide_pass.cuh's for the
-// rest), every mode and both stores.
+// for the chain and split pass 1 up to K = 256, vwide_pass.cuh's beyond,
+// and post_pass.cuh's for split pass 2 at every K), every mode and both
+// stores.
 //
 // Replaces, beyond the narrow instances of nmf_pgm_step.cu (C <= 16,
 // K <= 8), the Pallas TPU kernel proxmin_tpu/ops/nmf_kernels.py:311
@@ -45,6 +46,7 @@
 #include <cuda_runtime.h>
 
 #include "kwide_pass.cuh"
+#include "post_pass.cuh"
 #include "tiers.cuh"
 #include "vwide_pass.cuh"
 #include "wide_pass.cuh"
@@ -71,13 +73,29 @@ pgm_wide_finalize(const float* __restrict__ partials, long long rows,
   wide::finalize(partials, rows, e, half_first, gA, gram, stats);
 }
 
-// The very-wide body beyond K = 32 (vwide_pass.cuh): one block per SM, up
-// to 255 registers, with a residual; two for the second pass.
+// The very-wide body past K = 256 (vwide_pass.cuh): one block per SM, up
+// to 255 registers.
 template <typename ST, int MODE>
-__global__ void __launch_bounds__(wide::kThreads, vwide::blocks_per_sm(MODE))
+__global__ void __launch_bounds__(wide::kThreads, 1)
 pgm_vwide_kernel(Args<ST, float> a) {
   extern __shared__ __align__(128) unsigned char smem[];
   vwide::body<ST, float, MODE>(a, smem);
+}
+
+// Split pass 2 past K = 32 (post_pass.cuh): the Gram's tile pairs, two
+// blocks per SM (at most 128 registers), and its finalize.
+template <typename ST>
+__global__ void __launch_bounds__(wide::kThreads, 2)
+pgm_post_kernel(Args<ST, float> a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  post::gram_body<ST>(a, smem);
+}
+
+__global__ void __launch_bounds__(wide::kFinThreads)
+pgm_post_finalize(const float* __restrict__ partials, long long rows,
+                  int mode, int K, float* __restrict__ gram,
+                  float* __restrict__ stats) {
+  post::finalize(partials, rows, mode, K, gram, stats);
 }
 
 // The very-wide tier's residual modes past K = 32 up to K = 256
@@ -169,19 +187,16 @@ int launch_store(int mode, const Args<ST, float>& args, float* gA,
                                            stream);
     }
   }
+  if (tier::body_for(residual, args.K) == tier::kPost) {
+    static wide::LaunchCache cache;
+    return post::launch<wide::kPgmPost, ST>(pgm_post_kernel<ST>,
+                                            pgm_post_finalize, cache, args,
+                                            gram, stats, stream);
+  }
   if (tier::body_for(residual, args.K) == tier::kVwide) {
-    switch (mode) {
-      case 0:
-        return launch_vwide<ST, wide::kPgm>(args, gA, gram, stats, stream);
-      case 1:
-        return launch_vwide<ST, wide::kPgmPre>(args, gA, gram, stats,
-                                               stream);
-      case 2:
-        return launch_vwide<ST, wide::kPgmPost>(args, gA, gram, stats,
-                                                stream);
-      default:
-        return (int)cudaErrorInvalidValue;
-    }
+    if (mode == 0)
+      return launch_vwide<ST, wide::kPgm>(args, gA, gram, stats, stream);
+    return launch_vwide<ST, wide::kPgmPre>(args, gA, gram, stats, stream);
   }
   switch (tier::kb_for(residual, args.K)) {
     case 8:
@@ -206,15 +221,17 @@ extern "C" {
 // Floats of one row of the scratch buffer for `mode` (0 the compiled
 // chain, 1 split pass 1, 2 split pass 2) and a (C, K) problem: one group's
 // row of partial sums up to K = 32 (the wide body and its very-wide
-// instances), and with the very-wide body's per-group scratch beside it
-// beyond; -1 for C < 1, K < 1 or a width past an int. The caller allocates
-// the scratch buffer as (nmf_pgm_wide_partials_rows(N, tile_n), width)
-// floats.
+// instances); beyond, the kwide body's, the very-wide body's with its
+// per-group scratch beside it, or split pass 2's tile pairs (post_pass.cuh);
+// -1 for C < 1, K < 1 or a width past an int. The caller allocates the
+// scratch buffer as (nmf_pgm_wide_partials_rows(N, tile_n), width) floats.
 int nmf_pgm_wide_partials_width(int mode, int C, int K) {
   if (mode < 0 || mode > 2 || C < 1 || K < 1) return -1;
-  if (tier::body_for(mode != 2, K) == tier::kWide)
-    return wide::entries(mode_of(mode), C, K).total;
-  const long long w = vwide::width(mode_of(mode), C, K);
+  const tier::Body body = tier::body_for(mode != 2, K);
+  if (body == tier::kWide) return wide::entries(mode_of(mode), C, K).total;
+  const long long w = body == tier::kPost
+                          ? post::width(mode_of(mode), K)
+                          : vwide::width(mode_of(mode), C, K);
   return w > 0x7fffffffLL ? -1 : (int)w;
 }
 

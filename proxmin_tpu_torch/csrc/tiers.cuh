@@ -4,11 +4,13 @@
 //
 // - up to kWideK components, the wide body (wide_pass.cuh), its instances
 //   of KB = 8, 16 and 32 (at C > 256 its VW instances);
+// - past kWideK, the second passes of the split path (no residual) on
+//   post_pass.cuh's body, at any K;
 // - past kWideK, the passes with a residual (the compiled chains, split
 //   pass 1, K3) up to kKwideK on kwide_pass.cuh's body, its instances of
 //   KB = 64, 128 and 256;
-// - the rest (the residual past kKwideK, the second passes past kWideK) on
-//   vwide_pass.cuh's body, in blocks of 32 components.
+// - the residual past kKwideK on vwide_pass.cuh's body, in blocks of 32
+//   components.
 //
 // ops/nmf_kernels.py's WIDE_K and KWIDE_K are these bounds on the host.
 
@@ -20,15 +22,16 @@ namespace tier {
 constexpr int kWideK = 32;
 constexpr int kKwideK = 256;
 
-enum Body { kWide, kKwide, kVwide };
+enum Body { kWide, kKwide, kVwide, kPost };
 
 __host__ __device__ constexpr Body body_for(bool residual, int K) {
   return K <= kWideK ? kWide
-                     : (residual && K <= kKwideK ? kKwide : kVwide);
+                     : (!residual ? kPost : (K <= kKwideK ? kKwide : kVwide));
 }
 
 // The component bound of the instance that serves K on the wide and the
-// kwide bodies (0 on vwide_pass.cuh's, whose blocks are 32 at every K).
+// kwide bodies (0 on vwide_pass.cuh's, whose blocks are 32 at every K, and
+// on post_pass.cuh's, which has one instance a store).
 __host__ __device__ constexpr int kb_for(bool residual, int K) {
   return body_for(residual, K) == kWide
              ? (K <= 8 ? 8 : (K <= 16 ? 16 : 32))

@@ -21,8 +21,8 @@
 //
 // Past K = 32, the passes with a residual run kwide_pass.cuh's body up to
 // K = 256 (S, gS, gA's tiles and the epilogue's column on chip). Beyond
-// K = 256 they, and the second passes past K = 32, run this body; nothing
-// in it grows with C or K:
+// K = 256 they run this body (the second passes of the split path past
+// K = 32 run post_pass.cuh's); nothing in it grows with C or K:
 //
 // - Components go in blocks of 32 (nkb = ceil(K / 32)), channels in chunks
 //   of 32, columns in sub-tiles of 256 as in the wide body. Per chunk the
@@ -48,10 +48,8 @@
 //   epilogue runs on that scratch column, one column per thread, with any
 //   K: K3 stores gS; K1 forms x = s - sS gS and applies the compiled chain
 //   on the column; K2 the moments and the chain with the per-element step
-//   (kept beside the column in a second scratch of KP x 256 floats); the
-//   split passes store x (K2: and the step) or take the prox's output. The
-//   second passes keep the column in shared memory instead where it fits
-//   (K <= 160), two blocks per SM to K = 64.
+//   (kept beside the column in a second scratch of KP x 256 floats); split
+//   pass 1 stores x (K2: and the step).
 // - gA, the Gram ((K / 32)^2 blocks of the 32 x 32 routine, of S' in K1 and
 //   of the old S in K3, both read from the column store) and K2's row sums
 //   are added, sub-tile by sub-tile in a fixed order, into the group's row
@@ -59,8 +57,7 @@
 //   by one thread), which the wide body's finalize sums in double in a
 //   fixed order. No atomics: two launches give the same bits, and the
 //   order depends on N, tile_n, C, K and the instance alone.
-// - With a residual, one block of 8 warps per SM (up to 255 registers a
-//   thread), 176 KB of shared memory in float32 (S slots 2 x 37 KB, Y
+// - One block of 8 warps per SM (up to 255 registers a thread), 176 KB of shared memory in float32 (S slots 2 x 37 KB, Y
 //   stages 2 x 33 KB, the (c) routine's partial sums 33 KB), 153 KB with
 //   the bfloat16 store.
 //
@@ -87,6 +84,9 @@ namespace {
 namespace vwide {
 
 using wide::Args;
+using wide::cp_async16;
+using wide::cp_async_commit;
+using wide::cp_async_wait;
 using wide::kChunk;
 using wide::kPartFloats;
 using wide::kPitchF;
@@ -98,11 +98,6 @@ constexpr int kKB = 32;            // components per block
 constexpr int kAP = kKB + 4;       // pitch of an A block's rows (floats)
 constexpr int kScratchAlign = 64;  // floats: the scratch 256-byte aligned
 
-// Blocks per SM this body is built for: one with a residual (up to 255
-// registers), two for the second passes (Smem::blocks: where they fit).
-__host__ __device__ constexpr int blocks_per_sm(int mode) {
-  return wide::has_residual(mode) ? 1 : 2;
-}
 __host__ __device__ inline int blocks_of(int K) { return (K + kKB - 1) / kKB; }
 
 // Floats of one group's scratch: the column store (KP x kSub), and K2's
@@ -110,12 +105,10 @@ __host__ __device__ inline int blocks_of(int K) { return (K + kKB - 1) / kKB; }
 __host__ __device__ inline long long scratch_floats(int mode, int K) {
   return (long long)blocks_of(K) * kKB * kSub * (mode == wide::kAda ? 2 : 1);
 }
-// Whether a pass goes through the scratch: with a residual beyond
-// tier::kKwideK (below, kwide_pass.cuh's body runs it, all on chip), the
-// second passes where the column store does not fit in shared memory.
-__host__ __device__ inline bool uses_scratch(int mode, int K) {
-  if (wide::has_residual(mode)) return K > tier::kKwideK;
-  return kPartFloats * 4 + blocks_of(K) * kKB * kPitchF * 4 > wide::kSmemMax;
+// Whether a pass goes through the scratch: beyond tier::kKwideK (below,
+// kwide_pass.cuh's body runs it, all on chip).
+__host__ __device__ inline bool uses_scratch(int K) {
+  return K > tier::kKwideK;
 }
 // Floats a row of the caller's buffer holds: the row of partial sums and,
 // where the pass uses it, one group's scratch and the alignment. Allocated
@@ -124,40 +117,24 @@ __host__ __device__ inline bool uses_scratch(int mode, int K) {
 // group's scratch.
 __host__ __device__ inline long long width(int mode, int C, int K) {
   return wide::entries(mode, C, K).total +
-         (uses_scratch(mode, K) ? scratch_floats(mode, K) + kScratchAlign
-                                : 0);
+         (uses_scratch(K) ? scratch_floats(mode, K) + kScratchAlign : 0);
 }
 
-// Shared memory, byte offsets from the dynamic base. Passes with a
-// residual: two slots (S rows of a component block, and the A block in
-// float32 and, with the bfloat16 store, rounded to bfloat16 for the
-// residual), two stages of a chunk's Y rows (in float32 D overwrites Y),
-// D with the bfloat16 store, and the (c) routine's partial sums. The
-// second passes need the partial sums, and keep the whole column store (K
-// rows in blocks of 32, kPitchF a row) after them where it fits (col),
-// two blocks per SM where both fit; else the column goes to the scratch.
+// Shared memory, byte offsets from the dynamic base: two slots (S rows of
+// a component block, and the A block in float32 and, with the bfloat16
+// store, rounded to bfloat16 for the residual), two stages of a chunk's Y
+// rows (in float32 D overwrites Y), D with the bfloat16 store, and the (c)
+// routine's partial sums.
 struct Smem {
   int slot_bytes, s, ares, af;
   int stage, stage_bytes;
-  int d, part, col, total, blocks;
+  int d, part, total;
 };
 template <typename ST>
-__host__ __device__ inline Smem smem_layout(int mode, int K) {
+__host__ __device__ inline Smem smem_layout() {
   constexpr bool kF32 = std::is_same<ST, float>::value;
   constexpr int PS = wide::raw_pitch<ST>();
   Smem m{};
-  m.col = -1;
-  m.blocks = 1;
-  if (!wide::has_residual(mode)) {
-    const int col = blocks_of(K) * kKB * kPitchF * 4;
-    m.total = kPartFloats * 4;
-    if (m.total + col <= wide::kSmemMax) {
-      m.col = m.total;
-      m.total += col;
-    }
-    m.blocks = m.total <= wide::kSmemPair ? 2 : 1;
-    return m;
-  }
   const int s_bytes = kKB * PS * (int)sizeof(ST);
   const int a_bytes = kChunk * kAP * 4;
   m.s = 0;
@@ -170,21 +147,6 @@ __host__ __device__ inline Smem smem_layout(int mode, int K) {
   m.part = m.d + (kF32 ? 0 : kChunk * kPitchF * 4);
   m.total = m.part + kPartFloats * 4;
   return m;
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
 }
 
 // 32 rows (nrows of them from src, row pitch N; the rest zeros) of the
@@ -227,7 +189,6 @@ template <typename ST, typename MT, int MODE>
 __device__ __forceinline__ void body(const Args<ST, MT>& a,
                                      unsigned char* smem) {
   constexpr bool kF32 = std::is_same<ST, float>::value;
-  constexpr bool kRes = wide::has_residual(MODE);
   constexpr int PS = wide::raw_pitch<ST>();
   constexpr int PF = kPitchF;
   constexpr int MB = kKB / 4;
@@ -242,20 +203,20 @@ __device__ __forceinline__ void body(const Args<ST, MT>& a,
   const long long N = a.N;
   const int nkb = blocks_of(K);
   const int KP = nkb * kKB;
-  const bool weighted = kRes && a.W != nullptr;
-  const Smem L = smem_layout<ST>(MODE, K);
+  const bool weighted = a.W != nullptr;
+  const Smem L = smem_layout<ST>();
   float* const parts = reinterpret_cast<float*>(smem + L.part);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   // the group's columns [lo, hi): its units, consecutive
-  const long long G = wide::group_units(a.n_units, L.blocks);
+  const long long G = wide::group_units(a.n_units, 1);
   const long long u0 = (long long)blockIdx.x * G;
   const long long u1 = wide::lmin(u0 + G, a.n_units) - 1;
   long long lo, hi, skip;
   wide::unit_span(u0, N, a.tile_n, lo, skip);
   wide::unit_span(u1, N, a.tile_n, skip, hi);
   const int n_sub = (int)((hi - lo + kSub - 1) / kSub);
-  const int nch = kRes ? (C + kChunk - 1) / kChunk : 0;
+  const int nch = (C + kChunk - 1) / kChunk;
 
   // the group's row of partial sums, zeroed (every later write adds), and
   // its scratch: the column store X (KP x kSub), K2's step beside it
@@ -349,13 +310,11 @@ __device__ __forceinline__ void body(const Args<ST, MT>& a,
                   min(kChunk, C - ch * kChunk), aligned);
   };
 
-  if constexpr (kRes) {
-    if (n_sub > 0) {
-      fill(0, 0, 0);
-      fill_y(0);
-      cp_async_commit();
-      put_a(0);
-    }
+  if (n_sub > 0) {
+    fill(0, 0, 0);
+    fill_y(0);
+    cp_async_commit();
+    put_a(0);
   }
 
   // the thread's tiles in (a) and (b): columns ncol .. ncol + 3; channel
@@ -380,202 +339,197 @@ __device__ __forceinline__ void body(const Args<ST, MT>& a,
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) gs[i][jj] = 0.f;
 
-    if constexpr (kRes) {
-      const int wn = min(4, width - ncol);  // the thread's columns left
-      for (int ch = 0; ch < nch; ++ch) {
-        const int q = t * nch + ch;
-        const int rows = min(kChunk, C - ch * kChunk);
-        ST* const Ys = stage_y(q);
-        float* const D = kF32 ? reinterpret_cast<float*>(Ys)
-                              : reinterpret_cast<float*>(smem + L.d);
-        float r[8][4];
-        for (int j = 0; j < steps; ++j) {
-          const int b = j & 1;
-          // this step's copies are in (the last step leaves the next
-          // chunk's Y in flight), and every thread is done with the last
-          // step: its slot and the other stage are free
-          if (j == steps - 1)
-            cp_async_wait<1>();
-          else
-            cp_async_wait<0>();
-          __syncthreads();
-          int nt = t, nc = ch, nj = j + 1;
-          if (nj == steps) {
-            nj = 0;
-            if (++nc == nch) {
-              nc = 0;
-              ++nt;
-            }
+    const int wn = min(4, width - ncol);  // the thread's columns left
+    for (int ch = 0; ch < nch; ++ch) {
+      const int q = t * nch + ch;
+      const int rows = min(kChunk, C - ch * kChunk);
+      ST* const Ys = stage_y(q);
+      float* const D = kF32 ? reinterpret_cast<float*>(Ys)
+                            : reinterpret_cast<float*>(smem + L.d);
+      float r[8][4];
+      for (int j = 0; j < steps; ++j) {
+        const int b = j & 1;
+        // this step's copies are in (the last step leaves the next
+        // chunk's Y in flight), and every thread is done with the last
+        // step: its slot and the other stage are free
+        if (j == steps - 1)
+          cp_async_wait<1>();
+        else
+          cp_async_wait<0>();
+        __syncthreads();
+        int nt = t, nc = ch, nj = j + 1;
+        if (nj == steps) {
+          nj = 0;
+          if (++nc == nch) {
+            nc = 0;
+            ++nt;
           }
-          const bool more = nt < n_sub;
-          if (more) fill(nt, nc, nj);
+        }
+        const bool more = nt < n_sub;
+        if (more) fill(nt, nc, nj);
+        cp_async_commit();
+        if (j == steps - 2) {
+          if (q + 1 < n_sub * nch) fill_y(q + 1);
           cp_async_commit();
-          if (j == steps - 2) {
-            if (q + 1 < n_sub * nch) fill_y(q + 1);
-            cp_async_commit();
-          }
-          const ST* const Sb = slot_s(b);
-          if (j < nkb) {
-            // (a) the residual of component block j over the chunk's rows
-            const int kb = j;
-            const bool last = kb == nkb - 1;
-            const float* const Ab = slot_ares(b);
-            // W of the thread's row rg + 4 i, from global memory, in flight
-            // while the last block's residual runs
-            float4 wv[8];
+        }
+        const ST* const Sb = slot_s(b);
+        if (j < nkb) {
+          // (a) the residual of component block j over the chunk's rows
+          const int kb = j;
+          const bool last = kb == nkb - 1;
+          const float* const Ab = slot_ares(b);
+          // W of the thread's row rg + 4 i, from global memory, in flight
+          // while the last block's residual runs
+          float4 wv[8];
 #pragma unroll
-            for (int i = 0; i < 8; ++i)
-              wv[i] = make_float4(1.f, 1.f, 1.f, 1.f);
-            if (last && weighted) {
+          for (int i = 0; i < 8; ++i)
+            wv[i] = make_float4(1.f, 1.f, 1.f, 1.f);
+          if (last && weighted) {
 #pragma unroll
-              for (int i = 0; i < 8; ++i) {
-                const int c = rg + 4 * i;
-                const ST* p =
-                    a.W + (long long)(ch * kChunk + c) * N + c0 + ncol;
-                wv[i] = (c >= rows || wn <= 0)
-                            ? make_float4(0.f, 0.f, 0.f, 0.f)
-                            : (w_vec && wn == 4 ? wide::ld4_now(p)
-                                                : wide::ld4_part(p, wn));
-              }
+            for (int i = 0; i < 8; ++i) {
+              const int c = rg + 4 * i;
+              const ST* p =
+                  a.W + (long long)(ch * kChunk + c) * N + c0 + ncol;
+              wv[i] = (c >= rows || wn <= 0)
+                          ? make_float4(0.f, 0.f, 0.f, 0.f)
+                          : (w_vec && wn == 4 ? wide::ld4_now(p)
+                                              : wide::ld4_part(p, wn));
             }
-            if (rows == kChunk) {
+          }
+          if (rows == kChunk) {
+            if (kb == 0)
+              wide::residual_steps<true, 8, kKB, ST>(r, Ab + rg * kAP,
+                                                     Sb + ncol, 0);
+            else
+              wide::residual_steps<false, 8, kKB, ST>(r, Ab + rg * kAP,
+                                                      Sb + ncol, 0);
+#pragma unroll 1
+            for (int k = 4; k < kKB; k += 4)
+              wide::residual_steps<false, 8, kKB, ST>(r, Ab + rg * kAP,
+                                                      Sb + ncol, k);
+          } else {
+#pragma unroll
+            for (int i0 = 0; i0 < 8; i0 += 2) {
+              if (4 * i0 >= rows) continue;
+              float(&r2)[2][4] = reinterpret_cast<float(&)[2][4]>(r[i0]);
+              const float* const a2 = Ab + (rg + 4 * i0) * kAP;
               if (kb == 0)
-                wide::residual_steps<true, 8, kKB, ST>(r, Ab + rg * kAP,
-                                                       Sb + ncol, 0);
+                wide::residual_steps<true, 2, kKB, ST>(r2, a2, Sb + ncol,
+                                                       0);
               else
-                wide::residual_steps<false, 8, kKB, ST>(r, Ab + rg * kAP,
-                                                        Sb + ncol, 0);
+                wide::residual_steps<false, 2, kKB, ST>(r2, a2, Sb + ncol,
+                                                        0);
 #pragma unroll 1
               for (int k = 4; k < kKB; k += 4)
-                wide::residual_steps<false, 8, kKB, ST>(r, Ab + rg * kAP,
-                                                        Sb + ncol, k);
-            } else {
-#pragma unroll
-              for (int i0 = 0; i0 < 8; i0 += 2) {
-                if (4 * i0 >= rows) continue;
-                float(&r2)[2][4] = reinterpret_cast<float(&)[2][4]>(r[i0]);
-                const float* const a2 = Ab + (rg + 4 * i0) * kAP;
-                if (kb == 0)
-                  wide::residual_steps<true, 2, kKB, ST>(r2, a2, Sb + ncol,
-                                                         0);
-                else
-                  wide::residual_steps<false, 2, kKB, ST>(r2, a2, Sb + ncol,
-                                                          0);
-#pragma unroll 1
-                for (int k = 4; k < kKB; k += 4)
-                  wide::residual_steps<false, 2, kKB, ST>(r2, a2, Sb + ncol,
-                                                          k);
-              }
-            }
-            if (last) {
-              // D = W (R - Y) (or R - Y) over Y's rows, into D
-#pragma unroll
-              for (int i = 0; i < 8; ++i) {
-                if (4 * (i & ~1) >= rows) continue;
-                const int c = rg + 4 * i;
-                const float4 yv = wide::ld4(Ys + c * PS + ncol);
-                const float y4[4] = {yv.x, yv.y, yv.z, yv.w};
-                const float w4[4] = {wv[i].x, wv[i].y, wv[i].z, wv[i].w};
-                float d4[4];
-#pragma unroll
-                for (int jj = 0; jj < 4; ++jj) {
-                  const float rr = r[i][jj] - y4[jj];
-                  float d = weighted ? w4[jj] * rr : rr;
-                  if (c < rows && jj < wn)
-                    st0 = fmaf(d, rr, st0);
-                  else
-                    d = 0.f;
-                  d4[jj] = d;
-                }
-                *reinterpret_cast<float4*>(D + c * PF + ncol) =
-                    make_float4(d4[0], d4[1], d4[2], d4[3]);
-              }
-            }
-          } else {
-            const int kb = j - nkb;
-            // the row's gA entries of this tile, loaded now and added to
-            // after (c)
-            float prev[GA::kPerThread];
-#pragma unroll
-            for (int m = 0; m < GA::kPerThread; ++m) {
-              const int i = tid + kThreads * m;
-              const int c = ch * kChunk + i / kKB, k = kb * kKB + i % kKB;
-              prev[m] = (c < C && k < K) ? row[(long long)c * K + k] : 0.f;
-            }
-            // (b) gS of component block kb over the chunk's channels in
-            // order: from 0 at the first chunk, in registers with one
-            // block, else through the scratch column store (this body runs
-            // from two blocks on; the one-block branches stay, as taking
-            // them out moved ptxas's register allocation and slowed K2's
-            // bfloat16 instance at (128, 64) by 14 %)
-            float* const xg = X0 + (long long)(kb * kKB + kb0) * kSub + ncol;
-            if (ch == 0 && nkb > 1) {
-#pragma unroll
-              for (int i = 0; i < MB; ++i)
-#pragma unroll
-                for (int jj = 0; jj < 4; ++jj) gs[i][jj] = 0.f;
-            } else if (nkb > 1) {
-#pragma unroll
-              for (int i = 0; i < MB; ++i) {
-                const float4 v = wide::ld4(xg + i * kSub);
-                gs[i][0] = v.x;
-                gs[i][1] = v.y;
-                gs[i][2] = v.z;
-                gs[i][3] = v.w;
-              }
-            }
-            wide::grad_tile<kKB>(gs, slot_af(b) + kb0, D + ncol,
-                                 (rows + 3) & ~3);
-            if (nkb > 1 || ch == nch - 1) {
-#pragma unroll
-              for (int i = 0; i < MB; ++i)
-                *reinterpret_cast<float4*>(xg + i * kSub) =
-                    make_float4(gs[i][0], gs[i][1], gs[i][2], gs[i][3]);
-            }
-            // (c) gA's (chunk, block kb) tile over the sub-tile's columns
-            const GA pa(tid);
-            if (pa.r1 < rows) {
-              float acc[GA::kT1][GA::kT2];
-#pragma unroll
-              for (int i = 0; i < GA::kT1; ++i)
-#pragma unroll
-                for (int jj = 0; jj < GA::kT2; ++jj) acc[i][jj] = 0.f;
-              wide::pair_tile<2>(acc, pa, D, PF, Sb, PS);
-              wide::put_parts(parts, pa, acc);
-            }
-            __syncthreads();  // the parts' sums are in
-            float sum[GA::kPerThread];
-#pragma unroll
-            for (int m = 0; m < GA::kPerThread; ++m) sum[m] = 0.f;
-            wide::add_parts<GA>(parts, sum);
-#pragma unroll
-            for (int m = 0; m < GA::kPerThread; ++m) {
-              const int i = tid + kThreads * m;
-              const int c = ch * kChunk + i / kKB, k = kb * kKB + i % kKB;
-              if (c < C && k < K) row[(long long)c * K + k] = prev[m] + sum[m];
+                wide::residual_steps<false, 2, kKB, ST>(r2, a2, Sb + ncol,
+                                                        k);
             }
           }
-          if (more) put_a(nj);
+          if (last) {
+            // D = W (R - Y) (or R - Y) over Y's rows, into D
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              if (4 * (i & ~1) >= rows) continue;
+              const int c = rg + 4 * i;
+              const float4 yv = wide::ld4(Ys + c * PS + ncol);
+              const float y4[4] = {yv.x, yv.y, yv.z, yv.w};
+              const float w4[4] = {wv[i].x, wv[i].y, wv[i].z, wv[i].w};
+              float d4[4];
+#pragma unroll
+              for (int jj = 0; jj < 4; ++jj) {
+                const float rr = r[i][jj] - y4[jj];
+                float d = weighted ? w4[jj] * rr : rr;
+                if (c < rows && jj < wn)
+                  st0 = fmaf(d, rr, st0);
+                else
+                  d = 0.f;
+                d4[jj] = d;
+              }
+              *reinterpret_cast<float4*>(D + c * PF + ncol) =
+                  make_float4(d4[0], d4[1], d4[2], d4[3]);
+            }
+          }
+        } else {
+          const int kb = j - nkb;
+          // the row's gA entries of this tile, loaded now and added to
+          // after (c)
+          float prev[GA::kPerThread];
+#pragma unroll
+          for (int m = 0; m < GA::kPerThread; ++m) {
+            const int i = tid + kThreads * m;
+            const int c = ch * kChunk + i / kKB, k = kb * kKB + i % kKB;
+            prev[m] = (c < C && k < K) ? row[(long long)c * K + k] : 0.f;
+          }
+          // (b) gS of component block kb over the chunk's channels in
+          // order: from 0 at the first chunk, in registers with one
+          // block, else through the scratch column store (this body runs
+          // from two blocks on; the one-block branches stay, as taking
+          // them out moved ptxas's register allocation and slowed K2's
+          // bfloat16 instance at (128, 64) by 14 %)
+          float* const xg = X0 + (long long)(kb * kKB + kb0) * kSub + ncol;
+          if (ch == 0 && nkb > 1) {
+#pragma unroll
+            for (int i = 0; i < MB; ++i)
+#pragma unroll
+              for (int jj = 0; jj < 4; ++jj) gs[i][jj] = 0.f;
+          } else if (nkb > 1) {
+#pragma unroll
+            for (int i = 0; i < MB; ++i) {
+              const float4 v = wide::ld4(xg + i * kSub);
+              gs[i][0] = v.x;
+              gs[i][1] = v.y;
+              gs[i][2] = v.z;
+              gs[i][3] = v.w;
+            }
+          }
+          wide::grad_tile<kKB>(gs, slot_af(b) + kb0, D + ncol,
+                               (rows + 3) & ~3);
+          if (nkb > 1 || ch == nch - 1) {
+#pragma unroll
+            for (int i = 0; i < MB; ++i)
+              *reinterpret_cast<float4*>(xg + i * kSub) =
+                  make_float4(gs[i][0], gs[i][1], gs[i][2], gs[i][3]);
+          }
+          // (c) gA's (chunk, block kb) tile over the sub-tile's columns
+          const GA pa(tid);
+          if (pa.r1 < rows) {
+            float acc[GA::kT1][GA::kT2];
+#pragma unroll
+            for (int i = 0; i < GA::kT1; ++i)
+#pragma unroll
+              for (int jj = 0; jj < GA::kT2; ++jj) acc[i][jj] = 0.f;
+            wide::pair_tile<2>(acc, pa, D, PF, Sb, PS);
+            wide::put_parts(parts, pa, acc);
+          }
+          __syncthreads();  // the parts' sums are in
+          float sum[GA::kPerThread];
+#pragma unroll
+          for (int m = 0; m < GA::kPerThread; ++m) sum[m] = 0.f;
+          wide::add_parts<GA>(parts, sum);
+#pragma unroll
+          for (int m = 0; m < GA::kPerThread; ++m) {
+            const int i = tid + kThreads * m;
+            const int c = ch * kChunk + i / kKB, k = kb * kKB + i % kKB;
+            if (c < C && k < K) row[(long long)c * K + k] = prev[m] + sum[m];
+          }
         }
+        if (more) put_a(nj);
       }
-      __syncthreads();  // gS of the sub-tile is in the column store
     }
+    __syncthreads();  // gS of the sub-tile is in the column store
 
-    // the epilogue, one column per thread, on the column store; with one
-    // component block the Gram's operand also goes to shared memory (g1):
-    // the last chunk's stage in float32, D with the bfloat16 store, the
-    // column itself in pass 2
+    // the epilogue, one column per thread, on the column store in the
+    // scratch; with one component block the Gram's operand also goes to
+    // shared memory (g1): the last chunk's stage in float32, D with the
+    // bfloat16 store
     const bool valid = tid < width;
     const long long n = c0 + tid;
-    // the column store: on chip in the second passes where it fits
-    const bool on_chip = !kRes && L.col >= 0;
-    float* const xb = on_chip ? reinterpret_cast<float*>(smem + L.col) : X0;
-    const int xp = on_chip ? PF : kSub;
+    float* const xb = X0;
+    constexpr int xp = kSub;
     float* const x = xb + tid;
     float* const g1 =
-        !kRes ? reinterpret_cast<float*>(smem + L.col)
-              : (kF32 ? reinterpret_cast<float*>(stage_y(t * nch + nch - 1))
-                      : reinterpret_cast<float*>(smem + L.d));
+        kF32 ? reinterpret_cast<float*>(stage_y(t * nch + nch - 1))
+             : reinterpret_cast<float*>(smem + L.d);
     auto s_of = [&](int k) {
       return valid ? to_f32(a.S[(long long)k * N + n]) : 0.f;
     };
@@ -624,10 +578,6 @@ __device__ __forceinline__ void body(const Args<ST, MT>& a,
       if constexpr (MODE == wide::kAda)
         apply_chain_column(a.chain, x, xp, K,
                            [&](int k) { return step[k * kSub]; });
-    } else {  // kPgmPost, kAdaPost: x is the prox's output
-#pragma unroll 4
-      for (int k = 0; k < K; ++k)
-        x[k * xp] = valid ? a.P[(long long)k * N + n] : 0.f;
     }
     if constexpr (wide::has_update(MODE)) {
       // store S' and keep the stored values for the sums
@@ -650,13 +600,11 @@ __device__ __forceinline__ void body(const Args<ST, MT>& a,
     if constexpr (wide::has_gram(MODE)) {
       __syncthreads();  // the columns are in the store
       const GR pg(tid);
-      // Beyond one component block, in the float32 passes with a residual,
-      // block bi of the column store goes to g1 and block bj to g2 (the
-      // last step's slot); the others read the store where it is (pass 2:
-      // shared memory where it fits; else the scratch in L2).
-      constexpr bool kStage = kF32 && kRes;
-      float* const g2 = kRes ? reinterpret_cast<float*>(slot_s(1))
-                             : g1 + kKB * PF;
+      // Beyond one component block, in float32, block bi of the column
+      // store goes to g1 and block bj to g2 (the last step's slot); the
+      // bfloat16 store reads the scratch in L2 where it is.
+      constexpr bool kStage = kF32;
+      float* const g2 = reinterpret_cast<float*>(slot_s(1));
       auto stage = [&](float* dst, int blk) {
         constexpr int kQ = kSub / 4;
         const float* src = X0 + (long long)blk * kKB * kSub;
@@ -735,13 +683,11 @@ __device__ __forceinline__ void body(const Args<ST, MT>& a,
     __syncthreads();
   }
 
-  wide::block_stats(st0, st1, st2, red, row + e.ga + e.mid,
-                    wide::has_residual(MODE) ? 0 : 1, e.stats);
+  wide::block_stats(st0, st1, st2, red, row + e.ga + e.mid, 0, e.stats);
 }
 
 // Both launches of one pass on `stream`: a block per group of units (one
-// or two per SM, Smem::blocks), then the wide body's finalize. Returns
-// cudaGetLastError().
+// per SM), then the wide body's finalize. Returns cudaGetLastError().
 template <typename ST, typename MT, int MODE, typename Kernel,
           typename Finalize>
 int launch(Kernel kernel, Finalize fin, wide::LaunchCache& lc,
@@ -750,20 +696,20 @@ int launch(Kernel kernel, Finalize fin, wide::LaunchCache& lc,
   cudaError_t err;
   if (args.C < 1 || args.K < 1 || args.N < 1 || args.tile_n < 1)
     return (int)cudaErrorInvalidValue;
-  const Smem L = smem_layout<ST>(MODE, args.K);
+  const Smem L = smem_layout<ST>();
   if (L.total > lc.allowed_smem) {
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
     if (err != cudaSuccess) return (int)err;
     lc.allowed_smem = L.total;
   }
-  const long long groups = wide::group_count(args.n_units, L.blocks);
+  const long long groups = wide::group_count(args.n_units, 1);
   kernel<<<(unsigned)groups, kThreads, L.total, stream>>>(args);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const wide::Entries e = wide::entries(MODE, args.C, args.K);
   fin<<<(e.total + 31) / 32, wide::kFinThreads, 0, stream>>>(
-      args.partials, groups, e, wide::has_residual(MODE), gA, mid, stats);
+      args.partials, groups, e, true, gA, mid, stats);
   return (int)cudaGetLastError();
 }
 

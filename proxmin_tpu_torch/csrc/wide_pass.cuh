@@ -381,6 +381,33 @@ __device__ __forceinline__ float ld_now(const float* p) {
   return *p;
 #endif
 }
+// 16 bytes from global to shared memory by cp.async (zeros past
+// src_bytes), the commit of the thread's copies so far as a group, and the
+// wait until at most kPending of its groups are in flight.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+#else
+  unsigned char* d = static_cast<unsigned char*>(dst);
+  for (int i = 0; i < 16; ++i)
+    d[i] = i < src_bytes ? static_cast<const unsigned char*>(src)[i] : 0;
+#endif
+}
+__device__ __forceinline__ void cp_async_commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;" ::: "memory");
+#endif
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
+#endif
+}
 // The first n < 4 of four elements (the rest 0), one by one.
 template <typename T>
 __device__ __forceinline__ float4 ld4_part(const T* p, int n) {

@@ -94,8 +94,10 @@ DEFAULT_TILE_N = 4096
 #: body up to C = WIDE_C channels and K = WIDE_K components, the very-wide
 #: tier every larger C or K (the wide body's instances at C > WIDE_C up to
 #: K = WIDE_K, ``csrc/kwide_pass.cuh``'s body for the passes with a
-#: residual beyond, up to K = KWIDE_K, ``csrc/vwide_pass.cuh``'s for the
-#: rest). ``csrc/tiers.cuh`` holds WIDE_K and KWIDE_K for the kernels.
+#: residual beyond, up to K = KWIDE_K, ``csrc/vwide_pass.cuh``'s past it;
+#: the split path's second passes past K = WIDE_K on
+#: ``csrc/post_pass.cuh``'s, at any K). ``csrc/tiers.cuh`` holds WIDE_K and
+#: KWIDE_K for the kernels.
 _NARROW_C, _NARROW_K = 16, 8
 WIDE_C, WIDE_K = 256, 32
 KWIDE_K = 256

@@ -1152,13 +1152,13 @@ def test_very_wide_k3_matches_plain_version(dev, C, K, N, weighted):
 
 def _residual_kernels(names):
     """(kernel, its first template argument) of the K1-K3 kernels of the
-    kwide and vwide bodies among a trace's kernel names (demangled or
+    kwide, vwide and post bodies among a trace's kernel names (demangled or
     mangled), in launch order."""
     import re
 
     out = []
     for n in names:
-        m = re.search(r"(pgm|adaprox|nmf_grad)_([kv]wide)_kernel"
+        m = re.search(r"(pgm|adaprox|nmf_grad)_([kv]wide|post)_kernel"
                       r"(?:<|ILi)?(\d+)?", n)
         if m:
             kb = int(m.group(3)) if m.group(2) == "kwide" else None
@@ -1174,7 +1174,7 @@ def test_residual_passes_past_k128_take_their_body(dev, tmp_path, C, K, N,
     """Past K = 128 the passes with a residual (K1's and K2's compiled
     chains, K2's device-scalar entry, both split passes 1, K3) launch
     kwide_pass.cuh's instance of 256 components up to K = 256 and
-    vwide_pass.cuh's body past it, and the second passes vwide_pass.cuh's:
+    vwide_pass.cuh's body past it, and the second passes post_pass.cuh's:
     the route counts, and the kernels of a profiler trace of each call."""
     A, S, Y, W = _problem(dev, C, K, N, weighted=True)
     sS = 1.0 / torch.linalg.eigvalsh(A.T @ A)[-1]
@@ -1191,13 +1191,13 @@ def test_residual_passes_past_k128_take_their_body(dev, tmp_path, C, K, N,
     calls = (
         (pgm, one, ["pgm"], lambda: pgm(
             A, S, Y, sS, W=W, prox_S=_PROX_CASES["unity_plus"])),
-        (pgm, split, ["pgm", "pgm vwide"], lambda: pgm(
+        (pgm, split, ["pgm", "pgm post"], lambda: pgm(
             A, S, Y, sS, W=W, prox_S=clo)),
         (ada, one, ["adaprox"], lambda: ada(
             A, S, M, V, Y, alpha, sc, W=W, prox_S=l1)),
         (ada, one, ["adaprox"], lambda: ada(
             A, S, M, V, Y, alpha, dsc, W=W, prox_S=l1)),
-        (ada, split, ["adaprox", "adaprox vwide"], lambda: ada(
+        (ada, split, ["adaprox", "adaprox post"], lambda: ada(
             A, S, M, V, Y, alpha, sc, W=W, prox_S=k1.describe_prox(
                 clo, "adaprox", True))),
         (grad, one, ["nmf_grad"], lambda: tops.fused_nmf_grad(A, S, Y,
@@ -1209,7 +1209,7 @@ def test_residual_passes_past_k128_take_their_body(dev, tmp_path, C, K, N,
         names = _kernels_in(fn, tmp_path / "t.json")
         ran = {r: n - before[r] for r, n in counter.route_launches.items()
                if n != before[r]}
-        want = [(f"{k.split()[0]}_vwide_kernel", None) if " " in k
+        want = [(f"{k.replace(' ', '_')}_kernel", None) if " " in k
                 else (f"{k}_{body}_kernel", kb) for k in kernels]
         assert ran == routes, (kernels, ran)
         assert _residual_kernels(names) == want, names
@@ -1222,6 +1222,53 @@ def _offset(t, by):
     out = buf[by:].view(t.shape)
     out.copy_(t)
     return out
+
+
+@pytest.mark.parametrize("K", [33, 64, 65, 128, 129, 160, 240, 256, 257,
+                               300])
+@pytest.mark.parametrize("N", [1, 255, 4097])
+@pytest.mark.parametrize("tile_n", [4096, 1000])
+@pytest.mark.parametrize("store", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+def test_second_pass_matches_plain_version(dev, kernel, store, tile_n, N,
+                                           K):
+    """Split pass 2 past K = 32 (post_pass.cuh: K1's Gram of tile pairs,
+    K2's streaming row sums) alone on random P: S' is P's bits (the
+    bfloat16 store: P.to(bfloat16)'s), K1's Gram is within the split tests'
+    tolerance of the plain version's and exactly symmetric, K2's row sums
+    and both norms within it, two launches give the same bits, and so do
+    rows offset by one element (the element copies and loads instead of the
+    16-byte ones)."""
+    g = torch.Generator(device=dev).manual_seed(10_000 * K + N)
+    S = torch.rand((K, N), generator=g, device=dev).to(store)
+    P = 0.5 * torch.randn((K, N), generator=g, device=dev) + 0.2
+    if kernel == "K1":
+        run, plain = k1._pgm_pass2_cuda, k1._pgm_pass2_reference
+        counter = k1.fused_nmf_pgm_step
+    else:
+        run, plain = k1._adaprox_pass2_cuda, k1._adaprox_pass2_reference
+        counter = k1.fused_nmf_adaprox_step
+    before = counter.route_launches["split pass 2"]
+    got = run(S, P, tile_n)
+    again = run(S, P, tile_n)
+    moved = run(_offset(S, 1), _offset(P, 1), tile_n)
+    ref = plain(S, P, store)
+    torch.cuda.synchronize()
+    assert counter.route_launches["split pass 2"] == before + 3
+
+    def outs(r):
+        return r[0], r[1], r[2][1:]
+
+    assert torch.equal(_bits(got[0]), _bits(P.to(store)))
+    for a, b in zip(outs(got), outs(again)):
+        assert torch.equal(_bits(a), _bits(b))
+    for a, b in zip(outs(got), outs(moved)):
+        assert torch.equal(_bits(a), _bits(b))
+    if kernel == "K1":
+        assert torch.equal(got[1], got[1].T)
+    torch.testing.assert_close(got[1], ref[1], rtol=2e-4, atol=1e-5)
+    torch.testing.assert_close(got[2][1], ref[2], rtol=1e-3, atol=1e-5)
+    torch.testing.assert_close(got[2][2], ref[3], rtol=2e-4, atol=1e-5)
 
 
 @pytest.mark.parametrize("C,K,N,tile_n", [(300, 33, 4097, 1000),
@@ -1504,17 +1551,22 @@ def test_prox_kernels_are_deterministic_and_counted(dev):
 
 def _kernels_in(fn, path, attempts=3):
     """CUDA kernels that one call of fn runs, from a torch.profiler trace
-    (kernel events only: no memcpy or memset): those between two marker
-    kernels (torch.cuda._sleep's spin_kernel) launched around the call. The
-    profiler drops device events that its clock conversion places outside
-    the capture window, so the markers keep a margin from the trace's start
-    and stop. A trace without exactly two markers is taken again."""
+    (kernel events only: no memcpy or memset): those between the last two
+    marker kernels (torch.cuda._sleep's spin_kernel) of three launched
+    around the call, two before it and one after. The profiler drops device
+    events that its clock conversion places outside the capture window, so
+    the markers keep a margin from the trace's start and stop, and the
+    spare first marker leaves the window whole when the first device event
+    is dropped (one host dropped it in every take of ten calls running). A
+    trace whose last event is not a marker, or with fewer than two, is
+    taken again."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(attempts):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             time.sleep(0.05)
+            torch.cuda._sleep(1000)
             torch.cuda._sleep(1000)
             fn()
             torch.cuda._sleep(1000)
@@ -1526,9 +1578,9 @@ def _kernels_in(fn, path, attempts=3):
             key=lambda e: e["ts"])
         names = [e["name"] for e in events]
         marks = [i for i, n in enumerate(names) if "spin_kernel" in n]
-        if len(marks) == 2:
-            return names[marks[0] + 1:marks[1]]
-    raise AssertionError(f"no trace held exactly two markers: {names}")
+        if len(marks) >= 2 and marks[-1] == len(names) - 1:
+            return names[marks[-2] + 1:marks[-1]]
+    raise AssertionError(f"no trace held the markers: {names}")
 
 
 @pytest.mark.parametrize("op,kw", _ELEMENTWISE + [("unity", {"axis": 0}),

@@ -31,7 +31,9 @@ differences over their iterations: rtol 1e-4 after 10 iterations.
 The CUDA kernels themselves are held against the plain versions on the card
 by tests/test_torch_cuda.py and chip_smoke.py."""
 
+import contextlib
 import functools
+import types
 
 import jax
 import numpy as np
@@ -523,3 +525,69 @@ def test_cuda_refusal_names_the_ceiling():
     # K2 runs a narrow shape's chain on the wide body
     assert kk._wide_route(5, 7) == kk._wide_route(256, 32) == "wide"
     assert kk._wide_route(257, 3) == kk._wide_route(4, 33) == "very wide"
+
+
+class _RecordingLibrary:
+    """Stands in for a kernel library where there is no card: answers the
+    partial buffer's queries and records each launch's entry and mode."""
+
+    def __init__(self, name, calls):
+        self.name, self.calls = name, calls
+
+    def __getattr__(self, entry):
+        if entry.endswith("_partials_width"):
+            return lambda mode, C, K: 1
+        if entry.endswith("_partials_rows"):
+            return lambda N, tile_n: 1
+
+        def launch(mode, *args):
+            self.calls.append((self.name, entry, mode))
+            return 0
+        return launch
+
+
+@pytest.fixture(scope="module")
+def chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("K,library,body", [
+    (32, "nmf_adaprox_wide", "wide_pass.cuh KB=32"),
+    (33, "nmf_adaprox_vwide", "post_pass.cuh"),
+    (256, "nmf_adaprox_vwide", "post_pass.cuh"),
+    (257, "nmf_adaprox_vwide", "post_pass.cuh")])
+def test_second_pass_routes_on_the_host(K, library, body, chip_smoke,
+                                        monkeypatch):
+    """Split pass 2 of K1 launches nmf_pgm_wide's mode 2 and K2's the
+    library _adaprox_library names (the wide one up to K = 32, the very-wide
+    one, which holds post_pass.cuh's body, past it), each counted once as
+    "split pass 2" and nowhere else; chip_smoke.py's kernels line names the
+    body (csrc/tiers.cuh: the wide body up to K = 32, post_pass.cuh's at any
+    K past it). The launches go to a recording stand-in: no card here."""
+    calls = []
+    monkeypatch.setattr(kk, "_library",
+                        lambda name: _RecordingLibrary(name, calls))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=None))
+    counters = (kk.fused_nmf_pgm_step, kk.fused_nmf_adaprox_step)
+    before = [dict(c.route_launches) for c in counters]
+    S, P = torch.rand((K, 5)), torch.rand((K, 5))
+    kk._pgm_pass2_cuda(S, P, 4096)
+    kk._adaprox_pass2_cuda(S, P, 4096)
+    assert calls == [("nmf_pgm_wide", "nmf_pgm_wide", 2),
+                     (library, "nmf_adaprox_wide", 2)]
+    assert kk._adaprox_library(2, 1, K) == library
+    for c, b in zip(counters, before):
+        ran = {r: n - b[r] for r, n in c.route_launches.items() if n != b[r]}
+        assert ran == {"split pass 2": 1}
+    assert chip_smoke.body_instance(kk, K, False) == body

@@ -1,9 +1,10 @@
 """Device times of K1 (``fused_nmf_pgm_step``), K3 (``fused_nmf_grad``) and,
 with ``--wide``, of the wide body (K1, K2, K3 and the split passes), with
-``--vwide`` of the very-wide tier, of one checkout of the port, on a CUDA
-card.
+``--vwide`` of the very-wide tier, with ``--pass2`` of the split path's
+second passes alone, of one checkout of the port, on a CUDA card.
 
-    python3 tools/k13_times.py [--repo DIR] [--label NAME] [--wide | --vwide]
+    python3 tools/k13_times.py [--repo DIR] [--label NAME]
+                               [--wide | --vwide | --pass2]
                                [--shapes C,K,N ...]
 
 imports ``proxmin_tpu_torch`` from ``DIR`` (default: this checkout), so that
@@ -25,7 +26,14 @@ split passes, K3; and the plain PyTorch versions of K1, K2, K3 and of the
 split passes (timed, not hashed). ``--shapes`` replaces the very-wide
 shapes by the ones given, e.g. ``--shapes 425,64,250000`` (C past 160, where
 the instance of 64 components keeps gA's last chunks in the group's row).
-Each case is timed as ``chip_smoke.py`` times it, the least of two
+With ``--pass2``, K1's and K2's second passes alone (float32 and the
+bfloat16 store) at ``--shapes`` (default ``PASS2_SHAPES``; C names the
+row of PERF.md and is not used: the passes read no A) on seeded random S
+in [0, 1) and P = 0.5 N(0, 1) + 0.2, beside their plain versions and, as
+context, ``P @ P.T`` in cuBLAS with TF32 off; the object also carries each
+pass's bound (``chip_smoke.bound_of``: S and P read, S' written with the
+bfloat16 store, the Gram or the row sums; K1's operations the Gram's
+triangle). Each case is timed as ``chip_smoke.py`` times it, the least of two
 ``chip_smoke.cuda_ms`` means (20 calls; 10 with ``--wide``). Prints one
 JSON object ``{"label": ..., "ms": {case: ms}, "sha256": {case: [digest
 of each output's bytes]}}``, so that two checkouts' outputs can be
@@ -132,6 +140,46 @@ def wide_cases(cs, kk, nmf, top):
 
 
 VWIDE_SHAPES_EXTRA = ((300, 8, 1_000_000), (128, 128, 250_000))
+PASS2_SHAPES = ((128, 64, 250_000), (128, 128, 250_000), (128, 160, 250_000),
+                (224, 240, 250_000), (64, 256, 250_000), (224, 498, 250_000))
+
+
+def pass2_cases(cs, kk, shapes=None):
+    """The second passes alone at each shape: ``(cases, plain, bounds)``,
+    the plain versions and the cuBLAS Gram apart (timed, not hashed)."""
+    import torch
+
+    tile = kk.DEFAULT_TILE_N
+    bf = torch.bfloat16
+    cases, plain, bounds = {}, {}, {}
+    for C, K, N in shapes or PASS2_SHAPES:
+        tag = f" ({C}, {K})"
+        g = torch.Generator(device=cs.DEVICE).manual_seed(cs.SEED + K)
+        S = torch.rand((K, N), generator=g, device=cs.DEVICE)
+        P = 0.5 * torch.randn((K, N), generator=g, device=cs.DEVICE) + 0.2
+        Sb = S.to(bf)
+        cases.update({
+            f"K1 pass 2{tag}": partial(kk._pgm_pass2_cuda, S, P, tile),
+            f"K1 pass 2 bf16{tag}": partial(kk._pgm_pass2_cuda, Sb, P, tile),
+            f"K2 pass 2{tag}": partial(kk._adaprox_pass2_cuda, S, P, tile),
+            f"K2 pass 2 bf16{tag}": partial(kk._adaprox_pass2_cuda, Sb, P,
+                                            tile),
+        })
+        plain.update({
+            f"K1 pass 2 plain{tag}": partial(kk._pgm_pass2_reference, S, P,
+                                             torch.float32),
+            f"K2 pass 2 plain{tag}": partial(kk._adaprox_pass2_reference, S,
+                                             P, torch.float32),
+            f"P @ P.T cuBLAS{tag}": partial(torch.mm, P, P.T),
+        })
+        gram_ops = 2 * N * (K * (K + 1) // 2)
+        for st, name in ((4, ""), (2, " bf16")):
+            moved = N * K * (4 + st + (st if st == 2 else 0))
+            bounds[f"K1 pass 2{name}{tag}"] = cs.bound_of(
+                moved + 4 * (K * K + 2), gram_ops)
+            bounds[f"K2 pass 2{name}{tag}"] = cs.bound_of(
+                moved + 4 * (K + 2), 4 * N * K)
+    return cases, plain, bounds
 
 
 def vwide_cases(cs, kk, nmf, top, tops, shapes=None):
@@ -214,8 +262,10 @@ def main():
                     help="time the wide body and hash its outputs")
     ap.add_argument("--vwide", action="store_true",
                     help="time the very-wide tier and hash its outputs")
+    ap.add_argument("--pass2", action="store_true",
+                    help="time the split path's second passes alone")
     ap.add_argument("--shapes", nargs="+", default=None, metavar="C,K,N",
-                    help="with --vwide: the shapes to time instead")
+                    help="with --vwide or --pass2: the shapes to time")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.repo).resolve()))
     import torch
@@ -232,9 +282,18 @@ def main():
         print("no CUDA device", file=sys.stderr)
         return 1
     out = {"label": args.label or args.repo}
-    if args.vwide:
-        shapes = args.shapes and [tuple(int(v) for v in sh.split(","))
-                                  for sh in args.shapes]
+    shapes = args.shapes and [tuple(int(v) for v in sh.split(","))
+                              for sh in args.shapes]
+    if args.pass2:
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            cases, plain, out["bound_ms"] = pass2_cases(cs, kk, shapes)
+            out["ms"] = {case: min(cs.cuda_ms(fn, reps=10) for _ in range(2))
+                         for case, fn in {**cases, **plain}.items()}
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    elif args.vwide:
         cases, plain = vwide_cases(cs, kk, nmf, operators, tops, shapes)
         out["ms"] = {case: min(cs.cuda_ms(fn, reps=10) for _ in range(2))
                      for case, fn in {**cases, **plain}.items()}
