@@ -315,15 +315,17 @@ STRIDE = 10
 # The C <= 16 instances of K1 and K3 (two blocks per SM) are checked at
 # C=16, K=8 on this many pixels.
 N_WIDE = 200_000
-# The fused kernels (the ring bodies, the wide, kwide, very-wide and post
-# bodies): ptxas must report no spill stores for any of their instances.
+# The fused kernels (the ring bodies, the wide, kwide, very-wide, post and
+# panel bodies, the last two's tile-pair products): ptxas must report no
+# spill stores for any of their instances.
 RING_KERNELS = ("pgm_step_kernel", "adaprox_step_kernel", "nmf_grad_kernel",
                 "pgm_chain_kernel", "pgm_wide_kernel", "adaprox_wide_kernel",
                 "nmf_grad_wide_kernel", "pgm_vwide_kernel",
                 "adaprox_vwide_kernel", "nmf_grad_vwide_kernel",
                 "pgm_kwide_kernel", "adaprox_kwide_kernel",
                 "nmf_grad_kwide_kernel", "pgm_post_kernel",
-                "adaprox_post_kernel")
+                "adaprox_post_kernel", "pgm_panel_kernel", "pgm_panel_tiles",
+                "nmf_grad_panel_kernel", "nmf_grad_panel_tiles")
 
 
 # The TV denoising problem of benchmarks/admm_scale.py: its seed, penalty
@@ -494,7 +496,10 @@ EQUIV_ACCEPTANCE = {
 # configuration), a small K > 64 check at (128, 96, 4097) on the instance
 # of 128, small K > 128 and K = 256 ones at (64, 160, 4097) and
 # (64, 256, 4097) on the instance of 256 (spectral-library unmixing's
-# width: a few hundred library spectra), and K5 beyond C, K <= 8. Solves
+# width: a few hundred library spectra), past K = 256 USGS splib06's 498
+# library spectra against AVIRIS's 224 bands at (224, 498, 4097) (K1 and K3
+# on the panel body, K2 on the body of blocks of 32), and K5 beyond C,
+# K <= 8. Solves
 # run VWIDE_ITERS iterations and resume after VWIDE_SPLIT; marginals
 # between VWIDE_LO and VWIDE_HI iterations.
 VWIDE = (425, 32, 1_000_000)
@@ -502,12 +507,13 @@ VWIDE_K64 = (128, 64, 250_000)
 VWIDE_K96 = (128, 96, 4097)
 VWIDE_K160 = (64, 160, 4097)
 VWIDE_K256 = (64, 256, 4097)
+VWIDE_K498 = (224, 498, 4097)
 VWIDE_PACKED = (16, 12, 1_000_000)
 # split pass 2 alone past K = 256 (post_pass.cuh), on random P
 VWIDE_POST_K, VWIDE_POST_N = (257, 300), 4097
 VWIDE_LABELS = (("AVIRIS-NG", VWIDE), ("K > 32", VWIDE_K64),
                 ("K > 64", VWIDE_K96), ("K > 128", VWIDE_K160),
-                ("K = 256", VWIDE_K256))
+                ("K = 256", VWIDE_K256), ("K > 256", VWIDE_K498))
 VWIDE_ITERS, VWIDE_SPLIT = 30, 10
 VWIDE_LO, VWIDE_HI = 5, 15
 
@@ -627,7 +633,10 @@ KERNEL_NAMES = ("pgm_step_kernel", "pgm_step_finalize", "adaprox_step_kernel",
                 "adaprox_wide_kernel", "nmf_grad_wide_kernel",
                 "pgm_vwide_kernel", "adaprox_vwide_kernel",
                 "nmf_grad_vwide_kernel", "pgm_kwide_kernel",
-                "adaprox_kwide_kernel", "nmf_grad_kwide_kernel")
+                "adaprox_kwide_kernel", "nmf_grad_kwide_kernel",
+                "pgm_post_kernel", "adaprox_post_kernel", "pgm_panel_kernel",
+                "pgm_panel_tiles", "nmf_grad_panel_kernel",
+                "nmf_grad_panel_tiles")
 MANGLED_TYPES = (("f", "float"), ("d", "double"),
                  ("13__nv_bfloat16", "bfloat16"))
 PROX_OPS = ("plus", "soft", "hard")
@@ -4566,12 +4575,14 @@ def routing_phase(mods, card):
 K1_AT = "proxmin_tpu/ops/nmf_kernels.py:311"
 K2_AT = "proxmin_tpu/ops/nmf_kernels.py:525"
 K3_AT = "proxmin_tpu/ops/nmf_kernels.py:653"
+KERNEL_OF = {"fused_nmf_pgm_step": "K1", "fused_nmf_adaprox_step": "K2",
+             "fused_nmf_grad": "K3"}
 
 
-def body_instance(kk, K, residual):
-    """The body and instance that serve a K1-K3 pass of K components
-    (``csrc/tiers.cuh``'s rule, from the wrapper module's bounds), for the
-    kernels line."""
+def body_instance(kk, K, residual, kernel):
+    """The body and instance that serve a pass of K components of
+    ``kernel`` ("K1", "K2" or "K3"; ``csrc/tiers.cuh``'s rule, from the
+    wrapper module's bounds), for the kernels line."""
     if K <= kk.WIDE_K:
         return f"wide_pass.cuh KB={next(b for b in (8, 16, 32) if K <= b)}"
     if not residual:
@@ -4579,6 +4590,8 @@ def body_instance(kk, K, residual):
     if K <= kk.KWIDE_K:
         kb = next(b for b in (64, 128, 256) if K <= b)
         return f"kwide_pass.cuh KB={kb}"
+    if kernel != "K2" and K <= kk.PANEL_K:
+        return "panel_pass.cuh"
     return "vwide_pass.cuh"
 
 
@@ -4586,11 +4599,12 @@ def very_wide_phase(mods, card):
     """Phase 18, the very-wide path: K1's compiled chain and split passes,
     K2's (float32 and bfloat16 moments, its device-scalar entry) and K3's
     very-wide instances against their plain versions at C=425, K=32,
-    N=1e6, at (128, 64, 250_000), at (128, 96, 4097), at (64, 160, 4097)
-    and at (64, 256, 4097), two launches bitwise equal, each timed beside
-    its plain version and its bound; K5 beyond C, K <= 8 at (16, 12, 1e6);
-    then nmf(engine="cuda") exact PGM, weighted PGM at stride 10 and AdaProx
-    against engine="torch" at the five shapes, the loss falling, 10 + 20
+    N=1e6, at (128, 64, 250_000), at (128, 96, 4097), at (64, 160, 4097),
+    at (64, 256, 4097) and at (224, 498, 4097), two launches bitwise equal,
+    each timed beside its plain version and its bound; K5 beyond C, K <= 8
+    at (16, 12, 1e6); then nmf(engine="cuda") exact PGM, weighted PGM at
+    stride 10 and AdaProx against engine="torch" at the six shapes, the
+    loss falling, 10 + 20
     resumed bit for bit, the split path with the prox as a closure (K1, K2,
     and K3 as pgm's gradient), ``engine="auto"`` on exact PGM and AdaProx
     against the engine the routing table's rows name (bit for bit,
@@ -6224,7 +6238,8 @@ def main():
               w_err["K2 flagship launches"], w_err["K2 flagship"],
               *w_times["K2 chain, flagship"]),
         *(entry(f"{kname}[{route}, C={shape[0]} K={shape[1]}, "
-                f"{body_instance(kk, shape[1], 'pass 2' not in route)}]",
+                + body_instance(kk, shape[1], "pass 2" not in route,
+                                KERNEL_OF[kname]) + "]",
                 source, replaces, v_launched.get((label, kname, r_key), 0),
                 v_err[err_key], *v_times[f"{t_key} [{label}]"])
           for label, shape in VWIDE_LABELS

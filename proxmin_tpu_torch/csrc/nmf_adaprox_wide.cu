@@ -112,9 +112,9 @@ adaprox_post_kernel(Args<ST, float> a) {
 
 __global__ void __launch_bounds__(wide::kFinThreads)
 adaprox_post_finalize(const float* __restrict__ partials, long long rows,
-                      int mode, int K, float* __restrict__ rowsum,
-                      float* __restrict__ stats) {
-  post::finalize(partials, rows, mode, K, rowsum, stats);
+                      int mode, int pr, int C, int K,
+                      float* __restrict__ rowsum, float* __restrict__ stats) {
+  post::finalize(partials, rows, mode, pr, C, K, rowsum, stats);
 }
 
 // The very-wide tier's residual modes past K = 32 up to K = 256
@@ -186,10 +186,10 @@ template <typename ST, typename MT>
 int launch_types(int mode, const Args<ST, MT>& args, float* gA,
                  float* rowsum, float* stats, cudaStream_t stream) {
   // modes 0 and 1: the passes with a residual
-  const tier::Body body = tier::body_for(true, args.K);
+  const tier::Body body = tier::body_for(tier::kK2, true, args.K);
   if (body == tier::kKwide) {
     if constexpr (kPart == 2) {
-      switch (tier::kb_for(true, args.K)) {
+      switch (tier::kb_for(tier::kK2, true, args.K)) {
         case 64:
           return launch_kwide<64>(mode, args, gA, rowsum, stats, stream);
         case 128:
@@ -211,7 +211,7 @@ int launch_types(int mode, const Args<ST, MT>& args, float* gA,
     }
     return (int)cudaErrorInvalidValue;
   }
-  switch (tier::kb_for(true, args.K)) {
+  switch (tier::kb_for(tier::kK2, true, args.K)) {
     case 8:
       return launch_kb<8>(mode, args, gA, rowsum, stats, stream);
     case 16:
@@ -228,19 +228,19 @@ int launch_types(int mode, const Args<ST, MT>& args, float* gA,
 template <typename ST>
 int launch_post(const Args<ST, float>& args, float* rowsum, float* stats,
                 cudaStream_t stream) {
-  const bool on_post = tier::body_for(false, args.K) == tier::kPost;
+  const bool on_post = tier::body_for(tier::kK2, false, args.K) == tier::kPost;
   if constexpr (kVeryWide) {
     static wide::LaunchCache cache;
     if (on_post)
-      return post::launch<wide::kAdaPost, ST>(adaprox_post_kernel<ST>,
-                                              adaprox_post_finalize, cache,
-                                              args, rowsum, stats, stream);
+      return post::launch<wide::kAdaPost, post::kPass2, ST>(
+          adaprox_post_kernel<ST>, adaprox_post_finalize, cache, args,
+          rowsum, stats, stream);
     return (int)cudaErrorInvalidValue;
   } else if constexpr (kPart == 2) {
     return (int)cudaErrorInvalidValue;
   } else {
     if (on_post) return (int)cudaErrorInvalidValue;
-    switch (tier::kb_for(false, args.K)) {
+    switch (tier::kb_for(tier::kK2, false, args.K)) {
       case 8:
         return launch_mode<8, ST, float, wide::kAdaPost>(args, nullptr,
                                                          rowsum, stats,
@@ -277,7 +277,7 @@ extern "C" {
 // floats.
 int nmf_adaprox_wide_partials_width(int mode, int C, int K) {
   if (mode < 0 || mode > 2 || C < 1 || K < 1) return -1;
-  const tier::Body body = tier::body_for(mode != 2, K);
+  const tier::Body body = tier::body_for(tier::kK2, mode != 2, K);
   if (body == tier::kWide) return wide::entries(mode_of(mode), C, K).total;
   const long long w = body == tier::kPost
                           ? post::width(mode_of(mode), K)

@@ -34,7 +34,8 @@
 // and the shared memory's delivery of the tiles' operands bound it. Beyond
 // C = 256 or K = 32, for any C and K, the very-wide tier runs it: the wide
 // body's VW instances to K = 32, kwide_pass.cuh's body up to K = 256,
-// vwide_pass.cuh's beyond.
+// panel_pass.cuh's up to K = 512 (gS per column tile; gA and the Gram of
+// the old S as products of their own), vwide_pass.cuh's beyond.
 
 #include <type_traits>
 
@@ -42,6 +43,8 @@
 
 #include "pgm_pass.cuh"
 #include "kwide_pass.cuh"
+#include "panel_pass.cuh"
+#include "post_pass.cuh"
 #include "tiers.cuh"
 #include "vwide_pass.cuh"
 #include "wide_pass.cuh"
@@ -170,43 +173,102 @@ int launch_kwide(const float* A, const float* S, const float* Y,
       gram, loss, stream);
 }
 
+// Past K = 256 up to K = 512 (panel_pass.cuh): prep, the column pass (one
+// block per SM, up to 255 registers), gA's and the Gram's tile-pair
+// products (two blocks per SM), their finalize and the loss's.
+__global__ void __launch_bounds__(wide::kThreads)
+nmf_grad_panel_prep(const float* __restrict__ A, int C, int K,
+                    float* __restrict__ At, float* __restrict__ Af) {
+  panel::prep<float>(A, C, K, At, Af);
+}
+
+__global__ void __launch_bounds__(wide::kThreads, 1)
+nmf_grad_panel_kernel(wide::Args<float, float> a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  panel::column_body<float, wide::kGrad>(a, smem);
+}
+
+template <int PR>
+__global__ void __launch_bounds__(wide::kThreads, 2)
+nmf_grad_panel_tiles(wide::Args<float, float> a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  post::product_body<PR, float>(a, smem);
+}
+
+__global__ void __launch_bounds__(wide::kFinThreads)
+nmf_grad_panel_tiles_finalize(const float* __restrict__ partials,
+                              long long rows, int mode, int pr, int C, int K,
+                              float* __restrict__ mid,
+                              float* __restrict__ stats) {
+  post::finalize(partials, rows, mode, pr, C, K, mid, stats);
+}
+
+__global__ void __launch_bounds__(wide::kFinThreads)
+nmf_grad_panel_finalize(const float* __restrict__ rows, long long n_rows,
+                        int n, float* __restrict__ stats) {
+  panel::stats_finalize(rows, n_rows, n, stats);
+}
+
+int launch_panel(const float* A, const float* S, const float* Y,
+                 const float* W, int C, int K, long long N, long long tile_n,
+                 float* gA, float* gS, float* gram, float* loss,
+                 float* partials, cudaStream_t stream) {
+  static panel::LaunchCaches caches;
+  const wide::Args<float, float> args =
+      wide_args(A, S, Y, W, C, K, N, tile_n, gS, partials);
+  return panel::launch<float, wide::kGrad>(
+      nmf_grad_panel_prep, nmf_grad_panel_kernel,
+      nmf_grad_panel_tiles<post::kCross>, nmf_grad_panel_tiles<post::kGram>,
+      nmf_grad_panel_tiles_finalize, nmf_grad_panel_finalize, caches, args,
+      gA, gram, loss, stream);
+}
+
 bool narrow(int C, int K) { return C >= 1 && K >= 1 && C <= 16 && K <= 8; }
+
+// Width of one row of partial sums for a (C, K) problem: the narrow
+// bodies', the wide body's, and beyond K = 32 the kwide body's or the
+// very-wide body's with its per-group scratch beside it; 0 where
+// panel_pass.cuh runs the pass; -1 for C < 1, K < 1 or a width past an
+// int.
+int partials_width(int C, int K) {
+  if (C < 1 || K < 1) return -1;
+  if (C <= 8 && K <= 8) return Layout<8, 8, false>::kP;
+  if (narrow(C, K)) return Layout<16, 8, false>::kP;
+  const tier::Body body = tier::body_for(tier::kK3, true, K);
+  if (body == tier::kWide) return wide::entries(wide::kGrad, C, K).total;
+  if (body == tier::kPanel) return 0;
+  const long long w = vwide::width(wide::kGrad, C, K);
+  return w > 0x7fffffffLL ? -1 : (int)w;
+}
 
 }  // namespace
 
 extern "C" {
 
-// Width of one row of the scratch buffer for a (C, K) problem: a row of
-// partial sums, and beyond K = 32 the very-wide body's per-group scratch
-// beside it; -1 for C < 1, K < 1 or a width past an int.
-// The caller allocates the scratch buffer as
-// (nmf_grad_partials_rows(N, tile_n), width) floats.
-int nmf_grad_partials_width(int C, int K) {
-  if (C < 1 || K < 1) return -1;
-  if (C <= 8 && K <= 8) return Layout<8, 8, false>::kP;
-  if (narrow(C, K)) return Layout<16, 8, false>::kP;
-  if (tier::body_for(true, K) == tier::kWide)
-    return wide::entries(wide::kGrad, C, K).total;
-  const long long w = vwide::width(wide::kGrad, C, K);
-  return w > 0x7fffffffLL ? -1 : (int)w;
-}
-
-// Rows of partial sums to allocate for N columns in tiles of tile_n (the
-// narrow body's work units, parts of tiles, rounded up to a multiple of 4,
-// or the most groups of units of the wide body, whichever are more), or -1
-// for N < 1 or tile_n < 1.
-long long nmf_grad_partials_rows(long long N, long long tile_n) {
-  if (N < 1 || tile_n < 1) return -1;
+// Floats of the scratch buffer for a (C, K, N) problem in tiles of
+// tile_n: rows of partial sums (the narrow body's work units, parts of
+// tiles, rounded up to a multiple of 4, or the most groups of units of the
+// wide body, whichever are more) of the body's width, or panel_pass.cuh's
+// layout past K = 256 (its residual D, C x N floats, among them); -1 for
+// C < 1, K < 1, N < 1, tile_n < 1 or a width past an int. The caller
+// allocates it as that many float32 values.
+long long nmf_grad_scratch_floats(int C, int K, long long N,
+                                  long long tile_n) {
+  const int width = partials_width(C, K);
+  if (width < 0 || N < 1 || tile_n < 1) return -1;
+  if (!narrow(C, K) && tier::body_for(tier::kK3, true, K) == tier::kPanel)
+    return panel::layout(wide::kGrad, C, K, N, wide::unit_count(N, tile_n))
+        .total;
   const long long narrow_rows = stride(unit_count(N, tile_n));
   const long long groups =
       wide::group_count(wide::unit_count(N, tile_n), 2);
-  return narrow_rows > groups ? narrow_rows : groups;
+  return (narrow_rows > groups ? narrow_rows : groups) * width;
 }
 
 // The fused gradients on `stream`. All pointers are device pointers to
 // contiguous row-major float32 arrays: A and gA (C, K), S and gS (K, N), Y
 // and W (C, N; W may be null), gram (K, K), loss (1,), partials
-// (rows, width). Returns cudaGetLastError() after the launches (0 on
+// (nmf_grad_scratch_floats(C, K, N, tile_n) floats). Returns cudaGetLastError() after the launches (0 on
 // success); does not synchronize.
 int nmf_grad_f32(const void* A, const void* S, const void* Y, const void* W,
                  int C, int K, long long N, long long tile_n, void* gA,
@@ -228,11 +290,13 @@ int nmf_grad_f32(const void* A, const void* S, const void* Y, const void* W,
   if (narrow(C, K))
     return launch<16, 8>(a, s, y, w, C, K, N, tile_n, ga, gs, g, l, pp, strm);
   if (C < 1 || K < 1) return (int)cudaErrorInvalidValue;
-  const tier::Body body = tier::body_for(true, K);
+  const tier::Body body = tier::body_for(tier::kK3, true, K);
   if (body == tier::kVwide)
     return launch_vwide(a, s, y, w, C, K, N, tile_n, ga, gs, g, l, pp, strm);
+  if (body == tier::kPanel)
+    return launch_panel(a, s, y, w, C, K, N, tile_n, ga, gs, g, l, pp, strm);
   if (body == tier::kKwide) {
-    switch (tier::kb_for(true, K)) {
+    switch (tier::kb_for(tier::kK3, true, K)) {
       case 64:
         return launch_kwide<64>(a, s, y, w, C, K, N, tile_n, ga, gs, g, l,
                                 pp, strm);
@@ -246,7 +310,7 @@ int nmf_grad_f32(const void* A, const void* S, const void* Y, const void* W,
   }
   auto wide_kb = [&](auto vw) {
     constexpr bool VW = decltype(vw)::value;
-    switch (tier::kb_for(true, K)) {
+    switch (tier::kb_for(tier::kK3, true, K)) {
       case 8:
         return launch_wide<8, VW>(a, s, y, w, C, K, N, tile_n, ga, gs, g, l,
                                   pp, strm);

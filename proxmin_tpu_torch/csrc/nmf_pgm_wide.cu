@@ -2,9 +2,9 @@
 // up to 256 channels and K up to 32 components, and the two passes of the
 // split path; beyond either bound, for any C and K, on the very-wide tier
 // (the wide body's VW instances to K = 32; past it kwide_pass.cuh's body
-// for the chain and split pass 1 up to K = 256, vwide_pass.cuh's beyond,
-// and post_pass.cuh's for split pass 2 at every K), every mode and both
-// stores.
+// for the chain and split pass 1 up to K = 256, panel_pass.cuh's up to
+// K = 512, vwide_pass.cuh's beyond, and post_pass.cuh's for split pass 2 at
+// every K), every mode and both stores.
 //
 // Replaces, beyond the narrow instances of nmf_pgm_step.cu (C <= 16,
 // K <= 8), the Pallas TPU kernel proxmin_tpu/ops/nmf_kernels.py:311
@@ -46,6 +46,7 @@
 #include <cuda_runtime.h>
 
 #include "kwide_pass.cuh"
+#include "panel_pass.cuh"
 #include "post_pass.cuh"
 #include "tiers.cuh"
 #include "vwide_pass.cuh"
@@ -83,19 +84,62 @@ pgm_vwide_kernel(Args<ST, float> a) {
 }
 
 // Split pass 2 past K = 32 (post_pass.cuh): the Gram's tile pairs, two
-// blocks per SM (at most 128 registers), and its finalize.
+// blocks per SM (at most 128 registers), and its finalize (also the
+// finalize of panel_pass.cuh's products).
 template <typename ST>
 __global__ void __launch_bounds__(wide::kThreads, 2)
 pgm_post_kernel(Args<ST, float> a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  post::gram_body<ST>(a, smem);
+  post::product_body<post::kPass2, ST>(a, smem);
 }
 
 __global__ void __launch_bounds__(wide::kFinThreads)
 pgm_post_finalize(const float* __restrict__ partials, long long rows,
-                  int mode, int K, float* __restrict__ gram,
+                  int mode, int pr, int C, int K, float* __restrict__ gram,
                   float* __restrict__ stats) {
-  post::finalize(partials, rows, mode, K, gram, stats);
+  post::finalize(partials, rows, mode, pr, C, K, gram, stats);
+}
+
+// The chain and split pass 1 past K = 256 up to K = 512 (panel_pass.cuh):
+// prep, the column pass (one block per SM, up to 255 registers), gA's and
+// the Gram's tile-pair products (two blocks per SM) and the statistics'
+// finalize.
+template <typename ST>
+__global__ void __launch_bounds__(wide::kThreads)
+pgm_panel_prep(const float* __restrict__ A, int C, int K,
+               float* __restrict__ At, float* __restrict__ Af) {
+  panel::prep<ST>(A, C, K, At, Af);
+}
+
+template <typename ST, int MODE>
+__global__ void __launch_bounds__(wide::kThreads, 1)
+pgm_panel_kernel(Args<ST, float> a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  panel::column_body<ST, MODE>(a, smem);
+}
+
+template <int PR, typename ST>
+__global__ void __launch_bounds__(wide::kThreads, 2)
+pgm_panel_tiles(Args<ST, float> a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  post::product_body<PR, ST>(a, smem);
+}
+
+__global__ void __launch_bounds__(wide::kFinThreads)
+pgm_panel_finalize(const float* __restrict__ rows, long long n_rows, int n,
+                   float* __restrict__ stats) {
+  panel::stats_finalize(rows, n_rows, n, stats);
+}
+
+template <typename ST, int MODE>
+int launch_panel(const Args<ST, float>& args, float* gA, float* gram,
+                 float* stats, cudaStream_t stream) {
+  static panel::LaunchCaches caches;
+  return panel::launch<ST, MODE>(
+      pgm_panel_prep<ST>, pgm_panel_kernel<ST, MODE>,
+      pgm_panel_tiles<post::kCross, ST>, pgm_panel_tiles<post::kGram, ST>,
+      pgm_post_finalize, pgm_panel_finalize, caches, args, gA, gram, stats,
+      stream);
 }
 
 // The very-wide tier's residual modes past K = 32 up to K = 256
@@ -174,8 +218,9 @@ template <typename ST>
 int launch_store(int mode, const Args<ST, float>& args, float* gA,
                  float* gram, float* stats, cudaStream_t stream) {
   const bool residual = mode != 2;
-  if (tier::body_for(residual, args.K) == tier::kKwide) {
-    switch (tier::kb_for(residual, args.K)) {
+  const tier::Body body = tier::body_for(tier::kK1, residual, args.K);
+  if (body == tier::kKwide) {
+    switch (tier::kb_for(tier::kK1, residual, args.K)) {
       case 64:
         return launch_kwide_modes<64, ST>(mode, args, gA, gram, stats,
                                           stream);
@@ -187,18 +232,23 @@ int launch_store(int mode, const Args<ST, float>& args, float* gA,
                                            stream);
     }
   }
-  if (tier::body_for(residual, args.K) == tier::kPost) {
+  if (body == tier::kPost) {
     static wide::LaunchCache cache;
-    return post::launch<wide::kPgmPost, ST>(pgm_post_kernel<ST>,
-                                            pgm_post_finalize, cache, args,
-                                            gram, stats, stream);
+    return post::launch<wide::kPgmPost, post::kPass2, ST>(
+        pgm_post_kernel<ST>, pgm_post_finalize, cache, args, gram, stats,
+        stream);
   }
-  if (tier::body_for(residual, args.K) == tier::kVwide) {
+  if (body == tier::kPanel) {
+    if (mode == 0)
+      return launch_panel<ST, wide::kPgm>(args, gA, gram, stats, stream);
+    return launch_panel<ST, wide::kPgmPre>(args, gA, gram, stats, stream);
+  }
+  if (body == tier::kVwide) {
     if (mode == 0)
       return launch_vwide<ST, wide::kPgm>(args, gA, gram, stats, stream);
     return launch_vwide<ST, wide::kPgmPre>(args, gA, gram, stats, stream);
   }
-  switch (tier::kb_for(residual, args.K)) {
+  switch (tier::kb_for(tier::kK1, residual, args.K)) {
     case 8:
       return launch_kb<8, ST>(mode, args, gA, gram, stats, stream);
     case 16:
@@ -214,33 +264,43 @@ int mode_of(int mode) {
   return mode == 0 ? wide::kPgm : (mode == 1 ? wide::kPgmPre : wide::kPgmPost);
 }
 
-}  // namespace
-
-extern "C" {
-
-// Floats of one row of the scratch buffer for `mode` (0 the compiled
-// chain, 1 split pass 1, 2 split pass 2) and a (C, K) problem: one group's
-// row of partial sums up to K = 32 (the wide body and its very-wide
-// instances); beyond, the kwide body's, the very-wide body's with its
-// per-group scratch beside it, or split pass 2's tile pairs (post_pass.cuh);
-// -1 for C < 1, K < 1 or a width past an int. The caller allocates the
-// scratch buffer as (nmf_pgm_wide_partials_rows(N, tile_n), width) floats.
-int nmf_pgm_wide_partials_width(int mode, int C, int K) {
+// Floats of one group's row of partial sums for `mode` (0 the compiled
+// chain, 1 split pass 1, 2 split pass 2) and a (C, K) problem: the wide
+// body's and its very-wide instances' up to K = 32; beyond, the kwide
+// body's, the very-wide body's with its per-group scratch beside it, or
+// split pass 2's tile pairs (post_pass.cuh); -1 for C < 1, K < 1 or a
+// width past an int. 0 where panel_pass.cuh runs the pass (its scratch is
+// no rows of a width).
+int partials_width(int mode, int C, int K) {
   if (mode < 0 || mode > 2 || C < 1 || K < 1) return -1;
-  const tier::Body body = tier::body_for(mode != 2, K);
+  const tier::Body body = tier::body_for(tier::kK1, mode != 2, K);
   if (body == tier::kWide) return wide::entries(mode_of(mode), C, K).total;
+  if (body == tier::kPanel) return 0;
   const long long w = body == tier::kPost
                           ? post::width(mode_of(mode), K)
                           : vwide::width(mode_of(mode), C, K);
   return w > 0x7fffffffLL ? -1 : (int)w;
 }
 
-// Rows of partial sums for N columns in tiles of tile_n (the groups of
-// work units, at most 264, the most any instance makes), or -1 for N < 1
-// or tile_n < 1.
-long long nmf_pgm_wide_partials_rows(long long N, long long tile_n) {
-  if (N < 1 || tile_n < 1) return -1;
-  return wide::group_count(wide::unit_count(N, tile_n), 2);
+}  // namespace
+
+extern "C" {
+
+// Floats of the scratch buffer a pass of `mode` (0 the compiled chain, 1
+// split pass 1, 2 split pass 2) on a (C, K, N) problem in tiles of tile_n
+// takes: the rows of partial sums (the groups of work units, at most 264,
+// the most any instance makes) of the body's width, or panel_pass.cuh's
+// layout past K = 256 (its residual D, C x N floats, among them); -1 for
+// C < 1, K < 1, N < 1, tile_n < 1 or a width past an int. The caller
+// allocates it as that many float32 values.
+long long nmf_pgm_wide_scratch_floats(int mode, int C, int K, long long N,
+                                      long long tile_n) {
+  const int width = partials_width(mode, C, K);
+  if (width < 0 || N < 1 || tile_n < 1) return -1;
+  const long long n_units = wide::unit_count(N, tile_n);
+  if (tier::body_for(tier::kK1, mode != 2, K) == tier::kPanel)
+    return panel::layout(mode_of(mode), C, K, N, n_units).total;
+  return wide::group_count(n_units, 2) * width;
 }
 
 // One pass on `stream`. Device pointers to contiguous row-major arrays: A
@@ -259,7 +319,7 @@ int nmf_pgm_wide(int mode, const void* A, const void* S, const void* Y,
                  int store_bf16, int C, int K, long long N, long long tile_n,
                  void* S_new, void* pre, void* gA, void* gram, void* stats,
                  void* partials, void* stream) {
-  if (nmf_pgm_wide_partials_width(mode, C, K) < 0 || N < 1 || tile_n < 1 ||
+  if (partials_width(mode, C, K) < 0 || N < 1 || tile_n < 1 ||
       n_ops < 0 || n_ops > kMaxChain || repeat < 0)
     return (int)cudaErrorInvalidValue;
   ProxChain chain{};

@@ -40,6 +40,17 @@
 // the warps in order, written once per (row block, group); the norms go the
 // same way, and S' is stored in the same pass.
 //
+// The tile-pair routine also serves panel_pass.cuh (K1's and K3's passes
+// with a residual past K = 256) as two products of its own, each a
+// template instance (Product) with nothing of pass 2's diagonal work: the
+// Gram alone (kGram: S' of K1's chain, the old S of K3, read in the store's
+// type) over the same upper-triangle pairs, and gA = D S^T (kCross: the
+// rows of the residual D, float32 in panel_pass.cuh's scratch with a pitch
+// of cross_pitch(N), against the old S) over every (channel tile,
+// component tile) pair. A float32 operand whose rows are 16-byte aligned
+// comes by cp.async; a bfloat16 one, or rows that are not aligned, by the
+// threads' element copies, converted to float32 in shared memory.
+//
 // A second launch (finalize) sums the groups' rows in double in a fixed
 // order and rounds once; K1 writes both triangles of the Gram from one sum
 // (bitwise symmetric) and each norm sums its tiles (row blocks) in order.
@@ -101,10 +112,28 @@ constexpr int kMaxWaves = 4;
 constexpr int kRB = 8;                    // rows per block
 constexpr int kSpan = 4 * kThreads;       // columns a block's pass covers
 
+// What a block of the tile-pair routine computes: split pass 2 (the Gram
+// of P, the norms and, with the bfloat16 store, S'), the Gram of a (K, N)
+// operand alone, or the product of the rows of two operands.
+enum Product { kPass2, kGram, kCross };
+
 __host__ __device__ inline int tiles_of(int K) { return (K + kTB - 1) / kTB; }
 __host__ __device__ inline long long pairs_of(int K) {
   const long long t = tiles_of(K);
   return t * (t + 1) / 2;
+}
+// Tiles of a product's output: the Gram's upper-triangle pairs, or
+// kCross's (channel tile, component tile) pairs of a (C, K) output.
+__host__ __device__ inline long long product_tiles(int pr, int C, int K) {
+  return pr == kCross ? (long long)tiles_of(C) * tiles_of(K) : pairs_of(K);
+}
+// Floats of a group's row of partial sums of a kGram or kCross product.
+__host__ __device__ inline long long product_width(int pr, int C, int K) {
+  return product_tiles(pr, C, K) * kTB * kTB;
+}
+// Pitch (floats) of kCross's first operand's rows: whole stages.
+__host__ __device__ inline long long cross_pitch(long long N) {
+  return (N + kCW - 1) / kCW * kCW;
 }
 __host__ __device__ inline int row_blocks(int K) { return (K + kRB - 1) / kRB; }
 
@@ -125,9 +154,8 @@ __host__ __device__ inline long long blocks_per_group(int mode, int K) {
 // 2) where a group's blocks give more than one wave, so that the blocks
 // fill whole waves (at most kMaxWaves), each block takes more columns, and
 // the rows of partial sums stay small.
-__host__ __device__ inline long long group_units(int mode, long long n_units,
-                                                 int K) {
-  const long long per = blocks_per_group(mode, K);
+__host__ __device__ inline long long units_per_group(long long per,
+                                                     long long n_units) {
   long long cap = wide::group_count(n_units, 2);
   long long waves = per * cap / kSlots;
   waves = waves < 1 ? 1 : (waves > kMaxWaves ? kMaxWaves : waves);
@@ -135,18 +163,26 @@ __host__ __device__ inline long long group_units(int mode, long long n_units,
   cap = fit < 1 ? 1 : (fit < cap ? fit : cap);
   return (n_units + cap - 1) / cap;
 }
-__host__ __device__ inline long long groups(int mode, long long n_units,
-                                            int K) {
-  const long long g = group_units(mode, n_units, K);
+__host__ __device__ inline long long groups_of(long long per,
+                                               long long n_units) {
+  const long long g = units_per_group(per, n_units);
   return (n_units + g - 1) / g;
 }
+__host__ __device__ inline long long group_units(int mode, long long n_units,
+                                                 int K) {
+  return units_per_group(blocks_per_group(mode, K), n_units);
+}
+__host__ __device__ inline long long groups(int mode, long long n_units,
+                                            int K) {
+  return groups_of(blocks_per_group(mode, K), n_units);
+}
 
-// The columns [lo, hi) of group g.
-__device__ __forceinline__ void group_span(int mode, const long long n_units,
+// The columns [lo, hi) of group g of gu units each.
+__device__ __forceinline__ void group_span(long long gu,
+                                           const long long n_units,
                                            long long g, long long N,
-                                           long long tile_n, int K,
-                                           long long& lo, long long& hi) {
-  const long long gu = group_units(mode, n_units, K);
+                                           long long tile_n, long long& lo,
+                                           long long& hi) {
   const long long u0 = g * gu;
   const long long u1 = wide::lmin(u0 + gu, n_units) - 1;
   long long skip;
@@ -178,40 +214,52 @@ __device__ __forceinline__ float at(const float4& v, int q) {
 }
 
 // ---------------------------------------------------------------------------
-// K1 split pass 2: the Gram of S', the norms, and S' stored with the
-// bfloat16 store (or where a.out is given).
+// K1 split pass 2 (PR = kPass2): the Gram of S', the norms, and S'
+// stored with the bfloat16 store (or where a.out is given). kGram: the Gram
+// of a.S alone. kCross: a.P's rows (C of them, pitch cross_pitch(N))
+// against a.S's.
 
-template <typename ST>
-__device__ __forceinline__ void gram_body(const Args<ST, float>& a,
-                                          unsigned char* smem) {
+template <int PR, typename ST>
+__device__ __forceinline__ void product_body(const Args<ST, float>& a,
+                                             unsigned char* smem) {
   constexpr bool kF32 = std::is_same<ST, float>::value;
+  constexpr bool kPass = PR == kPass2;
   constexpr int ss = sizeof(ST);
   // the old S's rows in a diagonal block's second panel: 16-byte aligned
   constexpr int PS = kF32 ? kCW + 4 : kCW + 8;
   // the products' column pairs unrolled twice in float32 (with the
   // bfloat16 store's rounding in the loop that spilled 44 bytes)
-  constexpr int kColUnroll = kF32 ? 2 : 1;
+  constexpr int kColUnroll = (kF32 || !kPass) ? 2 : 1;
   __shared__ float red[kWarps][3];
 
   const int K = a.K;
   const long long N = a.N;
   const int tid = threadIdx.x;
   const int nt = tiles_of(K);
-  const long long pairs = pairs_of(K);
+  const long long pairs = product_tiles(PR, a.C, K);
   const long long g = blockIdx.x / pairs;
   int bi = 0, bj = (int)(blockIdx.x - g * pairs);
-  while (bj >= nt - bi) {
-    bj -= nt - bi;
-    ++bi;
+  if constexpr (PR == kCross) {
+    bi = bj / nt;
+    bj -= bi * nt;
+  } else {
+    while (bj >= nt - bi) {
+      bj -= nt - bi;
+      ++bi;
+    }
+    bj += bi;
   }
-  bj += bi;
-  const bool diag = bi == bj;
+  const bool diag = PR != kCross && bi == bj;
   const int ra = bi * kTB, rb = bj * kTB;
-  const int rows_a = min(kTB, K - ra), rows_b = min(kTB, K - rb);
+  const int rows_a = min(kTB, (PR == kCross ? a.C : K) - ra),
+            rows_b = min(kTB, K - rb);
   long long lo, hi;
-  group_span(wide::kPgmPost, a.n_units, g, N, a.tile_n, K, lo, hi);
+  group_span(units_per_group(pairs, a.n_units), a.n_units, g, N, a.tile_n,
+             lo, hi);
   const int nch = (int)((hi - lo + kCW - 1) / kCW);
-  float* const row = a.partials + g * width(wide::kPgmPost, K);
+  float* const row =
+      a.partials + g * (kPass ? width(wide::kPgmPost, K)
+                              : product_width(PR, a.C, K));
 
   auto panel_a = [&](int s) {
     return reinterpret_cast<float*>(smem + s * kStageBytes);
@@ -245,12 +293,54 @@ __device__ __forceinline__ void gram_body(const Args<ST, float>& a,
                          (unsigned long long)(lo * ss)) &
                         (4ull * ss - 1)) == 0;
 
+  // kGram and kCross: rows [r0, r0 + rows) of src (pitch p) over the
+  // chunk's columns into a panel, by 16-byte copies where `v` and the chunk
+  // is whole, else by element copies, converted, zeros past w up to a
+  // float4
+  const long long xp = PR == kCross ? cross_pitch(N) : N;
+  const bool vx =
+      PR == kCross
+          ? ((addr(a.P) | (unsigned long long)(xp * 4) |
+              (unsigned long long)(lo * 4)) & 15ull) == 0
+          : kF32 && ((addr(a.S) | (unsigned long long)(N * ss) |
+                      (unsigned long long)(lo * ss)) & 15ull) == 0;
+  const bool vz = kF32 && ((addr(a.S) | (unsigned long long)(N * ss) |
+                            (unsigned long long)(lo * ss)) & 15ull) == 0;
+  auto copy_panel = [&](float* dst, const auto* src, long long p, int r0,
+                        int rows, long long c0, int w, bool v) {
+    using T = std::remove_cv_t<std::remove_pointer_t<decltype(src)>>;
+    if constexpr (std::is_same<T, float>::value) {
+      if (v && w == kCW) {
+        for (int i = tid; i < rows * kF4; i += kThreads) {
+          const int r = i / kF4, n = (i - r * kF4) * 4;
+          wide::cp_async16(dst + r * kPitch + n,
+                           src + (long long)(r0 + r) * p + c0 + n, 16);
+        }
+        return;
+      }
+    }
+    const int wq = (w + 3) & ~3;
+    for (int i = tid; i < rows * wq; i += kThreads) {
+      const int r = i / wq, n = i - r * wq;
+      dst[r * kPitch + n] =
+          n < w ? to_f32(src[(long long)(r0 + r) * p + c0 + n]) : 0.f;
+    }
+  };
+
   // chunk t into stage t % kStages: P's rows of tile bi, then of tile bj
   // (on the diagonal, the old S's rows of tile bi); a cp.async group each
   auto fill = [&](int t) {
     const int s = t % kStages;
     const long long c0 = lo + (long long)t * kCW;
     const int w = (int)wide::lmin(kCW, hi - c0);
+    if constexpr (!kPass) {
+      if constexpr (PR == kCross)
+        copy_panel(panel_a(s), a.P, xp, ra, rows_a, c0, w, vx);
+      else
+        copy_panel(panel_a(s), a.S, N, ra, rows_a, c0, w, vx);
+      if (!diag) copy_panel(panel_b(s), a.S, N, rb, rows_b, c0, w, vz);
+      return;
+    }
     float* const pa = panel_a(s);
     ST* const sb = reinterpret_cast<ST*>(panel_b(s));
     float* const pb = panel_b(s);
@@ -342,7 +432,9 @@ __device__ __forceinline__ void gram_body(const Args<ST, float>& a,
 
     float* const pa = panel_a(s);
     float* const pb = diag ? pa : panel_b(s);
-    if (diag) {
+    if (!kPass) {
+      // the products alone
+    } else if (diag) {
       // S' of tile bi's elements: stored, counted in the norms, and (bfloat16
       // store) rounded in place for the products
       const ST* const sb = reinterpret_cast<const ST*>(panel_b(s));
@@ -368,7 +460,7 @@ __device__ __forceinline__ void gram_body(const Args<ST, float>& a,
           *reinterpret_cast<float4*>(pa + r * kPitch + c) = x;
       }
       if constexpr (!kF32) __syncthreads();
-    } else if constexpr (!kF32) {
+    } else if constexpr (!kF32 && kPass) {
       // the stored values of both panels
       for (int i = tid; i < 2 * kTB * kF4; i += kThreads) {
         float* const p =
@@ -429,7 +521,7 @@ __device__ __forceinline__ void gram_body(const Args<ST, float>& a,
     for (int p = 1; p < nsplit; ++p) v += sums[(p * kTB + r) * kRedPitch + c];
     tile[e] = v;
   }
-  if (diag)
+  if (kPass && diag)
     wide::block_stats(0.f, st1, st2, red,
                       row + pairs * (kTB * kTB) + 2 * bi, 1, 2);
 }
@@ -452,7 +544,8 @@ __device__ __forceinline__ void rowsum_body(const Args<ST, float>& a) {
   const long long g = blockIdx.x - rb * ng;
   const int r0 = rb * kRB, rows = min(kRB, K - r0);
   long long lo, hi;
-  group_span(wide::kAdaPost, a.n_units, g, N, a.tile_n, K, lo, hi);
+  group_span(group_units(wide::kAdaPost, a.n_units, K), a.n_units, g, N,
+             a.tile_n, lo, hi);
   float* const row = a.partials + g * width(wide::kAdaPost, K);
 
   const auto addr = [](const void* p) {
@@ -534,34 +627,47 @@ __device__ __forceinline__ void rowsum_body(const Args<ST, float>& a) {
 // the groups w, w + 8, ... of its lane's entry in order in double (each
 // norm over its tiles or row blocks in order within a group), then the
 // warps' sums in order, rounded once. K1 writes the entry (r, s), r <= s,
-// of a pair's tile to the Gram's (r, s) and (s, r); K2 the row sums.
+// of a pair's tile to the Gram's (r, s) and (s, r) (kPass2 and kGram);
+// kCross the entry (r, s) of a (channel, component) tile to gA's (r, s);
+// K2 the row sums.
 __device__ __forceinline__ void finalize(const float* partials, long long rows,
-                                         int mode, int K, float* mid,
-                                         float* stats) {
+                                         int mode, int pr, int C, int K,
+                                         float* mid, float* stats) {
   constexpr int kW = wide::kFinThreads / 32;
   __shared__ double part[kW][32];
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const bool gram = mode == wide::kPgmPost;
-  const long long wd = width(mode, K);
-  const long long n_mid = gram ? pairs_of(K) * kTB * kTB : K;
+  const bool pass = pr == kPass2;
+  const bool tiled = !pass || mode == wide::kPgmPost;
+  const long long wd = pass ? width(mode, K) : product_width(pr, C, K);
+  const long long n_mid =
+      tiled ? product_tiles(pass ? kGram : pr, C, K) * kTB * kTB : K;
+  const int n_stats = pass ? 2 : 0;
   const long long p = (long long)blockIdx.x * 32 + lane;
-  const int n_parts = gram ? tiles_of(K) : row_blocks(K);
-  // the entry's Gram cell, where it has one
+  const int n_parts = mode == wide::kPgmPost ? tiles_of(K) : row_blocks(K);
+  // the entry's cell, where it has one
   int r = 0, s = 0;
-  bool keep = p < n_mid + 2;
-  if (gram && p < n_mid) {
+  bool keep = p < n_mid + n_stats;
+  if (tiled && p < n_mid) {
     const int nt = tiles_of(K);
     int bi = 0, bj = (int)(p / (kTB * kTB));
-    while (bj >= nt - bi) {
-      bj -= nt - bi;
-      ++bi;
+    if (pr == kCross) {
+      bi = bj / nt;
+      bj -= bi * nt;
+    } else {
+      while (bj >= nt - bi) {
+        bj -= nt - bi;
+        ++bi;
+      }
+      bj += bi;
     }
-    bj += bi;
     const int e = (int)(p % (kTB * kTB));
     r = bi * kTB + e / kTB;
     s = bj * kTB + e % kTB;
-    keep = r < K && s < K &&
-           (bi < bj || (r % 8 < s % 8) || (r % 8 == s % 8 && r <= s));
+    keep = pr == kCross
+               ? r < C && s < K
+               : r < K && s < K &&
+                     (bi < bj || (r % 8 < s % 8) ||
+                      (r % 8 == s % 8 && r <= s));
   }
   double v = 0.0;
   if (keep) {
@@ -582,7 +688,9 @@ __device__ __forceinline__ void finalize(const float* partials, long long rows,
   const float f = (float)v;
   if (p >= n_mid) {
     stats[p - n_mid] = f;
-  } else if (gram) {
+  } else if (pr == kCross) {
+    mid[(long long)r * K + s] = f;
+  } else if (tiled) {
     mid[(long long)r * K + s] = f;
     mid[(long long)s * K + r] = f;
   } else {
@@ -590,19 +698,23 @@ __device__ __forceinline__ void finalize(const float* partials, long long rows,
   }
 }
 
-// Both launches of a second pass on `stream`: the body's blocks (K1: the
-// groups times the pairs, two blocks an SM; K2: the groups times the row
-// blocks), then the finalize. Returns cudaGetLastError().
-template <int MODE, typename ST, typename Kernel, typename Finalize>
+// Both launches of a second pass (or, PR = kGram or kCross, of a product
+// of panel_pass.cuh) on `stream`: the body's blocks (K1 and the products:
+// the groups times the tiles, two blocks an SM; K2: the groups times the
+// row blocks), then the finalize. Returns cudaGetLastError().
+template <int MODE, int PR, typename ST, typename Kernel, typename Finalize>
 int launch(Kernel kernel, Finalize fin, wide::LaunchCache& lc,
            const Args<ST, float>& args, float* mid, float* stats,
            cudaStream_t stream) {
   cudaError_t err;
-  if (args.K < 1 || args.N < 1 || args.tile_n < 1)
+  if (args.K < 1 || args.N < 1 || args.tile_n < 1 ||
+      (PR == kCross && args.C < 1))
     return (int)cudaErrorInvalidValue;
-  const long long n_groups = groups(MODE, args.n_units, args.K);
-  const long long per = blocks_per_group(MODE, args.K);
-  const int smem = MODE == wide::kPgmPost ? kSmemGram : 0;
+  const long long per = PR == kPass2 ? blocks_per_group(MODE, args.K)
+                                     : product_tiles(PR, args.C, args.K);
+  const long long n_groups = groups_of(per, args.n_units);
+  const int smem =
+      (PR != kPass2 || MODE == wide::kPgmPost) ? kSmemGram : 0;
   if (smem > lc.allowed_smem) {
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -614,9 +726,14 @@ int launch(Kernel kernel, Finalize fin, wide::LaunchCache& lc,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long n_mid =
-      MODE == wide::kPgmPost ? pairs_of(args.K) * kTB * kTB : args.K;
-  fin<<<(unsigned)((n_mid + 2 + 31) / 32), wide::kFinThreads, 0, stream>>>(
-      args.partials, n_groups, MODE, args.K, mid, stats);
+      PR != kPass2 ? product_width(PR, args.C, args.K)
+                   : (MODE == wide::kPgmPost
+                          ? pairs_of(args.K) * kTB * kTB
+                          : args.K);
+  const int n_stats = PR == kPass2 ? 2 : 0;
+  fin<<<(unsigned)((n_mid + n_stats + 31) / 32), wide::kFinThreads, 0,
+        stream>>>(args.partials, n_groups, MODE, PR, args.C, args.K, mid,
+                  stats);
   return (int)cudaGetLastError();
 }
 

@@ -20,9 +20,11 @@
 // One block per SM, up to 255 registers.
 //
 // Past K = 32, the passes with a residual run kwide_pass.cuh's body up to
-// K = 256 (S, gS, gA's tiles and the epilogue's column on chip). Beyond
-// K = 256 they run this body (the second passes of the split path past
-// K = 32 run post_pass.cuh's); nothing in it grows with C or K:
+// K = 256 (S, gS, gA's tiles and the epilogue's column on chip), and K1's
+// and K3's panel_pass.cuh's up to K = 512 (the reductions over the pixel
+// axis as products of their own). Beyond, K2's past K = 256 and every
+// kernel's past K = 512 run this body (the second passes of the split path
+// past K = 32 run post_pass.cuh's); nothing in it grows with C or K:
 //
 // - Components go in blocks of 32 (nkb = ceil(K / 32)), channels in chunks
 //   of 32, columns in sub-tiles of 256 as in the wide body. Per chunk the

@@ -94,13 +94,15 @@ DEFAULT_TILE_N = 4096
 #: body up to C = WIDE_C channels and K = WIDE_K components, the very-wide
 #: tier every larger C or K (the wide body's instances at C > WIDE_C up to
 #: K = WIDE_K, ``csrc/kwide_pass.cuh``'s body for the passes with a
-#: residual beyond, up to K = KWIDE_K, ``csrc/vwide_pass.cuh``'s past it;
-#: the split path's second passes past K = WIDE_K on
-#: ``csrc/post_pass.cuh``'s, at any K). ``csrc/tiers.cuh`` holds WIDE_K and
-#: KWIDE_K for the kernels.
+#: residual beyond, up to K = KWIDE_K, then K1's and K3's on
+#: ``csrc/panel_pass.cuh``'s up to K = PANEL_K, and the rest on
+#: ``csrc/vwide_pass.cuh``'s; the split path's second passes past K = WIDE_K
+#: on ``csrc/post_pass.cuh``'s, at any K). ``csrc/tiers.cuh`` holds WIDE_K,
+#: KWIDE_K and PANEL_K for the kernels.
 _NARROW_C, _NARROW_K = 16, 8
 WIDE_C, WIDE_K = 256, 32
 KWIDE_K = 256
+PANEL_K = 512
 
 _F32_TINY = float(torch.finfo(torch.float32).tiny)
 _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -118,10 +120,8 @@ def _declare_pgm_step(lib):
 
 
 def _declare_pgm_wide(lib):
-    lib.nmf_pgm_wide_partials_width.argtypes = [_I, _I, _I]
-    lib.nmf_pgm_wide_partials_width.restype = _I
-    lib.nmf_pgm_wide_partials_rows.argtypes = [_LL, _LL]
-    lib.nmf_pgm_wide_partials_rows.restype = _LL
+    lib.nmf_pgm_wide_scratch_floats.argtypes = [_I, _I, _I, _LL, _LL]
+    lib.nmf_pgm_wide_scratch_floats.restype = _LL
     lib.nmf_pgm_wide.argtypes = [_I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P,
                                  _I, _I, _I, _LL, _LL, _P, _P, _P, _P, _P,
                                  _P, _P]
@@ -156,10 +156,8 @@ def _declare_adaprox_wide(lib):
 
 
 def _declare_grad(lib):
-    lib.nmf_grad_partials_width.argtypes = [_I, _I]
-    lib.nmf_grad_partials_width.restype = _I
-    lib.nmf_grad_partials_rows.argtypes = [_LL, _LL]
-    lib.nmf_grad_partials_rows.restype = _LL
+    lib.nmf_grad_scratch_floats.argtypes = [_I, _I, _LL, _LL]
+    lib.nmf_grad_scratch_floats.restype = _LL
     lib.nmf_grad_f32.argtypes = [_P, _P, _P, _P, _I, _I, _LL, _LL,
                                  _P, _P, _P, _P, _P, _P]
     lib.nmf_grad_f32.restype = _I
@@ -453,16 +451,27 @@ def _launched(rc, what):
         raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
 
 
+def _scratch(floats, what, device):
+    """The kernel's scratch buffer of ``floats`` float32 values, allocated
+    by ``torch.empty`` (the kernels allocate nothing)."""
+    if floats < 0:
+        raise ValueError(f"{what}: no scratch layout for these shapes")
+    return torch.empty((floats,), dtype=torch.float32, device=device)
+
+
 def _pgm_wide_cuda(mode, A, S, Y, W, step, P, plan, tile_n, S_new, pre,
                    gA, gram, stats):
     """One launch of K1's wide body (mode 0 the chain, 1 split pass 1, 2
-    split pass 2) into the given outputs; counts it."""
+    split pass 2) into the given outputs; counts it. The scratch holds the
+    rows of partial sums and, where ``csrc/panel_pass.cuh`` runs the pass
+    (KWIDE_K < K <= PANEL_K), the residual D of C x N float32 values too:
+    224 MB at (224, 498, 250 000), 1.7 GB at (425, 498, 1e6)."""
     C, K = A.shape
     K_, N = S.shape
     lib = _library("nmf_pgm_wide")
-    width = lib.nmf_pgm_wide_partials_width(mode, C, K)
-    partials = torch.empty((lib.nmf_pgm_wide_partials_rows(N, tile_n),
-                            width), dtype=torch.float32, device=S.device)
+    partials = _scratch(
+        lib.nmf_pgm_wide_scratch_floats(mode, C, K, N, tile_n),
+        "fused_nmf_pgm_step", S.device)
     n_ops, repeat, ops, thresh = (plan.c_args() if mode == 0
                                   else (0, 0, None, None))
     ptr = [None if t is None else t.data_ptr()
@@ -1201,7 +1210,10 @@ def fused_nmf_grad(A, S, Y, W=None, tile_n=DEFAULT_TILE_N):
 
 def _grad_cuda(A, S, Y, W, tile_n):
     """K3's launch on CUDA tensors of checked shapes: the casts, one
-    launch, the count. Returns ``(gA, gS, SSt, loss)``."""
+    launch, the count. Returns ``(gA, gS, SSt, loss)``. The scratch holds,
+    where ``csrc/panel_pass.cuh`` runs the pass (KWIDE_K < K <= PANEL_K),
+    the residual D of C x N float32 values: 224 MB at (224, 498,
+    250 000)."""
     device = A.device
     if device.type != "cuda":
         raise ValueError(f"fused_nmf_grad runs on CPU or CUDA tensors, got "
@@ -1220,14 +1232,13 @@ def _grad_cuda(A, S, Y, W, tile_n):
         W = W.to(f32).contiguous()
         _check_operand("W", W, (C, N), device)
     lib = _library("nmf_grad")
-    width = lib.nmf_grad_partials_width(C, K)
     tile_n = int(tile_n)
     gA = torch.empty((C, K), dtype=f32, device=device)
     gS = torch.empty((K, N), dtype=f32, device=device)
     SSt = torch.empty((K, K), dtype=f32, device=device)
     loss = torch.empty((), dtype=f32, device=device)
-    partials = torch.empty((lib.nmf_grad_partials_rows(N, tile_n), width),
-                           dtype=f32, device=device)
+    partials = _scratch(lib.nmf_grad_scratch_floats(C, K, N, tile_n),
+                        "fused_nmf_grad", device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.nmf_grad_f32(

@@ -771,8 +771,8 @@ def test_wide_instances_keep_their_bits(dev):
 
 def _vwide_bit_cases(dev):
     """The very-wide tier's modes at (425, 32, 1000), (128, 64, 500),
-    (600, 8, 129), (128, 96, 500), (64, 160, 300), (64, 256, 300) and
-    (224, 240, 300), with W, from seeded
+    (600, 8, 129), (128, 96, 500), (64, 160, 300), (64, 256, 300),
+    (224, 240, 300), (33, 300, 129) and (224, 498, 300), with W, from seeded
     inputs: name -> (a call, the indices of its per-column outputs) that
     test_very_wide_columns_keep_their_bits hashes: S' (K1, every mode, the
     multi-op chain and both stores), S1, M' and V' (K2, both moment types
@@ -782,7 +782,7 @@ def _vwide_bit_cases(dev):
     bf = torch.bfloat16
     for C, K, N in ((425, 32, 1000), (128, 64, 500), (600, 8, 129),
                     (128, 96, 500), (64, 160, 300), (64, 256, 300),
-                    (224, 240, 300)):
+                    (224, 240, 300), (33, 300, 129), (224, 498, 300)):
         A, S, Y, W = _problem(dev, C, K, N, weighted=True)
         sS = 1.0 / torch.linalg.eigvalsh(A.T @ A)[-1]
         Sb, Yb, Wb = S.to(bf), Y.to(bf), W.to(bf)
@@ -836,7 +836,9 @@ def _vwide_bit_cases(dev):
 # (64, 160)'s are the tree's before the instances of 64 and 128
 # components (the wide body's up to K = 32, blocks of 32 past it), which
 # gave the others' bits; (64, 256)'s and (224, 240)'s are the tree's
-# before the instance of 256 components (blocks of 32 past K = 128).
+# before the instance of 256 components (blocks of 32 past K = 128);
+# (33, 300)'s and (224, 498)'s the tree's before the panel body (blocks of
+# 32 past K = 256).
 _VWIDE_BITS = {
     "K1 unity_plus (425, 32)": ("6b5fcf473824dcfa",),
     "K1 bf16 (425, 32)": ("64ca661f7f6f2433",),
@@ -992,14 +994,58 @@ _VWIDE_BITS = {
         "d4b1d7f2c3dea5e7",
     ),
     "K3 (224, 240)": ("03278648fe3c130f",),
+    "K1 unity_plus (33, 300)": ("b34bf633dfa54a62",),
+    "K1 chain (33, 300)": ("b21f264fb953157b",),
+    "K1 bf16 (33, 300)": ("0f89fa6d1700e7d4",),
+    "K1 pass 1 (33, 300)": ("02b37bd8cd7ed186",),
+    "K1 bf16 split (33, 300)": ("b55e8bb7c4b54ea0",),
+    "K2 (33, 300)": (
+        "770686e91ff9328d", "9d00cb9539aed995", "b8dfaabd6941bd43",
+    ),
+    "K2 bf16 moments (33, 300)": (
+        "492db18552fe312b", "5551d8d437b23f60", "db4570a238bda364",
+    ),
+    "K2 bf16 (33, 300)": (
+        "4d942b6fe2d54e74", "0e71472c7031c804", "0dbd41669444a7a5",
+    ),
+    "K2 device scalars (33, 300)": (
+        "770686e91ff9328d", "9d00cb9539aed995", "b8dfaabd6941bd43",
+    ),
+    "K2 pass 1 (33, 300)": (
+        "dd6a5cc22fe83d1b", "40716ec0e35534a3", "9d00cb9539aed995",
+        "b8dfaabd6941bd43",
+    ),
+    "K3 (33, 300)": ("b247989147042bb7",),
+    "K1 unity_plus (224, 498)": ("8a74c54687f6af45",),
+    "K1 chain (224, 498)": ("e3c64c29afe8bd0d",),
+    "K1 bf16 (224, 498)": ("d69b95a90eeead72",),
+    "K1 pass 1 (224, 498)": ("3929bbd53694c3f9",),
+    "K1 bf16 split (224, 498)": ("3d5dba2018a61f25",),
+    "K2 (224, 498)": (
+        "cbe1e48cf39af1d5", "0e001c8dbedcdba6", "cf48f32a588276d7",
+    ),
+    "K2 bf16 moments (224, 498)": (
+        "f35a1a43ef26ac50", "f8deba499955f39b", "808ec05c526d75ff",
+    ),
+    "K2 bf16 (224, 498)": (
+        "342c3c5e49a295b1", "62db87fa5c09cf69", "d624357ffd21264b",
+    ),
+    "K2 device scalars (224, 498)": (
+        "cbe1e48cf39af1d5", "0e001c8dbedcdba6", "cf48f32a588276d7",
+    ),
+    "K2 pass 1 (224, 498)": (
+        "f974584740c0bf8e", "9106ca47f18038ec", "0e001c8dbedcdba6",
+        "cf48f32a588276d7",
+    ),
+    "K3 (224, 498)": ("efc31f7eb0356c8e",),
 }
 
 
 def test_very_wide_columns_keep_their_bits(dev):
     """The very-wide tier's per-column outputs (S', M', V', x and the
     step, gS) at (425, 32, 1000), (128, 64, 500), (600, 8, 129),
-    (128, 96, 500), (64, 160, 300), (64, 256, 300) and (224, 240, 300),
-    every mode, store and moment type,
+    (128, 96, 500), (64, 160, 300), (64, 256, 300), (224, 240, 300),
+    (33, 300, 129) and (224, 498, 300), every mode, store and moment type,
     hash to the digests of the first very-wide body: the redesigns change
     no column's bits (gA, the Gram, the row sums and the statistics may sum
     in another order)."""
@@ -1016,14 +1062,17 @@ def test_very_wide_columns_keep_their_bits(dev):
 # kernels, across the bounds C = 256 and K = 32, the component blocks of 8
 # and 16 (K = 3, 8, 12; K = 20 in a block of 32), past K = 32 the
 # instances of 64, 128 and 256 components (K = 33, 64, 65, 96, 128, 129,
-# 160, 192, 256), past K = 256 the body of blocks of 32 (K = 257), with
-# ragged N around a thread's 4 columns and the sub-tiles of 64, 128 and 256
+# 160, 192, 256), past K = 256 K1's and K3's panel body up to K = 512 (K =
+# 257, 300, 512; K2 the body of blocks of 32) and the body of blocks of 32
+# past it (K = 513), with ragged N around a thread's 4 columns and the
+# sub-tiles of 64, 128 and 256
 _VWIDE_SHAPES = [(257, 3, 300), (300, 33, 257), (425, 32, 1000),
                  (64, 33, 4097), (17, 64, 255), (128, 64, 500),
                  (600, 8, 129), (300, 12, 257), (257, 20, 300),
                  (64, 96, 300), (300, 65, 257), (33, 128, 129),
                  (33, 129, 129), (64, 160, 300), (33, 192, 129),
-                 (17, 256, 65), (33, 257, 129)]
+                 (17, 256, 65), (33, 257, 129), (33, 300, 129),
+                 (17, 512, 65), (17, 513, 65)]
 _VWIDE_CASES = ("zero", "soft_plus_abs", "unity_plus", "chain",
                 "split_closure")
 
@@ -1152,13 +1201,13 @@ def test_very_wide_k3_matches_plain_version(dev, C, K, N, weighted):
 
 def _residual_kernels(names):
     """(kernel, its first template argument) of the K1-K3 kernels of the
-    kwide, vwide and post bodies among a trace's kernel names (demangled or
-    mangled), in launch order."""
+    kwide, vwide, panel and post bodies among a trace's kernel names
+    (demangled or mangled), in launch order."""
     import re
 
     out = []
     for n in names:
-        m = re.search(r"(pgm|adaprox|nmf_grad)_([kv]wide|post)_kernel"
+        m = re.search(r"(pgm|adaprox|nmf_grad)_([kv]wide|post|panel)_kernel"
                       r"(?:<|ILi)?(\d+)?", n)
         if m:
             kb = int(m.group(3)) if m.group(2) == "kwide" else None
@@ -1166,16 +1215,19 @@ def _residual_kernels(names):
     return out
 
 
-@pytest.mark.parametrize("C,K,N,body", [(64, 160, 300, "kwide"),
-                                        (64, 256, 300, "kwide"),
-                                        (33, 257, 129, "vwide")])
+@pytest.mark.parametrize("C,K,N,body,k2_body", [
+    (64, 160, 300, "kwide", "kwide"), (64, 256, 300, "kwide", "kwide"),
+    (33, 257, 129, "panel", "vwide"), (33, 300, 129, "panel", "vwide"),
+    (17, 512, 65, "panel", "vwide"), (17, 513, 65, "vwide", "vwide")])
 def test_residual_passes_past_k128_take_their_body(dev, tmp_path, C, K, N,
-                                                   body):
+                                                   body, k2_body):
     """Past K = 128 the passes with a residual (K1's and K2's compiled
     chains, K2's device-scalar entry, both split passes 1, K3) launch
-    kwide_pass.cuh's instance of 256 components up to K = 256 and
-    vwide_pass.cuh's body past it, and the second passes post_pass.cuh's:
-    the route counts, and the kernels of a profiler trace of each call."""
+    kwide_pass.cuh's instance of 256 components up to K = 256; past it K1's
+    and K3's launch panel_pass.cuh's column pass up to K = 512 and K2's
+    vwide_pass.cuh's body, as every kernel's past 512; the second passes
+    launch post_pass.cuh's: the route counts, and the kernels of a profiler
+    trace of each call."""
     A, S, Y, W = _problem(dev, C, K, N, weighted=True)
     sS = 1.0 / torch.linalg.eigvalsh(A.T @ A)[-1]
     _, _, M, V, _, alpha, sc, _ = _adaprox_operands(dev, C, K, N, True)
@@ -1183,7 +1235,6 @@ def test_residual_passes_past_k128_take_their_body(dev, tmp_path, C, K, N,
                        device=dev)
     l1 = k1.describe_prox(_PROX_CASES["soft_plus_abs"], "adaprox", True)
     clo = _PROX_CASES["split_closure"]
-    kb = 256 if body == "kwide" else None
     pgm, ada, grad = (k1.fused_nmf_pgm_step, k1.fused_nmf_adaprox_step,
                       k1.fused_nmf_grad)
     one = {"very wide": 1}
@@ -1209,8 +1260,10 @@ def test_residual_passes_past_k128_take_their_body(dev, tmp_path, C, K, N,
         names = _kernels_in(fn, tmp_path / "t.json")
         ran = {r: n - before[r] for r, n in counter.route_launches.items()
                if n != before[r]}
+        on = k2_body if counter is ada else body
         want = [(f"{k.replace(' ', '_')}_kernel", None) if " " in k
-                else (f"{k}_{body}_kernel", kb) for k in kernels]
+                else (f"{k}_{on}_kernel", 256 if on == "kwide" else None)
+                for k in kernels]
         assert ran == routes, (kernels, ran)
         assert _residual_kernels(names) == want, names
 

@@ -123,15 +123,16 @@ EDGE_K2 = ("soft_plus", "min_abs", "split_closure")
 # 20, 32), past K = 32 the instances of 64, 128 and 256 components (K =
 # 33, 64, 65, 96, 128: ragged blocks past 64, with 300 channels and with
 # 33; K = 129, 160, 192, 256 on the instance of 256, its sub-tiles of 64
-# columns ragged at N = 65 and 129), past K = 256 the body of blocks of 32
-# (K = 257), ragged N, and AVIRIS-NG's 425 channels; each with EDGE_NAMES'
-# and EDGE_K2's cases.
+# columns ragged at N = 65 and 129), past K = 256 K1's and K3's panel body
+# up to K = 512 (K = 257, 512; K2 the body of blocks of 32) and the body of
+# blocks of 32 past it (K = 513), ragged N, and AVIRIS-NG's 425 channels;
+# each with EDGE_NAMES' and EDGE_K2's cases.
 VWIDE_SHAPES = [(257, 3, 300), (300, 33, 257), (425, 32, 1000),
                 (64, 33, 4097), (17, 64, 255), (128, 64, 500),
                 (600, 8, 129), (300, 12, 257), (257, 20, 300),
                 (64, 96, 300), (300, 65, 257), (33, 128, 129),
                 (33, 129, 129), (64, 160, 300), (33, 192, 129),
-                (17, 256, 65), (33, 257, 129)]
+                (17, 256, 65), (33, 257, 129), (17, 512, 65), (9, 513, 33)]
 
 
 def _shape_id(shape):
@@ -539,6 +540,8 @@ class _RecordingLibrary:
             return lambda mode, C, K: 1
         if entry.endswith("_partials_rows"):
             return lambda N, tile_n: 1
+        if entry.endswith("_scratch_floats"):
+            return lambda *shape: 1
 
         def launch(mode, *args):
             self.calls.append((self.name, entry, mode))
@@ -590,4 +593,21 @@ def test_second_pass_routes_on_the_host(K, library, body, chip_smoke,
     for c, b in zip(counters, before):
         ran = {r: n - b[r] for r, n in c.route_launches.items() if n != b[r]}
         assert ran == {"split pass 2": 1}
-    assert chip_smoke.body_instance(kk, K, False) == body
+    assert chip_smoke.body_instance(kk, K, False, "K1") == body
+
+
+@pytest.mark.parametrize("K,k1_k3,k2", [
+    (256, "kwide_pass.cuh KB=256", "kwide_pass.cuh KB=256"),
+    (257, "panel_pass.cuh", "vwide_pass.cuh"),
+    (512, "panel_pass.cuh", "vwide_pass.cuh"),
+    (513, "vwide_pass.cuh", "vwide_pass.cuh")])
+def test_residual_passes_past_k256_name_their_body(K, k1_k3, k2, chip_smoke):
+    """Past K = KWIDE_K = 256 the passes with a residual of K1 and K3 run
+    csrc/panel_pass.cuh's body up to K = PANEL_K = 512 and K2's run
+    vwide_pass.cuh's, as every kernel's does past 512 (csrc/tiers.cuh, whose
+    bounds test_torch_ops.py::test_tier_bounds_match_the_kernels holds to
+    these): chip_smoke.py's kernels line names the body by kernel."""
+    assert (kk.KWIDE_K, kk.PANEL_K) == (256, 512)
+    for kernel, body in (("K1", k1_k3), ("K2", k2), ("K3", k1_k3)):
+        assert chip_smoke.body_instance(kk, K, True, kernel) == body
+    assert chip_smoke.body_instance(kk, K, False, "K2") == "post_pass.cuh"

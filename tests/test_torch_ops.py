@@ -141,7 +141,8 @@ def test_tier_bounds_match_the_kernels():
     (csrc/tiers.cuh), which pick the body each pass runs on."""
     text = (kb._SOURCES["nmf_grad"].parent / "tiers.cuh").read_text()
     bounds = dict(re.findall(r"constexpr int (k\w+K) = (\d+);", text))
-    assert bounds == {"kWideK": str(k1.WIDE_K), "kKwideK": str(k1.KWIDE_K)}
+    assert bounds == {"kWideK": str(k1.WIDE_K), "kKwideK": str(k1.KWIDE_K),
+                      "kPanelK": str(k1.PANEL_K)}
 
 
 def test_library_hash_covers_only_its_own_source(tmp_path, monkeypatch):

@@ -23,7 +23,10 @@ without and with W, the bfloat16 store with W) and both split passes
 (pass 2 in both stores), K2 with the relative L1 threshold (float32 and
 bfloat16 moments, the bfloat16 store, the device-scalar entry) and both
 split passes, K3; and the plain PyTorch versions of K1, K2, K3 and of the
-split passes (timed, not hashed). ``--shapes`` replaces the very-wide
+split passes and, as context for a library call, the four cuBLAS products
+A S, A^T D, D S^T and S S^T with TF32 off (timed, not hashed); the object
+also carries the bound of K1's chain, its split pass 1 and K3
+(``chip_smoke.bound_of``). ``--shapes`` replaces the very-wide
 shapes by the ones given, e.g. ``--shapes 425,64,250000`` (C past 160, where
 the instance of 64 components keeps gA's last chunks in the group's row).
 With ``--pass2``, K1's and K2's second passes alone (float32 and the
@@ -184,15 +187,15 @@ def pass2_cases(cs, kk, shapes=None):
 
 def vwide_cases(cs, kk, nmf, top, tops, shapes=None):
     """The very-wide tier's modes at its four shapes (or at ``shapes``);
-    ``(cases, plain)``, the plain versions' calls apart (timed, not
-    hashed)."""
+    ``(cases, plain, bounds)``, the plain versions' and cuBLAS's calls apart
+    (timed, not hashed)."""
     import torch
 
     simplex = partial(top.prox_unity_plus, axis=0)
     l1 = partial(top.prox_soft_plus, thresh=cs.WIDE_L1, type="relative")
     tile = kk.DEFAULT_TILE_N
     bf = torch.bfloat16
-    cases, plain = {}, {}
+    cases, plain, bounds = {}, {}, {}
     for C, K, N in shapes or (cs.VWIDE, cs.VWIDE_K64) + VWIDE_SHAPES_EXTRA:
         tag = f" ({C}, {K})"
         Y, A, S, W = cs.make_unmixing(C, K, N)
@@ -251,7 +254,24 @@ def vwide_cases(cs, kk, nmf, top, tops, shapes=None):
             f"K3 plain{tag}": partial(tops.fused_nmf_grad_reference, A, S,
                                       Y),
         })
-    return cases, plain
+        D = A @ S - Y
+        plain.update({
+            f"A @ S cuBLAS{tag}": partial(torch.mm, A, S),
+            f"A.T @ D cuBLAS{tag}": partial(torch.mm, A.T, D),
+            f"D @ S.T cuBLAS{tag}": partial(torch.mm, D, S.T),
+            f"S @ S.T cuBLAS{tag}": partial(torch.mm, S, S.T),
+        })
+        # each input read once, each output written once
+        io = cs.tensor_bytes(A, S, Y) + 4 * C * K
+        bounds.update({
+            f"K1 vwide{tag}": cs.bound_of(io + 4 * (K * N + K * K + 3),
+                                          cs.wide_ops(C, K, N)),
+            f"K1 pass 1{tag}": cs.bound_of(io + 4 * (K * N + 1),
+                                           cs.wide_ops(C, K, N, gram=False)),
+            f"K3 vwide{tag}": cs.bound_of(io + 4 * (K * N + K * K + 1),
+                                          cs.wide_ops(C, K, N)),
+        })
+    return cases, plain, bounds
 
 
 def main():
@@ -294,9 +314,16 @@ def main():
         finally:
             torch.backends.cuda.matmul.allow_tf32 = tf32
     elif args.vwide:
-        cases, plain = vwide_cases(cs, kk, nmf, operators, tops, shapes)
-        out["ms"] = {case: min(cs.cuda_ms(fn, reps=10) for _ in range(2))
-                     for case, fn in {**cases, **plain}.items()}
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            cases, plain, out["bound_ms"] = vwide_cases(
+                cs, kk, nmf, operators, tops, shapes)
+            out["ms"] = {case: min(cs.cuda_ms(fn, reps=10)
+                                   for _ in range(2))
+                         for case, fn in {**cases, **plain}.items()}
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
     elif args.wide:
         cases = wide_cases(cs, kk, nmf, operators)
         out["ms"] = {case: min(cs.cuda_ms(fn, reps=10) for _ in range(2))
